@@ -1,0 +1,133 @@
+"""Rules of the PyTorch port: it imports nothing of JAX or of the JAX
+package, keeps identical presets, runs on the card unless asked otherwise,
+and its kernel wrappers launch nothing for CPU tensors."""
+
+import ast
+import dataclasses
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import bpx.config as jconfig
+import bpx_torch
+import bpx_torch.config as tconfig
+from bpx_torch.ops.flash_attention import flash_attention
+from bpx_torch.ops.norm import layer_norm
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "bpx")
+
+
+def _port_files():
+    return sorted((ROOT / "bpx_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_bpx_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_module_imports_without_jax():
+    modules = [m.name for m in pkgutil.walk_packages(bpx_torch.__path__,
+                                                     "bpx_torch.")]
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'bpx'):\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(modules) >= 15
+
+
+@pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
+def test_presets_match_the_jax_package(name):
+    want = dataclasses.asdict(jconfig.get_preset(name))
+    got = dataclasses.asdict(tconfig.get_preset(name))
+    assert got == want
+    # a config.json snapshot of either package loads in the other
+    snap = json.loads(json.dumps(want))
+    assert tconfig.config_from_dict(snap) == tconfig.get_preset(name)
+    assert jconfig.config_from_dict(json.loads(json.dumps(got))) == \
+        jconfig.get_preset(name)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from bpx_torch.models import get_model
+    from bpx_torch.serve import Predictor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    exp = tconfig.get_preset("synthetic-tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(exp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(exp.model)
+    assert Predictor(exp, device="cpu").device.type == "cpu"
+
+
+def test_unported_models_and_options_raise():
+    from bpx_torch.models import get_model
+    m = tconfig.get_preset("synthetic-tiny").model
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_model(m.replace(model="mmtrvat"), device="cpu")
+    with pytest.raises(NotImplementedError, match="group_encoders"):
+        get_model(m.replace(group_encoders=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        get_model(m.replace(hybrid=True), device="cpu")
+
+
+def test_cpu_tensors_launch_no_kernel():
+    flash_attention.launches = 0
+    layer_norm.launches = 0
+    q = torch.randn(2, 2, 8, 64)
+    flash_attention(q, q, q, masked=True)
+    flash_attention(q, q, q, masked=False,
+                    kv_lens=torch.tensor([8, 3], dtype=torch.int32))
+    layer_norm(torch.randn(4, 16), torch.ones(16), torch.zeros(16), 1e-6)
+    # a whole served forward on the CPU
+    from bpx_torch.serve import Predictor
+    exp = tconfig.get_preset("synthetic-tiny")
+    m, d = exp.model, exp.data
+    batch = {
+        "txt": torch.randint(1, 100, (2, m.num_vectors_l)).numpy(),
+        "mask": torch.ones(2, m.num_vectors_l, dtype=torch.int32).numpy(),
+        "segment": torch.zeros(2, m.num_vectors_l,
+                               dtype=torch.int32).numpy(),
+        "video": torch.rand(2, d.video_len, m.orig_d_v).numpy(),
+        "audio": torch.rand(2, d.audio_raw_len, m.orig_d_a).numpy(),
+        "poster": torch.rand(2, m.orig_d_p).numpy(),
+    }
+    probs = Predictor(exp, batch_size=4, device="cpu")(batch)
+    assert probs.shape == (2, m.n_classes)
+    assert flash_attention.launches == 0
+    assert layer_norm.launches == 0
+
+
+def test_other_devices_raise():
+    q = torch.empty(1, 1, 4, 64, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        layer_norm(torch.empty(4, 8, device="meta"),
+                   torch.empty(8, device="meta"),
+                   torch.empty(8, device="meta"), 1e-6)
