@@ -1,16 +1,20 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out, fp32 lse.
 //
-// Replaces the single-pass branch of the TPU kernel
-// bpx/ops/pallas_attention.py::_fwd_kernel (launched from _fwd through
-// flash_attention) at dropout rate 0.  The function it computes, per
+// Replaces the TPU kernel bpx/ops/pallas_attention.py::_fwd_kernel (launched
+// from _fwd through flash_attention), its single-pass and its online branch,
+// with the in-kernel dropout of _keep_mask.  The function it computes, per
 // (batch*head, query row):
 //   s     = q . k^T in fp32 (q arrives pre-scaled by head_dim**-0.5)
 //   s     = -1e30 where col >= kv_len[b] or (masked and col > row + offset)
-//   m     = max_col s,  p = exp(s - m),  l = sum_col p  (fp32, unnormalised)
+//   m     = max_col s,  p = exp(s - m),  l = sum_col p  (fp32, unnormalised,
+//           over the undropped probabilities)
+//   p     = keep(bh, row, col) ? p * float32(1 / (1 - rate)) : 0   (dropout)
 //   o     = (bf16(p) . v) / l     (l == 0 -> 1)
-//   lse   = m + log(l)
+//   lse   = m + log(l)            (dropout leaves it unchanged)
 // The -1e30 fill (not -inf) is part of the contract: a row whose every key is
-// masked attends uniformly over all Tk keys, as the TPU kernel does.
+// masked attends uniformly over all Tk keys, as the single-pass branch does.
+// The keep bit is the TPU kernels' hash of the global (bh, row, col) index
+// (flash_common.cuh), so the backward regenerates the same mask.
 //
 // Design.  The TPU kernel holds a whole-Tk fp32 score tile (up to 512 x 1024)
 // in VMEM; an SM cannot.  Here one block of 4 warps owns 64 query rows (16 per
@@ -36,16 +40,15 @@
 // contiguous, every stride a multiple of 8 elements, pointers 16-byte
 // aligned), so the q/k/v views of a fused projection need no copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace bpx_flash;
 
 constexpr int kWarps = 4;
 constexpr int kBlockQ = 16 * kWarps;   // query rows per block
 constexpr int kBlockK = 64;            // keys per tile
-constexpr float kMaskFill = -1e30f;    // the TPU kernel's NEG_INF
 
 struct FlashParams {
   const __nv_bfloat16* q;
@@ -61,50 +64,8 @@ struct FlashParams {
   long long o_sb, o_sh, o_st;
   int masked;
   int offset;
+  Dropout drop;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Copy rows [t0, t0 + rows) of one (batch, head) slice into shared memory
-// with 16-byte vector loads; rows past T are zero-filled.
-template <int D, int LDS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride_t, int t0, int T,
-                                          int rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t0 + r < T) {
-      val = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride_t + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -242,25 +203,22 @@ flash_fwd_kernel(const FlashParams p) {
       l1 += s[j][2] + s[j][3];
     }
 
-    // O += bf16(P) V: the S accumulator layout of two adjacent n-tiles is the
-    // A fragment of one 16-key k-step
+    // dropout after the row sums, so l keeps the undropped probabilities
+    if (p.drop.on) {
 #pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const int vrow = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int vcol = (lane >> 4) * 8;
+      for (int j = 0; j < kKTiles; ++j) {
 #pragma unroll
-      for (int n = 0; n < kDTiles; n += 2) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, v_s + vrow * LDS + n * 8 + vcol);
-        mma_16816(acc[n], pa, vb4[0], vb4[1]);
-        mma_16816(acc[n + 1], pa, vb4[2], vb4[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int row = (e < 2) ? row0 : row1;
+          s[j][e] = p.drop.keep(bh, row, col) ? s[j][e] * p.drop.inv_keep
+                                              : 0.f;
+        }
       }
     }
+
+    // O += bf16(P) V, P straight from the score registers
+    mma_p_tile<kDTiles, LDS>(acc, s, v_s, lane);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -296,14 +254,17 @@ flash_fwd_kernel(const FlashParams p) {
 extern "C" {
 
 // Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
-// without an instantiation.
+// without an instantiation.  dropout != 0 applies the keep mask of
+// (seed, threshold, tk_p) and scales kept probabilities by inv_keep.
 int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, const void* kv_lens, int B, int H, int Tq, int Tk,
                   int D, long long q_sb, long long q_sh, long long q_st,
                   long long k_sb, long long k_sh, long long k_st,
                   long long v_sb, long long v_sh, long long v_st,
                   long long o_sb, long long o_sh, long long o_st, int masked,
-                  int offset, void* stream) {
+                  int offset, int dropout, unsigned int seed,
+                  unsigned int threshold, float inv_keep, int tk_p,
+                  void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -321,6 +282,11 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
   p.masked = masked;
   p.offset = offset;
+  p.drop.on = dropout;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.inv_keep = inv_keep;
+  p.drop.tk_p = static_cast<uint32_t>(tk_p);
   const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
   const dim3 block(32 * kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -29,7 +29,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def get_model(config: ModelConfig, device=None, seed: int = 0):
     """The configured model in eval mode on ``device`` (default "cuda"),
     with random weights drawn from ``seed`` (flax initializers'
-    distributions)."""
+    distributions).  A trainer calls ``.train()`` on it."""
     if config.model not in MODELS:
         raise NotImplementedError(
             f"model {config.model!r} is not ported yet; ported: "

@@ -14,6 +14,13 @@ Dataflow per target modality X:
   6. a 4-input GMU over the three summaries and the poster embedding, then
      a residual MLP head.
 Layout is batch-first ``(B, T, E)`` throughout.
+
+Training mode (``model.train()``, the JAX package's ``deterministic=False``)
+turns on the configured dropouts: BERT's, ``embed_dropout`` on the text
+stream and inside every encoder, the per-encoder attention dropout rates,
+the encoders' ReLU and residual dropout, and ``out_dropout`` in the head.
+The forward then takes ``dropout_seed``, a uint32 from which every dropout
+site draws its own seed in call order (:class:`SeedStream`).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from torch import nn
 from bpx_torch.config import ModelConfig
 from bpx_torch.ops.audio import make_audio_encoder
 from bpx_torch.ops.bert import BertEncoder
+from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.encoder import TransformerEncoder
 from bpx_torch.ops.gmu import GatedBimodalFusionLayer, GatedNModalLayer
 from bpx_torch.ops.init import lecun_normal_, linear
@@ -108,17 +116,24 @@ class BPMulTVAPT(nn.Module):
             self.proj_a = proj(cfg.orig_d_a)
         self.proj_poster = proj(cfg.orig_d_p)
 
-        def enc(biprojection):
-            return TransformerEncoder(E, cfg.num_heads, cfg.layers,
-                                      cfg.attn_mask, biprojection, dt, gen,
-                                      device)
-        for name in ("trans_l_with_a", "trans_l_with_v", "trans_v_with_l",
-                     "trans_v_with_a", "trans_a_with_l", "trans_a_with_v"):
-            setattr(self, name, enc(False))
-        for name in ("trans_l_with_v2a", "trans_l_with_a2v",
-                     "trans_v_with_l2a", "trans_v_with_a2l",
-                     "trans_a_with_v2l", "trans_a_with_l2v"):
-            setattr(self, name, enc(True))
+        def enc(biprojection, attn_dropout):
+            return TransformerEncoder(
+                E, cfg.num_heads, cfg.layers, cfg.attn_mask, biprojection,
+                dt, gen, device, attn_dropout, cfg.relu_dropout,
+                cfg.res_dropout, cfg.embed_dropout)
+        # per-encoder attention dropout: encoders whose query stream is
+        # l / a / v take attn_dropout(_a / _v) of the key stream's modality
+        rate = {"l": cfg.attn_dropout, "a": cfg.attn_dropout_a,
+                "v": cfg.attn_dropout_v}
+        for name, key in (("trans_l_with_a", "a"), ("trans_l_with_v", "v"),
+                          ("trans_v_with_l", "l"), ("trans_v_with_a", "a"),
+                          ("trans_a_with_l", "l"), ("trans_a_with_v", "v")):
+            setattr(self, name, enc(False, rate[key]))
+        for name, key in (
+                ("trans_l_with_v2a", "a"), ("trans_l_with_a2v", "v"),
+                ("trans_v_with_l2a", "a"), ("trans_v_with_a2l", "l"),
+                ("trans_a_with_v2l", "l"), ("trans_a_with_l2v", "v")):
+            setattr(self, name, enc(True, rate[key]))
 
         for name in ("gmu_l_m", "gmu_v_m", "gmu_a_m", "gmu_l", "gmu_v",
                      "gmu_a"):
@@ -140,9 +155,10 @@ class BPMulTVAPT(nn.Module):
         b = None if layer.bias is None else layer.bias.to(dt)
         return nn.functional.linear(x.to(dt), layer.weight.to(dt), b)
 
-    def _encode_streams(self, txt, mask, segment, video, audio):
+    def _encode_streams(self, txt, mask, segment, video, audio, seeds):
         cfg, dt = self.config, self.dtype
-        x_l = self.bert(txt, mask, segment).to(dt)
+        x_l = maybe_dropout(self.bert(txt, mask, segment, seeds).to(dt),
+                            cfg.embed_dropout, self.training, seeds)
         x_v = video.to(dt)
         x_a = (self.audio_enc(audio.to(dt)) if cfg.use_audio_encoder
                else audio.to(dt))
@@ -167,30 +183,38 @@ class BPMulTVAPT(nn.Module):
         h_top = h_top + h_gmu
         return h_top[:, 0] + h_top[:, -1]
 
-    def _head(self, last_hs: torch.Tensor) -> torch.Tensor:
+    def _head(self, last_hs: torch.Tensor, seeds) -> torch.Tensor:
         h = torch.relu(self._lin(self.proj1, last_hs))
+        h = maybe_dropout(h, self.config.out_dropout, self.training, seeds)
         h = self._lin(self.proj2, h)
         return self._lin(self.out_layer, h + last_hs)
 
     def forward(self, txt, mask, segment, video, audio, poster,
-                output_gates: bool = False):
+                output_gates: bool = False,
+                dropout_seed: Optional[int] = None):
+        """Logits (and the final GMU's gates); ``dropout_seed`` (uint32) is
+        needed in training mode."""
+        seeds = None if dropout_seed is None else SeedStream(dropout_seed)
         proj_l, proj_v, proj_a = self._encode_streams(txt, mask, segment,
-                                                      video, audio)
+                                                      video, audio, seeds)
         poster_h = self._lin(self.proj_poster, poster)
 
-        h_v_with_as = self.trans_v_with_a(proj_v, proj_a, proj_a)
-        h_a_with_vs = self.trans_a_with_v(proj_a, proj_v, proj_v)
-        h_v_with_ls = self.trans_v_with_l(proj_v, proj_l, proj_l)
-        h_l_with_vs = self.trans_l_with_v(proj_l, proj_v, proj_v)
-        h_a_with_ls = self.trans_a_with_l(proj_a, proj_l, proj_l)
-        h_l_with_as = self.trans_l_with_a(proj_l, proj_a, proj_a)
+        def cross(name, x, kv):
+            return getattr(self, name)(x, kv, kv, seeds)
 
-        h_l_v2a = self.trans_l_with_v2a(proj_l, h_a_with_vs, h_a_with_vs)
-        h_l_a2v = self.trans_l_with_a2v(proj_l, h_v_with_as, h_v_with_as)
-        h_a_v2l = self.trans_a_with_v2l(proj_a, h_l_with_vs, h_l_with_vs)
-        h_a_l2v = self.trans_a_with_l2v(proj_a, h_v_with_ls, h_v_with_ls)
-        h_v_a2l = self.trans_v_with_a2l(proj_v, h_l_with_as, h_l_with_as)
-        h_v_l2a = self.trans_v_with_l2a(proj_v, h_a_with_ls, h_a_with_ls)
+        h_v_with_as = cross("trans_v_with_a", proj_v, proj_a)
+        h_a_with_vs = cross("trans_a_with_v", proj_a, proj_v)
+        h_v_with_ls = cross("trans_v_with_l", proj_v, proj_l)
+        h_l_with_vs = cross("trans_l_with_v", proj_l, proj_v)
+        h_a_with_ls = cross("trans_a_with_l", proj_a, proj_l)
+        h_l_with_as = cross("trans_l_with_a", proj_l, proj_a)
+
+        h_l_v2a = cross("trans_l_with_v2a", proj_l, h_a_with_vs)
+        h_l_a2v = cross("trans_l_with_a2v", proj_l, h_v_with_as)
+        h_a_v2l = cross("trans_a_with_v2l", proj_a, h_l_with_vs)
+        h_a_l2v = cross("trans_a_with_l2v", proj_a, h_v_with_ls)
+        h_v_a2l = cross("trans_v_with_a2l", proj_v, h_l_with_as)
+        h_v_l2a = cross("trans_v_with_l2a", proj_v, h_a_with_ls)
 
         # target L: both first-round streams length-adapted to num_vectors_l
         last_h_l = self._fuse_target(
@@ -207,7 +231,7 @@ class BPMulTVAPT(nn.Module):
             self.gmu_v_m, self.gmu_v)
 
         last_hs, z = self.gmu([last_h_l, last_h_v, last_h_a, poster_h])
-        logits = self._head(last_hs)
+        logits = self._head(last_hs, seeds)
         if output_gates:
             return logits, z
         return logits

@@ -91,11 +91,20 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12
-                                  + [i, i, p])
+    u = ctypes.c_uint
+    dropout = [i, u, u, f, i]   # on, seed, threshold, inv_keep, tk_p
+    lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12 + [i, i]
+                                  + dropout + [p])
     lib.bpx_flash_fwd.restype = i
+    lib.bpx_flash_bwd.argtypes = ([p] * 10 + [i] * 5 + [ll] * 21 + [i, i]
+                                  + dropout + [p])
+    lib.bpx_flash_bwd.restype = i
     lib.bpx_layer_norm_fwd.argtypes = [p] * 6 + [i, i, f, i, i, i, p]
     lib.bpx_layer_norm_fwd.restype = i
+    lib.bpx_layer_norm_bwd.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.bpx_layer_norm_bwd.restype = i
+    lib.bpx_layer_norm_bwd_workspace.argtypes = [i, i]
+    lib.bpx_layer_norm_bwd_workspace.restype = ll
     lib.bpx_error_string.argtypes = [i]
     lib.bpx_error_string.restype = ctypes.c_char_p
 

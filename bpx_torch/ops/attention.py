@@ -6,7 +6,9 @@ k = v) their weights are concatenated and applied as one GEMM.  The
 projections come out as (B, T, S, H, D) and the (B, H, T, D) views the
 flash kernel takes are strided views of that buffer: no transpose is
 copied.  q is scaled by ``head_dim**-0.5`` in the compute dtype before the
-kernel.
+kernel.  In training mode (``module.training``, the JAX package's
+``deterministic=False``) a per-module ``attn_dropout`` rate goes to the
+kernel with one seed per call from the forward's :class:`SeedStream`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from bpx_torch.ops.dropout import SeedStream
 from bpx_torch.ops.flash_attention import flash_attention
 from bpx_torch.ops.init import linear
 
@@ -33,6 +36,18 @@ def fused_projection(x: torch.Tensor, layers: Sequence[nn.Linear],
     return tuple(y[:, :, i].transpose(1, 2) for i in range(len(layers)))
 
 
+def attention_dropout(rate: float, training: bool,
+                      seeds: Optional[SeedStream]):
+    """(dropout_rate, dropout_seed) for one flash call: the rate only in
+    training mode, with the next seed of the forward's stream."""
+    if rate <= 0.0 or not training:
+        return 0.0, None
+    if seeds is None:
+        raise ValueError("attention dropout in training mode needs a "
+                         "SeedStream")
+    return rate, seeds.next()
+
+
 def merge_heads(ctx: torch.Tensor) -> torch.Tensor:
     """(B, H, T, D) -> (B, T, H*D); free on the flash kernel's output."""
     B, H, T, D = ctx.shape
@@ -45,10 +60,12 @@ class MultiheadAttention(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None, device=None):
+                 gen: Optional[torch.Generator] = None, device=None,
+                 attn_dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
+        self.attn_dropout = attn_dropout
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -63,7 +80,8 @@ class MultiheadAttention(nn.Module):
     def forward(self, query: torch.Tensor,
                 key: Optional[torch.Tensor] = None,
                 value: Optional[torch.Tensor] = None,
-                masked: bool = False) -> torch.Tensor:
+                masked: bool = False,
+                seeds: Optional[SeedStream] = None) -> torch.Tensor:
         key = query if key is None else key
         value = key if value is None else value
         H, dt = self.num_heads, self.dtype
@@ -78,7 +96,9 @@ class MultiheadAttention(nn.Module):
             (k,) = fused_projection(key, (self.k_proj,), H, dt)
             (v,) = fused_projection(value, (self.v_proj,), H, dt)
         q = q * torch.tensor(self.scaling, dtype=dt)
-        ctx = flash_attention(q, k, v, masked=masked)
+        ctx = flash_attention(q, k, v, masked, None,
+                              *attention_dropout(self.attn_dropout,
+                                                 self.training, seeds))
         return nn.functional.linear(merge_heads(ctx),
                                     self.out_proj.weight.to(dt),
                                     self.out_proj.bias.to(dt))

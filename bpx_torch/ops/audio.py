@@ -40,8 +40,11 @@ def adaptive_avg_pool_matrix_np(t_in: int, t_out: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def adaptive_avg_pool_matrix(t_in: int, t_out: int, dtype: torch.dtype,
                              device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(adaptive_avg_pool_matrix_np(t_in, t_out),
-                           dtype=dtype, device=device)
+    # a normal tensor even when first built under inference_mode (serving),
+    # so that a later training forward may save it for the backward
+    with torch.inference_mode(False):
+        return torch.as_tensor(adaptive_avg_pool_matrix_np(t_in, t_out),
+                               dtype=dtype, device=device)
 
 
 def adaptive_avg_pool1d(x: torch.Tensor, t_out: int) -> torch.Tensor:

@@ -4,7 +4,9 @@ Embeddings (word + learned position + token type) and LayerNorm, then
 post-LN layers: fused-QKV self-attention through the flash kernel with
 per-sample key lengths ``kv_lens = mask.sum(-1)`` (padding is a contiguous
 suffix), add & LN, GELU FFN ("erf" or "tanh" per the config), add & LN.
-Returns the last layer's hidden states.
+Returns the last layer's hidden states.  In training mode: attention dropout
+inside the flash kernel, and hidden dropout after the embedding LN and on
+the attention and FFN outputs before their residual LNs.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import torch
 from torch import nn
 
 from bpx_torch.config import BertConfig
-from bpx_torch.ops.attention import fused_projection, merge_heads
+from bpx_torch.ops.attention import (attention_dropout, fused_projection,
+                                     merge_heads)
+from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.flash_attention import flash_attention
 from bpx_torch.ops.init import embed_normal_, linear
 from bpx_torch.ops.norm import LayerNorm
@@ -57,23 +61,27 @@ class BertLayer(nn.Module):
                              device)
         self.output_norm = LayerNorm(E, cfg.layer_norm_eps, dtype, device)
 
-    def forward(self, hidden: torch.Tensor,
-                kv_lens: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, kv_lens: torch.Tensor,
+                seeds: Optional[SeedStream] = None) -> torch.Tensor:
         cfg, dt = self.cfg, self.dtype
         head_dim = cfg.hidden_size // cfg.num_heads
         a = self.attention
         q, k, v = fused_projection(hidden, (a.query, a.key, a.value),
                                    cfg.num_heads, dt)
         q = q * torch.tensor(head_dim ** -0.5, dtype=dt)
-        ctx = merge_heads(flash_attention(q, k, v, masked=False,
-                                          kv_lens=kv_lens))
+        ctx = merge_heads(flash_attention(
+            q, k, v, False, kv_lens,
+            *attention_dropout(cfg.attention_dropout, self.training, seeds)))
         lin = lambda mod, x: nn.functional.linear(x, mod.weight.to(dt),
                                                   mod.bias.to(dt))
-        hidden = self.attention_norm(hidden + lin(self.attention_output, ctx))
+        drop = lambda x: maybe_dropout(x, cfg.hidden_dropout, self.training,
+                                       seeds)
+        hidden = self.attention_norm(
+            hidden + drop(lin(self.attention_output, ctx)))
         inter = nn.functional.gelu(
             lin(self.intermediate, hidden),
             approximate="tanh" if cfg.gelu == "tanh" else "none")
-        return self.output_norm(hidden + lin(self.output, inter))
+        return self.output_norm(hidden + drop(lin(self.output, inter)))
 
 
 class BertEncoder(nn.Module):
@@ -94,8 +102,8 @@ class BertEncoder(nn.Module):
                                      for _ in range(cfg.num_layers)])
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                seeds: Optional[SeedStream] = None) -> torch.Tensor:
         dt = self.dtype
         input_ids = input_ids.long()
         T = input_ids.shape[1]
@@ -107,8 +115,9 @@ class BertEncoder(nn.Module):
                 token_type_ids = torch.zeros_like(input_ids)
             hidden = hidden + self.token_type_embeddings(
                 token_type_ids.long(), dt)
-        hidden = self.embeddings_norm(hidden)
+        hidden = maybe_dropout(self.embeddings_norm(hidden),
+                               self.cfg.hidden_dropout, self.training, seeds)
         kv_lens = attention_mask.sum(-1).to(torch.int32)
         for layer in self.layers:
-            hidden = layer(hidden, kv_lens)
+            hidden = layer(hidden, kv_lens, seeds)
         return hidden

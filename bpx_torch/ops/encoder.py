@@ -10,8 +10,12 @@
   uses LayerNorm 2.
 
 The stack scales inputs by ``sqrt(embed_dim)``, adds channel-0-keyed
-sinusoidal positions, runs the layers (K/V embedded once and reused by every
-layer) and ends with a final LayerNorm.  The serving forward has no dropout.
+sinusoidal positions, applies embedding dropout, runs the layers (K/V
+embedded once and reused by every layer) and ends with a final LayerNorm.
+In training mode the layers apply attention dropout (in the flash kernel),
+residual dropout after each attention and after fc2, and ReLU dropout; with
+embedding dropout, V is embedded separately from K with its own draw, so it
+no longer aliases K (one more LayerNorm per layer, three projections).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from bpx_torch.ops.attention import MultiheadAttention
+from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.init import linear
 from bpx_torch.ops.norm import LayerNorm
 from bpx_torch.ops.positions import positional_embedding
@@ -32,12 +37,16 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int = 4,
                  attn_mask: bool = False, biprojection: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None, device=None):
+                 gen: Optional[torch.Generator] = None, device=None,
+                 attn_dropout: float = 0.0, relu_dropout: float = 0.0,
+                 res_dropout: float = 0.0):
         super().__init__()
         self.attn_mask = attn_mask
         self.biprojection = biprojection
+        self.relu_dropout = relu_dropout
+        self.res_dropout = res_dropout
         self.attn = MultiheadAttention(embed_dim, num_heads, dtype, gen,
-                                       device)
+                                       device, attn_dropout)
         self.ln0 = LayerNorm(embed_dim, dtype=dtype, device=device)
         self.ln1 = LayerNorm(embed_dim, dtype=dtype, device=device)
         if biprojection:
@@ -47,64 +56,78 @@ class TransformerEncoderLayer(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, x_k: Optional[torch.Tensor] = None,
-                x_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x_v: Optional[torch.Tensor] = None,
+                seeds: Optional[SeedStream] = None) -> torch.Tensor:
         """``x_v=None`` with ``x_k`` given means "V aliases K", so the
         attention fuses the k/v GEMMs."""
+        drop = lambda h, rate: maybe_dropout(h, rate, self.training, seeds)
+        attn = lambda q, k=None, v=None: self.attn(q, k, v, self.attn_mask,
+                                                   seeds)
         residual = x
         if x_k is None:
-            h = self.attn(self.ln0(x), masked=self.attn_mask)
+            h = attn(self.ln0(x))
         elif self.biprojection:
-            h = self.attn(self.ln0(x), masked=self.attn_mask)
+            h = drop(attn(self.ln0(x)), self.res_dropout)
             x = residual + h
             residual = x
             k = self.ln1(x_k)
             v = k if x_v is None else self.ln1(x_v)
-            h = self.attn(x, k, v, masked=self.attn_mask)
+            h = attn(x, k, v)
         else:
             q = self.ln0(x)
             k = self.ln0(x_k)
             v = k if x_v is None else self.ln0(x_v)
-            h = self.attn(q, k, v, masked=self.attn_mask)
-        x = residual + h
+            h = attn(q, k, v)
+        x = residual + drop(h, self.res_dropout)
 
         ffn_ln = self.ln2 if self.biprojection else self.ln1
         residual = x
         dt = self.dtype
         h = nn.functional.linear(ffn_ln(x), self.fc1.weight.to(dt),
                                  self.fc1.bias.to(dt))
-        h = nn.functional.linear(torch.relu(h), self.fc2.weight.to(dt),
+        h = drop(torch.relu(h), self.relu_dropout)
+        h = nn.functional.linear(h, self.fc2.weight.to(dt),
                                  self.fc2.bias.to(dt))
-        return residual + h
+        return residual + drop(h, self.res_dropout)
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, layers: int,
                  attn_mask: bool = False, biprojection: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None, device=None):
+                 gen: Optional[torch.Generator] = None, device=None,
+                 attn_dropout: float = 0.0, relu_dropout: float = 0.0,
+                 res_dropout: float = 0.0, embed_dropout: float = 0.0):
         super().__init__()
         self.embed_scale = math.sqrt(embed_dim)
+        self.embed_dropout = embed_dropout
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(embed_dim, num_heads, attn_mask,
-                                    biprojection, dtype, gen, device)
+                                    biprojection, dtype, gen, device,
+                                    attn_dropout, relu_dropout, res_dropout)
             for _ in range(layers)])
         self.final_norm = LayerNorm(embed_dim, dtype=dtype, device=device)
 
-    def _embed(self, x_in: torch.Tensor) -> torch.Tensor:
+    def _embed(self, x_in: torch.Tensor,
+               seeds: Optional[SeedStream]) -> torch.Tensor:
         # the scale is cast to the stream's dtype first, as JAX does with a
         # weakly-typed Python scalar
         x = x_in * torch.tensor(self.embed_scale, dtype=x_in.dtype)
-        return x + positional_embedding(x_in, dtype=x.dtype)
+        x = x + positional_embedding(x_in, dtype=x.dtype)
+        return maybe_dropout(x, self.embed_dropout, self.training, seeds)
 
     def forward(self, x_in: torch.Tensor,
                 x_in_k: Optional[torch.Tensor] = None,
-                x_in_v: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self._embed(x_in)
+                x_in_v: Optional[torch.Tensor] = None,
+                seeds: Optional[SeedStream] = None) -> torch.Tensor:
+        x = self._embed(x_in, seeds)
         x_k = x_v = None
         if x_in_k is not None and x_in_v is not None:
-            x_k = self._embed(x_in_k)
-            if x_in_v is not x_in_k:
-                x_v = self._embed(x_in_v)
+            x_k = self._embed(x_in_k, seeds)
+            # V aliases K unless embedding dropout draws it separately
+            same = not self.training or self.embed_dropout <= 0.0
+            if not (x_in_v is x_in_k and same):
+                x_v = self._embed(x_in_v, seeds)
         for layer in self.layers:
-            x = layer(x, x_k, x_v)
+            x = layer(x, x_k, x_v, seeds)
         return self.final_norm(x)

@@ -1,14 +1,22 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain version.
+"""Flash attention, forward and backward: the CUDA kernels
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` and their plain versions.
 
 The counterpart is ``bpx/ops/pallas_attention.py::flash_attention`` with
-``layout="bhtd"``: q is pre-scaled by ``head_dim**-0.5``; the offset band
-``col <= row + |Tk - Tq|`` (from the unpadded lengths, dropped when it is
-vacuous) and per-sample key lengths ``kv_lens`` mask scores with -1e30;
-the softmax statistics are fp32 and the unnormalised probabilities are cast
-to the input dtype before the product with V, divided by the row sum after.
-The kernel also returns the log-sum-exp, which the backward of the training
-slice needs.  Dropout comes with that slice.
+``layout="bhtd"`` and its ``custom_vjp``: q is pre-scaled by
+``head_dim**-0.5``; the offset band ``col <= row + |Tk - Tq|`` (from the
+unpadded lengths, dropped when it is vacuous) and per-sample key lengths
+``kv_lens`` mask scores with -1e30; the softmax statistics are fp32 and the
+unnormalised probabilities are cast to the input dtype before the product
+with V, divided by the row sum after.  Dropout on the probabilities uses the
+TPU kernels' counter hash ``_keep_mask`` of (seed, batch*head, row, col),
+so the backward regenerates the mask: the row sum keeps the undropped
+probabilities, kept ones are scaled by ``float32(1 / (1 - rate))``.
+
+The backward recomputes P from the saved log-sum-exp, with ``delta =
+rowsum(dO * O)`` in fp32 computed here before the kernels (the JAX
+package's default, ``_use_xla_delta``).  Masked entries get P = 0, so a row
+with no visible key gets zero gradients although its forward attended
+uniformly: that is the JAX package's backward, not the true derivative.
 """
 
 from __future__ import annotations
@@ -19,11 +27,15 @@ import torch
 
 from bpx_torch.ops import _cuda
 from bpx_torch.ops.dispatch import use_kernel
+from bpx_torch.ops.dropout import keep_threshold, mul32
 from bpx_torch.ops.masks import band_allowed
 
 MASK_FILL = -1e30
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 96)
+#: the TPU kernels' single-pass key range and key block (``tk_p`` below)
+SINGLE_PASS_MAX_K = 1024
+BLOCK_K = 128
 
 
 def effective_band(tq: int, tk: int, masked: bool):
@@ -33,27 +45,69 @@ def effective_band(tq: int, tk: int, masked: bool):
     return masked and offset < tk - 1, offset
 
 
+def padded_tk(tk: int) -> int:
+    """The key length the TPU kernels index their dropout hash with: Tk,
+    or Tk rounded up to 128 for a long Tk that is not a multiple of 128."""
+    if tk <= SINGLE_PASS_MAX_K or tk % BLOCK_K == 0:
+        return tk
+    return (tk + BLOCK_K - 1) // BLOCK_K * BLOCK_K
+
+
+def inv_keep(rate: float) -> float:
+    """float32(1 / (1 - rate)), as a Python float."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
+
+
+def keep_mask(seed: int, B: int, H: int, Tq: int, Tk: int, rate: float,
+              device=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) bool: the TPU kernels' ``_keep_mask`` at every (batch
+    * head, row, col), bit-identical, computed in int64 cut to 32 bits."""
+    m = 0xFFFFFFFF
+    bh = torch.arange(B * H, dtype=torch.int64, device=device)
+    row = torch.arange(Tq, dtype=torch.int64, device=device)
+    col = torch.arange(Tk, dtype=torch.int64, device=device)
+    idx = (mul32(bh, 0x85EBCA6B)[:, None, None]
+           + mul32(row, padded_tk(Tk))[None, :, None]
+           + col[None, None, :]) & m
+    x = (mul32(idx, 0x9E3779B9) + (seed & m)) & m
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    return (x >= keep_threshold(rate)).reshape(B, H, Tq, Tk)
+
+
+def _visible(B, Tq, Tk, masked, kv_lens, device):
+    """(B, 1, Tq, Tk) or (Tq, Tk) bool of the visible keys, or None."""
+    masked, _ = effective_band(Tq, Tk, masked)
+    ok = None
+    if kv_lens is not None:
+        col = torch.arange(Tk, device=device)
+        ok = (col[None, :] < kv_lens.to(device)[:, None])[:, None, None, :]
+    if masked:
+        band = band_allowed(Tq, Tk, device)
+        ok = band if ok is None else ok & band
+    return ok
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, masked: bool = True,
-                              kv_lens: Optional[torch.Tensor] = None):
-    """Plain version on (B, H, T, D) tensors: returns (out, lse), out in
+                              kv_lens: Optional[torch.Tensor] = None,
+                              dropout_rate: float = 0.0,
+                              dropout_seed: Optional[int] = None):
+    """Plain forward on (B, H, T, D) tensors: returns (out, lse), out in
     q's dtype and layout (B, H, Tq, D), lse fp32 (B, H, Tq)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    masked, _ = effective_band(Tq, Tk, masked)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    ok = None
-    if kv_lens is not None:
-        col = torch.arange(Tk, device=q.device)
-        ok = (col[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
-    if masked:
-        band = band_allowed(Tq, Tk, q.device)
-        ok = band if ok is None else ok & band
+    ok = _visible(B, Tq, Tk, masked, kv_lens, q.device)
     if ok is not None:
         s = s.masked_fill(~ok, MASK_FILL)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
+    if dropout_rate > 0.0:
+        keep = keep_mask(dropout_seed, B, H, Tq, Tk, dropout_rate, q.device)
+        p = torch.where(keep, p * inv_keep(dropout_rate), 0.0)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / l_safe).to(q.dtype)
@@ -61,21 +115,38 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    masked: bool = True,
-                    kv_lens: Optional[torch.Tensor] = None,
-                    dropout_rate: float = 0.0,
-                    return_lse: bool = False):
-    """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D); q pre-scaled.
-
-    The kernel for CUDA tensors, the plain version for CPU tensors.  The
-    kernel takes bf16 with head_dim 64 or 96 and any strides whose last dim
-    is contiguous; its output is a (B, H, Tq, D) view of (B, Tq, H, D)
-    memory, so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
-    """
+def flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                       masked: bool = True,
+                                       kv_lens: Optional[torch.Tensor] = None,
+                                       dropout_rate: float = 0.0,
+                                       dropout_seed: Optional[int] = None):
+    """Plain backward: (dq, dk, dv) in q's dtype from the saved lse (B, H,
+    Tq) and ``delta = rowsum(dO * O)`` (B, H, Tq), both fp32."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    qf, kf = q.float(), k.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp(s - lse[..., None])
+    ok = _visible(B, Tq, Tk, masked, kv_lens, q.device)
+    if ok is not None:
+        p = torch.where(ok, p, 0.0)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    pd = p
     if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice (ROADMAP.md)")
+        keep = keep_mask(dropout_seed, B, H, Tq, Tk, dropout_rate, q.device)
+        scale = inv_keep(dropout_rate)
+        pd = torch.where(keep, p * scale, 0.0)
+        dp = torch.where(keep, dp * scale, 0.0)
+    dv = torch.matmul(pd.to(dout.dtype).float().transpose(-1, -2),
+                      dout.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dq = torch.matmul(ds, kf)
+    dt = q.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check(q, k, v, kv_lens, dropout_rate, dropout_seed):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, T, D)")
     B, H, Tq, D = q.shape
@@ -85,36 +156,116 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if kv_lens is not None and kv_lens.shape != (B,):
         raise ValueError(f"kv_lens must be ({B},), got {tuple(kv_lens.shape)}")
-    if not use_kernel(q):
-        out, lse = flash_attention_reference(q, k, v, masked, kv_lens)
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate > 0.0 and (dropout_seed is None
+                               or not 0 <= dropout_seed <= 0xFFFFFFFF):
+        raise ValueError("dropout_rate > 0 needs a uint32 dropout_seed")
+
+
+def _forward(q, k, v, masked, kv_lens, rate, seed):
+    if use_kernel(q):
+        return _launch(q, k, v, masked, kv_lens, rate, seed)
+    return flash_attention_reference(q, k, v, masked, kv_lens, rate, seed)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, masked, rate, seed):
+        out, lse = _forward(q, k, v, masked, kv_lens, rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.config = (masked, rate, seed)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        masked, rate, seed = ctx.config
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
+                                              masked, kv_lens, rate, seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    masked: bool = True,
+                    kv_lens: Optional[torch.Tensor] = None,
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None,
+                    return_lse: bool = False):
+    """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D); q pre-scaled.
+
+    The kernels for CUDA tensors, the plain versions for CPU tensors, in
+    the forward and (through autograd) in the backward.  The kernels take
+    bf16 with head_dim 64 or 96 and any strides whose last dim is
+    contiguous; the output is a (B, H, Tq, D) view of (B, Tq, H, D) memory,
+    so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
+    ``dropout_rate > 0`` needs ``dropout_seed``, a uint32 Python int.
+    """
+    _check(q, k, v, kv_lens, dropout_rate, dropout_seed)
+    rate = float(dropout_rate)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, kv_lens, masked, rate,
+                                         dropout_seed)
     else:
-        out, lse = _launch(q, k, v, masked, kv_lens)
+        out, lse = _forward(q, k, v, masked, kv_lens, rate, dropout_seed)
     return (out, lse) if return_lse else out
 
 
-def _launch(q, k, v, masked, kv_lens):
+def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
+                             kv_lens=None, dropout_rate=0.0,
+                             dropout_seed=None):
+    """(dq, dk, dv) of :func:`flash_attention` for the output gradient
+    ``dout``; the kernels for CUDA tensors, the plain version for CPU."""
+    delta = (dout.float() * out.float()).sum(-1)
+    if not use_kernel(q):
+        return flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, masked, kv_lens, dropout_rate,
+            dropout_seed)
+    return _launch_bwd(q, k, v, dout, lse, delta, masked, kv_lens,
+                       dropout_rate, dropout_seed)
+
+
+def _kernel_ready(name, t, device):
+    """``t`` as the kernels take it: on ``device``, bf16, the last dim
+    contiguous, strides multiples of 8 elements, 16-byte aligned; a copy
+    only where the strides or the alignment are not."""
+    if t.device != device:
+        raise RuntimeError(f"{name} is on {t.device}, q on {device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"flash kernel takes bfloat16, {name} is {t.dtype}")
+    if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
+            or t.data_ptr() % 16):
+        t = t.contiguous()
+    return t
+
+
+def _kv_lens_ptr(kv_lens, device):
+    if kv_lens is None:
+        return None, None
+    if kv_lens.device != device or kv_lens.dtype != torch.int32:
+        raise TypeError("kv_lens must be int32 on q's device")
+    kv_lens = kv_lens.contiguous()
+    return kv_lens, kv_lens.data_ptr()
+
+
+def _dropout_args(rate, seed, tk):
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0, tk
+    return 1, seed, keep_threshold(rate), inv_keep(rate), padded_tk(tk)
+
+
+def _launch(q, k, v, masked, kv_lens, rate=0.0, seed=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise RuntimeError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bfloat16, {name} is {t.dtype}")
-        if t.stride(3) != 1:
-            raise RuntimeError(f"{name}: the last dim must be contiguous")
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise RuntimeError(f"{name}: strides must be multiples of 8 "
-                               "elements and the data 16-byte aligned")
     if D not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+    q, k, v = (_kernel_ready(n, t, q.device)
+               for n, t in (("q", q), ("k", k), ("v", v)))
     masked, offset = effective_band(Tq, Tk, masked)
-    kvl_ptr = None
-    if kv_lens is not None:
-        if kv_lens.device != q.device or kv_lens.dtype != torch.int32:
-            raise TypeError("kv_lens must be int32 on q's device")
-        kv_lens = kv_lens.contiguous()
-        kvl_ptr = kv_lens.data_ptr()
+    kv_lens, kvl_ptr = _kv_lens_ptr(kv_lens, q.device)
     out = torch.empty(B, Tq, H, D, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
@@ -124,11 +275,47 @@ def _launch(q, k, v, masked, kv_lens):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), kvl_ptr, B, H, Tq, Tk, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(masked), offset, torch.cuda.current_stream(q.device).cuda_stream)
+        int(masked), offset, *_dropout_args(rate, seed, Tk),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_fwd")
     flash_attention.launches += 1
+    flash_attention.dropout_launches += int(rate > 0.0)
     return out, lse
 
 
-#: kernel launches since the count was last set to 0
+def _launch_bwd(q, k, v, dout, lse, delta, masked, kv_lens, rate=0.0,
+                seed=None):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if D not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+    q, k, v, dout = (_kernel_ready(n, t, q.device) for n, t in
+                     (("q", q), ("k", k), ("v", v), ("dO", dout)))
+    masked, offset = effective_band(Tq, Tk, masked)
+    kv_lens, kvl_ptr = _kv_lens_ptr(kv_lens, q.device)
+    lse = lse.float().contiguous()
+    delta = delta.contiguous()
+    grads = [torch.empty(B, T, H, D, dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+             for T in (Tq, Tk, Tk)]
+    dq, dk, dv = grads
+    if q.numel() == 0 or k.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    strides = [s for t in (q, k, v, dout, dq, dk, dv) for s in t.stride()[:3]]
+    err = _cuda.library().bpx_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kvl_ptr, dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D, *strides,
+        int(masked), offset, *_dropout_args(rate, seed, Tk),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(err, "flash_bwd")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+#: forward kernel launches (and those with dropout) since last set to 0
 flash_attention.launches = 0
+flash_attention.dropout_launches = 0
+#: backward calls that launched the dK/dV and dQ kernels
+flash_attention_backward.launches = 0

@@ -1,9 +1,12 @@
-"""LayerNorm: the CUDA kernel ``csrc/layer_norm.cu`` and its plain version.
+"""LayerNorm, forward and backward: the CUDA kernels ``csrc/layer_norm.cu``
+and ``csrc/layer_norm_bwd.cu`` and their plain versions.
 
-The counterpart is ``bpx/ops/norm.py``: fp32 statistics over the whole last
-axis (two-pass variance), fp32 weight and bias, output cast to the module's
-compute dtype.  The kernel replaces ``_ln_fwd_kernel``; the backward comes
-with the training slice.
+The counterpart is ``bpx/ops/norm.py`` and its ``custom_vjp``: fp32
+statistics over the whole last axis (two-pass variance), fp32 weight and
+bias, output cast to the module's compute dtype.  The forward kernel
+replaces ``_ln_fwd_kernel`` and saves (mu, rstd); the backward kernel
+replaces ``_ln_bwd_kernel``: dx in x's dtype from the saved statistics,
+fp32 weight and bias gradients.
 """
 
 from __future__ import annotations
@@ -33,21 +36,66 @@ def layer_norm_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(out_dtype), mu.squeeze(-1), rstd.squeeze(-1)
 
 
+def layer_norm_backward_reference(x, w, mu, rstd, dy):
+    """Plain backward: (dx in x's dtype, dw, db fp32) from the forward's
+    fp32 (mu, rstd) of shape x.shape[:-1]."""
+    e = x.shape[-1]
+    xf = x.reshape(-1, e).float()
+    g = dy.reshape(-1, e).float()
+    xhat = (xf - mu.reshape(-1, 1)) * rstd.reshape(-1, 1)
+    a = g * w.float()
+    m1 = a.sum(-1, keepdim=True) / e
+    m2 = (a * xhat).sum(-1, keepdim=True) / e
+    dx = rstd.reshape(-1, 1) * (a - m1 - xhat * m2)
+    return (dx.to(x.dtype).reshape(x.shape), (g * xhat).sum(0), g.sum(0))
+
+
+def _forward(x, w, b, eps, out_dtype):
+    if use_kernel(x):
+        return _launch(x, w, b, eps, out_dtype)
+    return layer_norm_reference(x, w, b, eps, out_dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, eps, out_dtype):
+        y, mu, rstd = _forward(x, w, b, eps, out_dtype)
+        ctx.save_for_backward(x, w, mu, rstd)
+        ctx.mark_non_differentiable(mu, rstd)
+        return y, mu, rstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _drstd):
+        x, w, mu, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_backward(x, w, mu, rstd, dy)
+        return dx, dw, db, None, None
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float, out_dtype: Optional[torch.dtype] = None,
                return_stats: bool = False):
-    """LayerNorm over the last axis; the kernel for a CUDA tensor, the plain
-    version for a CPU tensor.  ``return_stats`` adds the fp32 (mu, rstd)."""
+    """LayerNorm over the last axis; the kernels for a CUDA tensor, the
+    plain versions for a CPU tensor, in the forward and (through autograd)
+    in the backward.  ``return_stats`` adds the fp32 (mu, rstd)."""
     out_dtype = out_dtype or x.dtype
     e = x.shape[-1]
     if w.shape != (e,) or b.shape != (e,):
         raise ValueError(f"weight/bias must be ({e},), got "
                          f"{tuple(w.shape)} / {tuple(b.shape)}")
-    if not use_kernel(x):
-        y, mu, rstd = layer_norm_reference(x, w, b, eps, out_dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
+        y, mu, rstd = _LayerNorm.apply(x, w, b, eps, out_dtype)
     else:
-        y, mu, rstd = _launch(x, w, b, eps, out_dtype)
+        y, mu, rstd = _forward(x, w, b, eps, out_dtype)
     return (y, mu, rstd) if return_stats else y
+
+
+def layer_norm_backward(x, w, mu, rstd, dy):
+    """(dx, dw, db) of :func:`layer_norm` for the output gradient ``dy``;
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not use_kernel(x):
+        return layer_norm_backward_reference(x, w, mu, rstd, dy)
+    return _launch_bwd(x, w, mu, rstd, dy)
 
 
 def _launch(x, w, b, eps, out_dtype):
@@ -78,8 +126,44 @@ def _launch(x, w, b, eps, out_dtype):
     return y, mu, rstd
 
 
+def _launch_bwd(x, w, mu, rstd, dy):
+    if x.dtype not in _DTYPES or dy.dtype not in _DTYPES:
+        raise TypeError(f"layer_norm backward kernel takes bf16/fp32, got "
+                        f"x {x.dtype}, dy {dy.dtype}")
+    if w.dtype != torch.float32:
+        raise TypeError("layer_norm backward kernel takes an fp32 weight")
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} vs x {tuple(x.shape)}")
+    if not all(t.device == x.device for t in (w, mu, rstd, dy)):
+        raise RuntimeError("layer_norm backward: tensors on several devices")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise RuntimeError("layer_norm kernel takes contiguous tensors")
+    dy, mu, rstd = dy.contiguous(), mu.contiguous(), rstd.contiguous()
+    e = x.shape[-1]
+    n = x.numel() // e
+    dx = torch.empty_like(x)
+    dw = torch.zeros(e, dtype=torch.float32, device=x.device)
+    db = torch.zeros_like(dw)
+    if n == 0:
+        return dx, dw, db
+    lib = _cuda.library()
+    work = torch.empty(lib.bpx_layer_norm_bwd_workspace(n, e),
+                       dtype=torch.float32, device=x.device)
+    vector_ok = all(t.data_ptr() % 16 == 0 for t in (x, dy, w, dx))
+    err = lib.bpx_layer_norm_bwd(
+        x.data_ptr(), dy.data_ptr(), w.data_ptr(), mu.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        work.data_ptr(), n, e, int(x.dtype == torch.bfloat16),
+        int(dy.dtype == torch.bfloat16), int(vector_ok),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _cuda.check(err, "layer_norm_bwd")
+    layer_norm_backward.launches += 1
+    return dx, dw, db
+
+
 #: kernel launches since the count was last set to 0
 layer_norm.launches = 0
+layer_norm_backward.launches = 0
 
 
 class LayerNorm(nn.Module):

@@ -1,33 +1,53 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``bpx_torch``) on one CUDA card.
 
-    python3 chip_smoke.py              # build, check, serve; last line is JSON
+    python3 chip_smoke.py              # build, check, serve, train; last
+                                       # line is JSON
     python3 chip_smoke.py --profile    # also print a kernel-time breakdown of
-                                       # one served forward
+                                       # one served forward and one train step
 
 Phases, each of which fails the script (non-zero exit) if it fails:
 
 1. build the CUDA kernels from ``bpx_torch/csrc`` with nvcc for sm_90a;
    print the card's name and power limit;
-2. build ``bpx_torch.serve.Predictor`` for the ``moviescope`` preset at
-   full width (BERT-base T=512, 12 four-layer hidden-768 encoders, conv
-   audio encoder, GMUs), batch 8, bf16, seeded random weights, and serve
-   one warm-up request while recording the arguments of every kernel
-   launch: these are the shape classes of the served forward;
-3. the flash-attention kernel against its plain PyTorch version at every
-   recorded shape class: max error of O and of the log-sum-exp, kernel /
-   plain / ``F.scaled_dot_product_attention`` times (CUDA events, median of
-   20 groups of 10 warm runs) and the bound (the larger of bytes / 3.35
-   TB/s and flops / 989 TFLOP/s);
-4. the LayerNorm kernel likewise at its recorded shape classes
-   (``F.layer_norm`` as the library yardstick);
-5. the serving path: numpy-seeded synthetic requests, one of them ragged.
-   The launch counters are set to 0 before the requests and read after:
-   every attention and every LayerNorm must have gone through the kernels.
-   Probabilities and gates are checked for shape, range and finiteness, and
-   against the same forward with the plain versions forced on the card.
-   Planted faults (the flash kernel launched without its ``kv_lens``, or
-   without its band) must move that comparison past its limits.
+2. serving: build ``bpx_torch.serve.Predictor`` for the ``moviescope``
+   preset at full width (BERT-base T=512, 12 four-layer hidden-768
+   encoders, conv audio encoder, GMUs), batch 8, bf16, seeded random
+   weights, and serve one warm-up request while recording the arguments of
+   every kernel launch: these are the shape classes of the served forward;
+3. the flash-attention forward kernel and the LayerNorm forward kernel
+   against their plain PyTorch versions at every served class: max errors,
+   kernel / plain / library (``F.scaled_dot_product_attention``,
+   ``F.layer_norm``) times (CUDA events, median of 20 groups of 10 warm
+   runs) and the bound (the larger of bytes / 3.35 TB/s and flops / 989
+   TFLOP/s);
+4. the serving path: numpy-seeded synthetic requests, one of them ragged,
+   with the launch counters set to 0 before and read after (84 flash and
+   181 LayerNorm launches per forward), outputs checked for shape, range and
+   finiteness and against the plain versions forced on the card; planted
+   faults (the flash kernel without its ``kv_lens`` or its band) must move
+   that comparison past its limits;
+5. training: the same model in training mode (every configured dropout),
+   Adam, BCE with ``pos_weight`` from synthetic label frequencies.  One
+   micro-step (batch 8) with the kernels, recording every launch, against
+   the same micro-step under ``plain_versions()`` (same weights, batch and
+   dropout seeds): the loss and each parameter group's gradient; planted
+   faults (the flash backward without its dropout mask, or without its
+   band) must move the gradients past their limit;
+6. the new kernels at the recorded micro-step's classes against their plain
+   versions, with the same timings: the flash forward with dropout, the
+   flash backward (dK/dV and dQ kernels) at rate 0 and 0.1 (SDPA's backward
+   as the library yardstick), the LayerNorm backward (``F.layer_norm``'s
+   backward); the plain hash dropout's time; an exact check of the
+   kernels' dropout masks (q = 0, V = I, dO = I); one long multi-tile shape
+   (B*H 2, 640 x 1280, band and dropout);
+7. three train steps at micro-batch 8 x A = 2 on numpy-seeded synthetic
+   super-batches: counters set to 0 before each step and checked after it
+   (168 flash forward launches, 72 of them with dropout, 168 flash
+   backward calls, 458 LayerNorm forward and 458 backward launches); finite
+   losses; after step 1 every parameter has a finite gradient and BERT's
+   embedding, LayerNorm and q/k/v gradients are non-zero.  Prints the step
+   time (median, host clock, synchronised), samples/s and peak memory.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or
@@ -41,6 +61,7 @@ import argparse
 import collections
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -70,6 +91,30 @@ REQUESTS = 4               # the second one is ragged
 # embedding norm and 2 per layer, and 3 per encoder layer plus a final one
 FLASH_PER_FORWARD = 12 + 6 * 4 + 6 * 4 * 2
 LN_PER_FORWARD = 1 + 2 * 12 + 12 * (4 * 3 + 1)
+# training: V is embedded apart from K (embedding dropout), one more
+# LayerNorm per encoder layer; dropout in BERT's 12 attentions and in the
+# encoders with attn_dropout 0.1 (trans_v_with_l, trans_a_with_l: 4 layers
+# x 1; trans_v_with_a2l, trans_a_with_v2l: 4 layers x 2)
+LN_PER_TRAIN_FORWARD = LN_PER_FORWARD + 12 * 4
+FLASH_DROPOUT_PER_FORWARD = 12 + 2 * 4 + 2 * 4 * 2
+TRAIN_A = 2                # micro-batches per step (BATCH each)
+TRAIN_STEPS = 3
+LR = 1e-3
+FLASH_GRAD_TOL = 2e-2      # bf16 dq/dk/dv, relative to the largest entry
+LN_PARAM_GRAD_TOL = 1e-4   # fp32 dw/db, relative to the largest entry
+# one full-width bf16 micro-step, kernels vs plain versions (same weights,
+# batch and dropout seeds): the loss, and each parameter group's gradient
+# (relative L2 error).  On an H100 (700 W) the sound kernels read loss
+# 5.0e-4 and gradients 0.017-0.164 by group: bf16 rounding, as large as the
+# plain bf16 path's own distance from the same step in fp32 (0.020-0.302).
+# A backward without its dropout mask reads 1.88, one without its band
+# non-finite.  The gradient limit sits between (3x over, 3.8x under); the
+# kernels must also stay within 1.5x + 0.02 of the plain path's distance
+# from fp32, group by group (sound: at most 1.48x).
+LOSS_TOL = 1e-2
+GRAD_TOL = 0.5
+FP32_FACTOR = 1.5
+FP32_SLACK = 0.02
 
 
 def fail(msg: str) -> None:
@@ -134,48 +179,87 @@ def max_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def wrapped_launch(module, wrap):
-    """Route every kernel launch of ``module`` (its ``_launch(*args)``)
-    through ``wrap(launch, *args)`` inside the context."""
-    launch = module._launch
-    module._launch = lambda *args: wrap(launch, *args)
+def wrapped_launch(module, wrap, name: str = "_launch"):
+    """Route every kernel launch of ``module`` (its ``name(*args)``, the
+    forward ``_launch`` or the backward ``_launch_bwd``) through
+    ``wrap(launch, *args)`` inside the context."""
+    launch = getattr(module, name)
+    setattr(module, name, lambda *args: wrap(launch, *args))
     try:
         yield
     finally:
-        module._launch = launch
+        setattr(module, name, launch)
+
+
+def flash_class(q, k, masked, kv_lens, rate):
+    """(B, H, Tq, Tk, D, masked, has kv_lens, dropout rate)."""
+    return (*q.shape[:3], k.shape[2], q.shape[3], masked,
+            kv_lens is not None, rate)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the shape classes of every kernel launch (and every hash
+    dropout) inside the context: a dict of Counters keyed by "flash",
+    "flash_bwd", "ln", "ln_bwd" and "dropout"."""
+    from bpx_torch.ops import dropout, flash_attention as fa, norm
+    seen = {k: collections.Counter()
+            for k in ("flash", "flash_bwd", "ln", "ln_bwd", "dropout")}
+
+    def flash(launch, q, k, v, masked, kv_lens, rate=0.0, seed=None):
+        seen["flash"][flash_class(q, k, masked, kv_lens, rate)] += 1
+        return launch(q, k, v, masked, kv_lens, rate, seed)
+
+    def flash_bwd(launch, q, k, v, dout, lse, delta, masked, kv_lens,
+                  rate=0.0, seed=None):
+        seen["flash_bwd"][flash_class(q, k, masked, kv_lens, rate)] += 1
+        return launch(q, k, v, dout, lse, delta, masked, kv_lens, rate, seed)
+
+    def ln(launch, x, w, b, eps, out_dtype):
+        seen["ln"][(x.numel() // x.shape[-1], x.shape[-1], eps, x.dtype,
+                    out_dtype)] += 1
+        return launch(x, w, b, eps, out_dtype)
+
+    def ln_bwd(launch, x, w, mu, rstd, dy):
+        seen["ln_bwd"][(x.numel() // x.shape[-1], x.shape[-1], x.dtype,
+                        dy.dtype)] += 1
+        return launch(x, w, mu, rstd, dy)
+
+    hash_dropout = dropout.hash_dropout
+
+    def drop(x, rate, seed):
+        seen["dropout"][(tuple(x.shape), x.dtype, rate)] += 1
+        return hash_dropout(x, rate, seed)
+
+    dropout.hash_dropout = drop
+    try:
+        with wrapped_launch(fa, flash), wrapped_launch(norm, ln), \
+                wrapped_launch(fa, flash_bwd, "_launch_bwd"), \
+                wrapped_launch(norm, ln_bwd, "_launch_bwd"):
+            yield seen
+    finally:
+        dropout.hash_dropout = hash_dropout
 
 
 def launch_classes(pred, batch):
     """Serve ``batch`` once and return, per kernel, a Counter of the
-    launches' shape classes: (B, H, Tq, Tk, D, masked, has kv_lens) for
-    the flash kernel, (rows, E, eps, in dtype, out dtype) for LayerNorm."""
-    from bpx_torch.ops import flash_attention as fa, norm
-    flash, ln = collections.Counter(), collections.Counter()
-
-    def flash_seen(launch, q, k, v, masked, kv_lens):
-        flash[(*q.shape[:3], k.shape[2], q.shape[3], masked,
-               kv_lens is not None)] += 1
-        return launch(q, k, v, masked, kv_lens)
-
-    def ln_seen(launch, x, w, b, eps, out_dtype):
-        ln[(x.numel() // x.shape[-1], x.shape[-1], eps, x.dtype,
-            out_dtype)] += 1
-        return launch(x, w, b, eps, out_dtype)
-
-    with wrapped_launch(fa, flash_seen), wrapped_launch(norm, ln_seen):
+    launches' shape classes: (B, H, Tq, Tk, D, masked, has kv_lens, rate)
+    for the flash kernel, (rows, E, eps, in dtype, out dtype) for
+    LayerNorm."""
+    with recording() as seen:
         pred(batch)
-    return flash, ln
+    return seen["flash"], seen["ln"]
 
 
 # a flash kernel launched without part of its mask, to show that the
 # whole-forward comparison with the plain path catches a wrong kernel
 PLANTED_FAULTS = {
     "flash kernel ignores kv_lens":
-        lambda launch, q, k, v, masked, kv_lens:
-            launch(q, k, v, masked, None),
+        lambda launch, q, k, v, masked, kv_lens, *drop:
+            launch(q, k, v, masked, None, *drop),
     "flash kernel ignores the band":
-        lambda launch, q, k, v, masked, kv_lens:
-            launch(q, k, v, False, kv_lens),
+        lambda launch, q, k, v, masked, kv_lens, *drop:
+            launch(q, k, v, False, kv_lens, *drop),
 }
 
 
@@ -194,64 +278,85 @@ def phase_build():
             print(f"[build] {line.strip()}")
 
 
-def phase_flash(torch, timer, classes, gen):
+def attention_inputs(torch, gen, B, H, Tq, Tk, D, padded):
+    """q/k/v as the model hands them over: strided (B, H, T, D) views of
+    (B, T, S, H, D) projection outputs, q pre-scaled; per-sample key
+    lengths in [64, Tk] (one full row) when ``padded``."""
+    bf = torch.bfloat16
+    qbuf = torch.randn(B, Tq, 1, H, D, generator=gen, device="cuda")
+    kvbuf = torch.randn(B, Tk, 2, H, D, generator=gen, device="cuda")
+    q = (qbuf[:, :, 0] * D ** -0.5).to(bf).transpose(1, 2)
+    kv = kvbuf.to(bf)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    kv_lens = None
+    if padded:
+        lens = torch.randint(64, Tk + 1, (B,), generator=gen, device="cuda")
+        lens[0] = Tk
+        kv_lens = lens.to(torch.int32)
+    return q, k, v, kv_lens
+
+
+def attention_work(torch, B, H, Tq, Tk, masked, kv_lens):
+    """(visible score entries, unpadded keys, the visible mask or None)
+    of this run's data: the work the kernels cannot skip."""
+    from bpx_torch.ops.flash_attention import effective_band
+    from bpx_torch.ops.masks import band_allowed
+    eff_masked, _ = effective_band(Tq, Tk, masked)
+    ok = torch.ones(B, 1, Tq, Tk, dtype=torch.bool, device="cuda")
+    if eff_masked:
+        ok = ok & band_allowed(Tq, Tk, "cuda")
+    if kv_lens is not None:
+        col = torch.arange(Tk, device="cuda")
+        ok = ok & (col[None, :] < kv_lens[:, None])[:, None, None, :]
+    visible = ok.sum().item() * H
+    keys = (kv_lens.sum().item() if kv_lens is not None else B * Tk) * H
+    return visible, keys, (None if ok.all() else ok)
+
+
+def phase_flash(torch, timer, classes, gen, label="flash"):
+    """The forward kernel against its plain version at each class (with
+    the class's dropout rate and a fixed seed)."""
     import torch.nn.functional as F
     from bpx_torch.ops.flash_attention import (effective_band,
                                                flash_attention,
                                                flash_attention_reference)
-    from bpx_torch.ops.masks import band_allowed
     rows = []
-    for (B, H, Tq, Tk, D, masked, padded), count in sorted(classes.items()):
-        # q/k/v as the model hands them over: strided (B, H, T, D) views of
-        # (B, T, S, H, D) projection outputs, q pre-scaled
-        bf = torch.bfloat16
-        qbuf = torch.randn(B, Tq, 1, H, D, generator=gen, device="cuda")
-        kvbuf = torch.randn(B, Tk, 2, H, D, generator=gen, device="cuda")
-        q = (qbuf[:, :, 0] * D ** -0.5).to(bf).transpose(1, 2)
-        kv = kvbuf.to(bf)
-        k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
-        kv_lens = None
-        if padded:
-            lens = torch.randint(64, Tk + 1, (B,), generator=gen,
-                                 device="cuda")
-            lens[0] = Tk
-            kv_lens = lens.to(torch.int32)
-        out, lse = flash_attention(q, k, v, masked, kv_lens, return_lse=True)
-        ref, ref_lse = flash_attention_reference(q, k, v, masked, kv_lens)
+    seed = 0x9E3779B9
+    for (B, H, Tq, Tk, D, masked, padded, rate), count in sorted(
+            classes.items()):
+        q, k, v, kv_lens = attention_inputs(torch, gen, B, H, Tq, Tk, D,
+                                            padded)
+        drop = (rate, seed if rate else None)
+        out, lse = flash_attention(q, k, v, masked, kv_lens, *drop,
+                                   return_lse=True)
+        ref, ref_lse = flash_attention_reference(q, k, v, masked, kv_lens,
+                                                 *drop)
         torch.cuda.synchronize()
         err_o, err_l = max_err(out, ref), max_err(lse, ref_lse)
         check(torch.allclose(out.float(), ref.float(), **FLASH_TOL),
-              f"flash O differs at {(B, H, Tq, Tk, D)}: max err {err_o}")
+              f"flash O differs at {(B, H, Tq, Tk, D, rate)}: max err "
+              f"{err_o}")
         check(torch.allclose(lse, ref_lse, **LSE_TOL),
               f"flash lse differs at {(B, H, Tq, Tk, D)}: max err {err_l}")
 
-        eff_masked, _ = effective_band(Tq, Tk, masked)
-        ok = torch.ones(B, 1, Tq, Tk, dtype=torch.bool, device="cuda")
-        if eff_masked:
-            ok = ok & band_allowed(Tq, Tk, "cuda")
-        if kv_lens is not None:
-            col = torch.arange(Tk, device="cuda")
-            ok = ok & (col[None, :] < kv_lens[:, None])[:, None, None, :]
-        # work this run's data needs: the visible score entries, and the
-        # keys below kv_len (the kernel never reads the padded ones)
-        visible = ok.sum().item() * H
-        keys = (kv_lens.sum().item() if padded else B * Tk) * H
+        visible, keys, ok = attention_work(torch, B, H, Tq, Tk, masked,
+                                           kv_lens)
         flops = 4.0 * D * visible
         nbytes = 2 * (2 * B * H * Tq * D + 2 * keys * D) + 4 * B * H * Tq
         b_ms, b_by = bound_ms(nbytes, flops)
-        sdpa_mask = None if ok.all() else ok
-        t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens))
+        t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens, *drop))
         t_p = timer(lambda: flash_attention_reference(q, k, v, masked,
-                                                      kv_lens))
+                                                      kv_lens, *drop))
         t_l = timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=sdpa_mask, scale=1.0))
+            q, k, v, attn_mask=ok, dropout_p=rate, scale=1.0))
+        eff_masked = effective_band(Tq, Tk, masked)[0]
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
-                         kv_lens=padded, per_forward=count,
+                         kv_lens=padded, rate=rate, per_forward=count,
                          max_abs_err=err_o, lse_max_abs_err=err_l, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                          bound_by=b_by))
-        print(f"[flash] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
-              f"kv_lens={padded} x{count}/fwd: err O {err_o:.3g} "
+        print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
+              f"kv_lens={padded} rate={rate} x{count}: err O {err_o:.3g} "
               f"(tol {FLASH_TOL}) lse {err_l:.3g} (tol {LSE_TOL}); "
               f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
@@ -297,6 +402,191 @@ def phase_layer_norm(torch, timer, classes, gen):
     check(torch.allclose(y, ry, atol=1e-4, rtol=1e-4),
           f"layer_norm scalar path differs: {max_err(y, ry)}")
     return rows
+
+
+def grad_err(got, want) -> float:
+    """max |got - want| over the largest |want|: the gradients' error
+    relative to their scale."""
+    return max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_flash_bwd(torch, timer, classes, gen):
+    """The backward kernels (dK/dV, then dQ) against the plain backward at
+    each class of the recorded micro-step, from the kernel forward's lse."""
+    import torch.nn.functional as F
+    from bpx_torch.ops import flash_attention as fa
+    rows = []
+    seed = 0x7F4A7C15
+    for (B, H, Tq, Tk, D, masked, padded, rate), count in sorted(
+            classes.items()):
+        q, k, v, kv_lens = attention_inputs(torch, gen, B, H, Tq, Tk, D,
+                                            padded)
+        drop = (rate, seed if rate else None)
+        out, lse = fa.flash_attention(q, k, v, masked, kv_lens, *drop,
+                                      return_lse=True)
+        # dO as the model hands it over: a (B, H, T, D) view of (B, T, H, D)
+        dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+        delta = (dout.float() * out.float()).sum(-1)
+        got = fa._launch_bwd(q, k, v, dout, lse, delta, masked, kv_lens,
+                             *drop)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, masked, kv_lens, *drop)
+        torch.cuda.synchronize()
+        errs = [grad_err(g, w) for g, w in zip(got, want)]
+        check(max(errs) <= FLASH_GRAD_TOL,
+              f"flash backward differs at {(B, H, Tq, Tk, D, rate)}: "
+              f"dq/dk/dv relative errors {errs}")
+
+        visible, keys, ok = attention_work(torch, B, H, Tq, Tk, masked,
+                                           kv_lens)
+        flops = 10.0 * D * visible
+        nbytes = (2 * D * (3 * B * H * Tq + 2 * keys + 2 * B * H * Tk)
+                  + 8 * B * H * Tq)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        t_k = timer(lambda: fa._launch_bwd(q, k, v, dout, lse, delta, masked,
+                                           kv_lens, *drop))
+        t_p = timer(lambda: fa.flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, masked, kv_lens, *drop))
+        # library yardstick: SDPA's backward alone (its forward runs once)
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ok,
+                                              dropout_p=rate, scale=1.0)
+        t_l = timer(lambda: torch.autograd.grad(sdpa, (ql, kl, vl), dout,
+                                                retain_graph=True))
+        eff_masked = fa.effective_band(Tq, Tk, masked)[0]
+        rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
+                         kv_lens=padded, rate=rate, per_forward=count,
+                         max_abs_err=max(max_err(g, w)
+                                         for g, w in zip(got, want)),
+                         rel_err=max(errs), ms=t_k, plain_ms=t_p,
+                         library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
+        print(f"[flash_bwd] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
+              f"kv_lens={padded} rate={rate} x{count}/micro-step: "
+              f"dq/dk/dv rel err {max(errs):.3g} (tol {FLASH_GRAD_TOL}); "
+              f"kernels {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa bwd "
+              f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def phase_layer_norm_bwd(torch, timer, classes, gen):
+    import torch.nn.functional as F
+    from bpx_torch.ops import norm
+    rows = []
+    for (n, e, dt, dy_dt), count in sorted(classes.items(), key=str):
+        x = (torch.randn(n, e, generator=gen, device="cuda") * 3 + 1).to(dt)
+        w = torch.rand(e, generator=gen, device="cuda") + 0.5
+        b = torch.randn(e, generator=gen, device="cuda")
+        _, mu, rstd = norm.layer_norm(x, w, b, 1e-6, return_stats=True)
+        dy = torch.randn(n, e, generator=gen, device="cuda").to(dy_dt)
+        got = norm._launch_bwd(x, w, mu, rstd, dy)
+        want = norm.layer_norm_backward_reference(x, w, mu, rstd, dy)
+        torch.cuda.synchronize()
+        err = max_err(got[0], want[0])
+        perr = max(grad_err(g, r) for g, r in zip(got[1:], want[1:]))
+        check(torch.allclose(got[0].float(), want[0].float(), **LN_TOL),
+              f"layer_norm dx differs at {(n, e)}: max err {err}")
+        check(perr <= LN_PARAM_GRAD_TOL,
+              f"layer_norm dw/db differ at {(n, e)}: rel err {perr}")
+        nbytes = (n * e * (2 * x.element_size() + dy.element_size())
+                  + 3 * e * 4 + 2 * n * 4)
+        b_ms, b_by = bound_ms(nbytes, 12.0 * n * e)
+        t_k = timer(lambda: norm._launch_bwd(x, w, mu, rstd, dy))
+        t_p = timer(lambda: norm.layer_norm_backward_reference(
+            x, w, mu, rstd, dy))
+        xl, wl, bl = (t.detach().requires_grad_(True)
+                      for t in (x, w.to(dt), b.to(dt)))
+        y = F.layer_norm(xl, (e,), wl, bl, 1e-6)
+        t_l = timer(lambda: torch.autograd.grad(y, (xl, wl, bl),
+                                                dy.to(y.dtype),
+                                                retain_graph=True))
+        rows.append(dict(shape=[n, e], dtype=str(dt), dy_dtype=str(dy_dt),
+                         per_forward=count, max_abs_err=err,
+                         param_rel_err=perr,
+                         ms=t_k, plain_ms=t_p, library_ms=t_l,
+                         bound_ms=b_ms, bound_by=b_by))
+        print(f"[layer_norm_bwd] ({n}, {e}) {dt}, dy {dy_dt} x{count}/"
+              f"micro-step: dx err {err:.3g} (tol {LN_TOL}), dw/db rel err "
+              f"{perr:.3g} (tol {LN_PARAM_GRAD_TOL}); kernels {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, F.layer_norm bwd {t_l:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def phase_dropout_hash(torch, timer, classes, gen):
+    """The plain hash dropout (no kernel: XLA computes it outside Pallas in
+    the JAX package) timed at the recorded micro-step's classes, forward
+    and the mask regeneration of the backward; a candidate for a kernel."""
+    from bpx_torch.ops.dropout import _HashDropout
+    total = 0.0
+    for (shape, dt, rate), count in sorted(classes.items(), key=str):
+        x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+        g = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+        ctx = type("Ctx", (), {})()
+        t_f = timer(lambda: _HashDropout.forward(ctx, x, rate, 12345),
+                    reps=5, inner=4)
+        t_b = timer(lambda: _HashDropout.backward(ctx, g), reps=5, inner=4)
+        total += count * (t_f + t_b)
+        print(f"[dropout] {tuple(shape)} {dt} rate={rate} x{count}/"
+              f"micro-step: forward {t_f:.4f} ms, backward {t_b:.4f} ms")
+    print(f"[dropout] plain hash dropout per micro-step: {total:.2f} ms")
+    return total
+
+
+def phase_mask_check(torch, gen):
+    """Exact mask check: q = 0 makes every probability 1/Tk, so with Tk =
+    D = 64 and V = I each output row is the row's keep mask times
+    bf16(inv_keep)/64; with dO = I, dV^T is the mask too.  Compared with
+    the plain version's mask for equality (a tolerance on O would not see a
+    few wrong bits)."""
+    from bpx_torch.ops import flash_attention as fa
+    B, H, T, rate, seed = 8, 8, 64, 0.1, 0xDEADBEEF
+    q = torch.zeros(B, H, T, T, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(B, H, T, T, generator=gen, device="cuda").to(q.dtype)
+    eye = torch.eye(T, device="cuda", dtype=q.dtype).expand(B, H, T, T)
+    out, lse = fa.flash_attention(q, k, eye, False, None, rate, seed,
+                                  return_lse=True)
+    ref, _ = fa.flash_attention_reference(q, k, eye, False, None, rate, seed)
+    _, _, dv = fa._launch_bwd(q, k, eye, eye, lse,
+                              (eye.float() * out.float()).sum(-1), False,
+                              None, rate, seed)
+    keep = fa.keep_mask(seed, B, H, T, T, rate, "cuda")
+    torch.cuda.synchronize()
+    bad_f = int(((out != 0) != keep).sum())
+    bad_b = int(((dv.transpose(-1, -2) != 0) != keep).sum())
+    print(f"[mask] forward mask bits differing from the plain version's: "
+          f"{bad_f} of {keep.numel()}; backward (dV): {bad_b}; kept "
+          f"{keep.float().mean().item():.4f} (1 - rate = {1 - rate})")
+    check(bad_f == 0 and bad_b == 0 and torch.equal(out, ref),
+          "the kernels' dropout mask differs from the plain version's")
+
+
+def phase_long_shape(torch, gen):
+    """One long multi-tile shape (the JAX package's online forward and
+    split backward): B*H = 2, Tq = 640, Tk = 1280, D = 64, band and
+    dropout, kernels against plain versions."""
+    from bpx_torch.ops import flash_attention as fa
+    B, H, Tq, Tk, D, rate, seed = 1, 2, 640, 1280, 64, 0.1, 4242
+    q, k, v, _ = attention_inputs(torch, gen, B, H, Tq, Tk, D, False)
+    out, lse = fa.flash_attention(q, k, v, True, None, rate, seed,
+                                  return_lse=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, True, None, rate,
+                                                seed)
+    dout = torch.randn(B, H, Tq, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1)
+    got = fa._launch_bwd(q, k, v, dout, lse, delta, True, None, rate, seed)
+    want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                                 True, None, rate, seed)
+    torch.cuda.synchronize()
+    errs = [grad_err(g, w) for g, w in zip(got, want)]
+    print(f"[long] BH=2 640x1280 D=64 band, rate 0.1: err O "
+          f"{max_err(out, ref):.3g}, lse {max_err(lse, ref_lse):.3g}, "
+          f"dq/dk/dv rel err {max(errs):.3g}")
+    check(torch.allclose(out.float(), ref.float(), **FLASH_TOL)
+          and torch.allclose(lse, ref_lse, **LSE_TOL)
+          and max(errs) <= FLASH_GRAD_TOL,
+          "flash kernels differ from the plain versions at the long shape")
 
 
 def synthetic_batch(exp, n: int, seed: int):
@@ -443,22 +733,313 @@ def profile_forward(torch, pred, batch):
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
 
 
-def summarise(name, source, replaces, rows, launches):
-    """One kernel's entry: times are per launch, averaged over the served
-    forward's mix of shapes (weights: each class's launches in the recorded
-    forward)."""
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def train_batch(torch, np, exp, seed: int, label_p):
+    """A numpy-seeded (A, micro, ...) super-batch on the card, with
+    multilabel targets drawn at the synthetic label frequencies."""
+    b = synthetic_batch(exp, TRAIN_A * BATCH, seed)
+    rng = np.random.RandomState(seed + 1)
+    b["target"] = (rng.rand(TRAIN_A * BATCH, len(label_p))
+                   < label_p).astype(np.float32)
+    return {k: torch.from_numpy(v.reshape(TRAIN_A, BATCH, *v.shape[1:]))
+            .to("cuda") for k, v in b.items()}
+
+
+def phase_trainer(torch, np):
+    """moviescope mmtrvapt at full width and depth in training mode, Adam
+    at LR, BCE with pos_weight from synthetic label frequencies, and the
+    accumulation step at A = TRAIN_A."""
+    from bpx_torch.config import get_preset
+    from bpx_torch.models import get_model
+    from bpx_torch.train.losses import make_loss_fn
+    from bpx_torch.train.optim import make_optimizer
+    from bpx_torch.train.steps import make_train_step
+    exp = get_preset("moviescope")
+    t0 = time.time()
+    model = get_model(exp.model, device="cuda", seed=0).train()
+    rng = np.random.RandomState(7)
+    n_train = 1000
+    freqs = rng.randint(30, 400, size=exp.model.n_classes)
+    loss_fn = make_loss_fn("moviescope", "multilabel", True, freqs.tolist(),
+                           n_train, device="cuda")
+    opt = make_optimizer(model.parameters(), LR)
+    step = make_train_step(model, "mmtrvapt", loss_fn, opt,
+                           grad_accum=TRAIN_A,
+                           generator=torch.Generator().manual_seed(0))
+    batches = [train_batch(torch, np, exp, 300 + i, freqs / n_train)
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    print(f"[train] moviescope mmtrvapt, Adam lr {LR}, BCE with pos_weight, "
+          f"micro-batch {BATCH} x A={TRAIN_A}, {exp.model.compute_dtype}; "
+          f"built in {time.time() - t0:.1f} s")
+    return model, loss_fn, step, batches
+
+
+def grad_groups(model):
+    """Parameter groups for the gradient comparison: BERT's embeddings,
+    BERT's layers, and every other top-level module."""
+    groups = collections.defaultdict(list)
+    for n, p in model.named_parameters():
+        top = n.split(".")[0]
+        if top == "bert":
+            top = "bert.layers" if n.startswith("bert.layers.") \
+                else "bert.embeddings"
+        groups[top].append(p)
+    return dict(groups)
+
+
+def micro_step(model, loss_fn, micro, seed):
+    """Forward and backward of one micro-batch with dropout seed ``seed``;
+    returns the loss (the gradients stay in ``.grad``)."""
+    from bpx_torch.inputs import model_inputs
+    model.zero_grad(set_to_none=True)
+    logits = model(*model_inputs("mmtrvapt", micro), dropout_seed=seed)
+    loss = loss_fn(logits, micro["target"])
+    loss.backward()
+    return loss.item()
+
+
+def flat_grads(torch, groups):
+    """Each group's gradients as one fp32 vector."""
+    return {g: torch.cat([p.grad.float().flatten() for p in ps])
+            for g, ps in groups.items()}
+
+
+def group_errors(torch, groups, ref):
+    """Relative L2 error of each group's gradient against ``ref``; a
+    non-finite one reads as infinite."""
+    errs = {}
+    for g, got in flat_grads(torch, groups).items():
+        e = ((got - ref[g]).norm() / ref[g].norm()).item()
+        errs[g] = e if math.isfinite(e) else float("inf")
+    return errs
+
+
+# the backward launched without part of its contract, to show that the
+# micro-step comparison with the plain path catches a wrong kernel
+TRAIN_FAULTS = {
+    "flash backward ignores its dropout mask":
+        lambda launch, q, k, v, do, lse, delta, masked, kv_lens, rate, seed:
+            launch(q, k, v, do, lse, delta, masked, kv_lens, 0.0, None),
+    "flash backward ignores the band":
+        lambda launch, q, k, v, do, lse, delta, masked, kv_lens, rate, seed:
+            launch(q, k, v, do, lse, delta, False, kv_lens, rate, seed),
+}
+
+
+def phase_micro_step(torch, model, loss_fn, batches):
+    """One micro-step with the kernels (recording every launch's class)
+    against the same step under plain_versions(): same weights, batch and
+    dropout seed.  Then the planted faults."""
+    from bpx_torch.ops import flash_attention as fa
+    from bpx_torch.ops.dispatch import plain_versions
+    micro = {k: v[0] for k, v in batches[0].items()}
+    seed = 0x5EED
+    groups = grad_groups(model)
+    # the scale of bf16 rounding: the same step in fp32 compute (plain
+    # versions, same weights and dropout masks) as a yardstick for both
+    model32 = type(model)(model.config.replace(compute_dtype="float32"),
+                          device="cuda").train()
+    model32.load_state_dict(model.state_dict())
+    with plain_versions():
+        micro_step(model32, loss_fn, micro, seed)
+    ref32 = flat_grads(torch, grad_groups(model32))
+    del model32
+    with plain_versions():
+        loss_p = micro_step(model, loss_fn, micro, seed)
+    ref = flat_grads(torch, groups)
+    e32_plain = group_errors(torch, groups, ref32)
+    with recording() as seen:
+        loss_k = micro_step(model, loss_fn, micro, seed)
+    e32_kern = group_errors(torch, groups, ref32)
+    del ref32
+    errs = group_errors(torch, groups, ref)
+    worst = max(errs, key=errs.get)
+    print(f"[micro-step] against the fp32 step: plain bf16 versions worst "
+          f"group {max(e32_plain.values()):.3g}, kernels worst group "
+          f"{max(e32_kern.values()):.3g}; per group (plain / kernels): "
+          + ", ".join(f"{g} {e32_plain[g]:.3g}/{e32_kern[g]:.3g}"
+                      for g in sorted(groups)))
+    lerr = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[micro-step] kernels vs plain versions: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel err {lerr:.3g}, tol {LOSS_TOL}); worst "
+          f"gradient group {worst}: rel err {errs[worst]:.3g} (tol "
+          f"{GRAD_TOL}); " + ", ".join(f"{g} {e:.3g}"
+                                       for g, e in sorted(errs.items())))
+    check(lerr <= LOSS_TOL, f"micro-step loss differs by {lerr}")
+    off = [g for g in groups
+           if e32_kern[g] > FP32_FACTOR * e32_plain[g] + FP32_SLACK]
+    check(not off, f"the kernels' gradients are further from the fp32 step "
+                   f"than the plain versions' in {off}")
+    check(errs[worst] <= GRAD_TOL,
+          f"micro-step gradients of {worst} differ by {errs[worst]}")
+    faults = {}
+    for fault, wrap in TRAIN_FAULTS.items():
+        with wrapped_launch(fa, wrap, "_launch_bwd"):
+            micro_step(model, loss_fn, micro, seed)
+        ferrs = group_errors(torch, groups, ref)
+        fworst = max(ferrs, key=ferrs.get)
+        faults[fault] = dict(group=fworst, grad_err=ferrs[fworst])
+        print(f"[micro-step] planted fault, {fault}: worst group {fworst} "
+              f"rel err {ferrs[fworst]:.3g}")
+        check(ferrs[fworst] > GRAD_TOL,
+              f"the comparison with the plain path misses a planted fault "
+              f"({fault})")
+    model.zero_grad(set_to_none=True)
+    n = {k: sum(c.values()) for k, c in seen.items()}
+    print(f"[micro-step] recorded launches: flash {n['flash']} "
+          f"({sum(c for k, c in seen['flash'].items() if k[-1] > 0)} with "
+          f"dropout), flash backward {n['flash_bwd']}, layer_norm {n['ln']}, "
+          f"layer_norm backward {n['ln_bwd']}, hash dropout {n['dropout']}")
+    check(n["flash"] == FLASH_PER_FORWARD
+          and n["flash_bwd"] == FLASH_PER_FORWARD
+          and n["ln"] == LN_PER_TRAIN_FORWARD
+          and n["ln_bwd"] == LN_PER_TRAIN_FORWARD,
+          "the recorded micro-step's launches differ from the structure's")
+    return seen, dict(loss_err=lerr, grad_err=errs[worst], worst=worst,
+                      planted_faults=faults)
+
+
+def phase_train(torch, model, step, batches, profile: bool):
+    """TRAIN_STEPS accumulation steps with the launch counters checked per
+    step; step time on the host clock around a synchronised step."""
+    from bpx_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_backward)
+    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
+    counters = (flash_attention, flash_attention_backward, layer_norm,
+                layer_norm_backward)
+    want = dict(flash=FLASH_PER_FORWARD * TRAIN_A,
+                dropout=FLASH_DROPOUT_PER_FORWARD * TRAIN_A,
+                flash_bwd=FLASH_PER_FORWARD * TRAIN_A,
+                ln=LN_PER_TRAIN_FORWARD * TRAIN_A,
+                ln_bwd=LN_PER_TRAIN_FORWARD * TRAIN_A)
+    totals = collections.Counter()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        for c in counters:
+            c.launches = 0
+        flash_attention.dropout_launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(batch)["loss"].item()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        got = dict(flash=flash_attention.launches,
+                   dropout=flash_attention.dropout_launches,
+                   flash_bwd=flash_attention_backward.launches,
+                   ln=layer_norm.launches, ln_bwd=layer_norm_backward.launches)
+        totals.update(got)
+        losses.append(loss)
+        print(f"[train] step {i + 1}: loss {loss:.6f}, {times[-1]:.1f} ms; "
+              f"launches {got}")
+        check(got == want, f"step {i + 1} launches {got}, expected {want}")
+        check(math.isfinite(loss), f"step {i + 1} loss is {loss}")
+        if i == 0:
+            check_grads(torch, model)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(times)
+    print(f"[train] step time (host clock, synchronised) median {med:.1f} ms "
+          f"over {len(times)} steps: " + ", ".join(f"{x:.1f}" for x in times)
+          + f"; {TRAIN_A * BATCH / med * 1e3:.2f} samples/s; peak memory "
+          f"{peak:.2f} GiB (max_memory_allocated)")
+    if profile:
+        profile_train_step(torch, step, batches[0])
+    return dict(step_ms=times, median_ms=med, losses=losses,
+                peak_gib=peak, totals=totals)
+
+
+def check_grads(torch, model):
+    """After step 1: every parameter has a finite gradient, and BERT's
+    embedding, LayerNorm and q/k/v weights have non-zero ones (an autograd
+    graph cut at a kernel would leave them None or zero)."""
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    check(not missing, f"parameters without a gradient: {missing[:5]}")
+    bad = [n for n, p in model.named_parameters()
+           if not torch.isfinite(p.grad).all()]
+    check(not bad, f"non-finite gradients: {bad[:5]}")
+    names = ["bert.word_embeddings.weight", "bert.embeddings_norm.weight",
+             "bert.embeddings_norm.bias"]
+    for i in (0, 11):
+        names += [f"bert.layers.{i}.attention.{m}.weight"
+                  for m in ("query", "key", "value")]
+        names += [f"bert.layers.{i}.attention_norm.weight",
+                  f"bert.layers.{i}.output_norm.weight"]
+    params = dict(model.named_parameters())
+    zero = [n for n in names if not params[n].grad.abs().sum().item() > 0]
+    check(not zero, f"zero gradients: {zero}")
+    print(f"[train] after step 1: all {len(params)} parameters have finite "
+          f"gradients; BERT embedding, LayerNorm and q/k/v gradients are "
+          f"non-zero ({len(names)} checked)")
+
+
+def profile_train_step(torch, step, batch):
+    """Device time by kernel over one train step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch)["loss"].item()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.device_time for e in events) / 1e3
+    print(f"[profile] one train step: summed device kernel time {busy:.1f} "
+          f"ms over {len(events)} kernels, {wall:.1f} ms wall under the "
+          f"profiler")
+    by = collections.Counter()
+    for e in events:
+        by[kernel_category(e.name)] += e.device_time / 1e3
+    print("[profile] device ms by kind: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in by.most_common()))
+    # the plain hash dropout's kernels, under its autograd function's range
+    for avg in prof.key_averages():
+        if avg.key in ("_HashDropout", "_HashDropoutBackward",
+                       "_FlashAttention", "_FlashAttentionBackward",
+                       "_LayerNorm", "_LayerNormBackward"):
+            print(f"[profile] {avg.key}: {avg.count} calls, device "
+                  f"{avg.device_time_total / 1e3:.1f} ms, host "
+                  f"{avg.cpu_time_total / 1e3:.1f} ms")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+
+
+def kernel_category(name: str) -> str:
+    """A device kernel's kind, from its name."""
+    for key, kind in (("flash_fwd", "flash forward"),
+                      ("flash_bwd", "flash backward"),
+                      ("ln_bwd", "LayerNorm backward"),
+                      ("layer_norm", "LayerNorm forward"),
+                      ("Memcpy", "copies"), ("Memset", "copies"),
+                      ("nvjet", "GEMM"), ("gemm", "GEMM"), ("xmma", "GEMM"),
+                      ("cutlass", "GEMM"), ("cublas", "GEMM"),
+                      ("multi_tensor_apply", "optimizer"),
+                      ("reduce_kernel", "reductions")):
+        if key in name:
+            return kind
+    return "elementwise and other"
+
+
+def summarise(name, source, replaces, rows, launches, runs, per):
+    """One kernel's entry: times are per launch, averaged over the recorded
+    run's mix of shapes (weights: each class's launches in that run)."""
     total = sum(r["per_forward"] for r in rows)
     avg = lambda key: sum(r[key] * r["per_forward"] for r in rows) / total
     by = collections.Counter()
     for r in rows:
         by[r["bound_by"]] += r["per_forward"]
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches,
-                max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=avg("ms"), plain_ms=avg("plain_ms"),
-                bound_ms=avg("bound_ms"), bound_by=by.most_common(1)[0][0],
-                library_ms=avg("library_ms"),
-                launches_per_forward=launches // REQUESTS, shapes=rows)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": avg("ms"), "plain_ms": avg("plain_ms"),
+            "bound_ms": avg("bound_ms"),
+            "bound_by": by.most_common(1)[0][0],
+            "library_ms": avg("library_ms"),
+            f"launches_per_{per}": launches // runs, "shapes": rows}
 
 
 def main() -> None:
@@ -486,6 +1067,10 @@ def main() -> None:
           f"CUDA {torch.version.cuda}")
 
     phase_build()
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # serving: the forward kernels at the served classes, then the path
     pred, reqs = phase_predictor(torch)
     # the warm-up request (cuBLAS/cuDNN set-up) records the launches
     flash_cls, ln_cls = launch_classes(pred, reqs[0])
@@ -496,20 +1081,50 @@ def main() -> None:
           f"{LN_PER_FORWARD})")
     check(n_flash == FLASH_PER_FORWARD and n_ln == LN_PER_FORWARD,
           "the recorded forward's launches differ from the structure's")
-    timer = Timer(torch)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = phase_flash(torch, timer, flash_cls, gen)
     ln_rows = phase_layer_norm(torch, timer, ln_cls, gen)
     served = phase_serve(torch, np, pred, reqs, args.profile)
+    del pred
+    torch.cuda.empty_cache()
 
+    # training: one recorded micro-step against the plain path, the new
+    # kernels at its classes, then the train steps
+    model, loss_fn, step, batches = phase_trainer(torch, np)
+    seen, micro = phase_micro_step(torch, model, loss_fn, batches)
+    drop_rows = phase_flash(
+        torch, timer, {k: c for k, c in seen["flash"].items() if k[-1] > 0},
+        gen, label="flash_dropout")
+    bwd_rows = phase_flash_bwd(torch, timer, seen["flash_bwd"], gen)
+    ln_bwd_rows = phase_layer_norm_bwd(torch, timer, seen["ln_bwd"], gen)
+    dropout_ms = phase_dropout_hash(torch, timer, seen["dropout"], gen)
+    phase_mask_check(torch, gen)
+    phase_long_shape(torch, gen)
+    trained = phase_train(torch, model, step, batches, args.profile)
+
+    steps = TRAIN_STEPS * TRAIN_A
     kernels = [
         summarise("flash_fwd", "bpx_torch/csrc/flash_fwd.cu",
                   "bpx/ops/pallas_attention.py:145", flash_rows,
-                  served["flash_launches"]),
+                  served["flash_launches"], REQUESTS, "forward"),
+        summarise("flash_fwd_dropout", "bpx_torch/csrc/flash_fwd.cu",
+                  "bpx/ops/pallas_attention.py:102", drop_rows,
+                  trained["totals"]["dropout"], steps, "micro_step"),
+        summarise("flash_bwd", "bpx_torch/csrc/flash_bwd.cu",
+                  "bpx/ops/pallas_attention.py:462", bwd_rows,
+                  trained["totals"]["flash_bwd"], steps, "micro_step"),
         summarise("layer_norm_fwd", "bpx_torch/csrc/layer_norm.cu",
-                  "bpx/ops/norm.py:53", ln_rows, served["ln_launches"]),
+                  "bpx/ops/norm.py:53", ln_rows, served["ln_launches"],
+                  REQUESTS, "forward"),
+        summarise("layer_norm_bwd", "bpx_torch/csrc/layer_norm_bwd.cu",
+                  "bpx/ops/norm.py:69", ln_bwd_rows,
+                  trained["totals"]["ln_bwd"], steps, "micro_step"),
     ]
-    print(f"[serve] median request {served['median_ms']:.2f} ms; "
+    print(f"[summary] served median request {served['median_ms']:.2f} ms; "
+          f"train step median {trained['median_ms']:.1f} ms "
+          f"({TRAIN_A * BATCH / trained['median_ms'] * 1e3:.2f} samples/s, "
+          f"peak {trained['peak_gib']:.2f} GiB); plain hash dropout "
+          f"{dropout_ms:.2f} ms per micro-step; micro-step kernels vs plain: "
+          f"loss {micro['loss_err']:.3g}, gradients {micro['grad_err']:.3g}; "
           f"card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
-edge shapes the served forward does not reach (ragged tiles, an empty key
-range, single rows, widths without vector loads, fp32 input and output).
+edge shapes the model does not reach (ragged tiles, an empty key range,
+single rows, widths without vector loads, fp32 input and output, a long
+multi-tile shape), forward and backward, with and without dropout.
 
 Needs a CUDA device and skips elsewhere (the ``gen`` fixture decides).
 On a machine with a card, without JAX:
@@ -8,16 +9,22 @@ On a machine with a card, without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: bf16 outputs 2e-2 (one bf16 rounding of values of order 1),
-fp32 log-sum-exp 1e-3, fp32 LayerNorm output 1e-5.
+fp32 log-sum-exp 1e-3, fp32 LayerNorm output 1e-5; bf16 gradients 2e-2
+relative to the largest entry plus 1e-4 (sums of bf16-rounded products in
+another order), fp32 LayerNorm weight and bias gradients 1e-4 relative.  The
+dropout masks are compared for equality.
 """
 
 import pytest
 import torch
 
 from bpx_torch.ops.dispatch import plain_versions
-from bpx_torch.ops.flash_attention import (flash_attention,
-                                           flash_attention_reference)
-from bpx_torch.ops.norm import layer_norm, layer_norm_reference
+from bpx_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward,
+    flash_attention_backward_reference, flash_attention_reference, keep_mask)
+from bpx_torch.ops.norm import (layer_norm, layer_norm_backward,
+                                layer_norm_backward_reference,
+                                layer_norm_reference)
 
 
 @pytest.fixture
@@ -107,3 +114,154 @@ def test_layer_norm_kernel_rejects_non_contiguous(gen):
     w, b = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
     with pytest.raises(RuntimeError, match="contiguous"):
         layer_norm(x[:, ::2], w, b, 1e-6)
+
+
+def _close_grad(got, want):
+    # 1e-4 absolute floor: where dp - delta cancels (a single visible key)
+    # both sides hold rounding noise of order 1e-5
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=2e-2 * scale + 1e-4, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,D,masked,lens,rate", [
+    (2, 3, 77, 130, 64, True, None, 0.0),       # ragged tiles, band
+    (2, 2, 130, 77, 96, True, None, 0.1),       # tall band, dropout
+    (2, 2, 300, 100, 96, True, None, 0.0),      # band dropped
+    (3, 2, 64, 64, 64, False, (64, 0, 5), 0.1),  # kv_len 0: zero grads
+    (1, 2, 1, 1, 96, True, None, 0.5),          # single row and key
+    (2, 2, 300, 300, 96, True, (300, 129), 0.1),  # band + key padding
+    (1, 2, 640, 1280, 64, True, None, 0.1),     # long: tk_p = Tk
+    (2, 2, 200, 1100, 64, True, (1100, 700), 0.1),  # long: tk_p = 1152
+])
+def test_flash_backward_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked,
+                                             lens, rate):
+    q, k, v = _qkv(gen, B, H, Tq, Tk, D)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+    seed = 0xFFFFFFF0
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+    dout = torch.randn(B, H, Tq, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, lse, dout, masked, kv, rate,
+                                   seed)
+    assert flash_attention_backward.launches == before + 1
+    delta = (dout.float() * out.float()).sum(-1)
+    want = flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                              masked, kv, rate, seed)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _close_grad(g, w)
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        assert not got[0][b].any()        # no visible key: dq = 0
+    # deterministic: no atomics
+    again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
+                                     rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_dropout_mask_is_exact(gen):
+    """q = 0 makes every probability 1/Tk; with V = I (Tk = D = 64) row i
+    of O is keep[i] * bf16(inv_keep) / 64, and with dO = I (Tq = 64) row j
+    of dV is keep[:, j] * bf16(inv_keep / 64): the masks of the forward and
+    the backward kernels, bit for bit."""
+    B, H, T, D, rate, seed = 2, 3, 64, 64, 0.1, 123456789
+    q = torch.zeros(B, H, T, D, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(B, H, T, D, generator=gen, device="cuda").to(q.dtype)
+    eye = torch.eye(D, device="cuda", dtype=q.dtype).expand(B, H, T, D)
+    out, lse = flash_attention(q, k, eye, False, None, rate, seed,
+                               return_lse=True)
+    keep = keep_mask(seed, B, H, T, T, rate, "cuda")
+    assert torch.equal(out != 0, keep)
+    ref, _ = flash_attention_reference(q, k, eye, False, None, rate, seed)
+    assert torch.equal(out, ref)
+    _, _, dv = flash_attention_backward(q, k, eye, out, lse, eye, False,
+                                        None, rate, seed)
+    assert torch.equal(dv.transpose(-1, -2) != 0, keep)
+
+
+def test_flash_autograd_launches_both_kernels(gen):
+    """Through autograd on the card: the forward and backward kernels
+    launch, and the gradients of strided q/k/v views match the plain path's
+    (same inputs, same dropout seed)."""
+    B, T, H, D = 2, 100, 4, 96
+    base = torch.randn(B, T, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dout = torch.randn(B, H, T, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lens = torch.tensor([100, 40], dtype=torch.int32, device="cuda")
+
+    def grads():
+        buf = base.clone().requires_grad_(True)
+        q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+        out = flash_attention(q, k, v, True, lens, 0.1, 7)
+        (out.float() * dout.float()).sum().backward()
+        return buf.grad
+
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    got = grads()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_backward.launches == bwd + 1
+    with plain_versions():
+        want = grads()
+    assert flash_attention_backward.launches == bwd + 1
+    for i in range(3):
+        _close_grad(got[:, :, i], want[:, :, i])
+
+
+@pytest.mark.parametrize("n,e", [(5, 768), (33, 300), (16, 1001), (7, 64),
+                                 (40, 2048), (4096, 768)])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dy_dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_backward_kernel_matches_plain(gen, n, e, x_dtype,
+                                                  dy_dtype):
+    x = (torch.randn(n, e, generator=gen, device="cuda") * 3 + 1).to(x_dtype)
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    b = torch.randn(e, generator=gen, device="cuda")
+    _, mu, rstd = layer_norm(x, w, b, 1e-6, return_stats=True)
+    dy = torch.randn(n, e, generator=gen, device="cuda").to(dy_dtype)
+    before = layer_norm_backward.launches
+    dx, dw, db = layer_norm_backward(x, w, mu, rstd, dy)
+    assert layer_norm_backward.launches == before + 1
+    rdx, rdw, rdb = layer_norm_backward_reference(x, w, mu, rstd, dy)
+    assert dx.dtype == x_dtype and dw.dtype == db.dtype == torch.float32
+    tol = 2e-2 if x_dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=tol, rtol=tol)
+    for g, r in ((dw, rdw), (db, rdb)):
+        torch.testing.assert_close(g, r, atol=1e-4 * r.abs().max().item(),
+                                   rtol=1e-4)
+    again = layer_norm_backward(x, w, mu, rstd, dy)
+    assert all(torch.equal(a, c) for a, c in zip((dx, dw, db), again))
+
+
+def test_layer_norm_autograd_on_card(gen):
+    x0 = torch.randn(4, 50, 768, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w0 = torch.rand(768, generator=gen, device="cuda") + 0.5
+    b0 = torch.randn(768, generator=gen, device="cuda")
+    g = torch.randn(4, 50, 768, generator=gen, device="cuda")
+
+    def grads():
+        x, w, b = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+        y = layer_norm(x, w, b, 1e-12, torch.bfloat16)
+        (y.float() * g).sum().backward()
+        return x.grad, w.grad, b.grad
+
+    before = layer_norm_backward.launches
+    got = grads()
+    assert layer_norm_backward.launches == before + 1
+    with plain_versions():
+        want = grads()
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    for a, c in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, c, atol=1e-3 * c.abs().max().item(),
+                                   rtol=1e-3)

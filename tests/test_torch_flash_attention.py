@@ -1,12 +1,17 @@
-"""The port's flash attention (plain version, CPU) against the JAX
-package's Pallas kernel in interpret mode, outputs and log-sum-exp.
+"""The port's flash attention (plain versions, CPU) against the JAX
+package's Pallas kernels in interpret mode: outputs and log-sum-exp, and
+with dropout the forward and its ``jax.vjp`` (the fused single-pass
+backward at the model's shapes; the online forward and the split dQ / dK-dV
+backward at a long multi-tile shape).
 
 Inputs are made with numpy from a seed; fp32, atol/rtol 2e-5 (the same
-function, sums in another order).  On the card, chip_smoke.py holds the
-CUDA kernel against this plain version.
+function, sums in another order).  The dropout seeds are the same uint32 on
+both sides.  On the card, chip_smoke.py holds the CUDA kernels against these
+plain versions.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -16,6 +21,7 @@ from bpx.ops.pallas_attention import flash_attention as pallas_flash
 
 from bpx_torch.ops.flash_attention import (effective_band, flash_attention,
                                            flash_attention_reference)
+from bpx_torch.ops.dispatch import plain_versions
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -82,9 +88,88 @@ def test_cpu_wrapper_is_the_plain_version():
 
 def test_wrapper_rejects_what_it_does_not_take():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 16, 16, 64))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=2 ** 32)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        flash_attention(q, k, v, dropout_rate=1.0, dropout_seed=1)
     with pytest.raises(ValueError, match="shape mismatch"):
         flash_attention(q, k[:, :, :8], v)
     with pytest.raises(ValueError, match="kv_lens"):
         flash_attention(q, k, v, kv_lens=torch.ones(3, dtype=torch.int32))
+
+
+def _bpx_fwd_vjp(q, k, v, dout, masked, lens, rate, seed):
+    """bpx's Pallas flash (interpret mode) and its custom_vjp backward."""
+    def f(q, k, v):
+        kv = None if lens is None else jnp.asarray(lens)
+        return pallas_flash(q, k, v, masked=masked, kv_lens=kv,
+                            dropout_rate=rate,
+                            dropout_seed=jnp.uint32(seed) if rate else None,
+                            layout="bhtd", out_layout="bhtd")
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return (np.asarray(out),) + tuple(np.asarray(g) for g in
+                                      vjp(jnp.asarray(dout)))
+
+
+def _port_fwd_bwd(q, k, v, dout, masked, lens, rate, seed):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = flash_attention(qt, kt, vt, masked,
+                          None if lens is None else torch.from_numpy(lens),
+                          rate, seed if rate else None)
+    out.backward(torch.from_numpy(dout))
+    return out.detach().numpy(), qt.grad.numpy(), kt.grad.numpy(), \
+        vt.grad.numpy()
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,D,masked,lens,rate", [
+    (1, 2, 128, 256, 64, True, None, 0.1),          # band, offset 128
+    (2, 2, 160, 64, 96, True, None, 0.1),           # band dropped
+    (2, 2, 200, 200, 96, True, None, 0.0),          # causal, rate 0
+    (4, 1, 128, 128, 64, False, (128, 37, 1, 0), 0.1),  # kv_len 0 row
+    (2, 2, 200, 120, 96, True, (120, 50), 0.25),    # band + key padding
+])
+def test_flash_forward_backward_with_dropout_match_pallas(B, H, Tq, Tk, D,
+                                                          masked, lens, rate):
+    q, k, v = _inputs(B, H, Tq, Tk, D, seed=2)
+    dout = np.random.RandomState(3).randn(B, H, Tq, D).astype(np.float32)
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    seed = 0xFFFFFFF7
+    want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, seed)
+    got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, seed)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        assert not got[1][b].any()      # contract: no visible key, dq = 0
+        assert got[0][b].any()          # while the forward attended
+
+
+def test_long_shape_online_forward_and_split_backward_match_pallas():
+    """B*H = 2, Tq = 640, Tk = 1280: bpx takes its online forward (Tk >
+    1024) and the split dQ / dK-dV backward (Tq > 512), masked and with
+    dropout; the port's plain versions compute the same function."""
+    B, H, Tq, Tk, D = 1, 2, 640, 1280, 64
+    q, k, v = _inputs(B, H, Tq, Tk, D, seed=4)
+    dout = np.random.RandomState(5).randn(B, H, Tq, D).astype(np.float32)
+    want = _bpx_fwd_vjp(q, k, v, dout, True, None, 0.1, 31337)
+    got = _port_fwd_bwd(q, k, v, dout, True, None, 0.1, 31337)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+def test_autograd_and_plain_context_on_cpu():
+    """The CPU path through autograd is the plain backward, and nothing
+    launches; under no autograd the forward returns no graph."""
+    from bpx_torch.ops.flash_attention import flash_attention_backward
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 16, 24, 64))
+    flash_attention_backward.launches = 0
+    qg = q.clone().requires_grad_(True)
+    with plain_versions():
+        out = flash_attention(qg, k, v, True, None, 0.1, 5)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert qg.grad is not None and flash_attention_backward.launches == 0
+    with torch.no_grad():
+        assert flash_attention(qg, k, v).grad_fn is None

@@ -172,7 +172,8 @@ def test_bert_encoder_matches_bpx(scan):
                        jnp.asarray(mask), jnp.asarray(seg))
 
     from bpx_torch.config import BertConfig
-    bert = BertEncoder(BertConfig(**dataclasses.asdict(cfg)))
+    # eval mode: the JAX module's default deterministic=True
+    bert = BertEncoder(BertConfig(**dataclasses.asdict(cfg))).eval()
     bert.load_state_dict(flax_to_state_dict(_np_tree(params)), strict=True)
     with torch.no_grad():
         got = bert(_t(ids), _t(mask), _t(seg))

@@ -1,10 +1,13 @@
-"""The port's LayerNorm (plain version, CPU) against the JAX package's
-Pallas LayerNorm in interpret mode (``BPX_FORCE_PALLAS=1``).
+"""The port's LayerNorm (plain versions, CPU) against the JAX package's
+Pallas LayerNorm in interpret mode (``BPX_FORCE_PALLAS=1``), forward and,
+through ``jax.vjp``, backward (``_ln_bwd_kernel``).
 
 Inputs are made with numpy from a seed.  fp32 output: atol/rtol 2e-5 (the
 same function, sums in another order).  bf16 output: within one bf16 ulp
 (2**-7 relative), since both round the same fp32 value and a last-bit fp32
-difference may cross a rounding boundary.
+difference may cross a rounding boundary.  Backward: dx, dW and db within
+atol/rtol 2e-5 of the largest entry in fp32; with bf16 input dx is within
+one bf16 ulp.
 """
 
 import numpy as np
@@ -15,7 +18,11 @@ import torch
 from bpx.ops.norm import _ln_fwd as pallas_ln_fwd
 from bpx.ops.norm import layer_norm as bpx_layer_norm
 
-from bpx_torch.ops.norm import LayerNorm, layer_norm, layer_norm_reference
+import jax
+
+from bpx_torch.ops.norm import (LayerNorm, layer_norm,
+                                layer_norm_backward_reference,
+                                layer_norm_reference)
 
 
 def _inputs(n, e, seed=0):
@@ -72,3 +79,50 @@ def test_layer_norm_module_and_wrapper_on_cpu():
     assert torch.equal(y.reshape(6, 40), ref)
     with pytest.raises(ValueError, match="weight/bias"):
         layer_norm(torch.from_numpy(x), ln.weight[:4], ln.bias, 1e-6)
+
+
+@pytest.mark.parametrize("n,e,eps,dt", [
+    (64, 768, 1e-12, "float32"),
+    (40, 768, 1e-6, "bfloat16"),
+    (24, 300, 1e-6, "float32"),
+])
+def test_layer_norm_backward_matches_pallas(monkeypatch, n, e, eps, dt):
+    monkeypatch.setenv("BPX_FORCE_PALLAS", "1")
+    x, w, b = _inputs(n, e, seed=2)
+    g = np.random.RandomState(3).randn(n, e).astype(np.float32)
+    jdt = jnp.dtype(dt)
+    xj = jnp.asarray(x, jdt)
+    _, vjp = jax.vjp(lambda a, s, c: bpx_layer_norm(a, s, c, eps,
+                                                    out_dtype=jdt),
+                     xj, jnp.asarray(w), jnp.asarray(b))
+    wdx, wdw, wdb = vjp(jnp.asarray(g, jdt))
+
+    tdt = getattr(torch, dt)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+    xt.requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    y = layer_norm(xt, wt, bt, eps, tdt)
+    y.backward(torch.from_numpy(g).to(tdt))
+    assert xt.grad.dtype == tdt
+    close = lambda a, ref, tol: np.testing.assert_allclose(
+        a, ref, atol=tol * np.abs(ref).max(), rtol=tol)
+    if dt == "float32":
+        close(xt.grad.numpy(), np.asarray(wdx), 2e-5)
+    else:
+        np.testing.assert_allclose(xt.grad.float().numpy(),
+                                   np.asarray(wdx, np.float32),
+                                   atol=1e-6, rtol=2 ** -7)
+    close(wt.grad.numpy(), np.asarray(wdw), 2e-5)
+    close(bt.grad.numpy(), np.asarray(wdb), 2e-5)
+
+
+def test_layer_norm_backward_reference_shapes():
+    x, w, _ = _inputs(6, 40, seed=4)
+    xt = torch.from_numpy(x).reshape(2, 3, 40)
+    _, mu, rstd = layer_norm_reference(xt, torch.from_numpy(w),
+                                       torch.zeros(40), 1e-6)
+    dx, dw, db = layer_norm_backward_reference(
+        xt, torch.from_numpy(w), mu, rstd, torch.ones(2, 3, 40))
+    assert dx.shape == (2, 3, 40) and dw.shape == db.shape == (40,)
+    assert torch.allclose(db, torch.full((40,), 6.0))
