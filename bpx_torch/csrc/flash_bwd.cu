@@ -4,8 +4,9 @@
 // (launched from _bwd), and with it the split pair _bwd_dq_kernel /
 // _bwd_dkv_kernel that _bwd takes for long sequences: it computes what they
 // compute, not their structure.  Per (batch*head), with P recomputed from
-// the forward's saved log-sum-exp and delta = rowsum(dO * O) precomputed in
-// fp32 by the caller:
+// the forward's saved log-sum-exp:
+//   delta = rowsum(dO * O) in fp32      (the TPU kernels' in-kernel delta,
+//                                        BPX_XLA_DELTA=0, :484-488)
 //   s   = q . k^T (fp32), ok = col < kv_len && (!masked || col <= row + off)
 //   p   = ok ? exp(s - lse[row]) : 0      (masked entries get P = 0, so a
 //                                          row with no visible key gets zero
@@ -20,27 +21,37 @@
 //
 // Design.  The TPU kernel holds the whole Tq x Tk tile of one (batch, head)
 // in VMEM and emits dQ, dK and dV from it in one program; an SM cannot hold
-// it.  Two kernels instead, both deterministic and without atomics:
-//   * dK/dV: one block of 4 warps per (batch*head, 64-key tile), 16 keys per
-//     warp, looping over 64-query tiles.  It works on the transposed scores
-//     S^T = K Q^T, so P^T and dS^T come out of the tensor cores in the A
-//     fragment layout of dV += P^T dO and dK += dS^T Q.
-//   * dQ: one block per (batch*head, 64-query tile), looping over 64-key
-//     tiles; dQ += dS K.
+// it.  Three launches on the stream, deterministic and without atomics:
+//   * delta: two rows per warp, dO and O read once, a fixed-order sum;
+//   * dK/dV: one warpgroup per (batch*head, 64-key tile) with K and V
+//     resident, looping over 64-query tiles of Q, dO, lse and delta that
+//     stream through a 3-stage cp.async ring.  It computes the transposed
+//     scores S^T = K Q^T and dP^T = V dO^T with wgmma (K, V, Q, dO all
+//     K-major in shared memory), so P^T and dS^T come out of the accumulator
+//     in the register A-fragment layout of dV += P^T dO and dK += dS^T Q,
+//     whose B operands (dO, Q) are read MN-major from the same tiles;
+//   * dQ: one warpgroup per (batch*head, 64-query tile) with Q and dO
+//     resident, K and V streaming; S = Q K^T, dP = dO V^T, dQ += dS K.
+// S and dP are computed in both the dK/dV and the dQ kernel: the price of
+// no cross-block reduction of dQ (a fused kernel would need atomics, or a
+// cluster reducing dQ in a fixed order through distributed shared memory).
 // Tiles wholly above the band or past kv_len have P = 0 everywhere and are
-// skipped, which is exact here (unlike in the forward) for every kv_len.
-// Products use mma.sync m16n8k16 (bf16 operands, fp32 accumulation), as in
-// the forward; the recomputed S and dP are each computed twice (once per
-// kernel), the price of dropping the cross-block reduction of dQ.
+// skipped, which is exact here (unlike in the forward) for every kv_len; only
+// edge tiles (the band's diagonal, kv_len, Tk) test each entry.  Queries
+// past Tq need no test on interior tiles: their Q and dO rows, lse and
+// delta are zero-filled, so they add nothing.
+// Registers bound the occupancy: the dK/dV kernel holds dK, dV, S^T and
+// dP^T (D + 64 fp32 per thread): 2 blocks per SM at both head dims (100 KB
+// of shared memory each at D = 96); at D = 64 a cap of 168 registers for a
+// third block spills and measured slower.
 //
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
-// against q, k, v, dO read and dq, dk, dv written once; at the model's
-// shapes (T <= 512, D 64/96) the bytes bound it.  Loads are synchronous
-// 16-byte vector loads; a cp.async/TMA pipeline and wgmma are later work.
+// against q, k, v, dO, o read and dq, dk, dv written once; at the model's
+// shapes (T <= 512, D 64/96) the bytes bound it.
 //
 // Inputs and outputs are (B, H, T, D) tensors addressed by strides (last dim
 // contiguous, strides multiples of 8 elements, 16-byte aligned pointers);
-// lse and delta are (B*H, Tq) fp32.
+// lse and the delta workspace are (B*H, Tq) fp32.
 
 #include "flash_common.cuh"
 
@@ -48,9 +59,7 @@ namespace {
 
 using namespace bpx_flash;
 
-constexpr int kWarps = 4;
-constexpr int kTile = 16 * kWarps;   // rows of the block's own tile
-constexpr int kSpan = 64;            // rows of the tile it loops over
+constexpr int kStages = 3;   // streamed tiles in flight
 
 struct BwdParams {
   const __nv_bfloat16* q;
@@ -58,7 +67,7 @@ struct BwdParams {
   const __nv_bfloat16* v;
   const __nv_bfloat16* dout;
   const float* lse;        // (B*H, Tq)
-  const float* delta;      // (B*H, Tq)
+  const float* delta;      // (B*H, Tq), written by flash_delta_kernel
   const int* kv_lens;      // (B,) or nullptr
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
@@ -76,67 +85,115 @@ struct BwdParams {
   Dropout drop;
 };
 
+// dK/dV stage: Q tile, dO tile, lse[64] and delta[64] (1 KB keeps the next
+// stage aligned).  dQ stage: K tile, V tile.
 template <int D>
-constexpr int smem_bytes() {
-  return 4 * kSpan * (D + 8) * 2 + 2 * kSpan * 4;
+__host__ __device__ constexpr int dkdv_stage_bytes() {
+  return 2 * tile_bytes<D>() + 1024;
+}
+
+// K and V resident, kStages x (Q, dO, lse, delta); +1 KB for alignment.
+template <int D>
+__host__ __device__ constexpr int dkdv_smem_bytes() {
+  return 2 * tile_bytes<D>() + kStages * dkdv_stage_bytes<D>() + 1024;
+}
+
+// Q and dO resident, kStages x (K, V); +1 KB for alignment.
+template <int D>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return (2 + 2 * kStages) * tile_bytes<D>() + 1024;
 }
 
 template <int N>
-__device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
+__device__ __forceinline__ void zero(float (&a)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
 }
 
-// Write a warp's 16 x D fp32 accumulator as bf16 rows r0 and r0 + 8.
-template <int DT>
+// Write a warpgroup's 64 x D fp32 accumulator (this thread: rows r0 and
+// r0 + 8) as bf16 rows below T.
+template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long st,
-                                           int r0, int T, const float acc[][4],
+                                           int r0, int T,
+                                           const float (&acc)[D / 2],
                                            int t4) {
   if (r0 < T) {
     __nv_bfloat16* row = base + r0 * st + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16x2(acc[n][0], acc[n][1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(row + j * 8) =
+          pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
     }
   }
   if (r0 + 8 < T) {
     __nv_bfloat16* row = base + (r0 + 8) * st + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16x2(acc[n][2], acc[n][3]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(row + j * 8) =
+          pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
 
+// delta[bh, t] = sum_d dO[b, h, t, d] * O[b, h, t, d] in fp32: half a warp
+// per row, 16 bytes of each per lane, lanes summed in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
+                   float* delta, int H, int T, int rows, long long o_sb,
+                   long long o_sh, long long o_st, long long do_sb,
+                   long long do_sh, long long do_st) {
+  static_assert(D % 8 == 0 && D <= 128, "one 16-byte chunk per lane");
+  const int row = blockIdx.x * 16 + threadIdx.x / 16;
+  const int lane = threadIdx.x % 16;
+  float sum = 0.f;
+  if (row < rows && lane < D / 8) {
+    const int bh = row / T, t = row % T;
+    const int b = bh / H, h = bh % H;
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        o + b * o_sb + h * o_sh + t * o_st + lane * 8);
+    const uint4 y = *reinterpret_cast<const uint4*>(
+        dout + b * do_sb + h * do_sh + t * do_st + lane * 8);
+    const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* yv = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(xv[i]);
+      const float2 c = __bfloat1622float2(yv[i]);
+      sum += a.x * c.x + a.y * c.y;
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off /= 2) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  }
+  if (row < rows && lane == 0) delta[row] = sum;
+}
+
 // One (batch*head, 64-key tile): dK and dV.
 template <int D>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const BwdParams p) {
-  constexpr int LDS = D + 8;
-  constexpr int kDChunks = D / 16;
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + kTile * LDS;
-  __nv_bfloat16* q_s = v_s + kTile * LDS;
-  __nv_bfloat16* o_s = q_s + kSpan * LDS;          // dO
-  float* lse_s = reinterpret_cast<float*>(o_s + kSpan * LDS);
-  float* dl_s = lse_s + kSpan;
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kStage = dkdv_stage_bytes<D>();
+  constexpr int kKSteps = D / 16;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t stage0 = v_s + kTile;   // stage s: Q, dO, lse, delta
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t4 = lane % 4;
   const int Tq = p.Tq, Tk = p.Tk;
   const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
   const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
 
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
@@ -144,201 +201,292 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float* dl_b = p.delta + (long long)bh * Tq;
 
-  float dk[kDTiles][4], dv[kDTiles][4];
-  zero_acc(dk);
-  zero_acc(dv);
+  float dk[D / 2], dv[D / 2], st[32], dpt[32];
+  zero(dk);
+  zero(dv);
+  zero(st);
+  zero(dpt);
 
   // query tiles that see a key of this tile: none past kv_len; with the
   // band, only rows with row + offset >= k0
-  int q_begin = 0;
-  int q_end = (Tq + kSpan - 1) / kSpan;
-  if (k0 >= kv_len) q_end = 0;
-  if (p.masked) q_begin = max(0, k0 - p.offset) / kSpan;
+  const int q_begin = p.masked ? max(0, k0 - p.offset) / kRows : 0;
+  const int q_end = k0 >= kv_len ? 0 : (Tq + kRows - 1) / kRows;
+  const int n_tiles = max(0, q_end - q_begin);
 
-  if (q_begin < q_end) {
-    load_tile<D, LDS>(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk,
-                      kTile);
-    load_tile<D, LDS>(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk,
-                      kTile);
+  // query tile q_begin + i goes to ring stage i mod kStages
+  auto load_stage = [&](int i) {
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t dst = stage0 + (i % kStages) * kStage;
+    load_tile_async<D>(dst, qb, p.q_st, q0, Tq);
+    load_tile_async<D>(dst + kTile, ob, p.o_st, q0, Tq);
+    const int r = threadIdx.x % kRows;
+    const bool ok = q0 + r < Tq;
+    const float* src = threadIdx.x < kRows ? lse_b : dl_b;
+    cp_async_4(dst + 2 * kTile + threadIdx.x * 4, ok ? src + q0 + r : src,
+               ok);
+  };
+
+  if (n_tiles > 0) {
+    load_tile_async<D>(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk);
+    load_tile_async<D>(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk);
   }
-  for (int qt = q_begin; qt < q_end; ++qt) {
-    const int q0 = qt * kSpan;
-    __syncthreads();   // every warp is done with the previous tile
-    load_tile<D, LDS>(q_s, qb, p.q_st, q0, Tq, kSpan);
-    load_tile<D, LDS>(o_s, ob, p.o_st, q0, Tq, kSpan);
-    for (int i = threadIdx.x; i < kSpan; i += blockDim.x) {
-      const bool in = q0 + i < Tq;
-      lse_s[i] = in ? lse_b[q0 + i] : 0.f;
-      dl_s[i] = in ? dl_b[q0 + i] : 0.f;
-    }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_stage(i);
+    cp_async_commit();
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
     __syncthreads();
+    if (i + kStages - 1 < n_tiles) load_stage(i + kStages - 1);
+    cp_async_commit();
 
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp
-    float st[8][4], dpt[8][4];
-    zero_acc(st);
-    zero_acc(dpt);
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t q_s = stage0 + (i % kStages) * kStage;
+    const uint32_t o_s = q_s + kTile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
+    const float* dl_s = lse_s + kRows;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+    wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kDChunks; ++c) {
-      uint32_t ka[4], va[4];
-      load_a_frag<LDS>(ka, k_s, warp * 16, c, lane);
-      load_a_frag<LDS>(va, v_s, warp * 16, c, lane);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        load_b_frag<LDS>(b0, b1, q_s, j, c, lane);
-        mma_16816(st[j], ka, b0, b1);
-        load_b_frag<LDS>(b0, b1, o_s, j, c, lane);
-        mma_16816(dpt[j], va, b0, b1);
-      }
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(st, desc_k_major(k_s, kk), desc_k_major(q_s, kk), kk > 0);
     }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
 
-    // P^T (masked entries 0), dropout, dS^T; pdt reuses the S^T registers
-    // once dS^T is formed
+    // P^T (masked entries 0), dropout, dS^T; the dropped P^T replaces S^T
+    // and dS^T replaces dP^T in place
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);   // query in tile
+      st[i2] = ex2(fmaf(st[i2], kLog2e, -lse_s[qi] * kLog2e));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t4 + (e & 1);    // query within the tile
-        const int row = q0 + qi;
-        const int col = (e < 2) ? key0 : key0 + 8;
-        const bool ok = row < Tq && col < Tk && col < kv_len &&
-                        (!p.masked || col <= row + p.offset);
-        const float pr = ok ? expf(st[j][e] - lse_s[qi]) : 0.f;
-        float dpr = dpt[j][e];
-        float pdr = pr;
-        if (p.drop.on) {
-          const bool kept = p.drop.keep(bh, row, col);
-          pdr = kept ? pr * p.drop.inv_keep : 0.f;
-          dpr = kept ? dpr * p.drop.inv_keep : 0.f;
+      for (int i2 = 0; i2 < 32; ++i2) {
+        const int row = q0 + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+        const int col = (i2 & 2) ? key0 + 8 : key0;
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          st[i2] = 0.f;
         }
-        dpt[j][e] = pr * (dpr - dl_s[qi]);   // dS^T
-        st[j][e] = pdr;                      // dropped P^T
       }
     }
-    mma_p_tile<kDTiles, LDS>(dv, st, o_s, lane);    // dV += P^T dO
-    mma_p_tile<kDTiles, LDS>(dk, dpt, q_s, lane);   // dK += dS^T Q
-  }
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+      const int row = q0 + qi;
+      const int col = (i2 & 2) ? key0 + 8 : key0;
+      const float pr = st[i2];
+      float dpr = dpt[i2];
+      float pdr = pr;
+      if (p.drop.on) {
+        const bool kept = p.drop.keep(bh, row, col);
+        pdr = kept ? pr * p.drop.inv_keep : 0.f;
+        dpr = kept ? dpr * p.drop.inv_keep : 0.f;
+      }
+      dpt[i2] = pr * (dpr - dl_s[qi]);
+      st[i2] = pdr;
+    }
 
-  store_rows<kDTiles>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st,
-                      k0 + warp * 16 + g, Tk, dk, t4);
-  store_rows<kDTiles>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st,
-                      k0 + warp * 16 + g, Tk, dv, t4);
+    // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
+    uint32_t pa[4][4], da[4][4];
+    p_frags(pa, st);
+    p_frags(da, dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<D>(dv, pa[kc], desc_mn_major(o_s, kc));
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<D>(dk, da[kc], desc_mn_major(q_s, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+  }
+  cp_async_wait<0>();
+
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4);
 }
 
 // One (batch*head, 64-query tile): dQ.
 template <int D>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int LDS = D + 8;
-  constexpr int kDChunks = D / 16;
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* o_s = q_s + kTile * LDS;          // dO
-  __nv_bfloat16* k_s = o_s + kTile * LDS;
-  __nv_bfloat16* v_s = k_s + kSpan * LDS;
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kKSteps = D / 16;
+  extern __shared__ unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t o_s = q_s + kTile;        // dO
+  const uint32_t kv_s = o_s + kTile;   // stage s: K at + 2 s kTile, V after
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t4 = lane % 4;
   const int Tq = p.Tq, Tk = p.Tk;
   const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
   const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
 
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float* dl_b = p.delta + (long long)bh * Tq;
-  const float lse0 = row0 < Tq ? lse_b[row0] : 0.f;
-  const float lse1 = row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f;
+  const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
+  const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
   const float dl0 = row0 < Tq ? dl_b[row0] : 0.f;
   const float dl1 = row0 + 8 < Tq ? dl_b[row0 + 8] : 0.f;
 
-  float dq[kDTiles][4];
-  zero_acc(dq);
+  float dq[D / 2], s[32], dp[32];
+  zero(dq);
+  zero(s);
+  zero(dp);
 
   // key tiles with a visible key: none past kv_len, none above the band
-  int n_tiles = (min(Tk, max(kv_len, 0)) + kSpan - 1) / kSpan;
+  int n_tiles = (max(kv_end, 0) + kRows - 1) / kRows;
   if (p.masked) {
-    n_tiles = min(n_tiles, (q0 + kTile - 1 + p.offset) / kSpan + 1);
-  }
-
-  if (n_tiles > 0) {
-    load_tile<D, LDS>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq,
-                      kTile);
-    load_tile<D, LDS>(o_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0, Tq,
-                      kTile);
+    n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
   }
   const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kSpan;
-    __syncthreads();
-    load_tile<D, LDS>(k_s, kb, p.k_st, k0, Tk, kSpan);
-    load_tile<D, LDS>(v_s, vb, p.v_st, k0, Tk, kSpan);
-    __syncthreads();
 
-    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp
-    float s[8][4], dp[8][4];
-    zero_acc(s);
-    zero_acc(dp);
+  // key tile t goes to ring stage t mod kStages
+  auto load_kv = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
+    load_tile_async<D>(dst, kb, p.k_st, t * kRows, Tk);
+    load_tile_async<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+  };
+  if (n_tiles > 0) {
+    load_tile_async<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq);
+    load_tile_async<D>(o_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0,
+                       Tq);
+  }
 #pragma unroll
-    for (int c = 0; c < kDChunks; ++c) {
-      uint32_t qa[4], oa[4];
-      load_a_frag<LDS>(qa, q_s, warp * 16, c, lane);
-      load_a_frag<LDS>(oa, o_s, warp * 16, c, lane);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        load_b_frag<LDS>(b0, b1, k_s, j, c, lane);
-        mma_16816(s[j], qa, b0, b1);
-        load_b_frag<LDS>(b0, b1, v_s, j, c, lane);
-        mma_16816(dp[j], oa, b0, b1);
-      }
-    }
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = (e < 2) ? row0 : row0 + 8;
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-        const bool ok = row < Tq && col < Tk && col < kv_len &&
-                        (!p.masked || col <= row + p.offset);
-        const float pr =
-            ok ? expf(s[j][e] - ((e < 2) ? lse0 : lse1)) : 0.f;
-        float dpr = dp[j][e];
-        if (p.drop.on) {
-          dpr = p.drop.keep(bh, row, col) ? dpr * p.drop.inv_keep : 0.f;
-        }
-        s[j][e] = pr * (dpr - ((e < 2) ? dl0 : dl1));   // dS
-      }
-    }
-    mma_p_tile<kDTiles, LDS>(dq, s, k_s, lane);   // dQ += dS K
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
   }
 
-  store_rows<kDTiles>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq,
-                      dq, t4);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + kStages - 1 < n_tiles) load_kv(kt + kStages - 1);
+    cp_async_commit();
+    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
+    const uint32_t v_s = k_s + kTile;
+    const int k0 = kt * kRows;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(dp, desc_k_major(o_s, kk), desc_k_major(v_s, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? lsel1 : lsel0)));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = (i & 2) ? row0 + 8 : row0;
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          s[i] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hi = i & 2;
+      const int row = hi ? row0 + 8 : row0;
+      const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+      const float pr = s[i];
+      float dpr = dp[i];
+      if (p.drop.on) {
+        dpr = p.drop.keep(bh, row, col) ? dpr * p.drop.inv_keep : 0.f;
+      }
+      s[i] = pr * (dpr - (hi ? dl1 : dl0));   // dS
+    }
+
+    // dQ += dS K, dS from registers, K MN-major
+    uint32_t da[4][4];
+    p_frags(da, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<D>(dq, da[kc], desc_mn_major(k_s, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+  }
+  cp_async_wait<0>();
+
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
 }
 
 template <int D>
-cudaError_t launch(const BwdParams& p, cudaStream_t s) {
+cudaError_t launch_delta(const __nv_bfloat16* o, const __nv_bfloat16* dout,
+                         float* delta, int B, int H, int T, long long o_sb,
+                         long long o_sh, long long o_st, long long do_sb,
+                         long long do_sh, long long do_st, cudaStream_t s) {
+  const int rows = B * H * T;
+  flash_delta_kernel<D><<<(rows + 15) / 16, 256, 0, s>>>(
+      o, dout, delta, H, T, rows, o_sb, o_sh, o_st, do_sb, do_sh, do_st);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const BwdParams& p, const __nv_bfloat16* o, long long o_sb,
+                   long long o_sh, long long o_st, cudaStream_t s) {
   static bool smem_dkdv = false, smem_dq = false;
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, bytes, smem_dkdv);
+  constexpr int dkdv_bytes = dkdv_smem_bytes<D>();
+  constexpr int dq_bytes = dq_smem_bytes<D>();
+  cudaError_t err =
+      allow_smem(flash_bwd_dkdv_kernel<D>, dkdv_bytes, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dq_kernel<D>, bytes, smem_dq);
+  err = allow_smem(flash_bwd_dq_kernel<D>, dq_bytes, smem_dq);
   if (err != cudaSuccess) return err;
-  const dim3 block(32 * kWarps);
-  const dim3 grid_kv((p.Tk + kTile - 1) / kTile, p.B * p.H);
-  flash_bwd_dkdv_kernel<D><<<grid_kv, block, bytes, s>>>(p);
+  err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
+                        p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H);
+  flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, dkdv_bytes, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_q((p.Tq + kTile - 1) / kTile, p.B * p.H);
-  flash_bwd_dq_kernel<D><<<grid_q, block, bytes, s>>>(p);
+  const dim3 grid_q((p.Tq + kRows - 1) / kRows, p.B * p.H);
+  flash_bwd_dq_kernel<D><<<grid_q, kThreads, dq_bytes, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -346,23 +494,26 @@ cudaError_t launch(const BwdParams& p, cudaStream_t s) {
 
 extern "C" {
 
-// q, k, v, dO, dq, dk, dv: (B, H, T, D) bf16 by strides (b, h, t); lse and
-// delta (B*H, Tq) fp32; kv_lens (B,) int32 or null.  Launches the dK/dV
-// kernel, then the dQ kernel, on the stream.  Returns a cudaError_t (0 on
-// success); cudaErrorInvalidValue for a head_dim without an instantiation.
+// q, k, v, dO, o, dq, dk, dv: (B, H, T, D) bf16 by strides (b, h, t); lse
+// (B*H, Tq) fp32; delta an fp32 (B*H, Tq) workspace the call fills; kv_lens
+// (B,) int32 or null.  Launches the delta kernel, the dK/dV kernel, then the
+// dQ kernel, on the stream.  Returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue for a head_dim without an instantiation.
 int bpx_flash_bwd(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  const void* kv_lens, void* dq, void* dk, void* dv, int B,
-                  int H, int Tq, int Tk, int D, long long q_sb,
-                  long long q_sh, long long q_st, long long k_sb,
-                  long long k_sh, long long k_st, long long v_sb,
-                  long long v_sh, long long v_st, long long o_sb,
-                  long long o_sh, long long o_st, long long dq_sb,
-                  long long dq_sh, long long dq_st, long long dk_sb,
-                  long long dk_sh, long long dk_st, long long dv_sb,
-                  long long dv_sh, long long dv_st, int masked, int offset,
-                  int dropout, unsigned int seed, unsigned int threshold,
-                  float inv_keep, int tk_p, void* stream) {
+                  const void* dout, const void* o, const void* lse,
+                  void* delta, const void* kv_lens, void* dq, void* dk,
+                  void* dv, int B, int H, int Tq, int Tk, int D,
+                  long long q_sb, long long q_sh, long long q_st,
+                  long long k_sb, long long k_sh, long long k_st,
+                  long long v_sb, long long v_sh, long long v_st,
+                  long long do_sb, long long do_sh, long long do_st,
+                  long long o_sb, long long o_sh, long long o_st,
+                  long long dq_sb, long long dq_sh, long long dq_st,
+                  long long dk_sb, long long dk_sh, long long dk_st,
+                  long long dv_sb, long long dv_sh, long long dv_st,
+                  int masked, int offset, int dropout, unsigned int seed,
+                  unsigned int threshold, float inv_keep, int tk_p,
+                  void* stream) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -381,7 +532,7 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
+  p.o_sb = do_sb; p.o_sh = do_sh; p.o_st = do_st;
   p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_st = dq_st;
   p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_st = dk_st;
   p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_st = dv_st;
@@ -392,12 +543,37 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   p.drop.threshold = threshold;
   p.drop.inv_keep = inv_keep;
   p.drop.tk_p = static_cast<uint32_t>(tk_p);
+  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return static_cast<int>(launch<64>(p, s));
+      return static_cast<int>(launch<64>(p, ob, o_sb, o_sh, o_st, s));
     case 96:
-      return static_cast<int>(launch<96>(p, s));
+      return static_cast<int>(launch<96>(p, ob, o_sb, o_sh, o_st, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// delta = rowsum(dO * O) in fp32 into a contiguous (B*H, T) buffer: the
+// first launch of bpx_flash_bwd, on its own.
+int bpx_flash_delta(const void* o, const void* dout, void* delta, int B,
+                    int H, int T, int D, long long o_sb, long long o_sh,
+                    long long o_st, long long do_sb, long long do_sh,
+                    long long do_st, void* stream) {
+  const auto* ob = static_cast<const __nv_bfloat16*>(o);
+  const auto* dob = static_cast<const __nv_bfloat16*>(dout);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return static_cast<int>(launch_delta<64>(ob, dob, dl, B, H, T, o_sb,
+                                               o_sh, o_st, do_sb, do_sh,
+                                               do_st, s));
+    case 96:
+      return static_cast<int>(launch_delta<96>(ob, dob, dl, B, H, T, o_sb,
+                                               o_sh, o_st, do_sb, do_sh,
+                                               do_st, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,23 @@
 // Device helpers shared by the flash-attention forward (flash_fwd.cu) and
-// backward (flash_bwd.cu) kernels: tensor-core fragments, tile loads, and the
-// in-kernel dropout hash.
+// backward (flash_bwd.cu) kernels for Hopper (sm_90a): asynchronous tile
+// loads into a swizzled shared-memory layout, the wgmma matrix descriptors
+// and instructions that read it, and the in-kernel dropout hash.
+//
+// Tile layout.  Every tile is 64 rows (queries or keys) of D bf16 values,
+// split into D / 32 column panels of 32 values (64 bytes).  A panel holds its
+// 64 rows back to back (64 B apart, 4 KB per panel) with the 64-byte swizzle
+// of wgmma and TMA (16-byte chunk c of row r stored at chunk c ^ ((r / 2) %
+// 4)), so the 16-byte copies of a warp and the tensor cores' reads hit
+// distinct banks.  D = 96 is not a swizzle span (192 B), but three 64-byte
+// panels are; D = 64 is two panels and D = 128 would be four.
+//
+// The same tile serves both operand majors of wgmma:
+//   * K-major, when D is the reduction (S = Q K^T): the 16-wide k-step kk
+//     starts at panel kk / 2, byte 32 (kk % 2); 8-row groups are 512 B apart.
+//   * MN-major, when the 64 rows are the reduction and D the output width
+//     (O = P V): the k-step of 16 rows starts 1 KB further on; the 32-wide
+//     output panels are 4 KB apart (the leading byte offset), the 8-row
+//     groups 512 B (the stride byte offset).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,101 +27,236 @@
 namespace bpx_flash {
 
 constexpr float kMaskFill = -1e30f;   // the TPU kernels' NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 128;         // one warpgroup per block
+constexpr int kRows = 64;             // rows of every tile
+constexpr int kPanelBytes = kRows * 64;
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  static_assert(D % 32 == 0 && D <= 128, "head_dim must be 32*k, <= 128");
+  return D / 32 * kPanelBytes;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copy rows [t0, t0 + rows) of one (batch, head) slice into shared memory
-// with 16-byte vector loads; rows past T are zero-filled.
-template <int D, int LDS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride_t, int t0, int T,
-                                          int rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t0 + r < T) {
-      val = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride_t + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + c * 8) = val;
+// ---------------------------------------------------------------------------
+// asynchronous copies (cp.async): 16-byte chunks, zero-filled when !valid
+// ---------------------------------------------------------------------------
+//
+// cp.async rather than TMA: the q/k/v/dO tiles are strided (B, H, T, D)
+// views with ragged T, so a TMA descriptor per tensor would have to be
+// encoded on the host at every call of a host-bound path; 128 threads
+// issuing six 16-byte copies each per tile cost the SM nothing that matters
+// here, zero-fill the rows past T, and write the swizzled layout directly.
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's completed cp.async writes visible to the async proxy
+// (wgmma's operand reads); a block barrier must follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk c (0..3) of row r in panel `panel`.
+__device__ __forceinline__ uint32_t tile_offset(int r, int panel, int c) {
+  return panel * kPanelBytes + r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// Start the copies of rows [t0, t0 + 64) of one (batch, head) slice (row
+// pitch stride_t elements, last dim contiguous) into the tile at dst; rows
+// at or past T are zero-filled.  Four neighbouring threads copy one 64-byte
+// panel row, so a warp's 16-byte stores cover 512 distinct bytes.
+template <int D>
+__device__ __forceinline__ void load_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                long long stride_t, int t0,
+                                                int T) {
+  constexpr int kChunks = kRows * D / 8;
+  static_assert(kChunks % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int j = 0; j < kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int c = i & 3;
+    const int r = (i >> 2) & (kRows - 1);
+    const int panel = i >> 8;
+    const bool ok = t0 + r < T;
+    const __nv_bfloat16* g =
+        ok ? src + (long long)(t0 + r) * stride_t + panel * 32 + c * 8 : src;
+    cp_async_16(dst + tile_offset(r, panel, c), g, ok);
   }
 }
 
-// A fragment (16 x 16, row-major) of rows [r16, r16 + 16) and columns
-// [16 c, 16 c + 16) of a bf16 tile in shared memory with row pitch LDS.
-template <int LDS>
-__device__ __forceinline__ void load_a_frag(uint32_t a[4],
-                                            const __nv_bfloat16* tile,
-                                            int r16, int c, int lane) {
-  const __nv_bfloat16* r0 = tile + (r16 + lane / 4) * LDS + 2 * (lane % 4);
-  const __nv_bfloat16* r1 = r0 + 8 * LDS;
-  a[0] = *reinterpret_cast<const uint32_t*>(r0 + c * 16);
-  a[1] = *reinterpret_cast<const uint32_t*>(r1 + c * 16);
-  a[2] = *reinterpret_cast<const uint32_t*>(r0 + c * 16 + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(r1 + c * 16 + 8);
+// ---------------------------------------------------------------------------
+// wgmma: descriptors, synchronisation, instructions
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 64-byte swizzle (layout type 2).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
 }
 
-// B fragment (16 x 8, "col") whose n index runs over tile rows
-// [8 j, 8 j + 8) and whose k index runs over columns [16 c, 16 c + 16):
-// the operand of X . tile^T.
-template <int LDS>
-__device__ __forceinline__ void load_b_frag(uint32_t& b0, uint32_t& b1,
-                                            const __nv_bfloat16* tile, int j,
-                                            int c, int lane) {
-  const __nv_bfloat16* r = tile + (j * 8 + lane / 4) * LDS + 2 * (lane % 4);
-  b0 = *reinterpret_cast<const uint32_t*>(r + c * 16);
-  b1 = *reinterpret_cast<const uint32_t*>(r + c * 16 + 8);
+// The tile at `tile` as a K-major operand (64 rows x 16 of D), k-step kk.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
+  return sw64_desc(tile + (kk >> 1) * kPanelBytes + (kk & 1) * 32, 16, 512);
 }
 
-// acc[0 .. DT) += P . tile, where P is a 16 x 64 fp32 accumulator set
-// (eight 16x8 n-tiles, the layout mma leaves them in) cast to bf16, and tile
-// is 64 x (8 DT) bf16 in shared memory: the k index runs over tile rows.
-// The accumulator layout of two adjacent n-tiles is the A fragment of one
-// 16-deep k-step, so P never touches shared memory.
-template <int DT, int LDS>
-__device__ __forceinline__ void mma_p_tile(float acc[][4], const float p[8][4],
-                                           const __nv_bfloat16* tile,
-                                           int lane) {
+// The tile at `tile` as an MN-major operand (16 rows x D), k-step ks.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int ks) {
+  return sw64_desc(tile + ks * 1024, kPanelBytes, 512);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin accumulator registers at this point of the program: the compiler
+// sees wgmma as synchronous, so reads after wgmma_wait and writes before
+// the next wgmma must not move across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d(64 x N, fp32) (+)= A(64 x 16) . B(16 x N), A and B K-major in shared
+// memory (descriptors a, b); accumulate = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate);
+
+// d(64 x N, fp32) += A(64 x 16, bf16 registers) . B(16 x N), B MN-major in
+// shared memory.  The A registers are the m16n8k16 A fragment of each warp's
+// 16 rows, which is the layout two adjacent 8-column blocks of a wgmma
+// accumulator take once packed to bf16 pairs (see p_frags).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<96>(float (&d)[48],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The bf16 A fragments of P . B for a 64 x 64 fp32 accumulator p (32 per
+// thread): k-step kc (keys 16 kc .. 16 kc + 15) takes the accumulator's
+// 8-column blocks 2 kc and 2 kc + 1, already in the A fragment's places.
+__device__ __forceinline__ void p_frags(uint32_t (&a)[4][4],
+                                        const float (&p)[32]) {
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16x2(p[2 * kc][0], p[2 * kc][1]);
-    pa[1] = pack_bf16x2(p[2 * kc][2], p[2 * kc][3]);
-    pa[2] = pack_bf16x2(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    pa[3] = pack_bf16x2(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-    const int vrow = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int vcol = (lane >> 4) * 8;
-#pragma unroll
-    for (int n = 0; n < DT; n += 2) {
-      uint32_t vb4[4];
-      ldmatrix_x4_trans(vb4, tile + vrow * LDS + n * 8 + vcol);
-      mma_16816(acc[n], pa, vb4[0], vb4[1]);
-      mma_16816(acc[n + 1], pa, vb4[2], vb4[3]);
-    }
+    a[kc][0] = pack_bf16x2(p[8 * kc + 0], p[8 * kc + 1]);
+    a[kc][1] = pack_bf16x2(p[8 * kc + 2], p[8 * kc + 3]);
+    a[kc][2] = pack_bf16x2(p[8 * kc + 4], p[8 * kc + 5]);
+    a[kc][3] = pack_bf16x2(p[8 * kc + 6], p[8 * kc + 7]);
   }
 }
 

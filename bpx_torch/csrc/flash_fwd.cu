@@ -17,24 +17,34 @@
 // (flash_common.cuh), so the backward regenerates the same mask.
 //
 // Design.  The TPU kernel holds a whole-Tk fp32 score tile (up to 512 x 1024)
-// in VMEM; an SM cannot.  Here one block of 4 warps owns 64 query rows (16 per
-// warp) of one (batch, head) and walks the keys in tiles of 64 with the online
-// softmax of FlashAttention-2: the running max m and the per-thread partial
-// row sums l are rescaled by exp(m_old - m_new) whenever the max grows, and the
-// fp32 output accumulator with them.  Products run on the tensor cores with
-// mma.sync m16n8k16 (bf16 operands, fp32 accumulation); the score accumulator
-// of S = Q K^T is re-packed in registers as the A operand of P V, so P never
-// touches shared memory.  V's B operand comes from ldmatrix.trans.  Tiles whose
-// every entry is masked (above the band, or past kv_len) are skipped, which is
-// exact whenever some key of the row is visible (kv_len > 0); with kv_len <= 0
-// every tile is visited so the uniform-attention result above is kept.
+// in VMEM; an SM cannot.  One warpgroup (128 threads) owns 64 query rows of
+// one (batch, head) and walks the keys in tiles of 64 with the online softmax
+// of FlashAttention-2.  Both products run on wgmma: S = Q K^T with Q and K
+// from shared memory (K-major), O += P V with P from registers (the S
+// accumulator, packed to bf16, is already wgmma's A-fragment layout) and V
+// from shared memory as an MN-major operand, so P never touches shared
+// memory.  K and V tiles stream through a 3-stage cp.async ring
+// (flash_common.cuh says why not TMA): the copies of tiles t + 1 and t + 2
+// are in flight while tile t computes.  64-row tiles rather than 128: the
+// grid is Tq / 64 x B*H = 256 blocks at Tq = 200 (B*H = 64) and 512 at
+// Tq = 512, 2 blocks of 85 KB (D = 96; 3 of 57 KB at D = 64) per SM; at
+// Tq = 200 both tilings pad to 256 rows, but 128-row tiles would give half
+// the blocks, 128, fewer than the SMs.  No producer warp: every thread
+// issues its share of the copies, and the loop is latency-, not
+// issue-bound.  (A 2-stage ring fits 3 blocks at D = 96 and measured
+// slower over the model's mix; Q as a register A operand, loaded once,
+// measured no faster.)  Only edge tiles (the band's diagonal, kv_len, Tk)
+// test each score; tiles wholly above the band or past kv_len are skipped,
+// exact whenever some key of the row is visible (kv_len > 0); with
+// kv_len <= 0 every tile is visited so the uniform-attention result above
+// is kept.  exp is exp2 with log2(e) folded
+// in; on edge tiles the product and the difference are rounded apart so
+// that a -1e30 score minus a -1e30 max is exactly 0.
 //
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D 64/96)
 // the arithmetic intensity is below the card's ~295 flop/byte balance point,
-// so the bound is the bytes, and what matters is streaming K/V through
-// shared memory once per 64-row query tile.  Loads are synchronous 16-byte
-// vector loads here; a cp.async/TMA pipeline and wgmma are later work.
+// so the bound is the bytes.
 //
 // Inputs are (B, H, T, D) tensors addressed by strides (the last dim
 // contiguous, every stride a multiple of 8 elements, pointers 16-byte
@@ -46,9 +56,7 @@ namespace {
 
 using namespace bpx_flash;
 
-constexpr int kWarps = 4;
-constexpr int kBlockQ = 16 * kWarps;   // query rows per block
-constexpr int kBlockK = 64;            // keys per tile
+constexpr int kStages = 3;   // K/V tiles in flight
 
 struct FlashParams {
   const __nv_bfloat16* q;
@@ -67,111 +75,110 @@ struct FlashParams {
   Dropout drop;
 };
 
+// Q, then kStages x (K, V); +1 KB to align the base to the swizzle.
 template <int D>
-__global__ void __launch_bounds__(32 * kWarps)
+__host__ __device__ constexpr int smem_bytes() {
+  return (1 + 2 * kStages) * tile_bytes<D>() + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams p) {
-  // three (64 x (D+8)) bf16 tiles must fit the 48 KB of static shared memory
-  static_assert(D % 16 == 0 && D <= 96, "head_dim must be 16*k, at most 96");
-  // +8 bf16 of padding per row keeps the fragment loads and ldmatrix rows on
-  // distinct banks
-  constexpr int LDS = D + 8;
-  constexpr int kDChunks = D / 16;   // k-steps of Q K^T
-  constexpr int kDTiles = D / 8;     // n-tiles of P V
-  constexpr int kKTiles = kBlockK / 8;
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBlockQ * LDS];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK * LDS];
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kKSteps = D / 16;   // k-steps of Q K^T
+  extern __shared__ unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + kTile;   // stage s: K at + 2 s kTile, V after
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;     // row within the warp's 16 (and g + 8)
-  const int t4 = lane % 4;    // column pair within an 8-wide n-tile
+  const int t4 = lane % 4;    // column pair within an 8-wide block
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
   const int Tk = p.Tk;
   const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);   // keys from here on are masked
 
-  load_tile<D, LDS>(q_s, qb, p.q_st, q0, p.Tq, kBlockQ);
-  __syncthreads();
-
-  // this warp's Q rows as A fragments, kept in registers for the whole loop
-  uint32_t qf[kDChunks][4];
-  {
-    const __nv_bfloat16* r0 = q_s + (warp * 16 + g) * LDS + 2 * t4;
-    const __nv_bfloat16* r1 = r0 + 8 * LDS;
-#pragma unroll
-    for (int c = 0; c < kDChunks; ++c) {
-      qf[c][0] = *reinterpret_cast<const uint32_t*>(r0 + c * 16);
-      qf[c][1] = *reinterpret_cast<const uint32_t*>(r1 + c * 16);
-      qf[c][2] = *reinterpret_cast<const uint32_t*>(r0 + c * 16 + 8);
-      qf[c][3] = *reinterpret_cast<const uint32_t*>(r1 + c * 16 + 8);
+  // key tiles to visit
+  int n_tiles = (Tk + kRows - 1) / kRows;
+  if (kv_len > 0) {
+    n_tiles = min(n_tiles, (kv_len + kRows - 1) / kRows);
+    if (p.masked) {
+      n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
     }
+  }
+
+  // key tile t goes to ring stage t mod kStages
+  auto load_kv = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
+    load_tile_async<D>(dst, kb, p.k_st, t * kRows, Tk);
+    load_tile_async<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+  };
+  load_tile_async<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
   }
 
   const int row0 = q0 + warp * 16 + g;   // global query rows of this thread
   const int row1 = row0 + 8;
-
-  // key tiles to visit
-  int n_tiles = (Tk + kBlockK - 1) / kBlockK;
-  if (kv_len > 0) {
-    n_tiles = min(n_tiles, (kv_len + kBlockK - 1) / kBlockK);
-    if (p.masked) {
-      const int last_col = q0 + kBlockQ - 1 + p.offset;
-      n_tiles = min(n_tiles, last_col / kBlockK + 1);
-    }
-  }
-
   float m0 = kMaskFill, m1 = kMaskFill;   // running row max
   float l0 = 0.f, l1 = 0.f;               // per-thread partial row sums
-  float acc[kDTiles][4];
+  float acc[D / 2], s[32];
 #pragma unroll
-  for (int n = 0; n < kDTiles; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();   // every warp is done with the previous tile
-    load_tile<D, LDS>(k_s, kb, p.k_st, k0, Tk, kBlockK);
-    load_tile<D, LDS>(v_s, vb, p.v_st, k0, Tk, kBlockK);
+    // tile kt has landed (each thread waits for its own copies, then the
+    // barrier publishes everyone's); every warp is done with tile kt - 1
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
     __syncthreads();
+    if (kt + kStages - 1 < n_tiles) load_kv(kt + kStages - 1);
+    cp_async_commit();
+    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
+    const uint32_t v_s = k_s + kTile;
+    const int k0 = kt * kRows;
 
-    // S = Q K^T for 16 rows x 64 keys per warp
-    float s[kKTiles][4];
+    // S = Q K^T, 64 rows x 64 keys
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (j * 8 + g) * LDS + 2 * t4;
-#pragma unroll
-      for (int c = 0; c < kDChunks; ++c) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + c * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + c * 16 + 8);
-        mma_16816(s[j], qf[c], b0, b1);
-      }
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
-    // masks: -inf past Tk (not a key at all), -1e30 for masked keys
-    float mx0 = kMaskFill, mx1 = kMaskFill;
+    const bool edge = k0 + kRows > kv_end ||
+                      (p.masked && k0 + kRows - 1 > q0 + p.offset);
+    if (edge) {
+      // -inf past Tk (not a key at all), -1e30 for masked keys
 #pragma unroll
-    for (int j = 0; j < kKTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-        const int row = (e < 2) ? row0 : row1;
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        const int row = (i & 2) ? row1 : row0;
         if (col >= Tk) {
-          s[j][e] = -INFINITY;
+          s[i] = -INFINITY;
         } else if (col >= kv_len || (p.masked && col > row + p.offset)) {
-          s[j][e] = kMaskFill;
+          s[i] = kMaskFill;
         }
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    float mx0 = kMaskFill, mx1 = kMaskFill;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
     // the 4 threads of a quad share a row
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
@@ -180,46 +187,56 @@ flash_fwd_kernel(const FlashParams p) {
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0);
     const float mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0);
-    const float alpha1 = expf(m1 - mn1);
+    const float alpha0 = ex2((m0 - mn0) * kLog2e);
+    const float alpha1 = ex2((m1 - mn1) * kLog2e);
     m0 = mn0;
     m1 = mn1;
+    const float ml0 = __fmul_rn(mn0, kLog2e);
+    const float ml1 = __fmul_rn(mn1, kLog2e);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(__fmul_rn(s[i], kLog2e) - ((i & 2) ? ml1 : ml0));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? ml1 : ml0)));
+      }
+    }
     l0 *= alpha0;
     l1 *= alpha1;
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      acc[n][0] *= alpha0;
-      acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1;
-      acc[n][3] *= alpha1;
+    for (int j = 0; j < 8; ++j) {
+      l0 += s[4 * j] + s[4 * j + 1];
+      l1 += s[4 * j + 2] + s[4 * j + 3];
     }
 #pragma unroll
-    for (int j = 0; j < kKTiles; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
 
     // dropout after the row sums, so l keeps the undropped probabilities
     if (p.drop.on) {
 #pragma unroll
-      for (int j = 0; j < kKTiles; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int row = (e < 2) ? row0 : row1;
-          s[j][e] = p.drop.keep(bh, row, col) ? s[j][e] * p.drop.inv_keep
-                                              : 0.f;
-        }
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        const int row = (i & 2) ? row1 : row0;
+        s[i] = p.drop.keep(bh, row, col) ? s[i] * p.drop.inv_keep : 0.f;
       }
     }
 
     // O += bf16(P) V, P straight from the score registers
-    mma_p_tile<kDTiles, LDS>(acc, s, v_s, lane);
+    uint32_t pa[4][4];
+    p_frags(pa, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<D>(acc, pa[kc], desc_mn_major(v_s, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
+  cp_async_wait<0>();
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -232,21 +249,32 @@ flash_fwd_kernel(const FlashParams p) {
   if (row0 < p.Tq) {
     __nv_bfloat16* orow = ob + row0 * p.o_st + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16x2(acc[n][0] / ls0, acc[n][1] / ls0);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16x2(acc[4 * j] / ls0, acc[4 * j + 1] / ls0);
     }
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
   }
   if (row1 < p.Tq) {
     __nv_bfloat16* orow = ob + row1 * p.o_st + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16x2(acc[n][2] / ls1, acc[n][3] / ls1);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16x2(acc[4 * j + 2] / ls1, acc[4 * j + 3] / ls1);
     }
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
   }
+}
+
+template <int D>
+cudaError_t launch(const FlashParams& p, cudaStream_t s) {
+  static bool smem_set = false;
+  constexpr int bytes = smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Tq + kRows - 1) / kRows, p.B * p.H);
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -287,20 +315,15 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.drop.threshold = threshold;
   p.drop.inv_keep = inv_keep;
   p.drop.tk_p = static_cast<uint32_t>(tk_p);
-  const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
-  const dim3 block(32 * kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      flash_fwd_kernel<64><<<grid, block, 0, s>>>(p);
-      break;
+      return static_cast<int>(launch<64>(p, s));
     case 96:
-      flash_fwd_kernel<96><<<grid, block, 0, s>>>(p);
-      break;
+      return static_cast<int>(launch<96>(p, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* bpx_error_string(int err) {

@@ -96,9 +96,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12 + [i, i]
                                   + dropout + [p])
     lib.bpx_flash_fwd.restype = i
-    lib.bpx_flash_bwd.argtypes = ([p] * 10 + [i] * 5 + [ll] * 21 + [i, i]
+    lib.bpx_flash_bwd.argtypes = ([p] * 11 + [i] * 5 + [ll] * 24 + [i, i]
                                   + dropout + [p])
     lib.bpx_flash_bwd.restype = i
+    lib.bpx_flash_delta.argtypes = [p] * 3 + [i] * 4 + [ll] * 6 + [p]
+    lib.bpx_flash_delta.restype = i
     lib.bpx_layer_norm_fwd.argtypes = [p] * 6 + [i, i, f, i, i, i, p]
     lib.bpx_layer_norm_fwd.restype = i
     lib.bpx_layer_norm_bwd.argtypes = [p] * 9 + [i] * 5 + [p]

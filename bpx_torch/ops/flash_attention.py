@@ -13,10 +13,13 @@ so the backward regenerates the mask: the row sum keeps the undropped
 probabilities, kept ones are scaled by ``float32(1 / (1 - rate))``.
 
 The backward recomputes P from the saved log-sum-exp, with ``delta =
-rowsum(dO * O)`` in fp32 computed here before the kernels (the JAX
-package's default, ``_use_xla_delta``).  Masked entries get P = 0, so a row
-with no visible key gets zero gradients although its forward attended
-uniformly: that is the JAX package's backward, not the true derivative.
+rowsum(dO * O)`` in fp32: on the card the first kernel of the backward's
+launch computes it (what the JAX package's kernels compute in-kernel with
+``BPX_XLA_DELTA=0``; its default computes it in XLA before them, the same
+function), on the CPU :func:`attention_delta`'s plain version.  Masked
+entries get P = 0, so a row with no visible key gets zero gradients
+although its forward attended uniformly: that is the JAX package's
+backward, not the true derivative.
 """
 
 from __future__ import annotations
@@ -217,14 +220,45 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              kv_lens=None, dropout_rate=0.0,
                              dropout_seed=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
-    ``dout``; the kernels for CUDA tensors, the plain version for CPU."""
-    delta = (dout.float() * out.float()).sum(-1)
+    ``dout``; the kernels (delta, dK/dV, dQ) for CUDA tensors, the plain
+    version for CPU."""
     if not use_kernel(q):
         return flash_attention_backward_reference(
-            q, k, v, dout, lse, delta, masked, kv_lens, dropout_rate,
-            dropout_seed)
-    return _launch_bwd(q, k, v, dout, lse, delta, masked, kv_lens,
+            q, k, v, dout, lse, attention_delta(dout, out), masked, kv_lens,
+            dropout_rate, dropout_seed)
+    return _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens,
                        dropout_rate, dropout_seed)
+
+
+def attention_delta_reference(dout: torch.Tensor,
+                              out: torch.Tensor) -> torch.Tensor:
+    """Plain ``rowsum(dO * O)`` in fp32: (B, H, T, D) -> (B, H, T)."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors: the backward's
+    first kernel on its own for CUDA tensors, the plain version for CPU."""
+    if not use_kernel(dout):
+        return attention_delta_reference(dout, out)
+    B, H, T, D = out.shape
+    if dout.shape != out.shape:
+        raise ValueError(f"dO {tuple(dout.shape)} and O {tuple(out.shape)}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+    dout, out = (_kernel_ready(n, t, dout.device)
+                 for n, t in (("dO", dout), ("O", out)))
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=out.device)
+    if delta.numel() == 0:
+        return delta
+    err = _cuda.library().bpx_flash_delta(
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
+        *out.stride()[:3], *dout.stride()[:3],
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _cuda.check(err, "flash_delta")
+    attention_delta.launches += 1
+    return delta
 
 
 def _kernel_ready(name, t, device):
@@ -283,31 +317,33 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seed=None):
     return out, lse
 
 
-def _launch_bwd(q, k, v, dout, lse, delta, masked, kv_lens, rate=0.0,
+def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
                 seed=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if D not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
-    q, k, v, dout = (_kernel_ready(n, t, q.device) for n, t in
-                     (("q", q), ("k", k), ("v", v), ("dO", dout)))
+    q, k, v, dout, out = (_kernel_ready(n, t, q.device) for n, t in
+                          (("q", q), ("k", k), ("v", v), ("dO", dout),
+                           ("O", out)))
     masked, offset = effective_band(Tq, Tk, masked)
     kv_lens, kvl_ptr = _kv_lens_ptr(kv_lens, q.device)
     lse = lse.float().contiguous()
-    delta = delta.contiguous()
+    delta = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     grads = [torch.empty(B, T, H, D, dtype=q.dtype,
                          device=q.device).transpose(1, 2)
              for T in (Tq, Tk, Tk)]
     dq, dk, dv = grads
     if q.numel() == 0 or k.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    strides = [s for t in (q, k, v, dout, dq, dk, dv) for s in t.stride()[:3]]
+    strides = [s for t in (q, k, v, dout, out, dq, dk, dv)
+               for s in t.stride()[:3]]
     err = _cuda.library().bpx_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), kvl_ptr, dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D, *strides,
-        int(masked), offset, *_dropout_args(rate, seed, Tk),
+        out.data_ptr(), lse.data_ptr(), delta.data_ptr(), kvl_ptr,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
+        *strides, int(masked), offset, *_dropout_args(rate, seed, Tk),
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_bwd")
     flash_attention_backward.launches += 1
@@ -317,5 +353,7 @@ def _launch_bwd(q, k, v, dout, lse, delta, masked, kv_lens, rate=0.0,
 #: forward kernel launches (and those with dropout) since last set to 0
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
-#: backward calls that launched the dK/dV and dQ kernels
+#: backward calls that launched the delta, dK/dV and dQ kernels
 flash_attention_backward.launches = 0
+#: launches of the delta kernel on its own (not those inside the backward)
+attention_delta.launches = 0

@@ -19,8 +19,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    against their plain PyTorch versions at every served class: max errors,
    kernel / plain / library (``F.scaled_dot_product_attention``,
    ``F.layer_norm``) times (CUDA events, median of 20 groups of 10 warm
-   runs) and the bound (the larger of bytes / 3.35 TB/s and flops / 989
-   TFLOP/s);
+   runs), the bound (the larger of bytes / 3.35 TB/s and flops / 989
+   TFLOP/s), the share of the bound reached and the ratio to the library
+   call;
 4. the serving path: numpy-seeded synthetic requests, one of them ragged,
    with the launch counters set to 0 before and read after (84 flash and
    181 LayerNorm launches per forward), outputs checked for shape, range and
@@ -36,11 +37,14 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    band) must move the gradients past their limit;
 6. the new kernels at the recorded micro-step's classes against their plain
    versions, with the same timings: the flash forward with dropout, the
-   flash backward (dK/dV and dQ kernels) at rate 0 and 0.1 (SDPA's backward
-   as the library yardstick), the LayerNorm backward (``F.layer_norm``'s
-   backward); the plain hash dropout's time; an exact check of the
-   kernels' dropout masks (q = 0, V = I, dO = I); one long multi-tile shape
-   (B*H 2, 640 x 1280, band and dropout);
+   flash backward (delta, dK/dV and dQ kernels, timed together, with the
+   profiler's split) at rate 0 and 0.1 (SDPA's backward as the library
+   yardstick) and its delta kernel alone, the LayerNorm backward
+   (``F.layer_norm``'s backward); the plain hash dropout's time; an exact
+   check of the kernels' dropout masks (q = 0, V = I, dO = I); one long
+   multi-tile shape (B*H 2, 640 x 1280, band and dropout), checked, then
+   timed: the forward, the dQ and the dK/dV kernel each beside its bound
+   and SDPA;
 7. three train steps at micro-batch 8 x A = 2 on numpy-seeded synthetic
    super-batches: counters set to 0 before each step and checked after it
    (168 flash forward launches, 72 of them with dropout, 168 flash
@@ -62,6 +66,7 @@ import collections
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -101,6 +106,7 @@ TRAIN_A = 2                # micro-batches per step (BATCH each)
 TRAIN_STEPS = 3
 LR = 1e-3
 FLASH_GRAD_TOL = 2e-2      # bf16 dq/dk/dv, relative to the largest entry
+DELTA_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 sums of D products
 LN_PARAM_GRAD_TOL = 1e-4   # fp32 dw/db, relative to the largest entry
 # one full-width bf16 micro-step, kernels vs plain versions (same weights,
 # batch and dropout seeds): the loss, and each parameter group's gradient
@@ -210,10 +216,10 @@ def recording():
         seen["flash"][flash_class(q, k, masked, kv_lens, rate)] += 1
         return launch(q, k, v, masked, kv_lens, rate, seed)
 
-    def flash_bwd(launch, q, k, v, dout, lse, delta, masked, kv_lens,
+    def flash_bwd(launch, q, k, v, dout, lse, out, masked, kv_lens,
                   rate=0.0, seed=None):
         seen["flash_bwd"][flash_class(q, k, masked, kv_lens, rate)] += 1
-        return launch(q, k, v, dout, lse, delta, masked, kv_lens, rate, seed)
+        return launch(q, k, v, dout, lse, out, masked, kv_lens, rate, seed)
 
     def ln(launch, x, w, b, eps, out_dtype):
         seen["ln"][(x.numel() // x.shape[-1], x.shape[-1], eps, x.dtype,
@@ -273,9 +279,32 @@ def phase_build():
     path = _cuda.build()
     _cuda.library()
     print(f"[build] {path.name} in {time.time() - t0:.1f} s")
+    # ptxas' report, one line per kernel: registers, shared memory, spills
+    name = spill = ""
     for line in _cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}")
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel<96>`` from a mangled kernel symbol: the length-
+    prefixed identifier that ends in ``_kernel``, and its template
+    arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):
+            n = int(m.group()[k:])
+            ident = mangled[m.end():m.end() + n]
+            if len(ident) == n and ident.endswith("_kernel"):
+                args = re.match(r"I(.*?)E+v", mangled[m.end() + n:])
+                if args is None:
+                    return ident
+                targs = re.sub(r"Li(-?[0-9]+)", r"\1", args.group(1))
+                return f"{ident}<{targs}>"
+    return mangled
 
 
 def attention_inputs(torch, gen, B, H, Tq, Tk, D, padded):
@@ -358,8 +387,7 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} x{count}: err O {err_o:.3g} "
               f"(tol {FLASH_TOL}) lse {err_l:.3g} (tol {LSE_TOL}); "
-              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              + timing_text(t_k, t_p, t_l, b_ms, b_by, "sdpa"))
     return rows
 
 
@@ -404,16 +432,51 @@ def phase_layer_norm(torch, timer, classes, gen):
     return rows
 
 
+def timing_text(t_k, t_p, t_l, b_ms, b_by, library) -> str:
+    """A kernel row's times, its share of the bound and its ratio to the
+    library call."""
+    return (f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, {library} {t_l:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / t_k:.1%} of the "
+            f"bound, {t_k / t_l:.2f}x {library}")
+
+
 def grad_err(got, want) -> float:
     """max |got - want| over the largest |want|: the gradients' error
     relative to their scale."""
     return max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
 
 
-def phase_flash_bwd(torch, timer, classes, gen):
-    """The backward kernels (dK/dV, then dQ) against the plain backward at
-    each class of the recorded micro-step, from the kernel forward's lse."""
+def flash_bwd_work(torch, B, H, Tq, Tk, D, masked, kv_lens):
+    """(bytes, flops, SDPA's mask) of the whole backward: q, k, v, dO, O and
+    lse read and dq, dk, dv written once; delta's 2 D and the five
+    products' 10 D flops per visible score entry."""
+    visible, keys, ok = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
+    flops = 10.0 * D * visible + 2.0 * D * B * H * Tq
+    nbytes = (2 * D * (4 * B * H * Tq + 2 * keys + 2 * B * H * Tk)
+              + 4 * B * H * Tq)
+    return nbytes, flops, ok
+
+
+def sdpa_backward(torch, q, k, v, ok, rate, dout):
+    """SDPA's backward alone (its forward runs once) on the same inputs:
+    the library yardstick."""
     import torch.nn.functional as F
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ok,
+                                         dropout_p=rate, scale=1.0)
+    return lambda: torch.autograd.grad(out, (ql, kl, vl), dout,
+                                       retain_graph=True)
+
+
+#: the backward's kernels, by the names the profiler reports
+BWD_KERNELS = ("flash_delta_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel")
+
+
+def phase_flash_bwd(torch, timer, classes, gen):
+    """The backward kernels (delta, dK/dV, dQ) against the plain backward at
+    each class of the recorded micro-step, from the kernel forward's lse;
+    the delta kernel on its own against its plain version."""
     from bpx_torch.ops import flash_attention as fa
     rows = []
     seed = 0x7F4A7C15
@@ -427,45 +490,46 @@ def phase_flash_bwd(torch, timer, classes, gen):
         # dO as the model hands it over: a (B, H, T, D) view of (B, T, H, D)
         dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
             torch.bfloat16).transpose(1, 2)
-        delta = (dout.float() * out.float()).sum(-1)
-        got = fa._launch_bwd(q, k, v, dout, lse, delta, masked, kv_lens,
-                             *drop)
+        delta = fa.attention_delta(dout, out)
+        want_delta = fa.attention_delta_reference(dout, out)
+        got = fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, *drop)
         want = fa.flash_attention_backward_reference(
-            q, k, v, dout, lse, delta, masked, kv_lens, *drop)
+            q, k, v, dout, lse, want_delta, masked, kv_lens, *drop)
         torch.cuda.synchronize()
+        err_d = max_err(delta, want_delta)
+        check(torch.allclose(delta, want_delta, **DELTA_TOL),
+              f"flash delta differs at {(B, H, Tq, D)}: max err {err_d}")
         errs = [grad_err(g, w) for g, w in zip(got, want)]
         check(max(errs) <= FLASH_GRAD_TOL,
               f"flash backward differs at {(B, H, Tq, Tk, D, rate)}: "
               f"dq/dk/dv relative errors {errs}")
 
-        visible, keys, ok = attention_work(torch, B, H, Tq, Tk, masked,
+        nbytes, flops, ok = flash_bwd_work(torch, B, H, Tq, Tk, D, masked,
                                            kv_lens)
-        flops = 10.0 * D * visible
-        nbytes = (2 * D * (3 * B * H * Tq + 2 * keys + 2 * B * H * Tk)
-                  + 8 * B * H * Tq)
         b_ms, b_by = bound_ms(nbytes, flops)
-        t_k = timer(lambda: fa._launch_bwd(q, k, v, dout, lse, delta, masked,
+        t_k = timer(lambda: fa._launch_bwd(q, k, v, dout, lse, out, masked,
                                            kv_lens, *drop))
         t_p = timer(lambda: fa.flash_attention_backward_reference(
-            q, k, v, dout, lse, delta, masked, kv_lens, *drop))
-        # library yardstick: SDPA's backward alone (its forward runs once)
-        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ok,
-                                              dropout_p=rate, scale=1.0)
-        t_l = timer(lambda: torch.autograd.grad(sdpa, (ql, kl, vl), dout,
-                                                retain_graph=True))
+            q, k, v, dout, lse, fa.attention_delta_reference(dout, out),
+            masked, kv_lens, *drop))
+        t_l = timer(sdpa_backward(torch, q, k, v, ok, rate, dout))
+        split = kernel_ms(torch, lambda: fa._launch_bwd(
+            q, k, v, dout, lse, out, masked, kv_lens, *drop), BWD_KERNELS)
         eff_masked = fa.effective_band(Tq, Tk, masked)[0]
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, per_forward=count,
                          max_abs_err=max(max_err(g, w)
                                          for g, w in zip(got, want)),
-                         rel_err=max(errs), ms=t_k, plain_ms=t_p,
-                         library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
+                         rel_err=max(errs), delta_max_abs_err=err_d,
+                         ms=t_k, plain_ms=t_p, library_ms=t_l,
+                         bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split))
         print(f"[flash_bwd] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} x{count}/micro-step: "
-              f"dq/dk/dv rel err {max(errs):.3g} (tol {FLASH_GRAD_TOL}); "
-              f"kernels {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa bwd "
-              f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"dq/dk/dv rel err {max(errs):.3g} (tol {FLASH_GRAD_TOL}), "
+              f"delta err {err_d:.3g} (tol {DELTA_TOL}); delta + dK/dV + dQ "
+              + timing_text(t_k, t_p, t_l, b_ms, b_by, "sdpa bwd")
+              + "; profiler: " + ", ".join(f"{n} {t:.4f} ms"
+                                           for n, t in split.items()))
     return rows
 
 
@@ -547,9 +611,8 @@ def phase_mask_check(torch, gen):
     out, lse = fa.flash_attention(q, k, eye, False, None, rate, seed,
                                   return_lse=True)
     ref, _ = fa.flash_attention_reference(q, k, eye, False, None, rate, seed)
-    _, _, dv = fa._launch_bwd(q, k, eye, eye, lse,
-                              (eye.float() * out.float()).sum(-1), False,
-                              None, rate, seed)
+    _, _, dv = fa._launch_bwd(q, k, eye, eye, lse, out, False, None, rate,
+                              seed)
     keep = fa.keep_mask(seed, B, H, T, T, rate, "cuda")
     torch.cuda.synchronize()
     bad_f = int(((out != 0) != keep).sum())
@@ -561,10 +624,35 @@ def phase_mask_check(torch, gen):
           "the kernels' dropout mask differs from the plain version's")
 
 
-def phase_long_shape(torch, gen):
+def kernel_ms(torch, fn, names, n: int = 20):
+    """Device ms per call of ``fn`` spent in each kernel whose name holds
+    one of ``names``, from the profiler's kernel events over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile now and then comes back empty: retry
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        got = {name: 0.0 for name in names}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                for name in names:
+                    if name in e.name:
+                        got[name] += e.device_time / 1e3 / n
+        if all(got.values()):
+            break
+    return got
+
+
+def phase_long_shape(torch, timer, gen):
     """One long multi-tile shape (the JAX package's online forward and
     split backward): B*H = 2, Tq = 640, Tk = 1280, D = 64, band and
-    dropout, kernels against plain versions."""
+    dropout, kernels against plain versions; then the forward (row 1b) and
+    the dQ and dK/dV kernels (rows 3 and 4, the profiler's device times of
+    one backward) timed beside their bounds and SDPA."""
+    import torch.nn.functional as F
     from bpx_torch.ops import flash_attention as fa
     B, H, Tq, Tk, D, rate, seed = 1, 2, 640, 1280, 64, 0.1, 4242
     q, k, v, _ = attention_inputs(torch, gen, B, H, Tq, Tk, D, False)
@@ -574,8 +662,8 @@ def phase_long_shape(torch, gen):
                                                 seed)
     dout = torch.randn(B, H, Tq, D, generator=gen, device="cuda").to(
         torch.bfloat16)
-    delta = (dout.float() * out.float()).sum(-1)
-    got = fa._launch_bwd(q, k, v, dout, lse, delta, True, None, rate, seed)
+    delta = fa.attention_delta_reference(dout, out)
+    got = fa._launch_bwd(q, k, v, dout, lse, out, True, None, rate, seed)
     want = fa.flash_attention_backward_reference(q, k, v, dout, lse, delta,
                                                  True, None, rate, seed)
     torch.cuda.synchronize()
@@ -587,6 +675,48 @@ def phase_long_shape(torch, gen):
           and torch.allclose(lse, ref_lse, **LSE_TOL)
           and max(errs) <= FLASH_GRAD_TOL,
           "flash kernels differ from the plain versions at the long shape")
+
+    visible, keys, ok = attention_work(torch, B, H, Tq, Tk, True, None)
+    bh = B * H
+    rows = {}
+    # row 1b: the forward
+    f_ms = bound_ms(2 * D * (2 * bh * Tq + 2 * keys) + 4 * bh * Tq,
+                    4.0 * D * visible)
+    rows["1b forward"] = (
+        timer(lambda: fa.flash_attention(q, k, v, True, None, rate, seed)),
+        timer(lambda: fa.flash_attention_reference(q, k, v, True, None, rate,
+                                                   seed)),
+        timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=ok, dropout_p=rate, scale=1.0)), *f_ms)
+    # rows 3 and 4: the dQ and dK/dV kernels, each against the work it does
+    # (S and dP, then dQ; S^T and dP^T, then dV and dK); SDPA has no call of
+    # its own for either, so its whole backward stands beside the pair
+    split = kernel_ms(torch, lambda: fa._launch_bwd(
+        q, k, v, dout, lse, out, True, None, rate, seed), BWD_KERNELS)
+    t_l = timer(sdpa_backward(torch, q, k, v, ok, rate, dout))
+    io = 2 * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
+    rows["3 dQ kernel"] = (split["flash_bwd_dq_kernel"], None, t_l,
+                           *bound_ms(io + 2 * D * bh * Tq, 6.0 * D * visible))
+    rows["4 dK/dV kernel"] = (split["flash_bwd_dkdv_kernel"], None, t_l,
+                              *bound_ms(io + 4 * D * bh * Tk,
+                                        8.0 * D * visible))
+    nbytes, flops, _ = flash_bwd_work(torch, B, H, Tq, Tk, D, True, None)
+    rows["2-4 whole backward"] = (
+        timer(lambda: fa._launch_bwd(q, k, v, dout, lse, out, True, None,
+                                     rate, seed)),
+        timer(lambda: fa.flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, True, None, rate, seed)),
+        t_l, *bound_ms(nbytes, flops))
+    for name, (t_k, t_p, t_lib, b_ms, b_by) in rows.items():
+        print(f"[long] {name}: kernel {t_k:.4f} ms, plain "
+              + (f"{t_p:.4f} ms" if t_p is not None else "-")
+              + f", sdpa {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{b_ms / t_k:.1%} of the bound, {t_k / t_lib:.2f}x sdpa")
+    print(f"[long] delta kernel {split['flash_delta_kernel']:.4f} ms of the "
+          f"backward")
+    return {name: dict(ms=r[0], plain_ms=r[1], library_ms=r[2],
+                       bound_ms=r[3], bound_by=r[4])
+            for name, r in rows.items()}
 
 
 def synthetic_batch(exp, n: int, seed: int):
@@ -822,11 +952,11 @@ def group_errors(torch, groups, ref):
 # micro-step comparison with the plain path catches a wrong kernel
 TRAIN_FAULTS = {
     "flash backward ignores its dropout mask":
-        lambda launch, q, k, v, do, lse, delta, masked, kv_lens, rate, seed:
-            launch(q, k, v, do, lse, delta, masked, kv_lens, 0.0, None),
+        lambda launch, q, k, v, do, lse, out, masked, kv_lens, rate, seed:
+            launch(q, k, v, do, lse, out, masked, kv_lens, 0.0, None),
     "flash backward ignores the band":
-        lambda launch, q, k, v, do, lse, delta, masked, kv_lens, rate, seed:
-            launch(q, k, v, do, lse, delta, False, kv_lens, rate, seed),
+        lambda launch, q, k, v, do, lse, out, masked, kv_lens, rate, seed:
+            launch(q, k, v, do, lse, out, False, kv_lens, rate, seed),
 }
 
 
@@ -1012,6 +1142,7 @@ def kernel_category(name: str) -> str:
     """A device kernel's kind, from its name."""
     for key, kind in (("flash_fwd", "flash forward"),
                       ("flash_bwd", "flash backward"),
+                      ("flash_delta", "flash backward"),
                       ("ln_bwd", "LayerNorm backward"),
                       ("layer_norm", "LayerNorm forward"),
                       ("Memcpy", "copies"), ("Memset", "copies"),
@@ -1032,14 +1163,19 @@ def summarise(name, source, replaces, rows, launches, runs, per):
     by = collections.Counter()
     for r in rows:
         by[r["bound_by"]] += r["per_forward"]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": avg("ms"), "plain_ms": avg("plain_ms"),
-            "bound_ms": avg("bound_ms"),
-            "bound_by": by.most_common(1)[0][0],
-            "library_ms": avg("library_ms"),
-            f"launches_per_{per}": launches // runs, "shapes": rows}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": avg("ms"), "plain_ms": avg("plain_ms"),
+             "bound_ms": avg("bound_ms"),
+             "bound_by": by.most_common(1)[0][0],
+             "library_ms": avg("library_ms"),
+             f"launches_per_{per}": launches // runs, "shapes": rows}
+    ms, lib, bound = entry["ms"], entry["library_ms"], entry["bound_ms"]
+    print(f"[summary] {name} (mix-weighted): {ms:.4f} ms, library "
+          f"{lib:.4f} ms ({ms / lib:.2f}x), bound {bound:.4f} ms "
+          f"({bound / ms:.1%} of the bound)")
+    return entry
 
 
 def main() -> None:
@@ -1098,7 +1234,7 @@ def main() -> None:
     ln_bwd_rows = phase_layer_norm_bwd(torch, timer, seen["ln_bwd"], gen)
     dropout_ms = phase_dropout_hash(torch, timer, seen["dropout"], gen)
     phase_mask_check(torch, gen)
-    phase_long_shape(torch, gen)
+    long_rows = phase_long_shape(torch, timer, gen)
     trained = phase_train(torch, model, step, batches, args.profile)
 
     steps = TRAIN_STEPS * TRAIN_A
@@ -1109,9 +1245,10 @@ def main() -> None:
         summarise("flash_fwd_dropout", "bpx_torch/csrc/flash_fwd.cu",
                   "bpx/ops/pallas_attention.py:102", drop_rows,
                   trained["totals"]["dropout"], steps, "micro_step"),
-        summarise("flash_bwd", "bpx_torch/csrc/flash_bwd.cu",
-                  "bpx/ops/pallas_attention.py:462", bwd_rows,
-                  trained["totals"]["flash_bwd"], steps, "micro_step"),
+        dict(summarise("flash_bwd", "bpx_torch/csrc/flash_bwd.cu",
+                       "bpx/ops/pallas_attention.py:462", bwd_rows,
+                       trained["totals"]["flash_bwd"], steps, "micro_step"),
+             long_shape=long_rows),
         summarise("layer_norm_fwd", "bpx_torch/csrc/layer_norm.cu",
                   "bpx/ops/norm.py:53", ln_rows, served["ln_launches"],
                   REQUESTS, "forward"),

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 edge shapes the model does not reach (ragged tiles, an empty key range,
 single rows, widths without vector loads, fp32 input and output, a long
-multi-tile shape), forward and backward, with and without dropout.
+multi-tile shape) and at the model's own attention classes, forward and
+backward, with and without dropout; the backward's delta kernel alone.
 
 Needs a CUDA device and skips elsewhere (the ``gen`` fixture decides).
 On a machine with a card, without JAX:
@@ -20,8 +21,9 @@ import torch
 
 from bpx_torch.ops.dispatch import plain_versions
 from bpx_torch.ops.flash_attention import (
-    flash_attention, flash_attention_backward,
-    flash_attention_backward_reference, flash_attention_reference, keep_mask)
+    attention_delta, attention_delta_reference, flash_attention,
+    flash_attention_backward, flash_attention_backward_reference,
+    flash_attention_reference, keep_mask)
 from bpx_torch.ops.norm import (layer_norm, layer_norm_backward,
                                 layer_norm_backward_reference,
                                 layer_norm_reference)
@@ -166,6 +168,68 @@ def test_flash_backward_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked,
     again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
                                      rate, seed)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,D,masked,padded", [
+    (8, 8, 200, 200, 96, True, False),     # causal
+    (8, 8, 200, 512, 96, True, False),     # band, offset 312
+    (8, 8, 512, 200, 96, True, False),     # band dropped
+    (8, 8, 512, 512, 96, True, False),     # causal
+    (8, 12, 512, 512, 64, False, True),    # BERT: kv_lens
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernels_at_the_model_classes(gen, B, H, Tq, Tk, D, masked,
+                                            padded, rate):
+    """The model's attention classes (moviescope, batch 8), q/k/v strided
+    views of fused projections as the model hands them over: forward and
+    backward against the plain versions, and bitwise-equal reruns."""
+    bf = torch.bfloat16
+    qbuf = torch.randn(B, Tq, H, D, generator=gen, device="cuda")
+    kvbuf = torch.randn(B, Tk, 2, H, D, generator=gen, device="cuda").to(bf)
+    q = (qbuf * D ** -0.5).to(bf).transpose(1, 2)
+    k, v = kvbuf[:, :, 0].transpose(1, 2), kvbuf[:, :, 1].transpose(1, 2)
+    kv = None
+    if padded:
+        kv = torch.randint(64, Tk + 1, (B,), generator=gen, device="cuda")
+        kv[0] = Tk
+        kv = kv.to(torch.int32)
+    seed = 0x5EED5EED if rate else None
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
+        bf).transpose(1, 2)
+    got = flash_attention_backward(q, k, v, out, lse, dout, masked, kv, rate,
+                                   seed)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), masked, kv,
+        rate, seed)
+    for g, w in zip(got, want):
+        _close_grad(g, w)
+    again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
+                                     rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,H,T,D", [(8, 8, 200, 96), (8, 12, 512, 64),
+                                     (2, 3, 77, 96), (1, 1, 1, 64)])
+def test_flash_delta_kernel_matches_plain(gen, B, H, T, D):
+    """The backward's first kernel alone: fp32 rowsum(dO * O) of strided
+    bf16 views, against the plain sum (another order: 1e-4)."""
+    out = torch.randn(B, T, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    dout = torch.randn(B, H, T, 2 * D, generator=gen, device="cuda").to(
+        torch.bfloat16)[..., :D]
+    before = attention_delta.launches
+    got = attention_delta(dout, out)
+    assert attention_delta.launches == before + 1
+    want = attention_delta_reference(dout, out)
+    assert got.shape == (B, H, T) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, attention_delta(dout, out))
 
 
 def test_flash_dropout_mask_is_exact(gen):

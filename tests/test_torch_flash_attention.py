@@ -2,7 +2,8 @@
 package's Pallas kernels in interpret mode: outputs and log-sum-exp, and
 with dropout the forward and its ``jax.vjp`` (the fused single-pass
 backward at the model's shapes; the online forward and the split dQ / dK-dV
-backward at a long multi-tile shape).
+backward at a long multi-tile shape; lengths and band offsets at the edges
+of the CUDA kernels' 64-row tiles; both of bpx's delta paths).
 
 Inputs are made with numpy from a seed; fp32, atol/rtol 2e-5 (the same
 function, sums in another order).  The dropout seeds are the same uint32 on
@@ -144,6 +145,62 @@ def test_flash_forward_backward_with_dropout_match_pallas(B, H, Tq, Tk, D,
         b = lens.index(0)
         assert not got[1][b].any()      # contract: no visible key, dq = 0
         assert got[0][b].any()          # while the forward attended
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,D,masked,lens,rate", [
+    (1, 2, 63, 65, 64, True, None, 0.0),            # band offset 2
+    (1, 2, 65, 63, 96, True, None, 0.1),            # tall band, offset 2
+    (2, 1, 65, 129, 96, True, (129, 64), 0.25),     # offset one tile
+    (2, 1, 129, 200, 64, True, (200, 130), 0.1),    # offset 71
+    (1, 2, 200, 129, 96, True, None, 0.0),          # offset 71, tall band
+    (2, 1, 63, 200, 64, True, (200, 65), 0.1),      # offset 137
+    (1, 2, 200, 63, 96, True, None, 0.1),           # band dropped
+    (2, 1, 129, 65, 64, False, (65, 1), 0.0),       # one visible key
+    (2, 1, 200, 200, 96, False, (200, 63), 0.1),    # kv_len one short
+])
+def test_flash_tile_edges_match_pallas(B, H, Tq, Tk, D, masked, lens, rate):
+    """Lengths on either side of the kernels' 64-row tiles (63, 65, 129,
+    200) and band offsets that cross a tile edge, D 64 and 96, with and
+    without kv_lens and dropout: the forward and backward against bpx."""
+    q, k, v = _inputs(B, H, Tq, Tk, D, seed=6)
+    dout = np.random.RandomState(7).randn(B, H, Tq, D).astype(np.float32)
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0x1234567)
+    got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0x1234567)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("xla_delta", ["0", "1"])
+def test_backward_matches_both_delta_paths_of_bpx(monkeypatch, xla_delta):
+    """delta = rowsum(dO * O) computed with the backward (the port) against
+    bpx computing it inside its kernels (BPX_XLA_DELTA=0) and in XLA
+    before them (=1)."""
+    monkeypatch.setenv("BPX_XLA_DELTA", xla_delta)
+    q, k, v = _inputs(2, 2, 129, 200, 96, seed=8)
+    dout = np.random.RandomState(9).randn(2, 2, 129, 96).astype(np.float32)
+    kv = np.asarray([200, 77], np.int32)
+    want = _bpx_fwd_vjp(q, k, v, dout, True, kv, 0.1, 99)
+    got = _port_fwd_bwd(q, k, v, dout, True, kv, 0.1, 99)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+def test_attention_delta_on_cpu_is_the_plain_row_sum():
+    """The CPU path of the backward's delta: fp32 rowsum(dO * O), the same
+    as a float64 sum to fp32 rounding, for fp32 and bf16 inputs."""
+    from bpx_torch.ops.flash_attention import (attention_delta,
+                                               attention_delta_reference)
+    rng = np.random.RandomState(10)
+    dout, out = (rng.randn(2, 3, 65, 96).astype(np.float32) for _ in range(2))
+    want = (dout.astype(np.float64) * out).sum(-1)
+    got = attention_delta(torch.from_numpy(dout), torch.from_numpy(out))
+    assert got.shape == (2, 3, 65) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (dout, out)]
+    assert torch.equal(attention_delta(*bf), attention_delta_reference(*bf))
+    assert torch.equal(attention_delta_reference(*bf),
+                       (bf[0].float() * bf[1].float()).sum(-1))
 
 
 def test_long_shape_online_forward_and_split_backward_match_pallas():
