@@ -8,175 +8,325 @@
 //          x's dtype)
 //   dw   = sum_rows dy * xhat,  db = sum_rows dy            (fp32)
 //
-// Design.  The TPU kernel sums dw and db across its grid in VMEM scratch,
-// which works because a TPU runs the grid in order; blocks on the card run
-// in no order.  Here each block writes fp32 partial sums of its rows to a
-// (parts, E) workspace and a second small kernel reduces them in a fixed
-// order: deterministic, no atomics.  One warp per row, 8 warps per block,
-// 2 rows per warp.  The vector path (E a multiple of 8, at most 1024, every
-// pointer 16-byte aligned: the model's E = 768) keeps a row of x and dy in
-// registers (16-byte loads), reduces the two row means by shuffles, and
-// keeps each lane's columns of dw/db in registers across the warp's rows;
-// the warps' partials are combined through shared memory in warp order, one
-// partial row per block.  Other widths take a scalar path that re-reads the
-// row from L1/L2 and writes one partial row per warp.
+// Design: one cooperative launch per call; dw and db are summed in a fixed
+// order with no atomics, so reruns give the same bits.  The TPU kernel sums
+// dw and db across its grid in VMEM scratch, which works because a TPU runs
+// the grid in order; blocks on the card run in no order.  Here the grid is
+// sized to the card (one block per 8 rows, but no more than the card holds
+// at once, from the occupancy calculator) and launched cooperatively, so
+// every block is resident and a grid-wide barrier is safe:
+//   1. rows: block j takes a contiguous range of n / G rows, its warps every
+//      8th row of it.  On the vector path (E % 4 == 0, E <= 1024, every
+//      pointer 16-byte aligned: the model's E = 768, and 300) a lane holds
+//      its columns of a row of x and dy in registers (8- or 16-byte loads);
+//      the warp issues the next row's loads before it reduces the current
+//      row's mean(a) and mean(a xhat) by shuffles, and each lane keeps its
+//      columns of dw and db in registers across the warp's rows.  The block
+//      adds its warps' sums in a fixed tree through shared memory and writes
+//      one partial row of dw and one of db to the workspace.  Other widths
+//      or alignments take a scalar path that re-reads the row from L1/L2 and
+//      keeps one partial row per warp in the workspace.
+//   2. the grid barrier (cooperative_groups, split into arrive and wait):
+//      each warp computes its last row's dx between the two, so that work
+//      hides part of the barrier's latency.
+//   3. block j sums column slice j of the partial rows: each thread a
+//      strided subset of them, in order, then the threads' sums in a fixed
+//      tree.  The order depends only on (n, E, the grid).
+// dw and db are written in full by step 3: the wrapper allocates them with
+// torch.empty and caches the workspace.
 //
 // Bound on an H100: memory.  It reads x and dy once and writes dx once (plus
-// 8 bytes of statistics per row and the E-wide partials) at ~12 flops per
-// element, far below the card's flop/byte balance point.
+// 8 bytes of statistics per row) at ~12 flops per element, far below the
+// card's flop/byte balance point; the partial rows (G x 2E fp32) stay in L2.
+// At the model's sizes (1600 and 4096 rows of 768) the fixed latencies of
+// steps 2 and 3 and of the warp tree weigh as much as the rows do.
+//
+// Built with -DBPX_LN_TRACE (scripts/torch_ln_bwd_phases.py; checked by
+// tests/test_torch_cuda.py), the vector path's thread 0 of each block stamps
+// the global timer at its start and after its rows, its partial rows, the
+// barrier and its column sums, for bpx_ln_trace_read.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include <utility>
+
+#include "layer_norm_common.cuh"
+
+#ifdef BPX_LN_TRACE
+constexpr int kTraceBlocks = 4096;
+__device__ unsigned long long g_ln_trace[kTraceBlocks][5];
+#define LN_TRACE(k)                                                   \
+  do {                                                                \
+    if (threadIdx.x == 0 && blockIdx.x < kTraceBlocks) {              \
+      unsigned long long t;                                           \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));           \
+      g_ln_trace[blockIdx.x][k] = t;                                  \
+    }                                                                 \
+  } while (0)
+// Copies the stamps of the first `blocks` blocks of the last launch (5 per
+// block, ns) to `host`; returns a cudaError_t.
+extern "C" int bpx_ln_trace_read(void* host, int blocks) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, g_ln_trace, sizeof(unsigned long long) * 5 * blocks));
+}
+#else
+#define LN_TRACE(k)
+#endif
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 2;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kMaxChunks = 4;   // 8-element chunks per lane on the vector path
+using namespace ln;
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+// Step 3: column slice blockIdx.x of the sums over `parts` partial rows of
+// dw (part[0 : parts e]) and db (part[parts e : 2 parts e]).  Thread t sums
+// column t % width of the slice over the partial rows t / width + k groups
+// (8 loads in flight at a time, added in row order); the groups' sums are
+// then added in a fixed tree.  `sm` holds kThreads floats.  Every thread of
+// the block calls it.
+__device__ void reduce_parts(const float* __restrict__ part, int parts, int e,
+                             float* __restrict__ dw, float* __restrict__ db,
+                             float* sm) {
+  const int cols = 2 * e;
+  const int per_block = (cols + gridDim.x - 1) / gridDim.x;
+  const int begin = blockIdx.x * per_block;
+  const int end = min(begin + per_block, cols);
+  const int t = threadIdx.x;
+  for (int c0 = begin; c0 < end; c0 += kThreads) {
+    const int width = min(kThreads, end - c0);
+    const int groups = kThreads / width;
+    const int grp = t / width;
+    const int col = c0 + t % width;
+    float s = 0.f;
+    if (grp < groups) {
+      const float* src = col < e ? part + col
+                                 : part + (long long)parts * e + (col - e);
+      for (int r0 = grp; r0 < parts; r0 += 8 * groups) {
+        float v[8];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+        for (int k = 0; k < 8; ++k) {
+          const int r = r0 + k * groups;
+          v[k] = r < parts ? src[(long long)r * e] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s += v[k];
+      }
+    }
+    sm[t] = s;
+    __syncthreads();
+    int half = 1;
+    while (2 * half < groups) half *= 2;
+    for (; half > 0; half /= 2) {
+      if (grp < half && grp + half < groups) sm[t] += sm[t + half * width];
+      __syncthreads();
+    }
+    if (grp == 0) {
+      if (col < e) {
+        dw[col] = sm[t];
+      } else {
+        db[col - e] = sm[t];
+      }
+    }
+    __syncthreads();
+  }
 }
 
-// 8 consecutive elements <-> floats, with 16-byte accesses
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
-}
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
-  alignas(16) __nv_bfloat16 h[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16_rn(v[i]);
-  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
-}
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+// This block's rows: [first, last), n / G or n / G + 1 of them.
+__device__ __forceinline__ void block_rows(int n, int* first, int* last) {
+  const int each = n / gridDim.x, extra = n % gridDim.x;
+  const int b = blockIdx.x;
+  *first = b * each + min(b, extra);
+  *last = *first + each + (b < extra ? 1 : 0);
 }
 
-template <typename Tx, typename Tdy>
-__global__ void __launch_bounds__(32 * kWarps)
+// One row of x and dy (a lane's K chunks of 4) and its statistics.
+template <typename Tx, typename Tdy, int K>
+struct Row {
+  typename Vec4<Tx>::Raw x[K];
+  typename Vec4<Tdy>::Raw g[K];
+  float mu, rstd;
+
+  __device__ __forceinline__ void load(const Tx* __restrict__ xs,
+                                       const Tdy* __restrict__ dys,
+                                       const float* __restrict__ mus,
+                                       const float* __restrict__ rstds,
+                                       int row, int e, int lane) {
+    const long long off = (long long)row * e;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const int idx = lane + c * 32;
+      if (idx < e / 4) {
+        x[c] = Vec4<Tx>::load(xs + off + idx * 4);
+        g[c] = Vec4<Tdy>::load(dys + off + idx * 4);
+      }
+    }
+    mu = mus[row];
+    rstd = rstds[row];
+  }
+};
+
+// dx of one row held in registers, from its mean(a) and mean(a xhat).
+template <typename Tx, typename Tdy, int K>
+__device__ __forceinline__ void dx_pass(const Row<Tx, Tdy, K>& r,
+                                        const float* w_s, float m1, float m2,
+                                        Tx* __restrict__ dxr, int lane,
+                                        int chunks) {
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const int idx = lane + c * 32;
+    if (idx < chunks) {
+      float xv[4], gv[4], out[4];
+      Vec4<Tx>::unpack(r.x[c], xv);
+      Vec4<Tdy>::unpack(r.g[c], gv);
+      const float4 wv = reinterpret_cast<const float4*>(w_s)[idx];
+      const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xh = (xv[i] - r.mu) * r.rstd;
+        out[i] = r.rstd * (gv[i] * wa[i] - m1 - xh * m2);
+      }
+      Vec4<Tx>::store(dxr + idx * 4, out);
+    }
+  }
+}
+
+template <typename Tx, typename Tdy, int K>
+__global__ void __launch_bounds__(kThreads)
 ln_bwd_vec_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
                   const float* __restrict__ w, const float* __restrict__ mu,
                   const float* __restrict__ rstd, Tx* __restrict__ dx,
-                  float* __restrict__ part_w, float* __restrict__ part_b,
-                  int n, int e) {
-  extern __shared__ float red[];   // (kWarps, e)
+                  float* __restrict__ part, float* __restrict__ dw,
+                  float* __restrict__ db, int n, int e) {
+  // w (e floats), then the tree of the warps' dw/db sums (kWarps / 2
+  // slots of 8 K floats per lane)
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads];
+  float* w_s = smem;
+  float4* tree = reinterpret_cast<float4*>(smem + K * 128);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int chunks = e / 8;
-  float aw[kMaxChunks][8], ab[kMaxChunks][8];
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) aw[c][i] = ab[c][i] = 0.f;
-  }
+  const int chunks = e / 4;
+  LN_TRACE(0);
 
-  const int first = (blockIdx.x * kWarps + warp) * kRowsPerWarp;
-  for (int row = first; row < min(first + kRowsPerWarp, n); ++row) {
-    const Tx* xr = x + (long long)row * e;
-    const Tdy* dyr = dy + (long long)row * e;
-    const float m = mu[row], rs = rstd[row];
-    float xh[kMaxChunks][8], a[kMaxChunks][8];
+  int first, last;
+  block_rows(n, &first, &last);
+  Row<Tx, Tdy, K> cur, nxt;
+  int row = first + warp;
+  if (row < last) cur.load(x, dy, mu, rstd, row, e, lane);
+  for (int i = threadIdx.x; i < e; i += kThreads) w_s[i] = w[i];
+  float aw[K][4], ab[K][4];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) aw[c][i] = ab[c][i] = 0.f;
+  }
+  __syncthreads();   // w_s
+
+  // every row but the warp's last: both passes; the last row's dx pass
+  // waits until the block has arrived at the grid barrier
+  float m1 = 0.f, m2 = 0.f;
+  for (; row < last; row += kWarps) {
+    const bool more = row + kWarps < last;
+    if (more) nxt.load(x, dy, mu, rstd, row + kWarps, e, lane);
+    const float m = cur.mu, rs = cur.rstd;
     float s_a = 0.f, s_ax = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
+    for (int c = 0; c < K; ++c) {
       const int idx = lane + c * 32;
       if (idx < chunks) {
-        float xv[8], gv[8], wv[8];
-        load8(xr + idx * 8, xv);
-        load8(dyr + idx * 8, gv);
-        load8(w + idx * 8, wv);
+        float xv[4], gv[4];
+        Vec4<Tx>::unpack(cur.x[c], xv);
+        Vec4<Tdy>::unpack(cur.g[c], gv);
+        const float4 wv = reinterpret_cast<const float4*>(w_s)[idx];
+        const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          xh[c][i] = (xv[i] - m) * rs;
-          a[c][i] = gv[i] * wv[i];
-          s_a += a[c][i];
-          s_ax += a[c][i] * xh[c][i];
-          aw[c][i] += gv[i] * xh[c][i];
+        for (int i = 0; i < 4; ++i) {
+          const float xh = (xv[i] - m) * rs;
+          const float a = gv[i] * wa[i];
+          s_a += a;
+          s_ax += a * xh;
+          aw[c][i] += gv[i] * xh;
           ab[c][i] += gv[i];
         }
       }
     }
-    const float m1 = warp_sum(s_a) / e;
-    const float m2 = warp_sum(s_ax) / e;
-    Tx* dxr = dx + (long long)row * e;
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int idx = lane + c * 32;
-      if (idx < chunks) {
-        float out[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          out[i] = rs * (a[c][i] - m1 - xh[c][i] * m2);
-        }
-        store8(dxr + idx * 8, out);
-      }
-    }
+    m1 = warp_sum(s_a) / e;
+    m2 = warp_sum(s_ax) / e;
+    if (!more) break;
+    dx_pass(cur, w_s, m1, m2, dx + (long long)row * e, lane, chunks);
+    cur = nxt;
   }
+  LN_TRACE(1);
 
-  // the block's partial: the warps' sums added in warp order
-  for (int pass = 0; pass < 2; ++pass) {
+  // the block's partial rows: the warps' sums added in a fixed tree (warp
+  // w += warp w + h for h = 4, 2, 1), each lane's columns in registers
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int idx = lane + c * 32;
-      if (idx < chunks) {
+  for (int h = kWarps / 2; h > 0; h /= 2) {
+    if (warp >= h && warp < 2 * h) {
+      float4* slot = tree + (warp - h) * 2 * K * 32 + lane;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          red[warp * e + idx * 8 + i] = pass == 0 ? aw[c][i] : ab[c][i];
-        }
+      for (int c = 0; c < K; ++c) {
+        slot[c * 32] = make_float4(aw[c][0], aw[c][1], aw[c][2], aw[c][3]);
+        slot[(K + c) * 32] =
+            make_float4(ab[c][0], ab[c][1], ab[c][2], ab[c][3]);
       }
     }
     __syncthreads();
-    float* part = (pass == 0 ? part_w : part_b) + (long long)blockIdx.x * e;
-    for (int col = threadIdx.x; col < e; col += blockDim.x) {
-      float s = 0.f;
-      for (int wi = 0; wi < kWarps; ++wi) s += red[wi * e + col];
-      part[col] = s;
+    if (warp < h) {
+      const float4* slot = tree + warp * 2 * K * 32 + lane;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const float4 u = slot[c * 32], v = slot[(K + c) * 32];
+        aw[c][0] += u.x; aw[c][1] += u.y; aw[c][2] += u.z; aw[c][3] += u.w;
+        ab[c][0] += v.x; ab[c][1] += v.y; ab[c][2] += v.z; ab[c][3] += v.w;
+      }
     }
     __syncthreads();
   }
+  if (warp == 0) {
+    float4* pw = reinterpret_cast<float4*>(part + (long long)blockIdx.x * e);
+    float4* pb = reinterpret_cast<float4*>(
+        part + ((long long)gridDim.x + blockIdx.x) * e);
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const int idx = lane + c * 32;
+      if (idx < chunks) {
+        pw[idx] = make_float4(aw[c][0], aw[c][1], aw[c][2], aw[c][3]);
+        pb[idx] = make_float4(ab[c][0], ab[c][1], ab[c][2], ab[c][3]);
+      }
+    }
+  }
+  LN_TRACE(2);
+
+  cg::grid_group grid = cg::this_grid();
+  auto token = grid.barrier_arrive();
+  if (row < last) {
+    dx_pass(cur, w_s, m1, m2, dx + (long long)row * e, lane, chunks);
+  }
+  grid.barrier_wait(std::move(token));
+  LN_TRACE(3);
+  reduce_parts(part, gridDim.x, e, dw, db, red);
+  LN_TRACE(4);
 }
 
 template <typename Tx, typename Tdy>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(kThreads)
 ln_bwd_scalar_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
                      const float* __restrict__ w, const float* __restrict__ mu,
                      const float* __restrict__ rstd, Tx* __restrict__ dx,
-                     float* __restrict__ part_w, float* __restrict__ part_b,
-                     int n, int e) {
-  const int gw = blockIdx.x * kWarps + threadIdx.x / 32;
+                     float* __restrict__ part, float* __restrict__ dw,
+                     float* __restrict__ db, int n, int e) {
+  __shared__ float red[kThreads];
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* pw = part_w + (long long)gw * e;   // this warp's partial rows
-  float* pb = part_b + (long long)gw * e;
+  const int parts = gridDim.x * kWarps;
+  const int gw = blockIdx.x * kWarps + warp;
+  float* pw = part + (long long)gw * e;             // this warp's partial rows
+  float* pb = part + ((long long)parts + gw) * e;
   for (int i = lane; i < e; i += 32) pw[i] = pb[i] = 0.f;
-  const int first = gw * kRowsPerWarp;
-  for (int row = first; row < min(first + kRowsPerWarp, n); ++row) {
+  int first, last;
+  block_rows(n, &first, &last);
+  for (int row = first + warp; row < last; row += kWarps) {
     const Tx* xr = x + (long long)row * e;
     const Tdy* dyr = dy + (long long)row * e;
     const float m = mu[row], rs = rstd[row];
@@ -199,113 +349,130 @@ ln_bwd_scalar_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
       dxr[i] = from_float<Tx>(rs * (a - m1 - xh * m2));
     }
   }
+
+  cg::this_grid().sync();
+  reduce_parts(part, parts, e, dw, db, red);
 }
 
-// dw[col] (blockIdx.y 0) or db[col] (1) = sum over the partial rows in
-// order: 8 groups of threads each sum every 8th row, then one thread adds
-// the 8 group sums in group order.
-constexpr int kRedCols = 32;
-constexpr int kRedGroups = 8;
+struct Args {
+  const void* x;
+  const void* dy;
+  const float* w;
+  const float* mu;
+  const float* rstd;
+  void* dx;
+  float* part;
+  float* dw;
+  float* db;
+  int n, e;
+};
 
-__global__ void __launch_bounds__(kRedCols * kRedGroups)
-ln_bwd_reduce_kernel(const float* __restrict__ part_w,
-                     const float* __restrict__ part_b, int parts, int e,
-                     float* __restrict__ dw, float* __restrict__ db) {
-  __shared__ float sums[kRedGroups][kRedCols];
-  const int c = threadIdx.x % kRedCols;
-  const int grp = threadIdx.x / kRedCols;
-  const int col = blockIdx.x * kRedCols + c;
-  const float* part = blockIdx.y == 0 ? part_w : part_b;
-  float s = 0.f;
-  if (col < e) {
-    for (int r = grp; r < parts; r += kRedGroups) {
-      s += part[(long long)r * e + col];
-    }
+// Launches `kernel` cooperatively (or, with `need` set, only writes there
+// the workspace's size in floats: 2 x parts_per_block x grid x e).
+template <typename Tx, typename Tdy, typename Kernel>
+cudaError_t launch_kernel(Kernel kernel, int* cache, int smem,
+                          int parts_per_block, const Args& a, cudaStream_t s,
+                          long long* need) {
+  int grid = 0;
+  const cudaError_t err = grid_for(reinterpret_cast<const void*>(kernel),
+                                   smem, cache, a.n, &grid);
+  if (err != cudaSuccess) return err;
+  if (need != nullptr) {
+    *need = 2LL * parts_per_block * grid * a.e;
+    return cudaSuccess;
   }
-  sums[grp][c] = s;
-  __syncthreads();
-  if (grp == 0 && col < e) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRedGroups; ++i) t += sums[i][c];
-    (blockIdx.y == 0 ? dw : db)[col] = t;
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const Tx*>(a.x),
+                            static_cast<const Tdy*>(a.dy), a.w, a.mu, a.rstd,
+                            static_cast<Tx*>(a.dx), a.part, a.dw, a.db, a.n,
+                            a.e);
 }
 
-bool use_vector(int e, int vector_ok) {
-  return vector_ok && e % 8 == 0 && e / 8 <= 32 * kMaxChunks;
+template <typename Tx, typename Tdy, int K>
+cudaError_t launch_vec(const Args& a, cudaStream_t s, long long* need) {
+  static int cache[kMaxDevices];
+  // w for the widest row of this K and the tree of the warps' sums
+  const int smem = (K * 128 + kWarps / 2 * 8 * K * 32) * (int)sizeof(float);
+  return launch_kernel<Tx, Tdy>(ln_bwd_vec_kernel<Tx, Tdy, K>, cache, smem,
+                                1, a, s, need);
 }
-
-int blocks_for(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
 
 template <typename Tx, typename Tdy>
-cudaError_t launch(const void* x, const void* dy, const float* w,
-                   const float* mu, const float* rstd, void* dx, float* dw,
-                   float* db, float* work, int n, int e, int vector_ok,
-                   cudaStream_t s) {
-  const int blocks = blocks_for(n);
-  const bool vec = use_vector(e, vector_ok);
-  const int parts = vec ? blocks : blocks * kWarps;
-  float* part_w = work;
-  float* part_b = work + (long long)parts * e;
-  const dim3 block(32 * kWarps);
-  if (vec) {
-    ln_bwd_vec_kernel<Tx, Tdy><<<blocks, block, kWarps * e * sizeof(float),
-                                 s>>>(
-        static_cast<const Tx*>(x), static_cast<const Tdy*>(dy), w, mu, rstd,
-        static_cast<Tx*>(dx), part_w, part_b, n, e);
-  } else {
-    ln_bwd_scalar_kernel<Tx, Tdy><<<blocks, block, 0, s>>>(
-        static_cast<const Tx*>(x), static_cast<const Tdy*>(dy), w, mu, rstd,
-        static_cast<Tx*>(dx), part_w, part_b, n, e);
+cudaError_t launch(const Args& a, int vector_ok, cudaStream_t s,
+                   long long* need) {
+  switch (vector_ok && a.e % 4 == 0 ? vec_chunks(a.e) : 0) {
+    case 3: return launch_vec<Tx, Tdy, 3>(a, s, need);
+    case 6: return launch_vec<Tx, Tdy, 6>(a, s, need);
+    case 8: return launch_vec<Tx, Tdy, 8>(a, s, need);
+    default: {
+      static int cache[kMaxDevices];
+      return launch_kernel<Tx, Tdy>(ln_bwd_scalar_kernel<Tx, Tdy>, cache, 0,
+                                    kWarps, a, s, need);
+    }
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 rgrid((e + kRedCols - 1) / kRedCols, 2);
-  ln_bwd_reduce_kernel<<<rgrid, kRedCols * kRedGroups, 0, s>>>(
-      part_w, part_b, parts, e, dw, db);
-  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const Args& a, int x_bf16, int dy_bf16, int vector_ok,
+                     cudaStream_t s, long long* need) {
+  if (x_bf16 && dy_bf16) {
+    return launch<__nv_bfloat16, __nv_bfloat16>(a, vector_ok, s, need);
+  } else if (x_bf16) {
+    return launch<__nv_bfloat16, float>(a, vector_ok, s, need);
+  } else if (dy_bf16) {
+    return launch<float, __nv_bfloat16>(a, vector_ok, s, need);
+  }
+  return launch<float, float>(a, vector_ok, s, need);
 }
 
 }  // namespace
 
 extern "C" {
 
-// fp32 elements of workspace that bpx_layer_norm_bwd needs for (n, e).
-long long bpx_layer_norm_bwd_workspace(int n, int e) {
-  return 2LL * blocks_for(n) * kWarps * e;
+// fp32 elements of workspace that bpx_layer_norm_bwd needs for these
+// arguments on the current device, or minus a cudaError_t.
+long long bpx_layer_norm_bwd_workspace(int n, int e, int x_bf16, int dy_bf16,
+                                       int vector_ok) {
+  Args a = {};
+  a.n = n;
+  a.e = e;
+  long long need = 0;
+  const cudaError_t err = dispatch(a, x_bf16, dy_bf16, vector_ok, nullptr,
+                                   &need);
+  return err == cudaSuccess ? need : -static_cast<long long>(err);
 }
 
-// x, dy, dx (n, e) contiguous (x and dx one type, dy bf16 or fp32); w (e,)
-// fp32; mu, rstd (n,) fp32 from the forward; dw, db (e,) fp32; work as
-// sized by bpx_layer_norm_bwd_workspace.  vector_ok says every pointer is
-// 16-byte aligned.  Returns a cudaError_t (0 on success).
+// x, dy, dx (n, e) contiguous, n > 0 (x and dx one type, dy bf16 or fp32); w
+// (e,) fp32; mu, rstd (n,) fp32 from the forward; dw, db (e,) fp32, written
+// in full; work as sized by bpx_layer_norm_bwd_workspace, used by one call
+// at a time.  vector_ok says every pointer is 16-byte aligned.  Returns a
+// cudaError_t (0 on success).
 int bpx_layer_norm_bwd(const void* x, const void* dy, const void* w,
                        const void* mu, const void* rstd, void* dx, void* dw,
                        void* db, void* work, int n, int e, int x_bf16,
                        int dy_bf16, int vector_ok, void* stream) {
-  const float* wf = static_cast<const float*>(w);
-  const float* muf = static_cast<const float*>(mu);
-  const float* rsf = static_cast<const float*>(rstd);
-  float* dwf = static_cast<float*>(dw);
-  float* dbf = static_cast<float*>(db);
-  float* wk = static_cast<float*>(work);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (x_bf16 && dy_bf16) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, dy, wf, muf, rsf, dx, dwf,
-                                               dbf, wk, n, e, vector_ok, s);
-  } else if (x_bf16) {
-    err = launch<__nv_bfloat16, float>(x, dy, wf, muf, rsf, dx, dwf, dbf, wk,
-                                       n, e, vector_ok, s);
-  } else if (dy_bf16) {
-    err = launch<float, __nv_bfloat16>(x, dy, wf, muf, rsf, dx, dwf, dbf, wk,
-                                       n, e, vector_ok, s);
-  } else {
-    err = launch<float, float>(x, dy, wf, muf, rsf, dx, dwf, dbf, wk, n, e,
-                               vector_ok, s);
-  }
-  return static_cast<int>(err);
+  const Args a{x,
+               dy,
+               static_cast<const float*>(w),
+               static_cast<const float*>(mu),
+               static_cast<const float*>(rstd),
+               dx,
+               static_cast<float*>(work),
+               static_cast<float*>(dw),
+               static_cast<float*>(db),
+               n,
+               e};
+  return static_cast<int>(dispatch(a, x_bf16, dy_bf16, vector_ok,
+                                   static_cast<cudaStream_t>(stream),
+                                   nullptr));
 }
 
 }  // extern "C"

@@ -105,7 +105,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_layer_norm_fwd.restype = i
     lib.bpx_layer_norm_bwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.bpx_layer_norm_bwd.restype = i
-    lib.bpx_layer_norm_bwd_workspace.argtypes = [i, i]
+    lib.bpx_layer_norm_bwd_workspace.argtypes = [i] * 5
     lib.bpx_layer_norm_bwd_workspace.restype = ll
     lib.bpx_error_string.argtypes = [i]
     lib.bpx_error_string.restype = ctypes.c_char_p

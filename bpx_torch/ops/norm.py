@@ -142,23 +142,58 @@ def _launch_bwd(x, w, mu, rstd, dy):
     e = x.shape[-1]
     n = x.numel() // e
     dx = torch.empty_like(x)
-    dw = torch.zeros(e, dtype=torch.float32, device=x.device)
-    db = torch.zeros_like(dw)
     if n == 0:
-        return dx, dw, db
+        dw = torch.zeros(e, dtype=torch.float32, device=x.device)
+        return dx, dw, torch.zeros_like(dw)
+    # the kernel writes every entry of dw and db: no memset
+    dw = torch.empty(e, dtype=torch.float32, device=x.device)
+    db = torch.empty_like(dw)
     lib = _cuda.library()
-    work = torch.empty(lib.bpx_layer_norm_bwd_workspace(n, e),
-                       dtype=torch.float32, device=x.device)
     vector_ok = all(t.data_ptr() % 16 == 0 for t in (x, dy, w, dx))
+    flags = (int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16),
+             int(vector_ok))
+    key = (x.device, n, e, flags)
+    need = _WORKSPACE_NUMEL.get(key)
+    if need is None:
+        need = lib.bpx_layer_norm_bwd_workspace(n, e, *flags)
+        if need < 0:
+            _cuda.check(-need, "layer_norm_bwd workspace")
+        _WORKSPACE_NUMEL[key] = need
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    work = _workspace(x.device, stream, need)
     err = lib.bpx_layer_norm_bwd(
         x.data_ptr(), dy.data_ptr(), w.data_ptr(), mu.data_ptr(),
         rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        work.data_ptr(), n, e, int(x.dtype == torch.bfloat16),
-        int(dy.dtype == torch.bfloat16), int(vector_ok),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        work.data_ptr(), n, e, *flags, stream)
     _cuda.check(err, "layer_norm_bwd")
     layer_norm_backward.launches += 1
     return dx, dw, db
+
+
+#: fp32 elements of workspace per (device, n, e, flags): the kernel's grid
+#: depends on these and on the card alone, so the size is asked of the
+#: library once
+_WORKSPACE_NUMEL = {}
+
+#: the backward kernel's fp32 workspace (its partial rows of dw and db) per
+#: (device, stream), kept at the largest size asked for so far: the grid is
+#: sized to the card, so the model's calls all fit one buffer.  Calls on one
+#: stream run in order, so they may share it.  This holds for the streams
+#: PyTorch hands out, which live as long as the process; a stream destroyed
+#: while its work still runs would leave its handle's buffer in use.
+_WORKSPACES = {}
+
+
+def _workspace(device, stream, numel):
+    if torch.cuda.is_current_stream_capturing():
+        # a buffer from a CUDA graph's private pool must not outlive the
+        # graph: the graph owns this one
+        return torch.empty(numel, dtype=torch.float32, device=device)
+    buf = _WORKSPACES.get((device, stream))
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _WORKSPACES[(device, stream)] = buf
+    return buf
 
 
 #: kernel launches since the count was last set to 0

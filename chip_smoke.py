@@ -21,7 +21,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    ``F.layer_norm``) times (CUDA events, median of 20 groups of 10 warm
    runs), the bound (the larger of bytes / 3.35 TB/s and flops / 989
    TFLOP/s), the share of the bound reached and the ratio to the library
-   call;
+   call; for LayerNorm also the device kernels one call runs and their
+   times, from the profiler (exactly one, no memset), and its scalar path
+   once on a misaligned view (the profiler must name the scalar kernel);
 4. the serving path: numpy-seeded synthetic requests, one of them ragged,
    with the launch counters set to 0 before and read after (84 flash and
    181 LayerNorm launches per forward), outputs checked for shape, range and
@@ -40,7 +42,10 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    flash backward (delta, dK/dV and dQ kernels, timed together, with the
    profiler's split) at rate 0 and 0.1 (SDPA's backward as the library
    yardstick) and its delta kernel alone, the LayerNorm backward
-   (``F.layer_norm``'s backward); the plain hash dropout's time; an exact
+   (``F.layer_norm``'s backward; bitwise-equal reruns; the device kernels
+   one call runs, from the profiler: exactly one, the cooperative launch,
+   and no memset; its scalar kernel once on a misaligned view); the plain
+   hash dropout's time; an exact
    check of the kernels' dropout masks (q = 0, V = I, dO = I); one long
    multi-tile shape (B*H 2, 640 x 1280, band and dropout), checked, then
    timed: the forward, the dQ and the dK/dV kernel each beside its bound
@@ -54,9 +59,10 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    time (median, host clock, synchronised), samples/s and peak memory.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-and, last, ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or
-of the JAX package; without a CUDA device, or without ``bpx_torch`` beside
-it, it exits non-zero and prints no result.
+(per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, and
+its rows by shape class) and, last, ``{"ok": true, "device": {...}}``.  It
+imports nothing of JAX or of the JAX package; without a CUDA device, or
+without ``bpx_torch`` beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -414,22 +420,46 @@ def phase_layer_norm(torch, timer, classes, gen):
         t_k = timer(lambda: layer_norm(x, w, b, eps, out_dt))
         t_p = timer(lambda: layer_norm_reference(x, w, b, eps, out_dt))
         t_l = timer(lambda: F.layer_norm(x, (e,), w.to(dt), b.to(dt), eps))
+        split = one_kernel_per_call(
+            torch, lambda: layer_norm(x, w, b, eps, out_dt), "layer_norm",
+            (n, e))
         rows.append(dict(shape=[n, e], eps=eps, dtype=str(dt),
                          out_dtype=str(out_dt), per_forward=count,
                          max_abs_err=err, ms=t_k, plain_ms=t_p,
-                         library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
+                         library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                         kernel_split_ms=split))
         print(f"[layer_norm] ({n}, {e}) eps={eps:g} {dt} -> {out_dt} "
-              f"x{count}/fwd: err {err:.3g} (tol {LN_TOL}); kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.layer_norm {t_l:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by})")
-    # the scalar path (a width the vector loads do not take) once, too
-    x = torch.randn(64, 300, generator=gen, device="cuda").to(torch.bfloat16)
-    w, b = torch.ones(300, device="cuda"), torch.zeros(300, device="cuda")
-    y = layer_norm(x, w, b, 1e-6, torch.float32)
-    ry, _, _ = layer_norm_reference(x, w, b, 1e-6, torch.float32)
-    check(torch.allclose(y, ry, atol=1e-4, rtol=1e-4),
+              f"x{count}/fwd: err {err:.3g} (tol {LN_TOL}); "
+              + timing_text(t_k, t_p, t_l, b_ms, b_by, "F.layer_norm")
+              + "; profiler: " + split_text(split))
+    # the scalar path once, too: a view 2 elements into its buffer is not
+    # 16-byte aligned, and the profiler must name the scalar kernel
+    x = misaligned_view(torch, gen, 133, 768)
+    w = torch.rand(768, generator=gen, device="cuda") + 0.5
+    b = torch.randn(768, generator=gen, device="cuda")
+    y, mu, rstd = layer_norm(x, w, b, 1e-6, torch.float32, return_stats=True)
+    ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-6, torch.float32)
+    check(torch.allclose(y, ry, atol=1e-4, rtol=1e-4)
+          and torch.allclose(mu, rmu, **LN_STAT_TOL)
+          and torch.allclose(rstd, rrstd, **LN_STAT_TOL),
           f"layer_norm scalar path differs: {max_err(y, ry)}")
+    takes_kernel(torch, lambda: layer_norm(x, w, b, 1e-6, torch.float32),
+                 "layer_norm_scalar_kernel")
     return rows
+
+
+def misaligned_view(torch, gen, n, e):
+    """A bf16 (n, e) view 2 elements into its buffer: not 16-byte aligned,
+    so the LayerNorm kernels take their scalar paths."""
+    buf = torch.randn(n * e + 2, generator=gen, device="cuda")
+    return (buf * 3 + 1).to(torch.bfloat16)[2:].view(n, e)
+
+
+def takes_kernel(torch, fn, kernel):
+    """Fails unless one call of ``fn`` runs one device kernel, ``kernel``."""
+    split = one_kernel_per_call(torch, fn, kernel, "a misaligned view")
+    check(all(kernel in k for k in split),
+          f"expected {kernel}, the profiler saw {sorted(split)}")
 
 
 def timing_text(t_k, t_p, t_l, b_ms, b_by, library) -> str:
@@ -555,6 +585,9 @@ def phase_layer_norm_bwd(torch, timer, classes, gen):
         nbytes = (n * e * (2 * x.element_size() + dy.element_size())
                   + 3 * e * 4 + 2 * n * 4)
         b_ms, b_by = bound_ms(nbytes, 12.0 * n * e)
+        again = norm._launch_bwd(x, w, mu, rstd, dy)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"layer_norm backward reruns differ at {(n, e)}")
         t_k = timer(lambda: norm._launch_bwd(x, w, mu, rstd, dy))
         t_p = timer(lambda: norm.layer_norm_backward_reference(
             x, w, mu, rstd, dy))
@@ -564,17 +597,59 @@ def phase_layer_norm_bwd(torch, timer, classes, gen):
         t_l = timer(lambda: torch.autograd.grad(y, (xl, wl, bl),
                                                 dy.to(y.dtype),
                                                 retain_graph=True))
+        split = one_kernel_per_call(
+            torch, lambda: norm._launch_bwd(x, w, mu, rstd, dy),
+            "layer_norm backward", (n, e))
         rows.append(dict(shape=[n, e], dtype=str(dt), dy_dtype=str(dy_dt),
                          per_forward=count, max_abs_err=err,
                          param_rel_err=perr,
                          ms=t_k, plain_ms=t_p, library_ms=t_l,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split))
         print(f"[layer_norm_bwd] ({n}, {e}) {dt}, dy {dy_dt} x{count}/"
               f"micro-step: dx err {err:.3g} (tol {LN_TOL}), dw/db rel err "
-              f"{perr:.3g} (tol {LN_PARAM_GRAD_TOL}); kernels {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, F.layer_norm bwd {t_l:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
+              f"{perr:.3g} (tol {LN_PARAM_GRAD_TOL}), reruns bitwise equal; "
+              + timing_text(t_k, t_p, t_l, b_ms, b_by, "F.layer_norm bwd")
+              + "; profiler: " + split_text(split))
+    # the scalar path once, too, on misaligned views
+    n, e = 133, 768
+    x, dy = (misaligned_view(torch, gen, n, e) for _ in range(2))
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    _, mu, rstd = norm.layer_norm(x, w, torch.zeros_like(w), 1e-6,
+                                  return_stats=True)
+    got = norm._launch_bwd(x, w, mu, rstd, dy)
+    want = norm.layer_norm_backward_reference(x, w, mu, rstd, dy)
+    perr = max(grad_err(g, r) for g, r in zip(got[1:], want[1:]))
+    check(torch.allclose(got[0].float(), want[0].float(), **LN_TOL)
+          and perr <= LN_PARAM_GRAD_TOL,
+          f"layer_norm backward scalar path differs: dx "
+          f"{max_err(got[0], want[0])}, dw/db {perr}")
+    takes_kernel(torch, lambda: norm._launch_bwd(x, w, mu, rstd, dy),
+                 "ln_bwd_scalar_kernel")
     return rows
+
+
+#: device kernels per LayerNorm call, forward or backward (the backward's
+#: rows, grid barrier and dw/db reduction are one cooperative launch)
+LN_KERNELS_PER_CALL = 1
+
+
+def one_kernel_per_call(torch, fn, what, shape):
+    """The profiler's device activities per call of ``fn``; fails unless
+    there is exactly LN_KERNELS_PER_CALL of them and none is a memset or a
+    fill."""
+    split = device_kernels(torch, fn)
+    calls = sum(c for c, _ in split.values())
+    check(calls == LN_KERNELS_PER_CALL
+          and not any("memset" in k.lower() or "fill" in k.lower()
+                      for k in split),
+          f"{what} at {shape} ran {calls} device kernels per call "
+          f"({sorted(split)}), expected {LN_KERNELS_PER_CALL} and no memset")
+    return {k: ms for k, (_, ms) in split.items()}
+
+
+def split_text(split) -> str:
+    return (f"{len(split)} device kernel(s) per call: "
+            + ", ".join(f"{k} {ms:.4f} ms" for k, ms in split.items()))
 
 
 def phase_dropout_hash(torch, timer, classes, gen):
@@ -624,23 +699,46 @@ def phase_mask_check(torch, gen):
           "the kernels' dropout mask differs from the plain version's")
 
 
-def kernel_ms(torch, fn, names, n: int = 20):
-    """Device ms per call of ``fn`` spent in each kernel whose name holds
-    one of ``names``, from the profiler's kernel events over ``n`` calls."""
+def device_kernels(torch, fn, n: int = 20):
+    """{kernel: (activities per call, device ms per call)} of ``fn``, from
+    the profiler's device events (kernels, memsets, copies) over ``n``
+    calls; a kernel is named as ``short_name`` gives it.  The profiler now
+    and then drops an event or a whole profile: counts are rounded to
+    whole activities per call, and times taken over the events seen."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a profile now and then comes back empty: retry
+    for _ in range(3):   # retry a profile that comes back empty
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        got = {name: 0.0 for name in names}
+        got = collections.defaultdict(lambda: [0, 0.0])
         for e in prof.events():
             if e.device_type.name == "CUDA":
-                for name in names:
-                    if name in e.name:
-                        got[name] += e.device_time / 1e3 / n
+                entry = got[short_name(e.name)]
+                entry[0] += 1
+                entry[1] += e.device_time / 1e3
+        if got:
+            break
+    return {k: (round(c / n), t / c * round(c / n))
+            for k, (c, t) in got.items()}
+
+
+def short_name(name: str) -> str:
+    """``ln_bwd_vec_kernel<__nv_bfloat16, __nv_bfloat16, 6>`` from the
+    profiler's demangled ``void (anonymous namespace)::...(args)``."""
+    m = re.search(r"(\w+_kernel)(<[^()]*>)?\(", name)
+    return m.group(1) + (m.group(2) or "") if m else name
+
+
+def kernel_ms(torch, fn, names, n: int = 20):
+    """Device ms per call of ``fn`` spent in each kernel whose name holds
+    one of ``names``, from the profiler's kernel events over ``n`` calls."""
+    for _ in range(3):   # retry a profile that misses one of the kernels
+        split = device_kernels(torch, fn, n)
+        got = {name: sum(t for k, (_, t) in split.items() if name in k)
+               for name in names}
         if all(got.values()):
             break
     return got
@@ -1172,6 +1270,7 @@ def summarise(name, source, replaces, rows, launches, runs, per):
              "library_ms": avg("library_ms"),
              f"launches_per_{per}": launches // runs, "shapes": rows}
     ms, lib, bound = entry["ms"], entry["library_ms"], entry["bound_ms"]
+    entry.update(bound_share=bound / ms, library_ratio=ms / lib)
     print(f"[summary] {name} (mix-weighted): {ms:.4f} ms, library "
           f"{lib:.4f} ms ({ms / lib:.2f}x), bound {bound:.4f} ms "
           f"({bound / ms:.1%} of the bound)")

@@ -2,7 +2,10 @@
 edge shapes the model does not reach (ragged tiles, an empty key range,
 single rows, widths without vector loads, fp32 input and output, a long
 multi-tile shape) and at the model's own attention classes, forward and
-backward, with and without dropout; the backward's delta kernel alone.
+backward, with and without dropout; the backward's delta kernel alone; the
+LayerNorm kernels at the edges of their card-sized grid, on misaligned views
+(their scalar paths), the device kernels one call runs (the profiler), and
+the backward's phase stamps in a build with ``-DBPX_LN_TRACE``.
 
 Needs a CUDA device and skips elsewhere (the ``gen`` fixture decides).
 On a machine with a card, without JAX:
@@ -92,8 +95,15 @@ def test_flash_kernel_rejects_and_plain_context(gen):
     assert torch.equal(out, ref)
 
 
+# row counts at the edges of the LayerNorm kernels' card-sized grid (132
+# SMs on an H100; 8 rows per block at most per wave) and the model's 1600 and
+# 4096; widths of the vector path (300, 768, 1024) and just past it (1032)
+LN_EDGES = [(n, e) for n in (1, 131, 132, 133, 1600, 4096, 8193)
+            for e in (300, 768, 1024, 1032)]
+
+
 @pytest.mark.parametrize("n,e", [(5, 768), (33, 300), (16, 1001), (7, 64),
-                                 (3, 2048)])
+                                 (3, 2048)] + LN_EDGES)
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("y_dtype", [torch.bfloat16, torch.float32])
 def test_layer_norm_kernel_matches_plain(gen, n, e, x_dtype, y_dtype):
@@ -282,7 +292,7 @@ def test_flash_autograd_launches_both_kernels(gen):
 
 
 @pytest.mark.parametrize("n,e", [(5, 768), (33, 300), (16, 1001), (7, 64),
-                                 (40, 2048), (4096, 768)])
+                                 (40, 2048), (4096, 768)] + LN_EDGES)
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dy_dtype", [torch.bfloat16, torch.float32])
 def test_layer_norm_backward_kernel_matches_plain(gen, n, e, x_dtype,
@@ -329,3 +339,140 @@ def test_layer_norm_autograd_on_card(gen):
     for a, c in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, c, atol=1e-3 * c.abs().max().item(),
                                    rtol=1e-3)
+
+
+def _offset_view(gen, n, e, dtype, scale=1.0, shift=0.0):
+    """An (n, e) tensor whose data starts 2 elements into its buffer: not
+    16-byte aligned, so the kernels take their scalar paths."""
+    buf = torch.randn(n * e + 2, generator=gen, device="cuda") * scale + shift
+    x = buf.to(dtype)[2:].view(n, e)
+    assert x.data_ptr() % 16 != 0
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernels_take_misaligned_views(gen, dtype):
+    n, e = 133, 768
+    x = _offset_view(gen, n, e, dtype, 3.0, 1.0)
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    b = torch.randn(e, generator=gen, device="cuda")
+    y, mu, rstd = layer_norm(x, w, b, 1e-6, dtype, return_stats=True)
+    ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-6, dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), ry.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(mu, rmu, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+    dy = _offset_view(gen, n, e, dtype)
+    got = layer_norm_backward(x, w, mu, rstd, dy)
+    want = layer_norm_backward_reference(x, w, mu, rstd, dy)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol,
+                               rtol=tol)
+    for g, r in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, r, atol=1e-4 * r.abs().max().item(),
+                                   rtol=1e-4)
+    again = layer_norm_backward(x, w, mu, rstd, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def _device_kernels(fn):
+    """Names of the device activities (kernels, memsets, copies) of one
+    call of ``fn``, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile now and then comes back empty: retry
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.parametrize("n,e,dtype,aligned,kernel", [
+    (1600, 768, torch.bfloat16, True, "ln_bwd_vec_kernel"),
+    (4096, 768, torch.bfloat16, True, "ln_bwd_vec_kernel"),
+    (133, 300, torch.float32, True, "ln_bwd_vec_kernel"),
+    (133, 768, torch.bfloat16, False, "ln_bwd_scalar_kernel"),
+    (64, 1032, torch.float32, True, "ln_bwd_scalar_kernel"),
+])
+def test_layer_norm_backward_is_one_kernel(gen, n, e, dtype, aligned,
+                                           kernel):
+    """One backward call runs exactly one device kernel (the cooperative
+    launch: rows, grid barrier, fixed-order reduction of dw and db), no
+    memset, and the path the width and alignment select."""
+    if aligned:
+        x = torch.randn(n, e, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(n, e, generator=gen, device="cuda").to(dtype)
+    else:
+        x, dy = (_offset_view(gen, n, e, dtype) for _ in range(2))
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    b = torch.randn(e, generator=gen, device="cuda")
+    _, mu, rstd = layer_norm(x, w, b, 1e-6, return_stats=True)
+    names = _device_kernels(lambda: layer_norm_backward(x, w, mu, rstd, dy))
+    assert len(names) == 1 and kernel in names[0], names
+
+
+@pytest.mark.parametrize("n,e,dtype,kernel", [
+    (1600, 768, torch.bfloat16, "layer_norm_vec_kernel"),
+    (1600, 768, torch.float32, "layer_norm_vec_kernel"),   # fp32 in: vector
+    (3, 768, torch.float32, "layer_norm_vec_kernel"),
+    (33, 300, torch.bfloat16, "layer_norm_vec_kernel"),
+    (33, 1032, torch.bfloat16, "layer_norm_scalar_kernel"),
+])
+def test_layer_norm_forward_path(gen, n, e, dtype, kernel):
+    """The forward is one kernel on the path its width selects: fp32 input
+    at E = 768 takes the vector path, as bf16 does."""
+    x = torch.randn(n, e, generator=gen, device="cuda").to(dtype)
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    b = torch.randn(e, generator=gen, device="cuda")
+    names = _device_kernels(lambda: layer_norm(x, w, b, 1e-6,
+                                               torch.bfloat16))
+    assert len(names) == 1 and kernel in names[0], names
+
+
+def test_layer_norm_backward_phase_stamps(gen, monkeypatch):
+    """Built with -DBPX_LN_TRACE (as scripts/torch_ln_bwd_phases.py builds
+    it), thread 0 of each block of the vector backward stamps the global
+    timer at its start and after its rows, its partial rows, the grid
+    barrier and its column sums.  Each launch writes every block's stamps,
+    in order; no block leaves the barrier before every block has written
+    its partial rows; and the traced kernel still matches the plain
+    version."""
+    import ctypes
+    from bpx_torch.ops import _cuda
+    monkeypatch.setattr(_cuda, "CFLAGS", _cuda.CFLAGS + ["-DBPX_LN_TRACE"])
+    monkeypatch.setattr(_cuda, "_lib", None)
+    lib = _cuda.library()
+    lib.bpx_ln_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bpx_ln_trace_read.restype = ctypes.c_int
+    n, e = 1600, 768
+    x = (torch.randn(n, e, generator=gen, device="cuda") * 3 + 1).to(
+        torch.bfloat16)
+    dy = torch.randn(n, e, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    _, mu, rstd = layer_norm(x, w, torch.zeros_like(w), 1e-6,
+                             return_stats=True)
+    grid = lib.bpx_layer_norm_bwd_workspace(n, e, 1, 1, 1) // (2 * e)
+    assert 0 < grid <= n
+
+    def stamps():
+        got = layer_norm_backward(x, w, mu, rstd, dy)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (5 * grid))()
+        assert lib.bpx_ln_trace_read(ctypes.addressof(buf), grid) == 0
+        return got, [tuple(buf[5 * i:5 * i + 5]) for i in range(grid)]
+
+    _, first = stamps()
+    got, second = stamps()
+    assert min(s[0] for s in second) > max(s[4] for s in first)
+    assert all(list(s) == sorted(s) for s in second)
+    assert max(s[2] for s in second) <= min(s[3] for s in second)
+    want = layer_norm_backward_reference(x, w, mu, rstd, dy)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    for g, r in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, r, atol=1e-4 * r.abs().max().item(),
+                                   rtol=1e-4)

@@ -7,7 +7,9 @@ same function, sums in another order).  bf16 output: within one bf16 ulp
 (2**-7 relative), since both round the same fp32 value and a last-bit fp32
 difference may cross a rounding boundary.  Backward: dx, dW and db within
 atol/rtol 2e-5 of the largest entry in fp32; with bf16 input dx is within
-one bf16 ulp.
+one bf16 ulp.  Besides small shapes, the model's own LayerNorm classes
+(1600 x 768 bf16, both of its eps) and a row count that the kernels' grid
+splits unevenly.
 """
 
 import numpy as np
@@ -98,7 +100,7 @@ def test_layer_norm_backward_matches_pallas(monkeypatch, n, e, eps, dt):
     wdx, wdw, wdb = vjp(jnp.asarray(g, jdt))
 
     tdt = getattr(torch, dt)
-    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+    xt = torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(tdt)
     xt.requires_grad_(True)
     wt = torch.from_numpy(w).requires_grad_(True)
     bt = torch.from_numpy(b).requires_grad_(True)
@@ -115,6 +117,70 @@ def test_layer_norm_backward_matches_pallas(monkeypatch, n, e, eps, dt):
                                    atol=1e-6, rtol=2 ** -7)
     close(wt.grad.numpy(), np.asarray(wdw), 2e-5)
     close(bt.grad.numpy(), np.asarray(wdb), 2e-5)
+
+
+def _bf16_pair(n, e, seed):
+    """bf16 x of (n, e) as a jax array and as a torch tensor, same values."""
+    x, w, b = _inputs(n, e, seed)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
+        torch.bfloat16)
+    return xj, xt, w, b
+
+
+# the model's LayerNorm classes (moviescope, batch 8: 1600 and 4096 rows of
+# 768, bf16 in and out; BERT's eps 1e-12, the encoders' 1e-6), and 1336 rows
+# (8 x 167), which the kernels' card-sized grid splits unevenly
+MODEL_CLASSES = [(1600, 1e-6), (1600, 1e-12), (1336, 1e-6)]
+
+
+@pytest.mark.parametrize("n,eps", MODEL_CLASSES)
+def test_layer_norm_at_the_model_classes_matches_pallas(monkeypatch, n, eps):
+    monkeypatch.setenv("BPX_FORCE_PALLAS", "1")
+    xj, xt, w, b = _bf16_pair(n, 768, seed=5)
+    want = bpx_layer_norm(xj, jnp.asarray(w), jnp.asarray(b), eps,
+                          out_dtype=jnp.bfloat16)
+    _, want_mu, want_rstd = pallas_ln_fwd(xj, jnp.asarray(w), jnp.asarray(b),
+                                          eps, jnp.bfloat16)
+    got, mu, rstd = layer_norm_reference(xt, torch.from_numpy(w),
+                                         torch.from_numpy(b), eps,
+                                         torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, 768)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=1e-6, rtol=2 ** -7)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(want_mu)[:, 0],
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(want_rstd)[:, 0],
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("n,eps", MODEL_CLASSES)
+def test_layer_norm_backward_at_the_model_classes_matches_pallas(
+        monkeypatch, n, eps):
+    monkeypatch.setenv("BPX_FORCE_PALLAS", "1")
+    xj, xt, w, b = _bf16_pair(n, 768, seed=6)
+    g = np.random.RandomState(7).randn(n, 768).astype(np.float32)
+    gj = jnp.asarray(g, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, s, c: bpx_layer_norm(
+        a, s, c, eps, out_dtype=jnp.bfloat16), xj, jnp.asarray(w),
+        jnp.asarray(b))
+    wdx, wdw, wdb = vjp(gj)
+
+    _, mu, rstd = layer_norm_reference(xt, torch.from_numpy(w),
+                                       torch.from_numpy(b), eps)
+    gt = torch.from_numpy(np.array(gj.astype(jnp.float32))).to(
+        torch.bfloat16)
+    dx, dw, db = layer_norm_backward_reference(xt, torch.from_numpy(w), mu,
+                                               rstd, gt)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(wdx, np.float32),
+                               atol=1e-6, rtol=2 ** -7)
+    for got, want in ((dw, wdw), (db, wdb)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want,
+                                   atol=2e-5 * np.abs(want).max(), rtol=2e-5)
 
 
 def test_layer_norm_backward_reference_shapes():
