@@ -43,14 +43,18 @@
 // Registers bound the occupancy: the dK/dV kernel holds dK, dV, S^T and
 // dP^T (D + 64 fp32 per thread): 2 blocks per SM at both head dims (100 KB
 // of shared memory each at D = 96); at D = 64 a cap of 168 registers for a
-// third block spills and measured slower.
+// third block spills and measured slower.  Narrow heads (D = 25, 30) run at
+// DP = 32 as the forward does (flash_common.cuh): S^T, dP^T, S and dP in 2
+// k-steps, dV, dK and dQ as m64n32k16; only the loads, the stores and the
+// delta kernel know D.
 //
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
 // against q, k, v, dO, o read and dq, dk, dv written once; at the model's
-// shapes (T <= 512, D 64/96) the bytes bound it.
+// shapes (T <= 512, D <= 96) the bytes bound it.
 //
 // Inputs and outputs are (B, H, T, D) tensors addressed by strides (last dim
-// contiguous, strides multiples of 8 elements, 16-byte aligned pointers);
+// contiguous; D = 64, 96: strides multiples of 8 elements, 16-byte aligned
+// pointers; D = 30: even strides, 4-byte aligned; D = 25: any strides);
 // lse and the delta workspace are (B*H, Tq) fp32.
 
 #include "flash_common.cuh"
@@ -110,57 +114,56 @@ __device__ __forceinline__ void zero(float (&a)[N]) {
   for (int i = 0; i < N; ++i) a[i] = 0.f;
 }
 
-// Write a warpgroup's 64 x D fp32 accumulator (this thread: rows r0 and
-// r0 + 8) as bf16 rows below T.
+// Write a warpgroup's 64 x DP fp32 accumulator (this thread: rows r0 and
+// r0 + 8) as bf16 rows below T, columns below D.
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long st,
-                                           int r0, int T,
-                                           const float (&acc)[D / 2],
-                                           int t4) {
-  if (r0 < T) {
-    __nv_bfloat16* row = base + r0 * st + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(row + j * 8) =
-          pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
-    }
-  }
-  if (r0 + 8 < T) {
-    __nv_bfloat16* row = base + (r0 + 8) * st + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(row + j * 8) =
-          pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
+__device__ __forceinline__ void store_rows(
+    __nv_bfloat16* base, long long st, int r0, int T,
+    const float (&acc)[padded_dim<D>() / 2], int t4) {
+  if (r0 < T) store_row<D, 0>(base + r0 * st, acc, t4, 1.f);
+  if (r0 + 8 < T) store_row<D, 2>(base + (r0 + 8) * st, acc, t4, 1.f);
 }
 
 // delta[bh, t] = sum_d dO[b, h, t, d] * O[b, h, t, d] in fp32: half a warp
-// per row, 16 bytes of each per lane, lanes summed in a fixed order.
+// per row, lanes summed in a fixed order.  D = 64, 96: 16 bytes of each per
+// lane; a narrow head (its rows 2- or 4-byte aligned): columns lane and
+// lane + 16, in 2-byte loads.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
                    float* delta, int H, int T, int rows, long long o_sb,
                    long long o_sh, long long o_st, long long do_sb,
                    long long do_sh, long long do_st) {
-  static_assert(D % 8 == 0 && D <= 128, "one 16-byte chunk per lane");
+  static_assert((D % 8 == 0 && D <= 128) || D <= 32,
+                "16-byte chunks or two columns per lane");
   const int row = blockIdx.x * 16 + threadIdx.x / 16;
   const int lane = threadIdx.x % 16;
   float sum = 0.f;
-  if (row < rows && lane < D / 8) {
+  if (row < rows) {
     const int bh = row / T, t = row % T;
     const int b = bh / H, h = bh % H;
-    const uint4 x = *reinterpret_cast<const uint4*>(
-        o + b * o_sb + h * o_sh + t * o_st + lane * 8);
-    const uint4 y = *reinterpret_cast<const uint4*>(
-        dout + b * do_sb + h * do_sh + t * do_st + lane * 8);
-    const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* yv = reinterpret_cast<const __nv_bfloat162*>(&y);
+    const __nv_bfloat16* x = o + b * o_sb + h * o_sh + t * o_st;
+    const __nv_bfloat16* y = dout + b * do_sb + h * do_sh + t * do_st;
+    if constexpr (D % 32 == 0) {
+      if (lane < D / 8) {
+        const uint4 xc = *reinterpret_cast<const uint4*>(x + lane * 8);
+        const uint4 yc = *reinterpret_cast<const uint4*>(y + lane * 8);
+        const __nv_bfloat162* xv =
+            reinterpret_cast<const __nv_bfloat162*>(&xc);
+        const __nv_bfloat162* yv =
+            reinterpret_cast<const __nv_bfloat162*>(&yc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(xv[i]);
-      const float2 c = __bfloat1622float2(yv[i]);
-      sum += a.x * c.x + a.y * c.y;
+        for (int i = 0; i < 4; ++i) {
+          const float2 a = __bfloat1622float2(xv[i]);
+          const float2 c = __bfloat1622float2(yv[i]);
+          sum += a.x * c.x + a.y * c.y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = lane; c < D; c += 16) {
+        sum += __bfloat162float(x[c]) * __bfloat162float(y[c]);
+      }
     }
   }
 #pragma unroll
@@ -174,9 +177,10 @@ flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const BwdParams p) {
+  constexpr int DP = padded_dim<D>();
   constexpr int kTile = tile_bytes<D>();
   constexpr int kStage = dkdv_stage_bytes<D>();
-  constexpr int kKSteps = D / 16;
+  constexpr int kKSteps = DP / 16;
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -201,7 +205,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float* dl_b = p.delta + (long long)bh * Tq;
 
-  float dk[D / 2], dv[D / 2], st[32], dpt[32];
+  float dk[DP / 2], dv[DP / 2], st[32], dpt[32];
   zero(dk);
   zero(dv);
   zero(st);
@@ -217,8 +221,8 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   auto load_stage = [&](int i) {
     const int q0 = (q_begin + i) * kRows;
     const uint32_t dst = stage0 + (i % kStages) * kStage;
-    load_tile_async<D>(dst, qb, p.q_st, q0, Tq);
-    load_tile_async<D>(dst + kTile, ob, p.o_st, q0, Tq);
+    load_tile<D>(dst, qb, p.q_st, q0, Tq);
+    load_tile<D>(dst + kTile, ob, p.o_st, q0, Tq);
     const int r = threadIdx.x % kRows;
     const bool ok = q0 + r < Tq;
     const float* src = threadIdx.x < kRows ? lse_b : dl_b;
@@ -227,8 +231,8 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   };
 
   if (n_tiles > 0) {
-    load_tile_async<D>(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk);
-    load_tile_async<D>(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk);
+    load_tile<D>(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk);
+    load_tile<D>(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk);
   }
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -308,11 +312,11 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<D>(dv, pa[kc], desc_mn_major(o_s, kc));
+      wgmma_rs_mn<DP>(dv, pa[kc], desc_mn_major(o_s, kc));
     }
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<D>(dk, da[kc], desc_mn_major(q_s, kc));
+      wgmma_rs_mn<DP>(dk, da[kc], desc_mn_major(q_s, kc));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -329,8 +333,9 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const BwdParams p) {
+  constexpr int DP = padded_dim<D>();
   constexpr int kTile = tile_bytes<D>();
-  constexpr int kKSteps = D / 16;
+  constexpr int kKSteps = DP / 16;
   extern __shared__ unsigned char smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t o_s = q_s + kTile;        // dO
@@ -356,7 +361,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
   const float dl0 = row0 < Tq ? dl_b[row0] : 0.f;
   const float dl1 = row0 + 8 < Tq ? dl_b[row0 + 8] : 0.f;
 
-  float dq[D / 2], s[32], dp[32];
+  float dq[DP / 2], s[32], dp[32];
   zero(dq);
   zero(s);
   zero(dp);
@@ -372,13 +377,12 @@ flash_bwd_dq_kernel(const BwdParams p) {
   // key tile t goes to ring stage t mod kStages
   auto load_kv = [&](int t) {
     const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
-    load_tile_async<D>(dst, kb, p.k_st, t * kRows, Tk);
-    load_tile_async<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+    load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
+    load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
   };
   if (n_tiles > 0) {
-    load_tile_async<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq);
-    load_tile_async<D>(o_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0,
-                       Tq);
+    load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq);
+    load_tile<D>(o_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0, Tq);
   }
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
@@ -445,7 +449,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<D>(dq, da[kc], desc_mn_major(k_s, kc));
+      wgmma_rs_mn<DP>(dq, da[kc], desc_mn_major(k_s, kc));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -546,6 +550,10 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 25:
+      return static_cast<int>(launch<25>(p, ob, o_sb, o_sh, o_st, s));
+    case 30:
+      return static_cast<int>(launch<30>(p, ob, o_sb, o_sh, o_st, s));
     case 64:
       return static_cast<int>(launch<64>(p, ob, o_sb, o_sh, o_st, s));
     case 96:
@@ -566,6 +574,14 @@ int bpx_flash_delta(const void* o, const void* dout, void* delta, int B,
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 25:
+      return static_cast<int>(launch_delta<25>(ob, dob, dl, B, H, T, o_sb,
+                                               o_sh, o_st, do_sb, do_sh,
+                                               do_st, s));
+    case 30:
+      return static_cast<int>(launch_delta<30>(ob, dob, dl, B, H, T, o_sb,
+                                               o_sh, o_st, do_sb, do_sh,
+                                               do_st, s));
     case 64:
       return static_cast<int>(launch_delta<64>(ob, dob, dl, B, H, T, o_sb,
                                                o_sh, o_st, do_sb, do_sh,

@@ -1,15 +1,19 @@
 // Device helpers shared by the flash-attention forward (flash_fwd.cu) and
-// backward (flash_bwd.cu) kernels for Hopper (sm_90a): asynchronous tile
-// loads into a swizzled shared-memory layout, the wgmma matrix descriptors
-// and instructions that read it, and the in-kernel dropout hash.
+// backward (flash_bwd.cu) kernels for Hopper (sm_90a): tile loads into a
+// swizzled shared-memory layout, the wgmma matrix descriptors and
+// instructions that read it, row stores, and the in-kernel dropout hash.
 //
-// Tile layout.  Every tile is 64 rows (queries or keys) of D bf16 values,
-// split into D / 32 column panels of 32 values (64 bytes).  A panel holds its
-// 64 rows back to back (64 B apart, 4 KB per panel) with the 64-byte swizzle
-// of wgmma and TMA (16-byte chunk c of row r stored at chunk c ^ ((r / 2) %
-// 4)), so the 16-byte copies of a warp and the tensor cores' reads hit
-// distinct banks.  D = 96 is not a swizzle span (192 B), but three 64-byte
-// panels are; D = 64 is two panels and D = 128 would be four.
+// Tile layout.  Every tile is 64 rows (queries or keys) of DP bf16 values,
+// DP the head dim D rounded up to 32, split into DP / 32 column panels of
+// 32 values (64 bytes).  A panel holds its 64 rows back to back (64 B apart,
+// 4 KB per panel) with the 64-byte swizzle of wgmma and TMA (16-byte chunk c
+// of row r stored at chunk c ^ ((r / 2) % 4)), so the 16-byte copies of a
+// warp and the tensor cores' reads hit distinct banks.  D = 96 is not a
+// swizzle span (192 B), but three 64-byte panels are; D = 64 is two panels
+// and D = 128 would be four.  A narrow head (D = 25, 30) is one panel whose
+// columns D..31 every load writes as zeros: the products then run at
+// DP = 32 and the padding adds nothing to them (a stale value there could
+// be a NaN, and 0 * NaN is not 0).
 //
 // The same tile serves both operand majors of wgmma:
 //   * K-major, when D is the reduction (S = Q K^T): the 16-wide k-step kk
@@ -32,10 +36,18 @@ constexpr int kThreads = 128;         // one warpgroup per block
 constexpr int kRows = 64;             // rows of every tile
 constexpr int kPanelBytes = kRows * 64;
 
+// The head dim the products run at: D rounded up to a whole panel.
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 31) / 32 * 32;
+}
+
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D % 32 == 0 && D <= 128, "head_dim must be 32*k, <= 128");
-  return D / 32 * kPanelBytes;
+  constexpr int DP = padded_dim<D>();
+  static_assert(DP <= 128, "head_dim must be <= 128");
+  static_assert(D == DP || D < 32, "head_dim must be 32*k or one panel");
+  return DP / 32 * kPanelBytes;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -54,14 +66,28 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// asynchronous copies (cp.async): 16-byte chunks, zero-filled when !valid
+// tile loads
 // ---------------------------------------------------------------------------
 //
 // cp.async rather than TMA: the q/k/v/dO tiles are strided (B, H, T, D)
-// views with ragged T, so a TMA descriptor per tensor would have to be
-// encoded on the host at every call of a host-bound path; 128 threads
-// issuing six 16-byte copies each per tile cost the SM nothing that matters
-// here, zero-fill the rows past T, and write the swizzled layout directly.
+// views with ragged T, and a narrow head's rows start 50 or 60 bytes apart,
+// which no TMA descriptor (16-byte strides) describes; one per tensor would
+// also have to be encoded on the host at every call of a host-bound path.
+// How a row is read depends on what its alignment allows:
+//   * D = 64, 96 (rows 16-byte aligned): 16-byte cp.async chunks, four
+//     neighbouring threads per 64-byte panel row, so a warp's stores cover
+//     512 distinct bytes;
+//   * D = 30 (rows 4-byte aligned): 4-byte cp.async words, 16 threads per
+//     row, the words past column D zero-filled;
+//   * D = 25 (rows only 2-byte aligned, and cp.async copies 4, 8 or 16
+//     bytes): plain 2-byte loads into registers, then shared-memory stores,
+//     a warp per row, columns past D stored as zeros.  The stores are the
+//     generic proxy's, as cp.async's are, so the same fence.proxy.async and
+//     barrier publish them to wgmma; but the thread waits for its loads
+//     before it stores, so they do not overlap the tile's products.
+// Rows at or past T are zero-filled, and no load reads a column >= D: in a
+// fused (B, T, 3, H, D) projection the next head's values sit there, and
+// past the last head of the last row the allocation ends.
 
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool valid) {
@@ -86,8 +112,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Make this thread's completed cp.async writes visible to the async proxy
-// (wgmma's operand reads); a block barrier must follow.
+__device__ __forceinline__ void st_shared_u16(uint32_t dst, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+}
+
+// Make this thread's completed shared-memory writes (cp.async's and plain
+// stores) visible to the async proxy (wgmma's operand reads); a block
+// barrier must follow.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -97,27 +128,59 @@ __device__ __forceinline__ uint32_t tile_offset(int r, int panel, int c) {
   return panel * kPanelBytes + r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-// Start the copies of rows [t0, t0 + 64) of one (batch, head) slice (row
-// pitch stride_t elements, last dim contiguous) into the tile at dst; rows
-// at or past T are zero-filled.  Four neighbouring threads copy one 64-byte
-// panel row, so a warp's 16-byte stores cover 512 distinct bytes.
+// Load rows [t0, t0 + 64) of one (batch, head) slice (row pitch stride_t
+// elements, last dim contiguous, D values a row) into the tile at dst:
+// started as cp.async copies, or, at odd D, done before it returns.
 template <int D>
-__device__ __forceinline__ void load_tile_async(uint32_t dst,
-                                                const __nv_bfloat16* src,
-                                                long long stride_t, int t0,
-                                                int T) {
-  constexpr int kChunks = kRows * D / 8;
-  static_assert(kChunks % kThreads == 0, "whole chunks per thread");
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long stride_t, int t0, int T) {
+  if constexpr (D % 32 == 0) {
+    constexpr int kChunks = kRows * D / 8;
+    static_assert(kChunks % kThreads == 0, "whole chunks per thread");
 #pragma unroll
-  for (int j = 0; j < kChunks / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int c = i & 3;
-    const int r = (i >> 2) & (kRows - 1);
-    const int panel = i >> 8;
-    const bool ok = t0 + r < T;
-    const __nv_bfloat16* g =
-        ok ? src + (long long)(t0 + r) * stride_t + panel * 32 + c * 8 : src;
-    cp_async_16(dst + tile_offset(r, panel, c), g, ok);
+    for (int j = 0; j < kChunks / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int c = i & 3;
+      const int r = (i >> 2) & (kRows - 1);
+      const int panel = i >> 8;
+      const bool ok = t0 + r < T;
+      const __nv_bfloat16* g =
+          ok ? src + (long long)(t0 + r) * stride_t + panel * 32 + c * 8
+             : src;
+      cp_async_16(dst + tile_offset(r, panel, c), g, ok);
+    }
+  } else if constexpr (D % 2 == 0) {
+    constexpr int kWords = kRows * 16;   // 4-byte words of the panel
+#pragma unroll
+    for (int j = 0; j < kWords / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int w = i & 15;
+      const int r = i >> 4;
+      const bool ok = t0 + r < T && w < D / 2;
+      const __nv_bfloat16* g =
+          ok ? src + (long long)(t0 + r) * stride_t + 2 * w : src;
+      cp_async_4(dst + tile_offset(r, 0, w >> 2) + (w & 3) * 4, g, ok);
+    }
+  } else {
+    constexpr int kPer = kRows * 32 / kThreads;   // values per thread
+    const int c = threadIdx.x % 32;               // this lane's column
+    const int r0 = threadIdx.x / 32;              // rows r0, r0 + 4, ...
+    uint16_t v[kPer];
+    // every load first, then every store: the loads are in flight together
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int r = r0 + 4 * j;
+      v[j] = (t0 + r < T && c < D)
+                 ? __ldg(reinterpret_cast<const unsigned short*>(
+                       src + (long long)(t0 + r) * stride_t + c))
+                 : uint16_t(0);
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      st_shared_u16(dst + tile_offset(r0 + 4 * j, 0, c / 8) + (c % 8) * 2,
+                    v[j]);
+    }
   }
 }
 
@@ -201,6 +264,23 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs_mn<32>(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
@@ -257,6 +337,29 @@ __device__ __forceinline__ void p_frags(uint32_t (&a)[4][4],
     a[kc][1] = pack_bf16x2(p[8 * kc + 2], p[8 * kc + 3]);
     a[kc][2] = pack_bf16x2(p[8 * kc + 4], p[8 * kc + 5]);
     a[kc][3] = pack_bf16x2(p[8 * kc + 6], p[8 * kc + 7]);
+  }
+}
+
+// Store this thread's share of one row of a 64 x DP fp32 accumulator (as
+// wgmma lays it out) as bf16, each value divided by div: columns
+// 8 j + 2 t4 + {0, 1} of row g (Hi = 0) or g + 8 (Hi = 2), those below D
+// only.  An odd-D row may start at any even byte and takes 2-byte stores;
+// every other row is 4-byte aligned.
+template <int D, int Hi>
+__device__ __forceinline__ void store_row(
+    __nv_bfloat16* row, const float (&acc)[padded_dim<D>() / 2], int t4,
+    float div) {
+#pragma unroll
+  for (int j = 0; j < padded_dim<D>() / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    const float x = acc[4 * j + Hi] / div;
+    const float y = acc[4 * j + Hi + 1] / div;
+    if constexpr (D % 2 == 0) {
+      if (c < D) *reinterpret_cast<uint32_t*>(row + c) = pack_bf16x2(x, y);
+    } else {
+      if (c < D) row[c] = __float2bfloat16_rn(x);
+      if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(y);
+    }
   }
 }
 

@@ -41,14 +41,21 @@
 // in; on edge tiles the product and the difference are rounded apart so
 // that a -1e30 score minus a -1e30 max is exactly 0.
 //
+// Narrow heads (D = 25, 30: the mmtrvat presets' 300 / 12 and 300 / 10) run
+// the same kernel at DP = 32, one panel whose columns D..31 the loads zero
+// (flash_common.cuh): S = Q K^T in 2 k-steps, O += P V as m64n32k16.  Only
+// the loads and the stores know D.
+//
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
-// 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D 64/96)
-// the arithmetic intensity is below the card's ~295 flop/byte balance point,
-// so the bound is the bytes.
+// 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
+// 96) the arithmetic intensity is below the card's ~295 flop/byte balance
+// point, so the bound is the bytes.
 //
 // Inputs are (B, H, T, D) tensors addressed by strides (the last dim
-// contiguous, every stride a multiple of 8 elements, pointers 16-byte
-// aligned), so the q/k/v views of a fused projection need no copy.
+// contiguous), so the q/k/v views of a fused projection need no copy.
+// D = 64, 96: every stride a multiple of 8 elements and pointers 16-byte
+// aligned; D = 30: even strides, 4-byte aligned pointers; D = 25: any
+// strides (its rows start at any even byte).
 
 #include "flash_common.cuh"
 
@@ -84,8 +91,9 @@ __host__ __device__ constexpr int smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams p) {
+  constexpr int DP = padded_dim<D>();
   constexpr int kTile = tile_bytes<D>();
-  constexpr int kKSteps = D / 16;   // k-steps of Q K^T
+  constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
   extern __shared__ unsigned char smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t kv_s = q_s + kTile;   // stage s: K at + 2 s kTile, V after
@@ -117,10 +125,10 @@ flash_fwd_kernel(const FlashParams p) {
   // key tile t goes to ring stage t mod kStages
   auto load_kv = [&](int t) {
     const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
-    load_tile_async<D>(dst, kb, p.k_st, t * kRows, Tk);
-    load_tile_async<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+    load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
+    load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
   };
-  load_tile_async<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) load_kv(t);
@@ -131,9 +139,9 @@ flash_fwd_kernel(const FlashParams p) {
   const int row1 = row0 + 8;
   float m0 = kMaskFill, m1 = kMaskFill;   // running row max
   float l0 = 0.f, l1 = 0.f;               // per-thread partial row sums
-  float acc[D / 2], s[32];
+  float acc[DP / 2], s[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
@@ -212,7 +220,7 @@ flash_fwd_kernel(const FlashParams p) {
       l1 += s[4 * j + 2] + s[4 * j + 3];
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
 
     // dropout after the row sums, so l keeps the undropped probabilities
     if (p.drop.on) {
@@ -230,7 +238,7 @@ flash_fwd_kernel(const FlashParams p) {
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<D>(acc, pa[kc], desc_mn_major(v_s, kc));
+      wgmma_rs_mn<DP>(acc, pa[kc], desc_mn_major(v_s, kc));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -247,21 +255,11 @@ flash_fwd_kernel(const FlashParams p) {
 
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
   if (row0 < p.Tq) {
-    __nv_bfloat16* orow = ob + row0 * p.o_st + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + j * 8) =
-          pack_bf16x2(acc[4 * j] / ls0, acc[4 * j + 1] / ls0);
-    }
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
   }
   if (row1 < p.Tq) {
-    __nv_bfloat16* orow = ob + row1 * p.o_st + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + j * 8) =
-          pack_bf16x2(acc[4 * j + 2] / ls1, acc[4 * j + 3] / ls1);
-    }
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
   }
 }
@@ -317,6 +315,10 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.drop.tk_p = static_cast<uint32_t>(tk_p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 25:
+      return static_cast<int>(launch<25>(p, s));
+    case 30:
+      return static_cast<int>(launch<30>(p, s));
     case 64:
       return static_cast<int>(launch<64>(p, s));
     case 96:

@@ -14,8 +14,10 @@ Mapping, leaf by leaf:
 * an ``nn.scan``-stacked ``layers`` subtree (leaves ``(L, ...)``) is split into
   ``layers.0 .. layers.{L-1}``; unrolled ``layer{i}`` becomes ``layers.{i}``.
 
-A leaf with no rule, and any key that the model has and the tree lacks or the
-other way round, raises.
+The rules cover both models' trees: mmtrvapt's, and mmtrvat's (no poster,
+no ``transfm_*``; a 3-ary ``gmu``, or ``mag`` with its Dense layers and
+``mag/norm``).  A leaf with no rule, and any key that the model has and the
+tree lacks or the other way round, raises.
 """
 
 from __future__ import annotations

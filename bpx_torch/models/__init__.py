@@ -1,5 +1,6 @@
-"""Model registry (counterpart: ``bpx/models/__init__.py``); this slice
-ports ``mmtrvapt``."""
+"""Model registry (counterpart: ``bpx/models/__init__.py``): the two BPMulT
+models, ``mmtrvapt`` and ``mmtrvat``; the notebook-era models are not
+ported yet."""
 
 from __future__ import annotations
 
@@ -8,10 +9,11 @@ from typing import Optional, Union
 import torch
 
 from bpx_torch.config import ModelConfig
-from bpx_torch.models.bpmult import BPMulTVAPT
+from bpx_torch.models.bpmult import BPMulTVAPT, BPMulTVAT
 
 MODELS = {
     "mmtrvapt": BPMulTVAPT,   # 4-input: video, audio, poster, text
+    "mmtrvat": BPMulTVAT,     # 3-input: video, audio, text
 }
 
 

@@ -1,26 +1,39 @@
 """BPMulT, the Biprojection Multimodal Transformer (counterpart:
-``bpx/models/bpmult.py``); this slice ports ``mmtrvapt``.
+``bpx/models/bpmult.py``): ``mmtrvapt`` (video, audio, poster, text; the
+moviescope and mmimdb presets) and ``mmtrvat`` (video, audio, text; iemocap,
+cmu-mosei, counseling, cmu-mosi).
 
 Dataflow per target modality X:
-  1. encode/project each stream to ``hidden_sz`` (BERT for text, the conv
-     encoder for audio, bias-free projections) and zero-pad it to its static
-     ``num_vectors_*`` length;
+  1. encode/project each stream to ``hidden_sz`` (BERT for text; for
+     mmtrvapt the conv encoder for audio, mmtrvat takes it raw; bias-free
+     projections) and zero-pad it to its static ``num_vectors_*`` length;
   2. 6 first-round crossmodal encoders ``trans_x_with_y``;
-  3. 6 biprojection encoders ``trans_x_with_y2z`` attending into the
-     already-crossed streams;
-  4. middle Fusion-GMU over the (length-adapted) first-round streams,
+  3. 6 second-round encoders ``trans_x_with_y2z`` attending into the
+     already-crossed streams: biprojection encoders in mmtrvapt, plain
+     crossmodal ones in mmtrvat;
+  4. middle Fusion-GMU over the first-round streams (length-adapted in
+     mmtrvapt; mmtrvat's equal lengths make its adapters identities),
      level 1->2 residual adds, top Fusion-GMU, level 1->3 residual add;
   5. summary = first + last token of the fused sequence;
-  6. a 4-input GMU over the three summaries and the poster embedding, then
-     a residual MLP head.
+  6. an N-ary GMU over the three summaries (and mmtrvapt's poster
+     embedding), or in mmtrvat MAG (``fusion="mag"``), then a residual MLP
+     head.
 Layout is batch-first ``(B, T, E)`` throughout.
 
 Training mode (``model.train()``, the JAX package's ``deterministic=False``)
 turns on the configured dropouts: BERT's, ``embed_dropout`` on the text
 stream and inside every encoder, the per-encoder attention dropout rates,
-the encoders' ReLU and residual dropout, and ``out_dropout`` in the head.
-The forward then takes ``dropout_seed``, a uint32 from which every dropout
-site draws its own seed in call order (:class:`SeedStream`).
+the encoders' ReLU and residual dropout, MAG's, and ``out_dropout`` in the
+head.  The forward then takes ``dropout_seed``, a uint32 from which every
+dropout site draws its own seed in call order (:class:`SeedStream`).
+
+``remat``, ``remat_policy``, ``remat_bert``, ``remat_policy_bert``,
+``scan_layers``, ``scan_encoders`` and ``scan_unroll`` steer XLA's program
+or its memory in the JAX package and are inert here: the port runs eagerly
+and keeps every activation for the backward (every mmtrvat preset sets
+``remat=True``; at micro-batch 8 the model fits an 80 GB card without
+recompute).  ``hybrid`` and ``group_encoders`` change the model and are not
+ported yet: they raise.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.encoder import TransformerEncoder
 from bpx_torch.ops.gmu import GatedBimodalFusionLayer, GatedNModalLayer
 from bpx_torch.ops.init import lecun_normal_, linear
+from bpx_torch.ops.mag import MAG
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -73,20 +87,18 @@ class SeqAdapter(nn.Module):
         return y + self.bias.to(x.dtype)[None, :, None]
 
 
-class BPMulTVAPT(nn.Module):
-    """``mmtrvapt``: BPMulT over video, audio, poster and text."""
+class _BPMulTBase(nn.Module):
+    """What both BPMulT models share: the input encoders and projections,
+    the 12-encoder crossmodal mesh, the six Fusion-GMUs, the residual head
+    and the forward's pieces.  A subclass builds its modules in the order
+    its ``__init__`` calls these (the seeded draws follow that order)."""
 
-    def __init__(self, config: ModelConfig, seed: int = 0, device=None):
-        super().__init__()
+    def _setup(self, config: ModelConfig, seed: int, device):
+        """Checks, dtype and the seeded generator; returns (gen, device)."""
         cfg = config
         if not (cfg.lonly and cfg.vonly and cfg.aonly):
             raise ValueError("BPMulT requires all three target modalities "
                              "active")
-        if cfg.num_vectors_a != cfg.num_vectors_v:
-            raise ValueError("mmtrvapt assumes num_vectors_a == "
-                             "num_vectors_v")
-        if cfg.fusion != "gmu":
-            raise ValueError("fusion='mag' is only wired on mmtrvat")
         if cfg.group_encoders:
             raise NotImplementedError(
                 "group_encoders is not ported yet (ROADMAP.md, port queue)")
@@ -95,13 +107,17 @@ class BPMulTVAPT(nn.Module):
                 "hybrid early fusion is not ported yet (ROADMAP.md, port "
                 "queue)")
         self.config = cfg
-        dt = self.dtype = compute_dtype(cfg)
+        self.dtype = compute_dtype(cfg)
         device = torch.device(device) if device is not None else None
         gen = None
         if device is None or device.type != "meta":
             gen = torch.Generator(device=device or "cpu").manual_seed(seed)
-        E = cfg.hidden_sz
+        return gen, device
 
+    def _make_inputs(self, gen, device):
+        """BERT, the audio encoder (when used) and the stream projections
+        to ``hidden_sz`` (only where the widths differ)."""
+        cfg, dt, E = self.config, self.dtype, self.config.hidden_sz
         self.bert = BertEncoder(cfg.bert, dt, gen, device)
         if cfg.use_audio_encoder:
             self.audio_enc = make_audio_encoder(
@@ -114,13 +130,18 @@ class BPMulTVAPT(nn.Module):
             self.proj_v = proj(cfg.orig_d_v)
         if cfg.orig_d_a != E:
             self.proj_a = proj(cfg.orig_d_a)
-        self.proj_poster = proj(cfg.orig_d_p)
+        return proj
 
-        def enc(biprojection, attn_dropout):
+    def _make_crossmodal_mesh(self, biprojection: bool, gen, device):
+        """The 6 first-round crossmodal encoders and the 6 second-round
+        ones (biprojection encoders or plain crossmodal ones)."""
+        cfg, dt, E = self.config, self.dtype, self.config.hidden_sz
+
+        def enc(bp, attn_dropout):
             return TransformerEncoder(
-                E, cfg.num_heads, cfg.layers, cfg.attn_mask, biprojection,
-                dt, gen, device, attn_dropout, cfg.relu_dropout,
-                cfg.res_dropout, cfg.embed_dropout)
+                E, cfg.num_heads, cfg.layers, cfg.attn_mask, bp, dt, gen,
+                device, attn_dropout, cfg.relu_dropout, cfg.res_dropout,
+                cfg.embed_dropout)
         # per-encoder attention dropout: encoders whose query stream is
         # l / a / v take attn_dropout(_a / _v) of the key stream's modality
         rate = {"l": cfg.attn_dropout, "a": cfg.attn_dropout_a,
@@ -133,22 +154,20 @@ class BPMulTVAPT(nn.Module):
                 ("trans_l_with_v2a", "a"), ("trans_l_with_a2v", "v"),
                 ("trans_v_with_l2a", "a"), ("trans_v_with_a2l", "l"),
                 ("trans_a_with_v2l", "l"), ("trans_a_with_l2v", "v")):
-            setattr(self, name, enc(True, rate[key]))
+            setattr(self, name, enc(biprojection, rate[key]))
 
+    def _make_gmus(self, gen, device):
         for name in ("gmu_l_m", "gmu_v_m", "gmu_a_m", "gmu_l", "gmu_v",
                      "gmu_a"):
-            setattr(self, name, GatedBimodalFusionLayer(E, dt, gen, device))
+            setattr(self, name, GatedBimodalFusionLayer(
+                self.config.hidden_sz, self.dtype, gen, device))
 
-        Tl, Ta, Tv = cfg.num_vectors_l, cfg.num_vectors_a, cfg.num_vectors_v
-        self.transfm_a2l = SeqAdapter(Ta, Tl, dt, gen, device)
-        self.transfm_v2l = SeqAdapter(Tv, Tl, dt, gen, device)
-        self.transfm_l2a = SeqAdapter(Tl, Ta, dt, gen, device)
-        self.transfm_l2v = SeqAdapter(Tl, Tv, dt, gen, device)
-
-        self.gmu = GatedNModalLayer(4, E, dt, gen, device)
+    def _make_head(self, gen, device):
+        E = self.config.hidden_sz
         self.proj1 = linear(E, E, True, "xavier", gen, device)
         self.proj2 = linear(E, E, True, "xavier", gen, device)
-        self.out_layer = linear(E, cfg.n_classes, True, "xavier", gen, device)
+        self.out_layer = linear(E, self.config.n_classes, True, "xavier",
+                                gen, device)
 
     def _lin(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -170,6 +189,32 @@ class BPMulTVAPT(nn.Module):
                 _pad_to_length(proj_v, cfg.num_vectors_v),
                 _pad_to_length(proj_a, cfg.num_vectors_a))
 
+    def _cross(self, name, x, kv, seeds):
+        return getattr(self, name)(x, kv, kv, seeds)
+
+    def _first_round(self, proj_l, proj_v, proj_a, seeds):
+        """(h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs,
+        h_a_with_ls, h_l_with_as), in the JAX package's call order."""
+        cross = lambda name, x, kv: self._cross(name, x, kv, seeds)
+        return (cross("trans_v_with_a", proj_v, proj_a),
+                cross("trans_a_with_v", proj_a, proj_v),
+                cross("trans_v_with_l", proj_v, proj_l),
+                cross("trans_l_with_v", proj_l, proj_v),
+                cross("trans_a_with_l", proj_a, proj_l),
+                cross("trans_l_with_a", proj_l, proj_a))
+
+    def _second_round(self, proj_l, proj_v, proj_a, first, seeds):
+        """(h_l_v2a, h_l_a2v, h_a_v2l, h_a_l2v, h_v_a2l, h_v_l2a)."""
+        (h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs, h_a_with_ls,
+         h_l_with_as) = first
+        cross = lambda name, x, kv: self._cross(name, x, kv, seeds)
+        return (cross("trans_l_with_v2a", proj_l, h_a_with_vs),
+                cross("trans_l_with_a2v", proj_l, h_v_with_as),
+                cross("trans_a_with_v2l", proj_a, h_l_with_vs),
+                cross("trans_a_with_l2v", proj_a, h_v_with_ls),
+                cross("trans_v_with_a2l", proj_v, h_l_with_as),
+                cross("trans_v_with_l2a", proj_v, h_a_with_ls))
+
     @staticmethod
     def _fuse_target(bi1, bi2, t1, t2, gmu_m, gmu_top, flip=False):
         """Middle GMU, level 1->2 residuals, top GMU, level 1->3 residual
@@ -183,11 +228,49 @@ class BPMulTVAPT(nn.Module):
         h_top = h_top + h_gmu
         return h_top[:, 0] + h_top[:, -1]
 
+    def _targets(self, second, l_streams, a_streams, v_streams):
+        """(last_h_l, last_h_v, last_h_a) from the second round and each
+        target's two (length-adapted) first-round streams."""
+        h_l_v2a, h_l_a2v, h_a_v2l, h_a_l2v, h_v_a2l, h_v_l2a = second
+        last_h_l = self._fuse_target(h_l_v2a, h_l_a2v, *l_streams,
+                                     self.gmu_l_m, self.gmu_l, flip=True)
+        last_h_a = self._fuse_target(h_a_v2l, h_a_l2v, *a_streams,
+                                     self.gmu_a_m, self.gmu_a)
+        last_h_v = self._fuse_target(h_v_a2l, h_v_l2a, *v_streams,
+                                     self.gmu_v_m, self.gmu_v)
+        return last_h_l, last_h_v, last_h_a
+
     def _head(self, last_hs: torch.Tensor, seeds) -> torch.Tensor:
         h = torch.relu(self._lin(self.proj1, last_hs))
         h = maybe_dropout(h, self.config.out_dropout, self.training, seeds)
         h = self._lin(self.proj2, h)
         return self._lin(self.out_layer, h + last_hs)
+
+
+class BPMulTVAPT(_BPMulTBase):
+    """``mmtrvapt``: BPMulT over video, audio, poster and text."""
+
+    def __init__(self, config: ModelConfig, seed: int = 0, device=None):
+        super().__init__()
+        gen, device = self._setup(config, seed, device)
+        cfg = config
+        if cfg.num_vectors_a != cfg.num_vectors_v:
+            raise ValueError("mmtrvapt assumes num_vectors_a == "
+                             "num_vectors_v")
+        if cfg.fusion != "gmu":
+            raise ValueError("fusion='mag' is only wired on mmtrvat")
+        proj = self._make_inputs(gen, device)
+        self.proj_poster = proj(cfg.orig_d_p)
+        self._make_crossmodal_mesh(True, gen, device)
+        self._make_gmus(gen, device)
+        dt = self.dtype
+        Tl, Ta, Tv = cfg.num_vectors_l, cfg.num_vectors_a, cfg.num_vectors_v
+        self.transfm_a2l = SeqAdapter(Ta, Tl, dt, gen, device)
+        self.transfm_v2l = SeqAdapter(Tv, Tl, dt, gen, device)
+        self.transfm_l2a = SeqAdapter(Tl, Ta, dt, gen, device)
+        self.transfm_l2v = SeqAdapter(Tl, Tv, dt, gen, device)
+        self.gmu = GatedNModalLayer(4, cfg.hidden_sz, dt, gen, device)
+        self._make_head(gen, device)
 
     def forward(self, txt, mask, segment, video, audio, poster,
                 output_gates: bool = False,
@@ -198,39 +281,74 @@ class BPMulTVAPT(nn.Module):
         proj_l, proj_v, proj_a = self._encode_streams(txt, mask, segment,
                                                       video, audio, seeds)
         poster_h = self._lin(self.proj_poster, poster)
-
-        def cross(name, x, kv):
-            return getattr(self, name)(x, kv, kv, seeds)
-
-        h_v_with_as = cross("trans_v_with_a", proj_v, proj_a)
-        h_a_with_vs = cross("trans_a_with_v", proj_a, proj_v)
-        h_v_with_ls = cross("trans_v_with_l", proj_v, proj_l)
-        h_l_with_vs = cross("trans_l_with_v", proj_l, proj_v)
-        h_a_with_ls = cross("trans_a_with_l", proj_a, proj_l)
-        h_l_with_as = cross("trans_l_with_a", proj_l, proj_a)
-
-        h_l_v2a = cross("trans_l_with_v2a", proj_l, h_a_with_vs)
-        h_l_a2v = cross("trans_l_with_a2v", proj_l, h_v_with_as)
-        h_a_v2l = cross("trans_a_with_v2l", proj_a, h_l_with_vs)
-        h_a_l2v = cross("trans_a_with_l2v", proj_a, h_v_with_ls)
-        h_v_a2l = cross("trans_v_with_a2l", proj_v, h_l_with_as)
-        h_v_l2a = cross("trans_v_with_l2a", proj_v, h_a_with_ls)
-
-        # target L: both first-round streams length-adapted to num_vectors_l
-        last_h_l = self._fuse_target(
-            h_l_v2a, h_l_a2v, self.transfm_a2l(h_a_with_vs),
-            self.transfm_v2l(h_v_with_as), self.gmu_l_m, self.gmu_l,
-            flip=True)
-        # target A: the l-stream adapted to num_vectors_a, v passes through
-        last_h_a = self._fuse_target(
-            h_a_v2l, h_a_l2v, self.transfm_l2a(h_l_with_vs), h_v_with_ls,
-            self.gmu_a_m, self.gmu_a)
-        # target V
-        last_h_v = self._fuse_target(
-            h_v_a2l, h_v_l2a, self.transfm_l2v(h_l_with_as), h_a_with_ls,
-            self.gmu_v_m, self.gmu_v)
-
+        first = self._first_round(proj_l, proj_v, proj_a, seeds)
+        second = self._second_round(proj_l, proj_v, proj_a, first, seeds)
+        (h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs, h_a_with_ls,
+         h_l_with_as) = first
+        # target L: both first-round streams length-adapted to
+        # num_vectors_l; target A: the l-stream adapted to num_vectors_a, v
+        # passes through; target V likewise
+        last_h_l, last_h_v, last_h_a = self._targets(
+            second,
+            (self.transfm_a2l(h_a_with_vs), self.transfm_v2l(h_v_with_as)),
+            (self.transfm_l2a(h_l_with_vs), h_v_with_ls),
+            (self.transfm_l2v(h_l_with_as), h_a_with_ls))
         last_hs, z = self.gmu([last_h_l, last_h_v, last_h_a, poster_h])
+        logits = self._head(last_hs, seeds)
+        if output_gates:
+            return logits, z
+        return logits
+
+
+class BPMulTVAT(_BPMulTBase):
+    """``mmtrvat``: BPMulT over video, audio and text.  Audio is taken raw,
+    there is no poster, the stream lengths are equal (so the length
+    adapters are identities and there are no ``transfm_*``), the second
+    round is plain crossmodal encoders, and the final fusion is a 3-ary GMU
+    or MAG (``fusion="mag"``; its gates are MAG's alpha, (B, 1))."""
+
+    def __init__(self, config: ModelConfig, seed: int = 0, device=None):
+        super().__init__()
+        gen, device = self._setup(config, seed, device)
+        cfg = config
+        if not cfg.num_vectors_l == cfg.num_vectors_a == cfg.num_vectors_v:
+            raise ValueError("mmtrvat uses identity length adapters; stream "
+                             "lengths must match")
+        if cfg.use_audio_encoder:
+            raise ValueError("mmtrvat takes raw audio "
+                             "(use_audio_encoder=False)")
+        if cfg.fusion not in ("gmu", "mag"):
+            raise ValueError(f"unknown fusion {cfg.fusion!r}")
+        self._make_inputs(gen, device)
+        self._make_crossmodal_mesh(False, gen, device)
+        self._make_gmus(gen, device)
+        if cfg.fusion == "mag":
+            self.mag = MAG(cfg.hidden_sz, beta_shift=1e-3, dropout_prob=0.5,
+                           dtype=self.dtype, gen=gen, device=device)
+        else:
+            self.gmu = GatedNModalLayer(3, cfg.hidden_sz, self.dtype, gen,
+                                        device)
+        self._make_head(gen, device)
+
+    def forward(self, txt, mask, segment, video, audio,
+                output_gates: bool = False,
+                dropout_seed: Optional[int] = None):
+        """Logits (and the final fusion's gates); ``dropout_seed`` (uint32)
+        is needed in training mode."""
+        seeds = None if dropout_seed is None else SeedStream(dropout_seed)
+        proj_l, proj_v, proj_a = self._encode_streams(txt, mask, segment,
+                                                      video, audio, seeds)
+        first = self._first_round(proj_l, proj_v, proj_a, seeds)
+        second = self._second_round(proj_l, proj_v, proj_a, first, seeds)
+        (h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs, h_a_with_ls,
+         h_l_with_as) = first
+        last_h_l, last_h_v, last_h_a = self._targets(
+            second, (h_a_with_vs, h_v_with_as), (h_l_with_vs, h_v_with_ls),
+            (h_l_with_as, h_a_with_ls))
+        if self.config.fusion == "mag":
+            last_hs, z = self.mag(last_h_l, last_h_v, last_h_a, seeds)
+        else:
+            last_hs, z = self.gmu([last_h_l, last_h_v, last_h_a])
         logits = self._head(last_hs, seeds)
         if output_gates:
             return logits, z

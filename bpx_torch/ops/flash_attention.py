@@ -20,6 +20,12 @@ function), on the CPU :func:`attention_delta`'s plain version.  Masked
 entries get P = 0, so a row with no visible key gets zero gradients
 although its forward attended uniformly: that is the JAX package's
 backward, not the true derivative.
+
+The kernels take head dims 25, 30, 64 and 96.  A narrow head (25, 30: the
+mmtrvat presets' 300-wide streams over 12 or 10 heads) runs the same
+kernels at 32 columns with the padding zeroed in shared memory: nothing is
+padded in device memory, and the strided (B, H, T, D) views of a fused
+projection go to the kernels without a copy.
 """
 
 from __future__ import annotations
@@ -34,8 +40,12 @@ from bpx_torch.ops.dropout import keep_threshold, mul32
 from bpx_torch.ops.masks import band_allowed
 
 MASK_FILL = -1e30
-#: head dims the kernels are instantiated for
-KERNEL_HEAD_DIMS = (64, 96)
+#: head dims the kernels are instantiated for, each with the alignment (in
+#: elements) its rows need: 16-byte chunks at 64 and 96, 4-byte cp.async
+#: words at 30, and at 25 (the mmtrvat presets' 300 / 12 heads, whose rows
+#: start at any even byte of a fused projection) plain 2-byte loads
+KERNEL_ALIGN = {25: 1, 30: 2, 64: 8, 96: 8}
+KERNEL_HEAD_DIMS = tuple(KERNEL_ALIGN)
 #: the TPU kernels' single-pass key range and key block (``tk_p`` below)
 SINGLE_PASS_MAX_K = 1024
 BLOCK_K = 128
@@ -200,7 +210,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The kernels for CUDA tensors, the plain versions for CPU tensors, in
     the forward and (through autograd) in the backward.  The kernels take
-    bf16 with head_dim 64 or 96 and any strides whose last dim is
+    bf16 with head_dim 25, 30, 64 or 96 and any strides whose last dim is
     contiguous; the output is a (B, H, Tq, D) view of (B, Tq, H, D) memory,
     so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
     ``dropout_rate > 0`` needs ``dropout_seed``, a uint32 Python int.
@@ -244,9 +254,7 @@ def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     B, H, T, D = out.shape
     if dout.shape != out.shape:
         raise ValueError(f"dO {tuple(dout.shape)} and O {tuple(out.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+    _check_head_dim(D)
     dout, out = (_kernel_ready(n, t, dout.device)
                  for n, t in (("dO", dout), ("O", out)))
     delta = torch.empty(B, H, T, dtype=torch.float32, device=out.device)
@@ -261,17 +269,28 @@ def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return delta
 
 
+def _check_head_dim(D):
+    if D not in KERNEL_ALIGN:
+        raise NotImplementedError(
+            f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+
+
 def _kernel_ready(name, t, device):
     """``t`` as the kernels take it: on ``device``, bf16, the last dim
-    contiguous, strides multiples of 8 elements, 16-byte aligned; a copy
-    only where the strides or the alignment are not."""
+    contiguous, and strides and data pointer multiples of the head dim's
+    alignment (``KERNEL_ALIGN``); a copy only where they are not.  A
+    narrow head's strided views (D = 25 at any stride, D = 30 at even
+    ones) go to the kernel as they are."""
     if t.device != device:
         raise RuntimeError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes bfloat16, {name} is {t.dtype}")
-    if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
-            or t.data_ptr() % 16):
-        t = t.contiguous()
+    align = KERNEL_ALIGN[t.shape[3]]
+    if (t.stride(3) != 1 or any(s % align for s in t.stride()[:3])
+            or t.data_ptr() % (2 * align)):
+        # a fresh buffer: contiguous() would return a misaligned but
+        # contiguous view unchanged
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
 
 
@@ -293,9 +312,7 @@ def _dropout_args(rate, seed, tk):
 def _launch(q, k, v, masked, kv_lens, rate=0.0, seed=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+    _check_head_dim(D)
     q, k, v = (_kernel_ready(n, t, q.device)
                for n, t in (("q", q), ("k", k), ("v", v)))
     masked, offset = effective_band(Tq, Tk, masked)
@@ -321,9 +338,7 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
                 seed=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+    _check_head_dim(D)
     q, k, v, dout, out = (_kernel_ready(n, t, q.device) for n, t in
                           (("q", q), ("k", k), ("v", v), ("dO", dout),
                            ("O", out)))

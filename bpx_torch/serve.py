@@ -10,7 +10,8 @@ Usage::
     probs, gates = predictor(batch, return_gates=True)
 
 ``batch`` is a dict of numpy arrays keyed like the JAX package's batches
-(``txt``, ``mask``, ``segment``, ``video``, ``audio``, ``poster``); a client
+(``txt``, ``mask``, ``segment``, ``video``, ``audio``, and ``poster`` for
+mmtrvapt; the presets of mmtrvat take no poster); a client
 batch smaller than ``batch_size`` is padded by repeating its last row and
 sliced back.  Weights are random from ``seed`` unless a ``state_dict`` is
 given (e.g. from :func:`bpx_torch.interop.params_from_flax`).

@@ -17,13 +17,14 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    every kernel launch: these are the shape classes of the served forward;
 3. the flash-attention forward kernel and the LayerNorm forward kernel
    against their plain PyTorch versions at every served class: max errors,
-   kernel / plain / library (``F.scaled_dot_product_attention``,
-   ``F.layer_norm``) times (CUDA events, median of 20 groups of 10 warm
-   runs), the bound (the larger of bytes / 3.35 TB/s and flops / 989
-   TFLOP/s), the share of the bound reached and the ratio to the library
-   call; for LayerNorm also the device kernels one call runs and their
-   times, from the profiler (exactly one, no memset), and its scalar path
-   once on a misaligned view (the profiler must name the scalar kernel);
+   kernel / plain / library (``F.scaled_dot_product_attention``, with the
+   backend that ran, and ``F.layer_norm``) times (CUDA events, median of 20
+   groups of 10 warm runs), the bound (the larger of bytes / 3.35 TB/s and
+   flops / 989 TFLOP/s), the share of the bound reached and the ratio to
+   the library call; for LayerNorm also the device kernels one call runs
+   and their times, from the profiler (exactly one, no memset), and its
+   scalar path once on a misaligned view (the profiler must name the
+   scalar kernel);
 4. the serving path: numpy-seeded synthetic requests, one of them ragged,
    with the launch counters set to 0 before and read after (84 flash and
    181 LayerNorm launches per forward), outputs checked for shape, range and
@@ -56,7 +57,27 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    backward calls, 458 LayerNorm forward and 458 backward launches); finite
    losses; after step 1 every parameter has a finite gradient and BERT's
    embedding, LayerNorm and q/k/v gradients are non-zero.  Prints the step
-   time (median, host clock, synchronised), samples/s and peak memory.
+   time (median, host clock, synchronised), samples/s and peak memory;
+8. the ``iemocap`` preset's ``mmtrvat`` at full width and depth (BERT-base,
+   12 eight-layer hidden-300 encoders over 12 heads, so head_dim 25, raw
+   audio, 3-ary GMU): phases 2-7 again on its own path.  The served
+   forward's 108 flash launches (96 at head_dim 25, 12 at 64) and 325
+   LayerNorm launches; no q/k/v/dO/O copied by the wrapper at head_dim 25;
+   the forward at its head_dim-25 class and LayerNorm at 4096 x 300 timed;
+   4 requests against the plain path with its own limits, which both
+   planted faults must cross; one request of the same model with
+   ``fusion="mag"`` against the plain path.  Training: one micro-step
+   against the plain path (planted backward faults), the head_dim-25
+   dropout forward and backward at its classes (each backward row also
+   with the dQ and dK/dV kernels' own bounds), the exact dropout mask at
+   (8, 12, 512, 512, 25), the long shape at head_dim 25, then 3 train
+   steps (216 flash forward, 88 with dropout, 216 backward, 842 LayerNorm
+   forward and backward per step);
+9. the ``cmu-mosei`` preset (10 heads, so head_dim 30): one served
+   forward's classes recorded, one request against the plain path and one
+   train step, with exact counters; the forward, the backward and the
+   delta kernel at its head_dim-30 classes (rate 0 and 0.1) against their
+   plain versions, and the long shape at head_dim 30.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, and
@@ -70,6 +91,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -127,6 +149,62 @@ LOSS_TOL = 1e-2
 GRAD_TOL = 0.5
 FP32_FACTOR = 1.5
 FP32_SLACK = 0.02
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelPath:
+    """One model path the script drives: its preset, the launches its
+    structure gives per forward, and the limits of its kernels-vs-plain
+    comparisons (each set between the sound and the planted faults'
+    readings on the card)."""
+    preset: str
+    flash: int             # flash launches per served forward
+    ln: int                # LayerNorm launches per served forward
+    ln_train: int          # LayerNorm launches per training forward
+    dropout: int           # flash launches with dropout per training forward
+    probs_tol: float
+    gates_tol: float
+    loss_tol: float = LOSS_TOL
+    grad_tol: float = GRAD_TOL
+    fusion: str = "gmu"
+
+
+MOVIESCOPE = ModelPath("moviescope", FLASH_PER_FORWARD, LN_PER_FORWARD,
+                       LN_PER_TRAIN_FORWARD, FLASH_DROPOUT_PER_FORWARD,
+                       PROBS_TOL, GATES_TOL)
+# mmtrvat at 8 layers (iemocap, cmu-mosei): BERT's 12 attentions and 12
+# encoders x 8 layers with one attention each (the second round is plain
+# crossmodal, not biprojection), 96 of them at head_dim 300 / H; LayerNorm:
+# BERT's 25, and 3 per encoder layer plus a final one; training adds one per
+# encoder layer (V embedded apart from K); dropout in BERT's 12 attentions
+# and in the 4 encoders keyed by l (attn_dropout 0.1: trans_v_with_l,
+# trans_a_with_l, trans_v_with_a2l, trans_a_with_v2l), 8 layers each
+VAT_FLASH = 12 + 12 * 8
+VAT_LN = 1 + 2 * 12 + 12 * (8 * 3 + 1)
+VAT_LN_TRAIN = VAT_LN + 12 * 8
+VAT_DROPOUT = 12 + 4 * 8
+# kernels vs plain versions through the whole bf16 iemocap forward (12 BERT
+# layers, two rounds of 8-layer encoders, every encoder attention causal
+# 512 x 512).  On an H100 (700 W) the sound kernels read probs 0.0159 /
+# gates 0.0156, a flash kernel without its band 0.0787 / 0.137, one without
+# kv_lens 0.286 / 0.64: the limits sit at about the geometric mean of the
+# sound and the nearer faulty reading (probs 2.2x from each, gates 2.9x).  The
+# micro-step's gradients: sound worst group 0.0768 (proj1), a backward
+# without its dropout mask 0.326 (only BERT and the 4 l-keyed encoders
+# drop attention, at 0.1), one without its band non-finite: limit 0.16
+# (2.1x over, 2.0x under); the loss reads 0.00198 against 1e-2.  MAG
+# (probs 0.0086, alpha 5.7e-6) and cmu-mosei (0.013 / 0.0156) are held
+# to the same limits.
+IEMOCAP_PROBS_TOL = 3.5e-2
+IEMOCAP_GATES_TOL = 4.5e-2
+IEMOCAP_GRAD_TOL = 0.16
+IEMOCAP = ModelPath("iemocap", VAT_FLASH, VAT_LN, VAT_LN_TRAIN,
+                    VAT_DROPOUT, IEMOCAP_PROBS_TOL, IEMOCAP_GATES_TOL,
+                    grad_tol=IEMOCAP_GRAD_TOL)
+# MAG in place of the 3-ary GMU: one LayerNorm more; its gates are alpha
+IEMOCAP_MAG = dataclasses.replace(IEMOCAP, ln=VAT_LN + 1,
+                                  ln_train=VAT_LN_TRAIN + 1, fusion="mag")
+CMU_MOSEI = dataclasses.replace(IEMOCAP, preset="cmu-mosei")
 
 
 def fail(msg: str) -> None:
@@ -213,10 +291,19 @@ def flash_class(q, k, masked, kv_lens, rate):
 def recording():
     """Record the shape classes of every kernel launch (and every hash
     dropout) inside the context: a dict of Counters keyed by "flash",
-    "flash_bwd", "ln", "ln_bwd" and "dropout"."""
+    "flash_bwd", "ln", "ln_bwd" and "dropout"; and under "copies", by head
+    dim, the tensors (q, k, v, dO, O) the flash wrappers had to copy
+    before a launch."""
     from bpx_torch.ops import dropout, flash_attention as fa, norm
     seen = {k: collections.Counter()
-            for k in ("flash", "flash_bwd", "ln", "ln_bwd", "dropout")}
+            for k in ("flash", "flash_bwd", "ln", "ln_bwd", "dropout",
+                      "copies")}
+    kernel_ready = fa._kernel_ready
+
+    def ready(name, t, device):
+        got = kernel_ready(name, t, device)
+        seen["copies"][t.shape[3]] += got is not t
+        return got
 
     def flash(launch, q, k, v, masked, kv_lens, rate=0.0, seed=None):
         seen["flash"][flash_class(q, k, masked, kv_lens, rate)] += 1
@@ -244,6 +331,7 @@ def recording():
         return hash_dropout(x, rate, seed)
 
     dropout.hash_dropout = drop
+    fa._kernel_ready = ready
     try:
         with wrapped_launch(fa, flash), wrapped_launch(norm, ln), \
                 wrapped_launch(fa, flash_bwd, "_launch_bwd"), \
@@ -251,16 +339,17 @@ def recording():
             yield seen
     finally:
         dropout.hash_dropout = hash_dropout
+        fa._kernel_ready = kernel_ready
 
 
 def launch_classes(pred, batch):
     """Serve ``batch`` once and return, per kernel, a Counter of the
     launches' shape classes: (B, H, Tq, Tk, D, masked, has kv_lens, rate)
     for the flash kernel, (rows, E, eps, in dtype, out dtype) for
-    LayerNorm."""
+    LayerNorm; and the wrappers' copies by head dim."""
     with recording() as seen:
         pred(batch)
-    return seen["flash"], seen["ln"]
+    return seen["flash"], seen["ln"], seen["copies"]
 
 
 # a flash kernel launched without part of its mask, to show that the
@@ -366,7 +455,10 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
                                    return_lse=True)
         ref, ref_lse = flash_attention_reference(q, k, v, masked, kv_lens,
                                                  *drop)
+        again = flash_attention(q, k, v, masked, kv_lens, *drop)
         torch.cuda.synchronize()
+        check(torch.equal(out, again),
+              f"flash forward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         err_o, err_l = max_err(out, ref), max_err(lse, ref_lse)
         check(torch.allclose(out.float(), ref.float(), **FLASH_TOL),
               f"flash O differs at {(B, H, Tq, Tk, D, rate)}: max err "
@@ -382,22 +474,37 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
         t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens, *drop))
         t_p = timer(lambda: flash_attention_reference(q, k, v, masked,
                                                       kv_lens, *drop))
-        t_l = timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=ok, dropout_p=rate, scale=1.0))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=ok, dropout_p=rate, scale=1.0)
+        t_l = timer(sdpa)
+        backend = sdpa_backend(torch, sdpa)
         eff_masked = effective_band(Tq, Tk, masked)[0]
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, per_forward=count,
                          max_abs_err=err_o, lse_max_abs_err=err_l, ms=t_k,
-                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         plain_ms=t_p, library_ms=t_l,
+                         library_backend=backend, bound_ms=b_ms,
                          bound_by=b_by))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} x{count}: err O {err_o:.3g} "
               f"(tol {FLASH_TOL}) lse {err_l:.3g} (tol {LSE_TOL}); "
-              + timing_text(t_k, t_p, t_l, b_ms, b_by, "sdpa"))
+              + timing_text(t_k, t_p, t_l, b_ms, b_by, f"sdpa ({backend})"))
     return rows
 
 
-def phase_layer_norm(torch, timer, classes, gen):
+def sdpa_backend(torch, fn) -> str:
+    """Which of SDPA's backends ran ``fn``, from the device kernels the
+    profiler names: flash, cuDNN, memory-efficient (cutlass fmha) or the
+    math path (matmuls and a softmax)."""
+    names = " ".join(device_kernels(torch, fn, n=2)).lower()
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                         ("fmha", "efficient"), ("mem_eff", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+def phase_layer_norm(torch, timer, classes, gen, scalar_path=True):
     import torch.nn.functional as F
     from bpx_torch.ops.norm import layer_norm, layer_norm_reference
     rows = []
@@ -432,6 +539,8 @@ def phase_layer_norm(torch, timer, classes, gen):
               f"x{count}/fwd: err {err:.3g} (tol {LN_TOL}); "
               + timing_text(t_k, t_p, t_l, b_ms, b_by, "F.layer_norm")
               + "; profiler: " + split_text(split))
+    if not scalar_path:
+        return rows
     # the scalar path once, too: a view 2 elements into its buffer is not
     # 16-byte aligned, and the profiler must name the scalar kernel
     x = misaligned_view(torch, gen, 133, 768)
@@ -503,7 +612,7 @@ BWD_KERNELS = ("flash_delta_kernel", "flash_bwd_dkdv_kernel",
                "flash_bwd_dq_kernel")
 
 
-def phase_flash_bwd(torch, timer, classes, gen):
+def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
     """The backward kernels (delta, dK/dV, dQ) against the plain backward at
     each class of the recorded micro-step, from the kernel forward's lse;
     the delta kernel on its own against its plain version."""
@@ -542,9 +651,16 @@ def phase_flash_bwd(torch, timer, classes, gen):
         t_p = timer(lambda: fa.flash_attention_backward_reference(
             q, k, v, dout, lse, fa.attention_delta_reference(dout, out),
             masked, kv_lens, *drop))
-        t_l = timer(sdpa_backward(torch, q, k, v, ok, rate, dout))
+        sdpa = sdpa_backward(torch, q, k, v, ok, rate, dout)
+        t_l = timer(sdpa)
+        backend = sdpa_backend(torch, sdpa)
         split = kernel_ms(torch, lambda: fa._launch_bwd(
             q, k, v, dout, lse, out, masked, kv_lens, *drop), BWD_KERNELS)
+        dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens)
+        again = fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens,
+                               *drop)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"flash backward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         eff_masked = fa.effective_band(Tq, Tk, masked)[0]
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, per_forward=count,
@@ -552,18 +668,24 @@ def phase_flash_bwd(torch, timer, classes, gen):
                                          for g, w in zip(got, want)),
                          rel_err=max(errs), delta_max_abs_err=err_d,
                          ms=t_k, plain_ms=t_p, library_ms=t_l,
-                         bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split))
-        print(f"[flash_bwd] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
+                         library_backend=backend, bound_ms=b_ms,
+                         bound_by=b_by, kernel_split_ms=split,
+                         dq_bound_ms=dq_b[0], dkdv_bound_ms=dkdv_b[0]))
+        print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} x{count}/micro-step: "
               f"dq/dk/dv rel err {max(errs):.3g} (tol {FLASH_GRAD_TOL}), "
-              f"delta err {err_d:.3g} (tol {DELTA_TOL}); delta + dK/dV + dQ "
-              + timing_text(t_k, t_p, t_l, b_ms, b_by, "sdpa bwd")
+              f"delta err {err_d:.3g} (tol {DELTA_TOL}), reruns bitwise "
+              f"equal; delta + dK/dV + dQ "
+              + timing_text(t_k, t_p, t_l, b_ms, b_by,
+                            f"sdpa bwd ({backend})")
               + "; profiler: " + ", ".join(f"{n} {t:.4f} ms"
-                                           for n, t in split.items()))
+                                           for n, t in split.items())
+              + f" (dQ bound {dq_b[0]:.4f} ms, dK/dV bound {dkdv_b[0]:.4f} "
+              f"ms)")
     return rows
 
 
-def phase_layer_norm_bwd(torch, timer, classes, gen):
+def phase_layer_norm_bwd(torch, timer, classes, gen, scalar_path=True):
     import torch.nn.functional as F
     from bpx_torch.ops import norm
     rows = []
@@ -610,6 +732,8 @@ def phase_layer_norm_bwd(torch, timer, classes, gen):
               f"{perr:.3g} (tol {LN_PARAM_GRAD_TOL}), reruns bitwise equal; "
               + timing_text(t_k, t_p, t_l, b_ms, b_by, "F.layer_norm bwd")
               + "; profiler: " + split_text(split))
+    if not scalar_path:
+        return rows
     # the scalar path once, too, on misaligned views
     n, e = 133, 768
     x, dy = (misaligned_view(torch, gen, n, e) for _ in range(2))
@@ -672,56 +796,83 @@ def phase_dropout_hash(torch, timer, classes, gen):
     return total
 
 
-def phase_mask_check(torch, gen):
-    """Exact mask check: q = 0 makes every probability 1/Tk, so with Tk =
-    D = 64 and V = I each output row is the row's keep mask times
-    bf16(inv_keep)/64; with dO = I, dV^T is the mask too.  Compared with
-    the plain version's mask for equality (a tolerance on O would not see a
-    few wrong bits)."""
+def phase_mask_check(torch, gen, B, H, T, D):
+    """Exact mask check: q = 0 makes every probability 1/T, so with V_r[j,
+    c] = [j == D r + c] column c of O is the keep bit of key D r + c times
+    bf16(inv_keep)/T, and with dO = V_r row j of dV holds the bits of query
+    D r + c at key j; ceil(T / D) rounds (one, V = I, when D = T) cover
+    every (query, key), every key visible.  Compared with the plain
+    version's mask for equality (a tolerance on O would not see a few wrong
+    bits), and O with the plain version's O."""
     from bpx_torch.ops import flash_attention as fa
-    B, H, T, rate, seed = 8, 8, 64, 0.1, 0xDEADBEEF
-    q = torch.zeros(B, H, T, T, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn(B, H, T, T, generator=gen, device="cuda").to(q.dtype)
-    eye = torch.eye(T, device="cuda", dtype=q.dtype).expand(B, H, T, T)
-    out, lse = fa.flash_attention(q, k, eye, False, None, rate, seed,
-                                  return_lse=True)
-    ref, _ = fa.flash_attention_reference(q, k, eye, False, None, rate, seed)
-    _, _, dv = fa._launch_bwd(q, k, eye, eye, lse, out, False, None, rate,
-                              seed)
+    rate, seed = 0.1, 0xDEADBEEF
+    bf = torch.bfloat16
+    q = torch.zeros(B, H, T, D, device="cuda", dtype=bf)
+    k = torch.randn(B, H, T, D, generator=gen, device="cuda").to(bf)
+    fwd = torch.zeros(B, H, T, T, dtype=torch.bool, device="cuda")
+    bwd = torch.zeros_like(fwd)
+    j = torch.arange(T, device="cuda")
+    rounds = (T + D - 1) // D
+    same = True
+    for r in range(rounds):
+        c = j - D * r
+        sel = (c >= 0) & (c < D)
+        onehot = torch.zeros(T, D, device="cuda", dtype=bf)
+        onehot[sel, c[sel]] = 1
+        e = onehot.expand(B, H, T, D)
+        out, lse = fa.flash_attention(q, k, e, False, None, rate, seed,
+                                      return_lse=True)
+        ref, _ = fa.flash_attention_reference(q, k, e, False, None, rate,
+                                              seed)
+        _, _, dv = fa._launch_bwd(q, k, e, e, lse, out, False, None, rate,
+                                  seed)
+        same = same and torch.equal(out, ref)
+        fwd[..., sel] = out[..., c[sel]] != 0
+        bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
     keep = fa.keep_mask(seed, B, H, T, T, rate, "cuda")
     torch.cuda.synchronize()
-    bad_f = int(((out != 0) != keep).sum())
-    bad_b = int(((dv.transpose(-1, -2) != 0) != keep).sum())
-    print(f"[mask] forward mask bits differing from the plain version's: "
-          f"{bad_f} of {keep.numel()}; backward (dV): {bad_b}; kept "
+    bad_f = int((fwd != keep).sum())
+    bad_b = int((bwd != keep).sum())
+    print(f"[mask] D={D} at ({B}, {H}, {T}, {T}), {rounds} round(s): "
+          f"forward mask bits differing from the plain version's: {bad_f} "
+          f"of {keep.numel()}; backward (dV): {bad_b}; kept "
           f"{keep.float().mean().item():.4f} (1 - rate = {1 - rate})")
-    check(bad_f == 0 and bad_b == 0 and torch.equal(out, ref),
-          "the kernels' dropout mask differs from the plain version's")
+    check(bad_f == 0 and bad_b == 0 and same,
+          f"the kernels' dropout mask at head_dim {D} differs from the "
+          f"plain version's")
 
 
 def device_kernels(torch, fn, n: int = 20):
     """{kernel: (activities per call, device ms per call)} of ``fn``, from
     the profiler's device events (kernels, memsets, copies) over ``n``
     calls; a kernel is named as ``short_name`` gives it.  The profiler now
-    and then drops an event or a whole profile: counts are rounded to
-    whole activities per call, and times taken over the events seen."""
+    and then drops events, or a whole profile: a profile whose counts are
+    not whole multiples of ``n`` is taken again (up to 5 times, keeping the
+    fullest), counts are rounded to whole activities per call (at least one
+    for a kernel seen at all), and times taken over the events seen."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # retry a profile that comes back empty
+    best_total, got = -1, {}
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        got = collections.defaultdict(lambda: [0, 0.0])
+        seen = collections.defaultdict(lambda: [0, 0.0])
         for e in prof.events():
             if e.device_type.name == "CUDA":
-                entry = got[short_name(e.name)]
+                entry = seen[short_name(e.name)]
                 entry[0] += 1
                 entry[1] += e.device_time / 1e3
-        if got:
+        total = sum(c for c, _ in seen.values())
+        if total > best_total:
+            best_total, got = total, seen
+        if seen and all(c % n == 0 for c, _ in seen.values()):
+            got = seen
             break
-    return {k: (round(c / n), t / c * round(c / n))
+    per_call = {k: max(1, round(c / n)) for k, (c, _) in got.items()}
+    return {k: (per_call[k], t / c * per_call[k])
             for k, (c, t) in got.items()}
 
 
@@ -744,15 +895,27 @@ def kernel_ms(torch, fn, names, n: int = 20):
     return got
 
 
-def phase_long_shape(torch, timer, gen):
+def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens):
+    """Bounds of the dQ and the dK/dV kernel alone, each against the work
+    it does: both read q, k, v, dO, lse and delta and compute S and dP (4 D
+    flops per visible score entry); dQ then writes dq (2 D more), dK/dV
+    writes dk and dv (4 D more)."""
+    visible, keys, _ = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
+    bh = B * H
+    io = 2 * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
+    return (bound_ms(io + 2 * D * bh * Tq, 6.0 * D * visible),
+            bound_ms(io + 4 * D * bh * Tk, 8.0 * D * visible))
+
+
+def phase_long_shape(torch, timer, gen, D=64):
     """One long multi-tile shape (the JAX package's online forward and
-    split backward): B*H = 2, Tq = 640, Tk = 1280, D = 64, band and
-    dropout, kernels against plain versions; then the forward (row 1b) and
-    the dQ and dK/dV kernels (rows 3 and 4, the profiler's device times of
-    one backward) timed beside their bounds and SDPA."""
+    split backward): B*H = 2, Tq = 640, Tk = 1280, band and dropout,
+    kernels against plain versions; then the forward (row 1b) and the dQ
+    and dK/dV kernels (rows 3 and 4, the profiler's device times of one
+    backward) timed beside their bounds and SDPA."""
     import torch.nn.functional as F
     from bpx_torch.ops import flash_attention as fa
-    B, H, Tq, Tk, D, rate, seed = 1, 2, 640, 1280, 64, 0.1, 4242
+    B, H, Tq, Tk, rate, seed = 1, 2, 640, 1280, 0.1, 4242
     q, k, v, _ = attention_inputs(torch, gen, B, H, Tq, Tk, D, False)
     out, lse = fa.flash_attention(q, k, v, True, None, rate, seed,
                                   return_lse=True)
@@ -766,7 +929,7 @@ def phase_long_shape(torch, timer, gen):
                                                  True, None, rate, seed)
     torch.cuda.synchronize()
     errs = [grad_err(g, w) for g, w in zip(got, want)]
-    print(f"[long] BH=2 640x1280 D=64 band, rate 0.1: err O "
+    print(f"[long] BH=2 640x1280 D={D} band, rate 0.1: err O "
           f"{max_err(out, ref):.3g}, lse {max_err(lse, ref_lse):.3g}, "
           f"dq/dk/dv rel err {max(errs):.3g}")
     check(torch.allclose(out.float(), ref.float(), **FLASH_TOL)
@@ -792,12 +955,10 @@ def phase_long_shape(torch, timer, gen):
     split = kernel_ms(torch, lambda: fa._launch_bwd(
         q, k, v, dout, lse, out, True, None, rate, seed), BWD_KERNELS)
     t_l = timer(sdpa_backward(torch, q, k, v, ok, rate, dout))
-    io = 2 * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
-    rows["3 dQ kernel"] = (split["flash_bwd_dq_kernel"], None, t_l,
-                           *bound_ms(io + 2 * D * bh * Tq, 6.0 * D * visible))
+    dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, True, None)
+    rows["3 dQ kernel"] = (split["flash_bwd_dq_kernel"], None, t_l, *dq_b)
     rows["4 dK/dV kernel"] = (split["flash_bwd_dkdv_kernel"], None, t_l,
-                              *bound_ms(io + 4 * D * bh * Tk,
-                                        8.0 * D * visible))
+                              *dkdv_b)
     nbytes, flops, _ = flash_bwd_work(torch, B, H, Tq, Tk, D, True, None)
     rows["2-4 whole backward"] = (
         timer(lambda: fa._launch_bwd(q, k, v, dout, lse, out, True, None,
@@ -806,21 +967,28 @@ def phase_long_shape(torch, timer, gen):
             q, k, v, dout, lse, delta, True, None, rate, seed)),
         t_l, *bound_ms(nbytes, flops))
     for name, (t_k, t_p, t_lib, b_ms, b_by) in rows.items():
-        print(f"[long] {name}: kernel {t_k:.4f} ms, plain "
+        print(f"[long] D={D} {name}: kernel {t_k:.4f} ms, plain "
               + (f"{t_p:.4f} ms" if t_p is not None else "-")
               + f", sdpa {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"{b_ms / t_k:.1%} of the bound, {t_k / t_lib:.2f}x sdpa")
-    print(f"[long] delta kernel {split['flash_delta_kernel']:.4f} ms of the "
-          f"backward")
+    print(f"[long] D={D} delta kernel {split['flash_delta_kernel']:.4f} ms "
+          f"of the backward")
     return {name: dict(ms=r[0], plain_ms=r[1], library_ms=r[2],
                        bound_ms=r[3], bound_by=r[4])
             for name, r in rows.items()}
 
 
+def experiment(path: ModelPath):
+    from bpx_torch.config import get_preset
+    exp = get_preset(path.preset)
+    return exp.replace(model=exp.model.replace(fusion=path.fusion))
+
+
 def synthetic_batch(exp, n: int, seed: int):
-    """numpy-seeded moviescope-shaped request: text with per-sample
-    contiguous-suffix padding, VGG-like video frames, mel-like audio
-    frames, a poster vector."""
+    """numpy-seeded request shaped like the preset's: text with per-sample
+    contiguous-suffix padding, video frames, audio frames (mel-like for
+    the conv encoder, raw features otherwise) and, for mmtrvapt, a poster
+    vector."""
     import numpy as np
     rng = np.random.RandomState(seed)
     m, d = exp.model, exp.data
@@ -829,42 +997,86 @@ def synthetic_batch(exp, n: int, seed: int):
     lens[0] = T
     mask = np.arange(T)[None, :] < lens[:, None]
     txt = rng.randint(1, m.bert.vocab_size, size=(n, T)) * mask
-    return {
+    batch = {
         "txt": txt.astype(np.int32),
         "mask": mask.astype(np.int32),
         "segment": np.zeros((n, T), np.int32),
         "video": rng.rand(n, d.video_len, m.orig_d_v).astype(np.float32),
         "audio": rng.rand(n, d.audio_raw_len, m.orig_d_a).astype(np.float32),
-        "poster": rng.rand(n, m.orig_d_p).astype(np.float32),
     }
+    if m.model == "mmtrvapt":
+        batch["poster"] = rng.rand(n, m.orig_d_p).astype(np.float32)
+    return batch
 
 
-def phase_predictor(torch):
-    from bpx_torch.config import get_preset
+def phase_predictor(torch, path: ModelPath, requests: int = REQUESTS):
     from bpx_torch.serve import Predictor
-    exp = get_preset("moviescope")
+    exp = experiment(path)
     t0 = time.time()
     pred = Predictor(exp, batch_size=BATCH, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pred.model.parameters())
-    print(f"[serve] moviescope mmtrvapt, {n_params / 1e6:.1f} M params, "
-          f"{exp.model.compute_dtype}, built in {time.time() - t0:.1f} s")
+    m = exp.model
+    print(f"[serve {path.preset}] {m.model} fusion={m.fusion}, "
+          f"{n_params / 1e6:.1f} M params, {m.compute_dtype}, built in "
+          f"{time.time() - t0:.1f} s")
     reqs = [synthetic_batch(exp, BATCH, seed=100 + i)
-            for i in range(REQUESTS)]
+            for i in range(requests)]
     return pred, reqs
 
 
-def phase_serve(torch, np, pred, reqs, profile: bool):
+def gates_dim(m) -> int:
+    """Width of the final fusion's gates: the N-ary GMU's N * E, MAG's
+    alpha 1."""
+    if m.fusion == "mag":
+        return 1
+    return (4 if m.model == "mmtrvapt" else 3) * m.hidden_sz
+
+
+def record_forward(path: ModelPath, pred, batch, narrow=None):
+    """Serve ``batch`` once (the warm-up request: cuBLAS/cuDNN set-up),
+    recording every launch; the counts must be the structure's, and at a
+    narrow head dim the flash wrappers must have copied nothing."""
+    flash_cls, ln_cls, copies = launch_classes(pred, batch)
+    n_flash, n_ln = sum(flash_cls.values()), sum(ln_cls.values())
+    by_dim = collections.Counter()
+    for cls, c in flash_cls.items():
+        by_dim[cls[4]] += c
+    print(f"[serve {path.preset}] recorded forward: {n_flash} flash "
+          f"launches in {len(flash_cls)} shape classes (by head_dim "
+          f"{dict(by_dim)}), {n_ln} layer_norm launches in {len(ln_cls)} "
+          f"(structure: {path.flash}, {path.ln}); tensors the flash "
+          f"wrappers copied, by head_dim: {dict(copies)}")
+    check(n_flash == path.flash and n_ln == path.ln,
+          f"the recorded {path.preset} forward's launches differ from the "
+          f"structure's")
+    if narrow is not None:
+        check(by_dim == {narrow: path.flash - 12, 64: 12},
+              f"{path.preset}: flash launches by head_dim {dict(by_dim)}")
+        check(copies[narrow] == 0,
+              f"{path.preset}: the flash wrappers copied {copies[narrow]} "
+              f"head_dim-{narrow} tensors")
+    return flash_cls, ln_cls
+
+
+def phase_serve(torch, np, pred, reqs, profile: bool,
+                path: ModelPath = MOVIESCOPE, faults: bool = True):
+    """The served path: requests with the launch counters checked, outputs
+    against the plain versions on the card, and (``faults``) the planted
+    faults, which must move that comparison past its limits."""
     from bpx_torch.ops import flash_attention as fa
     from bpx_torch.ops.dispatch import plain_versions
     from bpx_torch.ops.flash_attention import flash_attention
     from bpx_torch.ops.norm import layer_norm
 
+    tag = f"[serve {path.preset}]"
     n_cls = pred.exp.model.n_classes
-    gates_dim = 4 * pred.exp.model.hidden_sz
-    full = reqs[1]
+    n_gates = gates_dim(pred.exp.model)
+    n_req = len(reqs)
     reqs = list(reqs)
-    reqs[1] = {k: v[:5] for k, v in full.items()}   # a ragged request
+    full = reqs[1] if n_req > 1 else None
+    if full is not None:
+        reqs[1] = {k: v[:5] for k, v in full.items()}   # a ragged request
     torch.cuda.synchronize()
 
     flash_attention.launches = 0
@@ -877,20 +1089,20 @@ def phase_serve(torch, np, pred, reqs, profile: bool):
         outs.append((probs, gates))
     n_flash, n_ln = flash_attention.launches, layer_norm.launches
 
-    print(f"[serve] {REQUESTS} requests: flash launches {n_flash} "
-          f"({n_flash / REQUESTS:g}/forward), layer_norm launches {n_ln} "
-          f"({n_ln / REQUESTS:g}/forward)")
-    check(n_flash == FLASH_PER_FORWARD * REQUESTS,
+    print(f"{tag} {n_req} requests: flash launches {n_flash} "
+          f"({n_flash / n_req:g}/forward), layer_norm launches {n_ln} "
+          f"({n_ln / n_req:g}/forward)")
+    check(n_flash == path.flash * n_req,
           f"flash kernel launched {n_flash} times, expected "
-          f"{FLASH_PER_FORWARD * REQUESTS}")
-    check(n_ln == LN_PER_FORWARD * REQUESTS,
+          f"{path.flash * n_req}")
+    check(n_ln == path.ln * n_req,
           f"layer_norm kernel launched {n_ln} times, expected "
-          f"{LN_PER_FORWARD * REQUESTS}")
+          f"{path.ln * n_req}")
 
     for batch, (probs, gates) in zip(reqs, outs):
         n = batch["txt"].shape[0]
         check(probs.shape == (n, n_cls), f"probs shape {probs.shape}")
-        check(gates.shape == (n, gates_dim), f"gates shape {gates.shape}")
+        check(gates.shape == (n, n_gates), f"gates shape {gates.shape}")
         check(bool(np.isfinite(probs).all() and np.isfinite(gates).all()),
               "non-finite output")
         check(bool(((probs >= 0) & (probs <= 1)).all()),
@@ -910,41 +1122,46 @@ def phase_serve(torch, np, pred, reqs, profile: bool):
                     for a, b in zip(served, plain)))
 
     perr, gerr = errors(outs)
-    print(f"[serve] kernels vs plain versions: probs max err {perr:.3g} "
-          f"(tol {PROBS_TOL}), gates max err {gerr:.3g} (tol {GATES_TOL})")
-    check(perr <= PROBS_TOL, f"probs differ from the plain path by {perr}")
-    check(gerr <= GATES_TOL, f"gates differ from the plain path by {gerr}")
+    print(f"{tag} kernels vs plain versions: probs max err {perr:.3g} "
+          f"(tol {path.probs_tol}), gates max err {gerr:.3g} (tol "
+          f"{path.gates_tol})")
+    check(perr <= path.probs_tol,
+          f"{path.preset}: probs differ from the plain path by {perr}")
+    check(gerr <= path.gates_tol,
+          f"{path.preset}: gates differ from the plain path by {gerr}")
 
     # the same comparison must catch a kernel launched with a wrong mask
-    faults = {}
-    for fault, wrap in PLANTED_FAULTS.items():
+    planted = {}
+    for fault, wrap in (PLANTED_FAULTS.items() if faults else ()):
         with wrapped_launch(fa, wrap):
             f_perr, f_gerr = errors([pred(batch, return_gates=True)
                                      for batch in reqs])
-        faults[fault] = dict(probs_err=f_perr, gates_err=f_gerr)
-        print(f"[serve] planted fault, {fault}: probs max err {f_perr:.3g}, "
+        planted[fault] = dict(probs_err=f_perr, gates_err=f_gerr)
+        print(f"{tag} planted fault, {fault}: probs max err {f_perr:.3g}, "
               f"gates max err {f_gerr:.3g}")
-    for fault, e in faults.items():
-        check(e["probs_err"] > PROBS_TOL or e["gates_err"] > GATES_TOL,
-              f"the comparison with the plain path misses a planted "
-              f"fault ({fault})")
+    for fault, e in planted.items():
+        check(e["probs_err"] > path.probs_tol
+              or e["gates_err"] > path.gates_tol,
+              f"{path.preset}: the comparison with the plain path misses a "
+              f"planted fault ({fault})")
 
-    # a ragged request's rows equal the same rows served in a full batch
-    fp = pred(full)
-    rerr = float(np.abs(fp[:5] - outs[1][0]).max())
-    print(f"[serve] ragged request vs the same rows in a full batch: "
-          f"max err {rerr:.3g}")
-    check(rerr <= PROBS_TOL, f"ragged request differs by {rerr}")
+    if full is not None:
+        # a ragged request's rows equal the same rows served in a full batch
+        fp = pred(full)
+        rerr = float(np.abs(fp[:5] - outs[1][0]).max())
+        print(f"{tag} ragged request vs the same rows in a full batch: "
+              f"max err {rerr:.3g}")
+        check(rerr <= path.probs_tol, f"ragged request differs by {rerr}")
 
     med = statistics.median(lat)
-    print(f"[serve] per-request latency (host clock, numpy in -> numpy "
-          f"out): median {med:.2f} ms over {REQUESTS}: "
+    print(f"{tag} per-request latency (host clock, numpy in -> numpy "
+          f"out): median {med:.2f} ms over {n_req}: "
           + ", ".join(f"{x:.2f}" for x in lat))
     if profile:
         profile_forward(torch, pred, reqs[0])
     return dict(latency_ms=lat, median_ms=med, flash_launches=n_flash,
                 ln_launches=n_ln, probs_err=perr, gates_err=gerr,
-                planted_faults=faults)
+                planted_faults=planted)
 
 
 def profile_forward(torch, pred, batch):
@@ -976,33 +1193,37 @@ def train_batch(torch, np, exp, seed: int, label_p):
             .to("cuda") for k, v in b.items()}
 
 
-def phase_trainer(torch, np):
-    """moviescope mmtrvapt at full width and depth in training mode, Adam
-    at LR, BCE with pos_weight from synthetic label frequencies, and the
-    accumulation step at A = TRAIN_A."""
-    from bpx_torch.config import get_preset
+def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
+                  steps: int = TRAIN_STEPS):
+    """The path's model at full width and depth in training mode, Adam at
+    LR, BCE with pos_weight from synthetic label frequencies (every preset
+    driven here is a multilabel task), and the accumulation step at A =
+    TRAIN_A."""
     from bpx_torch.models import get_model
     from bpx_torch.train.losses import make_loss_fn
     from bpx_torch.train.optim import make_optimizer
     from bpx_torch.train.steps import make_train_step
-    exp = get_preset("moviescope")
+    exp = experiment(path)
+    m = exp.model
+    check(exp.data.task_type == "multilabel", f"{path.preset} is not "
+          f"multilabel")
     t0 = time.time()
-    model = get_model(exp.model, device="cuda", seed=0).train()
+    model = get_model(m, device="cuda", seed=0).train()
     rng = np.random.RandomState(7)
     n_train = 1000
-    freqs = rng.randint(30, 400, size=exp.model.n_classes)
-    loss_fn = make_loss_fn("moviescope", "multilabel", True, freqs.tolist(),
-                           n_train, device="cuda")
+    freqs = rng.randint(30, 400, size=m.n_classes)
+    loss_fn = make_loss_fn(exp.data.task, "multilabel", True,
+                           freqs.tolist(), n_train, device="cuda")
     opt = make_optimizer(model.parameters(), LR)
-    step = make_train_step(model, "mmtrvapt", loss_fn, opt,
+    step = make_train_step(model, m.model, loss_fn, opt,
                            grad_accum=TRAIN_A,
                            generator=torch.Generator().manual_seed(0))
     batches = [train_batch(torch, np, exp, 300 + i, freqs / n_train)
-               for i in range(TRAIN_STEPS)]
+               for i in range(steps)]
     torch.cuda.synchronize()
-    print(f"[train] moviescope mmtrvapt, Adam lr {LR}, BCE with pos_weight, "
-          f"micro-batch {BATCH} x A={TRAIN_A}, {exp.model.compute_dtype}; "
-          f"built in {time.time() - t0:.1f} s")
+    print(f"[train {path.preset}] {m.model}, Adam lr {LR}, BCE with "
+          f"pos_weight, micro-batch {BATCH} x A={TRAIN_A}, "
+          f"{m.compute_dtype}; built in {time.time() - t0:.1f} s")
     return model, loss_fn, step, batches
 
 
@@ -1024,7 +1245,8 @@ def micro_step(model, loss_fn, micro, seed):
     returns the loss (the gradients stay in ``.grad``)."""
     from bpx_torch.inputs import model_inputs
     model.zero_grad(set_to_none=True)
-    logits = model(*model_inputs("mmtrvapt", micro), dropout_seed=seed)
+    logits = model(*model_inputs(model.config.model, micro),
+                   dropout_seed=seed)
     loss = loss_fn(logits, micro["target"])
     loss.backward()
     return loss.item()
@@ -1058,10 +1280,12 @@ TRAIN_FAULTS = {
 }
 
 
-def phase_micro_step(torch, model, loss_fn, batches):
+def phase_micro_step(torch, model, loss_fn, batches,
+                     path: ModelPath = MOVIESCOPE):
     """One micro-step with the kernels (recording every launch's class)
     against the same step under plain_versions(): same weights, batch and
-    dropout seed.  Then the planted faults."""
+    dropout seed.  Then the planted faults; and the wrappers' copies at a
+    narrow head dim, which must be none."""
     from bpx_torch.ops import flash_attention as fa
     from bpx_torch.ops.dispatch import plain_versions
     micro = {k: v[0] for k, v in batches[0].items()}
@@ -1086,23 +1310,24 @@ def phase_micro_step(torch, model, loss_fn, batches):
     del ref32
     errs = group_errors(torch, groups, ref)
     worst = max(errs, key=errs.get)
-    print(f"[micro-step] against the fp32 step: plain bf16 versions worst "
+    tag = f"[micro-step {path.preset}]"
+    print(f"{tag} against the fp32 step: plain bf16 versions worst "
           f"group {max(e32_plain.values()):.3g}, kernels worst group "
           f"{max(e32_kern.values()):.3g}; per group (plain / kernels): "
           + ", ".join(f"{g} {e32_plain[g]:.3g}/{e32_kern[g]:.3g}"
                       for g in sorted(groups)))
     lerr = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"[micro-step] kernels vs plain versions: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f} (rel err {lerr:.3g}, tol {LOSS_TOL}); worst "
+    print(f"{tag} kernels vs plain versions: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel err {lerr:.3g}, tol {path.loss_tol}); worst "
           f"gradient group {worst}: rel err {errs[worst]:.3g} (tol "
-          f"{GRAD_TOL}); " + ", ".join(f"{g} {e:.3g}"
+          f"{path.grad_tol}); " + ", ".join(f"{g} {e:.3g}"
                                        for g, e in sorted(errs.items())))
-    check(lerr <= LOSS_TOL, f"micro-step loss differs by {lerr}")
+    check(lerr <= path.loss_tol, f"micro-step loss differs by {lerr}")
     off = [g for g in groups
            if e32_kern[g] > FP32_FACTOR * e32_plain[g] + FP32_SLACK]
     check(not off, f"the kernels' gradients are further from the fp32 step "
                    f"than the plain versions' in {off}")
-    check(errs[worst] <= GRAD_TOL,
+    check(errs[worst] <= path.grad_tol,
           f"micro-step gradients of {worst} differ by {errs[worst]}")
     faults = {}
     for fault, wrap in TRAIN_FAULTS.items():
@@ -1111,39 +1336,41 @@ def phase_micro_step(torch, model, loss_fn, batches):
         ferrs = group_errors(torch, groups, ref)
         fworst = max(ferrs, key=ferrs.get)
         faults[fault] = dict(group=fworst, grad_err=ferrs[fworst])
-        print(f"[micro-step] planted fault, {fault}: worst group {fworst} "
+        print(f"{tag} planted fault, {fault}: worst group {fworst} "
               f"rel err {ferrs[fworst]:.3g}")
-        check(ferrs[fworst] > GRAD_TOL,
+        check(ferrs[fworst] > path.grad_tol,
               f"the comparison with the plain path misses a planted fault "
               f"({fault})")
     model.zero_grad(set_to_none=True)
     n = {k: sum(c.values()) for k, c in seen.items()}
-    print(f"[micro-step] recorded launches: flash {n['flash']} "
+    print(f"{tag} recorded launches: flash {n['flash']} "
           f"({sum(c for k, c in seen['flash'].items() if k[-1] > 0)} with "
           f"dropout), flash backward {n['flash_bwd']}, layer_norm {n['ln']}, "
-          f"layer_norm backward {n['ln_bwd']}, hash dropout {n['dropout']}")
-    check(n["flash"] == FLASH_PER_FORWARD
-          and n["flash_bwd"] == FLASH_PER_FORWARD
-          and n["ln"] == LN_PER_TRAIN_FORWARD
-          and n["ln_bwd"] == LN_PER_TRAIN_FORWARD,
+          f"layer_norm backward {n['ln_bwd']}, hash dropout {n['dropout']}; "
+          f"tensors the flash wrappers copied, by head_dim: "
+          f"{dict(seen['copies'])}")
+    check(all(seen["copies"][d] == 0 for d in (25, 30)),
+          "the flash wrappers copied a narrow head's tensors")
+    check(n["flash"] == path.flash and n["flash_bwd"] == path.flash
+          and n["ln"] == path.ln_train and n["ln_bwd"] == path.ln_train,
           "the recorded micro-step's launches differ from the structure's")
     return seen, dict(loss_err=lerr, grad_err=errs[worst], worst=worst,
                       planted_faults=faults)
 
 
-def phase_train(torch, model, step, batches, profile: bool):
+def phase_train(torch, model, step, batches, profile: bool,
+                path: ModelPath = MOVIESCOPE):
     """TRAIN_STEPS accumulation steps with the launch counters checked per
     step; step time on the host clock around a synchronised step."""
     from bpx_torch.ops.flash_attention import (flash_attention,
                                                flash_attention_backward)
     from bpx_torch.ops.norm import layer_norm, layer_norm_backward
+    tag = f"[train {path.preset}]"
     counters = (flash_attention, flash_attention_backward, layer_norm,
                 layer_norm_backward)
-    want = dict(flash=FLASH_PER_FORWARD * TRAIN_A,
-                dropout=FLASH_DROPOUT_PER_FORWARD * TRAIN_A,
-                flash_bwd=FLASH_PER_FORWARD * TRAIN_A,
-                ln=LN_PER_TRAIN_FORWARD * TRAIN_A,
-                ln_bwd=LN_PER_TRAIN_FORWARD * TRAIN_A)
+    want = dict(flash=path.flash * TRAIN_A, dropout=path.dropout * TRAIN_A,
+                flash_bwd=path.flash * TRAIN_A,
+                ln=path.ln_train * TRAIN_A, ln_bwd=path.ln_train * TRAIN_A)
     totals = collections.Counter()
     losses, times = [], []
     torch.cuda.synchronize()
@@ -1163,7 +1390,7 @@ def phase_train(torch, model, step, batches, profile: bool):
                    ln=layer_norm.launches, ln_bwd=layer_norm_backward.launches)
         totals.update(got)
         losses.append(loss)
-        print(f"[train] step {i + 1}: loss {loss:.6f}, {times[-1]:.1f} ms; "
+        print(f"{tag} step {i + 1}: loss {loss:.6f}, {times[-1]:.1f} ms; "
               f"launches {got}")
         check(got == want, f"step {i + 1} launches {got}, expected {want}")
         check(math.isfinite(loss), f"step {i + 1} loss is {loss}")
@@ -1171,7 +1398,7 @@ def phase_train(torch, model, step, batches, profile: bool):
             check_grads(torch, model)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     med = statistics.median(times)
-    print(f"[train] step time (host clock, synchronised) median {med:.1f} ms "
+    print(f"{tag} step time (host clock, synchronised) median {med:.1f} ms "
           f"over {len(times)} steps: " + ", ".join(f"{x:.1f}" for x in times)
           + f"; {TRAIN_A * BATCH / med * 1e3:.2f} samples/s; peak memory "
           f"{peak:.2f} GiB (max_memory_allocated)")
@@ -1305,25 +1532,19 @@ def main() -> None:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    # serving: the forward kernels at the served classes, then the path
-    pred, reqs = phase_predictor(torch)
-    # the warm-up request (cuBLAS/cuDNN set-up) records the launches
-    flash_cls, ln_cls = launch_classes(pred, reqs[0])
-    n_flash, n_ln = sum(flash_cls.values()), sum(ln_cls.values())
-    print(f"[serve] recorded forward: {n_flash} flash launches in "
-          f"{len(flash_cls)} shape classes, {n_ln} layer_norm launches in "
-          f"{len(ln_cls)} (structure: {FLASH_PER_FORWARD}, "
-          f"{LN_PER_FORWARD})")
-    check(n_flash == FLASH_PER_FORWARD and n_ln == LN_PER_FORWARD,
-          "the recorded forward's launches differ from the structure's")
+    # moviescope serving: the forward kernels at the served classes, then
+    # the path
+    t0 = time.time()
+    pred, reqs = phase_predictor(torch, MOVIESCOPE)
+    flash_cls, ln_cls = record_forward(MOVIESCOPE, pred, reqs[0])
     flash_rows = phase_flash(torch, timer, flash_cls, gen)
     ln_rows = phase_layer_norm(torch, timer, ln_cls, gen)
     served = phase_serve(torch, np, pred, reqs, args.profile)
     del pred
     torch.cuda.empty_cache()
 
-    # training: one recorded micro-step against the plain path, the new
-    # kernels at its classes, then the train steps
+    # moviescope training: one recorded micro-step against the plain path,
+    # the new kernels at its classes, then the train steps
     model, loss_fn, step, batches = phase_trainer(torch, np)
     seen, micro = phase_micro_step(torch, model, loss_fn, batches)
     drop_rows = phase_flash(
@@ -1332,36 +1553,138 @@ def main() -> None:
     bwd_rows = phase_flash_bwd(torch, timer, seen["flash_bwd"], gen)
     ln_bwd_rows = phase_layer_norm_bwd(torch, timer, seen["ln_bwd"], gen)
     dropout_ms = phase_dropout_hash(torch, timer, seen["dropout"], gen)
-    phase_mask_check(torch, gen)
+    phase_mask_check(torch, gen, BATCH, 8, 64, 64)
     long_rows = phase_long_shape(torch, timer, gen)
     trained = phase_train(torch, model, step, batches, args.profile)
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+    print(f"[time] moviescope phases {time.time() - t0:.1f} s")
+
+    # iemocap (mmtrvat, head_dim 25): serving, MAG, training
+    t0 = time.time()
+    pred, reqs = phase_predictor(torch, IEMOCAP)
+    i_flash_cls, i_ln_cls = record_forward(IEMOCAP, pred, reqs[0], 25)
+    i_flash_rows = phase_flash(torch, timer, i_flash_cls, gen,
+                               label="flash iemocap")
+    i_ln_rows = phase_layer_norm(torch, timer, i_ln_cls, gen,
+                                 scalar_path=False)
+    i_served = phase_serve(torch, np, pred, reqs, args.profile, IEMOCAP)
+    del pred
+    mag_pred, mag_reqs = phase_predictor(torch, IEMOCAP_MAG, requests=1)
+    record_forward(IEMOCAP_MAG, mag_pred, mag_reqs[0], 25)
+    i_mag = phase_serve(torch, np, mag_pred, mag_reqs, False, IEMOCAP_MAG,
+                        faults=False)
+    del mag_pred
+    torch.cuda.empty_cache()
+
+    model, loss_fn, step, batches = phase_trainer(torch, np, IEMOCAP)
+    i_seen, i_micro = phase_micro_step(torch, model, loss_fn, batches,
+                                       IEMOCAP)
+    i_drop_rows = phase_flash(
+        torch, timer, {k: c for k, c in i_seen["flash"].items() if k[-1] > 0},
+        gen, label="flash_dropout iemocap")
+    i_bwd_rows = phase_flash_bwd(torch, timer, i_seen["flash_bwd"], gen,
+                                 label="flash_bwd iemocap")
+    i_ln_bwd_rows = phase_layer_norm_bwd(torch, timer, i_seen["ln_bwd"], gen,
+                                         scalar_path=False)
+    phase_mask_check(torch, gen, BATCH, 12, 512, 25)
+    i_long_rows = phase_long_shape(torch, timer, gen, 25)
+    i_trained = phase_train(torch, model, step, batches, args.profile,
+                            IEMOCAP)
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+    print(f"[time] iemocap phases {time.time() - t0:.1f} s")
+
+    # cmu-mosei (head_dim 30): one served request and one train step, the
+    # kernels at their classes
+    t0 = time.time()
+    pred, reqs = phase_predictor(torch, CMU_MOSEI, requests=1)
+    c_flash_cls, _ = record_forward(CMU_MOSEI, pred, reqs[0], 30)
+    c_flash_rows = phase_flash(torch, timer, c_flash_cls, gen,
+                               label="flash cmu-mosei")
+    c_served = phase_serve(torch, np, pred, reqs, False, CMU_MOSEI,
+                           faults=False)
+    del pred
+    model, loss_fn, step, batches = phase_trainer(torch, np, CMU_MOSEI,
+                                                  steps=1)
+    with recording() as c_seen:
+        c_trained = phase_train(torch, model, step, batches, False,
+                                CMU_MOSEI)
+    per_micro = lambda seen: {k: c // TRAIN_A for k, c in seen.items()}
+    c_drop_rows = phase_flash(
+        torch, timer,
+        per_micro({k: c for k, c in c_seen["flash"].items() if k[-1] > 0}),
+        gen, label="flash_dropout cmu-mosei")
+    c_bwd_rows = phase_flash_bwd(torch, timer, per_micro(c_seen["flash_bwd"]),
+                                 gen, label="flash_bwd cmu-mosei")
+    c_long_rows = phase_long_shape(torch, timer, gen, 30)
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+    print(f"[time] cmu-mosei phases {time.time() - t0:.1f} s")
 
     steps = TRAIN_STEPS * TRAIN_A
+    fwd_src = "bpx_torch/csrc/flash_fwd.cu"
+    bwd_src = "bpx_torch/csrc/flash_bwd.cu"
+    ln_src, ln_bwd_src = ("bpx_torch/csrc/layer_norm.cu",
+                          "bpx_torch/csrc/layer_norm_bwd.cu")
+    fwd_tpu, drop_tpu, bwd_tpu = ("bpx/ops/pallas_attention.py:145",
+                                  "bpx/ops/pallas_attention.py:102",
+                                  "bpx/ops/pallas_attention.py:462")
     kernels = [
-        summarise("flash_fwd", "bpx_torch/csrc/flash_fwd.cu",
-                  "bpx/ops/pallas_attention.py:145", flash_rows,
+        summarise("flash_fwd", fwd_src, fwd_tpu, flash_rows,
                   served["flash_launches"], REQUESTS, "forward"),
-        summarise("flash_fwd_dropout", "bpx_torch/csrc/flash_fwd.cu",
-                  "bpx/ops/pallas_attention.py:102", drop_rows,
+        summarise("flash_fwd_dropout", fwd_src, drop_tpu, drop_rows,
                   trained["totals"]["dropout"], steps, "micro_step"),
-        dict(summarise("flash_bwd", "bpx_torch/csrc/flash_bwd.cu",
-                       "bpx/ops/pallas_attention.py:462", bwd_rows,
+        dict(summarise("flash_bwd", bwd_src, bwd_tpu, bwd_rows,
                        trained["totals"]["flash_bwd"], steps, "micro_step"),
              long_shape=long_rows),
-        summarise("layer_norm_fwd", "bpx_torch/csrc/layer_norm.cu",
-                  "bpx/ops/norm.py:53", ln_rows, served["ln_launches"],
-                  REQUESTS, "forward"),
-        summarise("layer_norm_bwd", "bpx_torch/csrc/layer_norm_bwd.cu",
-                  "bpx/ops/norm.py:69", ln_bwd_rows,
-                  trained["totals"]["ln_bwd"], steps, "micro_step"),
+        summarise("layer_norm_fwd", ln_src, "bpx/ops/norm.py:53", ln_rows,
+                  served["ln_launches"], REQUESTS, "forward"),
+        summarise("layer_norm_bwd", ln_bwd_src, "bpx/ops/norm.py:69",
+                  ln_bwd_rows, trained["totals"]["ln_bwd"], steps,
+                  "micro_step"),
+        # iemocap: head_dim 25 (and BERT's 64) on its own path
+        summarise("flash_fwd_iemocap", fwd_src, fwd_tpu, i_flash_rows,
+                  i_served["flash_launches"], REQUESTS, "forward"),
+        summarise("flash_fwd_dropout_iemocap", fwd_src, drop_tpu,
+                  i_drop_rows, i_trained["totals"]["dropout"], steps,
+                  "micro_step"),
+        dict(summarise("flash_bwd_iemocap", bwd_src, bwd_tpu, i_bwd_rows,
+                       i_trained["totals"]["flash_bwd"], steps,
+                       "micro_step"), long_shape=i_long_rows),
+        summarise("layer_norm_fwd_iemocap", ln_src, "bpx/ops/norm.py:53",
+                  i_ln_rows, i_served["ln_launches"], REQUESTS, "forward"),
+        summarise("layer_norm_bwd_iemocap", ln_bwd_src, "bpx/ops/norm.py:69",
+                  i_ln_bwd_rows, i_trained["totals"]["ln_bwd"], steps,
+                  "micro_step"),
+        # cmu-mosei: head_dim 30
+        summarise("flash_fwd_cmu_mosei", fwd_src, fwd_tpu, c_flash_rows,
+                  c_served["flash_launches"], 1, "forward"),
+        summarise("flash_fwd_dropout_cmu_mosei", fwd_src, drop_tpu,
+                  c_drop_rows, c_trained["totals"]["dropout"], TRAIN_A,
+                  "micro_step"),
+        dict(summarise("flash_bwd_cmu_mosei", bwd_src, bwd_tpu, c_bwd_rows,
+                       c_trained["totals"]["flash_bwd"], TRAIN_A,
+                       "micro_step"), long_shape=c_long_rows),
     ]
-    print(f"[summary] served median request {served['median_ms']:.2f} ms; "
-          f"train step median {trained['median_ms']:.1f} ms "
+    print(f"[summary] moviescope: served median request "
+          f"{served['median_ms']:.2f} ms; train step median "
+          f"{trained['median_ms']:.1f} ms "
           f"({TRAIN_A * BATCH / trained['median_ms'] * 1e3:.2f} samples/s, "
           f"peak {trained['peak_gib']:.2f} GiB); plain hash dropout "
           f"{dropout_ms:.2f} ms per micro-step; micro-step kernels vs plain: "
           f"loss {micro['loss_err']:.3g}, gradients {micro['grad_err']:.3g}; "
           f"card: {card}")
+    print(f"[summary] iemocap: served median request "
+          f"{i_served['median_ms']:.2f} ms (MAG request "
+          f"{i_mag['median_ms']:.2f} ms); train step median "
+          f"{i_trained['median_ms']:.1f} ms "
+          f"({TRAIN_A * BATCH / i_trained['median_ms'] * 1e3:.2f} "
+          f"samples/s, peak {i_trained['peak_gib']:.2f} GiB); micro-step "
+          f"kernels vs plain: loss {i_micro['loss_err']:.3g}, gradients "
+          f"{i_micro['grad_err']:.3g}; cmu-mosei: request "
+          f"{c_served['median_ms']:.2f} ms, train step "
+          f"{c_trained['median_ms']:.1f} ms; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 edge shapes the model does not reach (ragged tiles, an empty key range,
 single rows, widths without vector loads, fp32 input and output, a long
 multi-tile shape) and at the model's own attention classes, forward and
-backward, with and without dropout; the backward's delta kernel alone; the
+backward, with and without dropout; the narrow heads (head_dim 25 and 30)
+at tile edges, on fused-projection views the wrapper must not copy, on a
+view that ends its allocation, and their exact dropout masks; the
+backward's delta kernel alone; the
 LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
 the backward's phase stamps in a build with ``-DBPX_LN_TRACE``.
@@ -84,9 +87,9 @@ def test_flash_kernel_rejects_and_plain_context(gen):
     q, k, v = _qkv(gen, 1, 2, 16, 16, 64)
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q.float(), k.float(), v.float())
-    q32, k32, v32 = _qkv(gen, 1, 2, 16, 16, 32)
+    q48, k48, v48 = _qkv(gen, 1, 2, 16, 16, 48)
     with pytest.raises(NotImplementedError, match="head_dim"):
-        flash_attention(q32, k32, v32)
+        flash_attention(q48, k48, v48)
     before = flash_attention.launches
     with plain_versions():
         out = flash_attention(q, k, v, True)
@@ -186,6 +189,8 @@ def test_flash_backward_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked,
     (8, 8, 512, 200, 96, True, False),     # band dropped
     (8, 8, 512, 512, 96, True, False),     # causal
     (8, 12, 512, 512, 64, False, True),    # BERT: kv_lens
+    (8, 12, 512, 512, 25, True, False),    # iemocap: causal, head_dim 25
+    (8, 10, 512, 512, 30, True, False),    # cmu-mosei: causal, head_dim 30
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_kernels_at_the_model_classes(gen, B, H, Tq, Tk, D, masked,
@@ -225,7 +230,9 @@ def test_flash_kernels_at_the_model_classes(gen, B, H, Tq, Tk, D, masked,
 
 
 @pytest.mark.parametrize("B,H,T,D", [(8, 8, 200, 96), (8, 12, 512, 64),
-                                     (2, 3, 77, 96), (1, 1, 1, 64)])
+                                     (2, 3, 77, 96), (1, 1, 1, 64),
+                                     (8, 12, 512, 25), (8, 10, 512, 30),
+                                     (2, 3, 77, 25), (1, 1, 1, 30)])
 def test_flash_delta_kernel_matches_plain(gen, B, H, T, D):
     """The backward's first kernel alone: fp32 rowsum(dO * O) of strided
     bf16 views, against the plain sum (another order: 1e-4)."""
@@ -260,6 +267,198 @@ def test_flash_dropout_mask_is_exact(gen):
     _, _, dv = flash_attention_backward(q, k, eye, out, lse, eye, False,
                                         None, rate, seed)
     assert torch.equal(dv.transpose(-1, -2) != 0, keep)
+
+
+# ---------------------------------------------------------------------------
+# narrow heads (head_dim 25 and 30: the mmtrvat presets)
+# ---------------------------------------------------------------------------
+
+def _fused_views(gen, B, H, Tq, Tk, D):
+    """q from a (B, Tq, 1, H, D) projection and k, v from a (B, Tk, 2, H,
+    D) one, as (B, H, T, D) views: at D = 25 every row starts at an odd
+    element offset of its buffer somewhere."""
+    bf = torch.bfloat16
+    qbuf = torch.randn(B, Tq, 1, H, D, generator=gen, device="cuda")
+    kvbuf = torch.randn(B, Tk, 2, H, D, generator=gen, device="cuda")
+    q = (qbuf[:, :, 0] * D ** -0.5).to(bf).transpose(1, 2)
+    kv = kvbuf.to(bf)
+    return q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+
+
+NARROW_EDGES = [(T, T) for T in (1, 63, 64, 65, 200, 512)] + [(77, 130),
+                                                              (130, 77)]
+
+
+@pytest.mark.parametrize("D", [25, 30])
+@pytest.mark.parametrize("Tq,Tk", NARROW_EDGES)
+@pytest.mark.parametrize("masked,padded", [(True, False), (False, True),
+                                           (True, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_narrow_flash_kernels_match_plain(gen, D, Tq, Tk, masked, padded,
+                                          rate):
+    """head_dim 25 and 30 at lengths around the 64-row tiles, band on and
+    off, kv_lens, rate 0 and 0.1, on strided views of fused projections:
+    forward and backward against the plain versions, and bitwise-equal
+    backward reruns."""
+    B, H = 3, 2
+    q, k, v = _fused_views(gen, B, H, Tq, Tk, D)
+    kv = None
+    if padded:
+        kv = torch.tensor([Tk, max(Tk // 2, 1), 1], dtype=torch.int32,
+                          device="cuda")
+    seed = 0xC0FFEE if rate else None
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, lse, dout, masked, kv, rate,
+                                   seed)
+    assert flash_attention_backward.launches == before + 1
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), masked, kv,
+        rate, seed)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _close_grad(g, w)
+    again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
+                                     rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D,H", [(25, 12), (30, 10)])
+def test_narrow_fused_views_are_not_copied(gen, D, H):
+    """The (B, H, T, D) views of a fused (B, T, 3, H, D) projection go to
+    the kernels as they are (the wrapper copies nothing: T-stride 3 H D,
+    H-stride D, odd at D = 25), and give what contiguous copies give, bit
+    for bit, forward and backward."""
+    from bpx_torch.ops.flash_attention import _kernel_ready
+    B, T = 2, 200
+    buf = torch.randn(B, T, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+    assert q.stride() == (T * 3 * H * D, D, 3 * H * D, 1)
+    for t in (q, k, v):
+        assert _kernel_ready("t", t, t.device) is t
+    dense = [t.contiguous() for t in (q, k, v)]
+    out, lse = flash_attention(q, k, v, True, None, 0.1, 99,
+                               return_lse=True)
+    out_d, lse_d = flash_attention(*dense, True, None, 0.1, 99,
+                                   return_lse=True)
+    assert torch.equal(out, out_d) and torch.equal(lse, lse_d)
+    # dO as autograd hands it over: a view of (B, T, H, D) memory
+    dout = torch.randn(B, T, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    assert _kernel_ready("dO", dout, dout.device) is dout
+    assert _kernel_ready("O", out, out.device) is out
+    got = flash_attention_backward(q, k, v, out, lse, dout, True, None, 0.1,
+                                   99)
+    want = flash_attention_backward(*dense, out_d, lse_d,
+                                    dout.contiguous(), True, None, 0.1, 99)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("D", [25, 30])
+def test_narrow_view_ending_its_allocation(gen, D):
+    """The last head of the last row ends the tensor's memory, and NaNs
+    follow it in the same buffer: a load past column D - 1 would bring them
+    into the products.  Forward and backward stay finite and match the
+    plain versions."""
+    B, T, H = 2, 65, 3
+    n = B * T * 3 * H * D
+    mem = torch.full((n + 64,), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    mem[:n] = torch.randn(n, generator=gen, device="cuda").to(mem.dtype)
+    buf = mem[:n].view(B, T, 3, H, D)
+    q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+    q = q * D ** -0.5
+    assert v[-1, -1, -1].data_ptr() + 2 * D == buf.data_ptr() + 2 * n
+    out, lse = flash_attention(q, k, v, True, None, return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, True, None)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    dmem = mem.clone()
+    dmem[:n] = torch.randn(n, generator=gen, device="cuda").to(mem.dtype)
+    dout = dmem[:n].view(B, T, 3, H, D)[:, :, 2].transpose(1, 2)
+    got = flash_attention_backward(q, k, v, out, lse, dout, True, None)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), True, None)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        _close_grad(g, w)
+    torch.testing.assert_close(attention_delta(dout, out),
+                               attention_delta_reference(dout, out),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("D", [25, 30, 64, 96])
+def test_misaligned_contiguous_inputs_are_copied(gen, D):
+    """A contiguous view that starts one element into its buffer (at D =
+    30, 64, 96 its rows are not aligned for the kernels' copies) is copied
+    to a fresh buffer; at D = 25 any even byte will do and it goes as it
+    is.  Either way the forward matches the plain version."""
+    from bpx_torch.ops.flash_attention import KERNEL_ALIGN, _kernel_ready
+    B, H, T = 2, 3, 65
+    n = B * H * T * D
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(n + 1, generator=gen, device="cuda").to(bf)[1:]
+               .view(B, H, T, D) for _ in range(3))
+    q = q * D ** -0.5
+    assert k.is_contiguous() and k.data_ptr() % 4 == 2
+    ready = _kernel_ready("k", k, k.device)
+    assert (ready is k) == (KERNEL_ALIGN[D] == 1)
+    assert ready.data_ptr() % (2 * KERNEL_ALIGN[D]) == 0
+    out, lse = flash_attention(q, k, v, True, None, return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, True, None)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+def narrow_mask_bits(B, H, T, D, rate, seed):
+    """(forward, backward) keep bits of the kernels at head_dim D < T,
+    read off outputs: q = 0 makes every probability 1/T; with V_s[j, c] =
+    [j == D s + c] column c of O is the keep bit of key D s + c, and with
+    dO_s[i, c] = [i == D s + c] row j of dV holds the bits of query D s + c
+    at key j.  ceil(T / D) rounds cover every (query, key)."""
+    bf = torch.bfloat16
+    q = torch.zeros(B, H, T, D, device="cuda", dtype=bf)
+    k = torch.randn(B, H, T, D, device="cuda").to(bf)
+    fwd = torch.zeros(B, H, T, T, dtype=torch.bool, device="cuda")
+    bwd = torch.zeros_like(fwd)
+    j = torch.arange(T, device="cuda")
+    for s in range((T + D - 1) // D):
+        c = j - D * s
+        sel = ((c >= 0) & (c < D))
+        onehot = torch.zeros(T, D, device="cuda", dtype=bf)
+        onehot[sel, c[sel]] = 1
+        e = onehot.expand(B, H, T, D)
+        out, lse = flash_attention(q, k, e, False, None, rate, seed,
+                                   return_lse=True)
+        _, _, dv = flash_attention_backward(q, k, e, out, lse, e, False,
+                                            None, rate, seed)
+        fwd[..., sel] = out[..., c[sel]] != 0
+        bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("D", [25, 30])
+def test_narrow_dropout_mask_is_exact(gen, D):
+    """The forward and backward kernels' dropout masks at a narrow head
+    dim, every bit of a 64 x 64 tile, against the plain version's."""
+    B, H, T, rate, seed = 2, 3, 64, 0.1, 987654321
+    fwd, bwd = narrow_mask_bits(B, H, T, D, rate, seed)
+    keep = keep_mask(seed, B, H, T, T, rate, "cuda")
+    assert torch.equal(fwd, keep)
+    assert torch.equal(bwd, keep)
 
 
 def test_flash_autograd_launches_both_kernels(gen):

@@ -3,7 +3,8 @@ package's Pallas kernels in interpret mode: outputs and log-sum-exp, and
 with dropout the forward and its ``jax.vjp`` (the fused single-pass
 backward at the model's shapes; the online forward and the split dQ / dK-dV
 backward at a long multi-tile shape; lengths and band offsets at the edges
-of the CUDA kernels' 64-row tiles; both of bpx's delta paths).
+of the CUDA kernels' 64-row tiles; both of bpx's delta paths; the narrow
+head dims 25 and 30 of the mmtrvat presets).
 
 Inputs are made with numpy from a seed; fp32, atol/rtol 2e-5 (the same
 function, sums in another order).  The dropout seeds are the same uint32 on
@@ -167,6 +168,29 @@ def test_flash_tile_edges_match_pallas(B, H, Tq, Tk, D, masked, lens, rate):
     kv = None if lens is None else np.asarray(lens, np.int32)
     want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0x1234567)
     got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0x1234567)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("D", [25, 30])
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", [
+    (1, 2, 512, 512, True, None, 0.0),          # the mmtrvat class: causal
+    (1, 2, 512, 512, True, None, 0.1),          # with attention dropout
+    (2, 1, 63, 65, True, (65, 30), 0.1),        # band offset 2, kv_lens
+    (2, 1, 65, 129, True, (129, 64), 0.0),      # offset 64, kv_len a tile
+    (2, 1, 129, 129, False, (129, 1), 0.1),     # one visible key
+    (2, 1, 129, 63, True, (63, 40), 0.0),       # band dropped
+])
+def test_narrow_head_dims_match_pallas(D, B, H, Tq, Tk, masked, lens, rate):
+    """head_dim 25 (iemocap: 300 / 12) and 30 (cmu-mosei, counseling,
+    cmu-mosi: 300 / 10), which the Pallas kernels take at their raw width:
+    the forward and backward against bpx at the model's 512 x 512 causal
+    class and at tile edges with kv_lens, rate 0 and 0.1."""
+    q, k, v = _inputs(B, H, Tq, Tk, D, seed=12)
+    dout = np.random.RandomState(13).randn(B, H, Tq, D).astype(np.float32)
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0xBADC0DE)
+    got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0xBADC0DE)
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
 

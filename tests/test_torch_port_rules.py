@@ -89,11 +89,13 @@ def test_unported_models_and_options_raise():
     from bpx_torch.models import get_model
     m = tconfig.get_preset("synthetic-tiny").model
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(m.replace(model="mmtrvat"), device="cpu")
-    with pytest.raises(NotImplementedError, match="group_encoders"):
-        get_model(m.replace(group_encoders=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        get_model(m.replace(hybrid=True), device="cpu")
+        get_model(m.replace(model="mmtrvpa"), device="cpu")
+    vat = tconfig.get_preset("iemocap").model
+    for cfg in (m, vat):
+        with pytest.raises(NotImplementedError, match="group_encoders"):
+            get_model(cfg.replace(group_encoders=True), device="meta")
+        with pytest.raises(NotImplementedError, match="hybrid"):
+            get_model(cfg.replace(hybrid=True), device="meta")
 
 
 def test_cpu_tensors_launch_no_kernel():

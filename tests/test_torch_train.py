@@ -1,6 +1,7 @@
 """The port's training against the JAX package's: losses, optimizer and
 schedulers, and the train step with gradient accumulation in lockstep with
-``bpx.train.steps.make_train_step``; and the port's dropout wiring.
+``bpx.train.steps.make_train_step`` for both models (mmtrvapt, mmtrvat);
+and the port's dropout wiring, MAG's included.
 
 fp32 on the CPU, where the port's kernel wrappers compute their plain
 versions.  Weights are initialised in ``bpx`` and carried over with
@@ -36,7 +37,7 @@ from bpx_torch.ops import norm as tnorm
 from bpx_torch.ops import flash_attention as tflash
 from bpx_torch.train import losses, optim
 from bpx_torch.train.steps import make_eval_step, make_train_step
-from tests.test_torch_model import _batch, _tiny_experiment
+from tests.test_torch_model import _batch, _tiny_experiment, tiny_vat
 
 LR = 1e-3
 A, MICRO = 2, 2
@@ -147,18 +148,30 @@ FREQS = [5, 2, 9, 1, 4]
 
 
 def test_train_step_lockstep_with_bpx():
-    jexp = _no_dropout(_tiny_experiment())
+    _lockstep(_no_dropout(_tiny_experiment()), FREQS)
+
+
+def test_mmtrvat_train_step_lockstep_with_bpx():
+    """The tiny mmtrvat (head_dim 25, plain second round, 3-ary GMU)."""
+    jexp, _, _ = tiny_vat("gmu")
+    _lockstep(_no_dropout(jexp), [5, 2, 9, 1, 4, 3, 6, 2])
+
+
+def _lockstep(jexp, freqs):
+    """Three accumulation steps of bpx and the port from the same weights
+    and batches: step-1 gradients, the grad norm and the loss trajectory."""
+    name = jexp.model.model
     exp = config_from_dict(dataclasses.asdict(jexp))
     batches = [_super_batch(jexp, s) for s in range(3)]
     jmodel = jget_model(jexp.model)
     first = {k: jnp.asarray(v[0]) for k, v in batches[0].items()}
     params = jmodel.init({"params": jax.random.PRNGKey(0)},
-                         *jmodel_inputs("mmtrvapt", first))["params"]
+                         *jmodel_inputs(name, first))["params"]
 
     # bpx: the real loss, optimizer and jitted accumulation step
-    jloss = jlosses.make_loss_fn("synthetic", "multilabel", True, FREQS, 10)
+    jloss = jlosses.make_loss_fn("synthetic", "multilabel", True, freqs, 10)
     tx = joptim.make_optimizer(LR)
-    jstep = jax.jit(jmake_train_step(jmodel, "mmtrvapt", jloss, tx,
+    jstep = jax.jit(jmake_train_step(jmodel, name, jloss, tx,
                                      grad_accum=A))
     state = TrainState.create(params, tx)
     jlosses_ = []
@@ -170,7 +183,7 @@ def test_train_step_lockstep_with_bpx():
     # bpx step-1 gradients: the mean of the micro-batch gradients
     def mean_loss(prm):
         ls = [jloss(jmodel.apply({"params": prm}, *jmodel_inputs(
-                  "mmtrvapt", {k: jnp.asarray(v[i])
+                  name, {k: jnp.asarray(v[i])
                                for k, v in batches[0].items()})),
                     jnp.asarray(batches[0]["target"][i])) for i in range(A)]
         return sum(ls) / A
@@ -181,9 +194,9 @@ def test_train_step_lockstep_with_bpx():
     model.load_state_dict(params_from_flax(
         jax.tree.map(np.asarray, params), exp.model))
     opt = optim.make_optimizer(model.parameters(), LR)
-    step = make_train_step(model, "mmtrvapt",
+    step = make_train_step(model, name,
                            losses.make_loss_fn("synthetic", "multilabel",
-                                               True, FREQS, 10),
+                                               True, freqs, 10),
                            opt, grad_accum=A, with_grad_norm=True)
     tlosses = []
     for i, b in enumerate(batches):
@@ -296,29 +309,28 @@ def _count_calls(monkeypatch):
 
 
 def _expected(cfg, training):
-    """LayerNorms and flash calls (with dropout) of one mmtrvapt forward:
-    BERT's embedding norm and 2 per layer, 3 per encoder layer and a final
-    one, and in training one more per encoder layer (V embedded apart from
-    K); one attention per BERT and first-round layer, two per biprojection
-    layer; dropout in BERT and in the encoders whose rate is > 0."""
+    """LayerNorms and flash calls (with dropout) of one forward: BERT's
+    embedding norm and 2 per layer, 3 per encoder layer and a final one,
+    and in training one more per encoder layer (V embedded apart from K);
+    MAG's norm; one attention per BERT and first-round layer, and per
+    second-round layer two in mmtrvapt (biprojection) and one in mmtrvat;
+    dropout in BERT and in the encoders whose rate is > 0 (both rounds
+    have the same table of rates)."""
     L, Lb = cfg.layers, cfg.bert.num_layers
-    ln = 1 + 2 * Lb + 12 * (3 * L + 1) + (12 * L if training else 0)
-    flash = Lb + 6 * L + 6 * 2 * L
+    ln = (1 + 2 * Lb + 12 * (3 * L + 1) + (12 * L if training else 0)
+          + (cfg.fusion == "mag"))
+    per_second = 2 if cfg.model == "mmtrvapt" else 1
+    flash = Lb + 6 * L + 6 * per_second * L
     rated = (lambda r: r > 0)
     first = sum(rated(r) for r in (cfg.attn_dropout_a, cfg.attn_dropout_v,
                                    cfg.attn_dropout, cfg.attn_dropout_a,
                                    cfg.attn_dropout, cfg.attn_dropout_v))
     drop = (Lb * rated(cfg.bert.attention_dropout) + first * L
-            + first * 2 * L) if training else 0
+            + first * per_second * L) if training else 0
     return ln, flash, drop
 
 
-def test_launch_structure_in_train_mode(tiny_port, monkeypatch):
-    """Counted at the wrappers on the CPU path: V embedded separately in
-    training raises the LayerNorms per forward, and the rated encoders'
-    attentions carry dropout; at moviescope's depth the same formula gives
-    181 / 229 LayerNorms and 84 flash calls, 36 with dropout."""
-    _, exp, model, inputs = tiny_port
+def _check_structure(model, cfg, inputs, monkeypatch):
     counts = _count_calls(monkeypatch)
     for training in (False, True):
         for key in counts:
@@ -327,12 +339,74 @@ def test_launch_structure_in_train_mode(tiny_port, monkeypatch):
         with torch.no_grad():
             model(*inputs, dropout_seed=1 if training else None)
         assert (counts["ln"], counts["flash"], counts["flash_dropout"]) == \
-            _expected(exp.model, training)
+            _expected(cfg, training)
     model.eval()
+
+
+def test_launch_structure_in_train_mode(tiny_port, monkeypatch):
+    """Counted at the wrappers on the CPU path: V embedded separately in
+    training raises the LayerNorms per forward, and the rated encoders'
+    attentions carry dropout; at moviescope's depth the same formula gives
+    181 / 229 LayerNorms and 84 flash calls, 36 with dropout."""
+    _, exp, model, inputs = tiny_port
+    _check_structure(model, exp.model, inputs, monkeypatch)
     from bpx_torch.config import get_preset
     full = get_preset("moviescope").model
     assert _expected(full, False) == (181, 84, 0)
     assert _expected(full, True) == (229, 84, 36)
+
+
+@pytest.mark.parametrize("fusion", ["gmu", "mag"])
+def test_mmtrvat_launch_structure_in_train_mode(fusion, monkeypatch):
+    """The same count for mmtrvat (plain second round: one attention per
+    layer); at iemocap's depth 325 / 421 LayerNorms and 108 flash calls,
+    44 with dropout (BERT's 12 and the l-keyed encoders' 4 x 8), and MAG
+    one LayerNorm more."""
+    jexp, exp, _ = tiny_vat(fusion)
+    model = get_model(exp.model, device="cpu", seed=3)
+    inputs = [_t(v) for v in jmodel_inputs("mmtrvat",
+                                            _batch(jexp, 3, seed=6))]
+    _check_structure(model, exp.model, inputs, monkeypatch)
+    from bpx_torch.config import get_preset
+    full = get_preset("iemocap").model.replace(fusion=fusion)
+    mag = int(fusion == "mag")
+    assert _expected(full, False) == (325 + mag, 108, 0)
+    assert _expected(full, True) == (421 + mag, 108, 44)
+
+
+def test_mag_dropout_follows_the_seed():
+    """MAG's dropout (rate 0.5) in training mode is the hash mask of the
+    next seed of the forward's stream on its eval-mode output, bit for
+    bit; in the model (every other rate 0) the same base seed gives the
+    same logits, another base other logits."""
+    from bpx_torch.ops.dropout import SeedStream, hash_keep
+    from bpx_torch.ops.mag import MAG
+    rng = np.random.RandomState(21)
+    t, v, a = (_t(rng.randn(6, 40).astype(np.float32)) for _ in range(3))
+    mag = MAG(40, gen=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        mag.eval()
+        want, alpha = mag(t, v, a)
+        mag.train()
+        got, alpha_t = mag(t, v, a, SeedStream(77))
+    keep = hash_keep(SeedStream(77).next(), want.shape, 0.5)
+    assert torch.equal(got, torch.where(keep, want / 0.5, 0.0))
+    assert torch.equal(alpha, alpha_t) and 0 < keep.float().mean() < 1
+
+    jexp, _, _ = tiny_vat("mag")
+    exp = config_from_dict(dataclasses.asdict(_no_dropout(jexp)))
+    model = get_model(exp.model, device="cpu", seed=4).train()
+    inputs = [_t(x) for x in jmodel_inputs("mmtrvat",
+                                           _batch(jexp, 3, seed=7))]
+    with torch.no_grad():
+        x = model(*inputs, dropout_seed=11)
+        y = model(*inputs, dropout_seed=11)
+        z = model(*inputs, dropout_seed=12)
+        model.eval()
+        e = model(*inputs)
+    assert torch.equal(x, y)
+    assert not torch.allclose(x, z)
+    assert not torch.allclose(x, e)
 
 
 def test_eval_step(tiny_port):
