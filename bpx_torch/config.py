@@ -6,12 +6,14 @@ the field names, defaults and presets are identical, so a ``config.json``
 snapshot written by either package loads in both (:func:`config_from_dict`).
 
 Fields that only steer XLA compilation are accepted and inert here: the
-port runs eagerly, its attention always goes through the hand-written flash
-kernel, and nothing is scanned or rematerialised.  They are
+port runs eagerly, and nothing is scanned or rematerialised.  They are
 ``scan_layers``, ``scan_encoders``, ``scan_unroll``, ``remat``,
-``remat_policy``, ``remat_bert``, ``remat_policy_bert``, ``attention_impl``
-and ``bert_attention_impl``.  ``group_encoders`` and ``hybrid`` change the
-model and are not ported yet (they raise in the model's constructor).
+``remat_policy``, ``remat_bert`` and ``remat_policy_bert``.
+``attention_impl`` (and ``bert_attention_impl`` for BERT, None inheriting
+it) chooses the attention as in the JAX package: ``"pallas"`` the
+hand-written flash kernels, anything else the plain einsum attention.
+``group_encoders`` and ``hybrid`` change the model and are not ported yet
+(they raise in the model's constructor).
 """
 
 from __future__ import annotations
@@ -118,9 +120,9 @@ class ModelConfig:
     # dtype policy: params fp32, activations in compute_dtype, softmax and
     # LayerNorm statistics fp32.
     compute_dtype: str = "bfloat16"
-    # Inert in the port (see the module docstring).
+    # "pallas": the flash kernels; anything else: the einsum attention.
     attention_impl: str = "xla"
-    bert_attention_impl: Optional[str] = None
+    bert_attention_impl: Optional[str] = None     # None: attention_impl
     # Final fusion: "gmu" (reference default) or "mag" (mmtrvat only).
     fusion: str = "gmu"
     # Inert in the port (see the module docstring).

@@ -25,11 +25,12 @@
 //   * delta: two rows per warp, dO and O read once, a fixed-order sum;
 //   * dK/dV: one warpgroup per (batch*head, 64-key tile) with K and V
 //     resident, looping over 64-query tiles of Q, dO, lse and delta that
-//     stream through a 3-stage cp.async ring.  It computes the transposed
-//     scores S^T = K Q^T and dP^T = V dO^T with wgmma (K, V, Q, dO all
-//     K-major in shared memory), so P^T and dS^T come out of the accumulator
-//     in the register A-fragment layout of dV += P^T dO and dK += dS^T Q,
-//     whose B operands (dO, Q) are read MN-major from the same tiles;
+//     stream through a 3-stage cp.async ring (2 stages at D = 128).  It
+//     computes the transposed scores S^T = K Q^T and dP^T = V dO^T with
+//     wgmma (K, V, Q, dO all K-major in shared memory), so P^T and dS^T
+//     come out of the accumulator in the register A-fragment layout of
+//     dV += P^T dO and dK += dS^T Q, whose B operands (dO, Q) are read
+//     MN-major from the same tiles;
 //   * dQ: one warpgroup per (batch*head, 64-query tile) with Q and dO
 //     resident, K and V streaming; S = Q K^T, dP = dO V^T, dQ += dS K.
 // S and dP are computed in both the dK/dV and the dQ kernel: the price of
@@ -48,14 +49,35 @@
 // k-steps, dV, dK and dQ as m64n32k16; only the loads, the stores and the
 // delta kernel know D.
 //
+// D = 128 (mmimdb: 768 / 6).  The forward's layout takes it as four panels
+// and the dQ kernel as it stands (dQ 64 + S 32 + dP 32 fp32 a thread).  The
+// dK/dV kernel would hold dK and dV (2 x 64) beside S^T and dP^T (2 x 32):
+// 192 fp32 accumulators a thread before the A fragments (32 registers) and
+// the addresses, past the 255 a thread may have.  Its register plan: two
+// blocks per (batch*head, key tile), each owning 64 of dK's and dV's 128
+// columns (blockIdx.z), each computing S^T and dP^T in full from the whole
+// Q, dO, K and V tiles (the reduction runs over all of D).  So a block holds
+// 64 + 64 fp32 accumulators and the A fragments, the products of dV and dK
+// run as m64n64k16 on the B operand's panels 2z and 2z + 1, and no shared
+// memory is passed between blocks.  The price: S^T and dP^T are computed
+// twice and the Q and dO tiles read twice (the second time mostly from L2);
+// in return the grid doubles (768 blocks at mmimdb's 8 x 6 x 512 keys).  A
+// producer warp with setmaxnreg (FlashAttention-3's backward at D = 128)
+// would keep one S^T per tile but waits for a redesign.  Shared memory at
+// D = 128 with 3 stages would be 132 KB a dK/dV block and 129 KB a dQ block,
+// one block of each per SM; with 2 stages it is 99 and 97 KB, two blocks
+// of each per SM (their 238 and 216 registers allow two), and the
+// backward measured faster at mmimdb's class, by the same arithmetic in
+// the same order (PERF.md).
+//
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
 // against q, k, v, dO, o read and dq, dk, dv written once; at the model's
-// shapes (T <= 512, D <= 96) the bytes bound it.
+// shapes (T <= 512, D <= 128) the bytes bound it.
 //
 // Inputs and outputs are (B, H, T, D) tensors addressed by strides (last dim
-// contiguous; D = 64, 96: strides multiples of 8 elements, 16-byte aligned
-// pointers; D = 30: even strides, 4-byte aligned; D = 25: any strides);
-// lse and the delta workspace are (B*H, Tq) fp32.
+// contiguous; D = 64, 96, 128: strides multiples of 8 elements, 16-byte
+// aligned pointers; D = 30: even strides, 4-byte aligned; D = 25: any
+// strides); lse and the delta workspace are (B*H, Tq) fp32.
 
 #include "flash_common.cuh"
 
@@ -63,7 +85,12 @@ namespace {
 
 using namespace bpx_flash;
 
-constexpr int kStages = 3;   // streamed tiles in flight
+// Streamed tiles in flight: 3, and 2 at D = 128, where a third stage
+// would cost the second block of each kernel on an SM (the header).
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return padded_dim<D>() > 96 ? 2 : 3;
+}
 
 struct BwdParams {
   const __nv_bfloat16* q;
@@ -96,16 +123,24 @@ __host__ __device__ constexpr int dkdv_stage_bytes() {
   return 2 * tile_bytes<D>() + 1024;
 }
 
-// K and V resident, kStages x (Q, dO, lse, delta); +1 KB for alignment.
+// K and V resident, stages<D>() x (Q, dO, lse, delta); +1 KB for
+// alignment.
 template <int D>
 __host__ __device__ constexpr int dkdv_smem_bytes() {
-  return 2 * tile_bytes<D>() + kStages * dkdv_stage_bytes<D>() + 1024;
+  return 2 * tile_bytes<D>() + stages<D>() * dkdv_stage_bytes<D>() + 1024;
 }
 
-// Q and dO resident, kStages x (K, V); +1 KB for alignment.
+// Q and dO resident, stages<D>() x (K, V); +1 KB for alignment.
 template <int D>
 __host__ __device__ constexpr int dq_smem_bytes() {
-  return (2 + 2 * kStages) * tile_bytes<D>() + 1024;
+  return (2 + 2 * stages<D>()) * tile_bytes<D>() + 1024;
+}
+
+// Blocks that share one key tile's dK and dV, each owning DP / split of
+// their columns: 2 at D = 128 (the register plan in the header), else 1.
+template <int D>
+__host__ __device__ constexpr int dkdv_split() {
+  return padded_dim<D>() > 96 ? 2 : 1;
 }
 
 template <int N>
@@ -125,8 +160,8 @@ __device__ __forceinline__ void store_rows(
 }
 
 // delta[bh, t] = sum_d dO[b, h, t, d] * O[b, h, t, d] in fp32: half a warp
-// per row, lanes summed in a fixed order.  D = 64, 96: 16 bytes of each per
-// lane; a narrow head (its rows 2- or 4-byte aligned): columns lane and
+// per row, lanes summed in a fixed order.  D = 64, 96, 128: 16 bytes of each
+// per lane; a narrow head (its rows 2- or 4-byte aligned): columns lane and
 // lane + 16, in 2-byte loads.
 template <int D>
 __global__ void __launch_bounds__(256)
@@ -173,7 +208,7 @@ flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
   if (row < rows && lane == 0) delta[row] = sum;
 }
 
-// One (batch*head, 64-key tile): dK and dV.
+// One (batch*head, 64-key tile, column block): dK and dV.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const BwdParams p) {
@@ -181,6 +216,9 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int kTile = tile_bytes<D>();
   constexpr int kStage = dkdv_stage_bytes<D>();
   constexpr int kKSteps = DP / 16;
+  constexpr int kStages = stages<D>();
+  constexpr int DN = DP / dkdv_split<D>();    // dK / dV columns of the block
+  constexpr int DS = DN == DP ? D : DN;       // the columns its stores write
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -199,13 +237,15 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
   const int kv_end = min(Tk, kv_len);
   const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
+  const int c0 = blockIdx.z * DN;         // this block's first dK/dV column
+  const uint32_t c0_bytes = c0 / 32 * kPanelBytes;   // in a tile: its panel
 
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* ob = p.dout + b * p.o_sb + h * p.o_sh;
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float* dl_b = p.delta + (long long)bh * Tq;
 
-  float dk[DP / 2], dv[DP / 2], st[32], dpt[32];
+  float dk[DN / 2], dv[DN / 2], st[32], dpt[32];
   zero(dk);
   zero(dv);
   zero(st);
@@ -305,18 +345,19 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
       st[i2] = pdr;
     }
 
-    // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
+    // dV += P^T dO and dK += dS^T Q over this block's columns, A from
+    // registers, B MN-major
     uint32_t pa[4][4], da[4][4];
     p_frags(pa, st);
     p_frags(da, dpt);
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DP>(dv, pa[kc], desc_mn_major(o_s, kc));
+      wgmma_rs_mn<DN>(dv, pa[kc], desc_mn_major(o_s + c0_bytes, kc));
     }
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DP>(dk, da[kc], desc_mn_major(q_s, kc));
+      wgmma_rs_mn<DN>(dk, da[kc], desc_mn_major(q_s + c0_bytes, kc));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -325,8 +366,10 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4);
+  store_rows<DS>(p.dk + b * p.dk_sb + h * p.dk_sh + c0, p.dk_st, key0, Tk,
+                 dk, t4);
+  store_rows<DS>(p.dv + b * p.dv_sb + h * p.dv_sh + c0, p.dv_st, key0, Tk,
+                 dv, t4);
 }
 
 // One (batch*head, 64-query tile): dQ.
@@ -334,6 +377,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
+  constexpr int kStages = stages<D>();
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;
   extern __shared__ unsigned char smem[];
@@ -485,7 +529,8 @@ cudaError_t launch(const BwdParams& p, const __nv_bfloat16* o, long long o_sb,
   err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
                         p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H);
+  const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H,
+                     dkdv_split<D>());
   flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, dkdv_bytes, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -549,18 +594,9 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   p.drop.tk_p = static_cast<uint32_t>(tk_p);
   const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 25:
-      return static_cast<int>(launch<25>(p, ob, o_sb, o_sh, o_st, s));
-    case 30:
-      return static_cast<int>(launch<30>(p, ob, o_sb, o_sh, o_st, s));
-    case 64:
-      return static_cast<int>(launch<64>(p, ob, o_sb, o_sh, o_st, s));
-    case 96:
-      return static_cast<int>(launch<96>(p, ob, o_sb, o_sh, o_st, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
+    return launch<decltype(d)::value>(p, ob, o_sb, o_sh, o_st, s);
+  }));
 }
 
 // delta = rowsum(dO * O) in fp32 into a contiguous (B*H, T) buffer: the
@@ -573,26 +609,23 @@ int bpx_flash_delta(const void* o, const void* dout, void* delta, int B,
   const auto* dob = static_cast<const __nv_bfloat16*>(dout);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 25:
-      return static_cast<int>(launch_delta<25>(ob, dob, dl, B, H, T, o_sb,
-                                               o_sh, o_st, do_sb, do_sh,
-                                               do_st, s));
-    case 30:
-      return static_cast<int>(launch_delta<30>(ob, dob, dl, B, H, T, o_sb,
-                                               o_sh, o_st, do_sb, do_sh,
-                                               do_st, s));
-    case 64:
-      return static_cast<int>(launch_delta<64>(ob, dob, dl, B, H, T, o_sb,
-                                               o_sh, o_st, do_sb, do_sh,
-                                               do_st, s));
-    case 96:
-      return static_cast<int>(launch_delta<96>(ob, dob, dl, B, H, T, o_sb,
-                                               o_sh, o_st, do_sb, do_sh,
-                                               do_st, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
+    return launch_delta<decltype(d)::value>(ob, dob, dl, B, H, T, o_sb, o_sh,
+                                            o_st, do_sb, do_sh, do_st, s);
+  }));
+}
+
+// Blocks of the dK/dV (kernel 0) or the dQ kernel (kernel 1) at head_dim D
+// that one SM holds, into *blocks.  Returns a cudaError_t.
+int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
+  return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return kernel == 0
+               ? bpx_flash::blocks_per_sm(flash_bwd_dkdv_kernel<kD>,
+                                          dkdv_smem_bytes<kD>(), blocks)
+               : bpx_flash::blocks_per_sm(flash_bwd_dq_kernel<kD>,
+                                          dq_smem_bytes<kD>(), blocks);
+  }));
 }
 
 }  // extern "C"

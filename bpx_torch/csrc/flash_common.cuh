@@ -10,7 +10,7 @@
 // of row r stored at chunk c ^ ((r / 2) % 4)), so the 16-byte copies of a
 // warp and the tensor cores' reads hit distinct banks.  D = 96 is not a
 // swizzle span (192 B), but three 64-byte panels are; D = 64 is two panels
-// and D = 128 would be four.  A narrow head (D = 25, 30) is one panel whose
+// and D = 128 four.  A narrow head (D = 25, 30) is one panel whose
 // columns D..31 every load writes as zeros: the products then run at
 // DP = 32 and the padding adds nothing to them (a stale value there could
 // be a NaN, and 0 * NaN is not 0).
@@ -28,7 +28,30 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace bpx_flash {
+
+// The head dims the kernels are instantiated for: f(std::integral_constant
+// <int, D>()) for a tabled D, cudaErrorInvalidValue for any other.  The
+// wrapper's KERNEL_ALIGN (bpx_torch/ops/flash_attention.py) lists the same.
+template <typename F>
+__host__ cudaError_t with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 25:
+      return f(std::integral_constant<int, 25>());
+    case 30:
+      return f(std::integral_constant<int, 30>());
+    case 64:
+      return f(std::integral_constant<int, 64>());
+    case 96:
+      return f(std::integral_constant<int, 96>());
+    case 128:
+      return f(std::integral_constant<int, 128>());
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 constexpr float kMaskFill = -1e30f;   // the TPU kernels' NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
@@ -326,6 +349,35 @@ __device__ __forceinline__ void wgmma_rs_mn<96>(float (&d)[48],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // The bf16 A fragments of P . B for a 64 x 64 fp32 accumulator p (32 per
 // thread): k-step kc (keys 16 kc .. 16 kc + 15) takes the accumulator's
 // 8-column blocks 2 kc and 2 kc + 1, already in the A fragment's places.
@@ -394,6 +446,17 @@ __host__ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done = true;
   return err;
+}
+
+// Blocks of `kernel` (kThreads threads, `bytes` of dynamic shared memory)
+// that one SM of the current device holds, by the occupancy calculator.
+template <typename Kernel>
+__host__ cudaError_t blocks_per_sm(Kernel kernel, int bytes, int* blocks) {
+  bool done = false;
+  cudaError_t err = allow_smem(kernel, bytes, done);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       kThreads, bytes);
 }
 
 }  // namespace bpx_flash

@@ -44,18 +44,21 @@
 // Narrow heads (D = 25, 30: the mmtrvat presets' 300 / 12 and 300 / 10) run
 // the same kernel at DP = 32, one panel whose columns D..31 the loads zero
 // (flash_common.cuh): S = Q K^T in 2 k-steps, O += P V as m64n32k16.  Only
-// the loads and the stores know D.
+// the loads and the stores know D.  D = 128 (mmimdb: 768 / 6) is four
+// panels: S in 8 k-steps, O += P V as m64n128k16 (64 fp32 accumulators a
+// thread beside S's 32); 113 KB of shared memory a block, so two blocks
+// fill an SM's 228 KB exactly, 1 KB reserved for each.
 //
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
-// 96) the arithmetic intensity is below the card's ~295 flop/byte balance
+// 128) the arithmetic intensity is below the card's ~295 flop/byte balance
 // point, so the bound is the bytes.
 //
 // Inputs are (B, H, T, D) tensors addressed by strides (the last dim
 // contiguous), so the q/k/v views of a fused projection need no copy.
-// D = 64, 96: every stride a multiple of 8 elements and pointers 16-byte
-// aligned; D = 30: even strides, 4-byte aligned pointers; D = 25: any
-// strides (its rows start at any even byte).
+// D = 64, 96, 128: every stride a multiple of 8 elements and pointers
+// 16-byte aligned; D = 30: even strides, 4-byte aligned pointers; D = 25:
+// any strides (its rows start at any even byte).
 
 #include "flash_common.cuh"
 
@@ -314,18 +317,18 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.drop.inv_keep = inv_keep;
   p.drop.tk_p = static_cast<uint32_t>(tk_p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 25:
-      return static_cast<int>(launch<25>(p, s));
-    case 30:
-      return static_cast<int>(launch<30>(p, s));
-    case 64:
-      return static_cast<int>(launch<64>(p, s));
-    case 96:
-      return static_cast<int>(launch<96>(p, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(bpx_flash::with_head_dim(
+      D, [&](auto d) { return launch<decltype(d)::value>(p, s); }));
+}
+
+// Blocks of the forward kernel at head_dim D that one SM holds, into
+// *blocks.  Returns a cudaError_t, as bpx_flash_fwd.
+int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
+  return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return bpx_flash::blocks_per_sm(flash_fwd_kernel<kD>, smem_bytes<kD>(),
+                                    blocks);
+  }));
 }
 
 const char* bpx_error_string(int err) {

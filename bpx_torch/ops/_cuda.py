@@ -101,6 +101,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_flash_bwd.restype = i
     lib.bpx_flash_delta.argtypes = [p] * 3 + [i] * 4 + [ll] * 6 + [p]
     lib.bpx_flash_delta.restype = i
+    out = ctypes.POINTER(i)
+    lib.bpx_flash_fwd_blocks_per_sm.argtypes = [i, out]
+    lib.bpx_flash_fwd_blocks_per_sm.restype = i
+    lib.bpx_flash_bwd_blocks_per_sm.argtypes = [i, i, out]
+    lib.bpx_flash_bwd_blocks_per_sm.restype = i
     lib.bpx_layer_norm_fwd.argtypes = [p] * 6 + [i, i, f, i, i, i, p]
     lib.bpx_layer_norm_fwd.restype = i
     lib.bpx_layer_norm_bwd.argtypes = [p] * 9 + [i] * 5 + [p]

@@ -4,11 +4,19 @@
 q/k/v/out are separate parameters; when the streams alias (q = k = v, or
 k = v) their weights are concatenated and applied as one GEMM.  The
 projections come out as (B, T, S, H, D) and the (B, H, T, D) views the
-flash kernel takes are strided views of that buffer: no transpose is
-copied.  q is scaled by ``head_dim**-0.5`` in the compute dtype before the
-kernel.  In training mode (``module.training``, the JAX package's
-``deterministic=False``) a per-module ``attn_dropout`` rate goes to the
-kernel with one seed per call from the forward's :class:`SeedStream`.
+attention takes are strided views of that buffer: no transpose is copied.
+q is scaled by ``head_dim**-0.5`` in the compute dtype.
+
+``impl`` chooses the attention as the JAX package's ``attention_impl``
+does: ``"pallas"`` the flash kernels (``ops/flash_attention.py``), anything
+else :func:`dot_product_attention`, the plain einsum attention of the JAX
+package's XLA path, which takes any dtype and head dim.  Only the config
+chooses; the flash wrappers still raise for what the kernels do not take.
+
+In training mode (``module.training``, the JAX package's
+``deterministic=False``) a per-module ``attn_dropout`` rate draws one seed
+per call from the forward's :class:`SeedStream`: the flash kernels' fused
+dropout, or the hash dropout on the einsum path's probabilities.
 """
 
 from __future__ import annotations
@@ -18,9 +26,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from bpx_torch.ops.dropout import SeedStream
+from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.flash_attention import flash_attention
 from bpx_torch.ops.init import linear
+from bpx_torch.ops.masks import band_bias
 
 
 def fused_projection(x: torch.Tensor, layers: Sequence[nn.Linear],
@@ -48,6 +57,29 @@ def attention_dropout(rate: float, training: bool,
     return rate, seeds.next()
 
 
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          dropout_rate: float = 0.0, training: bool = False,
+                          seeds: Optional[SeedStream] = None,
+                          prescaled: bool = True) -> torch.Tensor:
+    """The einsum attention on (B, H, T, D) tensors (counterpart:
+    ``bpx/ops/attention.py::dot_product_attention``): fp32 scores, an
+    additive fp32 ``bias`` broadcast to (B, H, Tq, Tk), the softmax in fp32
+    cast to q's dtype, hash dropout on the probabilities in training, then
+    the product with V summed in fp32 and cast back.  With ``prescaled``
+    False the scores are divided by sqrt(head_dim) in fp32 instead, as the
+    JAX package's BERT does on this path."""
+    dt = q.dtype
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if not prescaled:
+        scores = scores / torch.tensor(float(q.shape[-1])).sqrt()
+    if bias is not None:
+        scores = scores + bias.float()
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    probs = maybe_dropout(probs, dropout_rate, training, seeds)
+    return torch.matmul(probs.float(), v.float()).to(dt)
+
+
 def merge_heads(ctx: torch.Tensor) -> torch.Tensor:
     """(B, H, T, D) -> (B, T, H*D); free on the flash kernel's output."""
     B, H, T, D = ctx.shape
@@ -61,11 +93,12 @@ class MultiheadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None, device=None,
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, impl: str = "xla"):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         self.attn_dropout = attn_dropout
+        self.impl = impl
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -96,9 +129,15 @@ class MultiheadAttention(nn.Module):
             (k,) = fused_projection(key, (self.k_proj,), H, dt)
             (v,) = fused_projection(value, (self.v_proj,), H, dt)
         q = q * torch.tensor(self.scaling, dtype=dt)
-        ctx = flash_attention(q, k, v, masked, None,
-                              *attention_dropout(self.attn_dropout,
-                                                 self.training, seeds))
+        if self.impl == "pallas":
+            ctx = flash_attention(q, k, v, masked, None,
+                                  *attention_dropout(self.attn_dropout,
+                                                     self.training, seeds))
+        else:
+            bias = (band_bias(q.shape[2], k.shape[2], q.device) if masked
+                    else None)
+            ctx = dot_product_attention(q, k, v, bias, self.attn_dropout,
+                                        self.training, seeds)
         return nn.functional.linear(merge_heads(ctx),
                                     self.out_proj.weight.to(dt),
                                     self.out_proj.bias.to(dt))

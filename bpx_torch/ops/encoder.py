@@ -12,8 +12,9 @@
 The stack scales inputs by ``sqrt(embed_dim)``, adds channel-0-keyed
 sinusoidal positions, applies embedding dropout, runs the layers (K/V
 embedded once and reused by every layer) and ends with a final LayerNorm.
-In training mode the layers apply attention dropout (in the flash kernel),
-residual dropout after each attention and after fc2, and ReLU dropout; with
+``attention_impl`` picks each attention's path (``ops/attention.py``).  In
+training mode the layers apply attention dropout, residual dropout after
+each attention and after fc2, and ReLU dropout; with
 embedding dropout, V is embedded separately from K with its own draw, so it
 no longer aliases K (one more LayerNorm per layer, three projections).
 """
@@ -39,14 +40,14 @@ class TransformerEncoderLayer(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None, device=None,
                  attn_dropout: float = 0.0, relu_dropout: float = 0.0,
-                 res_dropout: float = 0.0):
+                 res_dropout: float = 0.0, attention_impl: str = "xla"):
         super().__init__()
         self.attn_mask = attn_mask
         self.biprojection = biprojection
         self.relu_dropout = relu_dropout
         self.res_dropout = res_dropout
         self.attn = MultiheadAttention(embed_dim, num_heads, dtype, gen,
-                                       device, attn_dropout)
+                                       device, attn_dropout, attention_impl)
         self.ln0 = LayerNorm(embed_dim, dtype=dtype, device=device)
         self.ln1 = LayerNorm(embed_dim, dtype=dtype, device=device)
         if biprojection:
@@ -97,14 +98,16 @@ class TransformerEncoder(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None, device=None,
                  attn_dropout: float = 0.0, relu_dropout: float = 0.0,
-                 res_dropout: float = 0.0, embed_dropout: float = 0.0):
+                 res_dropout: float = 0.0, embed_dropout: float = 0.0,
+                 attention_impl: str = "xla"):
         super().__init__()
         self.embed_scale = math.sqrt(embed_dim)
         self.embed_dropout = embed_dropout
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(embed_dim, num_heads, attn_mask,
                                     biprojection, dtype, gen, device,
-                                    attn_dropout, relu_dropout, res_dropout)
+                                    attn_dropout, relu_dropout, res_dropout,
+                                    attention_impl)
             for _ in range(layers)])
         self.final_norm = LayerNorm(embed_dim, dtype=dtype, device=device)
 

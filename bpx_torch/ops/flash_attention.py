@@ -21,15 +21,18 @@ entries get P = 0, so a row with no visible key gets zero gradients
 although its forward attended uniformly: that is the JAX package's
 backward, not the true derivative.
 
-The kernels take head dims 25, 30, 64 and 96.  A narrow head (25, 30: the
-mmtrvat presets' 300-wide streams over 12 or 10 heads) runs the same
+The kernels take head dims 25, 30, 64, 96 and 128.  A narrow head (25, 30:
+the mmtrvat presets' 300-wide streams over 12 or 10 heads) runs the same
 kernels at 32 columns with the padding zeroed in shared memory: nothing is
 padded in device memory, and the strided (B, H, T, D) views of a fused
-projection go to the kernels without a copy.
+projection go to the kernels without a copy.  At 128 (mmimdb: 768 over 6
+heads) two blocks share each key tile of the dK/dV kernel, one for each half
+of the columns (``csrc/flash_bwd.cu``).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -40,11 +43,12 @@ from bpx_torch.ops.dropout import keep_threshold, mul32
 from bpx_torch.ops.masks import band_allowed
 
 MASK_FILL = -1e30
-#: head dims the kernels are instantiated for, each with the alignment (in
-#: elements) its rows need: 16-byte chunks at 64 and 96, 4-byte cp.async
-#: words at 30, and at 25 (the mmtrvat presets' 300 / 12 heads, whose rows
-#: start at any even byte of a fused projection) plain 2-byte loads
-KERNEL_ALIGN = {25: 1, 30: 2, 64: 8, 96: 8}
+#: head dims the kernels are instantiated for (``with_head_dim`` in
+#: ``csrc/flash_common.cuh``), each with the alignment (in elements) its rows
+#: need: 16-byte chunks at 64, 96 and 128, 4-byte cp.async words at 30, and
+#: at 25 (the mmtrvat presets' 300 / 12 heads, whose rows start at any even
+#: byte of a fused projection) plain 2-byte loads
+KERNEL_ALIGN = {25: 1, 30: 2, 64: 8, 96: 8, 128: 8}
 KERNEL_HEAD_DIMS = tuple(KERNEL_ALIGN)
 #: the TPU kernels' single-pass key range and key block (``tk_p`` below)
 SINGLE_PASS_MAX_K = 1024
@@ -210,8 +214,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The kernels for CUDA tensors, the plain versions for CPU tensors, in
     the forward and (through autograd) in the backward.  The kernels take
-    bf16 with head_dim 25, 30, 64 or 96 and any strides whose last dim is
-    contiguous; the output is a (B, H, Tq, D) view of (B, Tq, H, D) memory,
+    bf16 with head_dim 25, 30, 64, 96 or 128 and any strides whose last dim
+    is contiguous; the output is a (B, H, Tq, D) view of (B, Tq, H, D) memory,
     so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
     ``dropout_rate > 0`` needs ``dropout_seed``, a uint32 Python int.
     """
@@ -267,6 +271,25 @@ def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     _cuda.check(err, "flash_delta")
     attention_delta.launches += 1
     return delta
+
+
+def blocks_per_sm(head_dim: int) -> dict:
+    """Blocks of the forward, dK/dV and dQ kernels at ``head_dim`` that
+    one SM of the current card holds (CUDA's occupancy calculator)."""
+    _check_head_dim(head_dim)
+    lib = _cuda.library()
+    got = {}
+    for name, call in (
+            ("forward", lambda n: lib.bpx_flash_fwd_blocks_per_sm(
+                head_dim, n)),
+            ("dK/dV", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
+                head_dim, 0, n)),
+            ("dQ", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
+                head_dim, 1, n))):
+        n = ctypes.c_int(0)
+        _cuda.check(call(ctypes.byref(n)), f"{name} occupancy")
+        got[name] = n.value
+    return got
 
 
 def _check_head_dim(D):

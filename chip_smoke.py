@@ -77,7 +77,27 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    forward's classes recorded, one request against the plain path and one
    train step, with exact counters; the forward, the backward and the
    delta kernel at its head_dim-30 classes (rate 0 and 0.1) against their
-   plain versions, and the long shape at head_dim 30.
+   plain versions, and the long shape at head_dim 30;
+10. the ``mmimdb`` preset's ``mmtrvapt`` at full width and depth (hidden
+   768 over 6 heads, so head_dim 128; T = 512 on every stream; the audio
+   stream raw and 1 wide, no audio encoder): phases 2-7 on its own path,
+   with its own limits, which both planted faults must cross; the served
+   forward's 84 flash launches (72 at head_dim 128, 12 at 64) and 181
+   LayerNorm launches, no tensor copied by the flash wrappers; training:
+   one micro-step against the plain path, the head_dim-128 kernels with
+   dropout at its classes, the exact dropout mask at (8, 6, 512, 512,
+   128), 3 train steps (168 / 72 / 168 / 458 / 458 launches per step) with
+   the peak memory;
+11. the ``counseling`` and ``cmu-mosi`` presets (``mmtrvat`` at 5 layers,
+   head_dim 30; counseling's video and audio unprojected, cmu-mosi's one
+   output with the L1 loss): one request against the plain path and one
+   train step each, with exact counters;
+12. the ``synthetic-tiny`` preset (fp32, head_dim 16, ``attention_impl``
+   "xla"): one request and one train step through the einsum attention,
+   with no flash launch and exact LayerNorm counters.
+
+The build phase prints ptxas' registers and spills of every kernel and, per
+head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, and
@@ -179,10 +199,14 @@ MOVIESCOPE = ModelPath("moviescope", FLASH_PER_FORWARD, LN_PER_FORWARD,
 # encoder layer (V embedded apart from K); dropout in BERT's 12 attentions
 # and in the 4 encoders keyed by l (attn_dropout 0.1: trans_v_with_l,
 # trans_a_with_l, trans_v_with_a2l, trans_a_with_v2l), 8 layers each
-VAT_FLASH = 12 + 12 * 8
-VAT_LN = 1 + 2 * 12 + 12 * (8 * 3 + 1)
-VAT_LN_TRAIN = VAT_LN + 12 * 8
-VAT_DROPOUT = 12 + 4 * 8
+def vat_counts(layers: int):
+    """(flash, LayerNorm, LayerNorm in training, flash with dropout) per
+    forward of an mmtrvat with ``layers`` per encoder, as above."""
+    ln = 1 + 2 * 12 + 12 * (layers * 3 + 1)
+    return 12 + 12 * layers, ln, ln + 12 * layers, 12 + 4 * layers
+
+
+VAT_FLASH, VAT_LN, VAT_LN_TRAIN, VAT_DROPOUT = vat_counts(8)
 # kernels vs plain versions through the whole bf16 iemocap forward (12 BERT
 # layers, two rounds of 8-layer encoders, every encoder attention causal
 # 512 x 512).  On an H100 (700 W) the sound kernels read probs 0.0159 /
@@ -205,6 +229,37 @@ IEMOCAP = ModelPath("iemocap", VAT_FLASH, VAT_LN, VAT_LN_TRAIN,
 IEMOCAP_MAG = dataclasses.replace(IEMOCAP, ln=VAT_LN + 1,
                                   ln_train=VAT_LN_TRAIN + 1, fusion="mag")
 CMU_MOSEI = dataclasses.replace(IEMOCAP, preset="cmu-mosei")
+# counseling and cmu-mosi: the same mmtrvat at 5 layers (72 flash, 217 and
+# 277 LayerNorm, 32 with dropout per forward), held to iemocap's limits
+COUNSELING = dataclasses.replace(IEMOCAP, preset="counseling",
+                                 **dict(zip(("flash", "ln", "ln_train",
+                                             "dropout"), vat_counts(5))))
+CMU_MOSI = dataclasses.replace(COUNSELING, preset="cmu-mosi")
+# mmimdb: moviescope's structure (BERT's 12 attentions at head_dim 64, 12
+# encoders x 4 layers, the second round biprojection; the same dropout
+# table), so the same counts per forward: 84 flash (72 at head_dim 128),
+# 181 LayerNorm, 229 in training, 36 flash with dropout (24 at 128).
+# Kernels vs plain versions through the whole bf16 mmimdb forward: on an
+# H100 (700 W) the sound kernels read probs 0.0152 / gates 0.0176, a flash
+# kernel without its band 0.246 / 0.215, one without kv_lens 0.474 / 0.69;
+# the micro-step's gradients: sound worst group 0.143 (trans_l_with_a2v), a
+# backward without its dropout mask 2.05, one without its band non-finite.
+# The limits sit at about the geometric mean of the sound and the nearer
+# faulty reading: probs 0.06 (3.9x over, 4.1x under), gates 0.06 (3.4x,
+# 3.6x), gradients 0.5 (3.5x, 4.1x)
+MMIMDB_PROBS_TOL = 6e-2
+MMIMDB_GATES_TOL = 6e-2
+MMIMDB_GRAD_TOL = 0.5
+MMIMDB = dataclasses.replace(MOVIESCOPE, preset="mmimdb",
+                             probs_tol=MMIMDB_PROBS_TOL,
+                             gates_tol=MMIMDB_GATES_TOL,
+                             grad_tol=MMIMDB_GRAD_TOL)
+# synthetic-tiny: the einsum attention (attention_impl "xla"), so no flash
+# launch; LayerNorm: BERT's 1 + 2 x 2, and 12 encoders x (2 x 3 + 1);
+# training adds one per encoder layer
+SYNTHETIC_TINY = dataclasses.replace(
+    MOVIESCOPE, preset="synthetic-tiny", flash=0, ln=1 + 2 * 2 + 12 * 7,
+    ln_train=1 + 2 * 2 + 12 * 7 + 12 * 2, dropout=0)
 
 
 def fail(msg: str) -> None:
@@ -383,6 +438,10 @@ def phase_build():
             spill = line.strip()
         elif "registers" in line:
             print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}")
+    from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
+    for d in KERNEL_HEAD_DIMS:
+        print(f"[build] blocks per SM at head_dim {d} (occupancy "
+              f"calculator): {blocks_per_sm(d)}")
 
 
 def kernel_name(mangled: str) -> str:
@@ -993,7 +1052,7 @@ def synthetic_batch(exp, n: int, seed: int):
     rng = np.random.RandomState(seed)
     m, d = exp.model, exp.data
     T = m.num_vectors_l
-    lens = rng.randint(64, T + 1, size=n)
+    lens = rng.randint(min(64, T), T + 1, size=n)
     lens[0] = T
     mask = np.arange(T)[None, :] < lens[:, None]
     txt = rng.randint(1, m.bert.vocab_size, size=(n, T)) * mask
@@ -1033,10 +1092,11 @@ def gates_dim(m) -> int:
     return (4 if m.model == "mmtrvapt" else 3) * m.hidden_sz
 
 
-def record_forward(path: ModelPath, pred, batch, narrow=None):
+def record_forward(path: ModelPath, pred, batch, head_dim=None):
     """Serve ``batch`` once (the warm-up request: cuBLAS/cuDNN set-up),
-    recording every launch; the counts must be the structure's, and at a
-    narrow head dim the flash wrappers must have copied nothing."""
+    recording every launch; the counts must be the structure's, the
+    encoders' attentions at ``head_dim`` (BERT's 12 at 64), and the flash
+    wrappers must have copied nothing."""
     flash_cls, ln_cls, copies = launch_classes(pred, batch)
     n_flash, n_ln = sum(flash_cls.values()), sum(ln_cls.values())
     by_dim = collections.Counter()
@@ -1050,12 +1110,12 @@ def record_forward(path: ModelPath, pred, batch, narrow=None):
     check(n_flash == path.flash and n_ln == path.ln,
           f"the recorded {path.preset} forward's launches differ from the "
           f"structure's")
-    if narrow is not None:
-        check(by_dim == {narrow: path.flash - 12, 64: 12},
+    if head_dim is not None:
+        check(by_dim == {head_dim: path.flash - 12, 64: 12},
               f"{path.preset}: flash launches by head_dim {dict(by_dim)}")
-        check(copies[narrow] == 0,
-              f"{path.preset}: the flash wrappers copied {copies[narrow]} "
-              f"head_dim-{narrow} tensors")
+    check(not sum(copies.values()),
+          f"{path.preset}: the flash wrappers copied tensors, by head_dim "
+          f"{dict(copies)}")
     return flash_cls, ln_cls
 
 
@@ -1184,11 +1244,15 @@ def profile_forward(torch, pred, batch):
 
 def train_batch(torch, np, exp, seed: int, label_p):
     """A numpy-seeded (A, micro, ...) super-batch on the card, with
-    multilabel targets drawn at the synthetic label frequencies."""
+    multilabel targets drawn at the synthetic label frequencies, or (no
+    ``label_p``: cmu-mosi) one real-valued target per sample."""
     b = synthetic_batch(exp, TRAIN_A * BATCH, seed)
     rng = np.random.RandomState(seed + 1)
-    b["target"] = (rng.rand(TRAIN_A * BATCH, len(label_p))
-                   < label_p).astype(np.float32)
+    if label_p is None:
+        b["target"] = rng.uniform(-3, 3, TRAIN_A * BATCH).astype(np.float32)
+    else:
+        b["target"] = (rng.rand(TRAIN_A * BATCH, len(label_p))
+                       < label_p).astype(np.float32)
     return {k: torch.from_numpy(v.reshape(TRAIN_A, BATCH, *v.shape[1:]))
             .to("cuda") for k, v in b.items()}
 
@@ -1196,8 +1260,8 @@ def train_batch(torch, np, exp, seed: int, label_p):
 def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
                   steps: int = TRAIN_STEPS):
     """The path's model at full width and depth in training mode, Adam at
-    LR, BCE with pos_weight from synthetic label frequencies (every preset
-    driven here is a multilabel task), and the accumulation step at A =
+    LR, BCE with pos_weight from synthetic label frequencies (cmu-mosi: its
+    L1 loss on real-valued targets), and the accumulation step at A =
     TRAIN_A."""
     from bpx_torch.models import get_model
     from bpx_torch.train.losses import make_loss_fn
@@ -1205,25 +1269,28 @@ def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
     from bpx_torch.train.steps import make_train_step
     exp = experiment(path)
     m = exp.model
-    check(exp.data.task_type == "multilabel", f"{path.preset} is not "
-          f"multilabel")
+    regression = exp.data.task == "cmu-mosi"
+    check(regression or exp.data.task_type == "multilabel",
+          f"{path.preset} is neither multilabel nor cmu-mosi")
     t0 = time.time()
     model = get_model(m, device="cuda", seed=0).train()
     rng = np.random.RandomState(7)
     n_train = 1000
     freqs = rng.randint(30, 400, size=m.n_classes)
-    loss_fn = make_loss_fn(exp.data.task, "multilabel", True,
+    loss_fn = make_loss_fn(exp.data.task, exp.data.task_type, True,
                            freqs.tolist(), n_train, device="cuda")
     opt = make_optimizer(model.parameters(), LR)
     step = make_train_step(model, m.model, loss_fn, opt,
                            grad_accum=TRAIN_A,
                            generator=torch.Generator().manual_seed(0))
-    batches = [train_batch(torch, np, exp, 300 + i, freqs / n_train)
+    batches = [train_batch(torch, np, exp, 300 + i,
+                           None if regression else freqs / n_train)
                for i in range(steps)]
     torch.cuda.synchronize()
-    print(f"[train {path.preset}] {m.model}, Adam lr {LR}, BCE with "
-          f"pos_weight, micro-batch {BATCH} x A={TRAIN_A}, "
-          f"{m.compute_dtype}; built in {time.time() - t0:.1f} s")
+    print(f"[train {path.preset}] {m.model}, Adam lr {LR}, "
+          f"{'L1' if regression else 'BCE with pos_weight'}, micro-batch "
+          f"{BATCH} x A={TRAIN_A}, {m.compute_dtype}, attention_impl "
+          f"{m.attention_impl}; built in {time.time() - t0:.1f} s")
     return model, loss_fn, step, batches
 
 
@@ -1349,8 +1416,8 @@ def phase_micro_step(torch, model, loss_fn, batches,
           f"layer_norm backward {n['ln_bwd']}, hash dropout {n['dropout']}; "
           f"tensors the flash wrappers copied, by head_dim: "
           f"{dict(seen['copies'])}")
-    check(all(seen["copies"][d] == 0 for d in (25, 30)),
-          "the flash wrappers copied a narrow head's tensors")
+    check(not sum(seen["copies"].values()),
+          "the flash wrappers copied tensors before a launch")
     check(n["flash"] == path.flash and n["flash_bwd"] == path.flash
           and n["ln"] == path.ln_train and n["ln_bwd"] == path.ln_train,
           "the recorded micro-step's launches differ from the structure's")
@@ -1419,7 +1486,7 @@ def check_grads(torch, model):
     check(not bad, f"non-finite gradients: {bad[:5]}")
     names = ["bert.word_embeddings.weight", "bert.embeddings_norm.weight",
              "bert.embeddings_norm.bias"]
-    for i in (0, 11):
+    for i in (0, len(model.bert.layers) - 1):
         names += [f"bert.layers.{i}.attention.{m}.weight"
                   for m in ("query", "key", "value")]
         names += [f"bert.layers.{i}.attention_norm.weight",
@@ -1622,6 +1689,63 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[time] cmu-mosei phases {time.time() - t0:.1f} s")
 
+    # mmimdb (mmtrvapt, head_dim 128): serving, training
+    t0 = time.time()
+    pred, reqs = phase_predictor(torch, MMIMDB)
+    m_flash_cls, m_ln_cls = record_forward(MMIMDB, pred, reqs[0], 128)
+    m_flash_rows = phase_flash(torch, timer, m_flash_cls, gen,
+                               label="flash mmimdb")
+    m_ln_rows = phase_layer_norm(torch, timer, m_ln_cls, gen,
+                                 scalar_path=False)
+    m_served = phase_serve(torch, np, pred, reqs, args.profile, MMIMDB)
+    del pred
+    torch.cuda.empty_cache()
+    model, loss_fn, step, batches = phase_trainer(torch, np, MMIMDB)
+    m_seen, m_micro = phase_micro_step(torch, model, loss_fn, batches,
+                                       MMIMDB)
+    m_drop_rows = phase_flash(
+        torch, timer, {k: c for k, c in m_seen["flash"].items() if k[-1] > 0},
+        gen, label="flash_dropout mmimdb")
+    m_bwd_rows = phase_flash_bwd(torch, timer, m_seen["flash_bwd"], gen,
+                                 label="flash_bwd mmimdb")
+    m_ln_bwd_rows = phase_layer_norm_bwd(torch, timer, m_seen["ln_bwd"], gen,
+                                         scalar_path=False)
+    phase_mask_check(torch, gen, BATCH, 6, 512, 128)
+    m_trained = phase_train(torch, model, step, batches, args.profile,
+                            MMIMDB)
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+    print(f"[time] mmimdb phases {time.time() - t0:.1f} s")
+
+    # counseling and cmu-mosi (head_dim 30, 5 layers): one request and one
+    # train step each; synthetic-tiny on the einsum attention likewise
+    t0 = time.time()
+    small = {}
+    for path, head_dim in ((COUNSELING, 30), (CMU_MOSI, 30),
+                           (SYNTHETIC_TINY, None)):
+        pred, reqs = phase_predictor(torch, path, requests=1)
+        record_forward(path, pred, reqs[0], head_dim)
+        served_p = phase_serve(torch, np, pred, reqs, False, path,
+                               faults=False)
+        del pred
+        model, loss_fn, step, batches = phase_trainer(torch, np, path,
+                                                      steps=1)
+        trained_p = phase_train(torch, model, step, batches, False, path)
+        del model, loss_fn, step, batches
+        torch.cuda.empty_cache()
+        small[path.preset] = (served_p, trained_p)
+    t_served, t_trained = small["synthetic-tiny"]
+    print(f"[synthetic-tiny] einsum attention: flash launches served "
+          f"{t_served['flash_launches']}, trained "
+          f"{t_trained['totals']['flash']} forward / "
+          f"{t_trained['totals']['flash_bwd']} backward: no flash launch")
+    check(t_served["flash_launches"] == 0
+          and t_trained["totals"]["flash"] == 0
+          and t_trained["totals"]["flash_bwd"] == 0,
+          "synthetic-tiny launched a flash kernel")
+    print(f"[time] counseling, cmu-mosi, synthetic-tiny phases "
+          f"{time.time() - t0:.1f} s")
+
     steps = TRAIN_STEPS * TRAIN_A
     fwd_src = "bpx_torch/csrc/flash_fwd.cu"
     bwd_src = "bpx_torch/csrc/flash_bwd.cu"
@@ -1666,6 +1790,18 @@ def main() -> None:
         dict(summarise("flash_bwd_cmu_mosei", bwd_src, bwd_tpu, c_bwd_rows,
                        c_trained["totals"]["flash_bwd"], TRAIN_A,
                        "micro_step"), long_shape=c_long_rows),
+        # mmimdb: head_dim 128 (and BERT's 64)
+        summarise("flash_fwd_mmimdb", fwd_src, fwd_tpu, m_flash_rows,
+                  m_served["flash_launches"], REQUESTS, "forward"),
+        summarise("flash_fwd_dropout_mmimdb", fwd_src, drop_tpu, m_drop_rows,
+                  m_trained["totals"]["dropout"], steps, "micro_step"),
+        summarise("flash_bwd_mmimdb", bwd_src, bwd_tpu, m_bwd_rows,
+                  m_trained["totals"]["flash_bwd"], steps, "micro_step"),
+        summarise("layer_norm_fwd_mmimdb", ln_src, "bpx/ops/norm.py:53",
+                  m_ln_rows, m_served["ln_launches"], REQUESTS, "forward"),
+        summarise("layer_norm_bwd_mmimdb", ln_bwd_src, "bpx/ops/norm.py:69",
+                  m_ln_bwd_rows, m_trained["totals"]["ln_bwd"], steps,
+                  "micro_step"),
     ]
     print(f"[summary] moviescope: served median request "
           f"{served['median_ms']:.2f} ms; train step median "
@@ -1685,6 +1821,17 @@ def main() -> None:
           f"{i_micro['grad_err']:.3g}; cmu-mosei: request "
           f"{c_served['median_ms']:.2f} ms, train step "
           f"{c_trained['median_ms']:.1f} ms; card: {card}")
+    print(f"[summary] mmimdb: served median request "
+          f"{m_served['median_ms']:.2f} ms; train step median "
+          f"{m_trained['median_ms']:.1f} ms "
+          f"({TRAIN_A * BATCH / m_trained['median_ms'] * 1e3:.2f} "
+          f"samples/s, peak {m_trained['peak_gib']:.2f} GiB); micro-step "
+          f"kernels vs plain: loss {m_micro['loss_err']:.3g}, gradients "
+          f"{m_micro['grad_err']:.3g}; "
+          + "; ".join(f"{p}: request {sv['median_ms']:.2f} ms, train step "
+                      f"{tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} "
+                      f"GiB" for p, (sv, tr) in small.items())
+          + f"; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ single rows, widths without vector loads, fp32 input and output, a long
 multi-tile shape) and at the model's own attention classes, forward and
 backward, with and without dropout; the narrow heads (head_dim 25 and 30)
 at tile edges, on fused-projection views the wrapper must not copy, on a
-view that ends its allocation, and their exact dropout masks; the
-backward's delta kernel alone; the
+view that ends its allocation, and their exact dropout masks; head_dim 128
+(mmimdb) at tile edges, its model class, its fused views and its exact
+masks; the backward's delta kernel alone; synthetic-tiny served and trained
+through the einsum attention with no flash launch; the
 LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
 the backward's phase stamps in a build with ``-DBPX_LN_TRACE``.
@@ -56,6 +58,9 @@ def _qkv(gen, B, H, Tq, Tk, D):
     (3, 2, 64, 64, 64, False, (64, 0, 5)),  # an empty key range: uniform
     (1, 2, 1, 1, 96, True, None),           # single row and key
     (2, 2, 300, 300, 96, True, (300, 129)),  # band + key padding
+    (2, 3, 77, 130, 128, True, None),       # head_dim 128: ragged tiles
+    (3, 2, 64, 64, 128, False, (64, 0, 5)),  # an empty key range
+    (2, 2, 300, 100, 128, True, None),      # band dropped
 ])
 def test_flash_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked, lens):
     q, k, v = _qkv(gen, B, H, Tq, Tk, D)
@@ -148,6 +153,10 @@ def _close_grad(got, want):
     (2, 2, 300, 300, 96, True, (300, 129), 0.1),  # band + key padding
     (1, 2, 640, 1280, 64, True, None, 0.1),     # long: tk_p = Tk
     (2, 2, 200, 1100, 64, True, (1100, 700), 0.1),  # long: tk_p = 1152
+    (2, 3, 77, 130, 128, True, None, 0.1),      # head_dim 128: ragged
+    (3, 2, 64, 64, 128, False, (64, 0, 5), 0.1),  # kv_len 0: zero grads
+    (2, 1, 129, 65, 128, False, (65, 1), 0.0),  # one visible key
+    (1, 2, 640, 1280, 128, True, None, 0.1),    # long, two column blocks
 ])
 def test_flash_backward_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked,
                                              lens, rate):
@@ -191,6 +200,7 @@ def test_flash_backward_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked,
     (8, 12, 512, 512, 64, False, True),    # BERT: kv_lens
     (8, 12, 512, 512, 25, True, False),    # iemocap: causal, head_dim 25
     (8, 10, 512, 512, 30, True, False),    # cmu-mosei: causal, head_dim 30
+    (8, 6, 512, 512, 128, True, False),    # mmimdb: causal, head_dim 128
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_kernels_at_the_model_classes(gen, B, H, Tq, Tk, D, masked,
@@ -232,7 +242,8 @@ def test_flash_kernels_at_the_model_classes(gen, B, H, Tq, Tk, D, masked,
 @pytest.mark.parametrize("B,H,T,D", [(8, 8, 200, 96), (8, 12, 512, 64),
                                      (2, 3, 77, 96), (1, 1, 1, 64),
                                      (8, 12, 512, 25), (8, 10, 512, 30),
-                                     (2, 3, 77, 25), (1, 1, 1, 30)])
+                                     (2, 3, 77, 25), (1, 1, 1, 30),
+                                     (8, 6, 512, 128), (2, 3, 77, 128)])
 def test_flash_delta_kernel_matches_plain(gen, B, H, T, D):
     """The backward's first kernel alone: fp32 rowsum(dO * O) of strided
     bf16 views, against the plain sum (another order: 1e-4)."""
@@ -332,12 +343,12 @@ def test_narrow_flash_kernels_match_plain(gen, D, Tq, Tk, masked, padded,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("D,H", [(25, 12), (30, 10)])
+@pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (128, 6)])
 def test_narrow_fused_views_are_not_copied(gen, D, H):
     """The (B, H, T, D) views of a fused (B, T, 3, H, D) projection go to
     the kernels as they are (the wrapper copies nothing: T-stride 3 H D,
     H-stride D, odd at D = 25), and give what contiguous copies give, bit
-    for bit, forward and backward."""
+    for bit, forward and backward; the narrow heads and mmimdb's 128."""
     from bpx_torch.ops.flash_attention import _kernel_ready
     B, T = 2, 200
     buf = torch.randn(B, T, 3, H, D, generator=gen, device="cuda").to(
@@ -399,7 +410,7 @@ def test_narrow_view_ending_its_allocation(gen, D):
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("D", [25, 30, 64, 96])
+@pytest.mark.parametrize("D", [25, 30, 64, 96, 128])
 def test_misaligned_contiguous_inputs_are_copied(gen, D):
     """A contiguous view that starts one element into its buffer (at D =
     30, 64, 96 its rows are not aligned for the kernels' copies) is copied
@@ -459,6 +470,83 @@ def test_narrow_dropout_mask_is_exact(gen, D):
     keep = keep_mask(seed, B, H, T, T, rate, "cuda")
     assert torch.equal(fwd, keep)
     assert torch.equal(bwd, keep)
+
+
+def test_dropout_mask_is_exact_at_head_dim_128(gen):
+    """The forward and backward kernels' dropout masks at head_dim 128
+    (two column blocks in the dK/dV kernel), every bit of a 128 x 128
+    score matrix (two tiles each way), against the plain version's."""
+    B, H, T, rate, seed = 2, 3, 128, 0.1, 0xABCDEF
+    fwd, bwd = narrow_mask_bits(B, H, T, 128, rate, seed)
+    keep = keep_mask(seed, B, H, T, T, rate, "cuda")
+    assert torch.equal(fwd, keep)
+    assert torch.equal(bwd, keep)
+
+
+def test_kernels_fit_the_sm(gen):
+    """Every head dim's forward, dK/dV and dQ kernels fit at least one
+    block per SM (their shared memory and registers), by the occupancy
+    calculator; an untabled head dim raises."""
+    from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
+    for d in KERNEL_HEAD_DIMS:
+        assert min(blocks_per_sm(d).values()) >= 1
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        blocks_per_sm(48)
+
+
+def test_synthetic_tiny_serves_and_trains_on_the_einsum_path(gen):
+    """synthetic-tiny (fp32, head_dim 16, attention_impl "xla") is served
+    and trained on the card through the einsum attention: no flash launch,
+    finite outputs, the LayerNorm kernels launched; its served outputs
+    match the plain path's."""
+    import numpy as np
+    from bpx_torch.config import get_preset
+    from bpx_torch.models import get_model
+    from bpx_torch.serve import Predictor
+    from bpx_torch.train.losses import make_loss_fn
+    from bpx_torch.train.optim import make_optimizer
+    from bpx_torch.train.steps import make_train_step
+    exp = get_preset("synthetic-tiny")
+    m, d = exp.model, exp.data
+    rng = np.random.RandomState(0)
+    n = 4
+    mask = (np.arange(m.num_vectors_l)[None, :]
+            < np.array([32, 20, 5, 32])[:, None]).astype(np.int32)
+    batch = {
+        "txt": rng.randint(1, m.bert.vocab_size, (n, m.num_vectors_l))
+        .astype(np.int32) * mask,
+        "mask": mask,
+        "segment": np.zeros((n, m.num_vectors_l), np.int32),
+        "video": rng.rand(n, d.video_len, m.orig_d_v).astype(np.float32),
+        "audio": rng.rand(n, d.audio_raw_len, m.orig_d_a).astype(np.float32),
+        "poster": rng.rand(n, m.orig_d_p).astype(np.float32),
+    }
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    ln = layer_norm.launches
+    pred = Predictor(exp, batch_size=n, device="cuda")
+    probs = pred(batch)
+    assert probs.shape == (n, m.n_classes) and np.isfinite(probs).all()
+    assert layer_norm.launches > ln
+    with plain_versions():
+        plain = pred(batch)
+    np.testing.assert_allclose(probs, plain, atol=1e-5, rtol=1e-5)
+
+    model = get_model(m, device="cuda", seed=1).train()
+    step = make_train_step(model, m.model,
+                           make_loss_fn("synthetic", "multilabel", False),
+                           make_optimizer(model.parameters(), 1e-3),
+                           grad_accum=2,
+                           generator=torch.Generator().manual_seed(0))
+    tb = {k: torch.from_numpy(v).to("cuda").reshape(2, n // 2, *v.shape[1:])
+          for k, v in batch.items()}
+    tb["target"] = (torch.rand(2, n // 2, m.n_classes, generator=gen,
+                               device="cuda") > 0.5).float()
+    loss = step(tb)["loss"].item()
+    assert np.isfinite(loss)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    assert flash_attention.launches == fwd
+    assert flash_attention_backward.launches == bwd
 
 
 def test_flash_autograd_launches_both_kernels(gen):

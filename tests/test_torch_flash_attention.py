@@ -4,7 +4,7 @@ with dropout the forward and its ``jax.vjp`` (the fused single-pass
 backward at the model's shapes; the online forward and the split dQ / dK-dV
 backward at a long multi-tile shape; lengths and band offsets at the edges
 of the CUDA kernels' 64-row tiles; both of bpx's delta paths; the narrow
-head dims 25 and 30 of the mmtrvat presets).
+head dims 25 and 30 of the mmtrvat presets, and mmimdb's 128).
 
 Inputs are made with numpy from a seed; fp32, atol/rtol 2e-5 (the same
 function, sums in another order).  The dropout seeds are the same uint32 on
@@ -193,6 +193,31 @@ def test_narrow_head_dims_match_pallas(D, B, H, Tq, Tk, masked, lens, rate):
     got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0xBADC0DE)
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", [
+    (1, 2, 512, 512, True, None, 0.0),          # the mmimdb class: causal
+    (1, 2, 512, 512, True, None, 0.1),          # with attention dropout
+    (2, 1, 63, 65, True, (65, 30), 0.1),        # band offset 2, kv_lens
+    (2, 1, 129, 200, True, (200, 130), 0.1),    # offset 71, kv_lens
+    (2, 1, 129, 65, False, (65, 1), 0.0),       # one visible key
+])
+def test_head_dim_128_matches_pallas(B, H, Tq, Tk, masked, lens, rate):
+    """head_dim 128 (mmimdb: 768 / 6), the kernels' widest: the forward
+    and backward against bpx at the model's 512 x 512 causal class, rate 0
+    and 0.1, and at tile edges with kv_lens.  The absolute tolerance is
+    2e-5 of each tensor's largest entry (at least 2e-5): with a single
+    visible key dP - delta cancels, dK's true value is 0, and both sides
+    hold fp32 noise that grows with the 128-term sums."""
+    q, k, v = _inputs(B, H, Tq, Tk, 128, seed=14)
+    dout = np.random.RandomState(15).randn(B, H, Tq, 128).astype(np.float32)
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0x600DCAFE)
+    got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0x600DCAFE)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        atol = TOL["atol"] * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=TOL["rtol"], atol=atol,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("xla_delta", ["0", "1"])

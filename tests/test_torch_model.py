@@ -150,7 +150,8 @@ def test_transformer_encoder_matches_bpx(biprojection):
     want = jenc.apply({"params": params}, xj, xkj, xkj)
 
     enc = TransformerEncoder(E, H, 2, attn_mask=True,
-                             biprojection=biprojection)
+                             biprojection=biprojection,
+                             attention_impl="pallas")
     enc.load_state_dict(flax_to_state_dict(_np_tree(params)), strict=True)
     xkt = _t(xk)
     with torch.no_grad():
@@ -176,7 +177,8 @@ def test_bert_encoder_matches_bpx(scan):
 
     from bpx_torch.config import BertConfig
     # eval mode: the JAX module's default deterministic=True
-    bert = BertEncoder(BertConfig(**dataclasses.asdict(cfg))).eval()
+    bert = BertEncoder(BertConfig(**dataclasses.asdict(cfg)),
+                       attention_impl="pallas").eval()
     bert.load_state_dict(flax_to_state_dict(_np_tree(params)), strict=True)
     with torch.no_grad():
         got = bert(_t(ids), _t(mask), _t(seg))

@@ -136,11 +136,14 @@ def _no_dropout(jexp):
                                  attention_dropout=0.0)))
 
 
-def _super_batch(jexp, seed):
-    """(A, micro, ...) numpy super-batch with multilabel targets."""
+def _super_batch(jexp, seed, regression=False):
+    """(A, micro, ...) numpy super-batch with multilabel targets, or with
+    one real-valued target per sample (``regression``)."""
     b = _batch(jexp, A * MICRO, seed=seed)
-    b["target"] = (np.random.RandomState(seed + 100).rand(
-        A * MICRO, jexp.model.n_classes) > 0.6).astype(np.float32)
+    rng = np.random.RandomState(seed + 100)
+    b["target"] = (rng.randn(A * MICRO).astype(np.float32) if regression
+                   else (rng.rand(A * MICRO, jexp.model.n_classes)
+                         > 0.6).astype(np.float32))
     return {k: v.reshape(A, MICRO, *v.shape[1:]) for k, v in b.items()}
 
 
@@ -157,19 +160,22 @@ def test_mmtrvat_train_step_lockstep_with_bpx():
     _lockstep(_no_dropout(jexp), [5, 2, 9, 1, 4, 3, 6, 2])
 
 
-def _lockstep(jexp, freqs):
+def _lockstep(jexp, freqs, task="synthetic", task_type="multilabel",
+              batch_seeds=(0, 1, 2)):
     """Three accumulation steps of bpx and the port from the same weights
-    and batches: step-1 gradients, the grad norm and the loss trajectory."""
+    and batches (one super-batch per seed of ``batch_seeds``): step-1
+    gradients, the grad norm and the loss trajectory."""
     name = jexp.model.model
     exp = config_from_dict(dataclasses.asdict(jexp))
-    batches = [_super_batch(jexp, s) for s in range(3)]
+    regression = task == "cmu-mosi"
+    batches = [_super_batch(jexp, s, regression) for s in batch_seeds]
     jmodel = jget_model(jexp.model)
     first = {k: jnp.asarray(v[0]) for k, v in batches[0].items()}
     params = jmodel.init({"params": jax.random.PRNGKey(0)},
                          *jmodel_inputs(name, first))["params"]
 
     # bpx: the real loss, optimizer and jitted accumulation step
-    jloss = jlosses.make_loss_fn("synthetic", "multilabel", True, freqs, 10)
+    jloss = jlosses.make_loss_fn(task, task_type, True, freqs, 10)
     tx = joptim.make_optimizer(LR)
     jstep = jax.jit(jmake_train_step(jmodel, name, jloss, tx,
                                      grad_accum=A))
@@ -195,8 +201,8 @@ def _lockstep(jexp, freqs):
         jax.tree.map(np.asarray, params), exp.model))
     opt = optim.make_optimizer(model.parameters(), LR)
     step = make_train_step(model, name,
-                           losses.make_loss_fn("synthetic", "multilabel",
-                                               True, freqs, 10),
+                           losses.make_loss_fn(task, task_type, True, freqs,
+                                               10),
                            opt, grad_accum=A, with_grad_norm=True)
     tlosses = []
     for i, b in enumerate(batches):
