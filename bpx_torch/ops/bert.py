@@ -11,12 +11,21 @@ divided by sqrt(head_dim) in fp32.  In training mode: attention dropout (in
 the flash kernel, or on the einsum path's probabilities), and hidden
 dropout after the embedding LN and on the attention and FFN outputs before
 their residual LNs.
+
+:func:`load_hf_bert_params` and :func:`maybe_load_pretrained` carry a local
+Hugging Face checkpoint (BERT or DistilBERT layout; ``pytorch_model.bin`` or
+``model.safetensors``) into the encoder's state dict.  No weights are
+downloaded; ``.safetensors`` files are read with numpy.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+import struct
+from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -144,3 +153,135 @@ class BertEncoder(nn.Module):
         for layer in self.layers:
             hidden = layer(hidden, keys, seeds)
         return hidden
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face checkpoint import
+# ---------------------------------------------------------------------------
+
+def load_hf_bert_params(state_dict: Mapping, config: BertConfig
+                        ) -> Dict[str, torch.Tensor]:
+    """:class:`BertEncoder`'s state dict (fp32) from a Hugging Face one.
+
+    Both layouts the reference CLI names (``bert-base-uncased``,
+    ``distilbert-base-uncased``) are read, with or without their model
+    prefix:
+
+    * BertModel: ``[bert.]encoder.layer.{i}.attention.self.query...``
+    * DistilBertModel: ``[distilbert.]transformer.layer.{i}.attention.q_lin...``
+      (detected from the keys; pair it with ``BertConfig.distil()``, which
+      has no token types).
+
+    Both store ``Linear`` weights as (out, in), the port's layout, so
+    nothing is transposed.  Values may be torch tensors or numpy arrays.
+    """
+    distil = any("transformer.layer." in k for k in state_dict)
+    prefixes = ("", "distilbert.") if distil else ("", "bert.")
+
+    def get(name):
+        for pre in prefixes:
+            if pre + name in state_dict:
+                v = state_dict[pre + name]
+                if isinstance(v, torch.Tensor):
+                    return v.detach().to(torch.float32)
+                return torch.from_numpy(np.array(v, dtype=np.float32))
+        raise KeyError(name)
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def copy(dst, src):
+        out[f"{dst}.weight"] = get(f"{src}.weight")
+        out[f"{dst}.bias"] = get(f"{src}.bias")
+
+    out["word_embeddings.weight"] = get("embeddings.word_embeddings.weight")
+    out["position_embeddings.weight"] = get(
+        "embeddings.position_embeddings.weight")
+    if config.use_token_type:
+        out["token_type_embeddings.weight"] = get(
+            "embeddings.token_type_embeddings.weight")
+    copy("embeddings_norm", "embeddings.LayerNorm")
+    for i in range(config.num_layers):
+        d = f"layers.{i}"
+        if distil:
+            p = f"transformer.layer.{i}"
+            names = {"attention.query": "attention.q_lin",
+                     "attention.key": "attention.k_lin",
+                     "attention.value": "attention.v_lin",
+                     "attention_output": "attention.out_lin",
+                     "attention_norm": "sa_layer_norm",
+                     "intermediate": "ffn.lin1", "output": "ffn.lin2",
+                     "output_norm": "output_layer_norm"}
+        else:
+            p = f"encoder.layer.{i}"
+            names = {"attention.query": "attention.self.query",
+                     "attention.key": "attention.self.key",
+                     "attention.value": "attention.self.value",
+                     "attention_output": "attention.output.dense",
+                     "attention_norm": "attention.output.LayerNorm",
+                     "intermediate": "intermediate.dense",
+                     "output": "output.dense",
+                     "output_norm": "output.LayerNorm"}
+        for dst, src in names.items():
+            copy(f"{d}.{dst}", f"{p}.{src}")
+    return out
+
+
+_SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2",
+                       "I64": "<i8", "I32": "<i4", "I16": "<i2", "I8": "i1",
+                       "U8": "u1", "BOOL": "?"}
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Every tensor of a ``.safetensors`` file as a numpy array: an 8-byte
+    little-endian header length, a JSON header of name -> dtype, shape and
+    byte range, then the raw buffers.  BF16 is widened to fp32."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        raw, dtype = data[begin:end], info["dtype"]
+        if dtype == "BF16":
+            arr = (np.frombuffer(raw, "<u2").astype(np.uint32)
+                   << 16).view(np.float32)
+        elif dtype in _SAFETENSORS_DTYPES:
+            arr = np.frombuffer(raw, _SAFETENSORS_DTYPES[dtype])
+        else:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {dtype}, "
+                             f"which this reader does not take")
+        out[name] = arr.reshape(info["shape"])
+    return out
+
+
+def maybe_load_pretrained(state_dict: Dict[str, torch.Tensor],
+                          config: BertConfig,
+                          weights_path: Optional[str]
+                          ) -> Dict[str, torch.Tensor]:
+    """A model's state dict with its ``bert.*`` entries replaced by the
+    Hugging Face weights at ``weights_path``: a ``pytorch_model.bin`` or
+    ``model.safetensors`` file, or a directory holding one.  Returns the
+    state dict unchanged when no checkpoint is found there, as the JAX
+    package does."""
+    if not weights_path:
+        return state_dict
+    path = weights_path
+    if os.path.isdir(path):
+        for cand in ("model.safetensors", "pytorch_model.bin"):
+            p = os.path.join(path, cand)
+            if os.path.exists(p):
+                path = p
+                break
+    if not os.path.isfile(path):
+        return state_dict
+    if path.endswith(".safetensors"):
+        hf = read_safetensors(path)
+    else:
+        hf = torch.load(path, map_location="cpu", weights_only=True)
+    new = dict(state_dict)
+    for k, v in load_hf_bert_params(hf, config).items():
+        new[f"bert.{k}"] = v
+    return new

@@ -107,6 +107,13 @@ class SeedStream:
         return _splitmix64((self.base << 32) | self.count) & _M32
 
 
+def step_seed(run_seed: int, step: int) -> int:
+    """The seed of one optimizer step's base-seed generator: splitmix64 of
+    (run seed, step), as the JAX package folds the step into its dropout
+    key, so a resumed run's step draws the uninterrupted run's seeds."""
+    return _splitmix64(((run_seed & _M32) << 32) | (step & _M32))
+
+
 def draw_base_seed(generator: torch.Generator) -> int:
     """One uint32 base seed from a CPU generator (no device involved)."""
     return int(torch.randint(0, 2 ** 32, (), generator=generator,

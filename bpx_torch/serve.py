@@ -14,7 +14,10 @@ Usage::
 mmtrvapt; the presets of mmtrvat take no poster); a client
 batch smaller than ``batch_size`` is padded by repeating its last row and
 sliced back.  Weights are random from ``seed`` unless a ``state_dict`` is
-given (e.g. from :func:`bpx_torch.interop.params_from_flax`).
+given (e.g. from :func:`bpx_torch.interop.params_from_flax`), or restored
+from a run directory of the port's trainer::
+
+    predictor = Predictor.from_checkpoint(exp, "runs/name_Seed1_run")
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from bpx_torch.config import ExperimentConfig
 from bpx_torch.inputs import model_inputs
 from bpx_torch.models import get_model
+from bpx_torch.utils.checkpoint import CheckpointManager
 
 
 def _padded_call(fn, batch: Dict[str, np.ndarray], batch_size: int,
@@ -65,6 +69,19 @@ class Predictor:
             self.model.load_state_dict(state_dict, strict=True)
         task, task_type = exp.data.task, exp.data.task_type
         self._sigmoid = task_type == "multilabel" or task == "cmu-mosi"
+
+    @classmethod
+    def from_checkpoint(cls, exp: ExperimentConfig, ckpt_dir: str,
+                        example_batch: Optional[Dict[str, np.ndarray]] = None,
+                        batch_size: int = 8, tag: str = "best",
+                        device=None) -> "Predictor":
+        """Serve the weights of ``ckpt_dir``'s ``tag`` checkpoint (a run
+        directory of :mod:`bpx_torch.train.loop`).  ``example_batch`` is
+        accepted for the JAX package's signature and not needed: the port
+        builds its modules from the config alone."""
+        pred = cls(exp, batch_size=batch_size, device=device)
+        CheckpointManager(ckpt_dir).restore(pred.model, tag=tag)
+        return pred
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)

@@ -94,14 +94,29 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    train step each, with exact counters;
 12. the ``synthetic-tiny`` preset (fp32, head_dim 16, ``attention_impl``
    "xla"): one request and one train step through the einsum attention,
-   with no flash launch and exact LayerNorm counters.
+   with no flash launch and exact LayerNorm counters;
+13. the training loop: a moviescope dataset at full width written in the
+   reference's layout under a temporary directory (32 train, 16 dev, 16
+   test records), trained through ``bpx_torch.cli.train.cli_main`` in this
+   process with the README's command (``mmtrvapt``, hidden 768, 8 heads, 4
+   layers, micro-batch 8 x A = 2, ``attention_impl`` pallas) for 2 epochs:
+   the memmap cache, checkpoints, ``test``.  Counters set to 0 before and
+   read after, and checked per train step (168 flash forward, 72 with
+   dropout, 168 backward, 458 LayerNorm forward and backward) and per
+   evaluation forward (84 flash, 181 LayerNorm); every launch class among
+   those phases 3-6 held against the plain versions; no tensor copied.
+   Then the run resumed to 3 epochs (it must start at epoch 2, with weights
+   and Adam moments equal to the saved ones bitwise, and run one epoch),
+   and ``Predictor.from_checkpoint`` on the test records against ``test``'s
+   ``preds_raw.npy``; per-epoch times, the cache build and the peak memory.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, and
-its rows by shape class) and, last, ``{"ok": true, "device": {...}}``.  It
+(per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, its
+rows by shape class, and on the moviescope rows the training loop's launches in
+phase 13 and per epoch) and, last, ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX or of the JAX package; without a CUDA device, or
 without ``bpx_torch`` beside it, it exits non-zero and prints no result.
 """
@@ -116,8 +131,10 @@ import json
 import math
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1547,6 +1564,320 @@ def kernel_category(name: str) -> str:
     return "elementwise and other"
 
 
+# ---------------------------------------------------------------------------
+# the training loop: the README's command through the CLI
+# ---------------------------------------------------------------------------
+
+LOOP_GENRES = ["Action", "Adventure", "Animation", "Biography", "Comedy",
+               "Crime", "Drama", "Family", "Fantasy", "History", "Horror",
+               "Romance", "Thriller"]
+LOOP_SPLITS = {"train": 32, "dev": 16, "test": 16}
+LOOP_STEPS = LOOP_SPLITS["train"] // (BATCH * TRAIN_A)     # per epoch
+LOOP_EVALS = LOOP_SPLITS["dev"] // BATCH                  # per epoch
+LOOP_TESTS = LOOP_SPLITS["test"] // BATCH
+LOOP_ARGV = ["--model", "mmtrvapt", "--task", "moviescope", "--hidden_sz",
+             "768", "--num_heads", "8", "--layers", "4", "--orig_d_v", "4096",
+             "--orig_d_a", "96", "--batch_sz", str(BATCH),
+             "--gradient_accumulation_steps", str(TRAIN_A),
+             "--attention_impl", "pallas", "--from_seed", "1", "--to_seed",
+             "1"]
+# launches per train step (A micro-batches) and per evaluation forward
+LOOP_STEP_LAUNCHES = dict(flash=FLASH_PER_FORWARD * TRAIN_A,
+                          dropout=FLASH_DROPOUT_PER_FORWARD * TRAIN_A,
+                          flash_bwd=FLASH_PER_FORWARD * TRAIN_A,
+                          ln=LN_PER_TRAIN_FORWARD * TRAIN_A,
+                          ln_bwd=LN_PER_TRAIN_FORWARD * TRAIN_A)
+LOOP_EVAL_LAUNCHES = dict(flash=FLASH_PER_FORWARD, dropout=0, flash_bwd=0,
+                          ln=LN_PER_FORWARD, ln_bwd=0)
+LOOP_PROBS_TOL = 1e-6      # from_checkpoint against test's preds_raw.npy
+
+
+def write_moviescope(np, root: Path, seed: int = 0):
+    """A moviescope dataset at full width in the reference's layout:
+    ``{split}.jsonl`` records with a synopsis and genre lists over the 13
+    genres, and per record a pickled (1, 200, 4096) VGG16 array, a
+    (96, 928) mel-spectrogram and a (1, 4096) poster, from a seed.  Train
+    and test labels are random (every genre present in train); dev records
+    carry no genre, so the tuning metric (micro AP) is exactly 0 at every
+    epoch and every epoch checkpoints (an improvement is ``>=``), whatever
+    random weights learn: the resume then starts at epoch 2.  (All 13 genres
+    on every dev record would give an AP of 1 up to rounding, which moves
+    with the scores' ties.)"""
+    import pickle
+    rng = np.random.RandomState(seed)
+    d = root / "moviescope"
+    for sub in ("200F_VGG16", "Melspectrogram", "PosterFeatures"):
+        (d / sub).mkdir(parents=True)
+    words = [f"w{i}" for i in range(2000)]
+    for split, n in LOOP_SPLITS.items():
+        lines = []
+        for i in range(n):
+            sid = f"{split}{i}"
+            if split == "dev":
+                genres = []
+            else:
+                genres = [LOOP_GENRES[j] for j in rng.choice(
+                    13, rng.randint(1, 4), replace=False)]
+                if split == "train" and i < 13:
+                    genres = sorted(set(genres) | {LOOP_GENRES[i]})
+            synopsis = " ".join(rng.choice(words, rng.randint(80, 600)))
+            lines.append(json.dumps({"id": sid, "synopsis": synopsis,
+                                     "label": genres}))
+            for sub, arr in (
+                    ("200F_VGG16", rng.randn(1, 200, 4096)),
+                    ("Melspectrogram", rng.rand(96, 928)),
+                    ("PosterFeatures", rng.randn(1, 4096))):
+                with open(d / sub / f"{sid}.p", "wb") as f:
+                    pickle.dump(arr.astype(np.float32), f)
+        (d / f"{split}.jsonl").write_text("\n".join(lines) + "\n")
+
+
+@contextlib.contextmanager
+def counted_loop(calls):
+    """Inside the context, every train step and evaluation forward that
+    ``bpx_torch.train.loop`` builds appends ``(kind, launches)`` to
+    ``calls``: the launch counters' moves over that one call."""
+    from bpx_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_backward)
+    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
+    from bpx_torch.train import loop
+
+    def read():
+        return dict(flash=flash_attention.launches,
+                    dropout=flash_attention.dropout_launches,
+                    flash_bwd=flash_attention_backward.launches,
+                    ln=layer_norm.launches,
+                    ln_bwd=layer_norm_backward.launches)
+
+    def counted(factory, kind):
+        def make(*args, **kw):
+            fn = factory(*args, **kw)
+
+            def run(batch):
+                before = read()
+                out = fn(batch)
+                after = read()
+                calls.append((kind, {k: after[k] - before[k]
+                                     for k in after}))
+                return out
+            return run
+        return make
+
+    made = loop.make_train_step, loop.make_eval_step
+    loop.make_train_step = counted(made[0], "step")
+    loop.make_eval_step = counted(made[1], "eval")
+    try:
+        yield read
+    finally:
+        loop.make_train_step, loop.make_eval_step = made
+
+
+@contextlib.contextmanager
+def timed_cache_builds(builds):
+    """Record (split, seconds, built) for every precollated store the
+    loaders open inside the context."""
+    from bpx_torch.data import cache
+    build = cache.PrecollatedStore.build_or_load
+
+    def timed(dataset, jsonl_path, *args, **kw):
+        fresh = not any(Path(jsonl_path).parent.glob(
+            f".bpx_cache/{Path(jsonl_path).stem}_*/meta.json"))
+        t = time.perf_counter()
+        store = build(dataset, jsonl_path, *args, **kw)
+        builds.append((Path(jsonl_path).stem, time.perf_counter() - t,
+                       fresh, store is not None))
+        return store
+
+    cache.PrecollatedStore.build_or_load = staticmethod(timed)
+    try:
+        yield
+    finally:
+        cache.PrecollatedStore.build_or_load = staticmethod(build)
+
+
+def epoch_stats(run: Path):
+    """The training loop's per-epoch numbers (its ``epoch stats`` log
+    lines)."""
+    stats = []
+    for line in (run / "logfile.log").read_text().splitlines():
+        if " - epoch stats " in line:
+            stats.append(json.loads(line.split(" - epoch stats ", 1)[1]))
+    return stats
+
+
+def check_loop_calls(calls, n_steps, n_evals, tag):
+    steps = [c for kind, c in calls if kind == "step"]
+    evals = [c for kind, c in calls if kind == "eval"]
+    print(f"{tag} {len(steps)} train steps, {len(evals)} evaluation "
+          f"forwards; launches per step {steps[0] if steps else None}, per "
+          f"evaluation forward {evals[0] if evals else None}")
+    check(len(steps) == n_steps and len(evals) == n_evals,
+          f"{tag} ran {len(steps)} steps and {len(evals)} evaluation "
+          f"forwards, expected {n_steps} and {n_evals}")
+    bad = [c for c in steps if c != LOOP_STEP_LAUNCHES] + \
+        [c for c in evals if c != LOOP_EVAL_LAUNCHES]
+    check(not bad, f"{tag} launches {bad[:2]}, expected "
+                   f"{LOOP_STEP_LAUNCHES} per step and {LOOP_EVAL_LAUNCHES} "
+                   f"per evaluation forward")
+
+
+def phase_loop(torch, np, card: str, checked):
+    """The README's moviescope command through ``bpx_torch.cli.train.
+    cli_main`` in this process: the memmap cache, two epochs, checkpoints,
+    ``test``; a resume to three epochs with the restored state checked bit
+    for bit against the saved one; ``Predictor.from_checkpoint`` against
+    ``test``'s ``preds_raw.npy``.  ``checked``: the launch classes the
+    earlier phases held against the plain versions, per kernel."""
+    from bpx_torch.cli.train import cli_main
+    from bpx_torch.config import config_from_dict
+    from bpx_torch.data.loaders import get_data_loaders
+    from bpx_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_backward)
+    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
+    from bpx_torch.serve import Predictor
+    from bpx_torch.utils.checkpoint import CheckpointManager
+    tag = "[loop]"
+    tmp = Path(tempfile.mkdtemp(prefix="bpx_loop_"))
+    try:
+        t0 = time.time()
+        write_moviescope(np, tmp / "data")
+        print(f"{tag} wrote the moviescope fixture ({LOOP_SPLITS}) in "
+              f"{time.time() - t0:.1f} s")
+        argv = LOOP_ARGV + ["--data_path", str(tmp / "data"), "--savedir",
+                            str(tmp / "runs"), "--name", "loop"]
+        epochs = lambda n: argv + ["--max_epochs", str(n)]
+        run = tmp / "runs" / "loop_Seed1_run"
+        calls, builds = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with counted_loop(calls) as read, timed_cache_builds(builds), \
+                recording() as seen:
+            for c in (flash_attention, flash_attention_backward, layer_norm,
+                      layer_norm_backward):
+                c.launches = 0
+            flash_attention.dropout_launches = 0
+            results = cli_main(epochs(2))
+            totals = read()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_loop_calls(calls, 2 * LOOP_STEPS, 2 * LOOP_EVALS + LOOP_TESTS,
+                         tag)
+        summed = collections.Counter()
+        for _, c in calls:
+            summed.update(c)
+        check(dict(summed) == totals,
+              f"{tag} launches outside the steps and evaluations: {totals} "
+              f"against {dict(summed)}")
+        check(not sum(seen["copies"].values()),
+              f"{tag} the flash wrappers copied tensors before a launch")
+        new = {k: set(seen[k]) - checked[k] for k in checked}
+        check(not any(new.values()),
+              f"{tag} launch classes no earlier phase checked: {new}")
+        print(f"{tag} launches {totals} in {wall:.1f} s; every class among "
+              f"those the earlier phases held against the plain versions; "
+              f"no tensor copied before a flash launch")
+        m = results[1]
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{tag} non-finite test metrics {m}")
+        for f in ("latest", "best", "host_state.json", "config.json",
+                  "test_labels_pred.txt", "test_labels_gold.txt",
+                  "test_labels.txt", "preds_raw.npy"):
+            check((run / f).exists(), f"{tag} the run wrote no {f}")
+        check(sorted(s for s, _, fresh, ok in builds if fresh and ok)
+              == ["dev", "test", "train"] and all(ok for *_, ok in builds),
+              f"{tag} the memmap cache was not built for every split: "
+              f"{builds}")
+        host = json.loads((run / "host_state.json").read_text())
+        check(host["epoch"] == 2, f"{tag} host_state.json epoch "
+                                  f"{host['epoch']}, expected 2")
+
+        # resume to three epochs: one epoch from epoch 2, restored bitwise
+        saved = CheckpointManager(str(run)).load("latest")
+        restored = {}
+        restore = CheckpointManager.restore
+
+        def compare(self, model, optimizer=None, tag="latest"):
+            got = restore(self, model, optimizer, tag)
+            if optimizer is None:
+                return got
+            restored["host"] = got
+            sd, osd = model.state_dict(), optimizer.state_dict()["state"]
+            restored["weights"] = all(
+                torch.equal(sd[k].cpu(), v) for k, v in saved["model"].items())
+            restored["moments"] = all(
+                torch.equal(osd[i][n].cpu(), s[n])
+                for i, s in saved["optimizer"]["state"].items()
+                for n in ("exp_avg", "exp_avg_sq", "step"))
+            return got
+
+        calls2 = []
+        CheckpointManager.restore = compare
+        try:
+            with counted_loop(calls2):
+                t1 = time.time()
+                cli_main(epochs(3))
+                wall2 = time.time() - t1
+        finally:
+            CheckpointManager.restore = restore
+        del saved
+        check(restored.get("host", (None, {}))[1].get("epoch") == 2,
+              f"{tag} the resume did not start at epoch 2: {restored}")
+        check(restored["weights"] and restored["moments"],
+              f"{tag} the restored weights or Adam moments differ from the "
+              f"saved ones")
+        check_loop_calls(calls2, LOOP_STEPS, LOOP_EVALS + LOOP_TESTS,
+                         f"{tag} resume")
+        print(f"{tag} resumed at epoch 2 (step {restored['host'][0]}) and "
+              f"ran one epoch in {wall2:.1f} s: weights and Adam moments "
+              f"equal the saved ones bitwise")
+
+        # serving from the checkpoint reproduces test's probabilities
+        exp = config_from_dict(json.loads((run / "config.json").read_text()))
+        t1 = time.time()
+        pred = Predictor.from_checkpoint(exp, str(run), batch_size=BATCH,
+                                         tag="best")
+        load_s = time.time() - t1
+        _, _, test_loader, _ = get_data_loaders(exp.data, exp.model,
+                                                seed=exp.train.seed)
+        probs = np.concatenate([pred(b) for b in test_loader])
+        want = np.load(run / "preds_raw.npy")
+        err = float(np.abs(probs - want).max())
+        print(f"{tag} Predictor.from_checkpoint (best, restored in "
+              f"{load_s:.1f} s) on the {len(want)} test records against "
+              f"test's preds_raw.npy: max abs err {err:.3g} (tol "
+              f"{LOOP_PROBS_TOL})")
+        check(probs.shape == want.shape and err <= LOOP_PROBS_TOL,
+              f"{tag} from_checkpoint differs from preds_raw.npy by {err}")
+        del pred
+
+        stats = epoch_stats(run)
+        for s in stats:
+            print(f"{tag} epoch {s['epoch']}: {s['train_s']:.2f} s for "
+                  f"{s['steps']} steps ({s['samples'] / s['train_s']:.2f} "
+                  f"samples/s), step p50 {s['step_p50_s'] * 1e3:.1f} ms "
+                  f"(StepTimer, synchronised), host data "
+                  f"{s['data_s_per_batch'] * 1e3:.1f} ms per batch, "
+                  f"evaluation {s['eval_s']:.2f} s, checkpoint "
+                  f"{s['checkpoint_s']:.2f} s; card: {card}")
+        for split, secs, fresh, _ in builds:
+            if fresh:
+                print(f"{tag} memmap cache build, {split}: {secs:.2f} s; "
+                      f"card: {card}")
+        print(f"{tag} two epochs, checkpoints and test in {wall:.1f} s, the "
+              f"resume in {wall2:.1f} s; peak memory {peak:.2f} GiB "
+              f"(max_memory_allocated); card: {card}")
+        check(len(stats) == 3, f"{tag} {len(stats)} epochs logged")
+        per_epoch = collections.Counter()
+        for _, c in calls[:LOOP_STEPS + LOOP_EVALS]:    # epoch 0
+            per_epoch.update(c)
+        return dict(wall_s=wall, resume_s=wall2, peak_gib=peak, epochs=stats,
+                    cache=builds, from_checkpoint_err=err,
+                    launches=totals, launches_per_epoch=dict(per_epoch))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def summarise(name, source, replaces, rows, launches, runs, per):
     """One kernel's entry: times are per launch, averaged over the recorded
     run's mix of shapes (weights: each class's launches in that run)."""
@@ -1746,6 +2077,16 @@ def main() -> None:
     print(f"[time] counseling, cmu-mosi, synthetic-tiny phases "
           f"{time.time() - t0:.1f} s")
 
+    # the training loop: moviescope's full-width model through the CLI,
+    # at the classes the moviescope phases held against the plain versions
+    t0 = time.time()
+    looped = phase_loop(torch, np, card, dict(
+        flash=set(flash_cls) | {k for k in seen["flash"] if k[-1] > 0},
+        flash_bwd=set(seen["flash_bwd"]), ln=set(ln_cls),
+        ln_bwd=set(seen["ln_bwd"])))
+    torch.cuda.empty_cache()
+    print(f"[time] loop phase {time.time() - t0:.1f} s")
+
     steps = TRAIN_STEPS * TRAIN_A
     fwd_src = "bpx_torch/csrc/flash_fwd.cu"
     bwd_src = "bpx_torch/csrc/flash_bwd.cu"
@@ -1754,19 +2095,27 @@ def main() -> None:
     fwd_tpu, drop_tpu, bwd_tpu = ("bpx/ops/pallas_attention.py:145",
                                   "bpx/ops/pallas_attention.py:102",
                                   "bpx/ops/pallas_attention.py:462")
+    # the training loop's launches (its own run, counters from 0) beside the
+    # moviescope rows, whose classes it runs
+    in_loop = lambda key: dict(
+        loop_launches=looped["launches"][key],
+        loop_launches_per_epoch=looped["launches_per_epoch"][key])
     kernels = [
-        summarise("flash_fwd", fwd_src, fwd_tpu, flash_rows,
-                  served["flash_launches"], REQUESTS, "forward"),
-        summarise("flash_fwd_dropout", fwd_src, drop_tpu, drop_rows,
-                  trained["totals"]["dropout"], steps, "micro_step"),
+        dict(summarise("flash_fwd", fwd_src, fwd_tpu, flash_rows,
+                       served["flash_launches"], REQUESTS, "forward"),
+             **in_loop("flash")),
+        dict(summarise("flash_fwd_dropout", fwd_src, drop_tpu, drop_rows,
+                       trained["totals"]["dropout"], steps, "micro_step"),
+             **in_loop("dropout")),
         dict(summarise("flash_bwd", bwd_src, bwd_tpu, bwd_rows,
                        trained["totals"]["flash_bwd"], steps, "micro_step"),
-             long_shape=long_rows),
-        summarise("layer_norm_fwd", ln_src, "bpx/ops/norm.py:53", ln_rows,
-                  served["ln_launches"], REQUESTS, "forward"),
-        summarise("layer_norm_bwd", ln_bwd_src, "bpx/ops/norm.py:69",
-                  ln_bwd_rows, trained["totals"]["ln_bwd"], steps,
-                  "micro_step"),
+             long_shape=long_rows, **in_loop("flash_bwd")),
+        dict(summarise("layer_norm_fwd", ln_src, "bpx/ops/norm.py:53",
+                       ln_rows, served["ln_launches"], REQUESTS, "forward"),
+             **in_loop("ln")),
+        dict(summarise("layer_norm_bwd", ln_bwd_src, "bpx/ops/norm.py:69",
+                       ln_bwd_rows, trained["totals"]["ln_bwd"], steps,
+                       "micro_step"), **in_loop("ln_bwd")),
         # iemocap: head_dim 25 (and BERT's 64) on its own path
         summarise("flash_fwd_iemocap", fwd_src, fwd_tpu, i_flash_rows,
                   i_served["flash_launches"], REQUESTS, "forward"),
@@ -1832,6 +2181,15 @@ def main() -> None:
                       f"{tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} "
                       f"GiB" for p, (sv, tr) in small.items())
           + f"; card: {card}")
+    per_epoch = lambda key, scale, fmt: ", ".join(
+        format(s[key] * scale, fmt) for s in looped["epochs"])
+    print(f"[summary] loop (moviescope through the CLI, micro-batch {BATCH} "
+          f"x A={TRAIN_A}): epochs {per_epoch('train_s', 1, '.2f')} s, step "
+          f"p50 {per_epoch('step_p50_s', 1e3, '.1f')} ms, evaluation "
+          f"{per_epoch('eval_s', 1, '.2f')} s; "
+          f"launches per epoch {looped['launches_per_epoch']}; "
+          f"from_checkpoint max err {looped['from_checkpoint_err']:.3g}; "
+          f"peak {looped['peak_gib']:.2f} GiB; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,11 @@ from bpx_torch.ops.flash_attention import flash_attention
 from bpx_torch.ops.norm import layer_norm
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "bpx")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "bpx")
+# packages the card's machine lacks: none may be imported when a module of
+# the port is (h5py only inside the function that reads mmimdb's hdf5)
+ABSENT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
+                      "h5py", "safetensors", "bpx")
 
 
 def _port_files():
@@ -43,6 +47,68 @@ def test_no_jax_or_bpx_imports(path):
             if _forbidden(node.module or ""):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+def _module_level_imports(tree):
+    """Import nodes outside any function body."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def test_training_loop_packages_are_covered():
+    parts = {p.relative_to(ROOT).parts[:2] for p in _port_files()}
+    for sub in ("data", "utils", "cli", "train"):
+        assert ("bpx_torch", sub) in parts, sub
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_h5py(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for node in _module_level_imports(tree)
+             if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module or "" for node in _module_level_imports(tree)
+              if isinstance(node, ast.ImportFrom)]
+    assert not [n for n in names if n == "h5py" or n.startswith("h5py.")]
+
+
+def test_every_module_imports_without_the_missing_packages():
+    modules = [m.name for m in pkgutil.walk_packages(bpx_torch.__path__,
+                                                     "bpx_torch.")]
+    code = ("import sys\n"
+            f"for name in {ABSENT_ON_THE_CARD!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    for name in ("bpx_torch.data.loaders", "bpx_torch.train.loop",
+                 "bpx_torch.cli.train", "bpx_torch.utils.checkpoint"):
+        assert name in modules
+
+
+def test_trainer_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from bpx_torch.serve import Predictor
+    from bpx_torch.train import loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    exp = tconfig.get_preset("synthetic-tiny")
+    exp = exp.replace(train=dataclasses.replace(exp.train,
+                                                savedir=str(tmp_path)))
+    for fn in (loop.train, loop.test, loop.seed_sweep):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(exp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor.from_checkpoint(exp, str(tmp_path))
+    assert not list(tmp_path.iterdir())     # raised before writing anything
 
 
 def test_every_module_imports_without_jax():
