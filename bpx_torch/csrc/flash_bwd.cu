@@ -21,7 +21,8 @@
 //
 // Design.  The TPU kernel holds the whole Tq x Tk tile of one (batch, head)
 // in VMEM and emits dQ, dK and dV from it in one program; an SM cannot hold
-// it.  Three launches on the stream, deterministic and without atomics:
+// it.  At D = 64, 96, 128, three launches on the stream, deterministic and
+// without atomics (the narrow heads' two are below):
 //   * delta: two rows per warp, dO and O read once, a fixed-order sum;
 //   * dK/dV: one warpgroup per (batch*head, 64-key tile) with K and V
 //     resident, looping over 64-query tiles of Q, dO, lse and delta that
@@ -44,10 +45,46 @@
 // Registers bound the occupancy: the dK/dV kernel holds dK, dV, S^T and
 // dP^T (D + 64 fp32 per thread): 2 blocks per SM at both head dims (100 KB
 // of shared memory each at D = 96); at D = 64 a cap of 168 registers for a
-// third block spills and measured slower.  Narrow heads (D = 25, 30) run at
-// DP = 32 as the forward does (flash_common.cuh): S^T, dP^T, S and dP in 2
-// k-steps, dV, dK and dQ as m64n32k16; only the loads, the stores and the
-// delta kernel know D.
+// third block spills and measured slower.
+//
+// Narrow heads (D = 25, 30: iemocap, cmu-mosei, counseling, cmu-mosi) run
+// at DP = 32 as the forward does (flash_common.cuh): S^T, dP^T, S and dP in
+// 2 k-steps, dV, dK and dQ as m64n32k16.  Their kernels are their own
+// (flash_bwd_narrow_*), two launches a backward:
+//   * dQ first, one warpgroup per (batch*head, 64-query tile) as above,
+//     which also loads its 64 rows of O beside the resident dO, computes
+//     delta for them in fp32 (a fixed order: two threads a row, then their
+//     sum) and writes it to the workspace; rows past Tq, zero-filled,
+//     give 0 and are not written;
+//   * dK/dV second, as above, reading delta from the workspace.  It is
+//     launched as the dQ kernel's programmatic dependent: its blocks may
+//     start, and load K and V, while the dQ kernel's last blocks run, and
+//     wait (griddepcontrol.wait) for the whole dQ grid before they read
+//     delta.  Nothing else it reads is written by the dQ kernel.
+// The grids put batch*head along x and the tiles along y, in the order
+// that starts the blocks with the most tiles of a causal band first (key
+// tile 0 for dK/dV, the last query tile for dQ), so that the short blocks
+// fill the tail.  At D = 25 the rows are 2-byte aligned and cp.async
+// cannot copy them: each streamed tile's 4-byte words are loaded into
+// registers before the products of the tile before and written to shared
+// memory after them (NarrowTile, flash_common.cuh); D = 30 streams 4-byte
+// cp.async words through a 3-stage ring.  The dK/dV kernel takes 167-168
+// registers a thread, no spills, 3 blocks per SM; the dQ kernel is held to
+// 128 for a fourth block (at most 64 bytes of spills), which measured
+// faster than 3 blocks at 143-159.  Measured on an H100 (PERF.md,
+// scripts/torch_flash_bwd_narrow.py), one step at a time: delta folded in,
+// then the tiles' order, then the dependent launch, then the dQ kernel's
+// fourth block each made it faster; the loads off the chain gained about
+// 1%; two consumer warpgroups a block (sharing the streamed tiles, 128
+// registers a thread, 2 blocks per SM), the softmax and dS overlapping
+// in-flight wgmmas inside one warpgroup, and a dK/dV kernel that streams
+// O to compute delta itself (waiting for nothing) measured slower and are
+// not kept.
+// Bound: the bytes, 8 x B*H*T*D*2 at the model's shapes (q, k, v, dO, O
+// read, dq, dk, dv written); these kernels reach about a tenth of it: each
+// 64 x 64 tile step is a serial chain (wait, products, softmax and dS,
+// products, wait) of a few microseconds, and three chains an SM do not
+// hide it.
 //
 // D = 128 (mmimdb: 768 / 6).  The forward's layout takes it as four panels
 // and the dQ kernel as it stands (dQ 64 + S 32 + dP 32 fp32 a thread).  The
@@ -99,6 +136,7 @@ struct BwdParams {
   const __nv_bfloat16* dout;
   const float* lse;        // (B*H, Tq)
   const float* delta;      // (B*H, Tq), written by flash_delta_kernel
+                           // (narrow heads: flash_bwd_narrow_dq_kernel)
   const int* kv_lens;      // (B,) or nullptr
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
@@ -504,6 +542,419 @@ flash_bwd_dq_kernel(const BwdParams p) {
   store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
 }
 
+// ---------------------------------------------------------------------------
+// narrow heads (D = 25, 30): dQ with delta, then dK/dV (the header)
+// ---------------------------------------------------------------------------
+
+// Streamed tiles in flight: 3 at D = 30 (cp.async, two tiles ahead), 2 at
+// D = 25, whose loads wait in registers for the end of the tile before (a
+// third stage would not start them earlier).
+template <int D>
+__host__ __device__ constexpr int narrow_stages() {
+  return D % 2 ? 2 : 3;
+}
+
+// K and V, then stages x (Q, dO, lse[64], delta[64]); +1 KB for alignment.
+template <int D>
+__host__ __device__ constexpr int narrow_dkdv_smem_bytes() {
+  return 2 * kPanelBytes + narrow_stages<D>() * (2 * kPanelBytes + 1024) +
+         1024;
+}
+
+// Q, dO and O, then stages x (K, V); +1 KB.
+template <int D>
+__host__ __device__ constexpr int narrow_dq_smem_bytes() {
+  return (3 + 2 * narrow_stages<D>()) * kPanelBytes + 1024;
+}
+
+// One (batch*head, 64-key tile): dK and dV, batch*head along x and key
+// tiles along y, so the blocks of the first key tiles (the most query
+// tiles of a causal band) start first.  Launched dependent on the dQ
+// kernel: K and V load before it ends, delta after.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
+  constexpr int kStages = narrow_stages<D>();
+  constexpr int kTile = kPanelBytes;
+  constexpr int kStage = 2 * kTile + 1024;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t stage0 = v_s + kTile;   // stage s: Q, dO, lse, delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = blockIdx.y * kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
+
+  // query tiles that see a key of this tile: none past kv_len; with the
+  // band, only rows with row + offset >= k0
+  const int q_begin = p.masked ? max(0, k0 - p.offset) / kRows : 0;
+  const int q_end = k0 >= kv_len ? 0 : (Tq + kRows - 1) / kRows;
+  const int n_tiles = max(0, q_end - q_begin);
+
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* ob = p.dout + b * p.o_sb + h * p.o_sh;
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float* dl_b = p.delta + (long long)bh * Tq;
+
+  // query tile q_begin + i goes to ring stage i mod kStages, started by
+  // fetch(i), written by store(i) (D = 25)
+  NarrowTile<D> q_next, o_next;
+  auto fetch = [&](int i) {
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t dst = stage0 + (i % kStages) * kStage;
+    q_next.fetch(dst, qb, p.q_st, q0, Tq);
+    o_next.fetch(dst + kTile, ob, p.o_st, q0, Tq);
+    const int r = threadIdx.x % kRows;
+    const bool ok = q0 + r < Tq;
+    const float* src = threadIdx.x < kRows ? lse_b : dl_b;
+    cp_async_4(dst + 2 * kTile + threadIdx.x * 4, ok ? src + q0 + r : src,
+               ok);
+  };
+  auto store = [&](int i) {
+    const uint32_t dst = stage0 + (i % kStages) * kStage;
+    q_next.store(dst);
+    o_next.store(dst + kTile);
+  };
+
+  if (n_tiles > 0) {
+    NarrowTile<D> kt, vt;
+    kt.fetch(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk);
+    vt.fetch(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk);
+    // delta: written by the dQ kernel, which this launch may overlap
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    fetch(0);
+    kt.store(k_s);
+    vt.store(v_s);
+    store(0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 1; i < kStages - 1; ++i) {
+    if (i < n_tiles) {
+      fetch(i);
+      store(i);
+    }
+    cp_async_commit();
+  }
+
+  float dk[16], dv[16], st[32], dpt[32];
+  zero(dk);
+  zero(dv);
+  zero(st);
+  zero(dpt);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    const bool more = i + kStages - 1 < n_tiles;
+    if (more) fetch(i + kStages - 1);
+    cp_async_commit();
+
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t q_s = stage0 + (i % kStages) * kStage;
+    const uint32_t o_s = q_s + kTile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
+    const float* dl_s = lse_s + kRows;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, 2 k-steps
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_ss<64>(st, desc_k_major(k_s, kk), desc_k_major(q_s, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T (masked entries 0), its dropout keep bits, the dropped P^T's A
+    // fragments; then dS^T = P^T (dP^T - delta), dropout on dP^T
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);   // query in tile
+      st[i2] = ex2(fmaf(st[i2], kLog2e, -lse_s[qi] * kLog2e));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i2 = 0; i2 < 32; ++i2) {
+        const int row = q0 + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+        const int col = (i2 & 2) ? key0 + 8 : key0;
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          st[i2] = 0.f;
+        }
+      }
+    }
+    uint32_t kept = ~0u;
+    if (p.drop.on) {
+      kept = 0;
+#pragma unroll
+      for (int i2 = 0; i2 < 32; ++i2) {
+        const int row = q0 + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+        const int col = (i2 & 2) ? key0 + 8 : key0;
+        kept |= static_cast<uint32_t>(p.drop.keep(bh, row, col)) << i2;
+      }
+    }
+    auto dropped = [&](int i2) {
+      return !p.drop.on ? st[i2]
+             : (kept >> i2) & 1 ? st[i2] * p.drop.inv_keep : 0.f;
+    };
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[kc][j] = pack_bf16x2(dropped(8 * kc + 2 * j),
+                                dropped(8 * kc + 2 * j + 1));
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+      float dpr = dpt[i2];
+      if (p.drop.on) dpr = (kept >> i2) & 1 ? dpr * p.drop.inv_keep : 0.f;
+      dpt[i2] = st[i2] * (dpr - dl_s[qi]);
+    }
+    p_frags(da, dpt);
+
+    // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<32>(dv, pa[kc], desc_mn_major(o_s, kc));
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<32>(dk, da[kc], desc_mn_major(q_s, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    if (more) store(i + kStages - 1);
+  }
+  cp_async_wait<0>();
+
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4);
+}
+
+// One (batch*head, 64-query tile): delta = rowsum(dO * O) of its rows into
+// the workspace, and dQ.  Batch*head along x; query tiles along y, last
+// first, so the blocks with the most key tiles of a causal band start
+// first.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 4)
+flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
+                           long long o_sb, long long o_sh, long long o_st,
+                           float* delta) {
+  constexpr int kStages = narrow_stages<D>();
+  constexpr int kTile = kPanelBytes;
+  extern __shared__ unsigned char smem[];
+  __shared__ float dl_s[kRows];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kTile;
+  const uint32_t o_s = do_s + kTile;
+  const uint32_t kv_s = o_s + kTile;   // stage s: K at + 2 s kTile, V after
+
+  // the dK/dV kernel after this one may start its blocks while the last of
+  // these run: it waits for all of them before it reads delta
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
+
+  // key tiles with a visible key: none past kv_len, none above the band
+  int n_tiles = (max(kv_end, 0) + kRows - 1) / kRows;
+  if (p.masked) {
+    n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
+  }
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+
+  // key tile t goes to ring stage t mod kStages
+  NarrowTile<D> k_next, v_next;
+  auto fetch = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
+    k_next.fetch(dst, kb, p.k_st, t * kRows, Tk);
+    v_next.fetch(dst + kTile, vb, p.v_st, t * kRows, Tk);
+  };
+  auto store = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
+    k_next.store(dst);
+    v_next.store(dst + kTile);
+  };
+
+  // Q, dO and O (for delta, even where no key is visible), key tile 0
+  {
+    NarrowTile<D> qt, dt, ot;
+    qt.fetch(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq);
+    dt.fetch(do_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0, Tq);
+    ot.fetch(o_s, o + b * o_sb + h * o_sh, o_st, q0, Tq);
+    if (n_tiles > 0) fetch(0);
+    qt.store(q_s);
+    dt.store(do_s);
+    ot.store(o_s);
+    if (n_tiles > 0) store(0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int t = 1; t < kStages - 1; ++t) {
+    if (t < n_tiles) {
+      fetch(t);
+      store(t);
+    }
+    cp_async_commit();
+  }
+
+  // delta: thread 2 r + c sums columns 16 c .. 16 c + 15 of row r in fp32,
+  // the pair of threads adds its two halves; rows past Tq (zero-filled)
+  // give 0 and are not written
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  {
+    const int r = threadIdx.x / 2;
+    const int c = threadIdx.x % 2;
+    float sum = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const uint32_t off = tile_offset(r, 0, 2 * c + cc);
+      const uint4 x = ld_shared_v4(do_s + off);
+      const uint4 y = ld_shared_v4(o_s + off);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // a bf16 is a float's high half
+        sum = fmaf(__uint_as_float(xs[j] << 16), __uint_as_float(ys[j] << 16),
+                   sum);
+        sum = fmaf(__uint_as_float(xs[j] & 0xFFFF0000u),
+                   __uint_as_float(ys[j] & 0xFFFF0000u), sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (c == 0) {
+      dl_s[r] = sum;
+      if (q0 + r < Tq) delta[(long long)bh * Tq + q0 + r] = sum;
+    }
+  }
+  __syncthreads();
+
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
+  const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
+  const float dl0 = dl_s[warp * 16 + g];
+  const float dl1 = dl_s[warp * 16 + g + 8];
+
+  float dq[16], s[32], dp[32];
+  zero(dq);
+  zero(s);
+  zero(dp);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    const bool more = kt + kStages - 1 < n_tiles;
+    if (more) fetch(kt + kStages - 1);
+    cp_async_commit();
+    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
+    const uint32_t v_s = k_s + kTile;
+    const int k0 = kt * kRows;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys, 2 k-steps
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_ss<64>(dp, desc_k_major(do_s, kk), desc_k_major(v_s, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? lsel1 : lsel0)));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = (i & 2) ? row0 + 8 : row0;
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          s[i] = 0.f;
+        }
+      }
+    }
+    uint32_t kept = ~0u;
+    if (p.drop.on) {
+      kept = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = (i & 2) ? row0 + 8 : row0;
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        kept |= static_cast<uint32_t>(p.drop.keep(bh, row, col)) << i;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float dpr = dp[i];
+      if (p.drop.on) dpr = (kept >> i) & 1 ? dpr * p.drop.inv_keep : 0.f;
+      s[i] = s[i] * (dpr - ((i & 2) ? dl1 : dl0));   // dS
+    }
+
+    // dQ += dS K, dS from registers, K MN-major
+    uint32_t da[4][4];
+    p_frags(da, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<32>(dq, da[kc], desc_mn_major(k_s, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    if (more) store(kt + kStages - 1);
+  }
+  cp_async_wait<0>();
+
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
+}
+
 template <int D>
 cudaError_t launch_delta(const __nv_bfloat16* o, const __nv_bfloat16* dout,
                          float* delta, int B, int H, int T, long long o_sb,
@@ -539,6 +990,40 @@ cudaError_t launch(const BwdParams& p, const __nv_bfloat16* o, long long o_sb,
   return cudaGetLastError();
 }
 
+// The narrow backward: the dQ kernel, which fills delta, then the dK/dV
+// kernel as its programmatic dependent (its blocks may start as the dQ
+// kernel's last ones run; it waits for them before it reads delta).
+template <int D>
+cudaError_t launch_narrow(const BwdParams& p, const __nv_bfloat16* o,
+                          long long o_sb, long long o_sh, long long o_st,
+                          cudaStream_t s) {
+  static bool smem_dkdv = false, smem_dq = false;
+  constexpr int dkdv_bytes = narrow_dkdv_smem_bytes<D>();
+  constexpr int dq_bytes = narrow_dq_smem_bytes<D>();
+  cudaError_t err =
+      allow_smem(flash_bwd_narrow_dkdv_kernel<D>, dkdv_bytes, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_narrow_dq_kernel<D>, dq_bytes, smem_dq);
+  if (err != cudaSuccess) return err;
+  const int bh = p.B * p.H;
+  const dim3 grid_q(bh, (p.Tq + kRows - 1) / kRows);
+  flash_bwd_narrow_dq_kernel<D><<<grid_q, kThreads, dq_bytes, s>>>(
+      p, o, o_sb, o_sh, o_st, const_cast<float*>(p.delta));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh, (p.Tk + kRows - 1) / kRows);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = dkdv_bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_bwd_narrow_dkdv_kernel<D>, p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -546,7 +1031,8 @@ extern "C" {
 // q, k, v, dO, o, dq, dk, dv: (B, H, T, D) bf16 by strides (b, h, t); lse
 // (B*H, Tq) fp32; delta an fp32 (B*H, Tq) workspace the call fills; kv_lens
 // (B,) int32 or null.  Launches the delta kernel, the dK/dV kernel, then the
-// dQ kernel, on the stream.  Returns a cudaError_t (0 on success);
+// dQ kernel, on the stream; at head_dim 25 and 30 the dQ kernel (with
+// delta), then the dK/dV kernel.  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for a head_dim without an instantiation.
 int bpx_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const void* o, const void* lse,
@@ -595,7 +1081,12 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
-    return launch<decltype(d)::value>(p, ob, o_sb, o_sh, o_st, s);
+    constexpr int kD = decltype(d)::value;
+    if constexpr (padded_dim<kD>() == 32) {
+      return launch_narrow<kD>(p, ob, o_sb, o_sh, o_st, s);
+    } else {
+      return launch<kD>(p, ob, o_sb, o_sh, o_st, s);
+    }
   }));
 }
 
@@ -620,11 +1111,21 @@ int bpx_flash_delta(const void* o, const void* dout, void* delta, int B,
 int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return kernel == 0
-               ? bpx_flash::blocks_per_sm(flash_bwd_dkdv_kernel<kD>,
-                                          dkdv_smem_bytes<kD>(), blocks)
-               : bpx_flash::blocks_per_sm(flash_bwd_dq_kernel<kD>,
-                                          dq_smem_bytes<kD>(), blocks);
+    if constexpr (padded_dim<kD>() == 32) {
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(
+                       flash_bwd_narrow_dkdv_kernel<kD>,
+                       narrow_dkdv_smem_bytes<kD>(), blocks)
+                 : bpx_flash::blocks_per_sm(flash_bwd_narrow_dq_kernel<kD>,
+                                            narrow_dq_smem_bytes<kD>(),
+                                            blocks);
+    } else {
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(flash_bwd_dkdv_kernel<kD>,
+                                            dkdv_smem_bytes<kD>(), blocks)
+                 : bpx_flash::blocks_per_sm(flash_bwd_dq_kernel<kD>,
+                                            dq_smem_bytes<kD>(), blocks);
+    }
   }));
 }
 

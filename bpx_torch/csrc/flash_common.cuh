@@ -103,11 +103,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 //   * D = 30 (rows 4-byte aligned): 4-byte cp.async words, 16 threads per
 //     row, the words past column D zero-filled;
 //   * D = 25 (rows only 2-byte aligned, and cp.async copies 4, 8 or 16
-//     bytes): plain 2-byte loads into registers, then shared-memory stores,
-//     a warp per row, columns past D stored as zeros.  The stores are the
-//     generic proxy's, as cp.async's are, so the same fence.proxy.async and
-//     barrier publish them to wgmma; but the thread waits for its loads
-//     before it stores, so they do not overlap the tile's products.
+//     bytes): load_tile does plain 2-byte loads into registers, then
+//     shared-memory stores, a warp per row, columns past D stored as zeros.
+//     The stores are the generic proxy's, as cp.async's are, so the same
+//     fence.proxy.async and barrier publish them to wgmma.  load_tile waits
+//     for its loads before it returns: the forward's K/V ring pays that on
+//     every tile.  The backward's narrow kernels take NarrowTile below
+//     instead, whose loads are issued a tile ahead and stored after the
+//     products of the tile before, so they do not wait on the chain.
 // Rows at or past T are zero-filled, and no load reads a column >= D: in a
 // fused (B, T, 3, H, D) projection the next head's values sit there, and
 // past the last head of the last row the allocation ends.
@@ -137,6 +140,21 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void st_shared_u16(uint32_t dst, uint16_t v) {
   asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t dst, const uint32_t* v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(src)
+               : "memory");
+  return v;
 }
 
 // Make this thread's completed shared-memory writes (cp.async's and plain
@@ -206,6 +224,73 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     }
   }
 }
+
+// A narrow (D < 32) tile, rows [t0, t0 + 64) of a (batch, head) slice,
+// loaded in two steps so that its loads need not wait on the products of
+// the tile before: fetch() starts them, store() puts them into the tile at
+// dst (the same dst both times).  Columns D..31 and rows >= T are written
+// as zeros.
+//   * D even (rows 4-byte aligned): fetch() is load_tile (4-byte cp.async
+//     words); store() does nothing.
+//   * D odd (rows 2-byte aligned): fetch() issues plain loads into
+//     registers and returns; store() waits for them and writes the tile.
+//     Thread t owns row t / 2, columns 16 h .. 16 h + 15 (h = t % 2), read
+//     as the 4-byte words that cover them: from the row's first column if
+//     the row starts at a multiple of 4 bytes, else from the column before
+//     it (in the same aligned word as column 0, so never before the
+//     allocation; the byte permute drops it).  A word whose high half would
+//     be column D is a 2-byte load: no load reads a column >= D.  store()
+//     puts each pair of columns together from two words with a byte
+//     permute and writes two 16-byte chunks a thread, conflict-free.
+template <int D>
+struct NarrowTile {
+  static_assert(D < 32, "one panel");
+  uint32_t w[9];   // D odd: the covering words
+  int shift;       // D odd: 1 if the row starts 2 bytes past a word
+
+  __device__ __forceinline__ void fetch(uint32_t dst, const __nv_bfloat16* src,
+                                        long long stride_t, int t0, int T) {
+    if constexpr (D % 2 == 0) {
+      load_tile<D>(dst, src, stride_t, t0, T);
+    } else {
+      const int r = threadIdx.x / 2;
+      const int h = threadIdx.x % 2;
+      const bool ok = t0 + r < T;
+      const uintptr_t a = reinterpret_cast<uintptr_t>(
+          ok ? src + (long long)(t0 + r) * stride_t : src);
+      shift = ok ? static_cast<int>(a >> 1) & 1 : 0;
+      const uint32_t* words =
+          reinterpret_cast<const uint32_t*>(a - 2 * shift) + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        const int lo = 16 * h + 2 * j - shift;   // column of the low half
+        uint32_t x = 0;
+        if (ok && (j < 8 || shift)) {
+          if (lo + 1 < D) {
+            x = __ldg(words + j);
+          } else if (lo < D) {
+            x = __ldg(reinterpret_cast<const unsigned short*>(words + j));
+          }
+        }
+        w[j] = x;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(uint32_t dst) const {
+    if constexpr (D % 2 != 0) {
+      const int r = threadIdx.x / 2;
+      const int h = threadIdx.x % 2;
+      uint32_t o[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        o[m] = shift ? __byte_perm(w[m], w[m + 1], 0x5432) : w[m];
+      }
+      st_shared_v4(dst + tile_offset(r, 0, 2 * h), o);
+      st_shared_v4(dst + tile_offset(r, 0, 2 * h + 1), o + 4);
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // wgmma: descriptors, synchronisation, instructions

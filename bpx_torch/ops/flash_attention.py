@@ -13,13 +13,15 @@ so the backward regenerates the mask: the row sum keeps the undropped
 probabilities, kept ones are scaled by ``float32(1 / (1 - rate))``.
 
 The backward recomputes P from the saved log-sum-exp, with ``delta =
-rowsum(dO * O)`` in fp32: on the card the first kernel of the backward's
-launch computes it (what the JAX package's kernels compute in-kernel with
-``BPX_XLA_DELTA=0``; its default computes it in XLA before them, the same
-function), on the CPU :func:`attention_delta`'s plain version.  Masked
-entries get P = 0, so a row with no visible key gets zero gradients
-although its forward attended uniformly: that is the JAX package's
-backward, not the true derivative.
+rowsum(dO * O)`` in fp32: on the card the backward's kernels compute it
+(what the JAX package's kernels compute in-kernel with ``BPX_XLA_DELTA=0``;
+its default computes it in XLA before them, the same function), on the CPU
+:func:`attention_delta`'s plain version.  At head dims 64, 96 and 128 a
+backward is three kernels (delta, dK/dV, dQ); at a narrow head (25, 30) two:
+the dQ kernel computes delta for its rows and leaves it for the dK/dV
+kernel after it.  Masked entries get P = 0, so a row with no visible key
+gets zero gradients although its forward attended uniformly: that is the
+JAX package's backward, not the true derivative.
 
 The kernels take head dims 25, 30, 64, 96 and 128.  A narrow head (25, 30:
 the mmtrvat presets' 300-wide streams over 12 or 10 heads) runs the same
@@ -234,8 +236,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              kv_lens=None, dropout_rate=0.0,
                              dropout_seed=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
-    ``dout``; the kernels (delta, dK/dV, dQ) for CUDA tensors, the plain
-    version for CPU."""
+    ``dout``; the kernels (delta, dK/dV, dQ; at head_dim 25 and 30 dQ with
+    delta, then dK/dV) for CUDA tensors, the plain version for CPU."""
     if not use_kernel(q):
         return flash_attention_backward_reference(
             q, k, v, dout, lse, attention_delta(dout, out), masked, kv_lens,
@@ -251,8 +253,9 @@ def attention_delta_reference(dout: torch.Tensor,
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors: the backward's
-    first kernel on its own for CUDA tensors, the plain version for CPU."""
+    """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors: the wide
+    backward's first kernel on its own for CUDA tensors, the plain version
+    for CPU."""
     if not use_kernel(dout):
         return attention_delta_reference(dout, out)
     B, H, T, D = out.shape
@@ -391,7 +394,8 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
 #: forward kernel launches (and those with dropout) since last set to 0
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
-#: backward calls that launched the delta, dK/dV and dQ kernels
+#: backward calls that launched their kernels (delta, dK/dV, dQ; or, at a
+#: narrow head, dQ with delta and dK/dV)
 flash_attention_backward.launches = 0
 #: launches of the delta kernel on its own (not those inside the backward)
 attention_delta.launches = 0

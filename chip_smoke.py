@@ -40,9 +40,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    band) must move the gradients past their limit;
 6. the new kernels at the recorded micro-step's classes against their plain
    versions, with the same timings: the flash forward with dropout, the
-   flash backward (delta, dK/dV and dQ kernels, timed together, with the
-   profiler's split) at rate 0 and 0.1 (SDPA's backward as the library
-   yardstick) and its delta kernel alone, the LayerNorm backward
+   flash backward (delta, dK/dV and dQ kernels; at head_dim 25 and 30 the
+   dQ kernel, which computes delta, and the dK/dV kernel; timed together,
+   with the profiler's split, each kernel beside its own bound) at rate 0
+   and 0.1 (SDPA's backward as the library yardstick) and its delta kernel
+   alone, the LayerNorm backward
    (``F.layer_norm``'s backward; bitwise-equal reruns; the device kernels
    one call runs, from the profiler: exactly one, the cooperative launch,
    and no memset; its scalar kernel once on a misaligned view); the plain
@@ -116,7 +118,9 @@ head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, its
 rows by shape class, and on the moviescope rows the training loop's launches in
-phase 13 and per epoch) and, last, ``{"ok": true, "device": {...}}``.  It
+phase 13 and per epoch; the narrow backward also alone, at head_dim 25 from
+iemocap's train steps and at 30 from cmu-mosei's) and, last, ``{"ok": true,
+"device": {...}}``.  It
 imports nothing of JAX or of the JAX package; without a CUDA device, or
 without ``bpx_torch`` beside it, it exits non-zero and prints no result.
 """
@@ -683,15 +687,28 @@ def sdpa_backward(torch, q, k, v, ok, rate, dout):
                                        retain_graph=True)
 
 
-#: the backward's kernels, by the names the profiler reports
-BWD_KERNELS = ("flash_delta_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_dq_kernel")
+def bwd_kernels(D):
+    """The backward's kernels at head_dim D, by the names the profiler
+    reports, as (dQ, dK/dV, delta or None): a narrow head's dQ kernel
+    computes delta itself, so its backward is two launches."""
+    if D < 32:
+        return ("flash_bwd_narrow_dq_kernel", "flash_bwd_narrow_dkdv_kernel",
+                None)
+    return ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+            "flash_delta_kernel")
+
+
+def backward_split(torch, fn, D):
+    """{kernel: device ms per call} of one backward call ``fn`` at head
+    dim D, its kernels by their profiler names (``bwd_kernels``)."""
+    return kernel_ms(torch, fn, [k for k in bwd_kernels(D) if k])
 
 
 def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
-    """The backward kernels (delta, dK/dV, dQ) against the plain backward at
-    each class of the recorded micro-step, from the kernel forward's lse;
-    the delta kernel on its own against its plain version."""
+    """The backward kernels (delta, dK/dV, dQ; at a narrow head the dQ
+    kernel with delta, then dK/dV) against the plain backward at each class
+    of the recorded micro-step, from the kernel forward's lse; the delta
+    kernel on its own against its plain version."""
     from bpx_torch.ops import flash_attention as fa
     rows = []
     seed = 0x7F4A7C15
@@ -730,14 +747,16 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
         sdpa = sdpa_backward(torch, q, k, v, ok, rate, dout)
         t_l = timer(sdpa)
         backend = sdpa_backend(torch, sdpa)
-        split = kernel_ms(torch, lambda: fa._launch_bwd(
-            q, k, v, dout, lse, out, masked, kv_lens, *drop), BWD_KERNELS)
+        split = backward_split(torch, lambda: fa._launch_bwd(
+            q, k, v, dout, lse, out, masked, kv_lens, *drop), D)
         dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens)
         again = fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens,
                                *drop)
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"flash backward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         eff_masked = fa.effective_band(Tq, Tk, masked)[0]
+        launches = ("dQ (with delta) + dK/dV" if D < 32
+                    else "delta + dK/dV + dQ")
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, per_forward=count,
                          max_abs_err=max(max_err(g, w)
@@ -751,7 +770,7 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
               f"kv_lens={padded} rate={rate} x{count}/micro-step: "
               f"dq/dk/dv rel err {max(errs):.3g} (tol {FLASH_GRAD_TOL}), "
               f"delta err {err_d:.3g} (tol {DELTA_TOL}), reruns bitwise "
-              f"equal; delta + dK/dV + dQ "
+              f"equal; {launches} "
               + timing_text(t_k, t_p, t_l, b_ms, b_by,
                             f"sdpa bwd ({backend})")
               + "; profiler: " + ", ".join(f"{n} {t:.4f} ms"
@@ -975,11 +994,18 @@ def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens):
     """Bounds of the dQ and the dK/dV kernel alone, each against the work
     it does: both read q, k, v, dO, lse and delta and compute S and dP (4 D
     flops per visible score entry); dQ then writes dq (2 D more), dK/dV
-    writes dk and dv (4 D more)."""
+    writes dk and dv (4 D more).  At a narrow head the dQ kernel computes
+    delta: it reads O and writes delta instead of reading it (2 D flops a
+    row more)."""
     visible, keys, _ = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
     bh = B * H
     io = 2 * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
-    return (bound_ms(io + 2 * D * bh * Tq, 6.0 * D * visible),
+    dq_io = io + 2 * D * bh * Tq
+    dq_flops = 6.0 * D * visible
+    if D < 32:
+        dq_io += 2 * D * bh * Tq
+        dq_flops += 2.0 * D * bh * Tq
+    return (bound_ms(dq_io, dq_flops),
             bound_ms(io + 4 * D * bh * Tk, 8.0 * D * visible))
 
 
@@ -1028,13 +1054,13 @@ def phase_long_shape(torch, timer, gen, D=64):
     # rows 3 and 4: the dQ and dK/dV kernels, each against the work it does
     # (S and dP, then dQ; S^T and dP^T, then dV and dK); SDPA has no call of
     # its own for either, so its whole backward stands beside the pair
-    split = kernel_ms(torch, lambda: fa._launch_bwd(
-        q, k, v, dout, lse, out, True, None, rate, seed), BWD_KERNELS)
+    dq_name, dkdv_name, delta_name = bwd_kernels(D)
+    split = backward_split(torch, lambda: fa._launch_bwd(
+        q, k, v, dout, lse, out, True, None, rate, seed), D)
     t_l = timer(sdpa_backward(torch, q, k, v, ok, rate, dout))
     dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, True, None)
-    rows["3 dQ kernel"] = (split["flash_bwd_dq_kernel"], None, t_l, *dq_b)
-    rows["4 dK/dV kernel"] = (split["flash_bwd_dkdv_kernel"], None, t_l,
-                              *dkdv_b)
+    rows["3 dQ kernel"] = (split[dq_name], None, t_l, *dq_b)
+    rows["4 dK/dV kernel"] = (split[dkdv_name], None, t_l, *dkdv_b)
     nbytes, flops, _ = flash_bwd_work(torch, B, H, Tq, Tk, D, True, None)
     rows["2-4 whole backward"] = (
         timer(lambda: fa._launch_bwd(q, k, v, dout, lse, out, True, None,
@@ -1047,8 +1073,11 @@ def phase_long_shape(torch, timer, gen, D=64):
               + (f"{t_p:.4f} ms" if t_p is not None else "-")
               + f", sdpa {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"{b_ms / t_k:.1%} of the bound, {t_k / t_lib:.2f}x sdpa")
-    print(f"[long] D={D} delta kernel {split['flash_delta_kernel']:.4f} ms "
-          f"of the backward")
+    if delta_name:
+        print(f"[long] D={D} delta kernel {split[delta_name]:.4f} ms of the "
+              f"backward")
+    else:
+        print(f"[long] D={D} no delta kernel: the dQ kernel computes delta")
     return {name: dict(ms=r[0], plain_ms=r[1], library_ms=r[2],
                        bound_ms=r[3], bound_by=r[4])
             for name, r in rows.items()}
@@ -1878,6 +1907,16 @@ def phase_loop(torch, np, card: str, checked):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def narrow_rows(rows):
+    """The rows of a narrow head dim (25, 30) among a path's rows."""
+    return [r for r in rows if r["shape"][3] < 32]
+
+
+def narrow_launches(seen) -> int:
+    """Flash backward calls at a narrow head dim in a recording."""
+    return sum(c for cls, c in seen["flash_bwd"].items() if cls[4] < 32)
+
+
 def summarise(name, source, replaces, rows, launches, runs, per):
     """One kernel's entry: times are per launch, averaged over the recorded
     run's mix of shapes (weights: each class's launches in that run)."""
@@ -1987,8 +2026,9 @@ def main() -> None:
                                          scalar_path=False)
     phase_mask_check(torch, gen, BATCH, 12, 512, 25)
     i_long_rows = phase_long_shape(torch, timer, gen, 25)
-    i_trained = phase_train(torch, model, step, batches, args.profile,
-                            IEMOCAP)
+    with recording() as i_train_seen:
+        i_trained = phase_train(torch, model, step, batches, args.profile,
+                                IEMOCAP)
     del model, loss_fn, step, batches
     torch.cuda.empty_cache()
     print(f"[time] iemocap phases {time.time() - t0:.1f} s")
@@ -2139,6 +2179,14 @@ def main() -> None:
         dict(summarise("flash_bwd_cmu_mosei", bwd_src, bwd_tpu, c_bwd_rows,
                        c_trained["totals"]["flash_bwd"], TRAIN_A,
                        "micro_step"), long_shape=c_long_rows),
+        # the narrow backward alone (rows 2 @ 25 and 2 @ 30: its own two
+        # kernels), launches those of the train steps at head_dim 25 / 30
+        summarise("flash_bwd_narrow_d25", bwd_src, bwd_tpu,
+                  narrow_rows(i_bwd_rows), narrow_launches(i_train_seen),
+                  steps, "micro_step"),
+        summarise("flash_bwd_narrow_d30", bwd_src, bwd_tpu,
+                  narrow_rows(c_bwd_rows), narrow_launches(c_seen), TRAIN_A,
+                  "micro_step"),
         # mmimdb: head_dim 128 (and BERT's 64)
         summarise("flash_fwd_mmimdb", fwd_src, fwd_tpu, m_flash_rows,
                   m_served["flash_launches"], REQUESTS, "forward"),

@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""The narrow-head flash-attention backward (head_dim 25 and 30) on a CUDA
+card, one build against another in the same process.
+
+    python3 scripts/torch_flash_bwd_narrow.py
+    python3 scripts/torch_flash_bwd_narrow.py --tree parent=build/parent \\
+        --variant LABEL=-DSOME_MACRO=1
+
+Builds the port's kernels from ``bpx_torch/csrc`` of this checkout
+("this"), from each ``--tree LABEL=DIR`` (a checkout's root, e.g. the parent
+commit unpacked with ``git archive``) and with each ``--variant
+LABEL=FLAGS`` (extra nvcc flags, comma-separated, on this checkout's
+sources).  Prints ptxas' registers and spills of every flash backward
+kernel and the blocks per SM at head_dim 25 and 30 of each build.  Then, at
+the iemocap class (8 x 12, 512 x 512 causal, D 25) and the cmu-mosei class
+(8 x 10, D 30), or each ``--shape B,H,T,D``, rate 0 and 0.1, on strided
+views of fused projections as
+the model hands them over: every build's backward against the plain
+version (``FLASH_GRAD_TOL`` of ``chip_smoke.py``) and bitwise on a rerun,
+then its time (CUDA events, ``chip_smoke.Timer``) in turns (A B ... B A,
+``--rounds`` times) and the profiler's device time per kernel.  A build
+that fails, or disagrees with the plain version, is reported and dropped.
+Writes ``chiprun_out/flash_bwd_narrow.json``.  Without a card it exits
+non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+CLASSES = ((8, 12, 512, 25), (8, 10, 512, 30))
+RATES = (0.0, 0.1)
+SEED = 0x7F4A7C15
+
+
+def build(label, src_dir, base_flags, flags):
+    """Build and load one library; returns a dict with the library, ptxas'
+    lines of the backward kernels (and its wgmma warnings), the blocks per
+    SM; None if the build fails."""
+    from bpx_torch.ops import _cuda
+    _cuda.SRC_DIR = Path(src_dir)
+    _cuda.CFLAGS = base_flags + list(flags)
+    _cuda._lib = None
+    try:
+        lib = _cuda.library()
+    except RuntimeError as e:
+        print(f"[{label}] build failed: {str(e)[:4000]}")
+        return None
+    lines, name, spill = [], "", ""
+    for line in _cuda.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = cs.kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and "flash_bwd" in name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "wgmma" in line.lower():
+            lines.append(f"{name}: {line.strip()}")
+    from bpx_torch.ops.flash_attention import blocks_per_sm
+    occ = {d: blocks_per_sm(d) for d in (25, 30)}
+    print(f"[{label}] built from {src_dir} {' '.join(flags)}")
+    for line in lines:
+        print(f"[{label}] {line}")
+    print(f"[{label}] blocks per SM: {occ}")
+    return dict(label=label, lib=lib, ptxas=lines, blocks_per_sm=occ)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="LABEL=DIR: build DIR/bpx_torch/csrc too")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="LABEL=FLAG,FLAG: this tree with extra nvcc flags")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--shape", action="append", default=[],
+                    help="B,H,T,D: a causal T x T class to time instead of "
+                         "the two model classes (repeatable)")
+    args = ap.parse_args()
+    classes = ([tuple(int(x) for x in spec.split(",")) for spec in args.shape]
+               or CLASSES)
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("torch_flash_bwd_narrow: no CUDA device")
+    from bpx_torch.ops import _cuda
+    from bpx_torch.ops import flash_attention as fa
+    base_flags = list(_cuda.CFLAGS)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"card: {card.strip()}")
+    here = ROOT / "bpx_torch" / "csrc"
+    builds = [build("this", here, base_flags, [])]
+    for spec in args.tree:
+        label, d = spec.split("=", 1)
+        builds.append(build(label, ROOT / d / "bpx_torch" / "csrc",
+                            base_flags, []))
+    for spec in args.variant:
+        label, flags = spec.split("=", 1)
+        builds.append(build(label, here, base_flags, flags.split(",")))
+    builds = [b for b in builds if b is not None]
+
+    timer = cs.Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = []
+    for B, H, Tq, D in classes:
+        Tk = Tq
+        for rate in RATES:
+            q, k, v, _ = cs.attention_inputs(torch, gen, B, H, Tq, Tk, D,
+                                             False)
+            drop = (rate, SEED if rate else None)
+            _cuda._lib = builds[0]["lib"]
+            out, lse = fa.flash_attention(q, k, v, True, None, *drop,
+                                          return_lse=True)
+            dout = torch.randn(B, Tq, H, D, generator=gen,
+                               device="cuda").to(torch.bfloat16).transpose(
+                                   1, 2)
+            want = fa.flash_attention_backward_reference(
+                q, k, v, dout, lse, fa.attention_delta_reference(dout, out),
+                True, None, *drop)
+            call = lambda: fa._launch_bwd(q, k, v, dout, lse, out, True,
+                                          None, *drop)
+            nbytes, flops, _ = cs.flash_bwd_work(torch, B, H, Tq, Tk, D,
+                                                 True, None)
+            b_ms, b_by = cs.bound_ms(nbytes, flops)
+            times = {b["label"]: [] for b in builds}
+            row = dict(shape=[B * H, Tq, Tk, D], rate=rate, bound_ms=b_ms,
+                       bound_by=b_by, builds={})
+            for b in list(builds):
+                _cuda._lib = b["lib"]
+                got = call()
+                again = call()
+                torch.cuda.synchronize()
+                errs = [cs.grad_err(g, w) for g, w in zip(got, want)]
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                if not (max(errs) <= cs.FLASH_GRAD_TOL and same):
+                    print(f"[{b['label']}] WRONG at {(B, H, Tq, D, rate)}: "
+                          f"rel errs {errs}, reruns equal {same}; dropped")
+                    builds.remove(b)
+                    del times[b["label"]]
+                    continue
+                split = cs.device_kernels(torch, call)
+                row["builds"][b["label"]] = dict(
+                    rel_err=max(errs),
+                    split_ms={cs.short_name(n): t
+                              for n, (_, t) in split.items()},
+                    kernels_per_call={n: c for n, (c, _) in split.items()})
+            order = builds + builds[::-1]
+            for _ in range(args.rounds):
+                for b in order:
+                    _cuda._lib = b["lib"]
+                    times[b["label"]].append(timer(call))
+            for b in builds:
+                r = row["builds"][b["label"]]
+                r["ms"] = statistics.median(times[b["label"]])
+                r["ms_all"] = times[b["label"]]
+                print(f"[{b['label']}] BH={B * H} {Tq}x{Tk} D={D} rate="
+                      f"{rate}: {r['ms']:.4f} ms (runs "
+                      + ", ".join(f"{t:.4f}" for t in r["ms_all"])
+                      + f"), bound {b_ms:.4f} ms ({b_by}), "
+                      f"{b_ms / r['ms']:.1%} of it; rel err "
+                      f"{r['rel_err']:.3g}, reruns bitwise equal; profiler: "
+                      + ", ".join(f"{n} {t:.4f} ms"
+                                  for n, t in r["split_ms"].items()))
+            results.append(row)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "flash_bwd_narrow.json").write_text(json.dumps(dict(
+        card=card.strip(),
+        builds=[{k: v for k, v in b.items() if k != "lib"} for b in builds],
+        rows=results), indent=1))
+    print(card.strip())
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,8 @@ single rows, widths without vector loads, fp32 input and output, a long
 multi-tile shape) and at the model's own attention classes, forward and
 backward, with and without dropout; the narrow heads (head_dim 25 and 30)
 at tile edges, on fused-projection views the wrapper must not copy, on a
-view that ends its allocation, and their exact dropout masks; head_dim 128
+view that ends its allocation, their exact dropout masks and the two
+kernels of their backward; head_dim 128
 (mmimdb) at tile edges, its model class, its fused views and its exact
 masks; the backward's delta kernel alone; synthetic-tiny served and trained
 through the einsum attention with no flash launch; the
@@ -296,27 +297,32 @@ def _fused_views(gen, B, H, Tq, Tk, D):
     return q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
 
 
-NARROW_EDGES = [(T, T) for T in (1, 63, 64, 65, 200, 512)] + [(77, 130),
-                                                              (130, 77)]
+# (B, H, Tq, Tk, kv_lens when padded): lengths around the 64-row tiles,
+# odd and even numbers of tiles (576 is nine; the narrow backward's grids
+# take the tiles in reverse for dQ), Tk < 64 < Tq (one key tile), Tq != Tk
+# with the band's offset, B*H = 1, and key lengths shorter than one tile
+NARROW_EDGES = [(3, 2, T, T, (T, max(T // 2, 1), 1))
+                for T in (1, 63, 64, 65, 200, 512, 576)] + [
+    (3, 2, 77, 130, (130, 65, 1)), (3, 2, 130, 77, (77, 38, 1)),
+    (3, 2, 130, 40, (40, 20, 1)), (1, 1, 200, 576, (40,)),
+    (1, 1, 576, 130, (129,)), (1, 1, 321, 321, (321,))]
 
 
 @pytest.mark.parametrize("D", [25, 30])
-@pytest.mark.parametrize("Tq,Tk", NARROW_EDGES)
+@pytest.mark.parametrize("B,H,Tq,Tk,lens", NARROW_EDGES)
 @pytest.mark.parametrize("masked,padded", [(True, False), (False, True),
                                            (True, True)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_narrow_flash_kernels_match_plain(gen, D, Tq, Tk, masked, padded,
-                                          rate):
+def test_narrow_flash_kernels_match_plain(gen, D, B, H, Tq, Tk, lens,
+                                          masked, padded, rate):
     """head_dim 25 and 30 at lengths around the 64-row tiles, band on and
     off, kv_lens, rate 0 and 0.1, on strided views of fused projections:
     forward and backward against the plain versions, and bitwise-equal
     backward reruns."""
-    B, H = 3, 2
     q, k, v = _fused_views(gen, B, H, Tq, Tk, D)
     kv = None
     if padded:
-        kv = torch.tensor([Tk, max(Tk // 2, 1), 1], dtype=torch.int32,
-                          device="cuda")
+        kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
     seed = 0xC0FFEE if rate else None
     before = flash_attention.launches
     out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
@@ -472,6 +478,24 @@ def test_narrow_dropout_mask_is_exact(gen, D):
     assert torch.equal(bwd, keep)
 
 
+@pytest.mark.parametrize("D,H", [(25, 12), (30, 10)])
+def test_narrow_backward_is_two_kernels(gen, D, H):
+    """A narrow backward is two device kernels, the dQ kernel (which
+    computes delta) and the dK/dV kernel, with no delta kernel of its own
+    and no memset."""
+    q, k, v = _fused_views(gen, 2, H, 200, 200, D)
+    out, lse = flash_attention(q, k, v, True, None, return_lse=True)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    for _ in range(3):   # the profiler drops an event now and then: retry
+        names = _device_kernels(lambda: flash_attention_backward(
+            q, k, v, out, lse, dout, True, None))
+        if len(names) == 2:
+            break
+    assert len(names) == 2, names
+    assert any("flash_bwd_narrow_dq_kernel" in n for n in names), names
+    assert any("flash_bwd_narrow_dkdv_kernel" in n for n in names), names
+
+
 def test_dropout_mask_is_exact_at_head_dim_128(gen):
     """The forward and backward kernels' dropout masks at head_dim 128
     (two column blocks in the dK/dV kernel), every bit of a 128 x 128
@@ -486,10 +510,15 @@ def test_dropout_mask_is_exact_at_head_dim_128(gen):
 def test_kernels_fit_the_sm(gen):
     """Every head dim's forward, dK/dV and dQ kernels fit at least one
     block per SM (their shared memory and registers), by the occupancy
-    calculator; an untabled head dim raises."""
+    calculator, and the narrow heads' backward kernels the blocks their
+    design counts on (dK/dV 3, dQ 4: flash_bwd.cu); an untabled head dim
+    raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
-        assert min(blocks_per_sm(d).values()) >= 1
+        got = blocks_per_sm(d)
+        assert min(got.values()) >= 1
+        if d < 32:
+            assert got["dK/dV"] >= 3 and got["dQ"] >= 4, (d, got)
     with pytest.raises(NotImplementedError, match="head_dim"):
         blocks_per_sm(48)
 
