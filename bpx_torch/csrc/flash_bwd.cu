@@ -21,12 +21,12 @@
 //
 // Design.  The TPU kernel holds the whole Tq x Tk tile of one (batch, head)
 // in VMEM and emits dQ, dK and dV from it in one program; an SM cannot hold
-// it.  At D = 64, 96, 128, three launches on the stream, deterministic and
-// without atomics (the narrow heads' two are below):
+// it.  At D = 64 and 96, three launches on the stream, deterministic and
+// without atomics (the narrow heads' two and D = 128's two are below):
 //   * delta: two rows per warp, dO and O read once, a fixed-order sum;
 //   * dK/dV: one warpgroup per (batch*head, 64-key tile) with K and V
 //     resident, looping over 64-query tiles of Q, dO, lse and delta that
-//     stream through a 3-stage cp.async ring (2 stages at D = 128).  It
+//     stream through a 3-stage cp.async ring.  It
 //     computes the transposed scores S^T = K Q^T and dP^T = V dO^T with
 //     wgmma (K, V, Q, dO all K-major in shared memory), so P^T and dS^T
 //     come out of the accumulator in the register A-fragment layout of
@@ -86,26 +86,37 @@
 // products, wait) of a few microseconds, and three chains an SM do not
 // hide it.
 //
-// D = 128 (mmimdb: 768 / 6).  The forward's layout takes it as four panels
-// and the dQ kernel as it stands (dQ 64 + S 32 + dP 32 fp32 a thread).  The
-// dK/dV kernel would hold dK and dV (2 x 64) beside S^T and dP^T (2 x 32):
-// 192 fp32 accumulators a thread before the A fragments (32 registers) and
-// the addresses, past the 255 a thread may have.  Its register plan: two
-// blocks per (batch*head, key tile), each owning 64 of dK's and dV's 128
-// columns (blockIdx.z), each computing S^T and dP^T in full from the whole
-// Q, dO, K and V tiles (the reduction runs over all of D).  So a block holds
-// 64 + 64 fp32 accumulators and the A fragments, the products of dV and dK
-// run as m64n64k16 on the B operand's panels 2z and 2z + 1, and no shared
-// memory is passed between blocks.  The price: S^T and dP^T are computed
-// twice and the Q and dO tiles read twice (the second time mostly from L2);
-// in return the grid doubles (768 blocks at mmimdb's 8 x 6 x 512 keys).  A
-// producer warp with setmaxnreg (FlashAttention-3's backward at D = 128)
-// would keep one S^T per tile but waits for a redesign.  Shared memory at
-// D = 128 with 3 stages would be 132 KB a dK/dV block and 129 KB a dQ block,
-// one block of each per SM; with 2 stages it is 99 and 97 KB, two blocks
-// of each per SM (their 238 and 216 registers allow two), and the
-// backward measured faster at mmimdb's class, by the same arithmetic in
-// the same order (PERF.md).
+// D = 128 (mmimdb: 768 / 6) has kernels of its own (flash_bwd_wide_*),
+// two launches a backward as at the narrow heads, both grids longest
+// blocks first:
+//   * dQ first, one warpgroup per (batch*head, 64-query tile) as above,
+//     which also computes delta for its rows; O is staged in the ring stage
+//     that the 2-stage prologue leaves empty, so the block keeps 97 KB of
+//     shared memory and two blocks fit an SM (223 registers, no spills);
+//   * dK/dV second, its programmatic dependent, two consumer warpgroups in
+//     a 256-thread block per (batch*head, 64-key tile): K and V resident,
+//     Q, dO, lse and delta through a 3-stage ring (132 KB, one block per
+//     SM).  Warpgroup w takes queries 32 w .. 32 w + 31 of each query
+//     tile: S^T and dP^T for them (m64n32k16, 8 k-steps each), then dV and
+//     dK over all 128 columns from them (m64n128k16, 2 k-steps each, A from
+//     registers).  So S^T and dP^T are computed once per (key tile, query
+//     tile), no product is repeated, and nothing is exchanged inside a
+//     tile step; a thread holds dK and dV (64 + 64 fp32) beside S^T and
+//     dP^T (16 + 16): 230 registers, no spills.  Each warpgroup loads
+//     and waits for (a named barrier) only its own rows of each stage, so
+//     the two drift apart and one's softmax overlaps the other's products.
+//     The two warpgroups' dK and dV are added once, at the end, through
+//     shared memory: dK = dK_0 + dK_1 and dV = dV_0 + dV_1, a fixed order.
+// Measured on an H100 (PERF.md, scripts/torch_flash_bwd_narrow.py), one
+// step at a time, each faster than the one before: the order, delta in the
+// dQ kernel with dK/dV its dependent, the two warpgroups, a third stage,
+// the decoupled warpgroups.  Splitting the warpgroups by product instead
+// (S^T and P^T in one, dP^T in the other, P and dS exchanged through
+// shared memory every tile step), two warpgroups in the dQ kernel (each
+// half the keys of a tile, at one or two blocks per SM) and a third dQ
+// stage (one block per SM) measured slower and are not kept.  The
+// backward reaches about a fifth of its bound: a tile step is still a
+// serial chain per warpgroup, and one dK/dV block an SM holds two.
 //
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
 // against q, k, v, dO, o read and dq, dk, dv written once; at the model's
@@ -123,7 +134,7 @@ namespace {
 using namespace bpx_flash;
 
 // Streamed tiles in flight: 3, and 2 at D = 128, where a third stage
-// would cost the second block of each kernel on an SM (the header).
+// would cost the dQ kernel its second block on an SM (the header).
 template <int D>
 __host__ __device__ constexpr int stages() {
   return padded_dim<D>() > 96 ? 2 : 3;
@@ -136,7 +147,7 @@ struct BwdParams {
   const __nv_bfloat16* dout;
   const float* lse;        // (B*H, Tq)
   const float* delta;      // (B*H, Tq), written by flash_delta_kernel
-                           // (narrow heads: flash_bwd_narrow_dq_kernel)
+                           // (D = 25, 30, 128: by the dQ kernel)
   const int* kv_lens;      // (B,) or nullptr
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
@@ -172,13 +183,6 @@ __host__ __device__ constexpr int dkdv_smem_bytes() {
 template <int D>
 __host__ __device__ constexpr int dq_smem_bytes() {
   return (2 + 2 * stages<D>()) * tile_bytes<D>() + 1024;
-}
-
-// Blocks that share one key tile's dK and dV, each owning DP / split of
-// their columns: 2 at D = 128 (the register plan in the header), else 1.
-template <int D>
-__host__ __device__ constexpr int dkdv_split() {
-  return padded_dim<D>() > 96 ? 2 : 1;
 }
 
 template <int N>
@@ -246,7 +250,7 @@ flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
   if (row < rows && lane == 0) delta[row] = sum;
 }
 
-// One (batch*head, 64-key tile, column block): dK and dV.
+// One (batch*head, 64-key tile): dK and dV.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const BwdParams p) {
@@ -255,8 +259,6 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int kStage = dkdv_stage_bytes<D>();
   constexpr int kKSteps = DP / 16;
   constexpr int kStages = stages<D>();
-  constexpr int DN = DP / dkdv_split<D>();    // dK / dV columns of the block
-  constexpr int DS = DN == DP ? D : DN;       // the columns its stores write
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -275,15 +277,13 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
   const int kv_end = min(Tk, kv_len);
   const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
-  const int c0 = blockIdx.z * DN;         // this block's first dK/dV column
-  const uint32_t c0_bytes = c0 / 32 * kPanelBytes;   // in a tile: its panel
 
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* ob = p.dout + b * p.o_sb + h * p.o_sh;
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float* dl_b = p.delta + (long long)bh * Tq;
 
-  float dk[DN / 2], dv[DN / 2], st[32], dpt[32];
+  float dk[DP / 2], dv[DP / 2], st[32], dpt[32];
   zero(dk);
   zero(dv);
   zero(st);
@@ -383,19 +383,18 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
       st[i2] = pdr;
     }
 
-    // dV += P^T dO and dK += dS^T Q over this block's columns, A from
-    // registers, B MN-major
+    // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
     uint32_t pa[4][4], da[4][4];
     p_frags(pa, st);
     p_frags(da, dpt);
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DN>(dv, pa[kc], desc_mn_major(o_s + c0_bytes, kc));
+      wgmma_rs_mn<DP>(dv, pa[kc], desc_mn_major(o_s, kc));
     }
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DN>(dk, da[kc], desc_mn_major(q_s + c0_bytes, kc));
+      wgmma_rs_mn<DP>(dk, da[kc], desc_mn_major(q_s, kc));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -404,10 +403,8 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  store_rows<DS>(p.dk + b * p.dk_sb + h * p.dk_sh + c0, p.dk_st, key0, Tk,
-                 dk, t4);
-  store_rows<DS>(p.dv + b * p.dv_sb + h * p.dv_sh + c0, p.dv_st, key0, Tk,
-                 dv, t4);
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4);
 }
 
 // One (batch*head, 64-query tile): dQ.
@@ -955,6 +952,437 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
 }
 
+// ---------------------------------------------------------------------------
+// D = 128: dQ with delta, then dK/dV over two warpgroups (the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideQN = 32;                 // queries of a tile a warpgroup takes
+constexpr int kWideThreads = 2 * kThreads;  // the dK/dV kernel's two warpgroups
+constexpr int kWideStages = 3;              // the dK/dV kernel's ring
+
+// K and V resident, kWideStages x (Q, dO, lse, delta); +1 KB.
+template <int D>
+__host__ __device__ constexpr int wide_dkdv_smem_bytes() {
+  return 2 * tile_bytes<D>() + kWideStages * dkdv_stage_bytes<D>() + 1024;
+}
+
+// Rows [r0, r0 + n) of the 64-row tile at dst, from rows t0 + r0 .. of
+// the slice, by the 128 threads of one warpgroup, as 16-byte cp.async
+// chunks (load_tile_by); rows at or past T zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows_by(int tid, int r0, int n,
+                                             uint32_t dst,
+                                             const __nv_bfloat16* src,
+                                             long long stride_t, int t0,
+                                             int T) {
+  static_assert(D % 32 == 0, "whole panels");
+  const int chunks = n * D / 8;
+  for (int i = tid; i < chunks; i += kThreads) {
+    const int c = i & 3;
+    const int r = r0 + (i >> 2) % n;
+    const int panel = (i >> 2) / n;
+    const bool ok = t0 + r < T;
+    const __nv_bfloat16* g =
+        ok ? src + (long long)(t0 + r) * stride_t + panel * 32 + c * 8 : src;
+    cp_async_16(dst + tile_offset(r, panel, c), g, ok);
+  }
+}
+
+// The barrier of one warpgroup (named barrier id, 128 threads).
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+// One (batch*head, 64-key tile): dK and dV.  Warpgroup w takes queries
+// 32 w .. 32 w + 31 of every streamed tile: it loads those rows of Q and dO
+// (and their lse and delta) into its half of each ring stage, computes S^T
+// and dP^T for them (m64n32k16), then dV and dK over all 128 columns from
+// them (m64n128k16, A from registers).  After K and V, each warpgroup
+// waits at its own barrier for its own rows only, so the two drift apart
+// and one's softmax overlaps the other's products; their sums are added
+// once, at the end.  Batch*head along x, key tiles along y (key tile 0, the
+// most query tiles of a causal band, first).  Launched dependent on the dQ
+// kernel: K and V load before it ends, delta after.
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_bwd_wide_dkdv_kernel(const BwdParams p) {
+  constexpr int DP = padded_dim<D>();
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kStage = dkdv_stage_bytes<D>();
+  constexpr int kKSteps = DP / 16;
+  constexpr int kStages = kWideStages;
+  constexpr int QN = kWideQN;
+  static_assert(DP * kThreads * 4 <= kStages * kStage,
+                "the ring holds the warpgroups' partial sums");
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t stage0 = v_s + kTile;   // stage s: Q, dO, lse, delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = blockIdx.y * kRows;
+  const int wg = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
+  const uint32_t qh = wg * QN * 64;      // the warpgroup's rows in a panel
+  const int ks0 = wg * QN / 16;          // ... as k-steps of an MN-major B
+
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* ob = p.dout + b * p.o_sb + h * p.o_sh;
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float* dl_b = p.delta + (long long)bh * Tq;
+
+  // query tiles that see a key of this tile: none past kv_len; with the
+  // band, only rows with row + offset >= k0
+  const int q_begin = p.masked ? max(0, k0 - p.offset) / kRows : 0;
+  const int q_end = k0 >= kv_len ? 0 : (Tq + kRows - 1) / kRows;
+  const int n_tiles = max(0, q_end - q_begin);
+
+  // query tile q_begin + i goes to ring stage i mod kStages; this
+  // warpgroup's rows of Q and dO, lse and delta
+  auto load_stage = [&](int i) {
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t dst = stage0 + (i % kStages) * kStage;
+    load_rows_by<D>(tid, wg * QN, QN, dst, qb, p.q_st, q0, Tq);
+    load_rows_by<D>(tid, wg * QN, QN, dst + kTile, ob, p.o_st, q0, Tq);
+    if (tid < 2 * QN) {
+      const int r = wg * QN + tid % QN;
+      const bool ok = q0 + r < Tq;
+      const float* src = tid < QN ? lse_b : dl_b;
+      cp_async_4(dst + 2 * kTile + (tid < QN ? 0 : 4 * kRows) + 4 * r,
+                 ok ? src + q0 + r : src, ok);
+    }
+  };
+
+  if (n_tiles > 0) {
+    // K by warpgroup 0, V by warpgroup 1
+    load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
+                    wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                            : p.v + b * p.v_sb + h * p.v_sh,
+                    wg == 0 ? p.k_st : p.v_st, k0, Tk);
+    // delta: written by the dQ kernel, which this launch may overlap
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_stage(i);
+    cp_async_commit();
+  }
+
+  float dk[DP / 2], dv[DP / 2], st[QN / 2], dpt[QN / 2];
+  zero(dk);
+  zero(dv);
+  zero(st);
+  zero(dpt);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    // K and V come from both warpgroups; after them each waits only for
+    // its own rows
+    if (i == 0) {
+      __syncthreads();
+    } else {
+      group_sync(1 + wg);
+    }
+    if (i + kStages - 1 < n_tiles) load_stage(i + kStages - 1);
+    cp_async_commit();
+
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t q_s = stage0 + (i % kStages) * kStage;
+    const uint32_t o_s = q_s + kTile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
+    const float* dl_s = lse_s + kRows;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x this warpgroup's queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<QN>(st, desc_k_major(k_s, kk), desc_k_major(q_s + qh, kk),
+                   kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<QN>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s + qh, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T (masked entries 0), dropout, dS^T; the dropped P^T replaces S^T
+    // and dS^T replaces dP^T in place
+#pragma unroll
+    for (int i2 = 0; i2 < QN / 2; ++i2) {
+      const int qi = wg * QN + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+      st[i2] = ex2(fmaf(st[i2], kLog2e, -lse_s[qi] * kLog2e));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i2 = 0; i2 < QN / 2; ++i2) {
+        const int row = q0 + wg * QN + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+        const int col = (i2 & 2) ? key0 + 8 : key0;
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          st[i2] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < QN / 2; ++i2) {
+      const int qi = wg * QN + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+      const int row = q0 + qi;
+      const int col = (i2 & 2) ? key0 + 8 : key0;
+      const float pr = st[i2];
+      float dpr = dpt[i2];
+      float pdr = pr;
+      if (p.drop.on) {
+        const bool kept = p.drop.keep(bh, row, col);
+        pdr = kept ? pr * p.drop.inv_keep : 0.f;
+        dpr = kept ? dpr * p.drop.inv_keep : 0.f;
+      }
+      dpt[i2] = pr * (dpr - dl_s[qi]);
+      st[i2] = pdr;
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's queries, A from
+    // registers, B MN-major
+    uint32_t pa[QN / 16][4], da[QN / 16][4];
+    p_frags(pa, st);
+    p_frags(da, dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < QN / 16; ++kc) {
+      wgmma_rs_mn<DP>(dv, pa[kc], desc_mn_major(o_s, ks0 + kc));
+    }
+#pragma unroll
+    for (int kc = 0; kc < QN / 16; ++kc) {
+      wgmma_rs_mn<DP>(dk, da[kc], desc_mn_major(q_s, ks0 + kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+  }
+  cp_async_wait<0>();
+
+  // dK = dK_0 + dK_1 and dV = dV_0 + dV_1: warpgroup 0 hands its dV to
+  // warpgroup 1 and takes its dK through the ring's shared memory (value i
+  // of thread t at i * 128 + t), then each stores one sum
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + (stage0 - raw));
+  float* give = red + wg * (DP / 2) * kThreads;
+  const float* take = red + (1 - wg) * (DP / 2) * kThreads;
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) give[i * kThreads + tid] = dv[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) give[i * kThreads + tid] = dk[i];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] += take[i * kThreads + tid];
+    store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk,
+                  t4);
+  } else {
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dv[i] = take[i * kThreads + tid] + dv[i];
+    store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv,
+                  t4);
+  }
+}
+
+// One (batch*head, 64-query tile): delta = rowsum(dO * O) of its rows into
+// the workspace, and dQ, as flash_bwd_dq_kernel.  O is staged in the ring
+// stage that the prologue leaves empty.  Batch*head along x; query tiles
+// along y, last first, so the blocks with the most key tiles of a causal
+// band start first.  Two blocks an SM (the header); stating that minimum
+// measured 0.003 ms faster at rate 0.1 than leaving it out (PERF.md).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
+                         long long o_sb, long long o_sh, long long o_st,
+                         float* delta) {
+  constexpr int DP = padded_dim<D>();
+  constexpr int kStages = stages<D>();
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kKSteps = DP / 16;
+  extern __shared__ unsigned char smem[];
+  __shared__ float dl_s[kRows];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kTile;
+  const uint32_t kv_s = do_s + kTile;   // stage s: K at + 2 s kTile, V after
+  const uint32_t out_s = kv_s + 2 * (kStages - 1) * kTile;
+
+  // the dK/dV kernel after this one may start its blocks while the last of
+  // these run: it waits for all of them before it reads delta
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
+
+  // key tiles with a visible key: none past kv_len, none above the band
+  int n_tiles = (max(kv_end, 0) + kRows - 1) / kRows;
+  if (p.masked) {
+    n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
+  }
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+
+  // key tile t goes to ring stage t mod kStages
+  auto load_kv = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
+    load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
+    load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+  };
+  // Q, dO and O (for delta, even where no key is visible), key tile 0
+  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq);
+  load_tile<D>(do_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0, Tq);
+  load_tile<D>(out_s, o + b * o_sb + h * o_sh, o_st, q0, Tq);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
+  const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
+  // delta: thread 2 r + c sums columns 64 c .. 64 c + 63 of row r in fp32,
+  // the pair of threads adds its two halves; rows past Tq (zero-filled)
+  // give 0 and are not written
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  {
+    const int r = threadIdx.x / 2;
+    const int c = threadIdx.x % 2;
+    float sum = 0.f;
+#pragma unroll
+    for (int pc = 0; pc < DP / 16; ++pc) {   // 16-byte chunks of a half
+      const int chunk = c * (DP / 16) + pc;
+      const uint32_t off = tile_offset(r, chunk / 4, chunk % 4);
+      const uint4 x = ld_shared_v4(do_s + off);
+      const uint4 y = ld_shared_v4(out_s + off);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // a bf16 is a float's high half
+        sum = fmaf(__uint_as_float(xs[j] << 16), __uint_as_float(ys[j] << 16),
+                   sum);
+        sum = fmaf(__uint_as_float(xs[j] & 0xFFFF0000u),
+                   __uint_as_float(ys[j] & 0xFFFF0000u), sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (c == 0) {
+      dl_s[r] = sum;
+      if (q0 + r < Tq) delta[(long long)bh * Tq + q0 + r] = sum;
+    }
+  }
+  __syncthreads();
+  const float dl0 = dl_s[warp * 16 + g];
+  const float dl1 = dl_s[warp * 16 + g + 8];
+
+  float dq[DP / 2], s[32], dp[32];
+  zero(dq);
+  zero(s);
+  zero(dp);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + kStages - 1 < n_tiles) load_kv(kt + kStages - 1);
+    cp_async_commit();
+    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
+    const uint32_t v_s = k_s + kTile;
+    const int k0 = kt * kRows;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(dp, desc_k_major(do_s, kk), desc_k_major(v_s, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? lsel1 : lsel0)));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = (i & 2) ? row0 + 8 : row0;
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          s[i] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hi = i & 2;
+      const int row = hi ? row0 + 8 : row0;
+      const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+      const float pr = s[i];
+      float dpr = dp[i];
+      if (p.drop.on) {
+        dpr = p.drop.keep(bh, row, col) ? dpr * p.drop.inv_keep : 0.f;
+      }
+      s[i] = pr * (dpr - (hi ? dl1 : dl0));   // dS
+    }
+
+    // dQ += dS K, dS from registers, K MN-major
+    uint32_t da[4][4];
+    p_frags(da, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DP>(dq, da[kc], desc_mn_major(k_s, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+  }
+  cp_async_wait<0>();
+
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
+}
+
 template <int D>
 cudaError_t launch_delta(const __nv_bfloat16* o, const __nv_bfloat16* dout,
                          float* delta, int B, int H, int T, long long o_sb,
@@ -980,8 +1408,7 @@ cudaError_t launch(const BwdParams& p, const __nv_bfloat16* o, long long o_sb,
   err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
                         p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H,
-                     dkdv_split<D>());
+  const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H);
   flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, dkdv_bytes, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -990,30 +1417,30 @@ cudaError_t launch(const BwdParams& p, const __nv_bfloat16* o, long long o_sb,
   return cudaGetLastError();
 }
 
-// The narrow backward: the dQ kernel, which fills delta, then the dK/dV
-// kernel as its programmatic dependent (its blocks may start as the dQ
+// A backward of two launches: `dq` (128 threads, which fills delta) on a
+// (batch*head, query tiles) grid, then `dkdv` on a (batch*head, key tiles)
+// grid as its programmatic dependent (its blocks may start as the dQ
 // kernel's last ones run; it waits for them before it reads delta).
-template <int D>
-cudaError_t launch_narrow(const BwdParams& p, const __nv_bfloat16* o,
-                          long long o_sb, long long o_sh, long long o_st,
-                          cudaStream_t s) {
-  static bool smem_dkdv = false, smem_dq = false;
-  constexpr int dkdv_bytes = narrow_dkdv_smem_bytes<D>();
-  constexpr int dq_bytes = narrow_dq_smem_bytes<D>();
-  cudaError_t err =
-      allow_smem(flash_bwd_narrow_dkdv_kernel<D>, dkdv_bytes, smem_dkdv);
+template <typename DqKernel, typename DkdvKernel>
+cudaError_t launch_dq_then_dkdv(DqKernel dq, int dq_bytes, bool& dq_set,
+                                DkdvKernel dkdv, int dkdv_bytes,
+                                int dkdv_threads, bool& dkdv_set,
+                                const BwdParams& p, const __nv_bfloat16* o,
+                                long long o_sb, long long o_sh,
+                                long long o_st, cudaStream_t s) {
+  cudaError_t err = allow_smem(dkdv, dkdv_bytes, dkdv_set);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_narrow_dq_kernel<D>, dq_bytes, smem_dq);
+  err = allow_smem(dq, dq_bytes, dq_set);
   if (err != cudaSuccess) return err;
   const int bh = p.B * p.H;
   const dim3 grid_q(bh, (p.Tq + kRows - 1) / kRows);
-  flash_bwd_narrow_dq_kernel<D><<<grid_q, kThreads, dq_bytes, s>>>(
-      p, o, o_sb, o_sh, o_st, const_cast<float*>(p.delta));
+  dq<<<grid_q, kThreads, dq_bytes, s>>>(p, o, o_sb, o_sh, o_st,
+                                        const_cast<float*>(p.delta));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(bh, (p.Tk + kRows - 1) / kRows);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(dkdv_threads);
   cfg.dynamicSmemBytes = dkdv_bytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -1021,7 +1448,31 @@ cudaError_t launch_narrow(const BwdParams& p, const __nv_bfloat16* o,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, flash_bwd_narrow_dkdv_kernel<D>, p);
+  return cudaLaunchKernelEx(&cfg, dkdv, p);
+}
+
+// The narrow backward (D = 25, 30).
+template <int D>
+cudaError_t launch_narrow(const BwdParams& p, const __nv_bfloat16* o,
+                          long long o_sb, long long o_sh, long long o_st,
+                          cudaStream_t s) {
+  static bool smem_dkdv = false, smem_dq = false;
+  return launch_dq_then_dkdv(
+      flash_bwd_narrow_dq_kernel<D>, narrow_dq_smem_bytes<D>(), smem_dq,
+      flash_bwd_narrow_dkdv_kernel<D>, narrow_dkdv_smem_bytes<D>(), kThreads,
+      smem_dkdv, p, o, o_sb, o_sh, o_st, s);
+}
+
+// The backward at D = 128.
+template <int D>
+cudaError_t launch_wide(const BwdParams& p, const __nv_bfloat16* o,
+                        long long o_sb, long long o_sh, long long o_st,
+                        cudaStream_t s) {
+  static bool smem_dkdv = false, smem_dq = false;
+  return launch_dq_then_dkdv(
+      flash_bwd_wide_dq_kernel<D>, dq_smem_bytes<D>(), smem_dq,
+      flash_bwd_wide_dkdv_kernel<D>, wide_dkdv_smem_bytes<D>(), kWideThreads,
+      smem_dkdv, p, o, o_sb, o_sh, o_st, s);
 }
 
 }  // namespace
@@ -1031,7 +1482,7 @@ extern "C" {
 // q, k, v, dO, o, dq, dk, dv: (B, H, T, D) bf16 by strides (b, h, t); lse
 // (B*H, Tq) fp32; delta an fp32 (B*H, Tq) workspace the call fills; kv_lens
 // (B,) int32 or null.  Launches the delta kernel, the dK/dV kernel, then the
-// dQ kernel, on the stream; at head_dim 25 and 30 the dQ kernel (with
+// dQ kernel, on the stream; at head_dim 25, 30 and 128 the dQ kernel (with
 // delta), then the dK/dV kernel.  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for a head_dim without an instantiation.
 int bpx_flash_bwd(const void* q, const void* k, const void* v,
@@ -1084,6 +1535,8 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
     constexpr int kD = decltype(d)::value;
     if constexpr (padded_dim<kD>() == 32) {
       return launch_narrow<kD>(p, ob, o_sb, o_sh, o_st, s);
+    } else if constexpr (padded_dim<kD>() == 128) {
+      return launch_wide<kD>(p, ob, o_sb, o_sh, o_st, s);
     } else {
       return launch<kD>(p, ob, o_sb, o_sh, o_st, s);
     }
@@ -1119,6 +1572,13 @@ int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
                  : bpx_flash::blocks_per_sm(flash_bwd_narrow_dq_kernel<kD>,
                                             narrow_dq_smem_bytes<kD>(),
                                             blocks);
+    } else if constexpr (padded_dim<kD>() == 128) {
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(flash_bwd_wide_dkdv_kernel<kD>,
+                                            wide_dkdv_smem_bytes<kD>(),
+                                            blocks, kWideThreads)
+                 : bpx_flash::blocks_per_sm(flash_bwd_wide_dq_kernel<kD>,
+                                            dq_smem_bytes<kD>(), blocks);
     } else {
       return kernel == 0
                  ? bpx_flash::blocks_per_sm(flash_bwd_dkdv_kernel<kD>,

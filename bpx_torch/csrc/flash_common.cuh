@@ -107,10 +107,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 //     shared-memory stores, a warp per row, columns past D stored as zeros.
 //     The stores are the generic proxy's, as cp.async's are, so the same
 //     fence.proxy.async and barrier publish them to wgmma.  load_tile waits
-//     for its loads before it returns: the forward's K/V ring pays that on
-//     every tile.  The backward's narrow kernels take NarrowTile below
+//     for its loads before it returns, so the narrow kernels' streamed
+//     tiles (the forward's K and V, the backward's) take NarrowTile below
 //     instead, whose loads are issued a tile ahead and stored after the
-//     products of the tile before, so they do not wait on the chain.
+//     products of the tile before, so they do not wait on the chain; only
+//     the tiles loaded once before the loop (Q, and the backward's
+//     resident ones) wait.
 // Rows at or past T are zero-filled, and no load reads a column >= D: in a
 // fused (B, T, 3, H, D) projection the next head's values sit there, and
 // past the last head of the last row the allocation ends.
@@ -170,18 +172,20 @@ __device__ __forceinline__ uint32_t tile_offset(int r, int panel, int c) {
 }
 
 // Load rows [t0, t0 + 64) of one (batch, head) slice (row pitch stride_t
-// elements, last dim contiguous, D values a row) into the tile at dst:
+// elements, last dim contiguous, D values a row) into the tile at dst, by
+// the 128 threads of one warpgroup (tid: the thread's index in it):
 // started as cp.async copies, or, at odd D, done before it returns.
 template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride_t, int t0, int T) {
+__device__ __forceinline__ void load_tile_by(int tid, uint32_t dst,
+                                             const __nv_bfloat16* src,
+                                             long long stride_t, int t0,
+                                             int T) {
   if constexpr (D % 32 == 0) {
     constexpr int kChunks = kRows * D / 8;
     static_assert(kChunks % kThreads == 0, "whole chunks per thread");
 #pragma unroll
     for (int j = 0; j < kChunks / kThreads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
+      const int i = tid + j * kThreads;
       const int c = i & 3;
       const int r = (i >> 2) & (kRows - 1);
       const int panel = i >> 8;
@@ -195,7 +199,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     constexpr int kWords = kRows * 16;   // 4-byte words of the panel
 #pragma unroll
     for (int j = 0; j < kWords / kThreads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
+      const int i = tid + j * kThreads;
       const int w = i & 15;
       const int r = i >> 4;
       const bool ok = t0 + r < T && w < D / 2;
@@ -205,8 +209,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     }
   } else {
     constexpr int kPer = kRows * 32 / kThreads;   // values per thread
-    const int c = threadIdx.x % 32;               // this lane's column
-    const int r0 = threadIdx.x / 32;              // rows r0, r0 + 4, ...
+    const int c = tid % 32;                       // this lane's column
+    const int r0 = tid / 32;                      // rows r0, r0 + 4, ...
     uint16_t v[kPer];
     // every load first, then every store: the loads are in flight together
 #pragma unroll
@@ -223,6 +227,14 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                     v[j]);
     }
   }
+}
+
+// load_tile_by for a block of one warpgroup.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long stride_t, int t0, int T) {
+  load_tile_by<D>(threadIdx.x, dst, src, stride_t, t0, T);
 }
 
 // A narrow (D < 32) tile, rows [t0, t0 + 64) of a (batch, head) slice,
@@ -372,6 +384,22 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs_mn<32>(float (&d)[16],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
@@ -463,13 +491,15 @@ __device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// The bf16 A fragments of P . B for a 64 x 64 fp32 accumulator p (32 per
-// thread): k-step kc (keys 16 kc .. 16 kc + 15) takes the accumulator's
-// 8-column blocks 2 kc and 2 kc + 1, already in the A fragment's places.
-__device__ __forceinline__ void p_frags(uint32_t (&a)[4][4],
-                                        const float (&p)[32]) {
+// The bf16 A fragments of P . B for a 64 x 2N fp32 accumulator p (N per
+// thread: 32 for 64 columns, 16 for 32): k-step kc (columns 16 kc ..
+// 16 kc + 15) takes the accumulator's 8-column blocks 2 kc and 2 kc + 1,
+// already in the A fragment's places.
+template <int N>
+__device__ __forceinline__ void p_frags(uint32_t (&a)[N / 8][4],
+                                        const float (&p)[N]) {
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
+  for (int kc = 0; kc < N / 8; ++kc) {
     a[kc][0] = pack_bf16x2(p[8 * kc + 0], p[8 * kc + 1]);
     a[kc][1] = pack_bf16x2(p[8 * kc + 2], p[8 * kc + 3]);
     a[kc][2] = pack_bf16x2(p[8 * kc + 4], p[8 * kc + 5]);
@@ -533,15 +563,16 @@ __host__ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
   return err;
 }
 
-// Blocks of `kernel` (kThreads threads, `bytes` of dynamic shared memory)
+// Blocks of `kernel` (`threads` threads, `bytes` of dynamic shared memory)
 // that one SM of the current device holds, by the occupancy calculator.
 template <typename Kernel>
-__host__ cudaError_t blocks_per_sm(Kernel kernel, int bytes, int* blocks) {
+__host__ cudaError_t blocks_per_sm(Kernel kernel, int bytes, int* blocks,
+                                   int threads = kThreads) {
   bool done = false;
   cudaError_t err = allow_smem(kernel, bytes, done);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                       kThreads, bytes);
+                                                       threads, bytes);
 }
 
 }  // namespace bpx_flash

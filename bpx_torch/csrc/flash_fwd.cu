@@ -41,10 +41,32 @@
 // in; on edge tiles the product and the difference are rounded apart so
 // that a -1e30 score minus a -1e30 max is exactly 0.
 //
-// Narrow heads (D = 25, 30: the mmtrvat presets' 300 / 12 and 300 / 10) run
-// the same kernel at DP = 32, one panel whose columns D..31 the loads zero
-// (flash_common.cuh): S = Q K^T in 2 k-steps, O += P V as m64n32k16.  Only
-// the loads and the stores know D.  D = 128 (mmimdb: 768 / 6) is four
+// Narrow heads (D = 25, 30: the mmtrvat presets' 300 / 12 and 300 / 10) have
+// a kernel of their own, flash_fwd_narrow_kernel: the same function and
+// the same tile step at DP = 32, one panel whose columns D..31 the loads
+// zero (flash_common.cuh), S = Q K^T in 2 k-steps, O += P V as m64n32k16.
+// What differs:
+//   * the grid puts batch*head along x and the query tiles along y, last
+//     first: under a causal band query tile i visits i + 1 key tiles, so
+//     the longest blocks start first and the short ones fill the tail;
+//   * D = 25's rows start at any even byte, which cp.async cannot copy: K
+//     and V stream through NarrowTile (flash_common.cuh), each tile's
+//     4-byte words loaded into registers before the products of the tile
+//     before and written to shared memory after them, through a 2-stage
+//     ring; D = 30 keeps its 4-byte cp.async words and 3 stages;
+//   * __launch_bounds__ asks for 5 blocks an SM at D = 25 (94 registers,
+//     no spills) and 4 at D = 30 (121), where the kernel alone took 146 and
+//     149 registers and 3 blocks.
+// Measured on an H100 (PERF.md, scripts/torch_flash_bwd_narrow.py), one
+// step at a time, each faster than the one before: the order, the loads
+// off the chain (D = 25), the blocks per SM.  Pairing query tiles i and
+// n - 1 - i in one block (equal work a block), 6 blocks at D = 25 (it
+// spills) and at D = 30 a fourth stage or a fifth block measured slower.
+// It reaches an eighth of its bound at D = 25 and a sixth at D = 30 (rate
+// 0): a 64 x 64 tile step at DP = 32 is a short serial chain (wait, S,
+// softmax, P V, wait) that 4-5 blocks an SM do not hide.
+//
+// D = 128 (mmimdb: 768 / 6) is four
 // panels: S in 8 k-steps, O += P V as m64n128k16 (64 fp32 accumulators a
 // thread beside S's 32); 113 KB of shared memory a block, so two blocks
 // fill an SM's 228 KB exactly, 1 KB reserved for each.
@@ -267,14 +289,243 @@ flash_fwd_kernel(const FlashParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// narrow heads (D = 25, 30): the header
+// ---------------------------------------------------------------------------
+
+// K/V tiles in flight: 3 at D = 30 (cp.async, two tiles ahead), 2 at D =
+// 25, whose loads wait in registers for the end of the tile before (a
+// third stage would not start them earlier).
+template <int D>
+__host__ __device__ constexpr int narrow_stages() {
+  return D % 2 ? 2 : 3;
+}
+
+// Blocks per SM the narrow kernel is compiled for: 5 at D = 25, 4 at
+// D = 30 (the header).
+template <int D>
+__host__ __device__ constexpr int narrow_min_blocks() {
+  return D % 2 ? 5 : 4;
+}
+
+// Q, then stages x (K, V), one panel each; +1 KB for alignment.
+template <int D>
+__host__ __device__ constexpr int narrow_smem_bytes() {
+  return (1 + 2 * narrow_stages<D>()) * kPanelBytes + 1024;
+}
+
+// One (batch*head, 64-query tile) at DP = 32: batch*head along x, the
+// query tiles along y, the last (the most key tiles of a causal band)
+// first.
+template <int D>
+__global__ void __launch_bounds__(kThreads, narrow_min_blocks<D>())
+flash_fwd_narrow_kernel(const FlashParams p) {
+  constexpr int kRing = narrow_stages<D>();
+  constexpr int kTile = kPanelBytes;
+  extern __shared__ unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + kTile;   // stage s: K at + 2 s kTile, V after
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;     // row within the warp's 16 (and g + 8)
+  const int t4 = lane % 4;    // column pair within an 8-wide block
+
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const int Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);   // keys from here on are masked
+
+  // key tiles to visit
+  int n_tiles = (Tk + kRows - 1) / kRows;
+  if (kv_len > 0) {
+    n_tiles = min(n_tiles, (kv_len + kRows - 1) / kRows);
+    if (p.masked) {
+      n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
+    }
+  }
+
+  // key tile t goes to ring stage t mod kRing, started by fetch(t),
+  // written by store(t) (D = 25)
+  NarrowTile<D> k_next, v_next;
+  auto fetch = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kRing) * kTile;
+    k_next.fetch(dst, kb, p.k_st, t * kRows, Tk);
+    v_next.fetch(dst + kTile, vb, p.v_st, t * kRows, Tk);
+  };
+  auto store = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kRing) * kTile;
+    k_next.store(dst);
+    v_next.store(dst + kTile);
+  };
+  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  if (n_tiles > 0) {
+    fetch(0);
+    store(0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int t = 1; t < kRing - 1; ++t) {
+    if (t < n_tiles) {
+      fetch(t);
+      store(t);
+    }
+    cp_async_commit();
+  }
+
+  const int row0 = q0 + warp * 16 + g;   // global query rows of this thread
+  const int row1 = row0 + 8;
+  float m0 = kMaskFill, m1 = kMaskFill;   // running row max
+  float l0 = 0.f, l1 = 0.f;               // per-thread partial row sums
+  float acc[16], s[32];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    // tile kt has landed (each thread waits for its own copies, then the
+    // barrier publishes everyone's); every warp is done with tile kt - 1
+    cp_async_wait<kRing - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    const bool more = kt + kRing - 1 < n_tiles;
+    if (more) fetch(kt + kRing - 1);
+    cp_async_commit();
+    const uint32_t k_s = kv_s + 2 * (kt % kRing) * kTile;
+    const uint32_t v_s = k_s + kTile;
+    const int k0 = kt * kRows;
+
+    // S = Q K^T, 64 rows x 64 keys, 2 k-steps
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const bool edge = k0 + kRows > kv_end ||
+                      (p.masked && k0 + kRows - 1 > q0 + p.offset);
+    if (edge) {
+      // -inf past Tk (not a key at all), -1e30 for masked keys
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        const int row = (i & 2) ? row1 : row0;
+        if (col >= Tk) {
+          s[i] = -INFINITY;
+        } else if (col >= kv_len || (p.masked && col > row + p.offset)) {
+          s[i] = kMaskFill;
+        }
+      }
+    }
+    float mx0 = kMaskFill, mx1 = kMaskFill;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    // the 4 threads of a quad share a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float alpha0 = ex2((m0 - mn0) * kLog2e);
+    const float alpha1 = ex2((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    const float ml0 = __fmul_rn(mn0, kLog2e);
+    const float ml1 = __fmul_rn(mn1, kLog2e);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(__fmul_rn(s[i], kLog2e) - ((i & 2) ? ml1 : ml0));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? ml1 : ml0)));
+      }
+    }
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l0 += s[4 * j] + s[4 * j + 1];
+      l1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+
+    // dropout after the row sums, so l keeps the undropped probabilities
+    if (p.drop.on) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        const int row = (i & 2) ? row1 : row0;
+        s[i] = p.drop.keep(bh, row, col) ? s[i] * p.drop.inv_keep : 0.f;
+      }
+    }
+
+    // O += bf16(P) V, P straight from the score registers
+    uint32_t pa[4][4];
+    p_frags(pa, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<32>(acc, pa[kc], desc_mn_major(v_s, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (more) store(kt + kRing - 1);
+  }
+  cp_async_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float ls0 = (l0 == 0.f) ? 1.f : l0;
+  const float ls1 = (l1 == 0.f) ? 1.f : l1;
+
+  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  if (row0 < p.Tq) {
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
+    if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
+  }
+  if (row1 < p.Tq) {
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
+    if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
+  }
+}
+
 template <int D>
 cudaError_t launch(const FlashParams& p, cudaStream_t s) {
   static bool smem_set = false;
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + kRows - 1) / kRows, p.B * p.H);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+  const int nq = (p.Tq + kRows - 1) / kRows;
+  if constexpr (padded_dim<D>() == 32) {
+    constexpr int bytes = narrow_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_fwd_narrow_kernel<D>, bytes, smem_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.B * p.H, nq);
+    flash_fwd_narrow_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+  } else {
+    constexpr int bytes = smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes, smem_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(nq, p.B * p.H);
+    flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -326,8 +577,13 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
 int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return bpx_flash::blocks_per_sm(flash_fwd_kernel<kD>, smem_bytes<kD>(),
-                                    blocks);
+    if constexpr (padded_dim<kD>() == 32) {
+      return bpx_flash::blocks_per_sm(flash_fwd_narrow_kernel<kD>,
+                                      narrow_smem_bytes<kD>(), blocks);
+    } else {
+      return bpx_flash::blocks_per_sm(flash_fwd_kernel<kD>,
+                                      smem_bytes<kD>(), blocks);
+    }
   }));
 }
 

@@ -25,7 +25,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
-#: ptxas' register / shared-memory / spill report of the last build
+#: ptxas' register / shared-memory / spill report of the library last
+#: built or found built (kept beside it)
 build_log: str = ""
 
 
@@ -57,7 +58,9 @@ def build() -> Path:
     path.  Raises RuntimeError with nvcc's output if any step fails."""
     global build_log
     out = BUILD_DIR / f"libbpx_kernels_{_digest()}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -85,6 +88,7 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    log.write_text(build_log)
     os.replace(tmp, out)
     return out
 

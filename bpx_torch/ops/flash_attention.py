@@ -16,10 +16,10 @@ The backward recomputes P from the saved log-sum-exp, with ``delta =
 rowsum(dO * O)`` in fp32: on the card the backward's kernels compute it
 (what the JAX package's kernels compute in-kernel with ``BPX_XLA_DELTA=0``;
 its default computes it in XLA before them, the same function), on the CPU
-:func:`attention_delta`'s plain version.  At head dims 64, 96 and 128 a
-backward is three kernels (delta, dK/dV, dQ); at a narrow head (25, 30) two:
-the dQ kernel computes delta for its rows and leaves it for the dK/dV
-kernel after it.  Masked entries get P = 0, so a row with no visible key
+:func:`attention_delta`'s plain version.  At head dims 64 and 96 a backward
+is three kernels (delta, dK/dV, dQ); at 25, 30 and 128 two: the dQ kernel
+computes delta for its rows and leaves it for the dK/dV kernel after it.
+Masked entries get P = 0, so a row with no visible key
 gets zero gradients although its forward attended uniformly: that is the
 JAX package's backward, not the true derivative.
 
@@ -28,8 +28,8 @@ the mmtrvat presets' 300-wide streams over 12 or 10 heads) runs the same
 kernels at 32 columns with the padding zeroed in shared memory: nothing is
 padded in device memory, and the strided (B, H, T, D) views of a fused
 projection go to the kernels without a copy.  At 128 (mmimdb: 768 over 6
-heads) two blocks share each key tile of the dK/dV kernel, one for each half
-of the columns (``csrc/flash_bwd.cu``).
+heads) the dK/dV kernel runs two warpgroups a block, each over half of
+every query tile and all the columns (``csrc/flash_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -236,8 +236,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              kv_lens=None, dropout_rate=0.0,
                              dropout_seed=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
-    ``dout``; the kernels (delta, dK/dV, dQ; at head_dim 25 and 30 dQ with
-    delta, then dK/dV) for CUDA tensors, the plain version for CPU."""
+    ``dout``; the kernels (delta, dK/dV, dQ; at head_dim 25, 30 and 128 dQ
+    with delta, then dK/dV) for CUDA tensors, the plain version for CPU."""
     if not use_kernel(q):
         return flash_attention_backward_reference(
             q, k, v, dout, lse, attention_delta(dout, out), masked, kv_lens,
@@ -253,9 +253,9 @@ def attention_delta_reference(dout: torch.Tensor,
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors: the wide
-    backward's first kernel on its own for CUDA tensors, the plain version
-    for CPU."""
+    """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors: the head_dim
+    64/96 backward's first kernel on its own for CUDA tensors, the plain
+    version for CPU."""
     if not use_kernel(dout):
         return attention_delta_reference(dout, out)
     B, H, T, D = out.shape
@@ -394,8 +394,8 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
 #: forward kernel launches (and those with dropout) since last set to 0
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
-#: backward calls that launched their kernels (delta, dK/dV, dQ; or, at a
-#: narrow head, dQ with delta and dK/dV)
+#: backward calls that launched their kernels (delta, dK/dV, dQ; or, at
+#: head_dim 25, 30 and 128, dQ with delta and dK/dV)
 flash_attention_backward.launches = 0
 #: launches of the delta kernel on its own (not those inside the backward)
 attention_delta.launches = 0

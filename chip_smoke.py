@@ -40,8 +40,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    band) must move the gradients past their limit;
 6. the new kernels at the recorded micro-step's classes against their plain
    versions, with the same timings: the flash forward with dropout, the
-   flash backward (delta, dK/dV and dQ kernels; at head_dim 25 and 30 the
-   dQ kernel, which computes delta, and the dK/dV kernel; timed together,
+   flash backward (delta, dK/dV and dQ kernels; at head_dim 25, 30 and
+   128 the dQ kernel, which computes delta, and the dK/dV kernel; timed
+   together,
    with the profiler's split, each kernel beside its own bound) at rate 0
    and 0.1 (SDPA's backward as the library yardstick) and its delta kernel
    alone, the LayerNorm backward
@@ -118,8 +119,9 @@ head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, its
 rows by shape class, and on the moviescope rows the training loop's launches in
-phase 13 and per epoch; the narrow backward also alone, at head_dim 25 from
-iemocap's train steps and at 30 from cmu-mosei's) and, last, ``{"ok": true,
+phase 13 and per epoch; the narrow backward and forward also alone, at
+head_dim 25 from iemocap's train steps and at 30 from cmu-mosei's, and the
+head_dim-128 backward from mmimdb's) and, last, ``{"ok": true,
 "device": {...}}``.  It
 imports nothing of JAX or of the JAX package; without a CUDA device, or
 without ``bpx_torch`` beside it, it exits non-zero and prints no result.
@@ -689,10 +691,14 @@ def sdpa_backward(torch, q, k, v, ok, rate, dout):
 
 def bwd_kernels(D):
     """The backward's kernels at head_dim D, by the names the profiler
-    reports, as (dQ, dK/dV, delta or None): a narrow head's dQ kernel
-    computes delta itself, so its backward is two launches."""
+    reports, as (dQ, dK/dV, delta or None): at a narrow head (25, 30) and
+    at 128 the dQ kernel computes delta itself, so the backward is two
+    launches."""
     if D < 32:
         return ("flash_bwd_narrow_dq_kernel", "flash_bwd_narrow_dkdv_kernel",
+                None)
+    if D > 96:
+        return ("flash_bwd_wide_dq_kernel", "flash_bwd_wide_dkdv_kernel",
                 None)
     return ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
             "flash_delta_kernel")
@@ -755,7 +761,7 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"flash backward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         eff_masked = fa.effective_band(Tq, Tk, masked)[0]
-        launches = ("dQ (with delta) + dK/dV" if D < 32
+        launches = ("dQ (with delta) + dK/dV" if bwd_kernels(D)[2] is None
                     else "delta + dK/dV + dQ")
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, per_forward=count,
@@ -994,15 +1000,15 @@ def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens):
     """Bounds of the dQ and the dK/dV kernel alone, each against the work
     it does: both read q, k, v, dO, lse and delta and compute S and dP (4 D
     flops per visible score entry); dQ then writes dq (2 D more), dK/dV
-    writes dk and dv (4 D more).  At a narrow head the dQ kernel computes
-    delta: it reads O and writes delta instead of reading it (2 D flops a
-    row more)."""
+    writes dk and dv (4 D more).  Where the dQ kernel computes delta (head
+    dims 25, 30 and 128) it reads O and writes delta instead of reading it
+    (2 D flops a row more)."""
     visible, keys, _ = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
     bh = B * H
     io = 2 * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
     dq_io = io + 2 * D * bh * Tq
     dq_flops = 6.0 * D * visible
-    if D < 32:
+    if bwd_kernels(D)[2] is None:
         dq_io += 2 * D * bh * Tq
         dq_flops += 2.0 * D * bh * Tq
     return (bound_ms(dq_io, dq_flops),
@@ -1907,14 +1913,15 @@ def phase_loop(torch, np, card: str, checked):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def narrow_rows(rows):
-    """The rows of a narrow head dim (25, 30) among a path's rows."""
-    return [r for r in rows if r["shape"][3] < 32]
+def dim_rows(rows, D):
+    """The rows at head_dim D among a path's rows."""
+    return [r for r in rows if r["shape"][3] == D]
 
 
-def narrow_launches(seen) -> int:
-    """Flash backward calls at a narrow head dim in a recording."""
-    return sum(c for cls, c in seen["flash_bwd"].items() if cls[4] < 32)
+def dim_launches(seen, kind, D) -> int:
+    """Calls of a kind of kernel ("flash", "flash_bwd") at head_dim D in a
+    recording."""
+    return sum(c for cls, c in seen[kind].items() if cls[4] == D)
 
 
 def summarise(name, source, replaces, rows, launches, runs, per):
@@ -2082,8 +2089,9 @@ def main() -> None:
     m_ln_bwd_rows = phase_layer_norm_bwd(torch, timer, m_seen["ln_bwd"], gen,
                                          scalar_path=False)
     phase_mask_check(torch, gen, BATCH, 6, 512, 128)
-    m_trained = phase_train(torch, model, step, batches, args.profile,
-                            MMIMDB)
+    with recording() as m_train_seen:
+        m_trained = phase_train(torch, model, step, batches, args.profile,
+                                MMIMDB)
     del model, loss_fn, step, batches
     torch.cuda.empty_cache()
     print(f"[time] mmimdb phases {time.time() - t0:.1f} s")
@@ -2179,14 +2187,25 @@ def main() -> None:
         dict(summarise("flash_bwd_cmu_mosei", bwd_src, bwd_tpu, c_bwd_rows,
                        c_trained["totals"]["flash_bwd"], TRAIN_A,
                        "micro_step"), long_shape=c_long_rows),
-        # the narrow backward alone (rows 2 @ 25 and 2 @ 30: its own two
-        # kernels), launches those of the train steps at head_dim 25 / 30
+        # the narrow kernels alone (rows 2 @ 25 and 2 @ 30: the backward's
+        # own two kernels; rows 1 @ 25 and 1 @ 30: the forward's own
+        # kernel, over the served and the dropout classes), launches those
+        # of the train steps at head_dim 25 / 30
         summarise("flash_bwd_narrow_d25", bwd_src, bwd_tpu,
-                  narrow_rows(i_bwd_rows), narrow_launches(i_train_seen),
-                  steps, "micro_step"),
-        summarise("flash_bwd_narrow_d30", bwd_src, bwd_tpu,
-                  narrow_rows(c_bwd_rows), narrow_launches(c_seen), TRAIN_A,
+                  dim_rows(i_bwd_rows, 25),
+                  dim_launches(i_train_seen, "flash_bwd", 25), steps,
                   "micro_step"),
+        summarise("flash_bwd_narrow_d30", bwd_src, bwd_tpu,
+                  dim_rows(c_bwd_rows, 30),
+                  dim_launches(c_seen, "flash_bwd", 30), TRAIN_A,
+                  "micro_step"),
+        summarise("flash_fwd_narrow_d25", fwd_src, fwd_tpu,
+                  dim_rows(i_flash_rows + i_drop_rows, 25),
+                  dim_launches(i_train_seen, "flash", 25), steps,
+                  "micro_step"),
+        summarise("flash_fwd_narrow_d30", fwd_src, fwd_tpu,
+                  dim_rows(c_flash_rows + c_drop_rows, 30),
+                  dim_launches(c_seen, "flash", 30), TRAIN_A, "micro_step"),
         # mmimdb: head_dim 128 (and BERT's 64)
         summarise("flash_fwd_mmimdb", fwd_src, fwd_tpu, m_flash_rows,
                   m_served["flash_launches"], REQUESTS, "forward"),
@@ -2194,6 +2213,11 @@ def main() -> None:
                   m_trained["totals"]["dropout"], steps, "micro_step"),
         summarise("flash_bwd_mmimdb", bwd_src, bwd_tpu, m_bwd_rows,
                   m_trained["totals"]["flash_bwd"], steps, "micro_step"),
+        # the D 128 backward alone (row 2 @ 128: its own two kernels)
+        summarise("flash_bwd_d128", bwd_src, bwd_tpu,
+                  dim_rows(m_bwd_rows, 128),
+                  dim_launches(m_train_seen, "flash_bwd", 128), steps,
+                  "micro_step"),
         summarise("layer_norm_fwd_mmimdb", ln_src, "bpx/ops/norm.py:53",
                   m_ln_rows, m_served["ln_launches"], REQUESTS, "forward"),
         summarise("layer_norm_bwd_mmimdb", ln_bwd_src, "bpx/ops/norm.py:69",

@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
-"""The narrow-head flash-attention backward (head_dim 25 and 30) on a CUDA
-card, one build against another in the same process.
+"""The flash-attention kernels on a CUDA card, one build against another in
+the same process: the backward (default) or the forward, at the narrow head
+dims (25, 30) or any other class.
 
     python3 scripts/torch_flash_bwd_narrow.py
     python3 scripts/torch_flash_bwd_narrow.py --tree parent=build/parent \\
         --variant LABEL=-DSOME_MACRO=1
+    python3 scripts/torch_flash_bwd_narrow.py --kernel fwd
+    python3 scripts/torch_flash_bwd_narrow.py --shape 8,6,512,128
 
 Builds the port's kernels from ``bpx_torch/csrc`` of this checkout
 ("this"), from each ``--tree LABEL=DIR`` (a checkout's root, e.g. the parent
 commit unpacked with ``git archive``) and with each ``--variant
 LABEL=FLAGS`` (extra nvcc flags, comma-separated, on this checkout's
-sources).  Prints ptxas' registers and spills of every flash backward
-kernel and the blocks per SM at head_dim 25 and 30 of each build.  Then, at
-the iemocap class (8 x 12, 512 x 512 causal, D 25) and the cmu-mosei class
-(8 x 10, D 30), or each ``--shape B,H,T,D``, rate 0 and 0.1, on strided
-views of fused projections as
-the model hands them over: every build's backward against the plain
-version (``FLASH_GRAD_TOL`` of ``chip_smoke.py``) and bitwise on a rerun,
-then its time (CUDA events, ``chip_smoke.Timer``) in turns (A B ... B A,
-``--rounds`` times) and the profiler's device time per kernel.  A build
-that fails, or disagrees with the plain version, is reported and dropped.
-Writes ``chiprun_out/flash_bwd_narrow.json``.  Without a card it exits
-non-zero.
+sources).  Prints ptxas' registers and spills of every flash kernel of the
+chosen ``--kernel`` and the blocks per SM of the forward, dK/dV and dQ
+kernels at every head dim of each build.  Then, at the iemocap class (8 x
+12, 512 x 512 causal, D 25) and the cmu-mosei class (8 x 10, D 30), or each
+``--shape B,H,T,D`` (mmimdb's D 128 class: 8,6,512,128), rate 0 and 0.1, on
+strided views of fused projections as the model hands them over: every
+build's kernel against the plain version (the backward within
+``FLASH_GRAD_TOL`` of ``chip_smoke.py``, the forward within ``FLASH_TOL``
+and ``LSE_TOL``) and bitwise on a rerun, then its time (CUDA events,
+``chip_smoke.Timer``) in turns (A B ... B A, ``--rounds`` times) and the
+profiler's device time per kernel.  A build that fails, or disagrees with
+the plain version, is reported and dropped.  Writes
+``chiprun_out/flash_<kernel>_ab.json``.  Without a card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -43,10 +47,10 @@ RATES = (0.0, 0.1)
 SEED = 0x7F4A7C15
 
 
-def build(label, src_dir, base_flags, flags):
+def build(label, src_dir, base_flags, flags, kernel="bwd"):
     """Build and load one library; returns a dict with the library, ptxas'
-    lines of the backward kernels (and its wgmma warnings), the blocks per
-    SM; None if the build fails."""
+    lines of the forward or backward kernels (and its wgmma warnings), the
+    blocks per SM; None if the build fails."""
     from bpx_torch.ops import _cuda
     _cuda.SRC_DIR = Path(src_dir)
     _cuda.CFLAGS = base_flags + list(flags)
@@ -62,12 +66,12 @@ def build(label, src_dir, base_flags, flags):
             name = cs.kernel_name(line.split("'")[1])
         elif "spill" in line:
             spill = line.strip()
-        elif "registers" in line and "flash_bwd" in name:
+        elif "registers" in line and f"flash_{kernel}" in name:
             lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
         elif "wgmma" in line.lower():
             lines.append(f"{name}: {line.strip()}")
-    from bpx_torch.ops.flash_attention import blocks_per_sm
-    occ = {d: blocks_per_sm(d) for d in (25, 30)}
+    from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
+    occ = {d: blocks_per_sm(d) for d in KERNEL_HEAD_DIMS}
     print(f"[{label}] built from {src_dir} {' '.join(flags)}")
     for line in lines:
         print(f"[{label}] {line}")
@@ -81,6 +85,8 @@ def main() -> None:
                     help="LABEL=DIR: build DIR/bpx_torch/csrc too")
     ap.add_argument("--variant", action="append", default=[],
                     help="LABEL=FLAG,FLAG: this tree with extra nvcc flags")
+    ap.add_argument("--kernel", choices=("bwd", "fwd"), default="bwd",
+                    help="time the backward (with delta) or the forward")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--shape", action="append", default=[],
                     help="B,H,T,D: a causal T x T class to time instead of "
@@ -100,14 +106,16 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"card: {card.strip()}")
     here = ROOT / "bpx_torch" / "csrc"
-    builds = [build("this", here, base_flags, [])]
+    kernel = args.kernel
+    builds = [build("this", here, base_flags, [], kernel)]
     for spec in args.tree:
         label, d = spec.split("=", 1)
         builds.append(build(label, ROOT / d / "bpx_torch" / "csrc",
-                            base_flags, []))
+                            base_flags, [], kernel))
     for spec in args.variant:
         label, flags = spec.split("=", 1)
-        builds.append(build(label, here, base_flags, flags.split(",")))
+        builds.append(build(label, here, base_flags, flags.split(","),
+                            kernel))
     builds = [b for b in builds if b is not None]
 
     timer = cs.Timer(torch)
@@ -120,18 +128,31 @@ def main() -> None:
                                              False)
             drop = (rate, SEED if rate else None)
             _cuda._lib = builds[0]["lib"]
-            out, lse = fa.flash_attention(q, k, v, True, None, *drop,
-                                          return_lse=True)
-            dout = torch.randn(B, Tq, H, D, generator=gen,
-                               device="cuda").to(torch.bfloat16).transpose(
-                                   1, 2)
-            want = fa.flash_attention_backward_reference(
-                q, k, v, dout, lse, fa.attention_delta_reference(dout, out),
-                True, None, *drop)
-            call = lambda: fa._launch_bwd(q, k, v, dout, lse, out, True,
-                                          None, *drop)
-            nbytes, flops, _ = cs.flash_bwd_work(torch, B, H, Tq, Tk, D,
-                                                 True, None)
+            if kernel == "bwd":
+                out, lse = fa.flash_attention(q, k, v, True, None, *drop,
+                                              return_lse=True)
+                dout = torch.randn(B, Tq, H, D, generator=gen,
+                                   device="cuda").to(
+                                       torch.bfloat16).transpose(1, 2)
+                want = fa.flash_attention_backward_reference(
+                    q, k, v, dout, lse,
+                    fa.attention_delta_reference(dout, out), True, None,
+                    *drop)
+                call = (lambda q=q, k=k, v=v, dout=dout, lse=lse, out=out:
+                        fa._launch_bwd(q, k, v, dout, lse, out, True, None,
+                                       *drop))
+                nbytes, flops, _ = cs.flash_bwd_work(torch, B, H, Tq, Tk,
+                                                     D, True, None)
+            else:
+                want = fa.flash_attention_reference(q, k, v, True, None,
+                                                    *drop)
+                call = (lambda q=q, k=k, v=v:
+                        fa._launch(q, k, v, True, None, *drop))
+                visible, keys, _ = cs.attention_work(torch, B, H, Tq, Tk,
+                                                     True, None)
+                nbytes = (2 * (2 * B * H * Tq * D + 2 * keys * D)
+                          + 4 * B * H * Tq)
+                flops = 4.0 * D * visible
             b_ms, b_by = cs.bound_ms(nbytes, flops)
             times = {b["label"]: [] for b in builds}
             row = dict(shape=[B * H, Tq, Tk, D], rate=rate, bound_ms=b_ms,
@@ -141,11 +162,19 @@ def main() -> None:
                 got = call()
                 again = call()
                 torch.cuda.synchronize()
-                errs = [cs.grad_err(g, w) for g, w in zip(got, want)]
                 same = all(torch.equal(x, y) for x, y in zip(got, again))
-                if not (max(errs) <= cs.FLASH_GRAD_TOL and same):
+                if kernel == "bwd":
+                    errs = [cs.grad_err(g, w) for g, w in zip(got, want)]
+                    ok = max(errs) <= cs.FLASH_GRAD_TOL
+                else:
+                    errs = [cs.max_err(got[0], want[0]),
+                            cs.max_err(got[1], want[1])]
+                    ok = (torch.allclose(got[0].float(), want[0].float(),
+                                         **cs.FLASH_TOL)
+                          and torch.allclose(got[1], want[1], **cs.LSE_TOL))
+                if not (ok and same):
                     print(f"[{b['label']}] WRONG at {(B, H, Tq, D, rate)}: "
-                          f"rel errs {errs}, reruns equal {same}; dropped")
+                          f"errs {errs}, reruns equal {same}; dropped")
                     builds.remove(b)
                     del times[b["label"]]
                     continue
@@ -168,14 +197,14 @@ def main() -> None:
                       f"{rate}: {r['ms']:.4f} ms (runs "
                       + ", ".join(f"{t:.4f}" for t in r["ms_all"])
                       + f"), bound {b_ms:.4f} ms ({b_by}), "
-                      f"{b_ms / r['ms']:.1%} of it; rel err "
+                      f"{b_ms / r['ms']:.1%} of it; err "
                       f"{r['rel_err']:.3g}, reruns bitwise equal; profiler: "
                       + ", ".join(f"{n} {t:.4f} ms"
                                   for n, t in r["split_ms"].items()))
             results.append(row)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "flash_bwd_narrow.json").write_text(json.dumps(dict(
+    (out_dir / f"flash_{kernel}_ab.json").write_text(json.dumps(dict(
         card=card.strip(),
         builds=[{k: v for k, v in b.items() if k != "lib"} for b in builds],
         rows=results), indent=1))

@@ -7,7 +7,10 @@ at tile edges, on fused-projection views the wrapper must not copy, on a
 view that ends its allocation, their exact dropout masks and the two
 kernels of their backward; head_dim 128
 (mmimdb) at tile edges, its model class, its fused views and its exact
-masks; the backward's delta kernel alone; synthetic-tiny served and trained
+masks, and its backward's own two kernels (dQ with delta, then the
+two-warpgroup dK/dV kernel) at tile edges (nine key tiles, Tk < 64 < Tq,
+kv_len below a tile and 0, B*H 1 with the band); the delta kernel alone;
+synthetic-tiny served and trained
 through the einsum attention with no flash launch; the
 LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
@@ -157,7 +160,14 @@ def _close_grad(got, want):
     (2, 3, 77, 130, 128, True, None, 0.1),      # head_dim 128: ragged
     (3, 2, 64, 64, 128, False, (64, 0, 5), 0.1),  # kv_len 0: zero grads
     (2, 1, 129, 65, 128, False, (65, 1), 0.0),  # one visible key
-    (1, 2, 640, 1280, 128, True, None, 0.1),    # long, two column blocks
+    (1, 2, 640, 1280, 128, True, None, 0.1),    # long: ten query tiles
+    (2, 2, 576, 576, 128, True, None, 0.0),     # nine key tiles, causal
+    (2, 2, 576, 576, 128, True, (576, 300), 0.1),  # nine, kv_lens, dropout
+    (2, 2, 130, 40, 128, True, None, 0.1),      # Tk < 64 < Tq
+    (2, 2, 130, 40, 128, False, (40, 20), 0.0),  # ... without the band
+    (3, 2, 200, 200, 128, True, (200, 40, 0), 0.1),  # kv_len < 64, and 0
+    (1, 1, 200, 576, 128, True, None, 0.1),     # B*H 1, band offset 376
+    (1, 1, 576, 130, 128, True, (129,), 0.0),   # B*H 1, band dropped
 ])
 def test_flash_backward_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked,
                                              lens, rate):
@@ -478,11 +488,11 @@ def test_narrow_dropout_mask_is_exact(gen, D):
     assert torch.equal(bwd, keep)
 
 
-@pytest.mark.parametrize("D,H", [(25, 12), (30, 10)])
+@pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (128, 6)])
 def test_narrow_backward_is_two_kernels(gen, D, H):
-    """A narrow backward is two device kernels, the dQ kernel (which
-    computes delta) and the dK/dV kernel, with no delta kernel of its own
-    and no memset."""
+    """A narrow backward, and one at head_dim 128, is two device kernels of
+    its own, the dQ kernel (which computes delta) and the dK/dV kernel,
+    with no delta kernel and no memset."""
     q, k, v = _fused_views(gen, 2, H, 200, 200, D)
     out, lse = flash_attention(q, k, v, True, None, return_lse=True)
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
@@ -491,14 +501,15 @@ def test_narrow_backward_is_two_kernels(gen, D, H):
             q, k, v, out, lse, dout, True, None))
         if len(names) == 2:
             break
+    kind = "narrow" if D < 32 else "wide"
     assert len(names) == 2, names
-    assert any("flash_bwd_narrow_dq_kernel" in n for n in names), names
-    assert any("flash_bwd_narrow_dkdv_kernel" in n for n in names), names
+    assert any(f"flash_bwd_{kind}_dq_kernel" in n for n in names), names
+    assert any(f"flash_bwd_{kind}_dkdv_kernel" in n for n in names), names
 
 
 def test_dropout_mask_is_exact_at_head_dim_128(gen):
     """The forward and backward kernels' dropout masks at head_dim 128
-    (two column blocks in the dK/dV kernel), every bit of a 128 x 128
+    (two warpgroups in the dK/dV kernel), every bit of a 128 x 128
     score matrix (two tiles each way), against the plain version's."""
     B, H, T, rate, seed = 2, 3, 128, 0.1, 0xABCDEF
     fwd, bwd = narrow_mask_bits(B, H, T, 128, rate, seed)
@@ -510,15 +521,20 @@ def test_dropout_mask_is_exact_at_head_dim_128(gen):
 def test_kernels_fit_the_sm(gen):
     """Every head dim's forward, dK/dV and dQ kernels fit at least one
     block per SM (their shared memory and registers), by the occupancy
-    calculator, and the narrow heads' backward kernels the blocks their
-    design counts on (dK/dV 3, dQ 4: flash_bwd.cu); an untabled head dim
-    raises."""
+    calculator, and the blocks their design counts on (flash_fwd.cu,
+    flash_bwd.cu): at the narrow heads the forward 5 (D 25) and 4 (D 30),
+    the backward's dK/dV 3 and dQ 4; at 128 the forward and the dQ kernel
+    2, the 256-thread dK/dV kernel 1; an untabled head dim raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)
         assert min(got.values()) >= 1
         if d < 32:
+            assert got["forward"] >= {25: 5, 30: 4}[d], (d, got)
             assert got["dK/dV"] >= 3 and got["dQ"] >= 4, (d, got)
+        if d == 128:
+            assert got["forward"] >= 2 and got["dQ"] >= 2, (d, got)
+            assert got["dK/dV"] == 1, (d, got)
     with pytest.raises(NotImplementedError, match="head_dim"):
         blocks_per_sm(48)
 
