@@ -545,7 +545,12 @@ struct Dropout {
     const uint32_t idx = static_cast<uint32_t>(bh) * 0x85EBCA6Bu +
                          static_cast<uint32_t>(row) * tk_p +
                          static_cast<uint32_t>(col);
-    uint32_t x = idx * 0x9E3779B9u + seed;
+    return keep_mixed(idx * 0x9E3779B9u + seed);
+  }
+
+  // keep() from x = idx * 0x9E3779B9 + seed: a caller that steps idx by a
+  // constant steps x by a constant too
+  __device__ __forceinline__ bool keep_mixed(uint32_t x) const {
     x ^= x >> 16;
     x *= 0x85EBCA6Bu;
     x ^= x >> 13;

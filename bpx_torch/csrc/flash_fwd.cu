@@ -66,10 +66,35 @@
 // 0): a 64 x 64 tile step at DP = 32 is a short serial chain (wait, S,
 // softmax, P V, wait) that 4-5 blocks an SM do not hide.
 //
-// D = 128 (mmimdb: 768 / 6) is four
-// panels: S in 8 k-steps, O += P V as m64n128k16 (64 fp32 accumulators a
-// thread beside S's 32); 113 KB of shared memory a block, so two blocks
-// fill an SM's 228 KB exactly, 1 KB reserved for each.
+// D = 128 (mmimdb: 768 / 6) has a kernel of its own, flash_fwd_wide_kernel:
+// the same function over four panels, S in 8 k-steps, O += P V as
+// m64n128k16 (64 fp32 accumulators a thread beside S's 32).  What differs:
+//   * the grid puts batch*head along x and the query tiles along y, last
+//     first, as the narrow kernel's;
+//   * tile step u issues S_u = Q K_u^T and O += P_{u-1} V_{u-1} together,
+//     waits for S_u alone and computes P_u while P_{u-1} V_{u-1} runs
+//     (FlashAttention-3's order inside one warpgroup), then rescales O once
+//     that product is waited on: one score buffer, no serial wait for P V;
+//   * K and V stream through rings of their own (3 stages each), each tile
+//     two steps ahead with one barrier a step: at step u the stages of
+//     K_{u-1} and V_{u-2} are free;
+//   * a thread's copies are worked out once (WideCopier): a tile costs a
+//     64-bit offset, two row tests and eight cp.async, where load_tile's
+//     address arithmetic took about as many instructions as the softmax;
+//   * an edge tile masks with one comparison a score (each row's last
+//     visible key), and the dropout hash steps its first product by
+//     constants (Dropout::keep_mixed).
+// 113 KB of shared memory (Q, 3 K and 3 V tiles): two blocks fill an SM's
+// 228 KB, 1 KB reserved for each; 157 registers, no spills.  Measured on an
+// H100 (PERF.md, scripts/torch_flash_bwd_narrow.py), one step at a time,
+// each faster than the one before: the order with the split rings, the
+// overlap, the copies worked out once, the masks and the hash.  Two
+// warpgroups on a 128-query tile (one block an SM; with ping-pong
+// barriers too, and at 2 stages and 128 registers for two blocks), S_{u+1}
+// issued before the softmax of tile u (a second score buffer: ptxas
+// serialised the wgmmas), 2 stages, the copies issued after the products,
+// the keep bits computed while S runs, and a stated minimum of 2 blocks
+// measured slower or no faster.
 //
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
@@ -107,7 +132,8 @@ struct FlashParams {
   Dropout drop;
 };
 
-// Q, then kStages x (K, V); +1 KB to align the base to the swizzle.
+// Q, then kStages x (K, V) (at D = 128 a ring of K tiles, then one of V
+// tiles); +1 KB to align the base to the swizzle.
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {
   return (1 + 2 * kStages) * tile_bytes<D>() + 1024;
@@ -509,11 +535,298 @@ flash_fwd_narrow_kernel(const FlashParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// D = 128: the header
+// ---------------------------------------------------------------------------
+
+// One thread's copies into every 64 x 128 tile of one (batch, head) slice,
+// load_tile's chunks with their addresses worked out once: chunk c = t % 4
+// of the four panels of rows t / 4 and t / 4 + 32 of the tile.  A tile then
+// costs a 64-bit offset, two row tests and eight cp.async.
+struct WideCopier {
+  const __nv_bfloat16* row;   // row t / 4 of the slice, column 8 c
+  const __nv_bfloat16* zero;  // row 0, column 8 c: the address of a zero fill
+  long long stride;           // elements between rows
+  uint32_t dst;               // byte offset of the first chunk in a tile
+  int r0;                     // t / 4
+
+  __device__ __forceinline__ WideCopier(const __nv_bfloat16* slice,
+                                        long long stride_t, int tid)
+      : stride(stride_t), r0(tid >> 2) {
+    zero = slice + (tid & 3) * 8;
+    row = zero + (long long)r0 * stride_t;
+    dst = tile_offset(r0, 0, tid & 3);
+  }
+
+  // rows [t0, t0 + 64) into the tile at `tile`; rows at or past T as zeros
+  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
+    const bool ok0 = t0 + r0 < T;
+    const bool ok1 = t0 + r0 + 32 < T;
+    const __nv_bfloat16* lo = row + (long long)t0 * stride;
+    const __nv_bfloat16* a0 = ok0 ? lo : zero;
+    const __nv_bfloat16* a1 = ok1 ? lo + 32 * stride : zero;
+    const uint32_t d = tile + dst;
+#pragma unroll
+    for (int panel = 0; panel < 4; ++panel) {
+      cp_async_16(d + panel * kPanelBytes, a0 + panel * 32, ok0);
+      cp_async_16(d + panel * kPanelBytes + 32 * 64, a1 + panel * 32, ok1);
+    }
+  }
+};
+
+// Pin the bf16 A fragments of an in-flight P V at this point: their
+// registers are not reused before the wgmma that reads them is waited on.
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+// One (batch*head, 64-query tile) at D = 128: batch*head along x, the query
+// tiles along y, the last first.  Step u issues S_u = Q K_u^T and
+// O += P_{u-1} V_{u-1} together, waits for S_u alone and computes P_u while
+// P_{u-1} V_{u-1} runs, then waits for it and rescales O.  Shared memory
+// holds Q, then a ring of kStages K tiles, then one of kStages V tiles
+// (smem_bytes).  K_u and V_u go to stage u mod kStages of their rings, each
+// loaded two steps ahead: at step u, once every thread is past step u - 1,
+// the stages of K_{u-1} (read by S_{u-1}) and V_{u-2} (read by P_{u-2}
+// V_{u-2}) are free.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const FlashParams p) {
+  constexpr int DP = padded_dim<D>();
+  static_assert(DP == 128, "four panels");
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
+  constexpr int kS = kStages;
+  extern __shared__ unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t k_ring = q_s + kTile;
+  const uint32_t v_ring = k_ring + kS * kTile;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;     // row within the warp's 16 (and g + 8)
+  const int t4 = lane % 4;    // column pair within an 8-wide block
+
+  const int Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);   // keys from here on are masked
+
+  // key tiles to visit
+  int n_tiles = (Tk + kRows - 1) / kRows;
+  if (kv_len > 0) {
+    n_tiles = min(n_tiles, (kv_len + kRows - 1) / kRows);
+    if (p.masked) {
+      n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
+    }
+  }
+
+  // step w loads K_{w + kS - 1} and V_{w + kS - 2}, one commit group
+  const WideCopier k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st,
+                          threadIdx.x);
+  const WideCopier v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st,
+                          threadIdx.x);
+  auto load_group = [&](int w) {
+    const int jk = w + kS - 1;
+    const int jv = w + kS - 2;
+    if (jk < n_tiles) k_copy.copy(k_ring + (jk % kS) * kTile, jk * kRows, Tk);
+    if (jv >= 0 && jv < n_tiles) {
+      v_copy.copy(v_ring + (jv % kS) * kTile, jv * kRows, Tk);
+    }
+    cp_async_commit();
+  };
+  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+#pragma unroll
+  for (int w = 1 - kS; w < 0; ++w) load_group(w);
+
+  const int row0 = q0 + warp * 16 + g;   // global query rows of this thread
+  const int row1 = row0 + 8;
+  float m0 = kMaskFill, m1 = kMaskFill;   // running row max
+  float l0 = 0.f, l1 = 0.f;               // per-thread partial row sums
+  float alpha0 = 1.f, alpha1 = 1.f;       // the last step's rescale
+  float acc[DP / 2], s[32];
+  uint32_t pa[4][4];                      // bf16(P) of the last step
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  // K_u and V_{u-1} have landed (each thread waits for its own copies, the
+  // barrier publishes everyone's) and every thread is done with step u - 1
+  auto ring_wait = [&]() {
+    cp_async_wait<kS - 2>();
+    fence_proxy_async();
+    __syncthreads();
+  };
+  auto issue_qk = [&](int u) {
+    const uint32_t k_s = k_ring + (u % kS) * kTile;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
+    }
+  };
+  auto issue_pv = [&](int u) {
+    const uint32_t v_s = v_ring + (u % kS) * kTile;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DP>(acc, pa[kc], desc_mn_major(v_s, kc));
+    }
+  };
+  // the last visible key of each of this thread's rows (band and kv_len)
+  const int vis0 = p.masked ? min(kv_len - 1, row0 + p.offset) : kv_len - 1;
+  const int vis1 = p.masked ? min(kv_len - 1, row1 + p.offset) : kv_len - 1;
+  // the dropout hash's x = idx * 0x9E3779B9 + seed (flash_common.cuh) of
+  // this thread's first score in row0 of key tile 0; a score i of tile u
+  // adds a constant
+  constexpr uint32_t kMix = 0x9E3779B9u;
+  const uint32_t x00 =
+      (static_cast<uint32_t>(bh) * 0x85EBCA6Bu +
+       static_cast<uint32_t>(row0) * p.drop.tk_p + 2 * t4) * kMix +
+      p.drop.seed;
+  const uint32_t x10 = x00 + 8 * p.drop.tk_p * kMix;   // row1
+
+  // P_u from S_u: the masks, the running max and the rescale factors, exp,
+  // the row sums, then dropout
+  auto softmax = [&](int u) {
+    const int k0 = u * kRows;
+    const bool edge = k0 + kRows > kv_end ||
+                      (p.masked && k0 + kRows - 1 > q0 + p.offset);
+    if (edge) {
+      // -inf past Tk (not a key at all), -1e30 for masked keys
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        const int vis = (i & 2) ? vis1 : vis0;
+        s[i] = col >= Tk ? -INFINITY : col > vis ? kMaskFill : s[i];
+      }
+    }
+    float mx0 = kMaskFill, mx1 = kMaskFill;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    // the 4 threads of a quad share a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    alpha0 = ex2((m0 - mn0) * kLog2e);
+    alpha1 = ex2((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    const float ml0 = __fmul_rn(mn0, kLog2e);
+    const float ml1 = __fmul_rn(mn1, kLog2e);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(__fmul_rn(s[i], kLog2e) - ((i & 2) ? ml1 : ml0));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? ml1 : ml0)));
+      }
+    }
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l0 += s[4 * j] + s[4 * j + 1];
+      l1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    // dropout after the row sums, so l keeps the undropped probabilities
+    if (p.drop.on) {
+      const uint32_t xt0 = x00 + static_cast<uint32_t>(k0) * kMix;
+      const uint32_t xt1 = x10 + static_cast<uint32_t>(k0) * kMix;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const uint32_t x = ((i & 2) ? xt1 : xt0) +
+                           static_cast<uint32_t>((i / 4) * 8 + (i & 1)) * kMix;
+        s[i] = p.drop.keep_mixed(x) ? s[i] * p.drop.inv_keep : 0.f;
+      }
+    }
+  };
+
+  if (n_tiles > 0) {
+    // step 0: S_0, P_0
+    ring_wait();
+    load_group(0);
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0);
+    p_frags(pa, s);
+  }
+  for (int u = 1; u < n_tiles; ++u) {
+    ring_wait();
+    load_group(u);
+    wgmma_fence();
+    issue_qk(u);
+    wgmma_commit();
+    issue_pv(u - 1);
+    wgmma_commit();
+    wgmma_wait<1>();   // S_u; P_{u-1} V_{u-1} may still run
+    fence_regs(s);
+    softmax(u);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(pa);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+    p_frags(pa, s);
+  }
+  if (n_tiles > 0) {
+    // O += P_{n-1} V_{n-1}
+    ring_wait();
+    wgmma_fence();
+    issue_pv(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float ls0 = (l0 == 0.f) ? 1.f : l0;
+  const float ls1 = (l1 == 0.f) ? 1.f : l1;
+
+  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  if (row0 < p.Tq) {
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
+    if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
+  }
+  if (row1 < p.Tq) {
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
+    if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
+  }
+}
+
 template <int D>
 cudaError_t launch(const FlashParams& p, cudaStream_t s) {
   static bool smem_set = false;
   const int nq = (p.Tq + kRows - 1) / kRows;
-  if constexpr (padded_dim<D>() == 32) {
+  if constexpr (padded_dim<D>() == 128) {
+    constexpr int bytes = smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_fwd_wide_kernel<D>, bytes, smem_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.B * p.H, nq);
+    flash_fwd_wide_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+  } else if constexpr (padded_dim<D>() == 32) {
     constexpr int bytes = narrow_smem_bytes<D>();
     cudaError_t err = allow_smem(flash_fwd_narrow_kernel<D>, bytes, smem_set);
     if (err != cudaSuccess) return err;
@@ -577,7 +890,10 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
 int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if constexpr (padded_dim<kD>() == 32) {
+    if constexpr (padded_dim<kD>() == 128) {
+      return bpx_flash::blocks_per_sm(flash_fwd_wide_kernel<kD>,
+                                      smem_bytes<kD>(), blocks);
+    } else if constexpr (padded_dim<kD>() == 32) {
       return bpx_flash::blocks_per_sm(flash_fwd_narrow_kernel<kD>,
                                       narrow_smem_bytes<kD>(), blocks);
     } else {

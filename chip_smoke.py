@@ -18,7 +18,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
 3. the flash-attention forward kernel and the LayerNorm forward kernel
    against their plain PyTorch versions at every served class: max errors,
    kernel / plain / library (``F.scaled_dot_product_attention``, with the
-   backend that ran, and ``F.layer_norm``) times (CUDA events, median of 20
+   backend that ran and the first kernel whose name told it; called with
+   ``is_causal`` where the visible mask is exactly the causal triangle,
+   else with the mask; and ``F.layer_norm``) times (CUDA events, median of 20
    groups of 10 warm runs), the bound (the larger of bytes / 3.35 TB/s and
    flops / 989 TFLOP/s), the share of the bound reached and the ratio to
    the library call; for LayerNorm also the device kernels one call runs
@@ -90,7 +92,10 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    one micro-step against the plain path, the head_dim-128 kernels with
    dropout at its classes, the exact dropout mask at (8, 6, 512, 512,
    128), 3 train steps (168 / 72 / 168 / 458 / 458 launches per step) with
-   the peak memory;
+   the peak memory, the long shape at head_dim 128; the profiler must
+   name the head_dim-128 forward kernel (``flash_fwd_wide_kernel``) at
+   every one of its classes, as it names each head dim's own forward
+   kernel on every path;
 11. the ``counseling`` and ``cmu-mosi`` presets (``mmtrvat`` at 5 layers,
    head_dim 30; counseling's video and audio unprojected, cmu-mosi's one
    output with the L1 loss): one request against the plain path and one
@@ -121,7 +126,7 @@ It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 rows by shape class, and on the moviescope rows the training loop's launches in
 phase 13 and per epoch; the narrow backward and forward also alone, at
 head_dim 25 from iemocap's train steps and at 30 from cmu-mosei's, and the
-head_dim-128 backward from mmimdb's) and, last, ``{"ok": true,
+head_dim-128 backward and forward from mmimdb's) and, last, ``{"ok": true,
 "device": {...}}``.  It
 imports nothing of JAX or of the JAX package; without a CUDA device, or
 without ``bpx_torch`` beside it, it exits non-zero and prints no result.
@@ -556,34 +561,75 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
         t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens, *drop))
         t_p = timer(lambda: flash_attention_reference(q, k, v, masked,
                                                       kv_lens, *drop))
+        mask_args = sdpa_mask(torch, ok)
         sdpa = lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=ok, dropout_p=rate, scale=1.0)
+            q, k, v, dropout_p=rate, scale=1.0, **mask_args)
         t_l = timer(sdpa)
-        backend = sdpa_backend(torch, sdpa)
+        backend, first = sdpa_backend(torch, sdpa)
+        kernel = fwd_kernel(D)
+        takes_kernel(torch, lambda: flash_attention(q, k, v, masked, kv_lens,
+                                                    *drop),
+                     kernel, (B, H, Tq, Tk, D, rate))
         eff_masked = effective_band(Tq, Tk, masked)[0]
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, per_forward=count,
                          max_abs_err=err_o, lse_max_abs_err=err_l, ms=t_k,
                          plain_ms=t_p, library_ms=t_l,
-                         library_backend=backend, bound_ms=b_ms,
-                         bound_by=b_by))
+                         library_backend=backend, library_kernel=first,
+                         library_mask=mask_text(mask_args), kernel=kernel,
+                         bound_ms=b_ms, bound_by=b_by))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
-              f"kv_lens={padded} rate={rate} x{count}: err O {err_o:.3g} "
-              f"(tol {FLASH_TOL}) lse {err_l:.3g} (tol {LSE_TOL}); "
-              + timing_text(t_k, t_p, t_l, b_ms, b_by, f"sdpa ({backend})"))
+              f"kv_lens={padded} rate={rate} x{count}: {kernel}; err O "
+              f"{err_o:.3g} (tol {FLASH_TOL}) lse {err_l:.3g} (tol "
+              f"{LSE_TOL}); "
+              + timing_text(t_k, t_p, t_l, b_ms, b_by, f"sdpa ({backend})")
+              + f"; sdpa {mask_text(mask_args)}, kernel {first}")
     return rows
 
 
-def sdpa_backend(torch, fn) -> str:
-    """Which of SDPA's backends ran ``fn``, from the device kernels the
-    profiler names: flash, cuDNN, memory-efficient (cutlass fmha) or the
-    math path (matmuls and a softmax)."""
-    names = " ".join(device_kernels(torch, fn, n=2)).lower()
-    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+def fwd_kernel(D) -> str:
+    """The forward's kernel at head_dim D, by the name the profiler
+    reports."""
+    if D < 32:
+        return "flash_fwd_narrow_kernel"
+    if D > 96:
+        return "flash_fwd_wide_kernel"
+    return "flash_fwd_kernel<"
+
+
+def sdpa_mask(torch, ok) -> dict:
+    """SDPA's mask arguments for the visible mask ``ok`` ((B, 1, Tq, Tk)
+    bool, None where every key is visible): ``is_causal`` where it is
+    exactly the causal triangle, since SDPA's flash backend takes no
+    ``attn_mask``; else the mask itself."""
+    if ok is not None and ok.shape[-1] == ok.shape[-2]:
+        tri = torch.ones(ok.shape[-2:], dtype=torch.bool,
+                         device=ok.device).tril()
+        if torch.equal(ok, tri.expand_as(ok)):
+            return dict(is_causal=True)
+    return dict(attn_mask=ok)
+
+
+def mask_text(mask_args) -> str:
+    """How ``sdpa_mask``'s arguments hand SDPA the mask, for the log."""
+    if mask_args.get("is_causal"):
+        return "is_causal"
+    return "no mask" if mask_args["attn_mask"] is None else "attn_mask"
+
+
+def sdpa_backend(torch, fn):
+    """(backend, kernel) of SDPA's call ``fn``: which backend ran it, from
+    the device kernels the profiler names (cuDNN first, since a cuDNN
+    attention kernel's name may hold "flash"; then flash, memory-efficient
+    (cutlass fmha), else the math path), and the first kernel name that
+    told it (the first of all for the math path)."""
+    seen = list(device_kernels(torch, fn, n=2))
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
                          ("fmha", "efficient"), ("mem_eff", "efficient")):
-        if key in names:
-            return backend
-    return "math"
+        hits = [k for k in seen if key in k.lower()]
+        if hits:
+            return backend, hits[0]
+    return "math", seen[0] if seen else "-"
 
 
 def phase_layer_norm(torch, timer, classes, gen, scalar_path=True):
@@ -646,9 +692,9 @@ def misaligned_view(torch, gen, n, e):
     return (buf * 3 + 1).to(torch.bfloat16)[2:].view(n, e)
 
 
-def takes_kernel(torch, fn, kernel):
+def takes_kernel(torch, fn, kernel, where="a misaligned view"):
     """Fails unless one call of ``fn`` runs one device kernel, ``kernel``."""
-    split = one_kernel_per_call(torch, fn, kernel, "a misaligned view")
+    split = one_kernel_per_call(torch, fn, kernel, where)
     check(all(kernel in k for k in split),
           f"expected {kernel}, the profiler saw {sorted(split)}")
 
@@ -678,13 +724,13 @@ def flash_bwd_work(torch, B, H, Tq, Tk, D, masked, kv_lens):
     return nbytes, flops, ok
 
 
-def sdpa_backward(torch, q, k, v, ok, rate, dout):
-    """SDPA's backward alone (its forward runs once) on the same inputs:
-    the library yardstick."""
+def sdpa_backward(torch, q, k, v, mask_args, rate, dout):
+    """SDPA's backward alone (its forward runs once) on the same inputs,
+    with the mask arguments ``sdpa_mask`` gives: the library yardstick."""
     import torch.nn.functional as F
     ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ok,
-                                         dropout_p=rate, scale=1.0)
+    out = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=rate,
+                                         scale=1.0, **mask_args)
     return lambda: torch.autograd.grad(out, (ql, kl, vl), dout,
                                        retain_graph=True)
 
@@ -750,9 +796,10 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
         t_p = timer(lambda: fa.flash_attention_backward_reference(
             q, k, v, dout, lse, fa.attention_delta_reference(dout, out),
             masked, kv_lens, *drop))
-        sdpa = sdpa_backward(torch, q, k, v, ok, rate, dout)
+        mask_args = sdpa_mask(torch, ok)
+        sdpa = sdpa_backward(torch, q, k, v, mask_args, rate, dout)
         t_l = timer(sdpa)
-        backend = sdpa_backend(torch, sdpa)
+        backend, first = sdpa_backend(torch, sdpa)
         split = backward_split(torch, lambda: fa._launch_bwd(
             q, k, v, dout, lse, out, masked, kv_lens, *drop), D)
         dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens)
@@ -769,8 +816,9 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
                                          for g, w in zip(got, want)),
                          rel_err=max(errs), delta_max_abs_err=err_d,
                          ms=t_k, plain_ms=t_p, library_ms=t_l,
-                         library_backend=backend, bound_ms=b_ms,
-                         bound_by=b_by, kernel_split_ms=split,
+                         library_backend=backend, library_kernel=first,
+                         library_mask=mask_text(mask_args),
+                         bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split,
                          dq_bound_ms=dq_b[0], dkdv_bound_ms=dkdv_b[0]))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} x{count}/micro-step: "
@@ -779,7 +827,8 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
               f"equal; {launches} "
               + timing_text(t_k, t_p, t_l, b_ms, b_by,
                             f"sdpa bwd ({backend})")
-              + "; profiler: " + ", ".join(f"{n} {t:.4f} ms"
+              + f"; sdpa {mask_text(mask_args)}, kernel {first}; "
+              f"profiler: " + ", ".join(f"{n} {t:.4f} ms"
                                            for n, t in split.items())
               + f" (dQ bound {dq_b[0]:.4f} ms, dK/dV bound {dkdv_b[0]:.4f} "
               f"ms)")
@@ -1044,8 +1093,12 @@ def phase_long_shape(torch, timer, gen, D=64):
           and torch.allclose(lse, ref_lse, **LSE_TOL)
           and max(errs) <= FLASH_GRAD_TOL,
           "flash kernels differ from the plain versions at the long shape")
+    takes_kernel(torch, lambda: fa.flash_attention(q, k, v, True, None, rate,
+                                                   seed),
+                 fwd_kernel(D), "the long shape")
 
     visible, keys, ok = attention_work(torch, B, H, Tq, Tk, True, None)
+    mask_args = sdpa_mask(torch, ok)
     bh = B * H
     rows = {}
     # row 1b: the forward
@@ -1056,14 +1109,14 @@ def phase_long_shape(torch, timer, gen, D=64):
         timer(lambda: fa.flash_attention_reference(q, k, v, True, None, rate,
                                                    seed)),
         timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=ok, dropout_p=rate, scale=1.0)), *f_ms)
+            q, k, v, dropout_p=rate, scale=1.0, **mask_args)), *f_ms)
     # rows 3 and 4: the dQ and dK/dV kernels, each against the work it does
     # (S and dP, then dQ; S^T and dP^T, then dV and dK); SDPA has no call of
     # its own for either, so its whole backward stands beside the pair
     dq_name, dkdv_name, delta_name = bwd_kernels(D)
     split = backward_split(torch, lambda: fa._launch_bwd(
         q, k, v, dout, lse, out, True, None, rate, seed), D)
-    t_l = timer(sdpa_backward(torch, q, k, v, ok, rate, dout))
+    t_l = timer(sdpa_backward(torch, q, k, v, mask_args, rate, dout))
     dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, True, None)
     rows["3 dQ kernel"] = (split[dq_name], None, t_l, *dq_b)
     rows["4 dK/dV kernel"] = (split[dkdv_name], None, t_l, *dkdv_b)
@@ -2089,6 +2142,7 @@ def main() -> None:
     m_ln_bwd_rows = phase_layer_norm_bwd(torch, timer, m_seen["ln_bwd"], gen,
                                          scalar_path=False)
     phase_mask_check(torch, gen, BATCH, 6, 512, 128)
+    m_long_rows = phase_long_shape(torch, timer, gen, 128)
     with recording() as m_train_seen:
         m_trained = phase_train(torch, model, step, batches, args.profile,
                                 MMIMDB)
@@ -2213,10 +2267,16 @@ def main() -> None:
                   m_trained["totals"]["dropout"], steps, "micro_step"),
         summarise("flash_bwd_mmimdb", bwd_src, bwd_tpu, m_bwd_rows,
                   m_trained["totals"]["flash_bwd"], steps, "micro_step"),
-        # the D 128 backward alone (row 2 @ 128: its own two kernels)
-        summarise("flash_bwd_d128", bwd_src, bwd_tpu,
-                  dim_rows(m_bwd_rows, 128),
-                  dim_launches(m_train_seen, "flash_bwd", 128), steps,
+        # the D 128 backward alone (row 2 @ 128: its own two kernels) and
+        # the D 128 forward alone (row 1 @ 128: its own kernel, over the
+        # served and the dropout classes; row 1b @ 128 the long shape)
+        dict(summarise("flash_bwd_d128", bwd_src, bwd_tpu,
+                       dim_rows(m_bwd_rows, 128),
+                       dim_launches(m_train_seen, "flash_bwd", 128), steps,
+                       "micro_step"), long_shape=m_long_rows),
+        summarise("flash_fwd_d128", fwd_src, fwd_tpu,
+                  dim_rows(m_flash_rows + m_drop_rows, 128),
+                  dim_launches(m_train_seen, "flash", 128), steps,
                   "micro_step"),
         summarise("layer_norm_fwd_mmimdb", ln_src, "bpx/ops/norm.py:53",
                   m_ln_rows, m_served["ln_launches"], REQUESTS, "forward"),

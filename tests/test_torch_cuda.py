@@ -10,7 +10,11 @@ kernels of their backward; head_dim 128
 masks, and its backward's own two kernels (dQ with delta, then the
 two-warpgroup dK/dV kernel) at tile edges (nine key tiles, Tk < 64 < Tq,
 kv_len below a tile and 0, B*H 1 with the band); the delta kernel alone;
-synthetic-tiny served and trained
+the head_dim-128 forward's own kernel (the last query tile first, S of a
+key tile beside P V of the one before) at tile edges with dropout and
+bitwise reruns (nine query tiles, kv_lens, Tk < 64 < Tq, B*H 1 with the
+band, the long online shapes) and named by the profiler beside the
+generic kernel at 64 and 96; synthetic-tiny served and trained
 through the einsum attention with no flash launch; the
 LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
@@ -55,28 +59,62 @@ def _qkv(gen, B, H, Tq, Tk, D):
     return tuple(x.to(torch.bfloat16) for x in (q, k, v))
 
 
-@pytest.mark.parametrize("B,H,Tq,Tk,D,masked,lens", [
-    (2, 3, 77, 130, 64, True, None),        # ragged tiles, band offset 53
-    (2, 2, 130, 77, 96, True, None),        # tall band
-    (2, 2, 300, 100, 96, True, None),       # band dropped (offset >= Tk-1)
-    (3, 2, 64, 64, 64, False, (64, 0, 5)),  # an empty key range: uniform
-    (1, 2, 1, 1, 96, True, None),           # single row and key
-    (2, 2, 300, 300, 96, True, (300, 129)),  # band + key padding
-    (2, 3, 77, 130, 128, True, None),       # head_dim 128: ragged tiles
-    (3, 2, 64, 64, 128, False, (64, 0, 5)),  # an empty key range
-    (2, 2, 300, 100, 128, True, None),      # band dropped
-])
-def test_flash_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked, lens):
+# head_dim 128 (flash_fwd_wide_kernel: the last query tile first, S of the
+# next key tile beside P V of the one before) at rate 0 and 0.1
+WIDE_FWD_EDGES = [row + (rate,) for row in [
+    (2, 2, 576, 576, 128, True, None),          # nine query tiles, causal
+    (2, 2, 576, 576, 128, True, (576, 300)),    # ... with kv_lens
+    (2, 2, 130, 40, 128, True, None),           # Tk < 64 < Tq
+    (1, 1, 200, 576, 128, True, None),          # B*H 1, band offset 376
+    (1, 2, 640, 1280, 128, True, None),         # long: tk_p = Tk
+    (2, 2, 200, 1100, 128, True, (1100, 700)),  # long: tk_p = 1152
+] for rate in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,D,masked,lens,rate", [
+    (2, 3, 77, 130, 64, True, None, 0.0),        # ragged tiles, offset 53
+    (2, 2, 130, 77, 96, True, None, 0.0),        # tall band
+    (2, 2, 300, 100, 96, True, None, 0.0),       # band dropped
+    (3, 2, 64, 64, 64, False, (64, 0, 5), 0.0),  # an empty key range
+    (1, 2, 1, 1, 96, True, None, 0.0),           # single row and key
+    (2, 2, 300, 300, 96, True, (300, 129), 0.0),  # band + key padding
+    (2, 3, 77, 130, 128, True, None, 0.0),       # head_dim 128: ragged
+    (3, 2, 64, 64, 128, False, (64, 0, 5), 0.0),  # an empty key range
+    (2, 2, 300, 100, 128, True, None, 0.0),      # band dropped
+] + WIDE_FWD_EDGES)
+def test_flash_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked, lens,
+                                    rate):
+    """The forward against the plain version (an empty key range attends
+    uniformly), and bitwise on a rerun."""
     q, k, v = _qkv(gen, B, H, Tq, Tk, D)
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device="cuda")
+    seed = 0x5EED if rate else None
     before = flash_attention.launches
-    out, lse = flash_attention(q, k, v, masked, kv, return_lse=True)
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
     assert flash_attention.launches == before + 1
-    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    again, again_lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                                       return_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.parametrize("D,kernel", [(64, "flash_fwd_kernel<64>"),
+                                      (96, "flash_fwd_kernel<96>"),
+                                      (128, "flash_fwd_wide_kernel<128>")])
+def test_flash_forward_kernel_names(gen, D, kernel):
+    """The profiler names the forward's one device kernel: the generic
+    kernel at head_dim 64 and 96, the wide kernel at 128."""
+    q, k, v = _qkv(gen, 2, 3, 200, 200, D)
+    for _ in range(3):   # the profiler drops an event now and then: retry
+        names = _device_kernels(lambda: flash_attention(q, k, v, True))
+        if len(names) == 1:
+            break
+    assert len(names) == 1 and kernel in names[0], names
 
 
 def test_flash_kernel_takes_strided_views(gen):
@@ -523,8 +561,9 @@ def test_kernels_fit_the_sm(gen):
     block per SM (their shared memory and registers), by the occupancy
     calculator, and the blocks their design counts on (flash_fwd.cu,
     flash_bwd.cu): at the narrow heads the forward 5 (D 25) and 4 (D 30),
-    the backward's dK/dV 3 and dQ 4; at 128 the forward and the dQ kernel
-    2, the 256-thread dK/dV kernel 1; an untabled head dim raises."""
+    the backward's dK/dV 3 and dQ 4; at 128 the wide forward (113 KB of
+    shared memory) and the dQ kernel 2, the 256-thread dK/dV kernel 1; an
+    untabled head dim raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)
