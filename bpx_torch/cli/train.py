@@ -154,8 +154,8 @@ def get_args(parser: argparse.ArgumentParser):
     parser.add_argument("--scan_layers", action="store_true",
                         help="accepted for the JAX package's CLI; inert")
     parser.add_argument("--remat", action="store_true",
-                        help="accepted for the JAX package's CLI; inert "
-                             "(recompute is not ported yet)")
+                        help="recompute each encoder and BERT layer in the "
+                             "backward instead of keeping its activations")
     parser.add_argument("--scan_unroll", type=int, default=1,
                         help="accepted for the JAX package's CLI; inert")
     parser.add_argument("--optimizer", type=str, default="adam",

@@ -6,9 +6,10 @@ the field names, defaults and presets are identical, so a ``config.json``
 snapshot written by either package loads in both (:func:`config_from_dict`).
 
 Fields that only steer XLA compilation are accepted and inert here: the
-port runs eagerly, and nothing is scanned or rematerialised.  They are
-``scan_layers``, ``scan_encoders``, ``scan_unroll``, ``remat``,
-``remat_policy``, ``remat_bert`` and ``remat_policy_bert``.
+port runs eagerly, and nothing is scanned.  They are ``scan_layers``,
+``scan_encoders`` and ``scan_unroll``.  ``remat``, ``remat_policy``,
+``remat_bert`` and ``remat_policy_bert`` recompute layers in the backward as
+in the JAX package (``models/bpmult.py``).
 ``attention_impl`` (and ``bert_attention_impl`` for BERT, None inheriting
 it) chooses the attention as in the JAX package: ``"pallas"`` the
 hand-written flash kernels, anything else the plain einsum attention.
@@ -125,7 +126,8 @@ class ModelConfig:
     bert_attention_impl: Optional[str] = None     # None: attention_impl
     # Final fusion: "gmu" (reference default) or "mag" (mmtrvat only).
     fusion: str = "gmu"
-    # Inert in the port (see the module docstring).
+    # Recompute per layer in the backward (models/bpmult.py); the scan
+    # fields are inert in the port (see the module docstring).
     scan_layers: bool = False
     remat: bool = False
     remat_policy: Optional[str] = None

@@ -14,6 +14,7 @@ from typing import Dict
 import numpy as np
 
 from bpx_torch.config import DataConfig, ModelConfig
+from bpx_torch.inputs import _INPUT_KEYS
 
 
 class SyntheticDataset:
@@ -63,3 +64,31 @@ def synthetic_label_freqs(n_classes: int):
     """Uniform label frequencies for the synthetic task."""
     return list(range(n_classes)), {i: 1 for i in range(n_classes)}
 
+
+def example_batch(exp, batch: int) -> Dict[str, np.ndarray]:
+    """One collated device-shaped batch made from the config's shapes
+    alone (no data files), the JAX package's ``example_batch``: the same
+    arrays from ``RandomState(0)``.  The export CLI traces the serving
+    forward on it."""
+    mc, dc = exp.model, exp.data
+    rng = np.random.RandomState(0)
+    L = dc.max_seq_len
+    streams = {
+        "txt": rng.randint(1, mc.bert.vocab_size, (batch, L)).astype(np.int32),
+        "mask": np.ones((batch, L), np.int32),
+        "segment": np.zeros((batch, L), np.int32),
+        "video": rng.randn(batch, dc.video_len,
+                           mc.orig_d_v).astype(np.float32),
+        "audio": rng.randn(batch, dc.audio_raw_len,
+                           mc.orig_d_a).astype(np.float32),
+        "poster": rng.randn(batch, mc.orig_d_p).astype(np.float32),
+    }
+    out = {k: streams[k] for k in _INPUT_KEYS[mc.model]}
+    if dc.task == "cmu-mosi":
+        out["target"] = rng.randn(batch).astype(np.float32)
+    elif dc.task_type == "multilabel":
+        out["target"] = (rng.rand(batch, mc.n_classes)
+                         > 0.5).astype(np.float32)
+    else:
+        out["target"] = rng.randint(0, mc.n_classes, batch).astype(np.int32)
+    return out

@@ -27,14 +27,15 @@ the encoders' ReLU and residual dropout, MAG's, and ``out_dropout`` in the
 head.  The forward then takes ``dropout_seed``, a uint32 from which every
 dropout site draws its own seed in call order (:class:`SeedStream`).
 
-``remat``, ``remat_policy``, ``remat_bert``, ``remat_policy_bert``,
-``scan_layers``, ``scan_encoders`` and ``scan_unroll`` steer XLA's program
-or its memory in the JAX package and are inert here: the port runs eagerly
-and keeps every activation for the backward.  Every mmtrvat preset and
-mmimdb set ``remat=True``; at micro-batch 8 each fits an 80 GB card without
-recompute (mmimdb's train step, T = 512 on every stream, peaks at 16.2 GiB
-on an H100 80GB HBM3, ``chip_smoke.py``).  ``hybrid`` and
-``group_encoders`` change the model and are not ported yet: they raise.
+``remat`` recomputes every encoder layer in the backward instead of keeping
+its activations, with ``remat_policy`` (``"save_attn"`` keeps the flash
+forwards' outputs); BERT's layers follow ``remat_bert`` (None: ``remat``)
+with ``remat_policy_bert``, as in the JAX package
+(``ops/encoder.py::recomputed``).  Every mmtrvat preset and mmimdb set
+``remat=True``.  ``scan_layers``, ``scan_encoders`` and ``scan_unroll``
+steer XLA's program in the JAX package and are inert here: the port runs
+eagerly.  ``hybrid`` and ``group_encoders`` change the model and are not
+ported yet: they raise.
 """
 
 from __future__ import annotations
@@ -119,8 +120,11 @@ class _BPMulTBase(nn.Module):
         """BERT, the audio encoder (when used) and the stream projections
         to ``hidden_sz`` (only where the widths differ)."""
         cfg, dt, E = self.config, self.dtype, self.config.hidden_sz
-        self.bert = BertEncoder(cfg.bert, dt, gen, device,
-                                cfg.bert_attention_impl or cfg.attention_impl)
+        self.bert = BertEncoder(
+            cfg.bert, dt, gen, device,
+            cfg.bert_attention_impl or cfg.attention_impl,
+            remat=cfg.remat if cfg.remat_bert is None else cfg.remat_bert,
+            remat_policy=cfg.remat_policy_bert)
         if cfg.use_audio_encoder:
             self.audio_enc = make_audio_encoder(
                 cfg.audio_encoder, cfg.orig_d_a, cfg.num_vectors_a, dt, gen,
@@ -143,7 +147,8 @@ class _BPMulTBase(nn.Module):
             return TransformerEncoder(
                 E, cfg.num_heads, cfg.layers, cfg.attn_mask, bp, dt, gen,
                 device, attn_dropout, cfg.relu_dropout, cfg.res_dropout,
-                cfg.embed_dropout, cfg.attention_impl)
+                cfg.embed_dropout, cfg.attention_impl, cfg.remat,
+                cfg.remat_policy)
         # per-encoder attention dropout: encoders whose query stream is
         # l / a / v take attn_dropout(_a / _v) of the key stream's modality
         rate = {"l": cfg.attn_dropout, "a": cfg.attn_dropout_a,

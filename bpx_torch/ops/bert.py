@@ -10,7 +10,8 @@ else the einsum attention with the additive key-padding bias, its scores
 divided by sqrt(head_dim) in fp32.  In training mode: attention dropout (in
 the flash kernel, or on the einsum path's probabilities), and hidden
 dropout after the embedding LN and on the attention and FFN outputs before
-their residual LNs.
+their residual LNs.  ``remat`` recomputes each layer in the backward
+(``ops/encoder.py::recomputed``), as the JAX package's ``remat`` does.
 
 :func:`load_hf_bert_params` and :func:`maybe_load_pretrained` carry a local
 Hugging Face checkpoint (BERT or DistilBERT layout; ``pytorch_model.bin`` or
@@ -34,6 +35,7 @@ from bpx_torch.ops.attention import (attention_dropout,
                                      dot_product_attention, fused_projection,
                                      merge_heads)
 from bpx_torch.ops.dropout import SeedStream, maybe_dropout
+from bpx_torch.ops.encoder import recomputed, resolve_remat_policy
 from bpx_torch.ops.flash_attention import flash_attention
 from bpx_torch.ops.init import embed_normal_, linear
 from bpx_torch.ops.masks import key_padding_bias
@@ -113,12 +115,15 @@ class BertLayer(nn.Module):
 class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None, device=None,
-                 attention_impl: str = "xla"):
+                 attention_impl: str = "xla", remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         E = cfg.hidden_size
         self.cfg = cfg
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.remat = remat
+        self.remat_policy = resolve_remat_policy(remat_policy)
         self.word_embeddings = _Embedding(cfg.vocab_size, E, gen, device)
         self.position_embeddings = _Embedding(cfg.max_position_embeddings, E,
                                               gen, device)
@@ -150,8 +155,13 @@ class BertEncoder(nn.Module):
             keys = attention_mask.sum(-1).to(torch.int32)
         else:
             keys = key_padding_bias(attention_mask)
+        recompute = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            hidden = layer(hidden, keys, seeds)
+            if recompute:
+                hidden = recomputed(layer, self.remat_policy, seeds, hidden,
+                                    keys)
+            else:
+                hidden = layer(hidden, keys, seeds)
         return hidden
 
 

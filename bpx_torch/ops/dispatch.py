@@ -28,10 +28,15 @@ def plain_versions():
         _force_plain = prev
 
 
+def check_device(x: torch.Tensor) -> None:
+    """Raise unless ``x`` lies on the CPU or a CUDA device.  The public
+    wrappers call it before their custom op, whose fake impl would
+    otherwise compute shapes for a meta tensor."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no kernel for tensors on {x.device}")
+
+
 def use_kernel(x: torch.Tensor) -> bool:
     """True when ``x`` goes to the kernel, False for the plain version."""
-    if x.device.type == "cpu" or _force_plain:
-        return False
-    if x.device.type == "cuda":
-        return True
-    raise RuntimeError(f"no kernel for tensors on {x.device}")
+    check_device(x)
+    return x.device.type == "cuda" and not _force_plain

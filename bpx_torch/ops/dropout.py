@@ -106,6 +106,14 @@ class SeedStream:
         self.count += 1
         return _splitmix64((self.base << 32) | self.count) & _M32
 
+    def at(self, count: int) -> "SeedStream":
+        """A stream of the same base whose next seed is the one this
+        stream gave after ``count`` draws: a recomputed layer replays its
+        first pass's seeds from it (``ops/encoder.py::recomputed``)."""
+        stream = SeedStream(self.base)
+        stream.count = count
+        return stream
+
 
 def step_seed(run_seed: int, step: int) -> int:
     """The seed of one optimizer step's base-seed generator: splitmix64 of

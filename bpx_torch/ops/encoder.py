@@ -17,21 +17,78 @@ training mode the layers apply attention dropout, residual dropout after
 each attention and after fc2, and ReLU dropout; with
 embedding dropout, V is embedded separately from K with its own draw, so it
 no longer aliases K (one more LayerNorm per layer, three projections).
+
+``remat`` recomputes each layer's activations in the backward instead of
+keeping them (``torch.utils.checkpoint``, as the JAX package wraps each layer
+in ``jax.checkpoint``), in training with grad enabled only; ``remat_policy``
+``"save_attn"`` keeps the flash forward's outputs across the recompute
+boundary (:func:`resolve_remat_policy`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from bpx_torch.ops.attention import MultiheadAttention
 from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.init import linear
 from bpx_torch.ops.norm import LayerNorm
 from bpx_torch.ops.positions import positional_embedding
+
+
+def _save_attn(ctx, op, *args, **kwargs):
+    if op == torch.ops.bpx_torch.flash_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(name: Optional[str]):
+    """A config's ``remat_policy`` as a selective-checkpoint policy: None
+    (full recompute) for None; for ``"save_attn"`` one that saves the
+    outputs (out, lse) of ``bpx_torch::flash_fwd`` and recomputes every
+    other op, so the backward reruns no flash forward (on the einsum
+    attention no op is saved: full recompute, as in the JAX package)."""
+    if name is None:
+        return None
+    if name == "save_attn":
+        return _save_attn
+    raise ValueError(f"unknown remat_policy: {name!r}")
+
+
+def recomputed(layer: nn.Module, policy, seeds: Optional[SeedStream],
+               *args) -> torch.Tensor:
+    """``layer(*args, seeds)`` under ``torch.utils.checkpoint``: what it
+    computes is dropped after the forward and recomputed in the backward,
+    but for the ops that ``policy`` (:func:`resolve_remat_policy`) saves.
+
+    The replay runs the layer's Python forward again, so it must draw the
+    first pass's dropout seeds: the layer draws from a stream of its own
+    that starts at ``seeds``' count, and ``seeds`` then moves past the
+    seeds the layer drew."""
+    start = None if seeds is None else seeds.count
+    drawn = []
+
+    def run(*a):
+        own = None if seeds is None else seeds.at(start)
+        out = layer(*a, own)
+        drawn.append(None if own is None else own.count)
+        return out
+
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    out = checkpoint(run, *args, use_reentrant=False, **kw)
+    if seeds is not None:
+        seeds.count = drawn[0]
+    return out
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -99,10 +156,13 @@ class TransformerEncoder(nn.Module):
                  gen: Optional[torch.Generator] = None, device=None,
                  attn_dropout: float = 0.0, relu_dropout: float = 0.0,
                  res_dropout: float = 0.0, embed_dropout: float = 0.0,
-                 attention_impl: str = "xla"):
+                 attention_impl: str = "xla", remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.embed_scale = math.sqrt(embed_dim)
         self.embed_dropout = embed_dropout
+        self.remat = remat
+        self.remat_policy = resolve_remat_policy(remat_policy)
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(embed_dim, num_heads, attn_mask,
                                     biprojection, dtype, gen, device,
@@ -131,6 +191,10 @@ class TransformerEncoder(nn.Module):
             same = not self.training or self.embed_dropout <= 0.0
             if not (x_in_v is x_in_k and same):
                 x_v = self._embed(x_in_v, seeds)
+        recompute = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, x_k, x_v, seeds)
+            if recompute:
+                x = recomputed(layer, self.remat_policy, seeds, x, x_k, x_v)
+            else:
+                x = layer(x, x_k, x_v, seeds)
         return self.final_norm(x)

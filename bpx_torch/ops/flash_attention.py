@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 
 from bpx_torch.ops import _cuda
-from bpx_torch.ops.dispatch import use_kernel
+from bpx_torch.ops.dispatch import check_device, use_kernel
 from bpx_torch.ops.dropout import keep_threshold, mul32
 from bpx_torch.ops.masks import band_allowed
 
@@ -182,28 +182,111 @@ def _check(q, k, v, kv_lens, dropout_rate, dropout_seed):
         raise ValueError("dropout_rate > 0 needs a uint32 dropout_seed")
 
 
+def _kernel_layout(B, T, H, D, like):
+    """An empty (B, H, T, D) view of (B, T, H, D) memory: the layout the
+    kernels write O, dQ, dK and dV in, and so the layout of the ops'
+    outputs on every device."""
+    return torch.empty(B, T, H, D, dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
 def _forward(q, k, v, masked, kv_lens, rate, seed):
     if use_kernel(q):
         return _launch(q, k, v, masked, kv_lens, rate, seed)
-    return flash_attention_reference(q, k, v, masked, kv_lens, rate, seed)
+    out, lse = flash_attention_reference(q, k, v, masked, kv_lens, rate, seed)
+    B, H, Tq, D = q.shape
+    return _kernel_layout(B, Tq, H, D, out).copy_(out), lse
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, kv_lens, masked, rate, seed):
-        out, lse = _forward(q, k, v, masked, kv_lens, rate, seed)
-        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
-        ctx.config = (masked, rate, seed)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+def _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seed):
+    if use_kernel(q):
+        return _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate,
+                           seed)
+    grads = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), masked,
+        kv_lens, rate, seed)
+    B, H = q.shape[:2]
+    return tuple(_kernel_layout(B, g.shape[2], H, g.shape[3], g).copy_(g)
+                 for g in grads)
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, kv_lens = ctx.saved_tensors
-        masked, rate, seed = ctx.config
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
-                                              masked, kv_lens, rate, seed)
-        return dq, dk, dv, None, None, None, None
+
+# The kernels as custom operators (namespace ``bpx_torch``): one node each
+# under ``torch.export`` and a name that a selective-checkpoint policy can
+# match.  One impl serves the CPU and CUDA keys: the kernel for CUDA
+# tensors, the plain version for CPU ones (``use_kernel``), both in the
+# layout the fake impl states.  The impls call ``_forward`` / ``_backward``
+# by name at each call.
+
+torch.library.define(
+    "bpx_torch::flash_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, bool masked, "
+    "float rate, int? seed) -> (Tensor, Tensor)")
+torch.library.define(
+    "bpx_torch::flash_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, "
+    "Tensor? kv_lens, bool masked, float rate, int? seed) "
+    "-> (Tensor, Tensor, Tensor)")
+torch.library.define("bpx_torch::flash_delta",
+                     "(Tensor dout, Tensor out) -> Tensor")
+_FLASH_FWD = torch.ops.bpx_torch.flash_fwd.default
+_FLASH_BWD = torch.ops.bpx_torch.flash_bwd.default
+_FLASH_DELTA = torch.ops.bpx_torch.flash_delta.default
+
+
+@torch.library.impl("bpx_torch::flash_fwd", ("cpu", "cuda"))
+def _(q, k, v, kv_lens, masked, rate, seed):
+    return _forward(q, k, v, masked, kv_lens, rate, seed)
+
+
+@torch.library.register_fake("bpx_torch::flash_fwd")
+def _(q, k, v, kv_lens, masked, rate, seed):
+    B, H, Tq, D = q.shape
+    return (_kernel_layout(B, Tq, H, D, q),
+            q.new_empty(B, H, Tq, dtype=torch.float32))
+
+
+@torch.library.impl("bpx_torch::flash_bwd", ("cpu", "cuda"))
+def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seed):
+    return _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seed)
+
+
+@torch.library.register_fake("bpx_torch::flash_bwd")
+def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seed):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    return tuple(_kernel_layout(B, T, H, D, q) for T in (Tq, Tk, Tk))
+
+
+def _setup_flash_fwd(ctx, inputs, output):
+    q, k, v, kv_lens, masked, rate, seed = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+    ctx.config = (masked, rate, seed)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_grad(ctx, dout, _dlse):
+    q, k, v, out, lse, kv_lens = ctx.saved_tensors
+    masked, rate, seed = ctx.config
+    dq, dk, dv = _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked, rate,
+                            seed)
+    return dq, dk, dv, None, None, None, None
+
+
+torch.library.register_autograd("bpx_torch::flash_fwd", _flash_fwd_grad,
+                                setup_context=_setup_flash_fwd)
+
+
+@torch.library.impl("bpx_torch::flash_delta", ("cpu", "cuda"))
+def _(dout, out):
+    if not use_kernel(dout):
+        return attention_delta_reference(dout, out)
+    return _launch_delta(dout, out)
+
+
+@torch.library.register_fake("bpx_torch::flash_delta")
+def _(dout, out):
+    return out.new_empty(out.shape[:3], dtype=torch.float32)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -214,21 +297,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     return_lse: bool = False):
     """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D); q pre-scaled.
 
-    The kernels for CUDA tensors, the plain versions for CPU tensors, in
-    the forward and (through autograd) in the backward.  The kernels take
-    bf16 with head_dim 25, 30, 64, 96 or 128 and any strides whose last dim
-    is contiguous; the output is a (B, H, Tq, D) view of (B, Tq, H, D) memory,
-    so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
-    ``dropout_rate > 0`` needs ``dropout_seed``, a uint32 Python int.
+    The op ``bpx_torch::flash_fwd``: the kernels for CUDA tensors, the
+    plain versions for CPU tensors, in the forward and (through autograd,
+    ``bpx_torch::flash_bwd``) in the backward.  Autograd records the op only
+    when grad is enabled and q, k or v requires it; otherwise nothing is
+    saved.  The kernels take bf16 with head_dim 25, 30, 64, 96 or 128 and
+    any strides whose last dim is contiguous; the output is a (B, H, Tq, D)
+    view of (B, Tq, H, D) memory, so ``out.transpose(1, 2).reshape(B, Tq,
+    H * D)`` is free.  ``dropout_rate > 0`` needs ``dropout_seed``, a uint32
+    Python int.
     """
+    check_device(q)
     _check(q, k, v, kv_lens, dropout_rate, dropout_seed)
-    rate = float(dropout_rate)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        out, lse = _FlashAttention.apply(q, k, v, kv_lens, masked, rate,
-                                         dropout_seed)
-    else:
-        out, lse = _forward(q, k, v, masked, kv_lens, rate, dropout_seed)
+    out, lse = _FLASH_FWD(q, k, v, kv_lens, masked, float(dropout_rate),
+                          dropout_seed)
     return (out, lse) if return_lse else out
 
 
@@ -236,14 +318,11 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              kv_lens=None, dropout_rate=0.0,
                              dropout_seed=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
-    ``dout``; the kernels (delta, dK/dV, dQ; at head_dim 25, 30 and 128 dQ
-    with delta, then dK/dV) for CUDA tensors, the plain version for CPU."""
-    if not use_kernel(q):
-        return flash_attention_backward_reference(
-            q, k, v, dout, lse, attention_delta(dout, out), masked, kv_lens,
-            dropout_rate, dropout_seed)
-    return _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens,
-                       dropout_rate, dropout_seed)
+    ``dout`` (the op ``bpx_torch::flash_bwd``); the kernels (delta, dK/dV,
+    dQ; at head_dim 25, 30 and 128 dQ with delta, then dK/dV) for CUDA
+    tensors, the plain version for CPU."""
+    return _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked,
+                      float(dropout_rate), dropout_seed)
 
 
 def attention_delta_reference(dout: torch.Tensor,
@@ -253,11 +332,13 @@ def attention_delta_reference(dout: torch.Tensor,
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors: the head_dim
-    64/96 backward's first kernel on its own for CUDA tensors, the plain
-    version for CPU."""
-    if not use_kernel(dout):
-        return attention_delta_reference(dout, out)
+    """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors (the op
+    ``bpx_torch::flash_delta``): the head_dim 64/96 backward's first kernel
+    on its own for CUDA tensors, the plain version for CPU."""
+    return _FLASH_DELTA(dout, out)
+
+
+def _launch_delta(dout, out):
     B, H, T, D = out.shape
     if dout.shape != out.shape:
         raise ValueError(f"dO {tuple(dout.shape)} and O {tuple(out.shape)}")
@@ -343,8 +424,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seed=None):
                for n, t in (("q", q), ("k", k), ("v", v)))
     masked, offset = effective_band(Tq, Tk, masked)
     kv_lens, kvl_ptr = _kv_lens_ptr(kv_lens, q.device)
-    out = torch.empty(B, Tq, H, D, dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _kernel_layout(B, Tq, H, D, q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
@@ -372,9 +452,7 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
     kv_lens, kvl_ptr = _kv_lens_ptr(kv_lens, q.device)
     lse = lse.float().contiguous()
     delta = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
-    grads = [torch.empty(B, T, H, D, dtype=q.dtype,
-                         device=q.device).transpose(1, 2)
-             for T in (Tq, Tk, Tk)]
+    grads = [_kernel_layout(B, T, H, D, q) for T in (Tq, Tk, Tk)]
     dq, dk, dv = grads
     if q.numel() == 0 or k.numel() == 0:
         return tuple(g.zero_() for g in grads)

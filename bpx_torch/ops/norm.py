@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from bpx_torch.ops import _cuda
-from bpx_torch.ops.dispatch import use_kernel
+from bpx_torch.ops.dispatch import check_device, use_kernel
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -53,49 +53,95 @@ def layer_norm_backward_reference(x, w, mu, rstd, dy):
 def _forward(x, w, b, eps, out_dtype):
     if use_kernel(x):
         return _launch(x, w, b, eps, out_dtype)
-    return layer_norm_reference(x, w, b, eps, out_dtype)
+    y, mu, rstd = layer_norm_reference(x, w, b, eps, out_dtype)
+    return y.contiguous(), mu, rstd
 
 
-class _LayerNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, b, eps, out_dtype):
-        y, mu, rstd = _forward(x, w, b, eps, out_dtype)
-        ctx.save_for_backward(x, w, mu, rstd)
-        ctx.mark_non_differentiable(mu, rstd)
-        return y, mu, rstd
+def _backward(x, w, mu, rstd, dy):
+    if use_kernel(x):
+        return _launch_bwd(x, w, mu, rstd, dy)
+    return layer_norm_backward_reference(x, w, mu, rstd, dy)
 
-    @staticmethod
-    def backward(ctx, dy, _dmu, _drstd):
-        x, w, mu, rstd = ctx.saved_tensors
-        dx, dw, db = layer_norm_backward(x, w, mu, rstd, dy)
-        return dx, dw, db, None, None
+
+# The kernels as custom operators (namespace ``bpx_torch``), one node each
+# under ``torch.export``; one impl serves the CPU and CUDA keys: the kernel
+# for CUDA tensors, the plain version for CPU ones, both contiguous, as the
+# fake states.  The impls call ``_forward`` / ``_backward`` by name.
+
+torch.library.define(
+    "bpx_torch::layer_norm",
+    "(Tensor x, Tensor w, Tensor b, float eps, ScalarType out_dtype) "
+    "-> (Tensor, Tensor, Tensor)")
+torch.library.define(
+    "bpx_torch::layer_norm_bwd",
+    "(Tensor x, Tensor w, Tensor mu, Tensor rstd, Tensor dy) "
+    "-> (Tensor, Tensor, Tensor)")
+_LAYER_NORM = torch.ops.bpx_torch.layer_norm.default
+_LAYER_NORM_BWD = torch.ops.bpx_torch.layer_norm_bwd.default
+
+
+@torch.library.impl("bpx_torch::layer_norm", ("cpu", "cuda"))
+def _(x, w, b, eps, out_dtype):
+    return _forward(x, w, b, eps, out_dtype)
+
+
+@torch.library.register_fake("bpx_torch::layer_norm")
+def _(x, w, b, eps, out_dtype):
+    mu = x.new_empty(x.shape[:-1], dtype=torch.float32)
+    return x.new_empty(x.shape, dtype=out_dtype), mu, torch.empty_like(mu)
+
+
+@torch.library.impl("bpx_torch::layer_norm_bwd", ("cpu", "cuda"))
+def _(x, w, mu, rstd, dy):
+    return _backward(x, w, mu, rstd, dy)
+
+
+@torch.library.register_fake("bpx_torch::layer_norm_bwd")
+def _(x, w, mu, rstd, dy):
+    dw = w.new_empty(x.shape[-1:], dtype=torch.float32)
+    return x.new_empty(x.shape), dw, torch.empty_like(dw)
+
+
+def _setup_layer_norm(ctx, inputs, output):
+    x, w, _, _, _ = inputs
+    _, mu, rstd = output
+    ctx.save_for_backward(x, w, mu, rstd)
+    ctx.mark_non_differentiable(mu, rstd)
+
+
+def _layer_norm_grad(ctx, dy, _dmu, _drstd):
+    x, w, mu, rstd = ctx.saved_tensors
+    dx, dw, db = _LAYER_NORM_BWD(x, w, mu, rstd, dy)
+    return dx, dw, db, None, None
+
+
+torch.library.register_autograd("bpx_torch::layer_norm", _layer_norm_grad,
+                                setup_context=_setup_layer_norm)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float, out_dtype: Optional[torch.dtype] = None,
                return_stats: bool = False):
-    """LayerNorm over the last axis; the kernels for a CUDA tensor, the
-    plain versions for a CPU tensor, in the forward and (through autograd)
-    in the backward.  ``return_stats`` adds the fp32 (mu, rstd)."""
+    """LayerNorm over the last axis (the op ``bpx_torch::layer_norm``); the
+    kernels for a CUDA tensor, the plain versions for a CPU tensor, in the
+    forward and (through autograd, ``bpx_torch::layer_norm_bwd``) in the
+    backward.  Autograd records the op only when grad is enabled and x, w
+    or b requires it.  ``return_stats`` adds the fp32 (mu, rstd)."""
+    check_device(x)
     out_dtype = out_dtype or x.dtype
     e = x.shape[-1]
     if w.shape != (e,) or b.shape != (e,):
         raise ValueError(f"weight/bias must be ({e},), got "
                          f"{tuple(w.shape)} / {tuple(b.shape)}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
-                                    or b.requires_grad):
-        y, mu, rstd = _LayerNorm.apply(x, w, b, eps, out_dtype)
-    else:
-        y, mu, rstd = _forward(x, w, b, eps, out_dtype)
+    y, mu, rstd = _LAYER_NORM(x, w, b, float(eps), out_dtype)
     return (y, mu, rstd) if return_stats else y
 
 
 def layer_norm_backward(x, w, mu, rstd, dy):
-    """(dx, dw, db) of :func:`layer_norm` for the output gradient ``dy``;
-    the kernel for CUDA tensors, the plain version for CPU tensors."""
-    if not use_kernel(x):
-        return layer_norm_backward_reference(x, w, mu, rstd, dy)
-    return _launch_bwd(x, w, mu, rstd, dy)
+    """(dx, dw, db) of :func:`layer_norm` for the output gradient ``dy``
+    (the op ``bpx_torch::layer_norm_bwd``); the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    return _LAYER_NORM_BWD(x, w, mu, rstd, dy)
 
 
 def _launch(x, w, b, eps, out_dtype):

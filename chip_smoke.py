@@ -118,6 +118,33 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and ``Predictor.from_checkpoint`` on the test records against ``test``'s
    ``preds_raw.npy``; per-epoch times, the cache build and the peak memory.
 
+14. the kernels as ``torch.library`` custom ops (``bpx_torch::flash_fwd``,
+   ``flash_bwd``, ``flash_delta``, ``layer_norm``, ``layer_norm_bwd``):
+   after the build, the host time one call of each public wrapper adds
+   over its impl alone (the launch path without the op) under
+   inference_mode, in turns, and a call with grad enabled; after phase 4,
+   ``Predictor.export`` of the served moviescope model at batch 8 into a
+   temporary directory, the archive served in a new process that must not
+   import the model code or the config: 84 flash and 181 LayerNorm
+   launches per exported forward, its probabilities and gates bitwise
+   equal to the eager ``Predictor``'s on the same requests (one ragged),
+   both served medians; in phase 13, ``python -m bpx_torch.cli.export`` on
+   the loop's run directory, its archive served in a new process on the
+   test records, bitwise equal to ``Predictor.from_checkpoint``;
+15. recompute, after phase 10, at the presets' own settings: iemocap (every
+   encoder and BERT layer recomputed in full) and mmimdb (``save_attn`` in
+   the encoders, BERT in full).  One micro-step (batch 8, every dropout)
+   without and with recompute on the same weights, batch and seeds: the
+   loss and every parameter group's gradient bitwise equal (BERT's
+   embeddings, whose backward adds with atomics, within REMAT_EMBED_TOL,
+   as between two runs without recompute), the launches exact (a
+   recomputed layer runs its LayerNorms again, and its flash forwards
+   unless ``save_attn`` keeps them), a lower peak memory; a replay that
+   draws fresh dropout seeds (planted) must change the gradients.  Then
+   one train step at the preset's ``batch_sz`` (128, A = 1) with
+   recompute: its time, peak memory and launches.  Phases 2-12 run every
+   preset without recompute, as before recompute was ported.
+
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
 
@@ -345,6 +372,28 @@ def bound_ms(nbytes: float, flops: float):
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def read_launches() -> dict:
+    """The wrappers' launch counters: flash forward, those with dropout,
+    flash backward, LayerNorm forward and backward."""
+    from bpx_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_backward)
+    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
+    return dict(flash=flash_attention.launches,
+                dropout=flash_attention.dropout_launches,
+                flash_bwd=flash_attention_backward.launches,
+                ln=layer_norm.launches, ln_bwd=layer_norm_backward.launches)
+
+
+def zero_launches() -> None:
+    from bpx_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_backward)
+    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
+    for c in (flash_attention, flash_attention_backward, layer_norm,
+              layer_norm_backward):
+        c.launches = 0
+    flash_attention.dropout_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1142,10 +1191,15 @@ def phase_long_shape(torch, timer, gen, D=64):
             for name, r in rows.items()}
 
 
-def experiment(path: ModelPath):
+def experiment(path: ModelPath, remat: bool = False):
+    """The path's preset with its fusion.  The serving and training phases
+    run it without recompute, as every phase did before recompute was
+    ported, so their launch counts and medians compare across runs; the
+    remat phase runs the preset's own recompute settings (``remat``)."""
     from bpx_torch.config import get_preset
     exp = get_preset(path.preset)
-    return exp.replace(model=exp.model.replace(fusion=path.fusion))
+    m = exp.model.replace(fusion=path.fusion)
+    return exp.replace(model=m if remat else m.replace(remat=False))
 
 
 def synthetic_batch(exp, n: int, seed: int):
@@ -1363,16 +1417,16 @@ def train_batch(torch, np, exp, seed: int, label_p):
 
 
 def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
-                  steps: int = TRAIN_STEPS):
+                  steps: int = TRAIN_STEPS, remat: bool = False):
     """The path's model at full width and depth in training mode, Adam at
     LR, BCE with pos_weight from synthetic label frequencies (cmu-mosi: its
     L1 loss on real-valued targets), and the accumulation step at A =
-    TRAIN_A."""
+    TRAIN_A; with the preset's recompute if ``remat``."""
     from bpx_torch.models import get_model
     from bpx_torch.train.losses import make_loss_fn
     from bpx_torch.train.optim import make_optimizer
     from bpx_torch.train.steps import make_train_step
-    exp = experiment(path)
+    exp = experiment(path, remat)
     m = exp.model
     regression = exp.data.task == "cmu-mosi"
     check(regression or exp.data.task_type == "multilabel",
@@ -1395,7 +1449,8 @@ def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
     print(f"[train {path.preset}] {m.model}, Adam lr {LR}, "
           f"{'L1' if regression else 'BCE with pos_weight'}, micro-batch "
           f"{BATCH} x A={TRAIN_A}, {m.compute_dtype}, attention_impl "
-          f"{m.attention_impl}; built in {time.time() - t0:.1f} s")
+          f"{m.attention_impl}, remat {m.remat}; built in "
+          f"{time.time() - t0:.1f} s")
     return model, loss_fn, step, batches
 
 
@@ -1534,12 +1589,7 @@ def phase_train(torch, model, step, batches, profile: bool,
                 path: ModelPath = MOVIESCOPE):
     """TRAIN_STEPS accumulation steps with the launch counters checked per
     step; step time on the host clock around a synchronised step."""
-    from bpx_torch.ops.flash_attention import (flash_attention,
-                                               flash_attention_backward)
-    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
     tag = f"[train {path.preset}]"
-    counters = (flash_attention, flash_attention_backward, layer_norm,
-                layer_norm_backward)
     want = dict(flash=path.flash * TRAIN_A, dropout=path.dropout * TRAIN_A,
                 flash_bwd=path.flash * TRAIN_A,
                 ln=path.ln_train * TRAIN_A, ln_bwd=path.ln_train * TRAIN_A)
@@ -1548,18 +1598,13 @@ def phase_train(torch, model, step, batches, profile: bool,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i, batch in enumerate(batches):
-        for c in counters:
-            c.launches = 0
-        flash_attention.dropout_launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         loss = step(batch)["loss"].item()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-        got = dict(flash=flash_attention.launches,
-                   dropout=flash_attention.dropout_launches,
-                   flash_bwd=flash_attention_backward.launches,
-                   ln=layer_norm.launches, ln_bwd=layer_norm_backward.launches)
+        got = read_launches()
         totals.update(got)
         losses.append(loss)
         print(f"{tag} step {i + 1}: loss {loss:.6f}, {times[-1]:.1f} ms; "
@@ -1627,8 +1672,8 @@ def profile_train_step(torch, step, batch):
     # the plain hash dropout's kernels, under its autograd function's range
     for avg in prof.key_averages():
         if avg.key in ("_HashDropout", "_HashDropoutBackward",
-                       "_FlashAttention", "_FlashAttentionBackward",
-                       "_LayerNorm", "_LayerNormBackward"):
+                       "bpx_torch::flash_fwd", "bpx_torch::flash_bwd",
+                       "bpx_torch::layer_norm", "bpx_torch::layer_norm_bwd"):
             print(f"[profile] {avg.key}: {avg.count} calls, device "
                   f"{avg.device_time_total / 1e3:.1f} ms, host "
                   f"{avg.cpu_time_total / 1e3:.1f} ms")
@@ -1725,26 +1770,16 @@ def counted_loop(calls):
     """Inside the context, every train step and evaluation forward that
     ``bpx_torch.train.loop`` builds appends ``(kind, launches)`` to
     ``calls``: the launch counters' moves over that one call."""
-    from bpx_torch.ops.flash_attention import (flash_attention,
-                                               flash_attention_backward)
-    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
     from bpx_torch.train import loop
-
-    def read():
-        return dict(flash=flash_attention.launches,
-                    dropout=flash_attention.dropout_launches,
-                    flash_bwd=flash_attention_backward.launches,
-                    ln=layer_norm.launches,
-                    ln_bwd=layer_norm_backward.launches)
 
     def counted(factory, kind):
         def make(*args, **kw):
             fn = factory(*args, **kw)
 
             def run(batch):
-                before = read()
+                before = read_launches()
                 out = fn(batch)
-                after = read()
+                after = read_launches()
                 calls.append((kind, {k: after[k] - before[k]
                                      for k in after}))
                 return out
@@ -1755,7 +1790,7 @@ def counted_loop(calls):
     loop.make_train_step = counted(made[0], "step")
     loop.make_eval_step = counted(made[1], "eval")
     try:
-        yield read
+        yield read_launches
     finally:
         loop.make_train_step, loop.make_eval_step = made
 
@@ -1819,9 +1854,6 @@ def phase_loop(torch, np, card: str, checked):
     from bpx_torch.cli.train import cli_main
     from bpx_torch.config import config_from_dict
     from bpx_torch.data.loaders import get_data_loaders
-    from bpx_torch.ops.flash_attention import (flash_attention,
-                                               flash_attention_backward)
-    from bpx_torch.ops.norm import layer_norm, layer_norm_backward
     from bpx_torch.serve import Predictor
     from bpx_torch.utils.checkpoint import CheckpointManager
     tag = "[loop]"
@@ -1841,10 +1873,7 @@ def phase_loop(torch, np, card: str, checked):
         t0 = time.time()
         with counted_loop(calls) as read, timed_cache_builds(builds), \
                 recording() as seen:
-            for c in (flash_attention, flash_attention_backward, layer_norm,
-                      layer_norm_backward):
-                c.launches = 0
-            flash_attention.dropout_launches = 0
+            zero_launches()
             results = cli_main(epochs(2))
             totals = read()
         wall = time.time() - t0
@@ -1928,7 +1957,8 @@ def phase_loop(torch, np, card: str, checked):
         load_s = time.time() - t1
         _, _, test_loader, _ = get_data_loaders(exp.data, exp.model,
                                                 seed=exp.train.seed)
-        probs = np.concatenate([pred(b) for b in test_loader])
+        test_batches = list(test_loader)
+        probs = np.concatenate([pred(b) for b in test_batches])
         want = np.load(run / "preds_raw.npy")
         err = float(np.abs(probs - want).max())
         print(f"{tag} Predictor.from_checkpoint (best, restored in "
@@ -1938,6 +1968,8 @@ def phase_loop(torch, np, card: str, checked):
         check(probs.shape == want.shape and err <= LOOP_PROBS_TOL,
               f"{tag} from_checkpoint differs from preds_raw.npy by {err}")
         del pred
+        torch.cuda.empty_cache()
+        cli = check_export_cli(np, run, tmp, test_batches, probs, tag)
 
         stats = epoch_stats(run)
         for s in stats:
@@ -1960,10 +1992,382 @@ def phase_loop(torch, np, card: str, checked):
         for _, c in calls[:LOOP_STEPS + LOOP_EVALS]:    # epoch 0
             per_epoch.update(c)
         return dict(wall_s=wall, resume_s=wall2, peak_gib=peak, epochs=stats,
-                    cache=builds, from_checkpoint_err=err,
+                    cache=builds, from_checkpoint_err=err, export_cli=cli,
                     launches=totals, launches_per_epoch=dict(per_epoch))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops: dispatch cost, export, recompute
+# ---------------------------------------------------------------------------
+
+def host_us_per_call(torch, fn, n: int = 2000) -> float:
+    """Host time of one call (microseconds) over ``n`` calls at a shape
+    whose kernel takes a few microseconds, so the host bounds the loop."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def phase_dispatch(torch):
+    """What binding the kernels as custom ops costs the host: one call of
+    the public wrapper (checks, the dispatcher, the op's impl, the launch)
+    against a call of the impl alone (the launch path as it was before the
+    ops), in turns, under inference_mode at (1, 1, 64, 64, 64) and 64 x
+    768; and the wrapper with grad enabled (the op's autograd node)."""
+    from bpx_torch.ops import flash_attention as fa, norm
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(1, 1, 64, 64, device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    x = torch.randn(64, 768, device="cuda", generator=gen).bfloat16()
+    w, b = (torch.randn(768, device="cuda", generator=gen) for _ in range(2))
+    calls = dict(
+        flash_impl=lambda: fa._forward(q, k, v, True, None, 0.0, None),
+        flash_op=lambda: fa.flash_attention(q, k, v, True),
+        ln_impl=lambda: norm._forward(x, w, b, 1e-6, torch.bfloat16),
+        ln_op=lambda: norm.layer_norm(x, w, b, 1e-6, torch.bfloat16))
+    got = collections.defaultdict(list)
+    with torch.inference_mode():
+        for order in (list(calls), list(calls)[::-1]):
+            for name in order:
+                got[name].append(host_us_per_call(torch, calls[name]))
+    qg, kg, vg, xg, wg, bg = (t.clone().requires_grad_()
+                              for t in (q, k, v, x, w, b))
+    for _ in range(2):
+        got["flash_op_grad"].append(host_us_per_call(
+            torch, lambda: fa.flash_attention(qg, kg, vg, True)))
+        got["ln_op_grad"].append(host_us_per_call(
+            torch, lambda: norm.layer_norm(xg, wg, bg, 1e-6,
+                                           torch.bfloat16)))
+    us = {k: statistics.median(v) for k, v in got.items()}
+    extra = {kind: us[f"{kind}_op"] - us[f"{kind}_impl"]
+             for kind in ("flash", "ln")}
+    per_request = (FLASH_PER_FORWARD * extra["flash"]
+                   + LN_PER_FORWARD * extra["ln"]) / 1e3
+    # a moviescope step: forward and backward ops, A micro-batches
+    per_step = 2 * TRAIN_A * (FLASH_PER_FORWARD * extra["flash"]
+                              + LN_PER_TRAIN_FORWARD * extra["ln"]) / 1e3
+    print("[dispatch] host us per call (median of 2, host clock, "
+          "synchronised after 2000 calls): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in us.items()))
+    print(f"[dispatch] the custom op adds {extra['flash']:.2f} us a flash "
+          f"call and {extra['ln']:.2f} us a LayerNorm call to the host: "
+          f"{per_request:.2f} ms per moviescope request ({FLASH_PER_FORWARD} "
+          f"+ {LN_PER_FORWARD} calls), {per_step:.2f} ms per step (forward "
+          f"and backward ops, A = {TRAIN_A})")
+    return dict(us=us, extra_us=extra, per_request_ms=per_request,
+                per_step_ms=per_step)
+
+
+# serves an exported archive in a process of its own: the requests from an
+# npz, one warm-up request, the launch counters over the rest; prints one
+# JSON line
+EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+from bpx_torch.ops.flash_attention import flash_attention
+from bpx_torch.ops.norm import layer_norm
+from bpx_torch.serve import ExportedPredictor
+t = time.time()
+server = ExportedPredictor.load(sys.argv[1])
+load_s = time.time() - t
+data = np.load(sys.argv[2])
+reqs = [{k.split(":", 1)[1]: data[k] for k in data.files
+         if k.startswith(f"{i}:")} for i in range(int(data["n"]))]
+server(reqs[0])
+flash_attention.launches = layer_norm.launches = 0
+outs, lat = {}, []
+for i, r in enumerate(reqs):
+    t = time.perf_counter()
+    outs[f"p{i}"], outs[f"g{i}"] = server(r, return_gates=True)
+    lat.append((time.perf_counter() - t) * 1e3)
+np.savez(sys.argv[3], **outs)
+print(json.dumps(dict(
+    load_s=load_s, latency_ms=lat, batch_size=server.batch_size,
+    flash=flash_attention.launches, ln=layer_norm.launches,
+    model_code=sorted(m for m in sys.modules
+                      if m.startswith(("bpx_torch.models",
+                                       "bpx_torch.config"))))))
+"""
+
+
+def run_child(np, archive: Path, reqs, tmp: Path):
+    """Serve ``reqs`` from ``archive`` in a new process (EXPORT_CHILD);
+    returns its JSON line and its outputs."""
+    np.savez(tmp / "reqs.npz", n=len(reqs),
+             **{f"{i}:{k}": v for i, r in enumerate(reqs)
+                for k, v in r.items()})
+    res = subprocess.run(
+        [sys.executable, "-c", EXPORT_CHILD, str(archive),
+         str(tmp / "reqs.npz"), str(tmp / "out.npz")], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"the exported archive's process failed:\n"
+                               f"{res.stderr[-4000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    out = np.load(tmp / "out.npz")
+    return got, [(out[f"p{i}"], out[f"g{i}"]) for i in range(len(reqs))]
+
+
+def output_errors(np, got, want):
+    """(probs max err, gates max err, bitwise equal) over paired
+    (probs, gates) outputs."""
+    perr = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(got, want))
+    gerr = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(got, want))
+    same = all(np.array_equal(a[i], b[i]) for a, b in zip(got, want)
+               for i in (0, 1))
+    return perr, gerr, same
+
+
+def phase_export(torch, np, pred, reqs, card: str):
+    """``Predictor.export`` of the served moviescope model at batch 8 into
+    a temporary directory, the archive served in a process that may not
+    import the model code: its launches per forward (84 flash, 181
+    LayerNorm), its outputs against the eager ``Predictor`` on the same
+    requests (one ragged), and both served medians."""
+    from bpx_torch.data.synthetic import example_batch
+    tag = "[export]"
+    reqs = list(reqs)
+    reqs[1] = {k: v[:5] for k, v in reqs[1].items()}    # a ragged request
+    tmp = Path(tempfile.mkdtemp(prefix="bpx_export_"))
+    try:
+        archive = tmp / "moviescope.pt2"
+        t0 = time.time()
+        blob = pred.export(example_batch(pred.exp, BATCH), str(archive))
+        export_s, size = time.time() - t0, len(blob)
+        del blob
+        pred(reqs[0])
+        eager, lat = [], []
+        for r in reqs:
+            t = time.perf_counter()
+            eager.append(pred(r, return_gates=True))
+            lat.append((time.perf_counter() - t) * 1e3)
+        got, outs = run_child(np, archive, reqs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = len(reqs)
+    print(f"{tag} Predictor.export of moviescope at batch {BATCH}: traced "
+          f"and saved in {export_s:.1f} s, {size / 2 ** 20:.1f} MiB (the "
+          f"fp32 weights inside); loaded in a new process in "
+          f"{got['load_s']:.1f} s, batch size {got['batch_size']} from its "
+          f"input spec; model code imported there: {got['model_code']}")
+    check(not got["model_code"], f"{tag} the serving process imported "
+                                 f"{got['model_code']}")
+    check(got["batch_size"] == BATCH, f"{tag} batch size {got}")
+    print(f"{tag} exported program: flash launches {got['flash']} "
+          f"({got['flash'] / n:g}/forward), layer_norm launches {got['ln']} "
+          f"({got['ln'] / n:g}/forward)")
+    check(got["flash"] == FLASH_PER_FORWARD * n
+          and got["ln"] == LN_PER_FORWARD * n,
+          f"{tag} launches {got['flash']} / {got['ln']} over {n} forwards, "
+          f"expected {FLASH_PER_FORWARD} / {LN_PER_FORWARD} each")
+    perr, gerr, same = output_errors(np, outs, eager)
+    print(f"{tag} exported vs eager Predictor on {n} requests (one "
+          f"ragged): probs max err {perr:.3g}, gates max err {gerr:.3g}; "
+          f"bitwise equal: {same}")
+    check(same, f"{tag} the exported program's outputs differ from the "
+                f"eager Predictor's (probs {perr}, gates {gerr})")
+    med_e, med_x = statistics.median(lat), statistics.median(
+        got["latency_ms"])
+    print(f"{tag} served median request (host clock, numpy in -> numpy "
+          f"out, {n} requests): eager {med_e:.2f} ms, exported {med_x:.2f} "
+          f"ms; card: {card}")
+    return dict(export_s=export_s, mib=size / 2 ** 20, eager_ms=med_e,
+                exported_ms=med_x, launches=(got["flash"], got["ln"]))
+
+
+def check_export_cli(np, run: Path, tmp: Path, batches, want, tag):
+    """``python -m bpx_torch.cli.export`` on a run directory of the
+    trainer, served in a new process on ``batches`` against ``want``
+    (``Predictor.from_checkpoint``'s probs)."""
+    archive = tmp / "cli.pt2"
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "bpx_torch.cli.export", str(run), "--out",
+         str(archive), "--batch_size", str(BATCH), "--tag", "best"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0, f"{tag} the export CLI failed:\n"
+                               f"{res.stderr[-4000:]}")
+    cli_s = time.time() - t0
+    got, outs = run_child(np, archive, batches, tmp)
+    probs = np.concatenate([p for p, _ in outs])
+    err = float(np.abs(probs - want).max())
+    same = bool(np.array_equal(probs, want))
+    print(f"{tag} python -m bpx_torch.cli.export (best) in {cli_s:.1f} s; "
+          f"the archive served in a new process on the {len(want)} test "
+          f"records against Predictor.from_checkpoint: max abs err "
+          f"{err:.3g}, bitwise equal: {same}; launches {got['flash']} / "
+          f"{got['ln']}; model code imported: {got['model_code']}")
+    check(same and not got["model_code"],
+          f"{tag} the CLI's archive differs from from_checkpoint by {err}")
+    return dict(cli_s=cli_s, err=err)
+
+
+# recompute against keeping the activations, one micro-step on the same
+# weights, batch and dropout seeds: every parameter group's gradient is
+# bitwise equal, but for BERT's word, position and token-type embeddings,
+# whose backward adds rows with atomics on the card, so that two runs
+# without recompute already differ in the last bits.  On an H100 (700 W)
+# that group reads 2.9e-7 (relative L2) at iemocap and mmimdb, a replay
+# that draws fresh dropout seeds 0.48 in its worst group
+REMAT_EMBED_TOL = 1e-4
+
+
+def set_remat(model, on: bool):
+    """Switch recompute on or off in every encoder and in BERT (the
+    policies stay the config's)."""
+    for mod in model.modules():
+        if hasattr(mod, "remat_policy"):
+            mod.remat = on
+
+
+def remat_launches(path: ModelPath, m) -> dict:
+    """Launches of one training micro-step of ``path``'s model with the
+    recompute settings of config ``m``: a recomputed layer runs its
+    LayerNorms again (BERT's 2, an encoder layer's 4 in training, V
+    embedded apart from K), and its flash forwards (with their dropout)
+    unless its policy is ``save_attn``; the backward is as without
+    recompute."""
+    remat_bert = m.remat if m.remat_bert is None else m.remat_bert
+    bert_full = remat_bert and m.remat_policy_bert is None
+    enc_full = m.remat and m.remat_policy is None
+    return dict(
+        flash=path.flash + 12 * bert_full + (path.flash - 12) * enc_full,
+        dropout=path.dropout + 12 * bert_full
+        + (path.dropout - 12) * enc_full,
+        flash_bwd=path.flash,
+        ln=path.ln_train + 2 * 12 * remat_bert + 4 * 12 * m.layers * m.remat,
+        ln_bwd=path.ln_train)
+
+
+def measured_micro_step(torch, model, loss_fn, micro, seed):
+    """One micro-step from counters at 0 and the peak memory reset: (loss,
+    launches, peak GiB, ms on the host clock)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t = time.perf_counter()
+    loss = micro_step(model, loss_fn, micro, seed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return (loss, read_launches(), torch.cuda.max_memory_allocated() / 2 ** 30,
+            ms)
+
+
+def phase_remat(torch, np, path: ModelPath, card: str):
+    """The preset's own recompute (``remat``, its policies) at full width:
+    one micro-step (batch 8, every dropout) with and without recompute on
+    the same weights, batch and seeds; the recomputed one must give the
+    same loss and gradients bit for bit, launch exactly what the
+    structure says, and use less memory; a replay that draws fresh dropout
+    seeds must change the gradients.  Then one train step at the preset's
+    ``batch_sz`` (A = 1) with recompute."""
+    from bpx_torch.ops.dropout import SeedStream
+    from bpx_torch.train.steps import make_train_step
+    from bpx_torch.train.optim import make_optimizer
+    tag = f"[remat {path.preset}]"
+    exp = experiment(path, remat=True)
+    m = exp.model
+    model, loss_fn, _, batches = phase_trainer(torch, np, path, steps=1,
+                                               remat=True)
+    micro = {k: v[0] for k, v in batches[0].items()}
+    seed = 0x5EED
+    groups = grad_groups(model)
+    runs = []
+    for on in (False, False, True):     # the first one warms up
+        set_remat(model, on)
+        loss, got, peak, ms = measured_micro_step(torch, model, loss_fn,
+                                                  micro, seed)
+        runs.append((on, loss, got, peak, ms, flat_grads(torch, groups)))
+    want = {False: dict(flash=path.flash, dropout=path.dropout,
+                        flash_bwd=path.flash, ln=path.ln_train,
+                        ln_bwd=path.ln_train),
+            True: remat_launches(path, m)}
+    for on, loss, got, peak, ms, _ in runs[1:]:
+        print(f"{tag} micro-step (batch {BATCH}) {'with' if on else 'without'}"
+              f" recompute (remat_policy {m.remat_policy}, BERT "
+              f"{m.remat if m.remat_bert is None else m.remat_bert} / "
+              f"{m.remat_policy_bert}): loss {loss:.6f}, {ms:.1f} ms (host "
+              f"clock), peak memory {peak:.2f} GiB; launches {got}")
+        check(got == want[on], f"{tag} launches {got}, expected {want[on]}")
+
+    def differ(a, b):
+        """The groups of ``a`` not equal to ``b``: bitwise, BERT's
+        embeddings within REMAT_EMBED_TOL."""
+        errs = {g: ((a[g] - b[g]).norm() / b[g].norm()).item()
+                for g in groups}
+        return {g: e for g, e in errs.items()
+                if (e > REMAT_EMBED_TOL if g == "bert.embeddings"
+                    else not torch.equal(a[g], b[g]))}, errs
+
+    kept, again, redone = runs
+    bad, errs = differ(again[5], kept[5])
+    print(f"{tag} a rerun without recompute against the first: loss equal "
+          f"{again[1] == kept[1]}, groups not bitwise equal: "
+          f"{ {g: f'{e:.3g}' for g, e in errs.items() if e} }")
+    check(again[1] == kept[1] and not bad,
+          f"{tag} two runs of the micro-step differ: {bad}")
+    bad, errs = differ(redone[5], again[5])
+    print(f"{tag} with vs without recompute: loss equal "
+          f"{redone[1] == again[1]}; groups not bitwise equal (relative "
+          f"L2 error; BERT's embeddings limit {REMAT_EMBED_TOL}): "
+          f"{ {g: f'{e:.3g}' for g, e in errs.items() if e} }")
+    check(redone[1] == again[1] and not bad,
+          f"{tag} recompute changed the loss or the gradients: {bad}")
+    check(redone[3] < again[3],
+          f"{tag} recompute did not lower the peak memory")
+    at = SeedStream.at
+    SeedStream.at = lambda self, count: self     # the replay draws on
+    try:
+        micro_step(model, loss_fn, micro, seed)
+    finally:
+        SeedStream.at = at
+    bad, errs = differ(flat_grads(torch, groups), again[5])
+    worst = max(errs, key=errs.get)
+    print(f"{tag} planted fault, the replay draws fresh dropout seeds: "
+          f"{len(bad)} groups differ, worst {worst} rel err "
+          f"{errs[worst]:.3g}")
+    check(errs[worst] > REMAT_EMBED_TOL and bad,
+          f"{tag} the comparison misses a replay with fresh seeds")
+    peaks = {False: again[3], True: redone[3]}
+    del runs, kept, again, redone
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # one train step at the preset's batch size, with recompute
+    bs = exp.data.batch_sz
+    b = synthetic_batch(exp, bs, 500)
+    rng = np.random.RandomState(501)
+    b["target"] = (rng.rand(bs, m.n_classes) < 0.1).astype(np.float32)
+    batch = {k: torch.from_numpy(v[None]).to("cuda") for k, v in b.items()}
+    step = make_train_step(model, m.model, loss_fn,
+                           make_optimizer(model.parameters(), LR),
+                           grad_accum=1,
+                           generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t = time.perf_counter()
+    loss = step(batch)["loss"].item()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = read_launches()
+    print(f"{tag} one train step at the preset's batch_sz {bs} (A = 1) "
+          f"with recompute: loss {loss:.6f}, {ms:.1f} ms (host clock, the "
+          f"first step), peak memory {peak:.2f} GiB; launches {got}; card: "
+          f"{card}")
+    check(math.isfinite(loss), f"{tag} the batch-{bs} step's loss is {loss}")
+    check(got == want[True], f"{tag} batch-{bs} step launches {got}")
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return dict(peak_gib=peaks, batch=bs, step_ms=ms, step_peak_gib=peak,
+                planted_err=errs[worst])
 
 
 def dim_rows(rows, D):
@@ -2026,6 +2430,7 @@ def main() -> None:
           f"CUDA {torch.version.cuda}")
 
     phase_build()
+    dispatch = phase_dispatch(torch)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -2037,6 +2442,7 @@ def main() -> None:
     flash_rows = phase_flash(torch, timer, flash_cls, gen)
     ln_rows = phase_layer_norm(torch, timer, ln_cls, gen)
     served = phase_serve(torch, np, pred, reqs, args.profile)
+    exported = phase_export(torch, np, pred, reqs, card)
     del pred
     torch.cuda.empty_cache()
 
@@ -2149,6 +2555,13 @@ def main() -> None:
     del model, loss_fn, step, batches
     torch.cuda.empty_cache()
     print(f"[time] mmimdb phases {time.time() - t0:.1f} s")
+
+    # recompute at the presets' own settings: iemocap (full recompute) and
+    # mmimdb (save_attn in the encoders, BERT in full)
+    t0 = time.time()
+    remat = {p.preset: phase_remat(torch, np, p, card)
+             for p in (IEMOCAP, MMIMDB)}
+    print(f"[time] remat phases {time.time() - t0:.1f} s")
 
     # counseling and cmu-mosi (head_dim 30, 5 layers): one request and one
     # train step each; synthetic-tiny on the einsum attention likewise
@@ -2322,6 +2735,19 @@ def main() -> None:
           f"launches per epoch {looped['launches_per_epoch']}; "
           f"from_checkpoint max err {looped['from_checkpoint_err']:.3g}; "
           f"peak {looped['peak_gib']:.2f} GiB; card: {card}")
+    print(f"[summary] custom ops: {dispatch['extra_us']['flash']:.2f} / "
+          f"{dispatch['extra_us']['ln']:.2f} us of host time per flash / "
+          f"LayerNorm call, {dispatch['per_request_ms']:.2f} ms per "
+          f"moviescope request, {dispatch['per_step_ms']:.2f} ms per step; "
+          f"export: {exported['export_s']:.1f} s, {exported['mib']:.1f} MiB, "
+          f"served median eager {exported['eager_ms']:.2f} ms / exported "
+          f"{exported['exported_ms']:.2f} ms; export CLI "
+          f"{looped['export_cli']['cli_s']:.1f} s; card: {card}")
+    print("[summary] recompute: " + "; ".join(
+        f"{p} peak at micro-batch {BATCH} {r['peak_gib'][False]:.2f} GiB "
+        f"without / {r['peak_gib'][True]:.2f} GiB with, batch {r['batch']} "
+        f"step {r['step_ms']:.1f} ms at {r['step_peak_gib']:.2f} GiB"
+        for p, r in remat.items()) + f"; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

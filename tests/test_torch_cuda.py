@@ -18,7 +18,9 @@ generic kernel at 64 and 96; synthetic-tiny served and trained
 through the einsum attention with no flash launch; the
 LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
-the backward's phase stamps in a build with ``-DBPX_LN_TRACE``.
+the backward's phase stamps in a build with ``-DBPX_LN_TRACE``; the
+kernels' custom ops (``opcheck``'s schema and fake checks on CUDA tensors,
+and a recomputed call under the ``save_attn`` policy).
 
 Needs a CUDA device and skips elsewhere (the ``gen`` fixture decides).
 On a machine with a card, without JAX:
@@ -847,3 +849,50 @@ def test_layer_norm_backward_phase_stamps(gen, monkeypatch):
     for g, r in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, r, atol=1e-4 * r.abs().max().item(),
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("D", [25, 30, 64, 96, 128])
+def test_custom_ops_on_card(gen, D):
+    """The kernels' custom ops on CUDA tensors: ``opcheck``'s schema and
+    fake-impl checks (the fake states the kernels' output strides), and a
+    recomputed layer under the ``save_attn`` policy, which must launch the
+    flash forward once where full recompute launches it twice."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    from bpx_torch.ops.encoder import resolve_remat_policy
+    ops = torch.ops.bpx_torch
+    only = ("test_schema", "test_faketensor")
+    q, k, v = _qkv(gen, 2, 3, 96, 160, D)
+    lens = torch.tensor([160, 33], dtype=torch.int32, device="cuda")
+    for args in ((q, k, v, None, True, 0.0, None),
+                 (q, k, v, lens, False, 0.1, 9)):
+        torch.library.opcheck(ops.flash_fwd.default, args, test_utils=only)
+        out, lse = ops.flash_fwd(*args)
+        dout = torch.randn_like(out)
+        torch.library.opcheck(ops.flash_bwd.default,
+                              (q, k, v, out, lse, dout, *args[3:]),
+                              test_utils=only)
+        if D in (64, 96):
+            torch.library.opcheck(ops.flash_delta.default, (dout, out),
+                                  test_utils=only)
+    x = torch.randn(40, 300, generator=gen, device="cuda").bfloat16()
+    w, b = (torch.randn(300, generator=gen, device="cuda") for _ in range(2))
+    torch.library.opcheck(ops.layer_norm.default,
+                          (x, w, b, 1e-6, torch.bfloat16), test_utils=only)
+    _, mu, rstd = ops.layer_norm(x, w, b, 1e-6, torch.bfloat16)
+    torch.library.opcheck(ops.layer_norm_bwd.default,
+                          (x, w, mu, rstd, torch.randn_like(x)),
+                          test_utils=only)
+
+    launched = {}
+    for name in (None, "save_attn"):
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        policy = resolve_remat_policy(name)
+        kw = {} if policy is None else dict(
+            context_fn=lambda: create_selective_checkpoint_contexts(policy))
+        before = flash_attention.launches
+        out = checkpoint(lambda a, c, d: flash_attention(a, c, d, True) * 2,
+                         qg, kg, vg, use_reentrant=False, **kw)
+        out.float().sum().backward()
+        launched[name] = flash_attention.launches - before
+    assert launched == {None: 2, "save_attn": 1}
