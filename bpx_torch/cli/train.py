@@ -16,8 +16,8 @@ Notes:
   unused;
 * ``--train_type cross`` runs the 10-fold cross-validation partitions;
 * ``--device`` (default "cuda") places the model; "cpu" runs the plain
-  PyTorch versions of the kernels on the host.  Models and options not
-  ported yet raise (``get_model``, ``make_optimizer``).
+  PyTorch versions of the kernels on the host.  Models not ported yet
+  raise (``get_model``).
 """
 
 from __future__ import annotations
@@ -147,7 +147,8 @@ def get_args(parser: argparse.ArgumentParser):
     parser.add_argument("--accum_dtype", type=str, default=None,
                         choices=["bfloat16"],
                         help="gradient-accumulation carry dtype (default "
-                             "fp32; bfloat16 is not ported and raises)")
+                             "fp32, exact; bfloat16 rounds the micro-batch "
+                             "sum)")
     parser.add_argument("--accum_scan_unroll", type=int, default=1,
                         help="accepted for the JAX package's CLI; inert "
                              "(an XLA program knob)")

@@ -13,8 +13,8 @@ in the JAX package (``models/bpmult.py``).
 ``attention_impl`` (and ``bert_attention_impl`` for BERT, None inheriting
 it) chooses the attention as in the JAX package: ``"pallas"`` the
 hand-written flash kernels, anything else the plain einsum attention.
-``group_encoders`` and ``hybrid`` change the model and are not ported yet
-(they raise in the model's constructor).
+``hybrid`` adds the early-fusion branch and ``group_encoders`` stacks the
+crossmodal encoders in pairs (``models/bpmult.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ class ModelConfig:
     aonly: bool = True
 
     attn_mask: bool = True           # rectangular offset future-mask
-    hybrid: bool = False             # early-fusion branch (not ported yet)
+    hybrid: bool = False             # early-fusion branch
     reduced_dim: int = 32            # hybrid low-rank dim
 
     # Dropouts (inactive in the serving forward).
@@ -135,8 +135,8 @@ class ModelConfig:
     remat_policy_bert: Optional[str] = None
     scan_encoders: Optional[bool] = None
     scan_unroll: int = 1
-    # Pairs of same-shape encoders stacked into one program; changes the
-    # parameter tree layout (not ported yet).
+    # Pairs of same-shape encoders stacked into one call; changes the
+    # parameter tree layout (a leading pair axis of 2).
     group_encoders: bool = False
 
     def replace(self, **kw) -> "ModelConfig":

@@ -12,12 +12,19 @@ Mapping, leaf by leaf:
 * LayerNorm ``scale`` -> ``weight``; ``nn.Embed`` ``embedding`` -> ``weight``;
 * ``bias`` -> ``bias``;
 * an ``nn.scan``-stacked ``layers`` subtree (leaves ``(L, ...)``) is split into
-  ``layers.0 .. layers.{L-1}``; unrolled ``layer{i}`` becomes ``layers.{i}``.
+  ``layers.0 .. layers.{L-1}``; unrolled ``layer{i}`` becomes ``layers.{i}``;
+* a grouped encoder pair (``g_va`` ... ``g_xl2``, ``group_encoders``) has
+  the pair axis of 2 in front of every leaf, before the scanned layer
+  axis: its Dense ``kernel (2, in, out)`` becomes ``weight (2, out, in)``,
+  its scanned leaves ``(2, L, ...)`` split over axis 1, the rest keep the
+  pair axis.
 
 The rules cover both models' trees: mmtrvapt's, and mmtrvat's (no poster,
 no ``transfm_*``; a 3-ary ``gmu``, or ``mag`` with its Dense layers and
-``mag/norm``).  A leaf with no rule, and any key that the model has and the
-tree lacks or the other way round, raises.
+``mag/norm``), with ``hybrid`` (``trans_*_early``, ``proj_*_e``, whose
+Dense kernel (T, reduced_dim) becomes ``weight (reduced_dim, T)``,
+``gmu_early``) and with ``group_encoders``.  A leaf with no rule, and any
+key that the model has and the tree lacks or the other way round, raises.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import torch
 from bpx_torch.config import ModelConfig
 
 _UNROLLED = re.compile(r"^layer(\d+)$")
+#: the grouped encoder pairs of ``group_encoders``
+GROUPED = ("g_va", "g_xl", "g_lx", "g_l_bi", "g_x2l", "g_xl2")
 
 
 def _leaf(path, name: str, value: np.ndarray):
@@ -39,6 +48,8 @@ def _leaf(path, name: str, value: np.ndarray):
     if name == "kernel":
         if parent.startswith("transfm_"):
             return "weight", value
+        if path and path[0] in GROUPED and value.ndim == 3:
+            return "weight", np.swapaxes(value, 1, 2)
         if value.ndim == 3:
             return "weight", np.transpose(value, (2, 1, 0))
         if value.ndim == 2:
@@ -61,9 +72,11 @@ def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 m = _UNROLLED.match(key)
                 if key == "layers":
-                    depth = _stack_depth(value)
+                    # a grouped pair's layer axis follows its pair axis
+                    axis = int(bool(path) and path[0] in GROUPED)
+                    depth = _stack_depth(value, axis)
                     for i in range(depth):
-                        walk(_index(value, i), path + [key],
+                        walk(_index(value, i, axis), path + [key],
                              torch_path + ["layers", str(i)])
                 elif m:
                     walk(value, path + [key],
@@ -87,15 +100,16 @@ def _leaves(node: Mapping):
             yield np.asarray(value)
 
 
-def _stack_depth(node: Mapping) -> int:
-    depths = {leaf.shape[0] for leaf in _leaves(node)}
+def _stack_depth(node: Mapping, axis: int = 0) -> int:
+    depths = {leaf.shape[axis] for leaf in _leaves(node)}
     if len(depths) != 1:
-        raise ValueError(f"scanned subtree has mixed leading dims {depths}")
+        raise ValueError(f"scanned subtree has mixed layer dims {depths}")
     return depths.pop()
 
 
-def _index(node: Mapping, i: int) -> Dict:
-    return {k: (_index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+def _index(node: Mapping, i: int, axis: int = 0) -> Dict:
+    return {k: (_index(v, i, axis) if isinstance(v, Mapping)
+                else np.take(np.asarray(v), i, axis=axis))
             for k, v in node.items()}
 
 

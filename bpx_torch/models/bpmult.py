@@ -16,9 +16,21 @@ Dataflow per target modality X:
      level 1->2 residual adds, top Fusion-GMU, level 1->3 residual add;
   5. summary = first + last token of the fused sequence;
   6. an N-ary GMU over the three summaries (and mmtrvapt's poster
-     embedding), or in mmtrvat MAG (``fusion="mag"``), then a residual MLP
-     head.
+     embedding, and with ``hybrid`` the early-fusion summary), or in
+     mmtrvat MAG (``fusion="mag"``), then a residual MLP head.
 Layout is batch-first ``(B, T, E)`` throughout.
+
+``hybrid`` (the paper's early fusion) adds, after step 1, a linear map of
+each padded stream over its sequence axis to ``reduced_dim`` positions, a
+self-attention encoder of ``max(layers, 3)`` layers on each, and a 3-ary
+GMU over their first + last token summaries, whose output joins the final
+GMU (5-ary in mmtrvapt, 4-ary in mmtrvat; not with MAG).
+``group_encoders`` builds the 12 crossmodal encoders as 6 pairs of
+same-shape encoders (``g_va`` ... ``g_xl2``,
+:class:`~bpx_torch.ops.encoder.GroupedTransformerEncoder`), each pair one
+encoder over stacked inputs: the same function at eval, half the
+attention calls.  Its members share one attention dropout rate, so it
+needs ``attn_dropout_a == attn_dropout_v``.
 
 Training mode (``model.train()``, the JAX package's ``deterministic=False``)
 turns on the configured dropouts: BERT's, ``embed_dropout`` on the text
@@ -34,8 +46,7 @@ with ``remat_policy_bert``, as in the JAX package
 (``ops/encoder.py::recomputed``).  Every mmtrvat preset and mmimdb set
 ``remat=True``.  ``scan_layers``, ``scan_encoders`` and ``scan_unroll``
 steer XLA's program in the JAX package and are inert here: the port runs
-eagerly.  ``hybrid`` and ``group_encoders`` change the model and are not
-ported yet: they raise.
+eagerly.
 """
 
 from __future__ import annotations
@@ -49,7 +60,8 @@ from bpx_torch.config import ModelConfig
 from bpx_torch.ops.audio import make_audio_encoder
 from bpx_torch.ops.bert import BertEncoder
 from bpx_torch.ops.dropout import SeedStream, maybe_dropout
-from bpx_torch.ops.encoder import TransformerEncoder
+from bpx_torch.ops.encoder import (GroupedTransformerEncoder,
+                                   TransformerEncoder)
 from bpx_torch.ops.gmu import GatedBimodalFusionLayer, GatedNModalLayer
 from bpx_torch.ops.init import lecun_normal_, linear
 from bpx_torch.ops.mag import MAG
@@ -101,13 +113,12 @@ class _BPMulTBase(nn.Module):
         if not (cfg.lonly and cfg.vonly and cfg.aonly):
             raise ValueError("BPMulT requires all three target modalities "
                              "active")
-        if cfg.group_encoders:
-            raise NotImplementedError(
-                "group_encoders is not ported yet (ROADMAP.md, port queue)")
-        if cfg.hybrid:
-            raise NotImplementedError(
-                "hybrid early fusion is not ported yet (ROADMAP.md, port "
-                "queue)")
+        if cfg.group_encoders and cfg.attn_dropout_a != cfg.attn_dropout_v:
+            raise ValueError("group_encoders requires attn_dropout_a == "
+                             "attn_dropout_v (pair members share one "
+                             "dropout rate)")
+        if cfg.hybrid and cfg.fusion == "mag":
+            raise ValueError("fusion='mag' is incompatible with hybrid")
         self.config = cfg
         self.dtype = compute_dtype(cfg)
         device = torch.device(device) if device is not None else None
@@ -138,21 +149,37 @@ class _BPMulTBase(nn.Module):
             self.proj_a = proj(cfg.orig_d_a)
         return proj
 
+    def _encoder(self, attn_dropout, layers, biprojection, gen, device,
+                 cls=TransformerEncoder):
+        cfg = self.config
+        return cls(cfg.hidden_sz, cfg.num_heads, layers, cfg.attn_mask,
+                   biprojection, self.dtype, gen, device, attn_dropout,
+                   cfg.relu_dropout, cfg.res_dropout, cfg.embed_dropout,
+                   cfg.attention_impl, cfg.remat, cfg.remat_policy)
+
     def _make_crossmodal_mesh(self, biprojection: bool, gen, device):
         """The 6 first-round crossmodal encoders and the 6 second-round
-        ones (biprojection encoders or plain crossmodal ones)."""
-        cfg, dt, E = self.config, self.dtype, self.config.hidden_sz
-
-        def enc(bp, attn_dropout):
-            return TransformerEncoder(
-                E, cfg.num_heads, cfg.layers, cfg.attn_mask, bp, dt, gen,
-                device, attn_dropout, cfg.relu_dropout, cfg.res_dropout,
-                cfg.embed_dropout, cfg.attention_impl, cfg.remat,
-                cfg.remat_policy)
+        ones (biprojection encoders or plain crossmodal ones); with
+        ``group_encoders`` the same 12 as 6 pairs."""
+        cfg = self.config
         # per-encoder attention dropout: encoders whose query stream is
         # l / a / v take attn_dropout(_a / _v) of the key stream's modality
         rate = {"l": cfg.attn_dropout, "a": cfg.attn_dropout_a,
                 "v": cfg.attn_dropout_v}
+        if cfg.group_encoders:
+            # (pair, key stream, second round): g_va = (v <- a, a <- v),
+            # g_xl = (v <- l, a <- l), g_lx = (l <- v, l <- a), g_l_bi =
+            # (l <- v2a, l <- a2v), g_x2l = (a <- v2l, v <- a2l), g_xl2 =
+            # (a <- l2v, v <- l2a); a pair's rate is its first member's
+            for name, key, second in (
+                    ("g_va", "a", False), ("g_xl", "l", False),
+                    ("g_lx", "v", False), ("g_l_bi", "a", True),
+                    ("g_x2l", "l", True), ("g_xl2", "v", True)):
+                setattr(self, name, self._encoder(
+                    rate[key], cfg.layers, biprojection and second, gen,
+                    device, GroupedTransformerEncoder))
+            return
+        enc = lambda bp, r: self._encoder(r, cfg.layers, bp, gen, device)
         for name, key in (("trans_l_with_a", "a"), ("trans_l_with_v", "v"),
                           ("trans_v_with_l", "l"), ("trans_v_with_a", "a"),
                           ("trans_a_with_l", "l"), ("trans_a_with_v", "v")):
@@ -168,6 +195,23 @@ class _BPMulTBase(nn.Module):
                      "gmu_a"):
             setattr(self, name, GatedBimodalFusionLayer(
                 self.config.hidden_sz, self.dtype, gen, device))
+
+    def _make_hybrid(self, gen, device):
+        """The early-fusion branch: a self-attention encoder of
+        ``max(layers, 3)`` layers per stream, the bias-free sequence-axis
+        projections ``proj_{l,v,a}_e`` (T -> ``reduced_dim``) and the 3-ary
+        ``gmu_early``."""
+        cfg = self.config
+        layers = max(cfg.layers, 3)
+        for m in "lva":
+            setattr(self, f"trans_{m}_early", self._encoder(
+                cfg.attn_dropout, layers, False, gen, device))
+        for m, T in (("l", cfg.num_vectors_l), ("v", cfg.num_vectors_v),
+                     ("a", cfg.num_vectors_a)):
+            setattr(self, f"proj_{m}_e",
+                    linear(T, cfg.reduced_dim, False, "lecun", gen, device))
+        self.gmu_early = GatedNModalLayer(3, cfg.hidden_sz, self.dtype, gen,
+                                          device)
 
     def _make_head(self, gen, device):
         E = self.config.hidden_sz
@@ -196,12 +240,46 @@ class _BPMulTBase(nn.Module):
                 _pad_to_length(proj_v, cfg.num_vectors_v),
                 _pad_to_length(proj_a, cfg.num_vectors_a))
 
+    def _hybrid_summary(self, proj_l, proj_v, proj_a, seeds):
+        """Early fusion: each stream mapped over its sequence axis to
+        ``reduced_dim`` positions, its early encoder, and the 3-ary GMU over
+        the first + last token summaries."""
+        dt = self.dtype
+
+        def early(m, x):
+            w = getattr(self, f"proj_{m}_e").weight.to(dt)
+            return getattr(self, f"trans_{m}_early")(
+                torch.matmul(w, x.to(dt)), seeds=seeds)
+        h_l = early("l", proj_l)
+        h_a = early("a", proj_a)
+        h_v = early("v", proj_v)
+        summary = lambda h: h[:, 0] + h[:, -1]
+        fused, _ = self.gmu_early([summary(h_l), summary(h_v), summary(h_a)])
+        return fused
+
     def _cross(self, name, x, kv, seeds):
         return getattr(self, name)(x, kv, kv, seeds)
+
+    def _pair(self, name, x1, x2, kv1, kv2, seeds):
+        """A grouped pair on stacked queries and key/value streams (the
+        key/value stack built once, so K and V alias); its two outputs."""
+        kv = torch.stack([kv1, kv2])
+        h = getattr(self, name)(torch.stack([x1, x2]), kv, kv, seeds)
+        return h[0], h[1]
 
     def _first_round(self, proj_l, proj_v, proj_a, seeds):
         """(h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs,
         h_a_with_ls, h_l_with_as), in the JAX package's call order."""
+        if self.config.group_encoders:
+            pair = lambda *a: self._pair(*a, seeds)
+            h_v_with_as, h_a_with_vs = pair("g_va", proj_v, proj_a, proj_a,
+                                            proj_v)
+            h_v_with_ls, h_a_with_ls = pair("g_xl", proj_v, proj_a, proj_l,
+                                            proj_l)
+            h_l_with_vs, h_l_with_as = pair("g_lx", proj_l, proj_l, proj_v,
+                                            proj_a)
+            return (h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs,
+                    h_a_with_ls, h_l_with_as)
         cross = lambda name, x, kv: self._cross(name, x, kv, seeds)
         return (cross("trans_v_with_a", proj_v, proj_a),
                 cross("trans_a_with_v", proj_a, proj_v),
@@ -214,6 +292,15 @@ class _BPMulTBase(nn.Module):
         """(h_l_v2a, h_l_a2v, h_a_v2l, h_a_l2v, h_v_a2l, h_v_l2a)."""
         (h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs, h_a_with_ls,
          h_l_with_as) = first
+        if self.config.group_encoders:
+            pair = lambda *a: self._pair(*a, seeds)
+            h_l_v2a, h_l_a2v = pair("g_l_bi", proj_l, proj_l, h_a_with_vs,
+                                    h_v_with_as)
+            h_a_v2l, h_v_a2l = pair("g_x2l", proj_a, proj_v, h_l_with_vs,
+                                    h_l_with_as)
+            h_a_l2v, h_v_l2a = pair("g_xl2", proj_a, proj_v, h_v_with_ls,
+                                    h_a_with_ls)
+            return h_l_v2a, h_l_a2v, h_a_v2l, h_a_l2v, h_v_a2l, h_v_l2a
         cross = lambda name, x, kv: self._cross(name, x, kv, seeds)
         return (cross("trans_l_with_v2a", proj_l, h_a_with_vs),
                 cross("trans_l_with_a2v", proj_l, h_v_with_as),
@@ -276,7 +363,10 @@ class BPMulTVAPT(_BPMulTBase):
         self.transfm_v2l = SeqAdapter(Tv, Tl, dt, gen, device)
         self.transfm_l2a = SeqAdapter(Tl, Ta, dt, gen, device)
         self.transfm_l2v = SeqAdapter(Tl, Tv, dt, gen, device)
-        self.gmu = GatedNModalLayer(4, cfg.hidden_sz, dt, gen, device)
+        self.gmu = GatedNModalLayer(5 if cfg.hybrid else 4, cfg.hidden_sz, dt,
+                                    gen, device)
+        if cfg.hybrid:
+            self._make_hybrid(gen, device)
         self._make_head(gen, device)
 
     def forward(self, txt, mask, segment, video, audio, poster,
@@ -287,6 +377,8 @@ class BPMulTVAPT(_BPMulTBase):
         seeds = None if dropout_seed is None else SeedStream(dropout_seed)
         proj_l, proj_v, proj_a = self._encode_streams(txt, mask, segment,
                                                       video, audio, seeds)
+        early = (self._hybrid_summary(proj_l, proj_v, proj_a, seeds)
+                 if self.config.hybrid else None)
         poster_h = self._lin(self.proj_poster, poster)
         first = self._first_round(proj_l, proj_v, proj_a, seeds)
         second = self._second_round(proj_l, proj_v, proj_a, first, seeds)
@@ -300,7 +392,8 @@ class BPMulTVAPT(_BPMulTBase):
             (self.transfm_a2l(h_a_with_vs), self.transfm_v2l(h_v_with_as)),
             (self.transfm_l2a(h_l_with_vs), h_v_with_ls),
             (self.transfm_l2v(h_l_with_as), h_a_with_ls))
-        last_hs, z = self.gmu([last_h_l, last_h_v, last_h_a, poster_h])
+        inputs = [last_h_l, last_h_v, last_h_a, poster_h]
+        last_hs, z = self.gmu(inputs if early is None else inputs + [early])
         logits = self._head(last_hs, seeds)
         if output_gates:
             return logits, z
@@ -333,8 +426,11 @@ class BPMulTVAT(_BPMulTBase):
             self.mag = MAG(cfg.hidden_sz, beta_shift=1e-3, dropout_prob=0.5,
                            dtype=self.dtype, gen=gen, device=device)
         else:
-            self.gmu = GatedNModalLayer(3, cfg.hidden_sz, self.dtype, gen,
+            self.gmu = GatedNModalLayer(4 if cfg.hybrid else 3,
+                                        cfg.hidden_sz, self.dtype, gen,
                                         device)
+        if cfg.hybrid:
+            self._make_hybrid(gen, device)
         self._make_head(gen, device)
 
     def forward(self, txt, mask, segment, video, audio,
@@ -345,6 +441,8 @@ class BPMulTVAT(_BPMulTBase):
         seeds = None if dropout_seed is None else SeedStream(dropout_seed)
         proj_l, proj_v, proj_a = self._encode_streams(txt, mask, segment,
                                                       video, audio, seeds)
+        early = (self._hybrid_summary(proj_l, proj_v, proj_a, seeds)
+                 if self.config.hybrid else None)
         first = self._first_round(proj_l, proj_v, proj_a, seeds)
         second = self._second_round(proj_l, proj_v, proj_a, first, seeds)
         (h_v_with_as, h_a_with_vs, h_v_with_ls, h_l_with_vs, h_a_with_ls,
@@ -355,7 +453,9 @@ class BPMulTVAT(_BPMulTBase):
         if self.config.fusion == "mag":
             last_hs, z = self.mag(last_h_l, last_h_v, last_h_a, seeds)
         else:
-            last_hs, z = self.gmu([last_h_l, last_h_v, last_h_a])
+            inputs = [last_h_l, last_h_v, last_h_a]
+            last_hs, z = self.gmu(inputs if early is None
+                                  else inputs + [early])
         logits = self._head(last_hs, seeds)
         if output_gates:
             return logits, z

@@ -90,6 +90,8 @@ class MultiheadAttention(nn.Module):
     """Call with ``query`` only for self-attention, or ``query, key,
     value`` for cross-attention; ``masked`` applies the offset band."""
 
+    _linear = staticmethod(linear)
+
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None, device=None,
@@ -104,7 +106,8 @@ class MultiheadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.scaling = self.head_dim ** -0.5
         self.dtype = dtype
-        proj = lambda: linear(embed_dim, embed_dim, True, "xavier", gen, device)
+        proj = lambda: self._linear(embed_dim, embed_dim, True, "xavier", gen,
+                                    device)
         self.q_proj = proj()
         self.k_proj = proj()
         self.v_proj = proj()
@@ -117,17 +120,17 @@ class MultiheadAttention(nn.Module):
                 seeds: Optional[SeedStream] = None) -> torch.Tensor:
         key = query if key is None else key
         value = key if value is None else value
-        H, dt = self.num_heads, self.dtype
+        dt = self.dtype
+        proj = self._project
         if key is query and value is query:
-            q, k, v = fused_projection(
-                query, (self.q_proj, self.k_proj, self.v_proj), H, dt)
+            q, k, v = proj(query, (self.q_proj, self.k_proj, self.v_proj))
         elif value is key:
-            (q,) = fused_projection(query, (self.q_proj,), H, dt)
-            k, v = fused_projection(key, (self.k_proj, self.v_proj), H, dt)
+            (q,) = proj(query, (self.q_proj,))
+            k, v = proj(key, (self.k_proj, self.v_proj))
         else:
-            (q,) = fused_projection(query, (self.q_proj,), H, dt)
-            (k,) = fused_projection(key, (self.k_proj,), H, dt)
-            (v,) = fused_projection(value, (self.v_proj,), H, dt)
+            (q,) = proj(query, (self.q_proj,))
+            (k,) = proj(key, (self.k_proj,))
+            (v,) = proj(value, (self.v_proj,))
         q = q * torch.tensor(self.scaling, dtype=dt)
         if self.impl == "pallas":
             ctx = flash_attention(q, k, v, masked, None,
@@ -138,6 +141,15 @@ class MultiheadAttention(nn.Module):
                     else None)
             ctx = dot_product_attention(q, k, v, bias, self.attn_dropout,
                                         self.training, seeds)
+        return self._output(ctx)
+
+    def _project(self, x: torch.Tensor, layers: Sequence[nn.Linear]):
+        """One (B, H, T, D) view per layer of ``layers`` (one GEMM)."""
+        return fused_projection(x, layers, self.num_heads, self.dtype)
+
+    def _output(self, ctx: torch.Tensor) -> torch.Tensor:
+        """The (B, H, T, D) attention output through ``out_proj``."""
+        dt = self.dtype
         return nn.functional.linear(merge_heads(ctx),
                                     self.out_proj.weight.to(dt),
                                     self.out_proj.bias.to(dt))

@@ -23,6 +23,10 @@ keeping them (``torch.utils.checkpoint``, as the JAX package wraps each layer
 in ``jax.checkpoint``), in training with grad enabled only; ``remat_policy``
 ``"save_attn"`` keeps the flash forward's outputs across the recompute
 boundary (:func:`resolve_remat_policy`).
+
+:class:`GroupedTransformerEncoder` runs two same-shape encoders as one over
+(2, B, T, E) stacks, with a leading pair axis of 2 on every parameter (the
+JAX package's ``group_encoders``).
 """
 
 from __future__ import annotations
@@ -36,10 +40,10 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from bpx_torch.ops.attention import MultiheadAttention
+from bpx_torch.ops.attention import MultiheadAttention, merge_heads
 from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.init import linear
-from bpx_torch.ops.norm import LayerNorm
+from bpx_torch.ops.norm import LayerNorm, layer_norm
 from bpx_torch.ops.positions import positional_embedding
 
 
@@ -92,6 +96,10 @@ def recomputed(layer: nn.Module, policy, seeds: Optional[SeedStream],
 
 
 class TransformerEncoderLayer(nn.Module):
+    _attention = MultiheadAttention
+    _norm = LayerNorm
+    _linear = staticmethod(linear)
+
     def __init__(self, embed_dim: int, num_heads: int = 4,
                  attn_mask: bool = False, biprojection: bool = False,
                  dtype: torch.dtype = torch.float32,
@@ -103,15 +111,22 @@ class TransformerEncoderLayer(nn.Module):
         self.biprojection = biprojection
         self.relu_dropout = relu_dropout
         self.res_dropout = res_dropout
-        self.attn = MultiheadAttention(embed_dim, num_heads, dtype, gen,
-                                       device, attn_dropout, attention_impl)
-        self.ln0 = LayerNorm(embed_dim, dtype=dtype, device=device)
-        self.ln1 = LayerNorm(embed_dim, dtype=dtype, device=device)
+        self.attn = self._attention(embed_dim, num_heads, dtype, gen, device,
+                                    attn_dropout, attention_impl)
+        self.ln0 = self._norm(embed_dim, dtype=dtype, device=device)
+        self.ln1 = self._norm(embed_dim, dtype=dtype, device=device)
         if biprojection:
-            self.ln2 = LayerNorm(embed_dim, dtype=dtype, device=device)
-        self.fc1 = linear(embed_dim, 4 * embed_dim, True, "xavier", gen, device)
-        self.fc2 = linear(4 * embed_dim, embed_dim, True, "xavier", gen, device)
+            self.ln2 = self._norm(embed_dim, dtype=dtype, device=device)
+        self.fc1 = self._linear(embed_dim, 4 * embed_dim, True, "xavier", gen,
+                                device)
+        self.fc2 = self._linear(4 * embed_dim, embed_dim, True, "xavier", gen,
+                                device)
         self.dtype = dtype
+
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return nn.functional.linear(x, layer.weight.to(dt),
+                                    layer.bias.to(dt))
 
     def forward(self, x: torch.Tensor, x_k: Optional[torch.Tensor] = None,
                 x_v: Optional[torch.Tensor] = None,
@@ -140,16 +155,15 @@ class TransformerEncoderLayer(nn.Module):
 
         ffn_ln = self.ln2 if self.biprojection else self.ln1
         residual = x
-        dt = self.dtype
-        h = nn.functional.linear(ffn_ln(x), self.fc1.weight.to(dt),
-                                 self.fc1.bias.to(dt))
-        h = drop(torch.relu(h), self.relu_dropout)
-        h = nn.functional.linear(h, self.fc2.weight.to(dt),
-                                 self.fc2.bias.to(dt))
-        return residual + drop(h, self.res_dropout)
+        h = drop(torch.relu(self._dense(self.fc1, ffn_ln(x))),
+                 self.relu_dropout)
+        return residual + drop(self._dense(self.fc2, h), self.res_dropout)
 
 
 class TransformerEncoder(nn.Module):
+    _layer = TransformerEncoderLayer
+    _norm = LayerNorm
+
     def __init__(self, embed_dim: int, num_heads: int, layers: int,
                  attn_mask: bool = False, biprojection: bool = False,
                  dtype: torch.dtype = torch.float32,
@@ -164,19 +178,21 @@ class TransformerEncoder(nn.Module):
         self.remat = remat
         self.remat_policy = resolve_remat_policy(remat_policy)
         self.layers = nn.ModuleList([
-            TransformerEncoderLayer(embed_dim, num_heads, attn_mask,
-                                    biprojection, dtype, gen, device,
-                                    attn_dropout, relu_dropout, res_dropout,
-                                    attention_impl)
+            self._layer(embed_dim, num_heads, attn_mask, biprojection, dtype,
+                        gen, device, attn_dropout, relu_dropout, res_dropout,
+                        attention_impl)
             for _ in range(layers)])
-        self.final_norm = LayerNorm(embed_dim, dtype=dtype, device=device)
+        self.final_norm = self._norm(embed_dim, dtype=dtype, device=device)
 
     def _embed(self, x_in: torch.Tensor,
                seeds: Optional[SeedStream]) -> torch.Tensor:
         # the scale is cast to the stream's dtype first, as JAX does with a
         # weakly-typed Python scalar
         x = x_in * torch.tensor(self.embed_scale, dtype=x_in.dtype)
-        x = x + positional_embedding(x_in, dtype=x.dtype)
+        # positions per sequence: a grouped pair's (2, B, T, E) as (2B, T, E)
+        pos = positional_embedding(x_in.reshape(-1, *x_in.shape[-2:]),
+                                   dtype=x.dtype)
+        x = x + pos.view(x.shape)
         return maybe_dropout(x, self.embed_dropout, self.training, seeds)
 
     def forward(self, x_in: torch.Tensor,
@@ -198,3 +214,105 @@ class TransformerEncoder(nn.Module):
             else:
                 x = layer(x, x_k, x_v, seeds)
         return self.final_norm(x)
+
+
+# ---------------------------------------------------------------------------
+# grouped pairs: two same-shape encoders as one
+# ---------------------------------------------------------------------------
+
+class PairLinear(nn.Module):
+    """Two same-shape ``nn.Linear`` layers on a leading pair axis: ``weight``
+    (2, out, in), ``bias`` (2, out) or None; each member initialised as
+    :func:`~bpx_torch.ops.init.linear` initialises one."""
+
+    def __init__(self, in_f: int, out_f: int, bias: bool, init: str,
+                 gen: Optional[torch.Generator], device=None):
+        super().__init__()
+        members = [linear(in_f, out_f, bias, init, gen, device)
+                   for _ in range(2)]
+        self.weight = nn.Parameter(torch.stack(
+            [m.weight.detach() for m in members]))
+        self.bias = (nn.Parameter(torch.stack(
+            [m.bias.detach() for m in members])) if bias else None)
+
+
+def pair_dense(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], dtype: torch.dtype
+               ) -> torch.Tensor:
+    """(2, ..., in) -> (2, ..., out): member i through ``weight[i]`` and
+    ``bias[i]``, one batched GEMM in ``dtype``."""
+    x2 = x.reshape(2, -1, x.shape[-1]).to(dtype)
+    w = weight.to(dtype).transpose(1, 2)
+    y = (torch.bmm(x2, w) if bias is None
+         else torch.baddbmm(bias.to(dtype)[:, None, :], x2, w))
+    return y.view(*x.shape[:-1], weight.shape[1])
+
+
+class PairLayerNorm(nn.Module):
+    """Two LayerNorms on a leading pair axis, ``weight`` and ``bias`` (2,
+    dim): one kernel call per member (the kernel takes one weight row),
+    the outputs stacked."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(2, dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(2, dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.stack([layer_norm(x[i], self.weight[i], self.bias[i],
+                                       self.eps, self.dtype)
+                            for i in range(2)])
+
+
+class PairAttention(MultiheadAttention):
+    """:class:`MultiheadAttention` over a pair's (2, B, T, E) streams: each
+    projection one batched GEMM over the pair axis, the pair folded into
+    the batch of one attention call, (2B, H, T, D) strided views of the
+    projection's output (no copy)."""
+
+    _linear = staticmethod(PairLinear)
+
+    def _project(self, x, layers):
+        w = torch.cat([l.weight for l in layers], dim=1)
+        b = torch.cat([l.bias for l in layers], dim=1)
+        y = pair_dense(x, w, b, self.dtype)
+        P, B, T, _ = y.shape
+        y = y.view(P * B, T, len(layers), self.num_heads, -1)
+        return tuple(y[:, :, i].transpose(1, 2) for i in range(len(layers)))
+
+    def _output(self, ctx):
+        h = merge_heads(ctx)
+        h = h.view(2, h.shape[0] // 2, *h.shape[1:])
+        return pair_dense(h, self.out_proj.weight, self.out_proj.bias,
+                          self.dtype)
+
+
+class PairEncoderLayer(TransformerEncoderLayer):
+    _attention = PairAttention
+    _norm = PairLayerNorm
+    _linear = staticmethod(PairLinear)
+
+    def _dense(self, layer, x):
+        return pair_dense(x, layer.weight, layer.bias, self.dtype)
+
+
+class GroupedTransformerEncoder(TransformerEncoder):
+    """Two same-shape encoders (one ``attn_dropout``) as one: every
+    parameter has a leading pair axis of 2 (the JAX package's ``nn.vmap``
+    pair, ``bpx/models/bpmult.py``), the inputs are (2, B, T, E) stacks,
+    member i of the output is encoder i on member i of the inputs.
+    ``remat`` recomputes each layer in full (``remat_policy`` None, as the
+    JAX package states for a pair).  Each attention is one call over the
+    pair folded into the batch, at the configured ``attention_impl``; in
+    training the two members draw distinct dropout masks from the same
+    seeds (the flash mask hashes the batch index)."""
+
+    _layer = PairEncoderLayer
+    _norm = PairLayerNorm
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.remat_policy = None

@@ -6,6 +6,8 @@
   update);
 * ``adamw``: ``torch.optim.AdamW`` with decoupled weight decay 0.01 on every
   parameter (``optax.adamw(weight_decay=0.01)``);
+* ``radam`` and ``plain_radam``: :class:`bpx_torch.train.radam.RAdam`, the
+  JAX package's rectified Adam (the two names are one optimizer there);
 * :class:`PlateauScheduler` (ReduceLROnPlateau) and :class:`EarlyStopping`,
   plain Python, the JAX package's copies.
 
@@ -21,6 +23,8 @@ from typing import Iterable, Optional
 
 import torch
 
+from bpx_torch.train.radam import RAdam
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                    name: str = "adam") -> torch.optim.Optimizer:
@@ -30,9 +34,7 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=0.01)
     if name in ("radam", "plain_radam"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP.md, after "
-            "training: the RAdam variants of bpx/train/radam.py)")
+        return RAdam(params, lr=lr)
     raise KeyError(f"unknown optimizer {name!r}")
 
 

@@ -10,10 +10,16 @@ them by 1/A and averages the loss: the order of the JAX package's
 accumulation scan.  Under ``freeze_bert`` the BERT gradients are zeroed
 before the optimizer step, as the JAX package's gradient mask does.
 
+``accum_dtype="bfloat16"`` accumulates as the JAX package's scan does at A
+> 1: each micro-batch's fp32 gradient is cast to bf16 and added into a bf16
+accumulator that starts at zero; after the last micro-batch the sum is cast
+back to fp32 and multiplied by 1/A.  Each micro-batch's gradient is moved
+out of ``.grad`` into the accumulator before the next backward.  At A = 1
+nothing is rounded; ``"float32"`` and None accumulate exactly in fp32.
+
 ``accum_unroll``, ``accum_scan_unroll`` and ``donate`` steer XLA's program
 in the JAX package and are accepted and inert here: the port runs the
-micro-batches as a Python loop.  ``accum_dtype="bfloat16"`` changes the
-update numerics there and is not ported.
+micro-batches as a Python loop.
 """
 
 from __future__ import annotations
@@ -37,10 +43,8 @@ def make_train_step(model: torch.nn.Module, model_name: str,
     """``train_step(batch) -> {"loss"[, "grad_norm"]}`` (0-dim fp32 device
     tensors; reading them is the caller's sync).  ``generator`` is the CPU
     generator of the dropout seeds (default: a new one seeded with 0)."""
-    if accum_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"accum_dtype={accum_dtype!r} changes the update numerics and is "
-            "not ported (ROADMAP.md)")
+    if accum_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"unknown accum_dtype {accum_dtype!r}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     gen = generator if generator is not None else \
@@ -48,11 +52,13 @@ def make_train_step(model: torch.nn.Module, model_name: str,
     params = [p for p in model.parameters() if p.requires_grad]
     frozen = ([p for n, p in model.named_parameters()
                if n.startswith("bert.")] if freeze_bert else [])
+    bf16_accum = accum_dtype == "bfloat16" and grad_accum > 1
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         loss_sum = None
+        acc = {}
         for i in range(grad_accum):
             micro = {k: v[i] for k, v in batch.items()}
             logits = model(*model_inputs(model_name, micro),
@@ -61,6 +67,11 @@ def make_train_step(model: torch.nn.Module, model_name: str,
             loss.backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
+            if bf16_accum:
+                _accumulate_bf16(params, acc)
+        if bf16_accum:
+            for p, a in acc.items():
+                p.grad = a.float()
         grads = [p.grad for p in params if p.grad is not None]
         if grad_accum > 1:
             torch._foreach_mul_(grads, 1.0 / grad_accum)
@@ -76,6 +87,20 @@ def make_train_step(model: torch.nn.Module, model_name: str,
         return metrics
 
     return train_step
+
+
+def _accumulate_bf16(params, acc) -> None:
+    """Add each parameter's fp32 ``.grad``, cast to bf16, into its bf16
+    accumulator in ``acc`` (zeros at the first gradient, so a -0 gradient
+    sums to +0 as in the JAX package's scan), then clear ``.grad``."""
+    have = [p for p in params if p.grad is not None]
+    for p in have:
+        if p not in acc:
+            acc[p] = torch.zeros_like(p, dtype=torch.bfloat16)
+    torch._foreach_add_([acc[p] for p in have],
+                        [p.grad.to(torch.bfloat16) for p in have])
+    for p in have:
+        p.grad = None
 
 
 def make_eval_step(model: torch.nn.Module, model_name: str,

@@ -144,6 +144,29 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    one train step at the preset's ``batch_sz`` (128, A = 1) with
    recompute: its time, peak memory and launches.  Phases 2-12 run every
    preset without recompute, as before recompute was ported.
+16. the options the training CLI accepts, after phase 15: first (d)
+   every flash kernel at (8, H, 32, 32, D) for D 25, 30, 64, 96, 128, rate
+   0 and 0.1, forward and backward against the plain versions, timed
+   beside the bound and SDPA, and the exact dropout masks there; then (a)
+   moviescope with ``hybrid`` (three self-attention encoders over 32
+   positions, a 5-ary final GMU): 4 requests (one ragged) against the
+   plain path with both planted faults (96 flash, 208 LayerNorm launches
+   per forward), one micro-step against the plain path with the planted
+   backward faults, then 6 RAdam steps at 8 x A = 1 (the adaptive step
+   from step 5, recorded; 96 / 48 / 96 / 256 / 256 launches per step);
+   (b) moviescope with ``group_encoders`` (each pair one attention over a
+   doubled batch): the served path (48 flash, 181 LayerNorm launches per
+   forward) and micro-step with the planted faults, one A = 2 step's
+   gradients with bf16 and with fp32 accumulation on the same weights,
+   batch and seeds (they must differ, within BF16_ACCUM_ERR of each
+   other), then 3 steps at 8 x A = 2 accumulating in bf16; (c) iemocap's
+   ``mmtrvat`` with ``hybrid`` (4-ary GMU, early encoders at head_dim 25):
+   one request, one micro-step against the plain path with the planted
+   faults and one step, exact counters.  Each recorded forward and
+   micro-step of (a)-(c) holds every class that no earlier phase held
+   (flash and LayerNorm, forward and backward: the 2B flash classes, the
+   profiler naming each head dim's kernel, and the early encoders'
+   LayerNorms at 256 rows) against its plain version.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -153,7 +176,8 @@ It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 rows by shape class, and on the moviescope rows the training loop's launches in
 phase 13 and per epoch; the narrow backward and forward also alone, at
 head_dim 25 from iemocap's train steps and at 30 from cmu-mosei's, and the
-head_dim-128 backward and forward from mmimdb's) and, last, ``{"ok": true,
+head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
+sweep, hybrid's and the grouped pairs' classes) and, last, ``{"ok": true,
 "device": {...}}``.  It
 imports nothing of JAX or of the JAX package; without a CUDA device, or
 without ``bpx_torch`` beside it, it exits non-zero and prints no result.
@@ -242,6 +266,12 @@ class ModelPath:
     loss_tol: float = LOSS_TOL
     grad_tol: float = GRAD_TOL
     fusion: str = "gmu"
+    options: tuple = ()    # (field, value) pairs the model config takes
+
+    @property
+    def name(self) -> str:
+        """The preset, and the options the path sets on it."""
+        return " ".join([self.preset] + [k for k, _ in self.options])
 
 
 MOVIESCOPE = ModelPath("moviescope", FLASH_PER_FORWARD, LN_PER_FORWARD,
@@ -315,6 +345,47 @@ MMIMDB = dataclasses.replace(MOVIESCOPE, preset="mmimdb",
 SYNTHETIC_TINY = dataclasses.replace(
     MOVIESCOPE, preset="synthetic-tiny", flash=0, ln=1 + 2 * 2 + 12 * 7,
     ln_train=1 + 2 * 2 + 12 * 7 + 12 * 2, dropout=0)
+
+
+def with_hybrid(path: ModelPath, layers: int) -> ModelPath:
+    """``path`` with ``hybrid``: three self-attention encoders of max(layers,
+    3) layers over reduced_dim = 32 positions add 3 x max(layers, 3) flash
+    launches per forward (all with dropout in training: their rate is
+    attn_dropout, 0.1 on every preset) and 3 x (2 x max(layers, 3) + 1)
+    LayerNorms (one input, so none more in training)."""
+    early = max(layers, 3)
+    ln = 3 * (2 * early + 1)
+    return dataclasses.replace(
+        path, flash=path.flash + 3 * early, ln=path.ln + ln,
+        ln_train=path.ln_train + ln, dropout=path.dropout + 3 * early,
+        options=path.options + (("hybrid", True),))
+
+
+# phase 16.  moviescope with hybrid: 96 flash launches (84 + 3 x 4), 208 /
+# 256 LayerNorms, 48 with dropout; iemocap with hybrid: 132 (120 at head_dim
+# 25), 376 / 472, 68.  moviescope with group_encoders: each pair's attention
+# one call over the pair folded into the batch, 12 BERT + 3 x 4 + 3 x 4 x 2
+# = 48 flash launches, 24 with dropout (BERT's 12, g_xl's 4, g_x2l's 8), the
+# LayerNorms unchanged (one call per member).  Each is held to its base
+# preset's limits, which both planted faults must still cross.
+MOVIESCOPE_HYBRID = with_hybrid(MOVIESCOPE, 4)
+IEMOCAP_HYBRID = with_hybrid(IEMOCAP, 8)
+MOVIESCOPE_GROUPED = dataclasses.replace(
+    MOVIESCOPE, flash=12 + 3 * 4 + 3 * 4 * 2, dropout=12 + 4 + 4 * 2,
+    options=(("group_encoders", True),))
+#: RAdam steps at A = 1: the adaptive (rectified) step starts at step 5
+RADAM_STEPS = 6
+#: (head_dim, heads) of each preset's encoders: the 32 x 32 sweep
+HEAD_DIMS = ((25, 12), (30, 10), (64, 12), (96, 8), (128, 6))
+#: bf16 accumulation at A = 2 against fp32: g1, g2 and their sum each round
+#: to 8 significant bits (half a unit: at most 2**-8 of the value; the sum
+#: is at most (|g1| + |g2|)(1 + 2**-8)), so after the 1/2 the bf16 gradient
+#: is within 2**-8 (|g1| + |g2|)(1 + 2**-9) of the fp32 one, elementwise;
+#: plus 1e-6 of each tensor's largest entry for the run to run differences
+#: of BERT's embedding backward (atomics).  On an H100 (700 W) the sound
+#: step reads 0.99 of this bound at its worst entry
+BF16_ACCUM_ERR = 2.0 ** -8
+BF16_ACCUM_SLACK = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -1198,7 +1269,7 @@ def experiment(path: ModelPath, remat: bool = False):
     remat phase runs the preset's own recompute settings (``remat``)."""
     from bpx_torch.config import get_preset
     exp = get_preset(path.preset)
-    m = exp.model.replace(fusion=path.fusion)
+    m = exp.model.replace(fusion=path.fusion, **dict(path.options))
     return exp.replace(model=m if remat else m.replace(remat=False))
 
 
@@ -1235,7 +1306,7 @@ def phase_predictor(torch, path: ModelPath, requests: int = REQUESTS):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pred.model.parameters())
     m = exp.model
-    print(f"[serve {path.preset}] {m.model} fusion={m.fusion}, "
+    print(f"[serve {path.name}] {m.model} fusion={m.fusion}, "
           f"{n_params / 1e6:.1f} M params, {m.compute_dtype}, built in "
           f"{time.time() - t0:.1f} s")
     reqs = [synthetic_batch(exp, BATCH, seed=100 + i)
@@ -1244,11 +1315,11 @@ def phase_predictor(torch, path: ModelPath, requests: int = REQUESTS):
 
 
 def gates_dim(m) -> int:
-    """Width of the final fusion's gates: the N-ary GMU's N * E, MAG's
-    alpha 1."""
+    """Width of the final fusion's gates: the N-ary GMU's N * E (one more
+    input with ``hybrid``), MAG's alpha 1."""
     if m.fusion == "mag":
         return 1
-    return (4 if m.model == "mmtrvapt" else 3) * m.hidden_sz
+    return ((4 if m.model == "mmtrvapt" else 3) + m.hybrid) * m.hidden_sz
 
 
 def record_forward(path: ModelPath, pred, batch, head_dim=None):
@@ -1261,19 +1332,19 @@ def record_forward(path: ModelPath, pred, batch, head_dim=None):
     by_dim = collections.Counter()
     for cls, c in flash_cls.items():
         by_dim[cls[4]] += c
-    print(f"[serve {path.preset}] recorded forward: {n_flash} flash "
+    print(f"[serve {path.name}] recorded forward: {n_flash} flash "
           f"launches in {len(flash_cls)} shape classes (by head_dim "
           f"{dict(by_dim)}), {n_ln} layer_norm launches in {len(ln_cls)} "
           f"(structure: {path.flash}, {path.ln}); tensors the flash "
           f"wrappers copied, by head_dim: {dict(copies)}")
     check(n_flash == path.flash and n_ln == path.ln,
-          f"the recorded {path.preset} forward's launches differ from the "
+          f"the recorded {path.name} forward's launches differ from the "
           f"structure's")
     if head_dim is not None:
         check(by_dim == {head_dim: path.flash - 12, 64: 12},
-              f"{path.preset}: flash launches by head_dim {dict(by_dim)}")
+              f"{path.name}: flash launches by head_dim {dict(by_dim)}")
     check(not sum(copies.values()),
-          f"{path.preset}: the flash wrappers copied tensors, by head_dim "
+          f"{path.name}: the flash wrappers copied tensors, by head_dim "
           f"{dict(copies)}")
     return flash_cls, ln_cls
 
@@ -1288,7 +1359,7 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     from bpx_torch.ops.flash_attention import flash_attention
     from bpx_torch.ops.norm import layer_norm
 
-    tag = f"[serve {path.preset}]"
+    tag = f"[serve {path.name}]"
     n_cls = pred.exp.model.n_classes
     n_gates = gates_dim(pred.exp.model)
     n_req = len(reqs)
@@ -1345,9 +1416,9 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
           f"(tol {path.probs_tol}), gates max err {gerr:.3g} (tol "
           f"{path.gates_tol})")
     check(perr <= path.probs_tol,
-          f"{path.preset}: probs differ from the plain path by {perr}")
+          f"{path.name}: probs differ from the plain path by {perr}")
     check(gerr <= path.gates_tol,
-          f"{path.preset}: gates differ from the plain path by {gerr}")
+          f"{path.name}: gates differ from the plain path by {gerr}")
 
     # the same comparison must catch a kernel launched with a wrong mask
     planted = {}
@@ -1361,7 +1432,7 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     for fault, e in planted.items():
         check(e["probs_err"] > path.probs_tol
               or e["gates_err"] > path.gates_tol,
-              f"{path.preset}: the comparison with the plain path misses a "
+              f"{path.name}: the comparison with the plain path misses a "
               f"planted fault ({fault})")
 
     if full is not None:
@@ -1401,27 +1472,30 @@ def profile_forward(torch, pred, batch):
 # training
 # ---------------------------------------------------------------------------
 
-def train_batch(torch, np, exp, seed: int, label_p):
+def train_batch(torch, np, exp, seed: int, label_p, accum: int = TRAIN_A):
     """A numpy-seeded (A, micro, ...) super-batch on the card, with
     multilabel targets drawn at the synthetic label frequencies, or (no
     ``label_p``: cmu-mosi) one real-valued target per sample."""
-    b = synthetic_batch(exp, TRAIN_A * BATCH, seed)
+    b = synthetic_batch(exp, accum * BATCH, seed)
     rng = np.random.RandomState(seed + 1)
     if label_p is None:
-        b["target"] = rng.uniform(-3, 3, TRAIN_A * BATCH).astype(np.float32)
+        b["target"] = rng.uniform(-3, 3, accum * BATCH).astype(np.float32)
     else:
-        b["target"] = (rng.rand(TRAIN_A * BATCH, len(label_p))
+        b["target"] = (rng.rand(accum * BATCH, len(label_p))
                        < label_p).astype(np.float32)
-    return {k: torch.from_numpy(v.reshape(TRAIN_A, BATCH, *v.shape[1:]))
+    return {k: torch.from_numpy(v.reshape(accum, BATCH, *v.shape[1:]))
             .to("cuda") for k, v in b.items()}
 
 
 def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
-                  steps: int = TRAIN_STEPS, remat: bool = False):
-    """The path's model at full width and depth in training mode, Adam at
-    LR, BCE with pos_weight from synthetic label frequencies (cmu-mosi: its
-    L1 loss on real-valued targets), and the accumulation step at A =
-    TRAIN_A; with the preset's recompute if ``remat``."""
+                  steps: int = TRAIN_STEPS, remat: bool = False,
+                  optimizer: str = "adam", accum: int = TRAIN_A,
+                  accum_dtype=None):
+    """The path's model at full width and depth in training mode, the
+    ``optimizer`` (Adam) at LR, BCE with pos_weight from synthetic label
+    frequencies (cmu-mosi: its L1 loss on real-valued targets), and the
+    accumulation step at A = ``accum`` (TRAIN_A) accumulating in
+    ``accum_dtype``; with the preset's recompute if ``remat``."""
     from bpx_torch.models import get_model
     from bpx_torch.train.losses import make_loss_fn
     from bpx_torch.train.optim import make_optimizer
@@ -1430,7 +1504,7 @@ def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
     m = exp.model
     regression = exp.data.task == "cmu-mosi"
     check(regression or exp.data.task_type == "multilabel",
-          f"{path.preset} is neither multilabel nor cmu-mosi")
+          f"{path.name} is neither multilabel nor cmu-mosi")
     t0 = time.time()
     model = get_model(m, device="cuda", seed=0).train()
     rng = np.random.RandomState(7)
@@ -1438,19 +1512,20 @@ def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
     freqs = rng.randint(30, 400, size=m.n_classes)
     loss_fn = make_loss_fn(exp.data.task, exp.data.task_type, True,
                            freqs.tolist(), n_train, device="cuda")
-    opt = make_optimizer(model.parameters(), LR)
+    opt = make_optimizer(model.parameters(), LR, optimizer)
     step = make_train_step(model, m.model, loss_fn, opt,
-                           grad_accum=TRAIN_A,
-                           generator=torch.Generator().manual_seed(0))
+                           grad_accum=accum,
+                           generator=torch.Generator().manual_seed(0),
+                           accum_dtype=accum_dtype)
     batches = [train_batch(torch, np, exp, 300 + i,
-                           None if regression else freqs / n_train)
+                           None if regression else freqs / n_train, accum)
                for i in range(steps)]
     torch.cuda.synchronize()
-    print(f"[train {path.preset}] {m.model}, Adam lr {LR}, "
+    print(f"[train {path.name}] {m.model}, {type(opt).__name__} lr {LR}, "
           f"{'L1' if regression else 'BCE with pos_weight'}, micro-batch "
-          f"{BATCH} x A={TRAIN_A}, {m.compute_dtype}, attention_impl "
-          f"{m.attention_impl}, remat {m.remat}; built in "
-          f"{time.time() - t0:.1f} s")
+          f"{BATCH} x A={accum} (accumulated in {accum_dtype or 'float32'}),"
+          f" {m.compute_dtype}, attention_impl {m.attention_impl}, remat "
+          f"{m.remat}; built in {time.time() - t0:.1f} s")
     return model, loss_fn, step, batches
 
 
@@ -1537,7 +1612,7 @@ def phase_micro_step(torch, model, loss_fn, batches,
     del ref32
     errs = group_errors(torch, groups, ref)
     worst = max(errs, key=errs.get)
-    tag = f"[micro-step {path.preset}]"
+    tag = f"[micro-step {path.name}]"
     print(f"{tag} against the fp32 step: plain bf16 versions worst "
           f"group {max(e32_plain.values()):.3g}, kernels worst group "
           f"{max(e32_kern.values()):.3g}; per group (plain / kernels): "
@@ -1586,13 +1661,14 @@ def phase_micro_step(torch, model, loss_fn, batches,
 
 
 def phase_train(torch, model, step, batches, profile: bool,
-                path: ModelPath = MOVIESCOPE):
-    """TRAIN_STEPS accumulation steps with the launch counters checked per
-    step; step time on the host clock around a synchronised step."""
-    tag = f"[train {path.preset}]"
-    want = dict(flash=path.flash * TRAIN_A, dropout=path.dropout * TRAIN_A,
-                flash_bwd=path.flash * TRAIN_A,
-                ln=path.ln_train * TRAIN_A, ln_bwd=path.ln_train * TRAIN_A)
+                path: ModelPath = MOVIESCOPE, accum: int = TRAIN_A):
+    """One accumulation step (A = ``accum``) per batch with the launch
+    counters checked per step; step time on the host clock around a
+    synchronised step."""
+    tag = f"[train {path.name}]"
+    want = dict(flash=path.flash * accum, dropout=path.dropout * accum,
+                flash_bwd=path.flash * accum,
+                ln=path.ln_train * accum, ln_bwd=path.ln_train * accum)
     totals = collections.Counter()
     losses, times = [], []
     torch.cuda.synchronize()
@@ -1617,7 +1693,7 @@ def phase_train(torch, model, step, batches, profile: bool,
     med = statistics.median(times)
     print(f"{tag} step time (host clock, synchronised) median {med:.1f} ms "
           f"over {len(times)} steps: " + ", ".join(f"{x:.1f}" for x in times)
-          + f"; {TRAIN_A * BATCH / med * 1e3:.2f} samples/s; peak memory "
+          + f"; {accum * BATCH / med * 1e3:.2f} samples/s; peak memory "
           f"{peak:.2f} GiB (max_memory_allocated)")
     if profile:
         profile_train_step(torch, step, batches[0])
@@ -2270,7 +2346,7 @@ def phase_remat(torch, np, path: ModelPath, card: str):
     from bpx_torch.ops.dropout import SeedStream
     from bpx_torch.train.steps import make_train_step
     from bpx_torch.train.optim import make_optimizer
-    tag = f"[remat {path.preset}]"
+    tag = f"[remat {path.name}]"
     exp = experiment(path, remat=True)
     m = exp.model
     model, loss_fn, _, batches = phase_trainer(torch, np, path, steps=1,
@@ -2370,6 +2446,267 @@ def phase_remat(torch, np, path: ModelPath, card: str):
                 planted_err=errs[worst])
 
 
+# ---------------------------------------------------------------------------
+# phase 16: hybrid early fusion, grouped encoder pairs, RAdam and bf16
+# gradient accumulation
+# ---------------------------------------------------------------------------
+
+class _Recorder:
+    """An optimizer that only keeps a copy of the gradients it is
+    handed."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.seen = None
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        self.seen = [p.grad.clone() for p in self.params]
+
+
+def phase_bf16_accum(torch, model, loss_fn, batch, path: ModelPath):
+    """One A = 2 step's gradients with bf16 and with fp32 accumulation from
+    the same weights, batch and dropout seeds, and each micro-batch's fp32
+    gradient alone: the bf16 ones must differ from the fp32 ones (the
+    option is on) and stay within BF16_ACCUM_ERR (|g1| + |g2|) of them
+    elementwise (plus BF16_ACCUM_SLACK)."""
+    from bpx_torch.ops.dropout import draw_base_seed
+    from bpx_torch.train.steps import make_train_step
+    params = list(model.parameters())
+
+    def handed(accum_dtype):
+        rec = _Recorder(params)
+        make_train_step(model, model.config.model, loss_fn, rec,
+                        grad_accum=TRAIN_A,
+                        generator=torch.Generator().manual_seed(11),
+                        accum_dtype=accum_dtype)(batch)
+        return rec.seen
+
+    got, exact = handed("bfloat16"), handed(None)
+    gen = torch.Generator().manual_seed(11)
+    seeds = [draw_base_seed(gen) for _ in range(TRAIN_A)]
+    micro = []
+    for i in range(TRAIN_A):
+        micro_step(model, loss_fn, {k: v[i] for k, v in batch.items()},
+                   seeds[i])
+        micro.append([p.grad for p in params])
+    model.zero_grad(set_to_none=True)
+    differ = sum(not torch.equal(a, b) for a, b in zip(got, exact))
+    worst, outside, rel = 0.0, 0, collections.defaultdict(float)
+    names = [n for n, _ in model.named_parameters()]
+    for n, a, b, g1, g2 in zip(names, got, exact, *micro):
+        bound = (BF16_ACCUM_ERR * (g1.abs() + g2.abs()) * (1 + 2 ** -9)
+                 + BF16_ACCUM_SLACK * b.abs().max())
+        diff = (a - b).abs()
+        outside += int((diff > bound).sum())
+        worst = max(worst, (diff / bound.clamp_min(1e-30)).max().item())
+        top = n.split(".")[0]
+        rel[top] = max(rel[top], ((a - b).norm()
+                                  / b.norm().clamp_min(1e-30)).item())
+    print(f"[bf16 accum {path.name}] A={TRAIN_A}: {differ} of {len(params)}"
+          f" gradients differ from fp32 accumulation; worst |bf16 - fp32| / "
+          f"(BF16_ACCUM_ERR (|g1| + |g2|) + slack) {worst:.3g} (limit 1); "
+          f"relative L2 difference by module, largest "
+          f"{max(rel.values()):.3g}: " + ", ".join(
+              f"{g} {e:.2g}" for g, e in sorted(rel.items())))
+    check(differ > 0, "bf16 accumulation gave the fp32 gradients: the "
+                      "option is not on")
+    check(outside == 0, f"{outside} bf16-accumulated gradient entries "
+                        f"outside the bf16 bound ({worst:.3g} of it)")
+    return dict(differ=differ, of=len(params), bound_share=worst,
+                max_rel_l2=max(rel.values()))
+
+
+def recorded_steps():
+    """A context recording (step, adaptive) of every RAdam parameter
+    group's step (``radam.step_coefficients``), and the list it fills."""
+    from bpx_torch.train import radam
+    seen = []
+
+    def spy(coefficients, step, b1, b2):
+        out = coefficients(step, b1, b2)
+        seen.append((step, out[3]))
+        return out
+    return wrapped_launch(radam, spy, "step_coefficients"), seen
+
+
+def new_classes(counter, checked):
+    """The classes of ``counter`` that no earlier phase held against the
+    plain versions."""
+    return {k: c for k, c in counter.items() if k not in checked}
+
+
+def check_new_classes(torch, timer, gen, seen, checked, label):
+    """Hold every class of a recording (``seen``: Counters by kind) that no
+    earlier phase held against the plain versions, and add them to
+    ``checked``; returns the rows by kind."""
+    rows = {}
+    for kind in ("flash", "flash_bwd", "ln", "ln_bwd"):
+        new = new_classes(seen.get(kind, {}), checked[kind])
+        if kind == "flash":
+            rows[kind] = phase_flash(torch, timer, new, gen,
+                                     label=f"flash {label}")
+        elif kind == "flash_bwd":
+            rows[kind] = phase_flash_bwd(torch, timer, new, gen,
+                                         label=f"flash_bwd {label}")
+        elif kind == "ln":
+            rows[kind] = phase_layer_norm(torch, timer, new, gen,
+                                          scalar_path=False)
+        else:
+            rows[kind] = phase_layer_norm_bwd(torch, timer, new, gen,
+                                              scalar_path=False)
+        checked[kind] |= set(new)
+    return rows
+
+
+def phase_options(torch, np, timer, gen, checked):
+    """Phase 16: every flash kernel at 32 x 32, moviescope with ``hybrid``
+    (RAdam) and with ``group_encoders`` (bf16 accumulation), iemocap with
+    ``hybrid``.  ``checked``: the classes the earlier phases held against
+    the plain versions, by kind; each recorded forward and micro-step holds
+    its new classes against the plain versions and adds them."""
+    out = {}
+    # (d) every flash kernel at 32 x 32 (batch 8, causal), rate 0 and 0.1,
+    # forward and backward, and the exact dropout masks there
+    sweep = {(BATCH, H, 32, 32, D, True, False, rate): 1
+             for D, H in HEAD_DIMS for rate in (0.0, 0.1)}
+    out["s_rows"] = phase_flash(torch, timer, sweep, gen,
+                                label="flash 32x32")
+    out["s_bwd_rows"] = phase_flash_bwd(torch, timer, sweep, gen,
+                                        label="flash_bwd 32x32")
+    for D, H in HEAD_DIMS:
+        phase_mask_check(torch, gen, BATCH, H, 32, D)
+    before = set(checked["flash"])
+    checked["flash"] |= set(sweep)
+    checked["flash_bwd"] |= set(sweep)
+    # the rows of the classes first held here, by path ("h": hybrid, "g":
+    # grouped) and kind
+    new = {f"{tag}_{kind}": [] for tag in "hg"
+           for kind in ("flash", "flash_bwd", "ln", "ln_bwd")}
+
+    def hold(tag, seen, label):
+        rows = check_new_classes(torch, timer, gen, seen, checked, label)
+        for kind, r in rows.items():
+            new[f"{tag}_{kind}"] += r
+
+    # (a) moviescope, hybrid: its new classes (32 x 32, and the early
+    # encoders' LayerNorms) against the plain versions, the served path,
+    # one micro-step, 6 RAdam steps at A = 1
+    path = MOVIESCOPE_HYBRID
+    pred, reqs = phase_predictor(torch, path)
+    flash_cls, ln_cls = record_forward(path, pred, reqs[0])
+    new_f = new_classes(flash_cls, before)
+    check(new_f and all(k[2:4] == (32, 32) for k in new_f),
+          f"hybrid's new flash classes {sorted(new_f)}")
+    hold("h", dict(flash=flash_cls, ln=ln_cls), "hybrid")
+    out["h_served"] = phase_serve(torch, np, pred, reqs, False, path)
+    del pred
+    torch.cuda.empty_cache()
+    model, loss_fn, step, batches = phase_trainer(
+        torch, np, path, steps=RADAM_STEPS, optimizer="radam", accum=1)
+    seen, out["h_micro"] = phase_micro_step(torch, model, loss_fn, batches,
+                                            path)
+    hold("h", seen, "hybrid")
+    spy, radam_steps = recorded_steps()
+    with spy, recording() as seen:
+        out["h_trained"] = phase_train(torch, model, step, batches, False,
+                                       path, accum=1)
+    out["h_train_seen"] = seen
+    adaptive = sorted(set(radam_steps))
+    print(f"[train {path.name}] RAdam (step, adaptive) taken: {adaptive}; "
+          f"losses {out['h_trained']['losses']}")
+    check(adaptive == [(t, t >= 5) for t in range(1, RADAM_STEPS + 1)],
+          f"RAdam's steps {adaptive}: the adaptive step must start at 5")
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+
+    # (b) moviescope, group_encoders: the 2B classes against the plain
+    # versions (each head dim's own kernel by the profiler), the served path,
+    # one micro-step, bf16 against fp32 accumulation, 3 steps at A = 2 in bf16
+    path = MOVIESCOPE_GROUPED
+    pred, reqs = phase_predictor(torch, path)
+    flash_cls, ln_cls = record_forward(path, pred, reqs[0])
+    new_f = new_classes(flash_cls, checked["flash"])
+    check(new_f and all(k[0] == 2 * BATCH for k in new_f),
+          f"group_encoders' new flash classes {sorted(new_f)}")
+    hold("g", dict(flash=flash_cls, ln=ln_cls), "grouped")
+    out["g_served"] = phase_serve(torch, np, pred, reqs, False, path)
+    del pred
+    torch.cuda.empty_cache()
+    model, loss_fn, step, batches = phase_trainer(torch, np, path,
+                                                  accum_dtype="bfloat16")
+    seen, out["g_micro"] = phase_micro_step(torch, model, loss_fn, batches,
+                                            path)
+    hold("g", seen, "grouped")
+    out["g_accum"] = phase_bf16_accum(torch, model, loss_fn, batches[0],
+                                      path)
+    with recording() as seen:
+        out["g_trained"] = phase_train(torch, model, step, batches, False,
+                                       path)
+    out["g_train_seen"] = seen
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+
+    # (c) iemocap, hybrid: the 4-ary GMU, early encoders at head_dim 25 and
+    # LayerNorms of 300; one request, one micro-step against the plain
+    # path, one step at A = 2
+    path = IEMOCAP_HYBRID
+    pred, reqs = phase_predictor(torch, path, requests=1)
+    flash_cls, ln_cls = record_forward(path, pred, reqs[0], 25)
+    hold("h", dict(flash=flash_cls, ln=ln_cls), "iemocap hybrid")
+    out["ih_served"] = phase_serve(torch, np, pred, reqs, False, path,
+                                   faults=False)
+    del pred
+    model, loss_fn, step, batches = phase_trainer(torch, np, path, steps=1)
+    seen, out["ih_micro"] = phase_micro_step(torch, model, loss_fn, batches,
+                                             path)
+    hold("h", seen, "iemocap hybrid")
+    with recording() as seen:
+        out["ih_trained"] = phase_train(torch, model, step, batches, False,
+                                        path)
+    out["ih_train_seen"] = seen
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+    # the rows each summary takes: hybrid's at 32 x 32 and at its early
+    # encoders' B x 32 rows, grouped's flash only (its LayerNorms run per
+    # member, at moviescope's classes)
+    shapes = {k: sorted(str(r["shape"]) for r in rows)
+              for k, rows in new.items() if rows}
+    print(f"[options] classes first held in phase 16 beside the sweep, by "
+          f"path and kernel: {shapes}")
+    check(new["h_ln"] and new["h_ln_bwd"]
+          and all(r["shape"][0] == BATCH * 32
+                  for r in new["h_ln"] + new["h_ln_bwd"])
+          and all(r["shape"][1:3] == [32, 32]
+                  for r in new["h_flash"] + new["h_flash_bwd"])
+          and not (new["g_ln"] or new["g_ln_bwd"]),
+          f"phase 16's new classes are not the expected ones: {shapes}")
+    out.update(new)
+    return out
+
+
+def short_launches(seen, kind) -> int:
+    """Calls of a kind of flash kernel at 32 x 32 in a recording."""
+    return sum(c for cls, c in seen[kind].items() if cls[2:4] == (32, 32))
+
+
+def pair_launches(seen, kind) -> int:
+    """Calls of a kind of flash kernel at a doubled batch (a grouped
+    pair) in a recording."""
+    return sum(c for cls, c in seen[kind].items() if cls[0] == 2 * BATCH)
+
+
+def hybrid_launches(opts, kind) -> int:
+    """Calls of a LayerNorm kernel ("ln", "ln_bwd") in the hybrid train
+    steps at the classes only the hybrid paths brought."""
+    shapes = {tuple(r["shape"]) for r in opts[f"h_{kind}"]}
+    return sum(c for seen in (opts["h_train_seen"], opts["ih_train_seen"])
+               for cls, c in seen[kind].items() if cls[:2] in shapes)
+
+
 def dim_rows(rows, D):
     """The rows at head_dim D among a path's rows."""
     return [r for r in rows if r["shape"][3] == D]
@@ -2384,6 +2721,7 @@ def dim_launches(seen, kind, D) -> int:
 def summarise(name, source, replaces, rows, launches, runs, per):
     """One kernel's entry: times are per launch, averaged over the recorded
     run's mix of shapes (weights: each class's launches in that run)."""
+    check(rows, f"{name}: no shape was held against its plain version")
     total = sum(r["per_forward"] for r in rows)
     avg = lambda key: sum(r[key] * r["per_forward"] for r in rows) / total
     by = collections.Counter()
@@ -2563,6 +2901,24 @@ def main() -> None:
              for p in (IEMOCAP, MMIMDB)}
     print(f"[time] remat phases {time.time() - t0:.1f} s")
 
+    # the options the CLI accepts: hybrid (RAdam), group_encoders (bf16
+    # accumulation), iemocap hybrid, the 32 x 32 sweep; new classes only
+    # against the plain versions, beside those the moviescope and iemocap
+    # phases held (the training forward's LayerNorms are the served ones)
+    t0 = time.time()
+    checked = dict(
+        flash=set(flash_cls) | {k for k in seen["flash"] if k[-1] > 0},
+        flash_bwd=set(seen["flash_bwd"]), ln=set(ln_cls),
+        ln_bwd=set(seen["ln_bwd"]))
+    opts = phase_options(torch, np, timer, gen, dict(
+        flash=checked["flash"] | set(i_flash_cls)
+        | {k for k in i_seen["flash"] if k[-1] > 0},
+        flash_bwd=checked["flash_bwd"] | set(i_seen["flash_bwd"]),
+        ln=checked["ln"] | set(seen["ln"]) | set(i_ln_cls)
+        | set(i_seen["ln"]),
+        ln_bwd=checked["ln_bwd"] | set(i_seen["ln_bwd"])))
+    print(f"[time] options phase {time.time() - t0:.1f} s")
+
     # counseling and cmu-mosi (head_dim 30, 5 layers): one request and one
     # train step each; synthetic-tiny on the einsum attention likewise
     t0 = time.time()
@@ -2595,10 +2951,7 @@ def main() -> None:
     # the training loop: moviescope's full-width model through the CLI,
     # at the classes the moviescope phases held against the plain versions
     t0 = time.time()
-    looped = phase_loop(torch, np, card, dict(
-        flash=set(flash_cls) | {k for k in seen["flash"] if k[-1] > 0},
-        flash_bwd=set(seen["flash_bwd"]), ln=set(ln_cls),
-        ln_bwd=set(seen["ln_bwd"])))
+    looped = phase_loop(torch, np, card, checked)
     torch.cuda.empty_cache()
     print(f"[time] loop phase {time.time() - t0:.1f} s")
 
@@ -2696,6 +3049,35 @@ def main() -> None:
         summarise("layer_norm_bwd_mmimdb", ln_bwd_src, "bpx/ops/norm.py:69",
                   m_ln_bwd_rows, m_trained["totals"]["ln_bwd"], steps,
                   "micro_step"),
+        # phase 16: every head dim at 32 x 32 (the sweep, and any hybrid
+        # class it missed; launches those of the hybrid train steps at 32 x
+        # 32, moviescope's 6 at A = 1 and iemocap's one at A = 2), the
+        # grouped pairs' 2B classes (launches those of the grouped train
+        # steps at 2B) and the hybrid paths' new LayerNorm classes
+        # (launches those of the hybrid train steps at those classes)
+        summarise("flash_fwd_32x32", fwd_src, fwd_tpu,
+                  opts["s_rows"] + opts["h_flash"],
+                  short_launches(opts["h_train_seen"], "flash")
+                  + short_launches(opts["ih_train_seen"], "flash"),
+                  RADAM_STEPS + TRAIN_A, "micro_step"),
+        summarise("flash_bwd_32x32", bwd_src, bwd_tpu,
+                  opts["s_bwd_rows"] + opts["h_flash_bwd"],
+                  short_launches(opts["h_train_seen"], "flash_bwd")
+                  + short_launches(opts["ih_train_seen"], "flash_bwd"),
+                  RADAM_STEPS + TRAIN_A, "micro_step"),
+        summarise("flash_fwd_grouped", fwd_src, fwd_tpu, opts["g_flash"],
+                  pair_launches(opts["g_train_seen"], "flash"), steps,
+                  "micro_step"),
+        summarise("flash_bwd_grouped", bwd_src, bwd_tpu,
+                  opts["g_flash_bwd"],
+                  pair_launches(opts["g_train_seen"], "flash_bwd"), steps,
+                  "micro_step"),
+        summarise("layer_norm_fwd_hybrid", ln_src, "bpx/ops/norm.py:53",
+                  opts["h_ln"], hybrid_launches(opts, "ln"),
+                  RADAM_STEPS + TRAIN_A, "micro_step"),
+        summarise("layer_norm_bwd_hybrid", ln_bwd_src, "bpx/ops/norm.py:69",
+                  opts["h_ln_bwd"], hybrid_launches(opts, "ln_bwd"),
+                  RADAM_STEPS + TRAIN_A, "micro_step"),
     ]
     print(f"[summary] moviescope: served median request "
           f"{served['median_ms']:.2f} ms; train step median "
@@ -2743,6 +3125,24 @@ def main() -> None:
           f"served median eager {exported['eager_ms']:.2f} ms / exported "
           f"{exported['exported_ms']:.2f} ms; export CLI "
           f"{looped['export_cli']['cli_s']:.1f} s; card: {card}")
+    h, g, ih = (opts["h_trained"], opts["g_trained"], opts["ih_trained"])
+    print(f"[summary] options: moviescope hybrid served median "
+          f"{opts['h_served']['median_ms']:.2f} ms, RAdam step (A = 1) median "
+          f"{h['median_ms']:.1f} ms, losses "
+          + ", ".join(f"{x:.4f}" for x in h["losses"])
+          + f", peak {h['peak_gib']:.2f} GiB; moviescope group_encoders "
+          f"served median {opts['g_served']['median_ms']:.2f} ms, bf16-"
+          f"accumulation step (A = {TRAIN_A}) median {g['median_ms']:.1f} ms,"
+          f" peak {g['peak_gib']:.2f} GiB, bf16 vs fp32 accumulation: "
+          f"{opts['g_accum']['differ']} of {opts['g_accum']['of']} "
+          f"gradients differ, {opts['g_accum']['bound_share']:.3g} of the "
+          f"bound, relative L2 up to {opts['g_accum']['max_rel_l2']:.3g}; "
+          f"iemocap hybrid request {opts['ih_served']['median_ms']:.2f} ms, "
+          f"step {ih['median_ms']:.1f} ms; micro-step kernels vs plain: "
+          f"hybrid loss {opts['h_micro']['loss_err']:.3g} / gradients "
+          f"{opts['h_micro']['grad_err']:.3g}, grouped "
+          f"{opts['g_micro']['loss_err']:.3g} / "
+          f"{opts['g_micro']['grad_err']:.3g}; card: {card}")
     print("[summary] recompute: " + "; ".join(
         f"{p} peak at micro-batch {BATCH} {r['peak_gib'][False]:.2f} GiB "
         f"without / {r['peak_gib'][True]:.2f} GiB with, batch {r['batch']} "

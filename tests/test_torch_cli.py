@@ -4,12 +4,14 @@
 defaults, ``--preset``, the inverted ``store_false`` flags, the BERT
 variants, ``--task synthetic``); every bpx flag exists with its default.
 ``cli_main`` trains and tests a tiny synthetic run on the CPU (the split
-seed sweep) and runs the 10-fold cross-validation path; models and options
-not ported yet raise; ``python -m bpx_torch.cli.train --help`` exits 0.
+seed sweep), with ``--hybrid --optimizer radam --accum_dtype bfloat16``,
+and runs the 10-fold cross-validation path; models not ported yet raise;
+``python -m bpx_torch.cli.train --help`` exits 0.
 """
 
 import argparse
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -91,6 +93,31 @@ def test_cli_trains_and_tests_on_the_cpu(tmp_path):
     np.testing.assert_array_equal(np.load(run / "preds_raw.npy"), raw)
 
 
+def test_cli_trains_hybrid_radam_bf16_accumulation(tmp_path):
+    """``--hybrid --optimizer radam --accum_dtype bfloat16`` reach the
+    port: the early-fusion model trains with RAdam and bf16 accumulation
+    and tests a run."""
+    import torch
+    results = cli.cli_main(SMALL + [
+        "--hybrid", "--optimizer", "radam", "--accum_dtype", "bfloat16",
+        "--max_epochs", "1", "--from_seed", "2", "--to_seed", "2",
+        "--savedir", str(tmp_path), "--name", "opts"])
+    assert list(results) == [2] and "auc_pr_micro" in results[2]
+    run = tmp_path / "opts_Seed2_run"
+    with open(run / "config.json") as f:
+        saved = json.load(f)
+    assert saved["model"]["hybrid"]
+    assert saved["train"]["optimizer"] == "radam"
+    assert saved["train"]["accum_dtype"] == "bfloat16"
+    weights = torch.load(run / "latest" / "model.pt")["model"]
+    assert weights["gmu.x_gates.weight"].shape == (5 * 32, 5 * 32)
+    assert "trans_l_early.layers.2.fc1.weight" in weights
+    saved = torch.load(run / "latest" / "optimizer.pt")
+    assert all(g["step"] >= 1 for g in saved["param_groups"])
+    assert saved["state"] and all(s["exp_avg_sq"].abs().sum() > 0
+                                  for s in saved["state"].values())
+
+
 def test_cli_cross_validation_folds(tmp_path, monkeypatch):
     """``--train_type cross --just_test``: ten folds of a moviescope
     fixture, each tested under its own run name (with a tiny BERT in place
@@ -121,7 +148,7 @@ def test_cli_cross_validation_folds(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [(["--model", "gmu"], "not ported"),
-                                         (["--optimizer", "radam"],
+                                         (["--model", "bertclf"],
                                           "not ported")])
 def test_unported_models_and_options_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):

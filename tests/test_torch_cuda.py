@@ -2,7 +2,8 @@
 edge shapes the model does not reach (ragged tiles, an empty key range,
 single rows, widths without vector loads, fp32 input and output, a long
 multi-tile shape) and at the model's own attention classes, forward and
-backward, with and without dropout; the narrow heads (head_dim 25 and 30)
+backward, with and without dropout (and the hybrid early encoders' 32 x 32
+causal class at every head dim); the narrow heads (head_dim 25 and 30)
 at tile edges, on fused-projection views the wrapper must not copy, on a
 view that ends its allocation, their exact dropout masks and the two
 kernels of their backward; head_dim 128
@@ -286,6 +287,46 @@ def test_flash_kernels_at_the_model_classes(gen, B, H, Tq, Tk, D, masked,
     for g, w in zip(got, want):
         _close_grad(g, w)
     again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
+                                     rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (64, 12), (96, 8),
+                                 (128, 6)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernels_at_the_hybrid_class(gen, D, H, rate):
+    """The early encoders' self-attention (``hybrid``): batch 8, 32 x 32
+    causal, half of a 64-row query tile past Tq, q/k/v views of one fused
+    (B, T, 3, H, D) projection, which the wrapper must not copy: forward
+    and backward against the plain versions, bitwise-equal reruns."""
+    from bpx_torch.ops.flash_attention import _kernel_ready
+    B, T = 8, 32
+    buf = torch.randn(B, T, 3, H, D, generator=gen, device="cuda")
+    buf[:, :, 0] *= D ** -0.5
+    buf = buf.to(torch.bfloat16)
+    q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+    for t in (q, k, v):
+        assert _kernel_ready("t", t, t.device) is t
+    seed = 0xB1B1 if rate else None
+    out, lse = flash_attention(q, k, v, True, None, rate, seed,
+                               return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, True, None, rate,
+                                             seed)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    again = flash_attention(q, k, v, True, None, rate, seed)
+    assert torch.equal(out, again)
+    dout = torch.randn(B, T, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    got = flash_attention_backward(q, k, v, out, lse, dout, True, None, rate,
+                                   seed)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), True, None,
+        rate, seed)
+    for g, w in zip(got, want):
+        _close_grad(g, w)
+    again = flash_attention_backward(q, k, v, out, lse, dout, True, None,
                                      rate, seed)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 

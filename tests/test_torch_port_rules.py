@@ -152,16 +152,21 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_models_and_options_raise():
+    """A model not ported raises; ``hybrid`` and ``group_encoders`` are
+    ported and refuse only what the JAX package refuses."""
     from bpx_torch.models import get_model
     m = tconfig.get_preset("synthetic-tiny").model
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(m.replace(model="mmtrvpa"), device="cpu")
     vat = tconfig.get_preset("iemocap").model
     for cfg in (m, vat):
-        with pytest.raises(NotImplementedError, match="group_encoders"):
-            get_model(cfg.replace(group_encoders=True), device="meta")
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            get_model(cfg.replace(hybrid=True), device="meta")
+        get_model(cfg.replace(group_encoders=True, hybrid=True),
+                  device="meta")
+        with pytest.raises(ValueError, match="attn_dropout_a"):
+            get_model(cfg.replace(group_encoders=True, attn_dropout_a=0.1,
+                                  attn_dropout_v=0.0), device="meta")
+    with pytest.raises(ValueError, match="hybrid"):
+        get_model(vat.replace(hybrid=True, fusion="mag"), device="meta")
 
 
 def test_cpu_tensors_launch_no_kernel():

@@ -116,3 +116,40 @@ def test_resumed_dropout_draws_the_uninterrupted_seeds(tmp_path, monkeypatch):
     loop.train(exp2, device="cpu")
     assert draws == uninterrupted[2 * step:]
     assert len(set(uninterrupted)) == len(uninterrupted)
+
+
+def test_radam_resume_restores_its_moments_bitwise(tmp_path, monkeypatch):
+    """``--optimizer radam``: a 2-epoch run resumed to 3 restores RAdam's
+    step count and moments bit for bit from ``optimizer.pt``, and its
+    resumed steps count on from there."""
+    exp = config_from_dict(dataclasses.asdict(
+        tiny_experiment(tmp_path, "run", max_epochs=2)))
+    exp = exp.replace(train=dataclasses.replace(exp.train,
+                                                optimizer="radam"))
+    loop.train(exp, device="cpu")
+    ckpt = CheckpointManager(str(tmp_path / "run"))
+    saved = ckpt.load("latest")
+    restore = CheckpointManager.restore
+    got = {}
+
+    def spy(self, model, optimizer=None, tag="latest"):
+        out = restore(self, model, optimizer, tag)
+        got["kind"] = type(optimizer).__name__
+        saved = optimizer.state_dict()
+        got["state"] = {k: {n: t.clone() for n, t in s.items()}
+                        for k, s in saved["state"].items()}
+        got["steps"] = [g["step"] for g in saved["param_groups"]]
+        return out
+
+    monkeypatch.setattr(CheckpointManager, "restore", spy)
+    loop.train(with_epochs(exp, 3), device="cpu")
+    assert got["kind"] == "RAdam"
+    state = saved["optimizer"]["state"]
+    steps = [g["step"] for g in saved["optimizer"]["param_groups"]]
+    assert got["steps"] == steps and steps[0] > 0
+    assert got["state"].keys() == state.keys() and state
+    for idx, s in state.items():
+        for name in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(got["state"][idx][name], s[name])
+    final = ckpt.load("latest")["optimizer"]["param_groups"]
+    assert final[0]["step"] > steps[0]

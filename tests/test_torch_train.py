@@ -98,7 +98,7 @@ def test_schedulers_match_bpx():
         assert ts.state_dict() == js.state_dict()
 
 
-@pytest.mark.parametrize("name", ["adam", "adamw"])
+@pytest.mark.parametrize("name", ["adam", "adamw", "radam", "plain_radam"])
 def test_one_optimizer_step_matches_optax(name):
     rng = np.random.RandomState(1)
     p0 = rng.randn(7, 3).astype(np.float32)
@@ -118,8 +118,6 @@ def test_one_optimizer_step_matches_optax(name):
     assert optim.get_current_lr(opt) == LR
     optim.set_lr(opt, 5e-4)
     assert optim.get_current_lr(opt) == 5e-4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.make_optimizer([p], LR, "radam")
 
 
 # ---------------------------------------------------------------------------
