@@ -16,7 +16,7 @@
 //   dV  = bf16(pd)^T . dO,  ds = bf16(p * (dp - delta[row]))
 //   dK  = ds^T . q,         dQ = ds . k
 // The keep bit is the forward's (flash_common.cuh), regenerated from the
-// seed; the band is dropped by the caller when it is vacuous, as in the
+// block's seed; the band is dropped by the caller when it is vacuous, as in the
 // forward.
 //
 // Design.  The TPU kernel holds the whole Tq x Tk tile of one (batch, head)
@@ -163,6 +163,7 @@ struct BwdParams {
   int masked;
   int offset;
   Dropout drop;
+  SeedGroups seed_groups;   // read by the kernels of several groups only
 };
 
 // dK/dV stage: Q tile, dO tile, lse[64] and delta[64] (1 KB keeps the next
@@ -251,7 +252,7 @@ flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
 }
 
 // One (batch*head, 64-key tile): dK and dV.
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
@@ -268,6 +269,8 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int k0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -375,7 +378,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
       float dpr = dpt[i2];
       float pdr = pr;
       if (p.drop.on) {
-        const bool kept = p.drop.keep(bh, row, col);
+        const bool kept = p.drop.keep<Groups>(dblk, row, col);
         pdr = kept ? pr * p.drop.inv_keep : 0.f;
         dpr = kept ? dpr * p.drop.inv_keep : 0.f;
       }
@@ -408,7 +411,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
 }
 
 // One (batch*head, 64-query tile): dQ.
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
@@ -423,6 +426,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -517,7 +522,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
       const float pr = s[i];
       float dpr = dp[i];
       if (p.drop.on) {
-        dpr = p.drop.keep(bh, row, col) ? dpr * p.drop.inv_keep : 0.f;
+        dpr = p.drop.keep<Groups>(dblk, row, col) ? dpr * p.drop.inv_keep : 0.f;
       }
       s[i] = pr * (dpr - (hi ? dl1 : dl0));   // dS
     }
@@ -568,7 +573,7 @@ __host__ __device__ constexpr int narrow_dq_smem_bytes() {
 // tiles along y, so the blocks of the first key tiles (the most query
 // tiles of a causal band) start first.  Launched dependent on the dQ
 // kernel: K and V load before it ends, delta after.
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads, 3)
 flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
   constexpr int kStages = narrow_stages<D>();
@@ -583,6 +588,8 @@ flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int k0 = blockIdx.y * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -707,7 +714,8 @@ flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
       for (int i2 = 0; i2 < 32; ++i2) {
         const int row = q0 + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
         const int col = (i2 & 2) ? key0 + 8 : key0;
-        kept |= static_cast<uint32_t>(p.drop.keep(bh, row, col)) << i2;
+        kept |= static_cast<uint32_t>(p.drop.keep<Groups>(dblk, row, col))
+                << i2;
       }
     }
     auto dropped = [&](int i2) {
@@ -758,7 +766,7 @@ flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
 // the workspace, and dQ.  Batch*head along x; query tiles along y, last
 // first, so the blocks with the most key tiles of a causal band start
 // first.
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads, 4)
 flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
                            long long o_sb, long long o_sh, long long o_st,
@@ -779,6 +787,8 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -924,7 +934,7 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
       for (int i = 0; i < 32; ++i) {
         const int row = (i & 2) ? row0 + 8 : row0;
         const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
-        kept |= static_cast<uint32_t>(p.drop.keep(bh, row, col)) << i;
+        kept |= static_cast<uint32_t>(p.drop.keep<Groups>(dblk, row, col)) << i;
       }
     }
 #pragma unroll
@@ -1003,7 +1013,7 @@ __device__ __forceinline__ void group_sync(int id) {
 // once, at the end.  Batch*head along x, key tiles along y (key tile 0, the
 // most query tiles of a causal band, first).  Launched dependent on the dQ
 // kernel: K and V load before it ends, delta after.
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kWideThreads, 1)
 flash_bwd_wide_dkdv_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
@@ -1023,6 +1033,8 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int k0 = blockIdx.y * kRows;
   const int wg = threadIdx.x / kThreads;
   const int tid = threadIdx.x % kThreads;
@@ -1149,7 +1161,7 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
       float dpr = dpt[i2];
       float pdr = pr;
       if (p.drop.on) {
-        const bool kept = p.drop.keep(bh, row, col);
+        const bool kept = p.drop.keep<Groups>(dblk, row, col);
         pdr = kept ? pr * p.drop.inv_keep : 0.f;
         dpr = kept ? dpr * p.drop.inv_keep : 0.f;
       }
@@ -1212,7 +1224,7 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
 // along y, last first, so the blocks with the most key tiles of a causal
 // band start first.  Two blocks an SM (the header); stating that minimum
 // measured 0.003 ms faster at rate 0.1 than leaving it out (PERF.md).
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
                          long long o_sb, long long o_sh, long long o_st,
@@ -1235,6 +1247,8 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -1361,7 +1375,7 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
       const float pr = s[i];
       float dpr = dp[i];
       if (p.drop.on) {
-        dpr = p.drop.keep(bh, row, col) ? dpr * p.drop.inv_keep : 0.f;
+        dpr = p.drop.keep<Groups>(dblk, row, col) ? dpr * p.drop.inv_keep : 0.f;
       }
       s[i] = pr * (dpr - (hi ? dl1 : dl0));   // dS
     }
@@ -1394,26 +1408,27 @@ cudaError_t launch_delta(const __nv_bfloat16* o, const __nv_bfloat16* dout,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool Groups>
 cudaError_t launch(const BwdParams& p, const __nv_bfloat16* o, long long o_sb,
                    long long o_sh, long long o_st, cudaStream_t s) {
   static bool smem_dkdv = false, smem_dq = false;
   constexpr int dkdv_bytes = dkdv_smem_bytes<D>();
   constexpr int dq_bytes = dq_smem_bytes<D>();
   cudaError_t err =
-      allow_smem(flash_bwd_dkdv_kernel<D>, dkdv_bytes, smem_dkdv);
+      allow_smem(flash_bwd_dkdv_kernel<D, Groups>, dkdv_bytes, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dq_kernel<D>, dq_bytes, smem_dq);
+  err = allow_smem(flash_bwd_dq_kernel<D, Groups>, dq_bytes, smem_dq);
   if (err != cudaSuccess) return err;
   err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
                         p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H);
-  flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, dkdv_bytes, s>>>(p);
+  flash_bwd_dkdv_kernel<D, Groups>
+      <<<grid_kv, kThreads, dkdv_bytes, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.Tq + kRows - 1) / kRows, p.B * p.H);
-  flash_bwd_dq_kernel<D><<<grid_q, kThreads, dq_bytes, s>>>(p);
+  flash_bwd_dq_kernel<D, Groups><<<grid_q, kThreads, dq_bytes, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1452,27 +1467,28 @@ cudaError_t launch_dq_then_dkdv(DqKernel dq, int dq_bytes, bool& dq_set,
 }
 
 // The narrow backward (D = 25, 30).
-template <int D>
+template <int D, bool Groups>
 cudaError_t launch_narrow(const BwdParams& p, const __nv_bfloat16* o,
                           long long o_sb, long long o_sh, long long o_st,
                           cudaStream_t s) {
   static bool smem_dkdv = false, smem_dq = false;
   return launch_dq_then_dkdv(
-      flash_bwd_narrow_dq_kernel<D>, narrow_dq_smem_bytes<D>(), smem_dq,
-      flash_bwd_narrow_dkdv_kernel<D>, narrow_dkdv_smem_bytes<D>(), kThreads,
-      smem_dkdv, p, o, o_sb, o_sh, o_st, s);
+      flash_bwd_narrow_dq_kernel<D, Groups>, narrow_dq_smem_bytes<D>(),
+      smem_dq, flash_bwd_narrow_dkdv_kernel<D, Groups>,
+      narrow_dkdv_smem_bytes<D>(), kThreads, smem_dkdv, p, o, o_sb, o_sh,
+      o_st, s);
 }
 
 // The backward at D = 128.
-template <int D>
+template <int D, bool Groups>
 cudaError_t launch_wide(const BwdParams& p, const __nv_bfloat16* o,
                         long long o_sb, long long o_sh, long long o_st,
                         cudaStream_t s) {
   static bool smem_dkdv = false, smem_dq = false;
   return launch_dq_then_dkdv(
-      flash_bwd_wide_dq_kernel<D>, dq_smem_bytes<D>(), smem_dq,
-      flash_bwd_wide_dkdv_kernel<D>, wide_dkdv_smem_bytes<D>(), kWideThreads,
-      smem_dkdv, p, o, o_sb, o_sh, o_st, s);
+      flash_bwd_wide_dq_kernel<D, Groups>, dq_smem_bytes<D>(), smem_dq,
+      flash_bwd_wide_dkdv_kernel<D, Groups>, wide_dkdv_smem_bytes<D>(),
+      kWideThreads, smem_dkdv, p, o, o_sb, o_sh, o_st, s);
 }
 
 }  // namespace
@@ -1483,8 +1499,9 @@ extern "C" {
 // (B*H, Tq) fp32; delta an fp32 (B*H, Tq) workspace the call fills; kv_lens
 // (B,) int32 or null.  Launches the delta kernel, the dK/dV kernel, then the
 // dQ kernel, on the stream; at head_dim 25, 30 and 128 the dQ kernel (with
-// delta), then the dK/dV kernel.  Returns a cudaError_t (0 on success);
-// cudaErrorInvalidValue for a head_dim without an instantiation.
+// delta), then the dK/dV kernel.  Dropout's seeds as bpx_flash_fwd's.
+// Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
+// without an instantiation, or for seed groups that do not fit.
 int bpx_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const void* o, const void* lse,
                   void* delta, const void* kv_lens, void* dq, void* dk,
@@ -1497,7 +1514,8 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
                   long long dq_sb, long long dq_sh, long long dq_st,
                   long long dk_sb, long long dk_sh, long long dk_st,
                   long long dv_sb, long long dv_sh, long long dv_st,
-                  int masked, int offset, int dropout, unsigned int seed,
+                  int masked, int offset, int dropout,
+                  const unsigned int* seeds, int groups,
                   unsigned int threshold, float inv_keep, int tk_p,
                   void* stream) {
   BwdParams p;
@@ -1524,21 +1542,28 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_st = dv_st;
   p.masked = masked;
   p.offset = offset;
-  p.drop.on = dropout;
-  p.drop.seed = seed;
-  p.drop.threshold = threshold;
-  p.drop.inv_keep = inv_keep;
-  p.drop.tk_p = static_cast<uint32_t>(tk_p);
+  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H,
+                   threshold, inv_keep, tk_p))
+    return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
+    if (p.seed_groups.groups > 1) {
+      if constexpr (padded_dim<kD>() == 32) {
+        return launch_narrow<kD, true>(p, ob, o_sb, o_sh, o_st, s);
+      } else if constexpr (padded_dim<kD>() == 128) {
+        return launch_wide<kD, true>(p, ob, o_sb, o_sh, o_st, s);
+      } else {
+        return launch<kD, true>(p, ob, o_sb, o_sh, o_st, s);
+      }
+    }
     if constexpr (padded_dim<kD>() == 32) {
-      return launch_narrow<kD>(p, ob, o_sb, o_sh, o_st, s);
+      return launch_narrow<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else if constexpr (padded_dim<kD>() == 128) {
-      return launch_wide<kD>(p, ob, o_sb, o_sh, o_st, s);
+      return launch_wide<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else {
-      return launch<kD>(p, ob, o_sb, o_sh, o_st, s);
+      return launch<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     }
   }));
 }

@@ -530,13 +530,21 @@ __device__ __forceinline__ void store_row(
   }
 }
 
+// What a block hashes with: its index in its seed group and its seed.
+struct BlockDropout {
+  uint32_t bh;
+  uint32_t seed;
+};
+
 // Dropout parameters of one call.  keep() is the TPU kernels' _keep_mask
 // (bpx/ops/pallas_attention.py:102): the global element index
 // bh * 0x85EBCA6B + row * tk_p + col in uint32 with wrap, then a 2-round
-// xorshift-multiply mixer with the seed, kept when >= threshold.
+// xorshift-multiply mixer with the seed, kept when >= threshold.  With
+// several seed groups (SeedGroups) a block hashes with its group's seed
+// and its index in its group instead.
 struct Dropout {
   int on;
-  uint32_t seed;
+  uint32_t seed;        // with several seed groups, group 0's
   uint32_t threshold;   // min(int(rate * 2**32), 2**32 - 1)
   float inv_keep;       // float32(1 / (1 - rate))
   uint32_t tk_p;        // the key length the TPU kernels index with
@@ -548,6 +556,33 @@ struct Dropout {
     return keep_mixed(idx * 0x9E3779B9u + seed);
   }
 
+  // keep bit of (row, col) of the block whose hash values are `blk`
+  // (block_dropout).  A kernel built for one seed group (Groups false: the
+  // single-seed path) hashes as keep() does, with the call's seed.
+  template <bool Groups>
+  __device__ __forceinline__ bool keep(const BlockDropout& blk, int row,
+                                       int col) const {
+    if constexpr (Groups) {
+      const uint32_t idx = blk.bh * 0x85EBCA6Bu +
+                           static_cast<uint32_t>(row) * tk_p +
+                           static_cast<uint32_t>(col);
+      return keep_mixed(idx * 0x9E3779B9u + blk.seed);
+    } else {
+      return keep(static_cast<int>(blk.bh), row, col);
+    }
+  }
+
+  // the block's seed: with one group the call's, read where it is used
+  template <bool Groups>
+  __device__ __forceinline__ uint32_t block_seed(
+      const BlockDropout& blk) const {
+    if constexpr (Groups) {
+      return blk.seed;
+    } else {
+      return seed;
+    }
+  }
+
   // keep() from x = idx * 0x9E3779B9 + seed: a caller that steps idx by a
   // constant steps x by a constant too
   __device__ __forceinline__ bool keep_mixed(uint32_t x) const {
@@ -557,6 +592,85 @@ struct Dropout {
     return x >= threshold;
   }
 };
+
+// Seeds one launch takes (MAX_SEED_GROUPS in ops/flash_attention.py).
+constexpr int kMaxSeedGroups = 16;
+
+// The seed groups of one call.  The B*H blocks form groups of group_bh
+// consecutive blocks, one per seed: block bh hashes with seeds[bh /
+// group_bh] and its index bh % group_bh in its group (the multi-seed step
+// folds its seeds into the batch; under vmap the TPU kernels would run one
+// kernel body per seed with a local bh).  The launch picks a kernel built
+// for several groups only when there are several, and only that kernel
+// reads these fields: they follow everything else in the kernels'
+// parameters, so a one-group kernel's parameters are laid out as before.
+struct SeedGroups {
+  int groups;
+  int group_bh;         // B*H / groups
+  uint32_t seeds[kMaxSeedGroups];
+
+  // block bh's seed: selected with constant indices, so the seeds stay in
+  // the kernel's parameter space.  BPX_PLANT_SEED_FAULT builds the two
+  // faults chip_smoke.py's multi-seed phase must catch: 1, every group
+  // hashes with group 0's seed; 2, bh is not reduced to its group.
+  __device__ __forceinline__ uint32_t seed_of(int bh) const {
+#if BPX_PLANT_SEED_FAULT == 1
+    return seeds[0];
+#endif
+    const int group = bh / group_bh;
+    uint32_t seed = seeds[0];
+#pragma unroll
+    for (int i = 1; i < kMaxSeedGroups; ++i) {
+      if (i == group) seed = seeds[i];
+    }
+    return seed;
+  }
+
+  // block bh's index in its seed group
+  __device__ __forceinline__ int group_index(int bh) const {
+#if BPX_PLANT_SEED_FAULT == 2
+    return bh;
+#endif
+    return bh % group_bh;
+  }
+};
+
+// Block bh's hash values, worked out once beside its block indices: with
+// several groups its index in its group and its group's seed; with one,
+// bh itself (Dropout::keep<false> reads the call's seed).
+template <bool Groups>
+__device__ __forceinline__ BlockDropout block_dropout(const SeedGroups& g,
+                                                      int bh) {
+  if constexpr (Groups) {
+    return {static_cast<uint32_t>(g.group_index(bh)), g.seed_of(bh)};
+  } else {
+    return {static_cast<uint32_t>(bh), 0u};
+  }
+}
+
+// Fill in one call's dropout parameters on the host; false when the seed
+// groups do not fit (more than kMaxSeedGroups, or not dividing the B*H
+// blocks).  `seed_list` holds n_groups seeds (null with dropout off).
+inline bool set_dropout(Dropout& d, SeedGroups& g, int dropout,
+                        const unsigned int* seed_list, int n_groups,
+                        int bh_blocks, unsigned int thresh, float inv,
+                        int tk_pad) {
+  d.on = dropout;
+  d.seed = dropout ? seed_list[0] : 0u;
+  d.threshold = thresh;
+  d.inv_keep = inv;
+  d.tk_p = static_cast<uint32_t>(tk_pad);
+  for (int i = 0; i < kMaxSeedGroups; ++i) g.seeds[i] = 0;
+  g.groups = 1;
+  g.group_bh = bh_blocks > 0 ? bh_blocks : 1;
+  if (!dropout) return true;
+  if (n_groups < 1 || n_groups > kMaxSeedGroups || bh_blocks % n_groups)
+    return false;
+  for (int i = 0; i < n_groups; ++i) g.seeds[i] = seed_list[i];
+  g.groups = n_groups;
+  g.group_bh = bh_blocks / n_groups > 0 ? bh_blocks / n_groups : 1;
+  return true;
+}
 
 // Set a kernel's dynamic shared-memory limit once per process.
 template <typename Kernel>

@@ -130,6 +130,7 @@ struct FlashParams {
   int masked;
   int offset;
   Dropout drop;
+  SeedGroups seed_groups;   // read by the kernels of several groups only
 };
 
 // Q, then kStages x (K, V) (at D = 128 a ring of K tiles, then one of V
@@ -139,7 +140,7 @@ __host__ __device__ constexpr int smem_bytes() {
   return (1 + 2 * kStages) * tile_bytes<D>() + 1024;
 }
 
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams p) {
   constexpr int DP = padded_dim<D>();
@@ -152,6 +153,8 @@ flash_fwd_kernel(const FlashParams p) {
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -279,7 +282,8 @@ flash_fwd_kernel(const FlashParams p) {
       for (int i = 0; i < 32; ++i) {
         const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
         const int row = (i & 2) ? row1 : row0;
-        s[i] = p.drop.keep(bh, row, col) ? s[i] * p.drop.inv_keep : 0.f;
+        s[i] = p.drop.keep<Groups>(dblk, row, col) ? s[i] * p.drop.inv_keep
+                                                        : 0.f;
       }
     }
 
@@ -343,7 +347,7 @@ __host__ __device__ constexpr int narrow_smem_bytes() {
 // One (batch*head, 64-query tile) at DP = 32: batch*head along x, the
 // query tiles along y, the last (the most key tiles of a causal band)
 // first.
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads, narrow_min_blocks<D>())
 flash_fwd_narrow_kernel(const FlashParams p) {
   constexpr int kRing = narrow_stages<D>();
@@ -356,6 +360,8 @@ flash_fwd_narrow_kernel(const FlashParams p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;     // row within the warp's 16 (and g + 8)
@@ -498,7 +504,8 @@ flash_fwd_narrow_kernel(const FlashParams p) {
       for (int i = 0; i < 32; ++i) {
         const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
         const int row = (i & 2) ? row1 : row0;
-        s[i] = p.drop.keep(bh, row, col) ? s[i] * p.drop.inv_keep : 0.f;
+        s[i] = p.drop.keep<Groups>(dblk, row, col) ? s[i] * p.drop.inv_keep
+                                                        : 0.f;
       }
     }
 
@@ -593,7 +600,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
 // loaded two steps ahead: at step u, once every thread is past step u - 1,
 // the stages of K_{u-1} (read by S_{u-1}) and V_{u-2} (read by P_{u-2}
 // V_{u-2}) are free.
-template <int D>
+template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const FlashParams p) {
   constexpr int DP = padded_dim<D>();
@@ -610,6 +617,8 @@ flash_fwd_wide_kernel(const FlashParams p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int b = bh / p.H;
   const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;     // row within the warp's 16 (and g + 8)
@@ -687,9 +696,9 @@ flash_fwd_wide_kernel(const FlashParams p) {
   // adds a constant
   constexpr uint32_t kMix = 0x9E3779B9u;
   const uint32_t x00 =
-      (static_cast<uint32_t>(bh) * 0x85EBCA6Bu +
+      (dblk.bh * 0x85EBCA6Bu +
        static_cast<uint32_t>(row0) * p.drop.tk_p + 2 * t4) * kMix +
-      p.drop.seed;
+      p.drop.block_seed<Groups>(dblk);
   const uint32_t x10 = x00 + 8 * p.drop.tk_p * kMix;   // row1
 
   // P_u from S_u: the masks, the running max and the rescale factors, exp,
@@ -816,28 +825,31 @@ flash_fwd_wide_kernel(const FlashParams p) {
   }
 }
 
-template <int D>
+template <int D, bool Groups>
 cudaError_t launch(const FlashParams& p, cudaStream_t s) {
   static bool smem_set = false;
   const int nq = (p.Tq + kRows - 1) / kRows;
   if constexpr (padded_dim<D>() == 128) {
     constexpr int bytes = smem_bytes<D>();
-    cudaError_t err = allow_smem(flash_fwd_wide_kernel<D>, bytes, smem_set);
+    cudaError_t err =
+        allow_smem(flash_fwd_wide_kernel<D, Groups>, bytes, smem_set);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.B * p.H, nq);
-    flash_fwd_wide_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+    flash_fwd_wide_kernel<D, Groups><<<grid, kThreads, bytes, s>>>(p);
   } else if constexpr (padded_dim<D>() == 32) {
     constexpr int bytes = narrow_smem_bytes<D>();
-    cudaError_t err = allow_smem(flash_fwd_narrow_kernel<D>, bytes, smem_set);
+    cudaError_t err =
+        allow_smem(flash_fwd_narrow_kernel<D, Groups>, bytes, smem_set);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.B * p.H, nq);
-    flash_fwd_narrow_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+    flash_fwd_narrow_kernel<D, Groups><<<grid, kThreads, bytes, s>>>(p);
   } else {
     constexpr int bytes = smem_bytes<D>();
-    cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes, smem_set);
+    cudaError_t err =
+        allow_smem(flash_fwd_kernel<D, Groups>, bytes, smem_set);
     if (err != cudaSuccess) return err;
     const dim3 grid(nq, p.B * p.H);
-    flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(p);
+    flash_fwd_kernel<D, Groups><<<grid, kThreads, bytes, s>>>(p);
   }
   return cudaGetLastError();
 }
@@ -847,17 +859,19 @@ cudaError_t launch(const FlashParams& p, cudaStream_t s) {
 extern "C" {
 
 // Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
-// without an instantiation.  dropout != 0 applies the keep mask of
-// (seed, threshold, tk_p) and scales kept probabilities by inv_keep.
+// without an instantiation, or for seed groups that do not fit.  dropout
+// != 0 applies the keep mask of (seeds, threshold, tk_p) and scales kept
+// probabilities by inv_keep; seeds holds `groups` seeds, one per group of
+// B*H / groups consecutive (batch, head) blocks (set_dropout).
 int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, const void* kv_lens, int B, int H, int Tq, int Tk,
                   int D, long long q_sb, long long q_sh, long long q_st,
                   long long k_sb, long long k_sh, long long k_st,
                   long long v_sb, long long v_sh, long long v_st,
                   long long o_sb, long long o_sh, long long o_st, int masked,
-                  int offset, int dropout, unsigned int seed,
-                  unsigned int threshold, float inv_keep, int tk_p,
-                  void* stream) {
+                  int offset, int dropout, const unsigned int* seeds,
+                  int groups, unsigned int threshold, float inv_keep,
+                  int tk_p, void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -875,14 +889,16 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
   p.masked = masked;
   p.offset = offset;
-  p.drop.on = dropout;
-  p.drop.seed = seed;
-  p.drop.threshold = threshold;
-  p.drop.inv_keep = inv_keep;
-  p.drop.tk_p = static_cast<uint32_t>(tk_p);
+  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H,
+                   threshold, inv_keep, tk_p))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bpx_flash::with_head_dim(
-      D, [&](auto d) { return launch<decltype(d)::value>(p, s); }));
+      D, [&](auto d) {
+        constexpr int kD = decltype(d)::value;
+        return p.seed_groups.groups > 1 ? launch<kD, true>(p, s)
+                                 : launch<kD, false>(p, s);
+      }));
 }
 
 // Blocks of the forward kernel at head_dim D that one SM holds, into

@@ -25,6 +25,8 @@ no ``transfm_*``; a 3-ary ``gmu``, or ``mag`` with its Dense layers and
 Dense kernel (T, reduced_dim) becomes ``weight (reduced_dim, T)``,
 ``gmu_early``) and with ``group_encoders``.  A leaf with no rule, and any
 key that the model has and the tree lacks or the other way round, raises.
+:func:`stacked_params_from_flax` carries the multi-seed tree (a leading
+seed axis on every leaf) into the multi-seed state's stacked parameters.
 """
 
 from __future__ import annotations
@@ -136,3 +138,14 @@ def params_from_flax(tree: Mapping, cfg: ModelConfig
             f"{k} {tuple(sd[k].shape)} vs {tuple(want[k].shape)}"
             for k in bad[:8]))
     return sd
+
+
+def stacked_params_from_flax(tree: Mapping, cfg: ModelConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """The multi-seed state's stacked parameters (``train/multiseed.py``)
+    from the JAX package's multi-seed tree, which has a leading seed axis
+    on every leaf: each seed's tree through :func:`params_from_flax`, so a
+    leftover or unmatched key still raises, then stacked."""
+    per_seed = [params_from_flax(_index(tree, s), cfg)
+                for s in range(_stack_depth(tree))]
+    return {k: torch.stack([sd[k] for sd in per_seed]) for k in per_seed[0]}

@@ -37,7 +37,8 @@ turns on the configured dropouts: BERT's, ``embed_dropout`` on the text
 stream and inside every encoder, the per-encoder attention dropout rates,
 the encoders' ReLU and residual dropout, MAG's, and ``out_dropout`` in the
 head.  The forward then takes ``dropout_seed``, a uint32 from which every
-dropout site draws its own seed in call order (:class:`SeedStream`).
+dropout site draws its own seed in call order (:class:`SeedStream`), or
+the multi-seed step's :class:`SeedStreams`, one seed per vmapped seed.
 
 ``remat`` recomputes every encoder layer in the backward instead of keeping
 its activations, with ``remat_policy`` (``"save_attn"`` keeps the flash
@@ -59,7 +60,7 @@ from torch import nn
 from bpx_torch.config import ModelConfig
 from bpx_torch.ops.audio import make_audio_encoder
 from bpx_torch.ops.bert import BertEncoder
-from bpx_torch.ops.dropout import SeedStream, maybe_dropout
+from bpx_torch.ops.dropout import maybe_dropout, seed_stream
 from bpx_torch.ops.encoder import (GroupedTransformerEncoder,
                                    TransformerEncoder)
 from bpx_torch.ops.gmu import GatedBimodalFusionLayer, GatedNModalLayer
@@ -374,7 +375,7 @@ class BPMulTVAPT(_BPMulTBase):
                 dropout_seed: Optional[int] = None):
         """Logits (and the final GMU's gates); ``dropout_seed`` (uint32) is
         needed in training mode."""
-        seeds = None if dropout_seed is None else SeedStream(dropout_seed)
+        seeds = seed_stream(dropout_seed)
         proj_l, proj_v, proj_a = self._encode_streams(txt, mask, segment,
                                                       video, audio, seeds)
         early = (self._hybrid_summary(proj_l, proj_v, proj_a, seeds)
@@ -438,7 +439,7 @@ class BPMulTVAT(_BPMulTBase):
                 dropout_seed: Optional[int] = None):
         """Logits (and the final fusion's gates); ``dropout_seed`` (uint32)
         is needed in training mode."""
-        seeds = None if dropout_seed is None else SeedStream(dropout_seed)
+        seeds = seed_stream(dropout_seed)
         proj_l, proj_v, proj_a = self._encode_streams(txt, mask, segment,
                                                       video, audio, seeds)
         early = (self._hybrid_summary(proj_l, proj_v, proj_a, seeds)

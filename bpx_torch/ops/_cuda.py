@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -45,19 +45,22 @@ def sources() -> List[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
+def _digest(flags: Sequence[str] = ()) -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS + list(flags)).encode())
     for path in sorted(SRC_DIR.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+def build(flags: Sequence[str] = ()) -> Path:
     """Compile the sources (in parallel) and link the library; returns its
-    path.  Raises RuntimeError with nvcc's output if any step fails."""
+    path.  ``flags``, extra nvcc flags (a ``-D`` macro), build a variant
+    library of its own.  Raises RuntimeError with nvcc's output if any
+    step fails."""
     global build_log
-    out = BUILD_DIR / f"libbpx_kernels_{_digest()}.so"
+    digest = _digest(flags)
+    out = BUILD_DIR / f"libbpx_kernels_{digest}.so"
     log = out.with_suffix(".log")
     if out.exists():
         build_log = log.read_text() if log.exists() else ""
@@ -66,8 +69,9 @@ def build() -> Path:
     nvcc = _nvcc()
     procs = []
     for src in sources():
-        obj = BUILD_DIR / f"{src.stem}_{os.getpid()}.o"
-        cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src), "-o", str(obj)]
+        obj = BUILD_DIR / f"{src.stem}_{digest}_{os.getpid()}.o"
+        cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, *flags, "-c", str(src), "-o",
+               str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
@@ -96,7 +100,8 @@ def build() -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     u = ctypes.c_uint
-    dropout = [i, u, u, f, i]   # on, seed, threshold, inv_keep, tk_p
+    # on, seeds (one per group), groups, threshold, inv_keep, tk_p
+    dropout = [i, ctypes.POINTER(u), i, u, f, i]
     lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12 + [i, i]
                                   + dropout + [p])
     lib.bpx_flash_fwd.restype = i
@@ -120,13 +125,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_error_string.restype = ctypes.c_char_p
 
 
+def load(flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The library built with the extra nvcc ``flags``, loaded (built
+    first if need be)."""
+    lib = ctypes.CDLL(str(build(flags)))
+    _declare(lib)
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        _declare(lib)
-        _lib = lib
+        _lib = load()
     return _lib
 
 

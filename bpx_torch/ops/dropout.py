@@ -17,11 +17,22 @@ base seed per micro-batch from an explicit ``torch.Generator`` and hands the
 model a :class:`SeedStream`, which gives every dropout site of the forward,
 in call order, a distinct uint32 derived from (base, site counter) in Python:
 no device sync per site, and the same generator state gives the same masks.
+
+Seeds per seed (the vmapped multi-seed step, ``train/multiseed.py``): under
+``torch.func.vmap`` the forward's Python runs once for all S seeds, so one
+stream would give every seed the same masks.  :class:`SeedStreams` holds S
+streams and gives each site the S seeds as a host list, seed s's entry
+exactly what ``SeedStream(base_s)`` gives; :func:`hash_dropout` takes such a
+list under vmap and masks slice s of the seed axis with seed s.  The
+stream also carries the seed axis itself (``axis``, an empty tensor of
+S rows mapped over by the vmap), so that a site whose input does not
+depend on the per-seed weights, which vmap would hand over unbatched,
+still reaches the per-seed rule.  The seeds never reach the device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -66,23 +77,92 @@ def _scale(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 class _HashDropout(torch.autograd.Function):
+    """Inverted hash dropout with one uint32 seed (``seeds`` a 1-tuple) or,
+    under vmap, one seed per slice of the seed axis.  The backward is the
+    same function of the output gradient (the mask is regenerated, not
+    saved): with a seed axis it goes through this function again, so that
+    it too takes the per-seed rule under ``vmap(grad(...))``."""
+
     @staticmethod
-    def forward(ctx, x, rate, seed):
-        ctx.rate, ctx.seed = rate, seed
-        return _scale(x, hash_keep(seed, x.shape, rate, x.device), rate)
+    def forward(x, axis, rate, seeds):
+        if len(seeds) != 1:
+            raise ValueError(
+                f"{len(seeds)} dropout seeds outside torch.func.vmap: a "
+                f"seed list masks the slices of a vmapped seed axis")
+        return _scale(x, hash_keep(seeds[0], x.shape, rate, x.device), rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, axis, rate, seeds = inputs
+        ctx.rate, ctx.seeds = rate, seeds
+        ctx.save_for_backward(axis)
 
     @staticmethod
     def backward(ctx, g):
-        keep = hash_keep(ctx.seed, g.shape, ctx.rate, g.device)
-        return _scale(g, keep, ctx.rate), None, None
+        (axis,) = ctx.saved_tensors
+        if axis is None and len(ctx.seeds) == 1:
+            # one seed: its mask, directly (under a vmap, every slice's)
+            keep = hash_keep(ctx.seeds[0], g.shape, ctx.rate, g.device)
+            return _scale(g, keep, ctx.rate), None, None, None
+        return _HashDropout.apply(g, axis, ctx.rate, ctx.seeds), None, None, \
+            None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, rate, seeds):
+        n = info.batch_size
+        if len(seeds) not in (1, n):
+            raise ValueError(f"{len(seeds)} dropout seeds for a vmapped "
+                             f"axis of {n}")
+        xd = in_dims[0]
+        x = x.movedim(xd, 0) if xd is not None else x.expand(n, *x.shape)
+        return _SliceDropout.apply(x, rate, seeds * (n // len(seeds))), 0
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+class _SliceDropout(torch.autograd.Function):
+    """Slice s of ``x``'s leading axis through hash dropout with
+    ``seeds[s]``: each slice's mask is the one ``hash_keep`` gives that
+    seed over the slice's shape.  The vmap rule of :class:`_HashDropout`
+    calls it on the unbatched tensor."""
+
+    @staticmethod
+    def forward(x, rate, seeds):
+        keep = torch.stack([hash_keep(s, x.shape[1:], rate, x.device)
+                            for s in seeds])
+        return _scale(x, keep, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.rate, ctx.seeds = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SliceDropout.apply(g, ctx.rate, ctx.seeds), None, None
+
+
+def seed_list(seed: Union[int, Sequence[int], None]) -> Optional[List[int]]:
+    """A dropout seed argument as the kernels' ops and :func:`hash_dropout`
+    take it: None, or a list of uint32 seeds (an int is a list of one)."""
+    if seed is None:
+        return None
+    seeds = ([int(s) for s in seed] if isinstance(seed, (list, tuple))
+             else [int(seed)])
+    if not seeds or not all(0 <= s <= _M32 for s in seeds):
+        raise ValueError(f"dropout_seed must be a uint32 or a list of "
+                         f"them, got {seed}")
+    return seeds
+
+
+def hash_dropout(x: torch.Tensor, rate: float,
+                 seed: Union[int, Sequence[int]],
+                 axis: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout with the hash mask; ``seed`` a Python int in
-    [0, 2**32).  Callers gate on ``rate > 0`` and training mode."""
-    if not 0 <= seed <= _M32:
-        raise ValueError(f"seed must be a uint32, got {seed}")
-    return _HashDropout.apply(x, float(rate), int(seed))
+    [0, 2**32), or under ``torch.func.vmap`` a list of one per seed of the
+    vmapped axis, with that axis's carrier ``axis``
+    (:class:`SeedStreams`).  Callers gate on ``rate > 0`` and training
+    mode."""
+    if seed is None:
+        raise ValueError("hash_dropout needs a uint32 seed")
+    return _HashDropout.apply(x, axis, float(rate), seed_list(seed))
 
 
 def _splitmix64(z: int) -> int:
@@ -95,6 +175,9 @@ def _splitmix64(z: int) -> int:
 class SeedStream:
     """Distinct uint32 seeds for the dropout sites of one forward, in call
     order, derived from a uint32 ``base`` (splitmix64 of base and counter)."""
+
+    #: no seed axis: one stream is one seed
+    axis = None
 
     def __init__(self, base: int):
         if not 0 <= base <= _M32:
@@ -115,6 +198,22 @@ class SeedStream:
         return stream
 
 
+class SeedStreams:
+    """S seed streams drawn in step, one per seed of a vmapped multi-seed
+    step: ``next()`` gives each dropout site the S seeds as a host list,
+    entry s exactly what ``SeedStream(bases[s])`` gives at that site.
+    ``axis`` is the vmapped seed axis's carrier (an empty tensor of S rows
+    the vmap maps over), which every site hands to :func:`hash_dropout`."""
+
+    def __init__(self, bases: Sequence[int],
+                 axis: Optional[torch.Tensor] = None):
+        self.streams = [SeedStream(b) for b in bases]
+        self.axis = axis
+
+    def next(self) -> List[int]:
+        return [s.next() for s in self.streams]
+
+
 def step_seed(run_seed: int, step: int) -> int:
     """The seed of one optimizer step's base-seed generator: splitmix64 of
     (run seed, step), as the JAX package folds the step into its dropout
@@ -128,11 +227,22 @@ def draw_base_seed(generator: torch.Generator) -> int:
                              dtype=torch.int64))
 
 
+def seed_stream(dropout_seed) -> Union[SeedStream, SeedStreams, None]:
+    """A forward's stream from its ``dropout_seed``: a uint32 base seed, or
+    a stream handed over as it is (the multi-seed step's
+    :class:`SeedStreams`); None stays None."""
+    if dropout_seed is None or isinstance(dropout_seed,
+                                          (SeedStream, SeedStreams)):
+        return dropout_seed
+    return SeedStream(dropout_seed)
+
+
 def maybe_dropout(x: torch.Tensor, rate: float, training: bool,
-                  seeds: Optional[SeedStream]) -> torch.Tensor:
+                  seeds: Union[SeedStream, SeedStreams, None]
+                  ) -> torch.Tensor:
     """``hash_dropout`` in training mode with ``rate > 0``, else ``x``."""
     if rate <= 0.0 or not training:
         return x
     if seeds is None:
         raise ValueError("dropout in training mode needs a SeedStream")
-    return hash_dropout(x, rate, seeds.next())
+    return hash_dropout(x, rate, seeds.next(), seeds.axis)

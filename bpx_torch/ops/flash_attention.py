@@ -30,18 +30,29 @@ padded in device memory, and the strided (B, H, T, D) views of a fused
 projection go to the kernels without a copy.  At 128 (mmimdb: 768 over 6
 heads) the dK/dV kernel runs two warpgroups a block, each over half of
 every query tile and all the columns (``csrc/flash_bwd.cu``).
+
+Seeds per group: the ops take a list of dropout seeds, one per group of
+the batch (one element on the single-seed path).  With n seeds the B·H
+blocks form n groups of B·H / n consecutive blocks, and block ``bh`` hashes
+with ``seeds[bh // (B·H / n)]`` and its index in its group: each group's
+mask is the one a call over that group alone with that seed gives.  Under
+``torch.func.vmap`` (the multi-seed step, ``train/multiseed.py``) each op's
+vmap rule folds the vmapped axis into the batch of one launch over S·B·H,
+through views of the (S, B, H, T, D) tensors, with the S seeds (or the
+one seed repeated) as the list; ``kv_lens`` is repeated for the S·B rows.
+The kernels take at most ``MAX_SEED_GROUPS`` seeds.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
 from bpx_torch.ops import _cuda
 from bpx_torch.ops.dispatch import check_device, use_kernel
-from bpx_torch.ops.dropout import keep_threshold, mul32
+from bpx_torch.ops.dropout import keep_threshold, mul32, seed_list
 from bpx_torch.ops.masks import band_allowed
 
 MASK_FILL = -1e30
@@ -55,6 +66,9 @@ KERNEL_HEAD_DIMS = tuple(KERNEL_ALIGN)
 #: the TPU kernels' single-pass key range and key block (``tk_p`` below)
 SINGLE_PASS_MAX_K = 1024
 BLOCK_K = 128
+#: seeds one launch takes (``kMaxSeedGroups`` in ``csrc/flash_common.cuh``),
+#: passed by value in the kernels' parameters
+MAX_SEED_GROUPS = 16
 
 
 def effective_band(tq: int, tk: int, masked: bool):
@@ -77,22 +91,33 @@ def inv_keep(rate: float) -> float:
     return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
 
 
-def keep_mask(seed: int, B: int, H: int, Tq: int, Tk: int, rate: float,
+def keep_mask(seed, B: int, H: int, Tq: int, Tk: int, rate: float,
               device=None) -> torch.Tensor:
     """(B, H, Tq, Tk) bool: the TPU kernels' ``_keep_mask`` at every (batch
-    * head, row, col), bit-identical, computed in int64 cut to 32 bits."""
+    * head, row, col), bit-identical, computed in int64 cut to 32 bits.
+    ``seed`` is a uint32, or a list of n, one per group of B / n batch
+    rows, each group hashed with its seed and its own (batch * head)
+    index from 0."""
     m = 0xFFFFFFFF
-    bh = torch.arange(B * H, dtype=torch.int64, device=device)
+    seeds = seed_list(seed)
+    if B % len(seeds):
+        raise ValueError(f"{len(seeds)} seed groups do not divide a batch "
+                         f"of {B}")
+    bh = torch.arange(B // len(seeds) * H, dtype=torch.int64, device=device)
     row = torch.arange(Tq, dtype=torch.int64, device=device)
     col = torch.arange(Tk, dtype=torch.int64, device=device)
     idx = (mul32(bh, 0x85EBCA6B)[:, None, None]
            + mul32(row, padded_tk(Tk))[None, :, None]
            + col[None, None, :]) & m
-    x = (mul32(idx, 0x9E3779B9) + (seed & m)) & m
-    x = x ^ (x >> 16)
-    x = mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    return (x >= keep_threshold(rate)).reshape(B, H, Tq, Tk)
+    mixed = mul32(idx, 0x9E3779B9)
+    keep = []
+    for s in seeds:
+        x = (mixed + (s & m)) & m
+        x = x ^ (x >> 16)
+        x = mul32(x, 0x85EBCA6B)
+        x = x ^ (x >> 13)
+        keep.append(x >= keep_threshold(rate))
+    return torch.cat(keep).reshape(B, H, Tq, Tk)
 
 
 def _visible(B, Tq, Tk, masked, kv_lens, device):
@@ -177,9 +202,12 @@ def _check(q, k, v, kv_lens, dropout_rate, dropout_seed):
         raise ValueError(f"kv_lens must be ({B},), got {tuple(kv_lens.shape)}")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    if dropout_rate > 0.0 and (dropout_seed is None
-                               or not 0 <= dropout_seed <= 0xFFFFFFFF):
+    if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 needs a uint32 dropout_seed")
+    # a list's length is checked where it is used: against the groups of
+    # the batch by the kernels and the plain version, against the vmapped
+    # axis by the vmap rules
+    return seed_list(dropout_seed)
 
 
 def _kernel_layout(B, T, H, D, like):
@@ -190,21 +218,22 @@ def _kernel_layout(B, T, H, D, like):
                        device=like.device).transpose(1, 2)
 
 
-def _forward(q, k, v, masked, kv_lens, rate, seed):
+def _forward(q, k, v, masked, kv_lens, rate, seeds):
     if use_kernel(q):
-        return _launch(q, k, v, masked, kv_lens, rate, seed)
-    out, lse = flash_attention_reference(q, k, v, masked, kv_lens, rate, seed)
+        return _launch(q, k, v, masked, kv_lens, rate, seeds)
+    out, lse = flash_attention_reference(q, k, v, masked, kv_lens, rate,
+                                         seeds)
     B, H, Tq, D = q.shape
     return _kernel_layout(B, Tq, H, D, out).copy_(out), lse
 
 
-def _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seed):
+def _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seeds):
     if use_kernel(q):
         return _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate,
-                           seed)
+                           seeds)
     grads = flash_attention_backward_reference(
         q, k, v, dout, lse, attention_delta_reference(dout, out), masked,
-        kv_lens, rate, seed)
+        kv_lens, rate, seeds)
     B, H = q.shape[:2]
     return tuple(_kernel_layout(B, g.shape[2], H, g.shape[3], g).copy_(g)
                  for g in grads)
@@ -220,11 +249,11 @@ def _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seed):
 torch.library.define(
     "bpx_torch::flash_fwd",
     "(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, bool masked, "
-    "float rate, int? seed) -> (Tensor, Tensor)")
+    "float rate, int[]? seeds) -> (Tensor, Tensor)")
 torch.library.define(
     "bpx_torch::flash_bwd",
     "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, "
-    "Tensor? kv_lens, bool masked, float rate, int? seed) "
+    "Tensor? kv_lens, bool masked, float rate, int[]? seeds) "
     "-> (Tensor, Tensor, Tensor)")
 torch.library.define("bpx_torch::flash_delta",
                      "(Tensor dout, Tensor out) -> Tensor")
@@ -234,42 +263,42 @@ _FLASH_DELTA = torch.ops.bpx_torch.flash_delta.default
 
 
 @torch.library.impl("bpx_torch::flash_fwd", ("cpu", "cuda"))
-def _(q, k, v, kv_lens, masked, rate, seed):
-    return _forward(q, k, v, masked, kv_lens, rate, seed)
+def _(q, k, v, kv_lens, masked, rate, seeds):
+    return _forward(q, k, v, masked, kv_lens, rate, seeds)
 
 
 @torch.library.register_fake("bpx_torch::flash_fwd")
-def _(q, k, v, kv_lens, masked, rate, seed):
+def _(q, k, v, kv_lens, masked, rate, seeds):
     B, H, Tq, D = q.shape
     return (_kernel_layout(B, Tq, H, D, q),
             q.new_empty(B, H, Tq, dtype=torch.float32))
 
 
 @torch.library.impl("bpx_torch::flash_bwd", ("cpu", "cuda"))
-def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seed):
-    return _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seed)
+def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seeds):
+    return _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seeds)
 
 
 @torch.library.register_fake("bpx_torch::flash_bwd")
-def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seed):
+def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seeds):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     return tuple(_kernel_layout(B, T, H, D, q) for T in (Tq, Tk, Tk))
 
 
 def _setup_flash_fwd(ctx, inputs, output):
-    q, k, v, kv_lens, masked, rate, seed = inputs
+    q, k, v, kv_lens, masked, rate, seeds = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse, kv_lens)
-    ctx.config = (masked, rate, seed)
+    ctx.config = (masked, rate, seeds)
     ctx.mark_non_differentiable(lse)
 
 
 def _flash_fwd_grad(ctx, dout, _dlse):
     q, k, v, out, lse, kv_lens = ctx.saved_tensors
-    masked, rate, seed = ctx.config
+    masked, rate, seeds = ctx.config
     dq, dk, dv = _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked, rate,
-                            seed)
+                            seeds)
     return dq, dk, dv, None, None, None, None
 
 
@@ -289,11 +318,65 @@ def _(dout, out):
     return out.new_empty(out.shape[:3], dtype=torch.float32)
 
 
+# The vmap rule: the vmapped axis (the multi-seed step's seeds) folded into
+# the batch of one call, through views; outputs unfolded, again as views.
+# Autograd records the folded call, so its backward (flash_bwd, whose
+# delta is flash_delta's) runs once over the folded tensors and needs no
+# rule of its own.  torch.func.grad, under which vmap would reach the
+# backward ops, cannot take these ops (ROADMAP.md).
+
+def _fold(t, dim, n):
+    """``t`` batched at ``dim`` (None: shared, expanded) as (n * B, ...): a
+    view where the strides allow one, else a copy, counted in
+    ``flash_attention.fold_copies``."""
+    t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+    shape = (n * t.shape[1], *t.shape[2:])
+    try:
+        return t.view(shape)
+    except RuntimeError:
+        flash_attention.fold_copies += 1
+        return t.reshape(shape)
+
+
+def _fold_kv_lens(kv_lens, dim, n):
+    """Per-sample key lengths for the n * B folded rows: a shared (B,)
+    ``kv_lens`` repeated n times."""
+    if kv_lens is None:
+        return None
+    if dim is None:
+        return kv_lens.repeat(n)
+    return kv_lens.movedim(dim, 0).reshape(-1)
+
+
+def _fold_seeds(seeds, n):
+    """One seed per folded group: the vmapped axis's n seeds, or one seed
+    shared by every slice repeated n times."""
+    if seeds is None:
+        return None
+    if len(seeds) not in (1, n):
+        raise ValueError(f"{len(seeds)} dropout seeds for a vmapped axis of "
+                         f"{n}: give one, or one per slice")
+    return list(seeds) * (n // len(seeds))
+
+
+def _unfold(t, n):
+    return t.unflatten(0, (n, -1))
+
+
+@torch.library.register_vmap("bpx_torch::flash_fwd")
+def _(info, in_dims, q, k, v, kv_lens, masked, rate, seeds):
+    n = info.batch_size
+    qf, kf, vf = (_fold(t, d, n) for t, d in zip((q, k, v), in_dims))
+    out, lse = _FLASH_FWD(qf, kf, vf, _fold_kv_lens(kv_lens, in_dims[3], n),
+                          masked, rate, _fold_seeds(seeds, n))
+    return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     masked: bool = True,
                     kv_lens: Optional[torch.Tensor] = None,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None,
+                    dropout_seed: Union[int, Sequence[int], None] = None,
                     return_lse: bool = False):
     """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D); q pre-scaled.
 
@@ -305,12 +388,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     any strides whose last dim is contiguous; the output is a (B, H, Tq, D)
     view of (B, Tq, H, D) memory, so ``out.transpose(1, 2).reshape(B, Tq,
     H * D)`` is free.  ``dropout_rate > 0`` needs ``dropout_seed``, a uint32
-    Python int.
+    Python int, or a list of n, one per group of B / n batch rows (under
+    ``torch.func.vmap``: one per slice of the vmapped axis).
     """
     check_device(q)
-    _check(q, k, v, kv_lens, dropout_rate, dropout_seed)
+    seeds = _check(q, k, v, kv_lens, dropout_rate, dropout_seed)
     out, lse = _FLASH_FWD(q, k, v, kv_lens, masked, float(dropout_rate),
-                          dropout_seed)
+                          seeds)
     return (out, lse) if return_lse else out
 
 
@@ -322,7 +406,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
     dQ; at head_dim 25, 30 and 128 dQ with delta, then dK/dV) for CUDA
     tensors, the plain version for CPU."""
     return _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked,
-                      float(dropout_rate), dropout_seed)
+                      float(dropout_rate), seed_list(dropout_seed))
 
 
 def attention_delta_reference(dout: torch.Tensor,
@@ -410,13 +494,22 @@ def _kv_lens_ptr(kv_lens, device):
     return kv_lens, kv_lens.data_ptr()
 
 
-def _dropout_args(rate, seed, tk):
+def _dropout_args(rate, seed, tk, batch):
+    """The kernels' dropout arguments: on, the seeds (a C array, one per
+    group of ``batch`` / n rows), n, threshold, inv_keep and tk_p."""
     if rate <= 0.0:
-        return 0, 0, 0, 1.0, tk
-    return 1, seed, keep_threshold(rate), inv_keep(rate), padded_tk(tk)
+        return 0, None, 1, 0, 1.0, tk
+    seeds = seed_list(seed)
+    n = len(seeds)
+    if n > MAX_SEED_GROUPS or batch % n:
+        raise ValueError(f"the flash kernels take 1 to {MAX_SEED_GROUPS} "
+                         f"seed groups that divide the batch of {batch}, "
+                         f"got {n}")
+    return (1, (ctypes.c_uint * n)(*seeds), n, keep_threshold(rate),
+            inv_keep(rate), padded_tk(tk))
 
 
-def _launch(q, k, v, masked, kv_lens, rate=0.0, seed=None):
+def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _check_head_dim(D)
@@ -432,7 +525,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seed=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), kvl_ptr, B, H, Tq, Tk, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(masked), offset, *_dropout_args(rate, seed, Tk),
+        int(masked), offset, *_dropout_args(rate, seeds, Tk, B),
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_fwd")
     flash_attention.launches += 1
@@ -441,7 +534,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seed=None):
 
 
 def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
-                seed=None):
+                seeds=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _check_head_dim(D)
@@ -462,7 +555,7 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         out.data_ptr(), lse.data_ptr(), delta.data_ptr(), kvl_ptr,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
-        *strides, int(masked), offset, *_dropout_args(rate, seed, Tk),
+        *strides, int(masked), offset, *_dropout_args(rate, seeds, Tk, B),
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_bwd")
     flash_attention_backward.launches += 1
@@ -477,3 +570,5 @@ flash_attention.dropout_launches = 0
 flash_attention_backward.launches = 0
 #: launches of the delta kernel on its own (not those inside the backward)
 attention_delta.launches = 0
+#: tensors a vmap rule copied to fold the vmapped axis into the batch
+flash_attention.fold_copies = 0

@@ -119,6 +119,34 @@ torch.library.register_autograd("bpx_torch::layer_norm", _layer_norm_grad,
                                 setup_context=_setup_layer_norm)
 
 
+# The vmap rule (the multi-seed step: x, weight and bias per seed): one
+# call of the op per slice of the vmapped axis, so S launches of the
+# existing kernel, the outputs stacked.  Simple and right; the other
+# route, one grouped launch with the weight row at ``row / rows_per_seed``
+# and per-seed dw/db, needs a backward grid in which no block's rows
+# straddle two seeds (its partial rows are summed per column over the
+# whole grid), which the cooperative kernel's card-sized grid does not
+# give.  Each slice's call is the op itself, so autograd records it and
+# its backward is the kernel's, one launch a slice, with no rule of its
+# own; the counters count every launch.
+
+def _slices(t, dim, n):
+    """The n slices of ``t`` along its vmapped ``dim`` (the same tensor n
+    times where it is shared), each contiguous as the kernels take it."""
+    if dim is None:
+        return [t] * n
+    return [s.contiguous() for s in t.movedim(dim, 0).unbind(0)]
+
+
+@torch.library.register_vmap("bpx_torch::layer_norm")
+def _(info, in_dims, x, w, b, eps, out_dtype):
+    n = info.batch_size
+    sliced = [_slices(t, d, n) for t, d in zip((x, w, b), in_dims)]
+    outs = [_LAYER_NORM(xs, ws, bs, eps, out_dtype)
+            for xs, ws, bs in zip(*sliced)]
+    return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0)
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float, out_dtype: Optional[torch.dtype] = None,
                return_stats: bool = False):

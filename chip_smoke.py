@@ -167,6 +167,34 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    (flash and LayerNorm, forward and backward: the 2B flash classes, the
    profiler naming each head dim's kernel, and the early encoders'
    LayerNorms at 256 rows) against its plain version.
+17. the vmapped multi-seed step (``bpx_torch.train.multiseed``), after
+   phase 13: iemocap's ``mmtrvat`` at full width and depth, seeds 1-5
+   stacked, micro-batch 8 a seed, A = 1, bf16, every dropout, Adam, no
+   recompute.  One vmapped step that keeps the weights (SGD at lr 0): its
+   launches exact against a recorded single-seed A = 1 step (the flash
+   kernels launched as often as one seed's micro-step, 108 / 44 / 108: one
+   folded launch over S·B·H; the LayerNorms S times as often, one launch a
+   seed), nothing copied; seeds 1 and 5 against their own single-seed
+   steps on the same weights and base seeds (the loss and each module's
+   gradient, relative L2, within MULTISEED_LOSS_TOL / MULTISEED_GRAD_TOL);
+   every seed against the same vmapped step under ``plain_versions()``;
+   two planted faults of the folded launch, each a build of the kernels
+   with ``-DBPX_PLANT_SEED_FAULT`` (every group hashing with group 0's
+   seed; bh not reduced to its group), which the comparison with the
+   single-seed steps must catch.  The folded launches' masks exact against
+   each group's own launch at head_dim 25 and 64 (q = 0, V = dO = I).
+   Then 3 Adam steps with exact counters: the median beside the
+   single-seed step's, ``S * t_single / t_vmapped``, the peak memory; one
+   folded launch against S launches (CUDA events) at the encoders' D 25
+   class and BERT's D 64 class; the folded classes against the plain
+   versions with bound and SDPA, each with dropout at its five seed groups,
+   so on the kernels' build for several groups, which the profiler must
+   name (the LayerNorms run at iemocap's classes);
+18. the task farm: ``python -m bpx_torch.cluster.scheduler`` over a
+   temporary jobs file (two one-epoch ``python -m bpx_torch.cli.train``
+   runs on synthetic data and a line that exits 3), two workers on card 0,
+   one retry: exit 1, both runs rc 0 with a log naming the ``cuda``
+   device, the failing line rc 3 after 2 attempts, one log a job.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -177,7 +205,8 @@ rows by shape class, and on the moviescope rows the training loop's launches in
 phase 13 and per epoch; the narrow backward and forward also alone, at
 head_dim 25 from iemocap's train steps and at 30 from cmu-mosei's, and the
 head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
-sweep, hybrid's and the grouped pairs' classes) and, last, ``{"ok": true,
+sweep, hybrid's and the grouped pairs' classes; phase 17's folded
+classes) and, last, ``{"ok": true,
 "device": {...}}``.  It
 imports nothing of JAX or of the JAX package; without a CUDA device, or
 without ``bpx_torch`` beside it, it exits non-zero and prints no result.
@@ -484,10 +513,13 @@ def wrapped_launch(module, wrap, name: str = "_launch"):
         setattr(module, name, launch)
 
 
-def flash_class(q, k, masked, kv_lens, rate):
-    """(B, H, Tq, Tk, D, masked, has kv_lens, dropout rate)."""
+def flash_class(q, k, masked, kv_lens, rate, seed):
+    """(B, H, Tq, Tk, D, masked, has kv_lens, seed groups, dropout rate):
+    the seed groups pick the kernel's build, one group's or several's."""
+    from bpx_torch.ops.dropout import seed_list
+    groups = len(seed_list(seed)) if rate > 0.0 else 1
     return (*q.shape[:3], k.shape[2], q.shape[3], masked,
-            kv_lens is not None, rate)
+            kv_lens is not None, groups, rate)
 
 
 @contextlib.contextmanager
@@ -509,12 +541,13 @@ def recording():
         return got
 
     def flash(launch, q, k, v, masked, kv_lens, rate=0.0, seed=None):
-        seen["flash"][flash_class(q, k, masked, kv_lens, rate)] += 1
+        seen["flash"][flash_class(q, k, masked, kv_lens, rate, seed)] += 1
         return launch(q, k, v, masked, kv_lens, rate, seed)
 
     def flash_bwd(launch, q, k, v, dout, lse, out, masked, kv_lens,
                   rate=0.0, seed=None):
-        seen["flash_bwd"][flash_class(q, k, masked, kv_lens, rate)] += 1
+        seen["flash_bwd"][flash_class(q, k, masked, kv_lens, rate,
+                                      seed)] += 1
         return launch(q, k, v, dout, lse, out, masked, kv_lens, rate, seed)
 
     def ln(launch, x, w, b, eps, out_dtype):
@@ -529,9 +562,9 @@ def recording():
 
     hash_dropout = dropout.hash_dropout
 
-    def drop(x, rate, seed):
+    def drop(x, rate, seed, axis=None):
         seen["dropout"][(tuple(x.shape), x.dtype, rate)] += 1
-        return hash_dropout(x, rate, seed)
+        return hash_dropout(x, rate, seed, axis)
 
     dropout.hash_dropout = drop
     fa._kernel_ready = ready
@@ -547,7 +580,8 @@ def recording():
 
 def launch_classes(pred, batch):
     """Serve ``batch`` once and return, per kernel, a Counter of the
-    launches' shape classes: (B, H, Tq, Tk, D, masked, has kv_lens, rate)
+    launches' shape classes: (B, H, Tq, Tk, D, masked, has kv_lens, seed
+    groups, rate)
     for the flash kernel, (rows, E, eps, in dtype, out dtype) for
     LayerNorm; and the wrappers' copies by head dim."""
     with recording() as seen:
@@ -604,8 +638,12 @@ def kernel_name(mangled: str) -> str:
                 args = re.match(r"I(.*?)E+v", mangled[m.end() + n:])
                 if args is None:
                     return ident
-                targs = re.sub(r"Li(-?[0-9]+)", r"\1", args.group(1))
-                return f"{ident}<{targs}>"
+                # int and bool template arguments: Li64E, Lb0E
+                targs = re.sub(r"Li(-?[0-9]+)E?", r"\1, ", args.group(1))
+                targs = re.sub(r"Lb([01])E?",
+                               lambda b: ("false", "true")[int(b[1])] + ", ",
+                               targs)
+                return f"{ident}<{targs.rstrip(', ')}>"
     return mangled
 
 
@@ -646,18 +684,18 @@ def attention_work(torch, B, H, Tq, Tk, masked, kv_lens):
 
 def phase_flash(torch, timer, classes, gen, label="flash"):
     """The forward kernel against its plain version at each class (with
-    the class's dropout rate and a fixed seed)."""
+    the class's dropout rate and seed groups, one fixed seed a group)."""
     import torch.nn.functional as F
     from bpx_torch.ops.flash_attention import (effective_band,
                                                flash_attention,
                                                flash_attention_reference)
     rows = []
     seed = 0x9E3779B9
-    for (B, H, Tq, Tk, D, masked, padded, rate), count in sorted(
+    for (B, H, Tq, Tk, D, masked, padded, groups, rate), count in sorted(
             classes.items()):
         q, k, v, kv_lens = attention_inputs(torch, gen, B, H, Tq, Tk, D,
                                             padded)
-        drop = (rate, seed if rate else None)
+        drop = (rate, group_seeds(seed, groups) if rate else None)
         out, lse = flash_attention(q, k, v, masked, kv_lens, *drop,
                                    return_lse=True)
         ref, ref_lse = flash_attention_reference(q, k, v, masked, kv_lens,
@@ -686,20 +724,21 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
             q, k, v, dropout_p=rate, scale=1.0, **mask_args)
         t_l = timer(sdpa)
         backend, first = sdpa_backend(torch, sdpa)
-        kernel = fwd_kernel(D)
+        kernel = fwd_kernel(D, groups)
         takes_kernel(torch, lambda: flash_attention(q, k, v, masked, kv_lens,
                                                     *drop),
                      kernel, (B, H, Tq, Tk, D, rate))
         eff_masked = effective_band(Tq, Tk, masked)[0]
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
-                         kv_lens=padded, rate=rate, per_forward=count,
-                         max_abs_err=err_o, lse_max_abs_err=err_l, ms=t_k,
+                         kv_lens=padded, rate=rate, seed_groups=groups,
+                         per_forward=count, max_abs_err=err_o, lse_max_abs_err=err_l, ms=t_k,
                          plain_ms=t_p, library_ms=t_l,
                          library_backend=backend, library_kernel=first,
                          library_mask=mask_text(mask_args), kernel=kernel,
                          bound_ms=b_ms, bound_by=b_by))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
-              f"kv_lens={padded} rate={rate} x{count}: {kernel}; err O "
+              f"kv_lens={padded} rate={rate} seed groups {groups} "
+              f"x{count}: {kernel}; err O "
               f"{err_o:.3g} (tol {FLASH_TOL}) lse {err_l:.3g} (tol "
               f"{LSE_TOL}); "
               + timing_text(t_k, t_p, t_l, b_ms, b_by, f"sdpa ({backend})")
@@ -707,14 +746,27 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
     return rows
 
 
-def fwd_kernel(D) -> str:
-    """The forward's kernel at head_dim D, by the name the profiler
-    reports."""
+def group_seeds(seed, groups):
+    """A class's dropout seeds: ``seed`` for one group, else one a group."""
+    return seed if groups == 1 else [seed + g for g in range(groups)]
+
+
+def build_args(D, groups) -> str:
+    """A flash kernel's template arguments as the profiler names them: the
+    head dim, and whether it is the build for several seed groups."""
+    return f"<{D}, {'true' if groups > 1 else 'false'}>"
+
+
+def fwd_kernel(D, groups=1) -> str:
+    """The forward's kernel at head_dim D for ``groups`` seed groups, by
+    the name the profiler reports."""
     if D < 32:
-        return "flash_fwd_narrow_kernel"
-    if D > 96:
-        return "flash_fwd_wide_kernel"
-    return "flash_fwd_kernel<"
+        name = "flash_fwd_narrow_kernel"
+    elif D > 96:
+        name = "flash_fwd_wide_kernel"
+    else:
+        name = "flash_fwd_kernel"
+    return name + build_args(D, groups)
 
 
 def sdpa_mask(torch, ok) -> dict:
@@ -855,40 +907,44 @@ def sdpa_backward(torch, q, k, v, mask_args, rate, dout):
                                        retain_graph=True)
 
 
-def bwd_kernels(D):
-    """The backward's kernels at head_dim D, by the names the profiler
-    reports, as (dQ, dK/dV, delta or None): at a narrow head (25, 30) and
-    at 128 the dQ kernel computes delta itself, so the backward is two
-    launches."""
+def bwd_kernels(D, groups=1):
+    """The backward's kernels at head_dim D for ``groups`` seed groups, by
+    the names the profiler reports, as (dQ, dK/dV, delta or None): at a
+    narrow head (25, 30) and at 128 the dQ kernel computes delta itself,
+    so the backward is two launches."""
+    args = build_args(D, groups)
     if D < 32:
-        return ("flash_bwd_narrow_dq_kernel", "flash_bwd_narrow_dkdv_kernel",
-                None)
+        return ("flash_bwd_narrow_dq_kernel" + args,
+                "flash_bwd_narrow_dkdv_kernel" + args, None)
     if D > 96:
-        return ("flash_bwd_wide_dq_kernel", "flash_bwd_wide_dkdv_kernel",
-                None)
-    return ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+        return ("flash_bwd_wide_dq_kernel" + args,
+                "flash_bwd_wide_dkdv_kernel" + args, None)
+    return ("flash_bwd_dq_kernel" + args, "flash_bwd_dkdv_kernel" + args,
             "flash_delta_kernel")
 
 
-def backward_split(torch, fn, D):
+def backward_split(torch, fn, D, groups=1):
     """{kernel: device ms per call} of one backward call ``fn`` at head
-    dim D, its kernels by their profiler names (``bwd_kernels``)."""
-    return kernel_ms(torch, fn, [k for k in bwd_kernels(D) if k])
+    dim D and ``groups`` seed groups, its kernels by their profiler names
+    (``bwd_kernels``)."""
+    return kernel_ms(torch, fn, [k for k in bwd_kernels(D, groups) if k])
 
 
 def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
     """The backward kernels (delta, dK/dV, dQ; at a narrow head the dQ
     kernel with delta, then dK/dV) against the plain backward at each class
-    of the recorded micro-step, from the kernel forward's lse; the delta
-    kernel on its own against its plain version."""
+    of the recorded micro-step (its dropout rate and seed groups, one
+    fixed seed a group), from the kernel forward's lse; the delta kernel on
+    its own against its plain version.  The profiler must see each of the
+    class's kernels, of the build for its seed groups."""
     from bpx_torch.ops import flash_attention as fa
     rows = []
     seed = 0x7F4A7C15
-    for (B, H, Tq, Tk, D, masked, padded, rate), count in sorted(
+    for (B, H, Tq, Tk, D, masked, padded, groups, rate), count in sorted(
             classes.items()):
         q, k, v, kv_lens = attention_inputs(torch, gen, B, H, Tq, Tk, D,
                                             padded)
-        drop = (rate, seed if rate else None)
+        drop = (rate, group_seeds(seed, groups) if rate else None)
         out, lse = fa.flash_attention(q, k, v, masked, kv_lens, *drop,
                                       return_lse=True)
         # dO as the model hands it over: a (B, H, T, D) view of (B, T, H, D)
@@ -921,7 +977,10 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
         t_l = timer(sdpa)
         backend, first = sdpa_backend(torch, sdpa)
         split = backward_split(torch, lambda: fa._launch_bwd(
-            q, k, v, dout, lse, out, masked, kv_lens, *drop), D)
+            q, k, v, dout, lse, out, masked, kv_lens, *drop), D, groups)
+        check(all(split.values()),
+              f"flash backward at {(B, H, Tq, Tk, D, rate)}, {groups} seed "
+              f"groups: the profiler did not see each of {sorted(split)}")
         dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens)
         again = fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens,
                                *drop)
@@ -931,7 +990,8 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
         launches = ("dQ (with delta) + dK/dV" if bwd_kernels(D)[2] is None
                     else "delta + dK/dV + dQ")
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
-                         kv_lens=padded, rate=rate, per_forward=count,
+                         kv_lens=padded, rate=rate, seed_groups=groups,
+                         per_forward=count,
                          max_abs_err=max(max_err(g, w)
                                          for g, w in zip(got, want)),
                          rel_err=max(errs), delta_max_abs_err=err_d,
@@ -941,7 +1001,8 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
                          bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split,
                          dq_bound_ms=dq_b[0], dkdv_bound_ms=dkdv_b[0]))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
-              f"kv_lens={padded} rate={rate} x{count}/micro-step: "
+              f"kv_lens={padded} rate={rate} seed groups {groups} "
+              f"x{count}/micro-step: "
               f"dq/dk/dv rel err {max(errs):.3g} (tol {FLASH_GRAD_TOL}), "
               f"delta err {err_d:.3g} (tol {DELTA_TOL}), reruns bitwise "
               f"equal; {launches} "
@@ -1055,8 +1116,10 @@ def phase_dropout_hash(torch, timer, classes, gen):
     for (shape, dt, rate), count in sorted(classes.items(), key=str):
         x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
         g = torch.randn(*shape, generator=gen, device="cuda").to(dt)
-        ctx = type("Ctx", (), {})()
-        t_f = timer(lambda: _HashDropout.forward(ctx, x, rate, 12345),
+        seeds = (12345,)
+        ctx = type("Ctx", (), dict(saved_tensors=(None,), rate=rate,
+                                   seeds=seeds))()
+        t_f = timer(lambda: _HashDropout.forward(x, None, rate, seeds),
                     reps=5, inner=4)
         t_b = timer(lambda: _HashDropout.backward(ctx, g), reps=5, inner=4)
         total += count * (t_f + t_b)
@@ -1064,6 +1127,36 @@ def phase_dropout_hash(torch, timer, classes, gen):
               f"micro-step: forward {t_f:.4f} ms, backward {t_b:.4f} ms")
     print(f"[dropout] plain hash dropout per micro-step: {total:.2f} ms")
     return total
+
+
+def kernel_mask(torch, q, k, rate, seed):
+    """The keep bits (B, H, T, T) the forward and the backward kernels
+    apply with ``seed`` (a uint32, or one per group of the batch), read
+    with q = 0 and one-hot V = dO as ``phase_mask_check`` says, and
+    whether every O equalled the plain version's."""
+    from bpx_torch.ops import flash_attention as fa
+    B, H, T, D = q.shape
+    bf = torch.bfloat16
+    fwd = torch.zeros(B, H, T, T, dtype=torch.bool, device="cuda")
+    bwd = torch.zeros_like(fwd)
+    j = torch.arange(T, device="cuda")
+    same = True
+    for r in range((T + D - 1) // D):
+        c = j - D * r
+        sel = (c >= 0) & (c < D)
+        onehot = torch.zeros(T, D, device="cuda", dtype=bf)
+        onehot[sel, c[sel]] = 1
+        e = onehot.expand(B, H, T, D)
+        out, lse = fa.flash_attention(q, k, e, False, None, rate, seed,
+                                      return_lse=True)
+        ref, _ = fa.flash_attention_reference(q, k, e, False, None, rate,
+                                              seed)
+        _, _, dv = fa._launch_bwd(q, k, e, e, lse, out, False, None, rate,
+                                  seed)
+        same = same and torch.equal(out, ref)
+        fwd[..., sel] = out[..., c[sel]] != 0
+        bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
+    return fwd, bwd, same
 
 
 def phase_mask_check(torch, gen, B, H, T, D):
@@ -1079,37 +1172,55 @@ def phase_mask_check(torch, gen, B, H, T, D):
     bf = torch.bfloat16
     q = torch.zeros(B, H, T, D, device="cuda", dtype=bf)
     k = torch.randn(B, H, T, D, generator=gen, device="cuda").to(bf)
-    fwd = torch.zeros(B, H, T, T, dtype=torch.bool, device="cuda")
-    bwd = torch.zeros_like(fwd)
-    j = torch.arange(T, device="cuda")
-    rounds = (T + D - 1) // D
-    same = True
-    for r in range(rounds):
-        c = j - D * r
-        sel = (c >= 0) & (c < D)
-        onehot = torch.zeros(T, D, device="cuda", dtype=bf)
-        onehot[sel, c[sel]] = 1
-        e = onehot.expand(B, H, T, D)
-        out, lse = fa.flash_attention(q, k, e, False, None, rate, seed,
-                                      return_lse=True)
-        ref, _ = fa.flash_attention_reference(q, k, e, False, None, rate,
-                                              seed)
-        _, _, dv = fa._launch_bwd(q, k, e, e, lse, out, False, None, rate,
-                                  seed)
-        same = same and torch.equal(out, ref)
-        fwd[..., sel] = out[..., c[sel]] != 0
-        bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
+    fwd, bwd, same = kernel_mask(torch, q, k, rate, seed)
     keep = fa.keep_mask(seed, B, H, T, T, rate, "cuda")
     torch.cuda.synchronize()
     bad_f = int((fwd != keep).sum())
     bad_b = int((bwd != keep).sum())
-    print(f"[mask] D={D} at ({B}, {H}, {T}, {T}), {rounds} round(s): "
-          f"forward mask bits differing from the plain version's: {bad_f} "
-          f"of {keep.numel()}; backward (dV): {bad_b}; kept "
+    print(f"[mask] D={D} at ({B}, {H}, {T}, {T}), {(T + D - 1) // D} "
+          f"round(s): forward mask bits differing from the plain version's: "
+          f"{bad_f} of {keep.numel()}; backward (dV): {bad_b}; kept "
           f"{keep.float().mean().item():.4f} (1 - rate = {1 - rate})")
     check(bad_f == 0 and bad_b == 0 and same,
           f"the kernels' dropout mask at head_dim {D} differs from the "
           f"plain version's")
+
+
+def phase_seed_masks(torch, gen, S, B, H, T, D):
+    """The multi-seed step's folded launches' masks, exactly: one launch
+    over S groups of B batch rows with one seed each, read as
+    ``phase_mask_check`` reads them, must give each group the bits of a
+    launch over that group alone with its seed, forward and backward,
+    and the plain version's bits for the seed list."""
+    from bpx_torch.ops import flash_attention as fa
+    rate = 0.1
+    seeds = [0xDEADBEEF + 7919 * s for s in range(S)]
+    bf = torch.bfloat16
+    q = torch.zeros(S * B, H, T, D, device="cuda", dtype=bf)
+    k = torch.randn(S * B, H, T, D, generator=gen, device="cuda").to(bf)
+    fwd, bwd, same = kernel_mask(torch, q, k, rate, seeds)
+    bad = collections.Counter()
+    for s, seed in enumerate(seeds):
+        rows = slice(s * B, (s + 1) * B)
+        f1, b1, same1 = kernel_mask(torch, q[rows], k[rows], rate, seed)
+        same = same and same1
+        bad["forward"] += int((fwd[rows] != f1).sum())
+        bad["backward"] += int((bwd[rows] != b1).sum())
+    keep = fa.keep_mask(seeds, S * B, H, T, T, rate, "cuda")
+    bad["plain"] = int((fwd != keep).sum()) + int((bwd != keep).sum())
+    # the folded mask differs from one seed's for the whole fold
+    bad_one = int((fa.keep_mask(seeds[0], S * B, H, T, T, rate, "cuda")
+                   != keep).sum())
+    torch.cuda.synchronize()
+    print(f"[seed masks] D={D}, {S} groups of ({B}, {H}, {T}, {T}): bits "
+          f"differing from each group's own launch: forward "
+          f"{bad['forward']}, backward (dV) {bad['backward']}; from the "
+          f"plain version's {bad['plain']} of {2 * keep.numel()}; one seed "
+          f"over the fold would differ in {bad_one}")
+    check(not any(bad.values()) and same and bad_one > 0,
+          f"the folded launch's masks at head_dim {D} are not each "
+          f"group's own")
+    return dict(bits=keep.numel(), **bad)
 
 
 def device_kernels(torch, fn, n: int = 20):
@@ -1529,16 +1640,21 @@ def phase_trainer(torch, np, path: ModelPath = MOVIESCOPE,
     return model, loss_fn, step, batches
 
 
+def group_of(name: str) -> str:
+    """A parameter's group in the gradient comparisons: BERT's embeddings,
+    BERT's layers, or its top-level module."""
+    top = name.split(".")[0]
+    if top == "bert":
+        return ("bert.layers" if name.startswith("bert.layers.")
+                else "bert.embeddings")
+    return top
+
+
 def grad_groups(model):
-    """Parameter groups for the gradient comparison: BERT's embeddings,
-    BERT's layers, and every other top-level module."""
+    """The model's parameters by ``group_of``."""
     groups = collections.defaultdict(list)
     for n, p in model.named_parameters():
-        top = n.split(".")[0]
-        if top == "bert":
-            top = "bert.layers" if n.startswith("bert.layers.") \
-                else "bert.embeddings"
-        groups[top].append(p)
+        groups[group_of(n)].append(p)
     return dict(groups)
 
 
@@ -1563,9 +1679,15 @@ def flat_grads(torch, groups):
 def group_errors(torch, groups, ref):
     """Relative L2 error of each group's gradient against ``ref``; a
     non-finite one reads as infinite."""
+    return relative_errors(torch, flat_grads(torch, groups), ref)
+
+
+def relative_errors(torch, got, ref):
+    """Relative L2 error of each group's vector in ``got`` against
+    ``ref``; a non-finite one reads as infinite."""
     errs = {}
-    for g, got in flat_grads(torch, groups).items():
-        e = ((got - ref[g]).norm() / ref[g].norm()).item()
+    for g, v in got.items():
+        e = ((v - ref[g]).norm() / ref[g].norm()).item()
         errs[g] = e if math.isfinite(e) else float("inf")
     return errs
 
@@ -2571,7 +2693,7 @@ def phase_options(torch, np, timer, gen, checked):
     out = {}
     # (d) every flash kernel at 32 x 32 (batch 8, causal), rate 0 and 0.1,
     # forward and backward, and the exact dropout masks there
-    sweep = {(BATCH, H, 32, 32, D, True, False, rate): 1
+    sweep = {(BATCH, H, 32, 32, D, True, False, 1, rate): 1
              for D, H in HEAD_DIMS for rate in (0.0, 0.1)}
     out["s_rows"] = phase_flash(torch, timer, sweep, gen,
                                 label="flash 32x32")
@@ -2686,6 +2808,370 @@ def phase_options(torch, np, timer, gen, checked):
           f"phase 16's new classes are not the expected ones: {shapes}")
     out.update(new)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the vmapped multi-seed step; phase 18: the task farm
+# ---------------------------------------------------------------------------
+
+#: iemocap's seeds in one vmapped step (the reference reports the mean of 5)
+MULTISEED = (1, 2, 3, 4, 5)
+MULTISEED_STEPS = 3
+#: the seeds (by index) held against their own single-seed steps
+MULTISEED_HELD = (0, 4)
+#: the folded launch's planted faults, each a build of its own
+SEED_FAULTS = {"every group hashes with group 0's seed":
+               "-DBPX_PLANT_SEED_FAULT=1",
+               "bh is not reduced to its group": "-DBPX_PLANT_SEED_FAULT=2"}
+# a seed of the vmapped step against its own single-seed A = 1 step (same
+# weights, batch and base seed): the loss (relative) and each module's
+# gradient (relative L2).  The masks are the same bits; what differs is
+# the rounding of batched GEMMs over the seeds against one seed's GEMMs.
+# On an H100 (700 W) the sound step reads loss 2.7e-4 / 6.5e-4 and worst
+# groups 0.0305 (seed 1, proj1) / 0.0136 (seed 5); the planted faults read
+# 0.343 (group 0's seed everywhere) and 0.319 (bh not reduced) at seed 5
+# and leave seed 1 as it was: the gradient limit sits at about the
+# geometric mean of the sound and the nearer faulty reading (3.3x over,
+# 3.2x under)
+MULTISEED_LOSS_TOL = 1e-2
+MULTISEED_GRAD_TOL = 0.1
+
+
+def seed_grads(torch, state, names_by_group, index):
+    """Seed ``index``'s gradient in the stacked state, one fp32 vector
+    per group."""
+    return {g: torch.cat([state.params[n].grad[index].float().flatten()
+                          for n in names])
+            for g, names in names_by_group.items()}
+
+
+def single_seed_reference(torch, exp, loss_fn, state_dict, seed, batch,
+                          steps: int = 1):
+    """The port's single-seed A = 1 step (Adam) on ``state_dict`` with its
+    base seed drawn from a generator seeded with ``seed``: the first step's
+    loss, gradients by group and launches, and each step's host time."""
+    from bpx_torch.models import get_model
+    from bpx_torch.train.optim import make_optimizer
+    from bpx_torch.train.steps import make_train_step
+    model = get_model(exp.model, device="cuda").train()
+    model.load_state_dict(state_dict)
+    step = make_train_step(model, exp.model.model, loss_fn,
+                           make_optimizer(model.parameters(), LR),
+                           generator=torch.Generator().manual_seed(seed))
+    micro = {k: v[None] for k, v in batch.items()}
+    times = []
+    for i in range(steps):
+        zero_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(micro)["loss"].item()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            launches, first = read_launches(), loss
+            refs = flat_grads(torch, grad_groups(model))
+    return dict(loss=first, grads=refs, launches=launches, step_ms=times)
+
+
+def probe(torch, state, loss_fn, batch):
+    """One vmapped step that leaves the weights as they were (SGD at lr 0):
+    its (S,) losses; the gradients stay in the stacked ``.grad``."""
+    from bpx_torch.train.multiseed import make_multi_seed_train_step
+    state.optimizer = torch.optim.SGD(list(state.params.values()), lr=0.0)
+    step = make_multi_seed_train_step(state, loss_fn)
+    return step(batch)["loss"].tolist()
+
+
+def folded_timing(torch, timer, gen, S, B, H, T, D, padded, rate):
+    """One folded launch over S groups against S launches, one a group,
+    forward and backward (CUDA events)."""
+    from bpx_torch.ops import flash_attention as fa
+    q, k, v, kv_lens = attention_inputs(torch, gen, S * B, H, T, T, D,
+                                        padded)
+    masked = not padded
+    seeds = [0x5EED + s for s in range(S)]
+    part = lambda t, s: None if t is None else t[s * B:(s + 1) * B]
+    out, lse = fa.flash_attention(q, k, v, masked, kv_lens, rate, seeds,
+                                  return_lse=True)
+    dout = torch.randn_like(out)
+    fwd = lambda: fa.flash_attention(q, k, v, masked, kv_lens, rate, seeds)
+    fwd_s = lambda: [fa.flash_attention(part(q, s), part(k, s), part(v, s),
+                                        masked, part(kv_lens, s), rate,
+                                        seeds[s]) for s in range(S)]
+    bwd = lambda: fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens,
+                                 rate, seeds)
+    bwd_s = lambda: [fa._launch_bwd(
+        part(q, s), part(k, s), part(v, s), part(dout, s), part(lse, s),
+        part(out, s), masked, part(kv_lens, s), rate, seeds[s])
+        for s in range(S)]
+    t = {name: timer(fn) for name, fn in (("fwd", fwd), ("fwd_s", fwd_s),
+                                          ("bwd", bwd), ("bwd_s", bwd_s))}
+    print(f"[multiseed] folded launch BH={S * B * H} {T}x{T} D={D} "
+          f"kv_lens={padded} rate={rate}: forward {t['fwd']:.4f} ms against "
+          f"{S} launches {t['fwd_s']:.4f} ms ({t['fwd'] / t['fwd_s']:.2f}x); "
+          f"backward {t['bwd']:.4f} ms against {t['bwd_s']:.4f} ms "
+          f"({t['bwd'] / t['bwd_s']:.2f}x)")
+    return dict(shape=[S * B * H, T, T, D], kv_lens=padded, rate=rate, **t)
+
+
+def phase_multiseed(torch, np, timer, gen, card):
+    """Phase 17: iemocap's mmtrvat at full width, S = 5 seeds in one
+    vmapped step (micro-batch 8 per seed, A = 1, bf16, every dropout,
+    Adam, without recompute)."""
+    from bpx_torch.ops import _cuda
+    from bpx_torch.ops import flash_attention as fa
+    from bpx_torch.ops.dispatch import plain_versions
+    from bpx_torch.train.losses import make_loss_fn
+    from bpx_torch.train.multiseed import (init_multi_seed,
+                                           make_multi_seed_train_step,
+                                           unstack_seed)
+    from bpx_torch.train.optim import make_optimizer
+    tag = "[multiseed]"
+    S = len(MULTISEED)
+    exp = experiment(IEMOCAP)
+    t0 = time.time()
+    state = init_multi_seed(exp.model, MULTISEED,
+                            lambda ps: make_optimizer(ps, LR), device="cuda")
+    rng = np.random.RandomState(7)
+    freqs = rng.randint(30, 400, size=exp.model.n_classes)
+    loss_fn = make_loss_fn(exp.data.task, exp.data.task_type, True,
+                           freqs.tolist(), 1000, device="cuda")
+    batches = [{k: v[0] for k, v in train_batch(
+        torch, np, exp, 400 + i, freqs / 1000, accum=1).items()}
+        for i in range(MULTISEED_STEPS)]
+    names = collections.defaultdict(list)
+    for n in state.params:
+        names[group_of(n)].append(n)
+    n_params = sum(p[0].numel() for p in state.params.values())
+    print(f"{tag} {exp.model.model} ({IEMOCAP.preset}), {S} seeds "
+          f"{MULTISEED} stacked: {n_params / 1e6:.1f} M parameters a seed, "
+          f"{S * n_params / 1e6:.1f} M in all; micro-batch {BATCH} a seed, "
+          f"A = 1, {exp.model.compute_dtype}, attention_impl "
+          f"{exp.model.attention_impl}, remat {exp.model.remat}; built in "
+          f"{time.time() - t0:.1f} s")
+
+    # seeds 0 and 4 on their own single-seed steps, from the same weights
+    refs = {}
+    for i in MULTISEED_HELD:
+        refs[i] = single_seed_reference(
+            torch, exp, loss_fn, unstack_seed(state, i)[0], MULTISEED[i],
+            batches[0], steps=MULTISEED_STEPS if i == 0 else 1)
+        torch.cuda.empty_cache()
+    single = refs[0]["launches"]
+    t_single = statistics.median(refs[0]["step_ms"])
+    print(f"{tag} single-seed A = 1 step (seed {MULTISEED[0]}): median "
+          f"{t_single:.1f} ms of " + ", ".join(
+              f"{x:.1f}" for x in refs[0]["step_ms"])
+          + f"; launches {single}")
+    want = dict(flash=single["flash"], dropout=single["dropout"],
+                flash_bwd=single["flash_bwd"], ln=S * single["ln"],
+                ln_bwd=S * single["ln_bwd"])
+
+    # the vmapped step with the kernels (weights kept), recorded
+    fa.flash_attention.fold_copies = 0
+    zero_launches()
+    with recording() as seen:
+        losses = probe(torch, state, loss_fn, batches[0])
+    got = read_launches()
+    print(f"{tag} one vmapped step: launches {got}, expected {want} (flash "
+          f"as one seed's micro-step, LayerNorm {S} x); tensors copied to "
+          f"fold the seeds: {fa.flash_attention.fold_copies}, by the "
+          f"wrappers: {dict(seen['copies'])}")
+    check(got == want, f"the vmapped step's launches {got}, expected {want}")
+    check(fa.flash_attention.fold_copies == 0
+          and not sum(seen["copies"].values()),
+          "the vmapped step copied tensors before a launch")
+    errs = {}
+    for i in MULTISEED_HELD:
+        lerr = abs(losses[i] - refs[i]["loss"]) / abs(refs[i]["loss"])
+        gerr = relative_errors(torch, seed_grads(torch, state, names, i),
+                               refs[i]["grads"])
+        worst = max(gerr, key=gerr.get)
+        errs[i] = dict(loss_err=lerr, grad_err=gerr[worst], worst=worst)
+        print(f"{tag} seed {MULTISEED[i]} against its own single-seed step: "
+              f"loss {losses[i]:.6f} vs {refs[i]['loss']:.6f} (rel err "
+              f"{lerr:.3g}, tol {MULTISEED_LOSS_TOL}); worst group {worst} "
+              f"rel err {gerr[worst]:.3g} (tol {MULTISEED_GRAD_TOL}); "
+              + ", ".join(f"{g} {e:.3g}" for g, e in sorted(gerr.items())))
+        check(lerr <= MULTISEED_LOSS_TOL and gerr[worst] <= MULTISEED_GRAD_TOL,
+              f"seed {MULTISEED[i]} of the vmapped step differs from its own "
+              f"step")
+    kernel_grads = [seed_grads(torch, state, names, i) for i in range(S)]
+
+    # against the same vmapped step on the plain versions
+    with plain_versions():
+        plain_losses = probe(torch, state, loss_fn, batches[0])
+    plain = []
+    for i in range(S):
+        e = relative_errors(torch, kernel_grads[i],
+                            seed_grads(torch, state, names, i))
+        plain.append(max(e.values()))
+    plain_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(losses, plain_losses))
+    del kernel_grads
+    print(f"{tag} kernels against plain versions, the same vmapped step: "
+          f"loss rel err {plain_loss:.3g} (tol {IEMOCAP.loss_tol}), worst "
+          f"group by seed " + ", ".join(f"{e:.3g}" for e in plain)
+          + f" (tol {IEMOCAP.grad_tol})")
+    check(plain_loss <= IEMOCAP.loss_tol and max(plain) <= IEMOCAP.grad_tol,
+          "the vmapped step with the kernels differs from the plain one")
+
+    # the planted faults, each its own build of the kernels
+    faults = {}
+    lib = _cuda.library()
+    t_build = time.time()
+    variants = {name: _cuda.load([flag]) for name, flag in SEED_FAULTS.items()}
+    print(f"{tag} planted-fault builds in {time.time() - t_build:.1f} s")
+    for name, variant in variants.items():
+        _cuda._lib = variant
+        try:
+            probe(torch, state, loss_fn, batches[0])
+        finally:
+            _cuda._lib = lib
+        worst = {}
+        for i in MULTISEED_HELD:
+            e = relative_errors(torch, seed_grads(torch, state, names, i),
+                                refs[i]["grads"])
+            worst[MULTISEED[i]] = max(e.values())
+        faults[name] = worst
+        print(f"{tag} planted fault, {name}: worst group by seed {worst}")
+        check(max(worst.values()) > MULTISEED_GRAD_TOL,
+              f"the comparison with the single-seed steps misses a planted "
+              f"fault ({name})")
+    del refs
+    state.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # the folded launches' masks, exactly
+    masks = {D: phase_seed_masks(torch, gen, S, BATCH, 12, 512, D)
+             for D in (25, 64)}
+
+    # MULTISEED_STEPS Adam steps, counters from 0 before each
+    state.optimizer = make_optimizer(list(state.params.values()), LR)
+    step = make_multi_seed_train_step(state, loss_fn,
+                                      with_grad_norm=True)
+    totals = collections.Counter()
+    times, all_losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recording() as train_seen:
+        for i, batch in enumerate(batches):
+            zero_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(batch)
+            step_losses = out["loss"].tolist()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            got = read_launches()
+            totals.update(got)
+            all_losses.append(step_losses)
+            norms = out["grad_norm"].tolist()
+            print(f"{tag} step {i + 1}: losses "
+                  + ", ".join(f"{x:.5f}" for x in step_losses)
+                  + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms)
+                  + f"; {times[-1]:.1f} ms; launches {got}")
+            check(got == want, f"step {i + 1} launches {got}, expected {want}")
+            check(all(math.isfinite(x) for x in step_losses),
+                  f"step {i + 1} losses {step_losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t_vmapped = statistics.median(times)
+    speedup = S * t_single / t_vmapped
+    print(f"{tag} vmapped step median {t_vmapped:.1f} ms over "
+          f"{len(times)} steps, {S} x the single-seed A = 1 step "
+          f"{S * t_single:.1f} ms: S * t_single / t_vmapped = {speedup:.3f}; "
+          f"{S * BATCH / t_vmapped * 1e3:.2f} samples/s; peak "
+          f"{peak:.2f} GiB (max_memory_allocated); card: {card}")
+
+    # one folded launch against S launches at the two classes
+    timing = [folded_timing(torch, timer, gen, S, BATCH, 12, 512, 25, False,
+                            0.1),
+              folded_timing(torch, timer, gen, S, BATCH, 12, 512, 64, True,
+                            0.1)]
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(seen=seen, train_seen=train_seen, totals=totals,
+                step_ms=times, median_ms=t_vmapped, single_ms=t_single,
+                speedup=speedup, peak_gib=peak, losses=all_losses,
+                seed_errors=errs, plain_grad_err=plain,
+                plain_loss_err=plain_loss, planted_faults=faults,
+                masks=masks, folded=timing)
+
+
+#: phase 18's training jobs: the synthetic command of the README at one
+#: epoch, the smallest the CLI trains
+FARM_TRAIN_ARGV = [
+    "--task", "synthetic", "--model", "mmtrvapt", "--batch_sz", "8",
+    "--gradient_accumulation_steps", "2", "--max_epochs", "1",
+    "--num_vectors_l", "32", "--num_vectors_a", "16", "--num_vectors_v",
+    "16", "--orig_d_l", "64", "--orig_d_v", "48", "--orig_d_a", "96",
+    "--orig_d_p", "40", "--hidden_sz", "64", "--num_heads", "4", "--layers",
+    "2", "--max_seq_len", "32", "--audio_raw_len", "576", "--video_len",
+    "16", "--compute_dtype", "float32", "--use_audio_encoder", "1", "--lr",
+    "1e-3", "--patience", "5"]
+FARM_LINE = re.compile(r"^(OK|FAIL\((-?\d+)\)) \[(\d+)s x(\d+)\] (.*)$")
+
+
+def phase_farm(card: str):
+    """Phase 18: ``python -m bpx_torch.cluster.scheduler`` over a jobs file
+    of two training runs on the card and one line that exits 3, two
+    workers, both on card 0, one retry."""
+    import os
+    import shlex
+    tag = "[farm]"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train = [sys.executable, "-m", "bpx_torch.cli.train",
+                 *FARM_TRAIN_ARGV, "--savedir", str(tmp / "runs")]
+        fail_cmd = [sys.executable, "-c", "import sys; sys.exit(3)"]
+        lines = [shlex.join(train + ["--name", f"farm{i}", "--from_seed",
+                                     str(i + 1), "--to_seed", str(i + 1)])
+                 for i in range(2)] + [shlex.join(fail_cmd)]
+        jobs = tmp / "jobs.txt"
+        # a job's log is named by its line in the file: 1, 2, 3
+        jobs.write_text("# phase 18: two training runs and a failing line\n"
+                        + "\n".join(lines) + "\n\n")
+        logs = tmp / "logs"
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bpx_torch.cluster.scheduler", str(jobs),
+             "--workers", "2", "--log_dir", str(logs), "--max_retries", "1"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+        wall = time.time() - t0
+        print(f"{tag} scheduler exit {proc.returncode} in {wall:.1f} s:\n"
+              + proc.stdout.rstrip())
+        results = {}
+        for line in proc.stdout.splitlines():
+            m = FARM_LINE.match(line)
+            if m:
+                results[m.group(5)] = dict(rc=int(m.group(2) or 0),
+                                           seconds=int(m.group(3)),
+                                           attempts=int(m.group(4)))
+        check(proc.returncode == 1, f"the farm exited {proc.returncode}, "
+                                    f"expected 1 (one job fails): "
+                                    f"{proc.stderr[-2000:]}")
+        check(set(results) == set(lines), f"the farm reported {results}")
+        check(results[lines[2]] == dict(results[lines[2]], rc=3, attempts=2),
+              f"the failing line: {results[lines[2]]}")
+        log_files = sorted(p.name for p in logs.iterdir())
+        check(log_files == [f"job{i:04d}.log" for i in (1, 2, 3)],
+              f"job logs {log_files}")
+        devices = []
+        for i in range(2):
+            check(results[lines[i]]["rc"] == 0
+                  and results[lines[i]]["attempts"] == 1,
+                  f"training job {i}: {results[lines[i]]}")
+            text = (logs / f"job{i + 1:04d}.log").read_text()
+            m = re.search(r"params on (\S+)", text)
+            check(m is not None and m.group(1).startswith("cuda"),
+                  f"training job {i}'s log does not name the card: "
+                  f"{text[-1500:]}")
+            devices.append(m.group(1))
+        print(f"{tag} both training jobs rc 0 on {devices}, the failing line "
+              f"rc 3 after 2 attempts, {len(log_files)} logs; card: {card}")
+        return dict(wall_s=wall, results=list(results.values()),
+                    devices=devices)
 
 
 def short_launches(seen, kind) -> int:
@@ -2955,6 +3441,27 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[time] loop phase {time.time() - t0:.1f} s")
 
+    # phase 17: iemocap's five seeds in one vmapped step, the folded
+    # launches held against the plain versions at their S·B classes
+    t0 = time.time()
+    multi = phase_multiseed(torch, np, timer, gen, card)
+    ms_flash_rows = phase_flash(torch, timer, multi["seen"]["flash"], gen,
+                                label="flash multiseed")
+    ms_bwd_rows = phase_flash_bwd(torch, timer, multi["seen"]["flash_bwd"],
+                                  gen, label="flash_bwd multiseed")
+    # the LayerNorms run per seed, at iemocap's classes (held in phase 8)
+    ln_new = (new_classes(multi["seen"]["ln"], set(i_ln_cls)
+                          | set(i_seen["ln"]))
+              | new_classes(multi["seen"]["ln_bwd"], set(i_seen["ln_bwd"])))
+    check(not ln_new, f"the vmapped step's LayerNorm classes {ln_new} were "
+                      f"not held against the plain versions")
+    print(f"[time] multiseed phase {time.time() - t0:.1f} s")
+
+    # phase 18: the task farm on the card
+    t0 = time.time()
+    farm = phase_farm(card)
+    print(f"[time] farm phase {time.time() - t0:.1f} s")
+
     steps = TRAIN_STEPS * TRAIN_A
     fwd_src = "bpx_torch/csrc/flash_fwd.cu"
     bwd_src = "bpx_torch/csrc/flash_bwd.cu"
@@ -3078,6 +3585,20 @@ def main() -> None:
         summarise("layer_norm_bwd_hybrid", ln_bwd_src, "bpx/ops/norm.py:69",
                   opts["h_ln_bwd"], hybrid_launches(opts, "ln_bwd"),
                   RADAM_STEPS + TRAIN_A, "micro_step"),
+        # phase 17: the folded launches at iemocap's S·B classes (launches
+        # those of the vmapped steps), the LayerNorms per seed at iemocap's
+        # classes
+        summarise("flash_fwd_multiseed", fwd_src, fwd_tpu, ms_flash_rows,
+                  multi["totals"]["flash"], MULTISEED_STEPS, "micro_step"),
+        summarise("flash_bwd_multiseed", bwd_src, bwd_tpu, ms_bwd_rows,
+                  multi["totals"]["flash_bwd"], MULTISEED_STEPS,
+                  "micro_step"),
+        summarise("layer_norm_fwd_multiseed", ln_src, "bpx/ops/norm.py:53",
+                  i_ln_rows, multi["totals"]["ln"], MULTISEED_STEPS,
+                  "micro_step"),
+        summarise("layer_norm_bwd_multiseed", ln_bwd_src,
+                  "bpx/ops/norm.py:69", i_ln_bwd_rows,
+                  multi["totals"]["ln_bwd"], MULTISEED_STEPS, "micro_step"),
     ]
     print(f"[summary] moviescope: served median request "
           f"{served['median_ms']:.2f} ms; train step median "
@@ -3148,6 +3669,21 @@ def main() -> None:
         f"without / {r['peak_gib'][True]:.2f} GiB with, batch {r['batch']} "
         f"step {r['step_ms']:.1f} ms at {r['step_peak_gib']:.2f} GiB"
         for p, r in remat.items()) + f"; card: {card}")
+    print(f"[summary] multiseed: iemocap, {len(MULTISEED)} seeds in one "
+          f"vmapped step: median {multi['median_ms']:.1f} ms, single-seed "
+          f"A = 1 step {multi['single_ms']:.1f} ms, S * t_single / "
+          f"t_vmapped {multi['speedup']:.3f}, peak {multi['peak_gib']:.2f} "
+          f"GiB; seeds against their own steps: " + ", ".join(
+              f"seed {MULTISEED[i]} loss {e['loss_err']:.3g} gradients "
+              f"{e['grad_err']:.3g}" for i, e in multi["seed_errors"].items())
+          + f"; planted faults {multi['planted_faults']}; against plain "
+          f"versions: loss {multi['plain_loss_err']:.3g}, gradients "
+          f"{max(multi['plain_grad_err']):.3g}; folded launch / "
+          f"{len(MULTISEED)} launches: " + ", ".join(
+              f"D {f['shape'][3]} forward {f['fwd'] / f['fwd_s']:.2f}x, "
+              f"backward {f['bwd'] / f['bwd_s']:.2f}x"
+              for f in multi["folded"])
+          + f"; task farm {farm['wall_s']:.1f} s; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -47,19 +47,56 @@ RATES = (0.0, 0.1)
 SEED = 0x7F4A7C15
 
 
-def build(label, src_dir, base_flags, flags, kernel="bwd"):
+class OneSeedLibrary:
+    """A library built from a tree older than the seed groups, whose flash
+    entry points take one dropout seed (on, seed, threshold, inv_keep,
+    tk_p) where this tree's take (on, seeds, groups, threshold, inv_keep,
+    tk_p): the calls of this tree's wrappers, with one seed group, passed
+    on in the older form.  Everything else passes through."""
+
+    def __init__(self, lib):
+        import ctypes
+        p, i, f, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_longlong, ctypes.c_uint)
+        lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12
+                                      + [i, i] + [i, u, u, f, i] + [p])
+        lib.bpx_flash_bwd.argtypes = ([p] * 11 + [i] * 5 + [ll] * 24
+                                      + [i, i] + [i, u, u, f, i] + [p])
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    @staticmethod
+    def _one_seed(args, at):
+        on, seeds, groups = args[at:at + 3]
+        if groups != 1:
+            raise ValueError("a one-seed build takes one seed group")
+        return (*args[:at], on, seeds[0] if on else 0, *args[at + 3:])
+
+    def bpx_flash_fwd(self, *args):
+        return self._lib.bpx_flash_fwd(*self._one_seed(args, 25))
+
+    def bpx_flash_bwd(self, *args):
+        return self._lib.bpx_flash_bwd(*self._one_seed(args, 42))
+
+
+def build(label, src_dir, flags, kernel="bwd"):
     """Build and load one library; returns a dict with the library, ptxas'
     lines of the forward or backward kernels (and its wgmma warnings), the
-    blocks per SM; None if the build fails."""
+    blocks per SM; None if the build fails.  A tree without seed groups
+    (``kMaxSeedGroups`` in ``flash_common.cuh``) loads as a
+    :class:`OneSeedLibrary`."""
     from bpx_torch.ops import _cuda
     _cuda.SRC_DIR = Path(src_dir)
-    _cuda.CFLAGS = base_flags + list(flags)
-    _cuda._lib = None
     try:
-        lib = _cuda.library()
+        lib = _cuda._lib = _cuda.load(flags)
     except RuntimeError as e:
         print(f"[{label}] build failed: {str(e)[:4000]}")
         return None
+    common = (Path(src_dir) / "flash_common.cuh").read_text()
+    if "kMaxSeedGroups" not in common:
+        lib = _cuda._lib = OneSeedLibrary(lib)
     lines, name, spill = [], "", ""
     for line in _cuda.build_log.splitlines():
         if "Compiling entry function" in line:
@@ -100,22 +137,20 @@ def main() -> None:
         sys.exit("torch_flash_bwd_narrow: no CUDA device")
     from bpx_torch.ops import _cuda
     from bpx_torch.ops import flash_attention as fa
-    base_flags = list(_cuda.CFLAGS)
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"card: {card.strip()}")
     here = ROOT / "bpx_torch" / "csrc"
     kernel = args.kernel
-    builds = [build("this", here, base_flags, [], kernel)]
+    builds = [build("this", here, [], kernel)]
     for spec in args.tree:
         label, d = spec.split("=", 1)
-        builds.append(build(label, ROOT / d / "bpx_torch" / "csrc",
-                            base_flags, [], kernel))
+        builds.append(build(label, ROOT / d / "bpx_torch" / "csrc", [],
+                            kernel))
     for spec in args.variant:
         label, flags = spec.split("=", 1)
-        builds.append(build(label, here, base_flags, flags.split(","),
-                            kernel))
+        builds.append(build(label, here, flags.split(","), kernel))
     builds = [b for b in builds if b is not None]
 
     timer = cs.Timer(torch)

@@ -106,12 +106,13 @@ def test_flash_kernel_matches_plain(gen, B, H, Tq, Tk, D, masked, lens,
     assert torch.equal(out, again) and torch.equal(lse, again_lse)
 
 
-@pytest.mark.parametrize("D,kernel", [(64, "flash_fwd_kernel<64>"),
-                                      (96, "flash_fwd_kernel<96>"),
-                                      (128, "flash_fwd_wide_kernel<128>")])
+@pytest.mark.parametrize("D,kernel", [
+    (64, "flash_fwd_kernel<64, false>"), (96, "flash_fwd_kernel<96, false>"),
+    (128, "flash_fwd_wide_kernel<128, false>")])
 def test_flash_forward_kernel_names(gen, D, kernel):
     """The profiler names the forward's one device kernel: the generic
-    kernel at head_dim 64 and 96, the wide kernel at 128."""
+    kernel at head_dim 64 and 96, the wide kernel at 128, each in its
+    instantiation for one seed group."""
     q, k, v = _qkv(gen, 2, 3, 200, 200, D)
     for _ in range(3):   # the profiler drops an event now and then: retry
         names = _device_kernels(lambda: flash_attention(q, k, v, True))
@@ -906,7 +907,7 @@ def test_custom_ops_on_card(gen, D):
     q, k, v = _qkv(gen, 2, 3, 96, 160, D)
     lens = torch.tensor([160, 33], dtype=torch.int32, device="cuda")
     for args in ((q, k, v, None, True, 0.0, None),
-                 (q, k, v, lens, False, 0.1, 9)):
+                 (q, k, v, lens, False, 0.1, [9])):
         torch.library.opcheck(ops.flash_fwd.default, args, test_utils=only)
         out, lse = ops.flash_fwd(*args)
         dout = torch.randn_like(out)
@@ -937,3 +938,64 @@ def test_custom_ops_on_card(gen, D):
         out.float().sum().backward()
         launched[name] = flash_attention.launches - before
     assert launched == {None: 2, "save_attn": 1}
+
+
+# the multi-seed step's folded launches: S seed groups of B batch rows
+SEED_GROUPS = [0x1234567, 0xDEADBEEF, 7, 0xFFFFFFFF, 99]
+
+
+@pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (64, 12), (96, 8),
+                                 (128, 6)])
+@pytest.mark.parametrize("kv", [False, True])
+def test_folded_seed_groups_equal_their_own_launches(gen, D, H, kv):
+    """One launch over S groups with one seed each: each group's O, lse,
+    dQ, dK and dV bitwise equal to a launch over that group alone with its
+    seed; one group (a list of one) is the single-seed launch itself."""
+    S, B, T = len(SEED_GROUPS), 2, 200
+    q, k, v = _qkv(gen, S * B, H, T, T, D)
+    dout = torch.randn_like(q)
+    lens = (torch.tensor([T, 77] * S, dtype=torch.int32, device="cuda")
+            if kv else None)
+    out, lse = flash_attention(q, k, v, not kv, lens, 0.1, SEED_GROUPS,
+                               return_lse=True)
+    grads = flash_attention_backward(q, k, v, out, lse, dout, not kv, lens,
+                                     0.1, SEED_GROUPS)
+    for s, seed in enumerate(SEED_GROUPS):
+        rows = slice(s * B, (s + 1) * B)
+        part = lambda t: None if t is None else t[rows]
+        o1, l1 = flash_attention(q[rows], k[rows], v[rows], not kv,
+                                 part(lens), 0.1, seed, return_lse=True)
+        assert torch.equal(out[rows], o1) and torch.equal(lse[rows], l1)
+        g1 = flash_attention_backward(q[rows], k[rows], v[rows], o1, l1,
+                                      dout[rows], not kv, part(lens), 0.1,
+                                      seed)
+        assert all(torch.equal(g[rows], w) for g, w in zip(grads, g1))
+        o2 = flash_attention(q[rows], k[rows], v[rows], not kv, part(lens),
+                             0.1, [seed])
+        assert torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize("D", [25, 64])
+def test_vmapped_flash_is_one_launch_without_copies(gen, D):
+    """Under vmap the seeds fold into one launch each way, through views
+    of the (S, B, T, 3, H, D) projection, equal to the loop over seeds."""
+    from torch.func import vmap
+    from bpx_torch.ops import flash_attention as fa
+    S, B, H, T = len(SEED_GROUPS), 2, 12, 128
+    qkv = torch.randn(S, B, T, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    q, k, v = (qkv[:, :, :, i].transpose(2, 3) for i in range(3))
+    fa.flash_attention.fold_copies = 0
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    out = vmap(lambda a, b, c: flash_attention(a, b, c, True, None, 0.1,
+                                               SEED_GROUPS))(q, k, v)
+    dout = torch.randn_like(out)
+    (got,) = torch.autograd.grad(out, qkv, dout)
+    assert (flash_attention.launches - before[0],
+            flash_attention_backward.launches - before[1]) == (1, 1)
+    assert fa.flash_attention.fold_copies == 0
+    ref = torch.stack([flash_attention(q[s], k[s], v[s], True, None, 0.1,
+                                       seed)
+                       for s, seed in enumerate(SEED_GROUPS)])
+    (want,) = torch.autograd.grad(ref, qkv, dout)
+    assert torch.equal(out, ref) and torch.equal(got, want)

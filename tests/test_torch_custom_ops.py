@@ -46,7 +46,8 @@ FLASH_CASES = [(D, kv, masked, rate) for D in (25, 64)
 def _flash_args(D, kv, masked, rate):
     q, k, v, dout = _qkv(D)
     kv_lens = torch.tensor([TK, 4], dtype=torch.int32) if kv else None
-    return q, k, v, dout, kv_lens, masked, rate, (1234 if rate else None)
+    # the ops take a list of seeds, one per group of the batch
+    return q, k, v, dout, kv_lens, masked, rate, ([1234] if rate else None)
 
 
 @pytest.mark.parametrize("D,kv,masked,rate", FLASH_CASES)

@@ -68,6 +68,12 @@ def test_training_loop_packages_are_covered():
         assert ("bpx_torch", sub) in parts, sub
 
 
+def test_multiseed_and_cluster_are_covered():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"bpx_torch/train/multiseed.py", "bpx_torch/cluster/__init__.py",
+            "bpx_torch/cluster/scheduler.py"} <= files
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_level_h5py(path):
