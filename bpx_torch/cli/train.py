@@ -16,8 +16,9 @@ Notes:
   unused;
 * ``--train_type cross`` runs the 10-fold cross-validation partitions;
 * ``--device`` (default "cuda") places the model; "cpu" runs the plain
-  PyTorch versions of the kernels on the host.  Models not ported yet
-  raise (``get_model``).
+  PyTorch versions of the kernels on the host.  Every ``--model`` of the
+  JAX package trains, the notebook-era ones too (``models/legacy.py``);
+  ``--hybrid`` with a notebook-era model raises (``get_model``).
 """
 
 from __future__ import annotations

@@ -118,12 +118,27 @@
 // backward reaches about a fifth of its bound: a tile step is still a
 // serial chain per warpgroup, and one dK/dV block an SM holds two.
 //
+// D = 192 (mmtrvpa's 2E-wide memory encoders at moviescope's widths: 1536 /
+// 8) has kernels of its own (flash_bwd_colsplit_*), launched as at D 64/96
+// (delta, dK/dV, dQ).  A thread of the D 128 dK/dV kernel would hold dK
+// and dV at 96 + 96 fp32 beside S^T and dP^T and spill, so both kernels
+// run two warpgroups a block that split the columns: each computes the
+// whole S^T and dP^T (S and dP in the dQ kernel), whose reduction runs
+// over every column, then dK, dV (dQ) for its 96 columns only, as
+// m64n96k16 with B read from its half of the tile's panels.  The price is
+// S and dP computed twice a block; a thread holds 48 + 48 fp32 of dK and
+// dV beside S^T and dP^T (48 of dQ beside S and dP).  K and V (Q and dO)
+// resident, three stages of Q, dO, lse and delta (K and V): 196 KB (193
+// KB), one block of 256 threads an SM.  A kernel that is right first;
+// none of the D 128 or narrow kernels' steps (delta in the dQ kernel, the
+// dependent launch, the longest blocks first) is carried over.
+//
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
 // against q, k, v, dO, o read and dq, dk, dv written once; at the model's
-// shapes (T <= 512, D <= 128) the bytes bound it.
+// shapes (T <= 512, D <= 192) the bytes bound it.
 //
 // Inputs and outputs are (B, H, T, D) tensors addressed by strides (last dim
-// contiguous; D = 64, 96, 128: strides multiples of 8 elements, 16-byte
+// contiguous; D = 64, 96, 128, 192: strides multiples of 8 elements, 16-byte
 // aligned pointers; D = 30: even strides, 4-byte aligned; D = 25: any
 // strides); lse and the delta workspace are (B*H, Tq) fp32.
 
@@ -203,16 +218,17 @@ __device__ __forceinline__ void store_rows(
 }
 
 // delta[bh, t] = sum_d dO[b, h, t, d] * O[b, h, t, d] in fp32: half a warp
-// per row, lanes summed in a fixed order.  D = 64, 96, 128: 16 bytes of each
-// per lane; a narrow head (its rows 2- or 4-byte aligned): columns lane and
-// lane + 16, in 2-byte loads.
+// per row, lanes summed in a fixed order.  D = 64, 96, 128, 192: 16 bytes of
+// each per lane (at D 192 lanes 0-7 take a second chunk, 16 on); a narrow
+// head (its rows 2- or 4-byte aligned): columns lane and lane + 16, in
+// 2-byte loads.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
                    float* delta, int H, int T, int rows, long long o_sb,
                    long long o_sh, long long o_st, long long do_sb,
                    long long do_sh, long long do_st) {
-  static_assert((D % 8 == 0 && D <= 128) || D <= 32,
+  static_assert(D % 32 == 0 || D <= 32,
                 "16-byte chunks or two columns per lane");
   const int row = blockIdx.x * 16 + threadIdx.x / 16;
   const int lane = threadIdx.x % 16;
@@ -223,9 +239,10 @@ flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
     const __nv_bfloat16* x = o + b * o_sb + h * o_sh + t * o_st;
     const __nv_bfloat16* y = dout + b * do_sb + h * do_sh + t * do_st;
     if constexpr (D % 32 == 0) {
-      if (lane < D / 8) {
-        const uint4 xc = *reinterpret_cast<const uint4*>(x + lane * 8);
-        const uint4 yc = *reinterpret_cast<const uint4*>(y + lane * 8);
+#pragma unroll
+      for (int c = lane; c < D / 8; c += 16) {
+        const uint4 xc = *reinterpret_cast<const uint4*>(x + c * 8);
+        const uint4 yc = *reinterpret_cast<const uint4*>(y + c * 8);
         const __nv_bfloat162* xv =
             reinterpret_cast<const __nv_bfloat162*>(&xc);
         const __nv_bfloat162* yv =
@@ -1397,6 +1414,350 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
 }
 
+// ---------------------------------------------------------------------------
+// D = 192: delta, then dK/dV and dQ over columns split between two
+// warpgroups (the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kColsplitThreads = 2 * kThreads;  // two warpgroups a block
+constexpr int kColsplitStages = 3;              // streamed tiles in flight
+
+// K and V resident, kColsplitStages x (Q, dO, lse, delta); +1 KB.
+template <int D>
+__host__ __device__ constexpr int colsplit_dkdv_smem_bytes() {
+  return 2 * tile_bytes<D>() + kColsplitStages * dkdv_stage_bytes<D>() + 1024;
+}
+
+// Q and dO resident, kColsplitStages x (K, V); +1 KB.
+template <int D>
+__host__ __device__ constexpr int colsplit_dq_smem_bytes() {
+  return (2 + 2 * kColsplitStages) * tile_bytes<D>() + 1024;
+}
+
+// One (batch*head, 64-key tile): dK and dV, warpgroup w their columns
+// DP/2 w .. DP/2 w + DP/2 - 1.  Both warpgroups compute the whole S^T =
+// K Q^T and dP^T = V dO^T of each query tile (the reduction runs over every
+// column), then dV += P^T dO and dK += dS^T Q over their half of the
+// columns (m64n96k16, B MN-major from the half's first panel); nothing is
+// exchanged and each stores its own columns.  Warpgroup 0 loads K and each
+// stage's Q and lse, warpgroup 1 V, dO and delta; one block barrier a step.
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kColsplitThreads, 1)
+flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
+  constexpr int DP = padded_dim<D>();
+  constexpr int DH = DP / 2;   // columns of dK and dV a warpgroup takes
+  static_assert(DH % 32 == 0, "whole panels a warpgroup");
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kStage = dkdv_stage_bytes<D>();
+  constexpr int kKSteps = DP / 16;
+  constexpr int kStages = kColsplitStages;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t stage0 = v_s + kTile;   // stage s: Q, dO, lse, delta
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
+  const int k0 = blockIdx.x * kRows;
+  const int wg = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
+  const uint32_t half = wg * (DH / 32) * kPanelBytes;   // its first panel
+
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* ob = p.dout + b * p.o_sb + h * p.o_sh;
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float* dl_b = p.delta + (long long)bh * Tq;
+
+  float dk[DH / 2], dv[DH / 2], st[32], dpt[32];
+  zero(dk);
+  zero(dv);
+  zero(st);
+  zero(dpt);
+
+  // query tiles that see a key of this tile: none past kv_len; with the
+  // band, only rows with row + offset >= k0
+  const int q_begin = p.masked ? max(0, k0 - p.offset) / kRows : 0;
+  const int q_end = k0 >= kv_len ? 0 : (Tq + kRows - 1) / kRows;
+  const int n_tiles = max(0, q_end - q_begin);
+
+  // query tile q_begin + i goes to ring stage i mod kStages: Q and lse by
+  // warpgroup 0, dO and delta by warpgroup 1
+  auto load_stage = [&](int i) {
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t dst = stage0 + (i % kStages) * kStage;
+    load_tile_by<D>(tid, dst + wg * kTile, wg == 0 ? qb : ob,
+                    wg == 0 ? p.q_st : p.o_st, q0, Tq);
+    if (tid < kRows) {
+      const bool ok = q0 + tid < Tq;
+      const float* src = wg == 0 ? lse_b : dl_b;
+      cp_async_4(dst + 2 * kTile + wg * 4 * kRows + tid * 4,
+                 ok ? src + q0 + tid : src, ok);
+    }
+  };
+
+  if (n_tiles > 0) {
+    load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
+                    wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                            : p.v + b * p.v_sb + h * p.v_sh,
+                    wg == 0 ? p.k_st : p.v_st, k0, Tk);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_stage(i);
+    cp_async_commit();
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (i + kStages - 1 < n_tiles) load_stage(i + kStages - 1);
+    cp_async_commit();
+
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t q_s = stage0 + (i % kStages) * kStage;
+    const uint32_t o_s = q_s + kTile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
+    const float* dl_s = lse_s + kRows;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(st, desc_k_major(k_s, kk), desc_k_major(q_s, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T (masked entries 0), dropout, dS^T; the dropped P^T replaces S^T
+    // and dS^T replaces dP^T in place
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);   // query in tile
+      st[i2] = ex2(fmaf(st[i2], kLog2e, -lse_s[qi] * kLog2e));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i2 = 0; i2 < 32; ++i2) {
+        const int row = q0 + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+        const int col = (i2 & 2) ? key0 + 8 : key0;
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          st[i2] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+      const int row = q0 + qi;
+      const int col = (i2 & 2) ? key0 + 8 : key0;
+      const float pr = st[i2];
+      float dpr = dpt[i2];
+      float pdr = pr;
+      if (p.drop.on) {
+        const bool kept = p.drop.keep<Groups>(dblk, row, col);
+        pdr = kept ? pr * p.drop.inv_keep : 0.f;
+        dpr = kept ? dpr * p.drop.inv_keep : 0.f;
+      }
+      dpt[i2] = pr * (dpr - dl_s[qi]);
+      st[i2] = pdr;
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's columns, A from
+    // registers, B MN-major
+    uint32_t pa[4][4], da[4][4];
+    p_frags(pa, st);
+    p_frags(da, dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DH>(dv, pa[kc], desc_mn_major(o_s + half, kc));
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DH>(dk, da[kc], desc_mn_major(q_s + half, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+  }
+  cp_async_wait<0>();
+
+  store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
+                 Tk, dk, t4);
+  store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
+                 Tk, dv, t4);
+}
+
+// One (batch*head, 64-query tile): dQ, warpgroup w its columns DP/2 w ..
+// DP/2 w + DP/2 - 1.  Both warpgroups compute the whole S = Q K^T and
+// dP = dO V^T of each key tile, then dQ += dS K over their half of the
+// columns.  Warpgroup 0 loads Q and each stage's K, warpgroup 1 dO and V.
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kColsplitThreads, 1)
+flash_bwd_colsplit_dq_kernel(const BwdParams p) {
+  constexpr int DP = padded_dim<D>();
+  constexpr int DH = DP / 2;   // columns of dQ a warpgroup takes
+  static_assert(DH % 32 == 0, "whole panels a warpgroup");
+  constexpr int kStages = kColsplitStages;
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kKSteps = DP / 16;
+  extern __shared__ unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t o_s = q_s + kTile;        // dO
+  const uint32_t kv_s = o_s + kTile;   // stage s: K at + 2 s kTile, V after
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
+  const int q0 = blockIdx.x * kRows;
+  const int wg = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
+  const uint32_t half = wg * (DH / 32) * kPanelBytes;   // its first panel
+
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float* dl_b = p.delta + (long long)bh * Tq;
+  const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
+  const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
+  const float dl0 = row0 < Tq ? dl_b[row0] : 0.f;
+  const float dl1 = row0 + 8 < Tq ? dl_b[row0 + 8] : 0.f;
+
+  float dq[DH / 2], s[32], dp[32];
+  zero(dq);
+  zero(s);
+  zero(dp);
+
+  // key tiles with a visible key: none past kv_len, none above the band
+  int n_tiles = (max(kv_end, 0) + kRows - 1) / kRows;
+  if (p.masked) {
+    n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
+  }
+  const __nv_bfloat16* kvb = wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                                     : p.v + b * p.v_sb + h * p.v_sh;
+  const long long kv_st = wg == 0 ? p.k_st : p.v_st;
+
+  // key tile t goes to ring stage t mod kStages: K by warpgroup 0, V by
+  // warpgroup 1
+  auto load_kv = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
+    load_tile_by<D>(tid, dst + wg * kTile, kvb, kv_st, t * kRows, Tk);
+  };
+  if (n_tiles > 0) {
+    load_tile_by<D>(tid, wg == 0 ? q_s : o_s,
+                    wg == 0 ? p.q + b * p.q_sb + h * p.q_sh
+                            : p.dout + b * p.o_sb + h * p.o_sh,
+                    wg == 0 ? p.q_st : p.o_st, q0, Tq);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + kStages - 1 < n_tiles) load_kv(kt + kStages - 1);
+    cp_async_commit();
+    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
+    const uint32_t v_s = k_s + kTile;
+    const int k0 = kt * kRows;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(dp, desc_k_major(o_s, kk), desc_k_major(v_s, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? lsel1 : lsel0)));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = (i & 2) ? row0 + 8 : row0;
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          s[i] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hi = i & 2;
+      const int row = hi ? row0 + 8 : row0;
+      const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+      const float pr = s[i];
+      float dpr = dp[i];
+      if (p.drop.on) {
+        dpr = p.drop.keep<Groups>(dblk, row, col) ? dpr * p.drop.inv_keep : 0.f;
+      }
+      s[i] = pr * (dpr - (hi ? dl1 : dl0));   // dS
+    }
+
+    // dQ += dS K over this warpgroup's columns, dS from registers, K
+    // MN-major
+    uint32_t da[4][4];
+    p_frags(da, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DH>(dq, da[kc], desc_mn_major(k_s + half, kc));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+  }
+  cp_async_wait<0>();
+
+  store_rows<DH>(p.dq + b * p.dq_sb + h * p.dq_sh + wg * DH, p.dq_st, row0,
+                 Tq, dq, t4);
+}
+
 template <int D>
 cudaError_t launch_delta(const __nv_bfloat16* o, const __nv_bfloat16* dout,
                          float* delta, int B, int H, int T, long long o_sb,
@@ -1491,6 +1852,35 @@ cudaError_t launch_wide(const BwdParams& p, const __nv_bfloat16* o,
       kWideThreads, smem_dkdv, p, o, o_sb, o_sh, o_st, s);
 }
 
+// The backward at D = 192: the delta kernel, then the column-split dK/dV
+// and dQ kernels.
+template <int D, bool Groups>
+cudaError_t launch_colsplit(const BwdParams& p, const __nv_bfloat16* o,
+                            long long o_sb, long long o_sh, long long o_st,
+                            cudaStream_t s) {
+  static bool smem_dkdv = false, smem_dq = false;
+  constexpr int dkdv_bytes = colsplit_dkdv_smem_bytes<D>();
+  constexpr int dq_bytes = colsplit_dq_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_colsplit_dkdv_kernel<D, Groups>,
+                               dkdv_bytes, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_colsplit_dq_kernel<D, Groups>, dq_bytes,
+                   smem_dq);
+  if (err != cudaSuccess) return err;
+  err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
+                        p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H);
+  flash_bwd_colsplit_dkdv_kernel<D, Groups>
+      <<<grid_kv, kColsplitThreads, dkdv_bytes, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((p.Tq + kRows - 1) / kRows, p.B * p.H);
+  flash_bwd_colsplit_dq_kernel<D, Groups>
+      <<<grid_q, kColsplitThreads, dq_bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1554,6 +1944,8 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
         return launch_narrow<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       } else if constexpr (padded_dim<kD>() == 128) {
         return launch_wide<kD, true>(p, ob, o_sb, o_sh, o_st, s);
+      } else if constexpr (padded_dim<kD>() == 192) {
+        return launch_colsplit<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       } else {
         return launch<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       }
@@ -1562,6 +1954,8 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
       return launch_narrow<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else if constexpr (padded_dim<kD>() == 128) {
       return launch_wide<kD, false>(p, ob, o_sb, o_sh, o_st, s);
+    } else if constexpr (padded_dim<kD>() == 192) {
+      return launch_colsplit<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else {
       return launch<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     }
@@ -1604,6 +1998,15 @@ int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
                                             blocks, kWideThreads)
                  : bpx_flash::blocks_per_sm(flash_bwd_wide_dq_kernel<kD>,
                                             dq_smem_bytes<kD>(), blocks);
+    } else if constexpr (padded_dim<kD>() == 192) {
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(
+                       flash_bwd_colsplit_dkdv_kernel<kD>,
+                       colsplit_dkdv_smem_bytes<kD>(), blocks,
+                       kColsplitThreads)
+                 : bpx_flash::blocks_per_sm(flash_bwd_colsplit_dq_kernel<kD>,
+                                            colsplit_dq_smem_bytes<kD>(),
+                                            blocks, kColsplitThreads);
     } else {
       return kernel == 0
                  ? bpx_flash::blocks_per_sm(flash_bwd_dkdv_kernel<kD>,

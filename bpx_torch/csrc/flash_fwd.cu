@@ -96,14 +96,22 @@
 // the keep bits computed while S runs, and a stated minimum of 2 blocks
 // measured slower or no faster.
 //
+// D = 192 (mmtrvpa's 2E-wide memory encoders at moviescope's widths: 1536 /
+// 8) runs flash_fwd_kernel, the D 64/96 kernel, over six panels: S in 12
+// k-steps, O += P V as m64n192k16 (96 fp32 accumulators a thread beside
+// S's 32).  Q and 3 K and 3 V tiles take 169 KB of shared memory: one
+// block an SM.  A kernel that is right first: nothing of the D 128
+// kernel's overlap is carried over.
+//
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
 // 128) the arithmetic intensity is below the card's ~295 flop/byte balance
-// point, so the bound is the bytes.
+// point, so the bound is the bytes (at D 192 too: 4 D flops per score
+// against 8 D bytes per row of q, k, v and o).
 //
 // Inputs are (B, H, T, D) tensors addressed by strides (the last dim
 // contiguous), so the q/k/v views of a fused projection need no copy.
-// D = 64, 96, 128: every stride a multiple of 8 elements and pointers
+// D = 64, 96, 128, 192: every stride a multiple of 8 elements and pointers
 // 16-byte aligned; D = 30: even strides, 4-byte aligned pointers; D = 25:
 // any strides (its rows start at any even byte).
 

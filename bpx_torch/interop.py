@@ -23,8 +23,13 @@ The rules cover both models' trees: mmtrvapt's, and mmtrvat's (no poster,
 no ``transfm_*``; a 3-ary ``gmu``, or ``mag`` with its Dense layers and
 ``mag/norm``), with ``hybrid`` (``trans_*_early``, ``proj_*_e``, whose
 Dense kernel (T, reduced_dim) becomes ``weight (reduced_dim, T)``,
-``gmu_early``) and with ``group_encoders``.  A leaf with no rule, and any
-key that the model has and the tree lacks or the other way round, raises.
+``gmu_early``) and with ``group_encoders``; and the notebook-era models'
+trees, whose new leaves are Dense kernels and biases (BERT's ``pooler``,
+the GMU variants' ``x1_gate``, ``x2_gate`` and ``transform_i``, the
+``hidden_i`` and ``x_gates`` of a GMU over 2E-wide inputs, ``out_layer``
+and ``clf``) and whose memory encoders are unrolled encoders.  A leaf with
+no rule, and any key that the model has and the tree lacks or the other
+way round, raises.
 :func:`stacked_params_from_flax` carries the multi-seed tree (a leading
 seed axis on every leaf) into the multi-seed state's stacked parameters.
 """

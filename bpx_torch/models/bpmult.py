@@ -120,34 +120,39 @@ class _BPMulTBase(nn.Module):
                              "dropout rate)")
         if cfg.hybrid and cfg.fusion == "mag":
             raise ValueError("fusion='mag' is incompatible with hybrid")
-        self.config = cfg
-        self.dtype = compute_dtype(cfg)
+        return self._seeded(cfg, seed, device)
+
+    def _seeded(self, config: ModelConfig, seed: int, device):
+        """The config, the compute dtype and the generator the weights are
+        drawn from (none on the meta device); returns (gen, device)."""
+        self.config = config
+        self.dtype = compute_dtype(config)
         device = torch.device(device) if device is not None else None
         gen = None
         if device is None or device.type != "meta":
             gen = torch.Generator(device=device or "cpu").manual_seed(seed)
         return gen, device
 
-    def _make_inputs(self, gen, device):
-        """BERT, the audio encoder (when used) and the stream projections
-        to ``hidden_sz`` (only where the widths differ)."""
+    def _make_inputs(self, gen, device, streams: str = "lva",
+                     with_pooler: bool = False):
+        """BERT (with its pooler if ``with_pooler``), the audio encoder
+        (when used and "a" is in ``streams``) and the projections to
+        ``hidden_sz`` of the ``streams`` (only where the widths differ)."""
         cfg, dt, E = self.config, self.dtype, self.config.hidden_sz
         self.bert = BertEncoder(
             cfg.bert, dt, gen, device,
             cfg.bert_attention_impl or cfg.attention_impl,
             remat=cfg.remat if cfg.remat_bert is None else cfg.remat_bert,
-            remat_policy=cfg.remat_policy_bert)
-        if cfg.use_audio_encoder:
+            remat_policy=cfg.remat_policy_bert, with_pooler=with_pooler)
+        if cfg.use_audio_encoder and "a" in streams:
             self.audio_enc = make_audio_encoder(
                 cfg.audio_encoder, cfg.orig_d_a, cfg.num_vectors_a, dt, gen,
                 device)
         proj = lambda d_in: linear(d_in, E, False, "lecun", gen, device)
-        if cfg.orig_d_l != E:
-            self.proj_l = proj(cfg.orig_d_l)
-        if cfg.orig_d_v != E:
-            self.proj_v = proj(cfg.orig_d_v)
-        if cfg.orig_d_a != E:
-            self.proj_a = proj(cfg.orig_d_a)
+        for m in streams:
+            d_in = getattr(cfg, f"orig_d_{m}")
+            if d_in != E:
+                setattr(self, f"proj_{m}", proj(d_in))
         return proj
 
     def _encoder(self, attn_dropout, layers, biprojection, gen, device,
@@ -311,28 +316,36 @@ class _BPMulTBase(nn.Module):
                 cross("trans_v_with_l2a", proj_v, h_a_with_ls))
 
     @staticmethod
-    def _fuse_target(bi1, bi2, t1, t2, gmu_m, gmu_top, flip=False):
+    def _fuse_target(bi1, bi2, t1, t2, gmu_m, gmu_top, flip=False,
+                     last_only=False):
         """Middle GMU, level 1->2 residuals, top GMU, level 1->3 residual
-        and the first+last-token summary of one target.  ``flip`` gives
-        target L's reversed GMU argument order (the GMU slots are
-        asymmetric weights, so the order is part of the function)."""
+        and the first+last-token summary of one target (the last token
+        alone with ``last_only``, as the notebook-era ``tmmtrvpa`` sums
+        up).  ``flip`` gives target L's reversed GMU argument order (the
+        GMU slots are asymmetric weights, so the order is part of the
+        function)."""
         h_gmu, _ = gmu_m(t2, t1) if flip else gmu_m(t1, t2)
         tot1 = bi1 + t1
         tot2 = bi2 + t2
         h_top, _ = gmu_top(tot2, tot1) if flip else gmu_top(tot1, tot2)
         h_top = h_top + h_gmu
+        if last_only:
+            return h_top[:, -1]
         return h_top[:, 0] + h_top[:, -1]
 
-    def _targets(self, second, l_streams, a_streams, v_streams):
+    def _targets(self, second, l_streams, a_streams, v_streams,
+                 last_only=False):
         """(last_h_l, last_h_v, last_h_a) from the second round and each
         target's two (length-adapted) first-round streams."""
         h_l_v2a, h_l_a2v, h_a_v2l, h_a_l2v, h_v_a2l, h_v_l2a = second
-        last_h_l = self._fuse_target(h_l_v2a, h_l_a2v, *l_streams,
-                                     self.gmu_l_m, self.gmu_l, flip=True)
-        last_h_a = self._fuse_target(h_a_v2l, h_a_l2v, *a_streams,
-                                     self.gmu_a_m, self.gmu_a)
-        last_h_v = self._fuse_target(h_v_a2l, h_v_l2a, *v_streams,
-                                     self.gmu_v_m, self.gmu_v)
+        fuse = lambda *a, **k: self._fuse_target(*a, last_only=last_only,
+                                                 **k)
+        last_h_l = fuse(h_l_v2a, h_l_a2v, *l_streams, self.gmu_l_m,
+                        self.gmu_l, flip=True)
+        last_h_a = fuse(h_a_v2l, h_a_l2v, *a_streams, self.gmu_a_m,
+                        self.gmu_a)
+        last_h_v = fuse(h_v_a2l, h_v_l2a, *v_streams, self.gmu_v_m,
+                        self.gmu_v)
         return last_h_l, last_h_v, last_h_a
 
     def _head(self, last_hs: torch.Tensor, seeds) -> torch.Tensor:

@@ -12,11 +12,16 @@ the flash kernel, or on the einsum path's probabilities), and hidden
 dropout after the embedding LN and on the attention and FFN outputs before
 their residual LNs.  ``remat`` recomputes each layer in the backward
 (``ops/encoder.py::recomputed``), as the JAX package's ``remat`` does.
+``with_pooler`` adds Hugging Face's pooler, ``pooler`` (a Dense with bias,
+flax's default init), and the forward then returns ``(hidden, tanh(W
+hidden[:, 0] + b))``: the [CLS] summary of the notebook-era classifiers.
 
 :func:`load_hf_bert_params` and :func:`maybe_load_pretrained` carry a local
 Hugging Face checkpoint (BERT or DistilBERT layout; ``pytorch_model.bin`` or
 ``model.safetensors``) into the encoder's state dict.  No weights are
-downloaded; ``.safetensors`` files are read with numpy.
+downloaded; ``.safetensors`` files are read with numpy.  The pooler is not
+loaded, as the JAX package's loader does not load it: a model with a
+pooler keeps its own ``pooler`` weights.
 """
 
 from __future__ import annotations
@@ -116,7 +121,8 @@ class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None, device=None,
                  attention_impl: str = "xla", remat: bool = False,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None,
+                 with_pooler: bool = False):
         super().__init__()
         E = cfg.hidden_size
         self.cfg = cfg
@@ -134,10 +140,15 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList([
             BertLayer(cfg, dtype, gen, device, attention_impl)
             for _ in range(cfg.num_layers)])
+        self.with_pooler = with_pooler
+        if with_pooler:
+            self.pooler = linear(E, E, True, "lecun", gen, device)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                seeds: Optional[SeedStream] = None) -> torch.Tensor:
+                seeds: Optional[SeedStream] = None):
+        """The last layer's hidden states (B, T, E); with the pooler,
+        ``(hidden, pooled)``, pooled (B, E)."""
         dt = self.dtype
         input_ids = input_ids.long()
         T = input_ids.shape[1]
@@ -162,6 +173,11 @@ class BertEncoder(nn.Module):
                                     keys)
             else:
                 hidden = layer(hidden, keys, seeds)
+        if self.with_pooler:
+            p = self.pooler
+            pooled = torch.tanh(nn.functional.linear(
+                hidden[:, 0], p.weight.to(dt), p.bias.to(dt)))
+            return hidden, pooled
         return hidden
 
 

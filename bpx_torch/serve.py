@@ -15,18 +15,22 @@ Usage::
 
 ``batch`` is a dict of numpy arrays keyed like the JAX package's batches
 (``txt``, ``mask``, ``segment``, ``video``, ``audio``, and ``poster`` for
-mmtrvapt; the presets of mmtrvat take no poster); a client
-batch smaller than ``batch_size`` is padded by repeating its last row and
-sliced back.  Weights are random from ``seed`` unless a ``state_dict`` is
-given (e.g. from :func:`bpx_torch.interop.params_from_flax`), or restored
-from a run directory of the port's trainer::
+mmtrvapt); each model reads the keys it takes (``inputs._INPUT_KEYS``: the
+notebook-era ``gmu_bi`` no audio, ``bertclf`` text only) and ignores the
+rest.  The gates are the final fusion's, (n, 0) for ``bertclf``, which has
+none.  A client batch smaller than ``batch_size`` is padded by repeating
+its last row and sliced back.  Weights are random from ``seed`` unless a
+``state_dict`` is given (e.g. from
+:func:`bpx_torch.interop.params_from_flax`), or restored from a run
+directory of the port's trainer::
 
     predictor = Predictor.from_checkpoint(exp, "runs/name_Seed1_run")
 
 :meth:`Predictor.export` traces the serving forward (the model, the task's
 sigmoid or softmax, the gates) with ``torch.export`` at ``(batch_size, ...)``
 on the predictor's device and writes ``torch.export.save``'s archive, the
-weights inside it.  The kernels stay one custom-op node each
+weights inside it; it takes the BPMulT models (the notebook-era ones
+raise).  The kernels stay one custom-op node each
 (``bpx_torch::flash_fwd``, ``bpx_torch::layer_norm``); the rest of the graph
 is ATen.  :class:`ExportedPredictor` serves the archive with torch and
 ``bpx_torch.ops`` alone (which register the ops and build the kernels): no
@@ -166,6 +170,12 @@ class Predictor:
         The example is served once first (:meth:`warmup`), so the model's
         host-side tables (positions, the audio pooling matrix) are built
         from real tensors and traced in as constants."""
+        from bpx_torch.models import BPMULT_MODELS
+        if self.exp.model.model not in BPMULT_MODELS:
+            raise NotImplementedError(
+                f"export of the notebook-era model "
+                f"{self.exp.model.model!r} is not ported (ROADMAP.md queues "
+                f"it); it takes {BPMULT_MODELS}")
         self.warmup(example_batch)
         inputs = self._inputs(_pad(example_batch, self.batch_size))
         self.model.eval()

@@ -52,7 +52,7 @@ from torch.func import functional_call, stack_module_state, vmap
 
 from bpx_torch.config import ModelConfig
 from bpx_torch.inputs import model_inputs
-from bpx_torch.models import get_model
+from bpx_torch.models import BPMULT_MODELS, get_model
 from bpx_torch.ops.dropout import SeedStreams, draw_base_seed
 from bpx_torch.utils.seeding import set_seed
 
@@ -80,6 +80,11 @@ def init_multi_seed(config: ModelConfig, seeds: Sequence[int],
     batch, for flax's shape inference; the port's modules need neither.)"""
     if not seeds:
         raise ValueError("init_multi_seed needs at least one seed")
+    if config.model not in BPMULT_MODELS:
+        raise NotImplementedError(
+            f"the multi-seed step of the notebook-era model "
+            f"{config.model!r} is not ported (ROADMAP.md queues it); it "
+            f"takes {BPMULT_MODELS}")
     models = []
     for seed in seeds:
         set_seed(seed)

@@ -194,7 +194,26 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    temporary jobs file (two one-epoch ``python -m bpx_torch.cli.train``
    runs on synthetic data and a line that exits 3), two workers on card 0,
    one retry: exit 1, both runs rc 0 with a log naming the ``cuda``
-   device, the failing line rc 3 after 2 attempts, one log a job.
+   device, the failing line rc 3 after 2 attempts, one log a job;
+19. the notebook-era models (``bpx_torch/models/legacy.py``) at
+   moviescope's full width (the preset with only ``model`` changed; bf16,
+   seeded weights): each of the seven classes served, 4 requests at batch
+   8 (one ragged) against the plain path within moviescope's limits, with
+   exact counters per forward (mmtrvpa 48 flash launches, 12 of them at
+   head_dim 192 in its 1536-wide memory encoders, and 130 LayerNorm;
+   tmmtrvpa 60 and 181; gmu, gmu_bi, gmu_hier, gmu_softmax and bertclf 12
+   and 25), ``bert`` against ``bertclf`` (within ALIAS_TOL); mmtrvpa,
+   tmmtrvpa and gmu_hier trained: one micro-step against the plain path
+   (the planted backward faults on the two with encoders), then 3 Adam
+   steps at 8 x A = 2 with every dropout and exact counters (per step
+   96 / 64 / 96 / 308 / 308, 120 / 56 / 120 / 458 / 458, 24 / 24 / 24 / 50
+   / 50); every class no earlier phase held (the head_dim-192 flash forward
+   and backward at 512 x 512 and 200 x 200 causal, rate 0 and 0.1, the
+   profiler naming their kernels; the LayerNorms at width 1536) against
+   its plain version, timed beside the bound and the library call; the
+   exact dropout masks at (8, 8, 512, 512, 192); one ``python -m
+   bpx_torch.cli.train --model mmtrvpa`` epoch on a written moviescope
+   dataset, rc 0 on the card.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -206,10 +225,10 @@ phase 13 and per epoch; the narrow backward and forward also alone, at
 head_dim 25 from iemocap's train steps and at 30 from cmu-mosei's, and the
 head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
 sweep, hybrid's and the grouped pairs' classes; phase 17's folded
-classes) and, last, ``{"ok": true,
-"device": {...}}``.  It
-imports nothing of JAX or of the JAX package; without a CUDA device, or
-without ``bpx_torch`` beside it, it exits non-zero and prints no result.
+classes; phase 19's head_dim-192 and 1536-wide classes) and, last,
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
+package; without a CUDA device, or without ``bpx_torch`` beside it, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -299,8 +318,10 @@ class ModelPath:
 
     @property
     def name(self) -> str:
-        """The preset, and the options the path sets on it."""
-        return " ".join([self.preset] + [k for k, _ in self.options])
+        """The preset, and the options the path sets on it (a flag by its
+        name, a value such as the model by itself)."""
+        return " ".join([self.preset] + [k if v is True else str(v)
+                                          for k, v in self.options])
 
 
 MOVIESCOPE = ModelPath("moviescope", FLASH_PER_FORWARD, LN_PER_FORWARD,
@@ -762,7 +783,7 @@ def fwd_kernel(D, groups=1) -> str:
     the name the profiler reports."""
     if D < 32:
         name = "flash_fwd_narrow_kernel"
-    elif D > 96:
+    elif D == 128:
         name = "flash_fwd_wide_kernel"
     else:
         name = "flash_fwd_kernel"
@@ -911,14 +932,18 @@ def bwd_kernels(D, groups=1):
     """The backward's kernels at head_dim D for ``groups`` seed groups, by
     the names the profiler reports, as (dQ, dK/dV, delta or None): at a
     narrow head (25, 30) and at 128 the dQ kernel computes delta itself,
-    so the backward is two launches."""
+    so the backward is two launches; at 192 the column-split kernels."""
     args = build_args(D, groups)
     if D < 32:
         return ("flash_bwd_narrow_dq_kernel" + args,
                 "flash_bwd_narrow_dkdv_kernel" + args, None)
-    if D > 96:
+    if D == 128:
         return ("flash_bwd_wide_dq_kernel" + args,
                 "flash_bwd_wide_dkdv_kernel" + args, None)
+    if D == 192:
+        return ("flash_bwd_colsplit_dq_kernel" + args,
+                "flash_bwd_colsplit_dkdv_kernel" + args,
+                "flash_delta_kernel")
     return ("flash_bwd_dq_kernel" + args, "flash_bwd_dkdv_kernel" + args,
             "flash_delta_kernel")
 
@@ -1425,19 +1450,29 @@ def phase_predictor(torch, path: ModelPath, requests: int = REQUESTS):
     return pred, reqs
 
 
+#: the notebook-era models' gates, in units of hidden_sz: 3-ary GMUs, the
+#: bimodal one's [z, 1 - z], none for the text-only baseline
+LEGACY_GATES = {"mmtrvpa": 3, "tmmtrvpa": 3, "gmu": 3, "gmu_hier": 3,
+                "gmu_softmax": 3, "gmu_bi": 2, "bertclf": 0, "bert": 0}
+
+
 def gates_dim(m) -> int:
     """Width of the final fusion's gates: the N-ary GMU's N * E (one more
-    input with ``hybrid``), MAG's alpha 1."""
+    input with ``hybrid``), MAG's alpha 1, a notebook-era model's
+    ``LEGACY_GATES``."""
     if m.fusion == "mag":
         return 1
+    if m.model in LEGACY_GATES:
+        return LEGACY_GATES[m.model] * m.hidden_sz
     return ((4 if m.model == "mmtrvapt" else 3) + m.hybrid) * m.hidden_sz
 
 
-def record_forward(path: ModelPath, pred, batch, head_dim=None):
+def record_forward(path: ModelPath, pred, batch, head_dim=None, dims=None):
     """Serve ``batch`` once (the warm-up request: cuBLAS/cuDNN set-up),
     recording every launch; the counts must be the structure's, the
-    encoders' attentions at ``head_dim`` (BERT's 12 at 64), and the flash
-    wrappers must have copied nothing."""
+    encoders' attentions at ``head_dim`` (BERT's 12 at 64), or the flash
+    launches by head dim ``dims``, and the flash wrappers must have copied
+    nothing."""
     flash_cls, ln_cls, copies = launch_classes(pred, batch)
     n_flash, n_ln = sum(flash_cls.values()), sum(ln_cls.values())
     by_dim = collections.Counter()
@@ -1452,7 +1487,9 @@ def record_forward(path: ModelPath, pred, batch, head_dim=None):
           f"the recorded {path.name} forward's launches differ from the "
           f"structure's")
     if head_dim is not None:
-        check(by_dim == {head_dim: path.flash - 12, 64: 12},
+        dims = {head_dim: path.flash - 12, 64: 12}
+    if dims is not None:
+        check(by_dim == dims,
               f"{path.name}: flash launches by head_dim {dict(by_dim)}")
     check(not sum(copies.values()),
           f"{path.name}: the flash wrappers copied tensors, by head_dim "
@@ -1517,9 +1554,10 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
           "plain versions moved the launch counters")
 
     def errors(served):
-        return (max(float(np.abs(a[0] - b[0]).max())
+        # initial=0: bertclf's gates are (n, 0)
+        return (max(float(np.abs(a[0] - b[0]).max(initial=0.0))
                     for a, b in zip(served, plain)),
-                max(float(np.abs(a[1] - b[1]).max())
+                max(float(np.abs(a[1] - b[1]).max(initial=0.0))
                     for a, b in zip(served, plain)))
 
     perr, gerr = errors(outs)
@@ -1705,11 +1743,12 @@ TRAIN_FAULTS = {
 
 
 def phase_micro_step(torch, model, loss_fn, batches,
-                     path: ModelPath = MOVIESCOPE):
+                     path: ModelPath = MOVIESCOPE, must_catch=None):
     """One micro-step with the kernels (recording every launch's class)
     against the same step under plain_versions(): same weights, batch and
-    dropout seed.  Then the planted faults; and the wrappers' copies at a
-    narrow head dim, which must be none."""
+    dropout seed.  Then the planted faults, each of ``must_catch`` (all of
+    them when None) past the path's limit, the rest read and printed; and
+    the wrappers' copies at a narrow head dim, which must be none."""
     from bpx_torch.ops import flash_attention as fa
     from bpx_torch.ops.dispatch import plain_versions
     micro = {k: v[0] for k, v in batches[0].items()}
@@ -1717,8 +1756,9 @@ def phase_micro_step(torch, model, loss_fn, batches,
     groups = grad_groups(model)
     # the scale of bf16 rounding: the same step in fp32 compute (plain
     # versions, same weights and dropout masks) as a yardstick for both
-    model32 = type(model)(model.config.replace(compute_dtype="float32"),
-                          device="cuda").train()
+    from bpx_torch.models import get_model
+    model32 = get_model(model.config.replace(compute_dtype="float32"),
+                        device="cuda").train()
     model32.load_state_dict(model.state_dict())
     with plain_versions():
         micro_step(model32, loss_fn, micro, seed)
@@ -1753,16 +1793,18 @@ def phase_micro_step(torch, model, loss_fn, batches,
                    f"than the plain versions' in {off}")
     check(errs[worst] <= path.grad_tol,
           f"micro-step gradients of {worst} differ by {errs[worst]}")
-    faults = {}
+    planted = {}
     for fault, wrap in TRAIN_FAULTS.items():
         with wrapped_launch(fa, wrap, "_launch_bwd"):
             micro_step(model, loss_fn, micro, seed)
         ferrs = group_errors(torch, groups, ref)
         fworst = max(ferrs, key=ferrs.get)
-        faults[fault] = dict(group=fworst, grad_err=ferrs[fworst])
+        planted[fault] = dict(group=fworst, grad_err=ferrs[fworst])
         print(f"{tag} planted fault, {fault}: worst group {fworst} "
-              f"rel err {ferrs[fworst]:.3g}")
-        check(ferrs[fworst] > path.grad_tol,
+              f"rel err {ferrs[fworst]:.3g}; " + ", ".join(
+                  f"{g} {e:.3g}" for g, e in sorted(ferrs.items())))
+        check(ferrs[fworst] > path.grad_tol
+              or (must_catch is not None and fault not in must_catch),
               f"the comparison with the plain path misses a planted fault "
               f"({fault})")
     model.zero_grad(set_to_none=True)
@@ -1779,7 +1821,7 @@ def phase_micro_step(torch, model, loss_fn, batches,
           and n["ln"] == path.ln_train and n["ln_bwd"] == path.ln_train,
           "the recorded micro-step's launches differ from the structure's")
     return seen, dict(loss_err=lerr, grad_err=errs[worst], worst=worst,
-                      planted_faults=faults)
+                      planted_faults=planted)
 
 
 def phase_train(torch, model, step, batches, profile: bool,
@@ -3174,6 +3216,172 @@ def phase_farm(card: str):
                     devices=devices)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the notebook-era models at moviescope's full width
+# ---------------------------------------------------------------------------
+
+def legacy_path(model: str, flash: int, ln: int, ln_train: int,
+                dropout: int) -> ModelPath:
+    """moviescope's preset as ``model``, with the launches its structure
+    gives per forward, held to moviescope's limits."""
+    return dataclasses.replace(MOVIESCOPE, flash=flash, ln=ln,
+                               ln_train=ln_train, dropout=dropout,
+                               options=(("model", model),))
+
+
+# launches per forward (counted from the structure, as
+# tests/test_torch_legacy_train.py counts them on the CPU): BERT's 12
+# attentions at head_dim 64 with dropout, 25 LayerNorms; mmtrvpa's six
+# 4-layer crossmodal encoders (D 96; 3 LayerNorms a layer and a final one,
+# one more a layer in training) and three 4-layer 1536-wide memory encoders
+# (D 192, causal 512 x 512 and 200 x 200; 2 LayerNorms a layer and a final
+# one; attention dropout 0.1); tmmtrvpa's twelve plain crossmodal encoders;
+# dropout in the encoders keyed by l (attn_dropout 0.1: 2 of each round)
+MMTRVPA = legacy_path("mmtrvpa", 12 + 24 + 12, 25 + 6 * 13 + 3 * 9,
+                      25 + 6 * 17 + 3 * 9, 12 + 2 * 4 + 3 * 4)
+TMMTRVPA = legacy_path("tmmtrvpa", 12 + 48, 25 + 12 * 13, 25 + 12 * 17,
+                       12 + 2 * 4 * 2)
+LEGACY_SERVED = [MMTRVPA, TMMTRVPA] + [
+    legacy_path(m, 12, 25, 25, 12)
+    for m in ("gmu", "gmu_bi", "gmu_hier", "gmu_softmax", "bertclf")]
+#: flash launches per served forward by head dim
+LEGACY_DIMS = {"mmtrvpa": {64: 12, 96: 24, 192: 12},
+               "tmmtrvpa": {64: 12, 96: 48}}
+#: the models trained, and the planted backward faults each micro-step
+#: must catch (both are run and read on each).  A backward without its
+#: dropout mask moves mmtrvpa's gradients less than bf16 rounding moves its
+#: worst group (on an H100: bert.layers 0.028 -> 0.046 relative L2 while
+#: trans_l_with_v reads 0.0525 either way; its memory encoders feed the
+#: head through the last token alone), so only the band fault is required
+#: of the models with encoders; the GMU classifiers attend only in BERT,
+#: which has no band
+BAND_FAULT = ("flash backward ignores the band",)
+LEGACY_TRAINED = {"mmtrvpa": BAND_FAULT, "tmmtrvpa": BAND_FAULT,
+                  "gmu_hier": ()}
+#: bertclf and its alias bert, the same class on the same seed
+ALIAS_TOL = 1e-6
+LEGACY_CLI_ARGV = (["--model", "mmtrvpa"] + LOOP_ARGV[2:]
+                   + ["--use_audio_encoder", "1", "--max_epochs", "1"])
+
+
+def width_launches(seen, kind, E) -> int:
+    """Calls of a LayerNorm kernel ("ln", "ln_bwd") at width E in a
+    recording."""
+    return sum(c for cls, c in seen[kind].items() if cls[1] == E)
+
+
+def phase_legacy_cli(np, card: str):
+    """``python -m bpx_torch.cli.train --model mmtrvpa`` on a written
+    moviescope dataset (the loop phase's), one epoch on the card: rc 0, a
+    log naming the card and an epoch's stats."""
+    import os
+    tag = "[legacy cli]"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_moviescope(np, tmp / "data", seed=1)
+        argv = LEGACY_CLI_ARGV + ["--data_path", str(tmp / "data"),
+                                  "--savedir", str(tmp / "runs"),
+                                  "--name", "mmtrvpa"]
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bpx_torch.cli.train", *argv], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+        wall = time.time() - t0
+        check(proc.returncode == 0, f"{tag} exit {proc.returncode}: "
+                                    f"{proc.stderr[-3000:]}")
+        run = tmp / "runs" / "mmtrvpa_Seed1_run"
+        text = (run / "logfile.log").read_text()
+        m = re.search(r"params on (\S+)", text)
+        check(m is not None and m.group(1).startswith("cuda"),
+              f"{tag} the log does not name the card: {text[-1500:]}")
+        stats = epoch_stats(run)
+        check(len(stats) == 1, f"{tag} {len(stats)} epochs logged")
+        print(f"{tag} python -m bpx_torch.cli.train --model mmtrvpa (one "
+              f"epoch, {LOOP_SPLITS['train']} records, micro-batch {BATCH} "
+              f"x A={TRAIN_A}): rc 0 in {wall:.1f} s on {m.group(1)}; epoch "
+              f"stats {stats[0]}; card: {card}")
+        return dict(wall_s=wall, epoch=stats[0])
+
+
+def phase_legacy(torch, np, timer, gen, card, checked):
+    """Phase 19: the notebook-era models at moviescope's full width (bf16,
+    seeded weights).  Each of the seven classes served (4 requests at
+    batch 8, one ragged, against the plain path, exact counters), bert
+    against bertclf; mmtrvpa, tmmtrvpa and gmu_hier trained (one micro-step
+    against the plain path, 3 Adam steps at 8 x A = 2 with exact
+    counters); every class no earlier phase held (the head_dim-192 flash
+    kernels, the 1536-wide LayerNorms) against its plain version, and the
+    exact dropout masks at head_dim 192; one CLI run of mmtrvpa.
+    ``checked``: the classes held so far, by kind, which this extends."""
+    out = {"served": {}, "micro": {}, "trained": {}, "train_seen": {},
+           "rows": collections.defaultdict(list)}
+
+    def hold(seen, label):
+        rows = check_new_classes(torch, timer, gen, seen, checked, label)
+        for kind, r in rows.items():
+            out["rows"][kind] += r
+
+    for path in LEGACY_SERVED:
+        name = dict(path.options)["model"]
+        pred, reqs = phase_predictor(torch, path)
+        flash_cls, ln_cls = record_forward(
+            path, pred, reqs[0], dims=LEGACY_DIMS.get(name, {64: 12}))
+        hold(dict(flash=flash_cls, ln=ln_cls), name)
+        if name == "mmtrvpa":
+            served_d192 = [k for k in flash_cls if k[4] == 192]
+        out["served"][name] = phase_serve(torch, np, pred, reqs, False, path,
+                                          faults=False)
+        if name == "bertclf":
+            # "bert" names the same class: the same weights from the seed
+            alias = dataclasses.replace(path, options=(("model", "bert"),))
+            apred, _ = phase_predictor(torch, alias, requests=0)
+            err = max(float(np.abs(a - b).max(initial=0.0))
+                      for r in reqs for a, b in zip(
+                          apred(r, return_gates=True),
+                          pred(r, return_gates=True)))
+            print(f"[serve {alias.name}] against bertclf on the same "
+                  f"requests: max err {err:.3g} (tol {ALIAS_TOL})")
+            check(err <= ALIAS_TOL, f"bert differs from bertclf by {err}")
+            del apred
+        del pred
+        torch.cuda.empty_cache()
+
+    for path in LEGACY_SERVED:
+        name = dict(path.options)["model"]
+        if name not in LEGACY_TRAINED:
+            continue
+        model, loss_fn, step, batches = phase_trainer(torch, np, path)
+        seen, out["micro"][name] = phase_micro_step(
+            torch, model, loss_fn, batches, path,
+            must_catch=LEGACY_TRAINED[name])
+        hold(seen, f"{name} micro-step")
+        with recording() as tseen:
+            out["trained"][name] = phase_train(torch, model, step, batches,
+                                               False, path)
+        out["train_seen"][name] = tseen
+        del model, loss_fn, step, batches
+        torch.cuda.empty_cache()
+
+    # the head_dim-192 backward at the served classes (rate 0) too, which
+    # no train step runs (the memory encoders drop attention at 0.1): held
+    # and timed beside the trained ones, of weight 0 in the launches' mix
+    out["rows"]["flash_bwd"] += phase_flash_bwd(
+        torch, timer, dict.fromkeys(served_d192, 0), gen,
+        label="flash_bwd mmtrvpa rate 0")
+    checked["flash_bwd"] |= set(served_d192)
+    # the exact dropout masks of the memory encoders' head dim
+    phase_mask_check(torch, gen, BATCH, 8, 512, 192)
+    rows = out["rows"]
+    check(dim_rows(rows["flash"], 192) and dim_rows(rows["flash_bwd"], 192)
+          and [r for r in rows["ln"] if r["shape"][1] == 1536]
+          and [r for r in rows["ln_bwd"] if r["shape"][1] == 1536],
+          "phase 19 held no head_dim-192 flash class or no 1536-wide "
+          "LayerNorm class against its plain version")
+    out["cli"] = phase_legacy_cli(np, card)
+    return out
+
+
 def short_launches(seen, kind) -> int:
     """Calls of a kind of flash kernel at 32 x 32 in a recording."""
     return sum(c for cls, c in seen[kind].items() if cls[2:4] == (32, 32))
@@ -3396,13 +3604,14 @@ def main() -> None:
         flash=set(flash_cls) | {k for k in seen["flash"] if k[-1] > 0},
         flash_bwd=set(seen["flash_bwd"]), ln=set(ln_cls),
         ln_bwd=set(seen["ln_bwd"]))
-    opts = phase_options(torch, np, timer, gen, dict(
+    held = dict(
         flash=checked["flash"] | set(i_flash_cls)
         | {k for k in i_seen["flash"] if k[-1] > 0},
         flash_bwd=checked["flash_bwd"] | set(i_seen["flash_bwd"]),
         ln=checked["ln"] | set(seen["ln"]) | set(i_ln_cls)
         | set(i_seen["ln"]),
-        ln_bwd=checked["ln_bwd"] | set(i_seen["ln_bwd"])))
+        ln_bwd=checked["ln_bwd"] | set(i_seen["ln_bwd"]))
+    opts = phase_options(torch, np, timer, gen, held)
     print(f"[time] options phase {time.time() - t0:.1f} s")
 
     # counseling and cmu-mosi (head_dim 30, 5 layers): one request and one
@@ -3462,7 +3671,15 @@ def main() -> None:
     farm = phase_farm(card)
     print(f"[time] farm phase {time.time() - t0:.1f} s")
 
+    # phase 19: the notebook-era models at moviescope's full width; the
+    # classes the earlier phases held (the options phase's included) are
+    # not held again
+    t0 = time.time()
+    legacy = phase_legacy(torch, np, timer, gen, card, held)
+    print(f"[time] legacy phase {time.time() - t0:.1f} s")
+
     steps = TRAIN_STEPS * TRAIN_A
+    lt_seen = legacy["train_seen"]["mmtrvpa"]
     fwd_src = "bpx_torch/csrc/flash_fwd.cu"
     bwd_src = "bpx_torch/csrc/flash_bwd.cu"
     ln_src, ln_bwd_src = ("bpx_torch/csrc/layer_norm.cu",
@@ -3599,6 +3816,24 @@ def main() -> None:
         summarise("layer_norm_bwd_multiseed", ln_bwd_src,
                   "bpx/ops/norm.py:69", i_ln_bwd_rows,
                   multi["totals"]["ln_bwd"], MULTISEED_STEPS, "micro_step"),
+        # phase 19: the head_dim-192 kernels (rows 1 @ 192 and 2 @ 192:
+        # mmtrvpa's memory encoders, served and trained) and the 1536-wide
+        # LayerNorms, launches those of mmtrvpa's train steps
+        summarise("flash_fwd_d192", fwd_src, fwd_tpu,
+                  dim_rows(legacy["rows"]["flash"], 192),
+                  dim_launches(lt_seen, "flash", 192), steps, "micro_step"),
+        summarise("flash_bwd_d192", bwd_src, bwd_tpu,
+                  dim_rows(legacy["rows"]["flash_bwd"], 192),
+                  dim_launches(lt_seen, "flash_bwd", 192), steps,
+                  "micro_step"),
+        summarise("layer_norm_fwd_1536", ln_src, "bpx/ops/norm.py:53",
+                  [r for r in legacy["rows"]["ln"] if r["shape"][1] == 1536],
+                  width_launches(lt_seen, "ln", 1536), steps, "micro_step"),
+        summarise("layer_norm_bwd_1536", ln_bwd_src, "bpx/ops/norm.py:69",
+                  [r for r in legacy["rows"]["ln_bwd"]
+                   if r["shape"][1] == 1536],
+                  width_launches(lt_seen, "ln_bwd", 1536), steps,
+                  "micro_step"),
     ]
     print(f"[summary] moviescope: served median request "
           f"{served['median_ms']:.2f} ms; train step median "
@@ -3684,6 +3919,16 @@ def main() -> None:
               f"backward {f['bwd'] / f['bwd_s']:.2f}x"
               for f in multi["folded"])
           + f"; task farm {farm['wall_s']:.1f} s; card: {card}")
+    print("[summary] notebook-era models (moviescope widths): served median "
+          + ", ".join(f"{n} {sv['median_ms']:.2f} ms"
+                      for n, sv in legacy["served"].items())
+          + "; train step median " + ", ".join(
+              f"{n} {tr['median_ms']:.1f} ms (peak {tr['peak_gib']:.2f} "
+              f"GiB)" for n, tr in legacy["trained"].items())
+          + "; micro-step kernels vs plain: " + ", ".join(
+              f"{n} loss {e['loss_err']:.3g} gradients {e['grad_err']:.3g}"
+              for n, e in legacy["micro"].items())
+          + f"; CLI epoch {legacy['cli']['wall_s']:.1f} s; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

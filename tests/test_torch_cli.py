@@ -5,8 +5,9 @@ defaults, ``--preset``, the inverted ``store_false`` flags, the BERT
 variants, ``--task synthetic``); every bpx flag exists with its default.
 ``cli_main`` trains and tests a tiny synthetic run on the CPU (the split
 seed sweep), with ``--hybrid --optimizer radam --accum_dtype bfloat16``,
-and runs the 10-fold cross-validation path; models not ported yet raise;
-``python -m bpx_torch.cli.train --help`` exits 0.
+and runs the 10-fold cross-validation path; an option not ported with a
+notebook-era model (``--hybrid``) raises; ``python -m bpx_torch.cli.train
+--help`` exits 0.
 """
 
 import argparse
@@ -147,8 +148,9 @@ def test_cli_cross_validation_folds(tmp_path, monkeypatch):
         assert (tmp_path / "runs" / f"cv_fold{k}" / "preds_raw.npy").exists()
 
 
-@pytest.mark.parametrize("flags,match", [(["--model", "gmu"], "not ported"),
-                                         (["--model", "bertclf"],
+@pytest.mark.parametrize("flags,match", [(["--model", "gmu", "--hybrid"],
+                                          "not ported"),
+                                         (["--model", "bertclf", "--hybrid"],
                                           "not ported")])
 def test_unported_models_and_options_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -15,7 +15,9 @@ the head_dim-128 forward's own kernel (the last query tile first, S of a
 key tile beside P V of the one before) at tile edges with dropout and
 bitwise reruns (nine query tiles, kv_lens, Tk < 64 < Tq, B*H 1 with the
 band, the long online shapes) and named by the profiler beside the
-generic kernel at 64 and 96; synthetic-tiny served and trained
+generic kernel at 64 and 96; head_dim 192 (mmtrvpa's memory encoders)
+at its model classes and tile edges, rate 0 and 0.1, its exact masks and
+its kernels by name; synthetic-tiny served and trained
 through the einsum attention with no flash launch; the
 LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
@@ -598,6 +600,85 @@ def test_dropout_mask_is_exact_at_head_dim_128(gen):
     keep = keep_mask(seed, B, H, T, T, rate, "cuda")
     assert torch.equal(fwd, keep)
     assert torch.equal(bwd, keep)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens", [
+    (8, 8, 512, 512, True, None),          # mmtrvpa's memory: l stream
+    (8, 8, 200, 200, True, None),          # ... its a and v streams
+    (2, 3, 77, 130, True, None),           # ragged tiles, band
+    (3, 2, 64, 64, False, (64, 0, 5)),     # kv_len 0: zero grads
+    (2, 1, 129, 65, False, (65, 1)),       # one visible key
+    (2, 2, 130, 40, True, None),           # Tk < 64 < Tq
+    (1, 2, 640, 1280, True, None),         # long: ten query tiles
+    (2, 2, 200, 1100, True, (1100, 700)),  # long: tk_p = 1152
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_head_dim_192_kernels_match_plain(gen, B, H, Tq, Tk, masked, lens,
+                                          rate):
+    """head_dim 192 (mmtrvpa's 2E-wide memory encoders at moviescope's
+    widths): the forward (the generic kernel over six panels) and the
+    backward (delta, then the column-split dK/dV and dQ kernels) against
+    the plain versions on fused-projection views, at the memory encoders'
+    causal classes and at tile edges, and bitwise-equal reruns."""
+    q, k, v = _fused_views(gen, B, H, Tq, Tk, 192)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+    seed = 0x192192 if rate else None
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    assert torch.equal(out, flash_attention(q, k, v, masked, kv, rate,
+                                            seed))
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    got = flash_attention_backward(q, k, v, out, lse, dout, masked, kv, rate,
+                                   seed)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), masked, kv,
+        rate, seed)
+    for g, w in zip(got, want):
+        _close_grad(g, w)
+    if lens is not None and 0 in lens:
+        assert not got[0][lens.index(0)].any()
+    again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
+                                     rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_dropout_mask_is_exact_at_head_dim_192(gen):
+    """The forward and backward kernels' dropout masks at head_dim 192
+    (two warpgroups over the columns in the backward), every bit of a
+    200 x 200 score matrix (two rounds), against the plain version's."""
+    B, H, T, rate, seed = 2, 3, 200, 0.1, 0x1920C0DE
+    fwd, bwd = narrow_mask_bits(B, H, T, 192, rate, seed)
+    keep = keep_mask(seed, B, H, T, T, rate, "cuda")
+    assert torch.equal(fwd, keep)
+    assert torch.equal(bwd, keep)
+
+
+def test_head_dim_192_kernels_by_name(gen):
+    """The profiler names the generic forward kernel at 192, and the
+    backward's three kernels: delta, the column-split dK/dV and dQ."""
+    q, k, v = _fused_views(gen, 2, 8, 200, 200, 192)
+    out, lse = flash_attention(q, k, v, True, None, return_lse=True)
+    for _ in range(3):   # the profiler drops an event now and then: retry
+        names = _device_kernels(lambda: flash_attention(q, k, v, True, None))
+        if names:
+            break
+    assert any("flash_fwd_kernel<192" in n for n in names), names
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    for _ in range(3):
+        names = _device_kernels(lambda: flash_attention_backward(
+            q, k, v, out, lse, dout, True, None))
+        if len(names) == 3:
+            break
+    assert len(names) == 3, names
+    for kernel in ("flash_delta_kernel<192",
+                   "flash_bwd_colsplit_dkdv_kernel<192",
+                   "flash_bwd_colsplit_dq_kernel<192"):
+        assert any(kernel in n for n in names), (kernel, names)
 
 
 def test_kernels_fit_the_sm(gen):

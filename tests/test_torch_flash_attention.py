@@ -4,7 +4,8 @@ with dropout the forward and its ``jax.vjp`` (the fused single-pass
 backward at the model's shapes; the online forward and the split dQ / dK-dV
 backward at a long multi-tile shape; lengths and band offsets at the edges
 of the CUDA kernels' 64-row tiles; both of bpx's delta paths; the narrow
-head dims 25 and 30 of the mmtrvat presets, and mmimdb's 128).
+head dims 25 and 30 of the mmtrvat presets, mmimdb's 128, and 192, the
+head dim of mmtrvpa's memory encoders at moviescope's widths).
 
 Inputs are made with numpy from a seed; fp32, atol/rtol 2e-5 (the same
 function, sums in another order).  The dropout seeds are the same uint32 on
@@ -214,6 +215,30 @@ def test_head_dim_128_matches_pallas(B, H, Tq, Tk, masked, lens, rate):
     kv = None if lens is None else np.asarray(lens, np.int32)
     want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0x600DCAFE)
     got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0x600DCAFE)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        atol = TOL["atol"] * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=TOL["rtol"], atol=atol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", [
+    (1, 1, 512, 512, True, None, 0.0),          # mmtrvpa's memory: causal
+    (1, 1, 512, 512, True, None, 0.1),          # with attention dropout
+    (2, 1, 200, 200, True, None, 0.1),          # its 200 x 200 class
+    (2, 1, 63, 65, True, (65, 30), 0.1),        # band offset 2, kv_lens
+    (2, 1, 129, 65, False, (65, 1), 0.0),       # one visible key
+])
+def test_head_dim_192_matches_pallas(B, H, Tq, Tk, masked, lens, rate):
+    """head_dim 192 (mmtrvpa's 2E-wide memory encoders at moviescope's
+    widths: 1536 / 8): the forward and backward against bpx at the
+    memory encoders' 512 x 512 and 200 x 200 causal classes, rate 0 and
+    0.1, and at tile edges with kv_lens; the tolerance of
+    ``test_head_dim_128_matches_pallas``."""
+    q, k, v = _inputs(B, H, Tq, Tk, 192, seed=16)
+    dout = np.random.RandomState(17).randn(B, H, Tq, 192).astype(np.float32)
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0x5EEDF00D)
+    got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0x5EEDF00D)
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         atol = TOL["atol"] * max(1.0, float(np.abs(w).max()))
         np.testing.assert_allclose(g, w, rtol=TOL["rtol"], atol=atol,

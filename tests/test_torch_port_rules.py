@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import bpx.config as jconfig
+import bpx.models as jmodels
 import bpx_torch
 import bpx_torch.config as tconfig
 from bpx_torch.ops.flash_attention import flash_attention
@@ -158,13 +159,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_models_and_options_raise():
-    """A model not ported raises; ``hybrid`` and ``group_encoders`` are
-    ported and refuse only what the JAX package refuses."""
-    from bpx_torch.models import get_model
+    """Every registry name builds; an option not ported with a model
+    (``hybrid`` with a notebook-era one) raises; ``hybrid`` and
+    ``group_encoders`` are ported on BPMulT and refuse only what the JAX
+    package refuses."""
+    from bpx_torch.models import MODELS, get_model
     m = tconfig.get_preset("synthetic-tiny").model
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(m.replace(model="mmtrvpa"), device="cpu")
+    assert sorted(MODELS) == sorted(jmodels.MODELS)
     vat = tconfig.get_preset("iemocap").model
+    for name in MODELS:
+        get_model((vat if name == "mmtrvat" else m).replace(model=name),
+                  device="meta")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_model(m.replace(model="mmtrvpa", hybrid=True), device="cpu")
     for cfg in (m, vat):
         get_model(cfg.replace(group_encoders=True, hybrid=True),
                   device="meta")
