@@ -97,11 +97,39 @@
 // measured slower or no faster.
 //
 // D = 192 (mmtrvpa's 2E-wide memory encoders at moviescope's widths: 1536 /
-// 8) runs flash_fwd_kernel, the D 64/96 kernel, over six panels: S in 12
+// 8) has a kernel of its own, flash_fwd_tall_kernel: six panels, S in 12
 // k-steps, O += P V as m64n192k16 (96 fp32 accumulators a thread beside
-// S's 32).  Q and 3 K and 3 V tiles take 169 KB of shared memory: one
-// block an SM.  A kernel that is right first: nothing of the D 128
-// kernel's overlap is carried over.
+// S's 32 and P's 16).  A 64 x 192 K or V tile is 24 KB, so one block fills
+// an SM's shared memory whatever it does; the D 64/96 kernel over six
+// panels held one warpgroup there, a single warp per SM sub-partition
+// with nothing to hide its serial tile chain.  What differs:
+//   * two warpgroups a block on a 128-query tile, each over its own 64
+//     rows, both reading every K and V tile: an SM holds 8 warps, and a
+//     K/V tile is read from L2 once per 128 query rows, not 64;
+//   * each warpgroup runs the D 128 kernel's step: S_u issued beside
+//     P_{u-1} V_{u-1}, split K and V rings of 3 stages, copies worked out
+//     once (TallCopier), one comparison a score on edge tiles, keep_mixed;
+//   * no block barrier: the rings hand tiles on through mbarriers (a
+//     "full" one a stage that the copies arrive on as they land, an
+//     "empty" one the products arrive on once they have read it), and
+//     the warpgroups take turns to issue their products (the ping-pong of
+//     FlashAttention-3, two named barriers), so they drift apart and one's
+//     softmax runs beside the other's products;
+//   * the grid puts batch*head along x and the query tiles along y, last
+//     first; under a causal band the first warpgroup skips the one key
+//     tile wholly above its band;
+//   * at Tq = 200, 2 x 64 blocks fill 128 of 132 SMs in one wave where
+//     the 64-row kernel took two (4 x 64 blocks).
+// Q (2 tiles), 3 K and 3 V tiles: 193 KB of shared memory, one block of
+// 256 threads an SM, 227 registers, no spills.  Measured on an H100
+// (PERF.md, scripts/torch_flash_bwd_narrow.py), one step at a time, each
+// faster than the one before: the two warpgroups on 128 rows with a block
+// barrier a step (0.61 of the six-panel D 64/96 kernel's time at 512 x
+// 512), then the mbarrier rings with the ping-pong (a further 2-7%).  A
+// copy warp or warpgroup feeding the rings (ptxas held the kernel at 168
+// registers, setmaxnreg or not, and spilled), 2 stages, loads two tiles
+// ahead, O staged through shared memory for 16-byte stores and the keep
+// bits computed while S runs measured slower or no faster.
 //
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
@@ -833,11 +861,425 @@ flash_fwd_wide_kernel(const FlashParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// D = 192: the header
+// ---------------------------------------------------------------------------
+
+constexpr int kTallThreads = 2 * kThreads;   // two warpgroups a block
+constexpr int kTallRows = 2 * kRows;         // query rows a block
+
+// Q (a tile a warpgroup), then a ring of kStages K tiles and one of kStages
+// V tiles; +1 KB to align the base to the swizzle.
+template <int D>
+__host__ __device__ constexpr int tall_smem_bytes() {
+  return (2 + 2 * kStages) * tile_bytes<D>() + 1024;
+}
+
+// mbarrier helpers (shared-memory addresses).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void mbar_arrive_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Wait until phase `parity` (0 or 1) of `bar` has completed.  A wait that
+// outlasts 2^22 polls, far beyond any wait of a sound launch (a lost
+// arrival), traps, so the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n == (1u << 22)) __trap();
+  }
+}
+
+// Named barriers: wait for (sync) or signal (arrive) barrier `id` of
+// `count` threads.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// One thread's copies into every 64-row tile of one (batch, head) slice,
+// by the 256 threads of a block: chunk t % 4 of every panel of row t / 4
+// (warpgroup w copies rows 32 w .. 32 w + 31), the addresses worked out
+// once (WideCopier's, over DP / 32 panels).
+template <int D>
+struct TallCopier {
+  const __nv_bfloat16* row;   // row t / 4 of the slice, column 8 c
+  const __nv_bfloat16* zero;  // row 0, column 8 c: the address of a zero fill
+  long long stride;           // elements between rows
+  uint32_t dst;               // byte offset of the first chunk in a tile
+  int r0;                     // t / 4
+
+  __device__ __forceinline__ TallCopier(const __nv_bfloat16* slice,
+                                        long long stride_t, int tid)
+      : stride(stride_t), r0(tid >> 2) {
+    zero = slice + (tid & 3) * 8;
+    row = zero + (long long)r0 * stride_t;
+    dst = tile_offset(r0, 0, tid & 3);
+  }
+
+  // rows [t0, t0 + 64) into the tile at `tile`; rows at or past T as zeros
+  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
+    const bool ok = t0 + r0 < T;
+    const __nv_bfloat16* a = ok ? row + (long long)t0 * stride : zero;
+#pragma unroll
+    for (int panel = 0; panel < padded_dim<D>() / 32; ++panel) {
+      cp_async_16(tile + dst + panel * kPanelBytes, a + panel * 32, ok);
+    }
+  }
+};
+
+// One (batch*head, 128-query tile) at D = 192, two warpgroups: warpgroup w
+// takes queries 64 w .. 64 w + 63 of the tile, and both read each K and V
+// tile of the block's rings.  Batch*head along x, the query tiles along y,
+// the last first.  Each warpgroup runs flash_fwd_wide_kernel's step (S_u
+// issued beside P_{u-1} V_{u-1}) over its own key tiles, and the two take
+// turns to issue their products (two named barriers, FlashAttention-3's
+// ping-pong), so one's softmax runs while the other's products do.  No
+// block barrier ties them: each loads its half of the rows of every K and
+// V tile, a "full" mbarrier a stage says when all the copies of a tile
+// have landed (each thread's arrive when its own have), and an "empty" one
+// when both warpgroups' products have read it (each thread arrives).  At
+// turn u a warpgroup loads K_{u+1} into the stage K_{u-2} held and V_u
+// into V_{u-3}'s, so the two may drift a turn apart.  Under a causal band
+// warpgroup 0 has one key tile fewer; it loads its half of the last tile
+// and takes its turn there without products.
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kTallThreads, 1)
+flash_fwd_tall_kernel(const FlashParams p) {
+  constexpr int DP = padded_dim<D>();
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
+  constexpr int kS = kStages;
+  extern __shared__ unsigned char smem[];
+  // full and empty barriers of each K and V stage, then each Q tile's
+  __shared__ __align__(8) uint64_t bars[4 * kS + 2];
+  const uint32_t q_base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t k_ring = q_base + 2 * kTile;
+  const uint32_t v_ring = k_ring + kS * kTile;
+  const uint32_t bar0 = smem_u32(bars);
+  auto k_full = [&](int s) { return bar0 + 8 * s; };
+  auto k_empty = [&](int s) { return bar0 + 8 * (kS + s); };
+  auto v_full = [&](int s) { return bar0 + 8 * (2 * kS + s); };
+  auto v_empty = [&](int s) { return bar0 + 8 * (3 * kS + s); };
+
+  const int bh = blockIdx.x;
+  const int qt = (gridDim.y - 1 - blockIdx.y) * kTallRows;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);   // keys from here on are masked
+
+  // key tiles that query rows [r0, r0 + 64) visit
+  auto tiles_for = [&](int r0) {
+    int n = (Tk + kRows - 1) / kRows;
+    if (kv_len > 0) {
+      n = min(n, (kv_len + kRows - 1) / kRows);
+      if (p.masked) n = min(n, (r0 + kRows - 1 + p.offset) / kRows + 1);
+    }
+    return n;
+  };
+  const int n_tiles = tiles_for(qt + kRows);   // the block's: warpgroup 1's
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(k_full(s), kTallThreads);
+      mbar_init(v_full(s), kTallThreads);
+      mbar_init(k_empty(s), kTallThreads);
+      mbar_init(v_empty(s), kTallThreads);
+    }
+    mbar_init(bar0 + 8 * 4 * kS, kThreads);
+    mbar_init(bar0 + 8 * (4 * kS + 1), kThreads);
+  }
+  __syncthreads();
+
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
+  const int wg = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;   // thread in its warpgroup
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;     // row within the warp's 16 (and g + 8)
+  const int t4 = lane % 4;    // column pair within an 8-wide block
+  const int q0 = qt + wg * kRows;           // this warpgroup's query rows
+  const uint32_t q_s = q_base + wg * kTile;
+  const uint32_t q_full = bar0 + 8 * (4 * kS + wg);
+  const int n_mine = tiles_for(q0);
+
+  // this warpgroup's Q tile, then this thread's rows of K_0
+  const TallCopier<D> k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st,
+                             threadIdx.x);
+  const TallCopier<D> v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st,
+                             threadIdx.x);
+  load_tile_by<D>(tid, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  mbar_arrive_copies(q_full);
+  if (n_tiles > 0) {
+    k_copy.copy(k_ring, 0, Tk);
+    mbar_arrive_copies(k_full(0));
+  }
+  // turn u's copies: K_{u+1} into the stage of K_{u-2} and V_u into that
+  // of V_{u-3}, once both warpgroups' products have read those
+  auto load_turn = [&](int u) {
+    const int j = u + 1;
+    if (j < n_tiles) {
+      if (j >= kS) mbar_wait(k_empty(j % kS), (j / kS - 1) & 1);
+      k_copy.copy(k_ring + (j % kS) * kTile, j * kRows, Tk);
+      mbar_arrive_copies(k_full(j % kS));
+    }
+    if (u < n_tiles) {
+      if (u >= kS) mbar_wait(v_empty(u % kS), (u / kS - 1) & 1);
+      v_copy.copy(v_ring + (u % kS) * kTile, u * kRows, Tk);
+      mbar_arrive_copies(v_full(u % kS));
+    }
+  };
+
+  const int row0 = q0 + warp * 16 + g;   // global query rows of this thread
+  const int row1 = row0 + 8;
+  float m0 = kMaskFill, m1 = kMaskFill;   // running row max
+  float l0 = 0.f, l1 = 0.f;               // per-thread partial row sums
+  float alpha0 = 1.f, alpha1 = 1.f;       // the last step's rescale
+  float acc[DP / 2], s[32];
+  uint32_t pa[4][4];                      // bf16(P) of the last step
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  auto issue_qk = [&](int u) {
+    const uint32_t k_s = k_ring + (u % kS) * kTile;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
+    }
+  };
+  auto issue_pv = [&](int u) {
+    const uint32_t v_s = v_ring + (u % kS) * kTile;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DP>(acc, pa[kc], desc_mn_major(v_s, kc));
+    }
+  };
+  // the last visible key of each of this thread's rows (band and kv_len)
+  const int vis0 = p.masked ? min(kv_len - 1, row0 + p.offset) : kv_len - 1;
+  const int vis1 = p.masked ? min(kv_len - 1, row1 + p.offset) : kv_len - 1;
+  // the dropout hash's x = idx * 0x9E3779B9 + seed (flash_common.cuh) of
+  // this thread's first score in row0 of key tile 0; a score i of tile u
+  // adds a constant
+  constexpr uint32_t kMix = 0x9E3779B9u;
+  const uint32_t x00 =
+      (dblk.bh * 0x85EBCA6Bu +
+       static_cast<uint32_t>(row0) * p.drop.tk_p + 2 * t4) * kMix +
+      p.drop.block_seed<Groups>(dblk);
+  const uint32_t x10 = x00 + 8 * p.drop.tk_p * kMix;   // row1
+
+  // P_u from S_u: the masks, the running max and the rescale factors, exp,
+  // the row sums, then dropout
+  auto softmax = [&](int u) {
+    const int k0 = u * kRows;
+    const bool edge = k0 + kRows > kv_end ||
+                      (p.masked && k0 + kRows - 1 > q0 + p.offset);
+    if (edge) {
+      // -inf past Tk (not a key at all), -1e30 for masked keys
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        const int vis = (i & 2) ? vis1 : vis0;
+        s[i] = col >= Tk ? -INFINITY : col > vis ? kMaskFill : s[i];
+      }
+    }
+    float mx0 = kMaskFill, mx1 = kMaskFill;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    // the 4 threads of a quad share a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    alpha0 = ex2((m0 - mn0) * kLog2e);
+    alpha1 = ex2((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    const float ml0 = __fmul_rn(mn0, kLog2e);
+    const float ml1 = __fmul_rn(mn1, kLog2e);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(__fmul_rn(s[i], kLog2e) - ((i & 2) ? ml1 : ml0));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? ml1 : ml0)));
+      }
+    }
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l0 += s[4 * j] + s[4 * j + 1];
+      l1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    // dropout after the row sums, so l keeps the undropped probabilities
+    if (p.drop.on) {
+      const uint32_t xt0 = x00 + static_cast<uint32_t>(k0) * kMix;
+      const uint32_t xt1 = x10 + static_cast<uint32_t>(k0) * kMix;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const uint32_t x = ((i & 2) ? xt1 : xt0) +
+                           static_cast<uint32_t>((i / 4) * 8 + (i & 1)) * kMix;
+        s[i] = p.drop.keep_mixed(x) ? s[i] * p.drop.inv_keep : 0.f;
+      }
+    }
+  };
+
+  // turn u (0 .. n_tiles): S_u (u < n_mine) beside P_{u-1} V_{u-1}
+  // (0 < u <= n_mine), issued once the other warpgroup has issued its turn
+  // u - 1 (warpgroup 0) or u (warpgroup 1).  Warpgroup 1 lets warpgroup 0
+  // take turn 0 and does not hand on its last turn, so every arrival at a
+  // turn barrier is waited on.  Each kind of turn issues and waits for its
+  // products in one branch (ptxas serialises wgmma issued on divergent
+  // paths).
+  auto my_turn = [&]() { named_sync(1 + wg, kTallThreads); };
+  auto hand_on = [&]() { named_arrive(2 - wg, kTallThreads); };
+  if (n_tiles > 0) {
+    mbar_wait(q_full, 0);
+    if (wg == 1) hand_on();
+    load_turn(0);
+    if (n_mine > 0) {
+      // turn 0: S_0, P_0
+      mbar_wait(k_full(0), 0);
+      fence_proxy_async();
+      my_turn();
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_commit();
+      hand_on();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(k_empty(0));
+      softmax(0);
+      p_frags(pa, s);
+    } else {
+      my_turn();
+      hand_on();
+    }
+    for (int u = 1; u < n_tiles; ++u) {
+      load_turn(u);
+      if (u < n_mine) {
+        mbar_wait(k_full(u % kS), (u / kS) & 1);
+        mbar_wait(v_full((u - 1) % kS), ((u - 1) / kS) & 1);
+        fence_proxy_async();
+        my_turn();
+        wgmma_fence();
+        issue_qk(u);
+        wgmma_commit();
+        issue_pv(u - 1);
+        wgmma_commit();
+        hand_on();
+        wgmma_wait<1>();   // S_u; P_{u-1} V_{u-1} may still run
+        fence_regs(s);
+        mbar_arrive(k_empty(u % kS));
+        softmax(u);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_frags(pa);
+        mbar_arrive(v_empty((u - 1) % kS));
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+        p_frags(pa, s);
+      } else if (u == n_mine) {
+        // this warpgroup's last product: O += P_{u-1} V_{u-1}
+        mbar_wait(v_full((u - 1) % kS), ((u - 1) / kS) & 1);
+        fence_proxy_async();
+        my_turn();
+        wgmma_fence();
+        issue_pv(u - 1);
+        wgmma_commit();
+        hand_on();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(v_empty((u - 1) % kS));
+      } else {
+        my_turn();
+        hand_on();
+      }
+    }
+    // turn n_tiles: O += P_{n-1} V_{n-1} where n_mine is n_tiles
+    if (n_mine == n_tiles) {
+      const int u = n_tiles;
+      mbar_wait(v_full((u - 1) % kS), ((u - 1) / kS) & 1);
+      fence_proxy_async();
+      my_turn();
+      wgmma_fence();
+      issue_pv(u - 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {
+      my_turn();
+    }
+    if (wg == 0) hand_on();
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float ls0 = (l0 == 0.f) ? 1.f : l0;
+  const float ls1 = (l1 == 0.f) ? 1.f : l1;
+
+  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  if (row0 < p.Tq) {
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
+    if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
+  }
+  if (row1 < p.Tq) {
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
+    if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
+  }
+}
+
 template <int D, bool Groups>
 cudaError_t launch(const FlashParams& p, cudaStream_t s) {
   static bool smem_set = false;
   const int nq = (p.Tq + kRows - 1) / kRows;
-  if constexpr (padded_dim<D>() == 128) {
+  if constexpr (padded_dim<D>() == 192) {
+    constexpr int bytes = tall_smem_bytes<D>();
+    cudaError_t err =
+        allow_smem(flash_fwd_tall_kernel<D, Groups>, bytes, smem_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.B * p.H, (p.Tq + kTallRows - 1) / kTallRows);
+    flash_fwd_tall_kernel<D, Groups><<<grid, kTallThreads, bytes, s>>>(p);
+  } else if constexpr (padded_dim<D>() == 128) {
     constexpr int bytes = smem_bytes<D>();
     cudaError_t err =
         allow_smem(flash_fwd_wide_kernel<D, Groups>, bytes, smem_set);
@@ -914,7 +1356,11 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
 int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if constexpr (padded_dim<kD>() == 128) {
+    if constexpr (padded_dim<kD>() == 192) {
+      return bpx_flash::blocks_per_sm(flash_fwd_tall_kernel<kD>,
+                                      tall_smem_bytes<kD>(), blocks,
+                                      kTallThreads);
+    } else if constexpr (padded_dim<kD>() == 128) {
       return bpx_flash::blocks_per_sm(flash_fwd_wide_kernel<kD>,
                                       smem_bytes<kD>(), blocks);
     } else if constexpr (padded_dim<kD>() == 32) {

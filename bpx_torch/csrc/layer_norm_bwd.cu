@@ -23,9 +23,13 @@
 //      row's mean(a) and mean(a xhat) by shuffles, and each lane keeps its
 //      columns of dw and db in registers across the warp's rows.  The block
 //      adds its warps' sums in a fixed tree through shared memory and writes
-//      one partial row of dw and one of db to the workspace.  Other widths
-//      or alignments take a scalar path that re-reads the row from L1/L2 and
-//      keeps one partial row per warp in the workspace.
+//      one partial row of dw and one of db to the workspace.  Rows wider
+//      than 1024, up to 1536 (mmtrvpa's memory encoders), take the same
+//      kernel with two warps a row (P = 2): each warp holds half the row
+//      in the 768-wide path's registers, and the pair adds its two sums
+//      through shared memory behind a 64-thread barrier.
+//      Other widths or alignments take a scalar path that re-reads the row
+//      from L1/L2 and keeps one partial row per warp in the workspace.
 //   2. the grid barrier (cooperative_groups, split into arrive and wait):
 //      each warp computes its last row's dx between the two, so that work
 //      hides part of the barrier's latency.
@@ -42,7 +46,7 @@
 // steps 2 and 3 and of the warp tree weigh as much as the rows do.
 //
 // Built with -DBPX_LN_TRACE (scripts/torch_ln_bwd_phases.py; checked by
-// tests/test_torch_cuda.py), the vector path's thread 0 of each block stamps
+// tests/test_torch_cuda.py), the vector paths' thread 0 of each block stamps
 // the global timer at its start and after its rows, its partial rows, the
 // barrier and its column sums, for bpx_ln_trace_read.
 
@@ -139,8 +143,9 @@ __device__ __forceinline__ void block_rows(int n, int* first, int* last) {
   *last = *first + each + (b < extra ? 1 : 0);
 }
 
-// One row of x and dy (a lane's K chunks of 4) and its statistics.
-template <typename Tx, typename Tdy, int K>
+// One row of x and dy (a lane's K chunks of 4: chunks first + 32 P c of
+// the row, P the warps that share it) and its statistics.
+template <typename Tx, typename Tdy, int K, int P = 1>
 struct Row {
   typename Vec4<Tx>::Raw x[K];
   typename Vec4<Tdy>::Raw g[K];
@@ -150,11 +155,11 @@ struct Row {
                                        const Tdy* __restrict__ dys,
                                        const float* __restrict__ mus,
                                        const float* __restrict__ rstds,
-                                       int row, int e, int lane) {
+                                       int row, int e, int first) {
     const long long off = (long long)row * e;
 #pragma unroll
     for (int c = 0; c < K; ++c) {
-      const int idx = lane + c * 32;
+      const int idx = first + c * 32 * P;
       if (idx < e / 4) {
         x[c] = Vec4<Tx>::load(xs + off + idx * 4);
         g[c] = Vec4<Tdy>::load(dys + off + idx * 4);
@@ -166,14 +171,14 @@ struct Row {
 };
 
 // dx of one row held in registers, from its mean(a) and mean(a xhat).
-template <typename Tx, typename Tdy, int K>
-__device__ __forceinline__ void dx_pass(const Row<Tx, Tdy, K>& r,
+template <typename Tx, typename Tdy, int K, int P>
+__device__ __forceinline__ void dx_pass(const Row<Tx, Tdy, K, P>& r,
                                         const float* w_s, float m1, float m2,
-                                        Tx* __restrict__ dxr, int lane,
+                                        Tx* __restrict__ dxr, int first,
                                         int chunks) {
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    const int idx = lane + c * 32;
+    const int idx = first + c * 32 * P;
     if (idx < chunks) {
       float xv[4], gv[4], out[4];
       Vec4<Tx>::unpack(r.x[c], xv);
@@ -190,29 +195,51 @@ __device__ __forceinline__ void dx_pass(const Row<Tx, Tdy, K>& r,
   }
 }
 
-template <typename Tx, typename Tdy, int K>
+// The barrier of the P warps of row group `group` (named barrier 1 +
+// group).
+template <int P>
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(32 * P) : "memory");
+}
+
+// The vector path.  P warps share a row: one up to E = 1024, two for rows
+// too wide for one warp's registers (up to 2 x 32 x K x 4: 1536 at K = 6,
+// the 768-wide path's registers a warp).  Row group g (warps P g ..
+// P g + P - 1) takes every (8 / P)-th row of the block's range; warp p of
+// the group holds chunks 32 p + lane + 32 P c of the row, and the same
+// columns of dw and db across the group's rows.  With two warps a row they
+// add their shuffled sums through shared memory behind the group's own
+// barrier, warp 0's first, so both compute the same mean(a) and
+// mean(a xhat); the slots alternate by row so that one barrier a row
+// suffices.
+template <typename Tx, typename Tdy, int K, int P>
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_vec_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
                   const float* __restrict__ w, const float* __restrict__ mu,
                   const float* __restrict__ rstd, Tx* __restrict__ dx,
                   float* __restrict__ part, float* __restrict__ dw,
                   float* __restrict__ db, int n, int e) {
+  constexpr int kGroups = kWarps / P;   // rows in flight a block
   // w (e floats), then the tree of the warps' dw/db sums (kWarps / 2
   // slots of 8 K floats per lane)
   extern __shared__ float smem[];
   __shared__ float red[kThreads];
+  __shared__ float2 sums[kGroups][2][P];   // [group][row parity][warp]
   float* w_s = smem;
-  float4* tree = reinterpret_cast<float4*>(smem + K * 128);
+  float4* tree = reinterpret_cast<float4*>(smem + P * K * 128);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int group = warp / P;
+  const int sub = warp % P;
+  const int mine = sub * 32 + lane;   // this lane's first chunk of a row
   const int chunks = e / 4;
   LN_TRACE(0);
 
   int first, last;
   block_rows(n, &first, &last);
-  Row<Tx, Tdy, K> cur, nxt;
-  int row = first + warp;
-  if (row < last) cur.load(x, dy, mu, rstd, row, e, lane);
+  Row<Tx, Tdy, K, P> cur, nxt;
+  int row = first + group;
+  if (row < last) cur.load(x, dy, mu, rstd, row, e, mine);
   for (int i = threadIdx.x; i < e; i += kThreads) w_s[i] = w[i];
   float aw[K][4], ab[K][4];
 #pragma unroll
@@ -222,17 +249,18 @@ ln_bwd_vec_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
   }
   __syncthreads();   // w_s
 
-  // every row but the warp's last: both passes; the last row's dx pass
+  // every row but the group's last: both passes; the last row's dx pass
   // waits until the block has arrived at the grid barrier
   float m1 = 0.f, m2 = 0.f;
-  for (; row < last; row += kWarps) {
-    const bool more = row + kWarps < last;
-    if (more) nxt.load(x, dy, mu, rstd, row + kWarps, e, lane);
+  int parity = 0;
+  for (; row < last; row += kGroups) {
+    const bool more = row + kGroups < last;
+    if (more) nxt.load(x, dy, mu, rstd, row + kGroups, e, mine);
     const float m = cur.mu, rs = cur.rstd;
     float s_a = 0.f, s_ax = 0.f;
 #pragma unroll
     for (int c = 0; c < K; ++c) {
-      const int idx = lane + c * 32;
+      const int idx = mine + c * 32 * P;
       if (idx < chunks) {
         float xv[4], gv[4];
         Vec4<Tx>::unpack(cur.x[c], xv);
@@ -250,20 +278,35 @@ ln_bwd_vec_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
         }
       }
     }
-    m1 = warp_sum(s_a) / e;
-    m2 = warp_sum(s_ax) / e;
+    s_a = warp_sum(s_a);
+    s_ax = warp_sum(s_ax);
+    if constexpr (P > 1) {
+      if (lane == 0) sums[group][parity][sub] = make_float2(s_a, s_ax);
+      group_sync<P>(group);
+      s_a = s_ax = 0.f;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float2 v = sums[group][parity][q];
+        s_a += v.x;
+        s_ax += v.y;
+      }
+      parity ^= 1;
+    }
+    m1 = s_a / e;
+    m2 = s_ax / e;
     if (!more) break;
-    dx_pass(cur, w_s, m1, m2, dx + (long long)row * e, lane, chunks);
+    dx_pass(cur, w_s, m1, m2, dx + (long long)row * e, mine, chunks);
     cur = nxt;
   }
   LN_TRACE(1);
 
-  // the block's partial rows: the warps' sums added in a fixed tree (warp
-  // w += warp w + h for h = 4, 2, 1), each lane's columns in registers
+  // the block's partial rows: the groups' sums added in a fixed tree
+  // (group g += group g + h for h = 4, 2, 1 / P), warp p of each group
+  // holding the same columns, in registers
 #pragma unroll
-  for (int h = kWarps / 2; h > 0; h /= 2) {
-    if (warp >= h && warp < 2 * h) {
-      float4* slot = tree + (warp - h) * 2 * K * 32 + lane;
+  for (int h = kGroups / 2; h > 0; h /= 2) {
+    if (group >= h && group < 2 * h) {
+      float4* slot = tree + ((group - h) * P + sub) * 2 * K * 32 + lane;
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         slot[c * 32] = make_float4(aw[c][0], aw[c][1], aw[c][2], aw[c][3]);
@@ -272,8 +315,8 @@ ln_bwd_vec_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
       }
     }
     __syncthreads();
-    if (warp < h) {
-      const float4* slot = tree + warp * 2 * K * 32 + lane;
+    if (group < h) {
+      const float4* slot = tree + (group * P + sub) * 2 * K * 32 + lane;
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         const float4 u = slot[c * 32], v = slot[(K + c) * 32];
@@ -283,13 +326,13 @@ ln_bwd_vec_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
     }
     __syncthreads();
   }
-  if (warp == 0) {
+  if (group == 0) {
     float4* pw = reinterpret_cast<float4*>(part + (long long)blockIdx.x * e);
     float4* pb = reinterpret_cast<float4*>(
         part + ((long long)gridDim.x + blockIdx.x) * e);
 #pragma unroll
     for (int c = 0; c < K; ++c) {
-      const int idx = lane + c * 32;
+      const int idx = mine + c * 32 * P;
       if (idx < chunks) {
         pw[idx] = make_float4(aw[c][0], aw[c][1], aw[c][2], aw[c][3]);
         pb[idx] = make_float4(ab[c][0], ab[c][1], ab[c][2], ab[c][3]);
@@ -301,7 +344,7 @@ ln_bwd_vec_kernel(const Tx* __restrict__ x, const Tdy* __restrict__ dy,
   cg::grid_group grid = cg::this_grid();
   auto token = grid.barrier_arrive();
   if (row < last) {
-    dx_pass(cur, w_s, m1, m2, dx + (long long)row * e, lane, chunks);
+    dx_pass(cur, w_s, m1, m2, dx + (long long)row * e, mine, chunks);
   }
   grid.barrier_wait(std::move(token));
   LN_TRACE(3);
@@ -372,10 +415,10 @@ struct Args {
 template <typename Tx, typename Tdy, typename Kernel>
 cudaError_t launch_kernel(Kernel kernel, int* cache, int smem,
                           int parts_per_block, const Args& a, cudaStream_t s,
-                          long long* need) {
+                          long long* need, int rows = kWarps) {
   int grid = 0;
   const cudaError_t err = grid_for(reinterpret_cast<const void*>(kernel),
-                                   smem, cache, a.n, &grid);
+                                   smem, cache, a.n, &grid, rows);
   if (err != cudaSuccess) return err;
   if (need != nullptr) {
     *need = 2LL * parts_per_block * grid * a.e;
@@ -397,22 +440,27 @@ cudaError_t launch_kernel(Kernel kernel, int* cache, int smem,
                             a.e);
 }
 
-template <typename Tx, typename Tdy, int K>
+// A block has 8 / P rows in flight: one block per 8 / P rows, as the card
+// allows.
+template <typename Tx, typename Tdy, int K, int P>
 cudaError_t launch_vec(const Args& a, cudaStream_t s, long long* need) {
   static int cache[kMaxDevices];
-  // w for the widest row of this K and the tree of the warps' sums
-  const int smem = (K * 128 + kWarps / 2 * 8 * K * 32) * (int)sizeof(float);
-  return launch_kernel<Tx, Tdy>(ln_bwd_vec_kernel<Tx, Tdy, K>, cache, smem,
-                                1, a, s, need);
+  // w for the widest row of this K and P, and the tree of the warps' sums
+  const int smem = (P * K * 128 + kWarps / 2 * 8 * K * 32) * (int)sizeof(float);
+  return launch_kernel<Tx, Tdy>(ln_bwd_vec_kernel<Tx, Tdy, K, P>, cache,
+                                smem, 1, a, s, need, kWarps / P);
 }
 
 template <typename Tx, typename Tdy>
 cudaError_t launch(const Args& a, int vector_ok, cudaStream_t s,
                    long long* need) {
-  switch (vector_ok && a.e % 4 == 0 ? vec_chunks(a.e) : 0) {
-    case 3: return launch_vec<Tx, Tdy, 3>(a, s, need);
-    case 6: return launch_vec<Tx, Tdy, 6>(a, s, need);
-    case 8: return launch_vec<Tx, Tdy, 8>(a, s, need);
+  const BwdPlan plan =
+      vector_ok && a.e % 4 == 0 ? bwd_plan(a.e) : BwdPlan{0, 0};
+  if (plan.warps == 2) return launch_vec<Tx, Tdy, 6, 2>(a, s, need);
+  switch (plan.chunks) {
+    case 3: return launch_vec<Tx, Tdy, 3, 1>(a, s, need);
+    case 6: return launch_vec<Tx, Tdy, 6, 1>(a, s, need);
+    case 8: return launch_vec<Tx, Tdy, 8, 1>(a, s, need);
     default: {
       static int cache[kMaxDevices];
       return launch_kernel<Tx, Tdy>(ln_bwd_scalar_kernel<Tx, Tdy>, cache, 0,

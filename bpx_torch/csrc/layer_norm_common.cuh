@@ -82,12 +82,27 @@ inline int vec_chunks(int e) {
   return e <= 384 ? 3 : e <= 768 ? 6 : e <= 1024 ? 8 : 0;
 }
 
+// The backward's vector plan for width e: 4-element chunks per lane and
+// warps per row.  Up to 1024 the forward's, a warp a row; above, up to 1536
+// (mmtrvpa's 2E-wide memory encoders at moviescope's widths), a warp pair a
+// row at 6 chunks a lane, the register budget of the 768-wide path; {0, 0}
+// for a wider row, which takes the scalar path.
+struct BwdPlan {
+  int chunks;
+  int warps;
+};
+inline BwdPlan bwd_plan(int e) {
+  if (e <= 1024) return {vec_chunks(e), 1};
+  return e <= 1536 ? BwdPlan{6, 2} : BwdPlan{0, 0};
+}
+
 // The grid for n rows of `kernel` (kThreads threads, `smem` dynamic bytes)
-// into *grid: one block per 8 rows, but no more blocks than the current
-// device holds at once (SMs x blocks per SM, from the occupancy calculator,
-// taken once per device into `cache`: one cache per kernel).
+// into *grid: one block per `rows` rows (a block's rows in flight at once),
+// but no more blocks than the current device holds at once (SMs x blocks
+// per SM, from the occupancy calculator, taken once per device into
+// `cache`: one cache per kernel).
 inline cudaError_t grid_for(const void* kernel, int smem, int* cache, int n,
-                            int* grid) {
+                            int* grid, int rows = kWarps) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -103,7 +118,7 @@ inline cudaError_t grid_for(const void* kernel, int smem, int* cache, int n,
     if (per_sm * sms == 0) return cudaErrorInvalidConfiguration;
     cache[dev] = per_sm * sms;
   }
-  const int want = (n + kWarps - 1) / kWarps;
+  const int want = (n + rows - 1) / rows;
   *grid = want < cache[dev] ? want : cache[dev];
   return cudaSuccess;
 }

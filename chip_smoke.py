@@ -785,6 +785,8 @@ def fwd_kernel(D, groups=1) -> str:
         name = "flash_fwd_narrow_kernel"
     elif D == 128:
         name = "flash_fwd_wide_kernel"
+    elif D == 192:
+        name = "flash_fwd_tall_kernel"
     else:
         name = "flash_fwd_kernel"
     return name + build_args(D, groups)
@@ -1078,9 +1080,13 @@ def phase_layer_norm_bwd(torch, timer, classes, gen, scalar_path=True):
         split = one_kernel_per_call(
             torch, lambda: norm._launch_bwd(x, w, mu, rstd, dy),
             "layer_norm backward", (n, e))
+        kernel = ln_bwd_kernel(e)
+        check(all(re.fullmatch(kernel, k) for k in split),
+              f"layer_norm backward at {(n, e)}: expected {kernel}, the "
+              f"profiler saw {sorted(split)}")
         rows.append(dict(shape=[n, e], dtype=str(dt), dy_dtype=str(dy_dt),
                          per_forward=count, max_abs_err=err,
-                         param_rel_err=perr,
+                         param_rel_err=perr, kernel=kernel,
                          ms=t_k, plain_ms=t_p, library_ms=t_l,
                          bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split))
         print(f"[layer_norm_bwd] ({n}, {e}) {dt}, dy {dy_dt} x{count}/"
@@ -1088,10 +1094,26 @@ def phase_layer_norm_bwd(torch, timer, classes, gen, scalar_path=True):
               f"{perr:.3g} (tol {LN_PARAM_GRAD_TOL}), reruns bitwise equal; "
               + timing_text(t_k, t_p, t_l, b_ms, b_by, "F.layer_norm bwd")
               + "; profiler: " + split_text(split))
-    if not scalar_path:
-        return rows
-    # the scalar path once, too, on misaligned views
-    n, e = 133, 768
+    if scalar_path:
+        ln_bwd_scalar_view(torch, gen, 133, 768)
+    return rows
+
+
+def ln_bwd_kernel(e) -> str:
+    """A pattern of the name the profiler reports for the LayerNorm
+    backward's kernel on an aligned row of width e (``bwd_plan`` in
+    ``csrc/layer_norm_common.cuh``): the vector kernel with a warp a row
+    (its last template argument 1) up to 1024, with two warps a row up to
+    1536, else the scalar kernel."""
+    if e % 4 == 0 and e <= 1536:
+        return rf"ln_bwd_vec_kernel<.*, {1 if e <= 1024 else 2}>"
+    return r"ln_bwd_scalar_kernel<.*>"
+
+
+def ln_bwd_scalar_view(torch, gen, n, e):
+    """The LayerNorm backward on misaligned (n, e) views against its plain
+    version: the profiler must name the scalar kernel."""
+    from bpx_torch.ops import norm
     x, dy = (misaligned_view(torch, gen, n, e) for _ in range(2))
     w = torch.rand(e, generator=gen, device="cuda") + 0.5
     _, mu, rstd = norm.layer_norm(x, w, torch.zeros_like(w), 1e-6,
@@ -1101,11 +1123,10 @@ def phase_layer_norm_bwd(torch, timer, classes, gen, scalar_path=True):
     perr = max(grad_err(g, r) for g, r in zip(got[1:], want[1:]))
     check(torch.allclose(got[0].float(), want[0].float(), **LN_TOL)
           and perr <= LN_PARAM_GRAD_TOL,
-          f"layer_norm backward scalar path differs: dx "
+          f"layer_norm backward scalar path differs at {(n, e)}: dx "
           f"{max_err(got[0], want[0])}, dw/db {perr}")
     takes_kernel(torch, lambda: norm._launch_bwd(x, w, mu, rstd, dy),
-                 "ln_bwd_scalar_kernel")
-    return rows
+                 "ln_bwd_scalar_kernel", f"a misaligned {(n, e)} view")
 
 
 #: device kernels per LayerNorm call, forward or backward (the backward's
@@ -3370,8 +3391,12 @@ def phase_legacy(torch, np, timer, gen, card, checked):
         torch, timer, dict.fromkeys(served_d192, 0), gen,
         label="flash_bwd mmtrvpa rate 0")
     checked["flash_bwd"] |= set(served_d192)
-    # the exact dropout masks of the memory encoders' head dim
+    # the exact dropout masks of the memory encoders' head dim; the
+    # 1536-wide LayerNorm backward's scalar kernel on misaligned views (the
+    # aligned classes above take the vector kernel with two warps a row, by
+    # the profiler)
     phase_mask_check(torch, gen, BATCH, 8, 512, 192)
+    ln_bwd_scalar_view(torch, gen, 133, 1536)
     rows = out["rows"]
     check(dim_rows(rows["flash"], 192) and dim_rows(rows["flash_bwd"], 192)
           and [r for r in rows["ln"] if r["shape"][1] == 1536]

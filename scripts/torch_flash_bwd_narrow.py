@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """The flash-attention kernels on a CUDA card, one build against another in
 the same process: the backward (default) or the forward, at the narrow head
-dims (25, 30) or any other class.
+dims (25, 30) or any other class; or the LayerNorm backward.
 
     python3 scripts/torch_flash_bwd_narrow.py
     python3 scripts/torch_flash_bwd_narrow.py --tree parent=build/parent \\
         --variant LABEL=-DSOME_MACRO=1
     python3 scripts/torch_flash_bwd_narrow.py --kernel fwd
     python3 scripts/torch_flash_bwd_narrow.py --shape 8,6,512,128
+    python3 scripts/torch_flash_bwd_narrow.py --kernel ln_bwd \\
+        --shape 4096,1536 --tree parent=build/parent
 
 Builds the port's kernels from ``bpx_torch/csrc`` of this checkout
 ("this"), from each ``--tree LABEL=DIR`` (a checkout's root, e.g. the parent
@@ -23,8 +25,12 @@ build's kernel against the plain version (the backward within
 ``FLASH_GRAD_TOL`` of ``chip_smoke.py``, the forward within ``FLASH_TOL``
 and ``LSE_TOL``) and bitwise on a rerun, then its time (CUDA events,
 ``chip_smoke.Timer``) in turns (A B ... B A, ``--rounds`` times) and the
-profiler's device time per kernel.  A build that fails, or disagrees with
-the plain version, is reported and dropped.  Writes
+profiler's device time per kernel.  With ``--kernel ln_bwd`` the classes
+are LayerNorm rows ``--shape N,E`` (default mmtrvpa's 4096 x 1536 and
+1600 x 1536), bf16 x and dy: the backward within ``LN_TOL`` (dx) and
+``LN_PARAM_GRAD_TOL`` (dw, db) of the plain version, bitwise on a rerun,
+timed in turns beside ``F.layer_norm``'s backward.  A build that fails, or
+disagrees with the plain version, is reported and dropped.  Writes
 ``chiprun_out/flash_<kernel>_ab.json``.  Without a card it exits non-zero.
 """
 
@@ -43,6 +49,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 CLASSES = ((8, 12, 512, 25), (8, 10, 512, 30))
+LN_CLASSES = ((4096, 1536), (1600, 1536))
 RATES = (0.0, 0.1)
 SEED = 0x7F4A7C15
 
@@ -103,7 +110,9 @@ def build(label, src_dir, flags, kernel="bwd"):
             name = cs.kernel_name(line.split("'")[1])
         elif "spill" in line:
             spill = line.strip()
-        elif "registers" in line and f"flash_{kernel}" in name:
+        elif "registers" in line and (f"flash_{kernel}" in name
+                                      or kernel == "ln_bwd"
+                                      and "ln_bwd_" in name):
             lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
         elif "wgmma" in line.lower():
             lines.append(f"{name}: {line.strip()}")
@@ -122,15 +131,18 @@ def main() -> None:
                     help="LABEL=DIR: build DIR/bpx_torch/csrc too")
     ap.add_argument("--variant", action="append", default=[],
                     help="LABEL=FLAG,FLAG: this tree with extra nvcc flags")
-    ap.add_argument("--kernel", choices=("bwd", "fwd"), default="bwd",
-                    help="time the backward (with delta) or the forward")
+    ap.add_argument("--kernel", choices=("bwd", "fwd", "ln_bwd"),
+                    default="bwd",
+                    help="time the flash backward (with delta), the flash "
+                         "forward or the LayerNorm backward")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--shape", action="append", default=[],
                     help="B,H,T,D: a causal T x T class to time instead of "
-                         "the two model classes (repeatable)")
+                         "the two model classes; N,E with --kernel ln_bwd "
+                         "(repeatable)")
     args = ap.parse_args()
     classes = ([tuple(int(x) for x in spec.split(",")) for spec in args.shape]
-               or CLASSES)
+               or (LN_CLASSES if args.kernel == "ln_bwd" else CLASSES))
 
     import torch
     if not torch.cuda.is_available():
@@ -155,6 +167,11 @@ def main() -> None:
 
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if kernel == "ln_bwd":
+        results = [ln_bwd_row(torch, timer, gen, builds, n, e, args.rounds)
+                   for n, e in classes]
+        write_results(kernel, card, builds, results)
+        return
     results = []
     for B, H, Tq, D in classes:
         Tk = Tq
@@ -237,6 +254,84 @@ def main() -> None:
                       + ", ".join(f"{n} {t:.4f} ms"
                                   for n, t in r["split_ms"].items()))
             results.append(row)
+    write_results(kernel, card, builds, results)
+
+
+def use_build(b):
+    """Make build ``b`` the wrappers' library.  The LayerNorm backward's
+    workspace size depends on the build's path, so its cache is cleared."""
+    from bpx_torch.ops import _cuda, norm
+    _cuda._lib = b["lib"]
+    norm._WORKSPACE_NUMEL.clear()
+
+
+def ln_bwd_row(torch, timer, gen, builds, n, e, rounds):
+    """The LayerNorm backward of every build at (n, e), bf16 x and dy:
+    checked against the plain version and on a rerun, then timed in turns
+    beside F.layer_norm's backward.  A build that disagrees is dropped."""
+    import torch.nn.functional as F
+    from bpx_torch.ops import norm
+    x = (torch.randn(n, e, generator=gen, device="cuda") * 3 + 1).to(
+        torch.bfloat16)
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    dy = torch.randn(n, e, generator=gen, device="cuda").to(torch.bfloat16)
+    use_build(builds[0])
+    _, mu, rstd = norm.layer_norm(x, w, torch.zeros_like(w), 1e-6,
+                                  return_stats=True)
+    want = norm.layer_norm_backward_reference(x, w, mu, rstd, dy)
+    call = lambda: norm._launch_bwd(x, w, mu, rstd, dy)
+    nbytes = n * e * 3 * 2 + 3 * e * 4 + 2 * n * 4
+    b_ms, b_by = cs.bound_ms(nbytes, 12.0 * n * e)
+    xl = x.detach().requires_grad_(True)
+    wl = w.to(torch.bfloat16).requires_grad_(True)
+    bl = torch.zeros_like(wl).requires_grad_(True)
+    y = F.layer_norm(xl, (e,), wl, bl, 1e-6)
+    t_lib = timer(lambda: torch.autograd.grad(y, (xl, wl, bl), dy,
+                                              retain_graph=True))
+    row = dict(shape=[n, e], bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+               builds={})
+    for b in list(builds):
+        use_build(b)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        err = cs.max_err(got[0], want[0])
+        perr = max(cs.grad_err(g, r) for g, r in zip(got[1:], want[1:]))
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        ok = (torch.allclose(got[0].float(), want[0].float(), **cs.LN_TOL)
+              and perr <= cs.LN_PARAM_GRAD_TOL)
+        if not (ok and same):
+            print(f"[{b['label']}] WRONG at {(n, e)}: dx err {err}, dw/db "
+                  f"{perr}, reruns equal {same}; dropped")
+            builds.remove(b)
+            continue
+        split = cs.device_kernels(torch, call)
+        # fp32 workspace of the cross-block dw/db sums: 2 E per partial row
+        work = b["lib"].bpx_layer_norm_bwd_workspace(n, e, 1, 1, 1)
+        row["builds"][b["label"]] = dict(
+            max_abs_err=err, param_rel_err=perr, ms_all=[],
+            workspace_mib=work * 4 / 2 ** 20, partial_rows=work // (2 * e),
+            split_ms={cs.short_name(k): t for k, (_, t) in split.items()})
+    for _ in range(rounds):
+        for b in builds + builds[::-1]:
+            use_build(b)
+            row["builds"][b["label"]]["ms_all"].append(timer(call))
+    for b in builds:
+        r = row["builds"][b["label"]]
+        r["ms"] = statistics.median(r["ms_all"])
+        print(f"[{b['label']}] layer_norm_bwd ({n}, {e}) bf16: "
+              f"{r['ms']:.4f} ms (runs "
+              + ", ".join(f"{t:.4f}" for t in r["ms_all"])
+              + f"), bound {b_ms:.4f} ms ({b_by}), {b_ms / r['ms']:.1%} of "
+              f"it, F.layer_norm bwd {t_lib:.4f} ms ("
+              f"{r['ms'] / t_lib:.2f}x); dx err {r['max_abs_err']:.3g}, "
+              f"dw/db {r['param_rel_err']:.3g}, reruns bitwise equal; "
+              f"{r['partial_rows']} partial rows ({r['workspace_mib']:.1f} "
+              f"MiB of workspace); profiler: " + ", ".join(f"{k} {t:.4f} ms"
+                                        for k, t in r["split_ms"].items()))
+    return row
+
+
+def write_results(kernel, card, builds, results):
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"flash_{kernel}_ab.json").write_text(json.dumps(dict(

@@ -605,6 +605,10 @@ def test_dropout_mask_is_exact_at_head_dim_128(gen):
 @pytest.mark.parametrize("B,H,Tq,Tk,masked,lens", [
     (8, 8, 512, 512, True, None),          # mmtrvpa's memory: l stream
     (8, 8, 200, 200, True, None),          # ... its a and v streams
+    (2, 8, 512, 512, True, (512, 0)),      # the classes with kv_lens, one 0
+    (2, 8, 512, 512, False, (300, 0)),
+    (2, 8, 200, 200, True, (0, 137)),
+    (2, 8, 200, 200, False, (0, 200)),
     (2, 3, 77, 130, True, None),           # ragged tiles, band
     (3, 2, 64, 64, False, (64, 0, 5)),     # kv_len 0: zero grads
     (2, 1, 129, 65, False, (65, 1)),       # one visible key
@@ -616,10 +620,12 @@ def test_dropout_mask_is_exact_at_head_dim_128(gen):
 def test_head_dim_192_kernels_match_plain(gen, B, H, Tq, Tk, masked, lens,
                                           rate):
     """head_dim 192 (mmtrvpa's 2E-wide memory encoders at moviescope's
-    widths): the forward (the generic kernel over six panels) and the
+    widths): the forward (two warpgroups on a 128-query tile) and the
     backward (delta, then the column-split dK/dV and dQ kernels) against
     the plain versions on fused-projection views, at the memory encoders'
-    causal classes and at tile edges, and bitwise-equal reruns."""
+    causal classes, at them with kv_lens (one 0: uniform attention, zero
+    gradients), causal or not, and at tile edges, and bitwise-equal
+    reruns."""
     q, k, v = _fused_views(gen, B, H, Tq, Tk, 192)
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device="cuda")
@@ -647,11 +653,14 @@ def test_head_dim_192_kernels_match_plain(gen, B, H, Tq, Tk, masked, lens,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-def test_dropout_mask_is_exact_at_head_dim_192(gen):
+@pytest.mark.parametrize("seed", [0x1920C0DE, [0x1920C0DE, 0xC0FFEE]])
+def test_dropout_mask_is_exact_at_head_dim_192(gen, seed):
     """The forward and backward kernels' dropout masks at head_dim 192
-    (two warpgroups over the columns in the backward), every bit of a
-    200 x 200 score matrix (two rounds), against the plain version's."""
-    B, H, T, rate, seed = 2, 3, 200, 0.1, 0x1920C0DE
+    (two warpgroups over the query rows in the forward, over the columns in
+    the backward), every bit of a 200 x 200 score matrix (two rounds),
+    against the plain version's; with one seed, and with two seed groups
+    (the build for several, one batch row a group)."""
+    B, H, T, rate = 2, 3, 200, 0.1
     fwd, bwd = narrow_mask_bits(B, H, T, 192, rate, seed)
     keep = keep_mask(seed, B, H, T, T, rate, "cuda")
     assert torch.equal(fwd, keep)
@@ -659,15 +668,16 @@ def test_dropout_mask_is_exact_at_head_dim_192(gen):
 
 
 def test_head_dim_192_kernels_by_name(gen):
-    """The profiler names the generic forward kernel at 192, and the
-    backward's three kernels: delta, the column-split dK/dV and dQ."""
+    """The profiler names the forward's own kernel at 192 (two warpgroups
+    on a 128-query tile), and the backward's three kernels: delta, the
+    column-split dK/dV and dQ."""
     q, k, v = _fused_views(gen, 2, 8, 200, 200, 192)
     out, lse = flash_attention(q, k, v, True, None, return_lse=True)
     for _ in range(3):   # the profiler drops an event now and then: retry
         names = _device_kernels(lambda: flash_attention(q, k, v, True, None))
         if names:
             break
-    assert any("flash_fwd_kernel<192" in n for n in names), names
+    assert any("flash_fwd_tall_kernel<192" in n for n in names), names
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
     for _ in range(3):
         names = _device_kernels(lambda: flash_attention_backward(
@@ -687,8 +697,8 @@ def test_kernels_fit_the_sm(gen):
     calculator, and the blocks their design counts on (flash_fwd.cu,
     flash_bwd.cu): at the narrow heads the forward 5 (D 25) and 4 (D 30),
     the backward's dK/dV 3 and dQ 4; at 128 the wide forward (113 KB of
-    shared memory) and the dQ kernel 2, the 256-thread dK/dV kernel 1; an
-    untabled head dim raises."""
+    shared memory) and the dQ kernel 2, the 256-thread dK/dV kernel 1; at
+    192 one 256-thread block of each; an untabled head dim raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)
@@ -699,6 +709,8 @@ def test_kernels_fit_the_sm(gen):
         if d == 128:
             assert got["forward"] >= 2 and got["dQ"] >= 2, (d, got)
             assert got["dK/dV"] == 1, (d, got)
+        if d == 192:
+            assert got == {"forward": 1, "dK/dV": 1, "dQ": 1}, (d, got)
     with pytest.raises(NotImplementedError, match="head_dim"):
         blocks_per_sm(48)
 
@@ -788,7 +800,9 @@ def test_flash_autograd_launches_both_kernels(gen):
 
 
 @pytest.mark.parametrize("n,e", [(5, 768), (33, 300), (16, 1001), (7, 64),
-                                 (40, 2048), (4096, 768)] + LN_EDGES)
+                                 (40, 2048), (4096, 768), (4096, 1536),
+                                 (1600, 1536), (1336, 1536), (5, 1536)]
+                         + LN_EDGES)
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dy_dtype", [torch.bfloat16, torch.float32])
 def test_layer_norm_backward_kernel_matches_plain(gen, n, e, x_dtype,
@@ -892,13 +906,22 @@ def _device_kernels(fn):
     (4096, 768, torch.bfloat16, True, "ln_bwd_vec_kernel"),
     (133, 300, torch.float32, True, "ln_bwd_vec_kernel"),
     (133, 768, torch.bfloat16, False, "ln_bwd_scalar_kernel"),
-    (64, 1032, torch.float32, True, "ln_bwd_scalar_kernel"),
+    (64, 1032, torch.float32, True, "ln_bwd_vec_kernel<float, float, 6, 2>"),
+    (4096, 1536, torch.bfloat16, True, "ln_bwd_vec_kernel<__nv_bfloat16, "
+                                       "__nv_bfloat16, 6, 2>"),
+    (1600, 1536, torch.bfloat16, True, "ln_bwd_vec_kernel<__nv_bfloat16, "
+                                       "__nv_bfloat16, 6, 2>"),
+    (133, 1536, torch.bfloat16, False, "ln_bwd_scalar_kernel"),
+    (64, 2048, torch.float32, True, "ln_bwd_scalar_kernel"),
 ])
 def test_layer_norm_backward_is_one_kernel(gen, n, e, dtype, aligned,
                                            kernel):
     """One backward call runs exactly one device kernel (the cooperative
     launch: rows, grid barrier, fixed-order reduction of dw and db), no
-    memset, and the path the width and alignment select."""
+    memset, and the path the width and alignment select: the vector
+    kernel with a warp a row up to 1024 and two warps a row (its last
+    template argument) above, up to 1536, the scalar kernel on a
+    misaligned view or a wider row."""
     if aligned:
         x = torch.randn(n, e, generator=gen, device="cuda").to(dtype)
         dy = torch.randn(n, e, generator=gen, device="cuda").to(dtype)
@@ -929,14 +952,15 @@ def test_layer_norm_forward_path(gen, n, e, dtype, kernel):
     assert len(names) == 1 and kernel in names[0], names
 
 
-def test_layer_norm_backward_phase_stamps(gen, monkeypatch):
+@pytest.mark.parametrize("e", [768, 1536])
+def test_layer_norm_backward_phase_stamps(gen, monkeypatch, e):
     """Built with -DBPX_LN_TRACE (as scripts/torch_ln_bwd_phases.py builds
-    it), thread 0 of each block of the vector backward stamps the global
-    timer at its start and after its rows, its partial rows, the grid
-    barrier and its column sums.  Each launch writes every block's stamps,
-    in order; no block leaves the barrier before every block has written
-    its partial rows; and the traced kernel still matches the plain
-    version."""
+    it), thread 0 of each block of the vector backward (a warp a row at
+    768, a warp pair at 1536) stamps the global timer at its start and
+    after its rows, its partial rows, the grid barrier and its column
+    sums.  Each launch writes every block's stamps, in order; no block
+    leaves the barrier before every block has written its partial rows;
+    and the traced kernel still matches the plain version."""
     import ctypes
     from bpx_torch.ops import _cuda
     monkeypatch.setattr(_cuda, "CFLAGS", _cuda.CFLAGS + ["-DBPX_LN_TRACE"])
@@ -944,7 +968,7 @@ def test_layer_norm_backward_phase_stamps(gen, monkeypatch):
     lib = _cuda.library()
     lib.bpx_ln_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.bpx_ln_trace_read.restype = ctypes.c_int
-    n, e = 1600, 768
+    n = 1600
     x = (torch.randn(n, e, generator=gen, device="cuda") * 3 + 1).to(
         torch.bfloat16)
     dy = torch.randn(n, e, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1026,7 +1050,7 @@ SEED_GROUPS = [0x1234567, 0xDEADBEEF, 7, 0xFFFFFFFF, 99]
 
 
 @pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (64, 12), (96, 8),
-                                 (128, 6)])
+                                 (128, 6), (192, 8)])
 @pytest.mark.parametrize("kv", [False, True])
 def test_folded_seed_groups_equal_their_own_launches(gen, D, H, kv):
     """One launch over S groups with one seed each: each group's O, lse,

@@ -227,13 +227,17 @@ def test_head_dim_128_matches_pallas(B, H, Tq, Tk, masked, lens, rate):
     (2, 1, 200, 200, True, None, 0.1),          # its 200 x 200 class
     (2, 1, 63, 65, True, (65, 30), 0.1),        # band offset 2, kv_lens
     (2, 1, 129, 65, False, (65, 1), 0.0),       # one visible key
+    (2, 1, 130, 130, False, (130, 0), 0.0),     # kv_len 0: uniform rows
+    (2, 1, 65, 65, True, (0, 40), 0.1),         # ... under the band
+    (1, 1, 200, 512, True, None, 0.1),          # Tq 200 against Tk 512
 ])
 def test_head_dim_192_matches_pallas(B, H, Tq, Tk, masked, lens, rate):
     """head_dim 192 (mmtrvpa's 2E-wide memory encoders at moviescope's
     widths: 1536 / 8): the forward and backward against bpx at the
     memory encoders' 512 x 512 and 200 x 200 causal classes, rate 0 and
-    0.1, and at tile edges with kv_lens; the tolerance of
-    ``test_head_dim_128_matches_pallas``."""
+    0.1, at tile edges with kv_lens, at a kv_len of 0 (every key masked:
+    the row attends uniformly over all Tk keys), and at 200 queries against
+    512 keys; the tolerance of ``test_head_dim_128_matches_pallas``."""
     q, k, v = _inputs(B, H, Tq, Tk, 192, seed=16)
     dout = np.random.RandomState(17).randn(B, H, Tq, 192).astype(np.float32)
     kv = None if lens is None else np.asarray(lens, np.int32)

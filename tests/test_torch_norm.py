@@ -8,8 +8,8 @@ same function, sums in another order).  bf16 output: within one bf16 ulp
 difference may cross a rounding boundary.  Backward: dx, dW and db within
 atol/rtol 2e-5 of the largest entry in fp32; with bf16 input dx is within
 one bf16 ulp.  Besides small shapes, the model's own LayerNorm classes
-(1600 x 768 bf16, both of its eps) and a row count that the kernels' grid
-splits unevenly.
+(1600 x 768 bf16, both of its eps), a row count that the kernels' grid
+splits unevenly, and mmtrvpa's 1536-wide memory encoders.
 """
 
 import numpy as np
@@ -41,6 +41,8 @@ def _inputs(n, e, seed=0):
     (768, 1e-12, "bfloat16"),
     (768, 1e-6, "bfloat16"),
     (300, 1e-6, "float32"),       # a width the TPU kernel's lane gate skips
+    (1536, 1e-6, "float32"),      # mmtrvpa's 2E-wide memory encoders
+    (1536, 1e-6, "bfloat16"),
 ])
 def test_layer_norm_reference_matches_pallas(monkeypatch, e, eps, out):
     monkeypatch.setenv("BPX_FORCE_PALLAS", "1")
@@ -87,6 +89,8 @@ def test_layer_norm_module_and_wrapper_on_cpu():
     (64, 768, 1e-12, "float32"),
     (40, 768, 1e-6, "bfloat16"),
     (24, 300, 1e-6, "float32"),
+    (64, 1536, 1e-6, "float32"),    # mmtrvpa's memory encoders
+    (40, 1536, 1e-6, "bfloat16"),
 ])
 def test_layer_norm_backward_matches_pallas(monkeypatch, n, e, eps, dt):
     monkeypatch.setenv("BPX_FORCE_PALLAS", "1")
@@ -130,14 +134,19 @@ def _bf16_pair(n, e, seed):
 
 # the model's LayerNorm classes (moviescope, batch 8: 1600 and 4096 rows of
 # 768, bf16 in and out; BERT's eps 1e-12, the encoders' 1e-6), and 1336 rows
-# (8 x 167), which the kernels' card-sized grid splits unevenly
-MODEL_CLASSES = [(1600, 1e-6), (1600, 1e-12), (1336, 1e-6)]
+# (8 x 167), which the kernels' card-sized grid splits unevenly, at 768 and
+# at mmtrvpa's 1536 (its memory encoders, the warp-pair path on the card)
+MODEL_CLASSES = [(1600, 1e-6, 768), (1600, 1e-12, 768), (1336, 1e-6, 768),
+                 (1336, 1e-6, 1536)]
+MODEL_IDS = [f"{n}-{eps}" + ("" if e == 768 else f"-{e}")
+             for n, eps, e in MODEL_CLASSES]
 
 
-@pytest.mark.parametrize("n,eps", MODEL_CLASSES)
-def test_layer_norm_at_the_model_classes_matches_pallas(monkeypatch, n, eps):
+@pytest.mark.parametrize("n,eps,e", MODEL_CLASSES, ids=MODEL_IDS)
+def test_layer_norm_at_the_model_classes_matches_pallas(monkeypatch, n, eps,
+                                                        e):
     monkeypatch.setenv("BPX_FORCE_PALLAS", "1")
-    xj, xt, w, b = _bf16_pair(n, 768, seed=5)
+    xj, xt, w, b = _bf16_pair(n, e, seed=5)
     want = bpx_layer_norm(xj, jnp.asarray(w), jnp.asarray(b), eps,
                           out_dtype=jnp.bfloat16)
     _, want_mu, want_rstd = pallas_ln_fwd(xj, jnp.asarray(w), jnp.asarray(b),
@@ -145,7 +154,7 @@ def test_layer_norm_at_the_model_classes_matches_pallas(monkeypatch, n, eps):
     got, mu, rstd = layer_norm_reference(xt, torch.from_numpy(w),
                                          torch.from_numpy(b), eps,
                                          torch.bfloat16)
-    assert got.dtype == torch.bfloat16 and got.shape == (n, 768)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, e)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=1e-6, rtol=2 ** -7)
@@ -155,12 +164,12 @@ def test_layer_norm_at_the_model_classes_matches_pallas(monkeypatch, n, eps):
                                atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("n,eps", MODEL_CLASSES)
+@pytest.mark.parametrize("n,eps,e", MODEL_CLASSES, ids=MODEL_IDS)
 def test_layer_norm_backward_at_the_model_classes_matches_pallas(
-        monkeypatch, n, eps):
+        monkeypatch, n, eps, e):
     monkeypatch.setenv("BPX_FORCE_PALLAS", "1")
-    xj, xt, w, b = _bf16_pair(n, 768, seed=6)
-    g = np.random.RandomState(7).randn(n, 768).astype(np.float32)
+    xj, xt, w, b = _bf16_pair(n, e, seed=6)
+    g = np.random.RandomState(7).randn(n, e).astype(np.float32)
     gj = jnp.asarray(g, jnp.bfloat16)
     _, vjp = jax.vjp(lambda a, s, c: bpx_layer_norm(
         a, s, c, eps, out_dtype=jnp.bfloat16), xj, jnp.asarray(w),
