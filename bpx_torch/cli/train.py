@@ -17,8 +17,8 @@ Notes:
 * ``--train_type cross`` runs the 10-fold cross-validation partitions;
 * ``--device`` (default "cuda") places the model; "cpu" runs the plain
   PyTorch versions of the kernels on the host.  Every ``--model`` of the
-  JAX package trains, the notebook-era ones too (``models/legacy.py``);
-  ``--hybrid`` with a notebook-era model raises (``get_model``).
+  JAX package trains, the notebook-era ones too (``models/legacy.py``),
+  which ignore ``--hybrid`` and ``--fusion`` as the JAX package's do.
 """
 
 from __future__ import annotations

@@ -21,8 +21,9 @@
 //
 // Design.  The TPU kernel holds the whole Tq x Tk tile of one (batch, head)
 // in VMEM and emits dQ, dK and dV from it in one program; an SM cannot hold
-// it.  At D = 64 and 96, three launches on the stream, deterministic and
-// without atomics (the narrow heads' two and D = 128's two are below):
+// it.  At D = 64 and 96 (and 50, 60), three launches on the stream,
+// deterministic and without atomics (the narrow heads' two and D = 128's
+// two are below):
 //   * delta: two rows per warp, dO and O read once, a fixed-order sum;
 //   * dK/dV: one warpgroup per (batch*head, 64-key tile) with K and V
 //     resident, looping over 64-query tiles of Q, dO, lse and delta that
@@ -120,8 +121,9 @@
 //
 // D = 192 (mmtrvpa's 2E-wide memory encoders at moviescope's widths: 1536 /
 // 8) has kernels of its own (flash_bwd_colsplit_*), launched as at D 64/96
-// (delta, dK/dV, dQ).  A thread of the D 128 dK/dV kernel would hold dK
-// and dV at 96 + 96 fp32 beside S^T and dP^T and spill, so both kernels
+// (delta, dK/dV, dQ; at 256 with dK/dV split in two, below).  A thread of
+// the D 128 dK/dV kernel would hold dK and dV at 96 + 96 fp32 beside S^T
+// and dP^T and spill, so both kernels
 // run two warpgroups a block that split the columns: each computes the
 // whole S^T and dP^T (S and dP in the dQ kernel), whose reduction runs
 // over every column, then dK, dV (dQ) for its 96 columns only, as
@@ -133,14 +135,31 @@
 // none of the D 128 or narrow kernels' steps (delta in the dQ kernel, the
 // dependent launch, the longest blocks first) is carried over.
 //
+// D = 50 and 60 (mmtrvpa's memory encoders at iemocap's and at cmu-mosei's,
+// counseling's and cmu-mosi's widths: 600 / 12, 600 / 10) run the D 64
+// kernels at DP = 64 (delta, dK/dV, dQ): the loads write columns D..63 as
+// zeros (4- or 8-byte cp.async words, flash_common.cuh), the delta kernel
+// reads 2-byte columns, and dQ, dK and dV are stored up to column D, since
+// the next head's values sit past it.
+//
+// D = 256 (mmtrvpa's memory encoders at mmimdb's widths: 1536 / 6) runs the
+// column-split kernels with 2 stages (a 64 x 256 tile is 32 KB; three
+// stages would not fit).  Half of dK beside half of dV would be 128 fp32 a
+// thread beside S^T and dP^T and spill, so dK and dV take a launch each
+// (flash_bwd_colsplit_dv_kernel, then flash_bwd_colsplit_dk_kernel), each
+// warpgroup 128 columns of one of them, S^T computed in both; the dV launch
+// needs neither dP^T nor V nor delta.  Four launches a backward (delta, dV,
+// dK, dQ).  A kernel that is right first.
+//
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
 // against q, k, v, dO, o read and dq, dk, dv written once; at the model's
-// shapes (T <= 512, D <= 192) the bytes bound it.
+// shapes (T <= 512, D <= 256) the bytes bound it.
 //
 // Inputs and outputs are (B, H, T, D) tensors addressed by strides (last dim
-// contiguous; D = 64, 96, 128, 192: strides multiples of 8 elements, 16-byte
-// aligned pointers; D = 30: even strides, 4-byte aligned; D = 25: any
-// strides); lse and the delta workspace are (B*H, Tq) fp32.
+// contiguous; D = 64, 96, 128, 192, 256: strides multiples of 8 elements,
+// 16-byte aligned pointers; D = 60: strides multiples of 4, 8-byte
+// aligned; D = 30, 50: even strides, 4-byte aligned; D = 25: any strides);
+// lse and the delta workspace are (B*H, Tq) fp32.
 
 #include "flash_common.cuh"
 
@@ -218,18 +237,18 @@ __device__ __forceinline__ void store_rows(
 }
 
 // delta[bh, t] = sum_d dO[b, h, t, d] * O[b, h, t, d] in fp32: half a warp
-// per row, lanes summed in a fixed order.  D = 64, 96, 128, 192: 16 bytes of
-// each per lane (at D 192 lanes 0-7 take a second chunk, 16 on); a narrow
-// head (its rows 2- or 4-byte aligned): columns lane and lane + 16, in
-// 2-byte loads.
+// per row, lanes summed in a fixed order.  D = 64, 96, 128, 192, 256: 16
+// bytes of each per lane (at D 192 lanes 0-7 take a second chunk, 16 on; at
+// 256 every lane two); a head whose rows are not 16-byte aligned (25, 30,
+// 50, 60): columns lane, lane + 16, ..., in 2-byte loads.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
                    float* delta, int H, int T, int rows, long long o_sb,
                    long long o_sh, long long o_st, long long do_sb,
                    long long do_sh, long long do_st) {
-  static_assert(D % 32 == 0 || D <= 32,
-                "16-byte chunks or two columns per lane");
+  static_assert(D % 32 == 0 || D < 64,
+                "16-byte chunks or at most four columns per lane");
   const int row = blockIdx.x * 16 + threadIdx.x / 16;
   const int lane = threadIdx.x % 16;
   float sum = 0.f;
@@ -1420,37 +1439,52 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
 // ---------------------------------------------------------------------------
 
 constexpr int kColsplitThreads = 2 * kThreads;  // two warpgroups a block
-constexpr int kColsplitStages = 3;              // streamed tiles in flight
 
-// K and V resident, kColsplitStages x (Q, dO, lse, delta); +1 KB.
+// Streamed tiles in flight: 3, and 2 at D = 256, where a third stage would
+// not fit a block's shared memory.
+template <int D>
+__host__ __device__ constexpr int colsplit_stages() {
+  return padded_dim<D>() > 192 ? 2 : 3;
+}
+
+// K and V resident, colsplit_stages x (Q, dO, lse, delta); +1 KB.
 template <int D>
 __host__ __device__ constexpr int colsplit_dkdv_smem_bytes() {
-  return 2 * tile_bytes<D>() + kColsplitStages * dkdv_stage_bytes<D>() + 1024;
+  return 2 * tile_bytes<D>() + colsplit_stages<D>() * dkdv_stage_bytes<D>() +
+         1024;
 }
 
-// Q and dO resident, kColsplitStages x (K, V); +1 KB.
+// Q and dO resident, colsplit_stages x (K, V); +1 KB.
 template <int D>
 __host__ __device__ constexpr int colsplit_dq_smem_bytes() {
-  return (2 + 2 * kColsplitStages) * tile_bytes<D>() + 1024;
+  return (2 + 2 * colsplit_stages<D>()) * tile_bytes<D>() + 1024;
 }
 
-// One (batch*head, 64-key tile): dK and dV, warpgroup w their columns
-// DP/2 w .. DP/2 w + DP/2 - 1.  Both warpgroups compute the whole S^T =
-// K Q^T and dP^T = V dO^T of each query tile (the reduction runs over every
-// column), then dV += P^T dO and dK += dS^T Q over their half of the
-// columns (m64n96k16, B MN-major from the half's first panel); nothing is
-// exchanged and each stores its own columns.  Warpgroup 0 loads K and each
-// stage's Q and lse, warpgroup 1 V, dO and delta; one block barrier a step.
-template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kColsplitThreads, 1)
-flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
+// What a column-split dK/dV launch accumulates: dK and dV (D = 192), or, at
+// D = 256, where a thread holding half of dK beside half of dV would spill,
+// dV in one launch and dK in a second.
+enum ColsplitPart { kDkAndDv, kDvOnly, kDkOnly };
+
+// One (batch*head, 64-key tile): dK and dV (Part), warpgroup w their
+// columns DP/2 w .. DP/2 w + DP/2 - 1.  Both warpgroups compute the whole
+// S^T = K Q^T (and, for dK, dP^T = V dO^T) of each query tile (the
+// reduction runs over every column), then dV += P^T dO and dK += dS^T Q
+// over their half of the columns (m64n96k16 at D 192, m64n128k16 at 256; B
+// MN-major from the half's first panel); nothing is exchanged and each
+// stores its own columns.  Warpgroup 0 loads K and each stage's Q and lse,
+// warpgroup 1 V, dO and delta (a dV-only launch neither V nor delta); one
+// block barrier a step.
+template <int D, bool Groups, int Part>
+__device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
+  constexpr bool kDv = Part != kDkOnly;
+  constexpr bool kDk = Part != kDvOnly;
   constexpr int DP = padded_dim<D>();
   constexpr int DH = DP / 2;   // columns of dK and dV a warpgroup takes
   static_assert(DH % 32 == 0, "whole panels a warpgroup");
   constexpr int kTile = tile_bytes<D>();
   constexpr int kStage = dkdv_stage_bytes<D>();
   constexpr int kKSteps = DP / 16;
-  constexpr int kStages = kColsplitStages;
+  constexpr int kStages = colsplit_stages<D>();
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -1480,7 +1514,8 @@ flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float* dl_b = p.delta + (long long)bh * Tq;
 
-  float dk[DH / 2], dv[DH / 2], st[32], dpt[32];
+  // a part's unused accumulator is one register, never read
+  float dk[kDk ? DH / 2 : 1], dv[kDv ? DH / 2 : 1], st[32], dpt[32];
   zero(dk);
   zero(dv);
   zero(st);
@@ -1499,7 +1534,7 @@ flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
     const uint32_t dst = stage0 + (i % kStages) * kStage;
     load_tile_by<D>(tid, dst + wg * kTile, wg == 0 ? qb : ob,
                     wg == 0 ? p.q_st : p.o_st, q0, Tq);
-    if (tid < kRows) {
+    if (tid < kRows && (kDk || wg == 0)) {
       const bool ok = q0 + tid < Tq;
       const float* src = wg == 0 ? lse_b : dl_b;
       cp_async_4(dst + 2 * kTile + wg * 4 * kRows + tid * 4,
@@ -1507,7 +1542,7 @@ flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
     }
   };
 
-  if (n_tiles > 0) {
+  if (n_tiles > 0 && (kDk || wg == 0)) {
     load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
                     wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
                             : p.v + b * p.v_sb + h * p.v_sh,
@@ -1533,16 +1568,18 @@ flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
         reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
     const float* dl_s = lse_s + kRows;
 
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+    // S^T = K Q^T and (for dK) dP^T = V dO^T: 64 keys x 64 queries
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
       wgmma_ss<64>(st, desc_k_major(k_s, kk), desc_k_major(q_s, kk), kk > 0);
     }
+    if constexpr (kDk) {
 #pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
-                   kk > 0);
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
+                     kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1580,23 +1617,27 @@ flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
         pdr = kept ? pr * p.drop.inv_keep : 0.f;
         dpr = kept ? dpr * p.drop.inv_keep : 0.f;
       }
-      dpt[i2] = pr * (dpr - dl_s[qi]);
+      if constexpr (kDk) dpt[i2] = pr * (dpr - dl_s[qi]);
       st[i2] = pdr;
     }
 
     // dV += P^T dO and dK += dS^T Q over this warpgroup's columns, A from
     // registers, B MN-major
     uint32_t pa[4][4], da[4][4];
-    p_frags(pa, st);
-    p_frags(da, dpt);
+    if constexpr (kDv) p_frags(pa, st);
+    if constexpr (kDk) p_frags(da, dpt);
     wgmma_fence();
+    if constexpr (kDv) {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DH>(dv, pa[kc], desc_mn_major(o_s + half, kc));
+      for (int kc = 0; kc < 4; ++kc) {
+        wgmma_rs_mn<DH>(dv, pa[kc], desc_mn_major(o_s + half, kc));
+      }
     }
+    if constexpr (kDk) {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DH>(dk, da[kc], desc_mn_major(q_s + half, kc));
+      for (int kc = 0; kc < 4; ++kc) {
+        wgmma_rs_mn<DH>(dk, da[kc], desc_mn_major(q_s + half, kc));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1605,10 +1646,34 @@ flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
-                 Tk, dk, t4);
-  store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
-                 Tk, dv, t4);
+  if constexpr (kDk) {
+    store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
+                   Tk, dk, t4);
+  }
+  if constexpr (kDv) {
+    store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
+                   Tk, dv, t4);
+  }
+}
+
+// dK and dV in one launch (D = 192).
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kColsplitThreads, 1)
+flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
+  colsplit_dkdv<D, Groups, kDkAndDv>(p);
+}
+
+// dV alone, then dK alone (D = 256).
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kColsplitThreads, 1)
+flash_bwd_colsplit_dv_kernel(const BwdParams p) {
+  colsplit_dkdv<D, Groups, kDvOnly>(p);
+}
+
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kColsplitThreads, 1)
+flash_bwd_colsplit_dk_kernel(const BwdParams p) {
+  colsplit_dkdv<D, Groups, kDkOnly>(p);
 }
 
 // One (batch*head, 64-query tile): dQ, warpgroup w its columns DP/2 w ..
@@ -1621,7 +1686,7 @@ flash_bwd_colsplit_dq_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
   constexpr int DH = DP / 2;   // columns of dQ a warpgroup takes
   static_assert(DH % 32 == 0, "whole panels a warpgroup");
-  constexpr int kStages = kColsplitStages;
+  constexpr int kStages = colsplit_stages<D>();
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;
   extern __shared__ unsigned char smem[];
@@ -1852,28 +1917,51 @@ cudaError_t launch_wide(const BwdParams& p, const __nv_bfloat16* o,
       kWideThreads, smem_dkdv, p, o, o_sb, o_sh, o_st, s);
 }
 
-// The backward at D = 192: the delta kernel, then the column-split dK/dV
-// and dQ kernels.
+// The column-split dK/dV launches of D: one kernel at 192, the dV then the
+// dK kernel at 256.
+template <int D, bool Groups>
+cudaError_t launch_colsplit_dkdv(const BwdParams& p, cudaStream_t s) {
+  constexpr int bytes = colsplit_dkdv_smem_bytes<D>();
+  const dim3 grid((p.Tk + kRows - 1) / kRows, p.B * p.H);
+  if constexpr (padded_dim<D>() > 192) {
+    static bool smem_dv = false, smem_dk = false;
+    cudaError_t err =
+        allow_smem(flash_bwd_colsplit_dv_kernel<D, Groups>, bytes, smem_dv);
+    if (err != cudaSuccess) return err;
+    err = allow_smem(flash_bwd_colsplit_dk_kernel<D, Groups>, bytes, smem_dk);
+    if (err != cudaSuccess) return err;
+    flash_bwd_colsplit_dv_kernel<D, Groups>
+        <<<grid, kColsplitThreads, bytes, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_bwd_colsplit_dk_kernel<D, Groups>
+        <<<grid, kColsplitThreads, bytes, s>>>(p);
+  } else {
+    static bool smem_dkdv = false;
+    cudaError_t err = allow_smem(flash_bwd_colsplit_dkdv_kernel<D, Groups>,
+                                 bytes, smem_dkdv);
+    if (err != cudaSuccess) return err;
+    flash_bwd_colsplit_dkdv_kernel<D, Groups>
+        <<<grid, kColsplitThreads, bytes, s>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// The backward at D = 192 and 256: the delta kernel, then the column-split
+// dK/dV (at 256 dV, then dK) and dQ kernels.
 template <int D, bool Groups>
 cudaError_t launch_colsplit(const BwdParams& p, const __nv_bfloat16* o,
                             long long o_sb, long long o_sh, long long o_st,
                             cudaStream_t s) {
-  static bool smem_dkdv = false, smem_dq = false;
-  constexpr int dkdv_bytes = colsplit_dkdv_smem_bytes<D>();
+  static bool smem_dq = false;
   constexpr int dq_bytes = colsplit_dq_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_colsplit_dkdv_kernel<D, Groups>,
-                               dkdv_bytes, smem_dkdv);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_colsplit_dq_kernel<D, Groups>, dq_bytes,
-                   smem_dq);
+  cudaError_t err = allow_smem(flash_bwd_colsplit_dq_kernel<D, Groups>,
+                               dq_bytes, smem_dq);
   if (err != cudaSuccess) return err;
   err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
                         p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv((p.Tk + kRows - 1) / kRows, p.B * p.H);
-  flash_bwd_colsplit_dkdv_kernel<D, Groups>
-      <<<grid_kv, kColsplitThreads, dkdv_bytes, s>>>(p);
-  err = cudaGetLastError();
+  err = launch_colsplit_dkdv<D, Groups>(p, s);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.Tq + kRows - 1) / kRows, p.B * p.H);
   flash_bwd_colsplit_dq_kernel<D, Groups>
@@ -1889,7 +1977,8 @@ extern "C" {
 // (B*H, Tq) fp32; delta an fp32 (B*H, Tq) workspace the call fills; kv_lens
 // (B,) int32 or null.  Launches the delta kernel, the dK/dV kernel, then the
 // dQ kernel, on the stream; at head_dim 25, 30 and 128 the dQ kernel (with
-// delta), then the dK/dV kernel.  Dropout's seeds as bpx_flash_fwd's.
+// delta), then the dK/dV kernel; at 256 delta, dV, dK, then dQ.  Dropout's
+// seeds as bpx_flash_fwd's.
 // Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
 // without an instantiation, or for seed groups that do not fit.
 int bpx_flash_bwd(const void* q, const void* k, const void* v,
@@ -1944,7 +2033,7 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
         return launch_narrow<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       } else if constexpr (padded_dim<kD>() == 128) {
         return launch_wide<kD, true>(p, ob, o_sb, o_sh, o_st, s);
-      } else if constexpr (padded_dim<kD>() == 192) {
+      } else if constexpr (padded_dim<kD>() >= 192) {
         return launch_colsplit<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       } else {
         return launch<kD, true>(p, ob, o_sb, o_sh, o_st, s);
@@ -1954,7 +2043,7 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
       return launch_narrow<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else if constexpr (padded_dim<kD>() == 128) {
       return launch_wide<kD, false>(p, ob, o_sb, o_sh, o_st, s);
-    } else if constexpr (padded_dim<kD>() == 192) {
+    } else if constexpr (padded_dim<kD>() >= 192) {
       return launch_colsplit<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else {
       return launch<kD, false>(p, ob, o_sb, o_sh, o_st, s);
@@ -2007,6 +2096,23 @@ int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
                  : bpx_flash::blocks_per_sm(flash_bwd_colsplit_dq_kernel<kD>,
                                             colsplit_dq_smem_bytes<kD>(),
                                             blocks, kColsplitThreads);
+    } else if constexpr (padded_dim<kD>() == 256) {
+      if (kernel == 1) {
+        return bpx_flash::blocks_per_sm(flash_bwd_colsplit_dq_kernel<kD>,
+                                        colsplit_dq_smem_bytes<kD>(), blocks,
+                                        kColsplitThreads);
+      }
+      // the fewer of the dV and the dK kernel's
+      int dv = 0;
+      cudaError_t err = bpx_flash::blocks_per_sm(
+          flash_bwd_colsplit_dv_kernel<kD>, colsplit_dkdv_smem_bytes<kD>(),
+          &dv, kColsplitThreads);
+      if (err != cudaSuccess) return err;
+      err = bpx_flash::blocks_per_sm(flash_bwd_colsplit_dk_kernel<kD>,
+                                     colsplit_dkdv_smem_bytes<kD>(), blocks,
+                                     kColsplitThreads);
+      if (dv < *blocks) *blocks = dv;
+      return err;
     } else {
       return kernel == 0
                  ? bpx_flash::blocks_per_sm(flash_bwd_dkdv_kernel<kD>,

@@ -10,10 +10,11 @@
 // of row r stored at chunk c ^ ((r / 2) % 4)), so the 16-byte copies of a
 // warp and the tensor cores' reads hit distinct banks.  D = 96 is not a
 // swizzle span (192 B), but three 64-byte panels are; D = 64 is two panels,
-// D = 128 four and D = 192 six.  A narrow head (D = 25, 30) is one panel whose
-// columns D..31 every load writes as zeros: the products then run at
-// DP = 32 and the padding adds nothing to them (a stale value there could
-// be a NaN, and 0 * NaN is not 0).
+// D = 128 four, D = 192 six and D = 256 eight.  A narrow head (D = 25, 30)
+// is one panel, and D = 50 and 60 are two, whose columns D..DP-1 every load
+// writes as zeros: the products then run at DP = 32 or 64 and the padding
+// adds nothing to them (a stale value there could be a NaN, and 0 * NaN is
+// not 0).
 //
 // The same tile serves both operand majors of wgmma:
 //   * K-major, when D is the reduction (S = Q K^T): the 16-wide k-step kk
@@ -42,6 +43,10 @@ __host__ cudaError_t with_head_dim(int D, F&& f) {
       return f(std::integral_constant<int, 25>());
     case 30:
       return f(std::integral_constant<int, 30>());
+    case 50:
+      return f(std::integral_constant<int, 50>());
+    case 60:
+      return f(std::integral_constant<int, 60>());
     case 64:
       return f(std::integral_constant<int, 64>());
     case 96:
@@ -50,6 +55,8 @@ __host__ cudaError_t with_head_dim(int D, F&& f) {
       return f(std::integral_constant<int, 128>());
     case 192:
       return f(std::integral_constant<int, 192>());
+    case 256:
+      return f(std::integral_constant<int, 256>());
     default:
       return cudaErrorInvalidValue;
   }
@@ -70,8 +77,9 @@ __host__ __device__ constexpr int padded_dim() {
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   constexpr int DP = padded_dim<D>();
-  static_assert(DP <= 192, "head_dim must be <= 192");
-  static_assert(D == DP || D < 32, "head_dim must be 32*k or one panel");
+  static_assert(DP <= 256, "head_dim must be <= 256");
+  static_assert(D == DP || D < 32 || D % 2 == 0,
+                "head_dim must be 32*k, even, or one panel");
   return DP / 32 * kPanelBytes;
 }
 
@@ -95,15 +103,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // ---------------------------------------------------------------------------
 //
 // cp.async rather than TMA: the q/k/v/dO tiles are strided (B, H, T, D)
-// views with ragged T, and a narrow head's rows start 50 or 60 bytes apart,
-// which no TMA descriptor (16-byte strides) describes; one per tensor would
-// also have to be encoded on the host at every call of a host-bound path.
-// How a row is read depends on what its alignment allows:
-//   * D = 64, 96 (rows 16-byte aligned): 16-byte cp.async chunks, four
-//     neighbouring threads per 64-byte panel row, so a warp's stores cover
-//     512 distinct bytes;
-//   * D = 30 (rows 4-byte aligned): 4-byte cp.async words, 16 threads per
-//     row, the words past column D zero-filled;
+// views with ragged T, and a narrow head's rows start 50 or 60 bytes apart
+// (100 or 120 at D = 50, 60), which no TMA descriptor (16-byte strides)
+// describes; one per tensor would also have to be encoded on the host at
+// every call of a host-bound path.  How a row is read depends on what its
+// alignment allows:
+//   * D = 64, 96, 128, 192, 256 (rows 16-byte aligned): 16-byte cp.async
+//     chunks, four neighbouring threads per 64-byte panel row, so a warp's
+//     stores cover 512 distinct bytes;
+//   * D = 30, 50 (rows 4-byte aligned) and D = 60 (8-byte aligned): 4- or
+//     8-byte cp.async words (word_bytes), a row's words on neighbouring
+//     threads, the words past column D zero-filled;
 //   * D = 25 (rows only 2-byte aligned, and cp.async copies 4, 8 or 16
 //     bytes): load_tile does plain 2-byte loads into registers, then
 //     shared-memory stores, a warp per row, columns past D stored as zeros.
@@ -131,6 +141,21 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// Bytes of the cp.async words an even-D row that is not 16-byte aligned is
+// loaded in: the widest that a row's alignment allows (the wrapper's
+// KERNEL_ALIGN), 8 at D = 60 (4 k + 0 elements), 4 at D = 30 and 50.
+template <int D>
+__host__ __device__ constexpr int word_bytes() {
+  return D % 4 == 0 ? 8 : 4;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -198,16 +223,28 @@ __device__ __forceinline__ void load_tile_by(int tid, uint32_t dst,
       cp_async_16(dst + tile_offset(r, panel, c), g, ok);
     }
   } else if constexpr (D % 2 == 0) {
-    constexpr int kWords = kRows * 16;   // 4-byte words of the panel
+    // a thread takes one column of words, every kStep-th row: one row
+    // pointer, stepped kStep rows at a time (at D = 50 sixteen words a
+    // tile; offsets worked out apart for each held 16 pointers and spilled)
+    constexpr int kW = word_bytes<D>();
+    constexpr int kPerRow = padded_dim<D>() * 2 / kW;   // words of a row
+    constexpr int kStep = kThreads / kPerRow;           // rows a step
+    static_assert(kThreads % kPerRow == 0, "whole rows a step");
+    const int col = (tid % kPerRow) * (kW / 2);   // the words' first column
+    const int r0 = tid / kPerRow;
+    const uint32_t d0 = dst + (col % 8) * 2;
+    const long long step = kStep * stride_t;
+    const __nv_bfloat16* g = src + (long long)(t0 + r0) * stride_t + col;
 #pragma unroll
-    for (int j = 0; j < kWords / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int w = i & 15;
-      const int r = i >> 4;
-      const bool ok = t0 + r < T && w < D / 2;
-      const __nv_bfloat16* g =
-          ok ? src + (long long)(t0 + r) * stride_t + 2 * w : src;
-      cp_async_4(dst + tile_offset(r, 0, w >> 2) + (w & 3) * 4, g, ok);
+    for (int j = 0; j < kRows / kStep; ++j, g += step) {
+      const int r = r0 + j * kStep;
+      const bool ok = t0 + r < T && col < D;
+      const uint32_t d = d0 + tile_offset(r, col / 32, (col % 32) / 8);
+      if constexpr (kW == 8) {
+        cp_async_8(d, ok ? g : src, ok);
+      } else {
+        cp_async_4(d, ok ? g : src, ok);
+      }
     }
   } else {
     constexpr int kPer = kRows * 32 / kThreads;   // values per thread
@@ -528,6 +565,53 @@ __device__ __forceinline__ void wgmma_rs_mn<192>(float (&d)[96],
         "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<256>(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

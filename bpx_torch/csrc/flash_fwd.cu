@@ -131,17 +131,35 @@
 // ahead, O staged through shared memory for 16-byte stores and the keep
 // bits computed while S runs measured slower or no faster.
 //
+// D = 50 and 60 (mmtrvpa's 2E-wide memory encoders at iemocap's widths,
+// 600 / 12, and at cmu-mosei's, counseling's and cmu-mosi's, 600 / 10) run
+// flash_fwd_kernel at DP = 64, as D = 64 does: two panels whose columns
+// D..63 the loads zero (4-byte cp.async words at D = 50, whose rows start
+// 100 bytes apart, 8-byte words at D = 60, 120 bytes apart), and O's stores
+// cut at column D, since the next head's values sit there.
+//
+// D = 256 (mmtrvpa's memory encoders at mmimdb's widths: 1536 / 6) runs
+// flash_fwd_kernel with two warpgroups a block, each over its own 64 query
+// rows of a 128-row tile, both reading every K and V tile, and K/V rings
+// of 2 stages: a 64 x 256 tile is 32 KB, so Q (two tiles) and two stages
+// of K and V take 193 KB and a third stage would not fit; one block of 256
+// threads an SM.  A thread holds O's 128 fp32 beside S's 32.  The D 192
+// kernel's steps (S_u beside P_{u-1} V_{u-1}, mbarrier rings, the
+// ping-pong) are not carried over: holding P_{u-1} across the step would
+// take the thread past 255 registers.  A kernel that is right first.
+//
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
 // 128) the arithmetic intensity is below the card's ~295 flop/byte balance
-// point, so the bound is the bytes (at D 192 too: 4 D flops per score
-// against 8 D bytes per row of q, k, v and o).
+// point, so the bound is the bytes (at D 192 and 256 too: 4 D flops per
+// score against 8 D bytes per row of q, k, v and o).
 //
 // Inputs are (B, H, T, D) tensors addressed by strides (the last dim
 // contiguous), so the q/k/v views of a fused projection need no copy.
-// D = 64, 96, 128, 192: every stride a multiple of 8 elements and pointers
-// 16-byte aligned; D = 30: even strides, 4-byte aligned pointers; D = 25:
-// any strides (its rows start at any even byte).
+// D = 64, 96, 128, 192, 256: every stride a multiple of 8 elements and
+// pointers 16-byte aligned; D = 60: strides multiples of 4, 8-byte aligned
+// pointers; D = 30, 50: even strides, 4-byte aligned pointers; D = 25: any
+// strides (its rows start at any even byte).
 
 #include "flash_common.cuh"
 
@@ -169,31 +187,90 @@ struct FlashParams {
   SeedGroups seed_groups;   // read by the kernels of several groups only
 };
 
-// Q, then kStages x (K, V) (at D = 128 a ring of K tiles, then one of V
-// tiles); +1 KB to align the base to the swizzle.
+// One thread's copies into every 64-row tile of one (batch, head) slice,
+// by the 256 threads of a block: chunk t % 4 of every panel of row t / 4
+// (warpgroup w copies rows 32 w .. 32 w + 31), the addresses worked out
+// once (WideCopier's, over DP / 32 panels).
 template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return (1 + 2 * kStages) * tile_bytes<D>() + 1024;
+struct TallCopier {
+  const __nv_bfloat16* row;   // row t / 4 of the slice, column 8 c
+  const __nv_bfloat16* zero;  // row 0, column 8 c: the address of a zero fill
+  long long stride;           // elements between rows
+  uint32_t dst;               // byte offset of the first chunk in a tile
+  int r0;                     // t / 4
+
+  __device__ __forceinline__ TallCopier(const __nv_bfloat16* slice,
+                                        long long stride_t, int tid)
+      : stride(stride_t), r0(tid >> 2) {
+    zero = slice + (tid & 3) * 8;
+    row = zero + (long long)r0 * stride_t;
+    dst = tile_offset(r0, 0, tid & 3);
+  }
+
+  // rows [t0, t0 + 64) into the tile at `tile`; rows at or past T as zeros
+  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
+    const bool ok = t0 + r0 < T;
+    const __nv_bfloat16* a = ok ? row + (long long)t0 * stride : zero;
+#pragma unroll
+    for (int panel = 0; panel < padded_dim<D>() / 32; ++panel) {
+      cp_async_16(tile + dst + panel * kPanelBytes, a + panel * 32, ok);
+    }
+  }
+};
+
+// Warpgroups a block of flash_fwd_kernel: two at D = 256 (the header), one
+// below.
+template <int D>
+__host__ __device__ constexpr int fwd_groups() {
+  return padded_dim<D>() > 192 ? 2 : 1;
 }
 
+// K/V tiles in flight in flash_fwd_kernel: 2 at D = 256, where a third
+// stage would not fit a block's shared memory, else kStages.
+template <int D>
+__host__ __device__ constexpr int fwd_stages() {
+  return padded_dim<D>() > 192 ? 2 : kStages;
+}
+
+// Q (a tile a warpgroup), then fwd_stages x (K, V) (at D = 128 a ring of K
+// tiles, then one of V tiles); +1 KB to align the base to the swizzle.
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return (fwd_groups<D>() + 2 * fwd_stages<D>()) * tile_bytes<D>() + 1024;
+}
+
+// One (batch*head, 64 x fwd_groups query rows): warpgroup w takes queries
+// 64 w .. 64 w + 63 of the block's, and every warpgroup reads each K and V
+// tile (at D = 256 the block's 256 threads copy them, TallCopier's rows).
+// Every warpgroup visits the key tiles of the block's last rows: under a
+// causal band warpgroup 0's last tile is then wholly above its band, an
+// edge tile whose scores are all masked, so it adds exact zeros.
 template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(fwd_groups<D>() * kThreads)
 flash_fwd_kernel(const FlashParams p) {
   constexpr int DP = padded_dim<D>();
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
+  constexpr int kWG = fwd_groups<D>();
+  constexpr int kSt = fwd_stages<D>();
   extern __shared__ unsigned char smem[];
-  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
-  const uint32_t kv_s = q_s + kTile;   // stage s: K at + 2 s kTile, V after
+  const uint32_t q_base = (smem_u32(smem) + 1023) & ~1023u;
+  // stage s: K at + 2 s kTile, V after
+  const uint32_t kv_s = q_base + kWG * kTile;
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
   // this block's dropout hash values: its seed and its index in its group
   const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
-  const int q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int wg = kWG == 1 ? 0 : static_cast<int>(threadIdx.x) / kThreads;
+  const int tid = kWG == 1 ? static_cast<int>(threadIdx.x)
+                           : static_cast<int>(threadIdx.x) % kThreads;
+  const int qt = blockIdx.x * kRows * kWG;   // the block's first query
+  const int q0 = qt + wg * kRows;            // this warpgroup's
+  const uint32_t q_s = q_base + wg * kTile;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int g = lane / 4;     // row within the warp's 16 (and g + 8)
   const int t4 = lane % 4;    // column pair within an 8-wide block
 
@@ -203,24 +280,31 @@ flash_fwd_kernel(const FlashParams p) {
   const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
   const int kv_end = min(Tk, kv_len);   // keys from here on are masked
 
-  // key tiles to visit
+  // key tiles to visit (those of the block's last query rows)
   int n_tiles = (Tk + kRows - 1) / kRows;
   if (kv_len > 0) {
     n_tiles = min(n_tiles, (kv_len + kRows - 1) / kRows);
     if (p.masked) {
-      n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
+      n_tiles = min(n_tiles, (qt + kWG * kRows - 1 + p.offset) / kRows + 1);
     }
   }
 
-  // key tile t goes to ring stage t mod kStages
+  // key tile t goes to ring stage t mod kSt
+  const TallCopier<D> k_copy(kb, p.k_st, threadIdx.x);
+  const TallCopier<D> v_copy(vb, p.v_st, threadIdx.x);
   auto load_kv = [&](int t) {
-    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
-    load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
-    load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+    const uint32_t dst = kv_s + 2 * (t % kSt) * kTile;
+    if constexpr (kWG == 1) {
+      load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
+      load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+    } else {
+      k_copy.copy(dst, t * kRows, Tk);
+      v_copy.copy(dst + kTile, t * kRows, Tk);
+    }
   };
-  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  load_tile_by<D>(tid, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
+  for (int t = 0; t < kSt - 1; ++t) {
     if (t < n_tiles) load_kv(t);
     cp_async_commit();
   }
@@ -238,12 +322,12 @@ flash_fwd_kernel(const FlashParams p) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     // tile kt has landed (each thread waits for its own copies, then the
     // barrier publishes everyone's); every warp is done with tile kt - 1
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<kSt - 2>();
     fence_proxy_async();
     __syncthreads();
-    if (kt + kStages - 1 < n_tiles) load_kv(kt + kStages - 1);
+    if (kt + kSt - 1 < n_tiles) load_kv(kt + kSt - 1);
     cp_async_commit();
-    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
+    const uint32_t k_s = kv_s + 2 * (kt % kSt) * kTile;
     const uint32_t v_s = k_s + kTile;
     const int k0 = kt * kRows;
 
@@ -920,36 +1004,6 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// One thread's copies into every 64-row tile of one (batch, head) slice,
-// by the 256 threads of a block: chunk t % 4 of every panel of row t / 4
-// (warpgroup w copies rows 32 w .. 32 w + 31), the addresses worked out
-// once (WideCopier's, over DP / 32 panels).
-template <int D>
-struct TallCopier {
-  const __nv_bfloat16* row;   // row t / 4 of the slice, column 8 c
-  const __nv_bfloat16* zero;  // row 0, column 8 c: the address of a zero fill
-  long long stride;           // elements between rows
-  uint32_t dst;               // byte offset of the first chunk in a tile
-  int r0;                     // t / 4
-
-  __device__ __forceinline__ TallCopier(const __nv_bfloat16* slice,
-                                        long long stride_t, int tid)
-      : stride(stride_t), r0(tid >> 2) {
-    zero = slice + (tid & 3) * 8;
-    row = zero + (long long)r0 * stride_t;
-    dst = tile_offset(r0, 0, tid & 3);
-  }
-
-  // rows [t0, t0 + 64) into the tile at `tile`; rows at or past T as zeros
-  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
-    const bool ok = t0 + r0 < T;
-    const __nv_bfloat16* a = ok ? row + (long long)t0 * stride : zero;
-#pragma unroll
-    for (int panel = 0; panel < padded_dim<D>() / 32; ++panel) {
-      cp_async_16(tile + dst + panel * kPanelBytes, a + panel * 32, ok);
-    }
-  }
-};
 
 // One (batch*head, 128-query tile) at D = 192, two warpgroups: warpgroup w
 // takes queries 64 w .. 64 w + 63 of the tile, and both read each K and V
@@ -1295,11 +1349,13 @@ cudaError_t launch(const FlashParams& p, cudaStream_t s) {
     flash_fwd_narrow_kernel<D, Groups><<<grid, kThreads, bytes, s>>>(p);
   } else {
     constexpr int bytes = smem_bytes<D>();
+    constexpr int rows = kRows * fwd_groups<D>();
     cudaError_t err =
         allow_smem(flash_fwd_kernel<D, Groups>, bytes, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid(nq, p.B * p.H);
-    flash_fwd_kernel<D, Groups><<<grid, kThreads, bytes, s>>>(p);
+    const dim3 grid((p.Tq + rows - 1) / rows, p.B * p.H);
+    flash_fwd_kernel<D, Groups>
+        <<<grid, fwd_groups<D>() * kThreads, bytes, s>>>(p);
   }
   return cudaGetLastError();
 }
@@ -1368,7 +1424,8 @@ int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
                                       narrow_smem_bytes<kD>(), blocks);
     } else {
       return bpx_flash::blocks_per_sm(flash_fwd_kernel<kD>,
-                                      smem_bytes<kD>(), blocks);
+                                      smem_bytes<kD>(), blocks,
+                                      fwd_groups<kD>() * kThreads);
     }
   }));
 }

@@ -4,9 +4,10 @@ ancestors of BPMulT and the baselines of the reference's demo notebooks:
 * :class:`MulTGMUClf` (``mmtrvpa``): six crossmodal encoders; per target
   the two crossed streams concatenated to 2E and a 2E-wide self-attention
   "memory" encoder of ``max(layers, 3)`` layers (with ``attention_impl``
-  "pallas" its head dim is 2E / heads: 192 at moviescope's widths); the
-  last token of each, a 3-ary GMU over the three 2E summaries, the
-  residual head;
+  "pallas" its head dim is 2E / heads: 192 at moviescope's widths, 50 at
+  iemocap's, 60 at cmu-mosei's, counseling's and cmu-mosi's, 256 at
+  mmimdb's); the last token of each, a 3-ary GMU over the three 2E
+  summaries, the residual head;
 * :class:`TranslatingMMTGMUClf` (``tmmtrvpa``): BPMulT's first round and a
   plain crossmodal second round, the middle and top Fusion-GMUs with the
   level 1->2 residuals, the last token of each target, a 3-ary GMU, the
@@ -22,9 +23,10 @@ ancestors of BPMulT and the baselines of the reference's demo notebooks:
 The modules keep the JAX package's names, so ``interop.params_from_flax``
 carries its trees with its generic rules.  What the JAX package's classes
 check, these check: ``tmmtrvpa`` needs ``num_vectors_a == num_vectors_v``
-and refuses ``group_encoders``.  They take neither ``hybrid`` nor
-``fusion="mag"``, which the JAX package's classes accept and ignore: the
-port raises rather than run a model other than the one configured.
+and refuses ``group_encoders``.  ``hybrid`` and ``fusion``, which the JAX
+package's classes never read, these accept and ignore too (with a logged
+warning): the model built is the one the JAX package builds, its parameter
+tree unchanged.
 
 In training mode the forward draws every dropout site's seed from one
 :class:`~bpx_torch.ops.dropout.SeedStream` in call order, as the BPMulT
@@ -36,6 +38,7 @@ classifiers drop only inside BERT.
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
@@ -50,18 +53,17 @@ from bpx_torch.ops.init import linear
 
 
 class _LegacyBase(_BPMulTBase):
-    """What the notebook-era models share: the checks, and the dtype and
-    seeded generator of the BPMulT models."""
+    """What the notebook-era models share: the dtype and seeded generator
+    of the BPMulT models, and the options they ignore."""
 
     def _legacy_setup(self, config: ModelConfig, seed: int, device):
-        if config.hybrid:
-            raise NotImplementedError(
-                f"hybrid with the notebook-era model {config.model!r} is "
-                f"not ported (the JAX package ignores it there; ROADMAP.md "
-                f"queues it)")
+        ignored = ["hybrid"] if config.hybrid else []
         if config.fusion != "gmu":
-            raise ValueError(f"fusion={config.fusion!r} is only wired on "
-                             f"mmtrvat")
+            ignored.append(f"fusion={config.fusion!r}")
+        for option in ignored:
+            logging.getLogger(__name__).warning(
+                "%s ignores %s, as the JAX package's model does",
+                config.model, option)
         return self._seeded(config, seed, device)
 
     def _gates_or_logits(self, logits, z, output_gates):

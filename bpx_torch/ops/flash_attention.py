@@ -16,24 +16,27 @@ The backward recomputes P from the saved log-sum-exp, with ``delta =
 rowsum(dO * O)`` in fp32: on the card the backward's kernels compute it
 (what the JAX package's kernels compute in-kernel with ``BPX_XLA_DELTA=0``;
 its default computes it in XLA before them, the same function), on the CPU
-:func:`attention_delta`'s plain version.  At head dims 64, 96 and 192 a
-backward is three kernels (delta, dK/dV, dQ); at 25, 30 and 128 two: the
-dQ kernel computes delta for its rows and leaves it for the dK/dV kernel
-after it.
+:func:`attention_delta`'s plain version.  At head dims 50, 60, 64, 96 and
+192 a backward is three kernels (delta, dK/dV, dQ); at 25, 30 and 128 two:
+the dQ kernel computes delta for its rows and leaves it for the dK/dV
+kernel after it; at 256 four (delta, dV, dK, dQ).
 Masked entries get P = 0, so a row with no visible key
 gets zero gradients although its forward attended uniformly: that is the
 JAX package's backward, not the true derivative.
 
-The kernels take head dims 25, 30, 64, 96, 128 and 192.  A narrow head (25, 30:
-the mmtrvat presets' 300-wide streams over 12 or 10 heads) runs the same
-kernels at 32 columns with the padding zeroed in shared memory: nothing is
-padded in device memory, and the strided (B, H, T, D) views of a fused
-projection go to the kernels without a copy.  At 128 (mmimdb: 768 over 6
-heads) the dK/dV kernel runs two warpgroups a block, each over half of
-every query tile and all the columns; at 192 (mmtrvpa's 2E-wide memory
-encoders at moviescope's widths: 1536 over 8 heads) the dK/dV and the dQ
-kernel run two warpgroups a block, each over every row and half the
-columns (``csrc/flash_bwd.cu``).
+The kernels take head dims 25, 30, 50, 60, 64, 96, 128, 192 and 256.  A
+narrow head (25, 30: the mmtrvat presets' 300-wide streams over 12 or 10
+heads) runs the same kernels at 32 columns with the padding zeroed in
+shared memory, and 50 and 60 (mmtrvpa's 600-wide memory encoders over 12
+or 10 heads) run the head_dim-64 kernels so: nothing is padded in device
+memory, and the strided (B, H, T, D) views of a fused projection go to the
+kernels without a copy.  At 128 (mmimdb: 768 over 6 heads) the dK/dV
+kernel runs two warpgroups a block, each over half of every query tile and
+all the columns; at 192 (mmtrvpa's 2E-wide memory encoders at moviescope's
+widths: 1536 over 8 heads) the dK/dV and the dQ kernel run two warpgroups a
+block, each over every row and half the columns, and at 256 (the same at
+mmimdb's widths: 1536 over 6) likewise, with dK and dV in launches of their
+own (``csrc/flash_bwd.cu``).
 
 Seeds per group: the ops take a list of dropout seeds, one per group of
 the batch (one element on the single-seed path).  With n seeds the B·H
@@ -62,10 +65,13 @@ from bpx_torch.ops.masks import band_allowed
 MASK_FILL = -1e30
 #: head dims the kernels are instantiated for (``with_head_dim`` in
 #: ``csrc/flash_common.cuh``), each with the alignment (in elements) its rows
-#: need: 16-byte chunks at 64, 96, 128 and 192, 4-byte cp.async words at
-#: 30, and at 25 (the mmtrvat presets' 300 / 12 heads, whose rows start at
-#: any even byte of a fused projection) plain 2-byte loads
-KERNEL_ALIGN = {25: 1, 30: 2, 64: 8, 96: 8, 128: 8, 192: 8}
+#: need: 16-byte chunks at 64, 96, 128, 192 and 256, 8-byte cp.async words
+#: at 60 (a head of a fused projection starts every 120 bytes), 4-byte ones
+#: at 30 and 50 (every 60 and 100 bytes), and at 25 (the mmtrvat presets'
+#: 300 / 12 heads, whose rows start at any even byte of a fused projection)
+#: plain 2-byte loads
+KERNEL_ALIGN = {25: 1, 30: 2, 50: 2, 60: 4, 64: 8, 96: 8, 128: 8, 192: 8,
+                256: 8}
 KERNEL_HEAD_DIMS = tuple(KERNEL_ALIGN)
 #: the TPU kernels' single-pass key range and key block (``tk_p`` below)
 SINGLE_PASS_MAX_K = 1024
@@ -388,8 +394,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain versions for CPU tensors, in the forward and (through autograd,
     ``bpx_torch::flash_bwd``) in the backward.  Autograd records the op only
     when grad is enabled and q, k or v requires it; otherwise nothing is
-    saved.  The kernels take bf16 with head_dim 25, 30, 64, 96, 128 or 192 and
-    any strides whose last dim is contiguous; the output is a (B, H, Tq, D)
+    saved.  The kernels take bf16 with a head_dim of ``KERNEL_HEAD_DIMS``
+    and any strides whose last dim is contiguous; the output is a (B, H, Tq, D)
     view of (B, Tq, H, D) memory, so ``out.transpose(1, 2).reshape(B, Tq,
     H * D)`` is free.  ``dropout_rate > 0`` needs ``dropout_seed``, a uint32
     Python int, or a list of n, one per group of B / n batch rows (under
@@ -407,8 +413,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              dropout_seed=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``dout`` (the op ``bpx_torch::flash_bwd``); the kernels (delta, dK/dV,
-    dQ; at head_dim 25, 30 and 128 dQ with delta, then dK/dV) for CUDA
-    tensors, the plain version for CPU."""
+    dQ; at head_dim 25, 30 and 128 dQ with delta, then dK/dV; at 256 delta,
+    dV, dK, dQ) for CUDA tensors, the plain version for CPU."""
     return _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked,
                       float(dropout_rate), seed_list(dropout_seed))
 
@@ -421,8 +427,9 @@ def attention_delta_reference(dout: torch.Tensor,
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors (the op
-    ``bpx_torch::flash_delta``): the head_dim 64/96/192 backward's first kernel
-    on its own for CUDA tensors, the plain version for CPU."""
+    ``bpx_torch::flash_delta``): the head_dim 50/60/64/96/192/256
+    backward's first kernel on its own for CUDA tensors, the plain version
+    for CPU."""
     return _FLASH_DELTA(dout, out)
 
 
@@ -474,8 +481,8 @@ def _kernel_ready(name, t, device):
     """``t`` as the kernels take it: on ``device``, bf16, the last dim
     contiguous, and strides and data pointer multiples of the head dim's
     alignment (``KERNEL_ALIGN``); a copy only where they are not.  A
-    narrow head's strided views (D = 25 at any stride, D = 30 at even
-    ones) go to the kernel as they are."""
+    narrow head's strided views (D = 25 at any stride, D = 30 and 50 at
+    even ones, D = 60 at multiples of 4) go to the kernel as they are."""
     if t.device != device:
         raise RuntimeError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
@@ -570,7 +577,8 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
 #: backward calls that launched their kernels (delta, dK/dV, dQ; or, at
-#: head_dim 25, 30 and 128, dQ with delta and dK/dV)
+#: head_dim 25, 30 and 128, dQ with delta and dK/dV; at 256 delta, dV, dK,
+#: dQ)
 flash_attention_backward.launches = 0
 #: launches of the delta kernel on its own (not those inside the backward)
 attention_delta.launches = 0

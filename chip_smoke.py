@@ -214,6 +214,21 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    exact dropout masks at (8, 8, 512, 512, 192); one ``python -m
    bpx_torch.cli.train --model mmtrvpa`` epoch on a written moviescope
    dataset, rc 0 on the card.
+20. ``mmtrvpa`` at iemocap, cmu-mosei and mmimdb, after phase 19: each the
+   preset with only ``model`` changed, at full width and depth (bf16,
+   seeded weights), its 2E-wide memory encoders at head_dim 50, 60 and 256.
+   Each served, 4 requests at batch 8 (one ragged) against the plain path
+   within the preset's limits, exact counters per forward (84, 84 and 48
+   flash launches, 24, 24 and 12 of them at the memory head dim; 226, 226
+   and 130 LayerNorm); iemocap and mmimdb trained (one micro-step against
+   the plain path with the band fault planted, then 3 Adam steps at 8 x A
+   = 2 with every dropout and exact counters: 168 / 104 / 168 / 548 / 548
+   and 96 / 64 / 96 / 308 / 308 per step), cmu-mosei one step; every class
+   no earlier phase held (the memory encoders' flash forward and backward
+   at (8, 12, 512, 512, 50), (8, 10, 512, 512, 60) and (8, 6, 512, 512,
+   256) causal, rate 0 and 0.1, the profiler naming their kernels; the
+   600-wide LayerNorms) against its plain version, timed beside the bound
+   and the library call; the exact dropout masks at those three shapes.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -225,7 +240,8 @@ phase 13 and per epoch; the narrow backward and forward also alone, at
 head_dim 25 from iemocap's train steps and at 30 from cmu-mosei's, and the
 head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
 sweep, hybrid's and the grouped pairs' classes; phase 17's folded
-classes; phase 19's head_dim-192 and 1536-wide classes) and, last,
+classes; phase 19's head_dim-192 and 1536-wide classes; phase 20's
+head_dim 50, 60 and 256 and 600-wide classes) and, last,
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package; without a CUDA device, or without ``bpx_torch`` beside it, it
 exits non-zero and prints no result.
@@ -934,7 +950,8 @@ def bwd_kernels(D, groups=1):
     """The backward's kernels at head_dim D for ``groups`` seed groups, by
     the names the profiler reports, as (dQ, dK/dV, delta or None): at a
     narrow head (25, 30) and at 128 the dQ kernel computes delta itself,
-    so the backward is two launches; at 192 the column-split kernels."""
+    so the backward is two launches; at 192 the column-split kernels, and
+    at 256 too, with dK/dV the pair (dV, dK) of its two launches."""
     args = build_args(D, groups)
     if D < 32:
         return ("flash_bwd_narrow_dq_kernel" + args,
@@ -946,15 +963,26 @@ def bwd_kernels(D, groups=1):
         return ("flash_bwd_colsplit_dq_kernel" + args,
                 "flash_bwd_colsplit_dkdv_kernel" + args,
                 "flash_delta_kernel")
+    if D == 256:
+        return ("flash_bwd_colsplit_dq_kernel" + args,
+                ("flash_bwd_colsplit_dv_kernel" + args,
+                 "flash_bwd_colsplit_dk_kernel" + args),
+                "flash_delta_kernel")
     return ("flash_bwd_dq_kernel" + args, "flash_bwd_dkdv_kernel" + args,
             "flash_delta_kernel")
+
+
+def kernel_names(kernels) -> list:
+    """The names of ``bwd_kernels``' entries, the pairs' members apart."""
+    return [n for k in kernels if k
+            for n in ((k,) if isinstance(k, str) else k)]
 
 
 def backward_split(torch, fn, D, groups=1):
     """{kernel: device ms per call} of one backward call ``fn`` at head
     dim D and ``groups`` seed groups, its kernels by their profiler names
     (``bwd_kernels``)."""
-    return kernel_ms(torch, fn, [k for k in bwd_kernels(D, groups) if k])
+    return kernel_ms(torch, fn, kernel_names(bwd_kernels(D, groups)))
 
 
 def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
@@ -1015,6 +1043,7 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
               f"flash backward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         eff_masked = fa.effective_band(Tq, Tk, masked)[0]
         launches = ("dQ (with delta) + dK/dV" if bwd_kernels(D)[2] is None
+                    else "delta + dV + dK + dQ" if D == 256
                     else "delta + dK/dV + dQ")
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, seed_groups=groups,
@@ -3407,6 +3436,124 @@ def phase_legacy(torch, np, timer, gen, card, checked):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: mmtrvpa at the presets other than moviescope
+# ---------------------------------------------------------------------------
+
+def mmtrvpa_path(base: ModelPath, layers: int) -> ModelPath:
+    """``base``'s preset as mmtrvpa (only ``model`` changed), held to the
+    preset's limits, with the launches its structure gives per forward:
+    BERT's 12 attentions at head_dim 64 (dropout in each) and 25
+    LayerNorms; six ``layers``-layer crossmodal encoders at hidden / heads
+    (3 LayerNorms a layer and a final one, one more a layer in training,
+    dropout in the two l-keyed ones: attn_dropout 0.1); three 2E-wide
+    memory encoders of max(layers, 3) = ``layers`` layers at 2E / heads (2
+    LayerNorms a layer and a final one, dropout at attn_dropout)."""
+    ln = 25 + 6 * (3 * layers + 1) + 3 * (2 * layers + 1)
+    return dataclasses.replace(
+        base, flash=12 + 6 * layers + 3 * layers, ln=ln,
+        ln_train=ln + 6 * layers, dropout=12 + 2 * layers + 3 * layers,
+        options=(("model", "mmtrvpa"),))
+
+
+# iemocap and cmu-mosei: 8 layers, 84 flash launches (48 at the crossmodal
+# head dim, 24 at the memory's), 226 / 274 LayerNorms, 52 with dropout;
+# mmimdb: 4 layers, 48 (24, 12), 130 / 154, 32.  Each is held to its
+# preset's limits, but iemocap's micro-step gradients to mmtrvpa's (the
+# limit phase 19 holds it to): on an H100 (700 W) its sound kernels read
+# 0.172 against the plain path (proj1) where the plain bf16 path is itself
+# 0.217 from the fp32 step and the kernels 0.141; the dropout-mask fault
+# reads 0.172 too (the memory encoders reach the head through the last
+# token alone, as at moviescope), the band fault non-finite
+VPA_IEMOCAP = dataclasses.replace(mmtrvpa_path(IEMOCAP, 8),
+                                  grad_tol=GRAD_TOL)
+VPA_CMU_MOSEI = mmtrvpa_path(CMU_MOSEI, 8)
+VPA_MMIMDB = mmtrvpa_path(MMIMDB, 4)
+#: flash launches per served forward by head dim
+VPA_DIMS = {"iemocap": {64: 12, 25: 48, 50: 24},
+            "cmu-mosei": {64: 12, 30: 48, 60: 24},
+            "mmimdb": {64: 12, 128: 24, 256: 12}}
+#: (memory head dim, heads) of each path: the new classes held both ways
+#: at 512 x 512 causal, rate 0 and 0.1, and their exact masks
+VPA_MEMORY = {"iemocap": (50, 12), "cmu-mosei": (60, 10), "mmimdb": (256, 6)}
+#: the paths trained in full (a micro-step against the plain path with the
+#: band fault planted, then TRAIN_STEPS steps); cmu-mosei one step
+VPA_TRAINED = ("iemocap", "mmimdb")
+
+
+def phase_mmtrvpa(torch, np, timer, gen, checked):
+    """Phase 20: mmtrvpa at iemocap, cmu-mosei and mmimdb (memory head dims
+    50, 60 and 256), each the preset with only ``model`` changed, at full
+    width and depth (bf16, seeded weights): 4 requests at batch 8 (one
+    ragged) against the plain path within the preset's limits, exact
+    counters; iemocap and mmimdb trained (a micro-step against the plain
+    path with the band fault planted, 3 Adam steps at 8 x A = 2 with every
+    dropout and exact counters), cmu-mosei one step; every class no earlier
+    phase held (the memory encoders' flash classes both ways at rate 0 and
+    0.1, the 600-wide LayerNorms) against its plain version, timed; the
+    exact masks at the three memory classes.  ``checked``: the classes held
+    so far, by kind, which this extends."""
+    out = {"served": {}, "micro": {}, "trained": {}, "train_seen": {},
+           "rows": collections.defaultdict(list)}
+
+    def hold(seen, label):
+        rows = check_new_classes(torch, timer, gen, seen, checked, label)
+        for kind, r in rows.items():
+            out["rows"][kind] += r
+
+    for path in (VPA_IEMOCAP, VPA_CMU_MOSEI, VPA_MMIMDB):
+        pred, reqs = phase_predictor(torch, path)
+        flash_cls, ln_cls = record_forward(path, pred, reqs[0],
+                                           dims=VPA_DIMS[path.preset])
+        hold(dict(flash=flash_cls, ln=ln_cls), path.name)
+        out["served"][path.preset] = phase_serve(torch, np, pred, reqs, False,
+                                                 path, faults=False)
+        del pred
+        torch.cuda.empty_cache()
+
+    for path in (VPA_IEMOCAP, VPA_CMU_MOSEI, VPA_MMIMDB):
+        full = path.preset in VPA_TRAINED
+        model, loss_fn, step, batches = phase_trainer(
+            torch, np, path, steps=TRAIN_STEPS if full else 1)
+        if full:
+            seen, out["micro"][path.preset] = phase_micro_step(
+                torch, model, loss_fn, batches, path, must_catch=BAND_FAULT)
+            hold(seen, f"{path.name} micro-step")
+        with recording() as tseen:
+            out["trained"][path.preset] = phase_train(torch, model, step,
+                                                      batches, False, path)
+        out["train_seen"][path.preset] = tseen
+        if not full:
+            hold({k: {c: n // TRAIN_A for c, n in tseen[k].items()}
+                  for k in ("flash", "flash_bwd", "ln", "ln_bwd")},
+                 f"{path.name} step")
+        del model, loss_fn, step, batches
+        torch.cuda.empty_cache()
+
+    # the memory classes both ways at rate 0 and 0.1: those no recorded run
+    # brought (the backward at rate 0: the memory encoders drop attention at
+    # 0.1 in training) held of weight 0 in the launches' mix
+    for preset, (D, H) in VPA_MEMORY.items():
+        for rate in (0.0, 0.1):
+            cls = (BATCH, H, 512, 512, D, True, False, 1, rate)
+            for kind, phase in (("flash", phase_flash),
+                                ("flash_bwd", phase_flash_bwd)):
+                if cls not in checked[kind]:
+                    out["rows"][kind] += phase(
+                        torch, timer, {cls: 0}, gen,
+                        label=f"{kind} mmtrvpa {preset} rate {rate}")
+                    checked[kind].add(cls)
+        phase_mask_check(torch, gen, BATCH, H, 512, D)
+    rows = out["rows"]
+    for D, _ in VPA_MEMORY.values():
+        check(dim_rows(rows["flash"], D) and dim_rows(rows["flash_bwd"], D),
+              f"phase 20 held no head_dim-{D} flash class both ways")
+    check([r for r in rows["ln"] if r["shape"][1] == 600]
+          and [r for r in rows["ln_bwd"] if r["shape"][1] == 600],
+          "phase 20 held no 600-wide LayerNorm class both ways")
+    return out
+
+
 def short_launches(seen, kind) -> int:
     """Calls of a kind of flash kernel at 32 x 32 in a recording."""
     return sum(c for cls, c in seen[kind].items() if cls[2:4] == (32, 32))
@@ -3631,8 +3778,10 @@ def main() -> None:
         ln_bwd=set(seen["ln_bwd"]))
     held = dict(
         flash=checked["flash"] | set(i_flash_cls)
-        | {k for k in i_seen["flash"] if k[-1] > 0},
-        flash_bwd=checked["flash_bwd"] | set(i_seen["flash_bwd"]),
+        | {k for k in i_seen["flash"] if k[-1] > 0} | set(c_flash_cls)
+        | {k for k in c_seen["flash"] if k[-1] > 0},
+        flash_bwd=checked["flash_bwd"] | set(i_seen["flash_bwd"])
+        | set(c_seen["flash_bwd"]),
         ln=checked["ln"] | set(seen["ln"]) | set(i_ln_cls)
         | set(i_seen["ln"]),
         ln_bwd=checked["ln_bwd"] | set(i_seen["ln_bwd"]))
@@ -3702,6 +3851,13 @@ def main() -> None:
     t0 = time.time()
     legacy = phase_legacy(torch, np, timer, gen, card, held)
     print(f"[time] legacy phase {time.time() - t0:.1f} s")
+
+    # phase 20: mmtrvpa at iemocap, cmu-mosei and mmimdb (memory head dims
+    # 50, 60 and 256); the classes every earlier phase held are not held
+    # again
+    t0 = time.time()
+    vpa = phase_mmtrvpa(torch, np, timer, gen, held)
+    print(f"[time] mmtrvpa presets phase {time.time() - t0:.1f} s")
 
     steps = TRAIN_STEPS * TRAIN_A
     lt_seen = legacy["train_seen"]["mmtrvpa"]
@@ -3860,6 +4016,30 @@ def main() -> None:
                   width_launches(lt_seen, "ln_bwd", 1536), steps,
                   "micro_step"),
     ]
+    # phase 20: the memory encoders' kernels at head_dim 50 (iemocap), 60
+    # (cmu-mosei: one train step) and 256 (mmimdb), launches those of each
+    # path's train steps, and the 600-wide LayerNorms (iemocap's steps)
+    v_seen = vpa["train_seen"]
+    for preset, (D, _) in VPA_MEMORY.items():
+        runs = steps if preset in VPA_TRAINED else TRAIN_A
+        kernels += [
+            summarise(f"flash_fwd_d{D}", fwd_src, fwd_tpu,
+                      dim_rows(vpa["rows"]["flash"], D),
+                      dim_launches(v_seen[preset], "flash", D), runs,
+                      "micro_step"),
+            summarise(f"flash_bwd_d{D}", bwd_src, bwd_tpu,
+                      dim_rows(vpa["rows"]["flash_bwd"], D),
+                      dim_launches(v_seen[preset], "flash_bwd", D), runs,
+                      "micro_step")]
+    kernels += [
+        summarise("layer_norm_fwd_600", ln_src, "bpx/ops/norm.py:53",
+                  [r for r in vpa["rows"]["ln"] if r["shape"][1] == 600],
+                  width_launches(v_seen["iemocap"], "ln", 600), steps,
+                  "micro_step"),
+        summarise("layer_norm_bwd_600", ln_bwd_src, "bpx/ops/norm.py:69",
+                  [r for r in vpa["rows"]["ln_bwd"] if r["shape"][1] == 600],
+                  width_launches(v_seen["iemocap"], "ln_bwd", 600), steps,
+                  "micro_step")]
     print(f"[summary] moviescope: served median request "
           f"{served['median_ms']:.2f} ms; train step median "
           f"{trained['median_ms']:.1f} ms "
@@ -3954,6 +4134,16 @@ def main() -> None:
               f"{n} loss {e['loss_err']:.3g} gradients {e['grad_err']:.3g}"
               for n, e in legacy["micro"].items())
           + f"; CLI epoch {legacy['cli']['wall_s']:.1f} s; card: {card}")
+    print("[summary] mmtrvpa at the presets (memory head dims 50, 60, 256): "
+          "served median " + ", ".join(
+              f"{p} {sv['median_ms']:.2f} ms"
+              for p, sv in vpa["served"].items())
+          + "; train step median " + ", ".join(
+              f"{p} {tr['median_ms']:.1f} ms (peak {tr['peak_gib']:.2f} GiB)"
+              for p, tr in vpa["trained"].items())
+          + "; micro-step kernels vs plain: " + ", ".join(
+              f"{p} loss {e['loss_err']:.3g} gradients {e['grad_err']:.3g}"
+              for p, e in vpa["micro"].items()) + f"; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -117,7 +117,12 @@ def build(label, src_dir, flags, kernel="bwd"):
         elif "wgmma" in line.lower():
             lines.append(f"{name}: {line.strip()}")
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
-    occ = {d: blocks_per_sm(d) for d in KERNEL_HEAD_DIMS}
+    occ = {}
+    for d in KERNEL_HEAD_DIMS:
+        try:
+            occ[d] = blocks_per_sm(d)
+        except RuntimeError:   # a tree older than this head dim
+            occ[d] = "not built"
     print(f"[{label}] built from {src_dir} {' '.join(flags)}")
     for line in lines:
         print(f"[{label}] {line}")

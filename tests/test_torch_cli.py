@@ -5,9 +5,9 @@ defaults, ``--preset``, the inverted ``store_false`` flags, the BERT
 variants, ``--task synthetic``); every bpx flag exists with its default.
 ``cli_main`` trains and tests a tiny synthetic run on the CPU (the split
 seed sweep), with ``--hybrid --optimizer radam --accum_dtype bfloat16``,
-and runs the 10-fold cross-validation path; an option not ported with a
-notebook-era model (``--hybrid``) raises; ``python -m bpx_torch.cli.train
---help`` exits 0.
+and runs the 10-fold cross-validation path; a notebook-era model trains
+with ``--hybrid``, which it ignores as the JAX package's does;
+``python -m bpx_torch.cli.train --help`` exits 0.
 """
 
 import argparse
@@ -148,14 +148,24 @@ def test_cli_cross_validation_folds(tmp_path, monkeypatch):
         assert (tmp_path / "runs" / f"cv_fold{k}" / "preds_raw.npy").exists()
 
 
-@pytest.mark.parametrize("flags,match", [(["--model", "gmu", "--hybrid"],
-                                          "not ported"),
-                                         (["--model", "bertclf", "--hybrid"],
-                                          "not ported")])
-def test_unported_models_and_options_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.cli_main(SMALL + flags + ["--max_epochs", "1", "--to_seed", "1",
-                                      "--savedir", str(tmp_path)])
+@pytest.mark.parametrize("flags", [["--model", "gmu", "--hybrid"],
+                                   ["--model", "bertclf", "--hybrid"]])
+def test_unported_models_and_options_raise(tmp_path, flags):
+    """A notebook-era model with ``--hybrid``, which the JAX package's
+    notebook-era classes accept and ignore, trains and tests through the
+    CLI: the option is saved with the run, and the model built is the one
+    without it (no early-fusion encoders)."""
+    import torch
+    results = cli.cli_main(SMALL + flags + [
+        "--max_epochs", "1", "--from_seed", "1", "--to_seed", "1",
+        "--savedir", str(tmp_path), "--name", "ignored"])
+    assert list(results) == [1] and "auc_pr_micro" in results[1]
+    run = tmp_path / "ignored_Seed1_run"
+    with open(run / "config.json") as f:
+        saved = json.load(f)
+    assert saved["model"]["hybrid"] and saved["model"]["model"] == flags[1]
+    weights = torch.load(run / "latest" / "model.pt")["model"]
+    assert weights and not any("early" in k for k in weights)
 
 
 def test_module_help_exits_zero():

@@ -17,7 +17,10 @@ bitwise reruns (nine query tiles, kv_lens, Tk < 64 < Tq, B*H 1 with the
 band, the long online shapes) and named by the profiler beside the
 generic kernel at 64 and 96; head_dim 192 (mmtrvpa's memory encoders)
 at its model classes and tile edges, rate 0 and 0.1, its exact masks and
-its kernels by name; synthetic-tiny served and trained
+its kernels by name; head_dim 50, 60 and 256 (mmtrvpa's memory encoders at
+the other presets) likewise, on fused views of their presets' heads side
+by side, where a store past column D would show; synthetic-tiny served and
+trained
 through the einsum attention with no flash launch; the
 LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
@@ -443,12 +446,14 @@ def test_narrow_flash_kernels_match_plain(gen, D, B, H, Tq, Tk, lens,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (128, 6)])
+@pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (128, 6), (50, 12),
+                                 (60, 10), (256, 6)])
 def test_narrow_fused_views_are_not_copied(gen, D, H):
     """The (B, H, T, D) views of a fused (B, T, 3, H, D) projection go to
     the kernels as they are (the wrapper copies nothing: T-stride 3 H D,
     H-stride D, odd at D = 25), and give what contiguous copies give, bit
-    for bit, forward and backward; the narrow heads and mmimdb's 128."""
+    for bit, forward and backward; the narrow heads, mmimdb's 128 and
+    mmtrvpa's memory encoders' 50, 60 and 256."""
     from bpx_torch.ops.flash_attention import _kernel_ready
     B, T = 2, 200
     buf = torch.randn(B, T, 3, H, D, generator=gen, device="cuda").to(
@@ -510,12 +515,13 @@ def test_narrow_view_ending_its_allocation(gen, D):
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("D", [25, 30, 64, 96, 128])
+@pytest.mark.parametrize("D", [25, 30, 64, 96, 128, 50, 60, 256])
 def test_misaligned_contiguous_inputs_are_copied(gen, D):
     """A contiguous view that starts one element into its buffer (at D =
-    30, 64, 96 its rows are not aligned for the kernels' copies) is copied
-    to a fresh buffer; at D = 25 any even byte will do and it goes as it
-    is.  Either way the forward matches the plain version."""
+    30, 50, 60, 64, 96, 128, 256 its rows are not aligned for the kernels'
+    copies) is copied to a fresh buffer; at D = 25 any even byte will do
+    and it goes as it is.  Either way the forward matches the plain
+    version."""
     from bpx_torch.ops.flash_attention import KERNEL_ALIGN, _kernel_ready
     B, H, T = 2, 3, 65
     n = B * H * T * D
@@ -691,6 +697,108 @@ def test_head_dim_192_kernels_by_name(gen):
         assert any(kernel in n for n in names), (kernel, names)
 
 
+# mmtrvpa's 2E-wide memory encoders at the other presets: 600 / 12
+# (iemocap), 600 / 10 (cmu-mosei, counseling, cmu-mosi), 1536 / 6 (mmimdb)
+MEMORY_DIMS = [(50, 12), (60, 10), (256, 6)]
+
+
+@pytest.mark.parametrize("D,H", MEMORY_DIMS)
+@pytest.mark.parametrize("B,Tq,Tk,masked,lens", [
+    (8, 512, 512, True, None),          # the memory encoders' causal class
+    (2, 512, 512, True, (512, 0)),      # with kv_lens, one 0
+    (2, 200, 200, False, (0, 137)),
+    (3, 77, 130, True, None),           # ragged tiles, band
+    (2, 130, 40, True, None),           # Tk < 64 < Tq
+    (2, 129, 65, False, (65, 1)),       # one visible key
+    (1, 640, 1280, True, None),         # long: ten query tiles
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_memory_head_dims_match_plain(gen, D, H, B, Tq, Tk, masked, lens,
+                                      rate):
+    """head_dim 50, 60 (the D 64 kernels over two zero-padded panels) and
+    256 (two warpgroups in the forward, the column-split backward with dV
+    and dK in launches of their own) against the plain versions, forward
+    and backward, on fused-projection views of H heads side by side: O,
+    dQ, dK and dV are (B, T, H, D) memory, so a store past column D would
+    write into the next head's columns; bitwise-equal reruns."""
+    q, k, v = _fused_views(gen, B, H, Tq, Tk, D)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+    seed = 0x50602560 if rate else None
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    assert torch.equal(out, flash_attention(q, k, v, masked, kv, rate,
+                                            seed))
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    got = flash_attention_backward(q, k, v, out, lse, dout, masked, kv, rate,
+                                   seed)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), masked, kv,
+        rate, seed)
+    for g, w in zip(got, want):
+        _close_grad(g, w)
+    if lens is not None and 0 in lens:
+        assert not got[0][lens.index(0)].any()
+    again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
+                                     rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(attention_delta(dout, out),
+                               attention_delta_reference(dout, out),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("D", [50, 60, 256])
+@pytest.mark.parametrize("seed", [0x5060C0DE, [0x5060C0DE, 0xC0FFEE]])
+def test_dropout_mask_is_exact_at_the_memory_head_dims(gen, D, seed):
+    """The forward and backward kernels' dropout masks at head_dim 50, 60
+    and 256, every bit of a 200 x 200 score matrix, against the plain
+    version's; with one seed, and with two seed groups (the build for
+    several, one batch row a group)."""
+    B, H, T, rate = 2, 3, 200, 0.1
+    fwd, bwd = narrow_mask_bits(B, H, T, D, rate, seed)
+    keep = keep_mask(seed, B, H, T, T, rate, "cuda")
+    assert torch.equal(fwd, keep)
+    assert torch.equal(bwd, keep)
+
+
+@pytest.mark.parametrize("D,H,forward,backward", [
+    (50, 12, "flash_fwd_kernel<50, false>",
+     ("flash_delta_kernel<50>", "flash_bwd_dkdv_kernel<50, false>",
+      "flash_bwd_dq_kernel<50, false>")),
+    (60, 10, "flash_fwd_kernel<60, false>",
+     ("flash_delta_kernel<60>", "flash_bwd_dkdv_kernel<60, false>",
+      "flash_bwd_dq_kernel<60, false>")),
+    (256, 6, "flash_fwd_kernel<256, false>",
+     ("flash_delta_kernel<256>", "flash_bwd_colsplit_dv_kernel<256, false>",
+      "flash_bwd_colsplit_dk_kernel<256, false>",
+      "flash_bwd_colsplit_dq_kernel<256, false>")),
+])
+def test_memory_head_dims_kernels_by_name(gen, D, H, forward, backward):
+    """The profiler names the forward's one kernel at head_dim 50, 60 and
+    256 and the backward's kernels: delta, dK/dV and dQ at 50 and 60;
+    delta, dV, dK and dQ at 256."""
+    q, k, v = _fused_views(gen, 2, H, 200, 200, D)
+    out, lse = flash_attention(q, k, v, True, None, return_lse=True)
+    for _ in range(3):   # the profiler drops an event now and then: retry
+        names = _device_kernels(lambda: flash_attention(q, k, v, True, None))
+        if len(names) == 1:
+            break
+    assert len(names) == 1 and forward in names[0], names
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    for _ in range(3):
+        names = _device_kernels(lambda: flash_attention_backward(
+            q, k, v, out, lse, dout, True, None))
+        if len(names) == len(backward):
+            break
+    assert len(names) == len(backward), names
+    for kernel in backward:
+        assert any(kernel in n for n in names), (kernel, names)
+
+
 def test_kernels_fit_the_sm(gen):
     """Every head dim's forward, dK/dV and dQ kernels fit at least one
     block per SM (their shared memory and registers), by the occupancy
@@ -698,7 +806,8 @@ def test_kernels_fit_the_sm(gen):
     flash_bwd.cu): at the narrow heads the forward 5 (D 25) and 4 (D 30),
     the backward's dK/dV 3 and dQ 4; at 128 the wide forward (113 KB of
     shared memory) and the dQ kernel 2, the 256-thread dK/dV kernel 1; at
-    192 one 256-thread block of each; an untabled head dim raises."""
+    192 and 256 one 256-thread block of each (at 256 the dV and the dK
+    kernel each); an untabled head dim raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)
@@ -709,7 +818,7 @@ def test_kernels_fit_the_sm(gen):
         if d == 128:
             assert got["forward"] >= 2 and got["dQ"] >= 2, (d, got)
             assert got["dK/dV"] == 1, (d, got)
-        if d == 192:
+        if d in (192, 256):
             assert got == {"forward": 1, "dK/dV": 1, "dQ": 1}, (d, got)
     with pytest.raises(NotImplementedError, match="head_dim"):
         blocks_per_sm(48)
@@ -1050,7 +1159,8 @@ SEED_GROUPS = [0x1234567, 0xDEADBEEF, 7, 0xFFFFFFFF, 99]
 
 
 @pytest.mark.parametrize("D,H", [(25, 12), (30, 10), (64, 12), (96, 8),
-                                 (128, 6), (192, 8)])
+                                 (128, 6), (192, 8), (50, 12), (60, 10),
+                                 (256, 6)])
 @pytest.mark.parametrize("kv", [False, True])
 def test_folded_seed_groups_equal_their_own_launches(gen, D, H, kv):
     """One launch over S groups with one seed each: each group's O, lse,

@@ -4,8 +4,9 @@ with dropout the forward and its ``jax.vjp`` (the fused single-pass
 backward at the model's shapes; the online forward and the split dQ / dK-dV
 backward at a long multi-tile shape; lengths and band offsets at the edges
 of the CUDA kernels' 64-row tiles; both of bpx's delta paths; the narrow
-head dims 25 and 30 of the mmtrvat presets, mmimdb's 128, and 192, the
-head dim of mmtrvpa's memory encoders at moviescope's widths).
+head dims 25 and 30 of the mmtrvat presets, mmimdb's 128, and 192, 50, 60
+and 256, the head dims of mmtrvpa's memory encoders at moviescope's,
+iemocap's, cmu-mosei's (counseling's, cmu-mosi's) and mmimdb's widths).
 
 Inputs are made with numpy from a seed; fp32, atol/rtol 2e-5 (the same
 function, sums in another order).  The dropout seeds are the same uint32 on
@@ -173,7 +174,7 @@ def test_flash_tile_edges_match_pallas(B, H, Tq, Tk, D, masked, lens, rate):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
 
 
-@pytest.mark.parametrize("D", [25, 30])
+@pytest.mark.parametrize("D", [25, 30, 50, 60])
 @pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", [
     (1, 2, 512, 512, True, None, 0.0),          # the mmtrvat class: causal
     (1, 2, 512, 512, True, None, 0.1),          # with attention dropout
@@ -184,9 +185,10 @@ def test_flash_tile_edges_match_pallas(B, H, Tq, Tk, D, masked, lens, rate):
 ])
 def test_narrow_head_dims_match_pallas(D, B, H, Tq, Tk, masked, lens, rate):
     """head_dim 25 (iemocap: 300 / 12) and 30 (cmu-mosei, counseling,
-    cmu-mosi: 300 / 10), which the Pallas kernels take at their raw width:
-    the forward and backward against bpx at the model's 512 x 512 causal
-    class and at tile edges with kv_lens, rate 0 and 0.1."""
+    cmu-mosi: 300 / 10), and the memory encoders' 50 and 60 (600 / 12, 600
+    / 10), which the Pallas kernels take at their raw width: the forward
+    and backward against bpx at the model's 512 x 512 causal class and at
+    tile edges with kv_lens, rate 0 and 0.1."""
     q, k, v = _inputs(B, H, Tq, Tk, D, seed=12)
     dout = np.random.RandomState(13).randn(B, H, Tq, D).astype(np.float32)
     kv = None if lens is None else np.asarray(lens, np.int32)
@@ -243,6 +245,31 @@ def test_head_dim_192_matches_pallas(B, H, Tq, Tk, masked, lens, rate):
     kv = None if lens is None else np.asarray(lens, np.int32)
     want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0x5EEDF00D)
     got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0x5EEDF00D)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        atol = TOL["atol"] * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=TOL["rtol"], atol=atol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("D", [50, 60, 256])
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", [
+    (2, 2, 130, 130, True, None, 0.0),          # causal, as the memory's
+    (2, 2, 130, 130, True, None, 0.1),          # with attention dropout
+    (2, 2, 63, 65, True, (65, 30), 0.1),        # band offset 2, kv_lens
+    (2, 2, 129, 65, False, (65, 1), 0.0),       # one visible key
+    (2, 2, 65, 65, True, (0, 40), 0.1),         # kv_len 0 under the band
+])
+def test_memory_head_dims_match_pallas(D, B, H, Tq, Tk, masked, lens, rate):
+    """head_dim 50, 60 and 256 (mmtrvpa's 2E-wide memory encoders at
+    iemocap's, at cmu-mosei's, counseling's and cmu-mosi's, and at mmimdb's
+    widths) over two heads of distinct values: the forward and backward
+    against bpx, causal at rate 0 and 0.1 and at tile edges with kv_lens
+    (one 0); the tolerance of ``test_head_dim_128_matches_pallas``."""
+    q, k, v = _inputs(B, H, Tq, Tk, D, seed=18)
+    dout = np.random.RandomState(19).randn(B, H, Tq, D).astype(np.float32)
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    want = _bpx_fwd_vjp(q, k, v, dout, masked, kv, rate, 0x50602560)
+    got = _port_fwd_bwd(q, k, v, dout, masked, kv, rate, 0x50602560)
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         atol = TOL["atol"] * max(1.0, float(np.abs(w).max()))
         np.testing.assert_allclose(g, w, rtol=TOL["rtol"], atol=atol,

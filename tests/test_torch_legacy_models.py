@@ -173,18 +173,20 @@ def test_legacy_structure():
 def test_legacy_checks_follow_bpx():
     """tmmtrvpa needs num_vectors_a == num_vectors_v and refuses
     group_encoders, as bpx does; hybrid and MAG, which bpx's notebook-era
-    classes ignore, raise."""
+    classes ignore, are ignored (the same parameters as without, a warning
+    logged)."""
     _, exp, _ = legacy("tmmtrvpa")
     m = exp.model
     with pytest.raises(ValueError, match="num_vectors_a"):
         get_model(m.replace(num_vectors_v=8), device="meta")
     with pytest.raises(ValueError, match="group_encoders"):
         get_model(m.replace(group_encoders=True), device="meta")
+    shapes = lambda model: {n: p.shape for n, p in model.named_parameters()}
     for name in ("mmtrvpa", "gmu", "bertclf"):
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            get_model(m.replace(model=name, hybrid=True), device="meta")
-        with pytest.raises(ValueError, match="mag"):
-            get_model(m.replace(model=name, fusion="mag"), device="meta")
+        plain = shapes(get_model(m.replace(model=name), device="meta"))
+        for option in (dict(hybrid=True), dict(fusion="mag")):
+            assert shapes(get_model(m.replace(model=name, **option),
+                                    device="meta")) == plain
     # lonly / vonly / aonly bind the BPMulT models only
     get_model(m.replace(model="mmtrvpa", lonly=False), device="meta")
 

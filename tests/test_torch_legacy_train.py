@@ -74,7 +74,10 @@ def test_legacy_calls_per_forward(name, monkeypatch):
     checks on the card: mmtrvpa 48 flash calls (12 BERT, 24 crossmodal,
     12 memory at head_dim 192), 32 with dropout, 130 / 154 LayerNorms;
     tmmtrvpa 60, 28, 181 / 229; the GMU classifiers and bertclf 12, 12,
-    25 / 25."""
+    25 / 25.  mmtrvpa at the other presets (only ``model`` changed): 84
+    flash calls, 52 with dropout, 226 / 274 LayerNorms at iemocap and
+    cmu-mosei (8 layers), 57, 37, 154 / 184 at counseling and cmu-mosi (5),
+    48, 32, 130 / 154 at mmimdb (4)."""
     jexp = legacy_experiment(name)
     exp = config_from_dict(dataclasses.asdict(jexp))
     model = get_model(exp.model, device="cpu", seed=3)
@@ -94,6 +97,16 @@ def test_legacy_calls_per_forward(name, monkeypatch):
             "tmmtrvpa": ((181, 60, 0), (229, 60, 28))}.get(
                 name, ((25, 12, 0), (25, 12, 12)))
     assert (expected_calls(full, False), expected_calls(full, True)) == want
+    if name == "mmtrvpa":
+        at = {p: tuple(expected_calls(get_preset(p).model.replace(
+            model=name), training) for training in (False, True))
+            for p in ("iemocap", "cmu-mosei", "counseling", "cmu-mosi",
+                      "mmimdb")}
+        eight = ((226, 84, 0), (274, 84, 52))
+        five = ((154, 57, 0), (184, 57, 37))
+        assert at == {"iemocap": eight, "cmu-mosei": eight,
+                      "counseling": five, "cmu-mosi": five,
+                      "mmimdb": ((130, 48, 0), (154, 48, 32))}
 
 
 @pytest.mark.parametrize("name", ["mmtrvpa", "tmmtrvpa", "gmu_hier"])

@@ -159,10 +159,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_models_and_options_raise():
-    """Every registry name builds; an option not ported with a model
-    (``hybrid`` with a notebook-era one) raises; ``hybrid`` and
-    ``group_encoders`` are ported on BPMulT and refuse only what the JAX
-    package refuses."""
+    """Every registry name builds; the notebook-era models take ``hybrid``
+    and ``fusion="mag"`` and ignore them, as the JAX package's do (the same
+    parameters as without); ``hybrid`` and ``group_encoders`` are ported on
+    BPMulT and refuse only what the JAX package refuses."""
     from bpx_torch.models import MODELS, get_model
     m = tconfig.get_preset("synthetic-tiny").model
     assert sorted(MODELS) == sorted(jmodels.MODELS)
@@ -170,8 +170,11 @@ def test_unported_models_and_options_raise():
     for name in MODELS:
         get_model((vat if name == "mmtrvat" else m).replace(model=name),
                   device="meta")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(m.replace(model="mmtrvpa", hybrid=True), device="cpu")
+    names = lambda model: [n for n, _ in model.named_parameters()]
+    plain = names(get_model(m.replace(model="mmtrvpa"), device="meta"))
+    for option in (dict(hybrid=True), dict(fusion="mag")):
+        assert names(get_model(m.replace(model="mmtrvpa", **option),
+                               device="cpu")) == plain
     for cfg in (m, vat):
         get_model(cfg.replace(group_encoders=True, hybrid=True),
                   device="meta")
