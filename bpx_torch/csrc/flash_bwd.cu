@@ -121,7 +121,7 @@
 //
 // D = 192 (mmtrvpa's 2E-wide memory encoders at moviescope's widths: 1536 /
 // 8) has kernels of its own (flash_bwd_colsplit_*), launched as at D 64/96
-// (delta, dK/dV, dQ; at 256 with dK/dV split in two, below).  A thread of
+// (delta, dK/dV, dQ).  A thread of
 // the D 128 dK/dV kernel would hold dK and dV at 96 + 96 fp32 beside S^T
 // and dP^T and spill, so both kernels
 // run two warpgroups a block that split the columns: each computes the
@@ -142,14 +142,37 @@
 // reads 2-byte columns, and dQ, dK and dV are stored up to column D, since
 // the next head's values sit past it.
 //
-// D = 256 (mmtrvpa's memory encoders at mmimdb's widths: 1536 / 6) runs the
-// column-split kernels with 2 stages (a 64 x 256 tile is 32 KB; three
-// stages would not fit).  Half of dK beside half of dV would be 128 fp32 a
-// thread beside S^T and dP^T and spill, so dK and dV take a launch each
-// (flash_bwd_colsplit_dv_kernel, then flash_bwd_colsplit_dk_kernel), each
-// warpgroup 128 columns of one of them, S^T computed in both; the dV launch
-// needs neither dP^T nor V nor delta.  Four launches a backward (delta, dV,
-// dK, dQ).  A kernel that is right first.
+// D = 256 (mmtrvpa's memory encoders at mmimdb's widths: 1536 / 6) has
+// kernels of its own, two launches a backward as at D 128, both grids
+// longest blocks first, two warpgroups a block that split each tile step's
+// scores, so that no product is computed twice:
+//   * dQ first (flash_bwd_keysplit_dq_kernel), one block per (batch*head,
+//     64-query tile) with Q and dO resident, K and V through 2 stages (a
+//     64 x 256 tile is 32 KB; 217 KB in all), delta for its rows from O
+//     staged in the stage the prologue leaves empty; warpgroup w takes keys
+//     32 w .. 32 w + 31 of each key tile: S, dP, P, dropout and dS for them,
+//     its half of a bf16 dS tile in shared memory, then dQ += dS K over its
+//     128 columns (A and B from shared memory); 156 registers;
+//   * dK/dV second (flash_bwd_rowsplit_dkdv_kernel), its programmatic
+//     dependent, one block per (batch*head, 64-key tile): K and V resident,
+//     2 stages of Q, dO, lse and delta (211 KB); warpgroup w takes queries
+//     32 w .. 32 w + 31 of each query tile: S^T, dP^T, P^T and dS^T for
+//     them, its halves of bf16 P^T and dS^T tiles, then dV += P^T dO and
+//     dK += dS^T Q over its 128 columns; 209 registers.
+// Per (key tile, query tile) the tensor cores run S, dP, dQ, S^T, dP^T, dV
+// and dK once each (7 products of 64 x 64 x 256) where the first design's
+// four launches (delta; dV, dK and dQ over columns split as at D 192) ran
+// 13 (0.2360 / 0.2701 ms below).
+// Measured on an H100 at mmimdb's (8, 6, 512, 512) causal class (PERF.md,
+// scripts/torch_flash_bwd_narrow.py), rate 0 / 0.1, all in one call: these
+// kernels 0.1278 / 0.1365 ms.  The warpgroups split by product instead
+// (one computing S and P and handing P through shared memory with its
+// keep bit in the sign, the other dP and dS; in dK/dV one S^T, P^T and
+// dV, the other dP^T, dS^T and dK, P^T through a slot on named barriers,
+// the stages on mbarriers; 169 / 236 registers) read 0.1313 / 0.1532, and
+// that dQ kernel beside this dK/dV kernel 0.1325 / 0.1476: split by
+// product, one warpgroup waits every step on the other's softmax and
+// dropout hash, which the split by keys or rows shares out.
 //
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
 // against q, k, v, dO, o read and dq, dk, dv written once; at the model's
@@ -1440,51 +1463,38 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
 
 constexpr int kColsplitThreads = 2 * kThreads;  // two warpgroups a block
 
-// Streamed tiles in flight: 3, and 2 at D = 256, where a third stage would
-// not fit a block's shared memory.
-template <int D>
-__host__ __device__ constexpr int colsplit_stages() {
-  return padded_dim<D>() > 192 ? 2 : 3;
-}
+constexpr int kColsplitStages = 3;   // streamed tiles in flight
 
-// K and V resident, colsplit_stages x (Q, dO, lse, delta); +1 KB.
+// K and V resident, kColsplitStages x (Q, dO, lse, delta); +1 KB.
 template <int D>
 __host__ __device__ constexpr int colsplit_dkdv_smem_bytes() {
-  return 2 * tile_bytes<D>() + colsplit_stages<D>() * dkdv_stage_bytes<D>() +
+  return 2 * tile_bytes<D>() + kColsplitStages * dkdv_stage_bytes<D>() +
          1024;
 }
 
-// Q and dO resident, colsplit_stages x (K, V); +1 KB.
+// Q and dO resident, kColsplitStages x (K, V); +1 KB.
 template <int D>
 __host__ __device__ constexpr int colsplit_dq_smem_bytes() {
-  return (2 + 2 * colsplit_stages<D>()) * tile_bytes<D>() + 1024;
+  return (2 + 2 * kColsplitStages) * tile_bytes<D>() + 1024;
 }
 
-// What a column-split dK/dV launch accumulates: dK and dV (D = 192), or, at
-// D = 256, where a thread holding half of dK beside half of dV would spill,
-// dV in one launch and dK in a second.
-enum ColsplitPart { kDkAndDv, kDvOnly, kDkOnly };
-
-// One (batch*head, 64-key tile): dK and dV (Part), warpgroup w their
-// columns DP/2 w .. DP/2 w + DP/2 - 1.  Both warpgroups compute the whole
-// S^T = K Q^T (and, for dK, dP^T = V dO^T) of each query tile (the
-// reduction runs over every column), then dV += P^T dO and dK += dS^T Q
-// over their half of the columns (m64n96k16 at D 192, m64n128k16 at 256; B
-// MN-major from the half's first panel); nothing is exchanged and each
-// stores its own columns.  Warpgroup 0 loads K and each stage's Q and lse,
-// warpgroup 1 V, dO and delta (a dV-only launch neither V nor delta); one
-// block barrier a step.
-template <int D, bool Groups, int Part>
-__device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
-  constexpr bool kDv = Part != kDkOnly;
-  constexpr bool kDk = Part != kDvOnly;
+// One (batch*head, 64-key tile): dK and dV, warpgroup w their columns DP/2
+// w .. DP/2 w + DP/2 - 1.  Both warpgroups compute the whole S^T = K Q^T
+// and dP^T = V dO^T of each query tile (the reduction runs over every
+// column), then dV += P^T dO and dK += dS^T Q over their half of the
+// columns (m64n96k16; B MN-major from the half's first panel); nothing is
+// exchanged and each stores its own columns.  Warpgroup 0 loads K and each
+// stage's Q and lse, warpgroup 1 V, dO and delta; one block barrier a step.
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kColsplitThreads, 1)
+flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
   constexpr int DH = DP / 2;   // columns of dK and dV a warpgroup takes
   static_assert(DH % 32 == 0, "whole panels a warpgroup");
   constexpr int kTile = tile_bytes<D>();
   constexpr int kStage = dkdv_stage_bytes<D>();
   constexpr int kKSteps = DP / 16;
-  constexpr int kStages = colsplit_stages<D>();
+  constexpr int kStages = kColsplitStages;
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -1514,8 +1524,7 @@ __device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float* dl_b = p.delta + (long long)bh * Tq;
 
-  // a part's unused accumulator is one register, never read
-  float dk[kDk ? DH / 2 : 1], dv[kDv ? DH / 2 : 1], st[32], dpt[32];
+  float dk[DH / 2], dv[DH / 2], st[32], dpt[32];
   zero(dk);
   zero(dv);
   zero(st);
@@ -1534,7 +1543,7 @@ __device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
     const uint32_t dst = stage0 + (i % kStages) * kStage;
     load_tile_by<D>(tid, dst + wg * kTile, wg == 0 ? qb : ob,
                     wg == 0 ? p.q_st : p.o_st, q0, Tq);
-    if (tid < kRows && (kDk || wg == 0)) {
+    if (tid < kRows) {
       const bool ok = q0 + tid < Tq;
       const float* src = wg == 0 ? lse_b : dl_b;
       cp_async_4(dst + 2 * kTile + wg * 4 * kRows + tid * 4,
@@ -1542,7 +1551,7 @@ __device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
     }
   };
 
-  if (n_tiles > 0 && (kDk || wg == 0)) {
+  if (n_tiles > 0) {
     load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
                     wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
                             : p.v + b * p.v_sb + h * p.v_sh,
@@ -1568,18 +1577,16 @@ __device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
         reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
     const float* dl_s = lse_s + kRows;
 
-    // S^T = K Q^T and (for dK) dP^T = V dO^T: 64 keys x 64 queries
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
       wgmma_ss<64>(st, desc_k_major(k_s, kk), desc_k_major(q_s, kk), kk > 0);
     }
-    if constexpr (kDk) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
-                     kk > 0);
-      }
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
+                   kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1617,27 +1624,23 @@ __device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
         pdr = kept ? pr * p.drop.inv_keep : 0.f;
         dpr = kept ? dpr * p.drop.inv_keep : 0.f;
       }
-      if constexpr (kDk) dpt[i2] = pr * (dpr - dl_s[qi]);
+      dpt[i2] = pr * (dpr - dl_s[qi]);
       st[i2] = pdr;
     }
 
     // dV += P^T dO and dK += dS^T Q over this warpgroup's columns, A from
     // registers, B MN-major
     uint32_t pa[4][4], da[4][4];
-    if constexpr (kDv) p_frags(pa, st);
-    if constexpr (kDk) p_frags(da, dpt);
+    p_frags(pa, st);
+    p_frags(da, dpt);
     wgmma_fence();
-    if constexpr (kDv) {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        wgmma_rs_mn<DH>(dv, pa[kc], desc_mn_major(o_s + half, kc));
-      }
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DH>(dv, pa[kc], desc_mn_major(o_s + half, kc));
     }
-    if constexpr (kDk) {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        wgmma_rs_mn<DH>(dk, da[kc], desc_mn_major(q_s + half, kc));
-      }
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DH>(dk, da[kc], desc_mn_major(q_s + half, kc));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1646,34 +1649,10 @@ __device__ __forceinline__ void colsplit_dkdv(const BwdParams& p) {
   }
   cp_async_wait<0>();
 
-  if constexpr (kDk) {
-    store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
-                   Tk, dk, t4);
-  }
-  if constexpr (kDv) {
-    store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
-                   Tk, dv, t4);
-  }
-}
-
-// dK and dV in one launch (D = 192).
-template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kColsplitThreads, 1)
-flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
-  colsplit_dkdv<D, Groups, kDkAndDv>(p);
-}
-
-// dV alone, then dK alone (D = 256).
-template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kColsplitThreads, 1)
-flash_bwd_colsplit_dv_kernel(const BwdParams p) {
-  colsplit_dkdv<D, Groups, kDvOnly>(p);
-}
-
-template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kColsplitThreads, 1)
-flash_bwd_colsplit_dk_kernel(const BwdParams p) {
-  colsplit_dkdv<D, Groups, kDkOnly>(p);
+  store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
+                 Tk, dk, t4);
+  store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
+                 Tk, dv, t4);
 }
 
 // One (batch*head, 64-query tile): dQ, warpgroup w its columns DP/2 w ..
@@ -1686,7 +1665,7 @@ flash_bwd_colsplit_dq_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
   constexpr int DH = DP / 2;   // columns of dQ a warpgroup takes
   static_assert(DH % 32 == 0, "whole panels a warpgroup");
-  constexpr int kStages = colsplit_stages<D>();
+  constexpr int kStages = kColsplitStages;
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;
   extern __shared__ unsigned char smem[];
@@ -1823,6 +1802,441 @@ flash_bwd_colsplit_dq_kernel(const BwdParams p) {
                  Tq, dq, t4);
 }
 
+// ---------------------------------------------------------------------------
+// D = 256: dQ with delta, then dK/dV, each tile step's scores split
+// between two warpgroups (the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitThreads = 2 * kThreads;  // two warpgroups a block
+constexpr int kSplitStages = 2;              // streamed tiles in flight
+constexpr int kScoreTileBytes = 2 * kPanelBytes;  // a 64 x 64 bf16 tile
+
+__device__ __forceinline__ void st_shared_b32(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
+}
+
+// K and V resident, kSplitStages x (Q, dO, lse, delta), the P^T and dS^T
+// tiles; +1 KB.
+template <int D>
+__host__ __device__ constexpr int rowsplit_dkdv_smem_bytes() {
+  return 2 * tile_bytes<D>() + kSplitStages * dkdv_stage_bytes<D>() +
+         2 * kScoreTileBytes + 1024;
+}
+
+// One (batch*head, 64-key tile): dK and dV, the warpgroups split by query
+// rows.  K and V resident, every thread copying its share of each stage of
+// Q, dO, lse and delta.  Warpgroup w computes S^T and dP^T for queries
+// 32 w .. 32 w + 31 of each query tile (m64n32k16), P^T (dropped) and dS^T
+// for them, and writes them as panel w of two bf16 64 x 64 tiles; after a
+// block barrier it adds P^T dO and dS^T Q to its 128 columns of dV and dK
+// (m64n128k16, A and B from shared memory).  Per query tile the tensor
+// cores run S^T, dP^T, dV and dK once each; two block barriers a step.
+// Batch*head along x, key tiles along y (key tile 0, the most query tiles
+// of a causal band, first).  Launched dependent on the dQ kernel: K and V
+// load before it ends, delta after.
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+flash_bwd_rowsplit_dkdv_kernel(const BwdParams p) {
+  constexpr int DP = padded_dim<D>();
+  constexpr int DH = DP / 2;      // columns of dK and dV a warpgroup takes
+  constexpr int QN = kRows / 2;   // queries of a tile a warpgroup takes
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kStage = dkdv_stage_bytes<D>();
+  constexpr int kKSteps = DP / 16;
+  constexpr int kSt = kSplitStages;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t stage0 = v_s + kTile;   // stage s: Q, dO, lse, delta
+  const uint32_t pt_s = stage0 + kSt * kStage;   // P^T dropped, keys x queries
+  const uint32_t dst_s = pt_s + kScoreTileBytes;  // dS^T
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
+  const int k0 = blockIdx.y * kRows;
+  const int wg = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
+  const uint32_t half = wg * (DH / 32) * kPanelBytes;   // its first panel
+
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float* dl_b = p.delta + (long long)bh * Tq;
+  const int q_begin = p.masked ? max(0, k0 - p.offset) / kRows : 0;
+  const int q_end = k0 >= kv_len ? 0 : (Tq + kRows - 1) / kRows;
+  const int n_tiles = max(0, q_end - q_begin);
+
+  const TallCopier<D> q_copy(p.q + b * p.q_sb + h * p.q_sh, p.q_st,
+                             threadIdx.x);
+  const TallCopier<D> o_copy(p.dout + b * p.o_sb + h * p.o_sh, p.o_st,
+                             threadIdx.x);
+  // query tile q_begin + i goes to ring stage i mod kSt: Q, dO, lse, delta
+  auto load_stage = [&](int i) {
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t dst = stage0 + (i % kSt) * kStage;
+    q_copy.copy(dst, q0, Tq);
+    o_copy.copy(dst + kTile, q0, Tq);
+    if (threadIdx.x < 2 * kRows) {
+      const int r = threadIdx.x % kRows;
+      const bool ok = q0 + r < Tq;
+      const float* src = threadIdx.x < kRows ? lse_b : dl_b;
+      cp_async_4(dst + 2 * kTile + threadIdx.x * 4, ok ? src + q0 + r : src,
+                 ok);
+    }
+  };
+
+  if (n_tiles > 0) {
+    // K by warpgroup 0, V by warpgroup 1
+    load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
+                    wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                            : p.v + b * p.v_sb + h * p.v_sh,
+                    wg == 0 ? p.k_st : p.v_st, k0, Tk);
+    // delta: written by the dQ kernel, which this launch may overlap
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < kSt - 1; ++i) {
+    if (i < n_tiles) load_stage(i);
+    cp_async_commit();
+  }
+
+  float dk[DH / 2], dv[DH / 2], st[QN / 2], dpt[QN / 2];
+  zero(dk);
+  zero(dv);
+  zero(st);
+  zero(dpt);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kSt - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (i + kSt - 1 < n_tiles) load_stage(i + kSt - 1);
+    cp_async_commit();
+
+    const int q0 = (q_begin + i) * kRows;
+    const uint32_t q_s = stage0 + (i % kSt) * kStage;
+    const uint32_t o_s = q_s + kTile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
+    const float* dl_s = lse_s + kRows;
+    const uint32_t qh = wg * QN * 64;   // the warpgroup's rows in a panel
+
+    // S^T and dP^T: 64 keys x this warpgroup's 32 queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<QN>(st, desc_k_major(k_s, kk), desc_k_major(q_s + qh, kk),
+                   kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<QN>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s + qh, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+#pragma unroll
+    for (int i2 = 0; i2 < QN / 2; ++i2) {
+      const int qi = wg * QN + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+      st[i2] = ex2(fmaf(st[i2], kLog2e, -lse_s[qi] * kLog2e));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i2 = 0; i2 < QN / 2; ++i2) {
+        const int row = q0 + wg * QN + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+        const int col = (i2 & 2) ? key0 + 8 : key0;
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          st[i2] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < QN / 2; ++i2) {
+      const int qi = wg * QN + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
+      const int row = q0 + qi;
+      const int col = (i2 & 2) ? key0 + 8 : key0;
+      const float pr = st[i2];
+      float dpr = dpt[i2];
+      float pdr = pr;
+      if (p.drop.on) {
+        const bool kept = p.drop.keep<Groups>(dblk, row, col);
+        pdr = kept ? pr * p.drop.inv_keep : 0.f;
+        dpr = kept ? dpr * p.drop.inv_keep : 0.f;
+      }
+      dpt[i2] = pr * (dpr - dl_s[qi]);
+      st[i2] = pdr;
+    }
+    // this warpgroup's 32 query columns (panel wg) of P^T and dS^T
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const int r = warp * 16 + g;
+      const uint32_t at = (c % 8) * 2;
+      st_shared_b32(pt_s + at + tile_offset(r, wg, c / 8),
+                    pack_bf16x2(st[4 * j], st[4 * j + 1]));
+      st_shared_b32(pt_s + at + tile_offset(r + 8, wg, c / 8),
+                    pack_bf16x2(st[4 * j + 2], st[4 * j + 3]));
+      st_shared_b32(dst_s + at + tile_offset(r, wg, c / 8),
+                    pack_bf16x2(dpt[4 * j], dpt[4 * j + 1]));
+      st_shared_b32(dst_s + at + tile_offset(r + 8, wg, c / 8),
+                    pack_bf16x2(dpt[4 * j + 2], dpt[4 * j + 3]));
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's columns
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wgmma_ss_mn<DH>(dv, desc_k_major(pt_s, kk),
+                      desc_mn_major(o_s + half, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wgmma_ss_mn<DH>(dk, desc_k_major(dst_s, kk),
+                      desc_mn_major(q_s + half, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+  }
+  cp_async_wait<0>();
+
+  store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
+                 Tk, dk, t4);
+  store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
+                 Tk, dv, t4);
+}
+
+// Q and dO resident, kSplitStages x (K, V), the dS tile; +1 KB.  O, for
+// delta, goes into the second stage's K tile before the loop loads it.
+template <int D>
+__host__ __device__ constexpr int keysplit_dq_smem_bytes() {
+  return (2 + 2 * kSplitStages) * tile_bytes<D>() + kScoreTileBytes + 1024;
+}
+
+// One (batch*head, 64-query tile): delta = rowsum(dO * O) of its rows into
+// the workspace (from one read of O, beside the resident dO), and dQ, the
+// warpgroups split by keys.  Warpgroup w computes S and dP for keys 32 w ..
+// 32 w + 31 of each key tile (m64n32k16), then P, its dropout and dS for
+// them, and writes them as panel w of a bf16 64 x 64 dS tile; after a
+// block barrier each adds dS K to its 128 columns of dQ (m64n128k16, A and
+// B from shared memory).  Per key tile the tensor cores run S, dP and dQ
+// once each; two block barriers a step.  Batch*head along x; query tiles
+// along y, last first, so the blocks with the most key tiles of a causal
+// band start first.
+template <int D, bool Groups = false>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
+                             long long o_sb, long long o_sh, long long o_st,
+                             float* delta) {
+  constexpr int DP = padded_dim<D>();
+  constexpr int DH = DP / 2;     // columns of dQ a warpgroup takes
+  constexpr int KN = kRows / 2;  // keys of a tile a warpgroup takes
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kKSteps = DP / 16;
+  extern __shared__ unsigned char smem[];
+  __shared__ float dl_s[kRows];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t q_s = (raw + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kTile;
+  const uint32_t kv_s = do_s + kTile;   // stage s: K at + 2 s kTile, V after
+  const uint32_t ds_s = kv_s + 2 * kSplitStages * kTile;
+  const uint32_t out_s = kv_s + 2 * kTile;   // the second stage's K tile
+
+  // the dK/dV kernel after this one may start its blocks while the last of
+  // these run: it waits for all of them before it reads delta
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  // this block's dropout hash values: its seed and its index in its group
+  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int wg = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
+  const int kv_end = min(Tk, kv_len);
+  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
+  const uint32_t kh = wg * KN * 64;      // the warpgroup's keys in a panel
+
+  // key tiles with a visible key: none past kv_len, none above the band
+  int n_tiles = (max(kv_end, 0) + kRows - 1) / kRows;
+  if (p.masked) {
+    n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
+  }
+  const TallCopier<D> k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st,
+                             threadIdx.x);
+  const TallCopier<D> v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st,
+                             threadIdx.x);
+  // key tile t goes to ring stage t mod kSplitStages
+  auto load_kv = [&](int t) {
+    const uint32_t dst = kv_s + 2 * (t % kSplitStages) * kTile;
+    k_copy.copy(dst, t * kRows, Tk);
+    v_copy.copy(dst + kTile, t * kRows, Tk);
+  };
+  // Q, dO and O (for delta, even where no key is visible), key tile 0
+  TallCopier<D>(p.q + b * p.q_sb + h * p.q_sh, p.q_st, threadIdx.x)
+      .copy(q_s, q0, Tq);
+  TallCopier<D>(p.dout + b * p.o_sb + h * p.o_sh, p.o_st, threadIdx.x)
+      .copy(do_s, q0, Tq);
+  TallCopier<D>(o + b * o_sb + h * o_sh, o_st, threadIdx.x)
+      .copy(out_s, q0, Tq);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  const float* lse_b = p.lse + (long long)bh * Tq;
+  const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
+  const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
+  // delta: thread 4 r + c sums columns 64 c .. 64 c + 63 of row r in fp32,
+  // the four threads of a row add theirs in a fixed order; rows past Tq
+  // (zero-filled) give 0 and are not written
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    const int r = threadIdx.x / 4;
+    const int c = threadIdx.x % 4;
+    float sum = 0.f;
+#pragma unroll
+    for (int pc = 0; pc < DP / 32; ++pc) {   // 16-byte chunks of a quarter
+      const int chunk = c * (DP / 32) + pc;
+      const uint32_t off = tile_offset(r, chunk / 4, chunk % 4);
+      const uint4 x = ld_shared_v4(do_s + off);
+      const uint4 y = ld_shared_v4(out_s + off);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // a bf16 is a float's high half
+        sum = fmaf(__uint_as_float(xs[j] << 16), __uint_as_float(ys[j] << 16),
+                   sum);
+        sum = fmaf(__uint_as_float(xs[j] & 0xFFFF0000u),
+                   __uint_as_float(ys[j] & 0xFFFF0000u), sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (c == 0) {
+      dl_s[r] = sum;
+      if (q0 + r < Tq) delta[(long long)bh * Tq + q0 + r] = sum;
+    }
+  }
+  __syncthreads();
+  const float dl0 = dl_s[warp * 16 + g];
+  const float dl1 = dl_s[warp * 16 + g + 8];
+
+  float dq[DH / 2], s[KN / 2], dp[KN / 2];
+  zero(dq);
+  zero(s);
+  zero(dp);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    // key tile kt has landed; every thread is done with tile kt - 1
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < n_tiles) load_kv(kt + 1);
+    cp_async_commit();
+    const uint32_t k_s = kv_s + 2 * (kt % kSplitStages) * kTile;
+    const uint32_t v_s = k_s + kTile;
+    const int k0 = kt * kRows;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x this warpgroup's 32 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<KN>(s, desc_k_major(q_s, kk), desc_k_major(k_s + kh, kk),
+                   kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      wgmma_ss<KN>(dp, desc_k_major(do_s, kk), desc_k_major(v_s + kh, kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) {
+      s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? lsel1 : lsel0)));
+    }
+    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
+#pragma unroll
+      for (int i = 0; i < KN / 2; ++i) {
+        const int row = (i & 2) ? row0 + 8 : row0;
+        const int col = k0 + wg * KN + (i / 4) * 8 + 2 * t4 + (i & 1);
+        if (!(row < Tq && col < kv_end &&
+              (!p.masked || col <= row + p.offset))) {
+          s[i] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) {
+      const int hi = i & 2;
+      const int row = hi ? row0 + 8 : row0;
+      const int col = k0 + wg * KN + (i / 4) * 8 + 2 * t4 + (i & 1);
+      float dpr = dp[i];
+      if (p.drop.on) {
+        dpr = p.drop.keep<Groups>(dblk, row, col) ? dpr * p.drop.inv_keep : 0.f;
+      }
+      s[i] = s[i] * (dpr - (hi ? dl1 : dl0));   // dS
+    }
+    // this warpgroup's 32 key columns (panel wg) of the dS tile
+#pragma unroll
+    for (int j = 0; j < KN / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const int r = warp * 16 + g;
+      const uint32_t at = ds_s + (c % 8) * 2;
+      st_shared_b32(at + tile_offset(r, wg, c / 8),
+                    pack_bf16x2(s[4 * j], s[4 * j + 1]));
+      st_shared_b32(at + tile_offset(r + 8, wg, c / 8),
+                    pack_bf16x2(s[4 * j + 2], s[4 * j + 3]));
+    }
+    fence_proxy_async();
+    __syncthreads();   // dS
+
+    // dQ += dS K over this warpgroup's columns, B MN-major from its half of
+    // K's panels
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wgmma_ss_mn<DH>(dq, desc_k_major(ds_s, kk),
+                      desc_mn_major(k_s + wg * (DH / 32) * kPanelBytes, kk),
+                      1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+  }
+  cp_async_wait<0>();
+
+  store_rows<DH>(p.dq + b * p.dq_sb + h * p.dq_sh + wg * DH, p.dq_st, row0,
+                 Tq, dq, t4);
+}
+
 template <int D>
 cudaError_t launch_delta(const __nv_bfloat16* o, const __nv_bfloat16* dout,
                          float* delta, int B, int H, int T, long long o_sb,
@@ -1858,13 +2272,13 @@ cudaError_t launch(const BwdParams& p, const __nv_bfloat16* o, long long o_sb,
   return cudaGetLastError();
 }
 
-// A backward of two launches: `dq` (128 threads, which fills delta) on a
-// (batch*head, query tiles) grid, then `dkdv` on a (batch*head, key tiles)
-// grid as its programmatic dependent (its blocks may start as the dQ
-// kernel's last ones run; it waits for them before it reads delta).
+// A backward of two launches: `dq` (dq_threads threads, which fills delta)
+// on a (batch*head, query tiles) grid, then `dkdv` on a (batch*head, key
+// tiles) grid as its programmatic dependent (its blocks may start as the
+// dQ kernel's last ones run; it waits for them before it reads delta).
 template <typename DqKernel, typename DkdvKernel>
-cudaError_t launch_dq_then_dkdv(DqKernel dq, int dq_bytes, bool& dq_set,
-                                DkdvKernel dkdv, int dkdv_bytes,
+cudaError_t launch_dq_then_dkdv(DqKernel dq, int dq_bytes, int dq_threads,
+                                bool& dq_set, DkdvKernel dkdv, int dkdv_bytes,
                                 int dkdv_threads, bool& dkdv_set,
                                 const BwdParams& p, const __nv_bfloat16* o,
                                 long long o_sb, long long o_sh,
@@ -1875,8 +2289,8 @@ cudaError_t launch_dq_then_dkdv(DqKernel dq, int dq_bytes, bool& dq_set,
   if (err != cudaSuccess) return err;
   const int bh = p.B * p.H;
   const dim3 grid_q(bh, (p.Tq + kRows - 1) / kRows);
-  dq<<<grid_q, kThreads, dq_bytes, s>>>(p, o, o_sb, o_sh, o_st,
-                                        const_cast<float*>(p.delta));
+  dq<<<grid_q, dq_threads, dq_bytes, s>>>(p, o, o_sb, o_sh, o_st,
+                                          const_cast<float*>(p.delta));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -1900,7 +2314,7 @@ cudaError_t launch_narrow(const BwdParams& p, const __nv_bfloat16* o,
   static bool smem_dkdv = false, smem_dq = false;
   return launch_dq_then_dkdv(
       flash_bwd_narrow_dq_kernel<D, Groups>, narrow_dq_smem_bytes<D>(),
-      smem_dq, flash_bwd_narrow_dkdv_kernel<D, Groups>,
+      kThreads, smem_dq, flash_bwd_narrow_dkdv_kernel<D, Groups>,
       narrow_dkdv_smem_bytes<D>(), kThreads, smem_dkdv, p, o, o_sb, o_sh,
       o_st, s);
 }
@@ -1912,56 +2326,47 @@ cudaError_t launch_wide(const BwdParams& p, const __nv_bfloat16* o,
                         cudaStream_t s) {
   static bool smem_dkdv = false, smem_dq = false;
   return launch_dq_then_dkdv(
-      flash_bwd_wide_dq_kernel<D, Groups>, dq_smem_bytes<D>(), smem_dq,
-      flash_bwd_wide_dkdv_kernel<D, Groups>, wide_dkdv_smem_bytes<D>(),
+      flash_bwd_wide_dq_kernel<D, Groups>, dq_smem_bytes<D>(), kThreads,
+      smem_dq, flash_bwd_wide_dkdv_kernel<D, Groups>,
+      wide_dkdv_smem_bytes<D>(),
       kWideThreads, smem_dkdv, p, o, o_sb, o_sh, o_st, s);
 }
 
-// The column-split dK/dV launches of D: one kernel at 192, the dV then the
-// dK kernel at 256.
+// The backward at D = 256: the dQ kernel with delta, then the dK/dV kernel.
 template <int D, bool Groups>
-cudaError_t launch_colsplit_dkdv(const BwdParams& p, cudaStream_t s) {
-  constexpr int bytes = colsplit_dkdv_smem_bytes<D>();
-  const dim3 grid((p.Tk + kRows - 1) / kRows, p.B * p.H);
-  if constexpr (padded_dim<D>() > 192) {
-    static bool smem_dv = false, smem_dk = false;
-    cudaError_t err =
-        allow_smem(flash_bwd_colsplit_dv_kernel<D, Groups>, bytes, smem_dv);
-    if (err != cudaSuccess) return err;
-    err = allow_smem(flash_bwd_colsplit_dk_kernel<D, Groups>, bytes, smem_dk);
-    if (err != cudaSuccess) return err;
-    flash_bwd_colsplit_dv_kernel<D, Groups>
-        <<<grid, kColsplitThreads, bytes, s>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_colsplit_dk_kernel<D, Groups>
-        <<<grid, kColsplitThreads, bytes, s>>>(p);
-  } else {
-    static bool smem_dkdv = false;
-    cudaError_t err = allow_smem(flash_bwd_colsplit_dkdv_kernel<D, Groups>,
-                                 bytes, smem_dkdv);
-    if (err != cudaSuccess) return err;
-    flash_bwd_colsplit_dkdv_kernel<D, Groups>
-        <<<grid, kColsplitThreads, bytes, s>>>(p);
-  }
-  return cudaGetLastError();
+cudaError_t launch_split(const BwdParams& p, const __nv_bfloat16* o,
+                        long long o_sb, long long o_sh, long long o_st,
+                        cudaStream_t s) {
+  static bool smem_dkdv = false, smem_dq = false;
+  return launch_dq_then_dkdv(
+      flash_bwd_keysplit_dq_kernel<D, Groups>, keysplit_dq_smem_bytes<D>(),
+      kSplitThreads, smem_dq, flash_bwd_rowsplit_dkdv_kernel<D, Groups>,
+      rowsplit_dkdv_smem_bytes<D>(), kSplitThreads, smem_dkdv, p, o, o_sb,
+      o_sh, o_st, s);
 }
 
-// The backward at D = 192 and 256: the delta kernel, then the column-split
-// dK/dV (at 256 dV, then dK) and dQ kernels.
+// The backward at D = 192: the delta kernel, then the column-split dK/dV
+// and dQ kernels.
 template <int D, bool Groups>
 cudaError_t launch_colsplit(const BwdParams& p, const __nv_bfloat16* o,
                             long long o_sb, long long o_sh, long long o_st,
                             cudaStream_t s) {
-  static bool smem_dq = false;
+  static bool smem_dkdv = false, smem_dq = false;
+  constexpr int dkdv_bytes = colsplit_dkdv_smem_bytes<D>();
   constexpr int dq_bytes = colsplit_dq_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_colsplit_dq_kernel<D, Groups>,
-                               dq_bytes, smem_dq);
+  cudaError_t err = allow_smem(flash_bwd_colsplit_dkdv_kernel<D, Groups>,
+                               dkdv_bytes, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_colsplit_dq_kernel<D, Groups>, dq_bytes,
+                   smem_dq);
   if (err != cudaSuccess) return err;
   err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
                         p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
   if (err != cudaSuccess) return err;
-  err = launch_colsplit_dkdv<D, Groups>(p, s);
+  const dim3 grid((p.Tk + kRows - 1) / kRows, p.B * p.H);
+  flash_bwd_colsplit_dkdv_kernel<D, Groups>
+      <<<grid, kColsplitThreads, dkdv_bytes, s>>>(p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.Tq + kRows - 1) / kRows, p.B * p.H);
   flash_bwd_colsplit_dq_kernel<D, Groups>
@@ -2033,8 +2438,10 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
         return launch_narrow<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       } else if constexpr (padded_dim<kD>() == 128) {
         return launch_wide<kD, true>(p, ob, o_sb, o_sh, o_st, s);
-      } else if constexpr (padded_dim<kD>() >= 192) {
+      } else if constexpr (padded_dim<kD>() == 192) {
         return launch_colsplit<kD, true>(p, ob, o_sb, o_sh, o_st, s);
+      } else if constexpr (padded_dim<kD>() == 256) {
+        return launch_split<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       } else {
         return launch<kD, true>(p, ob, o_sb, o_sh, o_st, s);
       }
@@ -2043,8 +2450,10 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
       return launch_narrow<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else if constexpr (padded_dim<kD>() == 128) {
       return launch_wide<kD, false>(p, ob, o_sb, o_sh, o_st, s);
-    } else if constexpr (padded_dim<kD>() >= 192) {
+    } else if constexpr (padded_dim<kD>() == 192) {
       return launch_colsplit<kD, false>(p, ob, o_sb, o_sh, o_st, s);
+    } else if constexpr (padded_dim<kD>() == 256) {
+      return launch_split<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     } else {
       return launch<kD, false>(p, ob, o_sb, o_sh, o_st, s);
     }
@@ -2097,22 +2506,13 @@ int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
                                             colsplit_dq_smem_bytes<kD>(),
                                             blocks, kColsplitThreads);
     } else if constexpr (padded_dim<kD>() == 256) {
-      if (kernel == 1) {
-        return bpx_flash::blocks_per_sm(flash_bwd_colsplit_dq_kernel<kD>,
-                                        colsplit_dq_smem_bytes<kD>(), blocks,
-                                        kColsplitThreads);
-      }
-      // the fewer of the dV and the dK kernel's
-      int dv = 0;
-      cudaError_t err = bpx_flash::blocks_per_sm(
-          flash_bwd_colsplit_dv_kernel<kD>, colsplit_dkdv_smem_bytes<kD>(),
-          &dv, kColsplitThreads);
-      if (err != cudaSuccess) return err;
-      err = bpx_flash::blocks_per_sm(flash_bwd_colsplit_dk_kernel<kD>,
-                                     colsplit_dkdv_smem_bytes<kD>(), blocks,
-                                     kColsplitThreads);
-      if (dv < *blocks) *blocks = dv;
-      return err;
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(
+                       flash_bwd_rowsplit_dkdv_kernel<kD>,
+                       rowsplit_dkdv_smem_bytes<kD>(), blocks, kSplitThreads)
+                 : bpx_flash::blocks_per_sm(flash_bwd_keysplit_dq_kernel<kD>,
+                                            keysplit_dq_smem_bytes<kD>(),
+                                            blocks, kSplitThreads);
     } else {
       return kernel == 0
                  ? bpx_flash::blocks_per_sm(flash_bwd_dkdv_kernel<kD>,

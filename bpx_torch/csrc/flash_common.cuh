@@ -276,6 +276,38 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   load_tile_by<D>(threadIdx.x, dst, src, stride_t, t0, T);
 }
 
+// One thread's copies into every 64-row tile of one (batch, head) slice,
+// by the 256 threads of a two-warpgroup block (the D 192 and 256 kernels):
+// chunk t % 4 of every panel of row t / 4 (warpgroup w copies rows 32 w ..
+// 32 w + 31), the addresses worked out once.  A tile costs a 64-bit
+// offset, a row test and DP / 32 cp.async.
+template <int D>
+struct TallCopier {
+  const __nv_bfloat16* row;   // row t / 4 of the slice, column 8 c
+  const __nv_bfloat16* zero;  // row 0, column 8 c: the address of a zero fill
+  long long stride;           // elements between rows
+  uint32_t dst;               // byte offset of the first chunk in a tile
+  int r0;                     // t / 4
+
+  __device__ __forceinline__ TallCopier(const __nv_bfloat16* slice,
+                                        long long stride_t, int tid)
+      : stride(stride_t), r0(tid >> 2) {
+    zero = slice + (tid & 3) * 8;
+    row = zero + (long long)r0 * stride_t;
+    dst = tile_offset(r0, 0, tid & 3);
+  }
+
+  // rows [t0, t0 + 64) into the tile at `tile`; rows at or past T as zeros
+  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
+    const bool ok = t0 + r0 < T;
+    const __nv_bfloat16* a = ok ? row + (long long)t0 * stride : zero;
+#pragma unroll
+    for (int panel = 0; panel < padded_dim<D>() / 32; ++panel) {
+      cp_async_16(tile + dst + panel * kPanelBytes, a + panel * 32, ok);
+    }
+  }
+};
+
 // A narrow (D < 32) tile, rows [t0, t0 + 64) of a (batch, head) slice,
 // loaded in two steps so that its loads need not wait on the products of
 // the tile before: fetch() starts them, store() puts them into the tile at
@@ -435,6 +467,41 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d(64 x N, fp32) (+)= A(64 x 16) . B(16 x N), A K-major and B MN-major in
+// shared memory (descriptors a, b): the D = 256 dQ kernel's dS K, with dS
+// from shared memory (flash_bwd.cu).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

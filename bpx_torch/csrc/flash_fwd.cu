@@ -139,15 +139,24 @@
 // cut at column D, since the next head's values sit there.
 //
 // D = 256 (mmtrvpa's memory encoders at mmimdb's widths: 1536 / 6) runs
-// flash_fwd_kernel with two warpgroups a block, each over its own 64 query
-// rows of a 128-row tile, both reading every K and V tile, and K/V rings
-// of 2 stages: a 64 x 256 tile is 32 KB, so Q (two tiles) and two stages
-// of K and V take 193 KB and a third stage would not fit; one block of 256
-// threads an SM.  A thread holds O's 128 fp32 beside S's 32.  The D 192
-// kernel's steps (S_u beside P_{u-1} V_{u-1}, mbarrier rings, the
-// ping-pong) are not carried over: holding P_{u-1} across the step would
-// take the thread past 255 registers.  A kernel that is right first.
-//
+// flash_fwd_tall_kernel too, with two changes: the K and V rings are 2
+// stages deep (a 64 x 256 tile is 32 KB: Q's two tiles and four ring
+// tiles take 193 KB), and a warpgroup waits for both products of its turn
+// (S_u and P_{u-1} V_{u-1}) before its softmax of S_u (tall_overlap): a
+// thread holds O's 128 fp32, and P_{u-1}'s fragments beside S_u through
+// the softmax would take it past 255 registers.  The ping-pong still puts
+// one warpgroup's softmax beside the other's products.  240 registers, no
+// spills, one block of 256 threads an SM.  Measured on an H100 at (8, 6,
+// 512, 512) causal (PERF.md, scripts/torch_flash_bwd_narrow.py), rate 0 /
+// 0.1, in one call: 0.0388 / 0.0467 ms, against 0.0489 / 0.0553 for the
+// first design (flash_fwd_kernel's two-warpgroup branch: 2 stages, a block
+// barrier a step).  A K ring 3 deep beside the V ring's 2 (225 KB) read
+// 0.0389 / 0.0469 (slower in each of three runs); issuing P_{u-1} V_{u-1},
+// waiting, then S_u within a turn 0.0394 / 0.0475; a copy warpgroup
+// feeding the rings, with setmaxnreg (40 registers to it, 232 to the two
+// computing), made ptxas hold the whole 384-thread kernel at 168 registers
+// with 1.3 KB of spills: 0.0717 / 0.0825 ms.
+
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
 // 128) the arithmetic intensity is below the card's ~295 flop/byte balance
@@ -187,90 +196,31 @@ struct FlashParams {
   SeedGroups seed_groups;   // read by the kernels of several groups only
 };
 
-// One thread's copies into every 64-row tile of one (batch, head) slice,
-// by the 256 threads of a block: chunk t % 4 of every panel of row t / 4
-// (warpgroup w copies rows 32 w .. 32 w + 31), the addresses worked out
-// once (WideCopier's, over DP / 32 panels).
-template <int D>
-struct TallCopier {
-  const __nv_bfloat16* row;   // row t / 4 of the slice, column 8 c
-  const __nv_bfloat16* zero;  // row 0, column 8 c: the address of a zero fill
-  long long stride;           // elements between rows
-  uint32_t dst;               // byte offset of the first chunk in a tile
-  int r0;                     // t / 4
-
-  __device__ __forceinline__ TallCopier(const __nv_bfloat16* slice,
-                                        long long stride_t, int tid)
-      : stride(stride_t), r0(tid >> 2) {
-    zero = slice + (tid & 3) * 8;
-    row = zero + (long long)r0 * stride_t;
-    dst = tile_offset(r0, 0, tid & 3);
-  }
-
-  // rows [t0, t0 + 64) into the tile at `tile`; rows at or past T as zeros
-  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
-    const bool ok = t0 + r0 < T;
-    const __nv_bfloat16* a = ok ? row + (long long)t0 * stride : zero;
-#pragma unroll
-    for (int panel = 0; panel < padded_dim<D>() / 32; ++panel) {
-      cp_async_16(tile + dst + panel * kPanelBytes, a + panel * 32, ok);
-    }
-  }
-};
-
-// Warpgroups a block of flash_fwd_kernel: two at D = 256 (the header), one
-// below.
-template <int D>
-__host__ __device__ constexpr int fwd_groups() {
-  return padded_dim<D>() > 192 ? 2 : 1;
-}
-
-// K/V tiles in flight in flash_fwd_kernel: 2 at D = 256, where a third
-// stage would not fit a block's shared memory, else kStages.
-template <int D>
-__host__ __device__ constexpr int fwd_stages() {
-  return padded_dim<D>() > 192 ? 2 : kStages;
-}
-
-// Q (a tile a warpgroup), then fwd_stages x (K, V) (at D = 128 a ring of K
-// tiles, then one of V tiles); +1 KB to align the base to the swizzle.
+// Q, then kStages x (K, V) (at D = 128 a ring of K tiles, then one of V
+// tiles); +1 KB to align the base to the swizzle.
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return (fwd_groups<D>() + 2 * fwd_stages<D>()) * tile_bytes<D>() + 1024;
+  return (1 + 2 * kStages) * tile_bytes<D>() + 1024;
 }
 
-// One (batch*head, 64 x fwd_groups query rows): warpgroup w takes queries
-// 64 w .. 64 w + 63 of the block's, and every warpgroup reads each K and V
-// tile (at D = 256 the block's 256 threads copy them, TallCopier's rows).
-// Every warpgroup visits the key tiles of the block's last rows: under a
-// causal band warpgroup 0's last tile is then wholly above its band, an
-// edge tile whose scores are all masked, so it adds exact zeros.
 template <int D, bool Groups = false>
-__global__ void __launch_bounds__(fwd_groups<D>() * kThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams p) {
   constexpr int DP = padded_dim<D>();
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
-  constexpr int kWG = fwd_groups<D>();
-  constexpr int kSt = fwd_stages<D>();
   extern __shared__ unsigned char smem[];
-  const uint32_t q_base = (smem_u32(smem) + 1023) & ~1023u;
-  // stage s: K at + 2 s kTile, V after
-  const uint32_t kv_s = q_base + kWG * kTile;
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + kTile;   // stage s: K at + 2 s kTile, V after
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
   // this block's dropout hash values: its seed and its index in its group
   const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
-  const int wg = kWG == 1 ? 0 : static_cast<int>(threadIdx.x) / kThreads;
-  const int tid = kWG == 1 ? static_cast<int>(threadIdx.x)
-                           : static_cast<int>(threadIdx.x) % kThreads;
-  const int qt = blockIdx.x * kRows * kWG;   // the block's first query
-  const int q0 = qt + wg * kRows;            // this warpgroup's
-  const uint32_t q_s = q_base + wg * kTile;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   const int g = lane / 4;     // row within the warp's 16 (and g + 8)
   const int t4 = lane % 4;    // column pair within an 8-wide block
 
@@ -280,31 +230,24 @@ flash_fwd_kernel(const FlashParams p) {
   const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
   const int kv_end = min(Tk, kv_len);   // keys from here on are masked
 
-  // key tiles to visit (those of the block's last query rows)
+  // key tiles to visit
   int n_tiles = (Tk + kRows - 1) / kRows;
   if (kv_len > 0) {
     n_tiles = min(n_tiles, (kv_len + kRows - 1) / kRows);
     if (p.masked) {
-      n_tiles = min(n_tiles, (qt + kWG * kRows - 1 + p.offset) / kRows + 1);
+      n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
     }
   }
 
-  // key tile t goes to ring stage t mod kSt
-  const TallCopier<D> k_copy(kb, p.k_st, threadIdx.x);
-  const TallCopier<D> v_copy(vb, p.v_st, threadIdx.x);
+  // key tile t goes to ring stage t mod kStages
   auto load_kv = [&](int t) {
-    const uint32_t dst = kv_s + 2 * (t % kSt) * kTile;
-    if constexpr (kWG == 1) {
-      load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
-      load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
-    } else {
-      k_copy.copy(dst, t * kRows, Tk);
-      v_copy.copy(dst + kTile, t * kRows, Tk);
-    }
+    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
+    load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
+    load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
   };
-  load_tile_by<D>(tid, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
 #pragma unroll
-  for (int t = 0; t < kSt - 1; ++t) {
+  for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) load_kv(t);
     cp_async_commit();
   }
@@ -322,12 +265,12 @@ flash_fwd_kernel(const FlashParams p) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     // tile kt has landed (each thread waits for its own copies, then the
     // barrier publishes everyone's); every warp is done with tile kt - 1
-    cp_async_wait<kSt - 2>();
+    cp_async_wait<kStages - 2>();
     fence_proxy_async();
     __syncthreads();
-    if (kt + kSt - 1 < n_tiles) load_kv(kt + kSt - 1);
+    if (kt + kStages - 1 < n_tiles) load_kv(kt + kStages - 1);
     cp_async_commit();
-    const uint32_t k_s = kv_s + 2 * (kt % kSt) * kTile;
+    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
     const uint32_t v_s = k_s + kTile;
     const int k0 = kt * kRows;
 
@@ -946,17 +889,34 @@ flash_fwd_wide_kernel(const FlashParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// D = 192: the header
+// D = 192 and 256: the header
 // ---------------------------------------------------------------------------
 
 constexpr int kTallThreads = 2 * kThreads;   // two warpgroups a block
 constexpr int kTallRows = 2 * kRows;         // query rows a block
 
-// Q (a tile a warpgroup), then a ring of kStages K tiles and one of kStages
-// V tiles; +1 KB to align the base to the swizzle.
+// K and V tiles in flight in the tall kernel's rings: kStages at D = 192;
+// at D = 256, whose tiles are 32 KB, 2 (Q's 64 KB and four tiles, 193 KB;
+// the header).
+template <int D>
+__host__ __device__ constexpr int tall_stages() {
+  return padded_dim<D>() > 192 ? 2 : kStages;
+}
+
+// Whether a warpgroup's softmax of S_u runs beside its own P_{u-1} V_{u-1}
+// (D = 192); at D = 256 a thread would hold O's 128 fp32, P_{u-1} and S_u
+// through the softmax, past 255 registers, so each turn's products are
+// waited on before it (the header).
+template <int D>
+__host__ __device__ constexpr bool tall_overlap() {
+  return padded_dim<D>() <= 192;
+}
+
+// Q (a tile a warpgroup), then a ring of tall_stages K tiles and one of
+// tall_stages V tiles; +1 KB to align the base to the swizzle.
 template <int D>
 __host__ __device__ constexpr int tall_smem_bytes() {
-  return (2 + 2 * kStages) * tile_bytes<D>() + 1024;
+  return (2 + 2 * tall_stages<D>()) * tile_bytes<D>() + 1024;
 }
 
 // mbarrier helpers (shared-memory addresses).
@@ -1004,20 +964,22 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-
-// One (batch*head, 128-query tile) at D = 192, two warpgroups: warpgroup w
-// takes queries 64 w .. 64 w + 63 of the tile, and both read each K and V
-// tile of the block's rings.  Batch*head along x, the query tiles along y,
-// the last first.  Each warpgroup runs flash_fwd_wide_kernel's step (S_u
-// issued beside P_{u-1} V_{u-1}) over its own key tiles, and the two take
-// turns to issue their products (two named barriers, FlashAttention-3's
-// ping-pong), so one's softmax runs while the other's products do.  No
-// block barrier ties them: each loads its half of the rows of every K and
-// V tile, a "full" mbarrier a stage says when all the copies of a tile
-// have landed (each thread's arrive when its own have), and an "empty" one
-// when both warpgroups' products have read it (each thread arrives).  At
-// turn u a warpgroup loads K_{u+1} into the stage K_{u-2} held and V_u
-// into V_{u-3}'s, so the two may drift a turn apart.  Under a causal band
+// One (batch*head, 128-query tile) at D = 192 and 256, two warpgroups:
+// warpgroup w takes queries 64 w .. 64 w + 63 of the tile, and both read
+// each K and V tile of the block's rings.  Batch*head along x, the query
+// tiles along y, the last first.  Each warpgroup runs
+// flash_fwd_wide_kernel's step (S_u issued beside P_{u-1} V_{u-1}) over its
+// own key tiles, and the two take turns to issue their products (two named
+// barriers, FlashAttention-3's ping-pong), so one's softmax runs while the
+// other's products do.  At D = 192 a warpgroup's softmax of S_u also runs
+// beside its own P_{u-1} V_{u-1}; at 256 it waits for both first
+// (tall_overlap).  No block barrier ties them: each loads its half of the
+// rows of every K and V tile, a "full" mbarrier a stage says when all the
+// copies of a tile have landed (each thread's arrive when its own have),
+// and an "empty" one when both warpgroups' products have read it (each
+// thread arrives).  At turn u a warpgroup loads K_{u+1} into the stage
+// K_{u+1-kS} held and V_u into V_{u-kS}'s (kS the rings' depth: 3 at D =
+// 192, 2 at 256), so the two may drift a turn apart.  Under a causal band
 // warpgroup 0 has one key tile fewer; it loads its half of the last tile
 // and takes its turn there without products.
 template <int D, bool Groups = false>
@@ -1026,7 +988,7 @@ flash_fwd_tall_kernel(const FlashParams p) {
   constexpr int DP = padded_dim<D>();
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
-  constexpr int kS = kStages;
+  constexpr int kS = tall_stages<D>();
   extern __shared__ unsigned char smem[];
   // full and empty barriers of each K and V stage, then each Q tile's
   __shared__ __align__(8) uint64_t bars[4 * kS + 2];
@@ -1094,8 +1056,8 @@ flash_fwd_tall_kernel(const FlashParams p) {
     k_copy.copy(k_ring, 0, Tk);
     mbar_arrive_copies(k_full(0));
   }
-  // turn u's copies: K_{u+1} into the stage of K_{u-2} and V_u into that
-  // of V_{u-3}, once both warpgroups' products have read those
+  // turn u's copies: K_{u+1} into the stage of K_{u+1-kS} and V_u into
+  // that of V_{u-kS}, once both warpgroups' products have read those
   auto load_turn = [&](int u) {
     const int j = u + 1;
     if (j < n_tiles) {
@@ -1253,19 +1215,34 @@ flash_fwd_tall_kernel(const FlashParams p) {
         fence_proxy_async();
         my_turn();
         wgmma_fence();
-        issue_qk(u);
-        wgmma_commit();
-        issue_pv(u - 1);
-        wgmma_commit();
-        hand_on();
-        wgmma_wait<1>();   // S_u; P_{u-1} V_{u-1} may still run
-        fence_regs(s);
-        mbar_arrive(k_empty(u % kS));
-        softmax(u);
-        wgmma_wait<0>();
-        fence_regs(acc);
-        fence_frags(pa);
-        mbar_arrive(v_empty((u - 1) % kS));
+        if constexpr (tall_overlap<D>()) {
+          issue_qk(u);
+          wgmma_commit();
+          issue_pv(u - 1);
+          wgmma_commit();
+          hand_on();
+          wgmma_wait<1>();   // S_u; P_{u-1} V_{u-1} may still run
+          fence_regs(s);
+          mbar_arrive(k_empty(u % kS));
+          softmax(u);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_frags(pa);
+          mbar_arrive(v_empty((u - 1) % kS));
+        } else {
+          issue_qk(u);
+          wgmma_commit();
+          issue_pv(u - 1);
+          wgmma_commit();
+          hand_on();
+          wgmma_wait<0>();   // S_u and P_{u-1} V_{u-1}
+          fence_regs(s);
+          fence_regs(acc);
+          fence_frags(pa);
+          mbar_arrive(k_empty(u % kS));
+          mbar_arrive(v_empty((u - 1) % kS));
+          softmax(u);
+        }
 #pragma unroll
         for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
         p_frags(pa, s);
@@ -1326,7 +1303,7 @@ template <int D, bool Groups>
 cudaError_t launch(const FlashParams& p, cudaStream_t s) {
   static bool smem_set = false;
   const int nq = (p.Tq + kRows - 1) / kRows;
-  if constexpr (padded_dim<D>() == 192) {
+  if constexpr (padded_dim<D>() >= 192) {
     constexpr int bytes = tall_smem_bytes<D>();
     cudaError_t err =
         allow_smem(flash_fwd_tall_kernel<D, Groups>, bytes, smem_set);
@@ -1349,13 +1326,11 @@ cudaError_t launch(const FlashParams& p, cudaStream_t s) {
     flash_fwd_narrow_kernel<D, Groups><<<grid, kThreads, bytes, s>>>(p);
   } else {
     constexpr int bytes = smem_bytes<D>();
-    constexpr int rows = kRows * fwd_groups<D>();
     cudaError_t err =
         allow_smem(flash_fwd_kernel<D, Groups>, bytes, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.Tq + rows - 1) / rows, p.B * p.H);
-    flash_fwd_kernel<D, Groups>
-        <<<grid, fwd_groups<D>() * kThreads, bytes, s>>>(p);
+    const dim3 grid(nq, p.B * p.H);
+    flash_fwd_kernel<D, Groups><<<grid, kThreads, bytes, s>>>(p);
   }
   return cudaGetLastError();
 }
@@ -1412,7 +1387,7 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
 int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if constexpr (padded_dim<kD>() == 192) {
+    if constexpr (padded_dim<kD>() >= 192) {
       return bpx_flash::blocks_per_sm(flash_fwd_tall_kernel<kD>,
                                       tall_smem_bytes<kD>(), blocks,
                                       kTallThreads);
@@ -1424,8 +1399,7 @@ int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
                                       narrow_smem_bytes<kD>(), blocks);
     } else {
       return bpx_flash::blocks_per_sm(flash_fwd_kernel<kD>,
-                                      smem_bytes<kD>(), blocks,
-                                      fwd_groups<kD>() * kThreads);
+                                      smem_bytes<kD>(), blocks);
     }
   }));
 }

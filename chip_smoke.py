@@ -226,9 +226,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and 96 / 64 / 96 / 308 / 308 per step), cmu-mosei one step; every class
    no earlier phase held (the memory encoders' flash forward and backward
    at (8, 12, 512, 512, 50), (8, 10, 512, 512, 60) and (8, 6, 512, 512,
-   256) causal, rate 0 and 0.1, the profiler naming their kernels; the
+   256) causal, rate 0 and 0.1, the profiler naming their kernels; at D
+   256 also the kernels built for two seed groups at rate 0.1; the
    600-wide LayerNorms) against its plain version, timed beside the bound
-   and the library call; the exact dropout masks at those three shapes.
+   and the library call; the exact dropout masks at those three shapes,
+   and at D 256 with two seed groups, each group's bits its own launch's.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -801,7 +803,7 @@ def fwd_kernel(D, groups=1) -> str:
         name = "flash_fwd_narrow_kernel"
     elif D == 128:
         name = "flash_fwd_wide_kernel"
-    elif D == 192:
+    elif D in (192, 256):
         name = "flash_fwd_tall_kernel"
     else:
         name = "flash_fwd_kernel"
@@ -949,9 +951,9 @@ def sdpa_backward(torch, q, k, v, mask_args, rate, dout):
 def bwd_kernels(D, groups=1):
     """The backward's kernels at head_dim D for ``groups`` seed groups, by
     the names the profiler reports, as (dQ, dK/dV, delta or None): at a
-    narrow head (25, 30) and at 128 the dQ kernel computes delta itself,
-    so the backward is two launches; at 192 the column-split kernels, and
-    at 256 too, with dK/dV the pair (dV, dK) of its two launches."""
+    narrow head (25, 30), at 128 and at 256 the dQ kernel computes delta
+    itself, so the backward is two launches; at 192 the column-split
+    kernels after the delta kernel."""
     args = build_args(D, groups)
     if D < 32:
         return ("flash_bwd_narrow_dq_kernel" + args,
@@ -964,18 +966,16 @@ def bwd_kernels(D, groups=1):
                 "flash_bwd_colsplit_dkdv_kernel" + args,
                 "flash_delta_kernel")
     if D == 256:
-        return ("flash_bwd_colsplit_dq_kernel" + args,
-                ("flash_bwd_colsplit_dv_kernel" + args,
-                 "flash_bwd_colsplit_dk_kernel" + args),
-                "flash_delta_kernel")
+        return ("flash_bwd_keysplit_dq_kernel" + args,
+                "flash_bwd_rowsplit_dkdv_kernel" + args, None)
     return ("flash_bwd_dq_kernel" + args, "flash_bwd_dkdv_kernel" + args,
             "flash_delta_kernel")
 
 
 def kernel_names(kernels) -> list:
-    """The names of ``bwd_kernels``' entries, the pairs' members apart."""
-    return [n for k in kernels if k
-            for n in ((k,) if isinstance(k, str) else k)]
+    """The names of ``bwd_kernels``' entries, None (no delta kernel) left
+    out."""
+    return [k for k in kernels if k]
 
 
 def backward_split(torch, fn, D, groups=1):
@@ -1043,7 +1043,6 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
               f"flash backward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         eff_masked = fa.effective_band(Tq, Tk, masked)[0]
         launches = ("dQ (with delta) + dK/dV" if bwd_kernels(D)[2] is None
-                    else "delta + dV + dK + dQ" if D == 256
                     else "delta + dK/dV + dQ")
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, seed_groups=groups,
@@ -1356,8 +1355,8 @@ def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens):
     it does: both read q, k, v, dO, lse and delta and compute S and dP (4 D
     flops per visible score entry); dQ then writes dq (2 D more), dK/dV
     writes dk and dv (4 D more).  Where the dQ kernel computes delta (head
-    dims 25, 30 and 128) it reads O and writes delta instead of reading it
-    (2 D flops a row more)."""
+    dims 25, 30, 128 and 256) it reads O and writes delta instead of
+    reading it (2 D flops a row more)."""
     visible, keys, _ = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
     bh = B * H
     io = 2 * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
@@ -3533,9 +3532,12 @@ def phase_mmtrvpa(torch, np, timer, gen, checked):
     # the memory classes both ways at rate 0 and 0.1: those no recorded run
     # brought (the backward at rate 0: the memory encoders drop attention at
     # 0.1 in training) held of weight 0 in the launches' mix
+    # (at D 256 also the kernels built for two seed groups, as a multi-seed
+    # step launches them, and their masks)
     for preset, (D, H) in VPA_MEMORY.items():
-        for rate in (0.0, 0.1):
-            cls = (BATCH, H, 512, 512, D, True, False, 1, rate)
+        groups = (1, 2) if D == 256 else (1,)
+        for rate, n in [(0.0, 1), (0.1, 1)] + [(0.1, g) for g in groups[1:]]:
+            cls = (BATCH, H, 512, 512, D, True, False, n, rate)
             for kind, phase in (("flash", phase_flash),
                                 ("flash_bwd", phase_flash_bwd)):
                 if cls not in checked[kind]:
@@ -3544,6 +3546,8 @@ def phase_mmtrvpa(torch, np, timer, gen, checked):
                         label=f"{kind} mmtrvpa {preset} rate {rate}")
                     checked[kind].add(cls)
         phase_mask_check(torch, gen, BATCH, H, 512, D)
+        for n in groups[1:]:
+            phase_seed_masks(torch, gen, n, BATCH // n, H, 512, D)
     rows = out["rows"]
     for D, _ in VPA_MEMORY.values():
         check(dim_rows(rows["flash"], D) and dim_rows(rows["flash_bwd"], D),

@@ -24,8 +24,9 @@ strided views of fused projections as the model hands them over: every
 build's kernel against the plain version (the backward within
 ``FLASH_GRAD_TOL`` of ``chip_smoke.py``, the forward within ``FLASH_TOL``
 and ``LSE_TOL``) and bitwise on a rerun, then its time (CUDA events,
-``chip_smoke.Timer``) in turns (A B ... B A, ``--rounds`` times) and the
-profiler's device time per kernel.  With ``--kernel ln_bwd`` the classes
+``chip_smoke.Timer``) in turns (A B ... B A, ``--rounds`` times) beside
+SDPA's (``is_causal``; its backward alone for ``--kernel bwd``, the
+backend the profiler saw) and the profiler's device time per kernel.  With ``--kernel ln_bwd`` the classes
 are LayerNorm rows ``--shape N,E`` (default mmtrvpa's 4096 x 1536 and
 1600 x 1536), bf16 x and dy: the backward within ``LN_TOL`` (dx) and
 ``LN_PARAM_GRAD_TOL`` (dw, db) of the plain version, bitwise on a rerun,
@@ -150,6 +151,7 @@ def main() -> None:
                or (LN_CLASSES if args.kernel == "ln_bwd" else CLASSES))
 
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         sys.exit("torch_flash_bwd_narrow: no CUDA device")
     from bpx_torch.ops import _cuda
@@ -211,9 +213,18 @@ def main() -> None:
                           + 4 * B * H * Tq)
                 flops = 4.0 * D * visible
             b_ms, b_by = cs.bound_ms(nbytes, flops)
+            # the library yardstick: SDPA on the same inputs, is_causal
+            causal = dict(is_causal=True)
+            if kernel == "bwd":
+                sdpa = cs.sdpa_backward(torch, q, k, v, causal, rate, dout)
+            else:
+                sdpa = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                    q, k, v, dropout_p=rate, scale=1.0, **causal))
+            backend, _ = cs.sdpa_backend(torch, sdpa)
             times = {b["label"]: [] for b in builds}
+            lib_times = []
             row = dict(shape=[B * H, Tq, Tk, D], rate=rate, bound_ms=b_ms,
-                       bound_by=b_by, builds={})
+                       bound_by=b_by, library_backend=backend, builds={})
             for b in list(builds):
                 _cuda._lib = b["lib"]
                 got = call()
@@ -243,9 +254,16 @@ def main() -> None:
                     kernels_per_call={n: c for n, (c, _) in split.items()})
             order = builds + builds[::-1]
             for _ in range(args.rounds):
-                for b in order:
+                for j, b in enumerate(order):
+                    if j == len(builds):
+                        lib_times.append(timer(sdpa))
                     _cuda._lib = b["lib"]
                     times[b["label"]].append(timer(call))
+            row["library_ms"] = statistics.median(lib_times or
+                                                  [timer(sdpa)])
+            print(f"[sdpa] BH={B * H} {Tq}x{Tk} D={D} rate={rate}: "
+                  f"{row['library_ms']:.4f} ms ({backend}, runs "
+                  + ", ".join(f"{t:.4f}" for t in lib_times) + ")")
             for b in builds:
                 r = row["builds"][b["label"]]
                 r["ms"] = statistics.median(times[b["label"]])
@@ -254,7 +272,8 @@ def main() -> None:
                       f"{rate}: {r['ms']:.4f} ms (runs "
                       + ", ".join(f"{t:.4f}" for t in r["ms_all"])
                       + f"), bound {b_ms:.4f} ms ({b_by}), "
-                      f"{b_ms / r['ms']:.1%} of it; err "
+                      f"{b_ms / r['ms']:.1%} of it, "
+                      f"{r['ms'] / row['library_ms']:.2f}x sdpa; err "
                       f"{r['rel_err']:.3g}, reruns bitwise equal; profiler: "
                       + ", ".join(f"{n} {t:.4f} ms"
                                   for n, t in r["split_ms"].items()))

@@ -711,14 +711,17 @@ MEMORY_DIMS = [(50, 12), (60, 10), (256, 6)]
     (2, 130, 40, True, None),           # Tk < 64 < Tq
     (2, 129, 65, False, (65, 1)),       # one visible key
     (1, 640, 1280, True, None),         # long: ten query tiles
+    (8, 32, 32, True, None),            # hybrid's 32 x 32: half a tile
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_memory_head_dims_match_plain(gen, D, H, B, Tq, Tk, masked, lens,
                                       rate):
     """head_dim 50, 60 (the D 64 kernels over two zero-padded panels) and
-    256 (two warpgroups in the forward, the column-split backward with dV
-    and dK in launches of their own) against the plain versions, forward
-    and backward, on fused-projection views of H heads side by side: O,
+    256 (two warpgroups on 128 query rows in the forward; in the backward
+    dQ with delta, then dK/dV, the warpgroups splitting each tile step's
+    keys or queries) against
+    the plain versions, forward and backward, on fused-projection views of
+    H heads side by side: O,
     dQ, dK and dV are (B, T, H, D) memory, so a store past column D would
     write into the next head's columns; bitwise-equal reruns."""
     q, k, v = _fused_views(gen, B, H, Tq, Tk, D)
@@ -751,6 +754,41 @@ def test_memory_head_dims_match_plain(gen, D, H, B, Tq, Tk, masked, lens,
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("B,Tq,Tk,masked,lens", [
+    (2, 512, 512, True, None),
+    (2, 200, 200, True, (200, 0)),
+    (2, 640, 1280, True, None),
+    (2, 32, 32, True, None),
+])
+def test_head_dim_256_seed_groups_match_plain(gen, B, Tq, Tk, masked,
+                                              lens):
+    """The D 256 kernels built for several seed groups (two, one batch row
+    each) against the plain version, forward and backward, at rate 0.1 on
+    fused views of 6 heads, and bitwise on a rerun."""
+    q, k, v = _fused_views(gen, B, 6, Tq, Tk, 256)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+    seeds = [0x2560C0DE, 0xC0FFEE]
+    out, lse = flash_attention(q, k, v, masked, kv, 0.1, seeds,
+                               return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, 0.1,
+                                             seeds)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    got = flash_attention_backward(q, k, v, out, lse, dout, masked, kv, 0.1,
+                                   seeds)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), masked, kv,
+        0.1, seeds)
+    for g, w in zip(got, want):
+        _close_grad(g, w)
+    again = flash_attention_backward(q, k, v, out, lse, dout, masked, kv,
+                                     0.1, seeds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("D", [50, 60, 256])
 @pytest.mark.parametrize("seed", [0x5060C0DE, [0x5060C0DE, 0xC0FFEE]])
 def test_dropout_mask_is_exact_at_the_memory_head_dims(gen, D, seed):
@@ -772,15 +810,14 @@ def test_dropout_mask_is_exact_at_the_memory_head_dims(gen, D, seed):
     (60, 10, "flash_fwd_kernel<60, false>",
      ("flash_delta_kernel<60>", "flash_bwd_dkdv_kernel<60, false>",
       "flash_bwd_dq_kernel<60, false>")),
-    (256, 6, "flash_fwd_kernel<256, false>",
-     ("flash_delta_kernel<256>", "flash_bwd_colsplit_dv_kernel<256, false>",
-      "flash_bwd_colsplit_dk_kernel<256, false>",
-      "flash_bwd_colsplit_dq_kernel<256, false>")),
+    (256, 6, "flash_fwd_tall_kernel<256, false>",
+     ("flash_bwd_keysplit_dq_kernel<256, false>",
+      "flash_bwd_rowsplit_dkdv_kernel<256, false>")),
 ])
 def test_memory_head_dims_kernels_by_name(gen, D, H, forward, backward):
     """The profiler names the forward's one kernel at head_dim 50, 60 and
-    256 and the backward's kernels: delta, dK/dV and dQ at 50 and 60;
-    delta, dV, dK and dQ at 256."""
+    256 and the backward's kernels: delta, dK/dV and dQ at 50 and 60; at
+    256 the dQ kernel with delta, then the dK/dV kernel."""
     q, k, v = _fused_views(gen, 2, H, 200, 200, D)
     out, lse = flash_attention(q, k, v, True, None, return_lse=True)
     for _ in range(3):   # the profiler drops an event now and then: retry
@@ -806,8 +843,8 @@ def test_kernels_fit_the_sm(gen):
     flash_bwd.cu): at the narrow heads the forward 5 (D 25) and 4 (D 30),
     the backward's dK/dV 3 and dQ 4; at 128 the wide forward (113 KB of
     shared memory) and the dQ kernel 2, the 256-thread dK/dV kernel 1; at
-    192 and 256 one 256-thread block of each (at 256 the dV and the dK
-    kernel each); an untabled head dim raises."""
+    192 and 256 one 256-thread block of each; an untabled head dim
+    raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)

@@ -220,3 +220,33 @@ def test_other_devices_raise():
         layer_norm(torch.empty(4, 8, device="meta"),
                    torch.empty(8, device="meta"),
                    torch.empty(8, device="meta"), 1e-6)
+
+
+def _global_kernels():
+    """Names of the ``__global__`` functions in the port's CUDA sources."""
+    import re
+    launch_bounds = r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+    pattern = re.compile(r"__global__\s+void\s+" + launch_bounds
+                         + r"(\w+)\s*\(")
+    return {m.group(1) for src in (ROOT / "bpx_torch" / "csrc").glob("*.cu")
+            for m in pattern.finditer(src.read_text())}
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_profiler_names_are_kernels_of_the_sources(groups):
+    """Every kernel name ``chip_smoke.py`` looks for in the profiler (the
+    forward's and the backward's at each head dim the wrappers take, for
+    one seed group and for several) is a ``__global__`` of
+    ``bpx_torch/csrc``, so a renamed kernel cannot leave the card's checks
+    looking for a name nothing launches."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bpx_torch.ops.flash_attention import KERNEL_ALIGN
+    kernels = _global_kernels()
+    assert {"flash_fwd_kernel", "flash_fwd_tall_kernel",
+            "flash_delta_kernel"} <= kernels
+    for d in KERNEL_ALIGN:
+        names = [chip_smoke.fwd_kernel(d, groups)]
+        names += chip_smoke.kernel_names(chip_smoke.bwd_kernels(d, groups))
+        for name in names:
+            assert name.split("<")[0] in kernels, (d, name)
