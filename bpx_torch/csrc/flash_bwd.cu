@@ -21,9 +21,8 @@
 //
 // Design.  The TPU kernel holds the whole Tq x Tk tile of one (batch, head)
 // in VMEM and emits dQ, dK and dV from it in one program; an SM cannot hold
-// it.  At D = 64 and 96 (and 50, 60), three launches on the stream,
-// deterministic and without atomics (the narrow heads' two and D = 128's
-// two are below):
+// it.  At D = 64 and 96, three launches on the stream, deterministic and
+// without atomics (the other head dims' two are below):
 //   * delta: two rows per warp, dO and O read once, a fixed-order sum;
 //   * dK/dV: one warpgroup per (batch*head, 64-key tile) with K and V
 //     resident, looping over 64-query tiles of Q, dO, lse and delta that
@@ -119,52 +118,72 @@
 // backward reaches about a fifth of its bound: a tile step is still a
 // serial chain per warpgroup, and one dK/dV block an SM holds two.
 //
-// D = 192 (mmtrvpa's 2E-wide memory encoders at moviescope's widths: 1536 /
-// 8) has kernels of its own (flash_bwd_colsplit_*), launched as at D 64/96
-// (delta, dK/dV, dQ).  A thread of
-// the D 128 dK/dV kernel would hold dK and dV at 96 + 96 fp32 beside S^T
-// and dP^T and spill, so both kernels
-// run two warpgroups a block that split the columns: each computes the
-// whole S^T and dP^T (S and dP in the dQ kernel), whose reduction runs
-// over every column, then dK, dV (dQ) for its 96 columns only, as
-// m64n96k16 with B read from its half of the tile's panels.  The price is
-// S and dP computed twice a block; a thread holds 48 + 48 fp32 of dK and
-// dV beside S^T and dP^T (48 of dQ beside S and dP).  K and V (Q and dO)
-// resident, three stages of Q, dO, lse and delta (K and V): 196 KB (193
-// KB), one block of 256 threads an SM.  A kernel that is right first;
-// none of the D 128 or narrow kernels' steps (delta in the dQ kernel, the
-// dependent launch, the longest blocks first) is carried over.
-//
 // D = 50 and 60 (mmtrvpa's memory encoders at iemocap's and at cmu-mosei's,
-// counseling's and cmu-mosi's widths: 600 / 12, 600 / 10) run the D 64
-// kernels at DP = 64 (delta, dK/dV, dQ): the loads write columns D..63 as
-// zeros (4- or 8-byte cp.async words, flash_common.cuh), the delta kernel
-// reads 2-byte columns, and dQ, dK and dV are stored up to column D, since
-// the next head's values sit past it.
+// counseling's and cmu-mosi's widths: 600 / 12, 600 / 10) run the D 128
+// kernels at DP = 64, two launches, both grids longest blocks first: the
+// loads write columns D..63 as zeros (4- or 8-byte cp.async words on one
+// running row pointer, load_tile_by and load_rows_by), and dQ, dK and dV
+// are stored up to column D, since the next head's values sit past it.
+//   * dQ first, one warpgroup per (batch*head, 64-query tile), last query
+//     tile first, delta for its rows from O staged in the ring stage the
+//     prologue leaves empty; 2 stages of 8 KB K and V tiles (49 KB), three
+//     blocks an SM at a cap of 168 registers (at D 50 16 bytes of spills);
+//   * dK/dV second, its programmatic dependent, key tile 0 first: one
+//     warpgroup per (batch*head, 64-key tile), K and V resident, 2 stages of
+//     Q, dO, lse and delta (51 KB), three blocks an SM at a cap of 168
+//     registers (52-104 bytes of spills).
+// Measured on an H100 at iemocap's (8, 12, 512, 512) and cmu-mosei's (8,
+// 10, 512, 512) causal classes (PERF.md, scripts/torch_flash_bwd_narrow.py),
+// rate 0 / 0.1, each step against the one before in one call: the D 64
+// kernels' three launches at DP = 64 (delta; dK/dV on (key tile,
+// batch*head) grids, 187 registers, 2 blocks an SM; dQ) 0.1018 / 0.1305
+// and 0.0801 / 0.1034 ms; these two launches with D 128's two-warpgroup
+// dK/dV (one 256-thread block an SM, 161 registers) 0.0925 / 0.1048 and
+// 0.0775 / 0.0880; one
+// warpgroup at three blocks 0.0761 / 0.0917 and 0.0663 / 0.0788, where the
+// two warpgroups at two blocks (a cap of 128 registers) read 0.0800 /
+// 0.0950 and 0.0671 / 0.0783; the dQ ring at 2 stages 0.0742 / 0.0892 and
+// 0.0622 / 0.0721, where four dQ blocks (a cap of 128, 84 bytes of spills
+// at D 50) and two uncapped (250 registers at D 50) lost; the dK/dV ring
+// at 2 stages 0.0730 / 0.0876 and 0.0582 / 0.0699.  A smaller block is
+// what paid: the blocks of both kernels share the SMs while the dependent
+// launch overlaps them, and a tile step's serial chain hides behind more
+// blocks, not behind wider ones.
 //
-// D = 256 (mmtrvpa's memory encoders at mmimdb's widths: 1536 / 6) has
-// kernels of its own, two launches a backward as at D 128, both grids
-// longest blocks first, two warpgroups a block that split each tile step's
-// scores, so that no product is computed twice:
+// D = 192 and 256 (mmtrvpa's 2E-wide memory encoders at moviescope's and
+// at mmimdb's widths: 1536 / 8, 1536 / 6) have kernels of their own, two
+// launches a backward as at D 128, both grids longest blocks first, two
+// warpgroups a block that split each tile step's scores, so that no
+// product is computed twice:
 //   * dQ first (flash_bwd_keysplit_dq_kernel), one block per (batch*head,
-//     64-query tile) with Q and dO resident, K and V through 2 stages (a
-//     64 x 256 tile is 32 KB; 217 KB in all), delta for its rows from O
-//     staged in the stage the prologue leaves empty; warpgroup w takes keys
-//     32 w .. 32 w + 31 of each key tile: S, dP, P, dropout and dS for them,
-//     its half of a bf16 dS tile in shared memory, then dQ += dS K over its
-//     128 columns (A and B from shared memory); 156 registers;
+//     64-query tile) with Q and dO resident, K and V through 2 stages at
+//     256 (a 64 x 256 tile is 32 KB; 217 KB in all) and 3 at 192 (24 KB;
+//     201 KB), delta for its rows from O staged in the stage the prologue
+//     leaves empty; warpgroup w takes keys 32 w .. 32 w + 31 of each key
+//     tile: S, dP, P, dropout and dS for them, its half of a bf16 dS tile
+//     in shared memory, then dQ += dS K over its DP / 2 columns (A and B
+//     from shared memory, m64n128k16 or m64n96k16); 156 registers at 256,
+//     144 at 192;
 //   * dK/dV second (flash_bwd_rowsplit_dkdv_kernel), its programmatic
 //     dependent, one block per (batch*head, 64-key tile): K and V resident,
-//     2 stages of Q, dO, lse and delta (211 KB); warpgroup w takes queries
-//     32 w .. 32 w + 31 of each query tile: S^T, dP^T, P^T and dS^T for
-//     them, its halves of bf16 P^T and dS^T tiles, then dV += P^T dO and
-//     dK += dS^T Q over its 128 columns; 209 registers.
+//     2 stages of Q, dO, lse and delta at 256 (211 KB), 3 at 192 (212 KB);
+//     warpgroup w takes queries 32 w .. 32 w + 31 of each query tile: S^T,
+//     dP^T, P^T and dS^T for them, its halves of bf16 P^T and dS^T tiles,
+//     then dV += P^T dO and dK += dS^T Q over its DP / 2 columns; 209
+//     registers at 256, 185 at 192.
 // Per (key tile, query tile) the tensor cores run S, dP, dQ, S^T, dP^T, dV
-// and dK once each (7 products of 64 x 64 x 256) where the first design's
-// four launches (delta; dV, dK and dQ over columns split as at D 192) ran
-// 13 (0.2360 / 0.2701 ms below).
-// Measured on an H100 at mmimdb's (8, 6, 512, 512) causal class (PERF.md,
-// scripts/torch_flash_bwd_narrow.py), rate 0 / 0.1, all in one call: these
+// and dK once each (7 products of 64 x 64 x D) where the first designs ran
+// 13 at 256 (four launches: delta; dV, dK and dQ, each warpgroup over half
+// the columns; 0.2360 / 0.2701 ms below) and 11 at 192 (three: delta;
+// dK/dV and dQ, each warpgroup all of S^T and dP^T (S and dP) and half the
+// columns).
+// Measured on an H100 at moviescope's (8, 8, 512, 512) and (8, 8, 200,
+// 200) causal classes (PERF.md, scripts/torch_flash_bwd_narrow.py), rate 0
+// / 0.1, in one call: these kernels at 192, 3 stages, 0.1320 / 0.1423 and
+// 0.0490 / 0.0523 ms (cuDNN's 0.1395 / 0.1502 and 0.0571 / 0.0614); with 2
+// stages (177 registers in dK/dV) 0.1325 / 0.1430 and 0.0493 / 0.0526; the
+// first design 0.1845 / 0.2093 and 0.0669 / 0.0763.
+// At 256, mmimdb's (8, 6, 512, 512) causal class, all in one call: these
 // kernels 0.1278 / 0.1365 ms.  The warpgroups split by product instead
 // (one computing S and P and handing P through shared memory with its
 // keep bit in the sign, the other dP and dS; in dK/dV one S^T, P^T and
@@ -190,12 +209,8 @@ namespace {
 
 using namespace bpx_flash;
 
-// Streamed tiles in flight: 3, and 2 at D = 128, where a third stage
-// would cost the dQ kernel its second block on an SM (the header).
-template <int D>
-__host__ __device__ constexpr int stages() {
-  return padded_dim<D>() > 96 ? 2 : 3;
-}
+// Streamed tiles in flight in the D = 64 and 96 kernels.
+constexpr int kBwdStages = 3;
 
 struct BwdParams {
   const __nv_bfloat16* q;
@@ -203,8 +218,8 @@ struct BwdParams {
   const __nv_bfloat16* v;
   const __nv_bfloat16* dout;
   const float* lse;        // (B*H, Tq)
-  const float* delta;      // (B*H, Tq), written by flash_delta_kernel
-                           // (D = 25, 30, 128: by the dQ kernel)
+  const float* delta;      // (B*H, Tq), written by flash_delta_kernel at
+                           // D = 64, 96, by the dQ kernel at the others
   const int* kv_lens;      // (B,) or nullptr
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
@@ -230,17 +245,16 @@ __host__ __device__ constexpr int dkdv_stage_bytes() {
   return 2 * tile_bytes<D>() + 1024;
 }
 
-// K and V resident, stages<D>() x (Q, dO, lse, delta); +1 KB for
-// alignment.
+// K and V resident, kBwdStages x (Q, dO, lse, delta); +1 KB for alignment.
 template <int D>
 __host__ __device__ constexpr int dkdv_smem_bytes() {
-  return 2 * tile_bytes<D>() + stages<D>() * dkdv_stage_bytes<D>() + 1024;
+  return 2 * tile_bytes<D>() + kBwdStages * dkdv_stage_bytes<D>() + 1024;
 }
 
-// Q and dO resident, stages<D>() x (K, V); +1 KB for alignment.
+// Q and dO resident, kBwdStages x (K, V); +1 KB for alignment.
 template <int D>
 __host__ __device__ constexpr int dq_smem_bytes() {
-  return (2 + 2 * stages<D>()) * tile_bytes<D>() + 1024;
+  return (2 + 2 * kBwdStages) * tile_bytes<D>() + 1024;
 }
 
 template <int N>
@@ -318,7 +332,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int kTile = tile_bytes<D>();
   constexpr int kStage = dkdv_stage_bytes<D>();
   constexpr int kKSteps = DP / 16;
-  constexpr int kStages = stages<D>();
+  constexpr int kStages = kBwdStages;
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -474,7 +488,7 @@ template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
-  constexpr int kStages = stages<D>();
+  constexpr int kStages = kBwdStages;
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;
   extern __shared__ unsigned char smem[];
@@ -1022,38 +1036,107 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
 }
 
 // ---------------------------------------------------------------------------
-// D = 128: dQ with delta, then dK/dV over two warpgroups (the header)
+// D = 128, 50 and 60: dQ with delta, then dK/dV (the header)
 // ---------------------------------------------------------------------------
 
-constexpr int kWideQN = 32;                 // queries of a tile a warpgroup takes
-constexpr int kWideThreads = 2 * kThreads;  // the dK/dV kernel's two warpgroups
-constexpr int kWideStages = 3;              // the dK/dV kernel's ring
+// The head dims whose backward takes these kernels: 128, and 50 and 60 at
+// DP = 64 (D 64 and 96 keep the three launches above).
+template <int D>
+__host__ __device__ constexpr bool runs_wide() {
+  return D == 50 || D == 60 || padded_dim<D>() == 128;
+}
 
-// K and V resident, kWideStages x (Q, dO, lse, delta); +1 KB.
+// The dK/dV kernel's shape, each as measured fastest on an H100 (the
+// header): at D = 128 two warpgroups a block, each over 32 queries of
+// every tile, one block an SM, a ring of 3 stages; at DP = 64 one
+// warpgroup, three blocks an SM (a cap of 168 registers), 2 stages.
+template <int D>
+__host__ __device__ constexpr int wide_dkdv_warpgroups() {
+  return padded_dim<D>() == 128 ? 2 : 1;
+}
+
+template <int D>
+__host__ __device__ constexpr int wide_dkdv_threads() {
+  return wide_dkdv_warpgroups<D>() * kThreads;
+}
+
+template <int D>
+__host__ __device__ constexpr int wide_dkdv_blocks() {
+  return padded_dim<D>() == 128 ? 1 : 3;
+}
+
+template <int D>
+__host__ __device__ constexpr int wide_dkdv_stages() {
+  return padded_dim<D>() == 128 ? 3 : 2;
+}
+
+// K and V resident, wide_dkdv_stages x (Q, dO, lse, delta); +1 KB.
 template <int D>
 __host__ __device__ constexpr int wide_dkdv_smem_bytes() {
-  return 2 * tile_bytes<D>() + kWideStages * dkdv_stage_bytes<D>() + 1024;
+  return 2 * tile_bytes<D>() + wide_dkdv_stages<D>() * dkdv_stage_bytes<D>() +
+         1024;
+}
+
+// The dQ kernel: a ring of 2 stages of K and V, and the blocks an SM it is
+// built for (a register cap: 255 at D = 128, 168 at DP = 64; the header).
+constexpr int kWideDqStages = 2;
+
+template <int D>
+__host__ __device__ constexpr int wide_dq_blocks() {
+  return padded_dim<D>() == 128 ? 2 : 3;
+}
+
+// Q and dO resident, kWideDqStages x (K, V); +1 KB.  O, for delta, goes
+// into the last stage before the loop loads it.
+template <int D>
+__host__ __device__ constexpr int wide_dq_smem_bytes() {
+  return (2 + 2 * kWideDqStages) * tile_bytes<D>() + 1024;
 }
 
 // Rows [r0, r0 + n) of the 64-row tile at dst, from rows t0 + r0 .. of
-// the slice, by the 128 threads of one warpgroup, as 16-byte cp.async
-// chunks (load_tile_by); rows at or past T zero-filled.
+// the slice, by the 128 threads of one warpgroup, as load_tile_by copies
+// them: 16-byte cp.async chunks at D = 128; at D = 50 and 60 4- and 8-byte
+// words on one running row pointer, columns D..63 zero-filled; rows at or
+// past T zero-filled.
 template <int D>
 __device__ __forceinline__ void load_rows_by(int tid, int r0, int n,
                                              uint32_t dst,
                                              const __nv_bfloat16* src,
                                              long long stride_t, int t0,
                                              int T) {
-  static_assert(D % 32 == 0, "whole panels");
-  const int chunks = n * D / 8;
-  for (int i = tid; i < chunks; i += kThreads) {
-    const int c = i & 3;
-    const int r = r0 + (i >> 2) % n;
-    const int panel = (i >> 2) / n;
-    const bool ok = t0 + r < T;
-    const __nv_bfloat16* g =
-        ok ? src + (long long)(t0 + r) * stride_t + panel * 32 + c * 8 : src;
-    cp_async_16(dst + tile_offset(r, panel, c), g, ok);
+  if constexpr (D % 32 == 0) {
+    const int chunks = n * D / 8;
+    for (int i = tid; i < chunks; i += kThreads) {
+      const int c = i & 3;
+      const int r = r0 + (i >> 2) % n;
+      const int panel = (i >> 2) / n;
+      const bool ok = t0 + r < T;
+      const __nv_bfloat16* g =
+          ok ? src + (long long)(t0 + r) * stride_t + panel * 32 + c * 8
+             : src;
+      cp_async_16(dst + tile_offset(r, panel, c), g, ok);
+    }
+  } else {
+    static_assert(D % 2 == 0, "cp.async words");
+    constexpr int kW = word_bytes<D>();
+    constexpr int kPerRow = padded_dim<D>() * 2 / kW;   // words of a row
+    constexpr int kStep = kThreads / kPerRow;           // rows a step
+    const int col = (tid % kPerRow) * (kW / 2);   // the words' first column
+    const int rt = r0 + tid / kPerRow;
+    const uint32_t d0 = dst + (col % 8) * 2;
+    const long long step = kStep * stride_t;
+    const __nv_bfloat16* g = src + (long long)(t0 + rt) * stride_t + col;
+#pragma unroll
+    for (int j = 0; j < n / kStep; ++j, g += step) {
+      const int r = rt + j * kStep;
+      const bool ok = t0 + r < T && col < D;
+      const uint32_t d = d0 + tile_offset(r, col / 32, (col % 32) / 8);
+      if constexpr (kW == 8) {
+        cp_async_8(d, ok ? g : src, ok);
+      } else {
+        cp_async_4(d, ok ? g : src, ok);
+      }
+    }
   }
 }
 
@@ -1062,26 +1145,29 @@ __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
 }
 
-// One (batch*head, 64-key tile): dK and dV.  Warpgroup w takes queries
-// 32 w .. 32 w + 31 of every streamed tile: it loads those rows of Q and dO
-// (and their lse and delta) into its half of each ring stage, computes S^T
-// and dP^T for them (m64n32k16), then dV and dK over all 128 columns from
-// them (m64n128k16, A from registers).  After K and V, each warpgroup
-// waits at its own barrier for its own rows only, so the two drift apart
-// and one's softmax overlaps the other's products; their sums are added
-// once, at the end.  Batch*head along x, key tiles along y (key tile 0, the
-// most query tiles of a causal band, first).  Launched dependent on the dQ
-// kernel: K and V load before it ends, delta after.
+// One (batch*head, 64-key tile): dK and dV.  With two warpgroups (W = 2),
+// warpgroup w takes queries 32 w .. 32 w + 31 of every streamed tile: it
+// loads those rows of Q and dO (and their lse and delta) into its half of
+// each ring stage, computes S^T and dP^T for them (m64n32k16), then dV and
+// dK over all DP columns from them (m64nDPk16, A from registers).  After K
+// and V, each warpgroup waits at its own barrier for its own rows only, so
+// the two drift apart and one's softmax overlaps the other's products;
+// their sums are added once, at the end.  With one (W = 1) it takes all 64.
+// Batch*head along x, key tiles along y (key tile 0, the most query tiles
+// of a causal band, first).  Launched dependent on the dQ kernel: K and V
+// load before it ends, delta after.
 template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kWideThreads, 1)
+__global__ void __launch_bounds__(wide_dkdv_threads<D>(),
+                                  wide_dkdv_blocks<D>())
 flash_bwd_wide_dkdv_kernel(const BwdParams p) {
   constexpr int DP = padded_dim<D>();
   constexpr int kTile = tile_bytes<D>();
   constexpr int kStage = dkdv_stage_bytes<D>();
   constexpr int kKSteps = DP / 16;
-  constexpr int kStages = kWideStages;
-  constexpr int QN = kWideQN;
-  static_assert(DP * kThreads * 4 <= kStages * kStage,
+  constexpr int kStages = wide_dkdv_stages<D>();
+  constexpr int W = wide_dkdv_warpgroups<D>();
+  constexpr int QN = kRows / W;   // queries of a tile a warpgroup takes
+  static_assert(W == 1 || DP * kThreads * 4 <= kStages * kStage,
                 "the ring holds the warpgroups' partial sums");
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
@@ -1136,11 +1222,16 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
   };
 
   if (n_tiles > 0) {
-    // K by warpgroup 0, V by warpgroup 1
-    load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
-                    wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
-                            : p.v + b * p.v_sb + h * p.v_sh,
-                    wg == 0 ? p.k_st : p.v_st, k0, Tk);
+    if constexpr (W == 2) {
+      // K by warpgroup 0, V by warpgroup 1
+      load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
+                      wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                              : p.v + b * p.v_sb + h * p.v_sh,
+                      wg == 0 ? p.k_st : p.v_st, k0, Tk);
+    } else {
+      load_tile<D>(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk);
+      load_tile<D>(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk);
+    }
     // delta: written by the dQ kernel, which this launch may overlap
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
   }
@@ -1248,6 +1339,13 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
     fence_regs(dk);
   }
   cp_async_wait<0>();
+  if constexpr (W == 1) {
+    store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk,
+                  t4);
+    store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv,
+                  t4);
+    return;
+  }
 
   // dK = dK_0 + dK_1 and dV = dV_0 + dV_1: warpgroup 0 hands its dV to
   // warpgroup 1 and takes its dK through the ring's shared memory (value i
@@ -1281,15 +1379,16 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
 // the workspace, and dQ, as flash_bwd_dq_kernel.  O is staged in the ring
 // stage that the prologue leaves empty.  Batch*head along x; query tiles
 // along y, last first, so the blocks with the most key tiles of a causal
-// band start first.  Two blocks an SM (the header); stating that minimum
-// measured 0.003 ms faster at rate 0.1 than leaving it out (PERF.md).
+// band start first.  wide_dq_blocks blocks an SM (the header); at D = 128
+// stating that minimum measured 0.003 ms faster at rate 0.1 than leaving it
+// out (PERF.md).
 template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, wide_dq_blocks<D>())
 flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
                          long long o_sb, long long o_sh, long long o_st,
                          float* delta) {
   constexpr int DP = padded_dim<D>();
-  constexpr int kStages = stages<D>();
+  constexpr int kStages = kWideDqStages;
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;
   extern __shared__ unsigned char smem[];
@@ -1457,369 +1556,30 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
 }
 
 // ---------------------------------------------------------------------------
-// D = 192: delta, then dK/dV and dQ over columns split between two
-// warpgroups (the header)
-// ---------------------------------------------------------------------------
-
-constexpr int kColsplitThreads = 2 * kThreads;  // two warpgroups a block
-
-constexpr int kColsplitStages = 3;   // streamed tiles in flight
-
-// K and V resident, kColsplitStages x (Q, dO, lse, delta); +1 KB.
-template <int D>
-__host__ __device__ constexpr int colsplit_dkdv_smem_bytes() {
-  return 2 * tile_bytes<D>() + kColsplitStages * dkdv_stage_bytes<D>() +
-         1024;
-}
-
-// Q and dO resident, kColsplitStages x (K, V); +1 KB.
-template <int D>
-__host__ __device__ constexpr int colsplit_dq_smem_bytes() {
-  return (2 + 2 * kColsplitStages) * tile_bytes<D>() + 1024;
-}
-
-// One (batch*head, 64-key tile): dK and dV, warpgroup w their columns DP/2
-// w .. DP/2 w + DP/2 - 1.  Both warpgroups compute the whole S^T = K Q^T
-// and dP^T = V dO^T of each query tile (the reduction runs over every
-// column), then dV += P^T dO and dK += dS^T Q over their half of the
-// columns (m64n96k16; B MN-major from the half's first panel); nothing is
-// exchanged and each stores its own columns.  Warpgroup 0 loads K and each
-// stage's Q and lse, warpgroup 1 V, dO and delta; one block barrier a step.
-template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kColsplitThreads, 1)
-flash_bwd_colsplit_dkdv_kernel(const BwdParams p) {
-  constexpr int DP = padded_dim<D>();
-  constexpr int DH = DP / 2;   // columns of dK and dV a warpgroup takes
-  static_assert(DH % 32 == 0, "whole panels a warpgroup");
-  constexpr int kTile = tile_bytes<D>();
-  constexpr int kStage = dkdv_stage_bytes<D>();
-  constexpr int kKSteps = DP / 16;
-  constexpr int kStages = kColsplitStages;
-  extern __shared__ unsigned char smem[];
-  const uint32_t raw = smem_u32(smem);
-  const uint32_t k_s = (raw + 1023) & ~1023u;
-  const uint32_t v_s = k_s + kTile;
-  const uint32_t stage0 = v_s + kTile;   // stage s: Q, dO, lse, delta
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  // this block's dropout hash values: its seed and its index in its group
-  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
-  const int k0 = blockIdx.x * kRows;
-  const int wg = threadIdx.x / kThreads;
-  const int tid = threadIdx.x % kThreads;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int Tq = p.Tq, Tk = p.Tk;
-  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
-  const int kv_end = min(Tk, kv_len);
-  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
-  const uint32_t half = wg * (DH / 32) * kPanelBytes;   // its first panel
-
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* ob = p.dout + b * p.o_sb + h * p.o_sh;
-  const float* lse_b = p.lse + (long long)bh * Tq;
-  const float* dl_b = p.delta + (long long)bh * Tq;
-
-  float dk[DH / 2], dv[DH / 2], st[32], dpt[32];
-  zero(dk);
-  zero(dv);
-  zero(st);
-  zero(dpt);
-
-  // query tiles that see a key of this tile: none past kv_len; with the
-  // band, only rows with row + offset >= k0
-  const int q_begin = p.masked ? max(0, k0 - p.offset) / kRows : 0;
-  const int q_end = k0 >= kv_len ? 0 : (Tq + kRows - 1) / kRows;
-  const int n_tiles = max(0, q_end - q_begin);
-
-  // query tile q_begin + i goes to ring stage i mod kStages: Q and lse by
-  // warpgroup 0, dO and delta by warpgroup 1
-  auto load_stage = [&](int i) {
-    const int q0 = (q_begin + i) * kRows;
-    const uint32_t dst = stage0 + (i % kStages) * kStage;
-    load_tile_by<D>(tid, dst + wg * kTile, wg == 0 ? qb : ob,
-                    wg == 0 ? p.q_st : p.o_st, q0, Tq);
-    if (tid < kRows) {
-      const bool ok = q0 + tid < Tq;
-      const float* src = wg == 0 ? lse_b : dl_b;
-      cp_async_4(dst + 2 * kTile + wg * 4 * kRows + tid * 4,
-                 ok ? src + q0 + tid : src, ok);
-    }
-  };
-
-  if (n_tiles > 0) {
-    load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
-                    wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
-                            : p.v + b * p.v_sb + h * p.v_sh,
-                    wg == 0 ? p.k_st : p.v_st, k0, Tk);
-  }
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < n_tiles) load_stage(i);
-    cp_async_commit();
-  }
-
-  for (int i = 0; i < n_tiles; ++i) {
-    cp_async_wait<kStages - 2>();
-    fence_proxy_async();
-    __syncthreads();
-    if (i + kStages - 1 < n_tiles) load_stage(i + kStages - 1);
-    cp_async_commit();
-
-    const int q0 = (q_begin + i) * kRows;
-    const uint32_t q_s = stage0 + (i % kStages) * kStage;
-    const uint32_t o_s = q_s + kTile;
-    const float* lse_s =
-        reinterpret_cast<const float*>(smem + (q_s + 2 * kTile - raw));
-    const float* dl_s = lse_s + kRows;
-
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      wgmma_ss<64>(st, desc_k_major(k_s, kk), desc_k_major(q_s, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      wgmma_ss<64>(dpt, desc_k_major(v_s, kk), desc_k_major(o_s, kk),
-                   kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(st);
-    fence_regs(dpt);
-
-    // P^T (masked entries 0), dropout, dS^T; the dropped P^T replaces S^T
-    // and dS^T replaces dP^T in place
-#pragma unroll
-    for (int i2 = 0; i2 < 32; ++i2) {
-      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);   // query in tile
-      st[i2] = ex2(fmaf(st[i2], kLog2e, -lse_s[qi] * kLog2e));
-    }
-    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
-#pragma unroll
-      for (int i2 = 0; i2 < 32; ++i2) {
-        const int row = q0 + (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
-        const int col = (i2 & 2) ? key0 + 8 : key0;
-        if (!(row < Tq && col < kv_end &&
-              (!p.masked || col <= row + p.offset))) {
-          st[i2] = 0.f;
-        }
-      }
-    }
-#pragma unroll
-    for (int i2 = 0; i2 < 32; ++i2) {
-      const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
-      const int row = q0 + qi;
-      const int col = (i2 & 2) ? key0 + 8 : key0;
-      const float pr = st[i2];
-      float dpr = dpt[i2];
-      float pdr = pr;
-      if (p.drop.on) {
-        const bool kept = p.drop.keep<Groups>(dblk, row, col);
-        pdr = kept ? pr * p.drop.inv_keep : 0.f;
-        dpr = kept ? dpr * p.drop.inv_keep : 0.f;
-      }
-      dpt[i2] = pr * (dpr - dl_s[qi]);
-      st[i2] = pdr;
-    }
-
-    // dV += P^T dO and dK += dS^T Q over this warpgroup's columns, A from
-    // registers, B MN-major
-    uint32_t pa[4][4], da[4][4];
-    p_frags(pa, st);
-    p_frags(da, dpt);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DH>(dv, pa[kc], desc_mn_major(o_s + half, kc));
-    }
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DH>(dk, da[kc], desc_mn_major(q_s + half, kc));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
-  }
-  cp_async_wait<0>();
-
-  store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
-                 Tk, dk, t4);
-  store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
-                 Tk, dv, t4);
-}
-
-// One (batch*head, 64-query tile): dQ, warpgroup w its columns DP/2 w ..
-// DP/2 w + DP/2 - 1.  Both warpgroups compute the whole S = Q K^T and
-// dP = dO V^T of each key tile, then dQ += dS K over their half of the
-// columns.  Warpgroup 0 loads Q and each stage's K, warpgroup 1 dO and V.
-template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kColsplitThreads, 1)
-flash_bwd_colsplit_dq_kernel(const BwdParams p) {
-  constexpr int DP = padded_dim<D>();
-  constexpr int DH = DP / 2;   // columns of dQ a warpgroup takes
-  static_assert(DH % 32 == 0, "whole panels a warpgroup");
-  constexpr int kStages = kColsplitStages;
-  constexpr int kTile = tile_bytes<D>();
-  constexpr int kKSteps = DP / 16;
-  extern __shared__ unsigned char smem[];
-  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
-  const uint32_t o_s = q_s + kTile;        // dO
-  const uint32_t kv_s = o_s + kTile;   // stage s: K at + 2 s kTile, V after
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  // this block's dropout hash values: its seed and its index in its group
-  const BlockDropout dblk = block_dropout<Groups>(p.seed_groups, bh);
-  const int q0 = blockIdx.x * kRows;
-  const int wg = threadIdx.x / kThreads;
-  const int tid = threadIdx.x % kThreads;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int Tq = p.Tq, Tk = p.Tk;
-  const int kv_len = p.kv_lens ? p.kv_lens[b] : Tk;
-  const int kv_end = min(Tk, kv_len);
-  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
-  const uint32_t half = wg * (DH / 32) * kPanelBytes;   // its first panel
-
-  const float* lse_b = p.lse + (long long)bh * Tq;
-  const float* dl_b = p.delta + (long long)bh * Tq;
-  const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
-  const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
-  const float dl0 = row0 < Tq ? dl_b[row0] : 0.f;
-  const float dl1 = row0 + 8 < Tq ? dl_b[row0 + 8] : 0.f;
-
-  float dq[DH / 2], s[32], dp[32];
-  zero(dq);
-  zero(s);
-  zero(dp);
-
-  // key tiles with a visible key: none past kv_len, none above the band
-  int n_tiles = (max(kv_end, 0) + kRows - 1) / kRows;
-  if (p.masked) {
-    n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
-  }
-  const __nv_bfloat16* kvb = wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
-                                     : p.v + b * p.v_sb + h * p.v_sh;
-  const long long kv_st = wg == 0 ? p.k_st : p.v_st;
-
-  // key tile t goes to ring stage t mod kStages: K by warpgroup 0, V by
-  // warpgroup 1
-  auto load_kv = [&](int t) {
-    const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
-    load_tile_by<D>(tid, dst + wg * kTile, kvb, kv_st, t * kRows, Tk);
-  };
-  if (n_tiles > 0) {
-    load_tile_by<D>(tid, wg == 0 ? q_s : o_s,
-                    wg == 0 ? p.q + b * p.q_sb + h * p.q_sh
-                            : p.dout + b * p.o_sb + h * p.o_sh,
-                    wg == 0 ? p.q_st : p.o_st, q0, Tq);
-  }
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles) load_kv(t);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    fence_proxy_async();
-    __syncthreads();
-    if (kt + kStages - 1 < n_tiles) load_kv(kt + kStages - 1);
-    cp_async_commit();
-    const uint32_t k_s = kv_s + 2 * (kt % kStages) * kTile;
-    const uint32_t v_s = k_s + kTile;
-    const int k0 = kt * kRows;
-
-    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      wgmma_ss<64>(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      wgmma_ss<64>(dp, desc_k_major(o_s, kk), desc_k_major(v_s, kk), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = ex2(fmaf(s[i], kLog2e, -((i & 2) ? lsel1 : lsel0)));
-    }
-    if (k0 + kRows > kv_end || (p.masked && k0 + kRows - 1 > q0 + p.offset)) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int row = (i & 2) ? row0 + 8 : row0;
-        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
-        if (!(row < Tq && col < kv_end &&
-              (!p.masked || col <= row + p.offset))) {
-          s[i] = 0.f;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int hi = i & 2;
-      const int row = hi ? row0 + 8 : row0;
-      const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
-      const float pr = s[i];
-      float dpr = dp[i];
-      if (p.drop.on) {
-        dpr = p.drop.keep<Groups>(dblk, row, col) ? dpr * p.drop.inv_keep : 0.f;
-      }
-      s[i] = pr * (dpr - (hi ? dl1 : dl0));   // dS
-    }
-
-    // dQ += dS K over this warpgroup's columns, dS from registers, K
-    // MN-major
-    uint32_t da[4][4];
-    p_frags(da, s);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      wgmma_rs_mn<DH>(dq, da[kc], desc_mn_major(k_s + half, kc));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-  }
-  cp_async_wait<0>();
-
-  store_rows<DH>(p.dq + b * p.dq_sb + h * p.dq_sh + wg * DH, p.dq_st, row0,
-                 Tq, dq, t4);
-}
-
-// ---------------------------------------------------------------------------
-// D = 256: dQ with delta, then dK/dV, each tile step's scores split
+// D = 192 and 256: dQ with delta, then dK/dV, each tile step's scores split
 // between two warpgroups (the header)
 // ---------------------------------------------------------------------------
 
 constexpr int kSplitThreads = 2 * kThreads;  // two warpgroups a block
-constexpr int kSplitStages = 2;              // streamed tiles in flight
 constexpr int kScoreTileBytes = 2 * kPanelBytes;  // a 64 x 64 bf16 tile
+
+// Streamed tiles in flight: a 64 x 192 tile is 24 KB and three stages fit
+// in both kernels (measured faster than two, the header); a 64 x 256 tile
+// is 32 KB, and two.
+template <int D>
+__host__ __device__ constexpr int split_stages() {
+  return padded_dim<D>() == 192 ? 3 : 2;
+}
 
 __device__ __forceinline__ void st_shared_b32(uint32_t dst, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
 }
 
-// K and V resident, kSplitStages x (Q, dO, lse, delta), the P^T and dS^T
+// K and V resident, split_stages x (Q, dO, lse, delta), the P^T and dS^T
 // tiles; +1 KB.
 template <int D>
 __host__ __device__ constexpr int rowsplit_dkdv_smem_bytes() {
-  return 2 * tile_bytes<D>() + kSplitStages * dkdv_stage_bytes<D>() +
+  return 2 * tile_bytes<D>() + split_stages<D>() * dkdv_stage_bytes<D>() +
          2 * kScoreTileBytes + 1024;
 }
 
@@ -1828,9 +1588,10 @@ __host__ __device__ constexpr int rowsplit_dkdv_smem_bytes() {
 // Q, dO, lse and delta.  Warpgroup w computes S^T and dP^T for queries
 // 32 w .. 32 w + 31 of each query tile (m64n32k16), P^T (dropped) and dS^T
 // for them, and writes them as panel w of two bf16 64 x 64 tiles; after a
-// block barrier it adds P^T dO and dS^T Q to its 128 columns of dV and dK
-// (m64n128k16, A and B from shared memory).  Per query tile the tensor
-// cores run S^T, dP^T, dV and dK once each; two block barriers a step.
+// block barrier it adds P^T dO and dS^T Q to its DP / 2 columns of dV and
+// dK (m64n96k16 or m64n128k16, A and B from shared memory).  Per query
+// tile the tensor cores run S^T, dP^T, dV and dK once each; two block
+// barriers a step.
 // Batch*head along x, key tiles along y (key tile 0, the most query tiles
 // of a causal band, first).  Launched dependent on the dQ kernel: K and V
 // load before it ends, delta after.
@@ -1843,7 +1604,7 @@ flash_bwd_rowsplit_dkdv_kernel(const BwdParams p) {
   constexpr int kTile = tile_bytes<D>();
   constexpr int kStage = dkdv_stage_bytes<D>();
   constexpr int kKSteps = DP / 16;
-  constexpr int kSt = kSplitStages;
+  constexpr int kSt = split_stages<D>();
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -2023,11 +1784,12 @@ flash_bwd_rowsplit_dkdv_kernel(const BwdParams p) {
                  Tk, dv, t4);
 }
 
-// Q and dO resident, kSplitStages x (K, V), the dS tile; +1 KB.  O, for
-// delta, goes into the second stage's K tile before the loop loads it.
+// Q and dO resident, split_stages x (K, V), the dS tile; +1 KB.  O, for
+// delta, goes into the last stage's K tile before the loop loads it.
 template <int D>
 __host__ __device__ constexpr int keysplit_dq_smem_bytes() {
-  return (2 + 2 * kSplitStages) * tile_bytes<D>() + kScoreTileBytes + 1024;
+  return (2 + 2 * split_stages<D>()) * tile_bytes<D>() + kScoreTileBytes +
+         1024;
 }
 
 // One (batch*head, 64-query tile): delta = rowsum(dO * O) of its rows into
@@ -2035,11 +1797,11 @@ __host__ __device__ constexpr int keysplit_dq_smem_bytes() {
 // warpgroups split by keys.  Warpgroup w computes S and dP for keys 32 w ..
 // 32 w + 31 of each key tile (m64n32k16), then P, its dropout and dS for
 // them, and writes them as panel w of a bf16 64 x 64 dS tile; after a
-// block barrier each adds dS K to its 128 columns of dQ (m64n128k16, A and
-// B from shared memory).  Per key tile the tensor cores run S, dP and dQ
-// once each; two block barriers a step.  Batch*head along x; query tiles
-// along y, last first, so the blocks with the most key tiles of a causal
-// band start first.
+// block barrier each adds dS K to its DP / 2 columns of dQ (m64n96k16 or
+// m64n128k16, A and B from shared memory).  Per key tile the tensor cores
+// run S, dP and dQ once each; two block barriers a step.  Batch*head
+// along x; query tiles along y, last first, so the blocks with the most
+// key tiles of a causal band start first.
 template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kSplitThreads, 1)
 flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
@@ -2050,14 +1812,15 @@ flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   constexpr int KN = kRows / 2;  // keys of a tile a warpgroup takes
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;
+  constexpr int kSt = split_stages<D>();
   extern __shared__ unsigned char smem[];
   __shared__ float dl_s[kRows];
   const uint32_t raw = smem_u32(smem);
   const uint32_t q_s = (raw + 1023) & ~1023u;
   const uint32_t do_s = q_s + kTile;
   const uint32_t kv_s = do_s + kTile;   // stage s: K at + 2 s kTile, V after
-  const uint32_t ds_s = kv_s + 2 * kSplitStages * kTile;
-  const uint32_t out_s = kv_s + 2 * kTile;   // the second stage's K tile
+  const uint32_t ds_s = kv_s + 2 * kSt * kTile;
+  const uint32_t out_s = kv_s + 2 * (kSt - 1) * kTile;   // the last K tile
 
   // the dK/dV kernel after this one may start its blocks while the last of
   // these run: it waits for all of them before it reads delta
@@ -2090,29 +1853,33 @@ flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
                              threadIdx.x);
   const TallCopier<D> v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st,
                              threadIdx.x);
-  // key tile t goes to ring stage t mod kSplitStages
+  // key tile t goes to ring stage t mod kSt
   auto load_kv = [&](int t) {
-    const uint32_t dst = kv_s + 2 * (t % kSplitStages) * kTile;
+    const uint32_t dst = kv_s + 2 * (t % kSt) * kTile;
     k_copy.copy(dst, t * kRows, Tk);
     v_copy.copy(dst + kTile, t * kRows, Tk);
   };
-  // Q, dO and O (for delta, even where no key is visible), key tile 0
+  // Q, dO and O (for delta, even where no key is visible), key tiles 0 ..
+  // kSt - 2
   TallCopier<D>(p.q + b * p.q_sb + h * p.q_sh, p.q_st, threadIdx.x)
       .copy(q_s, q0, Tq);
   TallCopier<D>(p.dout + b * p.o_sb + h * p.o_sh, p.o_st, threadIdx.x)
       .copy(do_s, q0, Tq);
   TallCopier<D>(o + b * o_sb + h * o_sh, o_st, threadIdx.x)
       .copy(out_s, q0, Tq);
-  if (n_tiles > 0) load_kv(0);
-  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kSt - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
+  }
 
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
   const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
-  // delta: thread 4 r + c sums columns 64 c .. 64 c + 63 of row r in fp32,
-  // the four threads of a row add theirs in a fixed order; rows past Tq
-  // (zero-filled) give 0 and are not written
-  cp_async_wait<0>();
+  // delta: thread 4 r + c sums columns DP / 4 c .. DP / 4 (c + 1) - 1 of
+  // row r in fp32, the four threads of a row add theirs in a fixed order;
+  // rows past Tq (zero-filled) give 0 and are not written
+  cp_async_wait<kSt - 2>();
   __syncthreads();
   {
     const int r = threadIdx.x / 4;
@@ -2152,12 +1919,12 @@ flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     // key tile kt has landed; every thread is done with tile kt - 1
-    cp_async_wait<0>();
+    cp_async_wait<kSt - 2>();
     fence_proxy_async();
     __syncthreads();
-    if (kt + 1 < n_tiles) load_kv(kt + 1);
+    if (kt + kSt - 1 < n_tiles) load_kv(kt + kSt - 1);
     cp_async_commit();
-    const uint32_t k_s = kv_s + 2 * (kt % kSplitStages) * kTile;
+    const uint32_t k_s = kv_s + 2 * (kt % kSt) * kTile;
     const uint32_t v_s = k_s + kTile;
     const int k0 = kt * kRows;
 
@@ -2319,20 +2086,21 @@ cudaError_t launch_narrow(const BwdParams& p, const __nv_bfloat16* o,
       o_st, s);
 }
 
-// The backward at D = 128.
+// The backward at D = 128, 50 and 60.
 template <int D, bool Groups>
 cudaError_t launch_wide(const BwdParams& p, const __nv_bfloat16* o,
                         long long o_sb, long long o_sh, long long o_st,
                         cudaStream_t s) {
   static bool smem_dkdv = false, smem_dq = false;
   return launch_dq_then_dkdv(
-      flash_bwd_wide_dq_kernel<D, Groups>, dq_smem_bytes<D>(), kThreads,
+      flash_bwd_wide_dq_kernel<D, Groups>, wide_dq_smem_bytes<D>(), kThreads,
       smem_dq, flash_bwd_wide_dkdv_kernel<D, Groups>,
-      wide_dkdv_smem_bytes<D>(),
-      kWideThreads, smem_dkdv, p, o, o_sb, o_sh, o_st, s);
+      wide_dkdv_smem_bytes<D>(), wide_dkdv_threads<D>(), smem_dkdv, p, o,
+      o_sb, o_sh, o_st, s);
 }
 
-// The backward at D = 256: the dQ kernel with delta, then the dK/dV kernel.
+// The backward at D = 192 and 256: the dQ kernel with delta, then the dK/dV
+// kernel.
 template <int D, bool Groups>
 cudaError_t launch_split(const BwdParams& p, const __nv_bfloat16* o,
                         long long o_sb, long long o_sh, long long o_st,
@@ -2345,33 +2113,21 @@ cudaError_t launch_split(const BwdParams& p, const __nv_bfloat16* o,
       o_sh, o_st, s);
 }
 
-// The backward at D = 192: the delta kernel, then the column-split dK/dV
-// and dQ kernels.
+// The backward's launches at head_dim D (the header): two at 25, 30, 50,
+// 60, 128, 192 and 256 (dQ with delta, then dK/dV), three at 64 and 96.
 template <int D, bool Groups>
-cudaError_t launch_colsplit(const BwdParams& p, const __nv_bfloat16* o,
-                            long long o_sb, long long o_sh, long long o_st,
-                            cudaStream_t s) {
-  static bool smem_dkdv = false, smem_dq = false;
-  constexpr int dkdv_bytes = colsplit_dkdv_smem_bytes<D>();
-  constexpr int dq_bytes = colsplit_dq_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_colsplit_dkdv_kernel<D, Groups>,
-                               dkdv_bytes, smem_dkdv);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_colsplit_dq_kernel<D, Groups>, dq_bytes,
-                   smem_dq);
-  if (err != cudaSuccess) return err;
-  err = launch_delta<D>(o, p.dout, const_cast<float*>(p.delta), p.B, p.H,
-                        p.Tq, o_sb, o_sh, o_st, p.o_sb, p.o_sh, p.o_st, s);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tk + kRows - 1) / kRows, p.B * p.H);
-  flash_bwd_colsplit_dkdv_kernel<D, Groups>
-      <<<grid, kColsplitThreads, dkdv_bytes, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((p.Tq + kRows - 1) / kRows, p.B * p.H);
-  flash_bwd_colsplit_dq_kernel<D, Groups>
-      <<<grid_q, kColsplitThreads, dq_bytes, s>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_by_head_dim(const BwdParams& p, const __nv_bfloat16* o,
+                               long long o_sb, long long o_sh, long long o_st,
+                               cudaStream_t s) {
+  if constexpr (padded_dim<D>() == 32) {
+    return launch_narrow<D, Groups>(p, o, o_sb, o_sh, o_st, s);
+  } else if constexpr (runs_wide<D>()) {
+    return launch_wide<D, Groups>(p, o, o_sb, o_sh, o_st, s);
+  } else if constexpr (padded_dim<D>() >= 192) {
+    return launch_split<D, Groups>(p, o, o_sb, o_sh, o_st, s);
+  } else {
+    return launch<D, Groups>(p, o, o_sb, o_sh, o_st, s);
+  }
 }
 
 }  // namespace
@@ -2380,10 +2136,10 @@ extern "C" {
 
 // q, k, v, dO, o, dq, dk, dv: (B, H, T, D) bf16 by strides (b, h, t); lse
 // (B*H, Tq) fp32; delta an fp32 (B*H, Tq) workspace the call fills; kv_lens
-// (B,) int32 or null.  Launches the delta kernel, the dK/dV kernel, then the
-// dQ kernel, on the stream; at head_dim 25, 30 and 128 the dQ kernel (with
-// delta), then the dK/dV kernel; at 256 delta, dV, dK, then dQ.  Dropout's
-// seeds as bpx_flash_fwd's.
+// (B,) int32 or null.  Launches, on the stream, at head_dim 64 and 96 the
+// delta kernel, the dK/dV kernel, then the dQ kernel; at 25, 30, 50, 60,
+// 128, 192 and 256 the dQ kernel (with delta), then the dK/dV kernel
+// (launch_by_head_dim).  Dropout's seeds as bpx_flash_fwd's.
 // Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
 // without an instantiation, or for seed groups that do not fit.
 int bpx_flash_bwd(const void* q, const void* k, const void* v,
@@ -2434,29 +2190,9 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     if (p.seed_groups.groups > 1) {
-      if constexpr (padded_dim<kD>() == 32) {
-        return launch_narrow<kD, true>(p, ob, o_sb, o_sh, o_st, s);
-      } else if constexpr (padded_dim<kD>() == 128) {
-        return launch_wide<kD, true>(p, ob, o_sb, o_sh, o_st, s);
-      } else if constexpr (padded_dim<kD>() == 192) {
-        return launch_colsplit<kD, true>(p, ob, o_sb, o_sh, o_st, s);
-      } else if constexpr (padded_dim<kD>() == 256) {
-        return launch_split<kD, true>(p, ob, o_sb, o_sh, o_st, s);
-      } else {
-        return launch<kD, true>(p, ob, o_sb, o_sh, o_st, s);
-      }
+      return launch_by_head_dim<kD, true>(p, ob, o_sb, o_sh, o_st, s);
     }
-    if constexpr (padded_dim<kD>() == 32) {
-      return launch_narrow<kD, false>(p, ob, o_sb, o_sh, o_st, s);
-    } else if constexpr (padded_dim<kD>() == 128) {
-      return launch_wide<kD, false>(p, ob, o_sb, o_sh, o_st, s);
-    } else if constexpr (padded_dim<kD>() == 192) {
-      return launch_colsplit<kD, false>(p, ob, o_sb, o_sh, o_st, s);
-    } else if constexpr (padded_dim<kD>() == 256) {
-      return launch_split<kD, false>(p, ob, o_sb, o_sh, o_st, s);
-    } else {
-      return launch<kD, false>(p, ob, o_sb, o_sh, o_st, s);
-    }
+    return launch_by_head_dim<kD, false>(p, ob, o_sb, o_sh, o_st, s);
   }));
 }
 
@@ -2489,23 +2225,14 @@ int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
                  : bpx_flash::blocks_per_sm(flash_bwd_narrow_dq_kernel<kD>,
                                             narrow_dq_smem_bytes<kD>(),
                                             blocks);
-    } else if constexpr (padded_dim<kD>() == 128) {
+    } else if constexpr (runs_wide<kD>()) {
       return kernel == 0
                  ? bpx_flash::blocks_per_sm(flash_bwd_wide_dkdv_kernel<kD>,
                                             wide_dkdv_smem_bytes<kD>(),
-                                            blocks, kWideThreads)
+                                            blocks, wide_dkdv_threads<kD>())
                  : bpx_flash::blocks_per_sm(flash_bwd_wide_dq_kernel<kD>,
-                                            dq_smem_bytes<kD>(), blocks);
-    } else if constexpr (padded_dim<kD>() == 192) {
-      return kernel == 0
-                 ? bpx_flash::blocks_per_sm(
-                       flash_bwd_colsplit_dkdv_kernel<kD>,
-                       colsplit_dkdv_smem_bytes<kD>(), blocks,
-                       kColsplitThreads)
-                 : bpx_flash::blocks_per_sm(flash_bwd_colsplit_dq_kernel<kD>,
-                                            colsplit_dq_smem_bytes<kD>(),
-                                            blocks, kColsplitThreads);
-    } else if constexpr (padded_dim<kD>() == 256) {
+                                            wide_dq_smem_bytes<kD>(), blocks);
+    } else if constexpr (padded_dim<kD>() >= 192) {
       return kernel == 0
                  ? bpx_flash::blocks_per_sm(
                        flash_bwd_rowsplit_dkdv_kernel<kD>,

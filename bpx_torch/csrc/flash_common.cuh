@@ -471,11 +471,36 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
 }
 
 // d(64 x N, fp32) (+)= A(64 x 16) . B(16 x N), A K-major and B MN-major in
-// shared memory (descriptors a, b): the D = 256 dQ kernel's dS K, with dS
-// from shared memory (flash_bwd.cu).
+// shared memory (descriptors a, b): the D = 192 and 256 backward's second
+// products (dS K, P^T dO, dS^T Q) over a warpgroup's half of the columns,
+// with dS, P^T and dS^T from shared memory (flash_bwd.cu).
 template <int N>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a,
                                             uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<96>(float (&d)[48], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint64_t a,

@@ -16,10 +16,9 @@ The backward recomputes P from the saved log-sum-exp, with ``delta =
 rowsum(dO * O)`` in fp32: on the card the backward's kernels compute it
 (what the JAX package's kernels compute in-kernel with ``BPX_XLA_DELTA=0``;
 its default computes it in XLA before them, the same function), on the CPU
-:func:`attention_delta`'s plain version.  At head dims 50, 60, 64, 96 and
-192 a backward is three kernels (delta, dK/dV, dQ); at 25, 30, 128 and 256
-two: the dQ kernel computes delta for its rows and leaves it for the dK/dV
-kernel after it.
+:func:`attention_delta`'s plain version.  At head dims 64 and 96 a backward
+is three kernels (delta, dK/dV, dQ); at the others two: the dQ kernel
+computes delta for its rows and leaves it for the dK/dV kernel after it.
 Masked entries get P = 0, so a row with no visible key
 gets zero gradients although its forward attended uniformly: that is the
 JAX package's backward, not the true derivative.
@@ -28,17 +27,17 @@ The kernels take head dims 25, 30, 50, 60, 64, 96, 128, 192 and 256.  A
 narrow head (25, 30: the mmtrvat presets' 300-wide streams over 12 or 10
 heads) runs the same kernels at 32 columns with the padding zeroed in
 shared memory, and 50 and 60 (mmtrvpa's 600-wide memory encoders over 12
-or 10 heads) run the head_dim-64 kernels so: nothing is padded in device
-memory, and the strided (B, H, T, D) views of a fused projection go to the
-kernels without a copy.  At 128 (mmimdb: 768 over 6 heads) the dK/dV
-kernel runs two warpgroups a block, each over half of every query tile and
-all the columns; at 192 (mmtrvpa's 2E-wide memory encoders at moviescope's
-widths: 1536 over 8 heads) the dK/dV and the dQ kernel run two warpgroups a
-block, each over every row and half the columns; at 256 (the same at
-mmimdb's widths: 1536 over 6) the two warpgroups of the dQ kernel split
-each key tile's keys, and those of the dK/dV kernel each query tile's
-queries, so no product is computed twice; the forward at 192 and 256 runs
-two warpgroups on 128 query rows (``csrc/flash_fwd.cu``,
+or 10 heads) run at 64 columns so (the head_dim-64 forward, the
+head_dim-128 backward's kernels): nothing is padded in device memory, and
+the strided (B, H, T, D) views of a fused projection go to the kernels
+without a copy.  At 128 (mmimdb: 768 over 6 heads) the dK/dV kernel runs
+two warpgroups a block, each over half of every query tile and all the
+columns (at 50 and 60 one warpgroup, three blocks an SM); at 192 and 256
+(mmtrvpa's 2E-wide memory encoders at moviescope's and mmimdb's widths:
+1536 over 8 or 6 heads) the two warpgroups of the dQ kernel split each key
+tile's keys, and those of the dK/dV kernel each query tile's queries, so
+no product is computed twice; the forward at 192 and 256 runs two
+warpgroups on 128 query rows (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``).
 
 Seeds per group: the ops take a list of dropout seeds, one per group of
@@ -415,8 +414,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              kv_lens=None, dropout_rate=0.0,
                              dropout_seed=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
-    ``dout`` (the op ``bpx_torch::flash_bwd``); the kernels (delta, dK/dV,
-    dQ; at head_dim 25, 30, 128 and 256 dQ with delta, then dK/dV) for CUDA
+    ``dout`` (the op ``bpx_torch::flash_bwd``); the kernels (dQ with
+    delta, then dK/dV; at head_dim 64 and 96 delta, dK/dV, dQ) for CUDA
     tensors, the plain version for CPU."""
     return _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked,
                       float(dropout_rate), seed_list(dropout_seed))
@@ -430,9 +429,9 @@ def attention_delta_reference(dout: torch.Tensor,
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors (the op
-    ``bpx_torch::flash_delta``): the head_dim 50/60/64/96/192 backward's
-    first kernel on its own (at every head dim) for CUDA tensors, the plain
-    version for CPU."""
+    ``bpx_torch::flash_delta``): the head_dim 64/96 backward's first kernel
+    on its own (at every head dim) for CUDA tensors, the plain version for
+    CPU."""
     return _FLASH_DELTA(dout, out)
 
 
@@ -579,8 +578,8 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
 #: forward kernel launches (and those with dropout) since last set to 0
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
-#: backward calls that launched their kernels (delta, dK/dV, dQ; or, at
-#: head_dim 25, 30, 128 and 256, dQ with delta and dK/dV)
+#: backward calls that launched their kernels (dQ with delta and dK/dV; or,
+#: at head_dim 64 and 96, delta, dK/dV, dQ)
 flash_attention_backward.launches = 0
 #: launches of the delta kernel on its own (not those inside the backward)
 attention_delta.launches = 0

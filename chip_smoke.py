@@ -42,12 +42,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    band) must move the gradients past their limit;
 6. the new kernels at the recorded micro-step's classes against their plain
    versions, with the same timings: the flash forward with dropout, the
-   flash backward (delta, dK/dV and dQ kernels; at head_dim 25, 30 and
-   128 the dQ kernel, which computes delta, and the dK/dV kernel; timed
-   together,
-   with the profiler's split, each kernel beside its own bound) at rate 0
-   and 0.1 (SDPA's backward as the library yardstick) and its delta kernel
-   alone, the LayerNorm backward
+   flash backward (at head_dim 64 and 96 the delta, dK/dV and dQ kernels;
+   at every other head dim the dQ kernel, which computes delta, and the
+   dK/dV kernel; timed together, with the profiler's split, each kernel
+   beside its own bound) at rate 0 and 0.1 (SDPA's backward as the library
+   yardstick) and its delta kernel alone, the LayerNorm backward
    (``F.layer_norm``'s backward; bitwise-equal reruns; the device kernels
    one call runs, from the profiler: exactly one, the cooperative launch,
    and no memset; its scalar kernel once on a misaligned view); the plain
@@ -950,22 +949,19 @@ def sdpa_backward(torch, q, k, v, mask_args, rate, dout):
 
 def bwd_kernels(D, groups=1):
     """The backward's kernels at head_dim D for ``groups`` seed groups, by
-    the names the profiler reports, as (dQ, dK/dV, delta or None): at a
-    narrow head (25, 30), at 128 and at 256 the dQ kernel computes delta
-    itself, so the backward is two launches; at 192 the column-split
-    kernels after the delta kernel."""
+    the names the profiler reports, as (dQ, dK/dV, delta or None): at every
+    head dim but 64 and 96 the dQ kernel computes delta itself, so the
+    backward is two launches (the narrow kernels at 25 and 30, the wide ones
+    at 50, 60 and 128, the key- and row-split ones at 192 and 256); at 64
+    and 96 the delta kernel, then dK/dV and dQ."""
     args = build_args(D, groups)
     if D < 32:
         return ("flash_bwd_narrow_dq_kernel" + args,
                 "flash_bwd_narrow_dkdv_kernel" + args, None)
-    if D == 128:
+    if D in (50, 60, 128):
         return ("flash_bwd_wide_dq_kernel" + args,
                 "flash_bwd_wide_dkdv_kernel" + args, None)
-    if D == 192:
-        return ("flash_bwd_colsplit_dq_kernel" + args,
-                "flash_bwd_colsplit_dkdv_kernel" + args,
-                "flash_delta_kernel")
-    if D == 256:
+    if D in (192, 256):
         return ("flash_bwd_keysplit_dq_kernel" + args,
                 "flash_bwd_rowsplit_dkdv_kernel" + args, None)
     return ("flash_bwd_dq_kernel" + args, "flash_bwd_dkdv_kernel" + args,
@@ -986,12 +982,13 @@ def backward_split(torch, fn, D, groups=1):
 
 
 def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
-    """The backward kernels (delta, dK/dV, dQ; at a narrow head the dQ
-    kernel with delta, then dK/dV) against the plain backward at each class
-    of the recorded micro-step (its dropout rate and seed groups, one
-    fixed seed a group), from the kernel forward's lse; the delta kernel on
-    its own against its plain version.  The profiler must see each of the
-    class's kernels, of the build for its seed groups."""
+    """The backward kernels (``bwd_kernels``: at head_dim 64 and 96 delta,
+    dK/dV, dQ; at the others the dQ kernel with delta, then dK/dV) against
+    the plain backward at each class of the recorded micro-step (its
+    dropout rate and seed groups, one fixed seed a group), from the kernel
+    forward's lse; the delta kernel on its own against its plain version.
+    The profiler must see each of the class's kernels, of the build for
+    its seed groups."""
     from bpx_torch.ops import flash_attention as fa
     rows = []
     seed = 0x7F4A7C15
@@ -1354,8 +1351,8 @@ def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens):
     """Bounds of the dQ and the dK/dV kernel alone, each against the work
     it does: both read q, k, v, dO, lse and delta and compute S and dP (4 D
     flops per visible score entry); dQ then writes dq (2 D more), dK/dV
-    writes dk and dv (4 D more).  Where the dQ kernel computes delta (head
-    dims 25, 30, 128 and 256) it reads O and writes delta instead of
+    writes dk and dv (4 D more).  Where the dQ kernel computes delta
+    (every head dim but 64 and 96) it reads O and writes delta instead of
     reading it (2 D flops a row more)."""
     visible, keys, _ = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
     bh = B * H

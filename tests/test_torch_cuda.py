@@ -662,10 +662,11 @@ def test_head_dim_192_kernels_match_plain(gen, B, H, Tq, Tk, masked, lens,
 @pytest.mark.parametrize("seed", [0x1920C0DE, [0x1920C0DE, 0xC0FFEE]])
 def test_dropout_mask_is_exact_at_head_dim_192(gen, seed):
     """The forward and backward kernels' dropout masks at head_dim 192
-    (two warpgroups over the query rows in the forward, over the columns in
-    the backward), every bit of a 200 x 200 score matrix (two rounds),
-    against the plain version's; with one seed, and with two seed groups
-    (the build for several, one batch row a group)."""
+    (two warpgroups over the query rows in the forward, over each tile's
+    keys or queries in the backward), every bit of a 200 x 200 score
+    matrix (two rounds), against the plain version's; with one seed, and
+    with two seed groups (the build for several, one batch row a
+    group)."""
     B, H, T, rate = 2, 3, 200, 0.1
     fwd, bwd = narrow_mask_bits(B, H, T, 192, rate, seed)
     keep = keep_mask(seed, B, H, T, T, rate, "cuda")
@@ -675,8 +676,8 @@ def test_dropout_mask_is_exact_at_head_dim_192(gen, seed):
 
 def test_head_dim_192_kernels_by_name(gen):
     """The profiler names the forward's own kernel at 192 (two warpgroups
-    on a 128-query tile), and the backward's three kernels: delta, the
-    column-split dK/dV and dQ."""
+    on a 128-query tile), and the backward's two kernels: the key-split dQ
+    kernel with delta, then the row-split dK/dV kernel."""
     q, k, v = _fused_views(gen, 2, 8, 200, 200, 192)
     out, lse = flash_attention(q, k, v, True, None, return_lse=True)
     for _ in range(3):   # the profiler drops an event now and then: retry
@@ -688,12 +689,11 @@ def test_head_dim_192_kernels_by_name(gen):
     for _ in range(3):
         names = _device_kernels(lambda: flash_attention_backward(
             q, k, v, out, lse, dout, True, None))
-        if len(names) == 3:
+        if len(names) == 2:
             break
-    assert len(names) == 3, names
-    for kernel in ("flash_delta_kernel<192",
-                   "flash_bwd_colsplit_dkdv_kernel<192",
-                   "flash_bwd_colsplit_dq_kernel<192"):
+    assert len(names) == 2, names
+    for kernel in ("flash_bwd_keysplit_dq_kernel<192",
+                   "flash_bwd_rowsplit_dkdv_kernel<192"):
         assert any(kernel in n for n in names), (kernel, names)
 
 
@@ -716,10 +716,12 @@ MEMORY_DIMS = [(50, 12), (60, 10), (256, 6)]
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_memory_head_dims_match_plain(gen, D, H, B, Tq, Tk, masked, lens,
                                       rate):
-    """head_dim 50, 60 (the D 64 kernels over two zero-padded panels) and
-    256 (two warpgroups on 128 query rows in the forward; in the backward
-    dQ with delta, then dK/dV, the warpgroups splitting each tile step's
-    keys or queries) against
+    """head_dim 50, 60 (the D 64 forward over two zero-padded panels; in
+    the backward the D 128 kernels at 64 columns, dQ with delta, then dK/dV
+    on one warpgroup)
+    and 256 (two warpgroups on 128 query rows in the forward; in the
+    backward dQ with delta, then dK/dV, the warpgroups splitting each tile
+    step's keys or queries) against
     the plain versions, forward and backward, on fused-projection views of
     H heads side by side: O,
     dQ, dK and dV are (B, T, H, D) memory, so a store past column D would
@@ -805,19 +807,20 @@ def test_dropout_mask_is_exact_at_the_memory_head_dims(gen, D, seed):
 
 @pytest.mark.parametrize("D,H,forward,backward", [
     (50, 12, "flash_fwd_kernel<50, false>",
-     ("flash_delta_kernel<50>", "flash_bwd_dkdv_kernel<50, false>",
-      "flash_bwd_dq_kernel<50, false>")),
+     ("flash_bwd_wide_dq_kernel<50, false>",
+      "flash_bwd_wide_dkdv_kernel<50, false>")),
     (60, 10, "flash_fwd_kernel<60, false>",
-     ("flash_delta_kernel<60>", "flash_bwd_dkdv_kernel<60, false>",
-      "flash_bwd_dq_kernel<60, false>")),
+     ("flash_bwd_wide_dq_kernel<60, false>",
+      "flash_bwd_wide_dkdv_kernel<60, false>")),
     (256, 6, "flash_fwd_tall_kernel<256, false>",
      ("flash_bwd_keysplit_dq_kernel<256, false>",
       "flash_bwd_rowsplit_dkdv_kernel<256, false>")),
 ])
 def test_memory_head_dims_kernels_by_name(gen, D, H, forward, backward):
     """The profiler names the forward's one kernel at head_dim 50, 60 and
-    256 and the backward's kernels: delta, dK/dV and dQ at 50 and 60; at
-    256 the dQ kernel with delta, then the dK/dV kernel."""
+    256 and the backward's two: the dQ kernel with delta, then the dK/dV
+    kernel (the wide kernels at DP 64 at 50 and 60, the key- and row-split
+    ones at 256)."""
     q, k, v = _fused_views(gen, 2, H, 200, 200, D)
     out, lse = flash_attention(q, k, v, True, None, return_lse=True)
     for _ in range(3):   # the profiler drops an event now and then: retry
@@ -841,10 +844,11 @@ def test_kernels_fit_the_sm(gen):
     block per SM (their shared memory and registers), by the occupancy
     calculator, and the blocks their design counts on (flash_fwd.cu,
     flash_bwd.cu): at the narrow heads the forward 5 (D 25) and 4 (D 30),
-    the backward's dK/dV 3 and dQ 4; at 128 the wide forward (113 KB of
-    shared memory) and the dQ kernel 2, the 256-thread dK/dV kernel 1; at
-    192 and 256 one 256-thread block of each; an untabled head dim
-    raises."""
+    the backward's dK/dV 3 and dQ 4; at 50 and 60 the forward 3 and the
+    backward's dQ and dK/dV 3 each; at 128 the wide forward
+    (113 KB of shared memory) and the dQ kernel 2, the 256-thread dK/dV
+    kernel 1; at 192 and 256 one 256-thread block of each; an untabled
+    head dim raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)
@@ -852,6 +856,9 @@ def test_kernels_fit_the_sm(gen):
         if d < 32:
             assert got["forward"] >= {25: 5, 30: 4}[d], (d, got)
             assert got["dK/dV"] >= 3 and got["dQ"] >= 4, (d, got)
+        if d in (50, 60):
+            assert got["forward"] >= 3 and got["dQ"] >= 3, (d, got)
+            assert got["dK/dV"] >= 3, (d, got)
         if d == 128:
             assert got["forward"] >= 2 and got["dQ"] >= 2, (d, got)
             assert got["dK/dV"] == 1, (d, got)

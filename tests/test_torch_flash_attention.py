@@ -258,13 +258,18 @@ def test_head_dim_192_matches_pallas(B, H, Tq, Tk, masked, lens, rate):
     (2, 2, 63, 65, True, (65, 30), 0.1),        # band offset 2, kv_lens
     (2, 2, 129, 65, False, (65, 1), 0.0),       # one visible key
     (2, 2, 65, 65, True, (0, 40), 0.1),         # kv_len 0 under the band
+    (2, 2, 130, 40, True, None, 0.1),           # Tk < 64 < Tq
+    (1, 2, 200, 512, True, None, 0.1),          # Tq 200 against Tk 512
 ])
 def test_memory_head_dims_match_pallas(D, B, H, Tq, Tk, masked, lens, rate):
     """head_dim 50, 60 and 256 (mmtrvpa's 2E-wide memory encoders at
     iemocap's, at cmu-mosei's, counseling's and cmu-mosi's, and at mmimdb's
     widths) over two heads of distinct values: the forward and backward
-    against bpx, causal at rate 0 and 0.1 and at tile edges with kv_lens
-    (one 0); the tolerance of ``test_head_dim_128_matches_pallas``."""
+    against bpx, causal at rate 0 and 0.1, at tile edges with kv_lens (one
+    0), with fewer keys than a tile against three query tiles (the dQ
+    kernel's last query tile first, the dK/dV kernel's split rows), and at
+    200 queries against 512 keys; the tolerance of
+    ``test_head_dim_128_matches_pallas``."""
     q, k, v = _inputs(B, H, Tq, Tk, D, seed=18)
     dout = np.random.RandomState(19).randn(B, H, Tq, D).astype(np.float32)
     kv = None if lens is None else np.asarray(lens, np.int32)
