@@ -1039,12 +1039,9 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
 // D = 128, 50 and 60: dQ with delta, then dK/dV (the header)
 // ---------------------------------------------------------------------------
 
-// The head dims whose backward takes these kernels: 128, and 50 and 60 at
-// DP = 64 (D 64 and 96 keep the three launches above).
-template <int D>
-__host__ __device__ constexpr bool runs_wide() {
-  return D == 50 || D == 60 || padded_dim<D>() == 128;
-}
+// runs_wide (flash_common.cuh) picks the head dims whose backward takes
+// these kernels: 128, and 50 and 60 at DP = 64 (D 64 and 96 keep the three
+// launches above).
 
 // The dK/dV kernel's shape, each as measured fastest on an H100 (the
 // header): at D = 128 two warpgroups a block, each over 32 queries of

@@ -11,10 +11,11 @@
 // warp and the tensor cores' reads hit distinct banks.  D = 96 is not a
 // swizzle span (192 B), but three 64-byte panels are; D = 64 is two panels,
 // D = 128 four, D = 192 six and D = 256 eight.  A narrow head (D = 25, 30)
-// is one panel, and D = 50 and 60 are two, whose columns D..DP-1 every load
-// writes as zeros: the products then run at DP = 32 or 64 and the padding
-// adds nothing to them (a stale value there could be a NaN, and 0 * NaN is
-// not 0).
+// is one panel, and D = 50 and 60 are two, whose columns D..DP-1 hold
+// zeros (written by every load, or, in the D 50/60 forward's K and V rings,
+// once a ring stage): the products then run at DP = 32 or 64 and the
+// padding adds nothing to them (a stale value there could be a NaN, and
+// 0 * NaN is not 0).
 //
 // The same tile serves both operand majors of wgmma:
 //   * K-major, when D is the reduction (S = Q K^T): the 16-wide k-step kk
@@ -72,6 +73,15 @@ constexpr int kPanelBytes = kRows * 64;
 template <int D>
 __host__ __device__ constexpr int padded_dim() {
   return (D + 31) / 32 * 32;
+}
+
+// The head dims that run the D 128 kernels in either direction (the
+// forward's flash_fwd_wide_kernel, the backward's flash_bwd_wide_dq_kernel
+// and its dependent flash_bwd_wide_dkdv_kernel): 128, and 50 and 60 at DP =
+// 64.  D 64 and 96 keep kernels of their own.
+template <int D>
+__host__ __device__ constexpr bool runs_wide() {
+  return D == 50 || D == 60 || padded_dim<D>() == 128;
 }
 
 template <int D>

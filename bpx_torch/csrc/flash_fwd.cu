@@ -66,8 +66,9 @@
 // 0): a 64 x 64 tile step at DP = 32 is a short serial chain (wait, S,
 // softmax, P V, wait) that 4-5 blocks an SM do not hide.
 //
-// D = 128 (mmimdb: 768 / 6) has a kernel of its own, flash_fwd_wide_kernel:
-// the same function over four panels, S in 8 k-steps, O += P V as
+// D = 128 (mmimdb: 768 / 6) has a kernel of its own, flash_fwd_wide_kernel
+// (D = 50 and 60 run it too, at DP = 64, below): the same function over
+// four panels, S in 8 k-steps, O += P V as
 // m64n128k16 (64 fp32 accumulators a thread beside S's 32).  What differs:
 //   * the grid puts batch*head along x and the query tiles along y, last
 //     first, as the narrow kernel's;
@@ -133,10 +134,48 @@
 //
 // D = 50 and 60 (mmtrvpa's 2E-wide memory encoders at iemocap's widths,
 // 600 / 12, and at cmu-mosei's, counseling's and cmu-mosi's, 600 / 10) run
-// flash_fwd_kernel at DP = 64, as D = 64 does: two panels whose columns
-// D..63 the loads zero (4-byte cp.async words at D = 50, whose rows start
-// 100 bytes apart, 8-byte words at D = 60, 120 bytes apart), and O's stores
-// cut at column D, since the next head's values sit there.
+// flash_fwd_wide_kernel at DP = 64 (runs_wide, flash_common.cuh): two
+// panels whose columns D..63 are zeros, S in 4 k-steps, O += P V as
+// m64n64k16, O's stores cut at column D, since the next head's values sit
+// there.  What differs from D = 128:
+//   * K and V are copied as cp.async words, 4 bytes at D = 50 (rows start
+//     100 bytes apart), 8 at D = 60 (120 bytes), by WordCopier, the
+//     addresses worked out once; the columns D..63 of every ring stage are
+//     zeroed once before the loop, not with every tile;
+//   * rings 2 deep (41 KB of shared memory) and a register cap for 3
+//     blocks an SM: 157 registers, no spills.
+// Measured on an H100 (PERF.md, scripts/torch_flash_bwd_narrow.py --kernel
+// fwd at (8, 12, 512, 512) causal for D = 50 and (8, 10, 512, 512) for
+// D = 60, rate 0 / 0.1), one step at a time, each against the one before
+// in one call; the first design (flash_fwd_kernel at DP = 64, the serial
+// chain, first query tile first) read 0.0307 / 0.0379 ms at D = 50 and
+// 0.0257 / 0.0319 at D = 60:
+//   * the D = 128 kernel's steps with 3 stages at 3 blocks (157
+//     registers): 0.0275 / 0.0321 and 0.0234 / 0.0281; without
+//     WordCopier (load_tile_by's address arithmetic a tile) 0.0283 /
+//     0.0328 and 0.0242 / 0.0287; D = 60 in 4-byte words 0.0257 / 0.0301;
+//   * 2 stages: 0.0264 / 0.0304 and 0.0218 / 0.0266 (kept); at 4 blocks
+//     (a cap of 128 registers, 122 used) 0.0279 / 0.0309 and 0.0224 /
+//     0.0272; at 5 (94 registers, 144 bytes of spills) 0.0339 / 0.0373 and
+//     0.0305 / 0.0354;
+//   * words as wide as each head's alignment allows (16 bytes where a
+//     slice's base and row pitch are 16-byte aligned, else 8, else 4, the
+//     word over column D - 1 reading only its columns below D; the width
+//     and the bytes a word reads held in registers): 0.0300 / 0.0362 and
+//     0.0216 / 0.0275 against that copier's 0.0270 / 0.0339 and 0.0234 /
+//     0.0272 at the widths above (both uncapped; at most 8 bytes at
+//     D = 50: 0.0300 / 0.0353); that copier itself read 0.0270 / 0.0341
+//     and 0.0235 / 0.0272 against WordCopier's 0.0282 / 0.0307 and 0.0224 /
+//     0.0267 (uncapped, one call);
+//   * the cap, in one call: 3 blocks 0.0266 / 0.0308 and 0.0219 / 0.0266
+//     (kept), none stated (122 registers, 4 blocks) 0.0282 / 0.0307 and
+//     0.0224 / 0.0267, 4 blocks 0.0282 / 0.0311 and 0.0225 / 0.0272.
+// Two warpgroups on a 128-query tile, which lost at D = 128 and in the
+// DP = 64 backward's dK/dV kernel, were not built.  At DP = 64 a tile step
+// holds half the products of D = 128's and the same softmax, dropout hash
+// and copies a score, and D = 50's class has twice D = 128's scores: the
+// time follows the scores, not the columns (no instruction profile was
+// taken to show where a step waits).
 //
 // D = 256 (mmtrvpa's memory encoders at mmimdb's widths: 1536 / 6) runs
 // flash_fwd_tall_kernel too, with two changes: the K and V rings are 2
@@ -196,8 +235,7 @@ struct FlashParams {
   SeedGroups seed_groups;   // read by the kernels of several groups only
 };
 
-// Q, then kStages x (K, V) (at D = 128 a ring of K tiles, then one of V
-// tiles); +1 KB to align the base to the swizzle.
+// Q, then kStages x (K, V); +1 KB to align the base to the swizzle.
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {
   return (1 + 2 * kStages) * tile_bytes<D>() + 1024;
@@ -644,6 +682,102 @@ struct WideCopier {
   }
 };
 
+// Blocks per SM the wide kernel is compiled for (its register cap): none
+// stated at D = 128 (0), where a stated 1 took ptxas from 157 registers to
+// 195; 3 at DP = 64 (D = 50, 60: 157 registers, where none stated took 122
+// and 4 blocks, slower; the header).
+template <int D>
+__host__ __device__ constexpr int wide_min_blocks() {
+  return padded_dim<D>() == 128 ? 0 : 3;
+}
+
+// The wide kernel's K and V rings: kStages deep each at D = 128, 2 at DP =
+// 64 (D = 50, 60; the header).
+template <int D>
+__host__ __device__ constexpr int wide_stages() {
+  return padded_dim<D>() == 128 ? kStages : 2;
+}
+
+// Q, then a ring of K tiles, then one of V tiles; +1 KB for alignment.
+template <int D>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return (1 + 2 * wide_stages<D>()) * tile_bytes<D>() + 1024;
+}
+
+// One thread's copies into every 64-row tile of one (batch, head) slice at
+// D = 50 and 60, whose rows are only 4- or 8-byte aligned: load_tile_by's
+// cp.async words (word_bytes) with their addresses worked out once.
+// Thread t takes word column t % kPerRow of rows t / kPerRow + kStep j
+// (j < kWords), on one running row pointer.  Columns D..63 are written as
+// zeros once, in every ring stage, before the loop (zero_fill), and never
+// again: nothing in the ring writes them, so a thread whose word lies
+// there copies nothing in the loop (7 of 32 words a row at D = 50, 1 of 16
+// at D = 60).  A tile costs a 64-bit offset, a row test a word, and the
+// words.
+template <int D>
+struct WordCopier {
+  static constexpr int kW = word_bytes<D>();
+  static constexpr int kPerRow = padded_dim<D>() * 2 / kW;   // words a row
+  static constexpr int kStep = kThreads / kPerRow;           // rows a step
+  static constexpr int kWords = kRows / kStep;               // words a tile
+  static_assert(kThreads % kPerRow == 0 && kWords % 2 == 0, "word rows");
+
+  const __nv_bfloat16* slice;   // row 0, column 0: also a zero fill's address
+  const __nv_bfloat16* row;     // row t / kPerRow of the slice, its column
+  long long stride;             // elements between rows
+  uint32_t dst[2];              // byte offsets of words 0 and 1 in a tile
+  int r0;                       // t / kPerRow
+  bool live;                    // the word's column is below D
+
+  __device__ __forceinline__ WordCopier(const __nv_bfloat16* s,
+                                        long long stride_t, int tid)
+      : slice(s), stride(stride_t), r0(tid / kPerRow) {
+    const int col = (tid % kPerRow) * (kW / 2);
+    live = col < D;
+    row = s + (long long)r0 * stride_t + col;
+    // rows r0 + kStep j, kStep >= 4: the swizzle repeats every two words
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      dst[j] = tile_offset(r0 + j * kStep, col / 32, (col % 32) / 8) +
+               (col % 8) * 2;
+    }
+  }
+
+  __device__ __forceinline__ void word(uint32_t d, const void* src,
+                                       bool ok) const {
+    if constexpr (kW == 8) {
+      cp_async_8(d, src, ok);
+    } else {
+      cp_async_4(d, src, ok);
+    }
+  }
+
+  // the byte offset of word j in a tile
+  __device__ __forceinline__ uint32_t offset(int j) const {
+    return dst[j & 1] + (j >> 1) * (2 * kStep * 64);
+  }
+
+  // columns D..63 of the tile at `tile` as zeros
+  __device__ __forceinline__ void zero_fill(uint32_t tile) const {
+    if (live) return;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) word(tile + offset(j), slice, false);
+  }
+
+  // rows [t0, t0 + 64) into the tile at `tile`, columns below D; rows at
+  // or past T as zeros
+  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
+    if (!live) return;
+    const int rows = T - t0 - r0;   // word j is a row while j kStep < rows
+    const __nv_bfloat16* g = row + (long long)t0 * stride;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j, g += kStep * stride) {
+      const bool ok = j * kStep < rows;
+      word(tile + offset(j), ok ? g : slice, ok);
+    }
+  }
+};
+
 // Pin the bf16 A fragments of an in-flight P V at this point: their
 // registers are not reused before the wgmma that reads them is waited on.
 __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
@@ -654,23 +788,26 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
   }
 }
 
-// One (batch*head, 64-query tile) at D = 128: batch*head along x, the query
-// tiles along y, the last first.  Step u issues S_u = Q K_u^T and
-// O += P_{u-1} V_{u-1} together, waits for S_u alone and computes P_u while
-// P_{u-1} V_{u-1} runs, then waits for it and rescales O.  Shared memory
-// holds Q, then a ring of kStages K tiles, then one of kStages V tiles
-// (smem_bytes).  K_u and V_u go to stage u mod kStages of their rings, each
-// loaded two steps ahead: at step u, once every thread is past step u - 1,
-// the stages of K_{u-1} (read by S_{u-1}) and V_{u-2} (read by P_{u-2}
-// V_{u-2}) are free.
+// One (batch*head, 64-query tile) at D = 128, 50 or 60 (runs_wide):
+// batch*head along x, the query tiles along y, the last first.  Step u
+// issues S_u = Q K_u^T and O += P_{u-1} V_{u-1} together, waits for S_u
+// alone and computes P_u while P_{u-1} V_{u-1} runs, then waits for it and
+// rescales O.  Shared memory holds Q, then a ring of wide_stages K tiles,
+// then one of as many V tiles (wide_smem_bytes).  K_u and V_u go to stage
+// u mod kS of their rings, K_u loaded kS - 1 steps ahead and V_u kS - 2:
+// at step u, once every thread is past step u - 1, the stages of K_{u-1}
+// (read by S_{u-1}) and V_{u-2} (read by P_{u-2} V_{u-2}) are free.  At
+// D = 128 a thread's copies are WideCopier's 16-byte chunks, at 50 and 60
+// WordCopier's words.
 template <int D, bool Groups = false>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, wide_min_blocks<D>())
 flash_fwd_wide_kernel(const FlashParams p) {
   constexpr int DP = padded_dim<D>();
-  static_assert(DP == 128, "four panels");
+  static_assert(runs_wide<D>(), "D = 128, 50 or 60");
+  using Copier = std::conditional_t<DP == 128, WideCopier, WordCopier<D>>;
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
-  constexpr int kS = kStages;
+  constexpr int kS = wide_stages<D>();
   extern __shared__ unsigned char smem[];
   const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t k_ring = q_s + kTile;
@@ -701,10 +838,17 @@ flash_fwd_wide_kernel(const FlashParams p) {
   }
 
   // step w loads K_{w + kS - 1} and V_{w + kS - 2}, one commit group
-  const WideCopier k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st,
-                          threadIdx.x);
-  const WideCopier v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st,
-                          threadIdx.x);
+  const Copier k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st, threadIdx.x);
+  const Copier v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st, threadIdx.x);
+  if constexpr (DP != 128) {
+    // the padding columns of every ring stage, once (the first commit
+    // group, complete before step 0)
+#pragma unroll
+    for (int st = 0; st < kS; ++st) {
+      k_copy.zero_fill(k_ring + st * kTile);
+      v_copy.zero_fill(v_ring + st * kTile);
+    }
+  }
   auto load_group = [&](int w) {
     const int jk = w + kS - 1;
     const int jv = w + kS - 2;
@@ -1310,8 +1454,8 @@ cudaError_t launch(const FlashParams& p, cudaStream_t s) {
     if (err != cudaSuccess) return err;
     const dim3 grid(p.B * p.H, (p.Tq + kTallRows - 1) / kTallRows);
     flash_fwd_tall_kernel<D, Groups><<<grid, kTallThreads, bytes, s>>>(p);
-  } else if constexpr (padded_dim<D>() == 128) {
-    constexpr int bytes = smem_bytes<D>();
+  } else if constexpr (runs_wide<D>()) {
+    constexpr int bytes = wide_smem_bytes<D>();
     cudaError_t err =
         allow_smem(flash_fwd_wide_kernel<D, Groups>, bytes, smem_set);
     if (err != cudaSuccess) return err;
@@ -1391,9 +1535,9 @@ int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
       return bpx_flash::blocks_per_sm(flash_fwd_tall_kernel<kD>,
                                       tall_smem_bytes<kD>(), blocks,
                                       kTallThreads);
-    } else if constexpr (padded_dim<kD>() == 128) {
+    } else if constexpr (runs_wide<kD>()) {
       return bpx_flash::blocks_per_sm(flash_fwd_wide_kernel<kD>,
-                                      smem_bytes<kD>(), blocks);
+                                      wide_smem_bytes<kD>(), blocks);
     } else if constexpr (padded_dim<kD>() == 32) {
       return bpx_flash::blocks_per_sm(flash_fwd_narrow_kernel<kD>,
                                       narrow_smem_bytes<kD>(), blocks);

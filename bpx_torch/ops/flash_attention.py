@@ -27,17 +27,21 @@ The kernels take head dims 25, 30, 50, 60, 64, 96, 128, 192 and 256.  A
 narrow head (25, 30: the mmtrvat presets' 300-wide streams over 12 or 10
 heads) runs the same kernels at 32 columns with the padding zeroed in
 shared memory, and 50 and 60 (mmtrvpa's 600-wide memory encoders over 12
-or 10 heads) run at 64 columns so (the head_dim-64 forward, the
-head_dim-128 backward's kernels): nothing is padded in device memory, and
-the strided (B, H, T, D) views of a fused projection go to the kernels
-without a copy.  At 128 (mmimdb: 768 over 6 heads) the dK/dV kernel runs
-two warpgroups a block, each over half of every query tile and all the
-columns (at 50 and 60 one warpgroup, three blocks an SM); at 192 and 256
-(mmtrvpa's 2E-wide memory encoders at moviescope's and mmimdb's widths:
-1536 over 8 or 6 heads) the two warpgroups of the dQ kernel split each key
-tile's keys, and those of the dK/dV kernel each query tile's queries, so
-no product is computed twice; the forward at 192 and 256 runs two
-warpgroups on 128 query rows (``csrc/flash_fwd.cu``,
+or 10 heads) run at 64 columns so (the head_dim-128 kernels, forward and
+backward, at that width: ``runs_wide`` in ``csrc/flash_common.cuh``):
+nothing is padded in device memory, and the strided (B, H, T, D) views of
+a fused projection go to the kernels without a copy.  The forward at 64
+and 96 is one kernel (``flash_fwd_kernel``); at 128, 50 and 60
+``flash_fwd_wide_kernel`` takes the last query tile first and issues the
+scores of a key tile beside P V of the tile before; at 25 and 30
+``flash_fwd_narrow_kernel``.  At 128 (mmimdb: 768 over 6 heads) the dK/dV
+kernel runs two warpgroups a block, each over half of every query tile and
+all the columns (at 50 and 60 one warpgroup, three blocks an SM); at 192
+and 256 (mmtrvpa's 2E-wide memory encoders at moviescope's and mmimdb's
+widths: 1536 over 8 or 6 heads) the two warpgroups of the dQ kernel split
+each key tile's keys, and those of the dK/dV kernel each query tile's
+queries, so no product is computed twice; the forward at 192 and 256 runs
+two warpgroups on 128 query rows (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``).
 
 Seeds per group: the ops take a list of dropout seeds, one per group of

@@ -225,11 +225,13 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and 96 / 64 / 96 / 308 / 308 per step), cmu-mosei one step; every class
    no earlier phase held (the memory encoders' flash forward and backward
    at (8, 12, 512, 512, 50), (8, 10, 512, 512, 60) and (8, 6, 512, 512,
-   256) causal, rate 0 and 0.1, the profiler naming their kernels; at D
-   256 also the kernels built for two seed groups at rate 0.1; the
+   256) causal, rate 0 and 0.1, the profiler naming their kernels (the
+   forward's wide kernel at 50 and 60, its tall one at 256), bitwise on a
+   rerun; also the kernels built for two seed groups at rate 0.1; the
    600-wide LayerNorms) against its plain version, timed beside the bound
    and the library call; the exact dropout masks at those three shapes,
-   and at D 256 with two seed groups, each group's bits its own launch's.
+   with one seed and with two seed groups, each group's bits its own
+   launch's.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -800,7 +802,7 @@ def fwd_kernel(D, groups=1) -> str:
     the name the profiler reports."""
     if D < 32:
         name = "flash_fwd_narrow_kernel"
-    elif D == 128:
+    elif D in (50, 60, 128):
         name = "flash_fwd_wide_kernel"
     elif D in (192, 256):
         name = "flash_fwd_tall_kernel"
@@ -3529,10 +3531,10 @@ def phase_mmtrvpa(torch, np, timer, gen, checked):
     # the memory classes both ways at rate 0 and 0.1: those no recorded run
     # brought (the backward at rate 0: the memory encoders drop attention at
     # 0.1 in training) held of weight 0 in the launches' mix
-    # (at D 256 also the kernels built for two seed groups, as a multi-seed
-    # step launches them, and their masks)
+    # (also the kernels built for two seed groups, as a multi-seed step
+    # launches them, and their masks)
     for preset, (D, H) in VPA_MEMORY.items():
-        groups = (1, 2) if D == 256 else (1,)
+        groups = (1, 2)
         for rate, n in [(0.0, 1), (0.1, 1)] + [(0.1, g) for g in groups[1:]]:
             cls = (BATCH, H, 512, 512, D, True, False, n, rate)
             for kind, phase in (("flash", phase_flash),

@@ -8,6 +8,8 @@ dims (25, 30) or any other class; or the LayerNorm backward.
         --variant LABEL=-DSOME_MACRO=1
     python3 scripts/torch_flash_bwd_narrow.py --kernel fwd
     python3 scripts/torch_flash_bwd_narrow.py --shape 8,6,512,128
+    python3 scripts/torch_flash_bwd_narrow.py --kernel fwd \
+        --shape 8,12,512,50 --shape 8,10,512,60 --tree parent=build/parent
     python3 scripts/torch_flash_bwd_narrow.py --kernel ln_bwd \\
         --shape 4096,1536 --tree parent=build/parent
 

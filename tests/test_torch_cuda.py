@@ -716,9 +716,10 @@ MEMORY_DIMS = [(50, 12), (60, 10), (256, 6)]
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_memory_head_dims_match_plain(gen, D, H, B, Tq, Tk, masked, lens,
                                       rate):
-    """head_dim 50, 60 (the D 64 forward over two zero-padded panels; in
-    the backward the D 128 kernels at 64 columns, dQ with delta, then dK/dV
-    on one warpgroup)
+    """head_dim 50, 60 (the D 128 kernels at 64 columns, two panels whose
+    columns D..63 are zeros: the forward with the last query tile first and
+    S beside the P V before it, the word copies worked out once; in the
+    backward dQ with delta, then dK/dV on one warpgroup)
     and 256 (two warpgroups on 128 query rows in the forward; in the
     backward dQ with delta, then dK/dV, the warpgroups splitting each tile
     step's keys or queries) against
@@ -756,18 +757,20 @@ def test_memory_head_dims_match_plain(gen, D, H, B, Tq, Tk, masked, lens,
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("D,H", MEMORY_DIMS)
 @pytest.mark.parametrize("B,Tq,Tk,masked,lens", [
     (2, 512, 512, True, None),
     (2, 200, 200, True, (200, 0)),
     (2, 640, 1280, True, None),
     (2, 32, 32, True, None),
 ])
-def test_head_dim_256_seed_groups_match_plain(gen, B, Tq, Tk, masked,
-                                              lens):
-    """The D 256 kernels built for several seed groups (two, one batch row
-    each) against the plain version, forward and backward, at rate 0.1 on
-    fused views of 6 heads, and bitwise on a rerun."""
-    q, k, v = _fused_views(gen, B, 6, Tq, Tk, 256)
+def test_memory_head_dims_seed_groups_match_plain(gen, D, H, B, Tq, Tk,
+                                                  masked, lens):
+    """The D 50, 60 and 256 kernels built for several seed groups (two, one
+    batch row each) against the plain version, forward and backward, at
+    rate 0.1 on fused views of the memory encoders' H heads, and bitwise on
+    a rerun."""
+    q, k, v = _fused_views(gen, B, H, Tq, Tk, D)
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device="cuda")
     seeds = [0x2560C0DE, 0xC0FFEE]
@@ -778,6 +781,8 @@ def test_head_dim_256_seed_groups_match_plain(gen, B, Tq, Tk, masked,
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    assert torch.equal(out, flash_attention(q, k, v, masked, kv, 0.1,
+                                            seeds))
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
     got = flash_attention_backward(q, k, v, out, lse, dout, masked, kv, 0.1,
                                    seeds)
@@ -806,10 +811,10 @@ def test_dropout_mask_is_exact_at_the_memory_head_dims(gen, D, seed):
 
 
 @pytest.mark.parametrize("D,H,forward,backward", [
-    (50, 12, "flash_fwd_kernel<50, false>",
+    (50, 12, "flash_fwd_wide_kernel<50, false>",
      ("flash_bwd_wide_dq_kernel<50, false>",
       "flash_bwd_wide_dkdv_kernel<50, false>")),
-    (60, 10, "flash_fwd_kernel<60, false>",
+    (60, 10, "flash_fwd_wide_kernel<60, false>",
      ("flash_bwd_wide_dq_kernel<60, false>",
       "flash_bwd_wide_dkdv_kernel<60, false>")),
     (256, 6, "flash_fwd_tall_kernel<256, false>",
@@ -818,9 +823,10 @@ def test_dropout_mask_is_exact_at_the_memory_head_dims(gen, D, seed):
 ])
 def test_memory_head_dims_kernels_by_name(gen, D, H, forward, backward):
     """The profiler names the forward's one kernel at head_dim 50, 60 and
-    256 and the backward's two: the dQ kernel with delta, then the dK/dV
-    kernel (the wide kernels at DP 64 at 50 and 60, the key- and row-split
-    ones at 256)."""
+    256 (the wide kernel at DP 64 at 50 and 60, the tall one at 256) and
+    the backward's two: the dQ kernel with delta, then the dK/dV kernel
+    (the wide kernels at DP 64 at 50 and 60, the key- and row-split ones at
+    256)."""
     q, k, v = _fused_views(gen, 2, H, 200, 200, D)
     out, lse = flash_attention(q, k, v, True, None, return_lse=True)
     for _ in range(3):   # the profiler drops an event now and then: retry
@@ -844,8 +850,9 @@ def test_kernels_fit_the_sm(gen):
     block per SM (their shared memory and registers), by the occupancy
     calculator, and the blocks their design counts on (flash_fwd.cu,
     flash_bwd.cu): at the narrow heads the forward 5 (D 25) and 4 (D 30),
-    the backward's dK/dV 3 and dQ 4; at 50 and 60 the forward 3 and the
-    backward's dQ and dK/dV 3 each; at 128 the wide forward
+    the backward's dK/dV 3 and dQ 4; at 50 and 60 the forward 3 (the wide
+    kernel at 64 columns, 41 KB of shared memory, a cap of 168 registers)
+    and the backward's dQ and dK/dV 3 each; at 128 the wide forward
     (113 KB of shared memory) and the dQ kernel 2, the 256-thread dK/dV
     kernel 1; at 192 and 256 one 256-thread block of each; an untabled
     head dim raises."""
