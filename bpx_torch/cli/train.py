@@ -263,6 +263,13 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
 
 
 def cli_main(argv=None):
+    """The CLI.  On several cards launch it with ``torchrun
+    --nproc_per_node N -m bpx_torch.cli.train ...``: each rank joins the
+    process group here, takes card ``LOCAL_RANK``, and trains on the
+    ``--mesh_data/--mesh_fsdp/--mesh_tensor`` mesh."""
+    import torch.distributed as dist
+
+    from bpx_torch.parallel.mesh import initialize_distributed
     from bpx_torch.train.loop import seed_sweep, test, train
 
     parser = argparse.ArgumentParser(
@@ -270,7 +277,17 @@ def cli_main(argv=None):
     get_args(parser)
     args = parser.parse_args(argv)
     exp = args_to_config(args)
+    started = not dist.is_initialized()
+    initialize_distributed(args.device.split(":")[0])
+    try:
+        return _run(args, exp, seed_sweep, test, train)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _run(args, exp, seed_sweep, test, train):
+    """The seed sweep, or the reference's 10-fold cross-validation."""
     if args.train_type == "split":
         return seed_sweep(exp, device=args.device)
     # cross-validation: the reference's helpers.py partition arithmetic

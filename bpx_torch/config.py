@@ -173,7 +173,10 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout of the JAX package (kept for snapshot interchange)."""
+    """The ``(data, fsdp, tensor)`` mesh a run of more than one rank trains
+    on (``bpx_torch/parallel/mesh.py::make_mesh``; the CLI's
+    ``--mesh_data/--mesh_fsdp/--mesh_tensor``); ignored on one rank, as
+    the JAX package ignores it on one device."""
 
     data: int = -1                   # -1 == all remaining devices
     fsdp: int = 1

@@ -2136,9 +2136,10 @@ extern "C" {
 // (B,) int32 or null.  Launches, on the stream, at head_dim 64 and 96 the
 // delta kernel, the dK/dV kernel, then the dQ kernel; at 25, 30, 50, 60,
 // 128, 192 and 256 the dQ kernel (with delta), then the dK/dV kernel
-// (launch_by_head_dim).  Dropout's seeds as bpx_flash_fwd's.
+// (launch_by_head_dim).  Dropout's seeds and placement as bpx_flash_fwd's.
 // Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
-// without an instantiation, or for seed groups that do not fit.
+// without an instantiation, or for seed groups or a placement that do not
+// fit.
 int bpx_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const void* o, const void* lse,
                   void* delta, const void* kv_lens, void* dq, void* dk,
@@ -2154,7 +2155,7 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
                   int masked, int offset, int dropout,
                   const unsigned int* seeds, int groups,
                   unsigned int threshold, float inv_keep, int tk_p,
-                  void* stream) {
+                  int b_off, int h_off, int heads_g, void* stream) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -2179,14 +2180,14 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_st = dv_st;
   p.masked = masked;
   p.offset = offset;
-  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H,
-                   threshold, inv_keep, tk_p))
+  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
+                   threshold, inv_keep, tk_p, b_off, h_off, heads_g))
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bpx_flash::with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (p.seed_groups.groups > 1) {
+    if (p.seed_groups.grouped()) {
       return launch_by_head_dim<kD, true>(p, ob, o_sb, o_sh, o_st, s);
     }
     return launch_by_head_dim<kD, false>(p, ob, o_sb, o_sh, o_st, s);

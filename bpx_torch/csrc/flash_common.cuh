@@ -766,8 +766,8 @@ struct BlockDropout {
 // (bpx/ops/pallas_attention.py:102): the global element index
 // bh * 0x85EBCA6B + row * tk_p + col in uint32 with wrap, then a 2-round
 // xorshift-multiply mixer with the seed, kept when >= threshold.  With
-// several seed groups (SeedGroups) a block hashes with its group's seed
-// and its index in its group instead.
+// several seed groups, or a placement (SeedGroups), a block hashes with
+// its group's seed and its (placed) index in its group instead.
 struct Dropout {
   int on;
   uint32_t seed;        // with several seed groups, group 0's
@@ -826,14 +826,33 @@ constexpr int kMaxSeedGroups = 16;
 // consecutive blocks, one per seed: block bh hashes with seeds[bh /
 // group_bh] and its index bh % group_bh in its group (the multi-seed step
 // folds its seeds into the batch; under vmap the TPU kernels would run one
-// kernel body per seed with a local bh).  The launch picks a kernel built
-// for several groups only when there are several, and only that kernel
+// kernel body per seed with a local bh).
+//
+// The placement (b_off, h_off, heads_g) puts the call's blocks into a
+// global call, as a rank of a mesh holds some batch rows and heads of it:
+// block i of a group, of `heads` heads a row, hashes as global block
+// (b_off + i / heads) * heads_g + h_off + i % heads = i + base + (i /
+// heads) * dheads.  Unplaced, (0, 0, heads): block i is i.
+//
+// The launch picks the kernel built for seed groups (Groups true) only
+// for several groups or a placement (grouped()), and only that kernel
 // reads these fields: they follow everything else in the kernels'
-// parameters, so a one-group kernel's parameters are laid out as before.
+// parameters, so a one-group kernel is the code it was before placement.
 struct SeedGroups {
   int groups;
   int group_bh;         // B*H / groups
+  uint32_t heads;       // the call's heads
+  uint32_t dheads;      // heads_g - heads
+  uint32_t base;        // b_off * heads_g + h_off
   uint32_t seeds[kMaxSeedGroups];
+
+  // whether a call needs the kernel built for seed groups
+  __host__ bool grouped() const { return groups > 1 || base || dheads; }
+
+  // the global block of block i of a group
+  __device__ __forceinline__ uint32_t placed(uint32_t i) const {
+    return i + base + (dheads ? i / heads * dheads : 0u);
+  }
 
   // block bh's seed: selected with constant indices, so the seeds stay in
   // the kernel's parameter space.  BPX_PLANT_SEED_FAULT builds the two
@@ -862,13 +881,15 @@ struct SeedGroups {
 };
 
 // Block bh's hash values, worked out once beside its block indices: with
-// several groups its index in its group and its group's seed; with one,
-// bh itself (Dropout::keep<false> reads the call's seed).
+// several groups or a placement its placed index in its group and its
+// group's seed; with one, bh itself (Dropout::keep<false> reads the
+// call's seed).
 template <bool Groups>
 __device__ __forceinline__ BlockDropout block_dropout(const SeedGroups& g,
                                                       int bh) {
   if constexpr (Groups) {
-    return {static_cast<uint32_t>(g.group_index(bh)), g.seed_of(bh)};
+    return {g.placed(static_cast<uint32_t>(g.group_index(bh))),
+            g.seed_of(bh)};
   } else {
     return {static_cast<uint32_t>(bh), 0u};
   }
@@ -876,11 +897,14 @@ __device__ __forceinline__ BlockDropout block_dropout(const SeedGroups& g,
 
 // Fill in one call's dropout parameters on the host; false when the seed
 // groups do not fit (more than kMaxSeedGroups, or not dividing the B*H
-// blocks).  `seed_list` holds n_groups seeds (null with dropout off).
+// blocks) or the placement does not hold the call's heads.  `seed_list`
+// holds n_groups seeds (null with dropout off); (b_off, h_off, heads_g)
+// places the blocks, and matters only with dropout on.
 inline bool set_dropout(Dropout& d, SeedGroups& g, int dropout,
                         const unsigned int* seed_list, int n_groups,
-                        int bh_blocks, unsigned int thresh, float inv,
-                        int tk_pad) {
+                        int bh_blocks, int heads, unsigned int thresh,
+                        float inv, int tk_pad, int b_off, int h_off,
+                        int heads_g) {
   d.on = dropout;
   d.seed = dropout ? seed_list[0] : 0u;
   d.threshold = thresh;
@@ -889,7 +913,14 @@ inline bool set_dropout(Dropout& d, SeedGroups& g, int dropout,
   for (int i = 0; i < kMaxSeedGroups; ++i) g.seeds[i] = 0;
   g.groups = 1;
   g.group_bh = bh_blocks > 0 ? bh_blocks : 1;
+  g.heads = static_cast<uint32_t>(heads > 0 ? heads : 1);
+  g.dheads = 0;
+  g.base = 0;
+  if (b_off < 0 || h_off < 0 || h_off + heads > heads_g) return false;
   if (!dropout) return true;
+  g.dheads = static_cast<uint32_t>(heads_g - heads);
+  g.base = static_cast<uint32_t>(b_off) * static_cast<uint32_t>(heads_g) +
+           static_cast<uint32_t>(h_off);
   if (n_groups < 1 || n_groups > kMaxSeedGroups || bh_blocks % n_groups)
     return false;
   for (int i = 0; i < n_groups; ++i) g.seeds[i] = seed_list[i];

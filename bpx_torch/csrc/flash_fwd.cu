@@ -1484,10 +1484,12 @@ cudaError_t launch(const FlashParams& p, cudaStream_t s) {
 extern "C" {
 
 // Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
-// without an instantiation, or for seed groups that do not fit.  dropout
-// != 0 applies the keep mask of (seeds, threshold, tk_p) and scales kept
-// probabilities by inv_keep; seeds holds `groups` seeds, one per group of
-// B*H / groups consecutive (batch, head) blocks (set_dropout).
+// without an instantiation, or for seed groups or a placement that do not
+// fit.  dropout != 0 applies the keep mask of (seeds, threshold, tk_p) and
+// scales kept probabilities by inv_keep; seeds holds `groups` seeds, one
+// per group of B*H / groups consecutive (batch, head) blocks; (b_off,
+// h_off, heads_g) places the blocks in a global call (set_dropout;
+// 0, 0, H unplaced).
 int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, const void* kv_lens, int B, int H, int Tq, int Tk,
                   int D, long long q_sb, long long q_sh, long long q_st,
@@ -1496,7 +1498,8 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   long long o_sb, long long o_sh, long long o_st, int masked,
                   int offset, int dropout, const unsigned int* seeds,
                   int groups, unsigned int threshold, float inv_keep,
-                  int tk_p, void* stream) {
+                  int tk_p, int b_off, int h_off, int heads_g,
+                  void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -1514,14 +1517,14 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
   p.masked = masked;
   p.offset = offset;
-  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H,
-                   threshold, inv_keep, tk_p))
+  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
+                   threshold, inv_keep, tk_p, b_off, h_off, heads_g))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bpx_flash::with_head_dim(
       D, [&](auto d) {
         constexpr int kD = decltype(d)::value;
-        return p.seed_groups.groups > 1 ? launch<kD, true>(p, s)
+        return p.seed_groups.grouped() ? launch<kD, true>(p, s)
                                  : launch<kD, false>(p, s);
       }));
 }

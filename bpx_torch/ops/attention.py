@@ -17,6 +17,13 @@ In training mode (``module.training``, the JAX package's
 ``deterministic=False``) a per-module ``attn_dropout`` rate draws one seed
 per call from the forward's :class:`SeedStream`: the flash kernels' fused
 dropout, or the hash dropout on the einsum path's probabilities.
+
+Under a tensor split (``bpx_torch/parallel/sharding.py``) a rank holds
+``num_heads`` of the ``global_heads`` heads: its rows of q/k/v
+(column-parallel) and its columns of ``out_proj`` (row-parallel), whose
+partial sums are added over the ``tensor`` group before the bias.  The
+dropout of either path hashes the local heads at their global index, and
+the batch rows at the rows the forward's stream says its rank holds.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.flash_attention import flash_attention
 from bpx_torch.ops.init import linear
 from bpx_torch.ops.masks import band_bias
+from bpx_torch.parallel.collectives import (TensorSplit, enter_split,
+                                            leave_split)
 
 
 def fused_projection(x: torch.Tensor, layers: Sequence[nn.Linear],
@@ -61,14 +70,16 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           dropout_rate: float = 0.0, training: bool = False,
                           seeds: Optional[SeedStream] = None,
-                          prescaled: bool = True) -> torch.Tensor:
+                          prescaled: bool = True,
+                          heads: Optional[tuple] = None) -> torch.Tensor:
     """The einsum attention on (B, H, T, D) tensors (counterpart:
     ``bpx/ops/attention.py::dot_product_attention``): fp32 scores, an
     additive fp32 ``bias`` broadcast to (B, H, Tq, Tk), the softmax in fp32
     cast to q's dtype, hash dropout on the probabilities in training, then
     the product with V summed in fp32 and cast back.  With ``prescaled``
     False the scores are divided by sqrt(head_dim) in fp32 instead, as the
-    JAX package's BERT does on this path."""
+    JAX package's BERT does on this path.  ``heads`` = (h_off, H_g): q's
+    heads are heads h_off.. of H_g, where their dropout hashes them."""
     dt = q.dtype
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if not prescaled:
@@ -76,7 +87,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(dt)
-    probs = maybe_dropout(probs, dropout_rate, training, seeds)
+    split = None if heads is None else (1, *heads)
+    probs = maybe_dropout(probs, dropout_rate, training, seeds, split)
     return torch.matmul(probs.float(), v.float()).to(dt)
 
 
@@ -86,11 +98,25 @@ def merge_heads(ctx: torch.Tensor) -> torch.Tensor:
     return ctx.transpose(1, 2).reshape(B, T, H * D)
 
 
+def flash_place(seeds: Optional[SeedStream], split: Optional[TensorSplit],
+                heads: int, global_heads: int) -> Optional[tuple]:
+    """A flash call's placement (b_off, h_off, H_g): the batch rows of the
+    forward's stream and the rank's ``heads`` of ``global_heads``; None
+    when neither is placed."""
+    rows = getattr(seeds, "rows", None)
+    if rows is None and split is None:
+        return None
+    h_off = 0 if split is None else split.rank * heads
+    return (0 if rows is None else rows[0], h_off, global_heads)
+
+
 class MultiheadAttention(nn.Module):
     """Call with ``query`` only for self-attention, or ``query, key,
     value`` for cross-attention; ``masked`` applies the offset band."""
 
     _linear = staticmethod(linear)
+    #: the rank's place in the tensor group when the heads are split
+    split: Optional[TensorSplit] = None
 
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
@@ -103,6 +129,7 @@ class MultiheadAttention(nn.Module):
         self.impl = impl
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.global_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.scaling = self.head_dim ** -0.5
         self.dtype = dtype
@@ -132,24 +159,33 @@ class MultiheadAttention(nn.Module):
             (k,) = proj(key, (self.k_proj,))
             (v,) = proj(value, (self.v_proj,))
         q = q * torch.tensor(self.scaling, dtype=dt)
+        place = flash_place(seeds, self.split, self.num_heads,
+                            self.global_heads)
         if self.impl == "pallas":
             ctx = flash_attention(q, k, v, masked, None,
                                   *attention_dropout(self.attn_dropout,
-                                                     self.training, seeds))
+                                                     self.training, seeds),
+                                  place=place)
         else:
             bias = (band_bias(q.shape[2], k.shape[2], q.device) if masked
                     else None)
-            ctx = dot_product_attention(q, k, v, bias, self.attn_dropout,
-                                        self.training, seeds)
+            ctx = dot_product_attention(
+                q, k, v, bias, self.attn_dropout, self.training, seeds,
+                heads=None if place is None else place[1:])
         return self._output(ctx)
 
     def _project(self, x: torch.Tensor, layers: Sequence[nn.Linear]):
         """One (B, H, T, D) view per layer of ``layers`` (one GEMM)."""
-        return fused_projection(x, layers, self.num_heads, self.dtype)
+        return fused_projection(enter_split(x, self.split), layers,
+                                self.num_heads, self.dtype)
 
     def _output(self, ctx: torch.Tensor) -> torch.Tensor:
         """The (B, H, T, D) attention output through ``out_proj``."""
         dt = self.dtype
-        return nn.functional.linear(merge_heads(ctx),
-                                    self.out_proj.weight.to(dt),
-                                    self.out_proj.bias.to(dt))
+        if self.split is None:
+            return nn.functional.linear(merge_heads(ctx),
+                                        self.out_proj.weight.to(dt),
+                                        self.out_proj.bias.to(dt))
+        y = nn.functional.linear(merge_heads(ctx),
+                                 self.out_proj.weight.to(dt))
+        return leave_split(y, self.split) + self.out_proj.bias.to(dt)

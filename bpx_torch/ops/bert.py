@@ -12,6 +12,11 @@ the flash kernel, or on the einsum path's probabilities), and hidden
 dropout after the embedding LN and on the attention and FFN outputs before
 their residual LNs.  ``remat`` recomputes each layer in the backward
 (``ops/encoder.py::recomputed``), as the JAX package's ``remat`` does.
+Under a tensor split (``bpx_torch/parallel/sharding.py``) a layer keeps
+its rank's heads of ``query/key/value`` and rows of ``intermediate``
+(column-parallel) and its columns of ``attention_output`` and ``output``
+(row-parallel), whose partial sums are added over the ``tensor`` group
+before the bias: the hidden dropout after them sees full rows.
 ``with_pooler`` adds Hugging Face's pooler, ``pooler`` (a Dense with bias,
 flax's default init), and the forward then returns ``(hidden, tanh(W
 hidden[:, 0] + b))``: the [CLS] summary of the notebook-era classifiers.
@@ -37,14 +42,16 @@ from torch import nn
 
 from bpx_torch.config import BertConfig
 from bpx_torch.ops.attention import (attention_dropout,
-                                     dot_product_attention, fused_projection,
-                                     merge_heads)
+                                     dot_product_attention, flash_place,
+                                     fused_projection, merge_heads)
 from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.encoder import recomputed, resolve_remat_policy
 from bpx_torch.ops.flash_attention import flash_attention
 from bpx_torch.ops.init import embed_normal_, linear
 from bpx_torch.ops.masks import key_padding_bias
 from bpx_torch.ops.norm import LayerNorm
+from bpx_torch.parallel.collectives import (TensorSplit, enter_split,
+                                            leave_split)
 
 
 class _Embedding(nn.Module):
@@ -69,11 +76,17 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
+    #: the rank's place in the tensor group when the heads (``split``) or
+    #: the FFN (``ffn_split``) are split
+    split: Optional[TensorSplit] = None
+    ffn_split: Optional[TensorSplit] = None
+
     def __init__(self, cfg: BertConfig, dtype: torch.dtype, gen, device=None,
                  attention_impl: str = "xla"):
         super().__init__()
         E = cfg.hidden_size
         self.cfg = cfg
+        self.num_heads = cfg.num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.attention = BertSelfAttention(cfg, gen, device)
@@ -92,29 +105,39 @@ class BertLayer(nn.Module):
         cfg, dt = self.cfg, self.dtype
         head_dim = cfg.hidden_size // cfg.num_heads
         a = self.attention
-        q, k, v = fused_projection(hidden, (a.query, a.key, a.value),
-                                   cfg.num_heads, dt)
+        q, k, v = fused_projection(enter_split(hidden, self.split),
+                                   (a.query, a.key, a.value), self.num_heads,
+                                   dt)
+        place = flash_place(seeds, self.split, self.num_heads, cfg.num_heads)
         if self.attention_impl == "pallas":
             q = q * torch.tensor(head_dim ** -0.5, dtype=dt)
             ctx = flash_attention(
                 q, k, v, False, keys,
                 *attention_dropout(cfg.attention_dropout, self.training,
-                                   seeds))
+                                   seeds), place=place)
         else:
-            ctx = dot_product_attention(q, k, v, keys, cfg.attention_dropout,
-                                        self.training, seeds,
-                                        prescaled=False)
+            ctx = dot_product_attention(
+                q, k, v, keys, cfg.attention_dropout, self.training, seeds,
+                prescaled=False, heads=None if place is None else place[1:])
         ctx = merge_heads(ctx)
         lin = lambda mod, x: nn.functional.linear(x, mod.weight.to(dt),
                                                   mod.bias.to(dt))
+
+        def row_parallel(mod, x, split):
+            if split is None:
+                return lin(mod, x)
+            return (leave_split(nn.functional.linear(x, mod.weight.to(dt)),
+                                split) + mod.bias.to(dt))
         drop = lambda x: maybe_dropout(x, cfg.hidden_dropout, self.training,
                                        seeds)
         hidden = self.attention_norm(
-            hidden + drop(lin(self.attention_output, ctx)))
+            hidden + drop(row_parallel(self.attention_output, ctx,
+                                       self.split)))
         inter = nn.functional.gelu(
-            lin(self.intermediate, hidden),
+            lin(self.intermediate, enter_split(hidden, self.ffn_split)),
             approximate="tanh" if cfg.gelu == "tanh" else "none")
-        return self.output_norm(hidden + drop(lin(self.output, inter)))
+        return self.output_norm(
+            hidden + drop(row_parallel(self.output, inter, self.ffn_split)))
 
 
 class BertEncoder(nn.Module):

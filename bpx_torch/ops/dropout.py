@@ -28,11 +28,22 @@ stream also carries the seed axis itself (``axis``, an empty tensor of
 S rows mapped over by the vmap), so that a site whose input does not
 depend on the per-seed weights, which vmap would hand over unbatched,
 still reaches the per-seed rule.  The seeds never reach the device.
+
+Placement (the sharded step, ``bpx_torch/parallel``): a rank of a mesh
+holds a block of each global tensor, some of the batch's rows and, under a
+tensor split, some heads or feature columns.  The JAX package hashes the
+global tensor's linear index under GSPMD, so the port hashes each element
+of a block at its index in the global tensor: ``place`` gives, per dim,
+None (the whole dim) or ``(offset, global size)``.  A stream carries the
+rows of the batch its rank holds (:attr:`SeedStream.rows`) and every site
+places its tensor's dim 0 with them; a site on a feature-split tensor adds
+its column offset and global width (``split``).  Without placement the
+index is ``arange(numel)``, as before.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -52,13 +63,42 @@ def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
 
 
-def hash_keep(seed: int, shape, rate: float, device=None) -> torch.Tensor:
+#: a block's place in its global tensor: per dim None or (offset, size)
+Place = Optional[Tuple[Optional[Tuple[int, int]], ...]]
+
+
+def global_index(shape, place: Place = None, device=None) -> torch.Tensor:
+    """Each element's linear index in the global tensor of which a
+    ``shape`` block sits at ``place`` (int64, flat); ``arange(numel)``
+    without a place."""
+    if place is None or all(p is None for p in place):
+        n = 1
+        for d in shape:
+            n *= d
+        return torch.arange(n, dtype=torch.int64, device=device)
+    if len(place) != len(shape):
+        raise ValueError(f"place {place} for a tensor of {len(shape)} dims")
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        off, size = place[d] if place[d] is not None else (0, shape[d])
+        if off < 0 or off + shape[d] > size:
+            raise ValueError(f"dim {d}: {shape[d]} from {off} exceeds the "
+                             f"global {size}")
+        ar = torch.arange(off, off + shape[d], dtype=torch.int64,
+                          device=device)
+        idx = idx + ar.view(-1, *([1] * (len(shape) - 1 - d))) * stride
+        stride *= size
+    return idx.reshape(-1)
+
+
+def hash_keep(seed: int, shape, rate: float, device=None,
+              place: Place = None) -> torch.Tensor:
     """Bernoulli(1 - rate) keep mask of ``shape`` (bool), the JAX package's
-    ``_hash_keep``: murmur3 finalizer over the linear index plus ``seed``."""
-    n = 1
-    for d in shape:
-        n *= d
-    x = torch.arange(n, dtype=torch.int64, device=device)
+    ``_hash_keep``: murmur3 finalizer over the linear index plus ``seed``;
+    with ``place``, the index in the global tensor (:func:`global_index`),
+    so a block's mask is the slice of the global mask."""
+    x = global_index(shape, place, device) & _M32
     x = (mul32(x, 0x9E3779B9) + (seed & _M32)) & _M32
     x = x ^ (x >> 16)
     x = mul32(x, 0x85EBCA6B)
@@ -84,17 +124,18 @@ class _HashDropout(torch.autograd.Function):
     it too takes the per-seed rule under ``vmap(grad(...))``."""
 
     @staticmethod
-    def forward(x, axis, rate, seeds):
+    def forward(x, axis, rate, seeds, place):
         if len(seeds) != 1:
             raise ValueError(
                 f"{len(seeds)} dropout seeds outside torch.func.vmap: a "
                 f"seed list masks the slices of a vmapped seed axis")
-        return _scale(x, hash_keep(seeds[0], x.shape, rate, x.device), rate)
+        return _scale(x, hash_keep(seeds[0], x.shape, rate, x.device, place),
+                      rate)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, axis, rate, seeds = inputs
-        ctx.rate, ctx.seeds = rate, seeds
+        _, axis, rate, seeds, place = inputs
+        ctx.rate, ctx.seeds, ctx.place = rate, seeds, place
         ctx.save_for_backward(axis)
 
     @staticmethod
@@ -102,14 +143,18 @@ class _HashDropout(torch.autograd.Function):
         (axis,) = ctx.saved_tensors
         if axis is None and len(ctx.seeds) == 1:
             # one seed: its mask, directly (under a vmap, every slice's)
-            keep = hash_keep(ctx.seeds[0], g.shape, ctx.rate, g.device)
-            return _scale(g, keep, ctx.rate), None, None, None
-        return _HashDropout.apply(g, axis, ctx.rate, ctx.seeds), None, None, \
-            None
+            keep = hash_keep(ctx.seeds[0], g.shape, ctx.rate, g.device,
+                             ctx.place)
+            return _scale(g, keep, ctx.rate), None, None, None, None
+        return (_HashDropout.apply(g, axis, ctx.rate, ctx.seeds, ctx.place),
+                None, None, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, x, axis, rate, seeds):
+    def vmap(info, in_dims, x, axis, rate, seeds, place):
         n = info.batch_size
+        if place is not None:
+            raise NotImplementedError("placed hash dropout under vmap: the "
+                                      "multi-seed step takes no mesh")
         if len(seeds) not in (1, n):
             raise ValueError(f"{len(seeds)} dropout seeds for a vmapped "
                              f"axis of {n}")
@@ -154,15 +199,17 @@ def seed_list(seed: Union[int, Sequence[int], None]) -> Optional[List[int]]:
 
 def hash_dropout(x: torch.Tensor, rate: float,
                  seed: Union[int, Sequence[int]],
-                 axis: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 axis: Optional[torch.Tensor] = None,
+                 place: Place = None) -> torch.Tensor:
     """Inverted dropout with the hash mask; ``seed`` a Python int in
     [0, 2**32), or under ``torch.func.vmap`` a list of one per seed of the
     vmapped axis, with that axis's carrier ``axis``
-    (:class:`SeedStreams`).  Callers gate on ``rate > 0`` and training
-    mode."""
+    (:class:`SeedStreams`).  ``place``: where ``x`` sits in the global
+    tensor (:func:`global_index`).  Callers gate on ``rate > 0`` and
+    training mode."""
     if seed is None:
         raise ValueError("hash_dropout needs a uint32 seed")
-    return _HashDropout.apply(x, axis, float(rate), seed_list(seed))
+    return _HashDropout.apply(x, axis, float(rate), seed_list(seed), place)
 
 
 def _splitmix64(z: int) -> int:
@@ -174,15 +221,18 @@ def _splitmix64(z: int) -> int:
 
 class SeedStream:
     """Distinct uint32 seeds for the dropout sites of one forward, in call
-    order, derived from a uint32 ``base`` (splitmix64 of base and counter)."""
+    order, derived from a uint32 ``base`` (splitmix64 of base and counter).
+    ``rows``: ``(offset, global batch)`` of the batch rows the forward's
+    inputs hold, on a rank of a mesh; None for the whole batch."""
 
     #: no seed axis: one stream is one seed
     axis = None
 
-    def __init__(self, base: int):
+    def __init__(self, base: int, rows: Optional[Tuple[int, int]] = None):
         if not 0 <= base <= _M32:
             raise ValueError(f"base seed must be a uint32, got {base}")
         self.base = base
+        self.rows = rows
         self.count = 0
 
     def next(self) -> int:
@@ -193,7 +243,7 @@ class SeedStream:
         """A stream of the same base whose next seed is the one this
         stream gave after ``count`` draws: a recomputed layer replays its
         first pass's seeds from it (``ops/encoder.py::recomputed``)."""
-        stream = SeedStream(self.base)
+        stream = SeedStream(self.base, self.rows)
         stream.count = count
         return stream
 
@@ -209,6 +259,9 @@ class SeedStreams:
                  axis: Optional[torch.Tensor] = None):
         self.streams = [SeedStream(b) for b in bases]
         self.axis = axis
+
+    #: the multi-seed step holds the whole batch
+    rows = None
 
     def next(self) -> List[int]:
         return [s.next() for s in self.streams]
@@ -237,12 +290,31 @@ def seed_stream(dropout_seed) -> Union[SeedStream, SeedStreams, None]:
     return SeedStream(dropout_seed)
 
 
+def block_place(ndim: int, rows: Optional[Tuple[int, int]] = None,
+                split: Optional[Tuple[int, int, int]] = None) -> Place:
+    """The place of a batch-first ``ndim``-dim block: dim 0 at ``rows``
+    (offset, global batch), and ``split`` = (dim, offset, global size) for
+    a dim a tensor split cuts; None when neither is given."""
+    if rows is None and split is None:
+        return None
+    place = [None] * ndim
+    if rows is not None:
+        place[0] = tuple(rows)
+    if split is not None:
+        place[split[0] % ndim] = (split[1], split[2])
+    return tuple(place)
+
+
 def maybe_dropout(x: torch.Tensor, rate: float, training: bool,
-                  seeds: Union[SeedStream, SeedStreams, None]
+                  seeds: Union[SeedStream, SeedStreams, None],
+                  split: Optional[Tuple[int, int, int]] = None
                   ) -> torch.Tensor:
-    """``hash_dropout`` in training mode with ``rate > 0``, else ``x``."""
+    """``hash_dropout`` in training mode with ``rate > 0``, else ``x``;
+    ``x`` is batch-first, placed at the stream's ``rows`` and, on a
+    feature-split tensor, at ``split`` = (dim, offset, global size)."""
     if rate <= 0.0 or not training:
         return x
     if seeds is None:
         raise ValueError("dropout in training mode needs a SeedStream")
-    return hash_dropout(x, rate, seeds.next(), seeds.axis)
+    return hash_dropout(x, rate, seeds.next(), seeds.axis,
+                        block_place(x.dim(), seeds.rows, split))

@@ -27,6 +27,13 @@ boundary (:func:`resolve_remat_policy`).
 :class:`GroupedTransformerEncoder` runs two same-shape encoders as one over
 (2, B, T, E) stacks, with a leading pair axis of 2 on every parameter (the
 JAX package's ``group_encoders``).
+
+Under a tensor split (``bpx_torch/parallel/sharding.py``) a layer's
+attention holds its rank's heads (``ops/attention.py``) and its FFN
+(``ffn_split``) its rank's rows of fc1 (column-parallel) and columns of
+fc2 (row-parallel): the ReLU dropout masks the rank's feature columns at
+their global index, and fc2's partial sums are added over the ``tensor``
+group before its bias and the residual dropout, which sees full rows.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from bpx_torch.ops.dropout import SeedStream, maybe_dropout
 from bpx_torch.ops.init import linear
 from bpx_torch.ops.norm import LayerNorm, layer_norm
 from bpx_torch.ops.positions import positional_embedding
+from bpx_torch.parallel.collectives import (TensorSplit, enter_split,
+                                            leave_split)
 
 
 def _save_attn(ctx, op, *args, **kwargs):
@@ -99,6 +108,8 @@ class TransformerEncoderLayer(nn.Module):
     _attention = MultiheadAttention
     _norm = LayerNorm
     _linear = staticmethod(linear)
+    #: the rank's place in the tensor group when the FFN is split
+    ffn_split: Optional[TensorSplit] = None
 
     def __init__(self, embed_dim: int, num_heads: int = 4,
                  attn_mask: bool = False, biprojection: bool = False,
@@ -155,9 +166,20 @@ class TransformerEncoderLayer(nn.Module):
 
         ffn_ln = self.ln2 if self.biprojection else self.ln1
         residual = x
-        h = drop(torch.relu(self._dense(self.fc1, ffn_ln(x))),
-                 self.relu_dropout)
-        return residual + drop(self._dense(self.fc2, h), self.res_dropout)
+        split = self.ffn_split
+        if split is None:
+            h = drop(torch.relu(self._dense(self.fc1, ffn_ln(x))),
+                     self.relu_dropout)
+            return residual + drop(self._dense(self.fc2, h),
+                                   self.res_dropout)
+        dt = self.dtype
+        h = torch.relu(self._dense(self.fc1, enter_split(ffn_ln(x), split)))
+        width = h.shape[-1]
+        h = maybe_dropout(h, self.relu_dropout, self.training, seeds,
+                          (-1, split.rank * width, split.size * width))
+        y = leave_split(nn.functional.linear(h, self.fc2.weight.to(dt)),
+                        split) + self.fc2.bias.to(dt)
+        return residual + drop(y, self.res_dropout)
 
 
 class TransformerEncoder(nn.Module):

@@ -54,6 +54,18 @@ vmap rule folds the vmapped axis into the batch of one launch over S·B·H,
 through views of the (S, B, H, T, D) tensors, with the S seeds (or the
 one seed repeated) as the list; ``kv_lens`` is repeated for the S·B rows.
 The kernels take at most ``MAX_SEED_GROUPS`` seeds.
+
+Block placement (the sharded step, ``bpx_torch/parallel``): a rank of a
+mesh holds some batch rows and, under a tensor split, some heads of the
+global attention, whose dropout hashes the global (batch * head) index as
+the TPU kernels do under GSPMD.  ``place = (b_off, h_off, H_g)`` says
+where a call's blocks sit: its batch row b and head h hash as global block
+``(b_off + b) * H_g + h_off + h``, so each piece's mask is the slice of the
+global call's.  With seed groups, a block's index in its group is what is
+placed.  None is ``(0, 0, H)``: every block its own index, as before.  A
+placed call with dropout launches the kernels' build for seed groups (one
+group, its blocks placed); the one-group build, which every unplaced call
+takes, is the code it was before placement.
 """
 
 from __future__ import annotations
@@ -107,19 +119,45 @@ def inv_keep(rate: float) -> float:
     return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
 
 
+def check_place(place, H: int):
+    """``place`` as a (b_off, h_off, H_g) tuple of ints, checked against
+    the call's H local heads; None stays None."""
+    if place is None:
+        return None
+    if len(place) != 3:
+        raise ValueError(f"place must be (b_off, h_off, H_g), got {place}")
+    b_off, h_off, heads = (int(x) for x in place)
+    if b_off < 0 or h_off < 0 or h_off + H > heads:
+        raise ValueError(f"place {tuple(place)} does not hold {H} heads")
+    return b_off, h_off, heads
+
+
+def placed_blocks(n: int, H: int, place=None,
+                  device=None) -> torch.Tensor:
+    """The hash index of local blocks 0..n-1 (n = rows * H): the global
+    block ``(b_off + bh // H) * H_g + h_off + bh % H`` under ``place``,
+    else ``bh`` (int64)."""
+    bh = torch.arange(n, dtype=torch.int64, device=device)
+    if place is None:
+        return bh
+    b_off, h_off, heads = check_place(place, H)
+    return (b_off + bh // H) * heads + h_off + bh % H
+
+
 def keep_mask(seed, B: int, H: int, Tq: int, Tk: int, rate: float,
-              device=None) -> torch.Tensor:
+              device=None, place=None) -> torch.Tensor:
     """(B, H, Tq, Tk) bool: the TPU kernels' ``_keep_mask`` at every (batch
     * head, row, col), bit-identical, computed in int64 cut to 32 bits.
     ``seed`` is a uint32, or a list of n, one per group of B / n batch
     rows, each group hashed with its seed and its own (batch * head)
-    index from 0."""
+    index from 0; ``place`` (b_off, h_off, H_g) places each block (each
+    group's) in the global call."""
     m = 0xFFFFFFFF
     seeds = seed_list(seed)
     if B % len(seeds):
         raise ValueError(f"{len(seeds)} seed groups do not divide a batch "
                          f"of {B}")
-    bh = torch.arange(B // len(seeds) * H, dtype=torch.int64, device=device)
+    bh = placed_blocks(B // len(seeds) * H, H, place, device)
     row = torch.arange(Tq, dtype=torch.int64, device=device)
     col = torch.arange(Tk, dtype=torch.int64, device=device)
     idx = (mul32(bh, 0x85EBCA6B)[:, None, None]
@@ -153,7 +191,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, masked: bool = True,
                               kv_lens: Optional[torch.Tensor] = None,
                               dropout_rate: float = 0.0,
-                              dropout_seed: Optional[int] = None):
+                              dropout_seed: Optional[int] = None,
+                              place=None):
     """Plain forward on (B, H, T, D) tensors: returns (out, lse), out in
     q's dtype and layout (B, H, Tq, D), lse fp32 (B, H, Tq)."""
     B, H, Tq, D = q.shape
@@ -166,7 +205,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     if dropout_rate > 0.0:
-        keep = keep_mask(dropout_seed, B, H, Tq, Tk, dropout_rate, q.device)
+        keep = keep_mask(dropout_seed, B, H, Tq, Tk, dropout_rate, q.device,
+                         place)
         p = torch.where(keep, p * inv_keep(dropout_rate), 0.0)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
@@ -179,7 +219,8 @@ def flash_attention_backward_reference(q, k, v, dout, lse, delta,
                                        masked: bool = True,
                                        kv_lens: Optional[torch.Tensor] = None,
                                        dropout_rate: float = 0.0,
-                                       dropout_seed: Optional[int] = None):
+                                       dropout_seed: Optional[int] = None,
+                                       place=None):
     """Plain backward: (dq, dk, dv) in q's dtype from the saved lse (B, H,
     Tq) and ``delta = rowsum(dO * O)`` (B, H, Tq), both fp32."""
     B, H, Tq, D = q.shape
@@ -193,7 +234,8 @@ def flash_attention_backward_reference(q, k, v, dout, lse, delta,
     dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
     pd = p
     if dropout_rate > 0.0:
-        keep = keep_mask(dropout_seed, B, H, Tq, Tk, dropout_rate, q.device)
+        keep = keep_mask(dropout_seed, B, H, Tq, Tk, dropout_rate, q.device,
+                         place)
         scale = inv_keep(dropout_rate)
         pd = torch.where(keep, p * scale, 0.0)
         dp = torch.where(keep, dp * scale, 0.0)
@@ -234,22 +276,23 @@ def _kernel_layout(B, T, H, D, like):
                        device=like.device).transpose(1, 2)
 
 
-def _forward(q, k, v, masked, kv_lens, rate, seeds):
+def _forward(q, k, v, masked, kv_lens, rate, seeds, place=None):
     if use_kernel(q):
-        return _launch(q, k, v, masked, kv_lens, rate, seeds)
+        return _launch(q, k, v, masked, kv_lens, rate, seeds, place)
     out, lse = flash_attention_reference(q, k, v, masked, kv_lens, rate,
-                                         seeds)
+                                         seeds, place)
     B, H, Tq, D = q.shape
     return _kernel_layout(B, Tq, H, D, out).copy_(out), lse
 
 
-def _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seeds):
+def _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seeds,
+              place=None):
     if use_kernel(q):
         return _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate,
-                           seeds)
+                           seeds, place)
     grads = flash_attention_backward_reference(
         q, k, v, dout, lse, attention_delta_reference(dout, out), masked,
-        kv_lens, rate, seeds)
+        kv_lens, rate, seeds, place)
     B, H = q.shape[:2]
     return tuple(_kernel_layout(B, g.shape[2], H, g.shape[3], g).copy_(g)
                  for g in grads)
@@ -265,12 +308,12 @@ def _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seeds):
 torch.library.define(
     "bpx_torch::flash_fwd",
     "(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, bool masked, "
-    "float rate, int[]? seeds) -> (Tensor, Tensor)")
+    "float rate, int[]? seeds, int[]? place=None) -> (Tensor, Tensor)")
 torch.library.define(
     "bpx_torch::flash_bwd",
     "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, "
-    "Tensor? kv_lens, bool masked, float rate, int[]? seeds) "
-    "-> (Tensor, Tensor, Tensor)")
+    "Tensor? kv_lens, bool masked, float rate, int[]? seeds, "
+    "int[]? place=None) -> (Tensor, Tensor, Tensor)")
 torch.library.define("bpx_torch::flash_delta",
                      "(Tensor dout, Tensor out) -> Tensor")
 _FLASH_FWD = torch.ops.bpx_torch.flash_fwd.default
@@ -279,43 +322,44 @@ _FLASH_DELTA = torch.ops.bpx_torch.flash_delta.default
 
 
 @torch.library.impl("bpx_torch::flash_fwd", ("cpu", "cuda"))
-def _(q, k, v, kv_lens, masked, rate, seeds):
-    return _forward(q, k, v, masked, kv_lens, rate, seeds)
+def _(q, k, v, kv_lens, masked, rate, seeds, place=None):
+    return _forward(q, k, v, masked, kv_lens, rate, seeds, place)
 
 
 @torch.library.register_fake("bpx_torch::flash_fwd")
-def _(q, k, v, kv_lens, masked, rate, seeds):
+def _(q, k, v, kv_lens, masked, rate, seeds, place=None):
     B, H, Tq, D = q.shape
     return (_kernel_layout(B, Tq, H, D, q),
             q.new_empty(B, H, Tq, dtype=torch.float32))
 
 
 @torch.library.impl("bpx_torch::flash_bwd", ("cpu", "cuda"))
-def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seeds):
-    return _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seeds)
+def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seeds, place=None):
+    return _backward(q, k, v, out, lse, dout, masked, kv_lens, rate, seeds,
+                     place)
 
 
 @torch.library.register_fake("bpx_torch::flash_bwd")
-def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seeds):
+def _(q, k, v, out, lse, dout, kv_lens, masked, rate, seeds, place=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     return tuple(_kernel_layout(B, T, H, D, q) for T in (Tq, Tk, Tk))
 
 
 def _setup_flash_fwd(ctx, inputs, output):
-    q, k, v, kv_lens, masked, rate, seeds = inputs
+    q, k, v, kv_lens, masked, rate, seeds, place = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse, kv_lens)
-    ctx.config = (masked, rate, seeds)
+    ctx.config = (masked, rate, seeds, place)
     ctx.mark_non_differentiable(lse)
 
 
 def _flash_fwd_grad(ctx, dout, _dlse):
     q, k, v, out, lse, kv_lens = ctx.saved_tensors
-    masked, rate, seeds = ctx.config
+    masked, rate, seeds, place = ctx.config
     dq, dk, dv = _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked, rate,
-                            seeds)
-    return dq, dk, dv, None, None, None, None
+                            seeds, place)
+    return dq, dk, dv, None, None, None, None, None
 
 
 torch.library.register_autograd("bpx_torch::flash_fwd", _flash_fwd_grad,
@@ -380,11 +424,11 @@ def _unfold(t, n):
 
 
 @torch.library.register_vmap("bpx_torch::flash_fwd")
-def _(info, in_dims, q, k, v, kv_lens, masked, rate, seeds):
+def _(info, in_dims, q, k, v, kv_lens, masked, rate, seeds, place=None):
     n = info.batch_size
     qf, kf, vf = (_fold(t, d, n) for t, d in zip((q, k, v), in_dims))
     out, lse = _FLASH_FWD(qf, kf, vf, _fold_kv_lens(kv_lens, in_dims[3], n),
-                          masked, rate, _fold_seeds(seeds, n))
+                          masked, rate, _fold_seeds(seeds, n), place)
     return (_unfold(out, n), _unfold(lse, n)), (0, 0)
 
 
@@ -393,7 +437,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_lens: Optional[torch.Tensor] = None,
                     dropout_rate: float = 0.0,
                     dropout_seed: Union[int, Sequence[int], None] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, place=None):
     """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D); q pre-scaled.
 
     The op ``bpx_torch::flash_fwd``: the kernels for CUDA tensors, the
@@ -405,24 +449,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     view of (B, Tq, H, D) memory, so ``out.transpose(1, 2).reshape(B, Tq,
     H * D)`` is free.  ``dropout_rate > 0`` needs ``dropout_seed``, a uint32
     Python int, or a list of n, one per group of B / n batch rows (under
-    ``torch.func.vmap``: one per slice of the vmapped axis).
+    ``torch.func.vmap``: one per slice of the vmapped axis).  ``place``
+    (b_off, h_off, H_g) places the call's blocks in a global call for the
+    dropout hash (the module docstring); None: unplaced.
     """
     check_device(q)
     seeds = _check(q, k, v, kv_lens, dropout_rate, dropout_seed)
+    place = check_place(place, q.shape[1])
     out, lse = _FLASH_FWD(q, k, v, kv_lens, masked, float(dropout_rate),
-                          seeds)
+                          seeds, None if place is None else list(place))
     return (out, lse) if return_lse else out
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              kv_lens=None, dropout_rate=0.0,
-                             dropout_seed=None):
+                             dropout_seed=None, place=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``dout`` (the op ``bpx_torch::flash_bwd``); the kernels (dQ with
     delta, then dK/dV; at head_dim 64 and 96 delta, dK/dV, dQ) for CUDA
     tensors, the plain version for CPU."""
+    place = check_place(place, q.shape[1])
     return _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked,
-                      float(dropout_rate), seed_list(dropout_seed))
+                      float(dropout_rate), seed_list(dropout_seed),
+                      None if place is None else list(place))
 
 
 def attention_delta_reference(dout: torch.Tensor,
@@ -511,11 +560,13 @@ def _kv_lens_ptr(kv_lens, device):
     return kv_lens, kv_lens.data_ptr()
 
 
-def _dropout_args(rate, seed, tk, batch):
+def _dropout_args(rate, seed, tk, batch, heads=1, place=None):
     """The kernels' dropout arguments: on, the seeds (a C array, one per
-    group of ``batch`` / n rows), n, threshold, inv_keep and tk_p."""
+    group of ``batch`` / n rows), n, threshold, inv_keep, tk_p, and the
+    placement b_off, h_off, H_g (0, 0, ``heads`` unplaced)."""
+    b_off, h_off, heads_g = check_place(place, heads) or (0, 0, heads)
     if rate <= 0.0:
-        return 0, None, 1, 0, 1.0, tk
+        return 0, None, 1, 0, 1.0, tk, b_off, h_off, heads_g
     seeds = seed_list(seed)
     n = len(seeds)
     if n > MAX_SEED_GROUPS or batch % n:
@@ -523,10 +574,10 @@ def _dropout_args(rate, seed, tk, batch):
                          f"seed groups that divide the batch of {batch}, "
                          f"got {n}")
     return (1, (ctypes.c_uint * n)(*seeds), n, keep_threshold(rate),
-            inv_keep(rate), padded_tk(tk))
+            inv_keep(rate), padded_tk(tk), b_off, h_off, heads_g)
 
 
-def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None):
+def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _check_head_dim(D)
@@ -542,7 +593,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), kvl_ptr, B, H, Tq, Tk, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(masked), offset, *_dropout_args(rate, seeds, Tk, B),
+        int(masked), offset, *_dropout_args(rate, seeds, Tk, B, H, place),
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_fwd")
     flash_attention.launches += 1
@@ -551,7 +602,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None):
 
 
 def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
-                seeds=None):
+                seeds=None, place=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _check_head_dim(D)
@@ -572,7 +623,8 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         out.data_ptr(), lse.data_ptr(), delta.data_ptr(), kvl_ptr,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
-        *strides, int(masked), offset, *_dropout_args(rate, seeds, Tk, B),
+        *strides, int(masked), offset,
+        *_dropout_args(rate, seeds, Tk, B, H, place),
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_bwd")
     flash_attention_backward.launches += 1

@@ -23,12 +23,24 @@ numpy arrays.
 
 Entry points run on ``device`` ("cuda" when None) and never fall back to
 the CPU.
+
+Multi-card (``torchrun``, ``bpx_torch/parallel``): where the world is
+larger than one rank, as the JAX package meshes whenever more than one
+device is visible, ``train`` and ``test`` join the process group, lay the
+world out as the config's ``(data, fsdp, tensor)`` mesh, and place the
+model on it before the optimizer is built; each rank takes card
+``LOCAL_RANK``.  Every rank reads the same batches; the train step and
+the eval step keep each rank's rows and gather the logits back, so every
+rank computes the same metrics.  Rank 0 logs, writes the config, the
+checkpoints (which every rank helps gather) and the artifacts; the others
+wait at a barrier.  Auto-resume restores ``latest`` on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import time
 from typing import Dict
@@ -41,6 +53,9 @@ from bpx_torch.data.loaders import get_data_loaders
 from bpx_torch.models import get_model, resolve_device
 from bpx_torch.ops.bert import maybe_load_pretrained
 from bpx_torch.ops.dropout import step_seed
+from bpx_torch.parallel import sharding
+from bpx_torch.parallel.mesh import (barrier, initialize_distributed,
+                                     local_rank, make_mesh, rank)
 from bpx_torch.train.losses import make_loss_fn
 from bpx_torch.train.metrics import compute_metrics, log_metrics, tuning_metric
 from bpx_torch.train.optim import (EarlyStopping, PlateauScheduler,
@@ -74,6 +89,37 @@ def init_model_and_state(exp: ExperimentConfig, seed: int, device=None):
     return model, optimizer
 
 
+def _on_mesh(exp: ExperimentConfig, model, mesh):
+    """``model`` placed on ``mesh`` (``sharding.shard_model``) and a new
+    optimizer over the placed weights, so that its moments are sharded
+    with them (the one built before holds no state yet)."""
+    model = sharding.shard_model(model, mesh)
+    return model, make_optimizer(model.parameters(), exp.train.lr,
+                                 exp.train.optimizer)
+
+
+def _placement(exp: ExperimentConfig, device):
+    """(device, mesh): on a world of more than one rank, the rank's card
+    and the config's mesh; else ``device`` and None."""
+    device = resolve_device(device)
+    world = initialize_distributed(device.type)
+    if world <= 1:
+        return device, None
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank())
+    return device, make_mesh(exp.train.mesh, device.type)
+
+
+def _rank_logger(path: str, exp: ExperimentConfig):
+    """Rank 0's file and console logger; the other ranks' logs nothing."""
+    if rank() == 0:
+        return create_logger(path, exp)
+    logger = create_logger(None, None, name=f"bpx_torch.rank{rank()}")
+    logger.handlers.clear()
+    logger.setLevel(logging.CRITICAL + 1)
+    return logger
+
+
 def _with_label_count(exp: ExperimentConfig, meta) -> ExperimentConfig:
     """The head sized by the label scan of train.jsonl, except for
     cmu-mosi, whose continuous labels would count distinct values: its
@@ -83,11 +129,14 @@ def _with_label_count(exp: ExperimentConfig, meta) -> ExperimentConfig:
     return exp
 
 
-def _loss_fn(exp: ExperimentConfig, meta, train_data_len: int, device=None):
+def _loss_fn(exp: ExperimentConfig, meta, train_data_len: int, device=None,
+             mesh=None):
     d = exp.data
     return make_loss_fn(d.task, d.task_type, exp.train.weight_classes,
                         [meta.label_freqs[l] for l in meta.labels],
-                        train_data_len, device=device)
+                        train_data_len, device=device,
+                        groups=() if mesh is None
+                        else sharding.dp_groups(mesh))
 
 
 def _to_device(batch: Dict[str, np.ndarray],
@@ -130,11 +179,11 @@ def evaluate(eval_step_fn, loader, task: str, task_type: str, device,
 
 def train(exp: ExperimentConfig, data_all=None, partition_index=None,
           device=None) -> Dict[str, float]:
-    device = resolve_device(device)
+    device, mesh = _placement(exp, device)
     tcfg, dcfg = exp.train, exp.data
     savedir = os.path.join(tcfg.savedir, tcfg.name)
     os.makedirs(savedir, exist_ok=True)
-    logger = create_logger(os.path.join(savedir, "logfile.log"), exp)
+    logger = _rank_logger(os.path.join(savedir, "logfile.log"), exp)
 
     generator = set_seed(tcfg.seed)
     train_loader, val_loader, _, meta = get_data_loaders(
@@ -142,7 +191,7 @@ def train(exp: ExperimentConfig, data_all=None, partition_index=None,
         partition_index=partition_index)
     exp = _with_label_count(exp, meta)
     mcfg = exp.model
-    loss_fn = _loss_fn(exp, meta, meta.train_data_len, device)
+    loss_fn = _loss_fn(exp, meta, meta.train_data_len, device, mesh)
     host_loss_fn = _loss_fn(exp, meta, meta.train_data_len)
 
     # The JAX package pulls one batch here for its parameter shapes; that
@@ -150,26 +199,32 @@ def train(exp: ExperimentConfig, data_all=None, partition_index=None,
     # trains on the same orders.
     _example_batch(train_loader)
     model, optimizer = init_model_and_state(exp, tcfg.seed, device)
-    n_params = sum(p.numel() for p in model.parameters())
+    if mesh is not None:
+        model, optimizer = _on_mesh(exp, model, mesh)
+    n_params = sharding.param_count(model)
     logger.info("model %s: %.2fM params on %s", mcfg.model, n_params / 1e6,
                 device)
+    if mesh is not None:
+        logger.info("mesh: %s", dict(zip(mesh.mesh_dim_names, mesh.shape)))
 
     accum = max(1, tcfg.gradient_accumulation_steps)
     train_step = make_train_step(
         model, mcfg.model, loss_fn, optimizer, grad_accum=accum,
         freeze_bert=mcfg.freeze_bert, generator=generator,
         accum_dtype=tcfg.accum_dtype, accum_unroll=tcfg.accum_unroll,
-        accum_scan_unroll=tcfg.accum_scan_unroll)
+        accum_scan_unroll=tcfg.accum_scan_unroll, mesh=mesh)
     # no device-side loss: evaluate() recomputes it on the host over the
     # valid-sliced concatenation (wrap-padded rows excluded)
-    eval_step = make_eval_step(model, mcfg.model)
+    eval_step = make_eval_step(model, mcfg.model, mesh=mesh)
 
     mode = "min" if dcfg.task == "cmu-mosi" else "max"
     plateau = PlateauScheduler(lr=tcfg.lr, mode=mode, factor=tcfg.lr_factor,
                                patience=tcfg.lr_patience)
     stopper = EarlyStopping(patience=tcfg.patience, mode=mode)
     ckpt = CheckpointManager(savedir)
-    ckpt.save_config(exp)
+    if rank() == 0:
+        ckpt.save_config(exp)
+    barrier()
 
     start_epoch, step = 0, 0
     if ckpt.has_checkpoint("latest"):
@@ -254,11 +309,11 @@ def train(exp: ExperimentConfig, data_all=None, partition_index=None,
 
 def test(exp: ExperimentConfig, data_all=None, partition_index=None,
          device=None) -> Dict[str, float]:
-    device = resolve_device(device)
+    device, mesh = _placement(exp, device)
     tcfg, dcfg = exp.train, exp.data
     savedir = os.path.join(tcfg.savedir, tcfg.name)
     os.makedirs(savedir, exist_ok=True)
-    logger = create_logger(os.path.join(savedir, "logfileTest.log"), exp)
+    logger = _rank_logger(os.path.join(savedir, "logfileTest.log"), exp)
 
     set_seed(tcfg.seed)
     _, _, test_loader, meta = get_data_loaders(
@@ -268,6 +323,8 @@ def test(exp: ExperimentConfig, data_all=None, partition_index=None,
     host_loss_fn = _loss_fn(exp, meta, max(meta.train_data_len, 1))
 
     model, _ = init_model_and_state(exp, tcfg.seed, device)
+    if mesh is not None:
+        model, _ = _on_mesh(exp, model, mesh)
     ckpt = CheckpointManager(savedir)
     if ckpt.has_checkpoint("best"):
         ckpt.restore(model, tag="best")
@@ -275,7 +332,7 @@ def test(exp: ExperimentConfig, data_all=None, partition_index=None,
         logger.info("no best checkpoint found — evaluating fresh init")
 
     eval_step = make_eval_step(model, exp.model.model,
-                               output_gates=tcfg.output_gates)
+                               output_gates=tcfg.output_gates, mesh=mesh)
     metrics, logits, targets, gates = evaluate(
         eval_step, test_loader, dcfg.task, dcfg.task_type, device,
         host_loss_fn, collect_gates=tcfg.output_gates)
@@ -287,8 +344,10 @@ def test(exp: ExperimentConfig, data_all=None, partition_index=None,
     else:
         raw = logits
         preds = logits.argmax(-1) if logits.shape[-1] > 1 else logits[:, 0]
-    store_preds_to_disk(targets, preds, savedir, meta.labels,
-                        dcfg.task_type, preds_raw=raw, gates=gates)
+    if rank() == 0:
+        store_preds_to_disk(targets, preds, savedir, meta.labels,
+                            dcfg.task_type, preds_raw=raw, gates=gates)
+    barrier()
     return metrics
 
 

@@ -20,6 +20,19 @@ nothing is rounded; ``"float32"`` and None accumulate exactly in fp32.
 ``accum_unroll``, ``accum_scan_unroll`` and ``donate`` steer XLA's program
 in the JAX package and are accepted and inert here: the port runs the
 micro-batches as a Python loop.
+
+On a mesh (``mesh``, the model placed by
+``bpx_torch/parallel/sharding.py::shard_model``) every rank takes the same
+super-batch and keeps its rows of each micro-batch (``place_batch``).
+Every rank draws the same base seeds from its identically seeded
+generator, and the forward's stream places each dropout mask at the rows
+the rank holds, so the masks are the one-process step's.  The loss
+function must be the mesh's (``losses.make_loss_fn(..., groups=...)``):
+DDP and FSDP2 average the gradients over the ``(data, fsdp)`` ranks.  The
+loss reported is that average too, the global loss; ``grad_norm`` sums
+each rank's squares once (``sharding.grad_sq_norm``).  Under FSDP2 each
+micro-batch's gradient is reduced before the next, so bf16 accumulation
+rounds the reduced gradients, which are what one process rounds.
 """
 
 from __future__ import annotations
@@ -29,7 +42,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from bpx_torch.inputs import model_inputs
-from bpx_torch.ops.dropout import draw_base_seed
+from bpx_torch.ops.dropout import SeedStream, draw_base_seed
 
 
 def make_train_step(model: torch.nn.Module, model_name: str,
@@ -39,10 +52,12 @@ def make_train_step(model: torch.nn.Module, model_name: str,
                     generator: Optional[torch.Generator] = None,
                     accum_dtype: Optional[str] = None,
                     accum_unroll: bool = False, accum_scan_unroll: int = 1,
-                    donate: bool = True):
+                    donate: bool = True, mesh=None):
     """``train_step(batch) -> {"loss"[, "grad_norm"]}`` (0-dim fp32 device
     tensors; reading them is the caller's sync).  ``generator`` is the CPU
-    generator of the dropout seeds (default: a new one seeded with 0)."""
+    generator of the dropout seeds (default: a new one seeded with 0).
+    ``mesh``: the mesh ``model`` was placed on, or None for one
+    process."""
     if accum_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"unknown accum_dtype {accum_dtype!r}")
     if grad_accum < 1:
@@ -50,19 +65,28 @@ def make_train_step(model: torch.nn.Module, model_name: str,
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(0)
     params = [p for p in model.parameters() if p.requires_grad]
-    frozen = ([p for n, p in model.named_parameters()
+    inner = model
+    if mesh is not None:
+        from bpx_torch.parallel import sharding
+        inner = sharding.unwrap(model)
+    frozen = ([p for n, p in inner.named_parameters()
                if n.startswith("bert.")] if freeze_bert else [])
     bf16_accum = accum_dtype == "bfloat16" and grad_accum > 1
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        rows = None
+        if mesh is not None:
+            batch, rows = sharding.place_batch(batch, mesh)
         loss_sum = None
         acc = {}
         for i in range(grad_accum):
             micro = {k: v[i] for k, v in batch.items()}
+            base = draw_base_seed(gen)
             logits = model(*model_inputs(model_name, micro),
-                           dropout_seed=draw_base_seed(gen))
+                           dropout_seed=base if rows is None
+                           else SeedStream(base, rows))
             loss = loss_fn(logits, micro["target"])
             loss.backward()
             loss = loss.detach()
@@ -78,9 +102,16 @@ def make_train_step(model: torch.nn.Module, model_name: str,
         for p in frozen:
             if p.grad is not None:
                 p.grad.zero_()
-        metrics = {"loss": loss_sum * (1.0 / grad_accum)
-                   if grad_accum > 1 else loss_sum}
-        if with_grad_norm:
+        loss = loss_sum * (1.0 / grad_accum) if grad_accum > 1 else loss_sum
+        if mesh is not None:
+            from bpx_torch.parallel.collectives import all_reduce_over
+            loss = all_reduce_over(loss.clone(), sharding.dp_groups(mesh))
+            loss = loss * (1.0 / sharding.batch_rows(mesh)[1])
+        metrics = {"loss": loss}
+        if with_grad_norm and mesh is not None:
+            metrics["grad_norm"] = sharding.grad_sq_norm(
+                model, params, mesh).sqrt()
+        elif with_grad_norm:
             metrics["grad_norm"] = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
         optimizer.step()
@@ -105,18 +136,30 @@ def _accumulate_bf16(params, acc) -> None:
 
 def make_eval_step(model: torch.nn.Module, model_name: str,
                    loss_fn: Optional[Callable] = None,
-                   output_gates: bool = False):
+                   output_gates: bool = False, mesh=None):
     """``eval_step(batch) -> {"logits"[, "loss"][, "gates"]}`` in eval mode
-    (no dropout), without autograd."""
+    (no dropout), without autograd.  On a ``mesh`` each rank runs its rows
+    of the batch (``place_batch``) and the logits and gates of every rank
+    are gathered in rank order: every rank returns the whole batch's."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()
+        whole = batch
+        if mesh is not None:
+            from bpx_torch.parallel import sharding
+            batch, _ = sharding.place_batch(batch, mesh,
+                                            has_accum_axis=False)
         inputs = model_inputs(model_name, batch)
         if output_gates:
             logits, gates = model(*inputs, output_gates=True)
         else:
             logits, gates = model(*inputs), None
+        if mesh is not None:
+            logits = sharding.gather_rows(logits, mesh)
+            if gates is not None:
+                gates = sharding.gather_rows(gates, mesh)
+            batch = whole
         out = {"logits": logits}
         if loss_fn is not None:
             out["loss"] = loss_fn(logits, batch["target"])

@@ -17,6 +17,13 @@ alone.  The run directory keeps the JAX package's layout:
   package's ``config_from_dict``.
 
 ``restore`` reads with ``torch.load(weights_only=True)``.
+
+On a mesh (``bpx_torch/parallel/sharding.py``) the files hold the same
+whole, unsharded state: ``save`` gathers every weight and moment whole
+(FSDP2's shards and the tensor split's parts; a collective every rank
+joins) and rank 0 writes it while the others wait; ``restore`` cuts and
+shards what it reads as the model is placed.  So one process's checkpoint
+restores into a sharded run and a sharded run's into one process.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from bpx_torch.parallel import sharding
+from bpx_torch.parallel.mesh import barrier, rank
 
 MODEL_FILE = "model.pt"
 OPTIMIZER_FILE = "optimizer.pt"
@@ -54,16 +64,29 @@ class CheckpointManager:
     def save(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
              step: int, host_state: Dict[str, Any],
              is_best: bool = False) -> None:
-        """Write ``latest`` (and mirror it to ``best`` on improvement)."""
+        """Write ``latest`` (and mirror it to ``best`` on improvement); on
+        a mesh every rank calls it and rank 0 writes."""
+        if sharding.sharded(model):
+            model_state = sharding.full_model_state(model)
+            opt_state = sharding.full_optimizer_state(model, optimizer)
+            if rank() == 0:
+                self._write(model_state, opt_state, step, host_state, is_best)
+            barrier()
+            return
+        self._write(_to_cpu(sharding.unwrap(model).state_dict()),
+                    _to_cpu(optimizer.state_dict()), step, host_state,
+                    is_best)
+
+    def _write(self, model_state, opt_state, step: int,
+               host_state: Dict[str, Any], is_best: bool) -> None:
         path = self._path("latest")
         tmp = self._path("latest.tmp")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)                # and the run directory, if new
-        torch.save({"model": _to_cpu(model.state_dict()), "step": int(step)},
+        torch.save({"model": model_state, "step": int(step)},
                    os.path.join(tmp, MODEL_FILE))
-        torch.save(_to_cpu(optimizer.state_dict()),
-                   os.path.join(tmp, OPTIMIZER_FILE))
+        torch.save(opt_state, os.path.join(tmp, OPTIMIZER_FILE))
         if os.path.exists(path):
             shutil.rmtree(path)
         os.replace(tmp, path)
@@ -97,12 +120,20 @@ class CheckpointManager:
     def restore(self, model: torch.nn.Module,
                 optimizer: Optional[torch.optim.Optimizer] = None,
                 tag: str = "latest") -> Tuple[int, Dict[str, Any]]:
-        """Load the model's (and the optimizer's) state in place; return
-        the optimizer step and the host state dict."""
+        """Load the model's (and the optimizer's) state in place, however
+        the model is placed; return the optimizer step and the host state
+        dict."""
         state = self.load(tag, optimizer is not None)
-        model.load_state_dict(state["model"], strict=True)
-        if optimizer is not None:
-            optimizer.load_state_dict(state["optimizer"])
+        if sharding.sharded(model):
+            sharding.load_full_model_state(model, state["model"])
+            if optimizer is not None:
+                sharding.load_full_optimizer_state(model, optimizer,
+                                                   state["optimizer"])
+        else:
+            sharding.unwrap(model).load_state_dict(state["model"],
+                                                   strict=True)
+            if optimizer is not None:
+                optimizer.load_state_dict(state["optimizer"])
         host_file = ("best_host_state.json" if tag == "best"
                      else "host_state.json")
         host_path = os.path.join(self.savedir, host_file)

@@ -232,6 +232,27 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and the library call; the exact dropout masks at those three shapes,
    with one seed and with two seed groups, each group's bits its own
    launch's.
+21. ``[mesh]``, the multi-card trainer on the one card: an NCCL process
+   group of world size 1 from a file store and its (1, 1, 1) mesh.
+   Moviescope's model at full width and depth (bf16, 8 x A = 2, Adam,
+   every dropout) takes 3 steps through the one-process trainer, then
+   through the sharded one with DDP and with FSDP2 from the same weights,
+   batches and seeds: step 1 of each within the micro-step limits of the
+   one-process step (loss, per-group gradients) and within 1e-5 of it
+   (``MESH_TOL``, from the readings), exact counters per step
+   (168 / 72 / 168 / 458 / 458), medians and peak memory.  The placed
+   kernels: at D 25, 64, 128 and 192 (8 x 12, 12, 6, 8 heads x 512 x
+   512, causal, rate 0.1) the (B/2, H/2) piece a rank of a data=2 x
+   tensor=2 mesh holds, with its block placement, must equal the global
+   call's slice bit for bit (O, lse, dQ, dK, dV and both kernels' mask
+   bits) and match the plain version with the placement.  The stress
+   preset (BERT-large, 2.21 B parameters, recompute): one served request
+   of 8 with exact counters, then one FSDP2 step of 64 rows at the
+   largest micro-batch that fits, with exact counters, its time and peak
+   memory; the step's flash classes (1024 / 768 queries x 768 / 1024
+   keys, BERT's 512 x 512, D 64, 16 heads a row, dropout 0.1 where the
+   step draws it) against the plain versions both ways (the plain ones
+   in placed chunks of 8 rows) and timed.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -244,7 +265,8 @@ head_dim 25 from iemocap's train steps and at 30 from cmu-mosei's, and the
 head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
 sweep, hybrid's and the grouped pairs' classes; phase 17's folded
 classes; phase 19's head_dim-192 and 1536-wide classes; phase 20's
-head_dim 50, 60 and 256 and 600-wide classes) and, last,
+head_dim 50, 60 and 256 and 600-wide classes; phase 21's stress
+classes) and, last,
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package; without a CUDA device, or without ``bpx_torch`` beside it, it
 exits non-zero and prints no result.
@@ -580,15 +602,17 @@ def recording():
         seen["copies"][t.shape[3]] += got is not t
         return got
 
-    def flash(launch, q, k, v, masked, kv_lens, rate=0.0, seed=None):
+    def flash(launch, q, k, v, masked, kv_lens, rate=0.0, seed=None,
+              place=None):
         seen["flash"][flash_class(q, k, masked, kv_lens, rate, seed)] += 1
-        return launch(q, k, v, masked, kv_lens, rate, seed)
+        return launch(q, k, v, masked, kv_lens, rate, seed, place)
 
     def flash_bwd(launch, q, k, v, dout, lse, out, masked, kv_lens,
-                  rate=0.0, seed=None):
+                  rate=0.0, seed=None, place=None):
         seen["flash_bwd"][flash_class(q, k, masked, kv_lens, rate,
                                       seed)] += 1
-        return launch(q, k, v, dout, lse, out, masked, kv_lens, rate, seed)
+        return launch(q, k, v, dout, lse, out, masked, kv_lens, rate, seed,
+                      place)
 
     def ln(launch, x, w, b, eps, out_dtype):
         seen["ln"][(x.numel() // x.shape[-1], x.shape[-1], eps, x.dtype,
@@ -602,9 +626,9 @@ def recording():
 
     hash_dropout = dropout.hash_dropout
 
-    def drop(x, rate, seed, axis=None):
+    def drop(x, rate, seed, axis=None, place=None):
         seen["dropout"][(tuple(x.shape), x.dtype, rate)] += 1
-        return hash_dropout(x, rate, seed, axis)
+        return hash_dropout(x, rate, seed, axis, place)
 
     dropout.hash_dropout = drop
     fa._kernel_ready = ready
@@ -705,6 +729,25 @@ def attention_inputs(torch, gen, B, H, Tq, Tk, D, padded):
     return q, k, v, kv_lens
 
 
+def by_rows(torch, fn, B, H, rows=None):
+    """A plain version ``fn(b0, b1, place)`` over the whole batch: one
+    call (place None), or with ``rows`` one call per ``rows`` batch rows,
+    each placed at its rows ((b0, 0, H): its dropout blocks are the global
+    call's), the outputs concatenated on the batch dim.  For classes whose
+    plain version does not fit the card in one call (its fp32 scores and
+    int64 mask indices take ~57 bytes a score)."""
+    if rows is None or rows >= B:
+        return fn(0, B, None)
+    parts = [fn(b0, min(b0 + rows, B), (b0, 0, H))
+             for b0 in range(0, B, rows)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def row_slice(t, b0, b1):
+    """Rows b0..b1 of a batch-first tensor (None stays None)."""
+    return None if t is None else t[b0:b1]
+
+
 def attention_work(torch, B, H, Tq, Tk, masked, kv_lens):
     """(visible score entries, unpadded keys, the visible mask or None)
     of this run's data: the work the kernels cannot skip."""
@@ -722,9 +765,12 @@ def attention_work(torch, B, H, Tq, Tk, masked, kv_lens):
     return visible, keys, (None if ok.all() else ok)
 
 
-def phase_flash(torch, timer, classes, gen, label="flash"):
+def phase_flash(torch, timer, classes, gen, label="flash",
+                plain_rows=None, plain_timing=None):
     """The forward kernel against its plain version at each class (with
-    the class's dropout rate and seed groups, one fixed seed a group)."""
+    the class's dropout rate and seed groups, one fixed seed a group).
+    ``plain_rows``: the plain version in placed chunks of that many batch
+    rows (``by_rows``), timed with ``plain_timing``'s Timer arguments."""
     import torch.nn.functional as F
     from bpx_torch.ops.flash_attention import (effective_band,
                                                flash_attention,
@@ -738,8 +784,13 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
         drop = (rate, group_seeds(seed, groups) if rate else None)
         out, lse = flash_attention(q, k, v, masked, kv_lens, *drop,
                                    return_lse=True)
-        ref, ref_lse = flash_attention_reference(q, k, v, masked, kv_lens,
-                                                 *drop)
+        check(plain_rows is None or groups == 1,
+              "the plain version in row chunks takes one seed group")
+        plain = lambda: by_rows(
+            torch, lambda b0, b1, place: flash_attention_reference(
+                q[b0:b1], k[b0:b1], v[b0:b1], masked,
+                row_slice(kv_lens, b0, b1), *drop, place), B, H, plain_rows)
+        ref, ref_lse = plain()
         again = flash_attention(q, k, v, masked, kv_lens, *drop)
         torch.cuda.synchronize()
         check(torch.equal(out, again),
@@ -757,8 +808,7 @@ def phase_flash(torch, timer, classes, gen, label="flash"):
         nbytes = 2 * (2 * B * H * Tq * D + 2 * keys * D) + 4 * B * H * Tq
         b_ms, b_by = bound_ms(nbytes, flops)
         t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens, *drop))
-        t_p = timer(lambda: flash_attention_reference(q, k, v, masked,
-                                                      kv_lens, *drop))
+        t_p = timer(plain, **(plain_timing or {}))
         mask_args = sdpa_mask(torch, ok)
         sdpa = lambda: F.scaled_dot_product_attention(
             q, k, v, dropout_p=rate, scale=1.0, **mask_args)
@@ -983,14 +1033,16 @@ def backward_split(torch, fn, D, groups=1):
     return kernel_ms(torch, fn, kernel_names(bwd_kernels(D, groups)))
 
 
-def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
+def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd",
+                    plain_rows=None, plain_timing=None):
     """The backward kernels (``bwd_kernels``: at head_dim 64 and 96 delta,
     dK/dV, dQ; at the others the dQ kernel with delta, then dK/dV) against
     the plain backward at each class of the recorded micro-step (its
     dropout rate and seed groups, one fixed seed a group), from the kernel
     forward's lse; the delta kernel on its own against its plain version.
     The profiler must see each of the class's kernels, of the build for
-    its seed groups."""
+    its seed groups.  ``plain_rows``, ``plain_timing``: as
+    :func:`phase_flash`'s."""
     from bpx_torch.ops import flash_attention as fa
     rows = []
     seed = 0x7F4A7C15
@@ -1007,8 +1059,15 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
         delta = fa.attention_delta(dout, out)
         want_delta = fa.attention_delta_reference(dout, out)
         got = fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, *drop)
-        want = fa.flash_attention_backward_reference(
-            q, k, v, dout, lse, want_delta, masked, kv_lens, *drop)
+        check(plain_rows is None or groups == 1,
+              "the plain version in row chunks takes one seed group")
+        plain = lambda: by_rows(
+            torch, lambda b0, b1, place: fa.flash_attention_backward_reference(
+                q[b0:b1], k[b0:b1], v[b0:b1], dout[b0:b1], lse[b0:b1],
+                fa.attention_delta_reference(dout[b0:b1], out[b0:b1]),
+                masked, row_slice(kv_lens, b0, b1), *drop, place),
+            B, H, plain_rows)
+        want = plain()
         torch.cuda.synchronize()
         err_d = max_err(delta, want_delta)
         check(torch.allclose(delta, want_delta, **DELTA_TOL),
@@ -1023,9 +1082,7 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd"):
         b_ms, b_by = bound_ms(nbytes, flops)
         t_k = timer(lambda: fa._launch_bwd(q, k, v, dout, lse, out, masked,
                                            kv_lens, *drop))
-        t_p = timer(lambda: fa.flash_attention_backward_reference(
-            q, k, v, dout, lse, fa.attention_delta_reference(dout, out),
-            masked, kv_lens, *drop))
+        t_p = timer(plain, **(plain_timing or {}))
         mask_args = sdpa_mask(torch, ok)
         sdpa = sdpa_backward(torch, q, k, v, mask_args, rate, dout)
         t_l = timer(sdpa)
@@ -1191,8 +1248,8 @@ def phase_dropout_hash(torch, timer, classes, gen):
         g = torch.randn(*shape, generator=gen, device="cuda").to(dt)
         seeds = (12345,)
         ctx = type("Ctx", (), dict(saved_tensors=(None,), rate=rate,
-                                   seeds=seeds))()
-        t_f = timer(lambda: _HashDropout.forward(x, None, rate, seeds),
+                                   seeds=seeds, place=None))()
+        t_f = timer(lambda: _HashDropout.forward(x, None, rate, seeds, None),
                     reps=5, inner=4)
         t_b = timer(lambda: _HashDropout.backward(ctx, g), reps=5, inner=4)
         total += count * (t_f + t_b)
@@ -1202,9 +1259,10 @@ def phase_dropout_hash(torch, timer, classes, gen):
     return total
 
 
-def kernel_mask(torch, q, k, rate, seed):
+def kernel_mask(torch, q, k, rate, seed, place=None):
     """The keep bits (B, H, T, T) the forward and the backward kernels
-    apply with ``seed`` (a uint32, or one per group of the batch), read
+    apply with ``seed`` (a uint32, or one per group of the batch) and the
+    block placement ``place`` (b_off, h_off, H_g; None unplaced), read
     with q = 0 and one-hot V = dO as ``phase_mask_check`` says, and
     whether every O equalled the plain version's."""
     from bpx_torch.ops import flash_attention as fa
@@ -1221,11 +1279,11 @@ def kernel_mask(torch, q, k, rate, seed):
         onehot[sel, c[sel]] = 1
         e = onehot.expand(B, H, T, D)
         out, lse = fa.flash_attention(q, k, e, False, None, rate, seed,
-                                      return_lse=True)
+                                      return_lse=True, place=place)
         ref, _ = fa.flash_attention_reference(q, k, e, False, None, rate,
-                                              seed)
+                                              seed, place)
         _, _, dv = fa._launch_bwd(q, k, e, e, lse, out, False, None, rate,
-                                  seed)
+                                  seed, place)
         same = same and torch.equal(out, ref)
         fwd[..., sel] = out[..., c[sel]] != 0
         bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
@@ -1782,11 +1840,13 @@ def relative_errors(torch, got, ref):
 # micro-step comparison with the plain path catches a wrong kernel
 TRAIN_FAULTS = {
     "flash backward ignores its dropout mask":
-        lambda launch, q, k, v, do, lse, out, masked, kv_lens, rate, seed:
-            launch(q, k, v, do, lse, out, masked, kv_lens, 0.0, None),
+        lambda launch, q, k, v, do, lse, out, masked, kv_lens, rate, seed,
+        place=None: launch(q, k, v, do, lse, out, masked, kv_lens, 0.0,
+                           None, place),
     "flash backward ignores the band":
-        lambda launch, q, k, v, do, lse, out, masked, kv_lens, rate, seed:
-            launch(q, k, v, do, lse, out, False, kv_lens, rate, seed),
+        lambda launch, q, k, v, do, lse, out, masked, kv_lens, rate, seed,
+        place=None: launch(q, k, v, do, lse, out, False, kv_lens, rate, seed,
+                           place),
 }
 
 
@@ -2514,7 +2574,7 @@ def set_remat(model, on: bool):
             mod.remat = on
 
 
-def remat_launches(path: ModelPath, m) -> dict:
+def remat_launches(path: ModelPath, m, bert_layers: int = 12) -> dict:
     """Launches of one training micro-step of ``path``'s model with the
     recompute settings of config ``m``: a recomputed layer runs its
     LayerNorms again (BERT's 2, an encoder layer's 4 in training, V
@@ -2524,12 +2584,13 @@ def remat_launches(path: ModelPath, m) -> dict:
     remat_bert = m.remat if m.remat_bert is None else m.remat_bert
     bert_full = remat_bert and m.remat_policy_bert is None
     enc_full = m.remat and m.remat_policy is None
+    nb = bert_layers
     return dict(
-        flash=path.flash + 12 * bert_full + (path.flash - 12) * enc_full,
-        dropout=path.dropout + 12 * bert_full
-        + (path.dropout - 12) * enc_full,
+        flash=path.flash + nb * bert_full + (path.flash - nb) * enc_full,
+        dropout=path.dropout + nb * bert_full
+        + (path.dropout - nb) * enc_full,
         flash_bwd=path.flash,
-        ln=path.ln_train + 2 * 12 * remat_bert + 4 * 12 * m.layers * m.remat,
+        ln=path.ln_train + 2 * nb * remat_bert + 4 * 12 * m.layers * m.remat,
         ln_bwd=path.ln_train)
 
 
@@ -3557,6 +3618,378 @@ def phase_mmtrvpa(torch, np, timer, gen, checked):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the mesh -- the sharded trainer at world size 1 (DDP and FSDP2),
+# the placed flash kernels, and the stress preset
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+#: the world-size-1 DDP and FSDP2 steps against the one-process step,
+#: beside the micro-step limits: the loss's and the worst gradient
+#: group's relative error.  Sound readings are 0 and 3.2e-7 (atomics in
+#: BERT's embedding backward); a dropped micro-batch or a wrong share of
+#: the loss moves both by a part in a few, not in 10^5
+MESH_TOL = 1e-5
+#: the placed-kernel check's families at a preset's class: (family, B, H,
+#: T, D): iemocap's narrow heads, moviescope's BERT, mmimdb's wide heads,
+#: mmtrvpa's tall memory heads at moviescope's widths
+PLACED_FAMILIES = (("narrow", 8, 12, 512, 25), ("base", 8, 12, 512, 64),
+                   ("wide", 8, 6, 512, 128), ("tall", 8, 8, 512, 192))
+# the stress preset (BERT-large's 24 layers, 12 encoders x 12 layers of
+# hidden 1024 over 16 heads): flash 24 + 6 x 12 first-round + 6 x 12 x 2
+# biprojection; LayerNorm BERT's 1 + 2 x 24 and 3 per encoder layer plus a
+# final one, training one more per encoder layer; dropout in BERT's 24
+# attentions and the 4 encoders keyed by l, as moviescope's
+STRESS = ModelPath("stress", 24 + 6 * 12 + 6 * 12 * 2,
+                   1 + 2 * 24 + 12 * (12 * 3 + 1),
+                   1 + 2 * 24 + 12 * (12 * 3 + 1) + 12 * 12,
+                   24 + 2 * 12 + 2 * 12 * 2, PROBS_TOL, GATES_TOL)
+STRESS_BERT_LAYERS = 24
+#: micro-batch x A of the stress step, tried in turn until one fits: the
+#: preset's batch_sz of 64 rows each time
+STRESS_LAYOUTS = ((64, 1), (32, 2), (16, 4), (8, 8))
+#: the stress step's classes (64 x 16 blocks of up to 1024 x 1024 scores)
+#: take the plain versions in placed chunks of 8 batch rows, timed over
+#: 3 single calls
+STRESS_PLAIN = dict(plain_rows=8, plain_timing=dict(reps=3, inner=1,
+                                                     warmup=1))
+
+
+def start_mesh(torch, tmp: Path):
+    """An NCCL process group of world size 1 from a file store, and its
+    (1, 1, 1) mesh."""
+    import torch.distributed as dist
+    from bpx_torch.config import MeshConfig
+    from bpx_torch.parallel.mesh import initialize_distributed, make_mesh
+    world = initialize_distributed("cuda", init_method=f"file://{tmp}/store",
+                                   world=1, rank_=0)
+    check(world == 1 and dist.get_backend() == "nccl",
+          f"process group: world {world}, backend {dist.get_backend()}")
+    mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=1), "cuda")
+    print(f"[mesh] NCCL process group of world size {world}; mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    return mesh
+
+
+def whole_grads(torch, model):
+    """Each ``group_of`` group's gradients as one fp32 vector, whatever the
+    placement (FSDP2's DTensor gradients made whole)."""
+    from torch.distributed.tensor import DTensor
+    from bpx_torch.parallel.sharding import unwrap
+    groups = collections.defaultdict(list)
+    for n, p in unwrap(model).named_parameters():
+        g = p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad
+        groups[group_of(n)].append(g.float().flatten())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def phase_mesh_steps(torch, np, mesh):
+    """Moviescope's model at full width and depth (bf16, micro-batch 8 x A
+    = 2, Adam, every dropout) through the trainer three ways from the same
+    weights, batches and dropout seeds: one process, DDP and FSDP2 on the
+    world-size-1 mesh.  Step 1 of each sharded run is held to the
+    micro-step limits against the one-process step (loss, per-group
+    gradients) and to ``MESH_TOL``; every step's launches are exact."""
+    from bpx_torch.models import get_model
+    from bpx_torch.parallel import sharding
+    from bpx_torch.train.losses import make_loss_fn
+    from bpx_torch.train.optim import make_optimizer
+    from bpx_torch.train.steps import make_train_step
+    path = MOVIESCOPE
+    exp = experiment(path)
+    m = exp.model
+    rng = np.random.RandomState(7)
+    n_train = 1000
+    freqs = rng.randint(30, 400, size=m.n_classes)
+    batches = [train_batch(torch, np, exp, 300 + i, freqs / n_train)
+               for i in range(MESH_STEPS)]
+    want = dict(flash=path.flash * TRAIN_A, dropout=path.dropout * TRAIN_A,
+                flash_bwd=path.flash * TRAIN_A, ln=path.ln_train * TRAIN_A,
+                ln_bwd=path.ln_train * TRAIN_A)
+    out, ref = {}, None
+    for kind in ("one process", "DDP", "FSDP2"):
+        model = get_model(m, device="cuda", seed=0).train()
+        on_mesh = kind != "one process"
+        if on_mesh:
+            model = sharding.shard_model(model, mesh,
+                                         use_fsdp=kind == "FSDP2")
+        loss_fn = make_loss_fn(exp.data.task, exp.data.task_type, True,
+                               freqs.tolist(), n_train, device="cuda",
+                               groups=sharding.dp_groups(mesh)
+                               if on_mesh else ())
+        opt = make_optimizer(model.parameters(), LR)
+        step = make_train_step(model, m.model, loss_fn, opt,
+                               grad_accum=TRAIN_A,
+                               generator=torch.Generator().manual_seed(0),
+                               mesh=mesh if on_mesh else None)
+        times, losses = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches):
+            zero_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(step(batch)["loss"].item())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            got = read_launches()
+            check(got == want, f"[mesh] {kind} step {i + 1} launches {got}, "
+                               f"expected {want}")
+            check(math.isfinite(losses[-1]), f"[mesh] {kind} loss "
+                                             f"{losses[-1]}")
+            if i == 0:
+                grads = whole_grads(torch, model)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        entry = dict(median_ms=statistics.median(times), step_ms=times,
+                     losses=losses, peak_gib=peak)
+        if ref is None:
+            ref = (losses[0], grads)
+        else:
+            lerr = abs(losses[0] - ref[0]) / abs(ref[0])
+            errs = relative_errors(torch, grads, ref[1])
+            worst = max(errs, key=errs.get)
+            entry.update(loss_err=lerr, grad_err=errs[worst])
+            print(f"[mesh] {kind} step 1 vs the one-process step: loss rel "
+                  f"err {lerr:.3g} (tol {path.loss_tol}; {MESH_TOL}), worst "
+                  f"gradient group {worst} {errs[worst]:.3g} (tol "
+                  f"{path.grad_tol}; {MESH_TOL})")
+            check(lerr <= min(path.loss_tol, MESH_TOL)
+                  and errs[worst] <= min(path.grad_tol, MESH_TOL),
+                  f"the {kind} step differs from the one-process step")
+        print(f"[mesh] moviescope {kind}: launches per step {want}; step "
+              f"times (host clock, synchronised) " + ", ".join(
+                  f"{x:.1f}" for x in times) + f" ms, median "
+              f"{entry['median_ms']:.1f} ms; losses " + ", ".join(
+                  f"{x:.6f}" for x in losses) + f"; peak {peak:.2f} GiB")
+        out[kind] = entry
+        del model, opt, step, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_placed(torch, gen):
+    """The flash kernels' block placement, per family: a global forward
+    and backward with dropout at (B, H, T, T, D), then the (B/2, H/2) piece
+    a rank of a data=2 x tensor=2 mesh holds (rows B/2.., heads H/2..) at
+    its placement.  The piece's O, lse, dQ, dK, dV and both kernels' mask
+    bits must equal the global call's slice bit for bit, and match the
+    plain version with the same placement; the piece unplaced must
+    differ."""
+    from bpx_torch.ops import flash_attention as fa
+    rate, seed = 0.1, 0x2545F491
+    bf = torch.bfloat16
+    rows = []
+    for family, B, H, T, D in PLACED_FAMILIES:
+        b_off, h_off = B // 2, H // 2
+        place = (b_off, h_off, H)
+        sl = (slice(b_off, B), slice(h_off, H))
+        q, k, v, do = (torch.randn(B, H, T, D, generator=gen,
+                                   device="cuda").to(bf) for _ in range(4))
+        q = q * D ** -0.5
+        out, lse = fa.flash_attention(q, k, v, True, None, rate, seed,
+                                      return_lse=True)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, do, True,
+                                            None, rate, seed)
+        pq, pk, pv, pdo = (t[sl] for t in (q, k, v, do))
+        pout, plse = fa.flash_attention(pq, pk, pv, True, None, rate, seed,
+                                        return_lse=True, place=place)
+        pgrads = fa.flash_attention_backward(pq, pk, pv, pout, plse, pdo,
+                                             True, None, rate, seed, place)
+        differ = {n: int((got != want[sl]).sum()) for n, got, want in zip(
+            ("O", "lse", "dQ", "dK", "dV"), (pout, plse, *pgrads),
+            (out, lse, *grads))}
+        unplaced = int((fa.flash_attention(pq, pk, pv, True, None, rate,
+                                           seed) != out[sl]).sum())
+        # a placed call takes the build for seed groups; the one-group
+        # build is the code it was before placement
+        takes_kernel(torch, lambda: fa.flash_attention(
+            pq, pk, pv, True, None, rate, seed, place=place),
+            fwd_kernel(D, groups=2), (B - b_off, H - h_off, T, T, D, rate))
+        ref, ref_lse = fa.flash_attention_reference(pq, pk, pv, True, None,
+                                                    rate, seed, place)
+        rgrads = fa.flash_attention_backward_reference(
+            pq, pk, pv, pdo, plse, fa.attention_delta_reference(pdo, pout),
+            True, None, rate, seed, place)
+        err_o, err_l = max_err(pout, ref), max_err(plse, ref_lse)
+        err_g = max(grad_err(g, r) for g, r in zip(pgrads, rgrads))
+        q0 = torch.zeros_like(q)
+        f_g, b_g, same_g = kernel_mask(torch, q0, k, rate, seed)
+        f_p, b_p, same_p = kernel_mask(torch, q0[sl], k[sl], rate, seed,
+                                       place)
+        keep = fa.keep_mask(seed, B - b_off, H - h_off, T, T, rate, "cuda",
+                            place)
+        bits = dict(forward=int((f_p != f_g[sl]).sum()),
+                    backward=int((b_p != b_g[sl]).sum()),
+                    plain=int((f_p != keep).sum()) + int((b_p != keep).sum()))
+        torch.cuda.synchronize()
+        print(f"[placed] {family} D={D}: ({B}, {H}, {T}, {T}) and its piece "
+              f"rows {b_off}.. heads {h_off}.. at place {place}: elements "
+              f"differing from the global call's slice {differ}; mask bits "
+              f"differing (of {keep.numel()}): {bits}; unplaced piece O "
+              f"differs in {unplaced}; against the plain version with the "
+              f"placement: O {err_o:.3g}, lse {err_l:.3g}, gradients "
+              f"{err_g:.3g} (of the largest entry)")
+        check(not any(differ.values()) and not any(bits.values())
+              and same_g and same_p and unplaced > 0,
+              f"the placed piece at head_dim {D} is not the global call's "
+              f"slice")
+        check(torch.allclose(pout.float(), ref.float(), **FLASH_TOL)
+              and torch.allclose(plse, ref_lse, **LSE_TOL)
+              and err_g <= FLASH_GRAD_TOL,
+              f"the placed piece at head_dim {D} differs from the plain "
+              f"version")
+        rows.append(dict(family=family, D=D, shape=[B, H, T, T],
+                         place=list(place), differ=differ, bits=bits,
+                         unplaced=unplaced))
+    return rows
+
+
+def stress_batch(np, exp, n: int, seed: int, accum: int = 0):
+    """A stress request (text at ``max_seq_len`` tokens, BERT-large's
+    positions; the model pads its stream to ``num_vectors_l``), or with
+    ``accum`` an (A, n, ...) super-batch with multilabel targets."""
+    m, d = exp.model, exp.data
+    b = synthetic_batch(exp, n * max(accum, 1), seed)
+    t = min(m.num_vectors_l, d.max_seq_len)
+    for key in ("txt", "mask", "segment"):
+        b[key] = np.ascontiguousarray(b[key][:, :t])
+    if not accum:
+        return b
+    rng = np.random.RandomState(seed + 1)
+    b["target"] = (rng.rand(n * accum, m.n_classes) < 0.2).astype(np.float32)
+    return {k: v.reshape(accum, n, *v.shape[1:]) for k, v in b.items()}
+
+
+def phase_stress(torch, np, timer, gen, mesh):
+    """The stress preset (BERT-large, 2.21 B parameters, ``remat``) at full
+    width and depth: one served request (batch 8), launches exact; then
+    one FSDP2 step on the world-size-1 mesh at the preset's 64 rows:
+    micro-batch 64 if it fits, else the largest of ``STRESS_LAYOUTS`` that
+    does; launches exact (the recompute's included), every flash launch's
+    class recorded.  Those classes (dropout 0.1 where the step draws it)
+    are held against the plain versions and timed both ways, so the
+    ``kernels`` line's stress rows pair the step's launches with times and
+    bounds at the step's shapes.  The served request's classes are the
+    same (Tq, Tk, D, band) at batch 8 and rate 0."""
+    import gc
+    from bpx_torch.config import get_preset
+    from bpx_torch.models import get_model
+    from bpx_torch.parallel import sharding
+    from bpx_torch.serve import Predictor
+    from bpx_torch.train.losses import make_loss_fn
+    from bpx_torch.train.optim import make_optimizer
+    from bpx_torch.train.steps import make_train_step
+    exp = get_preset("stress")
+    m = exp.model
+    t0 = time.time()
+    pred = Predictor(exp, batch_size=BATCH, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    print(f"[stress] {m.model}, {n_params / 1e9:.3f} B params, hidden "
+          f"{m.hidden_sz} over {m.num_heads} heads, {m.layers} layers, BERT "
+          f"{m.bert.num_layers} layers, remat {m.remat}; built in "
+          f"{time.time() - t0:.1f} s")
+    req = stress_batch(np, exp, BATCH, 400)
+    zero_launches()
+    probs = pred(req)
+    served = read_launches()
+    check(probs.shape == (BATCH, m.n_classes) and np.isfinite(probs).all()
+          and ((probs >= 0) & (probs <= 1)).all(),
+          f"stress served output {probs.shape} is not finite probabilities")
+    check(served["flash"] == STRESS.flash and served["ln"] == STRESS.ln,
+          f"stress served launches {served}, expected flash {STRESS.flash}, "
+          f"LayerNorm {STRESS.ln}")
+    lat = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = pred(req)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    check(np.array_equal(again, probs), "stress serving reruns differ")
+    print(f"[stress] served request of {BATCH}: {lat[-1]:.1f} ms (host "
+          f"clock, synchronised; first {lat[0]:.1f} ms); launches {served}")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k: v for k, v in remat_launches(STRESS, m,
+                                            STRESS_BERT_LAYERS).items()}
+    rng = np.random.RandomState(11)
+    freqs = rng.randint(30, 400, size=m.n_classes)
+    tried = []
+    for micro, accum in STRESS_LAYOUTS:
+        model = opt = step = batch = None
+        try:
+            model = get_model(m, device="cuda", seed=0).train()
+            model = sharding.shard_model(model, mesh, use_fsdp=True)
+            opt = make_optimizer(model.parameters(), LR)
+            loss_fn = make_loss_fn(exp.data.task, exp.data.task_type, True,
+                                   freqs.tolist(), 1000, device="cuda",
+                                   groups=sharding.dp_groups(mesh))
+            step = make_train_step(model, m.model, loss_fn, opt,
+                                   grad_accum=accum,
+                                   generator=torch.Generator().manual_seed(0),
+                                   mesh=mesh)
+            batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+                     stress_batch(np, exp, micro, 500, accum).items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t = time.perf_counter()
+            with recording() as seen:
+                loss = step(batch)["loss"].item()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got = read_launches()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append(f"{micro} x A={accum}")
+            print(f"[stress] micro-batch {micro} x A={accum} does not fit: "
+                  f"{str(e).splitlines()[0]}")
+            del model, opt, step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        fail(f"[stress] no micro-batch fits: {tried}")
+    per_step = {k: v * accum for k, v in want.items()}
+    did_not_fit = f"; {', '.join(tried)} did not fit" if tried else ""
+    print(f"[stress] one FSDP2 step at world size 1, micro-batch {micro} x "
+          f"A={accum} ({micro * accum} rows{did_not_fit}): {step_ms:.1f} ms "
+          f"(host clock, synchronised; the first step, its allocations "
+          f"included); peak {peak:.2f} GiB (max_memory_allocated); "
+          f"launches {got}; loss {loss:.6f}")
+    check(got == per_step, f"[stress] step launches {got}, expected "
+                           f"{per_step}")
+    check(math.isfinite(loss), f"[stress] loss {loss}")
+    del model, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_rows = phase_flash(torch, timer, seen["flash"], gen,
+                           label="flash stress", **STRESS_PLAIN)
+    bwd_rows = phase_flash_bwd(torch, timer, seen["flash_bwd"], gen,
+                               label="flash_bwd stress", **STRESS_PLAIN)
+    return dict(served_ms=lat[-1], served=served, micro=micro, accum=accum,
+                step_ms=step_ms, peak_gib=peak, fwd_rows=fwd_rows,
+                bwd_rows=bwd_rows, launches=got, params=n_params)
+
+
+def phase_mesh(torch, np, timer, gen):
+    """Phase 21: the world-size-1 NCCL mesh, the sharded trainer, the
+    placed kernels and the stress preset; the process group is ended
+    after."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = start_mesh(torch, Path(tmp))
+        try:
+            steps = phase_mesh_steps(torch, np, mesh)
+            placed = phase_placed(torch, gen)
+            stress = phase_stress(torch, np, timer, gen, mesh)
+        finally:
+            dist.destroy_process_group()
+    return dict(steps=steps, placed=placed, stress=stress)
+
+
 def short_launches(seen, kind) -> int:
     """Calls of a kind of flash kernel at 32 x 32 in a recording."""
     return sum(c for cls, c in seen[kind].items() if cls[2:4] == (32, 32))
@@ -3862,6 +4295,12 @@ def main() -> None:
     vpa = phase_mmtrvpa(torch, np, timer, gen, held)
     print(f"[time] mmtrvpa presets phase {time.time() - t0:.1f} s")
 
+    # phase 21: the mesh at world size 1 (moviescope through the DDP and
+    # FSDP2 trainers), the placed flash kernels, the stress preset
+    t0 = time.time()
+    mesh = phase_mesh(torch, np, timer, gen)
+    print(f"[time] mesh phase {time.time() - t0:.1f} s")
+
     steps = TRAIN_STEPS * TRAIN_A
     lt_seen = legacy["train_seen"]["mmtrvpa"]
     fwd_src = "bpx_torch/csrc/flash_fwd.cu"
@@ -4043,6 +4482,12 @@ def main() -> None:
                   [r for r in vpa["rows"]["ln_bwd"] if r["shape"][1] == 600],
                   width_launches(v_seen["iemocap"], "ln_bwd", 600), steps,
                   "micro_step")]
+    st = mesh["stress"]
+    kernels += [
+        summarise("flash_fwd_stress", fwd_src, fwd_tpu, st["fwd_rows"],
+                  st["launches"]["flash"], st["accum"], "micro_step"),
+        summarise("flash_bwd_stress", bwd_src, bwd_tpu, st["bwd_rows"],
+                  st["launches"]["flash_bwd"], st["accum"], "micro_step")]
     print(f"[summary] moviescope: served median request "
           f"{served['median_ms']:.2f} ms; train step median "
           f"{trained['median_ms']:.1f} ms "
@@ -4147,6 +4592,21 @@ def main() -> None:
           + "; micro-step kernels vs plain: " + ", ".join(
               f"{p} loss {e['loss_err']:.3g} gradients {e['grad_err']:.3g}"
               for p, e in vpa["micro"].items()) + f"; card: {card}")
+    ms = mesh["steps"]
+    print("[summary] mesh (world size 1, NCCL): moviescope step median "
+          + ", ".join(f"{k} {v['median_ms']:.1f} ms (peak {v['peak_gib']:.2f}"
+                      f" GiB)" for k, v in ms.items())
+          + "; sharded step 1 vs one process: " + ", ".join(
+              f"{k} loss {v['loss_err']:.3g} gradients {v['grad_err']:.3g}"
+              for k, v in ms.items() if "loss_err" in v)
+          + "; placed pieces differing from the global slice: " + ", ".join(
+              f"D {r['D']} {sum(r['differ'].values())} elements, "
+              f"{sum(r['bits'].values())} mask bits"
+              for r in mesh["placed"])
+          + f"; stress ({st['params'] / 1e9:.3f} B params): served request "
+          f"of {BATCH} {st['served_ms']:.1f} ms, FSDP2 step at micro-batch "
+          f"{st['micro']} x A={st['accum']} {st['step_ms']:.1f} ms, peak "
+          f"{st['peak_gib']:.2f} GiB; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

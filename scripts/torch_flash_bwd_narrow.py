@@ -57,46 +57,57 @@ RATES = (0.0, 0.1)
 SEED = 0x7F4A7C15
 
 
-class OneSeedLibrary:
-    """A library built from a tree older than the seed groups, whose flash
-    entry points take one dropout seed (on, seed, threshold, inv_keep,
-    tk_p) where this tree's take (on, seeds, groups, threshold, inv_keep,
-    tk_p): the calls of this tree's wrappers, with one seed group, passed
-    on in the older form.  Everything else passes through."""
+class OlderLibrary:
+    """A library built from an older tree: one without the block placement,
+    whose flash entry points end their dropout arguments at tk_p where this
+    tree's add (b_off, h_off, H_g), and, older still, one without seed
+    groups, whose entry points take one dropout seed (on, seed, threshold,
+    inv_keep, tk_p) where this tree's take (on, seeds, groups, threshold,
+    inv_keep, tk_p).  The calls of this tree's wrappers, unplaced and with
+    one seed group, are passed on in the older form.  Everything else
+    passes through."""
 
-    def __init__(self, lib):
+    def __init__(self, lib, seed_groups):
         import ctypes
         p, i, f, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_longlong, ctypes.c_uint)
+        dropout = ([i, ctypes.POINTER(u), i, u, f, i] if seed_groups
+                   else [i, u, u, f, i])
         lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12
-                                      + [i, i] + [i, u, u, f, i] + [p])
+                                      + [i, i] + dropout + [p])
         lib.bpx_flash_bwd.argtypes = ([p] * 11 + [i] * 5 + [ll] * 24
-                                      + [i, i] + [i, u, u, f, i] + [p])
+                                      + [i, i] + dropout + [p])
         self._lib = lib
+        self._seed_groups = seed_groups
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
 
-    @staticmethod
-    def _one_seed(args, at):
+    def _older(self, args, at, heads):
+        b_off, h_off, heads_g = args[at + 6:at + 9]
+        if (b_off, h_off, heads_g) != (0, 0, heads):
+            raise ValueError("an older build takes no block placement")
+        args = (*args[:at + 6], *args[at + 9:])
+        if self._seed_groups:
+            return args
         on, seeds, groups = args[at:at + 3]
         if groups != 1:
             raise ValueError("a one-seed build takes one seed group")
         return (*args[:at], on, seeds[0] if on else 0, *args[at + 3:])
 
     def bpx_flash_fwd(self, *args):
-        return self._lib.bpx_flash_fwd(*self._one_seed(args, 25))
+        return self._lib.bpx_flash_fwd(*self._older(args, 25, args[7]))
 
     def bpx_flash_bwd(self, *args):
-        return self._lib.bpx_flash_bwd(*self._one_seed(args, 42))
+        return self._lib.bpx_flash_bwd(*self._older(args, 42, args[12]))
 
 
 def build(label, src_dir, flags, kernel="bwd"):
     """Build and load one library; returns a dict with the library, ptxas'
     lines of the forward or backward kernels (and its wgmma warnings), the
     blocks per SM; None if the build fails.  A tree without seed groups
-    (``kMaxSeedGroups`` in ``flash_common.cuh``) loads as a
-    :class:`OneSeedLibrary`."""
+    (``kMaxSeedGroups`` in ``flash_common.cuh``) or without the block
+    placement (``heads_g``) loads as an :class:`OlderLibrary`."""
     from bpx_torch.ops import _cuda
     _cuda.SRC_DIR = Path(src_dir)
     try:
@@ -105,8 +116,8 @@ def build(label, src_dir, flags, kernel="bwd"):
         print(f"[{label}] build failed: {str(e)[:4000]}")
         return None
     common = (Path(src_dir) / "flash_common.cuh").read_text()
-    if "kMaxSeedGroups" not in common:
-        lib = _cuda._lib = OneSeedLibrary(lib)
+    if "heads_g" not in common:
+        lib = _cuda._lib = OlderLibrary(lib, "kMaxSeedGroups" in common)
     lines, name, spill = [], "", ""
     for line in _cuda.build_log.splitlines():
         if "Compiling entry function" in line:

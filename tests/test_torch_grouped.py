@@ -160,9 +160,9 @@ def test_grouped_launch_structure(name, monkeypatch):
     batches = []
     fwd = tflash._forward
 
-    def spy(q, k, v, masked, kv_lens, rate, seed):
+    def spy(q, k, v, masked, kv_lens, rate, seed, place=None):
         batches.append((q.shape[0], q.is_contiguous()))
-        return fwd(q, k, v, masked, kv_lens, rate, seed)
+        return fwd(q, k, v, masked, kv_lens, rate, seed, place)
     monkeypatch.setattr(tflash, "_forward", spy)
     L, Lb = cfg.layers, cfg.bert.num_layers
     per_second = 2 if name == "mmtrvapt" else 1

@@ -134,9 +134,9 @@ def test_hybrid_launch_structure(monkeypatch):
     classes = []
     fwd = tflash._forward
 
-    def spy(q, k, v, masked, kv_lens, rate, seed):
+    def spy(q, k, v, masked, kv_lens, rate, seed, place=None):
         classes.append((q.shape[2], k.shape[2], masked))
-        return fwd(q, k, v, masked, kv_lens, rate, seed)
+        return fwd(q, k, v, masked, kv_lens, rate, seed, place)
     monkeypatch.setattr(tflash, "_forward", spy)
     L = max(cfg.layers, 3)
     for training in (False, True):

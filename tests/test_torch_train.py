@@ -303,10 +303,10 @@ def _count_calls(monkeypatch):
         counts["ln"] += 1
         return ln_fwd(*a)
 
-    def fl(q, k, v, masked, kv_lens, rate, seed):
+    def fl(q, k, v, masked, kv_lens, rate, seed, place=None):
         counts["flash"] += 1
         counts["flash_dropout"] += rate > 0
-        return fl_fwd(q, k, v, masked, kv_lens, rate, seed)
+        return fl_fwd(q, k, v, masked, kv_lens, rate, seed, place)
     monkeypatch.setattr(tnorm, "_forward", ln)
     monkeypatch.setattr(tflash, "_forward", fl)
     return counts
