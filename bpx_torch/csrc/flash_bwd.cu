@@ -2155,7 +2155,8 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
                   int masked, int offset, int dropout,
                   const unsigned int* seeds, int groups,
                   unsigned int threshold, float inv_keep, int tk_p,
-                  int b_off, int h_off, int heads_g, void* stream) {
+                  int b_off, int h_off, int heads_g, int group_stride,
+                  void* stream) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -2181,7 +2182,8 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
   p.masked = masked;
   p.offset = offset;
   if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
-                   threshold, inv_keep, tk_p, b_off, h_off, heads_g))
+                   threshold, inv_keep, tk_p, b_off, h_off, heads_g,
+                   group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -832,7 +832,11 @@ constexpr int kMaxSeedGroups = 16;
 // global call, as a rank of a mesh holds some batch rows and heads of it:
 // block i of a group, of `heads` heads a row, hashes as global block
 // (b_off + i / heads) * heads_g + h_off + i % heads = i + base + (i /
-// heads) * dheads.  Unplaced, (0, 0, heads): block i is i.
+// heads) * dheads.  Unplaced, (0, 0, heads): block i is i.  Group g's
+// blocks move on by g * group_stride global blocks: a grouped pair's two
+// members, folded into one call's batch, are two groups of one seed, and
+// member m's rows sit m * B_g rows into the global call (group_stride =
+// B_g * heads_g); 0 (every other call) places each group from its 0.
 //
 // The launch picks the kernel built for seed groups (Groups true) only
 // for several groups or a placement (grouped()), and only that kernel
@@ -845,6 +849,7 @@ struct SeedGroups {
   uint32_t dheads;      // heads_g - heads
   uint32_t base;        // b_off * heads_g + h_off
   uint32_t seeds[kMaxSeedGroups];
+  uint32_t group_stride;  // global blocks between two groups' block 0
 
   // whether a call needs the kernel built for seed groups
   __host__ bool grouped() const { return groups > 1 || base || dheads; }
@@ -878,6 +883,11 @@ struct SeedGroups {
 #endif
     return bh % group_bh;
   }
+
+  // the global block of block 0 of block bh's group, past the placement
+  __device__ __forceinline__ uint32_t group_base(int bh) const {
+    return static_cast<uint32_t>(bh / group_bh) * group_stride;
+  }
 };
 
 // Block bh's hash values, worked out once beside its block indices: with
@@ -888,7 +898,8 @@ template <bool Groups>
 __device__ __forceinline__ BlockDropout block_dropout(const SeedGroups& g,
                                                       int bh) {
   if constexpr (Groups) {
-    return {g.placed(static_cast<uint32_t>(g.group_index(bh))),
+    return {g.placed(static_cast<uint32_t>(g.group_index(bh))) +
+                g.group_base(bh),
             g.seed_of(bh)};
   } else {
     return {static_cast<uint32_t>(bh), 0u};
@@ -898,13 +909,13 @@ __device__ __forceinline__ BlockDropout block_dropout(const SeedGroups& g,
 // Fill in one call's dropout parameters on the host; false when the seed
 // groups do not fit (more than kMaxSeedGroups, or not dividing the B*H
 // blocks) or the placement does not hold the call's heads.  `seed_list`
-// holds n_groups seeds (null with dropout off); (b_off, h_off, heads_g)
-// places the blocks, and matters only with dropout on.
+// holds n_groups seeds (null with dropout off); (b_off, h_off, heads_g,
+// group_stride) places the blocks, and matters only with dropout on.
 inline bool set_dropout(Dropout& d, SeedGroups& g, int dropout,
                         const unsigned int* seed_list, int n_groups,
                         int bh_blocks, int heads, unsigned int thresh,
                         float inv, int tk_pad, int b_off, int h_off,
-                        int heads_g) {
+                        int heads_g, int group_stride) {
   d.on = dropout;
   d.seed = dropout ? seed_list[0] : 0u;
   d.threshold = thresh;
@@ -916,9 +927,12 @@ inline bool set_dropout(Dropout& d, SeedGroups& g, int dropout,
   g.heads = static_cast<uint32_t>(heads > 0 ? heads : 1);
   g.dheads = 0;
   g.base = 0;
-  if (b_off < 0 || h_off < 0 || h_off + heads > heads_g) return false;
+  g.group_stride = 0;
+  if (b_off < 0 || h_off < 0 || h_off + heads > heads_g || group_stride < 0)
+    return false;
   if (!dropout) return true;
   g.dheads = static_cast<uint32_t>(heads_g - heads);
+  g.group_stride = static_cast<uint32_t>(group_stride);
   g.base = static_cast<uint32_t>(b_off) * static_cast<uint32_t>(heads_g) +
            static_cast<uint32_t>(h_off);
   if (n_groups < 1 || n_groups > kMaxSeedGroups || bh_blocks % n_groups)

@@ -1488,8 +1488,8 @@ extern "C" {
 // fit.  dropout != 0 applies the keep mask of (seeds, threshold, tk_p) and
 // scales kept probabilities by inv_keep; seeds holds `groups` seeds, one
 // per group of B*H / groups consecutive (batch, head) blocks; (b_off,
-// h_off, heads_g) places the blocks in a global call (set_dropout;
-// 0, 0, H unplaced).
+// h_off, heads_g, group_stride) places the blocks in a global call
+// (set_dropout; 0, 0, H, 0 unplaced).
 int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, const void* kv_lens, int B, int H, int Tq, int Tk,
                   int D, long long q_sb, long long q_sh, long long q_st,
@@ -1499,7 +1499,7 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   int offset, int dropout, const unsigned int* seeds,
                   int groups, unsigned int threshold, float inv_keep,
                   int tk_p, int b_off, int h_off, int heads_g,
-                  void* stream) {
+                  int group_stride, void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -1518,7 +1518,8 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.masked = masked;
   p.offset = offset;
   if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
-                   threshold, inv_keep, tk_p, b_off, h_off, heads_g))
+                   threshold, inv_keep, tk_p, b_off, h_off, heads_g,
+                   group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bpx_flash::with_head_dim(

@@ -101,8 +101,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     u = ctypes.c_uint
     # on, seeds (one per group), groups, threshold, inv_keep, tk_p, and
-    # the placement b_off, h_off, H_g
-    dropout = [i, ctypes.POINTER(u), i, u, f, i, i, i, i]
+    # the placement b_off, h_off, H_g, group stride
+    dropout = [i, ctypes.POINTER(u), i, u, f, i, i, i, i, i]
     lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12 + [i, i]
                                   + dropout + [p])
     lib.bpx_flash_fwd.restype = i

@@ -71,7 +71,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dropout_rate: float = 0.0, training: bool = False,
                           seeds: Optional[SeedStream] = None,
                           prescaled: bool = True,
-                          heads: Optional[tuple] = None) -> torch.Tensor:
+                          heads: Optional[tuple] = None,
+                          members: int = 1) -> torch.Tensor:
     """The einsum attention on (B, H, T, D) tensors (counterpart:
     ``bpx/ops/attention.py::dot_product_attention``): fp32 scores, an
     additive fp32 ``bias`` broadcast to (B, H, Tq, Tk), the softmax in fp32
@@ -79,7 +80,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the product with V summed in fp32 and cast back.  With ``prescaled``
     False the scores are divided by sqrt(head_dim) in fp32 instead, as the
     JAX package's BERT does on this path.  ``heads`` = (h_off, H_g): q's
-    heads are heads h_off.. of H_g, where their dropout hashes them."""
+    heads are heads h_off.. of H_g, where their dropout hashes them.
+    ``members`` 2: the batch folds a grouped pair's two members, whose
+    dropout places each member's rows in its own part of the global
+    batch."""
     dt = q.dtype
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if not prescaled:
@@ -87,8 +91,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(dt)
-    split = None if heads is None else (1, *heads)
-    probs = maybe_dropout(probs, dropout_rate, training, seeds, split)
+    split = None if heads is None else (-3, *heads)
+    probs = maybe_dropout(probs.unflatten(0, (members, -1)), dropout_rate,
+                          training, seeds, split, batch_dim=1).flatten(0, 1)
     return torch.matmul(probs.float(), v.float()).to(dt)
 
 
@@ -99,15 +104,23 @@ def merge_heads(ctx: torch.Tensor) -> torch.Tensor:
 
 
 def flash_place(seeds: Optional[SeedStream], split: Optional[TensorSplit],
-                heads: int, global_heads: int) -> Optional[tuple]:
+                heads: int, global_heads: int, batch: int = 0,
+                members: int = 1) -> Optional[tuple]:
     """A flash call's placement (b_off, h_off, H_g): the batch rows of the
     forward's stream and the rank's ``heads`` of ``global_heads``; None
-    when neither is placed."""
+    when neither is placed.  A call whose ``batch`` rows fold ``members``
+    > 1 members of a grouped pair, each with its own part of the global
+    batch, adds the stride between the members' first blocks, B_g * H_g
+    (``ops/flash_attention.py``)."""
     rows = getattr(seeds, "rows", None)
     if rows is None and split is None:
         return None
     h_off = 0 if split is None else split.rank * heads
-    return (0 if rows is None else rows[0], h_off, global_heads)
+    place = (0 if rows is None else rows[0], h_off, global_heads)
+    if members == 1:
+        return place
+    global_rows = batch // members if rows is None else rows[1]
+    return (*place, global_rows * global_heads)
 
 
 class MultiheadAttention(nn.Module):
@@ -117,6 +130,9 @@ class MultiheadAttention(nn.Module):
     _linear = staticmethod(linear)
     #: the rank's place in the tensor group when the heads are split
     split: Optional[TensorSplit] = None
+    #: the members whose batches the attention call folds into one (a
+    #: grouped pair's 2, ``ops/encoder.py::PairAttention``)
+    members = 1
 
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
@@ -160,18 +176,22 @@ class MultiheadAttention(nn.Module):
             (v,) = proj(value, (self.v_proj,))
         q = q * torch.tensor(self.scaling, dtype=dt)
         place = flash_place(seeds, self.split, self.num_heads,
-                            self.global_heads)
+                            self.global_heads, q.shape[0], self.members)
         if self.impl == "pallas":
-            ctx = flash_attention(q, k, v, masked, None,
-                                  *attention_dropout(self.attn_dropout,
-                                                     self.training, seeds),
+            rate, seed = attention_dropout(self.attn_dropout, self.training,
+                                           seeds)
+            if seed is not None and place is not None:
+                # placed, each member is a seed group of its own
+                seed = [seed] * self.members
+            ctx = flash_attention(q, k, v, masked, None, rate, seed,
                                   place=place)
         else:
             bias = (band_bias(q.shape[2], k.shape[2], q.device) if masked
                     else None)
             ctx = dot_product_attention(
                 q, k, v, bias, self.attn_dropout, self.training, seeds,
-                heads=None if place is None else place[1:])
+                heads=None if place is None else place[1:3],
+                members=self.members)
         return self._output(ctx)
 
     def _project(self, x: torch.Tensor, layers: Sequence[nn.Linear]):

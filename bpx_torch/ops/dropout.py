@@ -36,9 +36,11 @@ global tensor's linear index under GSPMD, so the port hashes each element
 of a block at its index in the global tensor: ``place`` gives, per dim,
 None (the whole dim) or ``(offset, global size)``.  A stream carries the
 rows of the batch its rank holds (:attr:`SeedStream.rows`) and every site
-places its tensor's dim 0 with them; a site on a feature-split tensor adds
-its column offset and global width (``split``).  Without placement the
-index is ``arange(numel)``, as before.
+places its tensor's batch dim with them: dim 0, or dim 1 of a grouped
+pair's (2, B, ...) stacks (``batch_dim``), whose global tensor is (2,
+B_g, ...); a site on a feature-split tensor adds its column offset and
+global width (``split``).  Without placement the index is
+``arange(numel)``, as before.
 """
 
 from __future__ import annotations
@@ -291,15 +293,17 @@ def seed_stream(dropout_seed) -> Union[SeedStream, SeedStreams, None]:
 
 
 def block_place(ndim: int, rows: Optional[Tuple[int, int]] = None,
-                split: Optional[Tuple[int, int, int]] = None) -> Place:
-    """The place of a batch-first ``ndim``-dim block: dim 0 at ``rows``
-    (offset, global batch), and ``split`` = (dim, offset, global size) for
-    a dim a tensor split cuts; None when neither is given."""
+                split: Optional[Tuple[int, int, int]] = None,
+                batch_dim: int = 0) -> Place:
+    """The place of an ``ndim``-dim block whose batch is dim ``batch_dim``:
+    that dim at ``rows`` (offset, global batch), and ``split`` = (dim,
+    offset, global size) for a dim a tensor split cuts; None when neither
+    is given."""
     if rows is None and split is None:
         return None
     place = [None] * ndim
     if rows is not None:
-        place[0] = tuple(rows)
+        place[batch_dim] = tuple(rows)
     if split is not None:
         place[split[0] % ndim] = (split[1], split[2])
     return tuple(place)
@@ -307,14 +311,15 @@ def block_place(ndim: int, rows: Optional[Tuple[int, int]] = None,
 
 def maybe_dropout(x: torch.Tensor, rate: float, training: bool,
                   seeds: Union[SeedStream, SeedStreams, None],
-                  split: Optional[Tuple[int, int, int]] = None
-                  ) -> torch.Tensor:
+                  split: Optional[Tuple[int, int, int]] = None,
+                  batch_dim: int = 0) -> torch.Tensor:
     """``hash_dropout`` in training mode with ``rate > 0``, else ``x``;
-    ``x`` is batch-first, placed at the stream's ``rows`` and, on a
-    feature-split tensor, at ``split`` = (dim, offset, global size)."""
+    ``x``'s dim ``batch_dim`` (0, or a pair's 1) is placed at the stream's
+    ``rows`` and, on a feature-split tensor, ``split`` = (dim, offset,
+    global size)."""
     if rate <= 0.0 or not training:
         return x
     if seeds is None:
         raise ValueError("dropout in training mode needs a SeedStream")
     return hash_dropout(x, rate, seeds.next(), seeds.axis,
-                        block_place(x.dim(), seeds.rows, split))
+                        block_place(x.dim(), seeds.rows, split, batch_dim))

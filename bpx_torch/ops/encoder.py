@@ -26,14 +26,19 @@ boundary (:func:`resolve_remat_policy`).
 
 :class:`GroupedTransformerEncoder` runs two same-shape encoders as one over
 (2, B, T, E) stacks, with a leading pair axis of 2 on every parameter (the
-JAX package's ``group_encoders``).
+JAX package's ``group_encoders``).  On a mesh its dropouts place the
+stacks' dim 1 as the batch (``batch_dim``), and its attention's flash call
+places each member's rows in that member's part of the global batch
+(``PairAttention``).
 
 Under a tensor split (``bpx_torch/parallel/sharding.py``) a layer's
 attention holds its rank's heads (``ops/attention.py``) and its FFN
 (``ffn_split``) its rank's rows of fc1 (column-parallel) and columns of
 fc2 (row-parallel): the ReLU dropout masks the rank's feature columns at
 their global index, and fc2's partial sums are added over the ``tensor``
-group before its bias and the residual dropout, which sees full rows.
+group before its bias and the residual dropout, which sees full rows.  A
+pair's layers split the same way on each member's weights (the dims after
+the pair axis).
 """
 
 from __future__ import annotations
@@ -110,6 +115,8 @@ class TransformerEncoderLayer(nn.Module):
     _linear = staticmethod(linear)
     #: the rank's place in the tensor group when the FFN is split
     ffn_split: Optional[TensorSplit] = None
+    #: the dim of the streams that holds the batch
+    batch_dim = 0
 
     def __init__(self, embed_dim: int, num_heads: int = 4,
                  attn_mask: bool = False, biprojection: bool = False,
@@ -134,17 +141,24 @@ class TransformerEncoderLayer(nn.Module):
                                 device)
         self.dtype = dtype
 
-    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    def _dense(self, layer: nn.Linear, x: torch.Tensor,
+               split: Optional[TensorSplit] = None) -> torch.Tensor:
+        """``layer`` on ``x``; with ``split`` a row-parallel product, its
+        partial sums added over the group before the bias."""
         dt = self.dtype
-        return nn.functional.linear(x, layer.weight.to(dt),
-                                    layer.bias.to(dt))
+        if split is None:
+            return nn.functional.linear(x, layer.weight.to(dt),
+                                        layer.bias.to(dt))
+        return (leave_split(nn.functional.linear(x, layer.weight.to(dt)),
+                            split) + layer.bias.to(dt))
 
     def forward(self, x: torch.Tensor, x_k: Optional[torch.Tensor] = None,
                 x_v: Optional[torch.Tensor] = None,
                 seeds: Optional[SeedStream] = None) -> torch.Tensor:
         """``x_v=None`` with ``x_k`` given means "V aliases K", so the
         attention fuses the k/v GEMMs."""
-        drop = lambda h, rate: maybe_dropout(h, rate, self.training, seeds)
+        drop = lambda h, rate, split=None: maybe_dropout(
+            h, rate, self.training, seeds, split, self.batch_dim)
         attn = lambda q, k=None, v=None: self.attn(q, k, v, self.attn_mask,
                                                    seeds)
         residual = x
@@ -172,19 +186,19 @@ class TransformerEncoderLayer(nn.Module):
                      self.relu_dropout)
             return residual + drop(self._dense(self.fc2, h),
                                    self.res_dropout)
-        dt = self.dtype
         h = torch.relu(self._dense(self.fc1, enter_split(ffn_ln(x), split)))
         width = h.shape[-1]
-        h = maybe_dropout(h, self.relu_dropout, self.training, seeds,
-                          (-1, split.rank * width, split.size * width))
-        y = leave_split(nn.functional.linear(h, self.fc2.weight.to(dt)),
-                        split) + self.fc2.bias.to(dt)
-        return residual + drop(y, self.res_dropout)
+        h = drop(h, self.relu_dropout,
+                 (-1, split.rank * width, split.size * width))
+        return residual + drop(self._dense(self.fc2, h, split),
+                               self.res_dropout)
 
 
 class TransformerEncoder(nn.Module):
     _layer = TransformerEncoderLayer
     _norm = LayerNorm
+    #: the dim of the streams that holds the batch
+    batch_dim = 0
 
     def __init__(self, embed_dim: int, num_heads: int, layers: int,
                  attn_mask: bool = False, biprojection: bool = False,
@@ -215,7 +229,8 @@ class TransformerEncoder(nn.Module):
         pos = positional_embedding(x_in.reshape(-1, *x_in.shape[-2:]),
                                    dtype=x.dtype)
         x = x + pos.view(x.shape)
-        return maybe_dropout(x, self.embed_dropout, self.training, seeds)
+        return maybe_dropout(x, self.embed_dropout, self.training, seeds,
+                             batch_dim=self.batch_dim)
 
     def forward(self, x_in: torch.Tensor,
                 x_in_k: Optional[torch.Tensor] = None,
@@ -259,14 +274,21 @@ class PairLinear(nn.Module):
 
 
 def pair_dense(x: torch.Tensor, weight: torch.Tensor,
-               bias: Optional[torch.Tensor], dtype: torch.dtype
-               ) -> torch.Tensor:
+               bias: Optional[torch.Tensor], dtype: torch.dtype,
+               split: Optional[TensorSplit] = None) -> torch.Tensor:
     """(2, ..., in) -> (2, ..., out): member i through ``weight[i]`` and
-    ``bias[i]``, one batched GEMM in ``dtype``."""
+    ``bias[i]``, one batched GEMM in ``dtype``; with ``split`` a
+    row-parallel product, its partial sums added over the group before
+    the bias."""
     x2 = x.reshape(2, -1, x.shape[-1]).to(dtype)
     w = weight.to(dtype).transpose(1, 2)
-    y = (torch.bmm(x2, w) if bias is None
-         else torch.baddbmm(bias.to(dtype)[:, None, :], x2, w))
+    if split is not None:
+        y = leave_split(torch.bmm(x2, w), split)
+        if bias is not None:
+            y = y + bias.to(dtype)[:, None, :]
+    else:
+        y = (torch.bmm(x2, w) if bias is None
+             else torch.baddbmm(bias.to(dtype)[:, None, :], x2, w))
     return y.view(*x.shape[:-1], weight.shape[1])
 
 
@@ -293,14 +315,22 @@ class PairAttention(MultiheadAttention):
     """:class:`MultiheadAttention` over a pair's (2, B, T, E) streams: each
     projection one batched GEMM over the pair axis, the pair folded into
     the batch of one attention call, (2B, H, T, D) strided views of the
-    projection's output (no copy)."""
+    projection's output (no copy).
+
+    Placed (a mesh's rows or heads), the flash call runs as two seed
+    groups of B·H blocks sharing the stream's seed, member m's group
+    moved on by ``m * B_g * H_g`` global blocks: row b of member m hashes
+    as global row ``m * B_g + b_off + b``, the row it is in the
+    one-process call over 2·B_g rows.  Under a tensor split each member
+    keeps its rank's heads, as :class:`MultiheadAttention` does."""
 
     _linear = staticmethod(PairLinear)
+    members = 2
 
     def _project(self, x, layers):
         w = torch.cat([l.weight for l in layers], dim=1)
         b = torch.cat([l.bias for l in layers], dim=1)
-        y = pair_dense(x, w, b, self.dtype)
+        y = pair_dense(enter_split(x, self.split), w, b, self.dtype)
         P, B, T, _ = y.shape
         y = y.view(P * B, T, len(layers), self.num_heads, -1)
         return tuple(y[:, :, i].transpose(1, 2) for i in range(len(layers)))
@@ -309,16 +339,17 @@ class PairAttention(MultiheadAttention):
         h = merge_heads(ctx)
         h = h.view(2, h.shape[0] // 2, *h.shape[1:])
         return pair_dense(h, self.out_proj.weight, self.out_proj.bias,
-                          self.dtype)
+                          self.dtype, self.split)
 
 
 class PairEncoderLayer(TransformerEncoderLayer):
     _attention = PairAttention
     _norm = PairLayerNorm
     _linear = staticmethod(PairLinear)
+    batch_dim = 1
 
-    def _dense(self, layer, x):
-        return pair_dense(x, layer.weight, layer.bias, self.dtype)
+    def _dense(self, layer, x, split=None):
+        return pair_dense(x, layer.weight, layer.bias, self.dtype, split)
 
 
 class GroupedTransformerEncoder(TransformerEncoder):
@@ -334,6 +365,7 @@ class GroupedTransformerEncoder(TransformerEncoder):
 
     _layer = PairEncoderLayer
     _norm = PairLayerNorm
+    batch_dim = 1
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

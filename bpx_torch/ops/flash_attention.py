@@ -63,9 +63,15 @@ where a call's blocks sit: its batch row b and head h hash as global block
 ``(b_off + b) * H_g + h_off + h``, so each piece's mask is the slice of the
 global call's.  With seed groups, a block's index in its group is what is
 placed.  None is ``(0, 0, H)``: every block its own index, as before.  A
+fourth entry, ``stride``, moves group g's blocks on by g * stride global
+blocks (0 by default: each group placed from its own block 0).  A
+grouped pair (``ops/encoder.py``) folds its two members into the batch of
+one call: placed, it runs as two groups of B·H blocks sharing one seed,
+with ``stride = B_g * H_g``, so that member m's row b hashes as global row
+``m * B_g + b_off + b``, as the one-process call hashes its 2·B_g rows.  A
 placed call with dropout launches the kernels' build for seed groups (one
-group, its blocks placed); the one-group build, which every unplaced call
-takes, is the code it was before placement.
+group, or a pair's two, its blocks placed); the one-group build, which
+every unplaced call takes, is the code it was before placement.
 """
 
 from __future__ import annotations
@@ -120,27 +126,29 @@ def inv_keep(rate: float) -> float:
 
 
 def check_place(place, H: int):
-    """``place`` as a (b_off, h_off, H_g) tuple of ints, checked against
-    the call's H local heads; None stays None."""
+    """``place`` as a (b_off, h_off, H_g, stride) tuple of ints (a
+    3-tuple's stride 0), checked against the call's H local heads; None
+    stays None."""
     if place is None:
         return None
-    if len(place) != 3:
-        raise ValueError(f"place must be (b_off, h_off, H_g), got {place}")
-    b_off, h_off, heads = (int(x) for x in place)
-    if b_off < 0 or h_off < 0 or h_off + H > heads:
+    if len(place) not in (3, 4):
+        raise ValueError(f"place must be (b_off, h_off, H_g[, stride]), "
+                         f"got {place}")
+    b_off, h_off, heads, stride = (*(int(x) for x in place), 0)[:4]
+    if b_off < 0 or h_off < 0 or h_off + H > heads or stride < 0:
         raise ValueError(f"place {tuple(place)} does not hold {H} heads")
-    return b_off, h_off, heads
+    return b_off, h_off, heads, stride
 
 
 def placed_blocks(n: int, H: int, place=None,
                   device=None) -> torch.Tensor:
-    """The hash index of local blocks 0..n-1 (n = rows * H): the global
-    block ``(b_off + bh // H) * H_g + h_off + bh % H`` under ``place``,
-    else ``bh`` (int64)."""
+    """The hash index of local blocks 0..n-1 of a group (n = rows * H):
+    the global block ``(b_off + bh // H) * H_g + h_off + bh % H`` under
+    ``place``, else ``bh`` (int64)."""
     bh = torch.arange(n, dtype=torch.int64, device=device)
     if place is None:
         return bh
-    b_off, h_off, heads = check_place(place, H)
+    b_off, h_off, heads, _ = check_place(place, H)
     return (b_off + bh // H) * heads + h_off + bh % H
 
 
@@ -150,23 +158,24 @@ def keep_mask(seed, B: int, H: int, Tq: int, Tk: int, rate: float,
     * head, row, col), bit-identical, computed in int64 cut to 32 bits.
     ``seed`` is a uint32, or a list of n, one per group of B / n batch
     rows, each group hashed with its seed and its own (batch * head)
-    index from 0; ``place`` (b_off, h_off, H_g) places each block (each
-    group's) in the global call."""
+    index from 0; ``place`` (b_off, h_off, H_g[, stride]) places each
+    block (each group's, group g's ``g * stride`` blocks on) in the global
+    call."""
     m = 0xFFFFFFFF
     seeds = seed_list(seed)
     if B % len(seeds):
         raise ValueError(f"{len(seeds)} seed groups do not divide a batch "
                          f"of {B}")
     bh = placed_blocks(B // len(seeds) * H, H, place, device)
+    stride = 0 if place is None else check_place(place, H)[3]
     row = torch.arange(Tq, dtype=torch.int64, device=device)
     col = torch.arange(Tk, dtype=torch.int64, device=device)
-    idx = (mul32(bh, 0x85EBCA6B)[:, None, None]
-           + mul32(row, padded_tk(Tk))[None, :, None]
-           + col[None, None, :]) & m
-    mixed = mul32(idx, 0x9E3779B9)
     keep = []
-    for s in seeds:
-        x = (mixed + (s & m)) & m
+    for g, s in enumerate(seeds):
+        idx = (mul32(bh + g * stride, 0x85EBCA6B)[:, None, None]
+               + mul32(row, padded_tk(Tk))[None, :, None]
+               + col[None, None, :]) & m
+        x = (mul32(idx, 0x9E3779B9) + (s & m)) & m
         x = x ^ (x >> 16)
         x = mul32(x, 0x85EBCA6B)
         x = x ^ (x >> 13)
@@ -450,8 +459,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H * D)`` is free.  ``dropout_rate > 0`` needs ``dropout_seed``, a uint32
     Python int, or a list of n, one per group of B / n batch rows (under
     ``torch.func.vmap``: one per slice of the vmapped axis).  ``place``
-    (b_off, h_off, H_g) places the call's blocks in a global call for the
-    dropout hash (the module docstring); None: unplaced.
+    (b_off, h_off, H_g[, stride]) places the call's blocks in a global call
+    for the dropout hash (the module docstring); None: unplaced.
     """
     check_device(q)
     seeds = _check(q, k, v, kv_lens, dropout_rate, dropout_seed)
@@ -563,10 +572,10 @@ def _kv_lens_ptr(kv_lens, device):
 def _dropout_args(rate, seed, tk, batch, heads=1, place=None):
     """The kernels' dropout arguments: on, the seeds (a C array, one per
     group of ``batch`` / n rows), n, threshold, inv_keep, tk_p, and the
-    placement b_off, h_off, H_g (0, 0, ``heads`` unplaced)."""
-    b_off, h_off, heads_g = check_place(place, heads) or (0, 0, heads)
+    placement b_off, h_off, H_g, stride (0, 0, ``heads``, 0 unplaced)."""
+    placed = check_place(place, heads) or (0, 0, heads, 0)
     if rate <= 0.0:
-        return 0, None, 1, 0, 1.0, tk, b_off, h_off, heads_g
+        return (0, None, 1, 0, 1.0, tk, *placed)
     seeds = seed_list(seed)
     n = len(seeds)
     if n > MAX_SEED_GROUPS or batch % n:
@@ -574,7 +583,7 @@ def _dropout_args(rate, seed, tk, batch, heads=1, place=None):
                          f"seed groups that divide the batch of {batch}, "
                          f"got {n}")
     return (1, (ctypes.c_uint * n)(*seeds), n, keep_threshold(rate),
-            inv_keep(rate), padded_tk(tk), b_off, h_off, heads_g)
+            inv_keep(rate), padded_tk(tk), *placed)
 
 
 def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):

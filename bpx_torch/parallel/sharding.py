@@ -25,7 +25,10 @@ hand, in three layers:
 * **fsdp** — FSDP2's ``fully_shard`` over the ``(data, fsdp)`` sub-mesh
   (HSDP: sharded over ``fsdp``, replicated over ``data``), one unit per
   encoder and BERT layer and the root for the rest; where ``fsdp`` is 1,
-  plain ``DistributedDataParallel`` over the ``data`` group;
+  plain ``DistributedDataParallel`` over the ``data`` group.  A grouped
+  pair's parameters, whose dim 0 is the pair axis of 2, shard on their
+  next dim (:func:`pair_placement`), so that no rank of more than two
+  holds an empty shard;
 * **data** — :func:`place_batch` gives each rank its rows of the micro
   axis over ``(data, fsdp)``; the step's loss and the dropout hashes see
   where those rows sit in the global batch.
@@ -45,12 +48,13 @@ The JAX package's ``constrain``, ``constrain_heads`` and
 port traces nothing and places every tensor itself, so they have no
 counterpart.
 
-Not split (raises under ``tensor > 1``, by the module types a model
-holds: :data:`SPLIT_TYPES`): ``group_encoders``, whose pairs concatenate
-their weights on a leading pair axis, and the notebook-era models;
-``group_encoders`` also raises under any mesh of more than one
-rank, since a pair folds its two members into one flash call whose
-dropout blocks a batch offset cannot place.
+``group_encoders``' pairs split as the encoders they stack do: each
+member's heads and FFN over ``tensor`` (the weights' dims after the pair
+axis), each pair LayerNorm whole.  The notebook-era models' encoders and
+BERT layers split as BPMulT's; their GMU layers and BERT's pooler stay
+whole on every rank, as the BPMulT models' GMUs do.  A model holding a
+module type that is not in :data:`SPLIT_TYPES` (none that the registry
+builds) raises under ``tensor > 1``.
 """
 
 from __future__ import annotations
@@ -62,13 +66,19 @@ import torch.distributed as dist
 from torch import nn
 
 from bpx_torch.models.bpmult import BPMulTVAPT, BPMulTVAT, SeqAdapter
+from bpx_torch.models.legacy import (BertClf, GMUBimodalClf, GMUClf,
+                                     MulTGMUClf, TranslatingMMTGMUClf)
 from bpx_torch.ops.attention import MultiheadAttention
 from bpx_torch.ops.audio import AudioEncoder, Conv1d
 from bpx_torch.ops.bert import (BertEncoder, BertLayer, BertSelfAttention,
                                 _Embedding)
-from bpx_torch.ops.encoder import (PairAttention, TransformerEncoder,
+from bpx_torch.ops.encoder import (GroupedTransformerEncoder, PairAttention,
+                                   PairEncoderLayer, PairLayerNorm,
+                                   PairLinear, TransformerEncoder,
                                    TransformerEncoderLayer)
-from bpx_torch.ops.gmu import GatedBimodalFusionLayer, GatedNModalLayer
+from bpx_torch.ops.gmu import (GatedBimodalFusionLayer, GatedBimodalLayer,
+                               GatedHierarchicalLayer, GatedNModalLayer,
+                               GatedSoftmaxLayer)
 from bpx_torch.ops.mag import MAG
 from bpx_torch.ops.norm import LayerNorm
 from bpx_torch.parallel.collectives import TensorSplit
@@ -82,17 +92,22 @@ _COLUMN_PARALLEL = ("q_proj", "k_proj", "v_proj", "query", "key", "value",
 # Linear layers whose INPUT features split over ``tensor``
 _ROW_PARALLEL = ("out_proj", "fc2", "attention_output", "output")
 
-#: the module types a model under the tensor split may hold: the three
-#: it cuts (``split_plan``), those it keeps whole on every rank, and the
-#: two BPMulT models, whose forwards run each cut module whole through
-#: its own forward.  Anything else (the notebook-era models and their
-#: GMU variants, ``group_encoders``' pairs, a model added later) raises
-#: until the split is held against one process for it.
+#: the module types a model under the tensor split may hold: those it
+#: cuts (``split_plan``: the attentions, encoder and BERT layers, and
+#: their pair forms), those it keeps whole on every rank (the GMU layers
+#: among them), and the models of the registry, whose forwards run each
+#: cut module whole through its own forward and read no head count or
+#: width of one.  Anything else (a module added later) raises until the
+#: split is held against one process for it.
 SPLIT_TYPES = (MultiheadAttention, TransformerEncoderLayer, BertLayer,
-               nn.Linear, nn.ModuleList, LayerNorm, _Embedding,
+               PairAttention, PairEncoderLayer, nn.Linear, PairLinear,
+               nn.ModuleList, LayerNorm, PairLayerNorm, _Embedding,
                BertSelfAttention, BertEncoder, TransformerEncoder,
-               AudioEncoder, Conv1d, GatedBimodalFusionLayer,
-               GatedNModalLayer, MAG, SeqAdapter, BPMulTVAPT, BPMulTVAT)
+               GroupedTransformerEncoder, AudioEncoder, Conv1d,
+               GatedBimodalFusionLayer, GatedNModalLayer, GatedBimodalLayer,
+               GatedHierarchicalLayer, GatedSoftmaxLayer, MAG, SeqAdapter,
+               BPMulTVAPT, BPMulTVAT, MulTGMUClf, TranslatingMMTGMUClf,
+               GMUClf, GMUBimodalClf, BertClf)
 
 
 def unsplit_types(model: nn.Module) -> List[str]:
@@ -114,15 +129,17 @@ def parallel_kind(name: str) -> Optional[str]:
 
 def _split_linear(parent: str, layer: nn.Linear, attr: str,
                   split: TensorSplit, record: Dict[str, int]) -> None:
-    """Keep the rank's part of ``layer``: output rows (and bias) of a
-    column-parallel layer, input columns of a row-parallel one (its bias
-    whole).  Records each split parameter's name and dim."""
+    """Keep the rank's part of ``layer`` (an ``nn.Linear``, or a pair's
+    :class:`PairLinear`, whose dims follow its pair axis): output rows
+    (and bias) of a column-parallel layer, input columns of a row-parallel
+    one (its bias whole).  Records each split parameter's name and dim."""
     kind = parallel_kind(attr)
     if kind is None:
         raise ValueError(f"{attr} is neither column- nor row-parallel")
-    dim = 0 if kind == "column" else 1
+    lead = layer.weight.dim() - 2
+    dim = lead + (0 if kind == "column" else 1)
     off, n = split.part(layer.weight.shape[dim])
-    for pname, d in (("weight", dim), ("bias", 0)):
+    for pname, d in (("weight", dim), ("bias", lead)):
         p = getattr(layer, pname)
         if p is None or (pname == "bias" and kind == "row"):
             continue
@@ -140,13 +157,11 @@ def split_plan(model: nn.Module, tensor: int) -> Dict[str, Tuple[str, ...]]:
     replicate."""
     plan = {}
     for name, m in model.named_modules():
-        if isinstance(m, PairAttention):
-            continue
         if isinstance(m, MultiheadAttention):
             heads, width, inner = m.num_heads, m.embed_dim, None
         elif isinstance(m, TransformerEncoderLayer):
             heads = width = None
-            inner = m.fc1.out_features
+            inner = m.fc1.weight.shape[-2]
         elif isinstance(m, BertLayer):
             heads, width = m.cfg.num_heads, m.cfg.hidden_size
             inner = m.cfg.intermediate_size
@@ -210,6 +225,25 @@ def unwrap(model: nn.Module) -> nn.Module:
         else model
 
 
+def pair_placement(model: nn.Module, fsdp: int):
+    """FSDP2's ``shard_placement_fn`` for ``model``: ``Shard(1)`` for a
+    grouped pair's parameters (dim 0 the pair axis of 2) where ``fsdp``
+    divides dim 1, else None (FSDP2's ``Shard(0)``); None for a model
+    without pairs."""
+    from torch.distributed.tensor import Shard
+    pairs = {id(p) for m in model.modules()
+             if isinstance(m, (PairLinear, PairLayerNorm))
+             for p in m.parameters(recurse=False)}
+    if not pairs:
+        return None
+
+    def place(p):
+        if id(p) in pairs and p.dim() > 1 and p.shape[1] % fsdp == 0:
+            return Shard(1)
+        return None
+    return place
+
+
 def shard_model(model: nn.Module, mesh, use_fsdp: Optional[bool] = None
                 ) -> nn.Module:
     """Place ``model`` on ``mesh``: the tensor split, then FSDP2 over
@@ -221,12 +255,6 @@ def shard_model(model: nn.Module, mesh, use_fsdp: Optional[bool] = None
     ``tensor_group`` is the rank's :class:`TensorSplit` (None at tensor
     1)."""
     data, fsdp, tensor = mesh_sizes(mesh)
-    cfg = getattr(model, "config", None)
-    if cfg is not None and cfg.group_encoders and data * fsdp * tensor > 1:
-        raise NotImplementedError(
-            "group_encoders under a mesh of more than one rank is not "
-            "ported: a pair's flash call folds its two members into the "
-            "batch, where a batch offset cannot place their dropout blocks")
     model.tensor_split, model.tensor_group = {}, None
     if tensor > 1:
         unknown = unsplit_types(model)
@@ -242,10 +270,11 @@ def shard_model(model: nn.Module, mesh, use_fsdp: Optional[bool] = None
     if use_fsdp:
         from torch.distributed.fsdp import fully_shard
         dp = mesh["data", "fsdp"]
+        kw = dict(mesh=dp, shard_placement_fn=pair_placement(model, fsdp))
         for m in model.modules():
             if isinstance(m, (TransformerEncoderLayer, BertLayer)):
-                fully_shard(m, mesh=dp)
-        fully_shard(model, mesh=dp)
+                fully_shard(m, **kw)
+        fully_shard(model, **kw)
         return model
     from torch.nn.parallel import DistributedDataParallel
     ids = ([torch.cuda.current_device()] if mesh.device_type == "cuda"
@@ -361,6 +390,31 @@ def full_model_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     split = getattr(inner, "tensor_group", None)
     return {n: _whole(v, split_dims.get(n), split)
             for n, v in inner.state_dict().items()}
+
+
+def full_gradients(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Each parameter's whole gradient (FSDP2's shards and the tensor
+    split's parts put together), on its device; collective as
+    :func:`full_model_state`.  A parameter without a gradient is left
+    out."""
+    from torch.distributed.tensor import DTensor
+    inner = unwrap(model)
+    split_dims = getattr(inner, "tensor_split", {})
+    split = getattr(inner, "tensor_group", None)
+    out = {}
+    for n, p in inner.named_parameters():
+        g = p.grad
+        if g is None:
+            continue
+        if isinstance(g, DTensor):
+            g = g.full_tensor()
+        dim = split_dims.get(n)
+        if dim is not None and split is not None:
+            parts = [torch.empty_like(g) for _ in range(split.size)]
+            dist.all_gather(parts, g.contiguous(), group=split.group)
+            g = torch.cat(parts, dim)
+        out[n] = g
+    return out
 
 
 def full_optimizer_state(model: nn.Module, optimizer) -> Dict:

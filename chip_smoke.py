@@ -498,20 +498,36 @@ class Timer:
     ``inner`` back-to-back calls, each group bracketed by CUDA events, over
     ``inner`` (so the events' own cost is spread thin).  The device is
     first held busy (``torch.cuda._sleep``) while the host enqueues every
-    group, so host-side launch overhead never shows up as device time.
-    Inputs stay warm in L2, as on the served path, where each kernel reads
-    what the op before it just wrote."""
+    group, so host-side launch overhead never shows up as device time: for
+    twice the host time the warm-up calls took a call, times the calls of
+    the groups, between ``MIN_HOLD_S`` and ``MAX_HOLD_S`` (the sleep's
+    cycles counted at ``CYCLES_PER_S``, above the card's boost clock, so
+    the hold is never shorter).  Inputs stay warm in L2, as on the served
+    path, where each kernel reads what the op before it just wrote."""
+
+    MIN_HOLD_S, MAX_HOLD_S = 0.01, 0.2
+    CYCLES_PER_S = 2.0e9
 
     def __init__(self, torch):
         self.torch = torch
 
+    def hold_cycles(self, per_call_s: float, calls: int) -> int:
+        """The sleep, in cycles, that covers enqueueing ``calls`` calls of
+        ``per_call_s`` host seconds each twice over."""
+        hold = min(self.MAX_HOLD_S, max(self.MIN_HOLD_S,
+                                        2.0 * per_call_s * calls))
+        return int(hold * self.CYCLES_PER_S)
+
     def __call__(self, fn, reps: int = 20, inner: int = 10,
                  warmup: int = 5) -> float:
         torch = self.torch
+        t = time.perf_counter()
         for _ in range(warmup):
             fn()
+        per_call = ((time.perf_counter() - t) / warmup if warmup
+                    else self.MAX_HOLD_S)
         torch.cuda.synchronize()
-        torch.cuda._sleep(400_000_000)
+        torch.cuda._sleep(self.hold_cycles(per_call, reps * inner))
         events = []
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
@@ -3673,41 +3689,46 @@ def start_mesh(torch, tmp: Path):
 
 def whole_grads(torch, model):
     """Each ``group_of`` group's gradients as one fp32 vector, whatever the
-    placement (FSDP2's DTensor gradients made whole)."""
-    from torch.distributed.tensor import DTensor
-    from bpx_torch.parallel.sharding import unwrap
+    placement (FSDP2's shards and the tensor split's parts made whole;
+    collective on a mesh)."""
+    from bpx_torch.parallel.sharding import full_gradients
     groups = collections.defaultdict(list)
-    for n, p in unwrap(model).named_parameters():
-        g = p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad
+    for n, g in full_gradients(model).items():
         groups[group_of(n)].append(g.float().flatten())
     return {k: torch.cat(v) for k, v in groups.items()}
 
 
-def phase_mesh_steps(torch, np, mesh):
-    """Moviescope's model at full width and depth (bf16, micro-batch 8 x A
-    = 2, Adam, every dropout) through the trainer three ways from the same
-    weights, batches and dropout seeds: one process, DDP and FSDP2 on the
-    world-size-1 mesh.  Step 1 of each sharded run is held to the
-    micro-step limits against the one-process step (loss, per-group
-    gradients) and to ``MESH_TOL``; every step's launches are exact."""
+#: the kinds of trainer phase 21 runs a path through, the one-process
+#: step first
+MESH_KINDS = ("one process", "DDP", "FSDP2")
+
+
+def phase_mesh_steps(torch, np, mesh, path=MOVIESCOPE, kinds=MESH_KINDS,
+                     steps=MESH_STEPS):
+    """The path's model (moviescope's mmtrvapt by default) at full width
+    and depth (bf16, micro-batch 8 x A = 2, Adam, every dropout) through
+    the trainer ``kinds`` ways from the same weights, batches and dropout
+    seeds: one process, DDP and FSDP2 on the world-size-1 mesh.  Step 1 of
+    each sharded run is held to the micro-step limits against the
+    one-process step (loss, per-group gradients) and to ``MESH_TOL``;
+    each of the ``steps`` steps' launches is exact."""
     from bpx_torch.models import get_model
     from bpx_torch.parallel import sharding
     from bpx_torch.train.losses import make_loss_fn
     from bpx_torch.train.optim import make_optimizer
     from bpx_torch.train.steps import make_train_step
-    path = MOVIESCOPE
     exp = experiment(path)
     m = exp.model
     rng = np.random.RandomState(7)
     n_train = 1000
     freqs = rng.randint(30, 400, size=m.n_classes)
     batches = [train_batch(torch, np, exp, 300 + i, freqs / n_train)
-               for i in range(MESH_STEPS)]
+               for i in range(steps)]
     want = dict(flash=path.flash * TRAIN_A, dropout=path.dropout * TRAIN_A,
                 flash_bwd=path.flash * TRAIN_A, ln=path.ln_train * TRAIN_A,
                 ln_bwd=path.ln_train * TRAIN_A)
     out, ref = {}, None
-    for kind in ("one process", "DDP", "FSDP2"):
+    for kind in kinds:
         model = get_model(m, device="cuda", seed=0).train()
         on_mesh = kind != "one process"
         if on_mesh:
@@ -3749,14 +3770,16 @@ def phase_mesh_steps(torch, np, mesh):
             errs = relative_errors(torch, grads, ref[1])
             worst = max(errs, key=errs.get)
             entry.update(loss_err=lerr, grad_err=errs[worst])
-            print(f"[mesh] {kind} step 1 vs the one-process step: loss rel "
-                  f"err {lerr:.3g} (tol {path.loss_tol}; {MESH_TOL}), worst "
+            print(f"[mesh] {path.name} {kind} step 1 vs the one-process "
+                  f"step: loss rel err {lerr:.3g} (tol {path.loss_tol}; "
+                  f"{MESH_TOL}), worst "
                   f"gradient group {worst} {errs[worst]:.3g} (tol "
                   f"{path.grad_tol}; {MESH_TOL})")
             check(lerr <= min(path.loss_tol, MESH_TOL)
                   and errs[worst] <= min(path.grad_tol, MESH_TOL),
-                  f"the {kind} step differs from the one-process step")
-        print(f"[mesh] moviescope {kind}: launches per step {want}; step "
+                  f"the {path.name} {kind} step differs from the "
+                  f"one-process step")
+        print(f"[mesh] {path.name} {kind}: launches per step {want}; step "
               f"times (host clock, synchronised) " + ", ".join(
                   f"{x:.1f}" for x in times) + f" ms, median "
               f"{entry['median_ms']:.1f} ms; losses " + ", ".join(
@@ -3841,6 +3864,126 @@ def phase_placed(torch, gen):
         rows.append(dict(family=family, D=D, shape=[B, H, T, T],
                          place=list(place), differ=differ, bits=bits,
                          unplaced=unplaced))
+    return rows
+
+
+#: the placed pair check's classes: (family, B, H, T, D) of one member of
+#: a grouped pair, whose call folds the two members into 2 x B rows:
+#: iemocap's mmtrvat pairs (head_dim 25) and moviescope's (96)
+PLACED_PAIRS = (("narrow", 8, 12, 512, 25), ("base", 8, 8, 512, 96))
+
+
+def pair_piece(torch, t, b_off, h_off, B):
+    """A data=2 x tensor=2 rank's piece of a grouped pair's folded (2 x B,
+    H, ...) tensor: each member's rows b_off..B and heads h_off.., the
+    members stacked again (a copy of the rows, a view of the heads)."""
+    rows = torch.cat([torch.arange(m * B + b_off, (m + 1) * B,
+                                   device=t.device) for m in range(2)])
+    return t[rows][:, h_off:]
+
+
+def phase_placed_pairs(torch, timer, gen):
+    """A grouped pair's placed flash calls, per family: a global forward
+    and backward with dropout over the pair's folded 2 x B rows, then the
+    piece a data=2 x tensor=2 rank holds (each member's rows B/2.., heads
+    H/2..) as the pair calls it: two seed groups of the one seed, member
+    m's blocks ``m * B * H`` global blocks on (place (B/2, H/2, H,
+    B * H)).  The piece's O, lse, dQ, dK, dV and both kernels' mask bits
+    must equal the global call's rows bit for bit, and match the plain
+    version with the same placement; one group at the plain placement
+    must differ.  The whole pair placed at world size 1 (place (0, 0, H,
+    B * H), two groups: what a pair runs on a mesh of one rank) must equal
+    its unplaced one-group call bit for bit, and is timed beside it
+    (forward, and forward with backward)."""
+    from bpx_torch.ops import flash_attention as fa
+    rate, seed = 0.1, 0x2545F491
+    bf = torch.bfloat16
+    rows = []
+    for family, B, H, T, D in PLACED_PAIRS:
+        b_off, h_off = B // 2, H // 2
+        place = (b_off, h_off, H, B * H)
+        seeds = [seed, seed]
+        sl = lambda t: pair_piece(torch, t, b_off, h_off, B)
+        q, k, v, do = (torch.randn(2 * B, H, T, D, generator=gen,
+                                   device="cuda").to(bf) for _ in range(4))
+        q = q * D ** -0.5
+        out, lse = fa.flash_attention(q, k, v, True, None, rate, seed,
+                                      return_lse=True)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, do, True,
+                                            None, rate, seed)
+        pq, pk, pv, pdo = (sl(t) for t in (q, k, v, do))
+        pout, plse = fa.flash_attention(pq, pk, pv, True, None, rate, seeds,
+                                        return_lse=True, place=place)
+        pgrads = fa.flash_attention_backward(pq, pk, pv, pout, plse, pdo,
+                                             True, None, rate, seeds, place)
+        differ = {n: int((got != sl(want)).sum()) for n, got, want in zip(
+            ("O", "lse", "dQ", "dK", "dV"), (pout, plse, *pgrads),
+            (out, lse, *grads))}
+        one_group = int((fa.flash_attention(pq, pk, pv, True, None, rate,
+                                            seed, place=place[:3])
+                         != sl(out)).sum())
+        takes_kernel(torch, lambda: fa.flash_attention(
+            pq, pk, pv, True, None, rate, seeds, place=place),
+            fwd_kernel(D, groups=2), (2 * (B - b_off), H - h_off, T, T, D,
+                                      rate, "pair"))
+        ref, ref_lse = fa.flash_attention_reference(pq, pk, pv, True, None,
+                                                    rate, seeds, place)
+        rgrads = fa.flash_attention_backward_reference(
+            pq, pk, pv, pdo, plse, fa.attention_delta_reference(pdo, pout),
+            True, None, rate, seeds, place)
+        err_o, err_l = max_err(pout, ref), max_err(plse, ref_lse)
+        err_g = max(grad_err(g, r) for g, r in zip(pgrads, rgrads))
+        q0 = torch.zeros_like(q)
+        f_g, b_g, same_g = kernel_mask(torch, q0, k, rate, seed)
+        f_p, b_p, same_p = kernel_mask(torch, sl(q0), sl(k), rate, seeds,
+                                       place)
+        keep = fa.keep_mask(seeds, 2 * (B - b_off), H - h_off, T, T, rate,
+                            "cuda", place)
+        bits = dict(forward=int((f_p != sl(f_g)).sum()),
+                    backward=int((b_p != sl(b_g)).sum()),
+                    plain=int((f_p != keep).sum()) + int((b_p != keep).sum()))
+
+        def fwd_bwd(s, p):
+            o, l = fa.flash_attention(q, k, v, True, None, rate, s,
+                                      return_lse=True, place=p)
+            return (o, l, *fa.flash_attention_backward(
+                q, k, v, o, l, do, True, None, rate, s, p))
+        whole = (0, 0, H, B * H)
+        world1 = int(sum((a != b).sum() for a, b in zip(
+            fwd_bwd(seeds, whole), (out, lse, *grads))))
+        times = {}
+        for label, s, p in (("placed pair", seeds, whole),
+                            ("unplaced", seed, None)):
+            times[label] = (
+                timer(lambda: fa.flash_attention(q, k, v, True, None, rate,
+                                                 s, place=p)),
+                timer(lambda: fwd_bwd(s, p)))
+        torch.cuda.synchronize()
+        print(f"[placed pair] {family} D={D}: a pair of ({B}, {H}, {T}, "
+              f"{T}) folded to {2 * B} rows, and its piece rows {b_off}.. "
+              f"of each member, heads {h_off}.., at place {place} with "
+              f"seeds {seeds}: elements differing from the global call's "
+              f"rows {differ}; mask bits differing (of {keep.numel()}): "
+              f"{bits}; one group at the plain placement differs in "
+              f"{one_group}; against the plain version with the placement: "
+              f"O {err_o:.3g}, lse {err_l:.3g}, gradients {err_g:.3g} (of "
+              f"the largest entry); the whole pair placed at world size 1 "
+              f"differs from its unplaced call in {world1} elements; its "
+              f"device ms (forward, forward + backward) at ({2 * B}, {H}, "
+              f"{T}, {T}): " + ", ".join(
+                  f"{k} {t[0]:.4f} / {t[1]:.4f}" for k, t in times.items()))
+        check(not any(differ.values()) and not any(bits.values())
+              and same_g and same_p and one_group > 0 and world1 == 0,
+              f"the placed pair piece at head_dim {D} is not the global "
+              f"call's rows")
+        check(torch.allclose(pout.float(), ref.float(), **FLASH_TOL)
+              and torch.allclose(plse, ref_lse, **LSE_TOL)
+              and err_g <= FLASH_GRAD_TOL,
+              f"the placed pair piece at head_dim {D} differs from the "
+              f"plain version")
+        rows.append(dict(family=family, D=D, shape=[2 * B, H, T, T],
+                         place=list(place), differ=differ, bits=bits,
+                         one_group=one_group, world1=world1, ms=times))
     return rows
 
 
@@ -3974,20 +4117,33 @@ def phase_stress(torch, np, timer, gen, mesh):
                 bwd_rows=bwd_rows, launches=got, params=n_params)
 
 
+#: the world-size-1 runs of the paths that joined the mesh later, one
+#: step each: moviescope's group_encoders pairs through DDP and FSDP2,
+#: and mmtrvpa's (head_dim 192 memory encoders) through FSDP2
+MESH_MORE = ((MOVIESCOPE_GROUPED, MESH_KINDS, 1),
+             (MMTRVPA, ("one process", "FSDP2"), 1))
+
+
 def phase_mesh(torch, np, timer, gen):
-    """Phase 21: the world-size-1 NCCL mesh, the sharded trainer, the
-    placed kernels and the stress preset; the process group is ended
+    """Phase 21: the world-size-1 NCCL mesh, the sharded trainer
+    (moviescope, its grouped pairs, mmtrvpa), the placed kernels (and a
+    grouped pair's), and the stress preset; the process group is ended
     after."""
     import torch.distributed as dist
     with tempfile.TemporaryDirectory() as tmp:
         mesh = start_mesh(torch, Path(tmp))
         try:
             steps = phase_mesh_steps(torch, np, mesh)
+            more = {path.name: phase_mesh_steps(torch, np, mesh, path, kinds,
+                                                n)
+                    for path, kinds, n in MESH_MORE}
             placed = phase_placed(torch, gen)
+            pairs = phase_placed_pairs(torch, timer, gen)
             stress = phase_stress(torch, np, timer, gen, mesh)
         finally:
             dist.destroy_process_group()
-    return dict(steps=steps, placed=placed, stress=stress)
+    return dict(steps=steps, more=more, placed=placed, pairs=pairs,
+                stress=stress)
 
 
 def short_launches(seen, kind) -> int:
@@ -4603,6 +4759,19 @@ def main() -> None:
               f"D {r['D']} {sum(r['differ'].values())} elements, "
               f"{sum(r['bits'].values())} mask bits"
               for r in mesh["placed"])
+          + "; " + "; ".join(
+              f"{p}: step median " + ", ".join(
+                  f"{k} {v['median_ms']:.1f} ms (peak {v['peak_gib']:.2f} "
+                  f"GiB)" for k, v in runs.items()) + ", step 1 vs one "
+              "process " + ", ".join(
+                  f"{k} loss {v['loss_err']:.3g} gradients "
+                  f"{v['grad_err']:.3g}" for k, v in runs.items()
+                  if "loss_err" in v)
+              for p, runs in mesh["more"].items())
+          + "; placed pair pieces differing from the global rows: "
+          + ", ".join(f"D {r['D']} {sum(r['differ'].values())} elements, "
+                      f"{sum(r['bits'].values())} mask bits"
+                      for r in mesh["pairs"])
           + f"; stress ({st['params'] / 1e9:.3f} B params): served request "
           f"of {BATCH} {st['served_ms']:.1f} ms, FSDP2 step at micro-batch "
           f"{st['micro']} x A={st['accum']} {st['step_ms']:.1f} ms, peak "

@@ -58,37 +58,42 @@ SEED = 0x7F4A7C15
 
 
 class OlderLibrary:
-    """A library built from an older tree: one without the block placement,
-    whose flash entry points end their dropout arguments at tk_p where this
-    tree's add (b_off, h_off, H_g), and, older still, one without seed
-    groups, whose entry points take one dropout seed (on, seed, threshold,
-    inv_keep, tk_p) where this tree's take (on, seeds, groups, threshold,
-    inv_keep, tk_p).  The calls of this tree's wrappers, unplaced and with
-    one seed group, are passed on in the older form.  Everything else
-    passes through."""
+    """A library built from an older tree, by how far back its flash entry
+    points' dropout arguments go (``level``): 2, the block placement
+    without the group stride, ending at (b_off, h_off, H_g) where this
+    tree's add the stride; 1, seed groups without the placement, ending at
+    tk_p; 0, one dropout seed (on, seed, threshold, inv_keep, tk_p) where
+    this tree's take (on, seeds, groups, threshold, inv_keep, tk_p).  The
+    calls of this tree's wrappers, as far as the older form holds them
+    (unplaced at level 0-1, one seed group at level 0, no stride at level
+    2), are passed on in that form.  Everything else passes through."""
 
-    def __init__(self, lib, seed_groups):
+    def __init__(self, lib, level):
         import ctypes
         p, i, f, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_longlong, ctypes.c_uint)
-        dropout = ([i, ctypes.POINTER(u), i, u, f, i] if seed_groups
-                   else [i, u, u, f, i])
+        dropout = ([i, ctypes.POINTER(u), i, u, f, i] + [i] * 3 * (level > 1)
+                   if level else [i, u, u, f, i])
         lib.bpx_flash_fwd.argtypes = ([p] * 6 + [i] * 5 + [ll] * 12
                                       + [i, i] + dropout + [p])
         lib.bpx_flash_bwd.argtypes = ([p] * 11 + [i] * 5 + [ll] * 24
                                       + [i, i] + dropout + [p])
         self._lib = lib
-        self._seed_groups = seed_groups
+        self._level = level
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
 
     def _older(self, args, at, heads):
-        b_off, h_off, heads_g = args[at + 6:at + 9]
+        b_off, h_off, heads_g, stride = args[at + 6:at + 10]
+        if stride:
+            raise ValueError("an older build takes no group stride")
+        if self._level == 2:
+            return (*args[:at + 9], *args[at + 10:])
         if (b_off, h_off, heads_g) != (0, 0, heads):
             raise ValueError("an older build takes no block placement")
-        args = (*args[:at + 6], *args[at + 9:])
-        if self._seed_groups:
+        args = (*args[:at + 6], *args[at + 10:])
+        if self._level:
             return args
         on, seeds, groups = args[at:at + 3]
         if groups != 1:
@@ -106,8 +111,9 @@ def build(label, src_dir, flags, kernel="bwd"):
     """Build and load one library; returns a dict with the library, ptxas'
     lines of the forward or backward kernels (and its wgmma warnings), the
     blocks per SM; None if the build fails.  A tree without seed groups
-    (``kMaxSeedGroups`` in ``flash_common.cuh``) or without the block
-    placement (``heads_g``) loads as an :class:`OlderLibrary`."""
+    (``kMaxSeedGroups`` in ``flash_common.cuh``), without the block
+    placement (``heads_g``) or without the group stride (``group_stride``)
+    loads as an :class:`OlderLibrary`."""
     from bpx_torch.ops import _cuda
     _cuda.SRC_DIR = Path(src_dir)
     try:
@@ -116,8 +122,10 @@ def build(label, src_dir, flags, kernel="bwd"):
         print(f"[{label}] build failed: {str(e)[:4000]}")
         return None
     common = (Path(src_dir) / "flash_common.cuh").read_text()
-    if "heads_g" not in common:
-        lib = _cuda._lib = OlderLibrary(lib, "kMaxSeedGroups" in common)
+    if "group_stride" not in common:
+        level = (2 if "heads_g" in common else
+                 1 if "kMaxSeedGroups" in common else 0)
+        lib = _cuda._lib = OlderLibrary(lib, level)
     lines, name, spill = [], "", ""
     for line in _cuda.build_log.splitlines():
         if "Compiling entry function" in line:

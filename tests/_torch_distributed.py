@@ -104,15 +104,14 @@ def run_steps(spec, mesh=None):
     return out
 
 
-def step_worker(rank, world, spec_path, out_path):
-    """One rank of a sharded run of a spec (``spec["mesh"]`` the
-    (data, fsdp, tensor) layout); rank 0 saves the result, and every
-    rank checks that its whole state and loss agree with rank 0's."""
+def _run_on_mesh(rank, spec):
+    """A spec's steps on its mesh (``spec["mesh"]`` the (data, fsdp,
+    tensor) layout); every rank checks that its loss and gradient norm
+    agree with rank 0's."""
     import torch.distributed as dist
 
     from bpx_torch.config import MeshConfig
     from bpx_torch.parallel.mesh import make_mesh
-    spec = torch.load(spec_path, weights_only=False)
     mesh = make_mesh(MeshConfig(*spec["mesh"]), "cpu")
     out = run_steps(spec, mesh)
     # every rank reports the same loss and the same whole weights
@@ -120,8 +119,41 @@ def step_worker(rank, world, spec_path, out_path):
     ref = mine.clone()
     dist.broadcast(ref, 0)
     assert torch.equal(mine, ref), (rank, mine, ref)
+    return out
+
+
+def step_worker(rank, world, spec_path, out_path):
+    """One rank of a sharded run of a spec; rank 0 saves the result."""
+    out = _run_on_mesh(rank, torch.load(spec_path, weights_only=False))
     if rank == 0:
         torch.save(out, out_path)
+
+
+def steps_worker(rank, world, specs_path, out_path):
+    """One rank of the sharded runs of a dict of specs, each on its own
+    mesh of the world's ranks, in turn (one spawn for several layouts or
+    models); rank 0 saves the dict of results."""
+    specs = torch.load(specs_path, weights_only=False)
+    out = {key: _run_on_mesh(rank, spec) for key, spec in specs.items()}
+    if rank == 0:
+        torch.save(out, out_path)
+
+
+def sharded_runs(tmp_path, specs):
+    """Every spec of ``specs`` ({key: spec with its "mesh"}) on gloo ranks,
+    one spawn per world size; {key: rank 0's result dict}."""
+    by_world = {}
+    for key, spec in specs.items():
+        by_world.setdefault(int(np.prod(spec["mesh"])), {})[key] = spec
+    out = {}
+    for world, group in sorted(by_world.items()):
+        specs_path = os.path.join(str(tmp_path), f"specs_{world}.pt")
+        out_path = os.path.join(str(tmp_path), f"out_{world}.pt")
+        torch.save(group, specs_path)
+        spawn(world, steps_worker, tmp_path, specs_path, out_path,
+              deadline=DEADLINE * len(group))
+        out.update(torch.load(out_path, weights_only=False))
+    return out
 
 
 # ---------------------------------------------------------------------------

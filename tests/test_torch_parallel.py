@@ -152,21 +152,29 @@ def test_place_batch_slices():
 
 
 def test_the_rules_raise_for_what_they_do_not_split():
-    grouped = get_model(_tiny().replace(group_encoders=True), device="meta")
-    with pytest.raises(NotImplementedError, match="group_encoders"):
-        sharding.shard_model(grouped, _Mesh((2, 1, 1), (0, 0, 0)))
+    """Every model of the registry, and a grouped one, holds only module
+    types the tensor split takes; a module type it does not know (here a
+    made-up one) still raises, by type, not by the model's name."""
+    from bpx_torch.models import MODELS
+    tiny = _tiny().replace(num_vectors_a=8, num_vectors_v=8)
+    for name in MODELS:
+        cfg = tiny.replace(model=name)
+        if name == "mmtrvat":
+            cfg = cfg.replace(use_audio_encoder=False, num_vectors_l=8)
+        assert sharding.unsplit_types(get_model(cfg, device="meta")) == [], \
+            name
+    grouped = get_model(tiny.replace(group_encoders=True), device="meta")
+    assert sharding.unsplit_types(grouped) == []
+
+    class MadeUp(torch.nn.Module):
+        def forward(self, x):
+            return x
+
+    grouped.made_up = MadeUp()
     mesh = _Mesh((1, 1, 2), (0, 0, 0))
     mesh.get_group = lambda name: None
-    # by the module types a model holds, not by its name
-    for name, unknown in (("mmtrvpa", "MulTGMUClf"),
-                          ("gmu_bi", "GatedBimodalLayer")):
-        legacy = get_model(_tiny().replace(model=name), device="meta")
-        with pytest.raises(NotImplementedError, match=unknown):
-            sharding.shard_model(legacy, mesh)
-    assert sharding.unsplit_types(get_model(_tiny(), device="meta")) == []
-    assert sharding.unsplit_types(grouped) == [
-        "GroupedTransformerEncoder", "PairAttention", "PairEncoderLayer",
-        "PairLayerNorm", "PairLinear"]
+    with pytest.raises(NotImplementedError, match="MadeUp"):
+        sharding.shard_model(grouped, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +259,89 @@ def test_placed_plain_flash_piece_is_the_global_slice():
     assert not torch.allclose(unplaced, out[sl])
     with pytest.raises(ValueError, match="does not hold"):
         flash_attention(pq, pk, pv, True, None, 0.2, 5, place=(0, 3, 4))
+
+
+# a grouped pair's rank piece of a (2 x B_g, H) call: (rows, heads, b_off,
+# h_off) of each member
+PAIR_PIECES = {"data": (2, 4, 2, 0), "tensor": (4, 2, 0, 2),
+               "data_tensor": (2, 2, 2, 2)}
+
+
+def _pair_piece(t, b_off, rows, h_off, heads, global_rows=B):
+    """Each member's rows b_off.. and heads h_off.. of a pair's folded
+    (2 * global_rows, H, ...) tensor, members stacked again."""
+    idx = torch.cat([torch.arange(m * global_rows + b_off,
+                                  m * global_rows + b_off + rows)
+                     for m in range(2)])
+    return t[idx][:, h_off:h_off + heads].contiguous()
+
+
+@pytest.mark.parametrize("piece", list(PAIR_PIECES))
+def test_placed_pair_flash_piece_is_the_global_slice(piece):
+    """A grouped pair folds its two members into one flash call over 2 x
+    B_g rows.  A rank's piece (each member's rows b_off.. and heads
+    h_off..), called as two seed groups of the one seed with the stride
+    B_g x H_g between them, hashes each member's rows where the global
+    call does: its mask bits, O, lse, dQ, dK and dV equal the global
+    call's rows bit for bit; where the rank holds part of the rows, one
+    group at the plain placement does not."""
+    rows, heads, b_off, h_off = PAIR_PIECES[piece]
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2 * B, H, n, 8, generator=g) for n in
+                   (TQ, TK, TK, TQ))
+    out, lse = flash_attention(q, k, v, True, None, 0.3, 9, return_lse=True)
+    grads = flash_attention_backward(q, k, v, out, lse, do, True, None, 0.3,
+                                     9)
+    sl = lambda t: _pair_piece(t, b_off, rows, h_off, heads)
+    place = (b_off, h_off, H, B * H)
+    pq, pk, pv, pdo = (sl(t) for t in (q, k, v, do))
+    pout, plse = flash_attention(pq, pk, pv, True, None, 0.3, [9, 9],
+                                 return_lse=True, place=place)
+    pgrads = flash_attention_backward(pq, pk, pv, pout, plse, pdo, True,
+                                      None, 0.3, [9, 9], place=place)
+    for name, got, want in zip(("O", "lse", "dQ", "dK", "dV"),
+                               (pout, plse, *pgrads), (out, lse, *grads)):
+        assert torch.equal(got, sl(want)), name
+    full = keep_mask(9, 2 * B, H, TQ, TK, 0.3)
+    got = keep_mask([9, 9], 2 * rows, heads, TQ, TK, 0.3, place=place)
+    assert torch.equal(got, sl(full))
+    one_group = keep_mask(9, 2 * rows, heads, TQ, TK, 0.3,
+                          place=place[:3])
+    assert torch.equal(one_group, sl(full)) == (rows == B)
+
+
+@pytest.mark.parametrize("piece", ["rows", "rows_columns", "heads"])
+def test_placed_pair_hash_mask_is_the_global_slice(piece):
+    """A pair's residual, ReLU and embedding dropouts on (2, B, T, E)
+    stacks place dim 1 as the batch (``batch_dim``); its einsum
+    attention's probabilities each member's rows and the rank's heads:
+    each mask the global one's slice, bit for bit."""
+    from bpx_torch.ops.attention import dot_product_attention
+    from bpx_torch.ops.dropout import SeedStream, maybe_dropout
+    if piece == "heads":
+        g = torch.Generator().manual_seed(4)
+        q, k, v = (torch.randn(2 * B, H, n, 8, generator=g) for n in
+                   (TQ, TK, TK))
+        seeds = lambda rows=None: SeedStream(21, rows)
+        full = dot_product_attention(q, k, v, None, 0.4, True, seeds(),
+                                     members=2)
+        sl = lambda t: _pair_piece(t, 2, 2, 2, 2)
+        got = dot_product_attention(sl(q), sl(k), sl(v), None, 0.4, True,
+                                    seeds((2, B)), heads=(2, H), members=2)
+        assert torch.equal(got, sl(full))
+        return
+    x = torch.rand(2, B, 5, 12, generator=torch.Generator().manual_seed(5))
+    full = maybe_dropout(x, 0.4, True, SeedStream(8), batch_dim=1)
+    if piece == "rows":
+        split, sl = None, (slice(None), slice(2, 4))
+    else:
+        split, sl = (-1, 6, 12), (slice(None), slice(2, 4), slice(None),
+                                  slice(6, 12))
+    got = maybe_dropout(x[sl], 0.4, True, SeedStream(8, (2, B)), split,
+                        batch_dim=1)
+    assert torch.equal(got, full[sl])
+    assert torch.equal(hash_keep(8, x[sl].shape, 0.4, place=block_place(
+        4, (2, B), split, batch_dim=1)), hash_keep(8, x.shape, 0.4)[sl])
 
 
 def test_parallel_package_is_covered_by_the_port_rules():

@@ -29,7 +29,9 @@ ABSENT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
 
 
 def _port_files():
-    return sorted((ROOT / "bpx_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "bpx_torch").rglob("*.py"))
+            + sorted((ROOT / "scripts").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def _forbidden(name: str) -> bool:
