@@ -30,8 +30,6 @@ MODELS = {
     "bertclf": BertClf,
     "bert": BertClf,
 }
-#: the models the vmapped multi-seed step and ``Predictor.export`` take
-BPMULT_MODELS = ("mmtrvapt", "mmtrvat")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

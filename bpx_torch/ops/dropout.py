@@ -268,6 +268,27 @@ class SeedStreams:
     def next(self) -> List[int]:
         return [s.next() for s in self.streams]
 
+    @property
+    def count(self) -> int:
+        """Draws so far, the same for every stream (they draw in step)."""
+        return self.streams[0].count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        for s in self.streams:
+            s.count = value
+
+    def at(self, count: int, axis: Optional[torch.Tensor] = None
+           ) -> "SeedStreams":
+        """Streams of the same bases whose next seeds are the ones these
+        gave after ``count`` draws, carried by ``axis`` (default: this
+        carrier): a recomputed layer replays its first pass's seeds from
+        them, under a vmap of its own (``ops/encoder.py::recomputed``)."""
+        streams = SeedStreams([s.base for s in self.streams],
+                              self.axis if axis is None else axis)
+        streams.count = count
+        return streams
+
 
 def step_seed(run_seed: int, step: int) -> int:
     """The seed of one optimizer step's base-seed generator: splitmix64 of

@@ -49,6 +49,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call, vmap
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -80,6 +81,14 @@ def resolve_remat_policy(name: Optional[str]):
     raise ValueError(f"unknown remat_policy: {name!r}")
 
 
+def _checkpoint(fn, policy, *args):
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def recomputed(layer: nn.Module, policy, seeds: Optional[SeedStream],
                *args) -> torch.Tensor:
     """``layer(*args, seeds)`` under ``torch.utils.checkpoint``: what it
@@ -89,24 +98,79 @@ def recomputed(layer: nn.Module, policy, seeds: Optional[SeedStream],
     The replay runs the layer's Python forward again, so it must draw the
     first pass's dropout seeds: the layer draws from a stream of its own
     that starts at ``seeds``' count, and ``seeds`` then moves past the
-    seeds the layer drew."""
+    seeds the layer drew.  Under the multi-seed step's vmap the layer is
+    checkpointed over the seed axis (:class:`_SeedAxisRecompute`)."""
     start = None if seeds is None else seeds.count
     drawn = []
+    if torch._C._are_functorch_transforms_active():
+        out = _recomputed_over_seeds(layer, policy, seeds, start, drawn,
+                                     args)
+    else:
+        def run(*a):
+            own = None if seeds is None else seeds.at(start)
+            out = layer(*a, own)
+            drawn.append(None if own is None else own.count)
+            return out
 
-    def run(*a):
-        own = None if seeds is None else seeds.at(start)
-        out = layer(*a, own)
-        drawn.append(None if own is None else own.count)
-        return out
-
-    kw = {}
-    if policy is not None:
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, policy)
-    out = checkpoint(run, *args, use_reentrant=False, **kw)
+        out = _checkpoint(run, policy, *args)
     if seeds is not None:
         seeds.count = drawn[0]
     return out
+
+
+def _recomputed_over_seeds(layer, policy, seeds, start, drawn, args):
+    """``recomputed`` inside ``torch.func.vmap`` over the seed axis, where
+    ``functional_call`` has swapped the stacked weights into ``layer``.
+    The checkpoint cannot sit inside the vmap: its replay runs in the
+    backward, outside both, where the layer holds the meta template's
+    weights again.  So the weights, the buffers, the inputs and the seed
+    axis's carrier cross into :class:`_SeedAxisRecompute` as explicit
+    tensors, and its vmap rule checkpoints ``vmap(layer)`` over the
+    stacked tensors: the first pass and the replay each run the layer
+    under a vmap of their own, with those tensors swapped in."""
+    params = dict(layer.named_parameters())
+    if not all(torch._C._functorch.is_batchedtensor(p)
+               for p in params.values()):
+        raise RuntimeError(
+            "a layer recomputed under the seed vmap must hold the stacked "
+            "weights on every parameter (functional_call's), not the "
+            "template's")
+    buffers = dict(layer.named_buffers())
+    names, n_p, n_b = (list(params) + list(buffers), len(params),
+                       len(buffers))
+    axis = None if seeds is None else seeds.axis
+
+    def run(*flat):
+        own = (None if seeds is None else seeds.at(start) if axis is None
+               else seeds.at(start, flat[-1]))
+        state = (dict(zip(names[:n_p], flat[:n_p])),
+                 dict(zip(names[n_p:], flat[n_p:n_p + n_b])))
+        out = functional_call(layer, state, (*flat[n_p + n_b:-1], own))
+        drawn.append(None if own is None else own.count)
+        return out
+
+    return _SeedAxisRecompute.apply(
+        (run, policy), *params.values(), *buffers.values(), *args, axis)
+
+
+class _SeedAxisRecompute(torch.autograd.Function):
+    """A recomputed layer under the seed vmap: only its vmap rule runs.
+    That rule receives the stacked tensors and their ``in_dims`` and
+    checkpoints ``vmap(run, in_dims)`` over them, with the config's policy:
+    autograd records the stacked ops (each kernel op's folded call), and
+    the backward replays the vmapped layer from the saved inputs."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, spec, *tensors):
+        run, policy = spec
+        stacked = lambda *t: vmap(run, in_dims=in_dims[1:])(*t)
+        return _checkpoint(stacked, policy, *tensors), 0
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -53,7 +53,8 @@ mask is the one a call over that group alone with that seed gives.  Under
 vmap rule folds the vmapped axis into the batch of one launch over S·B·H,
 through views of the (S, B, H, T, D) tensors, with the S seeds (or the
 one seed repeated) as the list; ``kv_lens`` is repeated for the S·B rows.
-The kernels take at most ``MAX_SEED_GROUPS`` seeds.
+The kernels take at most ``MAX_SEED_GROUPS`` seeds: above that the vmap
+rule launches one call per chunk of at most that many groups.
 
 Block placement (the sharded step, ``bpx_torch/parallel``): a rank of a
 mesh holds some batch rows and, under a tensor split, some heads of the
@@ -388,8 +389,9 @@ def _(dout, out):
 
 
 # The vmap rule: the vmapped axis (the multi-seed step's seeds) folded into
-# the batch of one call, through views; outputs unfolded, again as views.
-# Autograd records the folded call, so its backward (flash_bwd, whose
+# the batch of one call (with dropout over more than MAX_SEED_GROUPS seeds,
+# one call per chunk of them), through views; outputs unfolded, again as
+# views.  Autograd records the folded call, so its backward (flash_bwd, whose
 # delta is flash_delta's) runs once over the folded tensors and needs no
 # rule of its own.  torch.func.grad, under which vmap would reach the
 # backward ops, cannot take these ops (ROADMAP.md).
@@ -436,9 +438,33 @@ def _unfold(t, n):
 def _(info, in_dims, q, k, v, kv_lens, masked, rate, seeds, place=None):
     n = info.batch_size
     qf, kf, vf = (_fold(t, d, n) for t, d in zip((q, k, v), in_dims))
-    out, lse = _FLASH_FWD(qf, kf, vf, _fold_kv_lens(kv_lens, in_dims[3], n),
-                          masked, rate, _fold_seeds(seeds, n), place)
+    lens = _fold_kv_lens(kv_lens, in_dims[3], n)
+    groups = _fold_seeds(seeds, n)
+    if rate > 0.0 and len(groups) > MAX_SEED_GROUPS:
+        out, lse = _chunked(qf, kf, vf, lens, masked, rate, groups, place)
+    else:
+        out, lse = _FLASH_FWD(qf, kf, vf, lens, masked, rate, groups, place)
     return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+def _chunked(q, k, v, kv_lens, masked, rate, groups, place):
+    """The folded call over more seed groups than the kernels take, as
+    one call per chunk of at most ``MAX_SEED_GROUPS`` groups: a group's
+    mask depends on its seed and its blocks' index in the group only, so
+    each chunk draws what the whole call would.  Autograd records each
+    chunk's call, so each chunk's backward is its own call too.  The
+    outputs are joined in the kernels' (B, T, H, D) memory."""
+    rows = q.shape[0] // len(groups)
+    outs, lses = [], []
+    for g in range(0, len(groups), MAX_SEED_GROUPS):
+        part = slice(g * rows, (g + MAX_SEED_GROUPS) * rows)
+        out, lse = _FLASH_FWD(
+            q[part], k[part], v[part],
+            None if kv_lens is None else kv_lens[part], masked, rate,
+            groups[g:g + MAX_SEED_GROUPS], place)
+        outs.append(out.transpose(1, 2))
+        lses.append(lse)
+    return torch.cat(outs).transpose(1, 2), torch.cat(lses)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -29,10 +29,9 @@ directory of the port's trainer::
 :meth:`Predictor.export` traces the serving forward (the model, the task's
 sigmoid or softmax, the gates) with ``torch.export`` at ``(batch_size, ...)``
 on the predictor's device and writes ``torch.export.save``'s archive, the
-weights inside it; it takes the BPMulT models (the notebook-era ones
-raise).  The kernels stay one custom-op node each
-(``bpx_torch::flash_fwd``, ``bpx_torch::layer_norm``); the rest of the graph
-is ATen.  :class:`ExportedPredictor` serves the archive with torch and
+weights inside it; it takes every model of the registry.  The kernels stay
+one custom-op node each (``bpx_torch::flash_fwd``, ``bpx_torch::layer_norm``);
+the rest of the graph is ATen.  :class:`ExportedPredictor` serves the archive with torch and
 ``bpx_torch.ops`` alone (which register the ops and build the kernels): no
 model code, config, checkpoint or dataset.
 """
@@ -170,12 +169,6 @@ class Predictor:
         The example is served once first (:meth:`warmup`), so the model's
         host-side tables (positions, the audio pooling matrix) are built
         from real tensors and traced in as constants."""
-        from bpx_torch.models import BPMULT_MODELS
-        if self.exp.model.model not in BPMULT_MODELS:
-            raise NotImplementedError(
-                f"export of the notebook-era model "
-                f"{self.exp.model.model!r} is not ported (ROADMAP.md queues "
-                f"it); it takes {BPMULT_MODELS}")
         self.warmup(example_batch)
         inputs = self._inputs(_pad(example_batch, self.batch_size))
         self.model.eval()

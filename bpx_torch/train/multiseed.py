@@ -36,9 +36,16 @@ shares, since all seeds step together, so each seed's update is the one its
 own optimizer makes.  (An optimizer that reduces over a tensor, such as a
 norm-clipping one, would mix the seeds.)
 
-``remat`` is not supported: ``torch.utils.checkpoint`` recomputes a layer in
-the backward outside the vmap, where the stacked weights are not one
-seed's; :func:`make_multi_seed_train_step` raises for a config with it.
+``remat`` (and ``remat_policy``) recompute as on one seed, over the seed
+axis: ``torch.utils.checkpoint`` inside the vmap would replay a layer in the
+backward outside it, where ``functional_call`` no longer holds the stacked
+weights, so ``ops/encoder.py::recomputed`` checkpoints the vmapped layer at
+the unbatched level instead (an ``autograd.Function`` whose vmap rule takes
+the layer's stacked weights, its inputs and the seed axis's carrier as
+explicit tensors).  The first pass and the replay each run the layer under
+a vmap of their own from the same dropout seeds, and ``"save_attn"`` keeps
+each folded flash forward's outputs.  Every model of the registry runs,
+the notebook-era ones too.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from torch.func import functional_call, stack_module_state, vmap
 
 from bpx_torch.config import ModelConfig
 from bpx_torch.inputs import model_inputs
-from bpx_torch.models import BPMULT_MODELS, get_model
+from bpx_torch.models import get_model
 from bpx_torch.ops.dropout import SeedStreams, draw_base_seed
 from bpx_torch.utils.seeding import set_seed
 
@@ -80,11 +87,6 @@ def init_multi_seed(config: ModelConfig, seeds: Sequence[int],
     batch, for flax's shape inference; the port's modules need neither.)"""
     if not seeds:
         raise ValueError("init_multi_seed needs at least one seed")
-    if config.model not in BPMULT_MODELS:
-        raise NotImplementedError(
-            f"the multi-seed step of the notebook-era model "
-            f"{config.model!r} is not ported (ROADMAP.md queues it); it "
-            f"takes {BPMULT_MODELS}")
     models = []
     for seed in seeds:
         set_seed(seed)
@@ -112,10 +114,6 @@ def make_multi_seed_train_step(state: MultiSeedState, loss_fn: Callable,
     JAX package also takes the model's name; here the state's config
     holds it.)"""
     cfg = state.template.config
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat under the multi-seed step: torch.utils.checkpoint "
-            "recomputes a layer outside the vmap (ROADMAP.md)")
     n = len(state.seeds)
     gens = (list(generators) if generators is not None
             else [torch.Generator().manual_seed(s) for s in state.seeds])

@@ -106,13 +106,13 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    reference's layout under a temporary directory (32 train, 16 dev, 16
    test records), trained through ``bpx_torch.cli.train.cli_main`` in this
    process with the README's command (``mmtrvapt``, hidden 768, 8 heads, 4
-   layers, micro-batch 8 x A = 2, ``attention_impl`` pallas) for 2 epochs:
+   layers, micro-batch 8 x A = 2, ``attention_impl`` pallas) for 1 epoch:
    the memmap cache, checkpoints, ``test``.  Counters set to 0 before and
    read after, and checked per train step (168 flash forward, 72 with
    dropout, 168 backward, 458 LayerNorm forward and backward) and per
    evaluation forward (84 flash, 181 LayerNorm); every launch class among
    those phases 3-6 held against the plain versions; no tensor copied.
-   Then the run resumed to 3 epochs (it must start at epoch 2, with weights
+   Then the run resumed to 2 epochs (it must start at epoch 1, with weights
    and Adam moments equal to the saved ones bitwise, and run one epoch),
    and ``Predictor.from_checkpoint`` on the test records against ``test``'s
    ``preds_raw.npy``; per-epoch times, the cache build and the peak memory.
@@ -121,15 +121,13 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    ``flash_bwd``, ``flash_delta``, ``layer_norm``, ``layer_norm_bwd``):
    after the build, the host time one call of each public wrapper adds
    over its impl alone (the launch path without the op) under
-   inference_mode, in turns, and a call with grad enabled; after phase 4,
-   ``Predictor.export`` of the served moviescope model at batch 8 into a
-   temporary directory, the archive served in a new process that must not
-   import the model code or the config: 84 flash and 181 LayerNorm
-   launches per exported forward, its probabilities and gates bitwise
-   equal to the eager ``Predictor``'s on the same requests (one ragged),
-   both served medians; in phase 13, ``python -m bpx_torch.cli.export`` on
-   the loop's run directory, its archive served in a new process on the
-   test records, bitwise equal to ``Predictor.from_checkpoint``;
+   inference_mode, in turns, and a call with grad enabled; in phase 13,
+   ``python -m bpx_torch.cli.export`` (``Predictor.export`` of the restored
+   moviescope model at batch 8) on the loop's run directory, its archive
+   served in a new process that must not import the model code or the
+   config, on the test records and a ragged request: 84 flash and 181
+   LayerNorm launches per exported forward, probabilities bitwise equal to
+   ``Predictor.from_checkpoint``'s, both served medians;
 15. recompute, after phase 10, at the presets' own settings: iemocap (every
    encoder and BERT layer recomputed in full) and mmimdb (``save_attn`` in
    the encoders, BERT in full).  One micro-step (batch 8, every dropout)
@@ -167,20 +165,24 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    profiler naming each head dim's kernel, and the early encoders'
    LayerNorms at 256 rows) against its plain version.
 17. the vmapped multi-seed step (``bpx_torch.train.multiseed``), after
-   phase 13: iemocap's ``mmtrvat`` at full width and depth, seeds 1-5
-   stacked, micro-batch 8 a seed, A = 1, bf16, every dropout, Adam, no
-   recompute.  One vmapped step that keeps the weights (SGD at lr 0): its
-   launches exact against a recorded single-seed A = 1 step (the flash
-   kernels launched as often as one seed's micro-step, 108 / 44 / 108: one
-   folded launch over S·B·H; the LayerNorms S times as often, one launch a
+   phase 13: iemocap's ``mmtrvat`` at full width and depth and at its
+   preset's own config (full recompute), seeds 1-5 stacked, micro-batch 8
+   a seed, A = 1, bf16, every dropout, Adam.  One vmapped step that keeps
+   the weights (SGD at lr 0): its launches exact against a recorded
+   single-seed A = 1 step with recompute, itself exact against the
+   structure (``remat_launches``: the flash kernels launched as often as
+   one seed's micro-step, 216 / 88 / 108 with the replays: one folded
+   launch over S·B·H; the LayerNorms S times as often, one launch a
    seed), nothing copied; seeds 1 and 5 against their own single-seed
    steps on the same weights and base seeds (the loss and each module's
    gradient, relative L2, within MULTISEED_LOSS_TOL / MULTISEED_GRAD_TOL);
    every seed against the same vmapped step under ``plain_versions()``;
    two planted faults of the folded launch, each a build of the kernels
-   with ``-DBPX_PLANT_SEED_FAULT`` (every group hashing with group 0's
-   seed; bh not reduced to its group), which the comparison with the
-   single-seed steps must catch.  The folded launches' masks exact against
+   with ``-DBPX_PLANT_SEED_FAULT``, built in the background during the
+   phase's untimed first part (every group hashing with group 0's
+   seed; bh not reduced to its group) and a replay that draws seeds past
+   its first pass's, which the comparison with the single-seed steps must
+   catch.  The folded launches' masks exact against
    each group's own launch at head_dim 25 and 64 (q = 0, V = dO = I).
    Then 3 Adam steps with exact counters: the median beside the
    single-seed step's, ``S * t_single / t_vmapped``, the peak memory; one
@@ -188,7 +190,21 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    class and BERT's D 64 class; the folded classes against the plain
    versions with bound and SDPA, each with dropout at its five seed groups,
    so on the kernels' build for several groups, which the profiler must
-   name (the LayerNorms run at iemocap's classes);
+   name (the LayerNorms run at iemocap's classes).  Then two seeds of
+   mmimdb's ``mmtrvapt`` at its own recompute (``save_attn`` in the
+   encoders: their head_dim-128 flash forward launched once a call, BERT's
+   twice) and of ``mmtrvpa`` at moviescope's widths (head_dim 192 in its
+   memory encoders), each in one vmapped step with launches exact against
+   the structure and the first seed against its own single-seed step
+   within the path's limits, every folded flash class both ways against the plain
+   version; ``Predictor.export`` of mmtrvpa (moviescope's widths, one
+   layer a crossmodal encoder: 27 flash and 70 LayerNorm launches a
+   forward) served in a process without the model code, bitwise against
+   the eager ``Predictor``; and one vmapped
+   flash call over 20 seeds (head_dim 25, rate 0.1): one launch a chunk of
+   at most 16 seed groups each way, against the plain version, bitwise
+   against each seed's own launch, every keep bit of both directions
+   exact, each chunk's class timed;
 18. the task farm: ``python -m bpx_torch.cluster.scheduler`` over a
    temporary jobs file (two one-epoch ``python -m bpx_torch.cli.train``
    runs on synthetic data and a line that exits 3), two workers on card 0,
@@ -203,7 +219,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    tmmtrvpa 60 and 181; gmu, gmu_bi, gmu_hier, gmu_softmax and bertclf 12
    and 25), ``bert`` against ``bertclf`` (within ALIAS_TOL); mmtrvpa,
    tmmtrvpa and gmu_hier trained: one micro-step against the plain path
-   (the planted backward faults on the two with encoders), then 3 Adam
+   (the planted backward faults on the two with encoders), then 2 Adam
    steps at 8 x A = 2 with every dropout and exact counters (per step
    96 / 64 / 96 / 308 / 308, 120 / 56 / 120 / 458 / 458, 24 / 24 / 24 / 50
    / 50); every class no earlier phase held (the head_dim-192 flash forward
@@ -220,7 +236,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    within the preset's limits, exact counters per forward (84, 84 and 48
    flash launches, 24, 24 and 12 of them at the memory head dim; 226, 226
    and 130 LayerNorm); iemocap and mmimdb trained (one micro-step against
-   the plain path with the band fault planted, then 3 Adam steps at 8 x A
+   the plain path with the band fault planted, then 2 Adam steps at 8 x A
    = 2 with every dropout and exact counters: 168 / 104 / 168 / 548 / 548
    and 96 / 64 / 96 / 308 / 308 per step), cmu-mosei one step; every class
    no earlier phase held (the memory encoders' flash forward and backward
@@ -235,7 +251,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
 21. ``[mesh]``, the multi-card trainer on the one card: an NCCL process
    group of world size 1 from a file store and its (1, 1, 1) mesh.
    Moviescope's model at full width and depth (bf16, 8 x A = 2, Adam,
-   every dropout) takes 3 steps through the one-process trainer, then
+   every dropout) takes 2 steps through the one-process trainer, then
    through the sharded one with DDP and with FSDP2 from the same weights,
    batches and seeds: step 1 of each within the micro-step limits of the
    one-process step (loss, per-group gradients) and within 1e-5 of it
@@ -276,6 +292,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -360,9 +377,10 @@ class ModelPath:
     @property
     def name(self) -> str:
         """The preset, and the options the path sets on it (a flag by its
-        name, a value such as the model by itself)."""
-        return " ".join([self.preset] + [k if v is True else str(v)
-                                          for k, v in self.options])
+        name, the model by itself, another value as name=value)."""
+        return " ".join([self.preset] + [
+            k if v is True else str(v) if k == "model" else f"{k}={v}"
+            for k, v in self.options])
 
 
 MOVIESCOPE = ModelPath("moviescope", FLASH_PER_FORWARD, LN_PER_FORWARD,
@@ -781,12 +799,19 @@ def attention_work(torch, B, H, Tq, Tk, masked, kv_lens):
     return visible, keys, (None if ok.all() else ok)
 
 
+#: the plain versions' timing in the kernel rows: 5 groups of 2 calls
+#: (they take 0.1-25 ms a call; on an H100 the median reads within 0.3%
+#: of the one over 20 groups of 10, in a twentieth of the time)
+PLAIN_TIMING = dict(reps=5, inner=2, warmup=1)
+
+
 def phase_flash(torch, timer, classes, gen, label="flash",
                 plain_rows=None, plain_timing=None):
     """The forward kernel against its plain version at each class (with
     the class's dropout rate and seed groups, one fixed seed a group).
     ``plain_rows``: the plain version in placed chunks of that many batch
-    rows (``by_rows``), timed with ``plain_timing``'s Timer arguments."""
+    rows (``by_rows``), timed with ``plain_timing``'s Timer arguments
+    (default ``PLAIN_TIMING``)."""
     import torch.nn.functional as F
     from bpx_torch.ops.flash_attention import (effective_band,
                                                flash_attention,
@@ -824,7 +849,7 @@ def phase_flash(torch, timer, classes, gen, label="flash",
         nbytes = 2 * (2 * B * H * Tq * D + 2 * keys * D) + 4 * B * H * Tq
         b_ms, b_by = bound_ms(nbytes, flops)
         t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens, *drop))
-        t_p = timer(plain, **(plain_timing or {}))
+        t_p = timer(plain, **(plain_timing or PLAIN_TIMING))
         mask_args = sdpa_mask(torch, ok)
         sdpa = lambda: F.scaled_dot_product_attention(
             q, k, v, dropout_p=rate, scale=1.0, **mask_args)
@@ -1098,7 +1123,7 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd",
         b_ms, b_by = bound_ms(nbytes, flops)
         t_k = timer(lambda: fa._launch_bwd(q, k, v, dout, lse, out, masked,
                                            kv_lens, *drop))
-        t_p = timer(plain, **(plain_timing or {}))
+        t_p = timer(plain, **(plain_timing or PLAIN_TIMING))
         mask_args = sdpa_mask(torch, ok)
         sdpa = sdpa_backward(torch, q, k, v, mask_args, rate, dout)
         t_l = timer(sdpa)
@@ -2069,6 +2094,9 @@ LOOP_GENRES = ["Action", "Adventure", "Animation", "Biography", "Comedy",
                "Crime", "Drama", "Family", "Fantasy", "History", "Horror",
                "Romance", "Thriller"]
 LOOP_SPLITS = {"train": 32, "dev": 16, "test": 16}
+#: epochs of the first run (one, for the script's time limit); the resume
+#: runs one more
+LOOP_EPOCHS = 1
 LOOP_STEPS = LOOP_SPLITS["train"] // (BATCH * TRAIN_A)     # per epoch
 LOOP_EVALS = LOOP_SPLITS["dev"] // BATCH                  # per epoch
 LOOP_TESTS = LOOP_SPLITS["test"] // BATCH
@@ -2210,9 +2238,9 @@ def check_loop_calls(calls, n_steps, n_evals, tag):
 
 def phase_loop(torch, np, card: str, checked):
     """The README's moviescope command through ``bpx_torch.cli.train.
-    cli_main`` in this process: the memmap cache, two epochs, checkpoints,
-    ``test``; a resume to three epochs with the restored state checked bit
-    for bit against the saved one; ``Predictor.from_checkpoint`` against
+    cli_main`` in this process: the memmap cache, LOOP_EPOCHS epochs,
+    checkpoints, ``test``; a resume to one epoch more with the restored
+    state checked bit for bit against the saved one; ``Predictor.from_checkpoint`` against
     ``test``'s ``preds_raw.npy``.  ``checked``: the launch classes the
     earlier phases held against the plain versions, per kernel."""
     from bpx_torch.cli.train import cli_main
@@ -2238,12 +2266,12 @@ def phase_loop(torch, np, card: str, checked):
         with counted_loop(calls) as read, timed_cache_builds(builds), \
                 recording() as seen:
             zero_launches()
-            results = cli_main(epochs(2))
+            results = cli_main(epochs(LOOP_EPOCHS))
             totals = read()
         wall = time.time() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        check_loop_calls(calls, 2 * LOOP_STEPS, 2 * LOOP_EVALS + LOOP_TESTS,
-                         tag)
+        check_loop_calls(calls, LOOP_EPOCHS * LOOP_STEPS,
+                         LOOP_EPOCHS * LOOP_EVALS + LOOP_TESTS, tag)
         summed = collections.Counter()
         for _, c in calls:
             summed.update(c)
@@ -2270,10 +2298,11 @@ def phase_loop(torch, np, card: str, checked):
               f"{tag} the memmap cache was not built for every split: "
               f"{builds}")
         host = json.loads((run / "host_state.json").read_text())
-        check(host["epoch"] == 2, f"{tag} host_state.json epoch "
-                                  f"{host['epoch']}, expected 2")
+        check(host["epoch"] == LOOP_EPOCHS,
+              f"{tag} host_state.json epoch {host['epoch']}, expected "
+              f"{LOOP_EPOCHS}")
 
-        # resume to three epochs: one epoch from epoch 2, restored bitwise
+        # resume for one epoch more, restored bitwise
         saved = CheckpointManager(str(run)).load("latest")
         restored = {}
         restore = CheckpointManager.restore
@@ -2297,19 +2326,22 @@ def phase_loop(torch, np, card: str, checked):
         try:
             with counted_loop(calls2):
                 t1 = time.time()
-                cli_main(epochs(3))
+                cli_main(epochs(LOOP_EPOCHS + 1))
                 wall2 = time.time() - t1
         finally:
             CheckpointManager.restore = restore
         del saved
-        check(restored.get("host", (None, {}))[1].get("epoch") == 2,
-              f"{tag} the resume did not start at epoch 2: {restored}")
+        check(restored.get("host", (None, {}))[1].get("epoch")
+              == LOOP_EPOCHS,
+              f"{tag} the resume did not start at epoch {LOOP_EPOCHS}: "
+              f"{restored}")
         check(restored["weights"] and restored["moments"],
               f"{tag} the restored weights or Adam moments differ from the "
               f"saved ones")
         check_loop_calls(calls2, LOOP_STEPS, LOOP_EVALS + LOOP_TESTS,
                          f"{tag} resume")
-        print(f"{tag} resumed at epoch 2 (step {restored['host'][0]}) and "
+        print(f"{tag} resumed at epoch {LOOP_EPOCHS} (step "
+              f"{restored['host'][0]}) and "
               f"ran one epoch in {wall2:.1f} s: weights and Adam moments "
               f"equal the saved ones bitwise")
 
@@ -2322,7 +2354,14 @@ def phase_loop(torch, np, card: str, checked):
         _, _, test_loader, _ = get_data_loaders(exp.data, exp.model,
                                                 seed=exp.train.seed)
         test_batches = list(test_loader)
-        probs = np.concatenate([pred(b) for b in test_batches])
+        outs, lat = [], []
+        for b in test_batches:
+            t1 = time.perf_counter()
+            outs.append(pred(b))
+            lat.append((time.perf_counter() - t1) * 1e3)
+        probs = np.concatenate(outs)
+        ragged = {k: v[:5] for k, v in test_batches[-1].items()}
+        ragged_probs = pred(ragged)
         want = np.load(run / "preds_raw.npy")
         err = float(np.abs(probs - want).max())
         print(f"{tag} Predictor.from_checkpoint (best, restored in "
@@ -2333,7 +2372,9 @@ def phase_loop(torch, np, card: str, checked):
               f"{tag} from_checkpoint differs from preds_raw.npy by {err}")
         del pred
         torch.cuda.empty_cache()
-        cli = check_export_cli(np, run, tmp, test_batches, probs, tag)
+        cli = check_export_cli(np, run, tmp, test_batches + [ragged],
+                               np.concatenate([probs, ragged_probs]), tag,
+                               statistics.median(lat))
 
         stats = epoch_stats(run)
         for s in stats:
@@ -2348,10 +2389,11 @@ def phase_loop(torch, np, card: str, checked):
             if fresh:
                 print(f"{tag} memmap cache build, {split}: {secs:.2f} s; "
                       f"card: {card}")
-        print(f"{tag} two epochs, checkpoints and test in {wall:.1f} s, the "
-              f"resume in {wall2:.1f} s; peak memory {peak:.2f} GiB "
-              f"(max_memory_allocated); card: {card}")
-        check(len(stats) == 3, f"{tag} {len(stats)} epochs logged")
+        print(f"{tag} {LOOP_EPOCHS} epoch(s), checkpoints and test in "
+              f"{wall:.1f} s, the resume in {wall2:.1f} s; peak memory "
+              f"{peak:.2f} GiB (max_memory_allocated); card: {card}")
+        check(len(stats) == LOOP_EPOCHS + 1,
+              f"{tag} {len(stats)} epochs logged")
         per_epoch = collections.Counter()
         for _, c in calls[:LOOP_STEPS + LOOP_EVALS]:    # epoch 0
             per_epoch.update(c)
@@ -2488,19 +2530,19 @@ def output_errors(np, got, want):
     return perr, gerr, same
 
 
-def phase_export(torch, np, pred, reqs, card: str):
-    """``Predictor.export`` of the served moviescope model at batch 8 into
-    a temporary directory, the archive served in a process that may not
-    import the model code: its launches per forward (84 flash, 181
-    LayerNorm), its outputs against the eager ``Predictor`` on the same
-    requests (one ragged), and both served medians."""
+def phase_export(torch, np, pred, reqs, card: str, path: ModelPath):
+    """``Predictor.export`` of the served model of ``path`` at batch 8
+    into a temporary directory, the archive served in a process that may
+    not import the model code: its launches per forward (the path's), its
+    outputs against the eager ``Predictor`` on the same requests (one
+    ragged), and both served medians."""
     from bpx_torch.data.synthetic import example_batch
-    tag = "[export]"
+    tag = f"[export {path.name}]"
     reqs = list(reqs)
     reqs[1] = {k: v[:5] for k, v in reqs[1].items()}    # a ragged request
     tmp = Path(tempfile.mkdtemp(prefix="bpx_export_"))
     try:
-        archive = tmp / "moviescope.pt2"
+        archive = tmp / "model.pt2"
         t0 = time.time()
         blob = pred.export(example_batch(pred.exp, BATCH), str(archive))
         export_s, size = time.time() - t0, len(blob)
@@ -2515,7 +2557,7 @@ def phase_export(torch, np, pred, reqs, card: str):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     n = len(reqs)
-    print(f"{tag} Predictor.export of moviescope at batch {BATCH}: traced "
+    print(f"{tag} Predictor.export of {path.name} at batch {BATCH}: traced "
           f"and saved in {export_s:.1f} s, {size / 2 ** 20:.1f} MiB (the "
           f"fp32 weights inside); loaded in a new process in "
           f"{got['load_s']:.1f} s, batch size {got['batch_size']} from its "
@@ -2526,10 +2568,9 @@ def phase_export(torch, np, pred, reqs, card: str):
     print(f"{tag} exported program: flash launches {got['flash']} "
           f"({got['flash'] / n:g}/forward), layer_norm launches {got['ln']} "
           f"({got['ln'] / n:g}/forward)")
-    check(got["flash"] == FLASH_PER_FORWARD * n
-          and got["ln"] == LN_PER_FORWARD * n,
+    check(got["flash"] == path.flash * n and got["ln"] == path.ln * n,
           f"{tag} launches {got['flash']} / {got['ln']} over {n} forwards, "
-          f"expected {FLASH_PER_FORWARD} / {LN_PER_FORWARD} each")
+          f"expected {path.flash} / {path.ln} each")
     perr, gerr, same = output_errors(np, outs, eager)
     print(f"{tag} exported vs eager Predictor on {n} requests (one "
           f"ragged): probs max err {perr:.3g}, gates max err {gerr:.3g}; "
@@ -2545,10 +2586,14 @@ def phase_export(torch, np, pred, reqs, card: str):
                 exported_ms=med_x, launches=(got["flash"], got["ln"]))
 
 
-def check_export_cli(np, run: Path, tmp: Path, batches, want, tag):
+def check_export_cli(np, run: Path, tmp: Path, batches, want, tag,
+                     eager_ms: float):
     """``python -m bpx_torch.cli.export`` on a run directory of the
-    trainer, served in a new process on ``batches`` against ``want``
-    (``Predictor.from_checkpoint``'s probs)."""
+    trainer (``Predictor.export`` of the restored model), served in a new
+    process that may not import the model code, on ``batches`` (the last
+    one ragged) against ``want`` (``Predictor.from_checkpoint``'s probs):
+    bitwise, the launches per forward (84 flash, 181 LayerNorm), and the
+    served median beside the eager one (``eager_ms``)."""
     archive = tmp / "cli.pt2"
     t0 = time.time()
     res = subprocess.run(
@@ -2558,18 +2603,31 @@ def check_export_cli(np, run: Path, tmp: Path, batches, want, tag):
     check(res.returncode == 0, f"{tag} the export CLI failed:\n"
                                f"{res.stderr[-4000:]}")
     cli_s = time.time() - t0
+    mib = archive.stat().st_size / 2 ** 20
     got, outs = run_child(np, archive, batches, tmp)
     probs = np.concatenate([p for p, _ in outs])
     err = float(np.abs(probs - want).max())
     same = bool(np.array_equal(probs, want))
-    print(f"{tag} python -m bpx_torch.cli.export (best) in {cli_s:.1f} s; "
-          f"the archive served in a new process on the {len(want)} test "
-          f"records against Predictor.from_checkpoint: max abs err "
+    n = len(batches)
+    exported_ms = statistics.median(got["latency_ms"])
+    print(f"{tag} python -m bpx_torch.cli.export (best) in {cli_s:.1f} s, "
+          f"{mib:.1f} MiB (the fp32 weights inside); loaded in a new process "
+          f"in {got['load_s']:.1f} s, batch size {got['batch_size']} from its "
+          f"input spec; served on {n - 1} test batches and a ragged request "
+          f"({len(want)} rows) against Predictor.from_checkpoint: max abs err "
           f"{err:.3g}, bitwise equal: {same}; launches {got['flash']} / "
-          f"{got['ln']}; model code imported: {got['model_code']}")
-    check(same and not got["model_code"],
+          f"{got['ln']} over {n} forwards; model code imported: "
+          f"{got['model_code']}; served median eager {eager_ms:.2f} ms, "
+          f"exported {exported_ms:.2f} ms")
+    check(same and not got["model_code"] and got["batch_size"] == BATCH,
           f"{tag} the CLI's archive differs from from_checkpoint by {err}")
-    return dict(cli_s=cli_s, err=err)
+    check(got["flash"] == FLASH_PER_FORWARD * n
+          and got["ln"] == LN_PER_FORWARD * n,
+          f"{tag} the exported program's launches {got['flash']} / "
+          f"{got['ln']} over {n} forwards, expected {FLASH_PER_FORWARD} / "
+          f"{LN_PER_FORWARD} each")
+    return dict(cli_s=cli_s, err=err, mib=mib, eager_ms=eager_ms,
+                exported_ms=exported_ms)
 
 
 # recompute against keeping the activations, one micro-step on the same
@@ -3081,10 +3139,42 @@ def folded_timing(torch, timer, gen, S, B, H, T, D, padded, rate):
     return dict(shape=[S * B * H, T, T, D], kv_lens=padded, rate=rate, **t)
 
 
+def replay_fault(torch, state, loss_fn, batch, names, refs):
+    """A planted fault in the recompute under the seed vmap: each layer's
+    replay draws seeds past its first pass's (the streams' ``at`` moved
+    on the second time a layer asks for them), so the backward's dropout
+    masks are not the forward's.  The held seeds' gradients must then
+    differ from their own single-seed steps by more than the limit."""
+    from bpx_torch.ops.dropout import SeedStreams
+    at, asked = SeedStreams.at, collections.Counter()
+
+    def drawn_on(self, count, axis=None):
+        asked[id(self), count] += 1
+        return at(self, count + 7 * (asked[id(self), count] > 1), axis)
+
+    SeedStreams.at = drawn_on
+    try:
+        probe(torch, state, loss_fn, batch)
+    finally:
+        SeedStreams.at = at
+    worst = {}
+    for i in MULTISEED_HELD:
+        e = relative_errors(torch, seed_grads(torch, state, names, i),
+                            refs[i]["grads"])
+        worst[MULTISEED[i]] = max(e.values())
+    print(f"[multiseed] planted fault, the replay draws fresh dropout "
+          f"seeds ({sum(v > 1 for v in asked.values())} layers replayed): "
+          f"worst group by seed {worst}")
+    check(max(worst.values()) > MULTISEED_GRAD_TOL,
+          "the comparison with the single-seed steps misses a replay with "
+          "fresh seeds")
+    return worst
+
+
 def phase_multiseed(torch, np, timer, gen, card):
-    """Phase 17: iemocap's mmtrvat at full width, S = 5 seeds in one
-    vmapped step (micro-batch 8 per seed, A = 1, bf16, every dropout,
-    Adam, without recompute)."""
+    """Phase 17: iemocap's mmtrvat at full width and at its preset's own
+    config (full recompute), S = 5 seeds in one vmapped step (micro-batch
+    8 per seed, A = 1, bf16, every dropout, Adam)."""
     from bpx_torch.ops import _cuda
     from bpx_torch.ops import flash_attention as fa
     from bpx_torch.ops.dispatch import plain_versions
@@ -3095,7 +3185,7 @@ def phase_multiseed(torch, np, timer, gen, card):
     from bpx_torch.train.optim import make_optimizer
     tag = "[multiseed]"
     S = len(MULTISEED)
-    exp = experiment(IEMOCAP)
+    exp = experiment(IEMOCAP, remat=True)
     t0 = time.time()
     state = init_multi_seed(exp.model, MULTISEED,
                             lambda ps: make_optimizer(ps, LR), device="cuda")
@@ -3117,6 +3207,52 @@ def phase_multiseed(torch, np, timer, gen, card):
           f"{exp.model.attention_impl}, remat {exp.model.remat}; built in "
           f"{time.time() - t0:.1f} s")
 
+    # the planted faults' kernels, each a build of its own, built in the
+    # background (each its nvcc processes side by side) while the work that
+    # the host clock does not time runs
+    t_build = time.time()
+    pool = concurrent.futures.ThreadPoolExecutor(len(SEED_FAULTS))
+    builds = [pool.submit(_cuda.build, [flag])
+              for flag in SEED_FAULTS.values()]
+    try:
+        # the vmapped step with the kernels (weights kept), recorded
+        fa.flash_attention.fold_copies = 0
+        zero_launches()
+        with recording() as seen:
+            losses = probe(torch, state, loss_fn, batches[0])
+        got = read_launches()
+        kernel_grads = [seed_grads(torch, state, names, i) for i in range(S)]
+
+        # against the same vmapped step on the plain versions
+        with plain_versions():
+            plain_losses = probe(torch, state, loss_fn, batches[0])
+        plain = []
+        for i in range(S):
+            e = relative_errors(torch, kernel_grads[i],
+                                seed_grads(torch, state, names, i))
+            plain.append(max(e.values()))
+        plain_loss = max(abs(a - b) / abs(b)
+                         for a, b in zip(losses, plain_losses))
+        print(f"{tag} kernels against plain versions, the same vmapped step: "
+              f"loss rel err {plain_loss:.3g} (tol {IEMOCAP.loss_tol}), worst "
+              f"group by seed " + ", ".join(f"{e:.3g}" for e in plain)
+              + f" (tol {IEMOCAP.grad_tol})")
+        check(plain_loss <= IEMOCAP.loss_tol
+              and max(plain) <= IEMOCAP.grad_tol,
+              "the vmapped step with the kernels differs from the plain one")
+        state.optimizer.zero_grad(set_to_none=True)
+
+        # the folded launches' masks, exactly
+        masks = {D: phase_seed_masks(torch, gen, S, BATCH, 12, 512, D)
+                 for D in (25, 64)}
+    finally:
+        pool.shutdown(wait=True)
+    for build in builds:
+        check(build.result().exists(), f"{tag} a planted-fault build is "
+                                       f"missing")
+    print(f"{tag} planted-fault builds, in the background, ready "
+          f"{time.time() - t_build:.1f} s after they started")
+
     # seeds 0 and 4 on their own single-seed steps, from the same weights
     refs = {}
     for i in MULTISEED_HELD:
@@ -3130,16 +3266,12 @@ def phase_multiseed(torch, np, timer, gen, card):
           f"{t_single:.1f} ms of " + ", ".join(
               f"{x:.1f}" for x in refs[0]["step_ms"])
           + f"; launches {single}")
+    structure = remat_launches(IEMOCAP, exp.model)
+    check(single == structure, f"{tag} the single-seed step's launches "
+                               f"{single}, expected {structure}")
     want = dict(flash=single["flash"], dropout=single["dropout"],
                 flash_bwd=single["flash_bwd"], ln=S * single["ln"],
                 ln_bwd=S * single["ln_bwd"])
-
-    # the vmapped step with the kernels (weights kept), recorded
-    fa.flash_attention.fold_copies = 0
-    zero_launches()
-    with recording() as seen:
-        losses = probe(torch, state, loss_fn, batches[0])
-    got = read_launches()
     print(f"{tag} one vmapped step: launches {got}, expected {want} (flash "
           f"as one seed's micro-step, LayerNorm {S} x); tensors copied to "
           f"fold the seeds: {fa.flash_attention.fold_copies}, by the "
@@ -3151,8 +3283,7 @@ def phase_multiseed(torch, np, timer, gen, card):
     errs = {}
     for i in MULTISEED_HELD:
         lerr = abs(losses[i] - refs[i]["loss"]) / abs(refs[i]["loss"])
-        gerr = relative_errors(torch, seed_grads(torch, state, names, i),
-                               refs[i]["grads"])
+        gerr = relative_errors(torch, kernel_grads[i], refs[i]["grads"])
         worst = max(gerr, key=gerr.get)
         errs[i] = dict(loss_err=lerr, grad_err=gerr[worst], worst=worst)
         print(f"{tag} seed {MULTISEED[i]} against its own single-seed step: "
@@ -3163,32 +3294,12 @@ def phase_multiseed(torch, np, timer, gen, card):
         check(lerr <= MULTISEED_LOSS_TOL and gerr[worst] <= MULTISEED_GRAD_TOL,
               f"seed {MULTISEED[i]} of the vmapped step differs from its own "
               f"step")
-    kernel_grads = [seed_grads(torch, state, names, i) for i in range(S)]
-
-    # against the same vmapped step on the plain versions
-    with plain_versions():
-        plain_losses = probe(torch, state, loss_fn, batches[0])
-    plain = []
-    for i in range(S):
-        e = relative_errors(torch, kernel_grads[i],
-                            seed_grads(torch, state, names, i))
-        plain.append(max(e.values()))
-    plain_loss = max(abs(a - b) / abs(b)
-                     for a, b in zip(losses, plain_losses))
     del kernel_grads
-    print(f"{tag} kernels against plain versions, the same vmapped step: "
-          f"loss rel err {plain_loss:.3g} (tol {IEMOCAP.loss_tol}), worst "
-          f"group by seed " + ", ".join(f"{e:.3g}" for e in plain)
-          + f" (tol {IEMOCAP.grad_tol})")
-    check(plain_loss <= IEMOCAP.loss_tol and max(plain) <= IEMOCAP.grad_tol,
-          "the vmapped step with the kernels differs from the plain one")
 
-    # the planted faults, each its own build of the kernels
+    # the planted faults
     faults = {}
     lib = _cuda.library()
-    t_build = time.time()
     variants = {name: _cuda.load([flag]) for name, flag in SEED_FAULTS.items()}
-    print(f"{tag} planted-fault builds in {time.time() - t_build:.1f} s")
     for name, variant in variants.items():
         _cuda._lib = variant
         try:
@@ -3205,13 +3316,11 @@ def phase_multiseed(torch, np, timer, gen, card):
         check(max(worst.values()) > MULTISEED_GRAD_TOL,
               f"the comparison with the single-seed steps misses a planted "
               f"fault ({name})")
+    faults["the replay draws fresh dropout seeds"] = replay_fault(
+        torch, state, loss_fn, batches[0], names, refs)
     del refs
     state.optimizer.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
-
-    # the folded launches' masks, exactly
-    masks = {D: phase_seed_masks(torch, gen, S, BATCH, 12, 512, D)
-             for D in (25, 64)}
 
     # MULTISEED_STEPS Adam steps, counters from 0 before each
     state.optimizer = make_optimizer(list(state.params.values()), LR)
@@ -3263,6 +3372,192 @@ def phase_multiseed(torch, np, timer, gen, card):
                 seed_errors=errs, plain_grad_err=plain,
                 plain_loss_err=plain_loss, planted_faults=faults,
                 masks=masks, folded=timing)
+
+
+#: phase 17's two-seed paths: mmimdb at its preset's own recompute
+#: (save_attn in the encoders at head_dim 128, BERT in full) and mmtrvpa
+#: at moviescope's widths (head_dim 192 in its memory encoders, no
+#: recompute); their seeds
+MULTISEED_PAIR = (1, 2)
+
+
+def phase_multiseed_path(torch, np, timer, gen, path: ModelPath, card,
+                         held):
+    """Two seeds of ``path`` at its preset's own config in one vmapped
+    step (micro-batch 8 a seed, every dropout, weights kept): launches
+    exact against the structure (flash as one seed's micro-step, the
+    replayed forwards included; LayerNorm S times), the encoders' flash
+    forward once a call under ``save_attn``, the first seed against its
+    own single-seed step within the path's limits, and every flash class
+    (each direction) no earlier phase held against its plain version.
+    ``held``: the classes held so far, by kind, which this extends (a copy
+    of the script's: later phases hold their own).  Returns the recording,
+    the rows and the errors."""
+    from bpx_torch.train.losses import make_loss_fn
+    from bpx_torch.train.multiseed import init_multi_seed, unstack_seed
+    tag = f"[multiseed {path.name}]"
+    S = len(MULTISEED_PAIR)
+    exp = experiment(path, remat=True)
+    m = exp.model
+    t0 = time.time()
+    state = init_multi_seed(m, MULTISEED_PAIR,
+                            lambda ps: torch.optim.SGD(ps, lr=0.0),
+                            device="cuda")
+    rng = np.random.RandomState(7)
+    freqs = rng.randint(30, 400, size=m.n_classes)
+    loss_fn = make_loss_fn(exp.data.task, exp.data.task_type, True,
+                           freqs.tolist(), 1000, device="cuda")
+    batch = {k: v[0] for k, v in train_batch(torch, np, exp, 450,
+                                             freqs / 1000, accum=1).items()}
+    names = collections.defaultdict(list)
+    for n in state.params:
+        names[group_of(n)].append(n)
+    print(f"{tag} {m.model}, {S} seeds {MULTISEED_PAIR} stacked, micro-batch "
+          f"{BATCH} a seed, {m.compute_dtype}, remat {m.remat} (policy "
+          f"{m.remat_policy}, BERT {m.remat_policy_bert}); built in "
+          f"{time.time() - t0:.1f} s")
+    # seed 1 on its own single-seed step, from the same weights
+    refs = [single_seed_reference(torch, exp, loss_fn,
+                                  unstack_seed(state, 0)[0],
+                                  MULTISEED_PAIR[0], batch)]
+    structure = remat_launches(path, m)
+    single = refs[0]["launches"]
+    check(single == structure, f"{tag} the single-seed step's launches "
+                               f"{single}, expected {structure}")
+    want = dict(single, ln=S * single["ln"], ln_bwd=S * single["ln_bwd"])
+    zero_launches()
+    with recording() as seen:
+        losses = probe(torch, state, loss_fn, batch)
+    got = read_launches()
+    per_dim = {D: dim_launches(seen, "flash", D)
+               for D in sorted({c[4] for c in seen["flash"]})}
+    print(f"{tag} one vmapped step: launches {got}, expected {want}; flash "
+          f"forwards by head dim {per_dim}")
+    check(got == want, f"{tag} launches {got}, expected {want}")
+    if m.remat_policy == "save_attn":
+        # BERT's 12 layers recompute in full, the encoders keep their flash
+        # forwards: one launch a call
+        enc = path.flash - 12
+        check(got["flash"] - 2 * 12 == enc
+              and sum(c for D, c in per_dim.items() if D != 64) == enc,
+              f"{tag} the encoders' flash forwards ran {per_dim}, not once "
+              f"a call ({enc})")
+    errs = {}
+    for i, seed in enumerate(MULTISEED_PAIR[:len(refs)]):
+        lerr = abs(losses[i] - refs[i]["loss"]) / abs(refs[i]["loss"])
+        gerr = relative_errors(torch, seed_grads(torch, state, names, i),
+                               refs[i]["grads"])
+        worst = max(gerr, key=gerr.get)
+        errs[seed] = dict(loss_err=lerr, grad_err=gerr[worst], worst=worst)
+        print(f"{tag} seed {seed} against its own single-seed step: loss "
+              f"rel err {lerr:.3g} (tol {path.loss_tol}); worst group "
+              f"{worst} {gerr[worst]:.3g} (tol {path.grad_tol})")
+        check(lerr <= path.loss_tol and gerr[worst] <= path.grad_tol,
+              f"{tag} seed {seed} differs from its own step")
+    del state, refs
+    torch.cuda.empty_cache()
+    rows = check_new_classes(
+        torch, timer, gen, {k: seen[k] for k in ("flash", "flash_bwd")},
+        held, f"multiseed {path.name}")
+    return dict(seen=seen, rows=rows, errors=errs)
+
+
+#: the S = 20 vmapped flash call: more seeds than one launch takes
+CHUNK_SEEDS, CHUNK_B, CHUNK_H, CHUNK_T, CHUNK_D = 20, 2, 12, 512, 25
+
+
+def phase_seed_chunks(torch, timer, gen):
+    """Phase 17's vmapped flash call over CHUNK_SEEDS seeds with dropout
+    (rate 0.1, iemocap's narrow head): the vmap rule launches one folded
+    call per chunk of at most 16 seed groups each way (counted); O, lse
+    and the gradients against the plain version on the folded batch and
+    bitwise against each seed's own launch; the keep bits of both
+    directions (q = 0, one-hot V and dO, as ``phase_mask_check`` reads
+    them) equal to each seed's plain bits; each chunk's class held and
+    timed as every class is."""
+    from torch.func import vmap
+    from bpx_torch.ops import flash_attention as fa
+    tag = "[seed chunks]"
+    S, B, H, T, D, rate = (CHUNK_SEEDS, CHUNK_B, CHUNK_H, CHUNK_T, CHUNK_D,
+                           0.1)
+    seeds = [0xC0FFEE + 7919 * s for s in range(S)]
+    bf = torch.bfloat16
+    q, k, v, lens = attention_inputs(torch, gen, S * B, H, T, T, D, True)
+    leaves = [t.unflatten(0, (S, B)).detach().requires_grad_()
+              for t in (q, k, v)]
+    lens = lens[:B]
+    call = lambda a, b, c: fa.flash_attention(a, b, c, False, lens, rate,
+                                              seeds, return_lse=True)
+    zero_launches()
+    with recording() as seen:
+        out, lse = vmap(call)(*leaves)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(bf)
+        grads = torch.autograd.grad(out, leaves, dout)
+    got = read_launches()
+    chunks = -(-S // fa.MAX_SEED_GROUPS)
+    print(f"{tag} {S} seeds at (B {B}, H {H}, {T} x {T}, D {D}) under vmap: "
+          f"launches {got}; classes {sorted(seen['flash'])}")
+    check(got["flash"] == chunks and got["flash_bwd"] == chunks
+          and all(c[7] <= fa.MAX_SEED_GROUPS for c in seen["flash"]),
+          f"{tag} launches {got}, expected {chunks} chunks each way")
+    flat = lambda t: t.detach().flatten(0, 1)
+    ref, ref_lse = fa.flash_attention_reference(
+        *(flat(t) for t in leaves), False, lens.repeat(S), rate, seeds)
+    ref_grads = fa.flash_attention_backward_reference(
+        *(flat(t) for t in leaves), flat(dout), ref_lse,
+        fa.attention_delta_reference(flat(dout), ref), False,
+        lens.repeat(S), rate, seeds)
+    err_o, err_l = max_err(flat(out), ref), max_err(flat(lse), ref_lse)
+    err_g = max(grad_err(flat(g), w) for g, w in zip(grads, ref_grads))
+    differ = 0
+    for s, seed in enumerate(seeds):
+        one = [t[s].detach() for t in leaves]
+        o1, l1 = fa.flash_attention(*one, False, lens, rate, seed,
+                                    return_lse=True)
+        g1 = fa.flash_attention_backward(*one, o1, l1, dout[s], False, lens,
+                                         rate, seed)
+        differ += int(not (torch.equal(out[s], o1) and torch.equal(lse[s], l1)
+                           and all(torch.equal(g[s], w)
+                                   for g, w in zip(grads, g1))))
+    # the keep bits, both directions, every (query, key)
+    zero = torch.zeros(S, B, H, T, D, device="cuda", dtype=bf)
+    kk = leaves[1].detach()
+    fwd = torch.zeros(S, B, H, T, T, dtype=torch.bool, device="cuda")
+    bwd = torch.zeros_like(fwd)
+    j = torch.arange(T, device="cuda")
+    for r in range(-(-T // D)):
+        c = j - D * r
+        sel = (c >= 0) & (c < D)
+        onehot = torch.zeros(T, D, device="cuda", dtype=bf)
+        onehot[sel, c[sel]] = 1
+        e = onehot.expand(S, B, H, T, D).clone().requires_grad_()
+        o = vmap(lambda a, b, c_: fa.flash_attention(
+            a, b, c_, False, None, rate, seeds))(zero, kk, e)
+        (dv,) = torch.autograd.grad(o, e, e.detach())
+        fwd[..., sel] = o[..., c[sel]] != 0
+        bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
+    bits = sum(int((fwd[s] != fa.keep_mask(seed, B, H, T, T, rate, "cuda"))
+                   .sum()) + int((bwd[s] != fa.keep_mask(
+                       seed, B, H, T, T, rate, "cuda")).sum())
+               for s, seed in enumerate(seeds))
+    torch.cuda.synchronize()
+    print(f"{tag} against the plain version on the folded batch: O "
+          f"{err_o:.3g} (tol {FLASH_TOL}), lse {err_l:.3g} (tol {LSE_TOL}), "
+          f"gradients {err_g:.3g} (tol {FLASH_GRAD_TOL}); seeds differing "
+          f"from their own launches (O, lse, dQ, dK, dV bitwise): {differ} "
+          f"of {S}; keep bits differing from each seed's plain bits: {bits} "
+          f"of {2 * fwd.numel()}")
+    check(torch.allclose(flat(out).float(), ref.float(), **FLASH_TOL)
+          and torch.allclose(flat(lse), ref_lse, **LSE_TOL)
+          and err_g <= FLASH_GRAD_TOL and differ == 0 and bits == 0,
+          f"{tag} the chunked call differs")
+    del leaves, out, lse, grads, fwd, bwd
+    rows = dict(flash=phase_flash(torch, timer, seen["flash"], gen,
+                                  label="flash seed chunks"),
+                flash_bwd=phase_flash_bwd(torch, timer, seen["flash_bwd"],
+                                          gen, label="flash_bwd seed chunks"))
+    return dict(seen=seen, rows=rows, launches=got, differ=differ,
+                bits=bits)
 
 
 #: phase 18's training jobs: the synthetic command of the README at one
@@ -3366,6 +3661,13 @@ MMTRVPA = legacy_path("mmtrvpa", 12 + 24 + 12, 25 + 6 * 13 + 3 * 9,
                       25 + 6 * 17 + 3 * 9, 12 + 2 * 4 + 3 * 4)
 TMMTRVPA = legacy_path("tmmtrvpa", 12 + 48, 25 + 12 * 13, 25 + 12 * 17,
                        12 + 2 * 4 * 2)
+#: phase 17's export of mmtrvpa: moviescope's widths (head_dim 192 in the
+#: memory encoders) at one layer a crossmodal encoder, so three a memory
+#: encoder (max(layers, 3)), for the script's time limit
+MMTRVPA_EXPORT = dataclasses.replace(
+    MMTRVPA, flash=12 + 6 + 3 * 3, ln=25 + 6 * 4 + 3 * 7,
+    ln_train=25 + 6 * 5 + 3 * 7, dropout=12 + 2 + 3 * 3,
+    options=(("model", "mmtrvpa"), ("layers", 1)))
 LEGACY_SERVED = [MMTRVPA, TMMTRVPA] + [
     legacy_path(m, 12, 25, 25, 12)
     for m in ("gmu", "gmu_bi", "gmu_hier", "gmu_softmax", "bertclf")]
@@ -3381,6 +3683,9 @@ LEGACY_DIMS = {"mmtrvpa": {64: 12, 96: 24, 192: 12},
 #: of the models with encoders; the GMU classifiers attend only in BERT,
 #: which has no band
 BAND_FAULT = ("flash backward ignores the band",)
+#: the timed steps of each notebook-era model trained in phases 19 and 20
+#: (two, for the script's time limit)
+LEGACY_STEPS = 2
 LEGACY_TRAINED = {"mmtrvpa": BAND_FAULT, "tmmtrvpa": BAND_FAULT,
                   "gmu_hier": ()}
 #: bertclf and its alias bert, the same class on the same seed
@@ -3434,7 +3739,7 @@ def phase_legacy(torch, np, timer, gen, card, checked):
     seeded weights).  Each of the seven classes served (4 requests at
     batch 8, one ragged, against the plain path, exact counters), bert
     against bertclf; mmtrvpa, tmmtrvpa and gmu_hier trained (one micro-step
-    against the plain path, 3 Adam steps at 8 x A = 2 with exact
+    against the plain path, 2 Adam steps at 8 x A = 2 with exact
     counters); every class no earlier phase held (the head_dim-192 flash
     kernels, the 1536-wide LayerNorms) against its plain version, and the
     exact dropout masks at head_dim 192; one CLI run of mmtrvpa.
@@ -3476,7 +3781,8 @@ def phase_legacy(torch, np, timer, gen, card, checked):
         name = dict(path.options)["model"]
         if name not in LEGACY_TRAINED:
             continue
-        model, loss_fn, step, batches = phase_trainer(torch, np, path)
+        model, loss_fn, step, batches = phase_trainer(torch, np, path,
+                                                      steps=LEGACY_STEPS)
         seen, out["micro"][name] = phase_micro_step(
             torch, model, loss_fn, batches, path,
             must_catch=LEGACY_TRAINED[name])
@@ -3562,7 +3868,7 @@ def phase_mmtrvpa(torch, np, timer, gen, checked):
     width and depth (bf16, seeded weights): 4 requests at batch 8 (one
     ragged) against the plain path within the preset's limits, exact
     counters; iemocap and mmimdb trained (a micro-step against the plain
-    path with the band fault planted, 3 Adam steps at 8 x A = 2 with every
+    path with the band fault planted, 2 Adam steps at 8 x A = 2 with every
     dropout and exact counters), cmu-mosei one step; every class no earlier
     phase held (the memory encoders' flash classes both ways at rate 0 and
     0.1, the 600-wide LayerNorms) against its plain version, timed; the
@@ -3589,7 +3895,7 @@ def phase_mmtrvpa(torch, np, timer, gen, checked):
     for path in (VPA_IEMOCAP, VPA_CMU_MOSEI, VPA_MMIMDB):
         full = path.preset in VPA_TRAINED
         model, loss_fn, step, batches = phase_trainer(
-            torch, np, path, steps=TRAIN_STEPS if full else 1)
+            torch, np, path, steps=LEGACY_STEPS if full else 1)
         if full:
             seen, out["micro"][path.preset] = phase_micro_step(
                 torch, model, loss_fn, batches, path, must_catch=BAND_FAULT)
@@ -3639,7 +3945,8 @@ def phase_mmtrvpa(torch, np, timer, gen, checked):
 # the placed flash kernels, and the stress preset
 # ---------------------------------------------------------------------------
 
-MESH_STEPS = 3
+#: the mesh phase's steps a trainer (two, for the script's time limit)
+MESH_STEPS = 2
 #: the world-size-1 DDP and FSDP2 steps against the one-process step,
 #: beside the micro-step limits: the loss's and the worst gradient
 #: group's relative error.  Sound readings are 0 and 3.2e-7 (atomics in
@@ -4238,7 +4545,6 @@ def main() -> None:
     flash_rows = phase_flash(torch, timer, flash_cls, gen)
     ln_rows = phase_layer_norm(torch, timer, ln_cls, gen)
     served = phase_serve(torch, np, pred, reqs, args.profile)
-    exported = phase_export(torch, np, pred, reqs, card)
     del pred
     torch.cuda.empty_cache()
 
@@ -4430,6 +4736,24 @@ def main() -> None:
               | new_classes(multi["seen"]["ln_bwd"], set(i_seen["ln_bwd"])))
     check(not ln_new, f"the vmapped step's LayerNorm classes {ln_new} were "
                       f"not held against the plain versions")
+    print(f"[time] multiseed iemocap {time.time() - t0:.1f} s")
+    # mmimdb at its own recompute (save_attn, D 128) and mmtrvpa at
+    # moviescope's widths (D 192), two seeds each, and mmtrvpa's export;
+    # then 20 seeds through one vmapped flash call
+    ms_held = dict(flash=held["flash"] | set(m_flash_cls)
+                   | set(m_seen["flash"]),
+                   flash_bwd=held["flash_bwd"] | set(m_seen["flash_bwd"]),
+                   ln=held["ln"] | set(m_ln_cls) | set(m_seen["ln"]),
+                   ln_bwd=held["ln_bwd"] | set(m_seen["ln_bwd"]))
+    pairs = {p.preset if p is MMIMDB else "mmtrvpa": phase_multiseed_path(
+        torch, np, timer, gen, p, card, ms_held) for p in (MMIMDB, MMTRVPA)}
+    print(f"[time] multiseed iemocap, mmimdb, mmtrvpa {time.time() - t0:.1f} s")
+    pred, reqs = phase_predictor(torch, MMTRVPA_EXPORT, requests=2)
+    vpa_export = phase_export(torch, np, pred, reqs, card, MMTRVPA_EXPORT)
+    del pred
+    torch.cuda.empty_cache()
+    print(f"[time] multiseed and mmtrvpa's export {time.time() - t0:.1f} s")
+    chunks = phase_seed_chunks(torch, timer, gen)
     print(f"[time] multiseed phase {time.time() - t0:.1f} s")
 
     # phase 18: the task farm on the card
@@ -4458,6 +4782,7 @@ def main() -> None:
     print(f"[time] mesh phase {time.time() - t0:.1f} s")
 
     steps = TRAIN_STEPS * TRAIN_A
+    legacy_runs = LEGACY_STEPS * TRAIN_A
     lt_seen = legacy["train_seen"]["mmtrvpa"]
     fwd_src = "bpx_torch/csrc/flash_fwd.cu"
     bwd_src = "bpx_torch/csrc/flash_bwd.cu"
@@ -4595,23 +4920,50 @@ def main() -> None:
         summarise("layer_norm_bwd_multiseed", ln_bwd_src,
                   "bpx/ops/norm.py:69", i_ln_bwd_rows,
                   multi["totals"]["ln_bwd"], MULTISEED_STEPS, "micro_step"),
+        # phase 17's two-seed paths: the folded classes at head_dim 128
+        # under save_attn (mmimdb) and 192 (mmtrvpa), launches those of
+        # one vmapped step each; the S = 20 call's chunks
+        summarise("flash_fwd_multiseed_d128", fwd_src, fwd_tpu,
+                  dim_rows(pairs["mmimdb"]["rows"]["flash"], 128),
+                  dim_launches(pairs["mmimdb"]["seen"], "flash", 128), 1,
+                  "micro_step"),
+        summarise("flash_bwd_multiseed_d128", bwd_src, bwd_tpu,
+                  dim_rows(pairs["mmimdb"]["rows"]["flash_bwd"], 128),
+                  dim_launches(pairs["mmimdb"]["seen"], "flash_bwd", 128), 1,
+                  "micro_step"),
+        summarise("flash_fwd_multiseed_d192", fwd_src, fwd_tpu,
+                  dim_rows(pairs["mmtrvpa"]["rows"]["flash"], 192),
+                  dim_launches(pairs["mmtrvpa"]["seen"], "flash", 192), 1,
+                  "micro_step"),
+        summarise("flash_bwd_multiseed_d192", bwd_src, bwd_tpu,
+                  dim_rows(pairs["mmtrvpa"]["rows"]["flash_bwd"], 192),
+                  dim_launches(pairs["mmtrvpa"]["seen"], "flash_bwd", 192),
+                  1, "micro_step"),
+        summarise("flash_fwd_seed_chunks", fwd_src, fwd_tpu,
+                  chunks["rows"]["flash"], chunks["launches"]["flash"], 1,
+                  "call"),
+        summarise("flash_bwd_seed_chunks", bwd_src, bwd_tpu,
+                  chunks["rows"]["flash_bwd"],
+                  chunks["launches"]["flash_bwd"], 1, "call"),
         # phase 19: the head_dim-192 kernels (rows 1 @ 192 and 2 @ 192:
         # mmtrvpa's memory encoders, served and trained) and the 1536-wide
         # LayerNorms, launches those of mmtrvpa's train steps
         summarise("flash_fwd_d192", fwd_src, fwd_tpu,
                   dim_rows(legacy["rows"]["flash"], 192),
-                  dim_launches(lt_seen, "flash", 192), steps, "micro_step"),
+                  dim_launches(lt_seen, "flash", 192), legacy_runs,
+                  "micro_step"),
         summarise("flash_bwd_d192", bwd_src, bwd_tpu,
                   dim_rows(legacy["rows"]["flash_bwd"], 192),
-                  dim_launches(lt_seen, "flash_bwd", 192), steps,
+                  dim_launches(lt_seen, "flash_bwd", 192), legacy_runs,
                   "micro_step"),
         summarise("layer_norm_fwd_1536", ln_src, "bpx/ops/norm.py:53",
                   [r for r in legacy["rows"]["ln"] if r["shape"][1] == 1536],
-                  width_launches(lt_seen, "ln", 1536), steps, "micro_step"),
+                  width_launches(lt_seen, "ln", 1536), legacy_runs,
+                  "micro_step"),
         summarise("layer_norm_bwd_1536", ln_bwd_src, "bpx/ops/norm.py:69",
                   [r for r in legacy["rows"]["ln_bwd"]
                    if r["shape"][1] == 1536],
-                  width_launches(lt_seen, "ln_bwd", 1536), steps,
+                  width_launches(lt_seen, "ln_bwd", 1536), legacy_runs,
                   "micro_step"),
     ]
     # phase 20: the memory encoders' kernels at head_dim 50 (iemocap), 60
@@ -4619,7 +4971,7 @@ def main() -> None:
     # path's train steps, and the 600-wide LayerNorms (iemocap's steps)
     v_seen = vpa["train_seen"]
     for preset, (D, _) in VPA_MEMORY.items():
-        runs = steps if preset in VPA_TRAINED else TRAIN_A
+        runs = legacy_runs if preset in VPA_TRAINED else TRAIN_A
         kernels += [
             summarise(f"flash_fwd_d{D}", fwd_src, fwd_tpu,
                       dim_rows(vpa["rows"]["flash"], D),
@@ -4632,11 +4984,12 @@ def main() -> None:
     kernels += [
         summarise("layer_norm_fwd_600", ln_src, "bpx/ops/norm.py:53",
                   [r for r in vpa["rows"]["ln"] if r["shape"][1] == 600],
-                  width_launches(v_seen["iemocap"], "ln", 600), steps,
+                  width_launches(v_seen["iemocap"], "ln", 600), legacy_runs,
                   "micro_step"),
         summarise("layer_norm_bwd_600", ln_bwd_src, "bpx/ops/norm.py:69",
                   [r for r in vpa["rows"]["ln_bwd"] if r["shape"][1] == 600],
-                  width_launches(v_seen["iemocap"], "ln_bwd", 600), steps,
+                  width_launches(v_seen["iemocap"], "ln_bwd", 600),
+                  legacy_runs,
                   "micro_step")]
     st = mesh["stress"]
     kernels += [
@@ -4686,10 +5039,10 @@ def main() -> None:
           f"{dispatch['extra_us']['ln']:.2f} us of host time per flash / "
           f"LayerNorm call, {dispatch['per_request_ms']:.2f} ms per "
           f"moviescope request, {dispatch['per_step_ms']:.2f} ms per step; "
-          f"export: {exported['export_s']:.1f} s, {exported['mib']:.1f} MiB, "
-          f"served median eager {exported['eager_ms']:.2f} ms / exported "
-          f"{exported['exported_ms']:.2f} ms; export CLI "
-          f"{looped['export_cli']['cli_s']:.1f} s; card: {card}")
+          f"export CLI: {looped['export_cli']['cli_s']:.1f} s, "
+          f"{looped['export_cli']['mib']:.1f} MiB, served median eager "
+          f"{looped['export_cli']['eager_ms']:.2f} ms / exported "
+          f"{looped['export_cli']['exported_ms']:.2f} ms; card: {card}")
     h, g, ih = (opts["h_trained"], opts["g_trained"], opts["ih_trained"])
     print(f"[summary] options: moviescope hybrid served median "
           f"{opts['h_served']['median_ms']:.2f} ms, RAdam step (A = 1) median "
@@ -4714,7 +5067,7 @@ def main() -> None:
         f"step {r['step_ms']:.1f} ms at {r['step_peak_gib']:.2f} GiB"
         for p, r in remat.items()) + f"; card: {card}")
     print(f"[summary] multiseed: iemocap, {len(MULTISEED)} seeds in one "
-          f"vmapped step: median {multi['median_ms']:.1f} ms, single-seed "
+          f"vmapped step with recompute: median {multi['median_ms']:.1f} ms, single-seed "
           f"A = 1 step {multi['single_ms']:.1f} ms, S * t_single / "
           f"t_vmapped {multi['speedup']:.3f}, peak {multi['peak_gib']:.2f} "
           f"GiB; seeds against their own steps: " + ", ".join(
@@ -4727,6 +5080,18 @@ def main() -> None:
               f"D {f['shape'][3]} forward {f['fwd'] / f['fwd_s']:.2f}x, "
               f"backward {f['bwd'] / f['bwd_s']:.2f}x"
               for f in multi["folded"])
+          + "; two seeds at the presets' own configs, each seed against "
+          "its own step: " + ", ".join(
+              f"{p} " + ", ".join(f"seed {sd} loss {e['loss_err']:.3g} "
+                                  f"gradients {e['grad_err']:.3g}"
+                                  for sd, e in r["errors"].items())
+              for p, r in pairs.items())
+          + f"; mmtrvpa export {vpa_export['export_s']:.1f} s, served "
+          f"median exported {vpa_export['exported_ms']:.2f} ms; "
+          f"{CHUNK_SEEDS} seeds in one vmapped flash call: launches "
+          f"{chunks['launches']['flash']} / {chunks['launches']['flash_bwd']}"
+          f", seeds differing from their own launches {chunks['differ']}, "
+          f"mask bits {chunks['bits']}"
           + f"; task farm {farm['wall_s']:.1f} s; card: {card}")
     print("[summary] notebook-era models (moviescope widths): served median "
           + ", ".join(f"{n} {sv['median_ms']:.2f} ms"

@@ -26,7 +26,8 @@ LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 (their scalar paths), the device kernels one call runs (the profiler), and
 the backward's phase stamps in a build with ``-DBPX_LN_TRACE``; the
 kernels' custom ops (``opcheck``'s schema and fake checks on CUDA tensors,
-and a recomputed call under the ``save_attn`` policy).
+and a recomputed call under the ``save_attn`` policy); twenty seeds under
+vmap as folded launches of at most 16 seed groups.
 
 Needs a CUDA device and skips elsewhere (the ``gen`` fixture decides).
 On a machine with a card, without JAX:
@@ -1265,3 +1266,52 @@ def test_vmapped_flash_is_one_launch_without_copies(gen, D):
                        for s, seed in enumerate(SEED_GROUPS)])
     (want,) = torch.autograd.grad(ref, qkv, dout)
     assert torch.equal(out, ref) and torch.equal(got, want)
+
+
+def test_twenty_seeds_run_as_chunks_equal_to_their_own_launches(gen):
+    """Under vmap, 20 seeds with dropout (more than the kernels' 16 seed
+    groups) run as two folded launches each way, of 16 and 4 groups: O,
+    lse and the gradients bitwise equal to each seed's own launch, and
+    the keep bits of both directions, read off the outputs as
+    ``narrow_mask_bits`` reads them, the plain version's for each seed."""
+    from torch.func import vmap
+    S, B, H, T, D, rate = 20, 2, 3, 128, 25, 0.1
+    seeds = [0xC0DE + 7919 * s for s in range(S)]
+    bf = torch.bfloat16
+    q, k, v = (t.unflatten(0, (S, B)) for t in _qkv(gen, S * B, H, T, T, D))
+    lens = torch.tensor([T, 77], dtype=torch.int32, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    call = lambda a, b, c: flash_attention(a, b, c, True, lens, rate, seeds,
+                                           return_lse=True)
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    out, lse = vmap(call)(*leaves)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(bf)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert (flash_attention.launches - before[0],
+            flash_attention_backward.launches - before[1]) == (2, 2)
+    for s, seed in enumerate(seeds):
+        o1, l1 = flash_attention(q[s], k[s], v[s], True, lens, rate, seed,
+                                 return_lse=True)
+        g1 = flash_attention_backward(q[s], k[s], v[s], o1, l1, dout[s],
+                                      True, lens, rate, seed)
+        assert torch.equal(out[s], o1) and torch.equal(lse[s], l1)
+        assert all(torch.equal(g[s], w) for g, w in zip(grads, g1))
+
+    zero = torch.zeros(S, B, H, T, D, device="cuda", dtype=bf)
+    fwd = torch.zeros(S, B, H, T, T, dtype=torch.bool, device="cuda")
+    bwd = torch.zeros_like(fwd)
+    j = torch.arange(T, device="cuda")
+    for r in range((T + D - 1) // D):
+        c = j - D * r
+        sel = (c >= 0) & (c < D)
+        onehot = torch.zeros(T, D, device="cuda", dtype=bf)
+        onehot[sel, c[sel]] = 1
+        e = onehot.expand(S, B, H, T, D).clone().requires_grad_()
+        o = vmap(lambda a, b, c_: flash_attention(a, b, c_, False, None, rate,
+                                                  seeds))(zero, k, e)
+        (dv,) = torch.autograd.grad(o, e, e.detach())
+        fwd[..., sel] = o[..., c[sel]] != 0
+        bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
+    for s, seed in enumerate(seeds):
+        keep = keep_mask(seed, B, H, T, T, rate, "cuda")
+        assert torch.equal(fwd[s], keep) and torch.equal(bwd[s], keep), s

@@ -192,13 +192,21 @@ def test_legacy_checks_follow_bpx():
 
 
 def test_export_and_multiseed_refuse_legacy_models():
+    """The notebook-era models now export and stack for the multi-seed
+    step (held in ``test_torch_legacy_multiseed.py``); a model name the
+    registry lacks still raises."""
     from bpx_torch.train.multiseed import init_multi_seed
     jexp, exp, _ = legacy("gmu")
     pred = Predictor(exp, batch_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pred.export(_batch(jexp, 2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_multi_seed(exp.model, [1, 2], lambda p: None, device="cpu")
+    assert len(pred.export(_batch(jexp, 2))) > 0
+    state = init_multi_seed(exp.model, [1, 2], lambda p: None, device="cpu")
+    assert all(p.shape[0] == 2 for p in state.params.values())
+    with pytest.raises(KeyError, match="unknown model"):
+        init_multi_seed(exp.model.replace(model="gmu_xyz"), [1, 2],
+                        lambda p: None, device="cpu")
+    bad = exp.replace(model=exp.model.replace(model="gmu_xyz"))
+    with pytest.raises(KeyError, match="unknown model"):
+        Predictor(bad, batch_size=2, device="cpu").export(_batch(jexp, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@
   one seed's GEMM); the masks are bit for bit (``test_torch_vmap_ops.py``).
 * ``grad_norm`` per seed; Adam, AdamW and RAdam on stacked tensors equal
   each seed's own optimizer; ``unstack_seed`` saved by ``CheckpointManager``
-  and served by ``Predictor``; ``remat`` raises.
+  and served by ``Predictor``; ``remat`` runs, an unknown model raises.
 """
 
 import dataclasses
@@ -238,12 +238,20 @@ def test_unstacked_seed_checkpoints_and_serves(dropout_run, tmp_path):
 
 
 def test_remat_is_refused():
+    """Recompute now runs under the seed vmap (held against bpx and the
+    single-seed step in ``test_torch_multiseed_remat.py``); a model name
+    the registry lacks still raises."""
     _, exp = tiny(dropout=False)
     state = init_multi_seed(exp.model.replace(remat=True), [1, 2],
                             lambda ps: torch.optim.SGD(ps, lr=1e-3),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_multi_seed_train_step(state, loss_fn(exp))
+    metrics = make_multi_seed_train_step(state, loss_fn(exp))(
+        torch_batch(exp))
+    assert metrics["loss"].shape == (2,)
+    assert torch.isfinite(metrics["loss"]).all()
+    with pytest.raises(KeyError, match="unknown model"):
+        init_multi_seed(exp.model.replace(model="mmtrvxyz"), [1, 2],
+                        lambda ps: None, device="cpu")
 
 
 def test_stacked_interop_rejects_a_leftover_key():
