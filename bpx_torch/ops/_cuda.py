@@ -23,6 +23,10 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "bpx_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: a source's own extra flags: the generic flash kernels' 48 instantiations
+#: are optimised and assembled in parallel threads (alone they take twice
+#: as long as any other source)
+SOURCE_FLAGS = {"flash_generic.cu": ["-split-compile=0"]}
 
 _lib: Optional[ctypes.CDLL] = None
 #: ptxas' register / shared-memory / spill report of the library last
@@ -47,6 +51,7 @@ def sources() -> List[Path]:
 
 def _digest(flags: Sequence[str] = ()) -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS + list(flags)).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for path in sorted(SRC_DIR.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -70,8 +75,8 @@ def build(flags: Sequence[str] = ()) -> Path:
     procs = []
     for src in sources():
         obj = BUILD_DIR / f"{src.stem}_{digest}_{os.getpid()}.o"
-        cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, *flags, "-c", str(src), "-o",
-               str(obj)]
+        cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, *SOURCE_FLAGS.get(src.name, ()),
+               *flags, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
@@ -111,11 +116,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_flash_bwd.restype = i
     lib.bpx_flash_delta.argtypes = [p] * 3 + [i] * 4 + [ll] * 6 + [p]
     lib.bpx_flash_delta.restype = i
+    # the generic kernels (flash_generic.cu): as above, with the dtype's
+    # code (0 bf16, 1 fp32) after the head dim
+    lib.bpx_flash_generic_fwd.argtypes = ([p] * 6 + [i] * 6 + [ll] * 12
+                                          + [i, i] + dropout + [p])
+    lib.bpx_flash_generic_fwd.restype = i
+    lib.bpx_flash_generic_bwd.argtypes = ([p] * 11 + [i] * 6 + [ll] * 24
+                                          + [i, i] + dropout + [p])
+    lib.bpx_flash_generic_bwd.restype = i
+    lib.bpx_flash_generic_delta.argtypes = [p] * 3 + [i] * 5 + [ll] * 6 + [p]
+    lib.bpx_flash_generic_delta.restype = i
     out = ctypes.POINTER(i)
     lib.bpx_flash_fwd_blocks_per_sm.argtypes = [i, out]
     lib.bpx_flash_fwd_blocks_per_sm.restype = i
     lib.bpx_flash_bwd_blocks_per_sm.argtypes = [i, i, out]
     lib.bpx_flash_bwd_blocks_per_sm.restype = i
+    lib.bpx_flash_generic_blocks_per_sm.argtypes = [i, i, i, out]
+    lib.bpx_flash_generic_blocks_per_sm.restype = i
     lib.bpx_layer_norm_fwd.argtypes = [p] * 6 + [i, i, f, i, i, i, p]
     lib.bpx_layer_norm_fwd.restype = i
     lib.bpx_layer_norm_bwd.argtypes = [p] * 9 + [i] * 5 + [p]

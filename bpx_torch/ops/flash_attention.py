@@ -1,5 +1,6 @@
 """Flash attention, forward and backward: the CUDA kernels
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` and their plain versions.
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_generic.cu``
+and their plain versions.
 
 The counterpart is ``bpx/ops/pallas_attention.py::flash_attention`` with
 ``layout="bhtd"`` and its ``custom_vjp``: q is pre-scaled by
@@ -23,9 +24,19 @@ Masked entries get P = 0, so a row with no visible key
 gets zero gradients although its forward attended uniformly: that is the
 JAX package's backward, not the true derivative.
 
-The kernels take head dims 25, 30, 50, 60, 64, 96, 128, 192 and 256.  A
-narrow head (25, 30: the mmtrvat presets' 300-wide streams over 12 or 10
-heads) runs the same kernels at 32 columns with the padding zeroed in
+Which kernels a call takes (``kernel_route``, a function of the dtype and
+the head dim D alone): bf16 at the tabled head dims 25, 30, 50, 60, 64, 96,
+128, 192 and 256 the tabled kernels (``flash_fwd.cu``, ``flash_bwd.cu``,
+below); bf16 at any other D from 1 to 256, and fp32 at every D from 1 to
+256, the generic kernels (``flash_generic.cu``: the forward, then the dQ
+kernel with delta and its dependent dK/dV kernel, on the CUDA cores in fp32,
+at any strides whose last dim is contiguous); any other dtype raises
+TypeError, a D above 256 NotImplementedError.  Nothing falls back: a CUDA
+tensor launches its route's kernels or raises.
+
+At the tabled head dims, a narrow head (25, 30: the mmtrvat presets'
+300-wide streams over 12 or 10 heads) runs the same kernels at 32 columns
+with the padding zeroed in
 shared memory, and 50 and 60 (mmtrvpa's 600-wide memory encoders over 12
 or 10 heads) run at 64 columns so (the head_dim-128 kernels, forward and
 backward, at that width: ``runs_wide`` in ``csrc/flash_common.cuh``):
@@ -98,12 +109,42 @@ MASK_FILL = -1e30
 KERNEL_ALIGN = {25: 1, 30: 2, 50: 2, 60: 4, 64: 8, 96: 8, 128: 8, 192: 8,
                 256: 8}
 KERNEL_HEAD_DIMS = tuple(KERNEL_ALIGN)
+#: the widest head dim any flash kernel takes (the generic kernels'; the JAX
+#: package's take any)
+MAX_HEAD_DIM = 256
+#: the dtypes the kernels take, by the code the generic entry points read
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+#: the generic kernels' builds: each runs a head dim D in the first of these
+#: widths that holds it (``with_width`` in ``csrc/flash_generic.cu``)
+GENERIC_WIDTHS = (32, 64, 128, 256)
 #: the TPU kernels' single-pass key range and key block (``tk_p`` below)
 SINGLE_PASS_MAX_K = 1024
 BLOCK_K = 128
 #: seeds one launch takes (``kMaxSeedGroups`` in ``csrc/flash_common.cuh``),
 #: passed by value in the kernels' parameters
 MAX_SEED_GROUPS = 16
+
+
+def kernel_route(dtype, D: int) -> str:
+    """The kernels a call at ``dtype`` and head dim ``D`` takes on the card:
+    "tabled" (``flash_fwd.cu`` / ``flash_bwd.cu``) for bf16 at a head dim of
+    ``KERNEL_ALIGN``, "generic" (``flash_generic.cu``) for bf16 at any other
+    D from 1 to 256 and for fp32 at any D from 1 to 256.  TypeError for any
+    other dtype, NotImplementedError for a D the kernels do not take."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"flash kernels take bfloat16 or float32, got "
+                        f"{dtype}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash kernels take a head_dim of 1 to {MAX_HEAD_DIM}, got {D}")
+    if dtype == torch.bfloat16 and D in KERNEL_ALIGN:
+        return "tabled"
+    return "generic"
+
+
+def generic_width(D: int) -> int:
+    """The width of the generic kernels' build that runs head dim D."""
+    return next(w for w in GENERIC_WIDTHS if D <= w)
 
 
 def effective_band(tq: int, tk: int, masked: bool):
@@ -479,11 +520,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain versions for CPU tensors, in the forward and (through autograd,
     ``bpx_torch::flash_bwd``) in the backward.  Autograd records the op only
     when grad is enabled and q, k or v requires it; otherwise nothing is
-    saved.  The kernels take bf16 with a head_dim of ``KERNEL_HEAD_DIMS``
-    and any strides whose last dim is contiguous; the output is a (B, H, Tq, D)
-    view of (B, Tq, H, D) memory, so ``out.transpose(1, 2).reshape(B, Tq,
-    H * D)`` is free.  ``dropout_rate > 0`` needs ``dropout_seed``, a uint32
-    Python int, or a list of n, one per group of B / n batch rows (under
+    saved.  The kernels take bf16 and fp32 at any head_dim from 1 to 256
+    (``kernel_route``: bf16 at ``KERNEL_HEAD_DIMS`` the tabled kernels, the
+    rest the generic ones) and any strides whose last dim is contiguous
+    (the tabled ones copy a view whose strides miss their head dim's
+    alignment); the output is a (B, H, Tq, D) view of (B, Tq, H, D)
+    memory, so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
+    ``dropout_rate > 0`` needs ``dropout_seed``, a uint32 Python int, or a
+    list of n, one per group of B / n batch rows (under
     ``torch.func.vmap``: one per slice of the vmapped axis).  ``place``
     (b_off, h_off, H_g[, stride]) places the call's blocks in a global call
     for the dropout hash (the module docstring); None: unplaced.
@@ -501,8 +545,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, masked=True,
                              dropout_seed=None, place=None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``dout`` (the op ``bpx_torch::flash_bwd``); the kernels (dQ with
-    delta, then dK/dV; at head_dim 64 and 96 delta, dK/dV, dQ) for CUDA
-    tensors, the plain version for CPU."""
+    delta, then dK/dV; on the tabled route at head_dim 64 and 96 delta,
+    dK/dV, dQ) for CUDA tensors, the plain version for CPU."""
     place = check_place(place, q.shape[1])
     return _FLASH_BWD(q, k, v, out, lse, dout, kv_lens, masked,
                       float(dropout_rate), seed_list(dropout_seed),
@@ -517,8 +561,9 @@ def attention_delta_reference(dout: torch.Tensor,
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors (the op
-    ``bpx_torch::flash_delta``): the head_dim 64/96 backward's first kernel
-    on its own (at every head dim) for CUDA tensors, the plain version for
+    ``bpx_torch::flash_delta``) for CUDA tensors: the tabled head_dim 64/96
+    backward's first kernel on its own (bf16 at a tabled head dim), else
+    the generic delta kernel (``kernel_route``); the plain version for
     CPU."""
     return _FLASH_DELTA(dout, out)
 
@@ -527,54 +572,82 @@ def _launch_delta(dout, out):
     B, H, T, D = out.shape
     if dout.shape != out.shape:
         raise ValueError(f"dO {tuple(dout.shape)} and O {tuple(out.shape)}")
-    _check_head_dim(D)
-    dout, out = (_kernel_ready(n, t, dout.device)
+    route = _route(out, dout)
+    dout, out = (_kernel_ready(n, t, dout.device, route)
                  for n, t in (("dO", dout), ("O", out)))
     delta = torch.empty(B, H, T, dtype=torch.float32, device=out.device)
     if delta.numel() == 0:
         return delta
-    err = _cuda.library().bpx_flash_delta(
-        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
-        *out.stride()[:3], *dout.stride()[:3],
-        torch.cuda.current_stream(out.device).cuda_stream)
+    lib = _cuda.library()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    if route == "tabled":
+        err = lib.bpx_flash_delta(
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
+            *out.stride()[:3], *dout.stride()[:3], stream)
+    else:
+        err = lib.bpx_flash_generic_delta(
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
+            KERNEL_DTYPES[out.dtype], *out.stride()[:3], *dout.stride()[:3],
+            stream)
     _cuda.check(err, "flash_delta")
     attention_delta.launches += 1
+    attention_delta.generic_launches += route == "generic"
     return delta
 
 
-def blocks_per_sm(head_dim: int) -> dict:
-    """Blocks of the forward, dK/dV and dQ kernels at ``head_dim`` that
-    one SM of the current card holds (CUDA's occupancy calculator)."""
-    _check_head_dim(head_dim)
+def blocks_per_sm(head_dim: int, dtype=torch.bfloat16) -> dict:
+    """Blocks of the forward, dK/dV and dQ kernels that one SM of the
+    current card holds (CUDA's occupancy calculator), of the route
+    ``kernel_route`` gives ``dtype`` at ``head_dim``."""
+    route = kernel_route(dtype, head_dim)
     lib = _cuda.library()
+    if route == "tabled":
+        calls = (("forward", lambda n: lib.bpx_flash_fwd_blocks_per_sm(
+                     head_dim, n)),
+                 ("dK/dV", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
+                     head_dim, 0, n)),
+                 ("dQ", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
+                     head_dim, 1, n)))
+    else:
+        code = KERNEL_DTYPES[dtype]
+        calls = tuple(
+            (name, lambda n, kernel=kernel:
+             lib.bpx_flash_generic_blocks_per_sm(head_dim, code, kernel, n))
+            for kernel, name in enumerate(("forward", "dK/dV", "dQ")))
     got = {}
-    for name, call in (
-            ("forward", lambda n: lib.bpx_flash_fwd_blocks_per_sm(
-                head_dim, n)),
-            ("dK/dV", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
-                head_dim, 0, n)),
-            ("dQ", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
-                head_dim, 1, n))):
+    for name, call in calls:
         n = ctypes.c_int(0)
         _cuda.check(call(ctypes.byref(n)), f"{name} occupancy")
         got[name] = n.value
     return got
 
 
-def _check_head_dim(D):
-    if D not in KERNEL_ALIGN:
-        raise NotImplementedError(
-            f"flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, got {D}")
+def _route(q, *others):
+    """The route of a call on q (``kernel_route``); every other tensor of
+    the call must share q's dtype."""
+    for t in others:
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash kernels take one dtype a call, got "
+                            f"{q.dtype} and {t.dtype}")
+    return kernel_route(q.dtype, q.shape[3])
 
 
-def _kernel_ready(name, t, device):
-    """``t`` as the kernels take it: on ``device``, bf16, the last dim
-    contiguous, and strides and data pointer multiples of the head dim's
-    alignment (``KERNEL_ALIGN``); a copy only where they are not.  A
-    narrow head's strided views (D = 25 at any stride, D = 30 and 50 at
-    even ones, D = 60 at multiples of 4) go to the kernel as they are."""
+def _kernel_ready(name, t, device, route=None):
+    """``t`` as the kernels of ``route`` (default: ``kernel_route`` of its
+    dtype and head dim) take it, on ``device``; a copy only where they
+    need one.  The generic kernels take any strides whose last dim is
+    contiguous.  The tabled ones take bf16 whose strides and data pointer
+    are multiples of the head dim's alignment (``KERNEL_ALIGN``): a narrow
+    head's strided views (D = 25 at any stride, D = 30 and 50 at even
+    ones, D = 60 at multiples of 4) go to them as they are."""
     if t.device != device:
         raise RuntimeError(f"{name} is on {t.device}, q on {device}")
+    if route is None:
+        route = kernel_route(t.dtype, t.shape[3])
+    if route == "generic":
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            t = t.contiguous()
+        return t
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes bfloat16, {name} is {t.dtype}")
     align = KERNEL_ALIGN[t.shape[3]]
@@ -612,11 +685,17 @@ def _dropout_args(rate, seed, tk, batch, heads=1, place=None):
             inv_keep(rate), padded_tk(tk), *placed)
 
 
+def _dims(route, D, dtype):
+    """The C entry points' head-dim arguments: D, and on the generic route
+    the dtype's code after it."""
+    return (D,) if route == "tabled" else (D, KERNEL_DTYPES[dtype])
+
+
 def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    _check_head_dim(D)
-    q, k, v = (_kernel_ready(n, t, q.device)
+    route = _route(q, k, v)
+    q, k, v = (_kernel_ready(n, t, q.device, route)
                for n, t in (("q", q), ("k", k), ("v", v)))
     masked, offset = effective_band(Tq, Tk, masked)
     kv_lens, kvl_ptr = _kv_lens_ptr(kv_lens, q.device)
@@ -624,15 +703,19 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    err = _cuda.library().bpx_flash_fwd(
+    lib = _cuda.library()
+    entry = lib.bpx_flash_fwd if route == "tabled" else \
+        lib.bpx_flash_generic_fwd
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), kvl_ptr, B, H, Tq, Tk, D,
+        lse.data_ptr(), kvl_ptr, B, H, Tq, Tk, *_dims(route, D, q.dtype),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(masked), offset, *_dropout_args(rate, seeds, Tk, B, H, place),
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_fwd")
     flash_attention.launches += 1
     flash_attention.dropout_launches += int(rate > 0.0)
+    flash_attention.generic_launches += route == "generic"
     return out, lse
 
 
@@ -640,8 +723,8 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
                 seeds=None, place=None):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    _check_head_dim(D)
-    q, k, v, dout, out = (_kernel_ready(n, t, q.device) for n, t in
+    route = _route(q, k, v, dout, out)
+    q, k, v, dout, out = (_kernel_ready(n, t, q.device, route) for n, t in
                           (("q", q), ("k", k), ("v", v), ("dO", dout),
                            ("O", out)))
     masked, offset = effective_band(Tq, Tk, masked)
@@ -654,25 +737,35 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
         return tuple(g.zero_() for g in grads)
     strides = [s for t in (q, k, v, dout, out, dq, dk, dv)
                for s in t.stride()[:3]]
-    err = _cuda.library().bpx_flash_bwd(
+    lib = _cuda.library()
+    entry = lib.bpx_flash_bwd if route == "tabled" else \
+        lib.bpx_flash_generic_bwd
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         out.data_ptr(), lse.data_ptr(), delta.data_ptr(), kvl_ptr,
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
-        *strides, int(masked), offset,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk,
+        *_dims(route, D, q.dtype), *strides, int(masked), offset,
         *_dropout_args(rate, seeds, Tk, B, H, place),
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_bwd")
     flash_attention_backward.launches += 1
+    flash_attention_backward.generic_launches += route == "generic"
     return dq, dk, dv
 
 
-#: forward kernel launches (and those with dropout) since last set to 0
+#: forward kernel launches (and those with dropout, and those of the
+#: generic kernels) since last set to 0
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
+flash_attention.generic_launches = 0
 #: backward calls that launched their kernels (dQ with delta and dK/dV; or,
-#: at head_dim 64 and 96, delta, dK/dV, dQ)
+#: on the tabled route at head_dim 64 and 96, delta, dK/dV, dQ), and those
+#: of them on the generic route
 flash_attention_backward.launches = 0
-#: launches of the delta kernel on its own (not those inside the backward)
+flash_attention_backward.generic_launches = 0
+#: launches of the delta kernel on its own (not those inside the backward),
+#: and those of the generic one
 attention_delta.launches = 0
+attention_delta.generic_launches = 0
 #: tensors a vmap rule copied to fold the vmapped axis into the batch
 flash_attention.fold_copies = 0

@@ -20,8 +20,8 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    kernel / plain / library (``F.scaled_dot_product_attention``, with the
    backend that ran and the first kernel whose name told it; called with
    ``is_causal`` where the visible mask is exactly the causal triangle,
-   else with the mask; and ``F.layer_norm``) times (CUDA events, median of 20
-   groups of 10 warm runs), the bound (the larger of bytes / 3.35 TB/s and
+   else with the mask; and ``F.layer_norm``) times (CUDA events, median of 10
+   groups of 5 warm runs; ``Timer``), the bound (the larger of bytes / 3.35 TB/s and
    flops / 989 TFLOP/s), the share of the bound reached and the ratio to
    the library call; for LayerNorm also the device kernels one call runs
    and their times, from the profiler (exactly one, no memset), and its
@@ -269,6 +269,27 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    keys, BERT's 512 x 512, D 64, 16 heads a row, dropout 0.1 where the
    step draws it) against the plain versions both ways (the plain ones
    in placed chunks of 8 rows) and timed.
+22. the flash kernels' whole domain, last: the generic kernels
+   (``csrc/flash_generic.cu``; bf16 at an untabled head dim, fp32 at any,
+   ``kernel_route``).  (a) moviescope at 16 heads (head_dim 48 in the
+   encoders: 72 of the 84 flash launches per forward generic, BERT's 12
+   tabled) and (b) iemocap's ``mmtrvat`` in fp32 (all 108 generic, at 25
+   and 64; TF32 off, printed), each at full width: 2 requests at batch 8
+   (one ragged) against the plain path with both planted faults, the
+   launches exact by route; its generic classes both ways against the
+   plain versions and timed (fp32's LayerNorm classes too); one micro-step
+   against the plain path with the planted backward faults, launches by
+   route; 2 Adam steps at 8 x A = 2 with exact counters.  (c) the README's
+   synthetic quick start with ``--attention_impl pallas`` through ``python
+   -m bpx_torch.cli.train`` for one epoch: rc 0, every flash launch
+   generic.  (d) one class in each panel band (bf16 at head_dim 16, 32, 80,
+   112, 160, 224; fp32 at 48, 128, 256: the band with an offset, an empty
+   ``kv_lens`` row, rate 0.1, two seed groups, Tk 1100) both ways against
+   the plain versions, timed beside the bound (fp32's: three TF32 passes,
+   165 TFLOP/s) and SDPA; the exact masks at one seed, two seed groups and
+   placed; one planted fault per generic kernel (a build with
+   ``-DBPX_PLANT_GENERIC_FAULT=7``, made in the background meanwhile), each
+   past its limit while the sound build is within it.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -282,7 +303,7 @@ head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
 sweep, hybrid's and the grouped pairs' classes; phase 17's folded
 classes; phase 19's head_dim-192 and 1536-wide classes; phase 20's
 head_dim 50, 60 and 256 and 600-wide classes; phase 21's stress
-classes) and, last,
+classes; phase 22's generic forward, dQ and dK/dV kernels) and, last,
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package; without a CUDA device, or without ``bpx_torch`` beside it, it
 exits non-zero and prints no result.
@@ -309,7 +330,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# fp32's bound: three TF32 passes at 495 TFLOP/s, the fastest route on the
+# card that keeps fp32's precision (the generic kernels' own FFMA design
+# tops out at 67 TFLOP/s, the CUDA cores' fp32 rate)
+PEAK_FP32_FLOPS = 495e12 / 3
 FLASH_TOL = dict(atol=2e-2, rtol=2e-2)    # bf16 output
+# fp32 output and gradients (the generic kernels): the same function summed
+# in another order, as the CPU tests' 2e-5; on an H100 the sound kernels
+# read 3e-7 (O) and 2e-7 (gradients, relative)
+FLASH_TOL_FP32 = dict(atol=2e-5, rtol=2e-5)
+FLASH_GRAD_TOL_FP32 = 2e-5
 LSE_TOL = dict(atol=1e-3, rtol=1e-3)      # fp32 statistics
 LN_TOL = dict(atol=2e-2, rtol=2e-2)       # bf16 output
 LN_STAT_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 statistics
@@ -373,6 +403,8 @@ class ModelPath:
     grad_tol: float = GRAD_TOL
     fusion: str = "gmu"
     options: tuple = ()    # (field, value) pairs the model config takes
+    generic: int = 0       # of the flash launches per forward, those of
+    #                        the generic kernels (kernel_route)
 
     @property
     def name(self) -> str:
@@ -497,6 +529,12 @@ BF16_ACCUM_ERR = 2.0 ** -8
 BF16_ACCUM_SLACK = 1e-6
 
 
+#: host seconds the run spent in its measurement machinery (kernel, plain
+#: and library timings; profiler windows, and how many; waits for the
+#: planted-fault builds), printed beside the phases' [time] lines
+SPENT = collections.Counter()
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -521,7 +559,13 @@ class Timer:
     the groups, between ``MIN_HOLD_S`` and ``MAX_HOLD_S`` (the sleep's
     cycles counted at ``CYCLES_PER_S``, above the card's boost clock, so
     the hold is never shorter).  Inputs stay warm in L2, as on the served
-    path, where each kernel reads what the op before it just wrote."""
+    path, where each kernel reads what the op before it just wrote.
+
+    The defaults: 10 groups of 5 calls after 3 warm-up calls (20 groups
+    of 10 after 5 before, ``EARLIER_TIMING``, whose holds and enqueues took
+    159 s of a 1053 s run on an H100).  ``phase_timing_check`` reads both
+    settings in turns at three kernels and prints how far their medians
+    differ."""
 
     MIN_HOLD_S, MAX_HOLD_S = 0.01, 0.2
     CYCLES_PER_S = 2.0e9
@@ -536,10 +580,10 @@ class Timer:
                                         2.0 * per_call_s * calls))
         return int(hold * self.CYCLES_PER_S)
 
-    def __call__(self, fn, reps: int = 20, inner: int = 10,
-                 warmup: int = 5) -> float:
+    def __call__(self, fn, reps: int = 10, inner: int = 5,
+                 warmup: int = 3) -> float:
         torch = self.torch
-        t = time.perf_counter()
+        t = t0 = time.perf_counter()
         for _ in range(warmup):
             fn()
         per_call = ((time.perf_counter() - t) / warmup if warmup
@@ -556,13 +600,49 @@ class Timer:
             end.record()
             events.append((start, end))
         torch.cuda.synchronize()
+        SPENT["timing_s"] += time.perf_counter() - t0
         return statistics.median(s.elapsed_time(e)
                                  for s, e in events) / inner
 
 
-def bound_ms(nbytes: float, flops: float):
+#: the earlier timings (Timer's arguments), read beside the defaults by
+#: ``phase_timing_check``
+EARLIER_TIMING = dict(reps=20, inner=10, warmup=5)
+
+
+def phase_timing_check(torch, timer, gen):
+    """The kernel rows' timing at ``Timer``'s defaults against
+    ``EARLIER_TIMING``, in turns (earlier, now, now, earlier), at
+    moviescope's D 96 flash forward and backward class and a 4096 x 768
+    LayerNorm: the two medians' ratio per kernel."""
+    from bpx_torch.ops import flash_attention as fa
+    from bpx_torch.ops.norm import layer_norm
+    q, k, v, _ = attention_inputs(torch, gen, BATCH, 8, 512, 512, 96, False)
+    out, lse = fa.flash_attention(q, k, v, True, return_lse=True)
+    x = torch.randn(4096, 768, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.rand(768, generator=gen, device="cuda") + 0.5
+    b = torch.randn(768, generator=gen, device="cuda")
+    calls = {"flash forward": lambda: fa.flash_attention(q, k, v, True),
+             "flash backward": lambda: fa._launch_bwd(
+                 q, k, v, out, lse, out, True, None),
+             "layer_norm": lambda: layer_norm(x, w, b, 1e-6,
+                                              torch.bfloat16)}
+    ratios = {}
+    for name, fn in calls.items():
+        earlier = [timer(fn, **EARLIER_TIMING)]
+        now = [timer(fn), timer(fn)]
+        earlier.append(timer(fn, **EARLIER_TIMING))
+        ratios[name] = statistics.median(now) / statistics.median(earlier)
+        print(f"[timing] {name}: {statistics.median(now):.4f} ms at the "
+              f"defaults, {statistics.median(earlier):.4f} ms at "
+              f"{EARLIER_TIMING} (ratio {ratios[name]:.4f})")
+    return ratios
+
+
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -590,6 +670,17 @@ def zero_launches() -> None:
               layer_norm_backward):
         c.launches = 0
     flash_attention.dropout_launches = 0
+    flash_attention.generic_launches = 0
+    flash_attention_backward.generic_launches = 0
+
+
+def read_generic() -> tuple:
+    """The generic kernels' share of the flash launches: (forward,
+    backward)."""
+    from bpx_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_backward)
+    return (flash_attention.generic_launches,
+            flash_attention_backward.generic_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -624,27 +715,31 @@ def recording():
     dropout) inside the context: a dict of Counters keyed by "flash",
     "flash_bwd", "ln", "ln_bwd" and "dropout"; and under "copies", by head
     dim, the tensors (q, k, v, dO, O) the flash wrappers had to copy
-    before a launch."""
+    before a launch; under "routes", the flash launches by (kind, route:
+    ``kernel_route``'s "tabled" or "generic")."""
     from bpx_torch.ops import dropout, flash_attention as fa, norm
     seen = {k: collections.Counter()
             for k in ("flash", "flash_bwd", "ln", "ln_bwd", "dropout",
-                      "copies")}
+                      "copies", "routes")}
     kernel_ready = fa._kernel_ready
 
-    def ready(name, t, device):
-        got = kernel_ready(name, t, device)
+    def ready(name, t, device, *route):
+        got = kernel_ready(name, t, device, *route)
         seen["copies"][t.shape[3]] += got is not t
         return got
 
     def flash(launch, q, k, v, masked, kv_lens, rate=0.0, seed=None,
               place=None):
         seen["flash"][flash_class(q, k, masked, kv_lens, rate, seed)] += 1
+        seen["routes"][("flash", fa.kernel_route(q.dtype, q.shape[3]))] += 1
         return launch(q, k, v, masked, kv_lens, rate, seed, place)
 
     def flash_bwd(launch, q, k, v, dout, lse, out, masked, kv_lens,
                   rate=0.0, seed=None, place=None):
         seen["flash_bwd"][flash_class(q, k, masked, kv_lens, rate,
                                       seed)] += 1
+        seen["routes"][("flash_bwd",
+                        fa.kernel_route(q.dtype, q.shape[3]))] += 1
         return launch(q, k, v, dout, lse, out, masked, kv_lens, rate, seed,
                       place)
 
@@ -718,10 +813,18 @@ def phase_build():
             spill = line.strip()
         elif "registers" in line:
             print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}")
-    from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
+    import torch
+    from bpx_torch.ops.flash_attention import (GENERIC_WIDTHS,
+                                               KERNEL_HEAD_DIMS,
+                                               blocks_per_sm)
     for d in KERNEL_HEAD_DIMS:
         print(f"[build] blocks per SM at head_dim {d} (occupancy "
               f"calculator): {blocks_per_sm(d)}")
+    for dt in (torch.bfloat16, torch.float32):
+        for w in GENERIC_WIDTHS:
+            print(f"[build] blocks per SM of the generic kernels, {dt} at "
+                  f"head_dim {w - 1} (width {w}): "
+                  f"{blocks_per_sm(w - 1, dt)}")
 
 
 def kernel_name(mangled: str) -> str:
@@ -736,8 +839,13 @@ def kernel_name(mangled: str) -> str:
                 args = re.match(r"I(.*?)E+v", mangled[m.end() + n:])
                 if args is None:
                     return ident
-                # int and bool template arguments: Li64E, Lb0E
-                targs = re.sub(r"Li(-?[0-9]+)E?", r"\1, ", args.group(1))
+                # type, int and bool template arguments: f,
+                # 13__nv_bfloat16, Li64E, Lb0E
+                targs = re.sub(r"^(f|13__nv_bfloat16)",
+                               lambda t: ("float" if t[1] == "f"
+                                          else t[1][2:]) + ", ",
+                               args.group(1))
+                targs = re.sub(r"Li(-?[0-9]+)E?", r"\1, ", targs)
                 targs = re.sub(r"Lb([01])E?",
                                lambda b: ("false", "true")[int(b[1])] + ", ",
                                targs)
@@ -745,11 +853,13 @@ def kernel_name(mangled: str) -> str:
     return mangled
 
 
-def attention_inputs(torch, gen, B, H, Tq, Tk, D, padded):
+def attention_inputs(torch, gen, B, H, Tq, Tk, D, padded, dtype=None,
+                     empty_row=False):
     """q/k/v as the model hands them over: strided (B, H, T, D) views of
-    (B, T, S, H, D) projection outputs, q pre-scaled; per-sample key
-    lengths in [64, Tk] (one full row) when ``padded``."""
-    bf = torch.bfloat16
+    (B, T, S, H, D) projection outputs in ``dtype`` (bf16), q pre-scaled;
+    per-sample key lengths in [64, Tk] (one full row) when ``padded``, and
+    with ``empty_row`` the last row's 0 (no visible key)."""
+    bf = dtype or torch.bfloat16
     qbuf = torch.randn(B, Tq, 1, H, D, generator=gen, device="cuda")
     kvbuf = torch.randn(B, Tk, 2, H, D, generator=gen, device="cuda")
     q = (qbuf[:, :, 0] * D ** -0.5).to(bf).transpose(1, 2)
@@ -759,8 +869,18 @@ def attention_inputs(torch, gen, B, H, Tq, Tk, D, padded):
     if padded:
         lens = torch.randint(64, Tk + 1, (B,), generator=gen, device="cuda")
         lens[0] = Tk
+        if empty_row:
+            lens[-1] = 0
         kv_lens = lens.to(torch.int32)
     return q, k, v, kv_lens
+
+
+def dtype_limits(torch, dtype):
+    """(element bytes, peak flop rate, forward tolerance, gradient
+    tolerance) of the flash rows at ``dtype`` (None: bf16)."""
+    if dtype == torch.float32:
+        return 4, PEAK_FP32_FLOPS, FLASH_TOL_FP32, FLASH_GRAD_TOL_FP32
+    return 2, PEAK_BF16_FLOPS, FLASH_TOL, FLASH_GRAD_TOL
 
 
 def by_rows(torch, fn, B, H, rows=None):
@@ -806,22 +926,26 @@ PLAIN_TIMING = dict(reps=5, inner=2, warmup=1)
 
 
 def phase_flash(torch, timer, classes, gen, label="flash",
-                plain_rows=None, plain_timing=None):
+                plain_rows=None, plain_timing=None, dtype=None,
+                empty_row=False):
     """The forward kernel against its plain version at each class (with
     the class's dropout rate and seed groups, one fixed seed a group).
     ``plain_rows``: the plain version in placed chunks of that many batch
     rows (``by_rows``), timed with ``plain_timing``'s Timer arguments
-    (default ``PLAIN_TIMING``)."""
+    (default ``PLAIN_TIMING``).  ``dtype``: the inputs' (bf16), with its
+    tolerance and bound (``dtype_limits``); ``empty_row``: a class with
+    ``kv_lens`` gives its last row none."""
     import torch.nn.functional as F
     from bpx_torch.ops.flash_attention import (effective_band,
                                                flash_attention,
                                                flash_attention_reference)
     rows = []
     seed = 0x9E3779B9
+    elem, peak, tol, _ = dtype_limits(torch, dtype)
     for (B, H, Tq, Tk, D, masked, padded, groups, rate), count in sorted(
             classes.items()):
         q, k, v, kv_lens = attention_inputs(torch, gen, B, H, Tq, Tk, D,
-                                            padded)
+                                            padded, dtype, empty_row)
         drop = (rate, group_seeds(seed, groups) if rate else None)
         out, lse = flash_attention(q, k, v, masked, kv_lens, *drop,
                                    return_lse=True)
@@ -837,7 +961,7 @@ def phase_flash(torch, timer, classes, gen, label="flash",
         check(torch.equal(out, again),
               f"flash forward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         err_o, err_l = max_err(out, ref), max_err(lse, ref_lse)
-        check(torch.allclose(out.float(), ref.float(), **FLASH_TOL),
+        check(torch.allclose(out.float(), ref.float(), **tol),
               f"flash O differs at {(B, H, Tq, Tk, D, rate)}: max err "
               f"{err_o}")
         check(torch.allclose(lse, ref_lse, **LSE_TOL),
@@ -846,8 +970,8 @@ def phase_flash(torch, timer, classes, gen, label="flash",
         visible, keys, ok = attention_work(torch, B, H, Tq, Tk, masked,
                                            kv_lens)
         flops = 4.0 * D * visible
-        nbytes = 2 * (2 * B * H * Tq * D + 2 * keys * D) + 4 * B * H * Tq
-        b_ms, b_by = bound_ms(nbytes, flops)
+        nbytes = elem * (2 * B * H * Tq * D + 2 * keys * D) + 4 * B * H * Tq
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
         t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens, *drop))
         t_p = timer(plain, **(plain_timing or PLAIN_TIMING))
         mask_args = sdpa_mask(torch, ok)
@@ -855,13 +979,15 @@ def phase_flash(torch, timer, classes, gen, label="flash",
             q, k, v, dropout_p=rate, scale=1.0, **mask_args)
         t_l = timer(sdpa)
         backend, first = sdpa_backend(torch, sdpa)
-        kernel = fwd_kernel(D, groups)
+        kernel = fwd_kernel(D, groups, q.dtype)
         takes_kernel(torch, lambda: flash_attention(q, k, v, masked, kv_lens,
                                                     *drop),
                      kernel, (B, H, Tq, Tk, D, rate))
         eff_masked = effective_band(Tq, Tk, masked)[0]
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, seed_groups=groups,
+                         dtype=str(q.dtype).split(".")[-1],
+                         empty_row=bool(padded and empty_row),
                          per_forward=count, max_abs_err=err_o, lse_max_abs_err=err_l, ms=t_k,
                          plain_ms=t_p, library_ms=t_l,
                          library_backend=backend, library_kernel=first,
@@ -869,8 +995,8 @@ def phase_flash(torch, timer, classes, gen, label="flash",
                          bound_ms=b_ms, bound_by=b_by))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} seed groups {groups} "
-              f"x{count}: {kernel}; err O "
-              f"{err_o:.3g} (tol {FLASH_TOL}) lse {err_l:.3g} (tol "
+              f"{q.dtype} x{count}: {kernel}; err O "
+              f"{err_o:.3g} (tol {tol}) lse {err_l:.3g} (tol "
               f"{LSE_TOL}); "
               + timing_text(t_k, t_p, t_l, b_ms, b_by, f"sdpa ({backend})")
               + f"; sdpa {mask_text(mask_args)}, kernel {first}")
@@ -888,9 +1014,30 @@ def build_args(D, groups) -> str:
     return f"<{D}, {'true' if groups > 1 else 'false'}>"
 
 
-def fwd_kernel(D, groups=1) -> str:
-    """The forward's kernel at head_dim D for ``groups`` seed groups, by
-    the name the profiler reports."""
+def generic_args(D, groups, dtype) -> str:
+    """A generic kernel's template arguments as the profiler names them:
+    the element type, the build's width and whether it is the build for
+    several seed groups."""
+    import torch
+    from bpx_torch.ops.flash_attention import generic_width
+    name = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    return (f"<{name}, {generic_width(D)}, "
+            f"{'true' if groups > 1 else 'false'}>")
+
+
+def is_generic(D, dtype) -> bool:
+    """Whether a call at head_dim D and ``dtype`` (None: bf16) takes the
+    generic kernels (``kernel_route``)."""
+    import torch
+    from bpx_torch.ops.flash_attention import kernel_route
+    return kernel_route(dtype or torch.bfloat16, D) == "generic"
+
+
+def fwd_kernel(D, groups=1, dtype=None) -> str:
+    """The forward's kernel at head_dim D for ``groups`` seed groups and
+    ``dtype`` (None: bf16), by the name the profiler reports."""
+    if is_generic(D, dtype):
+        return "flash_generic_fwd_kernel" + generic_args(D, groups, dtype)
     if D < 32:
         name = "flash_fwd_narrow_kernel"
     elif D in (50, 60, 128):
@@ -1018,13 +1165,14 @@ def grad_err(got, want) -> float:
     return max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
 
 
-def flash_bwd_work(torch, B, H, Tq, Tk, D, masked, kv_lens):
+def flash_bwd_work(torch, B, H, Tq, Tk, D, masked, kv_lens, elem=2):
     """(bytes, flops, SDPA's mask) of the whole backward: q, k, v, dO, O and
-    lse read and dq, dk, dv written once; delta's 2 D and the five
-    products' 10 D flops per visible score entry."""
+    lse read and dq, dk, dv written once (``elem`` bytes an element);
+    delta's 2 D and the five products' 10 D flops per visible score
+    entry."""
     visible, keys, ok = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
     flops = 10.0 * D * visible + 2.0 * D * B * H * Tq
-    nbytes = (2 * D * (4 * B * H * Tq + 2 * keys + 2 * B * H * Tk)
+    nbytes = (elem * D * (4 * B * H * Tq + 2 * keys + 2 * B * H * Tk)
               + 4 * B * H * Tq)
     return nbytes, flops, ok
 
@@ -1040,13 +1188,18 @@ def sdpa_backward(torch, q, k, v, mask_args, rate, dout):
                                        retain_graph=True)
 
 
-def bwd_kernels(D, groups=1):
-    """The backward's kernels at head_dim D for ``groups`` seed groups, by
-    the names the profiler reports, as (dQ, dK/dV, delta or None): at every
-    head dim but 64 and 96 the dQ kernel computes delta itself, so the
-    backward is two launches (the narrow kernels at 25 and 30, the wide ones
-    at 50, 60 and 128, the key- and row-split ones at 192 and 256); at 64
-    and 96 the delta kernel, then dK/dV and dQ."""
+def bwd_kernels(D, groups=1, dtype=None):
+    """The backward's kernels at head_dim D for ``groups`` seed groups and
+    ``dtype`` (None: bf16), by the names the profiler reports, as (dQ,
+    dK/dV, delta or None): on the generic route and at every tabled head
+    dim but 64 and 96 the dQ kernel computes delta itself, so the backward
+    is two launches (the narrow kernels at 25 and 30, the wide ones at 50,
+    60 and 128, the key- and row-split ones at 192 and 256); at 64 and 96
+    the delta kernel, then dK/dV and dQ."""
+    if is_generic(D, dtype):
+        args = generic_args(D, groups, dtype)
+        return ("flash_generic_dq_kernel" + args,
+                "flash_generic_dkdv_kernel" + args, None)
     args = build_args(D, groups)
     if D < 32:
         return ("flash_bwd_narrow_dq_kernel" + args,
@@ -1067,36 +1220,38 @@ def kernel_names(kernels) -> list:
     return [k for k in kernels if k]
 
 
-def backward_split(torch, fn, D, groups=1):
+def backward_split(torch, fn, D, groups=1, dtype=None):
     """{kernel: device ms per call} of one backward call ``fn`` at head
-    dim D and ``groups`` seed groups, its kernels by their profiler names
-    (``bwd_kernels``)."""
-    return kernel_ms(torch, fn, kernel_names(bwd_kernels(D, groups)))
+    dim D, ``groups`` seed groups and ``dtype``, its kernels by their
+    profiler names (``bwd_kernels``)."""
+    return kernel_ms(torch, fn, kernel_names(bwd_kernels(D, groups, dtype)))
 
 
 def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd",
-                    plain_rows=None, plain_timing=None):
+                    plain_rows=None, plain_timing=None, dtype=None,
+                    empty_row=False):
     """The backward kernels (``bwd_kernels``: at head_dim 64 and 96 delta,
     dK/dV, dQ; at the others the dQ kernel with delta, then dK/dV) against
     the plain backward at each class of the recorded micro-step (its
     dropout rate and seed groups, one fixed seed a group), from the kernel
     forward's lse; the delta kernel on its own against its plain version.
     The profiler must see each of the class's kernels, of the build for
-    its seed groups.  ``plain_rows``, ``plain_timing``: as
-    :func:`phase_flash`'s."""
+    its seed groups.  ``plain_rows``, ``plain_timing``, ``dtype``,
+    ``empty_row``: as :func:`phase_flash`'s."""
     from bpx_torch.ops import flash_attention as fa
     rows = []
     seed = 0x7F4A7C15
+    elem, peak, _, grad_tol = dtype_limits(torch, dtype)
     for (B, H, Tq, Tk, D, masked, padded, groups, rate), count in sorted(
             classes.items()):
         q, k, v, kv_lens = attention_inputs(torch, gen, B, H, Tq, Tk, D,
-                                            padded)
+                                            padded, dtype, empty_row)
         drop = (rate, group_seeds(seed, groups) if rate else None)
         out, lse = fa.flash_attention(q, k, v, masked, kv_lens, *drop,
                                       return_lse=True)
         # dO as the model hands it over: a (B, H, T, D) view of (B, T, H, D)
         dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
-            torch.bfloat16).transpose(1, 2)
+            q.dtype).transpose(1, 2)
         delta = fa.attention_delta(dout, out)
         want_delta = fa.attention_delta_reference(dout, out)
         got = fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, *drop)
@@ -1114,13 +1269,13 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd",
         check(torch.allclose(delta, want_delta, **DELTA_TOL),
               f"flash delta differs at {(B, H, Tq, D)}: max err {err_d}")
         errs = [grad_err(g, w) for g, w in zip(got, want)]
-        check(max(errs) <= FLASH_GRAD_TOL,
+        check(max(errs) <= grad_tol,
               f"flash backward differs at {(B, H, Tq, Tk, D, rate)}: "
               f"dq/dk/dv relative errors {errs}")
 
         nbytes, flops, ok = flash_bwd_work(torch, B, H, Tq, Tk, D, masked,
-                                           kv_lens)
-        b_ms, b_by = bound_ms(nbytes, flops)
+                                           kv_lens, elem)
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
         t_k = timer(lambda: fa._launch_bwd(q, k, v, dout, lse, out, masked,
                                            kv_lens, *drop))
         t_p = timer(plain, **(plain_timing or PLAIN_TIMING))
@@ -1129,20 +1284,25 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd",
         t_l = timer(sdpa)
         backend, first = sdpa_backend(torch, sdpa)
         split = backward_split(torch, lambda: fa._launch_bwd(
-            q, k, v, dout, lse, out, masked, kv_lens, *drop), D, groups)
+            q, k, v, dout, lse, out, masked, kv_lens, *drop), D, groups,
+            q.dtype)
         check(all(split.values()),
               f"flash backward at {(B, H, Tq, Tk, D, rate)}, {groups} seed "
               f"groups: the profiler did not see each of {sorted(split)}")
-        dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens)
+        dq_b, dkdv_b = split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens,
+                                    q.dtype)
         again = fa._launch_bwd(q, k, v, dout, lse, out, masked, kv_lens,
                                *drop)
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"flash backward reruns differ at {(B, H, Tq, Tk, D, rate)}")
         eff_masked = fa.effective_band(Tq, Tk, masked)[0]
-        launches = ("dQ (with delta) + dK/dV" if bwd_kernels(D)[2] is None
+        launches = ("dQ (with delta) + dK/dV"
+                    if bwd_kernels(D, 1, q.dtype)[2] is None
                     else "delta + dK/dV + dQ")
         rows.append(dict(shape=[B * H, Tq, Tk, D], masked=eff_masked,
                          kv_lens=padded, rate=rate, seed_groups=groups,
+                         dtype=str(q.dtype).split(".")[-1],
+                         empty_row=bool(padded and empty_row),
                          per_forward=count,
                          max_abs_err=max(max_err(g, w)
                                          for g, w in zip(got, want)),
@@ -1151,11 +1311,12 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd",
                          library_backend=backend, library_kernel=first,
                          library_mask=mask_text(mask_args),
                          bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split,
-                         dq_bound_ms=dq_b[0], dkdv_bound_ms=dkdv_b[0]))
+                         dq_bound_ms=dq_b[0], dkdv_bound_ms=dkdv_b[0],
+                         dq_bound_by=dq_b[1], dkdv_bound_by=dkdv_b[1]))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} seed groups {groups} "
-              f"x{count}/micro-step: "
-              f"dq/dk/dv rel err {max(errs):.3g} (tol {FLASH_GRAD_TOL}), "
+              f"{q.dtype} x{count}/micro-step: "
+              f"dq/dk/dv rel err {max(errs):.3g} (tol {grad_tol}), "
               f"delta err {err_d:.3g} (tol {DELTA_TOL}), reruns bitwise "
               f"equal; {launches} "
               + timing_text(t_k, t_p, t_l, b_ms, b_by,
@@ -1308,7 +1469,7 @@ def kernel_mask(torch, q, k, rate, seed, place=None):
     whether every O equalled the plain version's."""
     from bpx_torch.ops import flash_attention as fa
     B, H, T, D = q.shape
-    bf = torch.bfloat16
+    bf = q.dtype
     fwd = torch.zeros(B, H, T, T, dtype=torch.bool, device="cuda")
     bwd = torch.zeros_like(fwd)
     j = torch.arange(T, device="cuda")
@@ -1331,25 +1492,28 @@ def kernel_mask(torch, q, k, rate, seed, place=None):
     return fwd, bwd, same
 
 
-def phase_mask_check(torch, gen, B, H, T, D):
+def phase_mask_check(torch, gen, B, H, T, D, dtype=None, place=None):
     """Exact mask check: q = 0 makes every probability 1/T, so with V_r[j,
     c] = [j == D r + c] column c of O is the keep bit of key D r + c times
     bf16(inv_keep)/T, and with dO = V_r row j of dV holds the bits of query
     D r + c at key j; ceil(T / D) rounds (one, V = I, when D = T) cover
     every (query, key), every key visible.  Compared with the plain
     version's mask for equality (a tolerance on O would not see a few wrong
-    bits), and O with the plain version's O."""
+    bits), and O with the plain version's O.  ``dtype``: the inputs'
+    (bf16); ``place``: the call's block placement, its bits then the
+    global call's at its blocks."""
     from bpx_torch.ops import flash_attention as fa
     rate, seed = 0.1, 0xDEADBEEF
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     q = torch.zeros(B, H, T, D, device="cuda", dtype=bf)
     k = torch.randn(B, H, T, D, generator=gen, device="cuda").to(bf)
-    fwd, bwd, same = kernel_mask(torch, q, k, rate, seed)
-    keep = fa.keep_mask(seed, B, H, T, T, rate, "cuda")
+    fwd, bwd, same = kernel_mask(torch, q, k, rate, seed, place)
+    keep = fa.keep_mask(seed, B, H, T, T, rate, "cuda", place)
     torch.cuda.synchronize()
     bad_f = int((fwd != keep).sum())
     bad_b = int((bwd != keep).sum())
-    print(f"[mask] D={D} at ({B}, {H}, {T}, {T}), {(T + D - 1) // D} "
+    print(f"[mask] D={D} {bf} at ({B}, {H}, {T}, {T}), placed {place}, "
+          f"{(T + D - 1) // D} "
           f"round(s): forward mask bits differing from the plain version's: "
           f"{bad_f} of {keep.numel()}; backward (dV): {bad_b}; kept "
           f"{keep.float().mean().item():.4f} (1 - rate = {1 - rate})")
@@ -1404,10 +1568,12 @@ def device_kernels(torch, fn, n: int = 20):
     fullest), counts are rounded to whole activities per call (at least one
     for a kernel seen at all), and times taken over the events seen."""
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     best_total, got = -1, {}
     for _ in range(5):
+        SPENT["profiles"] += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -1424,6 +1590,7 @@ def device_kernels(torch, fn, n: int = 20):
         if seen and all(c % n == 0 for c, _ in seen.values()):
             got = seen
             break
+    SPENT["profiler_s"] += time.perf_counter() - t0
     per_call = {k: max(1, round(c / n)) for k, (c, _) in got.items()}
     return {k: (per_call[k], t / c * per_call[k])
             for k, (c, t) in got.items()}
@@ -1448,7 +1615,7 @@ def kernel_ms(torch, fn, names, n: int = 20):
     return got
 
 
-def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens):
+def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens, dtype=None):
     """Bounds of the dQ and the dK/dV kernel alone, each against the work
     it does: both read q, k, v, dO, lse and delta and compute S and dP (4 D
     flops per visible score entry); dQ then writes dq (2 D more), dK/dV
@@ -1456,15 +1623,16 @@ def split_bounds(torch, B, H, Tq, Tk, D, masked, kv_lens):
     (every head dim but 64 and 96) it reads O and writes delta instead of
     reading it (2 D flops a row more)."""
     visible, keys, _ = attention_work(torch, B, H, Tq, Tk, masked, kv_lens)
+    elem, peak, _, _ = dtype_limits(torch, dtype)
     bh = B * H
-    io = 2 * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
-    dq_io = io + 2 * D * bh * Tq
+    io = elem * D * (2 * bh * Tq + 2 * keys) + 8 * bh * Tq
+    dq_io = io + elem * D * bh * Tq
     dq_flops = 6.0 * D * visible
-    if bwd_kernels(D)[2] is None:
-        dq_io += 2 * D * bh * Tq
+    if bwd_kernels(D, 1, dtype)[2] is None:
+        dq_io += elem * D * bh * Tq
         dq_flops += 2.0 * D * bh * Tq
-    return (bound_ms(dq_io, dq_flops),
-            bound_ms(io + 4 * D * bh * Tk, 8.0 * D * visible))
+    return (bound_ms(dq_io, dq_flops, peak),
+            bound_ms(io + 2 * elem * D * bh * Tk, 8.0 * D * visible, peak))
 
 
 def phase_long_shape(torch, timer, gen, D=64):
@@ -1665,6 +1833,7 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     torch.cuda.synchronize()
 
     flash_attention.launches = 0
+    flash_attention.generic_launches = 0
     layer_norm.launches = 0
     outs, lat = [], []
     for batch in reqs:
@@ -1673,13 +1842,19 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
         lat.append((time.perf_counter() - t) * 1e3)
         outs.append((probs, gates))
     n_flash, n_ln = flash_attention.launches, layer_norm.launches
+    n_generic = flash_attention.generic_launches
 
     print(f"{tag} {n_req} requests: flash launches {n_flash} "
-          f"({n_flash / n_req:g}/forward), layer_norm launches {n_ln} "
+          f"({n_flash / n_req:g}/forward; {n_generic / n_req:g} of them on "
+          f"the generic kernels, {(n_flash - n_generic) / n_req:g} on the "
+          f"tabled ones), layer_norm launches {n_ln} "
           f"({n_ln / n_req:g}/forward)")
     check(n_flash == path.flash * n_req,
           f"flash kernel launched {n_flash} times, expected "
           f"{path.flash * n_req}")
+    check(n_generic == path.generic * n_req,
+          f"the generic flash kernels launched {n_generic} times, expected "
+          f"{path.generic * n_req}")
     check(n_ln == path.ln * n_req,
           f"layer_norm kernel launched {n_ln} times, expected "
           f"{path.ln * n_req}")
@@ -1746,8 +1921,8 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     if profile:
         profile_forward(torch, pred, reqs[0])
     return dict(latency_ms=lat, median_ms=med, flash_launches=n_flash,
-                ln_launches=n_ln, probs_err=perr, gates_err=gerr,
-                planted_faults=planted)
+                generic_launches=n_generic, ln_launches=n_ln,
+                probs_err=perr, gates_err=gerr, planted_faults=planted)
 
 
 def profile_forward(torch, pred, batch):
@@ -1969,6 +2144,14 @@ def phase_micro_step(torch, model, loss_fn, batches,
     check(n["flash"] == path.flash and n["flash_bwd"] == path.flash
           and n["ln"] == path.ln_train and n["ln_bwd"] == path.ln_train,
           "the recorded micro-step's launches differ from the structure's")
+    routes = {f"{kind} {route}": seen["routes"][(kind, route)]
+              for kind in ("flash", "flash_bwd")
+              for route in ("tabled", "generic")}
+    print(f"{tag} flash launches by route: {routes}")
+    check(routes["flash generic"] == path.generic
+          and routes["flash_bwd generic"] == path.generic,
+          f"the recorded micro-step's generic flash launches differ from "
+          f"the structure's {path.generic}")
     return seen, dict(loss_err=lerr, grad_err=errs[worst], worst=worst,
                       planted_faults=planted)
 
@@ -1994,11 +2177,16 @@ def phase_train(torch, model, step, batches, profile: bool,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         got = read_launches()
+        generic = read_generic()
         totals.update(got)
+        totals.update(generic=generic[0], generic_bwd=generic[1])
         losses.append(loss)
         print(f"{tag} step {i + 1}: loss {loss:.6f}, {times[-1]:.1f} ms; "
-              f"launches {got}")
+              f"launches {got}, generic flash forward / backward {generic}")
         check(got == want, f"step {i + 1} launches {got}, expected {want}")
+        check(generic == (path.generic * accum,) * 2,
+              f"step {i + 1} generic flash launches {generic}, expected "
+              f"{path.generic * accum} each way")
         check(math.isfinite(loss), f"step {i + 1} loss is {loss}")
         if i == 0:
             check_grads(torch, model)
@@ -3299,7 +3487,9 @@ def phase_multiseed(torch, np, timer, gen, card):
     # the planted faults
     faults = {}
     lib = _cuda.library()
+    t_wait = time.perf_counter()
     variants = {name: _cuda.load([flag]) for name, flag in SEED_FAULTS.items()}
+    SPENT["fault_build_wait_s"] += time.perf_counter() - t_wait
     for name, variant in variants.items():
         _cuda._lib = variant
         try:
@@ -4452,6 +4642,307 @@ def phase_mesh(torch, np, timer, gen):
     return dict(steps=steps, more=more, placed=placed, pairs=pairs,
                 stress=stress)
 
+# ---------------------------------------------------------------------------
+# phase 22: the flash kernels' whole domain (csrc/flash_generic.cu)
+# ---------------------------------------------------------------------------
+
+# moviescope at 16 heads: 768 / 16 = head_dim 48 in the crossmodal,
+# biprojection and memory encoders, on the generic kernels (72 of the 84
+# flash launches per forward); BERT stays 12 x 64 on the tabled ones.  Held
+# to moviescope's limits: on an H100 (700 W) the sound kernels read probs
+# 0.0112 / gates 0.0156 (limits 0.025 / 0.03), a flash kernel without its
+# band 0.0508 / 0.0527, one without kv_lens 0.318 / 0.459; the micro-step's
+# worst gradient group 0.189 (limit 0.5), a backward without its dropout
+# mask 2.15, one without its band non-finite
+MOVIESCOPE_16 = dataclasses.replace(
+    MOVIESCOPE, generic=FLASH_PER_FORWARD - 12, options=(("num_heads", 16),))
+# iemocap's mmtrvat in fp32 (compute_dtype "float32"): every flash call on
+# the generic kernels, 96 at head_dim 25 and BERT's 12 at 64.  The kernels
+# and the plain versions are both fp32 (no TF32 anywhere: the script turns
+# it off for matmuls and cuDNN), so they differ only in the order of fp32
+# sums.  On an H100 (700 W) the sound kernels read probs 1.16e-6 / gates
+# 1.37e-6, a flash kernel without its band 0.0721 / 0.127, one without
+# kv_lens 0.199 / 0.623; the micro-step's loss 3.55e-7 and worst gradient
+# group 5.2e-6, a backward without its dropout mask 0.319, one without its
+# band non-finite.  The limits sit at about the geometric mean of the sound
+# and the nearer faulty reading: probs 3e-4 (259x over, 240x under), gates
+# 4e-4 (292x, 318x), gradients 1e-3 (192x, 319x); the loss 1e-4 (282x over)
+IEMOCAP_FP32_PROBS_TOL = 3e-4
+IEMOCAP_FP32_GATES_TOL = 4e-4
+IEMOCAP_FP32_LOSS_TOL = 1e-4
+IEMOCAP_FP32_GRAD_TOL = 1e-3
+IEMOCAP_FP32 = dataclasses.replace(
+    IEMOCAP, generic=VAT_FLASH, probs_tol=IEMOCAP_FP32_PROBS_TOL,
+    gates_tol=IEMOCAP_FP32_GATES_TOL, loss_tol=IEMOCAP_FP32_LOSS_TOL,
+    grad_tol=IEMOCAP_FP32_GRAD_TOL, options=(("compute_dtype", "float32"),))
+#: each path, its flash launches per forward by head dim and its dtype
+DOMAIN_PATHS = ((MOVIESCOPE_16, {48: 72, 64: 12}, "bfloat16"),
+                (IEMOCAP_FP32, {25: 96, 64: 12}, "float32"))
+DOMAIN_REQUESTS = 2        # the second one ragged
+DOMAIN_STEPS = 2
+#: one class in each panel band of the generic kernels' widths, in bf16 at
+#: head dims the tabled kernels do not take and in fp32: (dtype, kv_lens
+#: with an empty row, (B, H, Tq, Tk, D, band, kv_lens, seed groups,
+#: rate)); the band with an offset (Tq != Tk), a row with no visible key,
+#: rate 0.1, two seed groups, and Tk > 1024 (the hash's tk_p 1152)
+GENERIC_CLASSES = (
+    ("bfloat16", True, (4, 8, 200, 264, 16, True, True, 1, 0.1)),
+    ("bfloat16", False, (4, 8, 256, 256, 32, True, False, 1, 0.0)),
+    ("bfloat16", True, (4, 8, 264, 200, 80, True, True, 2, 0.1)),
+    ("bfloat16", False, (4, 8, 256, 256, 112, True, False, 1, 0.1)),
+    ("bfloat16", False, (2, 8, 200, 1100, 160, True, False, 1, 0.1)),
+    ("bfloat16", True, (4, 4, 256, 256, 224, False, True, 1, 0.1)),
+    ("float32", True, (4, 8, 256, 256, 48, True, True, 1, 0.1)),
+    ("float32", False, (4, 4, 200, 264, 128, True, False, 1, 0.1)),
+    ("float32", True, (2, 4, 256, 256, 256, True, True, 1, 0.0)),
+)
+#: the generic kernels' planted faults, one a kernel, in one build
+#: (csrc/flash_generic.cu): the forward's row sum without each key tile's
+#: first key, dQ and dK/dV without delta
+GENERIC_FAULT = "-DBPX_PLANT_GENERIC_FAULT=7"
+#: the README's synthetic quick start (its port section), one epoch, with
+#: the flash kernels: fp32, BERT's heads orig_d_l // 16 = 4 (head_dim 16),
+#: the encoders' 64 / 4 = 16
+README_ARGV = ["--task", "synthetic", "--model", "mmtrvapt", "--batch_sz",
+               "8", "--gradient_accumulation_steps", "2", "--max_epochs",
+               "1", "--from_seed", "1", "--to_seed", "1", "--num_vectors_l",
+               "32", "--num_vectors_a", "16", "--num_vectors_v", "16",
+               "--orig_d_l", "64", "--orig_d_v", "48", "--orig_d_a", "96",
+               "--orig_d_p", "40", "--hidden_sz", "64", "--num_heads", "4",
+               "--layers", "2", "--max_seq_len", "32", "--audio_raw_len",
+               "576", "--video_len", "16", "--compute_dtype", "float32",
+               "--use_audio_encoder", "1", "--attention_impl", "pallas"]
+#: ``python -m bpx_torch.cli.train`` with the flash counters printed at exit
+README_CHILD = r"""
+import atexit, runpy, sys
+from bpx_torch.ops import flash_attention as fa
+atexit.register(lambda: print(
+    "flash launches", fa.flash_attention.launches,
+    fa.flash_attention.generic_launches, fa.flash_attention_backward.launches,
+    fa.flash_attention_backward.generic_launches, flush=True))
+sys.argv[0] = "bpx_torch.cli.train"
+runpy.run_module("bpx_torch.cli.train", run_name="__main__", alter_sys=True)
+"""
+
+
+def generic_classes(counter, dtype):
+    """The classes of a recorded Counter that take the generic kernels."""
+    return collections.Counter({c: n for c, n in counter.items()
+                                if is_generic(c[4], dtype)})
+
+
+def domain_path(torch, np, timer, gen, path, dims, dtype):
+    """One path of phase 22: served (the launches by route exact, against
+    the plain path with the planted faults), its generic flash classes
+    held against the plain versions and timed (its fp32 LayerNorm classes
+    too), one micro-step against the plain path with the planted faults
+    (launches by route exact), the generic classes of the micro-step both
+    ways, then DOMAIN_STEPS Adam steps with exact counters."""
+    pred, reqs = phase_predictor(torch, path, requests=DOMAIN_REQUESTS)
+    flash_cls, ln_cls = record_forward(path, pred, reqs[0], dims=dims)
+    label = f"flash generic {path.name}"
+    rows = dict(flash=phase_flash(torch, timer,
+                                  generic_classes(flash_cls, dtype),
+                                  gen, label=label, dtype=dtype))
+    if dtype == torch.float32:
+        rows["ln"] = phase_layer_norm(torch, timer, ln_cls, gen,
+                                      scalar_path=False)
+    served = phase_serve(torch, np, pred, reqs, False, path)
+    del pred
+    torch.cuda.empty_cache()
+    model, loss_fn, step, batches = phase_trainer(torch, np, path,
+                                                  steps=DOMAIN_STEPS)
+    seen, micro = phase_micro_step(torch, model, loss_fn, batches, path)
+    rows["flash_dropout"] = phase_flash(
+        torch, timer,
+        collections.Counter({c: n for c, n in generic_classes(
+            seen["flash"], dtype).items() if c[-1] > 0}),
+        gen, label=label + " dropout", dtype=dtype)
+    rows["flash_bwd"] = phase_flash_bwd(
+        torch, timer, generic_classes(seen["flash_bwd"], dtype), gen,
+        label=label + " backward", dtype=dtype)
+    if dtype == torch.float32:
+        rows["ln_bwd"] = phase_layer_norm_bwd(torch, timer, seen["ln_bwd"],
+                                              gen, scalar_path=False)
+    with recording() as train_seen:
+        trained = phase_train(torch, model, step, batches, False, path)
+    del model, loss_fn, step, batches
+    torch.cuda.empty_cache()
+    return dict(served=served, micro=micro, trained=trained, rows=rows,
+                seen=seen, train_seen=train_seen)
+
+
+def phase_readme_cli(card: str):
+    """The README's synthetic quick start with ``--attention_impl pallas``
+    through ``python -m bpx_torch.cli.train`` on the card, one epoch: rc 0,
+    and every flash call on the generic kernels (fp32 at head_dim 16),
+    both ways, with launches in each."""
+    import os
+    tag = "[readme cli]"
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = README_ARGV + ["--savedir", tmp, "--name", "readme"]
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", README_CHILD, *argv], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+        wall = time.time() - t0
+        check(proc.returncode == 0, f"{tag} exit {proc.returncode}: "
+                                    f"{proc.stderr[-3000:]}")
+        m = re.search(r"flash launches (\d+) (\d+) (\d+) (\d+)", proc.stdout)
+        check(m is not None, f"{tag} no launch counts: {proc.stdout[-2000:]}")
+        fwd, fwd_g, bwd, bwd_g = (int(x) for x in m.groups())
+        text = (Path(tmp) / "readme_Seed1_run" / "logfile.log").read_text()
+        dev = re.search(r"params on (\S+)", text)
+    print(f"{tag} python -m bpx_torch.cli.train (the README's synthetic "
+          f"command, --attention_impl pallas, one epoch): rc 0 in "
+          f"{wall:.1f} s on {dev.group(1) if dev else '?'}; flash launches "
+          f"{fwd} forward ({fwd_g} generic), {bwd} backward ({bwd_g} "
+          f"generic); card: {card}")
+    check(dev is not None and dev.group(1).startswith("cuda"),
+          f"{tag} the log does not name the card")
+    check(fwd_g > 0 and bwd_g > 0 and fwd_g == fwd and bwd_g == bwd,
+          f"{tag} the flash calls did not all take the generic kernels")
+    return dict(wall_s=wall, flash=fwd, generic=fwd_g, flash_bwd=bwd,
+                generic_bwd=bwd_g)
+
+
+def phase_generic_rows(torch, timer, gen):
+    """GENERIC_CLASSES both ways against the plain versions, timed beside
+    the bound and SDPA (the profiler naming each generic kernel)."""
+    rows = dict(flash=[], flash_bwd=[])
+    for dt, empty, cls in GENERIC_CLASSES:
+        dtype = getattr(torch, dt)
+        one = collections.Counter({cls: 1})
+        rows["flash"] += phase_flash(torch, timer, one, gen,
+                                     label="flash generic panel",
+                                     dtype=dtype, empty_row=empty)
+        rows["flash_bwd"] += phase_flash_bwd(
+            torch, timer, one, gen, label="flash_bwd generic panel",
+            dtype=dtype, empty_row=empty)
+    return rows
+
+
+def phase_generic_masks(torch, gen):
+    """The generic kernels' keep bits exactly (``phase_mask_check``): bf16
+    at head_dim 48 with one seed, with two seed groups (each group's bits
+    its own launch's), placed as the (B/2, H/2) piece a rank of a data=2 x
+    tensor=2 mesh holds (its bits the global call's slice); fp32 at 25."""
+    from bpx_torch.ops import flash_attention as fa
+    bf = torch.bfloat16
+    phase_mask_check(torch, gen, BATCH, 4, 128, 48)
+    phase_mask_check(torch, gen, BATCH, 4, 128, 25, torch.float32)
+    phase_seed_masks(torch, gen, 2, 4, 4, 128, 48)
+    place = (BATCH // 2, 2, 4)
+    phase_mask_check(torch, gen, BATCH // 2, 2, 128, 48, bf, place)
+    glob = fa.keep_mask(0xDEADBEEF, BATCH, 4, 128, 128, 0.1, "cuda")
+    piece = fa.keep_mask(0xDEADBEEF, BATCH // 2, 2, 128, 128, 0.1, "cuda",
+                         place)
+    check(torch.equal(piece, glob[BATCH // 2:, 2:]),
+          "the placed piece's bits are not the global call's slice")
+
+
+def phase_generic_faults(torch, gen, variant):
+    """Each generic kernel's planted fault (``GENERIC_FAULT``, one build)
+    against the sound build at the same class, bf16 at head_dim 48 and fp32
+    at 25 (band, kv_lens, rate 0.1): the sound kernels within the rows'
+    limits, and the faulty forward's O, dQ and dK each past theirs.  The
+    backward runs from the plain forward's O and lse, so each kernel's own
+    fault shows."""
+    from bpx_torch.ops import _cuda, flash_attention as fa
+    lib = _cuda.library()
+    got = {}
+    for dt, D in (("bfloat16", 48), ("float32", 25)):
+        dtype = getattr(torch, dt)
+        _, _, tol, grad_tol = dtype_limits(torch, dtype)
+        q, k, v, kv_lens = attention_inputs(torch, gen, 4, 4, 200, 200, D,
+                                            True, dtype)
+        drop = (0.1, 0x5EED)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, True, kv_lens,
+                                                    *drop)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, dout, ref_lse, fa.attention_delta_reference(dout, ref),
+            True, kv_lens, *drop)
+        for build, l in (("sound", lib), ("planted", variant)):
+            _cuda._lib = l
+            try:
+                out = fa.flash_attention(q, k, v, True, kv_lens, *drop)
+                dq, dk, dv = fa._launch_bwd(q, k, v, dout, ref_lse, ref,
+                                            True, kv_lens, *drop)
+                torch.cuda.synchronize()
+            finally:
+                _cuda._lib = lib
+            e = dict(forward=max_err(out, ref),
+                     forward_ok=torch.allclose(out.float(), ref.float(),
+                                               **tol),
+                     dq=grad_err(dq, want[0]), dk=grad_err(dk, want[1]),
+                     dv=grad_err(dv, want[2]))
+            got[(dt, build)] = e
+            print(f"[generic faults] {dt} D={D} {build} build: O max err "
+                  f"{e['forward']:.3g} (within {tol}: {e['forward_ok']}), "
+                  f"dQ {e['dq']:.3g}, dK {e['dk']:.3g}, dV {e['dv']:.3g} "
+                  f"(limit {grad_tol})")
+            if build == "sound":
+                check(e["forward_ok"] and max(e["dq"], e["dk"], e["dv"])
+                      <= grad_tol, f"the sound generic kernels at {dt} D "
+                                   f"{D} are past their limits")
+            else:
+                check(not e["forward_ok"] and e["dq"] > grad_tol
+                      and e["dk"] > grad_tol,
+                      f"a planted generic fault at {dt} D {D} is not caught")
+    return got
+
+
+def phase_domain(torch, np, timer, gen, card):
+    """Phase 22: (a) moviescope at 16 heads and (b) iemocap in fp32 through
+    ``domain_path``; (c) the README's synthetic quick start through the CLI;
+    (d) GENERIC_CLASSES, the generic kernels' masks and their planted
+    faults (a build of their own, made in the background meanwhile)."""
+    from bpx_torch.ops import _cuda
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fault_build = pool.submit(_cuda.build, [GENERIC_FAULT])
+    out = {}
+    try:
+        for path, dims, dt in DOMAIN_PATHS:
+            t0 = time.time()
+            out[path.name] = domain_path(torch, np, timer, gen, path, dims,
+                                         getattr(torch, dt))
+            print(f"[time] domain {path.name} {time.time() - t0:.1f} s")
+        print(f"[domain] TF32 with the fp32 readings: "
+              f"torch.backends.cuda.matmul.allow_tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}, "
+              f"torch.backends.cudnn.allow_tf32 "
+              f"{torch.backends.cudnn.allow_tf32}")
+        t0 = time.time()
+        out["cli"] = phase_readme_cli(card)
+        print(f"[time] domain README command {time.time() - t0:.1f} s")
+        t0 = time.time()
+        out["rows"] = phase_generic_rows(torch, timer, gen)
+        phase_generic_masks(torch, gen)
+        print(f"[time] domain panel rows and masks {time.time() - t0:.1f} s")
+        t0 = time.time()
+        t_wait = time.perf_counter()
+        fault_build.result()
+        SPENT["fault_build_wait_s"] += time.perf_counter() - t_wait
+        out["faults"] = phase_generic_faults(
+            torch, gen, _cuda.load([GENERIC_FAULT]))
+        print(f"[time] domain planted faults (after their build) "
+              f"{time.time() - t0:.1f} s")
+    finally:
+        pool.shutdown(wait=True)
+    return out
+
+
+def split_rows(rows, which):
+    """The generic backward rows as rows of its dQ (0) or dK/dV (1) kernel
+    alone: the profiler's time of that kernel beside its own bound; the
+    plain time and SDPA's are the whole backward's."""
+    key = ("dq", "dkdv")[which]
+    return [dict(r, ms=list(r["kernel_split_ms"].values())[which],
+                 bound_ms=r[f"{key}_bound_ms"], bound_by=r[f"{key}_bound_by"])
+            for r in rows]
+
 
 def short_launches(seen, kind) -> int:
     """Calls of a kind of flash kernel at 32 x 32 in a recording."""
@@ -4536,6 +5027,7 @@ def main() -> None:
     dispatch = phase_dispatch(torch)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    phase_timing_check(torch, timer, gen)
 
     # moviescope serving: the forward kernels at the served classes, then
     # the path
@@ -4781,6 +5273,18 @@ def main() -> None:
     mesh = phase_mesh(torch, np, timer, gen)
     print(f"[time] mesh phase {time.time() - t0:.1f} s")
 
+    # phase 22: the flash kernels' whole domain: moviescope at 16 heads
+    # (head_dim 48) and iemocap in fp32 on the generic kernels, the
+    # README's synthetic command through the CLI, the generic kernels at
+    # one class of each panel band, their masks and planted faults
+    t0 = time.time()
+    domain = phase_domain(torch, np, timer, gen, card)
+    print(f"[time] domain phase {time.time() - t0:.1f} s")
+    print(f"[time] of the whole run: kernel, plain and library timings "
+          f"{SPENT['timing_s']:.1f} s; {SPENT['profiles']} profiler windows "
+          f"{SPENT['profiler_s']:.1f} s; waits for the planted-fault builds "
+          f"{SPENT['fault_build_wait_s']:.1f} s")
+
     steps = TRAIN_STEPS * TRAIN_A
     legacy_runs = LEGACY_STEPS * TRAIN_A
     lt_seen = legacy["train_seen"]["mmtrvpa"]
@@ -4991,6 +5495,25 @@ def main() -> None:
                   width_launches(v_seen["iemocap"], "ln_bwd", 600),
                   legacy_runs,
                   "micro_step")]
+    # phase 22: the generic kernels at the classes of paths (a) and (b) and
+    # of GENERIC_CLASSES; launches those of both paths' train steps
+    gen_src = "bpx_torch/csrc/flash_generic.cu"
+    d_paths = [domain[p.name] for p, _, _ in DOMAIN_PATHS]
+    d_rows = lambda key: ([r for d in d_paths for r in d["rows"][key]]
+                          + domain["rows"].get(key, []))
+    d_fwd = d_rows("flash") + d_rows("flash_dropout")
+    d_bwd = d_rows("flash_bwd")
+    d_runs = DOMAIN_STEPS * TRAIN_A * len(d_paths)
+    d_launch = lambda key: sum(d["trained"]["totals"][key] for d in d_paths)
+    kernels += [
+        summarise("flash_generic_fwd", gen_src, fwd_tpu, d_fwd,
+                  d_launch("generic"), d_runs, "micro_step"),
+        summarise("flash_generic_dq", gen_src,
+                  "bpx/ops/pallas_attention.py:276", split_rows(d_bwd, 0),
+                  d_launch("generic_bwd"), d_runs, "micro_step"),
+        summarise("flash_generic_dkdv", gen_src,
+                  "bpx/ops/pallas_attention.py:357", split_rows(d_bwd, 1),
+                  d_launch("generic_bwd"), d_runs, "micro_step")]
     st = mesh["stress"]
     kernels += [
         summarise("flash_fwd_stress", fwd_src, fwd_tpu, st["fwd_rows"],
@@ -5141,6 +5664,23 @@ def main() -> None:
           f"of {BATCH} {st['served_ms']:.1f} ms, FSDP2 step at micro-batch "
           f"{st['micro']} x A={st['accum']} {st['step_ms']:.1f} ms, peak "
           f"{st['peak_gib']:.2f} GiB; card: {card}")
+    print("[summary] domain (the generic flash kernels): " + "; ".join(
+        f"{name}: served median {d['served']['median_ms']:.2f} ms "
+        f"({d['served']['generic_launches'] // DOMAIN_REQUESTS} of "
+        f"{d['served']['flash_launches'] // DOMAIN_REQUESTS} flash launches "
+        f"per forward generic), train step median "
+        f"{d['trained']['median_ms']:.1f} ms (peak "
+        f"{d['trained']['peak_gib']:.2f} GiB; generic launches per "
+        f"micro-step {d['trained']['totals']['generic'] // d_steps} forward"
+        f" / {d['trained']['totals']['generic_bwd'] // d_steps} backward), "
+        f"micro-step kernels vs plain: loss {d['micro']['loss_err']:.3g}, "
+        f"gradients {d['micro']['grad_err']:.3g}"
+        for name, d, d_steps in ((p.name, domain[p.name],
+                                  DOMAIN_STEPS * TRAIN_A)
+                                 for p, _, _ in DOMAIN_PATHS))
+          + f"; README command through the CLI: {domain['cli']['wall_s']:.1f}"
+          f" s, {domain['cli']['generic']} generic forward / "
+          f"{domain['cli']['generic_bwd']} backward launches; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

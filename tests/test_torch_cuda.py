@@ -141,13 +141,17 @@ def test_flash_kernel_takes_strided_views(gen):
 
 
 def test_flash_kernel_rejects_and_plain_context(gen):
+    """What no kernel takes raises on the card, with nothing launched and
+    no fallback: float16, and a head_dim above 256; under
+    ``plain_versions()`` the plain version runs and nothing launches."""
     q, k, v = _qkv(gen, 1, 2, 16, 16, 64)
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention(q.float(), k.float(), v.float())
-    q48, k48, v48 = _qkv(gen, 1, 2, 16, 16, 48)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        flash_attention(q48, k48, v48)
     before = flash_attention.launches
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        flash_attention(q.half(), k.half(), v.half())
+    q257, k257, v257 = _qkv(gen, 1, 2, 16, 16, 257)
+    with pytest.raises(NotImplementedError, match="256"):
+        flash_attention(q257, k257, v257)
+    assert flash_attention.launches == before
     with plain_versions():
         out = flash_attention(q, k, v, True)
     assert flash_attention.launches == before
@@ -855,8 +859,8 @@ def test_kernels_fit_the_sm(gen):
     kernel at 64 columns, 41 KB of shared memory, a cap of 168 registers)
     and the backward's dQ and dK/dV 3 each; at 128 the wide forward
     (113 KB of shared memory) and the dQ kernel 2, the 256-thread dK/dV
-    kernel 1; at 192 and 256 one 256-thread block of each; an untabled
-    head dim raises."""
+    kernel 1; at 192 and 256 one 256-thread block of each; a head dim
+    above 256 raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)
@@ -873,7 +877,7 @@ def test_kernels_fit_the_sm(gen):
         if d in (192, 256):
             assert got == {"forward": 1, "dK/dV": 1, "dQ": 1}, (d, got)
     with pytest.raises(NotImplementedError, match="head_dim"):
-        blocks_per_sm(48)
+        blocks_per_sm(257)
 
 
 def test_synthetic_tiny_serves_and_trains_on_the_einsum_path(gen):
@@ -1315,3 +1319,203 @@ def test_twenty_seeds_run_as_chunks_equal_to_their_own_launches(gen):
     for s, seed in enumerate(seeds):
         keep = keep_mask(seed, B, H, T, T, rate, "cuda")
         assert torch.equal(fwd[s], keep) and torch.equal(bwd[s], keep), s
+
+
+# ---------------------------------------------------------------------------
+# the generic kernels (csrc/flash_generic.cu): bf16 at every head dim the
+# tabled kernels do not take, fp32 at every head dim, 1 to 256
+# ---------------------------------------------------------------------------
+
+def _generic_qkv(gen, B, H, Tq, Tk, D, dtype):
+    """q, k, v as (B, H, T, D) views of fused (B, T, S, H, D) projections
+    in ``dtype``, q pre-scaled."""
+    qbuf = torch.randn(B, Tq, 1, H, D, generator=gen, device="cuda")
+    kvbuf = torch.randn(B, Tk, 2, H, D, generator=gen, device="cuda")
+    q = (qbuf[:, :, 0] * D ** -0.5).to(dtype).transpose(1, 2)
+    kv = kvbuf.to(dtype)
+    return q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+
+
+def _generic_tol(dtype):
+    """(output tolerance, gradient tolerance relative to the largest
+    entry): bf16 as the tabled kernels'; fp32 2e-5, the same function
+    summed in another order (no TF32 on either side)."""
+    if dtype == torch.float32:
+        return dict(atol=2e-5, rtol=2e-5), 2e-5
+    return dict(atol=2e-2, rtol=2e-2), 2e-2
+
+
+# one head dim in each of the generic builds' widths (32, 64, 128, 256) in
+# both dtypes, and its edges (1, 33, 255, 256)
+GENERIC_DIMS = [(torch.bfloat16, d) for d in (1, 16, 33, 48, 80, 112, 160,
+                                              224, 255)] + [
+    (torch.float32, d) for d in (1, 25, 33, 64, 100, 128, 200, 256)]
+
+
+@pytest.mark.parametrize("dtype,D", GENERIC_DIMS)
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", [
+    (2, 2, 70, 135, True, (135, 0), 0.1),     # band offset 65, empty row
+    (2, 2, 135, 70, True, None, 0.0),         # tall band, ragged tiles
+    (1, 2, 100, 1100, True, (1100,), 0.1),    # Tk > 1024: tk_p 1152
+])
+def test_generic_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked,
+                                     lens, rate):
+    """The generic forward and backward (dQ with delta, then dK/dV)
+    against the plain versions on fused views, launched on the generic
+    route (the counters), bitwise on a rerun; a row with no visible key
+    attends uniformly and gets zero dQ."""
+    from bpx_torch.ops.flash_attention import _launch_bwd
+    q, k, v = _generic_qkv(gen, B, H, Tq, Tk, D, dtype)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+    seed = 0x6E6E if rate else None
+    tol, grad_tol = _generic_tol(dtype)
+    before = (flash_attention.launches, flash_attention.generic_launches,
+              flash_attention_backward.generic_launches)
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
+    dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    got = _launch_bwd(q, k, v, dout, lse, out, masked, kv, rate, seed)
+    assert (flash_attention.launches, flash_attention.generic_launches,
+            flash_attention_backward.generic_launches) == tuple(
+                b + 1 for b in before)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, attention_delta_reference(dout, out), masked, kv,
+        rate, seed)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= grad_tol, (name, err.item())
+    again = _launch_bwd(q, k, v, dout, lse, out, masked, kv, rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(out, flash_attention(q, k, v, masked, kv, rate, seed))
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        assert not got[0][b].any() and out[b].abs().sum() > 0
+
+
+def test_generic_route_takes_odd_fused_views_uncopied(gen):
+    """At an odd head dim (33) a fused (B, T, 3, H, D) projection's views go
+    to the generic kernels as they are, in both dtypes, and give what
+    contiguous copies give, both ways."""
+    from bpx_torch.ops.flash_attention import _kernel_ready, _launch_bwd
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.randn(2, 90, 3, 4, 33, generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+        for t in (q, k, v):
+            assert _kernel_ready("t", t, t.device) is t
+        dense = [t.contiguous() for t in (q, k, v)]
+        out, lse = flash_attention(q, k, v, True, return_lse=True)
+        assert torch.equal(out, flash_attention(*dense, True))
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        for a, b in zip(_launch_bwd(q, k, v, dout, lse, out, True, None),
+                        _launch_bwd(*dense, dout, lse, out, True, None)):
+            assert torch.equal(a, b)
+
+
+def _generic_mask(q, k, rate, seed, place=None):
+    """The keep bits of the forward and of the backward (dV) at q = 0, read
+    with one-hot V = dO as chip_smoke.py's ``kernel_mask`` reads them."""
+    from bpx_torch.ops.flash_attention import _launch_bwd
+    B, H, T, D = q.shape
+    fwd = torch.zeros(B, H, T, T, dtype=torch.bool, device="cuda")
+    bwd = torch.zeros_like(fwd)
+    j = torch.arange(T, device="cuda")
+    for r in range((T + D - 1) // D):
+        c = j - D * r
+        sel = (c >= 0) & (c < D)
+        onehot = torch.zeros(T, D, device="cuda", dtype=q.dtype)
+        onehot[sel, c[sel]] = 1
+        e = onehot.expand(B, H, T, D)
+        out, lse = flash_attention(q, k, e, False, None, rate, seed,
+                                   return_lse=True, place=place)
+        _, _, dv = _launch_bwd(q, k, e, e, lse, out, False, None, rate, seed,
+                               place)
+        fwd[..., sel] = out[..., c[sel]] != 0
+        bwd[..., sel, :] = (dv[..., c[sel]] != 0).transpose(-1, -2)
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 48),
+                                     (torch.float32, 25)])
+@pytest.mark.parametrize("seed,place", [
+    (0x6E6E0001, None), ([0x6E6E0001, 0xC0FFEE], None),
+    (0x6E6E0001, (4, 2, 4))])
+def test_generic_dropout_mask_is_exact(gen, dtype, D, seed, place):
+    """The generic kernels' keep bits, both ways, equal ``keep_mask``'s:
+    one seed, two seed groups (each group's bits its own), and placed as
+    the (B/2, H/2) piece of a data=2 x tensor=2 mesh (the global call's
+    slice)."""
+    B, H, T = 4, 2, 100
+    q = torch.zeros(B, H, T, D, device="cuda", dtype=dtype)
+    k = torch.randn(B, H, T, D, generator=gen, device="cuda").to(dtype)
+    fwd, bwd = _generic_mask(q, k, 0.1, seed, place)
+    want = keep_mask(seed, B, H, T, T, 0.1, "cuda", place)
+    assert torch.equal(fwd, want) and torch.equal(bwd, want)
+    if place is not None:
+        glob = keep_mask(seed, 2 * B, 2 * H, T, T, 0.1, "cuda")
+        assert torch.equal(want, glob[B:, place[1]:place[1] + H])
+
+
+@pytest.mark.parametrize("D", [25, 30, 50, 60, 64, 96, 128, 192, 256])
+def test_tabled_route_keeps_the_tabled_head_dims(gen, D):
+    """bf16 at the nine tabled head dims launches the tabled kernels, by
+    the profiler's names, both ways; fp32 at the same head dim the
+    generic ones."""
+    q, k, v = _qkv(gen, 2, 2, 130, 130, D)
+    out, lse = flash_attention(q, k, v, True, None, return_lse=True)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+
+    def calls():
+        flash_attention(q, k, v, True)
+        flash_attention_backward(q, k, v, out, lse, dout, True, None)
+        flash_attention(qf, kf, vf, True)
+    names = set()
+    for _ in range(5):   # the profiler drops events now and then: every
+        # profile runs the same calls, so their kernels are the union
+        names |= set(_device_kernels(calls))
+        tabled = [n for n in names if "generic" not in n]
+        generic = [n for n in names if "generic" in n]
+        if (any("flash_fwd" in n for n in tabled)
+                and any("flash_bwd" in n for n in tabled) and generic):
+            break
+    assert any("flash_fwd" in n for n in tabled), names
+    assert any("flash_bwd" in n for n in tabled), names
+    assert all("flash_" in n for n in tabled), names
+    assert generic and all("flash_generic_fwd_kernel<float" in n
+                           for n in generic), names
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 48),
+                                     (torch.float32, 64),
+                                     (torch.float32, 255)])
+def test_generic_delta_matches_plain(gen, dtype, D):
+    """``attention_delta`` on the generic route (the standalone op's
+    generic kernel) against its plain version, on strided views."""
+    out = torch.randn(3, 70, 4, D, generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    dout = torch.randn(3, 70, 4, D, generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    before = attention_delta.generic_launches
+    got = attention_delta(dout, out)
+    assert attention_delta.generic_launches == before + 1
+    torch.testing.assert_close(got, attention_delta_reference(dout, out),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_generic_kernels_fit_the_sm(gen):
+    """Each generic build (widths 32, 64, 128, 256), both dtypes, fits at
+    least one block an SM: at width 32 and 64 the forward three or more."""
+    from bpx_torch.ops.flash_attention import GENERIC_WIDTHS, blocks_per_sm
+    for dtype in (torch.bfloat16, torch.float32):
+        for w in GENERIC_WIDTHS:
+            got = blocks_per_sm(w - 1, dtype)
+            assert min(got.values()) >= 1, (dtype, w, got)
+            if w <= 64:
+                assert got["forward"] >= 3, (dtype, w, got)

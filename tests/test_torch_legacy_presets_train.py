@@ -18,6 +18,6 @@ FREQS = [5, 2, 9, 1, 4, 3, 6, 2]
 
 @pytest.mark.parametrize("preset", list(PATTERNS))
 def test_mmtrvpa_at_the_preset_train_step_lockstep_with_bpx(preset):
-    jexp, _, _ = tiny_mmtrvpa(preset)
+    jexp, _, params = tiny_mmtrvpa(preset)
     freqs = [FREQS[i % len(FREQS)] for i in range(jexp.model.n_classes)]
-    _lockstep(_no_dropout(jexp), freqs, batch_seeds=(0, 0))
+    _lockstep(_no_dropout(jexp), freqs, batch_seeds=(0, 0), params=params)

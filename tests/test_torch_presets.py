@@ -209,12 +209,14 @@ def test_mmimdb_train_step_lockstep_with_bpx():
     super-batch three times: at hidden 256 three Adam steps over three
     different super-batches do not lower the loss (both packages read
     1.02, 2.29, 1.21), on the same one they do."""
-    jexp, _, _ = tiny_mmimdb()
-    _lockstep(_no_dropout(jexp), list(range(1, 24)), batch_seeds=(0, 0, 0))
+    jexp, _, params = tiny_mmimdb()
+    _lockstep(_no_dropout(jexp), list(range(1, 24)), batch_seeds=(0, 0, 0),
+              params=params)
 
 
 def test_cmu_mosi_train_step_lockstep_with_bpx():
     """The tiny cmu-mosi mmtrvat: one output, the L1 loss on real-valued
     targets (no class weights)."""
-    jexp, _, _ = tiny_cmu_mosi()
-    _lockstep(_no_dropout(jexp), [1], "cmu-mosi", "classification")
+    jexp, _, params = tiny_cmu_mosi()
+    _lockstep(_no_dropout(jexp), [1], "cmu-mosi", "classification",
+              params=params)

@@ -154,44 +154,54 @@ def test_train_step_lockstep_with_bpx():
 
 def test_mmtrvat_train_step_lockstep_with_bpx():
     """The tiny mmtrvat (head_dim 25, plain second round, 3-ary GMU)."""
-    jexp, _, _ = tiny_vat("gmu")
-    _lockstep(_no_dropout(jexp), [5, 2, 9, 1, 4, 3, 6, 2])
+    jexp, _, params = tiny_vat("gmu")
+    _lockstep(_no_dropout(jexp), [5, 2, 9, 1, 4, 3, 6, 2], params=params)
+
+
+def _keep_grads():
+    """An optax transformation that passes the gradients on unchanged and
+    keeps them in its state: chained before the optimizer, the state after
+    a step holds the gradients that step applied (the mean of its
+    micro-batch gradients)."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
 
 
 def _lockstep(jexp, freqs, task="synthetic", task_type="multilabel",
-              batch_seeds=(0, 1, 2)):
+              batch_seeds=(0, 1, 2), params=None):
     """Three accumulation steps of bpx and the port from the same weights
     and batches (one super-batch per seed of ``batch_seeds``): step-1
-    gradients, the grad norm and the loss trajectory."""
+    gradients, the grad norm and the loss trajectory.  ``params``: bpx's
+    tree of ``jexp``'s model initialised with key 0 (which depends on the
+    shapes alone), where a module already holds it; else initialised
+    here."""
     name = jexp.model.model
     exp = config_from_dict(dataclasses.asdict(jexp))
     regression = task == "cmu-mosi"
     batches = [_super_batch(jexp, s, regression) for s in batch_seeds]
     jmodel = jget_model(jexp.model)
-    first = {k: jnp.asarray(v[0]) for k, v in batches[0].items()}
-    params = jmodel.init({"params": jax.random.PRNGKey(0)},
-                         *jmodel_inputs(name, first))["params"]
+    if params is None:
+        first = {k: jnp.asarray(v[0]) for k, v in batches[0].items()}
+        params = jmodel.init({"params": jax.random.PRNGKey(0)},
+                             *jmodel_inputs(name, first))["params"]
 
-    # bpx: the real loss, optimizer and jitted accumulation step
+    # bpx: the real loss, optimizer and jitted accumulation step; the
+    # optimizer keeps each step's gradients (``_keep_grads``) and passes
+    # them on to Adam unchanged
     jloss = jlosses.make_loss_fn(task, task_type, True, freqs, 10)
-    tx = joptim.make_optimizer(LR)
+    tx = optax.chain(_keep_grads(), joptim.make_optimizer(LR))
     jstep = jax.jit(jmake_train_step(jmodel, name, jloss, tx,
                                      grad_accum=A))
     state = TrainState.create(params, tx)
     jlosses_ = []
-    for b in batches:
+    for i, b in enumerate(batches):
         state, m = jstep(state, {k: jnp.asarray(v) for k, v in b.items()},
                          jax.random.PRNGKey(1))
         jlosses_.append(float(m["loss"]))
-
-    # bpx step-1 gradients: the mean of the micro-batch gradients
-    def mean_loss(prm):
-        ls = [jloss(jmodel.apply({"params": prm}, *jmodel_inputs(
-                  name, {k: jnp.asarray(v[i])
-                               for k, v in batches[0].items()})),
-                    jnp.asarray(batches[0]["target"][i])) for i in range(A)]
-        return sum(ls) / A
-    jgrads = jax.grad(mean_loss)(params)
+        if i == 0:
+            # bpx step-1 gradients: the mean of the micro-batch gradients
+            jgrads = state.opt_state[0]
 
     # the port
     model = get_model(exp.model, device="cpu")
