@@ -25,8 +25,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: a source's own extra flags: the generic flash kernels' 48 instantiations
 #: are optimised and assembled in parallel threads (alone they take twice
-#: as long as any other source)
-SOURCE_FLAGS = {"flash_generic.cu": ["-split-compile=0"]}
+#: as long as any other source), and the chunked ones' 14 likewise
+SOURCE_FLAGS = {"flash_generic.cu": ["-split-compile=0"],
+                "flash_chunked.cu": ["-split-compile=0"]}
 
 _lib: Optional[ctypes.CDLL] = None
 #: ptxas' register / shared-memory / spill report of the library last
@@ -126,6 +127,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_flash_generic_bwd.restype = i
     lib.bpx_flash_generic_delta.argtypes = [p] * 3 + [i] * 5 + [ll] * 6 + [p]
     lib.bpx_flash_generic_delta.restype = i
+    # the chunked kernels (flash_chunked.cu): as the generic ones
+    lib.bpx_flash_chunked_fwd.argtypes = lib.bpx_flash_generic_fwd.argtypes
+    lib.bpx_flash_chunked_fwd.restype = i
+    lib.bpx_flash_chunked_bwd.argtypes = lib.bpx_flash_generic_bwd.argtypes
+    lib.bpx_flash_chunked_bwd.restype = i
+    lib.bpx_flash_chunked_delta.argtypes = lib.bpx_flash_generic_delta.argtypes
+    lib.bpx_flash_chunked_delta.restype = i
     out = ctypes.POINTER(i)
     lib.bpx_flash_fwd_blocks_per_sm.argtypes = [i, out]
     lib.bpx_flash_fwd_blocks_per_sm.restype = i
@@ -133,6 +141,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_flash_bwd_blocks_per_sm.restype = i
     lib.bpx_flash_generic_blocks_per_sm.argtypes = [i, i, i, out]
     lib.bpx_flash_generic_blocks_per_sm.restype = i
+    lib.bpx_flash_chunked_blocks_per_sm.argtypes = [i, i, i, out]
+    lib.bpx_flash_chunked_blocks_per_sm.restype = i
     lib.bpx_layer_norm_fwd.argtypes = [p] * 6 + [i, i, f, i, i, i, p]
     lib.bpx_layer_norm_fwd.restype = i
     lib.bpx_layer_norm_bwd.argtypes = [p] * 9 + [i] * 5 + [p]

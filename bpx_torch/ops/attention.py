@@ -11,11 +11,11 @@ q is scaled by ``head_dim**-0.5`` in the compute dtype.
 does: ``"pallas"`` the flash kernels (``ops/flash_attention.py``), anything
 else :func:`dot_product_attention`, the plain einsum attention of the JAX
 package's XLA path, which takes any dtype and head dim.  Only the config
-chooses.  The flash kernels take bf16 and fp32 at any head dim from 1 to
-256 (``flash_attention.kernel_route``: the tabled kernels for bf16 at the
-tabled head dims, the generic ones for the rest); for a larger head dim
-or another dtype the flash wrappers raise, and nothing falls back to the
-einsum attention.
+chooses.  The flash kernels take bf16 and fp32 at any head dim
+(``flash_attention.kernel_route``: the tabled kernels for bf16 at the
+tabled head dims, the generic ones for the rest up to 256, the chunked
+ones above 256); for another dtype the flash wrappers raise, and nothing
+falls back to the einsum attention.
 
 In training mode (``module.training``, the JAX package's
 ``deterministic=False``) a per-module ``attn_dropout`` rate draws one seed

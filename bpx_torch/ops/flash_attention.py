@@ -1,6 +1,6 @@
 """Flash attention, forward and backward: the CUDA kernels
-``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_generic.cu``
-and their plain versions.
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_generic.cu`` and
+``csrc/flash_chunked.cu`` and their plain versions.
 
 The counterpart is ``bpx/ops/pallas_attention.py::flash_attention`` with
 ``layout="bhtd"`` and its ``custom_vjp``: q is pre-scaled by
@@ -30,8 +30,11 @@ the head dim D alone): bf16 at the tabled head dims 25, 30, 50, 60, 64, 96,
 below); bf16 at any other D from 1 to 256, and fp32 at every D from 1 to
 256, the generic kernels (``flash_generic.cu``: the forward, then the dQ
 kernel with delta and its dependent dK/dV kernel, on the CUDA cores in fp32,
-at any strides whose last dim is contiguous); any other dtype raises
-TypeError, a D above 256 NotImplementedError.  Nothing falls back: a CUDA
+at any strides whose last dim is contiguous); bf16 and fp32 at every D above
+256 the chunked kernels (``flash_chunked.cu``: the same three, each block
+owning 128 columns of the head dim and recomputing the scores over all of
+it); any other dtype raises TypeError, a D below 1 ValueError.  So the
+kernels take any head dim in bf16 and fp32.  Nothing falls back: a CUDA
 tensor launches its route's kernels or raises.
 
 At the tabled head dims, a narrow head (25, 30: the mmtrvat presets'
@@ -109,14 +112,17 @@ MASK_FILL = -1e30
 KERNEL_ALIGN = {25: 1, 30: 2, 50: 2, 60: 4, 64: 8, 96: 8, 128: 8, 192: 8,
                 256: 8}
 KERNEL_HEAD_DIMS = tuple(KERNEL_ALIGN)
-#: the widest head dim any flash kernel takes (the generic kernels'; the JAX
-#: package's take any)
-MAX_HEAD_DIM = 256
+#: the widest head dim the generic kernels' builds hold; above it the
+#: chunked kernels run (no upper limit, as the JAX package's kernels)
+GENERIC_MAX_HEAD_DIM = 256
 #: the dtypes the kernels take, by the code the generic entry points read
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 #: the generic kernels' builds: each runs a head dim D in the first of these
 #: widths that holds it (``with_width`` in ``csrc/flash_generic.cu``)
 GENERIC_WIDTHS = (32, 64, 128, 256)
+#: the head-dim columns a block of the chunked kernels owns
+#: (``kChunk`` in ``csrc/flash_chunked.cu``)
+CHUNK_COLUMNS = 128
 #: the TPU kernels' single-pass key range and key block (``tk_p`` below)
 SINGLE_PASS_MAX_K = 1024
 BLOCK_K = 128
@@ -129,14 +135,17 @@ def kernel_route(dtype, D: int) -> str:
     """The kernels a call at ``dtype`` and head dim ``D`` takes on the card:
     "tabled" (``flash_fwd.cu`` / ``flash_bwd.cu``) for bf16 at a head dim of
     ``KERNEL_ALIGN``, "generic" (``flash_generic.cu``) for bf16 at any other
-    D from 1 to 256 and for fp32 at any D from 1 to 256.  TypeError for any
-    other dtype, NotImplementedError for a D the kernels do not take."""
+    D from 1 to 256 and for fp32 at any D from 1 to 256, "chunked"
+    (``flash_chunked.cu``) for bf16 and fp32 at any D above 256.  TypeError
+    for any other dtype, ValueError for a D below 1."""
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernels take bfloat16 or float32, got "
                         f"{dtype}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash kernels take a head_dim of 1 to {MAX_HEAD_DIM}, got {D}")
+    if D < 1:
+        raise ValueError(f"flash kernels take a head_dim of 1 or more, "
+                         f"got {D}")
+    if D > GENERIC_MAX_HEAD_DIM:
+        return "chunked"
     if dtype == torch.bfloat16 and D in KERNEL_ALIGN:
         return "tabled"
     return "generic"
@@ -145,6 +154,13 @@ def kernel_route(dtype, D: int) -> str:
 def generic_width(D: int) -> int:
     """The width of the generic kernels' build that runs head dim D."""
     return next(w for w in GENERIC_WIDTHS if D <= w)
+
+
+def column_chunks(D: int) -> int:
+    """The column chunks of the chunked kernels at head dim D: each chunk's
+    blocks recompute the scores over all D, so the score products run this
+    many times."""
+    return -(-D // CHUNK_COLUMNS)
 
 
 def effective_band(tq: int, tk: int, masked: bool):
@@ -520,11 +536,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain versions for CPU tensors, in the forward and (through autograd,
     ``bpx_torch::flash_bwd``) in the backward.  Autograd records the op only
     when grad is enabled and q, k or v requires it; otherwise nothing is
-    saved.  The kernels take bf16 and fp32 at any head_dim from 1 to 256
-    (``kernel_route``: bf16 at ``KERNEL_HEAD_DIMS`` the tabled kernels, the
-    rest the generic ones) and any strides whose last dim is contiguous
-    (the tabled ones copy a view whose strides miss their head dim's
-    alignment); the output is a (B, H, Tq, D) view of (B, Tq, H, D)
+    saved.  The kernels take bf16 and fp32 at any head_dim (``kernel_route``:
+    bf16 at ``KERNEL_HEAD_DIMS`` the tabled kernels, the rest up to 256 the
+    generic ones, above 256 the chunked ones) and any strides whose last
+    dim is contiguous (the tabled ones copy a view whose strides miss their
+    head dim's alignment); the output is a (B, H, Tq, D) view of (B, Tq, H, D)
     memory, so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
     ``dropout_rate > 0`` needs ``dropout_seed``, a uint32 Python int, or a
     list of n, one per group of B / n batch rows (under
@@ -563,8 +579,8 @@ def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors (the op
     ``bpx_torch::flash_delta``) for CUDA tensors: the tabled head_dim 64/96
     backward's first kernel on its own (bf16 at a tabled head dim), else
-    the generic delta kernel (``kernel_route``); the plain version for
-    CPU."""
+    the generic or the chunked delta kernel (``kernel_route``); the plain
+    version for CPU."""
     return _FLASH_DELTA(dout, out)
 
 
@@ -585,13 +601,16 @@ def _launch_delta(dout, out):
             out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
             *out.stride()[:3], *dout.stride()[:3], stream)
     else:
-        err = lib.bpx_flash_generic_delta(
+        entry = lib.bpx_flash_generic_delta if route == "generic" else \
+            lib.bpx_flash_chunked_delta
+        err = entry(
             out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
             KERNEL_DTYPES[out.dtype], *out.stride()[:3], *dout.stride()[:3],
             stream)
     _cuda.check(err, "flash_delta")
     attention_delta.launches += 1
     attention_delta.generic_launches += route == "generic"
+    attention_delta.chunked_launches += route == "chunked"
     return delta
 
 
@@ -610,9 +629,10 @@ def blocks_per_sm(head_dim: int, dtype=torch.bfloat16) -> dict:
                      head_dim, 1, n)))
     else:
         code = KERNEL_DTYPES[dtype]
+        entry = lib.bpx_flash_generic_blocks_per_sm if route == "generic" \
+            else lib.bpx_flash_chunked_blocks_per_sm
         calls = tuple(
-            (name, lambda n, kernel=kernel:
-             lib.bpx_flash_generic_blocks_per_sm(head_dim, code, kernel, n))
+            (name, lambda n, kernel=kernel: entry(head_dim, code, kernel, n))
             for kernel, name in enumerate(("forward", "dK/dV", "dQ")))
     got = {}
     for name, call in calls:
@@ -635,16 +655,16 @@ def _route(q, *others):
 def _kernel_ready(name, t, device, route=None):
     """``t`` as the kernels of ``route`` (default: ``kernel_route`` of its
     dtype and head dim) take it, on ``device``; a copy only where they
-    need one.  The generic kernels take any strides whose last dim is
-    contiguous.  The tabled ones take bf16 whose strides and data pointer
-    are multiples of the head dim's alignment (``KERNEL_ALIGN``): a narrow
-    head's strided views (D = 25 at any stride, D = 30 and 50 at even
-    ones, D = 60 at multiples of 4) go to them as they are."""
+    need one.  The generic and chunked kernels take any strides whose last
+    dim is contiguous.  The tabled ones take bf16 whose strides and data
+    pointer are multiples of the head dim's alignment (``KERNEL_ALIGN``): a
+    narrow head's strided views (D = 25 at any stride, D = 30 and 50 at
+    even ones, D = 60 at multiples of 4) go to them as they are."""
     if t.device != device:
         raise RuntimeError(f"{name} is on {t.device}, q on {device}")
     if route is None:
         route = kernel_route(t.dtype, t.shape[3])
-    if route == "generic":
+    if route != "tabled":
         if t.stride(3) != 1 and t.shape[3] > 1:
             t = t.contiguous()
         return t
@@ -686,8 +706,8 @@ def _dropout_args(rate, seed, tk, batch, heads=1, place=None):
 
 
 def _dims(route, D, dtype):
-    """The C entry points' head-dim arguments: D, and on the generic route
-    the dtype's code after it."""
+    """The C entry points' head-dim arguments: D, and on the generic and
+    chunked routes the dtype's code after it."""
     return (D,) if route == "tabled" else (D, KERNEL_DTYPES[dtype])
 
 
@@ -704,8 +724,8 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
     if out.numel() == 0:
         return out, lse
     lib = _cuda.library()
-    entry = lib.bpx_flash_fwd if route == "tabled" else \
-        lib.bpx_flash_generic_fwd
+    entry = dict(tabled=lib.bpx_flash_fwd, generic=lib.bpx_flash_generic_fwd,
+                 chunked=lib.bpx_flash_chunked_fwd)[route]
     err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), kvl_ptr, B, H, Tq, Tk, *_dims(route, D, q.dtype),
@@ -716,6 +736,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
     flash_attention.launches += 1
     flash_attention.dropout_launches += int(rate > 0.0)
     flash_attention.generic_launches += route == "generic"
+    flash_attention.chunked_launches += route == "chunked"
     return out, lse
 
 
@@ -738,8 +759,8 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
     strides = [s for t in (q, k, v, dout, out, dq, dk, dv)
                for s in t.stride()[:3]]
     lib = _cuda.library()
-    entry = lib.bpx_flash_bwd if route == "tabled" else \
-        lib.bpx_flash_generic_bwd
+    entry = dict(tabled=lib.bpx_flash_bwd, generic=lib.bpx_flash_generic_bwd,
+                 chunked=lib.bpx_flash_chunked_bwd)[route]
     err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         out.data_ptr(), lse.data_ptr(), delta.data_ptr(), kvl_ptr,
@@ -750,22 +771,26 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
     _cuda.check(err, "flash_bwd")
     flash_attention_backward.launches += 1
     flash_attention_backward.generic_launches += route == "generic"
+    flash_attention_backward.chunked_launches += route == "chunked"
     return dq, dk, dv
 
 
 #: forward kernel launches (and those with dropout, and those of the
-#: generic kernels) since last set to 0
+#: generic and of the chunked kernels) since last set to 0
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
 flash_attention.generic_launches = 0
+flash_attention.chunked_launches = 0
 #: backward calls that launched their kernels (dQ with delta and dK/dV; or,
 #: on the tabled route at head_dim 64 and 96, delta, dK/dV, dQ), and those
-#: of them on the generic route
+#: of them on the generic and on the chunked route
 flash_attention_backward.launches = 0
 flash_attention_backward.generic_launches = 0
+flash_attention_backward.chunked_launches = 0
 #: launches of the delta kernel on its own (not those inside the backward),
-#: and those of the generic one
+#: and those of the generic and of the chunked one
 attention_delta.launches = 0
 attention_delta.generic_launches = 0
+attention_delta.chunked_launches = 0
 #: tensors a vmap rule copied to fold the vmapped axis into the batch
 flash_attention.fold_copies = 0

@@ -55,7 +55,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    multi-tile shape (B*H 2, 640 x 1280, band and dropout), checked, then
    timed: the forward, the dQ and the dK/dV kernel each beside its bound
    and SDPA;
-7. three train steps at micro-batch 8 x A = 2 on numpy-seeded synthetic
+7. two train steps at micro-batch 8 x A = 2 on numpy-seeded synthetic
    super-batches: counters set to 0 before each step and checked after it
    (168 flash forward launches, 72 of them with dropout, 168 flash
    backward calls, 458 LayerNorm forward and 458 backward launches); finite
@@ -68,13 +68,13 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    forward's 108 flash launches (96 at head_dim 25, 12 at 64) and 325
    LayerNorm launches; no q/k/v/dO/O copied by the wrapper at head_dim 25;
    the forward at its head_dim-25 class and LayerNorm at 4096 x 300 timed;
-   4 requests against the plain path with its own limits, which both
+   2 requests against the plain path with its own limits, which both
    planted faults must cross; one request of the same model with
    ``fusion="mag"`` against the plain path.  Training: one micro-step
    against the plain path (planted backward faults), the head_dim-25
    dropout forward and backward at its classes (each backward row also
    with the dQ and dK/dV kernels' own bounds), the exact dropout mask at
-   (8, 12, 512, 512, 25), the long shape at head_dim 25, then 3 train
+   (8, 12, 512, 512, 25), the long shape at head_dim 25, then 2 train
    steps (216 flash forward, 88 with dropout, 216 backward, 842 LayerNorm
    forward and backward per step);
 9. the ``cmu-mosei`` preset (10 heads, so head_dim 30): one served
@@ -90,7 +90,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    LayerNorm launches, no tensor copied by the flash wrappers; training:
    one micro-step against the plain path, the head_dim-128 kernels with
    dropout at its classes, the exact dropout mask at (8, 6, 512, 512,
-   128), 3 train steps (168 / 72 / 168 / 458 / 458 launches per step) with
+   128), 2 train steps (168 / 72 / 168 / 458 / 458 launches per step) with
    the peak memory, the long shape at head_dim 128; the profiler must
    name the head_dim-128 forward kernel (``flash_fwd_wide_kernel``) at
    every one of its classes, as it names each head dim's own forward
@@ -146,7 +146,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    0 and 0.1, forward and backward against the plain versions, timed
    beside the bound and SDPA, and the exact dropout masks there; then (a)
    moviescope with ``hybrid`` (three self-attention encoders over 32
-   positions, a 5-ary final GMU): 4 requests (one ragged) against the
+   positions, a 5-ary final GMU): 2 requests (one ragged) against the
    plain path with both planted faults (96 flash, 208 LayerNorm launches
    per forward), one micro-step against the plain path with the planted
    backward faults, then 6 RAdam steps at 8 x A = 1 (the adaptive step
@@ -156,7 +156,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    forward) and micro-step with the planted faults, one A = 2 step's
    gradients with bf16 and with fp32 accumulation on the same weights,
    batch and seeds (they must differ, within BF16_ACCUM_ERR of each
-   other), then 3 steps at 8 x A = 2 accumulating in bf16; (c) iemocap's
+   other), then 2 steps at 8 x A = 2 accumulating in bf16; (c) iemocap's
    ``mmtrvat`` with ``hybrid`` (4-ary GMU, early encoders at head_dim 25):
    one request, one micro-step against the plain path with the planted
    faults and one step, exact counters.  Each recorded forward and
@@ -184,7 +184,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    its first pass's, which the comparison with the single-seed steps must
    catch.  The folded launches' masks exact against
    each group's own launch at head_dim 25 and 64 (q = 0, V = dO = I).
-   Then 3 Adam steps with exact counters: the median beside the
+   Then 2 Adam steps with exact counters: the median beside the
    single-seed step's, ``S * t_single / t_vmapped``, the peak memory; one
    folded launch against S launches (CUDA events) at the encoders' D 25
    class and BERT's D 64 class; the folded classes against the plain
@@ -212,15 +212,15 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    device, the failing line rc 3 after 2 attempts, one log a job;
 19. the notebook-era models (``bpx_torch/models/legacy.py``) at
    moviescope's full width (the preset with only ``model`` changed; bf16,
-   seeded weights): each of the seven classes served, 4 requests at batch
+   seeded weights): each of the seven classes served, 2 requests at batch
    8 (one ragged) against the plain path within moviescope's limits, with
    exact counters per forward (mmtrvpa 48 flash launches, 12 of them at
    head_dim 192 in its 1536-wide memory encoders, and 130 LayerNorm;
    tmmtrvpa 60 and 181; gmu, gmu_bi, gmu_hier, gmu_softmax and bertclf 12
    and 25), ``bert`` against ``bertclf`` (within ALIAS_TOL); mmtrvpa,
    tmmtrvpa and gmu_hier trained: one micro-step against the plain path
-   (the planted backward faults on the two with encoders), then 2 Adam
-   steps at 8 x A = 2 with every dropout and exact counters (per step
+   (the planted backward faults on the two with encoders), then one Adam
+   step at 8 x A = 2 with every dropout and exact counters (per step
    96 / 64 / 96 / 308 / 308, 120 / 56 / 120 / 458 / 458, 24 / 24 / 24 / 50
    / 50); every class no earlier phase held (the head_dim-192 flash forward
    and backward at 512 x 512 and 200 x 200 causal, rate 0 and 0.1, the
@@ -232,11 +232,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
 20. ``mmtrvpa`` at iemocap, cmu-mosei and mmimdb, after phase 19: each the
    preset with only ``model`` changed, at full width and depth (bf16,
    seeded weights), its 2E-wide memory encoders at head_dim 50, 60 and 256.
-   Each served, 4 requests at batch 8 (one ragged) against the plain path
+   Each served, 2 requests at batch 8 (one ragged) against the plain path
    within the preset's limits, exact counters per forward (84, 84 and 48
    flash launches, 24, 24 and 12 of them at the memory head dim; 226, 226
    and 130 LayerNorm); iemocap and mmimdb trained (one micro-step against
-   the plain path with the band fault planted, then 2 Adam steps at 8 x A
+   the plain path with the band fault planted, then one Adam step at 8 x A
    = 2 with every dropout and exact counters: 168 / 104 / 168 / 548 / 548
    and 96 / 64 / 96 / 308 / 308 per step), cmu-mosei one step; every class
    no earlier phase held (the memory encoders' flash forward and backward
@@ -269,7 +269,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    keys, BERT's 512 x 512, D 64, 16 heads a row, dropout 0.1 where the
    step draws it) against the plain versions both ways (the plain ones
    in placed chunks of 8 rows) and timed.
-22. the flash kernels' whole domain, last: the generic kernels
+22. the flash kernels' whole domain: the generic kernels
    (``csrc/flash_generic.cu``; bf16 at an untabled head dim, fp32 at any,
    ``kernel_route``).  (a) moviescope at 16 heads (head_dim 48 in the
    encoders: 72 of the 84 flash launches per forward generic, BERT's 12
@@ -279,7 +279,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    launches exact by route; its generic classes both ways against the
    plain versions and timed (fp32's LayerNorm classes too); one micro-step
    against the plain path with the planted backward faults, launches by
-   route; 2 Adam steps at 8 x A = 2 with exact counters.  (c) the README's
+   route; one Adam step at 8 x A = 2 with exact counters.  (c) the README's
    synthetic quick start with ``--attention_impl pallas`` through ``python
    -m bpx_torch.cli.train`` for one epoch: rc 0, every flash launch
    generic.  (d) one class in each panel band (bf16 at head_dim 16, 32, 80,
@@ -290,6 +290,34 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    placed; one planted fault per generic kernel (a build with
    ``-DBPX_PLANT_GENERIC_FAULT=7``, made in the background meanwhile), each
    past its limit while the sound build is within it.
+23. the flash kernels past head_dim 256, last: the chunked kernels
+   (``csrc/flash_chunked.cu``; bf16 and fp32 at any head_dim above 256,
+   ``kernel_route``).  (a) moviescope at 2 heads (head_dim 384 in the
+   encoders: 72 of the 84 flash launches per forward chunked, BERT's 12
+   tabled) and (b) iemocap's ``mmtrvat`` in fp32 at 1 head (96 chunked at
+   300, BERT's 12 generic at 64), each at full width through
+   ``domain_path``: 2 requests at batch 8 (one ragged) against the plain
+   path with both planted faults, the launches exact by route; its
+   chunked classes both ways against the plain versions and timed; one
+   micro-step against the plain path with the planted backward faults; 2
+   Adam steps at 8 x A = 2 with exact counters and the peak memory.  (c)
+   CHUNKED_CLASSES (bf16 and fp32 at head_dim 257, 384, 512, 768 and 1536;
+   the band with an offset, an empty ``kv_lens`` row, rate 0.1, two seed
+   groups, Tk 1100) both ways against the plain versions, timed beside the
+   bound (the function's own work; the kernels' flops over it, the scores
+   recomputed once per 128-column chunk, printed beside it as
+   ``recompute``) and SDPA; the exact masks at one seed, two seed groups and placed; one
+   planted fault per chunked kernel (a build with
+   ``-DBPX_PLANT_CHUNKED_FAULT=7``, made in the background meanwhile),
+   caught in O, dQ and dV while the sound build is within its limits.
+
+The loop (13), the recompute phase (15), counseling, cmu-mosi and
+synthetic-tiny (11-12) and the farm (18) run in that order after phase 10
+and before the options phase (16), since they time no kernel; the
+three CLI checks that run in processes of their own (the loop's export
+CLI and its archive served, mmtrvpa's CLI run of phase 19 and the
+README's command of phase 22) run on side threads beside them, each held
+as before and its line printed when it is joined.
 
 The build phase prints ptxas' registers and spills of every kernel and, per
 head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
@@ -303,7 +331,8 @@ head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
 sweep, hybrid's and the grouped pairs' classes; phase 17's folded
 classes; phase 19's head_dim-192 and 1536-wide classes; phase 20's
 head_dim 50, 60 and 256 and 600-wide classes; phase 21's stress
-classes; phase 22's generic forward, dQ and dK/dV kernels) and, last,
+classes; phase 22's generic forward, dQ and dK/dV kernels; phase 23's
+chunked ones) and, last,
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package; without a CUDA device, or without ``bpx_torch`` beside it, it
 exits non-zero and prints no result.
@@ -352,7 +381,7 @@ LN_STAT_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 statistics
 PROBS_TOL = 2.5e-2
 GATES_TOL = 3e-2
 BATCH = 8
-REQUESTS = 4               # the second one is ragged
+REQUESTS = 2               # the second one is ragged
 # launches per served forward, counted from the model's structure: BERT's
 # 12 layers, and 12 encoders x 4 layers with one attention each in the
 # first round and two in the biprojection round; LayerNorm: BERT's
@@ -366,7 +395,7 @@ LN_PER_FORWARD = 1 + 2 * 12 + 12 * (4 * 3 + 1)
 LN_PER_TRAIN_FORWARD = LN_PER_FORWARD + 12 * 4
 FLASH_DROPOUT_PER_FORWARD = 12 + 2 * 4 + 2 * 4 * 2
 TRAIN_A = 2                # micro-batches per step (BATCH each)
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 LR = 1e-3
 FLASH_GRAD_TOL = 2e-2      # bf16 dq/dk/dv, relative to the largest entry
 DELTA_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 sums of D products
@@ -405,6 +434,7 @@ class ModelPath:
     options: tuple = ()    # (field, value) pairs the model config takes
     generic: int = 0       # of the flash launches per forward, those of
     #                        the generic kernels (kernel_route)
+    chunked: int = 0       # ... and those of the chunked kernels
 
     @property
     def name(self) -> str:
@@ -555,7 +585,8 @@ class Timer:
     ``inner`` (so the events' own cost is spread thin).  The device is
     first held busy (``torch.cuda._sleep``) while the host enqueues every
     group, so host-side launch overhead never shows up as device time: for
-    twice the host time the warm-up calls took a call, times the calls of
+    twice the median host time of a warm-up call (a first call's set-up,
+    such as a library's plan, does not lengthen it), times the calls of
     the groups, between ``MIN_HOLD_S`` and ``MAX_HOLD_S`` (the sleep's
     cycles counted at ``CYCLES_PER_S``, above the card's boost clock, so
     the hold is never shorter).  Inputs stay warm in L2, as on the served
@@ -583,11 +614,13 @@ class Timer:
     def __call__(self, fn, reps: int = 10, inner: int = 5,
                  warmup: int = 3) -> float:
         torch = self.torch
-        t = t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        calls = []
         for _ in range(warmup):
+            t = time.perf_counter()
             fn()
-        per_call = ((time.perf_counter() - t) / warmup if warmup
-                    else self.MAX_HOLD_S)
+            calls.append(time.perf_counter() - t)
+        per_call = statistics.median(calls) if warmup else self.MAX_HOLD_S
         torch.cuda.synchronize()
         torch.cuda._sleep(self.hold_cycles(per_call, reps * inner))
         events = []
@@ -670,17 +703,20 @@ def zero_launches() -> None:
               layer_norm_backward):
         c.launches = 0
     flash_attention.dropout_launches = 0
-    flash_attention.generic_launches = 0
-    flash_attention_backward.generic_launches = 0
+    for c in (flash_attention, flash_attention_backward):
+        c.generic_launches = 0
+        c.chunked_launches = 0
 
 
-def read_generic() -> tuple:
-    """The generic kernels' share of the flash launches: (forward,
-    backward)."""
+def read_routes() -> dict:
+    """The generic and the chunked kernels' shares of the flash launches:
+    "generic", "generic_bwd", "chunked", "chunked_bwd"."""
     from bpx_torch.ops.flash_attention import (flash_attention,
                                                flash_attention_backward)
-    return (flash_attention.generic_launches,
-            flash_attention_backward.generic_launches)
+    return {f"{route}{kind}": getattr(c, f"{route}_launches")
+            for route in ("generic", "chunked")
+            for kind, c in (("", flash_attention),
+                            ("_bwd", flash_attention_backward))}
 
 
 # ---------------------------------------------------------------------------
@@ -825,6 +861,8 @@ def phase_build():
             print(f"[build] blocks per SM of the generic kernels, {dt} at "
                   f"head_dim {w - 1} (width {w}): "
                   f"{blocks_per_sm(w - 1, dt)}")
+        print(f"[build] blocks per SM of the chunked kernels, {dt} (any "
+              f"head_dim above 256): {blocks_per_sm(257, dt)}")
 
 
 def kernel_name(mangled: str) -> str:
@@ -919,10 +957,11 @@ def attention_work(torch, B, H, Tq, Tk, masked, kv_lens):
     return visible, keys, (None if ok.all() else ok)
 
 
-#: the plain versions' timing in the kernel rows: 5 groups of 2 calls
-#: (they take 0.1-25 ms a call; on an H100 the median reads within 0.3%
-#: of the one over 20 groups of 10, in a twentieth of the time)
-PLAIN_TIMING = dict(reps=5, inner=2, warmup=1)
+#: the plain versions' timing in the kernel rows: 3 groups of 2 calls
+#: (they take 0.1-50 ms a call and are a yardstick of the arithmetic, not
+#: of speed; on an H100 5 groups of 2 read within 0.3% of 20 groups of
+#: 10)
+PLAIN_TIMING = dict(reps=3, inner=2, warmup=1)
 
 
 def phase_flash(torch, timer, classes, gen, label="flash",
@@ -969,7 +1008,9 @@ def phase_flash(torch, timer, classes, gen, label="flash",
 
         visible, keys, ok = attention_work(torch, B, H, Tq, Tk, masked,
                                            kv_lens)
+        # the function's own work: S and P V, 2 D flops each a visible score
         flops = 4.0 * D * visible
+        redo = recompute_factor(D, q.dtype, 2, 2)
         nbytes = elem * (2 * B * H * Tq * D + 2 * keys * D) + 4 * B * H * Tq
         b_ms, b_by = bound_ms(nbytes, flops, peak)
         t_k = timer(lambda: flash_attention(q, k, v, masked, kv_lens, *drop))
@@ -992,10 +1033,11 @@ def phase_flash(torch, timer, classes, gen, label="flash",
                          plain_ms=t_p, library_ms=t_l,
                          library_backend=backend, library_kernel=first,
                          library_mask=mask_text(mask_args), kernel=kernel,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by, recompute=redo))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} seed groups {groups} "
-              f"{q.dtype} x{count}: {kernel}; err O "
+              f"{q.dtype} x{count}: {kernel} (work x{redo:.2f} the "
+              f"function's); err O "
               f"{err_o:.3g} (tol {tol}) lse {err_l:.3g} (tol "
               f"{LSE_TOL}); "
               + timing_text(t_k, t_p, t_l, b_ms, b_by, f"sdpa ({backend})")
@@ -1025,18 +1067,43 @@ def generic_args(D, groups, dtype) -> str:
             f"{'true' if groups > 1 else 'false'}>")
 
 
-def is_generic(D, dtype) -> bool:
-    """Whether a call at head_dim D and ``dtype`` (None: bf16) takes the
-    generic kernels (``kernel_route``)."""
+def route_of(D, dtype) -> str:
+    """The kernels a call at head_dim D and ``dtype`` (None: bf16) takes:
+    ``kernel_route``'s "tabled", "generic" or "chunked" (every D above
+    256)."""
     import torch
     from bpx_torch.ops.flash_attention import kernel_route
-    return kernel_route(dtype or torch.bfloat16, D) == "generic"
+    return kernel_route(dtype or torch.bfloat16, D)
+
+
+def chunked_args(groups, dtype) -> str:
+    """A chunked kernel's template arguments as the profiler names them:
+    the element type and whether it is the build for several seed
+    groups."""
+    import torch
+    name = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    return f"<{name}, {'true' if groups > 1 else 'false'}>"
+
+
+def recompute_factor(D, dtype, scores, rest) -> float:
+    """The flops the kernels at head_dim D and ``dtype`` do over the
+    function's own: 1, but on the chunked route, whose blocks rebuild the
+    score products (``scores`` flops a visible score a head-dim column: S's
+    2, and dP's 2 more in the backward) once for each column chunk
+    (``column_chunks``) and do the ``rest`` once.  Printed beside the
+    bound, which counts the function's work alone."""
+    from bpx_torch.ops.flash_attention import column_chunks
+    n = column_chunks(D) if route_of(D, dtype) == "chunked" else 1
+    return (scores * n + rest) / (scores + rest)
 
 
 def fwd_kernel(D, groups=1, dtype=None) -> str:
     """The forward's kernel at head_dim D for ``groups`` seed groups and
     ``dtype`` (None: bf16), by the name the profiler reports."""
-    if is_generic(D, dtype):
+    route = route_of(D, dtype)
+    if route == "chunked":
+        return "flash_chunked_fwd_kernel" + chunked_args(groups, dtype)
+    if route == "generic":
         return "flash_generic_fwd_kernel" + generic_args(D, groups, dtype)
     if D < 32:
         name = "flash_fwd_narrow_kernel"
@@ -1191,12 +1258,17 @@ def sdpa_backward(torch, q, k, v, mask_args, rate, dout):
 def bwd_kernels(D, groups=1, dtype=None):
     """The backward's kernels at head_dim D for ``groups`` seed groups and
     ``dtype`` (None: bf16), by the names the profiler reports, as (dQ,
-    dK/dV, delta or None): on the generic route and at every tabled head
-    dim but 64 and 96 the dQ kernel computes delta itself, so the backward
-    is two launches (the narrow kernels at 25 and 30, the wide ones at 50,
-    60 and 128, the key- and row-split ones at 192 and 256); at 64 and 96
-    the delta kernel, then dK/dV and dQ."""
-    if is_generic(D, dtype):
+    dK/dV, delta or None): on the generic and chunked routes and at every
+    tabled head dim but 64 and 96 the dQ kernel computes delta itself, so
+    the backward is two launches (the narrow kernels at 25 and 30, the wide
+    ones at 50, 60 and 128, the key- and row-split ones at 192 and 256); at
+    64 and 96 the delta kernel, then dK/dV and dQ."""
+    route = route_of(D, dtype)
+    if route == "chunked":
+        args = chunked_args(groups, dtype)
+        return ("flash_chunked_dq_kernel" + args,
+                "flash_chunked_dkdv_kernel" + args, None)
+    if route == "generic":
         args = generic_args(D, groups, dtype)
         return ("flash_generic_dq_kernel" + args,
                 "flash_generic_dkdv_kernel" + args, None)
@@ -1312,13 +1384,17 @@ def phase_flash_bwd(torch, timer, classes, gen, label="flash_bwd",
                          library_mask=mask_text(mask_args),
                          bound_ms=b_ms, bound_by=b_by, kernel_split_ms=split,
                          dq_bound_ms=dq_b[0], dkdv_bound_ms=dkdv_b[0],
-                         dq_bound_by=dq_b[1], dkdv_bound_by=dkdv_b[1]))
+                         dq_bound_by=dq_b[1], dkdv_bound_by=dkdv_b[1],
+                         recompute=recompute_factor(D, q.dtype, 4, 6),
+                         dq_recompute=recompute_factor(D, q.dtype, 4, 2),
+                         dkdv_recompute=recompute_factor(D, q.dtype, 4, 4)))
         print(f"[{label}] BH={B * H} {Tq}x{Tk} D={D} band={eff_masked} "
               f"kv_lens={padded} rate={rate} seed groups {groups} "
               f"{q.dtype} x{count}/micro-step: "
               f"dq/dk/dv rel err {max(errs):.3g} (tol {grad_tol}), "
               f"delta err {err_d:.3g} (tol {DELTA_TOL}), reruns bitwise "
-              f"equal; {launches} "
+              f"equal; {launches} (work x{rows[-1]['recompute']:.2f} the "
+              f"function's) "
               + timing_text(t_k, t_p, t_l, b_ms, b_by,
                             f"sdpa bwd ({backend})")
               + f"; sdpa {mask_text(mask_args)}, kernel {first}; "
@@ -1834,6 +1910,7 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
 
     flash_attention.launches = 0
     flash_attention.generic_launches = 0
+    flash_attention.chunked_launches = 0
     layer_norm.launches = 0
     outs, lat = [], []
     for batch in reqs:
@@ -1843,10 +1920,12 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
         outs.append((probs, gates))
     n_flash, n_ln = flash_attention.launches, layer_norm.launches
     n_generic = flash_attention.generic_launches
+    n_chunked = flash_attention.chunked_launches
 
     print(f"{tag} {n_req} requests: flash launches {n_flash} "
           f"({n_flash / n_req:g}/forward; {n_generic / n_req:g} of them on "
-          f"the generic kernels, {(n_flash - n_generic) / n_req:g} on the "
+          f"the generic kernels, {n_chunked / n_req:g} on the chunked ones, "
+          f"{(n_flash - n_generic - n_chunked) / n_req:g} on the "
           f"tabled ones), layer_norm launches {n_ln} "
           f"({n_ln / n_req:g}/forward)")
     check(n_flash == path.flash * n_req,
@@ -1855,6 +1934,9 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     check(n_generic == path.generic * n_req,
           f"the generic flash kernels launched {n_generic} times, expected "
           f"{path.generic * n_req}")
+    check(n_chunked == path.chunked * n_req,
+          f"the chunked flash kernels launched {n_chunked} times, expected "
+          f"{path.chunked * n_req}")
     check(n_ln == path.ln * n_req,
           f"layer_norm kernel launched {n_ln} times, expected "
           f"{path.ln * n_req}")
@@ -1914,14 +1996,18 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
               f"max err {rerr:.3g}")
         check(rerr <= path.probs_tol, f"ragged request differs by {rerr}")
 
-    med = statistics.median(lat)
+    # the full requests' latency; the ragged request 2's apart
+    med = statistics.median([x for i, x in enumerate(lat)
+                             if i != 1 or full is None])
     print(f"{tag} per-request latency (host clock, numpy in -> numpy "
-          f"out): median {med:.2f} ms over {n_req}: "
+          f"out): median {med:.2f} ms over the {n_req - (full is not None)} "
+          f"full request(s) (the ragged request 2 apart): "
           + ", ".join(f"{x:.2f}" for x in lat))
     if profile:
         profile_forward(torch, pred, reqs[0])
     return dict(latency_ms=lat, median_ms=med, flash_launches=n_flash,
-                generic_launches=n_generic, ln_launches=n_ln,
+                generic_launches=n_generic, chunked_launches=n_chunked,
+                ln_launches=n_ln,
                 probs_err=perr, gates_err=gerr, planted_faults=planted)
 
 
@@ -2146,14 +2232,31 @@ def phase_micro_step(torch, model, loss_fn, batches,
           "the recorded micro-step's launches differ from the structure's")
     routes = {f"{kind} {route}": seen["routes"][(kind, route)]
               for kind in ("flash", "flash_bwd")
-              for route in ("tabled", "generic")}
+              for route in ("tabled", "generic", "chunked")}
     print(f"{tag} flash launches by route: {routes}")
     check(routes["flash generic"] == path.generic
           and routes["flash_bwd generic"] == path.generic,
           f"the recorded micro-step's generic flash launches differ from "
           f"the structure's {path.generic}")
+    check(routes["flash chunked"] == path.chunked
+          and routes["flash_bwd chunked"] == path.chunked,
+          f"the recorded micro-step's chunked flash launches differ from "
+          f"the structure's {path.chunked}")
     return seen, dict(loss_err=lerr, grad_err=errs[worst], worst=worst,
                       planted_faults=planted)
+
+
+def warm_steps(times):
+    """(ms, words) for timed steps on the host clock: the median of the
+    steps after the first, which sets up the optimizer's state (and
+    FSDP2's lazy one), or that first step alone where only one ran."""
+    if len(times) > 1:
+        which = (f"median over steps 2-{len(times)}" if len(times) > 2
+                 else "step 2")
+        return (statistics.median(times[1:]),
+                f"{which} (step 1, which sets up the optimizer's state, "
+                f"apart)")
+    return times[0], "the first step alone (it sets up the optimizer's state)"
 
 
 def phase_train(torch, model, step, batches, profile: bool,
@@ -2177,23 +2280,26 @@ def phase_train(torch, model, step, batches, profile: bool,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         got = read_launches()
-        generic = read_generic()
+        routes = read_routes()
         totals.update(got)
-        totals.update(generic=generic[0], generic_bwd=generic[1])
+        totals.update(routes)
         losses.append(loss)
         print(f"{tag} step {i + 1}: loss {loss:.6f}, {times[-1]:.1f} ms; "
-              f"launches {got}, generic flash forward / backward {generic}")
+              f"launches {got}, by route {routes}")
         check(got == want, f"step {i + 1} launches {got}, expected {want}")
-        check(generic == (path.generic * accum,) * 2,
-              f"step {i + 1} generic flash launches {generic}, expected "
-              f"{path.generic * accum} each way")
+        want_routes = {f"{r}{kind}": getattr(path, r) * accum
+                       for r in ("generic", "chunked")
+                       for kind in ("", "_bwd")}
+        check(routes == want_routes,
+              f"step {i + 1} flash launches by route {routes}, expected "
+              f"{want_routes}")
         check(math.isfinite(loss), f"step {i + 1} loss is {loss}")
         if i == 0:
             check_grads(torch, model)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    med = statistics.median(times)
-    print(f"{tag} step time (host clock, synchronised) median {med:.1f} ms "
-          f"over {len(times)} steps: " + ", ".join(f"{x:.1f}" for x in times)
+    med, which = warm_steps(times)
+    print(f"{tag} step time (host clock, synchronised) {med:.1f} ms, "
+          f"{which}; steps " + ", ".join(f"{x:.1f}" for x in times)
           + f"; {accum * BATCH / med * 1e3:.2f} samples/s; peak memory "
           f"{peak:.2f} GiB (max_memory_allocated)")
     if profile:
@@ -2424,13 +2530,16 @@ def check_loop_calls(calls, n_steps, n_evals, tag):
                    f"per evaluation forward")
 
 
-def phase_loop(torch, np, card: str, checked):
+def phase_loop(torch, np, card: str, checked, side):
     """The README's moviescope command through ``bpx_torch.cli.train.
     cli_main`` in this process: the memmap cache, LOOP_EPOCHS epochs,
     checkpoints, ``test``; a resume to one epoch more with the restored
     state checked bit for bit against the saved one; ``Predictor.from_checkpoint`` against
     ``test``'s ``preds_raw.npy``.  ``checked``: the launch classes the
-    earlier phases held against the plain versions, per kernel."""
+    earlier phases held against the plain versions, per kernel.  The
+    export CLI's check runs on ``side`` (its processes beside the later
+    phases), which removes the run directory after it; the result's
+    ``export_cli`` is its future."""
     from bpx_torch.cli.train import cli_main
     from bpx_torch.config import config_from_dict
     from bpx_torch.data.loaders import get_data_loaders
@@ -2438,6 +2547,7 @@ def phase_loop(torch, np, card: str, checked):
     from bpx_torch.utils.checkpoint import CheckpointManager
     tag = "[loop]"
     tmp = Path(tempfile.mkdtemp(prefix="bpx_loop_"))
+    handed = False      # the run directory handed to the export's check
     try:
         t0 = time.time()
         write_moviescope(np, tmp / "data")
@@ -2560,9 +2670,6 @@ def phase_loop(torch, np, card: str, checked):
               f"{tag} from_checkpoint differs from preds_raw.npy by {err}")
         del pred
         torch.cuda.empty_cache()
-        cli = check_export_cli(np, run, tmp, test_batches + [ragged],
-                               np.concatenate([probs, ragged_probs]), tag,
-                               statistics.median(lat))
 
         stats = epoch_stats(run)
         for s in stats:
@@ -2585,11 +2692,17 @@ def phase_loop(torch, np, card: str, checked):
         per_epoch = collections.Counter()
         for _, c in calls[:LOOP_STEPS + LOOP_EVALS]:    # epoch 0
             per_epoch.update(c)
+        cli = side.submit(export_then_remove, np, run, tmp,
+                          test_batches + [ragged],
+                          np.concatenate([probs, ragged_probs]), tag,
+                          statistics.median(lat))
+        handed = True
         return dict(wall_s=wall, resume_s=wall2, peak_gib=peak, epochs=stats,
                     cache=builds, from_checkpoint_err=err, export_cli=cli,
                     launches=totals, launches_per_epoch=dict(per_epoch))
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not handed:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2774,6 +2887,14 @@ def phase_export(torch, np, pred, reqs, card: str, path: ModelPath):
                 exported_ms=med_x, launches=(got["flash"], got["ln"]))
 
 
+def export_then_remove(np, run: Path, tmp: Path, *args):
+    """``check_export_cli``, then the loop's directory ``tmp`` removed."""
+    try:
+        return check_export_cli(np, run, tmp, *args)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_export_cli(np, run: Path, tmp: Path, batches, want, tag,
                      eager_ms: float):
     """``python -m bpx_torch.cli.export`` on a run directory of the
@@ -2798,24 +2919,24 @@ def check_export_cli(np, run: Path, tmp: Path, batches, want, tag,
     same = bool(np.array_equal(probs, want))
     n = len(batches)
     exported_ms = statistics.median(got["latency_ms"])
-    print(f"{tag} python -m bpx_torch.cli.export (best) in {cli_s:.1f} s, "
-          f"{mib:.1f} MiB (the fp32 weights inside); loaded in a new process "
-          f"in {got['load_s']:.1f} s, batch size {got['batch_size']} from its "
-          f"input spec; served on {n - 1} test batches and a ragged request "
-          f"({len(want)} rows) against Predictor.from_checkpoint: max abs err "
-          f"{err:.3g}, bitwise equal: {same}; launches {got['flash']} / "
-          f"{got['ln']} over {n} forwards; model code imported: "
-          f"{got['model_code']}; served median eager {eager_ms:.2f} ms, "
-          f"exported {exported_ms:.2f} ms")
+    line = (f"{tag} python -m bpx_torch.cli.export (best) in {cli_s:.1f} "
+            f"s, {mib:.1f} MiB (the fp32 weights inside); loaded in a new "
+            f"process in {got['load_s']:.1f} s, batch size "
+            f"{got['batch_size']} from its input spec; served on {n - 1} "
+            f"test batches and a ragged request ({len(want)} rows) against "
+            f"Predictor.from_checkpoint: max abs err {err:.3g}, bitwise "
+            f"equal: {same}; launches {got['flash']} / {got['ln']} over {n} "
+            f"forwards; model code imported: {got['model_code']}; served "
+            f"median eager {eager_ms:.2f} ms, exported {exported_ms:.2f} ms")
     check(same and not got["model_code"] and got["batch_size"] == BATCH,
-          f"{tag} the CLI's archive differs from from_checkpoint by {err}")
+          f"{tag} the CLI's archive differs from from_checkpoint: {line}")
     check(got["flash"] == FLASH_PER_FORWARD * n
           and got["ln"] == LN_PER_FORWARD * n,
           f"{tag} the exported program's launches {got['flash']} / "
           f"{got['ln']} over {n} forwards, expected {FLASH_PER_FORWARD} / "
           f"{LN_PER_FORWARD} each")
     return dict(cli_s=cli_s, err=err, mib=mib, eager_ms=eager_ms,
-                exported_ms=exported_ms)
+                exported_ms=exported_ms, log=line)
 
 
 # recompute against keeping the activations, one micro-step on the same
@@ -3160,7 +3281,7 @@ def phase_options(torch, np, timer, gen, checked):
 
     # (b) moviescope, group_encoders: the 2B classes against the plain
     # versions (each head dim's own kernel by the profiler), the served path,
-    # one micro-step, bf16 against fp32 accumulation, 3 steps at A = 2 in bf16
+    # one micro-step, bf16 against fp32 accumulation, 2 steps at A = 2 in bf16
     path = MOVIESCOPE_GROUPED
     pred, reqs = phase_predictor(torch, path)
     flash_cls, ln_cls = record_forward(path, pred, reqs[0])
@@ -3229,7 +3350,7 @@ def phase_options(torch, np, timer, gen, checked):
 
 #: iemocap's seeds in one vmapped step (the reference reports the mean of 5)
 MULTISEED = (1, 2, 3, 4, 5)
-MULTISEED_STEPS = 3
+MULTISEED_STEPS = 2
 #: the seeds (by index) held against their own single-seed steps
 MULTISEED_HELD = (0, 4)
 #: the folded launch's planted faults, each a build of its own
@@ -3449,9 +3570,9 @@ def phase_multiseed(torch, np, timer, gen, card):
             batches[0], steps=MULTISEED_STEPS if i == 0 else 1)
         torch.cuda.empty_cache()
     single = refs[0]["launches"]
-    t_single = statistics.median(refs[0]["step_ms"])
-    print(f"{tag} single-seed A = 1 step (seed {MULTISEED[0]}): median "
-          f"{t_single:.1f} ms of " + ", ".join(
+    t_single, which = warm_steps(refs[0]["step_ms"])
+    print(f"{tag} single-seed A = 1 step (seed {MULTISEED[0]}): "
+          f"{t_single:.1f} ms, {which}; steps " + ", ".join(
               f"{x:.1f}" for x in refs[0]["step_ms"])
           + f"; launches {single}")
     structure = remat_launches(IEMOCAP, exp.model)
@@ -3541,10 +3662,10 @@ def phase_multiseed(torch, np, timer, gen, card):
             check(all(math.isfinite(x) for x in step_losses),
                   f"step {i + 1} losses {step_losses}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    t_vmapped = statistics.median(times)
+    t_vmapped, which = warm_steps(times)
     speedup = S * t_single / t_vmapped
-    print(f"{tag} vmapped step median {t_vmapped:.1f} ms over "
-          f"{len(times)} steps, {S} x the single-seed A = 1 step "
+    print(f"{tag} vmapped step {t_vmapped:.1f} ms, {which}, {S} x the "
+          f"single-seed A = 1 step "
           f"{S * t_single:.1f} ms: S * t_single / t_vmapped = {speedup:.3f}; "
           f"{S * BATCH / t_vmapped * 1e3:.2f} samples/s; peak "
           f"{peak:.2f} GiB (max_memory_allocated); card: {card}")
@@ -3875,7 +3996,7 @@ LEGACY_DIMS = {"mmtrvpa": {64: 12, 96: 24, 192: 12},
 BAND_FAULT = ("flash backward ignores the band",)
 #: the timed steps of each notebook-era model trained in phases 19 and 20
 #: (two, for the script's time limit)
-LEGACY_STEPS = 2
+LEGACY_STEPS = 1
 LEGACY_TRAINED = {"mmtrvpa": BAND_FAULT, "tmmtrvpa": BAND_FAULT,
                   "gmu_hier": ()}
 #: bertclf and its alias bert, the same class on the same seed
@@ -3893,7 +4014,8 @@ def width_launches(seen, kind, E) -> int:
 def phase_legacy_cli(np, card: str):
     """``python -m bpx_torch.cli.train --model mmtrvpa`` on a written
     moviescope dataset (the loop phase's), one epoch on the card: rc 0, a
-    log naming the card and an epoch's stats."""
+    log naming the card and an epoch's stats (its line under ``log``: it
+    runs beside other phases)."""
     import os
     tag = "[legacy cli]"
     with tempfile.TemporaryDirectory() as tmp:
@@ -3917,22 +4039,23 @@ def phase_legacy_cli(np, card: str):
               f"{tag} the log does not name the card: {text[-1500:]}")
         stats = epoch_stats(run)
         check(len(stats) == 1, f"{tag} {len(stats)} epochs logged")
-        print(f"{tag} python -m bpx_torch.cli.train --model mmtrvpa (one "
-              f"epoch, {LOOP_SPLITS['train']} records, micro-batch {BATCH} "
-              f"x A={TRAIN_A}): rc 0 in {wall:.1f} s on {m.group(1)}; epoch "
-              f"stats {stats[0]}; card: {card}")
-        return dict(wall_s=wall, epoch=stats[0])
+        line = (f"{tag} python -m bpx_torch.cli.train --model mmtrvpa (one "
+                f"epoch, {LOOP_SPLITS['train']} records, micro-batch {BATCH} "
+                f"x A={TRAIN_A}): rc 0 in {wall:.1f} s on {m.group(1)}; "
+                f"epoch stats {stats[0]}; card: {card}")
+        return dict(wall_s=wall, epoch=stats[0], log=line)
 
 
-def phase_legacy(torch, np, timer, gen, card, checked):
+def phase_legacy(torch, np, timer, gen, card, checked, cli):
     """Phase 19: the notebook-era models at moviescope's full width (bf16,
-    seeded weights).  Each of the seven classes served (4 requests at
+    seeded weights).  Each of the seven classes served (2 requests at
     batch 8, one ragged, against the plain path, exact counters), bert
     against bertclf; mmtrvpa, tmmtrvpa and gmu_hier trained (one micro-step
-    against the plain path, 2 Adam steps at 8 x A = 2 with exact
+    against the plain path, one Adam step at 8 x A = 2 with exact
     counters); every class no earlier phase held (the head_dim-192 flash
     kernels, the 1536-wide LayerNorms) against its plain version, and the
-    exact dropout masks at head_dim 192; one CLI run of mmtrvpa.
+    exact dropout masks at head_dim 192; ``cli``, the result of one CLI
+    run of mmtrvpa (``phase_legacy_cli``), is kept with them.
     ``checked``: the classes held so far, by kind, which this extends."""
     out = {"served": {}, "micro": {}, "trained": {}, "train_seen": {},
            "rows": collections.defaultdict(list)}
@@ -4003,7 +4126,7 @@ def phase_legacy(torch, np, timer, gen, card, checked):
           and [r for r in rows["ln_bwd"] if r["shape"][1] == 1536],
           "phase 19 held no head_dim-192 flash class or no 1536-wide "
           "LayerNorm class against its plain version")
-    out["cli"] = phase_legacy_cli(np, card)
+    out["cli"] = cli
     return out
 
 
@@ -4055,10 +4178,10 @@ VPA_TRAINED = ("iemocap", "mmimdb")
 def phase_mmtrvpa(torch, np, timer, gen, checked):
     """Phase 20: mmtrvpa at iemocap, cmu-mosei and mmimdb (memory head dims
     50, 60 and 256), each the preset with only ``model`` changed, at full
-    width and depth (bf16, seeded weights): 4 requests at batch 8 (one
+    width and depth (bf16, seeded weights): 2 requests at batch 8 (one
     ragged) against the plain path within the preset's limits, exact
     counters; iemocap and mmimdb trained (a micro-step against the plain
-    path with the band fault planted, 2 Adam steps at 8 x A = 2 with every
+    path with the band fault planted, one Adam step at 8 x A = 2 with every
     dropout and exact counters), cmu-mosei one step; every class no earlier
     phase held (the memory encoders' flash classes both ways at rate 0 and
     0.1, the 600-wide LayerNorms) against its plain version, timed; the
@@ -4258,8 +4381,9 @@ def phase_mesh_steps(torch, np, mesh, path=MOVIESCOPE, kinds=MESH_KINDS,
             if i == 0:
                 grads = whole_grads(torch, model)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        entry = dict(median_ms=statistics.median(times), step_ms=times,
-                     losses=losses, peak_gib=peak)
+        med, which = warm_steps(times)
+        entry = dict(median_ms=med, step_ms=times, losses=losses,
+                     peak_gib=peak)
         if ref is None:
             ref = (losses[0], grads)
         else:
@@ -4278,8 +4402,8 @@ def phase_mesh_steps(torch, np, mesh, path=MOVIESCOPE, kinds=MESH_KINDS,
                   f"one-process step")
         print(f"[mesh] {path.name} {kind}: launches per step {want}; step "
               f"times (host clock, synchronised) " + ", ".join(
-                  f"{x:.1f}" for x in times) + f" ms, median "
-              f"{entry['median_ms']:.1f} ms; losses " + ", ".join(
+                  f"{x:.1f}" for x in times) + f" ms, "
+              f"{entry['median_ms']:.1f} ms {which}; losses " + ", ".join(
                   f"{x:.6f}" for x in losses) + f"; peak {peak:.2f} GiB")
         out[kind] = entry
         del model, opt, step, grads
@@ -4679,7 +4803,7 @@ IEMOCAP_FP32 = dataclasses.replace(
 DOMAIN_PATHS = ((MOVIESCOPE_16, {48: 72, 64: 12}, "bfloat16"),
                 (IEMOCAP_FP32, {25: 96, 64: 12}, "float32"))
 DOMAIN_REQUESTS = 2        # the second one ragged
-DOMAIN_STEPS = 2
+DOMAIN_STEPS = 1
 #: one class in each panel band of the generic kernels' widths, in bf16 at
 #: head dims the tabled kernels do not take and in fp32: (dtype, kv_lens
 #: with an empty row, (B, H, Tq, Tk, D, band, kv_lens, seed groups,
@@ -4725,43 +4849,48 @@ runpy.run_module("bpx_torch.cli.train", run_name="__main__", alter_sys=True)
 """
 
 
-def generic_classes(counter, dtype):
-    """The classes of a recorded Counter that take the generic kernels."""
+def route_classes(counter, dtype, route="generic"):
+    """The classes of a recorded Counter that take ``route``'s kernels."""
+    from bpx_torch.ops.flash_attention import kernel_route
     return collections.Counter({c: n for c, n in counter.items()
-                                if is_generic(c[4], dtype)})
+                                if kernel_route(dtype, c[4]) == route})
 
 
-def domain_path(torch, np, timer, gen, path, dims, dtype):
-    """One path of phase 22: served (the launches by route exact, against
-    the plain path with the planted faults), its generic flash classes
-    held against the plain versions and timed (its fp32 LayerNorm classes
+def domain_path(torch, np, timer, gen, path, dims, dtype, route="generic",
+                requests=DOMAIN_REQUESTS, steps=DOMAIN_STEPS,
+                layer_norms=True):
+    """One path of phase 22 (generic) or 23 (chunked): served (the
+    launches by route exact, against the plain path with the planted
+    faults), its flash classes on ``route`` held against the plain
+    versions and timed (with ``layer_norms``, its fp32 LayerNorm classes
     too), one micro-step against the plain path with the planted faults
-    (launches by route exact), the generic classes of the micro-step both
-    ways, then DOMAIN_STEPS Adam steps with exact counters."""
-    pred, reqs = phase_predictor(torch, path, requests=DOMAIN_REQUESTS)
+    (launches by route exact), the micro-step's classes on ``route`` both
+    ways, then ``steps`` Adam steps with exact counters."""
+    pred, reqs = phase_predictor(torch, path, requests=requests)
     flash_cls, ln_cls = record_forward(path, pred, reqs[0], dims=dims)
-    label = f"flash generic {path.name}"
+    label = f"flash {route} {path.name}"
     rows = dict(flash=phase_flash(torch, timer,
-                                  generic_classes(flash_cls, dtype),
+                                  route_classes(flash_cls, dtype, route),
                                   gen, label=label, dtype=dtype))
-    if dtype == torch.float32:
+    fp32_ln = layer_norms and dtype == torch.float32
+    if fp32_ln:
         rows["ln"] = phase_layer_norm(torch, timer, ln_cls, gen,
                                       scalar_path=False)
     served = phase_serve(torch, np, pred, reqs, False, path)
     del pred
     torch.cuda.empty_cache()
     model, loss_fn, step, batches = phase_trainer(torch, np, path,
-                                                  steps=DOMAIN_STEPS)
+                                                  steps=steps)
     seen, micro = phase_micro_step(torch, model, loss_fn, batches, path)
     rows["flash_dropout"] = phase_flash(
         torch, timer,
-        collections.Counter({c: n for c, n in generic_classes(
-            seen["flash"], dtype).items() if c[-1] > 0}),
+        collections.Counter({c: n for c, n in route_classes(
+            seen["flash"], dtype, route).items() if c[-1] > 0}),
         gen, label=label + " dropout", dtype=dtype)
     rows["flash_bwd"] = phase_flash_bwd(
-        torch, timer, generic_classes(seen["flash_bwd"], dtype), gen,
+        torch, timer, route_classes(seen["flash_bwd"], dtype, route), gen,
         label=label + " backward", dtype=dtype)
-    if dtype == torch.float32:
+    if fp32_ln:
         rows["ln_bwd"] = phase_layer_norm_bwd(torch, timer, seen["ln_bwd"],
                                               gen, scalar_path=False)
     with recording() as train_seen:
@@ -4776,7 +4905,8 @@ def phase_readme_cli(card: str):
     """The README's synthetic quick start with ``--attention_impl pallas``
     through ``python -m bpx_torch.cli.train`` on the card, one epoch: rc 0,
     and every flash call on the generic kernels (fp32 at head_dim 16),
-    both ways, with launches in each."""
+    both ways, with launches in each (its line under ``log``: it runs
+    beside other phases)."""
     import os
     tag = "[readme cli]"
     with tempfile.TemporaryDirectory() as tmp:
@@ -4794,31 +4924,34 @@ def phase_readme_cli(card: str):
         fwd, fwd_g, bwd, bwd_g = (int(x) for x in m.groups())
         text = (Path(tmp) / "readme_Seed1_run" / "logfile.log").read_text()
         dev = re.search(r"params on (\S+)", text)
-    print(f"{tag} python -m bpx_torch.cli.train (the README's synthetic "
-          f"command, --attention_impl pallas, one epoch): rc 0 in "
-          f"{wall:.1f} s on {dev.group(1) if dev else '?'}; flash launches "
-          f"{fwd} forward ({fwd_g} generic), {bwd} backward ({bwd_g} "
-          f"generic); card: {card}")
+    line = (f"{tag} python -m bpx_torch.cli.train (the README's synthetic "
+            f"command, --attention_impl pallas, one epoch): rc 0 in "
+            f"{wall:.1f} s on {dev.group(1) if dev else '?'}; flash launches "
+            f"{fwd} forward ({fwd_g} generic), {bwd} backward ({bwd_g} "
+            f"generic); card: {card}")
     check(dev is not None and dev.group(1).startswith("cuda"),
-          f"{tag} the log does not name the card")
+          f"{tag} the log does not name the card: {line}")
     check(fwd_g > 0 and bwd_g > 0 and fwd_g == fwd and bwd_g == bwd,
-          f"{tag} the flash calls did not all take the generic kernels")
+          f"{tag} the flash calls did not all take the generic kernels: "
+          f"{line}")
     return dict(wall_s=wall, flash=fwd, generic=fwd_g, flash_bwd=bwd,
-                generic_bwd=bwd_g)
+                generic_bwd=bwd_g, log=line)
 
 
-def phase_generic_rows(torch, timer, gen):
-    """GENERIC_CLASSES both ways against the plain versions, timed beside
-    the bound and SDPA (the profiler naming each generic kernel)."""
+def phase_class_rows(torch, timer, gen, classes=GENERIC_CLASSES,
+                     label="generic panel"):
+    """``classes`` (GENERIC_CLASSES: the generic kernels') both ways
+    against the plain versions, timed beside the bound and SDPA (the
+    profiler naming each kernel)."""
     rows = dict(flash=[], flash_bwd=[])
-    for dt, empty, cls in GENERIC_CLASSES:
+    for dt, empty, cls in classes:
         dtype = getattr(torch, dt)
         one = collections.Counter({cls: 1})
         rows["flash"] += phase_flash(torch, timer, one, gen,
-                                     label="flash generic panel",
+                                     label=f"flash {label}",
                                      dtype=dtype, empty_row=empty)
         rows["flash_bwd"] += phase_flash_bwd(
-            torch, timer, one, gen, label="flash_bwd generic panel",
+            torch, timer, one, gen, label=f"flash_bwd {label}",
             dtype=dtype, empty_row=empty)
     return rows
 
@@ -4842,17 +4975,21 @@ def phase_generic_masks(torch, gen):
           "the placed piece's bits are not the global call's slice")
 
 
-def phase_generic_faults(torch, gen, variant):
-    """Each generic kernel's planted fault (``GENERIC_FAULT``, one build)
-    against the sound build at the same class, bf16 at head_dim 48 and fp32
-    at 25 (band, kv_lens, rate 0.1): the sound kernels within the rows'
-    limits, and the faulty forward's O, dQ and dK each past theirs.  The
-    backward runs from the plain forward's O and lse, so each kernel's own
-    fault shows."""
+def phase_planted_faults(torch, gen, variant,
+                         cases=(("bfloat16", 48), ("float32", 25)),
+                         caught=("dq", "dk"), route="generic"):
+    """Each kernel's planted fault (``variant``: the library built with
+    ``GENERIC_FAULT``, or ``CHUNKED_FAULT``) against the sound build at the
+    same class, at each (dtype, head_dim) of ``cases`` (band, kv_lens,
+    rate 0.1): the sound kernels within the rows' limits, and the faulty
+    forward's O and the gradients ``caught`` (the generic faults: dQ and
+    dK; the chunked ones: dQ and dV) each past theirs.  The backward runs
+    from the plain forward's O and lse, so each kernel's own fault
+    shows."""
     from bpx_torch.ops import _cuda, flash_attention as fa
     lib = _cuda.library()
     got = {}
-    for dt, D in (("bfloat16", 48), ("float32", 25)):
+    for dt, D in cases:
         dtype = getattr(torch, dt)
         _, _, tol, grad_tol = dtype_limits(torch, dtype)
         q, k, v, kv_lens = attention_inputs(torch, gen, 4, 4, 200, 200, D,
@@ -4879,26 +5016,27 @@ def phase_generic_faults(torch, gen, variant):
                      dq=grad_err(dq, want[0]), dk=grad_err(dk, want[1]),
                      dv=grad_err(dv, want[2]))
             got[(dt, build)] = e
-            print(f"[generic faults] {dt} D={D} {build} build: O max err "
+            print(f"[{route} faults] {dt} D={D} {build} build: O max err "
                   f"{e['forward']:.3g} (within {tol}: {e['forward_ok']}), "
                   f"dQ {e['dq']:.3g}, dK {e['dk']:.3g}, dV {e['dv']:.3g} "
                   f"(limit {grad_tol})")
             if build == "sound":
                 check(e["forward_ok"] and max(e["dq"], e["dk"], e["dv"])
-                      <= grad_tol, f"the sound generic kernels at {dt} D "
+                      <= grad_tol, f"the sound {route} kernels at {dt} D "
                                    f"{D} are past their limits")
             else:
-                check(not e["forward_ok"] and e["dq"] > grad_tol
-                      and e["dk"] > grad_tol,
-                      f"a planted generic fault at {dt} D {D} is not caught")
+                check(not e["forward_ok"]
+                      and all(e[g] > grad_tol for g in caught),
+                      f"a planted {route} fault at {dt} D {D} is not caught")
     return got
 
 
-def phase_domain(torch, np, timer, gen, card):
+def phase_domain(torch, np, timer, gen, card, cli):
     """Phase 22: (a) moviescope at 16 heads and (b) iemocap in fp32 through
-    ``domain_path``; (c) the README's synthetic quick start through the CLI;
-    (d) GENERIC_CLASSES, the generic kernels' masks and their planted
-    faults (a build of their own, made in the background meanwhile)."""
+    ``domain_path``; (c) ``cli``, the result of the README's synthetic quick
+    start through the CLI (``phase_readme_cli``); (d) GENERIC_CLASSES, the
+    generic kernels' masks and their planted faults (a build of their own,
+    made in the background meanwhile)."""
     from bpx_torch.ops import _cuda
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fault_build = pool.submit(_cuda.build, [GENERIC_FAULT])
@@ -4914,20 +5052,120 @@ def phase_domain(torch, np, timer, gen, card):
               f"{torch.backends.cuda.matmul.allow_tf32}, "
               f"torch.backends.cudnn.allow_tf32 "
               f"{torch.backends.cudnn.allow_tf32}")
+        out["cli"] = cli
         t0 = time.time()
-        out["cli"] = phase_readme_cli(card)
-        print(f"[time] domain README command {time.time() - t0:.1f} s")
-        t0 = time.time()
-        out["rows"] = phase_generic_rows(torch, timer, gen)
+        out["rows"] = phase_class_rows(torch, timer, gen)
         phase_generic_masks(torch, gen)
         print(f"[time] domain panel rows and masks {time.time() - t0:.1f} s")
         t0 = time.time()
         t_wait = time.perf_counter()
         fault_build.result()
         SPENT["fault_build_wait_s"] += time.perf_counter() - t_wait
-        out["faults"] = phase_generic_faults(
+        out["faults"] = phase_planted_faults(
             torch, gen, _cuda.load([GENERIC_FAULT]))
         print(f"[time] domain planted faults (after their build) "
+              f"{time.time() - t0:.1f} s")
+    finally:
+        pool.shutdown(wait=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the flash kernels past head dim 256 (csrc/flash_chunked.cu)
+# ---------------------------------------------------------------------------
+
+# moviescope at 2 heads: 768 / 2 = head_dim 384 in the crossmodal,
+# biprojection and memory encoders, on the chunked kernels (72 of the 84
+# flash launches per forward); BERT stays 12 x 64 on the tabled ones.  Held
+# to moviescope's limits, as phase 22's moviescope at 16 heads
+MOVIESCOPE_2 = dataclasses.replace(
+    MOVIESCOPE_16, generic=0, chunked=FLASH_PER_FORWARD - 12,
+    options=(("num_heads", 2),))
+# iemocap's mmtrvat in fp32 at 1 head: head_dim 300 in the encoders, on the
+# chunked kernels (96 of the 108 flash launches per forward); BERT's 12 at
+# 64 on the generic ones (fp32).  Held to phase 22's fp32 limits
+IEMOCAP_FP32_1 = dataclasses.replace(
+    IEMOCAP_FP32, generic=12, chunked=VAT_FLASH - 12,
+    options=(("compute_dtype", "float32"), ("num_heads", 1)))
+#: each path, its flash launches per forward by head dim and its dtype
+CHUNKED_PATHS = ((MOVIESCOPE_2, {384: 72, 64: 12}, "bfloat16"),
+                 (IEMOCAP_FP32_1, {300: 96, 64: 12}, "float32"))
+CHUNKED_REQUESTS = 2       # the second one ragged
+CHUNKED_STEPS = 2
+#: the chunked kernels past the paths' head dims, in bf16 and fp32 at 257
+#: (one column past the generic builds), 384, 512, 768 and 1536 (mmtrvpa's
+#: 2E-wide memory at moviescope's width over one head): (dtype, kv_lens
+#: with an empty row, (B, H, Tq, Tk, D, band, kv_lens, seed groups, rate));
+#: among them the band with an offset (Tq != Tk), a row with no visible
+#: key, rate 0.1, two seed groups and Tk > 1024 (the hash's tk_p 1152) in
+#: one class
+CHUNKED_CLASSES = (
+    ("bfloat16", True, (4, 2, 200, 264, 257, True, True, 1, 0.1)),
+    ("bfloat16", False, (2, 2, 256, 256, 384, True, False, 2, 0.1)),
+    ("bfloat16", False, (2, 2, 256, 256, 512, True, False, 1, 0.0)),
+    ("bfloat16", True, (2, 1, 200, 1100, 768, True, True, 2, 0.1)),
+    ("bfloat16", True, (2, 1, 256, 256, 1536, False, True, 1, 0.1)),
+    ("float32", False, (2, 2, 256, 256, 257, True, False, 1, 0.1)),
+    ("float32", True, (2, 2, 200, 264, 384, True, True, 2, 0.1)),
+    ("float32", False, (2, 1, 256, 256, 512, True, False, 1, 0.1)),
+    ("float32", True, (2, 1, 256, 256, 768, False, True, 1, 0.0)),
+    ("float32", True, (2, 1, 200, 264, 1536, True, True, 1, 0.1)),
+)
+#: the chunked kernels' planted faults, one a kernel, in one build
+#: (csrc/flash_chunked.cu): the forward's and the dK/dV kernel's scores
+#: without chunk 1, the dQ kernel's delta without the last chunk
+CHUNKED_FAULT = "-DBPX_PLANT_CHUNKED_FAULT=7"
+
+
+def phase_chunked_masks(torch, gen):
+    """The chunked kernels' keep bits exactly (``phase_mask_check``): bf16
+    at head_dim 384 with one seed, with two seed groups (each group's bits
+    its own launch's), placed as the (B/2, H/2) piece a rank of a data=2 x
+    tensor=2 mesh holds (its bits the global call's slice); fp32 at 300."""
+    from bpx_torch.ops import flash_attention as fa
+    bf = torch.bfloat16
+    phase_mask_check(torch, gen, BATCH, 2, 128, 384)
+    phase_mask_check(torch, gen, BATCH, 1, 128, 300, torch.float32)
+    phase_seed_masks(torch, gen, 2, 4, 2, 128, 384)
+    place = (BATCH // 2, 1, 2)
+    phase_mask_check(torch, gen, BATCH // 2, 1, 128, 384, bf, place)
+    glob = fa.keep_mask(0xDEADBEEF, BATCH, 2, 128, 128, 0.1, "cuda")
+    piece = fa.keep_mask(0xDEADBEEF, BATCH // 2, 1, 128, 128, 0.1, "cuda",
+                         place)
+    check(torch.equal(piece, glob[BATCH // 2:, 1:]),
+          "the placed piece's bits are not the global call's slice")
+
+
+def phase_chunked(torch, np, timer, gen):
+    """Phase 23: (a) moviescope at 2 heads and (b) iemocap in fp32 at 1
+    head through ``domain_path`` on the chunked route; (c)
+    CHUNKED_CLASSES, the chunked kernels' masks and their planted faults
+    (a build of their own, made in the background meanwhile)."""
+    from bpx_torch.ops import _cuda
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fault_build = pool.submit(_cuda.build, [CHUNKED_FAULT])
+    out = {}
+    try:
+        for path, dims, dt in CHUNKED_PATHS:
+            t0 = time.time()
+            out[path.name] = domain_path(
+                torch, np, timer, gen, path, dims, getattr(torch, dt),
+                "chunked", CHUNKED_REQUESTS, CHUNKED_STEPS,
+                layer_norms=False)
+            print(f"[time] chunked {path.name} {time.time() - t0:.1f} s")
+        t0 = time.time()
+        out["rows"] = phase_class_rows(torch, timer, gen, CHUNKED_CLASSES,
+                                       "chunked")
+        phase_chunked_masks(torch, gen)
+        print(f"[time] chunked rows and masks {time.time() - t0:.1f} s")
+        t0 = time.time()
+        t_wait = time.perf_counter()
+        fault_build.result()
+        SPENT["fault_build_wait_s"] += time.perf_counter() - t_wait
+        out["faults"] = phase_planted_faults(
+            torch, gen, _cuda.load([CHUNKED_FAULT]),
+            (("bfloat16", 384), ("float32", 300)), ("dq", "dv"), "chunked")
+        print(f"[time] chunked planted faults (after their build) "
               f"{time.time() - t0:.1f} s")
     finally:
         pool.shutdown(wait=True)
@@ -4940,7 +5178,8 @@ def split_rows(rows, which):
     plain time and SDPA's are the whole backward's."""
     key = ("dq", "dkdv")[which]
     return [dict(r, ms=list(r["kernel_split_ms"].values())[which],
-                 bound_ms=r[f"{key}_bound_ms"], bound_by=r[f"{key}_bound_by"])
+                 bound_ms=r[f"{key}_bound_ms"], bound_by=r[f"{key}_bound_by"],
+                 recompute=r[f"{key}_recompute"])
             for r in rows]
 
 
@@ -4993,9 +5232,14 @@ def summarise(name, source, replaces, rows, launches, runs, per):
              f"launches_per_{per}": launches // runs, "shapes": rows}
     ms, lib, bound = entry["ms"], entry["library_ms"], entry["bound_ms"]
     entry.update(bound_share=bound / ms, library_ratio=ms / lib)
+    redo = ""
+    if any(r.get("recompute", 1) != 1 for r in rows):
+        # the chunked kernels' flops over the function's, beside the bound
+        entry["recompute"] = avg("recompute")
+        redo = f", the kernel's flops x{entry['recompute']:.3f} the function's"
     print(f"[summary] {name} (mix-weighted): {ms:.4f} ms, library "
           f"{lib:.4f} ms ({ms / lib:.2f}x), bound {bound:.4f} ms "
-          f"({bound / ms:.1%} of the bound)")
+          f"({bound / ms:.1%} of the bound{redo})")
     return entry
 
 
@@ -5150,18 +5394,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[time] mmimdb phases {time.time() - t0:.1f} s")
 
-    # recompute at the presets' own settings: iemocap (full recompute) and
-    # mmimdb (save_attn in the encoders, BERT in full)
-    t0 = time.time()
-    remat = {p.preset: phase_remat(torch, np, p, card)
-             for p in (IEMOCAP, MMIMDB)}
-    print(f"[time] remat phases {time.time() - t0:.1f} s")
-
-    # the options the CLI accepts: hybrid (RAdam), group_encoders (bf16
-    # accumulation), iemocap hybrid, the 32 x 32 sweep; new classes only
-    # against the plain versions, beside those the moviescope and iemocap
-    # phases held (the training forward's LayerNorms are the served ones)
-    t0 = time.time()
+    # the classes the moviescope phases held against the plain versions
+    # (the loop's), and those the iemocap and cmu-mosei phases added (the
+    # training forward's LayerNorms are the served ones)
     checked = dict(
         flash=set(flash_cls) | {k for k in seen["flash"] if k[-1] > 0},
         flash_bwd=set(seen["flash_bwd"]), ln=set(ln_cls),
@@ -5175,8 +5410,29 @@ def main() -> None:
         ln=checked["ln"] | set(seen["ln"]) | set(i_ln_cls)
         | set(i_seen["ln"]),
         ln_bwd=checked["ln_bwd"] | set(i_seen["ln_bwd"]))
-    opts = phase_options(torch, np, timer, gen, held)
-    print(f"[time] options phase {time.time() - t0:.1f} s")
+    # the CLI checks that run in processes of their own (the README's
+    # synthetic command, mmtrvpa's, the loop's export and its archive
+    # served) run on side threads beside the phases up to the farm, which
+    # time no kernel: each is held as before, and its line printed when
+    # it is joined
+    side = concurrent.futures.ThreadPoolExecutor(3)
+    t_side = time.time()
+    readme_cli = side.submit(phase_readme_cli, card)
+    legacy_cli = side.submit(phase_legacy_cli, np, card)
+
+    # the training loop: moviescope's full-width model through the CLI,
+    # at the classes the moviescope phases held against the plain versions
+    t0 = time.time()
+    looped = phase_loop(torch, np, card, checked, side)
+    torch.cuda.empty_cache()
+    print(f"[time] loop phase {time.time() - t0:.1f} s")
+
+    # recompute at the presets' own settings: iemocap (full recompute) and
+    # mmimdb (save_attn in the encoders, BERT in full)
+    t0 = time.time()
+    remat = {p.preset: phase_remat(torch, np, p, card)
+             for p in (IEMOCAP, MMIMDB)}
+    print(f"[time] remat phases {time.time() - t0:.1f} s")
 
     # counseling and cmu-mosi (head_dim 30, 5 layers): one request and one
     # train step each; synthetic-tiny on the einsum attention likewise
@@ -5207,12 +5463,29 @@ def main() -> None:
     print(f"[time] counseling, cmu-mosi, synthetic-tiny phases "
           f"{time.time() - t0:.1f} s")
 
-    # the training loop: moviescope's full-width model through the CLI,
-    # at the classes the moviescope phases held against the plain versions
+    # phase 18: the task farm on the card
     t0 = time.time()
-    looped = phase_loop(torch, np, card, checked)
-    torch.cuda.empty_cache()
-    print(f"[time] loop phase {time.time() - t0:.1f} s")
+    farm = phase_farm(card)
+    print(f"[time] farm phase {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    side.shutdown(wait=True)
+    looped["export_cli"] = looped["export_cli"].result()
+    readme_cli, legacy_cli = readme_cli.result(), legacy_cli.result()
+    for r in (readme_cli, legacy_cli, looped["export_cli"]):
+        print(r.pop("log"))
+    print(f"[time] side CLIs joined after {time.time() - t_side:.1f} s "
+          f"(waited {time.time() - t0:.1f} s): the README command "
+          f"{readme_cli['wall_s']:.1f} s, mmtrvpa's "
+          f"{legacy_cli['wall_s']:.1f} s, the export "
+          f"{looped['export_cli']['cli_s']:.1f} s and its archive served")
+
+    # the options the CLI accepts: hybrid (RAdam), group_encoders (bf16
+    # accumulation), iemocap hybrid, the 32 x 32 sweep; new classes only
+    # against the plain versions, beside those ``held``
+    t0 = time.time()
+    opts = phase_options(torch, np, timer, gen, held)
+    print(f"[time] options phase {time.time() - t0:.1f} s")
 
     # phase 17: iemocap's five seeds in one vmapped step, the folded
     # launches held against the plain versions at their S·B classes
@@ -5248,16 +5521,11 @@ def main() -> None:
     chunks = phase_seed_chunks(torch, timer, gen)
     print(f"[time] multiseed phase {time.time() - t0:.1f} s")
 
-    # phase 18: the task farm on the card
-    t0 = time.time()
-    farm = phase_farm(card)
-    print(f"[time] farm phase {time.time() - t0:.1f} s")
-
     # phase 19: the notebook-era models at moviescope's full width; the
     # classes the earlier phases held (the options phase's included) are
     # not held again
     t0 = time.time()
-    legacy = phase_legacy(torch, np, timer, gen, card, held)
+    legacy = phase_legacy(torch, np, timer, gen, card, held, legacy_cli)
     print(f"[time] legacy phase {time.time() - t0:.1f} s")
 
     # phase 20: mmtrvpa at iemocap, cmu-mosei and mmimdb (memory head dims
@@ -5278,8 +5546,15 @@ def main() -> None:
     # README's synthetic command through the CLI, the generic kernels at
     # one class of each panel band, their masks and planted faults
     t0 = time.time()
-    domain = phase_domain(torch, np, timer, gen, card)
+    domain = phase_domain(torch, np, timer, gen, card, readme_cli)
     print(f"[time] domain phase {time.time() - t0:.1f} s")
+
+    # phase 23: the flash kernels past head dim 256: moviescope at 2 heads
+    # (head_dim 384) and iemocap in fp32 at 1 head (300) on the chunked
+    # kernels, the chunked kernels at 257 to 1536, their masks and faults
+    t0 = time.time()
+    chunked = phase_chunked(torch, np, timer, gen)
+    print(f"[time] chunked phase {time.time() - t0:.1f} s")
     print(f"[time] of the whole run: kernel, plain and library timings "
           f"{SPENT['timing_s']:.1f} s; {SPENT['profiles']} profiler windows "
           f"{SPENT['profiler_s']:.1f} s; waits for the planted-fault builds "
@@ -5514,6 +5789,25 @@ def main() -> None:
         summarise("flash_generic_dkdv", gen_src,
                   "bpx/ops/pallas_attention.py:357", split_rows(d_bwd, 1),
                   d_launch("generic_bwd"), d_runs, "micro_step")]
+    # phase 23: the chunked kernels at the classes of paths (a) and (b) and
+    # of CHUNKED_CLASSES; launches those of both paths' train steps
+    ch_src = "bpx_torch/csrc/flash_chunked.cu"
+    c_paths = [chunked[p.name] for p, _, _ in CHUNKED_PATHS]
+    c_rows = lambda key: ([r for d in c_paths for r in d["rows"][key]]
+                          + chunked["rows"].get(key, []))
+    c_bwd = c_rows("flash_bwd")
+    c_runs = CHUNKED_STEPS * TRAIN_A * len(c_paths)
+    c_launch = lambda key: sum(d["trained"]["totals"][key] for d in c_paths)
+    kernels += [
+        summarise("flash_chunked_fwd", ch_src, fwd_tpu,
+                  c_rows("flash") + c_rows("flash_dropout"),
+                  c_launch("chunked"), c_runs, "micro_step"),
+        summarise("flash_chunked_dq", ch_src,
+                  "bpx/ops/pallas_attention.py:276", split_rows(c_bwd, 0),
+                  c_launch("chunked_bwd"), c_runs, "micro_step"),
+        summarise("flash_chunked_dkdv", ch_src,
+                  "bpx/ops/pallas_attention.py:357", split_rows(c_bwd, 1),
+                  c_launch("chunked_bwd"), c_runs, "micro_step")]
     st = mesh["stress"]
     kernels += [
         summarise("flash_fwd_stress", fwd_src, fwd_tpu, st["fwd_rows"],
@@ -5681,6 +5975,25 @@ def main() -> None:
           + f"; README command through the CLI: {domain['cli']['wall_s']:.1f}"
           f" s, {domain['cli']['generic']} generic forward / "
           f"{domain['cli']['generic_bwd']} backward launches; card: {card}")
+    print("[summary] past head_dim 256 (the chunked flash kernels): "
+          + "; ".join(
+              f"{p.name}: served median {d['served']['median_ms']:.2f} ms "
+              f"({d['served']['chunked_launches'] // CHUNKED_REQUESTS} of "
+              f"{d['served']['flash_launches'] // CHUNKED_REQUESTS} flash "
+              f"launches per forward chunked, "
+              f"{d['served']['generic_launches'] // CHUNKED_REQUESTS} "
+              f"generic), train step median {d['trained']['median_ms']:.1f} "
+              f"ms (peak {d['trained']['peak_gib']:.2f} GiB; chunked "
+              f"launches per micro-step "
+              f"{d['trained']['totals']['chunked'] // c_steps} forward / "
+              f"{d['trained']['totals']['chunked_bwd'] // c_steps} "
+              f"backward), micro-step kernels vs plain: loss "
+              f"{d['micro']['loss_err']:.3g}, gradients "
+              f"{d['micro']['grad_err']:.3g}"
+              for p, d, c_steps in ((p, chunked[p.name],
+                                     CHUNKED_STEPS * TRAIN_A)
+                                    for p, _, _ in CHUNKED_PATHS))
+          + f"; card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

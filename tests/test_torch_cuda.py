@@ -27,7 +27,11 @@ LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 the backward's phase stamps in a build with ``-DBPX_LN_TRACE``; the
 kernels' custom ops (``opcheck``'s schema and fake checks on CUDA tensors,
 and a recomputed call under the ``save_attn`` policy); twenty seeds under
-vmap as folded launches of at most 16 seed groups.
+vmap as folded launches of at most 16 seed groups; the generic kernels
+(bf16 at the untabled head dims, fp32 at every head dim up to 256) and the
+chunked ones (every head dim above 256, both dtypes) against the plain
+versions at their edges, bitwise on reruns, their exact masks, their
+kernels by name, their counters and their occupancy.
 
 Needs a CUDA device and skips elsewhere (the ``gen`` fixture decides).
 On a machine with a card, without JAX:
@@ -142,15 +146,15 @@ def test_flash_kernel_takes_strided_views(gen):
 
 def test_flash_kernel_rejects_and_plain_context(gen):
     """What no kernel takes raises on the card, with nothing launched and
-    no fallback: float16, and a head_dim above 256; under
-    ``plain_versions()`` the plain version runs and nothing launches."""
+    no fallback: float16, and a head_dim of 0; under ``plain_versions()``
+    the plain version runs and nothing launches."""
     q, k, v = _qkv(gen, 1, 2, 16, 16, 64)
     before = flash_attention.launches
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention(q.half(), k.half(), v.half())
-    q257, k257, v257 = _qkv(gen, 1, 2, 16, 16, 257)
-    with pytest.raises(NotImplementedError, match="256"):
-        flash_attention(q257, k257, v257)
+    q0 = torch.zeros(1, 2, 16, 0, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1 or more"):
+        flash_attention(q0, q0, q0)
     assert flash_attention.launches == before
     with plain_versions():
         out = flash_attention(q, k, v, True)
@@ -860,7 +864,7 @@ def test_kernels_fit_the_sm(gen):
     and the backward's dQ and dK/dV 3 each; at 128 the wide forward
     (113 KB of shared memory) and the dQ kernel 2, the 256-thread dK/dV
     kernel 1; at 192 and 256 one 256-thread block of each; a head dim
-    above 256 raises."""
+    below 1 raises."""
     from bpx_torch.ops.flash_attention import KERNEL_HEAD_DIMS, blocks_per_sm
     for d in KERNEL_HEAD_DIMS:
         got = blocks_per_sm(d)
@@ -876,8 +880,8 @@ def test_kernels_fit_the_sm(gen):
             assert got["dK/dV"] == 1, (d, got)
         if d in (192, 256):
             assert got == {"forward": 1, "dK/dV": 1, "dQ": 1}, (d, got)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        blocks_per_sm(257)
+    with pytest.raises(ValueError, match="head_dim"):
+        blocks_per_sm(0)
 
 
 def test_synthetic_tiny_serves_and_trains_on_the_einsum_path(gen):
@@ -1519,3 +1523,176 @@ def test_generic_kernels_fit_the_sm(gen):
             assert min(got.values()) >= 1, (dtype, w, got)
             if w <= 64:
                 assert got["forward"] >= 3, (dtype, w, got)
+
+
+# ---------------------------------------------------------------------------
+# the chunked kernels (csrc/flash_chunked.cu): bf16 and fp32 at every head
+# dim above 256
+# ---------------------------------------------------------------------------
+
+# past the generic builds (257), the paths' head dims (300, 384), and a
+# chunk's multiples and their edges up to mmtrvpa's memory width (1536),
+# in both dtypes
+CHUNKED_DIMS = [(dt, d) for dt in (torch.bfloat16, torch.float32)
+                for d in (257, 300, 384, 511, 768, 1536)]
+
+
+@pytest.mark.parametrize("dtype,D", CHUNKED_DIMS)
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate,groups", [
+    (2, 2, 70, 135, True, (135, 0), 0.1, 2),   # band offset 65, empty row
+    (2, 1, 135, 70, True, None, 0.0, 1),       # tall band, ragged tiles
+    (1, 2, 100, 1100, True, (1100,), 0.1, 1),  # Tk > 1024: tk_p 1152
+])
+def test_chunked_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked,
+                                     lens, rate, groups):
+    """The chunked forward and backward (dQ with delta, then dK/dV)
+    against the plain versions on fused views, launched on the chunked
+    route (the counters), bitwise on a rerun; a row with no visible key
+    attends uniformly and gets zero dQ; the standalone delta on its
+    chunked kernel."""
+    from bpx_torch.ops.flash_attention import _launch_bwd
+    q, k, v = _generic_qkv(gen, B, H, Tq, Tk, D, dtype)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+    seed = ([0x6E6E + g for g in range(groups)] if groups > 1 else 0x6E6E) \
+        if rate else None
+    tol, grad_tol = _generic_tol(dtype)
+    counters = lambda: (flash_attention.launches,
+                        flash_attention.chunked_launches,
+                        flash_attention_backward.chunked_launches,
+                        attention_delta.chunked_launches)
+    before = counters()
+    out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
+                               return_lse=True)
+    dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    got = _launch_bwd(q, k, v, dout, lse, out, masked, kv, rate, seed)
+    delta = attention_delta(dout, out)
+    assert counters() == tuple(b + 1 for b in before)
+    ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    want_delta = attention_delta_reference(dout, out)
+    torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-4)
+    want = flash_attention_backward_reference(
+        q, k, v, dout, lse, want_delta, masked, kv, rate, seed)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= grad_tol, (name, err.item())
+    again = _launch_bwd(q, k, v, dout, lse, out, masked, kv, rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(out, flash_attention(q, k, v, masked, kv, rate, seed))
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        assert not got[0][b].any() and out[b].abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype,B,H,D", [(torch.bfloat16, 8, 2, 384),
+                                         (torch.float32, 8, 1, 300)])
+def test_chunked_kernels_at_the_paths_classes(gen, dtype, B, H, D):
+    """The classes of moviescope at 2 heads (bf16, head_dim 384) and of
+    iemocap at 1 head in fp32 (300): 512 x 512 causal, rate 0 and 0.1,
+    both ways against the plain versions on fused views."""
+    from bpx_torch.ops.flash_attention import _launch_bwd
+    q, k, v = _generic_qkv(gen, B, H, 512, 512, D, dtype)
+    tol, grad_tol = _generic_tol(dtype)
+    dout = torch.randn(B, 512, H, D, generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    for rate, seed in ((0.0, None), (0.1, 0xACE)):
+        out, lse = flash_attention(q, k, v, True, None, rate, seed,
+                                   return_lse=True)
+        ref, ref_lse = flash_attention_reference(q, k, v, True, None, rate,
+                                                 seed)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+        got = _launch_bwd(q, k, v, dout, lse, out, True, None, rate, seed)
+        want = flash_attention_backward_reference(
+            q, k, v, dout, lse, attention_delta_reference(dout, out), True,
+            None, rate, seed)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err <= grad_tol, (name, rate, err.item())
+
+
+def test_chunked_route_takes_fused_views_uncopied(gen):
+    """At head_dim 300 a fused (B, T, 3, H, D) projection's views go to the
+    chunked kernels as they are, in both dtypes, and give what contiguous
+    copies give, both ways."""
+    from bpx_torch.ops.flash_attention import _kernel_ready, _launch_bwd
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.randn(2, 90, 3, 2, 300, generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+        for t in (q, k, v):
+            assert _kernel_ready("t", t, t.device) is t
+        dense = [t.contiguous() for t in (q, k, v)]
+        out, lse = flash_attention(q, k, v, True, return_lse=True)
+        assert torch.equal(out, flash_attention(*dense, True))
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        for a, b in zip(_launch_bwd(q, k, v, dout, lse, out, True, None),
+                        _launch_bwd(*dense, dout, lse, out, True, None)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 384),
+                                     (torch.float32, 300)])
+@pytest.mark.parametrize("seed,place", [
+    (0x6E6E0001, None), ([0x6E6E0001, 0xC0FFEE], None),
+    (0x6E6E0001, (4, 1, 2))])
+def test_chunked_dropout_mask_is_exact(gen, dtype, D, seed, place):
+    """The chunked kernels' keep bits, both ways, equal ``keep_mask``'s
+    (every chunk block of a tile draws the same bits): one seed, two seed
+    groups (each group's bits its own), and placed as the (B/2, H/2)
+    piece of a data=2 x tensor=2 mesh (the global call's slice)."""
+    B, H, T = 4, 1, 100
+    q = torch.zeros(B, H, T, D, device="cuda", dtype=dtype)
+    k = torch.randn(B, H, T, D, generator=gen, device="cuda").to(dtype)
+    fwd, bwd = _generic_mask(q, k, 0.1, seed, place)
+    want = keep_mask(seed, B, H, T, T, 0.1, "cuda", place)
+    assert torch.equal(fwd, want) and torch.equal(bwd, want)
+    if place is not None:
+        glob = keep_mask(seed, 2 * B, 2 * H, T, T, 0.1, "cuda")
+        assert torch.equal(want, glob[B:, place[1]:place[1] + H])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunked_kernels_by_name(gen, dtype):
+    """A call past head_dim 256 runs the chunked kernels, by the
+    profiler's names: the forward, then the dQ and dK/dV kernels, each
+    of the one-group build (and of the seed-group build with two
+    groups); 256 stays on its own route."""
+    name = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    q, k, v = _generic_qkv(gen, 2, 2, 130, 130, 384, dtype)
+    out, lse = flash_attention(q, k, v, True, None, return_lse=True)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    for groups, seed in ((1, None), (2, [1, 2])):
+        rate = 0.1 if seed else 0.0
+        build = f"<{name}, {'true' if groups > 1 else 'false'}>"
+        want = ["flash_chunked_fwd_kernel" + build,
+                "flash_chunked_dq_kernel" + build,
+                "flash_chunked_dkdv_kernel" + build]
+        names = set()
+        for _ in range(5):   # the profiler drops events now and then
+            names |= set(_device_kernels(lambda: (
+                flash_attention(q, k, v, True, None, rate, seed),
+                flash_attention_backward(q, k, v, out, lse, dout, True,
+                                         None, rate, seed))))
+            if all(any(w in n for n in names) for w in want):
+                break
+        for w in want:
+            assert any(w in n for n in names), (w, names)
+        assert all("chunked" in n for n in names if "flash" in n), names
+
+
+def test_chunked_kernels_fit_the_sm(gen):
+    """The chunked kernels fit the blocks their design counts on
+    (flash_chunked.cu: 128-column tiles), in both dtypes and at any head
+    dim above 256: the forward and the dK/dV kernel three an SM, the dQ
+    kernel two."""
+    from bpx_torch.ops.flash_attention import blocks_per_sm
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (257, 1536):
+            got = blocks_per_sm(d, dtype)
+            assert got["forward"] >= 3 and got["dK/dV"] >= 3, (dtype, got)
+            assert got["dQ"] >= 2, (dtype, got)

@@ -23,6 +23,7 @@ from bpx_torch.ops.flash_attention import (
     flash_attention_backward_reference, flash_attention_reference)
 from bpx_torch.ops.norm import layer_norm, layer_norm_backward_reference
 from tests.test_torch_flash_attention import _bpx_fwd_vjp
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 OPS = torch.ops.bpx_torch
 B, H, TQ, TK = 2, 3, 7, 9

@@ -34,6 +34,7 @@ from bpx.train.steps import model_inputs as jmodel_inputs
 from bpx_torch.config import config_from_dict
 from bpx_torch.interop import params_from_flax
 from tests import _torch_distributed as td
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 A, MICRO = 2, 4
 LR = 0.1

@@ -16,6 +16,7 @@ import pytest
 
 from tests import _torch_distributed as td
 from tests.test_torch_cli import SMALL
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 
 def _argv(tmp_path, name, *extra):

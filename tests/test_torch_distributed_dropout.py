@@ -28,6 +28,7 @@ from bpx_torch.config import config_from_dict
 from bpx_torch.models import get_model
 from tests import _torch_distributed as td
 from tests.test_torch_distributed import no_dropout, super_batch, tiny_vapt
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 FREQS = [5, 2, 9, 1, 4]
 

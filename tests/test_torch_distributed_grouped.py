@@ -29,6 +29,7 @@ from tests.test_torch_distributed import (FREQS, LR, assert_matches_bpx,
                                           bpx_sgd_step, no_dropout,
                                           super_batch, tiny_vapt)
 from tests.test_torch_distributed_dropout import spec_for, with_dropout
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 LAYOUTS = {"data2": (2, 1, 1), "fsdp2": (1, 2, 1), "data2_tensor2": (2, 1, 2),
            "2x2x2": (2, 2, 2)}

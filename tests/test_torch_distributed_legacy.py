@@ -29,6 +29,7 @@ from tests.test_torch_distributed import (FREQS, LR, assert_matches_bpx,
                                           bpx_sgd_step, no_dropout,
                                           super_batch, tiny_vapt)
 from tests.test_torch_distributed_dropout import spec_for, with_dropout
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 NAMES = ("mmtrvpa", "tmmtrvpa", "gmu", "gmu_bi", "gmu_hier", "gmu_softmax",
          "bertclf", "bert")

@@ -19,6 +19,7 @@ from bpx_torch.utils.checkpoint import CheckpointManager
 from tests import _torch_distributed as td
 from tests.test_torch_distributed_dropout import spec_for, with_dropout
 from tests.test_torch_distributed import tiny_vapt
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 
 def _spec(layout):

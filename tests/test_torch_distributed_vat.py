@@ -23,6 +23,7 @@ from bpx.config import get_preset as jget_preset
 from tests.test_torch_distributed import (assert_matches_bpx, bpx_sgd_step,
                                           no_dropout, sharded_step,
                                           super_batch)
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 CLASSES = 8
 FREQS = [5, 2, 9, 1, 4, 3, 6, 2]

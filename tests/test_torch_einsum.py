@@ -36,6 +36,7 @@ from tests.test_torch_model import (TOL, _batch, _fp32_matmuls,  # noqa: F401
                                     _np_tree, _t, _tiny_experiment)
 from tests.test_torch_train import (FREQS, _count_calls, _expected, _lockstep,
                                     _no_dropout)
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("biprojection", [False, True])

@@ -26,6 +26,7 @@ from bpx.ops.pallas_attention import flash_attention as pallas_flash
 from bpx_torch.ops.flash_attention import (effective_band, flash_attention,
                                            flash_attention_reference)
 from bpx_torch.ops.dispatch import plain_versions
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

@@ -41,6 +41,7 @@ from tests.test_torch_flash_attention import (TOL, _bpx_fwd_vjp, _inputs,
                                               _port_fwd_bwd)
 from tests.test_torch_model import _batch, _tiny_experiment
 from tests.test_torch_train import FREQS, _no_dropout
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 
 def _bpx_lse(q, k, v, masked, kv):
@@ -131,31 +132,43 @@ def test_generic_head_dims_in_bf16_match_pallas(D):
     (torch.bfloat16, 255, "generic"), (torch.bfloat16, 256, "tabled"),
     (torch.float32, 1, "generic"), (torch.float32, 25, "generic"),
     (torch.float32, 64, "generic"), (torch.float32, 256, "generic"),
+    (torch.bfloat16, 257, "chunked"), (torch.float32, 257, "chunked"),
+    (torch.float32, 300, "chunked"), (torch.bfloat16, 384, "chunked"),
+    (torch.bfloat16, 512, "chunked"), (torch.float32, 1536, "chunked"),
+    (torch.bfloat16, 4096, "chunked"), (torch.float32, 4096, "chunked"),
 ])
 def test_kernel_route(dtype, D, route):
     """bf16 at a tabled head dim takes the tabled kernels; bf16 at any other
-    head dim from 1 to 256, and fp32 at every one, the generic kernels."""
+    head dim from 1 to 256, and fp32 at every one, the generic kernels;
+    either dtype above 256, with no upper limit, the chunked kernels, whose
+    column chunks cover D with the last one partial."""
     assert tflash.kernel_route(dtype, D) == route
     assert (route == "tabled") == (dtype == torch.bfloat16
                                    and D in tflash.KERNEL_HEAD_DIMS)
+    assert (route == "chunked") == (D > tflash.GENERIC_MAX_HEAD_DIM)
     if route == "generic":
         w = tflash.generic_width(D)
         assert w in tflash.GENERIC_WIDTHS and D <= w
         assert w == 32 or D > w // 2
+    if route == "chunked":
+        n = tflash.column_chunks(D)
+        assert (n - 1) * tflash.CHUNK_COLUMNS < D <= n * tflash.CHUNK_COLUMNS
 
 
 @pytest.mark.parametrize("dtype,D,error", [
-    (torch.bfloat16, 257, NotImplementedError),
-    (torch.float32, 257, NotImplementedError),
-    (torch.bfloat16, 0, NotImplementedError),
+    (torch.bfloat16, -1, ValueError),
+    (torch.float32, 0, ValueError),
+    (torch.bfloat16, 0, ValueError),
     (torch.float16, 64, TypeError), (torch.float16, 48, TypeError),
-    (torch.float64, 32, TypeError),
+    (torch.float64, 32, TypeError), (torch.float16, 300, TypeError),
+    (torch.float64, 512, TypeError),
 ])
 def test_kernel_route_rejects_what_no_kernel_takes(dtype, D, error):
-    """A head dim above 256 (bpx takes it; the port's kernels raise,
-    naming the limit) or a dtype other than bf16 and fp32 has no route,
-    and ``blocks_per_sm`` raises for it before it loads the kernels."""
-    with pytest.raises(error, match="256" if error is NotImplementedError
+    """A head dim below 1 (the kernels raise, naming the limit) or a dtype
+    other than bf16 and fp32, above 256 too, has no route, and
+    ``blocks_per_sm`` raises for it before it loads the kernels.  Every
+    head dim above 256 has one in bf16 and fp32 (the chunked kernels)."""
+    with pytest.raises(error, match="1 or more" if error is ValueError
                        else "bfloat16 or float32"):
         tflash.kernel_route(dtype, D)
     with pytest.raises(error):

@@ -30,6 +30,7 @@ from tests.test_torch_hybrid import served_against_bpx
 from tests.test_torch_model import (TOL, _batch, _tiny_experiment,
                                     _tiny_vat_experiment)
 from tests.test_torch_train import _count_calls, _expected
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 # the pairs, as bpx groups the encoders
 PAIRS = {

@@ -33,6 +33,7 @@ from tests.test_torch_model import (TOL, _batch, _tiny_experiment,
                                     _tiny_vat_experiment)
 from tests.test_torch_train import (FREQS, _count_calls, _expected,
                                     _lockstep, _no_dropout)
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 
 def _t(x):

@@ -39,6 +39,7 @@ from bpx_torch.ops import gmu as tgmu
 from bpx_torch.ops.bert import BertEncoder, maybe_load_pretrained
 from bpx_torch.serve import Predictor
 from tests.test_torch_model import _batch, _tiny_experiment
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 LEGACY = ("mmtrvpa", "tmmtrvpa", "gmu", "gmu_bi", "gmu_hier", "gmu_softmax",

@@ -48,6 +48,7 @@ from bpx_torch.serve import Predictor
 from tests.test_torch_legacy_models import LEGACY, legacy
 from tests.test_torch_model import TOL, _batch, _fp32_matmuls, _np_tree  # noqa: F401
 from tests.test_torch_presets import tiny_tree
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 #: preset: (hidden, heads, the stream widths the tiny model keeps) of the
 #: tiny mmtrvpa, whose crossmodal and memory head dims are the preset's

@@ -11,6 +11,7 @@ import pytest
 from tests.test_torch_legacy_presets import PATTERNS, tiny_mmtrvpa
 from tests.test_torch_model import _fp32_matmuls  # noqa: F401
 from tests.test_torch_train import _lockstep, _no_dropout
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 #: label frequencies of the loss, cycled over the classes
 FREQS = [5, 2, 9, 1, 4, 3, 6, 2]

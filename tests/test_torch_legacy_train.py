@@ -22,6 +22,7 @@ from bpx_torch.models import get_model
 from tests.test_torch_legacy_models import legacy_experiment
 from tests.test_torch_model import _batch
 from tests.test_torch_train import _count_calls, _lockstep, _no_dropout
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 FREQS = [5, 2, 9, 1, 4]
 

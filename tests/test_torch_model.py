@@ -33,6 +33,7 @@ from bpx_torch.ops.bert import BertEncoder
 from bpx_torch.ops.encoder import TransformerEncoder
 from bpx_torch.ops.mag import MAG
 from bpx_torch.serve import Predictor
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

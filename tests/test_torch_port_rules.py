@@ -237,28 +237,33 @@ def _global_kernels():
 @pytest.mark.parametrize("groups", [1, 2])
 def test_profiler_names_are_kernels_of_the_sources(groups):
     """Every kernel name ``chip_smoke.py`` looks for in the profiler (the
-    forward's and the backward's at each tabled head dim, and on the
-    generic route at head dims of each of its builds' widths in bf16 and
-    fp32, for one seed group and for several) is a ``__global__`` of
-    ``bpx_torch/csrc``, so a renamed kernel cannot leave the card's checks
-    looking for a name nothing launches."""
+    forward's and the backward's at each tabled head dim, on the generic
+    route at head dims of each of its builds' widths and on the chunked
+    route at head dims past 256, in bf16 and fp32, for one seed group and
+    for several) is a ``__global__`` of ``bpx_torch/csrc``, so a renamed
+    kernel cannot leave the card's checks looking for a name nothing
+    launches."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    from bpx_torch.ops.flash_attention import KERNEL_ALIGN
+    from bpx_torch.ops.flash_attention import KERNEL_ALIGN, kernel_route
     kernels = _global_kernels()
     assert {"flash_fwd_kernel", "flash_fwd_tall_kernel",
             "flash_delta_kernel", "flash_generic_fwd_kernel",
             "flash_generic_dq_kernel", "flash_generic_dkdv_kernel",
-            "flash_generic_delta_kernel"} <= kernels
+            "flash_generic_delta_kernel", "flash_chunked_fwd_kernel",
+            "flash_chunked_dq_kernel", "flash_chunked_dkdv_kernel",
+            "flash_chunked_delta_kernel"} <= kernels
     cases = [(d, None) for d in KERNEL_ALIGN]
-    cases += [(d, dt) for d in (1, 16, 48, 80, 160, 256)
+    cases += [(d, dt) for d in (1, 16, 48, 80, 160, 256, 257, 384, 1536)
               for dt in (torch.bfloat16, torch.float32)
               if not (dt == torch.bfloat16 and d in KERNEL_ALIGN)]
     for d, dt in cases:
         names = [chip_smoke.fwd_kernel(d, groups, dt)]
         names += chip_smoke.kernel_names(chip_smoke.bwd_kernels(d, groups,
                                                                 dt))
-        generic = dt == torch.float32 or d not in KERNEL_ALIGN
-        assert all(("generic" in n) == generic for n in names), (d, names)
+        route = kernel_route(dt or torch.bfloat16, d)
+        for other in ("generic", "chunked"):
+            assert all((other in n) == (route == other) for n in names), (
+                d, names)
         for name in names:
             assert name.split("<")[0] in kernels, (d, name)

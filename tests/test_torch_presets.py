@@ -30,6 +30,7 @@ from bpx_torch.interop import params_from_flax
 from bpx_torch.serve import Predictor
 from tests.test_torch_model import TOL, _batch, _fp32_matmuls, _np_tree  # noqa: F401
 from tests.test_torch_train import _lockstep, _no_dropout
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 
 

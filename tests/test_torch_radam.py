@@ -37,6 +37,7 @@ from bpx_torch.train.steps import make_train_step
 from bpx_torch.utils.checkpoint import CheckpointManager
 from tests.test_torch_model import _tiny_experiment
 from tests.test_torch_train import A, FREQS, LR, _no_dropout, _super_batch
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 STEPS = 8
 

@@ -43,6 +43,7 @@ from bpx_torch.train.steps import make_train_step
 from tests.test_torch_model import (_batch, _tiny_experiment,
                                     _tiny_vat_experiment)
 from tests.test_torch_train import A, LR, _no_dropout, _super_batch
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 EXPERIMENTS = {"mmtrvapt": _tiny_experiment, "mmtrvat": _tiny_vat_experiment}
 FLASH = "bpx_torch.flash_fwd.default"

@@ -38,6 +38,7 @@ from bpx_torch.ops import flash_attention as tflash
 from bpx_torch.train import losses, optim
 from bpx_torch.train.steps import make_eval_step, make_train_step
 from tests.test_torch_model import _batch, _tiny_experiment, tiny_vat
+from tests.test_torch_loop import few_threads  # noqa: F401
 
 LR = 1e-3
 A, MICRO = 2, 2
