@@ -193,6 +193,20 @@
 // product, one warpgroup waits every step on the other's softmax and
 // dropout hash, which the split by keys or rows shares out.
 //
+// Panel builds (flash_panel_bwd.cu: bf16 at every head dim d from 1 to 256
+// that with_head_dim does not list): the narrow dQ and dK/dV kernels at
+// d <= 32, the wide ones at 33-64 (as D 50 and 60 run them) and 65-128, the
+// key-split dQ and row-split dK/dV kernels at 129-192 and 193-256, two
+// launches a backward as at their tabled head dims, each at its panel width
+// DP with d a runtime argument (BwdParams::pd).  As in flash_fwd.cu's panel
+// builds, every tile load writes columns d..DP-1 as zeros in shared memory
+// (so delta, summed over the staged dO and O rows, and every product run at
+// DP), rows come in 16-byte chunks, or in the words d and the views allow,
+// and dQ, dK and dV are stored up to column d (a split kernel's second
+// warpgroup up to d - DP / 2); every panel build is the one for seed
+// groups.  delta alone (attention_delta) is flash_panel_delta_kernel.
+// Times on an H100 in PERF.md (rows "3 panel", "4 panel").
+
 // Bound on an H100: 5 products of 2 * D flops per visible score entry
 // against q, k, v, dO, o read and dq, dk, dv written once; at the model's
 // shapes (T <= 512, D <= 256) the bytes bound it.
@@ -236,6 +250,7 @@ struct BwdParams {
   int offset;
   Dropout drop;
   SeedGroups seed_groups;   // read by the kernels of several groups only
+  PanelDims pd;             // read by the panel builds only
 };
 
 // dK/dV stage: Q tile, dO tile, lse[64] and delta[64] (1 KB keeps the next
@@ -264,13 +279,37 @@ __device__ __forceinline__ void zero(float (&a)[N]) {
 }
 
 // Write a warpgroup's 64 x DP fp32 accumulator (this thread: rows r0 and
-// r0 + 8) as bf16 rows below T, columns below D.
+// r0 + 8) as bf16 rows below T, columns below D (a panel build's: below d).
 template <int D>
 __device__ __forceinline__ void store_rows(
     __nv_bfloat16* base, long long st, int r0, int T,
-    const float (&acc)[padded_dim<D>() / 2], int t4) {
-  if (r0 < T) store_row<D, 0>(base + r0 * st, acc, t4, 1.f);
-  if (r0 + 8 < T) store_row<D, 2>(base + (r0 + 8) * st, acc, t4, 1.f);
+    const float (&acc)[padded_dim<D>() / 2], int t4, int d) {
+  if (r0 < T) store_row<D, 0>(base + r0 * st, acc, t4, 1.f, d);
+  if (r0 + 8 < T) store_row<D, 2>(base + (r0 + 8) * st, acc, t4, 1.f, d);
+}
+
+// D at a tabled head dim; a tabled stand-in for a panel build, whose
+// branches that would use it are not compiled (if constexpr).
+template <int D, int Tabled>
+__host__ __device__ constexpr int tabled_or() {
+  return is_panel<D>() ? Tabled : D;
+}
+
+// A whole 64-row tile by the kT threads of a block (tid: the thread's
+// index among them): load_tile_by at a tabled head dim (kT = kThreads), a
+// panel build's panel_load.
+template <int D, int kT = kThreads>
+__device__ __forceinline__ void load_tile_any(int tid, uint32_t dst,
+                                              const __nv_bfloat16* src,
+                                              long long stride_t, int t0,
+                                              int T, const PanelDims& pd) {
+  if constexpr (is_panel<D>()) {
+    panel_load<padded_dim<D>(), kT, kRows, panel_words<D>()>(
+        tid, dst, src, stride_t, t0, T, 0, pd.d, pd.wb);
+  } else {
+    static_assert(kT == kThreads, "a warpgroup's load");
+    load_tile_by<D>(tid, dst, src, stride_t, t0, T);
+  }
 }
 
 // delta[bh, t] = sum_d dO[b, h, t, d] * O[b, h, t, d] in fp32: half a warp
@@ -455,7 +494,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
         pdr = kept ? pr * p.drop.inv_keep : 0.f;
         dpr = kept ? dpr * p.drop.inv_keep : 0.f;
       }
-      dpt[i2] = pr * (dpr - dl_s[qi]);
+      dpt[i2] = pr * (dpr - (panel_fault<D>(4) ? 0.f : dl_s[qi]));
       st[i2] = pdr;
     }
 
@@ -479,8 +518,10 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4);
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4,
+                p.pd.d);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4,
+                p.pd.d);
 }
 
 // One (batch*head, 64-query tile): dQ.
@@ -614,7 +655,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4,
+                p.pd.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -626,7 +668,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
 // third stage would not start them earlier).
 template <int D>
 __host__ __device__ constexpr int narrow_stages() {
-  return D % 2 ? 2 : 3;
+  return !is_panel<D>() && D % 2 ? 2 : 3;
 }
 
 // K and V, then stages x (Q, dO, lse[64], delta[64]); +1 KB for alignment.
@@ -686,7 +728,10 @@ flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
 
   // query tile q_begin + i goes to ring stage i mod kStages, started by
   // fetch(i), written by store(i) (D = 25)
-  NarrowTile<D> q_next, o_next;
+  using Tile = std::conditional_t<is_panel<D>(),
+                                  PanelTile<32, panel_words<D>()>,
+                                  NarrowTile<D>>;
+  Tile q_next(p.pd.d, p.pd.wb), o_next(p.pd.d, p.pd.wb);
   auto fetch = [&](int i) {
     const int q0 = (q_begin + i) * kRows;
     const uint32_t dst = stage0 + (i % kStages) * kStage;
@@ -705,7 +750,7 @@ flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
   };
 
   if (n_tiles > 0) {
-    NarrowTile<D> kt, vt;
+    Tile kt(p.pd.d, p.pd.wb), vt(p.pd.d, p.pd.wb);
     kt.fetch(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk);
     vt.fetch(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk);
     // delta: written by the dQ kernel, which this launch may overlap
@@ -809,7 +854,7 @@ flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
       const int qi = (i2 / 4) * 8 + 2 * t4 + (i2 & 1);
       float dpr = dpt[i2];
       if (p.drop.on) dpr = (kept >> i2) & 1 ? dpr * p.drop.inv_keep : 0.f;
-      dpt[i2] = st[i2] * (dpr - dl_s[qi]);
+      dpt[i2] = st[i2] * (dpr - (panel_fault<D>(4) ? 0.f : dl_s[qi]));
     }
     p_frags(da, dpt);
 
@@ -831,8 +876,10 @@ flash_bwd_narrow_dkdv_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4);
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk, t4,
+                p.pd.d);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv, t4,
+                p.pd.d);
 }
 
 // One (batch*head, 64-query tile): delta = rowsum(dO * O) of its rows into
@@ -881,7 +928,10 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
 
   // key tile t goes to ring stage t mod kStages
-  NarrowTile<D> k_next, v_next;
+  using Tile = std::conditional_t<is_panel<D>(),
+                                  PanelTile<32, panel_words<D>()>,
+                                  NarrowTile<D>>;
+  Tile k_next(p.pd.d, p.pd.wb), v_next(p.pd.d, p.pd.wb);
   auto fetch = [&](int t) {
     const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
     k_next.fetch(dst, kb, p.k_st, t * kRows, Tk);
@@ -895,7 +945,7 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
 
   // Q, dO and O (for delta, even where no key is visible), key tile 0
   {
-    NarrowTile<D> qt, dt, ot;
+    Tile qt(p.pd.d, p.pd.wb), dt(p.pd.d, p.pd.wb), ot(p.pd.d, p.pd.wb);
     qt.fetch(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq);
     dt.fetch(do_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0, Tq);
     ot.fetch(o_s, o + b * o_sb + h * o_sh, o_st, q0, Tq);
@@ -950,8 +1000,8 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   const float* lse_b = p.lse + (long long)bh * Tq;
   const float lsel0 = (row0 < Tq ? lse_b[row0] : 0.f) * kLog2e;
   const float lsel1 = (row0 + 8 < Tq ? lse_b[row0 + 8] : 0.f) * kLog2e;
-  const float dl0 = dl_s[warp * 16 + g];
-  const float dl1 = dl_s[warp * 16 + g + 8];
+  const float dl0 = panel_fault<D>(2) ? 0.f : dl_s[warp * 16 + g];
+  const float dl1 = panel_fault<D>(2) ? 0.f : dl_s[warp * 16 + g + 8];
 
   float dq[16], s[32], dp[32];
   zero(dq);
@@ -1032,7 +1082,8 @@ flash_bwd_narrow_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   }
   cp_async_wait<0>();
 
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4,
+                p.pd.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -1207,8 +1258,15 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
   auto load_stage = [&](int i) {
     const int q0 = (q_begin + i) * kRows;
     const uint32_t dst = stage0 + (i % kStages) * kStage;
-    load_rows_by<D>(tid, wg * QN, QN, dst, qb, p.q_st, q0, Tq);
-    load_rows_by<D>(tid, wg * QN, QN, dst + kTile, ob, p.o_st, q0, Tq);
+    if constexpr (is_panel<D>()) {
+      panel_load<DP, kThreads, QN, panel_words<D>()>(
+          tid, dst, qb, p.q_st, q0, Tq, wg * QN, p.pd.d, p.pd.wb);
+      panel_load<DP, kThreads, QN, panel_words<D>()>(
+          tid, dst + kTile, ob, p.o_st, q0, Tq, wg * QN, p.pd.d, p.pd.wb);
+    } else {
+      load_rows_by<D>(tid, wg * QN, QN, dst, qb, p.q_st, q0, Tq);
+      load_rows_by<D>(tid, wg * QN, QN, dst + kTile, ob, p.o_st, q0, Tq);
+    }
     if (tid < 2 * QN) {
       const int r = wg * QN + tid % QN;
       const bool ok = q0 + r < Tq;
@@ -1221,13 +1279,15 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
   if (n_tiles > 0) {
     if constexpr (W == 2) {
       // K by warpgroup 0, V by warpgroup 1
-      load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
-                      wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
-                              : p.v + b * p.v_sb + h * p.v_sh,
-                      wg == 0 ? p.k_st : p.v_st, k0, Tk);
+      load_tile_any<D>(tid, wg == 0 ? k_s : v_s,
+                       wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                               : p.v + b * p.v_sb + h * p.v_sh,
+                       wg == 0 ? p.k_st : p.v_st, k0, Tk, p.pd);
     } else {
-      load_tile<D>(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_st, k0, Tk);
-      load_tile<D>(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_st, k0, Tk);
+      load_tile_any<D>(threadIdx.x, k_s, p.k + b * p.k_sb + h * p.k_sh,
+                       p.k_st, k0, Tk, p.pd);
+      load_tile_any<D>(threadIdx.x, v_s, p.v + b * p.v_sb + h * p.v_sh,
+                       p.v_st, k0, Tk, p.pd);
     }
     // delta: written by the dQ kernel, which this launch may overlap
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -1312,7 +1372,7 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
         pdr = kept ? pr * p.drop.inv_keep : 0.f;
         dpr = kept ? dpr * p.drop.inv_keep : 0.f;
       }
-      dpt[i2] = pr * (dpr - dl_s[qi]);
+      dpt[i2] = pr * (dpr - (panel_fault<D>(4) ? 0.f : dl_s[qi]));
       st[i2] = pdr;
     }
 
@@ -1338,9 +1398,9 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
   cp_async_wait<0>();
   if constexpr (W == 1) {
     store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk,
-                  t4);
+                  t4, p.pd.d);
     store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv,
-                  t4);
+                  t4, p.pd.d);
     return;
   }
 
@@ -1363,12 +1423,12 @@ flash_bwd_wide_dkdv_kernel(const BwdParams p) {
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dk[i] += take[i * kThreads + tid];
     store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, key0, Tk, dk,
-                  t4);
+                  t4, p.pd.d);
   } else {
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dv[i] = take[i * kThreads + tid] + dv[i];
     store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, key0, Tk, dv,
-                  t4);
+                  t4, p.pd.d);
   }
 }
 
@@ -1423,15 +1483,18 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
 
   // key tile t goes to ring stage t mod kStages
+  const int tid = threadIdx.x;
   auto load_kv = [&](int t) {
     const uint32_t dst = kv_s + 2 * (t % kStages) * kTile;
-    load_tile<D>(dst, kb, p.k_st, t * kRows, Tk);
-    load_tile<D>(dst + kTile, vb, p.v_st, t * kRows, Tk);
+    load_tile_any<D>(tid, dst, kb, p.k_st, t * kRows, Tk, p.pd);
+    load_tile_any<D>(tid, dst + kTile, vb, p.v_st, t * kRows, Tk, p.pd);
   };
   // Q, dO and O (for delta, even where no key is visible), key tile 0
-  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq);
-  load_tile<D>(do_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0, Tq);
-  load_tile<D>(out_s, o + b * o_sb + h * o_sh, o_st, q0, Tq);
+  load_tile_any<D>(tid, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, Tq,
+                   p.pd);
+  load_tile_any<D>(tid, do_s, p.dout + b * p.o_sb + h * p.o_sh, p.o_st, q0,
+                   Tq, p.pd);
+  load_tile_any<D>(tid, out_s, o + b * o_sb + h * o_sh, o_st, q0, Tq, p.pd);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) load_kv(t);
@@ -1473,8 +1536,8 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
     }
   }
   __syncthreads();
-  const float dl0 = dl_s[warp * 16 + g];
-  const float dl1 = dl_s[warp * 16 + g + 8];
+  const float dl0 = panel_fault<D>(2) ? 0.f : dl_s[warp * 16 + g];
+  const float dl1 = panel_fault<D>(2) ? 0.f : dl_s[warp * 16 + g + 8];
 
   float dq[DP / 2], s[32], dp[32];
   zero(dq);
@@ -1549,7 +1612,8 @@ flash_bwd_wide_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   }
   cp_async_wait<0>();
 
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4);
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, row0, Tq, dq, t4,
+                p.pd.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -1634,16 +1698,27 @@ flash_bwd_rowsplit_dkdv_kernel(const BwdParams p) {
   const int q_end = k0 >= kv_len ? 0 : (Tq + kRows - 1) / kRows;
   const int n_tiles = max(0, q_end - q_begin);
 
-  const TallCopier<D> q_copy(p.q + b * p.q_sb + h * p.q_sh, p.q_st,
-                             threadIdx.x);
-  const TallCopier<D> o_copy(p.dout + b * p.o_sb + h * p.o_sh, p.o_st,
-                             threadIdx.x);
+  // (the tabled kernels' code as it was: a panel build's branches below
+  // take the slices' pointers where they load)
+  const TallCopier<tabled_or<D, 256>()> q_copy(
+      p.q + b * p.q_sb + h * p.q_sh, p.q_st, threadIdx.x);
+  const TallCopier<tabled_or<D, 256>()> o_copy(
+      p.dout + b * p.o_sb + h * p.o_sh, p.o_st, threadIdx.x);
   // query tile q_begin + i goes to ring stage i mod kSt: Q, dO, lse, delta
   auto load_stage = [&](int i) {
     const int q0 = (q_begin + i) * kRows;
     const uint32_t dst = stage0 + (i % kSt) * kStage;
-    q_copy.copy(dst, q0, Tq);
-    o_copy.copy(dst + kTile, q0, Tq);
+    if constexpr (is_panel<D>()) {
+      load_tile_any<D, kSplitThreads>(threadIdx.x, dst,
+                                      p.q + b * p.q_sb + h * p.q_sh, p.q_st,
+                                      q0, Tq, p.pd);
+      load_tile_any<D, kSplitThreads>(threadIdx.x, dst + kTile,
+                                      p.dout + b * p.o_sb + h * p.o_sh,
+                                      p.o_st, q0, Tq, p.pd);
+    } else {
+      q_copy.copy(dst, q0, Tq);
+      o_copy.copy(dst + kTile, q0, Tq);
+    }
     if (threadIdx.x < 2 * kRows) {
       const int r = threadIdx.x % kRows;
       const bool ok = q0 + r < Tq;
@@ -1655,10 +1730,10 @@ flash_bwd_rowsplit_dkdv_kernel(const BwdParams p) {
 
   if (n_tiles > 0) {
     // K by warpgroup 0, V by warpgroup 1
-    load_tile_by<D>(tid, wg == 0 ? k_s : v_s,
-                    wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
-                            : p.v + b * p.v_sb + h * p.v_sh,
-                    wg == 0 ? p.k_st : p.v_st, k0, Tk);
+    load_tile_any<D>(tid, wg == 0 ? k_s : v_s,
+                     wg == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                             : p.v + b * p.v_sb + h * p.v_sh,
+                     wg == 0 ? p.k_st : p.v_st, k0, Tk, p.pd);
     // delta: written by the dQ kernel, which this launch may overlap
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
   }
@@ -1735,7 +1810,7 @@ flash_bwd_rowsplit_dkdv_kernel(const BwdParams p) {
         pdr = kept ? pr * p.drop.inv_keep : 0.f;
         dpr = kept ? dpr * p.drop.inv_keep : 0.f;
       }
-      dpt[i2] = pr * (dpr - dl_s[qi]);
+      dpt[i2] = pr * (dpr - (panel_fault<D>(4) ? 0.f : dl_s[qi]));
       st[i2] = pdr;
     }
     // this warpgroup's 32 query columns (panel wg) of P^T and dS^T
@@ -1775,10 +1850,10 @@ flash_bwd_rowsplit_dkdv_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
 
-  store_rows<DH>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH, p.dk_st, key0,
-                 Tk, dk, t4);
-  store_rows<DH>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH, p.dv_st, key0,
-                 Tk, dv, t4);
+  store_rows<half_dim<D>()>(p.dk + b * p.dk_sb + h * p.dk_sh + wg * DH,
+                            p.dk_st, key0, Tk, dk, t4, p.pd.d - wg * DH);
+  store_rows<half_dim<D>()>(p.dv + b * p.dv_sb + h * p.dv_sh + wg * DH,
+                            p.dv_st, key0, Tk, dv, t4, p.pd.d - wg * DH);
 }
 
 // Q and dO resident, split_stages x (K, V), the dS tile; +1 KB.  O, for
@@ -1846,24 +1921,44 @@ flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   if (p.masked) {
     n_tiles = min(n_tiles, (q0 + kRows - 1 + p.offset) / kRows + 1);
   }
-  const TallCopier<D> k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st,
-                             threadIdx.x);
-  const TallCopier<D> v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st,
-                             threadIdx.x);
+  // (the tabled kernels' code as it was: a panel build's branches below
+  // take the slices' pointers where they load)
+  using Copier = TallCopier<tabled_or<D, 256>()>;
+  const Copier k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st, threadIdx.x);
+  const Copier v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st, threadIdx.x);
   // key tile t goes to ring stage t mod kSt
   auto load_kv = [&](int t) {
     const uint32_t dst = kv_s + 2 * (t % kSt) * kTile;
-    k_copy.copy(dst, t * kRows, Tk);
-    v_copy.copy(dst + kTile, t * kRows, Tk);
+    if constexpr (is_panel<D>()) {
+      load_tile_any<D, kSplitThreads>(threadIdx.x, dst,
+                                      p.k + b * p.k_sb + h * p.k_sh, p.k_st,
+                                      t * kRows, Tk, p.pd);
+      load_tile_any<D, kSplitThreads>(threadIdx.x, dst + kTile,
+                                      p.v + b * p.v_sb + h * p.v_sh, p.v_st,
+                                      t * kRows, Tk, p.pd);
+    } else {
+      k_copy.copy(dst, t * kRows, Tk);
+      v_copy.copy(dst + kTile, t * kRows, Tk);
+    }
   };
   // Q, dO and O (for delta, even where no key is visible), key tiles 0 ..
   // kSt - 2
-  TallCopier<D>(p.q + b * p.q_sb + h * p.q_sh, p.q_st, threadIdx.x)
-      .copy(q_s, q0, Tq);
-  TallCopier<D>(p.dout + b * p.o_sb + h * p.o_sh, p.o_st, threadIdx.x)
-      .copy(do_s, q0, Tq);
-  TallCopier<D>(o + b * o_sb + h * o_sh, o_st, threadIdx.x)
-      .copy(out_s, q0, Tq);
+  if constexpr (is_panel<D>()) {
+    load_tile_any<D, kSplitThreads>(threadIdx.x, q_s,
+                                    p.q + b * p.q_sb + h * p.q_sh, p.q_st,
+                                    q0, Tq, p.pd);
+    load_tile_any<D, kSplitThreads>(threadIdx.x, do_s,
+                                    p.dout + b * p.o_sb + h * p.o_sh, p.o_st,
+                                    q0, Tq, p.pd);
+    load_tile_any<D, kSplitThreads>(threadIdx.x, out_s, o + b * o_sb + h * o_sh,
+                                    o_st, q0, Tq, p.pd);
+  } else {
+    Copier(p.q + b * p.q_sb + h * p.q_sh, p.q_st, threadIdx.x)
+        .copy(q_s, q0, Tq);
+    Copier(p.dout + b * p.o_sb + h * p.o_sh, p.o_st, threadIdx.x)
+        .copy(do_s, q0, Tq);
+    Copier(o + b * o_sb + h * o_sh, o_st, threadIdx.x).copy(out_s, q0, Tq);
+  }
 #pragma unroll
   for (int t = 0; t < kSt - 1; ++t) {
     if (t < n_tiles) load_kv(t);
@@ -1906,8 +2001,8 @@ flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
     }
   }
   __syncthreads();
-  const float dl0 = dl_s[warp * 16 + g];
-  const float dl1 = dl_s[warp * 16 + g + 8];
+  const float dl0 = panel_fault<D>(2) ? 0.f : dl_s[warp * 16 + g];
+  const float dl1 = panel_fault<D>(2) ? 0.f : dl_s[warp * 16 + g + 8];
 
   float dq[DH / 2], s[KN / 2], dp[KN / 2];
   zero(dq);
@@ -1997,8 +2092,8 @@ flash_bwd_keysplit_dq_kernel(const BwdParams p, const __nv_bfloat16* o,
   }
   cp_async_wait<0>();
 
-  store_rows<DH>(p.dq + b * p.dq_sb + h * p.dq_sh + wg * DH, p.dq_st, row0,
-                 Tq, dq, t4);
+  store_rows<half_dim<D>()>(p.dq + b * p.dq_sb + h * p.dq_sh + wg * DH,
+                            p.dq_st, row0, Tq, dq, t4, p.pd.d - wg * DH);
 }
 
 template <int D>
@@ -2127,9 +2222,79 @@ cudaError_t launch_by_head_dim(const BwdParams& p, const __nv_bfloat16* o,
   }
 }
 
+#ifdef BPX_FLASH_PANEL
+// delta = rowsum(dO * O) in fp32 at a panel build's runtime head dim d:
+// half a warp a row, columns lane, lane + 16, ... in 2-byte loads, the
+// lanes summed in a fixed order (flash_delta_kernel's odd-D path).
+__global__ void __launch_bounds__(256)
+flash_panel_delta_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
+                         float* delta, int H, int T, int rows, int d,
+                         long long o_sb, long long o_sh, long long o_st,
+                         long long do_sb, long long do_sh, long long do_st) {
+  const int row = blockIdx.x * 16 + threadIdx.x / 16;
+  const int lane = threadIdx.x % 16;
+  float sum = 0.f;
+  if (row < rows) {
+    const int bh = row / T, t = row % T;
+    const int b = bh / H, h = bh % H;
+    const __nv_bfloat16* x = o + b * o_sb + h * o_sh + t * o_st;
+    const __nv_bfloat16* y = dout + b * do_sb + h * do_sh + t * do_st;
+    for (int c = lane; c < d; c += 16) {
+      sum += __bfloat162float(x[c]) * __bfloat162float(y[c]);
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off /= 2) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  }
+  if (row < rows && lane == 0) delta[row] = sum;
+}
+#endif  // BPX_FLASH_PANEL
+
+// One call's parameters from the C entry's arguments (O's apart); false
+// when the seed groups or the placement do not fit (set_dropout).
+bool set_params(BwdParams& p, const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, void* delta,
+                const void* kv_lens, void* dq, void* dk, void* dv, int B,
+                int H, int Tq, int Tk, const long long* st, int masked,
+                int offset, int dropout, const unsigned int* seeds,
+                int groups, unsigned int threshold, float inv_keep, int tk_p,
+                int b_off, int h_off, int heads_g, int group_stride) {
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.B = B;
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  // q, k, v, dO, O, dq, dk, dv: (b, h, t) each
+  p.q_sb = st[0]; p.q_sh = st[1]; p.q_st = st[2];
+  p.k_sb = st[3]; p.k_sh = st[4]; p.k_st = st[5];
+  p.v_sb = st[6]; p.v_sh = st[7]; p.v_st = st[8];
+  p.o_sb = st[9]; p.o_sh = st[10]; p.o_st = st[11];
+  p.dq_sb = st[15]; p.dq_sh = st[16]; p.dq_st = st[17];
+  p.dk_sb = st[18]; p.dk_sh = st[19]; p.dk_st = st[20];
+  p.dv_sb = st[21]; p.dv_sh = st[22]; p.dv_st = st[23];
+  p.masked = masked;
+  p.offset = offset;
+  p.pd = {0, 16};
+  return set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
+                     threshold, inv_keep, tk_p, b_off, h_off, heads_g,
+                     group_stride);
+}
+
 }  // namespace
 
 extern "C" {
+
+#ifndef BPX_FLASH_PANEL
 
 // q, k, v, dO, o, dq, dk, dv: (B, H, T, D) bf16 by strides (b, h, t); lse
 // (B*H, Tq) fp32; delta an fp32 (B*H, Tq) workspace the call fills; kv_lens
@@ -2157,33 +2322,15 @@ int bpx_flash_bwd(const void* q, const void* k, const void* v,
                   unsigned int threshold, float inv_keep, int tk_p,
                   int b_off, int h_off, int heads_g, int group_stride,
                   void* stream) {
+  const long long st[] = {q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,
+                          v_sb,  v_sh,  v_st,  do_sb, do_sh, do_st,
+                          o_sb,  o_sh,  o_st,  dq_sb, dq_sh, dq_st,
+                          dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st};
   BwdParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.kv_lens = static_cast<const int*>(kv_lens);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.B = B;
-  p.H = H;
-  p.Tq = Tq;
-  p.Tk = Tk;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
-  p.o_sb = do_sb; p.o_sh = do_sh; p.o_st = do_st;
-  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_st = dq_st;
-  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_st = dk_st;
-  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_st = dv_st;
-  p.masked = masked;
-  p.offset = offset;
-  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
-                   threshold, inv_keep, tk_p, b_off, h_off, heads_g,
-                   group_stride))
+  if (!set_params(p, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, B, H,
+                  Tq, Tk, st, masked, offset, dropout, seeds, groups,
+                  threshold, inv_keep, tk_p, b_off, h_off, heads_g,
+                  group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2249,5 +2396,107 @@ int bpx_flash_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
     }
   }));
 }
+
+#else  // BPX_FLASH_PANEL: the panel builds (flash_panel_bwd.cu)
+
+// bpx_flash_bwd at a head dim D from 1 to 256 that the tabled kernels do
+// not take: the dQ kernel (with delta), then the dK/dV kernel, of D's panel
+// width (launch_by_head_dim of the panel build) at a runtime D, a chunk
+// build where every row of q, k, v, dO and O is 16-byte aligned and D a
+// multiple of 8, else a words build (panel_word_bytes); always the builds
+// for seed groups (bpx_flash_panel_fwd).  cudaErrorInvalidValue outside
+// 1..256, or as bpx_flash_bwd.
+int bpx_flash_panel_bwd(const void* q, const void* k, const void* v,
+                        const void* dout, const void* o, const void* lse,
+                        void* delta, const void* kv_lens, void* dq, void* dk,
+                        void* dv, int B, int H, int Tq, int Tk, int D,
+                        long long q_sb, long long q_sh, long long q_st,
+                        long long k_sb, long long k_sh, long long k_st,
+                        long long v_sb, long long v_sh, long long v_st,
+                        long long do_sb, long long do_sh, long long do_st,
+                        long long o_sb, long long o_sh, long long o_st,
+                        long long dq_sb, long long dq_sh, long long dq_st,
+                        long long dk_sb, long long dk_sh, long long dk_st,
+                        long long dv_sb, long long dv_sh, long long dv_st,
+                        int masked, int offset, int dropout,
+                        const unsigned int* seeds, int groups,
+                        unsigned int threshold, float inv_keep, int tk_p,
+                        int b_off, int h_off, int heads_g, int group_stride,
+                        void* stream) {
+  const long long st[] = {q_sb,  q_sh,  q_st,  k_sb,  k_sh,  k_st,
+                          v_sb,  v_sh,  v_st,  do_sb, do_sh, do_st,
+                          o_sb,  o_sh,  o_st,  dq_sb, dq_sh, dq_st,
+                          dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st};
+  BwdParams p;
+  if (!set_params(p, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, B, H,
+                  Tq, Tk, st, masked, offset, dropout, seeds, groups,
+                  threshold, inv_keep, tk_p, b_off, h_off, heads_g,
+                  group_stride))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {q, k, v, dout, o};
+  p.pd = {D, panel_word_bytes(D, ptrs, 5, st, 15)};
+  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bpx_flash::with_panel_width(D, [&](auto w) {
+    constexpr int kDP = decltype(w)::value;
+    return p.pd.wb == 16
+               ? launch_by_head_dim<panel_build<kDP, false>(), true>(
+                     p, ob, o_sb, o_sh, o_st, s)
+               : launch_by_head_dim<panel_build<kDP, true>(), true>(
+                     p, ob, o_sb, o_sh, o_st, s);
+  }));
+}
+
+// delta = rowsum(dO * O) in fp32 into a contiguous (B*H, T) buffer at a
+// head dim D from 1 to 256 (bpx_flash_delta's panel counterpart).
+int bpx_flash_panel_delta(const void* o, const void* dout, void* delta,
+                          int B, int H, int T, int D, long long o_sb,
+                          long long o_sh, long long o_st, long long do_sb,
+                          long long do_sh, long long do_st, void* stream) {
+  if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = B * H * T;
+  flash_panel_delta_kernel<<<(rows + 15) / 16, 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(delta), H,
+      T, rows, D, o_sb, o_sh, o_st, do_sb, do_sh, do_st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the dK/dV (kernel 0) or the dQ kernel (kernel 1) of the chunk
+// build at head dim D (1..256) that one SM holds, into *blocks.
+int bpx_flash_panel_bwd_blocks_per_sm(int D, int kernel, int* blocks) {
+  return static_cast<int>(bpx_flash::with_panel_width(D, [&](auto w) {
+    constexpr int kD = panel_build<decltype(w)::value, false>();
+    if constexpr (padded_dim<kD>() == 32) {
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(
+                       flash_bwd_narrow_dkdv_kernel<kD, true>,
+                       narrow_dkdv_smem_bytes<kD>(), blocks)
+                 : bpx_flash::blocks_per_sm(
+                       flash_bwd_narrow_dq_kernel<kD, true>,
+                       narrow_dq_smem_bytes<kD>(), blocks);
+    } else if constexpr (runs_wide<kD>()) {
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(
+                       flash_bwd_wide_dkdv_kernel<kD, true>,
+                       wide_dkdv_smem_bytes<kD>(), blocks,
+                       wide_dkdv_threads<kD>())
+                 : bpx_flash::blocks_per_sm(
+                       flash_bwd_wide_dq_kernel<kD, true>,
+                       wide_dq_smem_bytes<kD>(), blocks);
+    } else {
+      return kernel == 0
+                 ? bpx_flash::blocks_per_sm(
+                       flash_bwd_rowsplit_dkdv_kernel<kD, true>,
+                       rowsplit_dkdv_smem_bytes<kD>(), blocks, kSplitThreads)
+                 : bpx_flash::blocks_per_sm(
+                       flash_bwd_keysplit_dq_kernel<kD, true>,
+                       keysplit_dq_smem_bytes<kD>(), blocks, kSplitThreads);
+    }
+  }));
+}
+
+#endif  // BPX_FLASH_PANEL
 
 }  // extern "C"

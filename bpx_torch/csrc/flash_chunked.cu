@@ -72,7 +72,7 @@
 // kernel's delta leaves out the last chunk's columns; 4, the dK/dV kernel's
 // scores leave out chunk 1's columns.  Each shows in an output the other
 // two do not touch: O, dQ and dV.
-#include "flash_common.cuh"
+#include "flash_simt.cuh"
 
 #ifndef BPX_PLANT_CHUNKED_FAULT
 #define BPX_PLANT_CHUNKED_FAULT 0
@@ -83,7 +83,6 @@ namespace {
 using namespace bpx_flash;
 
 constexpr int kChunkThreads = 128;   // 8 row groups x 16 lanes
-constexpr int kGroupLanes = 16;
 constexpr int kRowsPerThread = 8;
 constexpr int kQTile = 64;           // query rows of the forward's, dQ's tile
 constexpr int kKTile = 32;           // key rows; the dK/dV kernel's queries
@@ -91,10 +90,6 @@ constexpr int kChunk = 128;          // head-dim columns a block owns
 constexpr int kMinHeadDim = 257;     // below it the generic kernels run
 constexpr int kSW = kChunk + 1;      // a tile row, in floats
 constexpr int kNJ = kChunk / kGroupLanes;   // output columns a thread owns
-
-struct Strides {
-  long long b, h, t;
-};
 
 struct ChunkedParams {
   const void* q;
@@ -117,34 +112,6 @@ struct ChunkedParams {
   SeedGroups seed_groups;
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the plain version's casts of P and dS
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return widen(narrow<T>(x));
-}
-
-template <typename T>
-__device__ __forceinline__ const T* head_of(const void* base, const Strides& s,
-                                            int b, int h) {
-  return static_cast<const T*>(base) + b * s.b + h * s.h;
-}
-
 // The width of chunk c (kChunk, or less for the last one).
 __device__ __forceinline__ int chunk_width(int c, int D) {
   return min(kChunk, D - c * kChunk);
@@ -164,26 +131,6 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src,
     if (c < width && t0 + r < len) x = widen(src[(t0 + r) * st + c]);
     dst[r * kSW + c] = x;
   }
-}
-
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = kGroupLanes / 2; o > 0; o /= 2)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = kGroupLanes / 2; o > 0; o /= 2)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 __device__ __forceinline__ bool visible(const ChunkedParams& p, int row,
@@ -687,19 +634,6 @@ __global__ void __launch_bounds__(kChunkThreads)
   if (lane == 0) delta[row] = sum;
 }
 
-template <typename T>
-struct Type {
-  using type = T;
-};
-
-// f(Type<T>()) for dtype 0 (bf16) or 1 (fp32)
-template <typename F>
-cudaError_t with_dtype(int dtype, F&& f) {
-  if (dtype == 0) return f(Type<__nv_bfloat16>());
-  if (dtype == 1) return f(Type<float>());
-  return cudaErrorInvalidValue;
-}
-
 template <typename T, bool Groups>
 cudaError_t launch_fwd(const ChunkedParams& p, cudaStream_t s) {
   static bool smem_set = false;
@@ -797,7 +731,7 @@ int bpx_flash_chunked_fwd(const void* q, const void* k, const void* v,
                   group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<true>(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     return p.seed_groups.grouped() ? launch_fwd<T, true>(p, s)
                                    : launch_fwd<T, false>(p, s);
@@ -850,7 +784,7 @@ int bpx_flash_chunked_bwd(const void* q, const void* k, const void* v,
                   group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<true>(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     return p.seed_groups.grouped() ? launch_bwd<T, true>(p, s)
                                    : launch_bwd<T, false>(p, s);
@@ -868,7 +802,7 @@ int bpx_flash_chunked_delta(const void* o, const void* dout, void* delta,
   const int rows = B * H * T;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int per_block = kChunkThreads / 32;
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<true>(dtype, [&](auto t) {
     using E = typename decltype(t)::type;
     flash_chunked_delta_kernel<E>
         <<<(rows + per_block - 1) / per_block, kChunkThreads, 0, s>>>(
@@ -886,7 +820,7 @@ int bpx_flash_chunked_delta(const void* o, const void* dout, void* delta,
 int bpx_flash_chunked_blocks_per_sm(int D, int dtype, int kernel,
                                     int* blocks) {
   if (D < kMinHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<true>(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     if (kernel == 0)
       return bpx_flash::blocks_per_sm(flash_chunked_fwd_kernel<T, false>,

@@ -15,7 +15,8 @@
 // zeros (written by every load, or, in the D 50/60 forward's K and V rings,
 // once a ring stage): the products then run at DP = 32 or 64 and the
 // padding adds nothing to them (a stale value there could be a NaN, and
-// 0 * NaN is not 0).
+// 0 * NaN is not 0).  A panel build (below) runs any head dim d up to 256
+// so, at the panel width that holds it, its loads zeroing columns d..DP-1.
 //
 // The same tile serves both operand majors of wgmma:
 //   * K-major, when D is the reduction (S = Q K^T): the 16-wide k-step kk
@@ -31,6 +32,14 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+// BPX_PLANT_PANEL_FAULT builds the faults chip_smoke.py's phase 22 must
+// catch in the panel builds alone (panel_fault), a bit per kernel: 1, the
+// forward's row sum leaves out each key tile's first key; 2, the dQ kernel
+// leaves delta out of dS; 4, the dK/dV kernel does.
+#ifndef BPX_PLANT_PANEL_FAULT
+#define BPX_PLANT_PANEL_FAULT 0
+#endif
 
 namespace bpx_flash {
 
@@ -69,10 +78,66 @@ constexpr int kThreads = 128;         // one warpgroup per block
 constexpr int kRows = 64;             // rows of every tile
 constexpr int kPanelBytes = kRows * 64;
 
-// The head dim the products run at: D rounded up to a whole panel.
+// Panel builds (the "panel" route of the wrapper's kernel_route): bf16 at
+// every head dim d from 1 to 256 that with_head_dim does not list runs the
+// kernels of the tabled head dim of its panel width DP (32, 64, 128, 192 or
+// 256: the narrow, wide and tall kernels) with d a runtime argument
+// (FlashParams::d, BwdParams::d).  Such a build's template head dim is
+// kPanelChunks + DP when its rows are copied in 16-byte cp.async chunks (d a
+// multiple of 8, every view 16-byte aligned), kPanelWords + DP when in the
+// words of PanelDims::wb bytes that d and the views allow (8- or 4-byte
+// cp.async words, or 2-byte loads); the tabled instantiations are the code
+// they were.  Columns d..DP-1 of every tile are zeros in shared memory, so
+// the products run at DP, and the stores stop at column d.
+constexpr int kPanelChunks = 1000;
+constexpr int kPanelWords = 2000;
+
+template <int D>
+__host__ __device__ constexpr bool is_panel() {
+  return D > kPanelChunks;
+}
+
+template <int D>
+__host__ __device__ constexpr bool panel_words() {
+  return D > kPanelWords;
+}
+
+template <int DP, bool Words>
+__host__ __device__ constexpr int panel_build() {
+  return (Words ? kPanelWords : kPanelChunks) + DP;
+}
+
+// The head dim the products run at: D rounded up to a whole panel (a panel
+// build's width).
 template <int D>
 __host__ __device__ constexpr int padded_dim() {
-  return (D + 31) / 32 * 32;
+  return is_panel<D>() ? D % kPanelChunks : (D + 31) / 32 * 32;
+}
+
+// Whether a panel build carries planted fault `bit` (the macro above).
+template <int D>
+__host__ __device__ constexpr bool panel_fault(int bit) {
+  return is_panel<D>() && (BPX_PLANT_PANEL_FAULT & bit) != 0;
+}
+
+// A panel build's half width (the D 192 and 256 backward's columns a
+// warpgroup takes) as a panel build, DP / 2 at a tabled D.
+template <int D>
+__host__ __device__ constexpr int half_dim() {
+  return is_panel<D>() ? D - padded_dim<D>() / 2 : padded_dim<D>() / 2;
+}
+
+// The panel width of head dim d (1..256): the smallest of 32, 64, 128, 192
+// and 256 that holds it (the wrapper's panel_width); f(integral_constant<int,
+// DP>()), cudaErrorInvalidValue outside 1..256.
+template <typename F>
+__host__ cudaError_t with_panel_width(int d, F&& f) {
+  if (d < 1 || d > 256) return cudaErrorInvalidValue;
+  if (d <= 32) return f(std::integral_constant<int, 32>());
+  if (d <= 64) return f(std::integral_constant<int, 64>());
+  if (d <= 128) return f(std::integral_constant<int, 128>());
+  if (d <= 192) return f(std::integral_constant<int, 192>());
+  return f(std::integral_constant<int, 256>());
 }
 
 // The head dims that run the D 128 kernels in either direction (the
@@ -81,14 +146,15 @@ __host__ __device__ constexpr int padded_dim() {
 // 64.  D 64 and 96 keep kernels of their own.
 template <int D>
 __host__ __device__ constexpr bool runs_wide() {
-  return D == 50 || D == 60 || padded_dim<D>() == 128;
+  return D == 50 || D == 60 || padded_dim<D>() == 128 ||
+         (is_panel<D>() && padded_dim<D>() == 64);
 }
 
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   constexpr int DP = padded_dim<D>();
   static_assert(DP <= 256, "head_dim must be <= 256");
-  static_assert(D == DP || D < 32 || D % 2 == 0,
+  static_assert(is_panel<D>() || D == DP || D < 32 || D % 2 == 0,
                 "head_dim must be 32*k, even, or one panel");
   return DP / 32 * kPanelBytes;
 }
@@ -217,6 +283,7 @@ __device__ __forceinline__ void load_tile_by(int tid, uint32_t dst,
                                              const __nv_bfloat16* src,
                                              long long stride_t, int t0,
                                              int T) {
+  static_assert(!is_panel<D>(), "a panel build loads with panel_load");
   if constexpr (D % 32 == 0) {
     constexpr int kChunks = kRows * D / 8;
     static_assert(kChunks % kThreads == 0, "whole chunks per thread");
@@ -299,6 +366,8 @@ struct TallCopier {
   uint32_t dst;               // byte offset of the first chunk in a tile
   int r0;                     // t / 4
 
+  static_assert(!is_panel<D>(), "a panel build copies with PanelCopier");
+
   __device__ __forceinline__ TallCopier(const __nv_bfloat16* slice,
                                         long long stride_t, int tid)
       : stride(stride_t), r0(tid >> 2) {
@@ -340,6 +409,10 @@ struct NarrowTile {
   static_assert(D < 32, "one panel");
   uint32_t w[9];   // D odd: the covering words
   int shift;       // D odd: 1 if the row starts 2 bytes past a word
+
+  NarrowTile() = default;
+  // PanelTile's constructor, which takes the head dim and the word bytes
+  __device__ __forceinline__ NarrowTile(int, int) {}
 
   __device__ __forceinline__ void fetch(uint32_t dst, const __nv_bfloat16* src,
                                         long long stride_t, int t0, int T) {
@@ -383,6 +456,211 @@ struct NarrowTile {
       st_shared_v4(dst + tile_offset(r, 0, 2 * h + 1), o + 4);
     }
   }
+};
+
+// A panel build's tile load (is_panel): rows [t0 + r0, t0 + r0 + kN) of a
+// (batch, head) slice into those rows of the 64-row tile at dst, by the kT
+// threads of the block that copy it (tid: the thread's index among them),
+// columns d..DP-1 and rows at or past T written as zeros, no column >= d
+// read.  Chunks (Words false): thread t copies 16-byte chunk t % 4 of every
+// panel of rows r0 + t / 4 + (kT / 4) j, as TallCopier does.  Words: the
+// wb-byte words that d and the views allow (PanelDims), 8 or 4 bytes as
+// cp.async words, a thread a word column of every panel; 2 bytes as plain
+// loads and shared-memory stores (cp.async has no 2-byte form), done before
+// it returns.  Those stores are the generic proxy's, as cp.async's copies
+// are, so the same fence.proxy.async and barrier publish them; where a ring
+// stage is handed on through an mbarrier, PanelCopier::arrive fences them
+// before its arrival.
+template <int DP, int kT, int kN, int W>
+__device__ __forceinline__ void panel_words_by(int tid, uint32_t dst,
+                                               const __nv_bfloat16* src,
+                                               long long stride_t, int t0,
+                                               int T, int r0, int d) {
+  constexpr int kPer = 64 / W;        // words of a row in a panel
+  constexpr int kStep = kT / kPer;    // rows a step
+  static_assert(kT % kPer == 0 && kN % kStep == 0, "whole rows a step");
+  const int wc = (tid % kPer) * (W / 2);   // the word's column in a panel
+  const int rt = r0 + tid / kPer;
+  const uint32_t at = (wc % 8) * 2;
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int j = 0; j < kN / kStep; ++j) {
+      const int r = rt + j * kStep;
+      const bool row_ok = t0 + r < T;
+      const __nv_bfloat16* g = src + (long long)(t0 + r) * stride_t + wc;
+#pragma unroll
+      for (int pn = 0; pn < DP / 32; ++pn) {
+        const bool ok = row_ok && pn * 32 + wc < d;
+        const uint32_t to = dst + tile_offset(r, pn, wc / 8) + at;
+        if constexpr (W == 8) {
+          cp_async_8(to, ok ? g + pn * 32 : src, ok);
+        } else {
+          cp_async_4(to, ok ? g + pn * 32 : src, ok);
+        }
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int j = 0; j < kN / kStep; ++j) {
+      const int r = rt + j * kStep;
+      const bool row_ok = t0 + r < T;
+      const unsigned short* g = reinterpret_cast<const unsigned short*>(
+          src + (long long)(t0 + r) * stride_t + wc);
+      uint16_t v[DP / 32];
+#pragma unroll
+      for (int pn = 0; pn < DP / 32; ++pn) {
+        v[pn] = row_ok && pn * 32 + wc < d ? __ldg(g + pn * 32) : uint16_t(0);
+      }
+#pragma unroll
+      for (int pn = 0; pn < DP / 32; ++pn) {
+        st_shared_u16(dst + tile_offset(r, pn, wc / 8) + at, v[pn]);
+      }
+    }
+  }
+}
+
+template <int DP, int kT, int kN, bool Words>
+__device__ __forceinline__ void panel_load(int tid, uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           long long stride_t, int t0, int T,
+                                           int r0, int d, int wb) {
+  if constexpr (!Words) {
+    constexpr int kStep = kT / 4;
+    static_assert(kN % kStep == 0, "whole rows a step");
+    const int c = tid & 3;
+    const int rt = r0 + (tid >> 2);
+#pragma unroll
+    for (int j = 0; j < kN / kStep; ++j) {
+      const int r = rt + j * kStep;
+      const bool row_ok = t0 + r < T;
+      const __nv_bfloat16* g = src + (long long)(t0 + r) * stride_t + c * 8;
+#pragma unroll
+      for (int pn = 0; pn < DP / 32; ++pn) {
+        const bool ok = row_ok && pn * 32 + c * 8 < d;
+        cp_async_16(dst + tile_offset(r, pn, c), ok ? g + pn * 32 : src, ok);
+      }
+    }
+  } else if (wb == 8) {
+    panel_words_by<DP, kT, kN, 8>(tid, dst, src, stride_t, t0, T, r0, d);
+  } else if (wb == 4) {
+    panel_words_by<DP, kT, kN, 4>(tid, dst, src, stride_t, t0, T, r0, d);
+  } else {
+    panel_words_by<DP, kT, kN, 2>(tid, dst, src, stride_t, t0, T, r0, d);
+  }
+}
+
+// A panel build's head dim and word bytes (16 for a chunk build; 8, 4 or 2
+// for a words build), chosen on the host by panel_word_bytes.
+struct PanelDims {
+  int d;
+  int wb;
+};
+
+// The widest copy (16, 8, 4 or 2 bytes) that every row of the views with
+// data pointers `ptrs` and (b, h, t) strides `strides` allows at head dim d:
+// a word must not straddle column d, and every row's start must be aligned
+// to it.
+__host__ inline int panel_word_bytes(int d, const void* const* ptrs, int n,
+                                     const long long* strides, int m) {
+  for (int wb = 16; wb > 2; wb /= 2) {
+    bool ok = d % (wb / 2) == 0;
+    for (int i = 0; i < n && ok; ++i) {
+      ok = reinterpret_cast<uintptr_t>(ptrs[i]) % wb == 0;
+    }
+    for (int i = 0; i < m && ok; ++i) ok = strides[i] % (wb / 2) == 0;
+    if (ok) return wb;
+  }
+  return 2;
+}
+
+// One thread's copies into every 64-row tile of one (batch, head) slice in
+// a panel build, by the kT threads of a block, TallCopier's 16-byte chunks
+// with their addresses worked out once (Words false), or panel_load's words
+// (their addresses worked out a tile).  arrive() signals an mbarrier once
+// this thread's copies have landed.
+template <int DP, int kT, bool Words>
+struct PanelCopier {
+  static constexpr int kStep = kT / 4;   // rows between a thread's chunks
+  const __nv_bfloat16* slice;   // row 0, column 0: also a zero fill's address
+  const __nv_bfloat16* row;     // chunks: row t / 4, column 8 (t % 4)
+  long long stride;             // elements between rows
+  uint32_t dst;                 // chunks: the first chunk's byte offset
+  int r0;                       // chunks: t / 4; words: t
+  int live;                     // chunks: bit p, panel p's chunk is below d
+  PanelDims pd;
+
+  __device__ __forceinline__ PanelCopier(const __nv_bfloat16* s,
+                                         long long stride_t, int tid,
+                                         PanelDims dims)
+      : slice(s), stride(stride_t), pd(dims) {
+    if constexpr (Words) {
+      r0 = tid;
+    } else {
+      r0 = tid >> 2;
+      row = s + (long long)r0 * stride_t + (tid & 3) * 8;
+      dst = tile_offset(r0, 0, tid & 3);
+      live = 0;
+#pragma unroll
+      for (int pn = 0; pn < DP / 32; ++pn) {
+        live |= (pn * 32 + (tid & 3) * 8 < dims.d) << pn;
+      }
+    }
+  }
+
+  // rows [t0, t0 + 64) into the tile at `tile`; rows at or past T, and
+  // columns d..DP-1, as zeros
+  __device__ __forceinline__ void copy(uint32_t tile, int t0, int T) const {
+    if constexpr (Words) {
+      panel_load<DP, kT, kRows, true>(r0, tile, slice, stride, t0, T, 0,
+                                      pd.d, pd.wb);
+    } else {
+      const __nv_bfloat16* lo = row + (long long)t0 * stride;
+#pragma unroll
+      for (int j = 0; j < kRows / kStep; ++j) {
+        const bool row_ok = t0 + r0 + j * kStep < T;
+        const __nv_bfloat16* a = lo + (long long)(j * kStep) * stride;
+#pragma unroll
+        for (int pn = 0; pn < DP / 32; ++pn) {
+          const bool ok = row_ok && ((live >> pn) & 1);
+          cp_async_16(tile + dst + j * kStep * 64 + pn * kPanelBytes,
+                      ok ? a + pn * 32 : slice, ok);
+        }
+      }
+    }
+  }
+
+  // arrive on the mbarrier `bar` once this thread's copies so far have
+  // landed: through cp.async, or, for 2-byte loads (done, by plain stores),
+  // after a proxy fence
+  __device__ __forceinline__ void arrive(uint32_t bar) const {
+    if (Words && pd.wb == 2) {
+      fence_proxy_async();
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                   : "memory");
+    } else {
+      asm volatile(
+          "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+          : "memory");
+    }
+  }
+};
+
+// A panel build's tile for the narrow kernels' streamed loads, NarrowTile's
+// two steps: fetch() is panel_load (done before it returns for 2-byte
+// loads), store() does nothing.
+template <int DP, bool Words>
+struct PanelTile {
+  PanelDims pd;
+
+  __device__ __forceinline__ PanelTile(int d, int wb) : pd{d, wb} {}
+
+  __device__ __forceinline__ void fetch(uint32_t dst, const __nv_bfloat16* src,
+                                        long long stride_t, int t0, int T) {
+    panel_load<DP, kThreads, kRows, Words>(threadIdx.x, dst, src, stride_t,
+                                           t0, T, 0, pd.d, pd.wb);
+  }
+
+  __device__ __forceinline__ void store(uint32_t) const {}
 };
 
 // ---------------------------------------------------------------------------
@@ -736,18 +1014,26 @@ __device__ __forceinline__ void p_frags(uint32_t (&a)[N / 8][4],
 // Store this thread's share of one row of a 64 x DP fp32 accumulator (as
 // wgmma lays it out) as bf16, each value divided by div: columns
 // 8 j + 2 t4 + {0, 1} of row g (Hi = 0) or g + 8 (Hi = 2), those below D
-// only.  An odd-D row may start at any even byte and takes 2-byte stores;
-// every other row is 4-byte aligned.
+// only (a panel build's: below d).  An odd-D row may start at any even byte
+// and takes 2-byte stores; every other row is 4-byte aligned (the
+// wrapper's outputs, (B, T, H, D) memory).
 template <int D, int Hi>
 __device__ __forceinline__ void store_row(
     __nv_bfloat16* row, const float (&acc)[padded_dim<D>() / 2], int t4,
-    float div) {
+    float div, int d) {
 #pragma unroll
   for (int j = 0; j < padded_dim<D>() / 8; ++j) {
     const int c = 8 * j + 2 * t4;
     const float x = acc[4 * j + Hi] / div;
     const float y = acc[4 * j + Hi + 1] / div;
-    if constexpr (D % 2 == 0) {
+    if constexpr (is_panel<D>()) {
+      if (d % 2 == 0) {
+        if (c < d) *reinterpret_cast<uint32_t*>(row + c) = pack_bf16x2(x, y);
+      } else {
+        if (c < d) row[c] = __float2bfloat16_rn(x);
+        if (c + 1 < d) row[c + 1] = __float2bfloat16_rn(y);
+      }
+    } else if constexpr (D % 2 == 0) {
       if (c < D) *reinterpret_cast<uint32_t*>(row + c) = pack_bf16x2(x, y);
     } else {
       if (c < D) row[c] = __float2bfloat16_rn(x);

@@ -196,6 +196,30 @@
 // computing), made ptxas hold the whole 384-thread kernel at 168 registers
 // with 1.3 KB of spills: 0.0717 / 0.0825 ms.
 
+// Panel builds (flash_panel_fwd.cu: bf16 at every head dim d from 1 to 256
+// that with_head_dim does not list): the narrow kernel at d <= 32, the wide
+// one at 33-64 (as D 50 and 60 run it) and 65-128, the tall one at 129-192
+// and 193-256, each at its panel width DP with d a runtime argument
+// (FlashParams::pd; is_panel and padded_dim in flash_common.cuh).  What
+// differs from the tabled instantiations:
+//   * every tile load writes columns d..DP-1 as zeros in shared memory
+//     (panel_load, PanelCopier: a chunk or word past d is a cp.async of 0
+//     bytes, or a stored 0), so the products run at DP as at D 50 and 60;
+//   * rows are copied in 16-byte cp.async chunks where d is a multiple of 8
+//     and every view is 16-byte aligned (a chunk build, its K and V copies
+//     worked out once as WideCopier's and TallCopier's), else in a words
+//     build's 8- or 4-byte cp.async words or 2-byte loads, the widest that
+//     d and the views allow (panel_word_bytes, on the host); the 2-byte
+//     loads are plain loads and shared-memory stores, done before a ring
+//     stage is published (the block barrier's fence, or PanelCopier::arrive
+//     fencing them before the tall kernel's mbarrier arrival);
+//   * O's stores stop at column d (store_row);
+//   * every panel build is the one for seed groups, which hashes one group
+//     as the one-group build does.
+// The tabled instantiations compile to the registers and spills they had
+// before (PERF.md's ptxas record, held by chip_smoke.py).  Times on an H100
+// in PERF.md (rows "1 panel"; scripts: chip_smoke.py phase 22).
+
 // Bound on an H100: the forward moves q, k, v and o once (bf16) and does
 // 4*Tq*Tk*D flops per (batch, head); at the model's shapes (T <= 512, D <=
 // 128) the arithmetic intensity is below the card's ~295 flop/byte balance
@@ -203,7 +227,9 @@
 // score against 8 D bytes per row of q, k, v and o).
 //
 // Inputs are (B, H, T, D) tensors addressed by strides (the last dim
-// contiguous), so the q/k/v views of a fused projection need no copy.
+// contiguous), so the q/k/v views of a fused projection need no copy (a
+// panel build's: at any strides and pointers, loaded in the words they
+// allow).
 // D = 64, 96, 128, 192, 256: every stride a multiple of 8 elements and
 // pointers 16-byte aligned; D = 60: strides multiples of 4, 8-byte aligned
 // pointers; D = 30, 50: even strides, 4-byte aligned pointers; D = 25: any
@@ -233,6 +259,7 @@ struct FlashParams {
   int offset;
   Dropout drop;
   SeedGroups seed_groups;   // read by the kernels of several groups only
+  PanelDims pd;             // read by the panel builds only
 };
 
 // Q, then kStages x (K, V); +1 KB to align the base to the swizzle.
@@ -411,11 +438,11 @@ flash_fwd_kernel(const FlashParams p) {
 
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
   if (row0 < p.Tq) {
-    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
   }
   if (row1 < p.Tq) {
-    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
   }
 }
@@ -429,14 +456,14 @@ flash_fwd_kernel(const FlashParams p) {
 // third stage would not start them earlier).
 template <int D>
 __host__ __device__ constexpr int narrow_stages() {
-  return D % 2 ? 2 : 3;
+  return !is_panel<D>() && D % 2 ? 2 : 3;
 }
 
 // Blocks per SM the narrow kernel is compiled for: 5 at D = 25, 4 at
 // D = 30 (the header).
 template <int D>
 __host__ __device__ constexpr int narrow_min_blocks() {
-  return D % 2 ? 5 : 4;
+  return !is_panel<D>() && D % 2 ? 5 : 4;
 }
 
 // Q, then stages x (K, V), one panel each; +1 KB for alignment.
@@ -485,7 +512,10 @@ flash_fwd_narrow_kernel(const FlashParams p) {
 
   // key tile t goes to ring stage t mod kRing, started by fetch(t),
   // written by store(t) (D = 25)
-  NarrowTile<D> k_next, v_next;
+  using Tile = std::conditional_t<is_panel<D>(),
+                                  PanelTile<32, panel_words<D>()>,
+                                  NarrowTile<D>>;
+  Tile k_next(p.pd.d, p.pd.wb), v_next(p.pd.d, p.pd.wb);
   auto fetch = [&](int t) {
     const uint32_t dst = kv_s + 2 * (t % kRing) * kTile;
     k_next.fetch(dst, kb, p.k_st, t * kRows, Tk);
@@ -496,7 +526,12 @@ flash_fwd_narrow_kernel(const FlashParams p) {
     k_next.store(dst);
     v_next.store(dst + kTile);
   };
-  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  if constexpr (is_panel<D>()) {
+    Tile(p.pd.d, p.pd.wb)
+        .fetch(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  } else {
+    load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  }
   if (n_tiles > 0) {
     fetch(0);
     store(0);
@@ -596,6 +631,12 @@ flash_fwd_narrow_kernel(const FlashParams p) {
       l0 += s[4 * j] + s[4 * j + 1];
       l1 += s[4 * j + 2] + s[4 * j + 3];
     }
+    if constexpr (panel_fault<D>(1)) {
+      if (t4 == 0) {
+        l0 -= s[0];
+        l1 -= s[2];
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
 
@@ -634,11 +675,11 @@ flash_fwd_narrow_kernel(const FlashParams p) {
 
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
   if (row0 < p.Tq) {
-    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
   }
   if (row1 < p.Tq) {
-    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
   }
 }
@@ -778,6 +819,21 @@ struct WordCopier {
   }
 };
 
+// A copier of the wide and tall kernels over one (batch, head) slice: a
+// panel build's PanelCopier takes the head dim and word bytes, the tabled
+// ones theirs from the template.
+template <typename Copier>
+__device__ __forceinline__ Copier make_copier(const __nv_bfloat16* slice,
+                                              long long stride_t, int tid,
+                                              const PanelDims& pd) {
+  if constexpr (std::is_constructible_v<Copier, const __nv_bfloat16*,
+                                        long long, int, PanelDims>) {
+    return Copier(slice, stride_t, tid, pd);
+  } else {
+    return Copier(slice, stride_t, tid);
+  }
+}
+
 // Pin the bf16 A fragments of an in-flight P V at this point: their
 // registers are not reused before the wgmma that reads them is waited on.
 __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
@@ -803,8 +859,10 @@ template <int D, bool Groups = false>
 __global__ void __launch_bounds__(kThreads, wide_min_blocks<D>())
 flash_fwd_wide_kernel(const FlashParams p) {
   constexpr int DP = padded_dim<D>();
-  static_assert(runs_wide<D>(), "D = 128, 50 or 60");
-  using Copier = std::conditional_t<DP == 128, WideCopier, WordCopier<D>>;
+  static_assert(runs_wide<D>(), "D = 128, 50 or 60, or a panel build");
+  using Copier = std::conditional_t<
+      is_panel<D>(), PanelCopier<DP, kThreads, panel_words<D>()>,
+      std::conditional_t<DP == 128, WideCopier, WordCopier<D>>>;
   constexpr int kTile = tile_bytes<D>();
   constexpr int kKSteps = DP / 16;   // k-steps of Q K^T
   constexpr int kS = wide_stages<D>();
@@ -838,9 +896,11 @@ flash_fwd_wide_kernel(const FlashParams p) {
   }
 
   // step w loads K_{w + kS - 1} and V_{w + kS - 2}, one commit group
-  const Copier k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st, threadIdx.x);
-  const Copier v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st, threadIdx.x);
-  if constexpr (DP != 128) {
+  const Copier k_copy = make_copier<Copier>(p.k + b * p.k_sb + h * p.k_sh,
+                                            p.k_st, threadIdx.x, p.pd);
+  const Copier v_copy = make_copier<Copier>(p.v + b * p.v_sb + h * p.v_sh,
+                                            p.v_st, threadIdx.x, p.pd);
+  if constexpr (DP != 128 && !is_panel<D>()) {
     // the padding columns of every ring stage, once (the first commit
     // group, complete before step 0)
 #pragma unroll
@@ -858,7 +918,13 @@ flash_fwd_wide_kernel(const FlashParams p) {
     }
     cp_async_commit();
   };
-  load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  if constexpr (is_panel<D>()) {
+    panel_load<DP, kThreads, kRows, panel_words<D>()>(
+        threadIdx.x, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq, 0,
+        p.pd.d, p.pd.wb);
+  } else {
+    load_tile<D>(q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
+  }
 #pragma unroll
   for (int w = 1 - kS; w < 0; ++w) load_group(w);
 
@@ -960,6 +1026,12 @@ flash_fwd_wide_kernel(const FlashParams p) {
       l0 += s[4 * j] + s[4 * j + 1];
       l1 += s[4 * j + 2] + s[4 * j + 3];
     }
+    if constexpr (panel_fault<D>(1)) {
+      if (t4 == 0) {
+        l0 -= s[0];
+        l1 -= s[2];
+      }
+    }
     // dropout after the row sums, so l keeps the undropped probabilities
     if (p.drop.on) {
       const uint32_t xt0 = x00 + static_cast<uint32_t>(k0) * kMix;
@@ -1023,11 +1095,11 @@ flash_fwd_wide_kernel(const FlashParams p) {
 
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
   if (row0 < p.Tq) {
-    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
   }
   if (row1 < p.Tq) {
-    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
   }
 }
@@ -1190,15 +1262,34 @@ flash_fwd_tall_kernel(const FlashParams p) {
   const int n_mine = tiles_for(q0);
 
   // this warpgroup's Q tile, then this thread's rows of K_0
-  const TallCopier<D> k_copy(p.k + b * p.k_sb + h * p.k_sh, p.k_st,
-                             threadIdx.x);
-  const TallCopier<D> v_copy(p.v + b * p.v_sb + h * p.v_sh, p.v_st,
-                             threadIdx.x);
-  load_tile_by<D>(tid, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq);
-  mbar_arrive_copies(q_full);
+  using Copier =
+      std::conditional_t<is_panel<D>(),
+                         PanelCopier<DP, kTallThreads, panel_words<D>()>,
+                         TallCopier<D>>;
+  const Copier k_copy = make_copier<Copier>(p.k + b * p.k_sb + h * p.k_sh,
+                                            p.k_st, threadIdx.x, p.pd);
+  const Copier v_copy = make_copier<Copier>(p.v + b * p.v_sb + h * p.v_sh,
+                                            p.v_st, threadIdx.x, p.pd);
+  // arrive on a full barrier once this thread's copies have landed
+  auto arrive_copies = [&](uint32_t bar) {
+    if constexpr (is_panel<D>()) {
+      k_copy.arrive(bar);
+    } else {
+      mbar_arrive_copies(bar);
+    }
+  };
+  if constexpr (is_panel<D>()) {
+    panel_load<DP, kThreads, kRows, panel_words<D>()>(
+        tid, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, p.Tq, 0, p.pd.d,
+        p.pd.wb);
+  } else {
+    load_tile_by<D>(tid, q_s, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0,
+                    p.Tq);
+  }
+  arrive_copies(q_full);
   if (n_tiles > 0) {
     k_copy.copy(k_ring, 0, Tk);
-    mbar_arrive_copies(k_full(0));
+    arrive_copies(k_full(0));
   }
   // turn u's copies: K_{u+1} into the stage of K_{u+1-kS} and V_u into
   // that of V_{u-kS}, once both warpgroups' products have read those
@@ -1207,12 +1298,12 @@ flash_fwd_tall_kernel(const FlashParams p) {
     if (j < n_tiles) {
       if (j >= kS) mbar_wait(k_empty(j % kS), (j / kS - 1) & 1);
       k_copy.copy(k_ring + (j % kS) * kTile, j * kRows, Tk);
-      mbar_arrive_copies(k_full(j % kS));
+      arrive_copies(k_full(j % kS));
     }
     if (u < n_tiles) {
       if (u >= kS) mbar_wait(v_empty(u % kS), (u / kS - 1) & 1);
       v_copy.copy(v_ring + (u % kS) * kTile, u * kRows, Tk);
-      mbar_arrive_copies(v_full(u % kS));
+      arrive_copies(v_full(u % kS));
     }
   };
 
@@ -1306,6 +1397,12 @@ flash_fwd_tall_kernel(const FlashParams p) {
     for (int j = 0; j < 8; ++j) {
       l0 += s[4 * j] + s[4 * j + 1];
       l1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    if constexpr (panel_fault<D>(1)) {
+      if (t4 == 0) {
+        l0 -= s[0];
+        l1 -= s[2];
+      }
     }
     // dropout after the row sums, so l keeps the undropped probabilities
     if (p.drop.on) {
@@ -1434,11 +1531,11 @@ flash_fwd_tall_kernel(const FlashParams p) {
 
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
   if (row0 < p.Tq) {
-    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0);
+    store_row<D, 0>(ob + row0 * p.o_st, acc, t4, ls0, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row0] = m0 + logf(ls0);
   }
   if (row1 < p.Tq) {
-    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1);
+    store_row<D, 2>(ob + row1 * p.o_st, acc, t4, ls1, p.pd.d);
     if (t4 == 0) p.lse[(long long)bh * p.Tq + row1] = m1 + logf(ls1);
   }
 }
@@ -1479,9 +1576,44 @@ cudaError_t launch(const FlashParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// One call's parameters from the C entry's arguments; false when the seed
+// groups or the placement do not fit (set_dropout).
+bool set_params(FlashParams& p, const void* q, const void* k, const void* v,
+                void* o, void* lse, const void* kv_lens, int B, int H, int Tq,
+                int Tk, long long q_sb, long long q_sh, long long q_st,
+                long long k_sb, long long k_sh, long long k_st,
+                long long v_sb, long long v_sh, long long v_st,
+                long long o_sb, long long o_sh, long long o_st, int masked,
+                int offset, int dropout, const unsigned int* seeds, int groups,
+                unsigned int threshold, float inv_keep, int tk_p, int b_off,
+                int h_off, int heads_g, int group_stride) {
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.B = B;
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
+  p.masked = masked;
+  p.offset = offset;
+  p.pd = {0, 16};
+  return set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
+                     threshold, inv_keep, tk_p, b_off, h_off, heads_g,
+                     group_stride);
+}
+
 }  // namespace
 
 extern "C" {
+
+#ifndef BPX_FLASH_PANEL
 
 // Returns a cudaError_t (0 on success); cudaErrorInvalidValue for a head_dim
 // without an instantiation, or for seed groups or a placement that do not
@@ -1501,25 +1633,10 @@ int bpx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   int tk_p, int b_off, int h_off, int heads_g,
                   int group_stride, void* stream) {
   FlashParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.kv_lens = static_cast<const int*>(kv_lens);
-  p.B = B;
-  p.H = H;
-  p.Tq = Tq;
-  p.Tk = Tk;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
-  p.masked = masked;
-  p.offset = offset;
-  if (!set_dropout(p.drop, p.seed_groups, dropout, seeds, groups, B * H, H,
-                   threshold, inv_keep, tk_p, b_off, h_off, heads_g,
-                   group_stride))
+  if (!set_params(p, q, k, v, o, lse, kv_lens, B, H, Tq, Tk, q_sb, q_sh,
+                  q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st,
+                  masked, offset, dropout, seeds, groups, threshold, inv_keep,
+                  tk_p, b_off, h_off, heads_g, group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bpx_flash::with_head_dim(
@@ -1555,5 +1672,63 @@ int bpx_flash_fwd_blocks_per_sm(int D, int* blocks) {
 const char* bpx_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#else  // BPX_FLASH_PANEL: the panel builds (flash_panel_fwd.cu)
+
+// bpx_flash_fwd at a head dim D from 1 to 256 that the tabled kernels do
+// not take: the kernels of D's panel width (with_panel_width) at a runtime
+// D, a chunk build where every row of q, k and v is 16-byte aligned and D a
+// multiple of 8, else a words build (panel_word_bytes).  Every panel build
+// is the one for seed groups, which takes one group as the one-group build
+// hashes it.  cudaErrorInvalidValue outside 1..256, or as bpx_flash_fwd.
+int bpx_flash_panel_fwd(const void* q, const void* k, const void* v, void* o,
+                        void* lse, const void* kv_lens, int B, int H, int Tq,
+                        int Tk, int D, long long q_sb, long long q_sh,
+                        long long q_st, long long k_sb, long long k_sh,
+                        long long k_st, long long v_sb, long long v_sh,
+                        long long v_st, long long o_sb, long long o_sh,
+                        long long o_st, int masked, int offset, int dropout,
+                        const unsigned int* seeds, int groups,
+                        unsigned int threshold, float inv_keep, int tk_p,
+                        int b_off, int h_off, int heads_g, int group_stride,
+                        void* stream) {
+  FlashParams p;
+  if (!set_params(p, q, k, v, o, lse, kv_lens, B, H, Tq, Tk, q_sb, q_sh,
+                  q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st,
+                  masked, offset, dropout, seeds, groups, threshold, inv_keep,
+                  tk_p, b_off, h_off, heads_g, group_stride))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {q, k, v};
+  const long long strides[] = {q_sb, q_sh, q_st, k_sb, k_sh,
+                               k_st, v_sb, v_sh, v_st};
+  p.pd = {D, panel_word_bytes(D, ptrs, 3, strides, 9)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bpx_flash::with_panel_width(D, [&](auto w) {
+    constexpr int kDP = decltype(w)::value;
+    return p.pd.wb == 16 ? launch<panel_build<kDP, false>(), true>(p, s)
+                         : launch<panel_build<kDP, true>(), true>(p, s);
+  }));
+}
+
+// Blocks of the forward kernel's chunk build at head dim D (1..256) that
+// one SM holds, into *blocks.
+int bpx_flash_panel_fwd_blocks_per_sm(int D, int* blocks) {
+  return static_cast<int>(bpx_flash::with_panel_width(D, [&](auto w) {
+    constexpr int kD = panel_build<decltype(w)::value, false>();
+    if constexpr (padded_dim<kD>() >= 192) {
+      return bpx_flash::blocks_per_sm(flash_fwd_tall_kernel<kD, true>,
+                                      tall_smem_bytes<kD>(), blocks,
+                                      kTallThreads);
+    } else if constexpr (runs_wide<kD>()) {
+      return bpx_flash::blocks_per_sm(flash_fwd_wide_kernel<kD, true>,
+                                      wide_smem_bytes<kD>(), blocks);
+    } else {
+      return bpx_flash::blocks_per_sm(flash_fwd_narrow_kernel<kD, true>,
+                                      narrow_smem_bytes<kD>(), blocks);
+    }
+  }));
+}
+
+#endif  // BPX_FLASH_PANEL
 
 }  // extern "C"

@@ -1,10 +1,10 @@
-// Flash attention at any head dim from 1 to 256, in bf16 and in fp32, for
-// Hopper (sm_90a): the forward, the backward's dQ kernel (which computes
-// delta) and its dependent dK/dV kernel, and delta on its own.
+// Flash attention at any head dim from 1 to 256 in fp32 for Hopper
+// (sm_90a): the forward, the backward's dQ kernel (which computes delta) and
+// its dependent dK/dV kernel, and delta on its own.
 //
-// Replaces, where the tabled kernels of flash_fwd.cu and flash_bwd.cu do not
-// reach (bf16 at a head dim they are not built for, and fp32 at every head
-// dim), the TPU kernels of bpx/ops/pallas_attention.py:
+// Replaces, where the tabled kernels of flash_fwd.cu and flash_bwd.cu and
+// their panel builds (bf16 at every head dim up to 256) do not reach (fp32
+// at every head dim), the TPU kernels of bpx/ops/pallas_attention.py:
 //   * :145 _fwd_kernel (from _fwd, :250), its single-pass and its online
 //     branch, with the in-kernel dropout of :102 _keep_mask;
 //   * :276 _bwd_dq_kernel (:576) and :357 _bwd_dkv_kernel (:604), and :462
@@ -13,7 +13,8 @@
 //     BPX_XLA_DELTA=0) is computed here by the dQ kernel.
 // The Pallas kernels take any raw head dim and keep their operands in the
 // input dtype, so --compute_dtype float32 --attention_impl pallas runs them
-// in fp32; these kernels take the same domain.
+// in fp32; these kernels take that domain in fp32 (bf16 up to 256 runs
+// the panel builds, on the tensor cores, and with_dtype takes fp32 alone).
 //
 // The function (flash_fwd.cu and flash_bwd.cu state it in full; the plain
 // versions are bpx_torch/ops/flash_attention.py:200-258), per (batch*head):
@@ -29,20 +30,19 @@
 // no tile is skipped, so nothing breaks that.
 //
 // Design.  SIMT: fp32 FFMA on the CUDA cores, one 128-thread block per
-// (batch*head, tile).  bf16 values are widened to fp32 as they are loaded
-// (exact); the tiles of Q, K, V (or Q, dO, K, V) sit in shared memory as
-// fp32 rows of W + 1 floats, W the head dim rounded up to 32, 64, 128 or 256
-// (the build's width; the head dim itself is a runtime argument), the
-// columns from D to W and the rows past T zeroed there, so nothing is padded
-// in device memory.  Every load is an element load at the tensor's strides
-// (the last dim contiguous), so a fused projection's (B, H, T, D) views at
-// any D go in without a copy.  The odd row stride puts the 16 rows a
-// half-warp reads at one column in 16 distinct banks.  The 128 threads are 8
-// row groups of 16 lanes: a thread owns 8 rows (ty + 8 i) and the score
-// columns tx + 16 j of each key tile, so a row's softmax statistics reduce
-// over one half-warp's shuffles, and the output columns tx + 16 j of its
-// rows, accumulated in registers over the key (or query) tiles.  The scores
-// of a tile go through shared memory between the two products.
+// (batch*head, tile).  The tiles of Q, K, V (or Q, dO, K, V) sit in shared
+// memory as fp32 rows of W + 1 floats, W the head dim rounded up to 32, 64, 128
+// or 256 (the build's width; the head dim itself is a runtime argument), the
+// columns from D to W and the rows past T zeroed there, so nothing is padded in
+// device memory.  Every load is an element load at the tensor's strides (the
+// last dim contiguous), so a fused projection's (B, H, T, D) views at any D go
+// in without a copy.  The odd row stride puts the 16 rows a half-warp reads at
+// one column in 16 distinct banks.  The 128 threads are 8 row groups of 16
+// lanes: a thread owns 8 rows (ty + 8 i) and the score columns tx + 16 j of
+// each key tile, so a row's softmax statistics reduce over one half-warp's
+// shuffles, and the output columns tx + 16 j of its rows, accumulated in
+// registers over the key (or query) tiles.  The scores of a tile go through
+// shared memory between the two products.
 //
 // No TF32: it keeps about three decimal digits, and fp32 here is held to the
 // plain fp32 version.  No atomics: every output element is written by one
@@ -56,14 +56,13 @@
 // two to four FMAs).  At the model's shapes it does 4 D flops per visible
 // score in the forward and 10 D in the backward against a tensor-core bound
 // of 989 TFLOP/s in bf16 and 165 TFLOP/s (three TF32 passes at 495) in fp32,
-// so it sits far below both: a first, simple port.  Putting these head dims
-// on tensor cores (bf16 on the panel kernels with a runtime width, fp32 on
-// three TF32 passes) is the redesign ROADMAP.md queues.
+// so it sits far below both: a first, simple port.  Putting fp32 on the
+// tensor cores (three TF32 passes) is the redesign ROADMAP.md queues.
 //
 // BPX_PLANT_GENERIC_FAULT builds the faults chip_smoke.py must catch, a bit
 // per kernel: 1, the forward's row sum leaves out each key tile's first
 // key; 2, the dQ kernel leaves delta out of dS; 4, the dK/dV kernel does.
-#include "flash_common.cuh"
+#include "flash_simt.cuh"
 
 #ifndef BPX_PLANT_GENERIC_FAULT
 #define BPX_PLANT_GENERIC_FAULT 0
@@ -74,7 +73,6 @@ namespace {
 using namespace bpx_flash;
 
 constexpr int kGenThreads = 128;   // 8 row groups x 16 lanes
-constexpr int kGroupLanes = 16;
 constexpr int kRowsPerThread = 8;
 constexpr int kQTile = 64;         // query rows of the forward's, dQ's tile
 constexpr int kMaxHeadDim = 256;
@@ -86,10 +84,6 @@ template <int W>
 __host__ __device__ constexpr int tile_rows() {
   return W >= 128 ? 32 : 64;
 }
-
-struct Strides {
-  long long b, h, t;
-};
 
 struct GenericParams {
   const void* q;
@@ -111,34 +105,6 @@ struct GenericParams {
   SeedGroups seed_groups;
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the plain version's casts of P and dS
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return widen(narrow<T>(x));
-}
-
-template <typename T>
-__device__ __forceinline__ const T* head_of(const void* base, const Strides& s,
-                                            int b, int h) {
-  return static_cast<const T*>(base) + b * s.b + h * s.h;
-}
-
 // rows [t0, t0 + rows) of one head into a (rows, W + 1) fp32 tile: columns
 // past D and rows past `len` zero (a stale value could be a NaN, and 0 *
 // NaN is not 0)
@@ -153,26 +119,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     if (c < D && t0 + r < len) x = widen(src[(t0 + r) * st + c]);
     dst[r * (W + 1) + c] = x;
   }
-}
-
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = kGroupLanes / 2; o > 0; o /= 2)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = kGroupLanes / 2; o > 0; o /= 2)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 __device__ __forceinline__ bool visible(const GenericParams& p, int row,
@@ -658,19 +604,6 @@ __global__ void __launch_bounds__(kGenThreads)
   if (lane == 0) delta[row] = sum;
 }
 
-template <typename T>
-struct Type {
-  using type = T;
-};
-
-// f(Type<T>()) for dtype 0 (bf16) or 1 (fp32)
-template <typename F>
-cudaError_t with_dtype(int dtype, F&& f) {
-  if (dtype == 0) return f(Type<__nv_bfloat16>());
-  if (dtype == 1) return f(Type<float>());
-  return cudaErrorInvalidValue;
-}
-
 // f(std::integral_constant<int, W>()) for the build whose width W holds D
 template <typename F>
 cudaError_t with_width(int D, F&& f) {
@@ -745,7 +678,7 @@ bool set_common(GenericParams& p, int B, int H, int Tq, int Tk, int D,
 extern "C" {
 
 // As bpx_flash_fwd (flash_fwd.cu), at any head_dim D from 1 to 256 and with
-// dtype 0 (bf16) or 1 (fp32) for q, k, v and o.  Returns a cudaError_t;
+// dtype 1 (fp32) for q, k, v and o.  Returns a cudaError_t;
 // cudaErrorInvalidValue for a D or dtype outside that, or for seed groups
 // or a placement that do not fit.
 int bpx_flash_generic_fwd(const void* q, const void* k, const void* v,
@@ -775,7 +708,7 @@ int bpx_flash_generic_fwd(const void* q, const void* k, const void* v,
                   group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<false>(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     return with_width(D, [&](auto w) {
       constexpr int W = decltype(w)::value;
@@ -786,7 +719,7 @@ int bpx_flash_generic_fwd(const void* q, const void* k, const void* v,
 }
 
 // As bpx_flash_bwd (flash_bwd.cu), at any head_dim D from 1 to 256 and with
-// dtype 0 (bf16) or 1 (fp32) for q, k, v, dO, o, dq, dk and dv: the dQ
+// dtype 1 (fp32) for q, k, v, dO, o, dq, dk and dv: the dQ
 // kernel (with delta, into the (B*H, Tq) workspace `delta`), then the dK/dV
 // kernel as its dependent launch.  Returns a cudaError_t, as
 // bpx_flash_generic_fwd.
@@ -831,7 +764,7 @@ int bpx_flash_generic_bwd(const void* q, const void* k, const void* v,
                   group_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<false>(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     return with_width(D, [&](auto w) {
       constexpr int W = decltype(w)::value;
@@ -842,7 +775,7 @@ int bpx_flash_generic_bwd(const void* q, const void* k, const void* v,
 }
 
 // delta = rowsum(dO * O) in fp32 into a contiguous (B*H, T) buffer, at any
-// head_dim D from 1 to 256 and dtype 0 (bf16) or 1 (fp32).
+// head_dim D from 1 to 256 and dtype 1 (fp32).
 int bpx_flash_generic_delta(const void* o, const void* dout, void* delta,
                             int B, int H, int T, int D, int dtype,
                             long long o_sb, long long o_sh, long long o_st,
@@ -852,7 +785,7 @@ int bpx_flash_generic_delta(const void* o, const void* dout, void* delta,
   const int rows = B * H * T;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int per_block = kGenThreads / 32;
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<false>(dtype, [&](auto t) {
     using E = typename decltype(t)::type;
     flash_generic_delta_kernel<E>
         <<<(rows + per_block - 1) / per_block, kGenThreads, 0, s>>>(
@@ -864,11 +797,11 @@ int bpx_flash_generic_delta(const void* o, const void* dout, void* delta,
 }
 
 // Blocks of the generic forward (kernel 0), dK/dV (1) or dQ kernel (2) at
-// head_dim D and dtype 0 (bf16) or 1 (fp32) that one SM holds, into
-// *blocks.  Returns a cudaError_t.
+// head_dim D and dtype 1 (fp32) that one SM holds, into *blocks.  Returns
+// a cudaError_t.
 int bpx_flash_generic_blocks_per_sm(int D, int dtype, int kernel,
                                     int* blocks) {
-  return static_cast<int>(with_dtype(dtype, [&](auto t) {
+  return static_cast<int>(with_dtype<false>(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     return with_width(D, [&](auto w) {
       constexpr int W = decltype(w)::value;

@@ -23,8 +23,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "bpx_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-#: a source's own extra flags: the generic flash kernels' 48 instantiations
-#: are optimised and assembled in parallel threads (alone they take twice
+#: a source's own extra flags: the generic flash kernels' instantiations
+#: are optimised and assembled in parallel threads (alone they took twice
 #: as long as any other source), and the chunked ones' 14 likewise
 SOURCE_FLAGS = {"flash_generic.cu": ["-split-compile=0"],
                 "flash_chunked.cu": ["-split-compile=0"]}
@@ -117,6 +117,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_flash_bwd.restype = i
     lib.bpx_flash_delta.argtypes = [p] * 3 + [i] * 4 + [ll] * 6 + [p]
     lib.bpx_flash_delta.restype = i
+    # the panel builds (flash_panel_fwd.cu, flash_panel_bwd.cu): as the
+    # tabled entries, at any head dim from 1 to 256 (declared where present:
+    # a tree from before them, built beside this one for an A/B, has none)
+    for name in ("fwd", "bwd", "delta"):
+        if hasattr(lib, f"bpx_flash_panel_{name}"):
+            entry = getattr(lib, f"bpx_flash_panel_{name}")
+            entry.argtypes = getattr(lib, f"bpx_flash_{name}").argtypes
+            entry.restype = i
     # the generic kernels (flash_generic.cu): as above, with the dtype's
     # code (0 bf16, 1 fp32) after the head dim
     lib.bpx_flash_generic_fwd.argtypes = ([p] * 6 + [i] * 6 + [ll] * 12
@@ -139,6 +147,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bpx_flash_fwd_blocks_per_sm.restype = i
     lib.bpx_flash_bwd_blocks_per_sm.argtypes = [i, i, out]
     lib.bpx_flash_bwd_blocks_per_sm.restype = i
+    for name, args in (("fwd", [i, out]), ("bwd", [i, i, out])):
+        if hasattr(lib, f"bpx_flash_panel_{name}_blocks_per_sm"):
+            entry = getattr(lib, f"bpx_flash_panel_{name}_blocks_per_sm")
+            entry.argtypes = args
+            entry.restype = i
     lib.bpx_flash_generic_blocks_per_sm.argtypes = [i, i, i, out]
     lib.bpx_flash_generic_blocks_per_sm.restype = i
     lib.bpx_flash_chunked_blocks_per_sm.argtypes = [i, i, i, out]

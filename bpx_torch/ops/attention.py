@@ -13,9 +13,10 @@ else :func:`dot_product_attention`, the plain einsum attention of the JAX
 package's XLA path, which takes any dtype and head dim.  Only the config
 chooses.  The flash kernels take bf16 and fp32 at any head dim
 (``flash_attention.kernel_route``: the tabled kernels for bf16 at the
-tabled head dims, the generic ones for the rest up to 256, the chunked
-ones above 256); for another dtype the flash wrappers raise, and nothing
-falls back to the einsum attention.
+tabled head dims, their panel builds for bf16 at the rest up to 256, the
+generic ones for fp32 up to 256, the chunked ones above 256); for another
+dtype the flash wrappers raise, and nothing falls back to the einsum
+attention.
 
 In training mode (``module.training``, the JAX package's
 ``deterministic=False``) a per-module ``attn_dropout`` rate draws one seed

@@ -1,6 +1,8 @@
 """Flash attention, forward and backward: the CUDA kernels
-``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_generic.cu`` and
-``csrc/flash_chunked.cu`` and their plain versions.
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` (and their panel builds,
+``csrc/flash_panel_fwd.cu``, ``csrc/flash_panel_bwd.cu``),
+``csrc/flash_generic.cu`` and ``csrc/flash_chunked.cu`` and their plain
+versions.
 
 The counterpart is ``bpx/ops/pallas_attention.py::flash_attention`` with
 ``layout="bhtd"`` and its ``custom_vjp``: q is pre-scaled by
@@ -27,15 +29,20 @@ JAX package's backward, not the true derivative.
 Which kernels a call takes (``kernel_route``, a function of the dtype and
 the head dim D alone): bf16 at the tabled head dims 25, 30, 50, 60, 64, 96,
 128, 192 and 256 the tabled kernels (``flash_fwd.cu``, ``flash_bwd.cu``,
-below); bf16 at any other D from 1 to 256, and fp32 at every D from 1 to
-256, the generic kernels (``flash_generic.cu``: the forward, then the dQ
-kernel with delta and its dependent dK/dV kernel, on the CUDA cores in fp32,
-at any strides whose last dim is contiguous); bf16 and fp32 at every D above
-256 the chunked kernels (``flash_chunked.cu``: the same three, each block
-owning 128 columns of the head dim and recomputing the scores over all of
-it); any other dtype raises TypeError, a D below 1 ValueError.  So the
-kernels take any head dim in bf16 and fp32.  Nothing falls back: a CUDA
-tensor launches its route's kernels or raises.
+below); bf16 at any other D from 1 to 256 the panel builds of the same
+kernels (``flash_panel_fwd.cu``, ``flash_panel_bwd.cu``: the narrow, wide
+or tall forward and the dQ kernel with delta, then its dependent dK/dV
+kernel, of D's panel width 32, 64, 128, 192 or 256 (``panel_width``) on the
+tensor cores, with D a runtime argument and columns D.. of each tile zeros
+in shared memory, at any strides whose last dim is contiguous); fp32 at
+every D from 1 to 256 the generic kernels (``flash_generic.cu``: the
+forward, then the dQ kernel with delta and its dependent dK/dV kernel, on
+the CUDA cores in fp32, at any such strides); bf16 and fp32 at every D
+above 256 the chunked kernels (``flash_chunked.cu``: the same three, each
+block owning 128 columns of the head dim and recomputing the scores over
+all of it); any other dtype raises TypeError, a D below 1 ValueError.  So
+the kernels take any head dim in bf16 and fp32.  Nothing falls back: a
+CUDA tensor launches its route's kernels or raises.
 
 At the tabled head dims, a narrow head (25, 30: the mmtrvat presets'
 300-wide streams over 12 or 10 heads) runs the same kernels at 32 columns
@@ -112,9 +119,12 @@ MASK_FILL = -1e30
 KERNEL_ALIGN = {25: 1, 30: 2, 50: 2, 60: 4, 64: 8, 96: 8, 128: 8, 192: 8,
                 256: 8}
 KERNEL_HEAD_DIMS = tuple(KERNEL_ALIGN)
-#: the widest head dim the generic kernels' builds hold; above it the
-#: chunked kernels run (no upper limit, as the JAX package's kernels)
+#: the widest head dim the generic kernels' and the panel builds hold; above
+#: it the chunked kernels run (no upper limit, as the JAX package's kernels)
 GENERIC_MAX_HEAD_DIM = 256
+#: the panel builds' widths: each runs a head dim D in the first of these
+#: that holds it (``with_panel_width`` in ``csrc/flash_common.cuh``)
+PANEL_WIDTHS = (32, 64, 128, 192, 256)
 #: the dtypes the kernels take, by the code the generic entry points read
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 #: the generic kernels' builds: each runs a head dim D in the first of these
@@ -134,10 +144,11 @@ MAX_SEED_GROUPS = 16
 def kernel_route(dtype, D: int) -> str:
     """The kernels a call at ``dtype`` and head dim ``D`` takes on the card:
     "tabled" (``flash_fwd.cu`` / ``flash_bwd.cu``) for bf16 at a head dim of
-    ``KERNEL_ALIGN``, "generic" (``flash_generic.cu``) for bf16 at any other
-    D from 1 to 256 and for fp32 at any D from 1 to 256, "chunked"
-    (``flash_chunked.cu``) for bf16 and fp32 at any D above 256.  TypeError
-    for any other dtype, ValueError for a D below 1."""
+    ``KERNEL_ALIGN``, "panel" (their panel builds, ``flash_panel_fwd.cu`` /
+    ``flash_panel_bwd.cu``) for bf16 at any other D from 1 to 256,
+    "generic" (``flash_generic.cu``) for fp32 at any D from 1 to 256,
+    "chunked" (``flash_chunked.cu``) for bf16 and fp32 at any D above 256.
+    TypeError for any other dtype, ValueError for a D below 1."""
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernels take bfloat16 or float32, got "
                         f"{dtype}")
@@ -146,14 +157,20 @@ def kernel_route(dtype, D: int) -> str:
                          f"got {D}")
     if D > GENERIC_MAX_HEAD_DIM:
         return "chunked"
-    if dtype == torch.bfloat16 and D in KERNEL_ALIGN:
-        return "tabled"
+    if dtype == torch.bfloat16:
+        return "tabled" if D in KERNEL_ALIGN else "panel"
     return "generic"
 
 
 def generic_width(D: int) -> int:
     """The width of the generic kernels' build that runs head dim D."""
     return next(w for w in GENERIC_WIDTHS if D <= w)
+
+
+def panel_width(D: int) -> int:
+    """The panel width whose kernels run bf16 at head dim D (1..256) on the
+    panel route: the smallest of ``PANEL_WIDTHS`` that holds it."""
+    return next(w for w in PANEL_WIDTHS if D <= w)
 
 
 def column_chunks(D: int) -> int:
@@ -537,10 +554,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``bpx_torch::flash_bwd``) in the backward.  Autograd records the op only
     when grad is enabled and q, k or v requires it; otherwise nothing is
     saved.  The kernels take bf16 and fp32 at any head_dim (``kernel_route``:
-    bf16 at ``KERNEL_HEAD_DIMS`` the tabled kernels, the rest up to 256 the
-    generic ones, above 256 the chunked ones) and any strides whose last
-    dim is contiguous (the tabled ones copy a view whose strides miss their
-    head dim's alignment); the output is a (B, H, Tq, D) view of (B, Tq, H, D)
+    bf16 at ``KERNEL_HEAD_DIMS`` the tabled kernels, bf16 at any other D up
+    to 256 their panel builds, fp32 up to 256 the generic ones, above 256
+    the chunked ones) and any strides whose last dim is contiguous (the
+    tabled ones copy a view whose strides miss their head dim's alignment);
+    the output is a (B, H, Tq, D) view of (B, Tq, H, D)
     memory, so ``out.transpose(1, 2).reshape(B, Tq, H * D)`` is free.
     ``dropout_rate > 0`` needs ``dropout_seed``, a uint32 Python int, or a
     list of n, one per group of B / n batch rows (under
@@ -579,8 +597,8 @@ def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """``rowsum(dO * O)`` in fp32 of (B, H, T, D) tensors (the op
     ``bpx_torch::flash_delta``) for CUDA tensors: the tabled head_dim 64/96
     backward's first kernel on its own (bf16 at a tabled head dim), else
-    the generic or the chunked delta kernel (``kernel_route``); the plain
-    version for CPU."""
+    the panel route's, the generic or the chunked delta kernel
+    (``kernel_route``); the plain version for CPU."""
     return _FLASH_DELTA(dout, out)
 
 
@@ -596,19 +614,13 @@ def _launch_delta(dout, out):
         return delta
     lib = _cuda.library()
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    if route == "tabled":
-        err = lib.bpx_flash_delta(
-            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
-            *out.stride()[:3], *dout.stride()[:3], stream)
-    else:
-        entry = lib.bpx_flash_generic_delta if route == "generic" else \
-            lib.bpx_flash_chunked_delta
-        err = entry(
-            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T, D,
-            KERNEL_DTYPES[out.dtype], *out.stride()[:3], *dout.stride()[:3],
-            stream)
+    err = _entry(lib, route, "delta")(
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, H, T,
+        *_dims(route, D, out.dtype), *out.stride()[:3], *dout.stride()[:3],
+        stream)
     _cuda.check(err, "flash_delta")
     attention_delta.launches += 1
+    attention_delta.panel_launches += route == "panel"
     attention_delta.generic_launches += route == "generic"
     attention_delta.chunked_launches += route == "chunked"
     return delta
@@ -620,17 +632,15 @@ def blocks_per_sm(head_dim: int, dtype=torch.bfloat16) -> dict:
     ``kernel_route`` gives ``dtype`` at ``head_dim``."""
     route = kernel_route(dtype, head_dim)
     lib = _cuda.library()
-    if route == "tabled":
-        calls = (("forward", lambda n: lib.bpx_flash_fwd_blocks_per_sm(
-                     head_dim, n)),
-                 ("dK/dV", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
-                     head_dim, 0, n)),
-                 ("dQ", lambda n: lib.bpx_flash_bwd_blocks_per_sm(
-                     head_dim, 1, n)))
+    if route in ("tabled", "panel"):
+        fwd = _entry(lib, route, "fwd_blocks_per_sm")
+        bwd = _entry(lib, route, "bwd_blocks_per_sm")
+        calls = (("forward", lambda n: fwd(head_dim, n)),
+                 ("dK/dV", lambda n: bwd(head_dim, 0, n)),
+                 ("dQ", lambda n: bwd(head_dim, 1, n)))
     else:
         code = KERNEL_DTYPES[dtype]
-        entry = lib.bpx_flash_generic_blocks_per_sm if route == "generic" \
-            else lib.bpx_flash_chunked_blocks_per_sm
+        entry = _entry(lib, route, "blocks_per_sm")
         calls = tuple(
             (name, lambda n, kernel=kernel: entry(head_dim, code, kernel, n))
             for kernel, name in enumerate(("forward", "dK/dV", "dQ")))
@@ -655,8 +665,10 @@ def _route(q, *others):
 def _kernel_ready(name, t, device, route=None):
     """``t`` as the kernels of ``route`` (default: ``kernel_route`` of its
     dtype and head dim) take it, on ``device``; a copy only where they
-    need one.  The generic and chunked kernels take any strides whose last
-    dim is contiguous.  The tabled ones take bf16 whose strides and data
+    need one.  The panel, generic and chunked kernels take any strides
+    whose last dim is contiguous (the panel builds load a row in the widest
+    words its alignment allows, down to 2 bytes).  The tabled ones take
+    bf16 whose strides and data
     pointer are multiples of the head dim's alignment (``KERNEL_ALIGN``): a
     narrow head's strided views (D = 25 at any stride, D = 30 and 50 at
     even ones, D = 60 at multiples of 4) go to them as they are."""
@@ -705,10 +717,21 @@ def _dropout_args(rate, seed, tk, batch, heads=1, place=None):
             inv_keep(rate), padded_tk(tk), *placed)
 
 
+def _entry(lib, route, kind):
+    """The C entry point of ``route``'s ``kind`` ("fwd", "bwd", "delta",
+    "fwd_blocks_per_sm", ...), looked up alone (a library built from an older tree, as an A/B against
+    it loads, lacks the newer routes' entries)."""
+    prefix = "bpx_flash" if route == "tabled" else f"bpx_flash_{route}"
+    return getattr(lib, f"{prefix}_{kind}")
+
+
 def _dims(route, D, dtype):
     """The C entry points' head-dim arguments: D, and on the generic and
-    chunked routes the dtype's code after it."""
-    return (D,) if route == "tabled" else (D, KERNEL_DTYPES[dtype])
+    chunked routes the dtype's code after it (the tabled and the panel
+    entries take bf16 alone)."""
+    if route in ("tabled", "panel"):
+        return (D,)
+    return (D, KERNEL_DTYPES[dtype])
 
 
 def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
@@ -724,9 +747,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
     if out.numel() == 0:
         return out, lse
     lib = _cuda.library()
-    entry = dict(tabled=lib.bpx_flash_fwd, generic=lib.bpx_flash_generic_fwd,
-                 chunked=lib.bpx_flash_chunked_fwd)[route]
-    err = entry(
+    err = _entry(lib, route, "fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), kvl_ptr, B, H, Tq, Tk, *_dims(route, D, q.dtype),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
@@ -735,6 +756,7 @@ def _launch(q, k, v, masked, kv_lens, rate=0.0, seeds=None, place=None):
     _cuda.check(err, "flash_fwd")
     flash_attention.launches += 1
     flash_attention.dropout_launches += int(rate > 0.0)
+    flash_attention.panel_launches += route == "panel"
     flash_attention.generic_launches += route == "generic"
     flash_attention.chunked_launches += route == "chunked"
     return out, lse
@@ -759,9 +781,7 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
     strides = [s for t in (q, k, v, dout, out, dq, dk, dv)
                for s in t.stride()[:3]]
     lib = _cuda.library()
-    entry = dict(tabled=lib.bpx_flash_bwd, generic=lib.bpx_flash_generic_bwd,
-                 chunked=lib.bpx_flash_chunked_bwd)[route]
-    err = entry(
+    err = _entry(lib, route, "bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         out.data_ptr(), lse.data_ptr(), delta.data_ptr(), kvl_ptr,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk,
@@ -770,26 +790,30 @@ def _launch_bwd(q, k, v, dout, lse, out, masked, kv_lens, rate=0.0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_bwd")
     flash_attention_backward.launches += 1
+    flash_attention_backward.panel_launches += route == "panel"
     flash_attention_backward.generic_launches += route == "generic"
     flash_attention_backward.chunked_launches += route == "chunked"
     return dq, dk, dv
 
 
-#: forward kernel launches (and those with dropout, and those of the
-#: generic and of the chunked kernels) since last set to 0
+#: forward kernel launches (and those with dropout, and those of the panel
+#: builds, of the generic and of the chunked kernels) since last set to 0
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
+flash_attention.panel_launches = 0
 flash_attention.generic_launches = 0
 flash_attention.chunked_launches = 0
 #: backward calls that launched their kernels (dQ with delta and dK/dV; or,
 #: on the tabled route at head_dim 64 and 96, delta, dK/dV, dQ), and those
-#: of them on the generic and on the chunked route
+#: of them on the panel, the generic and the chunked route
 flash_attention_backward.launches = 0
+flash_attention_backward.panel_launches = 0
 flash_attention_backward.generic_launches = 0
 flash_attention_backward.chunked_launches = 0
 #: launches of the delta kernel on its own (not those inside the backward),
-#: and those of the generic and of the chunked one
+#: and those of the panel route's, the generic and the chunked one
 attention_delta.launches = 0
+attention_delta.panel_launches = 0
 attention_delta.generic_launches = 0
 attention_delta.chunked_launches = 0
 #: tensors a vmap rule copied to fold the vmapped axis into the batch

@@ -269,27 +269,36 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    keys, BERT's 512 x 512, D 64, 16 heads a row, dropout 0.1 where the
    step draws it) against the plain versions both ways (the plain ones
    in placed chunks of 8 rows) and timed.
-22. the flash kernels' whole domain: the generic kernels
-   (``csrc/flash_generic.cu``; bf16 at an untabled head dim, fp32 at any,
-   ``kernel_route``).  (a) moviescope at 16 heads (head_dim 48 in the
-   encoders: 72 of the 84 flash launches per forward generic, BERT's 12
-   tabled) and (b) iemocap's ``mmtrvat`` in fp32 (all 108 generic, at 25
-   and 64; TF32 off, printed), each at full width: 2 requests at batch 8
-   (one ragged) against the plain path with both planted faults, the
-   launches exact by route; its generic classes both ways against the
-   plain versions and timed (fp32's LayerNorm classes too); one micro-step
-   against the plain path with the planted backward faults, launches by
-   route; one Adam step at 8 x A = 2 with exact counters.  (c) the README's
+22. the flash kernels' whole domain up to head_dim 256: bf16 at an
+   untabled head dim on the tabled kernels' panel builds
+   (``csrc/flash_panel_fwd.cu``, ``csrc/flash_panel_bwd.cu``, the narrow,
+   wide and tall kernels at a runtime head dim) and fp32 on the generic
+   kernels (``csrc/flash_generic.cu``; ``kernel_route``).  (a) moviescope
+   at 16 heads (head_dim 48 in the encoders: 72 of the 84 flash launches
+   per forward on the panel builds, 0 generic, BERT's 12 tabled) and (b)
+   iemocap's ``mmtrvat`` in fp32 (all 108 generic, at 25 and 64; TF32 off,
+   printed), each at full width: 2 requests at batch 8 (one ragged)
+   against the plain path with both planted faults, the launches exact by
+   route; its classes on its route both ways against the plain versions
+   and timed (fp32's LayerNorm classes too); one micro-step against the
+   plain path with the planted backward faults, launches by route; one
+   Adam step at 8 x A = 2 with exact counters.  (c) the README's
    synthetic quick start with ``--attention_impl pallas`` through ``python
    -m bpx_torch.cli.train`` for one epoch: rc 0, every flash launch
-   generic.  (d) one class in each panel band (bf16 at head_dim 16, 32, 80,
-   112, 160, 224; fp32 at 48, 128, 256: the band with an offset, an empty
-   ``kv_lens`` row, rate 0.1, two seed groups, Tk 1100) both ways against
-   the plain versions, timed beside the bound (fp32's: three TF32 passes,
-   165 TFLOP/s) and SDPA; the exact masks at one seed, two seed groups and
-   placed; one planted fault per generic kernel (a build with
-   ``-DBPX_PLANT_GENERIC_FAULT=7``, made in the background meanwhile), each
-   past its limit while the sound build is within it.
+   generic (fp32).  (d) one class in each panel band (bf16 at head_dim 16,
+   32, 80, 112, 160, 224 on the panel builds; fp32 at 48, 128, 256 on the
+   generic kernels: the band with an offset, an empty ``kv_lens`` row,
+   rate 0.1, two seed groups, Tk 1100) both ways against the plain
+   versions, timed beside the bound (fp32's: three TF32 passes, 165
+   TFLOP/s) and SDPA; the exact masks at one seed, two seed groups and
+   placed (bf16 at 48 and 33, fp32 at 25); every bf16 head dim from 1 to
+   256 outside the table (247) at one small class both ways against the
+   plain versions, each counted on the panel route, and fused views at
+   odd head dims above 32 taken uncopied on the words build; one planted
+   fault per panel kernel (at one head dim of each panel width and at 33)
+   and per generic kernel (one build with ``DOMAIN_FAULTS``, made in the
+   background meanwhile), each past its limit while the sound build is
+   within it.
 23. the flash kernels past head_dim 256, last: the chunked kernels
    (``csrc/flash_chunked.cu``; bf16 and fp32 at any head_dim above 256,
    ``kernel_route``).  (a) moviescope at 2 heads (head_dim 384 in the
@@ -319,8 +328,11 @@ CLI and its archive served, mmtrvpa's CLI run of phase 19 and the
 README's command of phase 22) run on side threads beside them, each held
 as before and its line printed when it is joined.
 
-The build phase prints ptxas' registers and spills of every kernel and, per
-head dim, the blocks of the forward, dK/dV and dQ kernels one SM holds.
+The build phase prints ptxas' registers and spills of every kernel, holds
+the tabled, the fp32 generic and the chunked kernels to ``PTXAS_RECORD``
+(a failure under the record's nvcc release), and prints, per
+head dim and panel width, the blocks of the forward, dK/dV and dQ kernels
+one SM holds.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel, mix-weighted times, ``bound_share`` and ``library_ratio``, its
@@ -331,8 +343,8 @@ head_dim-128 backward and forward from mmimdb's; phase 16's 32 x 32
 sweep, hybrid's and the grouped pairs' classes; phase 17's folded
 classes; phase 19's head_dim-192 and 1536-wide classes; phase 20's
 head_dim 50, 60 and 256 and 600-wide classes; phase 21's stress
-classes; phase 22's generic forward, dQ and dK/dV kernels; phase 23's
-chunked ones) and, last,
+classes; phase 22's panel and generic forward, dQ and dK/dV kernels;
+phase 23's chunked ones) and, last,
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package; without a CUDA device, or without ``bpx_torch`` beside it, it
 exits non-zero and prints no result.
@@ -435,6 +447,8 @@ class ModelPath:
     generic: int = 0       # of the flash launches per forward, those of
     #                        the generic kernels (kernel_route)
     chunked: int = 0       # ... and those of the chunked kernels
+    panel: int = 0         # ... and those of the tabled kernels' panel
+    #                        builds
 
     @property
     def name(self) -> str:
@@ -706,15 +720,21 @@ def zero_launches() -> None:
     for c in (flash_attention, flash_attention_backward):
         c.generic_launches = 0
         c.chunked_launches = 0
+        c.panel_launches = 0
+
+
+#: the flash routes besides the tabled kernels that the counters split out
+COUNTED_ROUTES = ("generic", "chunked", "panel")
 
 
 def read_routes() -> dict:
-    """The generic and the chunked kernels' shares of the flash launches:
-    "generic", "generic_bwd", "chunked", "chunked_bwd"."""
+    """The generic, the chunked and the panel kernels' shares of the flash
+    launches: "generic", "generic_bwd", "chunked", "chunked_bwd", "panel",
+    "panel_bwd"."""
     from bpx_torch.ops.flash_attention import (flash_attention,
                                                flash_attention_backward)
     return {f"{route}{kind}": getattr(c, f"{route}_launches")
-            for route in ("generic", "chunked")
+            for route in COUNTED_ROUTES
             for kind, c in (("", flash_attention),
                             ("_bwd", flash_attention_backward))}
 
@@ -752,7 +772,7 @@ def recording():
     "flash_bwd", "ln", "ln_bwd" and "dropout"; and under "copies", by head
     dim, the tensors (q, k, v, dO, O) the flash wrappers had to copy
     before a launch; under "routes", the flash launches by (kind, route:
-    ``kernel_route``'s "tabled" or "generic")."""
+    ``kernel_route``'s "tabled", "panel", "generic" or "chunked")."""
     from bpx_torch.ops import dropout, flash_attention as fa, norm
     seen = {k: collections.Counter()
             for k in ("flash", "flash_bwd", "ln", "ln_bwd", "dropout",
@@ -851,30 +871,193 @@ def phase_build():
             print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}")
     import torch
     from bpx_torch.ops.flash_attention import (GENERIC_WIDTHS,
-                                               KERNEL_HEAD_DIMS,
+                                               KERNEL_HEAD_DIMS, PANEL_WIDTHS,
                                                blocks_per_sm)
     for d in KERNEL_HEAD_DIMS:
         print(f"[build] blocks per SM at head_dim {d} (occupancy "
               f"calculator): {blocks_per_sm(d)}")
+    for w in PANEL_WIDTHS:
+        print(f"[build] blocks per SM of the panel builds (chunks) at "
+              f"head_dim {w - 1} (width {w}): {blocks_per_sm(w - 1)}")
+    for w in GENERIC_WIDTHS:
+        print(f"[build] blocks per SM of the generic kernels, fp32 at "
+              f"head_dim {w - 1} (width {w}): "
+              f"{blocks_per_sm(w - 1, torch.float32)}")
     for dt in (torch.bfloat16, torch.float32):
-        for w in GENERIC_WIDTHS:
-            print(f"[build] blocks per SM of the generic kernels, {dt} at "
-                  f"head_dim {w - 1} (width {w}): "
-                  f"{blocks_per_sm(w - 1, dt)}")
         print(f"[build] blocks per SM of the chunked kernels, {dt} (any "
               f"head_dim above 256): {blocks_per_sm(257, dt)}")
+    check_ptxas_record(ptxas_table(_cuda.build_log))
+
+
+def ptxas_table(log: str) -> dict:
+    """{kernel: (registers, spill stores, spill loads)} of a build's ptxas
+    report, the kernels named as ``kernel_name`` names them."""
+    got, name, spill = {}, "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line
+        elif "registers" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", spill)
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            got[name] = (regs, int(m.group(1)), int(m.group(2)))
+    return got
+
+
+#: the tabled flash kernels', the fp32 generic and the chunked ones'
+#: (registers, spill stores, spill loads bytes) as the parent of the panel
+#: builds (9a98b48) compiled them with the nvcc release below for sm_90a,
+#: which a build must keep; a kernel of ``kernel_name``'s naming
+PTXAS_RELEASE = "12.9"
+PTXAS_RECORD = {
+    "flash_bwd_dkdv_kernel<64, false>": (180, 0, 0),
+    "flash_bwd_dkdv_kernel<64, true>": (182, 0, 0),
+    "flash_bwd_dkdv_kernel<96, false>": (254, 0, 0),
+    "flash_bwd_dkdv_kernel<96, true>": (253, 0, 0),
+    "flash_bwd_dq_kernel<64, false>": (164, 0, 0),
+    "flash_bwd_dq_kernel<64, true>": (166, 0, 0),
+    "flash_bwd_dq_kernel<96, false>": (183, 0, 0),
+    "flash_bwd_dq_kernel<96, true>": (184, 0, 0),
+    "flash_bwd_keysplit_dq_kernel<192, false>": (144, 0, 0),
+    "flash_bwd_keysplit_dq_kernel<192, true>": (144, 0, 0),
+    "flash_bwd_keysplit_dq_kernel<256, false>": (156, 0, 0),
+    "flash_bwd_keysplit_dq_kernel<256, true>": (160, 0, 0),
+    "flash_bwd_narrow_dkdv_kernel<25, false>": (168, 0, 0),
+    "flash_bwd_narrow_dkdv_kernel<25, true>": (168, 0, 0),
+    "flash_bwd_narrow_dkdv_kernel<30, false>": (168, 0, 0),
+    "flash_bwd_narrow_dkdv_kernel<30, true>": (168, 0, 0),
+    "flash_bwd_narrow_dq_kernel<25, false>": (128, 60, 60),
+    "flash_bwd_narrow_dq_kernel<25, true>": (128, 60, 60),
+    "flash_bwd_narrow_dq_kernel<30, false>": (128, 68, 68),
+    "flash_bwd_narrow_dq_kernel<30, true>": (128, 0, 0),
+    "flash_bwd_rowsplit_dkdv_kernel<192, false>": (185, 0, 0),
+    "flash_bwd_rowsplit_dkdv_kernel<192, true>": (185, 0, 0),
+    "flash_bwd_rowsplit_dkdv_kernel<256, false>": (209, 0, 0),
+    "flash_bwd_rowsplit_dkdv_kernel<256, true>": (213, 0, 0),
+    "flash_bwd_wide_dkdv_kernel<128, false>": (230, 0, 0),
+    "flash_bwd_wide_dkdv_kernel<128, true>": (230, 0, 0),
+    "flash_bwd_wide_dkdv_kernel<50, false>": (168, 104, 112),
+    "flash_bwd_wide_dkdv_kernel<50, true>": (168, 52, 52),
+    "flash_bwd_wide_dkdv_kernel<60, false>": (168, 104, 112),
+    "flash_bwd_wide_dkdv_kernel<60, true>": (168, 52, 52),
+    "flash_bwd_wide_dq_kernel<128, false>": (223, 0, 0),
+    "flash_bwd_wide_dq_kernel<128, true>": (224, 0, 0),
+    "flash_bwd_wide_dq_kernel<50, false>": (168, 16, 16),
+    "flash_bwd_wide_dq_kernel<50, true>": (168, 24, 24),
+    "flash_bwd_wide_dq_kernel<60, false>": (166, 0, 0),
+    "flash_bwd_wide_dq_kernel<60, true>": (167, 0, 0),
+    "flash_chunked_delta_kernel<__nv_bfloat16>": (30, 0, 0),
+    "flash_chunked_delta_kernel<float>": (29, 0, 0),
+    "flash_chunked_dkdv_kernel<__nv_bfloat16, false>": (128, 0, 0),
+    "flash_chunked_dkdv_kernel<__nv_bfloat16, true>": (127, 0, 0),
+    "flash_chunked_dkdv_kernel<float, false>": (128, 0, 0),
+    "flash_chunked_dkdv_kernel<float, true>": (128, 0, 0),
+    "flash_chunked_dq_kernel<__nv_bfloat16, false>": (168, 0, 0),
+    "flash_chunked_dq_kernel<__nv_bfloat16, true>": (168, 0, 0),
+    "flash_chunked_dq_kernel<float, false>": (168, 0, 0),
+    "flash_chunked_dq_kernel<float, true>": (168, 0, 0),
+    "flash_chunked_fwd_kernel<__nv_bfloat16, false>": (168, 0, 0),
+    "flash_chunked_fwd_kernel<__nv_bfloat16, true>": (168, 0, 0),
+    "flash_chunked_fwd_kernel<float, false>": (168, 0, 0),
+    "flash_chunked_fwd_kernel<float, true>": (168, 0, 0),
+    "flash_delta_kernel<128>": (22, 0, 0),
+    "flash_delta_kernel<192>": (26, 0, 0),
+    "flash_delta_kernel<256>": (29, 0, 0),
+    "flash_delta_kernel<25>": (18, 0, 0),
+    "flash_delta_kernel<30>": (18, 0, 0),
+    "flash_delta_kernel<50>": (17, 0, 0),
+    "flash_delta_kernel<60>": (17, 0, 0),
+    "flash_delta_kernel<64>": (22, 0, 0),
+    "flash_delta_kernel<96>": (22, 0, 0),
+    "flash_fwd_kernel<64, false>": (121, 0, 0),
+    "flash_fwd_kernel<64, true>": (128, 0, 0),
+    "flash_fwd_kernel<96, false>": (127, 0, 0),
+    "flash_fwd_kernel<96, true>": (167, 0, 0),
+    "flash_fwd_narrow_kernel<25, false>": (94, 0, 0),
+    "flash_fwd_narrow_kernel<25, true>": (95, 0, 0),
+    "flash_fwd_narrow_kernel<30, false>": (122, 0, 0),
+    "flash_fwd_narrow_kernel<30, true>": (128, 0, 0),
+    "flash_fwd_tall_kernel<192, false>": (227, 0, 0),
+    "flash_fwd_tall_kernel<192, true>": (227, 0, 0),
+    "flash_fwd_tall_kernel<256, false>": (240, 0, 0),
+    "flash_fwd_tall_kernel<256, true>": (240, 0, 0),
+    "flash_fwd_wide_kernel<128, false>": (157, 0, 0),
+    "flash_fwd_wide_kernel<128, true>": (158, 0, 0),
+    "flash_fwd_wide_kernel<50, false>": (157, 0, 0),
+    "flash_fwd_wide_kernel<50, true>": (158, 0, 0),
+    "flash_fwd_wide_kernel<60, false>": (157, 0, 0),
+    "flash_fwd_wide_kernel<60, true>": (158, 0, 0),
+    "flash_generic_delta_kernel<float>": (29, 0, 0),
+    "flash_generic_dkdv_kernel<float, 128, false>": (128, 0, 0),
+    "flash_generic_dkdv_kernel<float, 128, true>": (128, 0, 0),
+    "flash_generic_dkdv_kernel<float, 256, false>": (210, 0, 0),
+    "flash_generic_dkdv_kernel<float, 256, true>": (211, 0, 0),
+    "flash_generic_dkdv_kernel<float, 32, false>": (127, 0, 0),
+    "flash_generic_dkdv_kernel<float, 32, true>": (155, 0, 0),
+    "flash_generic_dkdv_kernel<float, 64, false>": (166, 0, 0),
+    "flash_generic_dkdv_kernel<float, 64, true>": (165, 0, 0),
+    "flash_generic_dq_kernel<float, 128, false>": (167, 0, 0),
+    "flash_generic_dq_kernel<float, 128, true>": (167, 0, 0),
+    "flash_generic_dq_kernel<float, 256, false>": (245, 0, 0),
+    "flash_generic_dq_kernel<float, 256, true>": (249, 0, 0),
+    "flash_generic_dq_kernel<float, 32, false>": (126, 0, 0),
+    "flash_generic_dq_kernel<float, 32, true>": (128, 0, 0),
+    "flash_generic_dq_kernel<float, 64, false>": (168, 0, 0),
+    "flash_generic_dq_kernel<float, 64, true>": (168, 0, 0),
+    "flash_generic_fwd_kernel<float, 128, false>": (128, 0, 0),
+    "flash_generic_fwd_kernel<float, 128, true>": (128, 0, 0),
+    "flash_generic_fwd_kernel<float, 256, false>": (243, 0, 0),
+    "flash_generic_fwd_kernel<float, 256, true>": (240, 0, 0),
+    "flash_generic_fwd_kernel<float, 32, false>": (96, 0, 0),
+    "flash_generic_fwd_kernel<float, 32, true>": (128, 0, 0),
+    "flash_generic_fwd_kernel<float, 64, false>": (127, 0, 0),
+    "flash_generic_fwd_kernel<float, 64, true>": (127, 0, 0),
+}
+
+
+def check_ptxas_record(table: dict) -> None:
+    """The kernels of ``PTXAS_RECORD`` compile to the registers and spills
+    recorded: a failure under the toolkit release of the record (another
+    release may allocate otherwise, and is reported)."""
+    release, record = PTXAS_RELEASE, PTXAS_RECORD
+    from bpx_torch.ops import _cuda
+    out = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
+                         text=True).stdout
+    m = re.search(r"release (\S+),", out)
+    here = m.group(1) if m else "?"
+    missing = sorted(k for k in record if k not in table)
+    moved = {k: (v, table[k]) for k, v in record.items()
+             if k in table and table[k] != v}
+    print(f"[build] ptxas against the record (nvcc {release}; this "
+          f"build nvcc {here}): {len(record) - len(missing) - len(moved)} of "
+          f"{len(record)} kernels keep their registers and spills; moved "
+          f"{moved or 'none'}; missing {missing or 'none'}")
+    if here == release:
+        check(not missing and not moved,
+              "a recorded kernel's registers or spills moved, or it is gone")
 
 
 def kernel_name(mangled: str) -> str:
     """``flash_fwd_kernel<96>`` from a mangled kernel symbol: the length-
     prefixed identifier that ends in ``_kernel``, and its template
-    arguments."""
+    arguments.  Of the prefixes that end at the same place (an anonymous
+    namespace's hash may end in digits that read as a longer one), the
+    shortest identifier."""
     for m in re.finditer(r"\d+", mangled):
         for k in range(len(m.group())):
             n = int(m.group()[k:])
             ident = mangled[m.end():m.end() + n]
             if len(ident) == n and ident.endswith("_kernel"):
-                args = re.match(r"I(.*?)E+v", mangled[m.end() + n:])
+                end = m.end() + n
+                # a shorter length-prefixed identifier ending here
+                for d in re.finditer(r"\d+(?=[A-Za-z_])", ident):
+                    if any(int(d.group()[j:]) == len(ident) - d.end()
+                           for j in range(len(d.group()))):
+                        ident = ident[d.end():]
+                        break
+                args = re.match(r"I(.*?)E+v", mangled[end:])
                 if args is None:
                     return ident
                 # type, int and bool template arguments: f,
@@ -1067,10 +1250,29 @@ def generic_args(D, groups, dtype) -> str:
             f"{'true' if groups > 1 else 'false'}>")
 
 
+#: a panel build's template head dim: these plus its width
+#: (``kPanelChunks``, ``kPanelWords`` in ``csrc/flash_common.cuh``)
+PANEL_CHUNKS = 1000
+PANEL_WORDS = 2000
+
+
+def panel_args(D, words=None) -> str:
+    """A panel build's template arguments as the profiler names them: the
+    build (``PANEL_CHUNKS`` plus D's panel width for 16-byte chunks,
+    ``PANEL_WORDS`` plus it for words; ``attention_inputs``' views and the
+    models' fused projections load in chunks exactly where D is a multiple
+    of 8, unless ``words`` says otherwise) and ``true``: every panel build
+    is the one for seed groups."""
+    from bpx_torch.ops.flash_attention import panel_width
+    if words is None:
+        words = D % 8 != 0
+    return f"<{(PANEL_WORDS if words else PANEL_CHUNKS) + panel_width(D)}, true>"
+
+
 def route_of(D, dtype) -> str:
     """The kernels a call at head_dim D and ``dtype`` (None: bf16) takes:
-    ``kernel_route``'s "tabled", "generic" or "chunked" (every D above
-    256)."""
+    ``kernel_route``'s "tabled", "panel", "generic" or "chunked" (every D
+    above 256)."""
     import torch
     from bpx_torch.ops.flash_attention import kernel_route
     return kernel_route(dtype or torch.bfloat16, D)
@@ -1105,6 +1307,13 @@ def fwd_kernel(D, groups=1, dtype=None) -> str:
         return "flash_chunked_fwd_kernel" + chunked_args(groups, dtype)
     if route == "generic":
         return "flash_generic_fwd_kernel" + generic_args(D, groups, dtype)
+    if route == "panel":
+        from bpx_torch.ops.flash_attention import panel_width
+        w = panel_width(D)
+        name = ("flash_fwd_narrow_kernel" if w == 32 else
+                "flash_fwd_wide_kernel" if w <= 128 else
+                "flash_fwd_tall_kernel")
+        return name + panel_args(D)
     if D < 32:
         name = "flash_fwd_narrow_kernel"
     elif D in (50, 60, 128):
@@ -1258,11 +1467,12 @@ def sdpa_backward(torch, q, k, v, mask_args, rate, dout):
 def bwd_kernels(D, groups=1, dtype=None):
     """The backward's kernels at head_dim D for ``groups`` seed groups and
     ``dtype`` (None: bf16), by the names the profiler reports, as (dQ,
-    dK/dV, delta or None): on the generic and chunked routes and at every
-    tabled head dim but 64 and 96 the dQ kernel computes delta itself, so
-    the backward is two launches (the narrow kernels at 25 and 30, the wide
-    ones at 50, 60 and 128, the key- and row-split ones at 192 and 256); at
-    64 and 96 the delta kernel, then dK/dV and dQ."""
+    dK/dV, delta or None): on the panel, generic and chunked routes and at
+    every tabled head dim but 64 and 96 the dQ kernel computes delta
+    itself, so the backward is two launches (the narrow kernels at 25 and
+    30, the wide ones at 50, 60 and 128, the key- and row-split ones at 192
+    and 256; the panel builds of the same at panel widths 32, 64 and 128,
+    192 and 256); at 64 and 96 the delta kernel, then dK/dV and dQ."""
     route = route_of(D, dtype)
     if route == "chunked":
         args = chunked_args(groups, dtype)
@@ -1272,6 +1482,13 @@ def bwd_kernels(D, groups=1, dtype=None):
         args = generic_args(D, groups, dtype)
         return ("flash_generic_dq_kernel" + args,
                 "flash_generic_dkdv_kernel" + args, None)
+    if route == "panel":
+        from bpx_torch.ops.flash_attention import panel_width
+        w, args = panel_width(D), panel_args(D)
+        kind = ("narrow", "narrow") if w == 32 else \
+            ("wide", "wide") if w <= 128 else ("keysplit", "rowsplit")
+        return (f"flash_bwd_{kind[0]}_dq_kernel" + args,
+                f"flash_bwd_{kind[1]}_dkdv_kernel" + args, None)
     args = build_args(D, groups)
     if D < 32:
         return ("flash_bwd_narrow_dq_kernel" + args,
@@ -1911,6 +2128,7 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     flash_attention.launches = 0
     flash_attention.generic_launches = 0
     flash_attention.chunked_launches = 0
+    flash_attention.panel_launches = 0
     layer_norm.launches = 0
     outs, lat = [], []
     for batch in reqs:
@@ -1921,11 +2139,13 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     n_flash, n_ln = flash_attention.launches, layer_norm.launches
     n_generic = flash_attention.generic_launches
     n_chunked = flash_attention.chunked_launches
+    n_panel = flash_attention.panel_launches
 
     print(f"{tag} {n_req} requests: flash launches {n_flash} "
-          f"({n_flash / n_req:g}/forward; {n_generic / n_req:g} of them on "
-          f"the generic kernels, {n_chunked / n_req:g} on the chunked ones, "
-          f"{(n_flash - n_generic - n_chunked) / n_req:g} on the "
+          f"({n_flash / n_req:g}/forward; {n_panel / n_req:g} of them on "
+          f"the panel builds, {n_generic / n_req:g} on the generic kernels, "
+          f"{n_chunked / n_req:g} on the chunked ones, "
+          f"{(n_flash - n_generic - n_chunked - n_panel) / n_req:g} on the "
           f"tabled ones), layer_norm launches {n_ln} "
           f"({n_ln / n_req:g}/forward)")
     check(n_flash == path.flash * n_req,
@@ -1937,6 +2157,9 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
     check(n_chunked == path.chunked * n_req,
           f"the chunked flash kernels launched {n_chunked} times, expected "
           f"{path.chunked * n_req}")
+    check(n_panel == path.panel * n_req,
+          f"the panel flash builds launched {n_panel} times, expected "
+          f"{path.panel * n_req}")
     check(n_ln == path.ln * n_req,
           f"layer_norm kernel launched {n_ln} times, expected "
           f"{path.ln * n_req}")
@@ -2007,7 +2230,7 @@ def phase_serve(torch, np, pred, reqs, profile: bool,
         profile_forward(torch, pred, reqs[0])
     return dict(latency_ms=lat, median_ms=med, flash_launches=n_flash,
                 generic_launches=n_generic, chunked_launches=n_chunked,
-                ln_launches=n_ln,
+                panel_launches=n_panel, ln_launches=n_ln,
                 probs_err=perr, gates_err=gerr, planted_faults=planted)
 
 
@@ -2232,7 +2455,7 @@ def phase_micro_step(torch, model, loss_fn, batches,
           "the recorded micro-step's launches differ from the structure's")
     routes = {f"{kind} {route}": seen["routes"][(kind, route)]
               for kind in ("flash", "flash_bwd")
-              for route in ("tabled", "generic", "chunked")}
+              for route in ("tabled",) + COUNTED_ROUTES}
     print(f"{tag} flash launches by route: {routes}")
     check(routes["flash generic"] == path.generic
           and routes["flash_bwd generic"] == path.generic,
@@ -2242,6 +2465,10 @@ def phase_micro_step(torch, model, loss_fn, batches,
           and routes["flash_bwd chunked"] == path.chunked,
           f"the recorded micro-step's chunked flash launches differ from "
           f"the structure's {path.chunked}")
+    check(routes["flash panel"] == path.panel
+          and routes["flash_bwd panel"] == path.panel,
+          f"the recorded micro-step's panel flash launches differ from "
+          f"the structure's {path.panel}")
     return seen, dict(loss_err=lerr, grad_err=errs[worst], worst=worst,
                       planted_faults=planted)
 
@@ -2288,7 +2515,7 @@ def phase_train(torch, model, step, batches, profile: bool,
               f"launches {got}, by route {routes}")
         check(got == want, f"step {i + 1} launches {got}, expected {want}")
         want_routes = {f"{r}{kind}": getattr(path, r) * accum
-                       for r in ("generic", "chunked")
+                       for r in COUNTED_ROUTES
                        for kind in ("", "_bwd")}
         check(routes == want_routes,
               f"step {i + 1} flash launches by route {routes}, expected "
@@ -4779,7 +5006,7 @@ def phase_mesh(torch, np, timer, gen):
 # worst gradient group 0.189 (limit 0.5), a backward without its dropout
 # mask 2.15, one without its band non-finite
 MOVIESCOPE_16 = dataclasses.replace(
-    MOVIESCOPE, generic=FLASH_PER_FORWARD - 12, options=(("num_heads", 16),))
+    MOVIESCOPE, panel=FLASH_PER_FORWARD - 12, options=(("num_heads", 16),))
 # iemocap's mmtrvat in fp32 (compute_dtype "float32"): every flash call on
 # the generic kernels, 96 at head_dim 25 and BERT's 12 at 64.  The kernels
 # and the plain versions are both fp32 (no TF32 anywhere: the script turns
@@ -4799,31 +5026,46 @@ IEMOCAP_FP32 = dataclasses.replace(
     IEMOCAP, generic=VAT_FLASH, probs_tol=IEMOCAP_FP32_PROBS_TOL,
     gates_tol=IEMOCAP_FP32_GATES_TOL, loss_tol=IEMOCAP_FP32_LOSS_TOL,
     grad_tol=IEMOCAP_FP32_GRAD_TOL, options=(("compute_dtype", "float32"),))
-#: each path, its flash launches per forward by head dim and its dtype
-DOMAIN_PATHS = ((MOVIESCOPE_16, {48: 72, 64: 12}, "bfloat16"),
-                (IEMOCAP_FP32, {25: 96, 64: 12}, "float32"))
+#: each path, its flash launches per forward by head dim, its dtype and the
+#: route of its untabled head dim
+DOMAIN_PATHS = ((MOVIESCOPE_16, {48: 72, 64: 12}, "bfloat16", "panel"),
+                (IEMOCAP_FP32, {25: 96, 64: 12}, "float32", "generic"))
 DOMAIN_REQUESTS = 2        # the second one ragged
 DOMAIN_STEPS = 1
-#: one class in each panel band of the generic kernels' widths, in bf16 at
-#: head dims the tabled kernels do not take and in fp32: (dtype, kv_lens
-#: with an empty row, (B, H, Tq, Tk, D, band, kv_lens, seed groups,
-#: rate)); the band with an offset (Tq != Tk), a row with no visible key,
-#: rate 0.1, two seed groups, and Tk > 1024 (the hash's tk_p 1152)
-GENERIC_CLASSES = (
+#: one class in each band of the panel builds' widths, in bf16 at head dims
+#: the tabled kernels do not take (the panel route), and in fp32 (the
+#: generic kernels): (dtype, kv_lens with an empty row, (B, H, Tq, Tk, D,
+#: band, kv_lens, seed groups, rate)); the band with an offset (Tq != Tk),
+#: a row with no visible key, rate 0.1, two seed groups, and Tk > 1024 (the
+#: hash's tk_p 1152).
+PANEL_CLASSES = (
     ("bfloat16", True, (4, 8, 200, 264, 16, True, True, 1, 0.1)),
     ("bfloat16", False, (4, 8, 256, 256, 32, True, False, 1, 0.0)),
     ("bfloat16", True, (4, 8, 264, 200, 80, True, True, 2, 0.1)),
     ("bfloat16", False, (4, 8, 256, 256, 112, True, False, 1, 0.1)),
     ("bfloat16", False, (2, 8, 200, 1100, 160, True, False, 1, 0.1)),
     ("bfloat16", True, (4, 4, 256, 256, 224, False, True, 1, 0.1)),
+)
+GENERIC_CLASSES = (
     ("float32", True, (4, 8, 256, 256, 48, True, True, 1, 0.1)),
     ("float32", False, (4, 4, 200, 264, 128, True, False, 1, 0.1)),
     ("float32", True, (2, 4, 256, 256, 256, True, True, 1, 0.0)),
 )
-#: the generic kernels' planted faults, one a kernel, in one build
-#: (csrc/flash_generic.cu): the forward's row sum without each key tile's
-#: first key, dQ and dK/dV without delta
-GENERIC_FAULT = "-DBPX_PLANT_GENERIC_FAULT=7"
+#: the planted faults of phase 22, one a kernel, in one build: the generic
+#: kernels' (csrc/flash_generic.cu) and the panel builds' (csrc/
+#: flash_common.cuh's panel_fault; the tabled instantiations carry none):
+#: the forward's row sum without each key tile's first key, dQ and dK/dV
+#: without delta
+DOMAIN_FAULTS = ["-DBPX_PLANT_GENERIC_FAULT=7", "-DBPX_PLANT_PANEL_FAULT=7"]
+#: the panel faults' head dims: one of each panel width, and 33 (the wide
+#: kernel's 2-byte loads on the fault's class)
+PANEL_FAULT_DIMS = (16, 33, 48, 80, 160, 224)
+#: the sweep of every panel head dim: (B, H, Tq, Tk), the band (offset 64),
+#: kv_lens with an empty row, rate 0.1, one and two seed groups in turns
+PANEL_SWEEP = (2, 2, 72, 136)
+#: odd head dims above 32 on the wide and tall panel builds, on a fused
+#: projection's views (2-byte loads; none copied)
+PANEL_FUSED_DIMS = (33, 65, 129, 193)
 #: the README's synthetic quick start (its port section), one epoch, with
 #: the flash kernels: fp32, BERT's heads orig_d_l // 16 = 4 (head_dim 16),
 #: the encoders' 64 / 4 = 16
@@ -4849,17 +5091,17 @@ runpy.run_module("bpx_torch.cli.train", run_name="__main__", alter_sys=True)
 """
 
 
-def route_classes(counter, dtype, route="generic"):
+def route_classes(counter, dtype, route):
     """The classes of a recorded Counter that take ``route``'s kernels."""
     from bpx_torch.ops.flash_attention import kernel_route
     return collections.Counter({c: n for c, n in counter.items()
                                 if kernel_route(dtype, c[4]) == route})
 
 
-def domain_path(torch, np, timer, gen, path, dims, dtype, route="generic",
+def domain_path(torch, np, timer, gen, path, dims, dtype, route,
                 requests=DOMAIN_REQUESTS, steps=DOMAIN_STEPS,
                 layer_norms=True):
-    """One path of phase 22 (generic) or 23 (chunked): served (the
+    """One path of phase 22 (panel, generic) or 23 (chunked): served (the
     launches by route exact, against the plain path with the planted
     faults), its flash classes on ``route`` held against the plain
     versions and timed (with ``layer_norms``, its fp32 LayerNorm classes
@@ -4938,10 +5180,9 @@ def phase_readme_cli(card: str):
                 generic_bwd=bwd_g, log=line)
 
 
-def phase_class_rows(torch, timer, gen, classes=GENERIC_CLASSES,
-                     label="generic panel"):
-    """``classes`` (GENERIC_CLASSES: the generic kernels') both ways
-    against the plain versions, timed beside the bound and SDPA (the
+def phase_class_rows(torch, timer, gen, classes, label):
+    """``classes`` (PANEL_CLASSES, GENERIC_CLASSES, CHUNKED_CLASSES) both
+    ways against the plain versions, timed beside the bound and SDPA (the
     profiler naming each kernel)."""
     rows = dict(flash=[], flash_bwd=[])
     for dt, empty, cls in classes:
@@ -4957,13 +5198,16 @@ def phase_class_rows(torch, timer, gen, classes=GENERIC_CLASSES,
 
 
 def phase_generic_masks(torch, gen):
-    """The generic kernels' keep bits exactly (``phase_mask_check``): bf16
-    at head_dim 48 with one seed, with two seed groups (each group's bits
-    its own launch's), placed as the (B/2, H/2) piece a rank of a data=2 x
-    tensor=2 mesh holds (its bits the global call's slice); fp32 at 25."""
+    """The panel builds' keep bits exactly (``phase_mask_check``): bf16 at
+    head_dim 48 with one seed, with two seed groups (each group's bits its
+    own launch's), placed as the (B/2, H/2) piece a rank of a data=2 x
+    tensor=2 mesh holds (its bits the global call's slice), and at 33 (the
+    words build) with one seed; the generic kernels' in fp32 at 25."""
     from bpx_torch.ops import flash_attention as fa
     bf = torch.bfloat16
+    before = fa.flash_attention.panel_launches
     phase_mask_check(torch, gen, BATCH, 4, 128, 48)
+    phase_mask_check(torch, gen, BATCH, 4, 128, 33)
     phase_mask_check(torch, gen, BATCH, 4, 128, 25, torch.float32)
     phase_seed_masks(torch, gen, 2, 4, 4, 128, 48)
     place = (BATCH // 2, 2, 4)
@@ -4973,24 +5217,26 @@ def phase_generic_masks(torch, gen):
                          place)
     check(torch.equal(piece, glob[BATCH // 2:, 2:]),
           "the placed piece's bits are not the global call's slice")
+    check(fa.flash_attention.panel_launches > before,
+          "the bf16 masks did not run on the panel route")
 
 
-def phase_planted_faults(torch, gen, variant,
-                         cases=(("bfloat16", 48), ("float32", 25)),
-                         caught=("dq", "dk"), route="generic"):
+def phase_planted_faults(torch, gen, variant, cases, caught, route):
     """Each kernel's planted fault (``variant``: the library built with
-    ``GENERIC_FAULT``, or ``CHUNKED_FAULT``) against the sound build at the
+    ``DOMAIN_FAULTS``, or ``CHUNKED_FAULT``) against the sound build at the
     same class, at each (dtype, head_dim) of ``cases`` (band, kv_lens,
-    rate 0.1): the sound kernels within the rows' limits, and the faulty
-    forward's O and the gradients ``caught`` (the generic faults: dQ and
-    dK; the chunked ones: dQ and dV) each past theirs.  The backward runs
-    from the plain forward's O and lse, so each kernel's own fault
-    shows."""
+    rate 0.1), every call on ``route``: the sound kernels within the rows'
+    limits, and the faulty forward's O and the gradients ``caught`` (the
+    generic and panel faults: dQ and dK; the chunked ones: dQ and dV) each
+    past theirs.  The backward runs from the plain forward's O and lse, so
+    each kernel's own fault shows."""
     from bpx_torch.ops import _cuda, flash_attention as fa
     lib = _cuda.library()
     got = {}
     for dt, D in cases:
         dtype = getattr(torch, dt)
+        check(fa.kernel_route(dtype, D) == route,
+              f"{dt} D {D} is not on the {route} route")
         _, _, tol, grad_tol = dtype_limits(torch, dtype)
         q, k, v, kv_lens = attention_inputs(torch, gen, 4, 4, 200, 200, D,
                                             True, dtype)
@@ -5031,21 +5277,97 @@ def phase_planted_faults(torch, gen, variant,
     return got
 
 
+def phase_panel_sweep(torch, gen):
+    """Every bf16 head dim from 1 to 256 outside ``KERNEL_ALIGN`` (247) at
+    ``PANEL_SWEEP``'s class, both ways against the plain versions (the band
+    with an offset, a row with no visible key, rate 0.1, one and two seed
+    groups in turns), each call counted on the panel route; then the
+    fused-view classes at ``PANEL_FUSED_DIMS``, uncopied and on the words
+    build by the profiler's name.  Shows the zero padding, the word paths
+    and the runtime stores right at every width."""
+    from bpx_torch.ops import flash_attention as fa
+    B, H, Tq, Tk = PANEL_SWEEP
+    dims = [d for d in range(1, 257) if d not in fa.KERNEL_ALIGN]
+    before = (fa.flash_attention.panel_launches,
+              fa.flash_attention_backward.panel_launches)
+    worst = dict(o=0.0, lse=0.0, grads=0.0)
+    for i, D in enumerate(dims):
+        seeds = group_seeds(0x5EED0 + D, 1 + i % 2)
+        q, k, v, lens = attention_inputs(torch, gen, B, H, Tq, Tk, D, True,
+                                         empty_row=True)
+        out, lse = fa.flash_attention(q, k, v, True, lens, 0.1, seeds,
+                                      return_lse=True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(
+            out.dtype)
+        got = fa._launch_bwd(q, k, v, dout, lse, out, True, lens, 0.1, seeds)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, True, lens, 0.1,
+                                                    seeds)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, dout, lse, fa.attention_delta_reference(dout, out),
+            True, lens, 0.1, seeds)
+        e_o, e_l = max_err(out, ref), max_err(lse, ref_lse)
+        e_g = max(grad_err(g, w) for g, w in zip(got, want))
+        worst = dict(o=max(worst["o"], e_o), lse=max(worst["lse"], e_l),
+                     grads=max(worst["grads"], e_g))
+        check(torch.allclose(out.float(), ref.float(), **FLASH_TOL)
+              and torch.allclose(lse, ref_lse, **LSE_TOL),
+              f"[panel sweep] D {D}: O err {e_o:.3g}, lse err {e_l:.3g}")
+        check(e_g <= FLASH_GRAD_TOL,
+              f"[panel sweep] D {D}: gradient err {e_g:.3g}")
+    counted = (fa.flash_attention.panel_launches - before[0],
+               fa.flash_attention_backward.panel_launches - before[1])
+    print(f"[panel sweep] {len(dims)} head dims (1-256 outside the table) "
+          f"at (B, H, Tq, Tk) {PANEL_SWEEP}, band, an empty kv_lens row, rate "
+          f"0.1, one and two seed groups in turns, both ways within "
+          f"{FLASH_TOL} / {LSE_TOL} / {FLASH_GRAD_TOL}: worst O {worst['o']:.3g}"
+          f", lse {worst['lse']:.3g}, gradients {worst['grads']:.3g}; panel "
+          f"launches {counted[0]} forward, {counted[1]} backward")
+    check(counted == (len(dims), len(dims)),
+          f"the sweep's panel launches {counted}, expected {len(dims)} each")
+    for D in PANEL_FUSED_DIMS:
+        buf = torch.randn(2, 90, 3, 4, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+        check(all(fa._kernel_ready("t", t, t.device) is t for t in (q, k, v)),
+              f"[panel sweep] a fused view at D {D} was copied")
+        out, lse = fa.flash_attention(q, k, v, True, return_lse=True)
+        ref, _ = fa.flash_attention_reference(q, k, v, True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(
+            out.dtype)
+        got = fa._launch_bwd(q, k, v, dout, lse, out, True, None)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, dout, lse, fa.attention_delta_reference(dout, out), True)
+        e_g = max(grad_err(g, w) for g, w in zip(got, want))
+        check(torch.allclose(out.float(), ref.float(), **FLASH_TOL)
+              and e_g <= FLASH_GRAD_TOL,
+              f"[panel sweep] fused views at D {D}: O err "
+              f"{max_err(out, ref):.3g}, gradients {e_g:.3g}")
+        kernel = fwd_kernel(D)
+        takes_kernel(torch, lambda: fa.flash_attention(q, k, v, True),
+                     kernel, f"fused views at D {D}")
+        print(f"[panel sweep] fused (2, 90, 3, 4, {D}) views uncopied on "
+              f"{kernel}: O err {max_err(out, ref):.3g}, gradients "
+              f"{e_g:.3g}")
+    return dict(dims=len(dims), worst=worst, launches=counted)
+
+
 def phase_domain(torch, np, timer, gen, card, cli):
-    """Phase 22: (a) moviescope at 16 heads and (b) iemocap in fp32 through
-    ``domain_path``; (c) ``cli``, the result of the README's synthetic quick
-    start through the CLI (``phase_readme_cli``); (d) GENERIC_CLASSES, the
-    generic kernels' masks and their planted faults (a build of their own,
-    made in the background meanwhile)."""
+    """Phase 22: (a) moviescope at 16 heads (bf16 on the panel builds) and
+    (b) iemocap in fp32 (the generic kernels) through ``domain_path``; (c)
+    ``cli``, the result of the README's synthetic quick start through the
+    CLI (``phase_readme_cli``); (d) PANEL_CLASSES and GENERIC_CLASSES, the
+    sweep of every panel head dim, the masks, and the panel builds' and
+    the generic kernels' planted faults (one build of its own, made in the
+    background meanwhile)."""
     from bpx_torch.ops import _cuda
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    fault_build = pool.submit(_cuda.build, [GENERIC_FAULT])
+    fault_build = pool.submit(_cuda.build, DOMAIN_FAULTS)
     out = {}
     try:
-        for path, dims, dt in DOMAIN_PATHS:
+        for path, dims, dt, route in DOMAIN_PATHS:
             t0 = time.time()
             out[path.name] = domain_path(torch, np, timer, gen, path, dims,
-                                         getattr(torch, dt))
+                                         getattr(torch, dt), route)
             print(f"[time] domain {path.name} {time.time() - t0:.1f} s")
         print(f"[domain] TF32 with the fp32 readings: "
               f"torch.backends.cuda.matmul.allow_tf32 "
@@ -5054,15 +5376,27 @@ def phase_domain(torch, np, timer, gen, card, cli):
               f"{torch.backends.cudnn.allow_tf32}")
         out["cli"] = cli
         t0 = time.time()
-        out["rows"] = phase_class_rows(torch, timer, gen)
+        out["rows"] = phase_class_rows(torch, timer, gen, PANEL_CLASSES,
+                                       "panel band")
+        out["generic_rows"] = phase_class_rows(torch, timer, gen,
+                                               GENERIC_CLASSES,
+                                               "generic band")
         phase_generic_masks(torch, gen)
-        print(f"[time] domain panel rows and masks {time.time() - t0:.1f} s")
+        print(f"[time] domain band rows and masks {time.time() - t0:.1f} s")
+        t0 = time.time()
+        out["sweep"] = phase_panel_sweep(torch, gen)
+        print(f"[time] domain panel sweep {time.time() - t0:.1f} s")
         t0 = time.time()
         t_wait = time.perf_counter()
         fault_build.result()
         SPENT["fault_build_wait_s"] += time.perf_counter() - t_wait
+        faulty = _cuda.load(DOMAIN_FAULTS)
         out["faults"] = phase_planted_faults(
-            torch, gen, _cuda.load([GENERIC_FAULT]))
+            torch, gen, faulty, (("float32", 25),), ("dq", "dk"), "generic")
+        out["panel_faults"] = phase_planted_faults(
+            torch, gen, faulty, tuple(("bfloat16", d)
+                                      for d in PANEL_FAULT_DIMS),
+            ("dq", "dk"), "panel")
         print(f"[time] domain planted faults (after their build) "
               f"{time.time() - t0:.1f} s")
     finally:
@@ -5079,7 +5413,7 @@ def phase_domain(torch, np, timer, gen, card, cli):
 # flash launches per forward); BERT stays 12 x 64 on the tabled ones.  Held
 # to moviescope's limits, as phase 22's moviescope at 16 heads
 MOVIESCOPE_2 = dataclasses.replace(
-    MOVIESCOPE_16, generic=0, chunked=FLASH_PER_FORWARD - 12,
+    MOVIESCOPE_16, panel=0, chunked=FLASH_PER_FORWARD - 12,
     options=(("num_heads", 2),))
 # iemocap's mmtrvat in fp32 at 1 head: head_dim 300 in the encoders, on the
 # chunked kernels (96 of the 108 flash launches per forward); BERT's 12 at
@@ -5770,25 +6104,29 @@ def main() -> None:
                   width_launches(v_seen["iemocap"], "ln_bwd", 600),
                   legacy_runs,
                   "micro_step")]
-    # phase 22: the generic kernels at the classes of paths (a) and (b) and
-    # of GENERIC_CLASSES; launches those of both paths' train steps
-    gen_src = "bpx_torch/csrc/flash_generic.cu"
-    d_paths = [domain[p.name] for p, _, _ in DOMAIN_PATHS]
-    d_rows = lambda key: ([r for d in d_paths for r in d["rows"][key]]
-                          + domain["rows"].get(key, []))
-    d_fwd = d_rows("flash") + d_rows("flash_dropout")
-    d_bwd = d_rows("flash_bwd")
-    d_runs = DOMAIN_STEPS * TRAIN_A * len(d_paths)
-    d_launch = lambda key: sum(d["trained"]["totals"][key] for d in d_paths)
-    kernels += [
-        summarise("flash_generic_fwd", gen_src, fwd_tpu, d_fwd,
-                  d_launch("generic"), d_runs, "micro_step"),
-        summarise("flash_generic_dq", gen_src,
-                  "bpx/ops/pallas_attention.py:276", split_rows(d_bwd, 0),
-                  d_launch("generic_bwd"), d_runs, "micro_step"),
-        summarise("flash_generic_dkdv", gen_src,
-                  "bpx/ops/pallas_attention.py:357", split_rows(d_bwd, 1),
-                  d_launch("generic_bwd"), d_runs, "micro_step")]
+    # phase 22: each route's kernels at the classes of its path (the panel
+    # builds moviescope-16's, the generic kernels iemocap-fp32's) and of its
+    # band classes; launches those of the path's train step
+    d_runs = DOMAIN_STEPS * TRAIN_A
+    for path, _, _, route in DOMAIN_PATHS:
+        d = domain[path.name]
+        band = domain["rows" if route == "panel" else "generic_rows"]
+        rows = lambda key: d["rows"][key] + band.get(key, [])
+        d_fwd = rows("flash") + rows("flash_dropout")
+        d_bwd = rows("flash_bwd")
+        totals = d["trained"]["totals"]
+        src = (("bpx_torch/csrc/flash_panel_fwd.cu",
+                "bpx_torch/csrc/flash_panel_bwd.cu") if route == "panel"
+               else ("bpx_torch/csrc/flash_generic.cu",) * 2)
+        kernels += [
+            summarise(f"flash_{route}_fwd", src[0], fwd_tpu, d_fwd,
+                      totals[route], d_runs, "micro_step"),
+            summarise(f"flash_{route}_dq", src[1],
+                      "bpx/ops/pallas_attention.py:276", split_rows(d_bwd, 0),
+                      totals[f"{route}_bwd"], d_runs, "micro_step"),
+            summarise(f"flash_{route}_dkdv", src[1],
+                      "bpx/ops/pallas_attention.py:357", split_rows(d_bwd, 1),
+                      totals[f"{route}_bwd"], d_runs, "micro_step")]
     # phase 23: the chunked kernels at the classes of paths (a) and (b) and
     # of CHUNKED_CLASSES; launches those of both paths' train steps
     ch_src = "bpx_torch/csrc/flash_chunked.cu"
@@ -5958,20 +6296,24 @@ def main() -> None:
           f"of {BATCH} {st['served_ms']:.1f} ms, FSDP2 step at micro-batch "
           f"{st['micro']} x A={st['accum']} {st['step_ms']:.1f} ms, peak "
           f"{st['peak_gib']:.2f} GiB; card: {card}")
-    print("[summary] domain (the generic flash kernels): " + "; ".join(
+    print("[summary] domain (the panel builds and the generic flash "
+          "kernels): " + "; ".join(
         f"{name}: served median {d['served']['median_ms']:.2f} ms "
-        f"({d['served']['generic_launches'] // DOMAIN_REQUESTS} of "
+        f"({d['served'][f'{route}_launches'] // DOMAIN_REQUESTS} of "
         f"{d['served']['flash_launches'] // DOMAIN_REQUESTS} flash launches "
-        f"per forward generic), train step median "
-        f"{d['trained']['median_ms']:.1f} ms (peak "
-        f"{d['trained']['peak_gib']:.2f} GiB; generic launches per "
-        f"micro-step {d['trained']['totals']['generic'] // d_steps} forward"
-        f" / {d['trained']['totals']['generic_bwd'] // d_steps} backward), "
+        f"per forward {route}, "
+        f"{d['served']['generic_launches'] // DOMAIN_REQUESTS} generic), "
+        f"train step median {d['trained']['median_ms']:.1f} ms (peak "
+        f"{d['trained']['peak_gib']:.2f} GiB; {route} launches per "
+        f"micro-step {d['trained']['totals'][route] // d_steps} forward"
+        f" / {d['trained']['totals'][f'{route}_bwd'] // d_steps} backward), "
         f"micro-step kernels vs plain: loss {d['micro']['loss_err']:.3g}, "
         f"gradients {d['micro']['grad_err']:.3g}"
-        for name, d, d_steps in ((p.name, domain[p.name],
-                                  DOMAIN_STEPS * TRAIN_A)
-                                 for p, _, _ in DOMAIN_PATHS))
+        for name, d, d_steps, route in (
+            (p.name, domain[p.name], DOMAIN_STEPS * TRAIN_A, r)
+            for p, _, _, r in DOMAIN_PATHS))
+          + f"; panel sweep: {domain['sweep']['dims']} head dims, worst "
+          f"gradient err {domain['sweep']['worst']['grads']:.3g}"
           + f"; README command through the CLI: {domain['cli']['wall_s']:.1f}"
           f" s, {domain['cli']['generic']} generic forward / "
           f"{domain['cli']['generic_bwd']} backward launches; card: {card}")

@@ -12,6 +12,8 @@ dims (25, 30) or any other class; or the LayerNorm backward.
         --shape 8,12,512,50 --shape 8,10,512,60 --tree parent=build/parent
     python3 scripts/torch_flash_bwd_narrow.py --kernel ln_bwd \\
         --shape 4096,1536 --tree parent=build/parent
+    python3 scripts/torch_flash_bwd_narrow.py --dtype float32 \\
+        --shape 8,12,512,25 --tree parent=build/parent
 
 Builds the port's kernels from ``bpx_torch/csrc`` of this checkout
 ("this"), from each ``--tree LABEL=DIR`` (a checkout's root, e.g. the parent
@@ -22,10 +24,11 @@ chosen ``--kernel`` and the blocks per SM of the forward, dK/dV and dQ
 kernels at every head dim of each build.  Then, at the iemocap class (8 x
 12, 512 x 512 causal, D 25) and the cmu-mosei class (8 x 10, D 30), or each
 ``--shape B,H,T,D`` (mmimdb's D 128 class: 8,6,512,128), rate 0 and 0.1, on
-strided views of fused projections as the model hands them over: every
+strided views of fused projections as the model hands them over, in bf16
+or ``--dtype float32`` (fp32 runs the generic kernels up to D 256): every
 build's kernel against the plain version (the backward within
 ``FLASH_GRAD_TOL`` of ``chip_smoke.py``, the forward within ``FLASH_TOL``
-and ``LSE_TOL``) and bitwise on a rerun, then its time (CUDA events,
+and ``LSE_TOL``; fp32 within their fp32 limits) and bitwise on a rerun, then its time (CUDA events,
 ``chip_smoke.Timer``) in turns (A B ... B A, ``--rounds`` times) beside
 SDPA's (``is_causal``; its backward alone for ``--kernel bwd``, the
 backend the profiler saw) and the profiler's device time per kernel.  With ``--kernel ln_bwd`` the classes
@@ -163,6 +166,10 @@ def main() -> None:
                     help="time the flash backward (with delta), the flash "
                          "forward or the LayerNorm backward")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16",
+                    help="the flash classes' dtype (fp32: the generic or "
+                         "the chunked kernels)")
     ap.add_argument("--shape", action="append", default=[],
                     help="B,H,T,D: a causal T x T class to time instead of "
                          "the two model classes; N,E with --kernel ln_bwd "
@@ -195,6 +202,8 @@ def main() -> None:
 
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    dtype = getattr(torch, args.dtype)
+    elem, peak, tol, grad_tol = cs.dtype_limits(torch, dtype)
     if kernel == "ln_bwd":
         results = [ln_bwd_row(torch, timer, gen, builds, n, e, args.rounds)
                    for n, e in classes]
@@ -205,15 +214,14 @@ def main() -> None:
         Tk = Tq
         for rate in RATES:
             q, k, v, _ = cs.attention_inputs(torch, gen, B, H, Tq, Tk, D,
-                                             False)
+                                             False, dtype)
             drop = (rate, SEED if rate else None)
             _cuda._lib = builds[0]["lib"]
             if kernel == "bwd":
                 out, lse = fa.flash_attention(q, k, v, True, None, *drop,
                                               return_lse=True)
                 dout = torch.randn(B, Tq, H, D, generator=gen,
-                                   device="cuda").to(
-                                       torch.bfloat16).transpose(1, 2)
+                                   device="cuda").to(dtype).transpose(1, 2)
                 want = fa.flash_attention_backward_reference(
                     q, k, v, dout, lse,
                     fa.attention_delta_reference(dout, out), True, None,
@@ -222,7 +230,7 @@ def main() -> None:
                         fa._launch_bwd(q, k, v, dout, lse, out, True, None,
                                        *drop))
                 nbytes, flops, _ = cs.flash_bwd_work(torch, B, H, Tq, Tk,
-                                                     D, True, None)
+                                                     D, True, None, elem)
             else:
                 want = fa.flash_attention_reference(q, k, v, True, None,
                                                     *drop)
@@ -230,10 +238,10 @@ def main() -> None:
                         fa._launch(q, k, v, True, None, *drop))
                 visible, keys, _ = cs.attention_work(torch, B, H, Tq, Tk,
                                                      True, None)
-                nbytes = (2 * (2 * B * H * Tq * D + 2 * keys * D)
+                nbytes = (elem * (2 * B * H * Tq * D + 2 * keys * D)
                           + 4 * B * H * Tq)
                 flops = 4.0 * D * visible
-            b_ms, b_by = cs.bound_ms(nbytes, flops)
+            b_ms, b_by = cs.bound_ms(nbytes, flops, peak)
             # the library yardstick: SDPA on the same inputs, is_causal
             causal = dict(is_causal=True)
             if kernel == "bwd":
@@ -244,7 +252,8 @@ def main() -> None:
             backend, _ = cs.sdpa_backend(torch, sdpa)
             times = {b["label"]: [] for b in builds}
             lib_times = []
-            row = dict(shape=[B * H, Tq, Tk, D], rate=rate, bound_ms=b_ms,
+            row = dict(shape=[B * H, Tq, Tk, D], dtype=args.dtype, rate=rate,
+                       bound_ms=b_ms,
                        bound_by=b_by, library_backend=backend, builds={})
             for b in list(builds):
                 _cuda._lib = b["lib"]
@@ -254,12 +263,12 @@ def main() -> None:
                 same = all(torch.equal(x, y) for x, y in zip(got, again))
                 if kernel == "bwd":
                     errs = [cs.grad_err(g, w) for g, w in zip(got, want)]
-                    ok = max(errs) <= cs.FLASH_GRAD_TOL
+                    ok = max(errs) <= grad_tol
                 else:
                     errs = [cs.max_err(got[0], want[0]),
                             cs.max_err(got[1], want[1])]
                     ok = (torch.allclose(got[0].float(), want[0].float(),
-                                         **cs.FLASH_TOL)
+                                         **tol)
                           and torch.allclose(got[1], want[1], **cs.LSE_TOL))
                 if not (ok and same):
                     print(f"[{b['label']}] WRONG at {(B, H, Tq, D, rate)}: "
@@ -289,7 +298,8 @@ def main() -> None:
                 r = row["builds"][b["label"]]
                 r["ms"] = statistics.median(times[b["label"]])
                 r["ms_all"] = times[b["label"]]
-                print(f"[{b['label']}] BH={B * H} {Tq}x{Tk} D={D} rate="
+                print(f"[{b['label']}] BH={B * H} {Tq}x{Tk} D={D} "
+                      f"{args.dtype} rate="
                       f"{rate}: {r['ms']:.4f} ms (runs "
                       + ", ".join(f"{t:.4f}" for t in r["ms_all"])
                       + f"), bound {b_ms:.4f} ms ({b_by}), "

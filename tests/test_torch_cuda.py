@@ -27,11 +27,13 @@ LayerNorm kernels at the edges of their card-sized grid, on misaligned views
 the backward's phase stamps in a build with ``-DBPX_LN_TRACE``; the
 kernels' custom ops (``opcheck``'s schema and fake checks on CUDA tensors,
 and a recomputed call under the ``save_attn`` policy); twenty seeds under
-vmap as folded launches of at most 16 seed groups; the generic kernels
-(bf16 at the untabled head dims, fp32 at every head dim up to 256) and the
-chunked ones (every head dim above 256, both dtypes) against the plain
+vmap as folded launches of at most 16 seed groups; the panel builds
+(bf16 at the untabled head dims up to 256, one in each panel width and odd
+ones above 32), the generic kernels (fp32 at every head dim up to 256) and
+the chunked ones (every head dim above 256, both dtypes) against the plain
 versions at their edges, bitwise on reruns, their exact masks, their
-kernels by name, their counters and their occupancy.
+kernels by name, their counters and their occupancy (``-k panel``,
+``-k generic``, ``-k chunked``).
 
 Needs a CUDA device and skips elsewhere (the ``gen`` fixture decides).
 On a machine with a card, without JAX:
@@ -1350,39 +1352,45 @@ def _generic_tol(dtype):
 
 
 # one head dim in each of the generic builds' widths (32, 64, 128, 256) in
-# both dtypes, and its edges (1, 33, 255, 256)
-GENERIC_DIMS = [(torch.bfloat16, d) for d in (1, 16, 33, 48, 80, 112, 160,
-                                              224, 255)] + [
-    (torch.float32, d) for d in (1, 25, 33, 64, 100, 128, 200, 256)]
-
-
-@pytest.mark.parametrize("dtype,D", GENERIC_DIMS)
-@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", [
+# fp32, and its edges (1, 33, 256)
+GENERIC_DIMS = [(torch.float32, d) for d in (1, 25, 33, 64, 100, 128, 200,
+                                             256)]
+# bf16 at one head dim in each panel width (32, 64, 128, 192, 256), its
+# edges (1, 33, 65, 129, 193, 255), and odd head dims above 32 (the wide
+# and tall kernels' 2-byte loads)
+PANEL_DIMS = [(torch.bfloat16, d) for d in (1, 16, 33, 48, 65, 80, 112, 129,
+                                            160, 193, 224, 255)]
+ROUTE_EDGES = [
     (2, 2, 70, 135, True, (135, 0), 0.1),     # band offset 65, empty row
     (2, 2, 135, 70, True, None, 0.0),         # tall band, ragged tiles
     (1, 2, 100, 1100, True, (1100,), 0.1),    # Tk > 1024: tk_p 1152
-])
-def test_generic_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked,
-                                     lens, rate):
-    """The generic forward and backward (dQ with delta, then dK/dV)
-    against the plain versions on fused views, launched on the generic
-    route (the counters), bitwise on a rerun; a row with no visible key
-    attends uniformly and gets zero dQ."""
-    from bpx_torch.ops.flash_attention import _launch_bwd
+]
+
+
+def _route_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked, lens,
+                               rate, route):
+    """The forward and backward (dQ with delta, then dK/dV) of ``route``
+    against the plain versions on fused views, launched on that route (the
+    counters), bitwise on a rerun; a row with no visible key attends
+    uniformly and gets zero dQ."""
+    from bpx_torch.ops.flash_attention import _launch_bwd, kernel_route
+    assert kernel_route(dtype, D) == route
     q, k, v = _generic_qkv(gen, B, H, Tq, Tk, D, dtype)
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device="cuda")
     seed = 0x6E6E if rate else None
     tol, grad_tol = _generic_tol(dtype)
-    before = (flash_attention.launches, flash_attention.generic_launches,
-              flash_attention_backward.generic_launches)
+    counter = f"{route}_launches"
+    before = (flash_attention.launches,
+              getattr(flash_attention, counter),
+              getattr(flash_attention_backward, counter))
     out, lse = flash_attention(q, k, v, masked, kv, rate, seed,
                                return_lse=True)
     dout = torch.randn(B, Tq, H, D, generator=gen, device="cuda").to(
         dtype).transpose(1, 2)
     got = _launch_bwd(q, k, v, dout, lse, out, masked, kv, rate, seed)
-    assert (flash_attention.launches, flash_attention.generic_launches,
-            flash_attention_backward.generic_launches) == tuple(
+    assert (flash_attention.launches, getattr(flash_attention, counter),
+            getattr(flash_attention_backward, counter)) == tuple(
                 b + 1 for b in before)
     ref, ref_lse = flash_attention_reference(q, k, v, masked, kv, rate, seed)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
@@ -1402,13 +1410,32 @@ def test_generic_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked,
         assert not got[0][b].any() and out[b].abs().sum() > 0
 
 
-def test_generic_route_takes_odd_fused_views_uncopied(gen):
-    """At an odd head dim (33) a fused (B, T, 3, H, D) projection's views go
-    to the generic kernels as they are, in both dtypes, and give what
+@pytest.mark.parametrize("dtype,D", GENERIC_DIMS)
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", ROUTE_EDGES)
+def test_generic_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked,
+                                     lens, rate):
+    """The generic kernels (fp32) as ``_route_kernels_match_plain``."""
+    _route_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked, lens,
+                               rate, "generic")
+
+
+@pytest.mark.parametrize("dtype,D", PANEL_DIMS)
+@pytest.mark.parametrize("B,H,Tq,Tk,masked,lens,rate", ROUTE_EDGES)
+def test_panel_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked,
+                                   lens, rate):
+    """The panel builds (bf16 at untabled head dims) as
+    ``_route_kernels_match_plain``."""
+    _route_kernels_match_plain(gen, dtype, D, B, H, Tq, Tk, masked, lens,
+                               rate, "panel")
+
+
+def _odd_fused_views_uncopied(gen, cases):
+    """At each (dtype, odd head dim) of ``cases`` a fused (B, T, 3, H, D)
+    projection's views go to the kernels as they are and give what
     contiguous copies give, both ways."""
     from bpx_torch.ops.flash_attention import _kernel_ready, _launch_bwd
-    for dtype in (torch.bfloat16, torch.float32):
-        buf = torch.randn(2, 90, 3, 4, 33, generator=gen,
+    for dtype, D in cases:
+        buf = torch.randn(2, 90, 3, 4, D, generator=gen,
                           device="cuda").to(dtype)
         q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
         for t in (q, k, v):
@@ -1420,6 +1447,31 @@ def test_generic_route_takes_odd_fused_views_uncopied(gen):
         for a, b in zip(_launch_bwd(q, k, v, dout, lse, out, True, None),
                         _launch_bwd(*dense, dout, lse, out, True, None)):
             assert torch.equal(a, b)
+
+
+def test_generic_route_takes_odd_fused_views_uncopied(gen):
+    """At an odd head dim (33) in fp32 (the generic kernels)."""
+    _odd_fused_views_uncopied(gen, [(torch.float32, 33)])
+
+
+def test_panel_route_takes_odd_fused_views_uncopied(gen):
+    """At odd head dims of the narrow, wide and tall panel builds (17, 33,
+    65, 129, 193: rows at any even byte, the 2-byte loads) and at 34 and 36
+    (rows 4- and 8-byte aligned: cp.async words of 4 and 8 bytes) in bf16,
+    the words build by the profiler's name."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    cases = [(torch.bfloat16, d) for d in (17, 33, 65, 129, 193, 34, 36)]
+    _odd_fused_views_uncopied(gen, cases)
+    for _, D in cases:
+        buf = torch.randn(2, 90, 3, 4, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = (buf[:, :, i].transpose(1, 2) for i in range(3))
+        names = _device_kernels(lambda: flash_attention(q, k, v, True))
+        assert any(chip_smoke.fwd_kernel(D, 1, torch.bfloat16) in n
+                   for n in names), (D, names)
 
 
 def _generic_mask(q, k, rate, seed, place=None):
@@ -1445,16 +1497,30 @@ def _generic_mask(q, k, rate, seed, place=None):
     return fwd, bwd
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 48),
-                                     (torch.float32, 25)])
-@pytest.mark.parametrize("seed,place", [
-    (0x6E6E0001, None), ([0x6E6E0001, 0xC0FFEE], None),
-    (0x6E6E0001, (4, 2, 4))])
+MASK_SEEDS = [(0x6E6E0001, None), ([0x6E6E0001, 0xC0FFEE], None),
+              (0x6E6E0001, (4, 2, 4))]
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 25)])
+@pytest.mark.parametrize("seed,place", MASK_SEEDS)
 def test_generic_dropout_mask_is_exact(gen, dtype, D, seed, place):
-    """The generic kernels' keep bits, both ways, equal ``keep_mask``'s:
-    one seed, two seed groups (each group's bits its own), and placed as
-    the (B/2, H/2) piece of a data=2 x tensor=2 mesh (the global call's
-    slice)."""
+    """The generic kernels' keep bits as ``_dropout_mask_is_exact``."""
+    _dropout_mask_is_exact(gen, dtype, D, seed, place)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, d)
+                                     for d in (17, 48, 100, 200)])
+@pytest.mark.parametrize("seed,place", MASK_SEEDS)
+def test_panel_dropout_mask_is_exact(gen, dtype, D, seed, place):
+    """The panel builds' keep bits (the narrow, wide and tall kernels'
+    hashes) as ``_dropout_mask_is_exact``."""
+    _dropout_mask_is_exact(gen, dtype, D, seed, place)
+
+
+def _dropout_mask_is_exact(gen, dtype, D, seed, place):
+    """The kernels' keep bits, both ways, equal ``keep_mask``'s: one seed,
+    two seed groups (each group's bits its own), and placed as the (B/2,
+    H/2) piece of a data=2 x tensor=2 mesh (the global call's slice)."""
     B, H, T = 4, 2, 100
     q = torch.zeros(B, H, T, D, device="cuda", dtype=dtype)
     k = torch.randn(B, H, T, D, generator=gen, device="cuda").to(dtype)
@@ -1496,33 +1562,56 @@ def test_tabled_route_keeps_the_tabled_head_dims(gen, D):
                            for n in generic), names
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 48),
-                                     (torch.float32, 64),
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
                                      (torch.float32, 255)])
 def test_generic_delta_matches_plain(gen, dtype, D):
     """``attention_delta`` on the generic route (the standalone op's
-    generic kernel) against its plain version, on strided views."""
+    generic kernel) as ``_delta_matches_plain``."""
+    _delta_matches_plain(gen, dtype, D, "generic")
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 48),
+                                     (torch.bfloat16, 33),
+                                     (torch.bfloat16, 255)])
+def test_panel_delta_matches_plain(gen, dtype, D):
+    """``attention_delta`` on the panel route as ``_delta_matches_plain``."""
+    _delta_matches_plain(gen, dtype, D, "panel")
+
+
+def _delta_matches_plain(gen, dtype, D, route):
+    """The standalone delta kernel of ``route`` against its plain version,
+    on strided views."""
     out = torch.randn(3, 70, 4, D, generator=gen, device="cuda").to(
         dtype).transpose(1, 2)
     dout = torch.randn(3, 70, 4, D, generator=gen, device="cuda").to(
         dtype).transpose(1, 2)
-    before = attention_delta.generic_launches
+    before = getattr(attention_delta, f"{route}_launches")
     got = attention_delta(dout, out)
-    assert attention_delta.generic_launches == before + 1
+    assert getattr(attention_delta, f"{route}_launches") == before + 1
     torch.testing.assert_close(got, attention_delta_reference(dout, out),
                                atol=1e-4, rtol=1e-4)
 
 
 def test_generic_kernels_fit_the_sm(gen):
-    """Each generic build (widths 32, 64, 128, 256), both dtypes, fits at
-    least one block an SM: at width 32 and 64 the forward three or more."""
+    """Each generic build (widths 32, 64, 128, 256), fp32, fits at least
+    one block an SM: at width 32 and 64 the forward three or more."""
     from bpx_torch.ops.flash_attention import GENERIC_WIDTHS, blocks_per_sm
-    for dtype in (torch.bfloat16, torch.float32):
-        for w in GENERIC_WIDTHS:
-            got = blocks_per_sm(w - 1, dtype)
-            assert min(got.values()) >= 1, (dtype, w, got)
-            if w <= 64:
-                assert got["forward"] >= 3, (dtype, w, got)
+    for w in GENERIC_WIDTHS:
+        got = blocks_per_sm(w - 1, torch.float32)
+        assert min(got.values()) >= 1, (w, got)
+        if w <= 64:
+            assert got["forward"] >= 3, (w, got)
+
+
+def test_panel_kernels_fit_the_sm(gen):
+    """Each panel build (widths 32, 64, 128, 192, 256) holds the forward
+    blocks an SM of the tabled kernel of its width (4 / 3 / 2 / 1 / 1: the
+    narrow kernel at D 30's, the wide at D 50's and 128's, the tall at
+    192's and 256's), and at least one block of each backward kernel."""
+    from bpx_torch.ops.flash_attention import PANEL_WIDTHS, blocks_per_sm
+    for w, fwd in zip(PANEL_WIDTHS, (4, 3, 2, 1, 1)):
+        got = blocks_per_sm(w - 1)
+        assert got["forward"] >= fwd and min(got.values()) >= 1, (w, got)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@ in fp32, against the JAX package.
 
 The JAX package's Pallas kernels take any raw head dim and keep their
 operands in the input dtype; on the card the port runs bf16 at the tabled
-head dims on the tabled kernels and everything else on the generic kernels
-of ``csrc/flash_generic.cu`` (``kernel_route``).  Here, on the CPU, the
+head dims on the tabled kernels, bf16 at every other head dim up to 256 on
+their panel builds, fp32 up to 256 on the generic kernels of
+``csrc/flash_generic.cu`` and both above 256 on the chunked ones
+(``kernel_route``).  Here, on the CPU, the
 port's wrappers compute their plain versions, held against bpx's Pallas
 kernels in interpret mode: the forward, its log-sum-exp and ``jax.vjp`` at
 head dims between and beyond the tabled ones (band, ``kv_lens`` with an
@@ -126,10 +128,10 @@ def test_generic_head_dims_in_bf16_match_pallas(D):
 
 
 @pytest.mark.parametrize("dtype,D,route", [
-    (torch.bfloat16, 1, "generic"), (torch.bfloat16, 24, "generic"),
-    (torch.bfloat16, 25, "tabled"), (torch.bfloat16, 26, "generic"),
-    (torch.bfloat16, 48, "generic"), (torch.bfloat16, 64, "tabled"),
-    (torch.bfloat16, 255, "generic"), (torch.bfloat16, 256, "tabled"),
+    (torch.bfloat16, 1, "panel"), (torch.bfloat16, 24, "panel"),
+    (torch.bfloat16, 25, "tabled"), (torch.bfloat16, 26, "panel"),
+    (torch.bfloat16, 48, "panel"), (torch.bfloat16, 64, "tabled"),
+    (torch.bfloat16, 255, "panel"), (torch.bfloat16, 256, "tabled"),
     (torch.float32, 1, "generic"), (torch.float32, 25, "generic"),
     (torch.float32, 64, "generic"), (torch.float32, 256, "generic"),
     (torch.bfloat16, 257, "chunked"), (torch.float32, 257, "chunked"),
@@ -139,13 +141,19 @@ def test_generic_head_dims_in_bf16_match_pallas(D):
 ])
 def test_kernel_route(dtype, D, route):
     """bf16 at a tabled head dim takes the tabled kernels; bf16 at any other
-    head dim from 1 to 256, and fp32 at every one, the generic kernels;
-    either dtype above 256, with no upper limit, the chunked kernels, whose
-    column chunks cover D with the last one partial."""
+    head dim from 1 to 256 their panel builds, at the panel width that
+    holds it; fp32 at every one the generic kernels; either dtype above
+    256, with no upper limit, the chunked kernels, whose column chunks
+    cover D with the last one partial."""
     assert tflash.kernel_route(dtype, D) == route
     assert (route == "tabled") == (dtype == torch.bfloat16
                                    and D in tflash.KERNEL_HEAD_DIMS)
     assert (route == "chunked") == (D > tflash.GENERIC_MAX_HEAD_DIM)
+    assert (route == "generic") == (dtype == torch.float32
+                                    and D <= tflash.GENERIC_MAX_HEAD_DIM)
+    if route == "panel":
+        w = tflash.panel_width(D)
+        assert w in tflash.PANEL_WIDTHS and D <= w
     if route == "generic":
         w = tflash.generic_width(D)
         assert w in tflash.GENERIC_WIDTHS and D <= w

@@ -6,6 +6,7 @@ import ast
 import dataclasses
 import json
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -237,24 +238,32 @@ def _global_kernels():
 @pytest.mark.parametrize("groups", [1, 2])
 def test_profiler_names_are_kernels_of_the_sources(groups):
     """Every kernel name ``chip_smoke.py`` looks for in the profiler (the
-    forward's and the backward's at each tabled head dim, on the generic
-    route at head dims of each of its builds' widths and on the chunked
+    forward's and the backward's at each tabled head dim, on the panel
+    route at bf16 head dims of each panel width, on the generic route
+    at fp32 head dims of each of its builds' widths and on the chunked
     route at head dims past 256, in bf16 and fp32, for one seed group and
     for several) is a ``__global__`` of ``bpx_torch/csrc``, so a renamed
     kernel cannot leave the card's checks looking for a name nothing
-    launches."""
+    launches; a panel build's names carry its build (``PANEL_CHUNKS`` or
+    ``PANEL_WORDS`` plus the panel width) and no other route's do."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    from bpx_torch.ops.flash_attention import KERNEL_ALIGN, kernel_route
+    from bpx_torch.ops.flash_attention import (KERNEL_ALIGN, PANEL_WIDTHS,
+                                               kernel_route, panel_width)
     kernels = _global_kernels()
     assert {"flash_fwd_kernel", "flash_fwd_tall_kernel",
             "flash_delta_kernel", "flash_generic_fwd_kernel",
             "flash_generic_dq_kernel", "flash_generic_dkdv_kernel",
             "flash_generic_delta_kernel", "flash_chunked_fwd_kernel",
             "flash_chunked_dq_kernel", "flash_chunked_dkdv_kernel",
-            "flash_chunked_delta_kernel"} <= kernels
+            "flash_chunked_delta_kernel", "flash_panel_delta_kernel",
+            "flash_fwd_narrow_kernel", "flash_fwd_wide_kernel",
+            "flash_bwd_narrow_dq_kernel", "flash_bwd_wide_dkdv_kernel",
+            "flash_bwd_keysplit_dq_kernel",
+            "flash_bwd_rowsplit_dkdv_kernel"} <= kernels
     cases = [(d, None) for d in KERNEL_ALIGN]
-    cases += [(d, dt) for d in (1, 16, 48, 80, 160, 256, 257, 384, 1536)
+    cases += [(d, dt) for d in (1, 16, 33, 48, 80, 160, 200, 255, 256, 257,
+                                384, 1536)
               for dt in (torch.bfloat16, torch.float32)
               if not (dt == torch.bfloat16 and d in KERNEL_ALIGN)]
     for d, dt in cases:
@@ -265,5 +274,44 @@ def test_profiler_names_are_kernels_of_the_sources(groups):
         for other in ("generic", "chunked"):
             assert all((other in n) == (route == other) for n in names), (
                 d, names)
+        builds = {chip_smoke.PANEL_CHUNKS + w for w in PANEL_WIDTHS} | {
+            chip_smoke.PANEL_WORDS + w for w in PANEL_WIDTHS}
+        args = [re.search(r"<(\d+)", n) for n in names]
+        assert all((a is not None and int(a.group(1)) in builds)
+                   == (route == "panel") for a in args), (d, names)
+        if route == "panel":
+            w = panel_width(d)
+            assert all(int(a.group(1)) % 1000 == w for a in args), (d, names)
         for name in names:
             assert name.split("<")[0] in kernels, (d, name)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_document(path):
+    """No module of the port, script or ``chip_smoke.py`` names a Markdown
+    file as a path: a checkout that holds the program without the
+    documents must run the same (what a run must hold to lives in code)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    named = [node.value for node in ast.walk(tree)
+             if isinstance(node, ast.Constant) and isinstance(node.value, str)
+             and re.fullmatch(r"[\w./-]+\.md", node.value)]
+    assert not named, f"{path.name} names {named}"
+
+
+def test_ptxas_record_names_kernels_of_the_sources():
+    """Every kernel of ``chip_smoke.PTXAS_RECORD`` is a template instance of
+    a ``__global__`` of ``bpx_torch/csrc`` at a tabled head dim, an fp32
+    generic width or a chunked dtype (no panel build), with a register
+    count a thread can hold and spills in whole words."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    kernels = _global_kernels()
+    assert chip_smoke.PTXAS_RECORD and re.fullmatch(
+        r"\d+\.\d+", chip_smoke.PTXAS_RELEASE)
+    for name, (regs, stores, loads) in chip_smoke.PTXAS_RECORD.items():
+        m = re.fullmatch(r"(\w+)<([^<>]+)>", name)
+        assert m and m.group(1) in kernels, name
+        args = [a.strip() for a in m.group(2).split(",")]
+        assert not (args[0].isdigit() and int(args[0]) >= 1000), name
+        assert 0 < regs <= 255 and stores % 4 == 0 and loads % 4 == 0, name
